@@ -1,0 +1,405 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`miseg_tpu_torch`) on one NVIDIA card.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases, one result line each; any failed check exits non-zero:
+  1. device  — torch/CUDA versions, the card's name and power limit, and
+               the kernels' build (nvcc for K5, Triton for K1/K2);
+  2. kernels — K1, K2 and K5 against their plain PyTorch versions on the
+               card, in bf16 and f32, at the shapes of the 96^3 flagship,
+               with CUDA-event times of kernel, plain version and a library
+               yardstick the port never calls, beside each kernel's bound;
+  3. model   — one full-width (feature_size 48, heads 3) window in f32,
+               card against CPU;
+  4. serve   — a full-width C-Swin-UNETR bundle (seeded random weights,
+               bf16, 96^3 ROI, gaussian blend, overlap 0.5) answers
+               volume requests through `load_bundle(...).predict`; the
+               kernels' launch counters must rise by the per-window counts.
+Then one JSON line of kernels, the card line, and the ok line last.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+os.environ.setdefault("TRITON_CACHE_DIR",
+                      str(ROOT / "miseg_tpu_torch/ops/kernels/_build/triton"))
+
+# one 96^3 window of the flagship: 46 Norm calls (16 swin-block, 4 patch
+# merging, 11 encoder, 15 decoder) + 5 parameter-free proj_out norms, each
+# one K1 run and one K2 launch; one K5 launch per swin block (4 stages x 2)
+PER_WINDOW = {"K1": 51, "K2": 51, "K5": 8}
+FLAGSHIP = dict(model_name="swin_unetr", out_channels=6, feature_size=[48],
+                num_heads=3, depth_swin_block=[2], roi_x=96, roi_y=96,
+                roi_z=96, encoder_norm_name="instance_cond",
+                vit_norm_name="instance_cond", decoder_norm_name="instance",
+                infer_overlap=0.5, sw_batch_size=1)
+# (memory B/s, dense bf16 FLOP/s) from NVIDIA's data sheets
+PEAKS = {"PCIe": (2.0e12, 756e12), "NVL": (3.9e12, 835e12),
+         "SXM": (3.35e12, 989e12)}
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SystemExit(f"FAIL: {msg}")
+
+
+def card_peaks(name: str) -> tuple[float, float, str]:
+    for key in ("PCIe", "NVL"):
+        if key in name:
+            return (*PEAKS[key], f"H100 {key}")
+    return (*PEAKS["SXM"], "H100 SXM")
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median CUDA-event time of `fn` in ms."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def tolerance(ref: torch.Tensor, dtype) -> float:
+    """f32: 1e-5 relative to the output's scale (summation order, FMA);
+    bf16: one bf16 ulp of the largest output (one rounding of f32 values
+    that may differ in the last bit)."""
+    scale = float(ref.abs().max())
+    return scale * 2.0 ** -7 + 1e-6 if dtype == torch.bfloat16 else 1e-5 * (1.0 + scale)
+
+
+def phase_device():
+    from miseg_tpu_torch.ops.kernels import build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    card = smi.splitlines()[0]
+    t0 = time.perf_counter()
+    build.build_all()
+    build_s = time.perf_counter() - t0
+    for name, log in build.build_log.items():
+        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        print(f"  nvcc {name}: " + " | ".join(regs))
+    print(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
+          f"card '{card}' count {torch.cuda.device_count()} "
+          f"nvcc build {build_s:.2f} s")
+    return card
+
+
+def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
+    import torch.nn.functional as F
+
+    from miseg_tpu_torch.ops.kernels import fused_norm as fn
+    from miseg_tpu_torch.ops.kernels import window_attention as wa
+    from miseg_tpu_torch.ops.window import window_region_ids
+
+    gen = torch.Generator().manual_seed(0)
+    rows = {}
+    t0 = time.perf_counter()
+    # ---- K1 / K2 at main-path norm shapes -------------------------------
+    for shape in [(1, 96 ** 3, 48), (1, 48 ** 3, 48), (1, 27, 3072)]:
+        b, s, c = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, dtype)
+            add = torch.randn(shape, generator=gen).to(dev, dtype)
+            gamma = (1 + 0.2 * torch.randn((2, c), generator=gen)).to(dev, dtype)
+            beta = (0.2 * torch.randn((2, c), generator=gen)).to(dev, dtype)
+            styles = torch.tensor([1], dtype=torch.int32, device=dev)
+            scale, shift = fn.channel_scale_shift(x, gamma, beta, styles)
+            rs, rh = fn.channel_scale_shift_plain(x, gamma, beta, styles)
+            e1 = max(max_err(scale, rs) / (1 + float(rs.abs().max())),
+                     max_err(shift, rh) / (1 + float(rh.abs().max())))
+            check(e1 <= 1e-5, f"K1 {shape} {dtype}: relative error {e1:.2e} > 1e-5")
+            errs = []
+            for a in (None, add):
+                y = fn.apply_scale_shift(x, rs, rh, a, negative_slope=0.01)
+                ref = fn.apply_scale_shift_plain(x, rs, rh, a, negative_slope=0.01)
+                e2, tol = max_err(y, ref), tolerance(ref, dtype)
+                check(e2 <= tol, f"K2 {shape} {dtype} add={a is not None}: "
+                                 f"{e2:.3e} > {tol:.3e}")
+                errs.append((e2, tol))
+            line = (f"  K1/K2 {list(shape)} {str(dtype)[6:]}: K1 rel err {e1:.2e} "
+                    f"(tol 1e-05), K2 err {errs[0][0]:.3e} (tol {errs[0][1]:.3e}), "
+                    f"K2+add err {errs[1][0]:.3e} (tol {errs[1][1]:.3e})")
+            if dtype == torch.bfloat16:
+                nbytes = x.numel() * x.element_size()
+                k1 = time_ms(lambda: fn.channel_scale_shift(x, gamma, beta, styles))
+                k1_plain = time_ms(lambda: fn.channel_scale_shift_plain(x, gamma, beta, styles))
+                k1_lib = time_ms(lambda: torch.var_mean(x, dim=1, correction=0))
+                k2 = time_ms(lambda: fn.apply_scale_shift(x, rs, rh, None, negative_slope=0.01))
+                k2a = time_ms(lambda: fn.apply_scale_shift(x, rs, rh, add, negative_slope=0.01))
+                k2_plain = time_ms(lambda: fn.apply_scale_shift_plain(
+                    x, rs, rh, None, negative_slope=0.01))
+                side = round(s ** (1 / 3))   # every shape here is a cube
+                xcf = x.reshape(b, side, side, side, c).permute(0, 4, 1, 2, 3)
+                inorm = time_ms(lambda: F.instance_norm(xcf))
+                b1, b2, b2a = (nbytes / mem_bw * 1e3, 2 * nbytes / mem_bw * 1e3,
+                               3 * nbytes / mem_bw * 1e3)
+                line += (f"\n    times ms: K1 {k1:.4f} (bound {b1:.4f}, plain {k1_plain:.4f}, "
+                         f"torch.var_mean {k1_lib:.4f}); K2 {k2:.4f} (bound {b2:.4f}, "
+                         f"plain {k2_plain:.4f}); K2+add {k2a:.4f} (bound {b2a:.4f}); "
+                         f"K1+K2 {k1 + k2:.4f} vs F.instance_norm {inorm:.4f}")
+                if shape == (1, 96 ** 3, 48):
+                    rows["K1"] = dict(ms=k1, plain_ms=k1_plain, bound_ms=b1,
+                                      bound_by="bytes", library_ms=k1_lib,
+                                      max_abs_err=max(max_err(scale, rs), max_err(shift, rh)))
+                    rows["K2"] = dict(ms=k2, plain_ms=k2_plain, bound_ms=b2,
+                                      bound_by="bytes", library_ms=None,
+                                      max_abs_err=errs[0][0])
+            print(line)
+    # ---- K5 at the four swin stages of a 96^3 window -------------------
+    stages = [  # (window batch, N, channels, heads, padded dims for ids)
+        (343, 343, 48, 3, (49, 49, 49)),
+        (64, 343, 96, 6, (28, 28, 28)),
+        (8, 343, 192, 12, (14, 14, 14)),
+        (1, 216, 384, 24, None),       # clipped 6^3 window, unshifted
+    ]
+    for stage, (bw, n, c, heads, padded) in enumerate(stages, start=1):
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv = torch.randn((bw, n, 3 * c), generator=gen).to(dev, dtype)
+            q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+            bias = torch.randn((heads, n, n), generator=gen).to(dev)
+            if padded is not None:
+                real_ids = window_region_ids(padded, (7, 7, 7), (3, 3, 3), device=dev)
+            else:  # stage 4 is never shifted; random regions still test the mask
+                real_ids = torch.randint(0, 3, (bw, n), generator=gen,
+                                         dtype=torch.int32).to(dev)
+            line = f"  K5 stage {stage} [{bw},{n},{c}] h{heads} {str(dtype)[6:]}:"
+            errs = {}
+            for ids in (None, real_ids):
+                out = wa.window_attention(q, k, v, bias, ids, num_heads=heads)
+                ref = wa.window_attention_plain(q, k, v, bias, ids, num_heads=heads)
+                e, tol = max_err(out, ref), tolerance(ref, dtype)
+                check(e <= tol, f"K5 stage {stage} {dtype} ids={ids is not None}: "
+                                f"{e:.3e} > {tol:.3e}")
+                errs[ids is not None] = e
+                line += f" {'ids' if ids is not None else 'no ids'} err {e:.3e} (tol {tol:.3e});"
+            if dtype == torch.bfloat16:
+                ids = real_ids if padded is not None else None
+                hd = c // heads
+                k5 = time_ms(lambda: wa.window_attention(q, k, v, bias, ids, num_heads=heads))
+                plain = time_ms(lambda: wa.window_attention_plain(
+                    q, k, v, bias, ids, num_heads=heads), reps=5)
+                mask = bias[None].to(dtype)
+                if ids is not None:
+                    neq = (ids[:, None, :] != ids[:, :, None]).to(dtype) * -100.0
+                    mask = (bias[None] + neq[:, None]).to(dtype)
+                qh, kh, vh = (t.view(bw, n, heads, hd).transpose(1, 2) for t in (q, k, v))
+                sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask))
+                nbytes = (4 * bw * n * c * 2 + bias.numel() * 4
+                          + (ids.numel() * 4 if ids is not None else 0))
+                flops = 4 * bw * heads * n * n * hd
+                bound = max(nbytes / mem_bw, flops / bf16_flops) * 1e3
+                by = "bytes" if nbytes / mem_bw >= flops / bf16_flops else "operations"
+                line += (f"\n    times ms: K5 {k5:.4f} (bound {bound:.4f} by {by}: "
+                         f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), plain {plain:.4f}, "
+                         f"F.scaled_dot_product_attention {sdpa:.4f}")
+                if stage == 1:
+                    rows["K5"] = dict(ms=k5, plain_ms=plain, bound_ms=bound, bound_by=by,
+                                      library_ms=sdpa, max_abs_err=errs[ids is not None])
+            print(line)
+    torch.cuda.synchronize()
+    print(f"kernels: K1, K2, K5 match their plain versions at main-path shapes "
+          f"in bf16 and f32 ({time.perf_counter() - t0:.1f} s)")
+    return rows
+
+
+def phase_model(dev):
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.models import model_from_config
+
+    size = 64
+    cfg = Config(**{**FLAGSHIP, "roi_x": size, "roi_y": size, "roi_z": size})
+    cpu = model_from_config(cfg, device="cpu")
+    card = model_from_config(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((1, size, size, size, 1), generator=gen)
+    mods = torch.tensor([1], dtype=torch.int32)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = cpu(x, mods)
+        cpu_s = time.perf_counter() - t0
+        got = card(x.to(dev), mods.to(dev)).cpu()
+    err = max_err(got, want)
+    tol = 1e-4 * (1.0 + float(want.abs().max()))
+    check(torch.isfinite(got).all().item(), "model: non-finite logits on the card")
+    check(err <= tol, f"model: card vs CPU {err:.3e} > {tol:.3e}")
+    print(f"model: fs48 heads 3, one {size}^3 window, f32 (TF32 off): card vs CPU "
+          f"max |diff| {err:.3e} (tol {tol:.3e}, |logits| <= {float(want.abs().max()):.3f}); "
+          f"CPU forward {cpu_s:.1f} s")
+
+
+def phase_serve(dev) -> dict:
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.inferers import window_starts
+    from miseg_tpu_torch.models import model_from_config
+    from miseg_tpu_torch.ops.kernels import fused_norm as fn
+    from miseg_tpu_torch.ops.kernels import window_attention as wa
+    from miseg_tpu_torch.serve import load_bundle, save_bundle
+
+    cfg = Config(**FLAGSHIP)
+    gen = torch.Generator().manual_seed(2)
+    with tempfile.TemporaryDirectory() as tmp:
+        model = model_from_config(cfg, device=dev)
+        save_bundle(cfg, model.state_dict(), tmp)
+        del model
+        served = load_bundle(tmp)
+    check(served.compute_dtype == torch.bfloat16, "serve: bundle is not bf16")
+    vol_a = torch.rand((1, 224, 224, 224, 1), generator=gen)
+    vol_b = torch.rand((1, 160, 192, 128, 1), generator=gen)
+    requests = [("224^3 modality 0", vol_a, 0), ("224^3 modality 1", vol_a, 1),
+                ("160x192x128 modality 0", vol_b, 0), ("224^3 modality 0 repeat", vol_a, 0)]
+    totals = {"K1": 0, "K2": 0, "K5": 0}
+    outs = []
+    for label, vol, mod in requests:
+        windows = len(window_starts(vol.shape[1:-1], cfg.roi, cfg.infer_overlap)[1])
+        torch.cuda.synchronize()
+        fn.stats_launches = fn.apply_launches = wa.launches = 0
+        t0 = time.perf_counter()
+        out = served.predict(vol, [mod])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = {"K1": fn.stats_launches, "K2": fn.apply_launches, "K5": wa.launches}
+        check(tuple(out.shape) == (*vol.shape[:-1], cfg.out_channels),
+              f"serve {label}: shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"serve {label}: non-finite logits")
+        for k, per in PER_WINDOW.items():
+            check(counts[k] == per * windows,
+                  f"serve {label}: {k} launched {counts[k]} times, want {per} x {windows}")
+            totals[k] += counts[k]
+        outs.append(out)
+        print(f"  request {label}: {windows} windows, {sec:.3f} s, "
+              f"{windows / sec:.2f} windows/s, launches {counts}, "
+              f"|logits| <= {float(out.abs().max()):.3f}")
+    rep = max_err(outs[3], outs[0])
+    rep_tol = 1e-3 * (1.0 + float(outs[0].abs().max()))
+    check(rep <= rep_tol, f"serve: repeated request differs by {rep:.3e} > {rep_tol:.3e}")
+    print(f"serve: {len(requests)} full-width bf16 requests answered; repeat "
+          f"max |diff| {rep:.3e} (tol {rep_tol:.3e}); launches per window {PER_WINDOW}")
+    profile_window(served, dev)
+    return totals
+
+
+# kernel-name substrings -> group, first match wins
+_GROUPS = [("K1", ("miseg_k1_",)), ("K2", ("miseg_k2_",)),
+           ("K5", ("window_attention_kernel",)),
+           ("conv (cuDNN)", ("conv", "xmma", "implicit", "cudnn", "fprop", "dgrad")),
+           ("linear (GEMM)", ("gemm", "cutlass", "gemv")),
+           ("copy/pad/cat/roll", ("copy", "cat", "pad", "roll", "index", "gather"))]
+
+
+def profile_window(served, dev, reps: int = 3) -> None:
+    """Where one 96^3 window's time goes: device time by kernel group over
+    `reps` window forwards under torch.profiler, and the device idle share
+    of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(3)
+    window = torch.rand((1, 96, 96, 96, 1), generator=gen).to(dev)
+    mods = torch.tensor([0], dtype=torch.int32, device=dev)
+    served(window, mods)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        served(window, mods)
+    end.record()
+    end.synchronize()
+    event_ms = start.elapsed_time(end) / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            served(window, mods)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print(f"profile: window {event_ms:.2f} ms (CUDA events); kernel times not "
+              f"measured (the profiler recorded no device events)")
+        return
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    groups: dict[str, float] = {}
+    for name, ms in by_name.items():
+        low = name.lower()
+        group = next((g for g, keys in _GROUPS if any(k in low for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    busy = sum(groups.values())
+    print(f"profile: one 96^3 window, bf16, {reps} reps: {event_ms:.2f} ms by CUDA events; "
+          f"under the profiler {wall_ms:.2f} ms wall, {busy:.2f} ms device busy "
+          f"(idle share {max(0.0, 1 - busy / wall_ms):.1%}), {len(kernels) // reps} kernels")
+    print("  by group ms/window: " + ", ".join(
+        f"{g} {ms:.3f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:8.3f} ms  {name[:110]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false; chip_smoke.py needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    # every f32 comparison is against full-precision f32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = phase_device()
+    mem_bw, bf16_flops, peak_name = card_peaks(card)
+    print(f"  bounds use {peak_name} peaks: {mem_bw / 1e12:.2f} TB/s, "
+          f"{bf16_flops / 1e12:.0f} TFLOP/s bf16")
+    rows = phase_kernels(dev, mem_bw, bf16_flops)
+    phase_model(dev)
+    launches = phase_serve(dev)
+    meta = {
+        "K1": ("fused_norm.channel_scale_shift", "triton",
+               "miseg_tpu_torch/ops/kernels/fused_norm.py",
+               "miseg_tpu/ops/pallas/fused_norm.py:78"),
+        "K2": ("fused_norm.apply_scale_shift", "triton",
+               "miseg_tpu_torch/ops/kernels/fused_norm.py",
+               "miseg_tpu/ops/pallas/fused_norm.py:90"),
+        "K5": ("window_attention.window_attention", "cuda",
+               "miseg_tpu_torch/ops/kernels/csrc/window_attention.cu",
+               "miseg_tpu/ops/pallas/window_attention.py:64"),
+    }
+    kernels = []
+    for key, (name, route, source, replaces) in meta.items():
+        check(launches[key] > 0, f"{key} was never launched on the main path")
+        kernels.append({"name": f"{key} {name}", "route": route, "source": source,
+                        "replaces": replaces, "launches": launches[key], **rows[key]})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,153 @@
+"""Sliding-window inference with overlap blending (counterpart of
+`miseg_tpu/inferers.py:42-79,287-462`).
+
+Tiles a volume into fixed ROIs on a regular grid
+(`scan_interval = roi * (1 - overlap)`), predicts window groups of
+`sw_batch_size`, blends with a constant or gaussian importance map, and
+normalizes by the summed importance.  Windows accumulate in place on the
+device in a Python loop over window groups: the same math as the JAX
+package's static cell-grid overlap-add, summed in another order.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from .utils.platform import resolve_device
+
+
+def scan_interval(roi_size: Sequence[int], overlap: float) -> tuple[int, ...]:
+    """MONAI's per-dim scan interval: int(roi * (1 - overlap)), min 1."""
+    return tuple(max(1, int(r * (1.0 - overlap))) for r in roi_size)
+
+
+def dense_patch_starts(image_size: Sequence[int], roi_size: Sequence[int],
+                       interval: Sequence[int]) -> np.ndarray:
+    """Grid of window start corners `[N, nd]` (MONAI dense_patch_slices)."""
+    per_dim = []
+    for size, roi, step in zip(image_size, roi_size, interval):
+        if size <= roi:
+            per_dim.append([0])
+            continue
+        n = int(math.ceil((size - roi) / step)) + 1
+        starts = [min(i * step, size - roi) for i in range(n)]
+        per_dim.append(list(dict.fromkeys(starts)))  # dedupe, keep order
+    return np.array(list(itertools.product(*per_dim)), dtype=np.int32)
+
+
+def gaussian_importance(roi_size: Sequence[int], sigma_scale: float = 0.125) -> np.ndarray:
+    """Gaussian blend map centered on the ROI."""
+    grids = np.meshgrid(*[np.arange(r, dtype=np.float64) for r in roi_size],
+                        indexing="ij")
+    out = np.zeros(tuple(roi_size), dtype=np.float64)
+    for g, r in zip(grids, roi_size):
+        sigma = max(r * sigma_scale, 1e-3)
+        center = (r - 1) / 2.0
+        out = out + (-0.5 * ((g - center) / sigma) ** 2)
+    out = np.exp(out)
+    out = out / out.max()
+    return np.maximum(out, out.max() * 1e-3).astype(np.float32)
+
+
+def _pad_to_grid(spatial: Sequence[int], roi_size: Sequence[int],
+                 interval: Sequence[int]) -> tuple[int, ...]:
+    """Smallest padded size >= max(spatial, roi) with (size - roi) % step == 0."""
+    out = []
+    for s, r, st in zip(spatial, roi_size, interval):
+        s = max(s, r)
+        rem = (s - r) % st
+        out.append(s if rem == 0 else s + (st - rem))
+    return tuple(out)
+
+
+def window_starts(spatial: Sequence[int], roi_size: Sequence[int],
+                  overlap: float) -> tuple[tuple[int, ...], np.ndarray]:
+    """(padded shape, window start corners `[N, nd]`) that the inferer
+    uses for a volume of `spatial` size."""
+    interval = scan_interval(roi_size, overlap)
+    padded = _pad_to_grid(spatial, roi_size, interval)
+    return padded, dense_patch_starts(padded, roi_size, interval)
+
+
+class SlidingWindowInferer:
+    """`predict_fn(windows [k*B, *roi, Cin], modalities int[k*B] | None)
+    -> logits [k*B, *roi, out_channels]`; windows are ordered window-major,
+    batch-minor, and the modality vector is tiled to match."""
+
+    def __init__(self, predict_fn: Callable, roi_size: Sequence[int],
+                 sw_batch_size: int = 1, overlap: float = 0.5,
+                 mode: str = "constant", sigma_scale: float = 0.125,
+                 out_channels: int | None = None, device=None):
+        if mode not in ("constant", "gaussian"):
+            raise ValueError(f"unknown blend mode {mode!r}")
+        if out_channels is None:
+            raise ValueError("out_channels must be set on SlidingWindowInferer")
+        self.predict_fn = predict_fn
+        self.roi_size = tuple(int(r) for r in roi_size)
+        self.sw_batch_size = int(sw_batch_size)
+        self.overlap = float(overlap)
+        self.mode = mode
+        self.sigma_scale = float(sigma_scale)
+        self.out_channels = int(out_channels)
+        self.device = resolve_device(device)
+        self._tables: dict = {}  # padded shape -> (starts, importance, count)
+
+    def _importance(self) -> np.ndarray:
+        if self.mode == "constant":
+            return np.ones(self.roi_size, np.float32)
+        return gaussian_importance(self.roi_size, self.sigma_scale)
+
+    def _overlap_count(self, padded, starts, imp) -> np.ndarray:
+        """Host-precomputed blend normalizer over the padded volume."""
+        cnt = np.zeros(padded, np.float64)
+        for s in starts:
+            cnt[tuple(slice(a, a + r) for a, r in zip(s, self.roi_size))] += imp
+        cnt[cnt == 0] = 1.0
+        return cnt.astype(np.float32)
+
+    def _blend_tables(self, spatial):
+        padded, starts = window_starts(spatial, self.roi_size, self.overlap)
+        if padded not in self._tables:
+            imp = self._importance()
+            count = self._overlap_count(padded, starts, imp)
+            self._tables[padded] = (
+                starts, torch.from_numpy(imp).to(self.device)[..., None],
+                torch.from_numpy(count).to(self.device)[..., None])
+        return padded, *self._tables[padded]
+
+    @torch.inference_mode()
+    def __call__(self, inputs: torch.Tensor, modalities: torch.Tensor | None = None):
+        """`inputs [B, *spatial, C]` -> f32 blended logits
+        `[B, *spatial, out_channels]` on the inferer's device."""
+        roi = self.roi_size
+        x = torch.as_tensor(inputs, device=self.device)
+        b, *spatial, _ = x.shape
+        padded, starts, imp, count = self._blend_tables(tuple(spatial))
+        lo = [(p - s) // 2 for s, p in zip(spatial, padded)]  # symmetric pad
+        hi = [p - s - l for s, p, l in zip(spatial, padded, lo)]
+        if any(lo) or any(hi):
+            x = torch.nn.functional.pad(
+                x, (0, 0, lo[2], hi[2], lo[1], hi[1], lo[0], hi[0]))
+        if modalities is not None:
+            modalities = torch.as_tensor(modalities, device=self.device)
+        acc = torch.zeros((b, *padded, self.out_channels), dtype=torch.float32,
+                          device=self.device)
+        k = self.sw_batch_size
+        for g in range(0, len(starts), k):
+            group = starts[g:g + k]
+            sl = [tuple(slice(int(a), int(a) + r) for a, r in zip(s, roi))
+                  for s in group]
+            windows = torch.cat([x[(slice(None), *w)] for w in sl], dim=0)
+            mods = modalities.repeat(len(group)) if modalities is not None else None
+            logits = self.predict_fn(windows, mods).float()
+            logits = logits.reshape(len(group), b, *roi, self.out_channels)
+            for i, w in enumerate(sl):
+                acc[(slice(None), *w)] += logits[i] * imp
+        out = acc.div_(count)
+        crop = tuple(slice(l, l + s) for l, s in zip(lo, spatial))
+        return out[(slice(None), *crop)]

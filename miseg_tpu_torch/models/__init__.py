@@ -1,0 +1,3 @@
+from .factory import model_from_config  # noqa: F401
+from .swin_transformer import BasicLayer, SwinTransformer  # noqa: F401
+from .swin_unetr import SwinUNETR  # noqa: F401

@@ -1,0 +1,69 @@
+"""Model factory: `Config` -> `nn.Module` (counterpart of
+`miseg_tpu/models/factory.py:27-36,77-94`, the `swin_unetr` branch)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..config import Config
+from ..ops.init import init_linear
+from ..ops.norms import parse_normalization
+from ..utils.platform import resolve_device
+from .swin_unetr import SwinUNETR
+
+MODEL_NAMES = ("swin_unetr",)
+
+
+def _norm_specs(cfg: Config):
+    vit = parse_normalization(cfg.vit_norm_name, affine=not cfg.vit_norm_no_affine,
+                              num_styles=cfg.num_styles)
+    enc = parse_normalization(cfg.encoder_norm_name,
+                              affine=not cfg.encoder_norm_no_affine,
+                              num_styles=cfg.num_styles)
+    dec = parse_normalization(cfg.decoder_norm_name,
+                              affine=not cfg.decoder_norm_no_affine,
+                              num_styles=cfg.num_styles)
+    return vit, enc, dec
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """flax's default initializers, drawn from `generator` in module order:
+    lecun-normal kernels, zero biases, unit norm scales, N(0, 0.02)
+    truncated rel-pos tables."""
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            init_linear(m, generator)
+        elif hasattr(m, "init_parameters"):
+            m.init_parameters(generator)
+
+
+def model_from_config(cfg: Config, *, device=None, dtype=torch.float32,
+                      generator: torch.Generator | None = None) -> nn.Module:
+    """Build and initialise `cfg`'s model on `device` (the CUDA card unless
+    given).  Weights come from `generator`, by default one seeded with
+    `cfg.seed`; a state dict can then replace them."""
+    device = resolve_device(device)
+    vit_norm, encoder_norm, decoder_norm = _norm_specs(cfg)
+    if cfg.model_name not in MODEL_NAMES:
+        raise ValueError(f"model {cfg.model_name!r} is not ported yet; "
+                         f"the port builds {MODEL_NAMES}")
+    if len(cfg.depth_swin_block) == 1:
+        depths = (cfg.depth_swin_block[0],) * 4
+    elif len(cfg.depth_swin_block) == 4:
+        depths = tuple(cfg.depth_swin_block)
+    else:
+        raise ValueError("The length of depth_swin_block should be 4")
+    num_heads = tuple(2 ** i * cfg.num_heads for i in range(4))
+    model = SwinUNETR(
+        img_size=cfg.roi, in_channels=cfg.in_channels,
+        out_channels=cfg.out_channels, depths=depths, num_heads=num_heads,
+        feature_size=cfg.feature_size_scalar,
+        normalize=not cfg.no_normalize_swin, downsample=cfg.downsample,
+        vit_norm=vit_norm, encoder_norm=encoder_norm,
+        decoder_norm=decoder_norm, device=device, dtype=dtype)
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    init_weights(model, generator)
+    return model.eval()

@@ -1,0 +1,108 @@
+"""Swin Transformer backbone, 3-D (counterpart of
+`miseg_tpu/models/swin_transformer.py:39-140`).
+
+Patch embed (stride = patch size) -> 4 stages of `depth` blocks with
+alternating shift, each followed by patch merging; `proj_out`
+re-normalizes every pyramid level with a PARAMETER-FREE norm.  For the
+instance kinds that norm runs through K1 + K2, the same function the JAX
+package computes in plain jnp.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Sequence
+
+from torch import nn
+
+from ..nn.swin import PatchEmbed, PatchMergingV2, SwinTransformerBlock
+from ..ops.kernels.fused_norm import instance_norm_act
+from ..ops.norms import layer_norm
+from ..ops.window import get_window_size, window_region_ids
+
+NormSpec = tuple[str, dict[str, Any]] | str
+
+
+def _kind(norm: NormSpec) -> str:
+    return norm if isinstance(norm, str) else norm[0]
+
+
+class BasicLayer(nn.Module):
+    """One swin stage: blocks with alternating shift + optional downsample."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int,
+                 window_size: Sequence[int], mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, downsample: str | None = None,
+                 norm: NormSpec = ("layer", {}), *, device=None, dtype=None):
+        super().__init__()
+        self.window_size = tuple(window_size)
+        self.depth = depth
+        shift = tuple(w // 2 for w in self.window_size)
+        no_shift = (0,) * len(self.window_size)
+        for i in range(depth):
+            self.add_module(f"blocks_{i}", SwinTransformerBlock(
+                dim, num_heads, self.window_size,
+                no_shift if i % 2 == 0 else shift, mlp_ratio, qkv_bias,
+                norm=norm, device=device, dtype=dtype))
+        self.downsample = (PatchMergingV2(dim, norm, legacy=downsample == "merging",
+                                          device=device, dtype=dtype)
+                           if downsample is not None else None)
+        self._ids: dict = {}  # region ids per (padded dims, device)
+
+    def _region_ids(self, padded, window_size, shift_size, device):
+        key = (padded, window_size, shift_size, str(device))
+        if key not in self._ids:
+            self._ids[key] = window_region_ids(padded, window_size, shift_size,
+                                               device=device)
+        return self._ids[key]
+
+    def forward(self, x, modalities=None):
+        spatial = tuple(x.shape[1:-1])
+        window_size, shift_size = get_window_size(
+            spatial, self.window_size, tuple(w // 2 for w in self.window_size))
+        padded = tuple(int(math.ceil(s / w)) * w for s, w in zip(spatial, window_size))
+        ids = self._region_ids(padded, window_size, shift_size, x.device)
+        for i in range(self.depth):
+            blk = getattr(self, f"blocks_{i}")
+            x = blk(x, ids if i % 2 else None, modalities)
+        if self.downsample is not None:
+            x = self.downsample(x, modalities)
+        return x
+
+
+class SwinTransformer(nn.Module):
+    def __init__(self, in_chans: int, embed_dim: int, window_size: Sequence[int],
+                 patch_size: Sequence[int], depths: Sequence[int] = (2, 2, 2, 2),
+                 num_heads: Sequence[int] = (3, 6, 12, 24), mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, patch_norm: bool = False,
+                 downsample: str = "merging", norm: NormSpec = ("layer", {}),
+                 *, device=None, dtype=None):
+        super().__init__()
+        self.norm_kind = _kind(norm)
+        self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim,
+                                      norm if patch_norm else None,
+                                      device=device, dtype=dtype)
+        self.num_layers = len(depths)
+        for i in range(self.num_layers):
+            self.add_module(f"layers{i + 1}", BasicLayer(
+                int(embed_dim * 2 ** i), depths[i], num_heads[i], window_size,
+                mlp_ratio, qkv_bias, downsample, norm, device=device, dtype=dtype))
+
+    def _proj_out(self, x, normalize: bool):
+        """Parameter-free per-stage re-normalization."""
+        if not normalize:
+            return x
+        if self.norm_kind == "layer":
+            return layer_norm(x)
+        if self.norm_kind in ("instance", "instance_cond"):
+            return instance_norm_act(x)
+        return x
+
+    def forward(self, x, normalize: bool = True, modalities=None):
+        x0 = self.patch_embed(x, modalities)
+        outs = [self._proj_out(x0, normalize)]
+        h = x0
+        for i in range(self.num_layers):
+            h = getattr(self, f"layers{i + 1}")(h, modalities)
+            outs.append(self._proj_out(h, normalize))
+        return outs

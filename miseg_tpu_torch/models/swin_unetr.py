@@ -1,0 +1,76 @@
+"""Swin-UNETR: hierarchical swin backbone + UNETR-style conv decoder
+(counterpart of `miseg_tpu/models/swin_unetr.py:31-118`).  "C-Swin-UNETR"
+is this model with `instance_cond` encoder and ViT norms."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+from torch import nn
+
+from ..nn.dynunet import UnetOutBlock
+from ..nn.unetr_blocks import UnetrBasicBlock, UnetrUpBlock
+from .swin_transformer import NormSpec, SwinTransformer, _kind
+
+
+class SwinUNETR(nn.Module):
+    def __init__(self, img_size: Sequence[int], in_channels: int,
+                 out_channels: int, depths: Sequence[int] = (2, 2, 2, 2),
+                 num_heads: Sequence[int] = (3, 6, 12, 24),
+                 feature_size: int = 24, normalize: bool = True,
+                 downsample: str = "merging",
+                 vit_norm: NormSpec = ("layer", {}),
+                 decoder_norm: NormSpec = ("instance", {}),
+                 encoder_norm: NormSpec = ("instance", {}), *, device=None,
+                 dtype=None):
+        super().__init__()
+        if len(img_size) != 3:
+            raise ValueError("the port builds 3-D Swin-UNETR only")
+        if any(m % 32 for m in img_size):
+            raise ValueError("input image size (img_size) should be divisible "
+                             "by stage-wise image resolution.")
+        if feature_size % 12:
+            raise ValueError("feature_size should be divisible by 12.")
+        if "layer" in (_kind(decoder_norm), _kind(encoder_norm)):
+            raise ValueError("Layer normalization not supported for encoder and "
+                             "decoder blocks, please select another normalization.")
+        self.normalize = normalize
+        fs = feature_size
+        dd = dict(device=device, dtype=dtype)
+        self.swinViT = SwinTransformer(
+            in_channels, fs, (7, 7, 7), (2, 2, 2), tuple(depths), tuple(num_heads),
+            4.0, True, downsample=downsample, norm=vit_norm, **dd)
+
+        def enc(cin, cout):
+            return UnetrBasicBlock(cin, cout, 3, 1, encoder_norm, res_block=True, **dd)
+
+        def dec(cin, cout):
+            return UnetrUpBlock(cin, cout, 3, 2, decoder_norm, res_block=True, **dd)
+
+        self.encoder1 = enc(in_channels, fs)
+        self.encoder2 = enc(fs, fs)
+        self.encoder3 = enc(2 * fs, 2 * fs)
+        self.encoder4 = enc(4 * fs, 4 * fs)
+        self.encoder10 = enc(16 * fs, 16 * fs)
+        self.decoder5 = dec(16 * fs, 8 * fs)
+        self.decoder4 = dec(8 * fs, 4 * fs)
+        self.decoder3 = dec(4 * fs, 2 * fs)
+        self.decoder2 = dec(2 * fs, fs)
+        self.decoder1 = dec(fs, fs)
+        self.out = UnetOutBlock(fs, out_channels, **dd)
+
+    def forward(self, x_in, modalities=None):
+        """`x_in [B, D, H, W, Cin]`, `modalities int[B]` -> logits
+        `[B, D, H, W, out_channels]`."""
+        hidden = self.swinViT(x_in, self.normalize, modalities)
+        enc0 = self.encoder1(x_in, modalities)
+        enc1 = self.encoder2(hidden[0], modalities)
+        enc2 = self.encoder3(hidden[1], modalities)
+        enc3 = self.encoder4(hidden[2], modalities)
+        dec4 = self.encoder10(hidden[4], modalities)
+        dec3 = self.decoder5(dec4, hidden[3], modalities)
+        dec2 = self.decoder4(dec3, enc3, modalities)
+        dec1 = self.decoder3(dec2, enc2, modalities)
+        dec0 = self.decoder2(dec1, enc1, modalities)
+        out = self.decoder1(dec0, enc0, modalities)
+        return self.out(out)

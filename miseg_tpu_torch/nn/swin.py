@@ -1,0 +1,151 @@
+"""Swin transformer blocks, 3-D, forward only (counterpart of
+`miseg_tpu/nn/swin.py:65-280`): window attention, the shifted-window
+block, patch merging (incl. the legacy slice order) and patch embedding.
+
+Window attention runs kernel K5 (`ops.kernels.window_attention`) on the
+card; every norm runs K1 + K2.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.nn.utils import skip_init
+
+from ..ops.init import fill_, trunc_normal
+from ..ops.kernels.window_attention import window_attention
+from ..ops.rel_bias import rel_bias_gather, rel_pos_index
+from ..ops.window import get_window_size, window_partition, window_reverse
+from .convolutions import Conv
+from .norms import make_norm
+from .transformer import MLPBlock
+
+NormSpec = tuple[str, dict[str, Any]] | str
+
+
+def _pad_cl(x: torch.Tensor, hi: tuple[int, int, int]) -> torch.Tensor:
+    """Zero-pad the high side of the three spatial dims of `[B, D, H, W, C]`."""
+    if not any(hi):
+        return x
+    return F.pad(x, (0, 0, 0, hi[2], 0, hi[1], 0, hi[0]))
+
+
+class WindowAttention(nn.Module):
+    """Windowed MHSA with relative position bias over `[B*nW, N, C]`.
+
+    The bias table is sized for the CONFIGURED window; a runtime-clipped
+    window of n < prod(window) tokens uses the `[:n, :n]` prefix of the
+    full bias (the reference's quirk, nn/swin.py:98-101)."""
+
+    def __init__(self, dim: int, num_heads: int, window_size, qkv_bias: bool = False,
+                 *, device=None, dtype=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.window_size = tuple(window_size)
+        table_len = math.prod(2 * w - 1 for w in self.window_size)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.empty((table_len, num_heads), device=device, dtype=dtype))
+        self.qkv = skip_init(nn.Linear, dim, 3 * dim, bias=qkv_bias,
+                             device=device, dtype=dtype)
+        self.proj = skip_init(nn.Linear, dim, dim, device=device, dtype=dtype)
+        index = torch.from_numpy(rel_pos_index(self.window_size).reshape(-1))
+        self.register_buffer("rel_index", index.to(device), persistent=False)
+
+    def init_parameters(self, generator) -> None:
+        fill_(self.relative_position_bias_table,
+              trunc_normal(self.relative_position_bias_table.shape, 0.02, generator))
+
+    def forward(self, x, mask=None):
+        b, n, c = x.shape
+        qkv = self.qkv(x)                                   # [b, n, 3c]
+        bias = rel_bias_gather(self.relative_position_bias_table.t(),
+                               self.window_size, self.rel_index)
+        if n != bias.shape[-1]:
+            bias = bias[:, :n, :n]
+        bias = bias.float().contiguous()
+        out = window_attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
+                               bias, mask, num_heads=self.num_heads)
+        return self.proj(out)
+
+
+class SwinTransformerBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, window_size, shift_size,
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 act="gelu", norm: NormSpec = ("layer", {}), *, device=None,
+                 dtype=None):
+        super().__init__()
+        dd = dict(device=device, dtype=dtype)
+        self.window_size = tuple(window_size)
+        self.shift_size = tuple(shift_size)
+        self.norm1 = make_norm(norm, dim, **dd)
+        self.attn = WindowAttention(dim, num_heads, self.window_size,
+                                    qkv_bias, **dd)
+        self.norm2 = make_norm(norm, dim, **dd)
+        self.mlp = MLPBlock(dim, int(dim * mlp_ratio), act, **dd)
+
+    def _pad_roll_attend(self, x, mask, modalities):
+        x = self.norm1(x, modalities)
+        b, *spatial, _ = x.shape
+        window_size, shift_size = get_window_size(spatial, self.window_size,
+                                                  self.shift_size)
+        x = _pad_cl(x, tuple((w - s % w) % w for s, w in zip(spatial, window_size)))
+        padded = x.shape[1:-1]
+        shifted = any(shift_size)
+        if shifted:
+            x = torch.roll(x, [-s for s in shift_size], dims=(1, 2, 3))
+        windows = window_partition(x, window_size)
+        attn = self.attn(windows, mask if shifted else None)
+        x = window_reverse(attn, window_size, (b, *padded))
+        if shifted:
+            x = torch.roll(x, list(shift_size), dims=(1, 2, 3))
+        return x[:, :spatial[0], :spatial[1], :spatial[2]]
+
+    def forward(self, x, mask=None, modalities=None):
+        x = x + self._pad_roll_attend(x, mask, modalities)
+        return x + self.mlp(self.norm2(x, modalities))
+
+
+# MONAI v0.9 slice order, duplicated slices included (nn/swin.py:240-243)
+_LEGACY_OFFSETS = [(0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1),
+                   (1, 0, 1), (0, 1, 0), (0, 0, 1), (1, 1, 1)]
+
+
+class PatchMergingV2(nn.Module):
+    """2^3 space-to-channel concat -> norm -> Linear(8*dim -> 2*dim, no bias)."""
+
+    def __init__(self, dim: int, norm: NormSpec = ("instance_cond", {}),
+                 legacy: bool = False, *, device=None, dtype=None):
+        super().__init__()
+        self.offsets = (_LEGACY_OFFSETS if legacy
+                        else list(itertools.product((0, 1), repeat=3)))
+        self.norm = make_norm(norm, 8 * dim, device=device, dtype=dtype)
+        self.reduction = skip_init(nn.Linear, 8 * dim, 2 * dim, bias=False,
+                                   device=device, dtype=dtype)
+
+    def forward(self, x, modalities=None):
+        x = _pad_cl(x, tuple(s % 2 for s in x.shape[1:-1]))
+        x = torch.cat([x[:, i::2, j::2, k::2, :] for i, j, k in self.offsets], dim=-1)
+        return self.reduction(self.norm(x, modalities))
+
+
+class PatchEmbed(nn.Module):
+    """Pad to the patch multiple, then a strided conv (+ optional norm)."""
+
+    def __init__(self, patch_size, in_chans: int, embed_dim: int = 48,
+                 norm: NormSpec | None = None, *, device=None, dtype=None):
+        super().__init__()
+        self.patch_size = tuple(patch_size)
+        self.proj = Conv(in_chans, embed_dim, self.patch_size, self.patch_size,
+                         0, True, device=device, dtype=dtype)
+        self.norm = make_norm(norm, embed_dim, device=device, dtype=dtype)
+
+    def forward(self, x, modalities=None):
+        x = _pad_cl(x, tuple((p - s % p) % p
+                             for s, p in zip(x.shape[1:-1], self.patch_size)))
+        x = self.proj(x)
+        return x if self.norm is None else self.norm(x, modalities)

@@ -1,0 +1,122 @@
+"""Windowed multi-head attention, forward — kernel K5.
+
+Replaces the Pallas TPU kernel `_attn_kernel`/`_attn_kernel_nomask`
+(miseg_tpu/ops/pallas/window_attention.py:64-85, `_pallas_forward`
+:88-134, public entry `fused_window_attention` :189-207).  The CUDA C++
+source is `csrc/window_attention.cu`; its header says what bounds it on
+the H100 and how the design answers.  It is built with nvcc for sm_90a
+and bound through ctypes (`build.py`).
+
+`window_attention` launches the kernel for a CUDA tensor and uses the
+plain version `window_attention_plain` only for a CPU tensor.  The plain
+version keeps the softmax probabilities in f32 for P.V, as the kernel
+does (the Pallas kernel rounds them to the value dtype first).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..window import ATTN_MASK_VALUE
+from . import build
+
+MAX_TOKENS = 343
+MAX_HEAD_DIM = 64
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0  # kernel launches since the caller last set it to 0
+
+
+def window_attention_plain(q, k, v, bias, ids=None, *, num_heads: int):
+    """q/k/v `[B*nW, N, C]`; bias `[H, N, N]`; ids `int [nW, N]` or None.
+    Returns `[B*nW, N, C]` in q's dtype."""
+    bw, n, c = q.shape
+    hd = c // num_heads
+    qh = q.reshape(bw, n, num_heads, hd).float()
+    kh = k.reshape(bw, n, num_heads, hd).float()
+    vh = v.reshape(bw, n, num_heads, hd).float()
+    s = torch.einsum("bnhd,bmhd->bhnm", qh, kh) * hd ** -0.5
+    s = s + bias.float()[None]
+    if ids is not None:
+        nw = ids.shape[0]
+        neq = ids[:, None, :] != ids[:, :, None]                # [nW, N, N]
+        s = s.reshape(bw // nw, nw, num_heads, n, n)
+        s = torch.where(neq[None, :, None], s + ATTN_MASK_VALUE, s)
+        s = s.reshape(bw, num_heads, n, n)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhnm,bmhd->bnhd", p, vh).reshape(bw, n, c)
+    return out.to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The C entry point with its ctypes signature (built on first use)."""
+    fn = build.load("window_attention").miseg_window_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    return fn
+
+
+def _check(q, k, v, bias, ids, num_heads):
+    bw, n, c = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
+    if c % num_heads:
+        raise ValueError(f"{c} channels do not split into {num_heads} heads")
+    if bias.shape != (num_heads, n, n):
+        raise ValueError(f"bias must be [{num_heads}, {n}, {n}], got {tuple(bias.shape)}")
+    if ids is not None:
+        if ids.ndim != 2 or ids.shape[1] != n:
+            raise ValueError(f"ids must be [nW, {n}], got {tuple(ids.shape)}")
+        if bw % ids.shape[0]:
+            raise ValueError(f"window batch {bw} is not a multiple of the "
+                             f"{ids.shape[0]} mask windows")
+
+
+def window_attention(q, k, v, bias, ids=None, *, num_heads: int):
+    """Fused windowed MHSA; same contract as `window_attention_plain`.
+
+    On a CUDA tensor this launches K5 or raises.  q/k/v may be strided
+    views (e.g. slices of one qkv projection) as long as they share
+    strides and the channel stride is 1."""
+    _check(q, k, v, bias, ids, num_heads)
+    if q.device.type == "cpu":
+        return window_attention_plain(q, k, v, bias, ids, num_heads=num_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"window_attention: unsupported device {q.device}")
+    bw, n, c = q.shape
+    hd = c // num_heads
+    if n > MAX_TOKENS or hd > MAX_HEAD_DIM:
+        raise ValueError(f"K5 takes N <= {MAX_TOKENS} and head dim <= "
+                         f"{MAX_HEAD_DIM}, got N={n}, head dim {hd}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"K5 takes float32 or bfloat16 q/k/v, got {q.dtype}")
+    if not (q.stride() == k.stride() == v.stride()) or q.stride(2) != 1:
+        raise ValueError("q/k/v must share strides with unit channel stride")
+    if bias.dtype != torch.float32 or not bias.is_contiguous():
+        raise ValueError("bias must be a contiguous float32 tensor")
+    tensors = [q, k, v, bias] + ([ids] if ids is not None else [])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("all operands must be on one device")
+    if ids is not None and (ids.dtype != torch.int32 or not ids.is_contiguous()):
+        raise ValueError("ids must be a contiguous int32 tensor")
+
+    fn = _entry()
+    out = torch.empty((bw, n, c), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0),
+                 q.stride(1), bias.data_ptr(),
+                 ids.data_ptr() if ids is not None else None,
+                 ids.shape[0] if ids is not None else 0, out.data_ptr(),
+                 bw, n, num_heads, hd, _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"window_attention kernel launch failed: CUDA error {err}")
+    global launches
+    launches += 1
+    return out
