@@ -5,17 +5,22 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, one result line each; any failed check exits non-zero:
   1. device  — torch/CUDA versions, the card's name and power limit, and
-               the kernels' build (nvcc for K5, Triton for K1/K2);
-  2. kernels — K1, K2 and K5 against their plain PyTorch versions on the
-               card, in bf16 and f32, at the shapes of the 96^3 flagship,
-               with CUDA-event times of kernel, plain version and a library
-               yardstick the port never calls, beside each kernel's bound;
+               the kernels' build (nvcc for K4 and K5, one process per
+               source, started together; Triton for K1/K2/K3);
+  2. kernels — K1, K2, K3, K4 and K5 against their plain PyTorch versions
+               on the card, in bf16 and f32, at the shapes of the 96^3
+               flagship, with CUDA-event times of kernel, plain version and
+               a library yardstick the port never calls, beside each
+               kernel's bound;
   3. model   — one full-width (feature_size 48, heads 3) window in f32,
-               card against CPU;
+               card against CPU, through the fused conv chain (the
+               default) and through the unfused path (`fused_conv=False`);
   4. serve   — a full-width C-Swin-UNETR bundle (seeded random weights,
                bf16, 96^3 ROI, gaussian blend, overlap 0.5) answers
                volume requests through `load_bundle(...).predict`; the
                kernels' launch counters must rise by the per-window counts.
+               Then one window through the fused and the unfused model
+               (same weights), and a profile of one window.
 Then one JSON line of kernels, the card line, and the ok line last.
 """
 
@@ -36,10 +41,13 @@ ROOT = Path(__file__).resolve().parent
 os.environ.setdefault("TRITON_CACHE_DIR",
                       str(ROOT / "miseg_tpu_torch/ops/kernels/_build/triton"))
 
-# one 96^3 window of the flagship: 46 Norm calls (16 swin-block, 4 patch
-# merging, 11 encoder, 15 decoder) + 5 parameter-free proj_out norms, each
-# one K1 run and one K2 launch; one K5 launch per swin block (4 stages x 2)
-PER_WINDOW = {"K1": 51, "K2": 51, "K5": 8}
+# one 96^3 window of the flagship.  The 10 UnetResBlocks run the fused
+# conv chain: two K4 launches (their folds count nothing) and one K3 each,
+# plus one K1 run for the norm3 of each of the 6 projected residuals
+# (encoder1, decoder5..decoder1).  The other norms (16 swin-block, 4 patch
+# merging, 5 parameter-free proj_out) are one K1 run and one K2 launch
+# each; one K5 launch per swin block (4 stages x 2).
+PER_WINDOW = {"K1": 31, "K2": 25, "K3": 10, "K4": 20, "K5": 8}
 FLAGSHIP = dict(model_name="swin_unetr", out_channels=6, feature_size=[48],
                 num_heads=3, depth_swin_block=[2], roi_x=96, roi_y=96,
                 roi_z=96, encoder_norm_name="instance_cond",
@@ -112,6 +120,7 @@ def phase_device():
 def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
     import torch.nn.functional as F
 
+    from miseg_tpu_torch.ops.kernels import fused_conv as fc
     from miseg_tpu_torch.ops.kernels import fused_norm as fn
     from miseg_tpu_torch.ops.kernels import window_attention as wa
     from miseg_tpu_torch.ops.window import window_region_ids
@@ -222,21 +231,94 @@ def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
                     rows["K5"] = dict(ms=k5, plain_ms=plain, bound_ms=bound, bound_by=by,
                                       library_ms=sdpa, max_abs_err=errs[ids is not None])
             print(line)
+    # ---- K4 at the conv shapes of the 96^3 window's UnetResBlocks ------
+    convs = [  # (label, x shape, Cout, prologue: norm1's columns + leaky)
+        ("encoder1 conv1", (1, 96, 96, 96, 1), 48, False),
+        ("encoder1/decoder1 conv2", (1, 96, 96, 96, 48), 48, True),
+        ("decoder1 conv1", (1, 96, 96, 96, 96), 48, False),
+        ("encoder10 conv2", (1, 3, 3, 3, 768), 768, True),
+    ]
+    for label, shape, cout, prologue in convs:
+        b, cin = shape[0], shape[-1]
+        s_vox = shape[1] * shape[2] * shape[3]
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, dtype)
+            w = (torch.randn((cout, cin, 3, 3, 3), generator=gen)
+                 / (27 * cin) ** 0.5).to(dev, dtype)
+            kw = dict(gamma=(1 + 0.2 * torch.randn((2, cout), generator=gen)).to(dev, dtype),
+                      beta=(0.2 * torch.randn((2, cout), generator=gen)).to(dev, dtype),
+                      styles=torch.tensor([1], dtype=torch.int32, device=dev))
+            if prologue:
+                kw.update(scale=(1 + 0.3 * torch.randn((b, cin), generator=gen)).to(dev),
+                          shift=(0.3 * torch.randn((b, cin), generator=gen)).to(dev),
+                          slope=0.01)
+            y, sc, sh = fc.conv3_norm_columns(x, w, **kw)
+            ref = fc.conv3_norm_columns_plain(x, w, **kw)[0]
+            e, tol = max_err(y, ref), tolerance(ref, dtype)
+            check(e <= tol, f"K4 {label} {dtype}: {e:.3e} > {tol:.3e}")
+            # the epilogue's columns against the plain fold of the kernel's
+            # own y: isolates the statistics from the conv's rounding
+            rs, rh = fn.channel_scale_shift_plain(y.reshape(b, -1, cout), kw["gamma"],
+                                                  kw["beta"], kw["styles"])
+            ec = max(max_err(sc, rs) / (1 + float(rs.abs().max())),
+                     max_err(sh, rh) / (1 + float(rh.abs().max())))
+            check(ec <= 1e-5, f"K4 {label} {dtype}: columns rel err {ec:.2e} > 1e-5")
+            line = (f"  K4 {label} {list(shape)}->{cout} {str(dtype)[6:]}: err {e:.3e} "
+                    f"(tol {tol:.3e}), columns rel err {ec:.2e} (tol 1e-05)")
+            if dtype == torch.bfloat16:
+                k4 = time_ms(lambda: fc.conv3_norm_columns(x, w, **kw))
+                plain = time_ms(lambda: fc.conv3_norm_columns_plain(x, w, **kw), reps=5)
+                xcf = x.permute(0, 4, 1, 2, 3)   # channels_last_3d, as the unfused path
+                lib = time_ms(lambda: F.conv3d(xcf, w, padding=1))
+                nbytes = ((x.numel() + w.numel() + s_vox * b * cout) * x.element_size()
+                          + 2 * b * cin * 4 * prologue + 2 * b * cout * 4
+                          + 2 * kw["gamma"].numel() * x.element_size())
+                flops = 2 * b * s_vox * 27 * cin * cout
+                bound = max(nbytes / mem_bw, flops / bf16_flops) * 1e3
+                by = "bytes" if nbytes / mem_bw >= flops / bf16_flops else "operations"
+                line += (f"\n    times ms: K4 {k4:.4f} (bound {bound:.4f} by {by}: "
+                         f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
+                         f"{flops / k4 / 1e9:.1f} TFLOP/s), plain {plain:.4f}, "
+                         f"F.conv3d {lib:.4f}")
+                if label == "encoder1/decoder1 conv2":
+                    rows["K4"] = dict(ms=k4, plain_ms=plain, bound_ms=bound, bound_by=by,
+                                      library_ms=lib, max_abs_err=e)
+            print(line)
+    # ---- K3 at the tail of the 96^3 UnetResBlocks -----------------------
+    shape = (1, 96, 96, 96, 48)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(shape, generator=gen).to(dev, dtype)
+        res = torch.randn(shape, generator=gen).to(dev, dtype)
+        cols = [torch.randn((1, 48), generator=gen).to(dev) for _ in range(4)]
+        y = fn.apply_norm2_act(x, *cols[:2], res, *cols[2:], negative_slope=0.01)
+        ref = fn.apply_norm2_act_plain(x, *cols[:2], res, *cols[2:], negative_slope=0.01)
+        e, tol = max_err(y, ref), tolerance(ref, dtype)
+        check(e <= tol, f"K3 {shape} {dtype}: {e:.3e} > {tol:.3e}")
+        line = f"  K3 {list(shape)} {str(dtype)[6:]}: err {e:.3e} (tol {tol:.3e})"
+        if dtype == torch.bfloat16:
+            k3 = time_ms(lambda: fn.apply_norm2_act(x, *cols[:2], res, *cols[2:],
+                                                    negative_slope=0.01))
+            plain = time_ms(lambda: fn.apply_norm2_act_plain(
+                x, *cols[:2], res, *cols[2:], negative_slope=0.01))
+            bound = (3 * x.numel() * x.element_size() + 4 * 48 * 4) / mem_bw * 1e3
+            line += f"\n    times ms: K3 {k3:.4f} (bound {bound:.4f} by bytes), plain {plain:.4f}"
+            rows["K3"] = dict(ms=k3, plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                              library_ms=None, max_abs_err=e)
+        print(line)
     torch.cuda.synchronize()
-    print(f"kernels: K1, K2, K5 match their plain versions at main-path shapes "
-          f"in bf16 and f32 ({time.perf_counter() - t0:.1f} s)")
+    print(f"kernels: K1, K2, K3, K4, K5 match their plain versions at main-path "
+          f"shapes in bf16 and f32 ({time.perf_counter() - t0:.1f} s)")
     return rows
 
 
 def phase_model(dev):
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.models import model_from_config
+    from miseg_tpu_torch.ops.kernels import fused_conv as fc
 
     size = 64
     cfg = Config(**{**FLAGSHIP, "roi_x": size, "roi_y": size, "roi_z": size})
     cpu = model_from_config(cfg, device="cpu")
-    card = model_from_config(cfg, device=dev)
-    card.load_state_dict(cpu.state_dict())
     gen = torch.Generator().manual_seed(1)
     x = torch.randn((1, size, size, size, 1), generator=gen)
     mods = torch.tensor([1], dtype=torch.int32)
@@ -244,13 +326,24 @@ def phase_model(dev):
         t0 = time.perf_counter()
         want = cpu(x, mods)
         cpu_s = time.perf_counter() - t0
-        got = card(x.to(dev), mods.to(dev)).cpu()
-    err = max_err(got, want)
     tol = 1e-4 * (1.0 + float(want.abs().max()))
-    check(torch.isfinite(got).all().item(), "model: non-finite logits on the card")
-    check(err <= tol, f"model: card vs CPU {err:.3e} > {tol:.3e}")
+    errs = {}
+    for fused in (True, False):   # the fused conv chain is the default
+        card = model_from_config(cfg, device=dev, fused_conv=fused)
+        card.load_state_dict(cpu.state_dict())
+        fc.launches = 0
+        with torch.inference_mode():
+            got = card(x.to(dev), mods.to(dev)).cpu()
+        name = "fused" if fused else "unfused"
+        check(fc.launches == (20 if fused else 0),
+              f"model {name}: {fc.launches} K4 launches")
+        check(torch.isfinite(got).all().item(), f"model {name}: non-finite logits")
+        errs[name] = max_err(got, want)
+        check(errs[name] <= tol, f"model {name}: card vs CPU {errs[name]:.3e} > {tol:.3e}")
+        del card
     print(f"model: fs48 heads 3, one {size}^3 window, f32 (TF32 off): card vs CPU "
-          f"max |diff| {err:.3e} (tol {tol:.3e}, |logits| <= {float(want.abs().max()):.3f}); "
+          f"max |diff| fused chain {errs['fused']:.3e}, unfused {errs['unfused']:.3e} "
+          f"(tol {tol:.3e}, |logits| <= {float(want.abs().max()):.3f}); "
           f"CPU forward {cpu_s:.1f} s")
 
 
@@ -258,6 +351,7 @@ def phase_serve(dev) -> dict:
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.inferers import window_starts
     from miseg_tpu_torch.models import model_from_config
+    from miseg_tpu_torch.ops.kernels import fused_conv as fc
     from miseg_tpu_torch.ops.kernels import fused_norm as fn
     from miseg_tpu_torch.ops.kernels import window_attention as wa
     from miseg_tpu_torch.serve import load_bundle, save_bundle
@@ -274,17 +368,19 @@ def phase_serve(dev) -> dict:
     vol_b = torch.rand((1, 160, 192, 128, 1), generator=gen)
     requests = [("224^3 modality 0", vol_a, 0), ("224^3 modality 1", vol_a, 1),
                 ("160x192x128 modality 0", vol_b, 0), ("224^3 modality 0 repeat", vol_a, 0)]
-    totals = {"K1": 0, "K2": 0, "K5": 0}
+    totals = dict.fromkeys(PER_WINDOW, 0)
     outs = []
     for label, vol, mod in requests:
         windows = len(window_starts(vol.shape[1:-1], cfg.roi, cfg.infer_overlap)[1])
         torch.cuda.synchronize()
-        fn.stats_launches = fn.apply_launches = wa.launches = 0
+        fn.stats_launches = fn.apply_launches = fn.apply2_launches = 0
+        fc.launches = wa.launches = 0
         t0 = time.perf_counter()
         out = served.predict(vol, [mod])
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        counts = {"K1": fn.stats_launches, "K2": fn.apply_launches, "K5": wa.launches}
+        counts = {"K1": fn.stats_launches, "K2": fn.apply_launches,
+                  "K3": fn.apply2_launches, "K4": fc.launches, "K5": wa.launches}
         check(tuple(out.shape) == (*vol.shape[:-1], cfg.out_channels),
               f"serve {label}: shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out).all()), f"serve {label}: non-finite logits")
@@ -301,12 +397,41 @@ def phase_serve(dev) -> dict:
     check(rep <= rep_tol, f"serve: repeated request differs by {rep:.3e} > {rep_tol:.3e}")
     print(f"serve: {len(requests)} full-width bf16 requests answered; repeat "
           f"max |diff| {rep:.3e} (tol {rep_tol:.3e}); launches per window {PER_WINDOW}")
+    compare_paths(served, cfg, dev)
     profile_window(served, dev)
     return totals
 
 
+def compare_paths(served, cfg, dev, reps: int = 10) -> None:
+    """One 96^3 bf16 window through the served (fused conv chain) model and
+    through an unfused model with the same weights: CUDA-event ms of each,
+    timed in turns, and the max |diff| of their logits."""
+    from miseg_tpu_torch.models import model_from_config
+
+    unfused = model_from_config(cfg, device=dev, dtype=torch.bfloat16, fused_conv=False)
+    unfused.load_state_dict(served.model.state_dict(), strict=True)
+    gen = torch.Generator().manual_seed(4)
+    window = torch.rand((1, 96, 96, 96, 1), generator=gen).to(dev, torch.bfloat16)
+    mods = torch.tensor([1], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        fused_out = served.model(window, mods).float()
+        plain_out = unfused(window, mods).float()
+        models = {"fused": served.model, "unfused": unfused}
+        ms = {"fused": [], "unfused": []}
+        for name in ("fused", "unfused", "unfused", "fused"):   # in turns
+            ms[name].append(time_ms(lambda: models[name](window, mods), reps=reps))
+    diff = max_err(fused_out, plain_out)
+    check(bool(torch.isfinite(fused_out).all()), "paths: non-finite fused logits")
+    print(f"paths: one 96^3 bf16 window, ms by CUDA events (median of {reps}, two "
+          f"turns): fused conv chain {ms['fused'][0]:.3f} / {ms['fused'][1]:.3f}, "
+          f"unfused (cuDNN + K1/K2) {ms['unfused'][0]:.3f} / {ms['unfused'][1]:.3f}; "
+          f"logits max |diff| {diff:.3e} (|logits| <= {float(plain_out.abs().max()):.3f})")
+    del unfused
+
+
 # kernel-name substrings -> group, first match wins
 _GROUPS = [("K1", ("miseg_k1_",)), ("K2", ("miseg_k2_",)),
+           ("K3", ("miseg_k3_",)), ("K4", ("miseg_k4_",)),
            ("K5", ("window_attention_kernel",)),
            ("conv (cuDNN)", ("conv", "xmma", "implicit", "cudnn", "fprop", "dgrad")),
            ("linear (GEMM)", ("gemm", "cutlass", "gemv")),
@@ -384,6 +509,12 @@ def main() -> int:
         "K2": ("fused_norm.apply_scale_shift", "triton",
                "miseg_tpu_torch/ops/kernels/fused_norm.py",
                "miseg_tpu/ops/pallas/fused_norm.py:90"),
+        "K3": ("fused_norm.apply_norm2_act", "triton",
+               "miseg_tpu_torch/ops/kernels/fused_norm.py",
+               "miseg_tpu/ops/pallas/fused_norm.py:278"),
+        "K4": ("fused_conv.conv3_norm_columns", "cuda",
+               "miseg_tpu_torch/ops/kernels/csrc/fused_conv.cu",
+               "miseg_tpu/ops/pallas/fused_conv.py:49"),
         "K5": ("window_attention.window_attention", "cuda",
                "miseg_tpu_torch/ops/kernels/csrc/window_attention.cu",
                "miseg_tpu/ops/pallas/window_attention.py:64"),

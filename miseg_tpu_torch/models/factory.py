@@ -40,10 +40,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def model_from_config(cfg: Config, *, device=None, dtype=torch.float32,
-                      generator: torch.Generator | None = None) -> nn.Module:
+                      generator: torch.Generator | None = None,
+                      fused_conv: bool = True) -> nn.Module:
     """Build and initialise `cfg`'s model on `device` (the CUDA card unless
     given).  Weights come from `generator`, by default one seeded with
-    `cfg.seed`; a state dict can then replace them."""
+    `cfg.seed`; a state dict can then replace them.  `fused_conv` selects
+    the conv blocks' path (`nn/dynunet.py`); the state dict is the same
+    on both."""
     device = resolve_device(device)
     vit_norm, encoder_norm, decoder_norm = _norm_specs(cfg)
     if cfg.model_name not in MODEL_NAMES:
@@ -62,7 +65,8 @@ def model_from_config(cfg: Config, *, device=None, dtype=torch.float32,
         feature_size=cfg.feature_size_scalar,
         normalize=not cfg.no_normalize_swin, downsample=cfg.downsample,
         vit_norm=vit_norm, encoder_norm=encoder_norm,
-        decoder_norm=decoder_norm, device=device, dtype=dtype)
+        decoder_norm=decoder_norm, fused_conv=fused_conv, device=device,
+        dtype=dtype)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)

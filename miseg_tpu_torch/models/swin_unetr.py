@@ -1,6 +1,8 @@
 """Swin-UNETR: hierarchical swin backbone + UNETR-style conv decoder
 (counterpart of `miseg_tpu/models/swin_unetr.py:31-118`).  "C-Swin-UNETR"
-is this model with `instance_cond` encoder and ViT norms."""
+is this model with `instance_cond` encoder and ViT norms.  With
+`fused_conv` (the default) every UnetResBlock runs the fused conv chain
+(K4, K4, K3); `fused_conv=False` selects cuDNN convs with K1 + K2 norms."""
 
 from __future__ import annotations
 
@@ -21,8 +23,8 @@ class SwinUNETR(nn.Module):
                  downsample: str = "merging",
                  vit_norm: NormSpec = ("layer", {}),
                  decoder_norm: NormSpec = ("instance", {}),
-                 encoder_norm: NormSpec = ("instance", {}), *, device=None,
-                 dtype=None):
+                 encoder_norm: NormSpec = ("instance", {}), *,
+                 fused_conv: bool = True, device=None, dtype=None):
         super().__init__()
         if len(img_size) != 3:
             raise ValueError("the port builds 3-D Swin-UNETR only")
@@ -42,10 +44,12 @@ class SwinUNETR(nn.Module):
             4.0, True, downsample=downsample, norm=vit_norm, **dd)
 
         def enc(cin, cout):
-            return UnetrBasicBlock(cin, cout, 3, 1, encoder_norm, res_block=True, **dd)
+            return UnetrBasicBlock(cin, cout, 3, 1, encoder_norm, res_block=True,
+                                   fused_conv=fused_conv, **dd)
 
         def dec(cin, cout):
-            return UnetrUpBlock(cin, cout, 3, 2, decoder_norm, res_block=True, **dd)
+            return UnetrUpBlock(cin, cout, 3, 2, decoder_norm, res_block=True,
+                                fused_conv=fused_conv, **dd)
 
         self.encoder1 = enc(in_channels, fs)
         self.encoder2 = enc(fs, fs)

@@ -1,17 +1,27 @@
-"""DynUNet blocks, unfused path (counterpart of
-`miseg_tpu/nn/dynunet.py:30-37,98-140,178-205,250-258`).
+"""DynUNet blocks (counterpart of
+`miseg_tpu/nn/dynunet.py:30-37,74-258`).
 
-The leaky-relu tails fuse into the norms' K2 pass (norm1 + act;
-norm2 + residual add + act).  The fused conv chain (`_fuse_plan` /
-`_fused`: kernels K3, K4) is not ported yet.
+Two paths compute the same function with the same parameters:
+  * the fused conv chain (`_fuse_plan`, `_fused`; the default,
+    `fused_conv=True`): conv1 through K4, conv2 through K4 with norm1 and
+    the leaky-relu applied on read, and the tail through K3 (UnetResBlock)
+    or K2 (UnetBasicBlock), every norm's statistics coming from K4's
+    epilogue (`ops.kernels.fused_conv`);
+  * the unfused path (`fused_conv=False`, or a block the plan rejects):
+    cuDNN convs, each norm through K1 + K2 with the leaky-relu tails fused
+    into K2 (norm1 + act; norm2 + residual add + act).
+`fused_conv` is the caller's choice, the counterpart of the JAX package's
+`MISEG_PALLAS_CONV`; it is never a fallback for a kernel that fails.
 """
 
 from __future__ import annotations
 
 from typing import Any, Sequence
 
+import torch
 from torch import nn
 
+from ..ops.kernels import fused_conv, fused_norm
 from .convolutions import Convolution, get_output_padding, get_padding
 from .factories import get_act, leaky_slope
 from .norms import make_norm
@@ -35,14 +45,42 @@ def _is_downsample(in_channels, out_channels, stride) -> bool:
     return in_channels != out_channels or any(si != 1 for si in s)
 
 
+def _fuse_plan(block, x, modalities):
+    """`(styles,)` when the block runs through the fused conv chain, else
+    None (miseg_tpu/nn/dynunet.py:74-95 without its TPU-only VMEM and
+    lane-density conditions): the caller asked for it, the act is a leaky
+    relu, the norm an affine `instance` or an `instance_cond` that has its
+    modalities, and K4 computes the conv's geometry."""
+    norm = block.norm1
+    if (not block.fused_conv or block.slope is None
+            or norm.kind not in ("instance", "instance_cond") or norm.scale is None
+            or (norm.kind == "instance_cond" and modalities is None)
+            or not fused_conv.supported(x.shape, block.kernel_size, block.stride)):
+        return None
+    return (modalities if norm.kind == "instance_cond" else None,)
+
+
+def _fused_convs(block, x, styles):
+    """conv1 -> [norm1 + act on read] conv2, both through K4: returns y2
+    and norm2's columns."""
+    n1, n2 = block.norm1, block.norm2
+    y1, sc1, sh1 = fused_conv.conv3_norm_columns(
+        x, block.conv1.conv.weight, gamma=n1.scale, beta=n1.bias, styles=styles,
+        eps=n1.eps)
+    return fused_conv.conv3_norm_columns(
+        y1, block.conv2.conv.weight, sc1, sh1, slope=block.slope, gamma=n2.scale,
+        beta=n2.bias, styles=styles, eps=n2.eps)
+
+
 class UnetResBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int | Sequence[int] = 3,
                  stride: int | Sequence[int] = 1,
                  norm: NormSpec = ("instance", {}), act=_LRELU, *,
-                 device=None, dtype=None):
+                 fused_conv: bool = True, device=None, dtype=None):
         super().__init__()
         dd = dict(device=device, dtype=dtype)
+        self.kernel_size, self.stride, self.fused_conv = kernel_size, stride, fused_conv
         self.slope = leaky_slope(act)
         self.act = get_act(act) if self.slope is None else None
         self.conv1 = _conv(in_channels, out_channels, kernel_size, stride, **dd)
@@ -55,6 +93,9 @@ class UnetResBlock(nn.Module):
             self.norm3 = make_norm(norm, out_channels, **dd)
 
     def forward(self, x, modalities=None):
+        plan = _fuse_plan(self, x, modalities)
+        if plan is not None:
+            return self._fused(x, *plan)
         out = self.norm1(self.conv1(x), modalities, act_slope=self.slope)
         if self.act is not None:
             out = self.act(out)
@@ -66,15 +107,34 @@ class UnetResBlock(nn.Module):
             return self.norm2(out, modalities, act_slope=self.slope, add=residual)
         return self.act(self.norm2(out, modalities) + residual)
 
+    def _fused(self, x, styles):
+        """K4, K4, then the residual's columns and K3
+        (miseg_tpu/nn/dynunet.py:142-175)."""
+        y2, sc2, sh2 = _fused_convs(self, x, styles)
+        bsz, cout = x.shape[0], y2.shape[-1]
+        if self.downsample:  # a 1x1 conv: the plan accepts stride 1 only
+            w3 = self.conv3.conv.weight
+            res = torch.matmul(x, w3.reshape(cout, -1).t().to(x.dtype))
+            n3 = self.norm3
+            sc3, sh3 = fused_norm.channel_scale_shift(
+                res.reshape(bsz, -1, cout), n3.scale, n3.bias, styles, eps=n3.eps)
+        else:
+            res = x
+            sc3 = torch.ones((bsz, cout), dtype=torch.float32, device=x.device)
+            sh3 = torch.zeros((bsz, cout), dtype=torch.float32, device=x.device)
+        return fused_norm.apply_norm2_act(y2, sc2, sh2, res, sc3, sh3,
+                                          negative_slope=self.slope)
+
 
 class UnetBasicBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int | Sequence[int] = 3,
                  stride: int | Sequence[int] = 1,
                  norm: NormSpec = ("instance", {}), act=_LRELU, *,
-                 device=None, dtype=None):
+                 fused_conv: bool = True, device=None, dtype=None):
         super().__init__()
         dd = dict(device=device, dtype=dtype)
+        self.kernel_size, self.stride, self.fused_conv = kernel_size, stride, fused_conv
         self.slope = leaky_slope(act)
         self.act = get_act(act) if self.slope is None else None
         self.conv1 = _conv(in_channels, out_channels, kernel_size, stride, **dd)
@@ -83,11 +143,19 @@ class UnetBasicBlock(nn.Module):
         self.norm2 = make_norm(norm, out_channels, **dd)
 
     def forward(self, x, modalities=None):
+        plan = _fuse_plan(self, x, modalities)
+        if plan is not None:
+            return self._fused(x, *plan)
         out = self.norm1(self.conv1(x), modalities, act_slope=self.slope)
         if self.act is not None:
             out = self.act(out)
         out = self.norm2(self.conv2(out), modalities, act_slope=self.slope)
         return self.act(out) if self.act is not None else out
+
+    def _fused(self, x, styles):
+        """K4, K4, then K2 (miseg_tpu/nn/dynunet.py:207-225)."""
+        y2, sc2, sh2 = _fused_convs(self, x, styles)
+        return fused_norm.apply_norm_act(y2, sc2, sh2, negative_slope=self.slope)
 
 
 class UnetOutBlock(nn.Module):

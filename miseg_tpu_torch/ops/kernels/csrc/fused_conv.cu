@@ -1,0 +1,763 @@
+// Fused 3x3x3 convolution with normalise-on-read and a statistics epilogue
+// (kernel K4), sm_90a.
+//
+// Replaces the Pallas TPU kernels `_conv_kernel` / `_conv_kernel_plain`
+// (miseg_tpu/ops/pallas/fused_conv.py:49-93, called from `_pallas_conv`
+// :96-139, public entry `conv3_norm_stats` :215).  For a channel-last
+// x [B, Z, Y, X, Cin] and weights w [3, 3, 3, Cin, Cout]:
+//     t = round_T(leaky(x * scale[b, ci] + shift[b, ci]))   (each optional)
+//     y = round_T(conv3(t))      zero "same" padding OF t, stride 1, no bias
+// Halo voxels outside the volume are zero after the transform (the TPU
+// kernel multiplies its z-halo by `valid` and pads y/x with zeros after
+// `_transform`), which is the unfused path's zero-padded normalised input.
+// The epilogue rounds y to T, stores it, and writes the per-channel
+// (mean, M2) of the ROUNDED values of its tile: kTile consecutive voxels of
+// one sample (only a sample's last tile is short), taken two-pass over the
+// tile held in shared memory.  The partials are laid out [2, B*n_tiles,
+// Cout] like K1's pass 1, so K1's fold turns them into the next norm's
+// scale/shift.  The TPU kernel's one-pass (sum, sum^2) carried across a
+// sequential grid has no counterpart here: blocks run in parallel, and no
+// float atomics are used, so a repeated call is bit-identical.
+//
+// What bounds it on an H100: at the flagship's 96^3 shapes in bf16 the
+// convolution does 2*27*Cin*Cout operations per voxel, 110 GFLOP at
+// 48->48 and 220 GFLOP at 96->48, against 170 and 255 MB moved: it is
+// bound by the tensor cores (0.11 and 0.22 ms at 989 TFLOP/s).  encoder1's
+// 1->48 conv (reduction depth 27) and the 3^3 768->768 conv (31.9 MB of
+// weights, 0.86 GFLOP) are bound by bytes.
+//
+// Design.  Implicit GEMM: M = voxels in tiles of kTile = 128, N = Cout in
+// blocks, K = 27*Cin.  Each tile first records, per row of its A operand,
+// a flat voxel index and a mask of the K groups whose neighbour lies
+// inside the volume, so a K step's gather is a mask test and an add.
+//   * bf16 with Cin, Cout multiples of 16: WMMA bf16 16x16x16 with f32
+//     accumulators (mma.sync on the tensor cores), 4 warps of 32 voxel rows
+//     by all BN = 16*NF output channels of the CTA.  A K step's A chunk
+//     (KC channels) and weight chunk are copied with cp.async (16 bytes a
+//     thread; a halo voxel is a zero fill) into a ring of buffers, so the
+//     next step's loads are in flight while the warps multiply.  The thread
+//     that copied a vector applies the transform to it in shared memory
+//     once it lands (halo vectors stay zero).  The 27-fold re-read of each
+//     input element is what costs: when X % 16 == 0 (the 96^3 and 48^3
+//     levels) a K step is one (dz, dy) band of the tile's x-rows, widened
+//     by one voxel on each side, which serves the three dx taps at row
+//     offsets -1, 0, +1, so each element is gathered and transformed 9
+//     times instead of 27; otherwise a K step is one tap.
+//   * f32, or any channel count that is not a multiple of 16 (encoder1's
+//     Cin = 1): CUDA cores in f32 FMA (never TF32), a 128 x 64 tile with
+//     8 x 4 outputs per thread, K in chunks of 16 with any (tap, channel)
+//     split, double-buffered through registers.
+//   * Few tiles (the 24^3 .. 3^3 levels: 12 to 216 CTAs for 132 SMs, with
+//     up to 324 K steps each): split-K.  Each split writes its f32 partial
+//     sums to a workspace and a second kernel adds the splits in a fixed
+//     order before the same epilogue, so the result stays deterministic.
+// It is a first kernel: the transform is still redone 9 (or 27) times per
+// element, and mma.sync reaches a fraction of wgmma's rate; TMA-fed wgmma
+// tiles with the halo staged once are the later work.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace {
+
+using namespace nvcuda;
+
+constexpr int kTile = 128;      // voxels per tile; only a sample's last is short
+constexpr int kThreads = 256;   // CUDA-core path and split-K reduce: 8 warps
+constexpr int kWarpM = 32;      // tensor-core path: voxel rows per warp
+constexpr int kWmmaThreads = kTile / kWarpM * 32;
+constexpr int kPad = 8;        // bf16 row padding (16 bytes) against bank conflicts
+constexpr int kFmaBn = 64;     // CUDA-core path and split-K reduce: channels per CTA
+constexpr int kFmaKc = 16;     // CUDA-core path: K per step
+constexpr int kFmaRowPad = kTile + 4;
+constexpr int kMaxSplits = 32;
+constexpr int kMinStepsPerSplit = 8;
+
+struct Args {
+  const void* x;        // [B, Z, Y, X, cin], T
+  const void* w;        // [27, cin, cout], T
+  const float* scale;   // [B, cin] or null
+  const float* shift;   // [B, cin] or null
+  float slope;
+  int leaky;
+  void* y;              // [B, Z, Y, X, cout], T
+  float* part;          // [2, n_parts, cout]: (mean, M2) per tile
+  float* work;          // [splits, n_parts * kTile, cout] partial sums, or null
+  int Z, Y, X, cin, cout, n_tiles, splits, nsteps;
+  int S;                // voxels per sample
+  long long n_parts;    // B * n_tiles
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
+}
+
+// x * scale + shift, then leaky; two roundings, as the plain version's
+// separate multiply and add (no FMA contraction)
+__device__ __forceinline__ float prologue(float v, float sc, float sh,
+                                          bool affine, bool leaky, float slope) {
+  if (affine) v = __fadd_rn(__fmul_rn(v, sc), sh);
+  if (leaky && !(v >= 0.0f)) v = __fmul_rn(slope, v);
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(fill ? 16 : 0));  // 0: zero-fill
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+struct Tile {
+  int b, tile, nvalid;
+  long long tile_global;  // b * n_tiles + tile
+};
+
+__device__ __forceinline__ Tile tile_of(const Args& a) {
+  Tile t;
+  t.b = blockIdx.x / a.n_tiles;
+  t.tile = blockIdx.x % a.n_tiles;
+  t.nvalid = min(kTile, a.S - t.tile * kTile);
+  t.tile_global = (long long)t.b * a.n_tiles + t.tile;
+  return t;
+}
+
+// Per tile row: its flat voxel index within the sample, and bit `tap`
+// (tap = kz*9 + ky*3 + kx) set when that neighbour lies inside the volume.
+// Rows past the sample's end get no bits.
+__device__ __forceinline__ void tile_rows(const Args& a, const Tile& t, int* roff,
+                                          unsigned* rmask) {
+  for (int r = threadIdx.x; r < kTile; r += blockDim.x) {
+    unsigned mask = 0u;
+    const int m = t.tile * kTile + r;
+    if (r < t.nvalid) {
+      const int q = m / a.X, x = m - q * a.X;
+      const int y = q % a.Y, z = q / a.Y;
+      for (int tap = 0; tap < 27; ++tap) {
+        const int zz = z + tap / 9 - 1, yy = y + (tap / 3) % 3 - 1, xx = x + tap % 3 - 1;
+        if ((unsigned)zz < (unsigned)a.Z && (unsigned)yy < (unsigned)a.Y &&
+            (unsigned)xx < (unsigned)a.X)
+          mask |= 1u << tap;
+      }
+    }
+    roff[r] = m;
+    rmask[r] = mask;
+  }
+}
+
+// Flat-index offset of a tap's neighbour.
+__device__ __forceinline__ int tap_delta(const Args& a, int tap) {
+  return ((tap / 9 - 1) * a.Y + (tap / 3) % 3 - 1) * a.X + tap % 3 - 1;
+}
+
+// The K steps [begin, end) of this CTA's split.
+__device__ __forceinline__ void split_range(const Args& a, int& begin, int& end) {
+  const int per = (a.nsteps + a.splits - 1) / a.splits;
+  begin = blockIdx.z * per;
+  end = min(a.nsteps, begin + per);
+}
+
+// Epilogue.  Cs holds the f32 sums of the tile, [tile][ldc]; rows >=
+// nvalid and columns >= ncols are ignored.  Rounds to T, stores y, then
+// takes the per-channel (mean, M2) of the rounded values two-pass: one
+// warp per column, lanes over rows.
+template <typename T>
+__device__ void epilogue(const Args& a, const Tile& t, float* Cs, int ldc, int ncols,
+                         int n0) {
+  T* y = static_cast<T*>(a.y);
+  const long long row0 = (long long)t.b * a.S + (long long)t.tile * kTile;
+  for (int e = threadIdx.x; e < t.nvalid * ncols; e += blockDim.x) {
+    const int r = e / ncols, c = e - r * ncols;
+    const T v = from_f32<T>(Cs[r * ldc + c]);
+    y[(row0 + r) * a.cout + n0 + c] = v;
+    Cs[r * ldc + c] = to_f32(v);
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int c = warp; c < ncols; c += blockDim.x / 32) {
+    float s = 0.0f;
+    for (int r = lane; r < t.nvalid; r += 32) s += Cs[r * ldc + c];
+    const float mean = warp_sum(s) / (float)t.nvalid;
+    float m2 = 0.0f;
+    for (int r = lane; r < t.nvalid; r += 32) {
+      const float d = Cs[r * ldc + c] - mean;
+      m2 = fmaf(d, d, m2);
+    }
+    m2 = warp_sum(m2);
+    if (lane == 0) {
+      a.part[t.tile_global * a.cout + n0 + c] = mean;
+      a.part[(a.n_parts + t.tile_global) * a.cout + n0 + c] = m2;
+    }
+  }
+}
+
+// Row r, column c of this split's slice of the workspace.
+__device__ __forceinline__ float* work_at(const Args& a, const Tile& t, int r, int c) {
+  return a.work + ((long long)blockIdx.z * a.n_parts * kTile
+                   + t.tile_global * kTile + r) * a.cout + c;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: Cin % KC == 0, Cout % (16 * NF) == 0.
+//
+// BAND (X % 16 == 0, the 96^3 and 48^3 levels): a K step is one (dz, dy)
+// band of KC channels.  The band holds the tile's x-rows, each shifted by
+// (dz, dy) and widened by one voxel on each side, so the three dx taps read
+// it at row offsets -1, 0, +1; a 16-voxel fragment never straddles an
+// x-row, and the widening voxels are the zero halo (or the real
+// neighbour), so no row needs a per-tap mask.  Otherwise a K step is one
+// tap, gathered per voxel row.
+
+// x-rows a tile can touch when X >= 16 and the tile starts on a multiple of 16
+constexpr int kMaxSegs = (kTile - 16) / 16 + 1;
+constexpr int kBandRows = kTile + 2 * kMaxSegs;
+constexpr int kFrags = kTile / 16;
+
+// Band layout of the tile: per band row p, the flat index of its voxel in
+// the tile's own x-row (dz = dy = 0; may lie one past the row's ends) and
+// bit (dz+1)*3 + (dy+1) set when the shifted voxel lies inside the volume;
+// per fragment, the band row of its first voxel.
+__device__ __forceinline__ void band_rows(const Args& a, const Tile& t, int* roff,
+                                          unsigned* rmask, int* fbase) {
+  const int m0 = t.tile * kTile;
+  const int q0 = m0 / a.X, x0 = m0 - q0 * a.X;
+  for (int p = threadIdx.x; p < kBandRows; p += blockDim.x) {
+    unsigned mask = 0u;
+    int flat = 0;
+    for (int pos = 0, left = t.nvalid, xb = x0, q = q0; left > 0; ++q) {
+      const int n = min(a.X - xb, left);
+      if (p < pos + n + 2) {
+        const int x = xb - 1 + (p - pos);
+        flat = q * a.X + x;
+        if (x >= 0 && x < a.X) {
+          const int y = q % a.Y, z = q / a.Y;
+          for (int pair = 0; pair < 9; ++pair) {
+            const int zz = z + pair / 3 - 1, yy = y + pair % 3 - 1;
+            if ((unsigned)zz < (unsigned)a.Z && (unsigned)yy < (unsigned)a.Y)
+              mask |= 1u << pair;
+          }
+        }
+        break;
+      }
+      pos += n + 2;
+      left -= n;
+      xb = 0;
+    }
+    roff[p] = flat;
+    rmask[p] = mask;
+  }
+  for (int f = threadIdx.x; f < kFrags; f += blockDim.x) {
+    const int u = f * 16;
+    int base = 1;  // a fragment past the tile's end reads anything: its rows are dropped
+    for (int pos = 0, left = t.nvalid, xb = x0, done = 0; u < t.nvalid && left > 0;) {
+      const int n = min(a.X - xb, left);
+      if (u < done + n) {
+        base = pos + 1 + (u - done);
+        break;
+      }
+      pos += n + 2;
+      left -= n;
+      done += n;
+      xb = 0;
+    }
+    fbase[f] = base;
+  }
+}
+
+// KC + padding, an odd multiple of 16 elements: every row starts 32-byte
+// aligned (as WMMA loads need, at any band offset), and 8 consecutive rows
+// fall on at most 2 bank groups
+__host__ __device__ constexpr int padded_kc(int kc) {
+  return kc + ((kc / 16) % 2 == 0 ? 16 : 32);
+}
+
+template <int NF, int KC, bool BAND>
+struct WmmaShape {
+  static constexpr int BN = 16 * NF, BNP = BN + kPad, KCP = padded_kc(KC), LDC = BN + 4;
+  static constexpr int TAPS = BAND ? 3 : 1;              // taps per K step
+  static constexpr int STAGES = BAND ? 2 : 3;            // two CTAs per SM either way
+  static constexpr int A_ROWS = BAND ? kBandRows : kTile;
+  static constexpr int A_ELEMS = A_ROWS * KCP;           // one stage of A, bf16
+  static constexpr int B_ELEMS = TAPS * KC * BNP;        // one stage of B, bf16
+  static constexpr size_t RING = (size_t)STAGES * (A_ELEMS + B_ELEMS) * sizeof(__nv_bfloat16);
+  static constexpr size_t CS = (size_t)kTile * LDC * sizeof(float);
+  static constexpr size_t BYTES = RING > CS ? RING : CS;  // + 2*cin floats of columns
+};
+
+template <int NF, int KC, bool BAND>
+__global__ void __launch_bounds__(kWmmaThreads, 2)
+miseg_k4_conv_wmma(Args a) {
+  using Sh = WmmaShape<NF, KC, BAND>;
+  constexpr int BN = Sh::BN, BNP = Sh::BNP, KCP = Sh::KCP, TAPS = Sh::TAPS;
+  constexpr int STAGES = Sh::STAGES;
+  constexpr int SEGS = KC / 8, A_VECS = Sh::A_ROWS * SEGS;
+  constexpr int B_SEGS = BN / 8, B_VECS = TAPS * KC * B_SEGS;
+  constexpr int MF = kWarpM / 16;   // 16-row fragments per warp
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int roff[Sh::A_ROWS];
+  __shared__ unsigned rmask[Sh::A_ROWS];
+  __shared__ int fbase[kFrags];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);   // [STAGES][A_ROWS][KCP]
+  __nv_bfloat16* Bs = As + STAGES * Sh::A_ELEMS;                // [STAGES][TAPS*KC][BNP]
+  float* ssc = reinterpret_cast<float*>(smem + Sh::BYTES);
+  float* ssh = ssc + a.cin;
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const Tile t = tile_of(a);
+  const int n0 = blockIdx.y * BN;
+  const int cin = a.cin, cout = a.cout, nchunks = cin / KC;
+  const bool affine = a.scale != nullptr, leaky = a.leaky != 0;
+  const bool transform = affine || leaky;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x) + (long long)t.b * a.S * cin;
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
+  int k_begin, k_end;
+  split_range(a, k_begin, k_end);
+
+  if (BAND)
+    band_rows(a, t, roff, rmask, fbase);
+  else
+    tile_rows(a, t, roff, rmask);
+  if (affine)
+    for (int c = tid; c < cin; c += kWmmaThreads) {
+      ssc[c] = a.scale[(long long)t.b * cin + c];
+      ssh[c] = a.shift[(long long)t.b * cin + c];
+    }
+  __syncthreads();
+  int frow[MF];   // A row of each of this warp's fragments, at tap offset 0
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+    frow[i] = BAND ? fbase[warp * MF + i] - 1 : warp * kWarpM + i * 16;
+
+  // K step s: group g = s / nchunks is a (dz, dy) band (BAND) or a tap;
+  // its taps are g*TAPS .. g*TAPS + TAPS - 1 and its rows test bit g
+  auto group_delta = [&](int g) {
+    return BAND ? ((g / 3 - 1) * a.Y + g % 3 - 1) * a.X : tap_delta(a, g);
+  };
+
+  auto issue = [&](int s, int buf) {
+    const int g = s / nchunks, c0 = (s - g * nchunks) * KC;
+    const int delta = group_delta(g);
+    __nv_bfloat16* A = As + buf * Sh::A_ELEMS;
+    __nv_bfloat16* B = Bs + buf * Sh::B_ELEMS;
+    for (int v = tid; v < A_VECS; v += kWmmaThreads) {
+      const int r = v / SEGS, seg = v - r * SEGS;
+      const bool in = (rmask[r] >> g) & 1u;
+      const __nv_bfloat16* src = in ? x + (roff[r] + delta) * cin + c0 + seg * 8 : x;
+      cp_async16(A + r * KCP + seg * 8, src, in);
+    }
+    for (int v = tid; v < B_VECS; v += kWmmaThreads) {
+      const int k = v / B_SEGS, seg = v - k * B_SEGS;
+      const int dx = k / KC, kk = k - dx * KC;
+      cp_async16(B + k * BNP + seg * 8,
+                 w + (long long)((g * TAPS + dx) * cin + c0 + kk) * cout + n0 + seg * 8,
+                 true);
+    }
+  };
+
+  // the transform, on the vectors this thread copied (halo vectors stay 0)
+  auto transform_own = [&](int s, int buf) {
+    const int g = s / nchunks, c0 = (s - g * nchunks) * KC;
+    __nv_bfloat16* A = As + buf * Sh::A_ELEMS;
+    for (int v = tid; v < A_VECS; v += kWmmaThreads) {
+      const int r = v / SEGS, seg = v - r * SEGS;
+      if (!((rmask[r] >> g) & 1u)) continue;
+      uint4* p = reinterpret_cast<uint4*>(A + r * KCP + seg * 8);
+      uint4 val = *p;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&val);
+      const int c = c0 + seg * 8;
+      float sc[8], sh[8];
+#pragma unroll
+      for (int j = 0; j < 8; j += 4) {   // the columns, 16 bytes at a time
+        const float4 s4 = affine ? *reinterpret_cast<const float4*>(ssc + c + j)
+                                 : make_float4(1.f, 1.f, 1.f, 1.f);
+        const float4 h4 = affine ? *reinterpret_cast<const float4*>(ssh + c + j)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+        sc[j] = s4.x; sc[j + 1] = s4.y; sc[j + 2] = s4.z; sc[j + 3] = s4.w;
+        sh[j] = h4.x; sh[j + 1] = h4.y; sh[j + 2] = h4.z; sh[j + 3] = h4.w;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float2 f = __bfloat1622float2(h[j]);
+        f.x = prologue(f.x, sc[2 * j], sh[2 * j], affine, leaky, a.slope);
+        f.y = prologue(f.y, sc[2 * j + 1], sh[2 * j + 1], affine, leaky, a.slope);
+        h[j] = __floats2bfloat162_rn(f.x, f.y);
+      }
+      *p = val;
+    }
+  };
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MF][NF];
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (k_begin + st < k_end) issue(k_begin + st, st);
+    cp_async_commit();
+  }
+  for (int s = k_begin; s < k_end; ++s) {
+    const int it = s - k_begin, buf = it % STAGES;
+    cp_async_wait<STAGES - 2>();    // this thread's copies of step s landed
+    if (transform) transform_own(s, buf);
+    // every copy and transform of step s is visible, and every warp has
+    // left step s - 1, whose buffer the next issue refills
+    __syncthreads();
+    if (s + STAGES - 1 < k_end) issue(s + STAGES - 1, (it + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const __nv_bfloat16* A = As + buf * Sh::A_ELEMS;
+    const __nv_bfloat16* B = Bs + buf * Sh::B_ELEMS;
+#pragma unroll
+    for (int dx = 0; dx < TAPS; ++dx)
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[MF];
+#pragma unroll
+        for (int i = 0; i < MF; ++i)
+          wmma::load_matrix_sync(fa[i], A + (frow[i] + dx) * KCP + kk, KCP);
+#pragma unroll
+        for (int j = 0; j < NF; ++j) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
+          wmma::load_matrix_sync(fb, B + (dx * KC + kk) * BNP + j * 16, BNP);
+#pragma unroll
+          for (int i = 0; i < MF; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
+        }
+      }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is idle: Cs may alias it
+
+  if (a.splits > 1) {
+#pragma unroll
+    for (int i = 0; i < MF; ++i)
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+        wmma::store_matrix_sync(work_at(a, t, warp * kWarpM + i * 16, n0 + j * 16),
+                                acc[i][j], cout, wmma::mem_row_major);
+    return;
+  }
+  float* Cs = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+      wmma::store_matrix_sync(Cs + (warp * kWarpM + i * 16) * Sh::LDC + j * 16, acc[i][j],
+                              Sh::LDC, wmma::mem_row_major);
+  __syncthreads();
+  epilogue<__nv_bfloat16>(a, t, Cs, Sh::LDC, BN, n0);
+}
+
+// ---------------------------------------------------------------------------
+// CUDA cores, f32 FMA: f32, or channel counts that are not multiples of 16.
+
+constexpr int kFmaPool = (2 * kFmaKc * kFmaRowPad + 2 * kFmaKc * kFmaBn) > kTile * (kFmaBn + 1)
+                       ? (2 * kFmaKc * kFmaRowPad + 2 * kFmaKc * kFmaBn)
+                       : kTile * (kFmaBn + 1);
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+miseg_k4_conv_fma(Args a) {
+  __shared__ __align__(16) float pool[kFmaPool];
+  __shared__ int roff[kTile];
+  __shared__ unsigned rmask[kTile];
+  float* As = pool;                              // [2][kFmaKc][kFmaRowPad], k-major
+  float* Bs = pool + 2 * kFmaKc * kFmaRowPad;    // [2][kFmaKc][kFmaBn]
+
+  const int tid = threadIdx.x;
+  const int tr = tid / 16, tc = tid % 16;        // rows tr*8.., cols tc*4..
+  const Tile t = tile_of(a);
+  const int n0 = blockIdx.y * kFmaBn;
+  const int cin = a.cin, cout = a.cout, K = 27 * cin;
+  const bool affine = a.scale != nullptr, leaky = a.leaky != 0;
+  const T* x = static_cast<const T*>(a.x) + (long long)t.b * a.S * cin;
+  const T* w = static_cast<const T*>(a.w);
+  const float* sc = affine ? a.scale + (long long)t.b * cin : nullptr;
+  const float* sh = affine ? a.shift + (long long)t.b * cin : nullptr;
+  int k_begin, k_end;
+  split_range(a, k_begin, k_end);
+
+  tile_rows(a, t, roff, rmask);
+  __syncthreads();
+
+  constexpr int kA = kTile * kFmaKc / kThreads;   // 8
+  constexpr int kB = kFmaKc * kFmaBn / kThreads;  // 4
+  float ra[kA], rb[kB];
+
+  auto load = [&](int s) {
+    const int k0 = s * kFmaKc;
+#pragma unroll
+    for (int i = 0; i < kA; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = e / kFmaKc, k = k0 + e % kFmaKc;
+      float v = 0.0f;  // halo and K tail: zero AFTER the transform
+      if (k < K) {
+        const int tap = k / cin, ci = k - tap * cin;
+        if ((rmask[r] >> tap) & 1u) {
+          v = prologue(to_f32(x[(roff[r] + tap_delta(a, tap)) * cin + ci]),
+                       affine ? __ldg(sc + ci) : 1.0f, affine ? __ldg(sh + ci) : 0.0f,
+                       affine, leaky, a.slope);
+          v = to_f32(from_f32<T>(v));
+        }
+      }
+      ra[i] = v;
+    }
+#pragma unroll
+    for (int i = 0; i < kB; ++i) {
+      const int e = tid + i * kThreads;
+      const int k = k0 + e / kFmaBn, n = n0 + e % kFmaBn;
+      rb[i] = (k < K && n < cout) ? to_f32(w[(long long)k * cout + n]) : 0.0f;
+    }
+  };
+
+  auto store = [&](int buf) {
+    float* A = As + buf * kFmaKc * kFmaRowPad;
+    float* B = Bs + buf * kFmaKc * kFmaBn;
+#pragma unroll
+    for (int i = 0; i < kA; ++i) {
+      const int e = tid + i * kThreads;
+      A[(e % kFmaKc) * kFmaRowPad + e / kFmaKc] = ra[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kB; ++i) {
+      const int e = tid + i * kThreads;
+      B[(e / kFmaBn) * kFmaBn + e % kFmaBn] = rb[i];
+    }
+  };
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  if (k_begin < k_end) {
+    load(k_begin);
+    store(0);
+  }
+  __syncthreads();
+  for (int s = k_begin; s < k_end; ++s) {
+    const int buf = (s - k_begin) & 1;
+    if (s + 1 < k_end) load(s + 1);
+    const float* A = As + buf * kFmaKc * kFmaRowPad + tr * 8;
+    const float* B = Bs + buf * kFmaKc * kFmaBn + tc * 4;
+#pragma unroll
+    for (int kk = 0; kk < kFmaKc; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(A + kk * kFmaRowPad);
+      const float4 a1 = *reinterpret_cast<const float4*>(A + kk * kFmaRowPad + 4);
+      const float4 bv = *reinterpret_cast<const float4*>(B + kk * kFmaBn);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
+    }
+    // buf ^ 1 was last read in step s - 1, which every thread has left
+    if (s + 1 < k_end) store(buf ^ 1);
+    __syncthreads();
+  }
+
+  if (a.splits > 1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n0 + tc * 4 + j;
+        if (c < cout) *work_at(a, t, tr * 8 + i, c) = acc[i][j];
+      }
+    return;
+  }
+  constexpr int LDC = kFmaBn + 1;
+  float* Cs = pool;  // aliases the A/B buffers
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) Cs[(tr * 8 + i) * LDC + tc * 4 + j] = acc[i][j];
+  __syncthreads();
+  epilogue<T>(a, t, Cs, LDC, min(kFmaBn, cout - n0), n0);
+}
+
+// Split-K: add the splits' partial sums in split order, then the epilogue.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+miseg_k4_splitk_reduce(Args a) {
+  constexpr int LDC = kFmaBn + 1;
+  __shared__ float Cs[kTile * LDC];
+  const Tile t = tile_of(a);
+  const int n0 = blockIdx.y * kFmaBn, ncols = min(kFmaBn, a.cout - n0);
+  const long long split_stride = a.n_parts * kTile * a.cout;
+  for (int e = threadIdx.x; e < t.nvalid * ncols; e += kThreads) {
+    const int r = e / ncols, c = e - r * ncols;
+    const float* src = a.work + (t.tile_global * kTile + r) * a.cout + n0 + c;
+    float s = 0.0f;
+    for (int sp = 0; sp < a.splits; ++sp) s += src[sp * split_stride];
+    Cs[r * LDC + c] = s;
+  }
+  __syncthreads();
+  epilogue<T>(a, t, Cs, LDC, ncols, n0);
+}
+
+bool on_tensor_cores(int dtype, int cin, int cout) {
+  return dtype == 1 && cin % 16 == 0 && cout % 16 == 0;
+}
+
+int wmma_kc(int cin) {
+  return cin % 64 == 0 ? 64 : cin % 48 == 0 ? 48 : cin % 32 == 0 ? 32 : 16;
+}
+
+int wmma_nf(int cout) {
+  return cout % 64 == 0 ? 4 : cout % 48 == 0 ? 3 : cout % 32 == 0 ? 2 : 1;
+}
+
+// (K steps, output-channel blocks) of one tile.
+void work_shape(int dtype, int X, int cin, int cout, int& nsteps, int& nblocks) {
+  if (on_tensor_cores(dtype, cin, cout)) {
+    nsteps = (X % 16 == 0 ? 9 : 27) * (cin / wmma_kc(cin));
+    nblocks = cout / (16 * wmma_nf(cout));
+  } else {
+    nsteps = (27 * cin + kFmaKc - 1) / kFmaKc;
+    nblocks = (cout + kFmaBn - 1) / kFmaBn;
+  }
+}
+
+// Splits of K so that a call fills the card with two CTAs per SM, keeping
+// at least kMinStepsPerSplit steps in each; no split is empty.
+int plan_splits(long long ctas, int nsteps) {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long want = 2LL * sms;
+  if (ctas >= want) return 1;
+  int splits = (int)((want + ctas - 1) / ctas);
+  splits = min(min(splits, kMaxSplits), max(1, nsteps / kMinStepsPerSplit));
+  const int per = (nsteps + splits - 1) / splits;
+  return (nsteps + per - 1) / per;
+}
+
+template <int NF, int KC, bool BAND>
+cudaError_t launch_wmma(const Args& a, dim3 grid, cudaStream_t stream) {
+  using Sh = WmmaShape<NF, KC, BAND>;
+  const size_t smem = Sh::BYTES + 2 * (size_t)a.cin * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(miseg_k4_conv_wmma<NF, KC, BAND>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  miseg_k4_conv_wmma<NF, KC, BAND><<<grid, kWmmaThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int NF, int KC>
+cudaError_t launch_wmma_band(const Args& a, dim3 grid, cudaStream_t stream) {
+  return a.X % 16 == 0 ? launch_wmma<NF, KC, true>(a, grid, stream)
+                       : launch_wmma<NF, KC, false>(a, grid, stream);
+}
+
+template <int NF>
+cudaError_t launch_wmma_kc(const Args& a, dim3 grid, cudaStream_t stream) {
+  switch (wmma_kc(a.cin)) {
+    case 64: return launch_wmma_band<NF, 64>(a, grid, stream);
+    case 48: return launch_wmma_band<NF, 48>(a, grid, stream);
+    case 32: return launch_wmma_band<NF, 32>(a, grid, stream);
+    default: return launch_wmma_band<NF, 16>(a, grid, stream);
+  }
+}
+
+}  // namespace
+
+// Voxels per statistics tile: the fold needs it to weigh the partials.
+extern "C" int miseg_fused_conv3_tile_voxels() { return kTile; }
+
+// How many K splits a call on this device makes; above 1 the caller passes
+// a workspace of splits * B * ceil(Z*Y*X / tile voxels) * tile voxels * cout
+// floats.
+extern "C" int miseg_fused_conv3_splits(int B, int Z, int Y, int X, int cin,
+                                        int cout, int dtype) {
+  int nsteps, nblocks;
+  work_shape(dtype, X, cin, cout, nsteps, nblocks);
+  const long long s = (long long)Z * Y * X;
+  return plan_splits(B * ((s + kTile - 1) / kTile) * nblocks, nsteps);
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (x, w and y share it).  x is a
+// contiguous [B, Z, Y, X, cin]; w a contiguous [3, 3, 3, cin, cout];
+// scale/shift contiguous f32 [B, cin], both null for no affine; leaky != 0
+// applies the slope after the affine.  y is a contiguous [B, Z, Y, X,
+// cout]; part is f32 [2, B * n_tiles, cout] with n_tiles = ceil(Z*Y*X /
+// tile voxels); work is the split-K workspace (see miseg_fused_conv3_splits)
+// or null when there is one split.  Returns the CUDA error code of the last
+// launch (0 on success).
+extern "C" int miseg_fused_conv3(const void* x, const void* w, const void* scale,
+                                 const void* shift, float slope, int leaky,
+                                 void* y, void* part, void* work, int B, int Z,
+                                 int Y, int X, int cin, int cout, int dtype,
+                                 void* stream) {
+  const long long s = (long long)Z * Y * X;
+  if (B < 1 || Z < 1 || Y < 1 || X < 1 || cin < 1 || cout < 1 ||
+      s * (cin > cout ? cin : cout) >= (1LL << 31) ||
+      (scale == nullptr) != (shift == nullptr) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.x = x;
+  a.w = w;
+  a.scale = static_cast<const float*>(scale);
+  a.shift = static_cast<const float*>(shift);
+  a.slope = slope;
+  a.leaky = leaky;
+  a.y = y;
+  a.part = static_cast<float*>(part);
+  a.work = static_cast<float*>(work);
+  a.Z = Z;
+  a.Y = Y;
+  a.X = X;
+  a.cin = cin;
+  a.cout = cout;
+  a.S = (int)s;
+  a.n_tiles = (int)((s + kTile - 1) / kTile);
+  a.n_parts = (long long)B * a.n_tiles;
+  int nblocks;
+  work_shape(dtype, X, cin, cout, a.nsteps, nblocks);
+  a.splits = plan_splits(a.n_parts * nblocks, a.nsteps);
+  if (a.splits > 1 && work == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)a.n_parts, nblocks, a.splits);
+  cudaError_t err;
+  if (on_tensor_cores(dtype, cin, cout)) {
+    switch (wmma_nf(cout)) {
+      case 4: err = launch_wmma_kc<4>(a, grid, st); break;
+      case 3: err = launch_wmma_kc<3>(a, grid, st); break;
+      case 2: err = launch_wmma_kc<2>(a, grid, st); break;
+      default: err = launch_wmma_kc<1>(a, grid, st); break;
+    }
+  } else {
+    if (dtype == 0)
+      miseg_k4_conv_fma<float><<<grid, kThreads, 0, st>>>(a);
+    else
+      miseg_k4_conv_fma<__nv_bfloat16><<<grid, kThreads, 0, st>>>(a);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess || a.splits == 1) return (int)err;
+  const dim3 rgrid((unsigned)a.n_parts, (cout + kFmaBn - 1) / kFmaBn);
+  if (dtype == 0)
+    miseg_k4_splitk_reduce<float><<<rgrid, kThreads, 0, st>>>(a);
+  else
+    miseg_k4_splitk_reduce<__nv_bfloat16><<<rgrid, kThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}

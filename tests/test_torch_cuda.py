@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from miseg_tpu_torch.ops.kernels import fused_norm, window_attention as wa
+from miseg_tpu_torch.ops.kernels import fused_conv, fused_norm, window_attention as wa
 from miseg_tpu_torch.ops.window import window_region_ids
 
 pytestmark = pytest.mark.cuda
@@ -116,7 +116,106 @@ def test_k5_rejects_oversize(dev):
         wa.window_attention(q, q, q, torch.zeros((1, 8, 8), device=dev), num_heads=1)
 
 
-def test_model_forward_card_matches_cpu(dev):
+# K4 cases: (x shape, Cout); the flagship's main-path channel pairs at cut
+# spatial sizes, encoder1's Cin = 1, encoder10's 768 -> 768 at 3^3, a
+# generic odd one, and band-staged ones (X % 16 == 0) whose tiles span
+# several x-rows and whose last tile is short
+_CONV = {
+    "cin1_to48": ((1, 7, 9, 11, 1), 48),
+    "48_to48": ((1, 24, 24, 24, 48), 48),
+    "96_to48_b2": ((2, 16, 16, 16, 96), 48),
+    "768_to768": ((1, 3, 3, 3, 768), 768),
+    "odd_5_to7": ((2, 6, 8, 8, 5), 7),
+    "band_x48_short": ((1, 4, 5, 48, 48), 48),
+    "band_x16_b2": ((2, 5, 4, 16, 32), 64),
+}
+
+
+def _conv_operands(gen, dev, dtype, shape, cout, prologue):
+    b, cin = shape[0], shape[-1]
+    x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, dtype)
+    w = (torch.randn((cout, cin, 3, 3, 3), generator=gen) / (27 * cin) ** 0.5).to(dev, dtype)
+    kw = {}
+    if prologue != "none":   # a per-sample bank row, as a norm's columns
+        kw = dict(scale=(1 + 0.3 * torch.randn((b, cin), generator=gen)).to(dev),
+                  shift=(0.3 * torch.randn((b, cin), generator=gen)).to(dev))
+    if prologue == "affine_leaky":
+        kw["slope"] = 0.01
+    gamma = (1 + 0.2 * torch.randn((2, cout), generator=gen)).to(dev, dtype)
+    beta = (0.2 * torch.randn((2, cout), generator=gen)).to(dev, dtype)
+    styles = torch.tensor([1, 0][:b], dtype=torch.int32, device=dev)
+    return x, w, dict(kw, gamma=gamma, beta=beta, styles=styles)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_CONV))
+@pytest.mark.parametrize("prologue", ["none", "affine", "affine_leaky"])
+def test_k4_matches_plain(dev, gen, case, dtype, prologue):
+    """y at the file's tolerances; the columns against the plain fold of
+    the kernel's OWN y at 1e-5 relative, which isolates the epilogue's
+    statistics from the conv's rounding."""
+    shape, cout = _CONV[case]
+    x, w, kw = _conv_operands(gen, dev, dtype, shape, cout, prologue)
+    before = fused_conv.launches
+    y, sc, sh = fused_conv.conv3_norm_columns(x, w, **kw)
+    assert fused_conv.launches == before + 1
+    ref = fused_conv.conv3_norm_columns_plain(x, w, **kw)[0]
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (*shape[:-1], cout)
+    assert _err(y, ref) <= _tol(ref, dtype)
+    rs, rh = fused_norm.channel_scale_shift_plain(
+        y.reshape(shape[0], -1, cout), kw["gamma"], kw["beta"], kw["styles"])
+    assert _err(sc, rs) <= 1e-5 * (1 + float(rs.abs().max()))
+    assert _err(sh, rh) <= 1e-5 * (1 + float(rh.abs().max()))
+
+
+def test_k4_repeats_bit_identically(dev, gen):
+    x, w, kw = _conv_operands(gen, dev, torch.bfloat16, (1, 24, 24, 24, 48), 48,
+                              "affine_leaky")
+    first = fused_conv.conv3_norm_columns(x, w, **kw)
+    second = fused_conv.conv3_norm_columns(x, w, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_CONV))
+def test_k3_matches_plain(dev, gen, case, dtype):
+    shape, _ = _CONV[case]
+    b, c = shape[0], shape[-1]
+    x = torch.randn(shape, generator=gen).to(dev, dtype)
+    res = torch.randn(shape, generator=gen).to(dev, dtype)
+    cols = [torch.randn((b, c), generator=gen).to(dev) for _ in range(4)]
+    for slope in (None, 0.01):
+        before = fused_norm.apply2_launches
+        y = fused_norm.apply_norm2_act(x, cols[0], cols[1], res, cols[2], cols[3],
+                                       negative_slope=slope)
+        assert fused_norm.apply2_launches == before + 1
+        ref = fused_norm.apply_norm2_act_plain(x, cols[0], cols[1], res, cols[2],
+                                               cols[3], negative_slope=slope)
+        torch.cuda.synchronize()
+        assert y.dtype == dtype
+        assert _err(y, ref) <= _tol(ref, dtype)
+
+
+def test_k3_k4_count_launches(dev):
+    from miseg_tpu_torch.nn.dynunet import UnetResBlock
+    from miseg_tpu_torch.models.factory import init_weights
+    block = UnetResBlock(4, 8, 3, 1, "instance", device=dev)
+    init_weights(block, torch.Generator().manual_seed(0))
+    x = torch.randn((1, 6, 6, 6, 4), device=dev)
+    fused_conv.launches = fused_norm.apply2_launches = 0
+    fused_norm.stats_launches = fused_norm.apply_launches = 0
+    with torch.no_grad():
+        block(x)
+    assert (fused_conv.launches, fused_norm.apply2_launches) == (2, 1)
+    # the projected residual's norm3 is one K1 run; the K4 folds count nothing
+    assert (fused_norm.stats_launches, fused_norm.apply_launches) == (1, 0)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_model_forward_card_matches_cpu(dev, fused):
+    """The f32 model on the card, on both conv-block paths, against the
+    CPU (whose fused path runs the plain versions)."""
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.models import model_from_config
     cfg = Config(model_name="swin_unetr", out_channels=4, feature_size=[12],
@@ -124,12 +223,15 @@ def test_model_forward_card_matches_cpu(dev):
                  encoder_norm_name="instance_cond", vit_norm_name="instance_cond",
                  decoder_norm_name="instance")
     cpu = model_from_config(cfg, device="cpu")
-    card = model_from_config(cfg, device=dev)
+    card = model_from_config(cfg, device=dev, fused_conv=fused)
     card.load_state_dict(cpu.state_dict())
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (2, 32, 32, 32, 1)).astype(np.float32))
     mods = torch.tensor([0, 1], dtype=torch.int32)
+    fused_conv.launches = 0
     with torch.no_grad():
         want = cpu(x, mods)
         got = card(x.to(dev), mods.to(dev)).cpu()
+    # fs 12 at 32^3: 9 of the 10 UnetResBlocks (encoder10 is 1^3) take the chain
+    assert fused_conv.launches == (18 if fused else 0)
     assert _err(got, want) <= 1e-4 * (1 + float(want.abs().max()))

@@ -3,8 +3,9 @@ bridged weights (CPU, f32).
 
 Whole slice: swin_unetr, feature_size 12, num_heads 2, depths 2, 32^3 ROI,
 4 classes, batch 2 with modalities [0, 1], `instance_cond` encoder/ViT and
-`instance` decoder norms; logits must agree at atol 2e-4 (the tolerance
-covers f32 summation-order drift through ~60 layers)."""
+`instance` decoder norms, on both of the port's conv-block paths (the
+fused conv chain and the unfused one); logits must agree at atol 2e-4 (the
+tolerance covers f32 summation-order drift through ~60 layers)."""
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +40,8 @@ _CFG = dict(model_name="swin_unetr", out_channels=4, feature_size=[12],
             decoder_norm_name="instance")
 
 
-def test_swin_unetr_matches_jax(rng):
+@pytest.mark.parametrize("fused_conv", [True, False])
+def test_swin_unetr_matches_jax(rng, fused_conv):
     x = rng.standard_normal((2, 32, 32, 32, 1)).astype(np.float32)
     mods = np.array([0, 1], np.int32)
     jmodel = jax_model_from_config(JConfig(**_CFG))
@@ -51,12 +53,13 @@ def test_swin_unetr_matches_jax(rng):
 
     state = state_dict_from_jax(params)
     assert len(state) == 203
-    model = model_from_config(Config(**_CFG), device="cpu")
+    model = model_from_config(Config(**_CFG), device="cpu", fused_conv=fused_conv)
     model.load_state_dict(state, strict=True)
     with torch.no_grad():
         got = model(t(x), t(mods))
     err = max_err(got, want)
-    print(f"swin_unetr fs12 32^3 f32 logits max |port - jax| = {err:.3e}")
+    print(f"swin_unetr fs12 32^3 f32 fused_conv={fused_conv} logits "
+          f"max |port - jax| = {err:.3e}")
     assert np.isfinite(got.numpy()).all()
     assert err <= ATOL_MODEL
 
