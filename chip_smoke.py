@@ -4,9 +4,11 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases, one result line each; any failed check exits non-zero:
-  1. device  — torch/CUDA versions, the card's name and power limit, and
-               the kernels' build (nvcc for K4 and K5, one process per
-               source, started together; Triton for K1/K2/K3);
+  1. device  — torch/CUDA versions, the card's name and power limit, the
+               kernels' build (nvcc for K4 and K5, one process per source,
+               started together; Triton for K1/K2/K3), and a check that
+               the bf16 K5 and K4-brick kernels hold tensor-core
+               instructions in their SASS;
   2. kernels — K1, K2, K3, K4 and K5 against their plain PyTorch versions
                on the card, in bf16 and f32, at the shapes of the 96^3
                flagship, with CUDA-event times of kernel, plain version and
@@ -114,7 +116,32 @@ def phase_device():
     print(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
           f"card '{card}' count {torch.cuda.device_count()} "
           f"nvcc build {build_s:.2f} s")
+    check_tensor_cores(build)
     return card
+
+
+def check_tensor_cores(build) -> None:
+    """Every instance of the bf16 K5 kernel and of K4's brick kernel holds
+    tensor-core instructions (HMMA/HGMMA) in the built SASS."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    for source, kernel in (("window_attention", "miseg_k5_attn_mma"),
+                           ("fused_conv", "miseg_k4_conv_brick")):
+        sass = subprocess.run([str(tool), "-sass", str(build.library_path(source))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        counts, current = {}, None
+        for line in sass.splitlines():
+            if "Function : " in line:
+                name = line.split("Function : ")[1].strip()
+                current = name if kernel in name else None
+                if current:
+                    counts[current] = 0
+            elif current and ("HMMA" in line or "HGMMA" in line):
+                counts[current] += 1
+        check(bool(counts) and min(counts.values()) > 0,
+              f"{kernel}: tensor-core instructions per instance {sorted(counts.values())}")
+        print(f"  sass {kernel}: {len(counts)} instances, HMMA/HGMMA per instance "
+              f"{min(counts.values())}..{max(counts.values())}")
 
 
 def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
@@ -232,10 +259,20 @@ def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
                                       library_ms=sdpa, max_abs_err=errs[ids is not None])
             print(line)
     # ---- K4 at the conv shapes of the 96^3 window's UnetResBlocks ------
+    # (every (shape, Cout) of the 20 calls; the 96^3 and 48^3 levels take
+    # the brick path, 24^3 and below the per-tap path with split-K)
     convs = [  # (label, x shape, Cout, prologue: norm1's columns + leaky)
         ("encoder1 conv1", (1, 96, 96, 96, 1), 48, False),
         ("encoder1/decoder1 conv2", (1, 96, 96, 96, 48), 48, True),
         ("decoder1 conv1", (1, 96, 96, 96, 96), 48, False),
+        ("encoder2/decoder2 conv2", (1, 48, 48, 48, 48), 48, True),
+        ("decoder2 conv1", (1, 48, 48, 48, 96), 48, False),
+        ("encoder3/decoder3 conv2", (1, 24, 24, 24, 96), 96, True),
+        ("decoder3 conv1", (1, 24, 24, 24, 192), 96, False),
+        ("encoder4/decoder4 conv2", (1, 12, 12, 12, 192), 192, True),
+        ("decoder4 conv1", (1, 12, 12, 12, 384), 192, False),
+        ("decoder5 conv1", (1, 6, 6, 6, 768), 384, False),
+        ("decoder5 conv2", (1, 6, 6, 6, 384), 384, True),
         ("encoder10 conv2", (1, 3, 3, 3, 768), 768, True),
     ]
     for label, shape, cout, prologue in convs:
@@ -432,7 +469,7 @@ def compare_paths(served, cfg, dev, reps: int = 10) -> None:
 # kernel-name substrings -> group, first match wins
 _GROUPS = [("K1", ("miseg_k1_",)), ("K2", ("miseg_k2_",)),
            ("K3", ("miseg_k3_",)), ("K4", ("miseg_k4_",)),
-           ("K5", ("window_attention_kernel",)),
+           ("K5", ("miseg_k5_", "window_attention_kernel")),
            ("conv (cuDNN)", ("conv", "xmma", "implicit", "cudnn", "fprop", "dgrad")),
            ("linear (GEMM)", ("gemm", "cutlass", "gemv")),
            ("copy/pad/cat/roll", ("copy", "cat", "pad", "roll", "index", "gather"))]
@@ -482,7 +519,9 @@ def profile_window(served, dev, reps: int = 3) -> None:
           f"(idle share {max(0.0, 1 - busy / wall_ms):.1%}), {len(kernels) // reps} kernels")
     print("  by group ms/window: " + ", ".join(
         f"{g} {ms:.3f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for name, ms in top[:10] + [kv for kv in top[10:] if "miseg_k4_" in kv[0]
+                                or "miseg_k5_" in kv[0]]:
         print(f"  {ms:8.3f} ms  {name[:110]}")
 
 

@@ -2,10 +2,10 @@
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a shared
 library in `_build/` beside this file (listed in .gitignore).  The file
-name carries a hash of the source, so an edited kernel never loads a stale
-build.  Nothing compiles at import: the first call that needs a library
-builds it, and `build_all()` builds every source at once, one `nvcc` per
-source, all started together.
+name carries a hash of the source and of the shared `csrc/*.cuh` headers,
+so an edited kernel never loads a stale build.  Nothing compiles at
+import: the first call that needs a library builds it, and `build_all()`
+builds every source at once, one `nvcc` per source, all started together.
 """
 
 from __future__ import annotations
@@ -45,14 +45,17 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+def library_path(name: str) -> Path:
+    """Where the build of `csrc/<name>.cu` for the current source (and
+    the shared `csrc/*.cuh` headers) lives."""
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
-    out = _target(name)
+    out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -98,6 +101,6 @@ def load(name: str) -> ctypes.CDLL:
             job = _start(name)
             if job is not None:
                 _finish(name, job)
-            lib = ctypes.CDLL(str(_target(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib

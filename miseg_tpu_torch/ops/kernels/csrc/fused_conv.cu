@@ -11,9 +11,10 @@
 // kernel multiplies its z-halo by `valid` and pads y/x with zeros after
 // `_transform`), which is the unfused path's zero-padded normalised input.
 // The epilogue rounds y to T, stores it, and writes the per-channel
-// (mean, M2) of the ROUNDED values of its tile: kTile consecutive voxels of
-// one sample (only a sample's last tile is short), taken two-pass over the
-// tile held in shared memory.  The partials are laid out [2, B*n_tiles,
+// (mean, M2) of the ROUNDED values of its tile: a 4x4x16 brick on the
+// brick path, else kTile consecutive voxels of one sample (only a
+// sample's last tile is short), taken two-pass over the tile held in
+// shared memory.  The partials are laid out [2, B*n_tiles,
 // Cout] like K1's pass 1, so K1's fold turns them into the next norm's
 // scale/shift.  The TPU kernel's one-pass (sum, sum^2) carried across a
 // sequential grid has no counterpart here: blocks run in parallel, and no
@@ -24,45 +25,56 @@
 // 48->48 and 220 GFLOP at 96->48, against 170 and 255 MB moved: it is
 // bound by the tensor cores (0.11 and 0.22 ms at 989 TFLOP/s).  encoder1's
 // 1->48 conv (reduction depth 27) and the 3^3 768->768 conv (31.9 MB of
-// weights, 0.86 GFLOP) are bound by bytes.
+// weights, 0.86 GFLOP) are bound by bytes.  An implicit GEMM gathers each
+// input element once per tap, so a design that also transforms it per tap
+// does the prologue 27 times per element; staging (dz, dy) bands of x-rows
+// cut that to 9, and the transform still cost about as much as the MMAs.
 //
-// Design.  Implicit GEMM: M = voxels in tiles of kTile = 128, N = Cout in
-// blocks, K = 27*Cin.  Each tile first records, per row of its A operand,
-// a flat voxel index and a mask of the K groups whose neighbour lies
-// inside the volume, so a K step's gather is a mask test and an add.
-//   * bf16 with Cin, Cout multiples of 16: WMMA bf16 16x16x16 with f32
-//     accumulators (mma.sync on the tensor cores), 4 warps of 32 voxel rows
-//     by all BN = 16*NF output channels of the CTA.  A K step's A chunk
-//     (KC channels) and weight chunk are copied with cp.async (16 bytes a
-//     thread; a halo voxel is a zero fill) into a ring of buffers, so the
-//     next step's loads are in flight while the warps multiply.  The thread
-//     that copied a vector applies the transform to it in shared memory
-//     once it lands (halo vectors stay zero).  The 27-fold re-read of each
-//     input element is what costs: when X % 16 == 0 (the 96^3 and 48^3
-//     levels) a K step is one (dz, dy) band of the tile's x-rows, widened
-//     by one voxel on each side, which serves the three dx taps at row
-//     offsets -1, 0, +1, so each element is gathered and transformed 9
-//     times instead of 27; otherwise a K step is one tap.
+// Design.  Implicit GEMM: M = output voxels, N = Cout in blocks, K =
+// 27*Cin.  Three paths:
+//   * bf16 with Cin, Cout multiples of 16 and a volume that 4x4x16 bricks
+//     divide (the 96^3 and 48^3 levels): miseg_k4_conv_brick.  A CTA owns
+//     one brick (256 voxels) and 16*NF output channels.  Per chunk of KC
+//     input channels it copies the brick's 6x6x18 input halo once with
+//     cp.async (zero fill outside the volume), transforms it once in shared
+//     memory (halo outside the volume stays 0), and all 27 taps read
+//     shifted views of it: the 16 voxels of an x-row at tap (kz, ky, kx)
+//     are 16 consecutive halo rows, so ldmatrix serves every tap with no
+//     further staging.  Each element is transformed 648/256 = 2.5 times
+//     (9 with bands, 27 per tap).  The weight slices of 3 taps at a time
+//     stream through a 2-stage cp.async ring (9 barriers per chunk, not
+//     27); mma.sync m16n8k16 (bf16 in, f32 accumulators), 8 warps of 2
+//     x-rows (32 voxels) by 16*NF channels.  At 48->48 and 96->48 (KC =
+//     48) a CTA takes 105 KB, two per SM, so one CTA's halo copy and
+//     transform overlap the other's MMAs.  The
+//     statistics tile is the brick.
+//   * other bf16 calls with Cin, Cout multiples of 16 (24^3 and below):
+//     WMMA bf16 16x16x16 per tap, 4 warps of 32 voxel rows of a 128-voxel
+//     tile; a K step (one tap of KC channels) is copied with cp.async into
+//     a ring and transformed by the thread that copied it.
 //   * f32, or any channel count that is not a multiple of 16 (encoder1's
 //     Cin = 1): CUDA cores in f32 FMA (never TF32), a 128 x 64 tile with
 //     8 x 4 outputs per thread, K in chunks of 16 with any (tap, channel)
 //     split, double-buffered through registers.
-//   * Few tiles (the 24^3 .. 3^3 levels: 12 to 216 CTAs for 132 SMs, with
-//     up to 324 K steps each): split-K.  Each split writes its f32 partial
-//     sums to a workspace and a second kernel adds the splits in a fixed
-//     order before the same epilogue, so the result stays deterministic.
-// It is a first kernel: the transform is still redone 9 (or 27) times per
-// element, and mma.sync reaches a fraction of wgmma's rate; TMA-fed wgmma
-// tiles with the halo staged once are the later work.
+// Few tiles (the 24^3 .. 3^3 levels: 12 to 216 CTAs for 132 SMs, with up
+// to 324 K steps each) split K: each split writes its f32 partial sums to
+// a workspace and a second kernel adds the splits in a fixed order before
+// the same epilogue, so the result stays deterministic.  The brick path
+// never splits.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "mma_sync.cuh"
+
 namespace {
 
 using namespace nvcuda;
+using miseg::ldmatrix_x4;
+using miseg::ldmatrix_x4_trans;
+using miseg::mma_bf16;
 
 constexpr int kTile = 128;      // voxels per tile; only a sample's last is short
 constexpr int kThreads = 256;   // CUDA-core path and split-K reduce: 8 warps
@@ -106,6 +118,34 @@ __device__ __forceinline__ float prologue(float v, float sc, float sh,
   if (affine) v = __fadd_rn(__fmul_rn(v, sc), sh);
   if (leaky && !(v >= 0.0f)) v = __fmul_rn(slope, v);
   return v;
+}
+
+// The prologue on 8 bf16 channels c .. c + 7 in shared memory, with the
+// sample's columns ssc/ssh staged in shared memory; one rounding to bf16.
+__device__ __forceinline__ void transform8(__nv_bfloat16* at, const float* ssc,
+                                           const float* ssh, int c, bool affine,
+                                           bool leaky, float slope) {
+  uint4* p = reinterpret_cast<uint4*>(at);
+  uint4 val = *p;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&val);
+  float sc[8], sh[8];
+#pragma unroll
+  for (int j = 0; j < 8; j += 4) {   // the columns, 16 bytes at a time
+    const float4 s4 = affine ? *reinterpret_cast<const float4*>(ssc + c + j)
+                             : make_float4(1.f, 1.f, 1.f, 1.f);
+    const float4 h4 = affine ? *reinterpret_cast<const float4*>(ssh + c + j)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    sc[j] = s4.x; sc[j + 1] = s4.y; sc[j + 2] = s4.z; sc[j + 3] = s4.w;
+    sh[j] = h4.x; sh[j + 1] = h4.y; sh[j + 2] = h4.z; sh[j + 3] = h4.w;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float2 f = __bfloat1622float2(h[j]);
+    f.x = prologue(f.x, sc[2 * j], sh[2 * j], affine, leaky, slope);
+    f.y = prologue(f.y, sc[2 * j + 1], sh[2 * j + 1], affine, leaky, slope);
+    h[j] = __floats2bfloat162_rn(f.x, f.y);
+  }
+  *p = val;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -175,19 +215,36 @@ __device__ __forceinline__ void split_range(const Args& a, int& begin, int& end)
 }
 
 // Epilogue.  Cs holds the f32 sums of the tile, [tile][ldc]; rows >=
-// nvalid and columns >= ncols are ignored.  Rounds to T, stores y, then
-// takes the per-channel (mean, M2) of the rounded values two-pass: one
-// warp per column, lanes over rows.
-template <typename T>
+// nvalid and columns >= ncols are ignored; row r is voxel voxel(r) of the
+// sample.  Rounds to T, stores y, then takes the per-channel (mean, M2) of
+// the rounded values two-pass: one warp per column, lanes over rows.
+template <typename T, typename VoxelOf>
 __device__ void epilogue(const Args& a, const Tile& t, float* Cs, int ldc, int ncols,
-                         int n0) {
+                         int n0, VoxelOf voxel) {
   T* y = static_cast<T*>(a.y);
-  const long long row0 = (long long)t.b * a.S + (long long)t.tile * kTile;
-  for (int e = threadIdx.x; e < t.nvalid * ncols; e += blockDim.x) {
-    const int r = e / ncols, c = e - r * ncols;
-    const T v = from_f32<T>(Cs[r * ldc + c]);
-    y[(row0 + r) * a.cout + n0 + c] = v;
-    Cs[r * ldc + c] = to_f32(v);
+  const long long row0 = (long long)t.b * a.S;
+  if (ncols % 8 == 0 && a.cout % 8 == 0) {   // 8 channels a thread, one vector store
+    const int groups = ncols / 8;
+    for (int e = threadIdx.x; e < t.nvalid * groups; e += blockDim.x) {
+      const int r = e / groups, c = (e - r * groups) * 8;
+      float* src = Cs + r * ldc + c;
+      __align__(16) T v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        v[k] = from_f32<T>(src[k]);
+        src[k] = to_f32(v[k]);
+      }
+      uint4* dst = reinterpret_cast<uint4*>(y + (row0 + voxel(r)) * a.cout + n0 + c);
+#pragma unroll
+      for (int k = 0; k < (int)sizeof(v) / 16; ++k) dst[k] = reinterpret_cast<const uint4*>(v)[k];
+    }
+  } else {
+    for (int e = threadIdx.x; e < t.nvalid * ncols; e += blockDim.x) {
+      const int r = e / ncols, c = e - r * ncols;
+      const T v = from_f32<T>(Cs[r * ldc + c]);
+      y[(row0 + voxel(r)) * a.cout + n0 + c] = v;
+      Cs[r * ldc + c] = to_f32(v);
+    }
   }
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -208,6 +265,12 @@ __device__ void epilogue(const Args& a, const Tile& t, float* Cs, int ldc, int n
   }
 }
 
+// The voxel of row r of a tile of kTile consecutive voxels.
+struct TileRows {
+  int m0;
+  __device__ int operator()(int r) const { return m0 + r; }
+};
+
 // Row r, column c of this split's slice of the workspace.
 __device__ __forceinline__ float* work_at(const Args& a, const Tile& t, int r, int c) {
   return a.work + ((long long)blockIdx.z * a.n_parts * kTile
@@ -215,107 +278,42 @@ __device__ __forceinline__ float* work_at(const Args& a, const Tile& t, int r, i
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: Cin % KC == 0, Cout % (16 * NF) == 0.
-//
-// BAND (X % 16 == 0, the 96^3 and 48^3 levels): a K step is one (dz, dy)
-// band of KC channels.  The band holds the tile's x-rows, each shifted by
-// (dz, dy) and widened by one voxel on each side, so the three dx taps read
-// it at row offsets -1, 0, +1; a 16-voxel fragment never straddles an
-// x-row, and the widening voxels are the zero halo (or the real
-// neighbour), so no row needs a per-tap mask.  Otherwise a K step is one
-// tap, gathered per voxel row.
-
-// x-rows a tile can touch when X >= 16 and the tile starts on a multiple of 16
-constexpr int kMaxSegs = (kTile - 16) / 16 + 1;
-constexpr int kBandRows = kTile + 2 * kMaxSegs;
-constexpr int kFrags = kTile / 16;
-
-// Band layout of the tile: per band row p, the flat index of its voxel in
-// the tile's own x-row (dz = dy = 0; may lie one past the row's ends) and
-// bit (dz+1)*3 + (dy+1) set when the shifted voxel lies inside the volume;
-// per fragment, the band row of its first voxel.
-__device__ __forceinline__ void band_rows(const Args& a, const Tile& t, int* roff,
-                                          unsigned* rmask, int* fbase) {
-  const int m0 = t.tile * kTile;
-  const int q0 = m0 / a.X, x0 = m0 - q0 * a.X;
-  for (int p = threadIdx.x; p < kBandRows; p += blockDim.x) {
-    unsigned mask = 0u;
-    int flat = 0;
-    for (int pos = 0, left = t.nvalid, xb = x0, q = q0; left > 0; ++q) {
-      const int n = min(a.X - xb, left);
-      if (p < pos + n + 2) {
-        const int x = xb - 1 + (p - pos);
-        flat = q * a.X + x;
-        if (x >= 0 && x < a.X) {
-          const int y = q % a.Y, z = q / a.Y;
-          for (int pair = 0; pair < 9; ++pair) {
-            const int zz = z + pair / 3 - 1, yy = y + pair % 3 - 1;
-            if ((unsigned)zz < (unsigned)a.Z && (unsigned)yy < (unsigned)a.Y)
-              mask |= 1u << pair;
-          }
-        }
-        break;
-      }
-      pos += n + 2;
-      left -= n;
-      xb = 0;
-    }
-    roff[p] = flat;
-    rmask[p] = mask;
-  }
-  for (int f = threadIdx.x; f < kFrags; f += blockDim.x) {
-    const int u = f * 16;
-    int base = 1;  // a fragment past the tile's end reads anything: its rows are dropped
-    for (int pos = 0, left = t.nvalid, xb = x0, done = 0; u < t.nvalid && left > 0;) {
-      const int n = min(a.X - xb, left);
-      if (u < done + n) {
-        base = pos + 1 + (u - done);
-        break;
-      }
-      pos += n + 2;
-      left -= n;
-      done += n;
-      xb = 0;
-    }
-    fbase[f] = base;
-  }
-}
+// bf16 on the tensor cores, per tap (WMMA): Cin % KC == 0, Cout % (16 * NF)
+// == 0, where the brick path does not apply.  A K step is one tap of KC
+// channels, gathered per voxel row.
 
 // KC + padding, an odd multiple of 16 elements: every row starts 32-byte
-// aligned (as WMMA loads need, at any band offset), and 8 consecutive rows
-// fall on at most 2 bank groups
+// aligned (as WMMA loads need), and 8 consecutive rows fall on at most 2
+// bank groups
 __host__ __device__ constexpr int padded_kc(int kc) {
   return kc + ((kc / 16) % 2 == 0 ? 16 : 32);
 }
 
-template <int NF, int KC, bool BAND>
+template <int NF, int KC>
 struct WmmaShape {
   static constexpr int BN = 16 * NF, BNP = BN + kPad, KCP = padded_kc(KC), LDC = BN + 4;
-  static constexpr int TAPS = BAND ? 3 : 1;              // taps per K step
-  static constexpr int STAGES = BAND ? 2 : 3;            // two CTAs per SM either way
-  static constexpr int A_ROWS = BAND ? kBandRows : kTile;
-  static constexpr int A_ELEMS = A_ROWS * KCP;           // one stage of A, bf16
-  static constexpr int B_ELEMS = TAPS * KC * BNP;        // one stage of B, bf16
+  static constexpr int STAGES = 3;
+  static constexpr int A_ELEMS = kTile * KCP;            // one stage of A, bf16
+  static constexpr int B_ELEMS = KC * BNP;               // one stage of B, bf16
   static constexpr size_t RING = (size_t)STAGES * (A_ELEMS + B_ELEMS) * sizeof(__nv_bfloat16);
   static constexpr size_t CS = (size_t)kTile * LDC * sizeof(float);
   static constexpr size_t BYTES = RING > CS ? RING : CS;  // + 2*cin floats of columns
 };
 
-template <int NF, int KC, bool BAND>
+template <int NF, int KC>
 __global__ void __launch_bounds__(kWmmaThreads, 2)
 miseg_k4_conv_wmma(Args a) {
-  using Sh = WmmaShape<NF, KC, BAND>;
-  constexpr int BN = Sh::BN, BNP = Sh::BNP, KCP = Sh::KCP, TAPS = Sh::TAPS;
+  using Sh = WmmaShape<NF, KC>;
+  constexpr int BN = Sh::BN, BNP = Sh::BNP, KCP = Sh::KCP;
   constexpr int STAGES = Sh::STAGES;
-  constexpr int SEGS = KC / 8, A_VECS = Sh::A_ROWS * SEGS;
-  constexpr int B_SEGS = BN / 8, B_VECS = TAPS * KC * B_SEGS;
+  constexpr int SEGS = KC / 8, A_VECS = kTile * SEGS;
+  constexpr int B_SEGS = BN / 8, B_VECS = KC * B_SEGS;
   constexpr int MF = kWarpM / 16;   // 16-row fragments per warp
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int roff[Sh::A_ROWS];
-  __shared__ unsigned rmask[Sh::A_ROWS];
-  __shared__ int fbase[kFrags];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);   // [STAGES][A_ROWS][KCP]
-  __nv_bfloat16* Bs = As + STAGES * Sh::A_ELEMS;                // [STAGES][TAPS*KC][BNP]
+  __shared__ int roff[kTile];
+  __shared__ unsigned rmask[kTile];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);   // [STAGES][kTile][KCP]
+  __nv_bfloat16* Bs = As + STAGES * Sh::A_ELEMS;                // [STAGES][KC][BNP]
   float* ssc = reinterpret_cast<float*>(smem + Sh::BYTES);
   float* ssh = ssc + a.cin;
 
@@ -330,30 +328,18 @@ miseg_k4_conv_wmma(Args a) {
   int k_begin, k_end;
   split_range(a, k_begin, k_end);
 
-  if (BAND)
-    band_rows(a, t, roff, rmask, fbase);
-  else
-    tile_rows(a, t, roff, rmask);
+  tile_rows(a, t, roff, rmask);
   if (affine)
     for (int c = tid; c < cin; c += kWmmaThreads) {
       ssc[c] = a.scale[(long long)t.b * cin + c];
       ssh[c] = a.shift[(long long)t.b * cin + c];
     }
   __syncthreads();
-  int frow[MF];   // A row of each of this warp's fragments, at tap offset 0
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-    frow[i] = BAND ? fbase[warp * MF + i] - 1 : warp * kWarpM + i * 16;
-
-  // K step s: group g = s / nchunks is a (dz, dy) band (BAND) or a tap;
-  // its taps are g*TAPS .. g*TAPS + TAPS - 1 and its rows test bit g
-  auto group_delta = [&](int g) {
-    return BAND ? ((g / 3 - 1) * a.Y + g % 3 - 1) * a.X : tap_delta(a, g);
-  };
-
+  // K step s: tap g = s / nchunks, channels c0 .. c0 + KC - 1; a row
+  // takes the tap when its bit g is set
   auto issue = [&](int s, int buf) {
     const int g = s / nchunks, c0 = (s - g * nchunks) * KC;
-    const int delta = group_delta(g);
+    const int delta = tap_delta(a, g);
     __nv_bfloat16* A = As + buf * Sh::A_ELEMS;
     __nv_bfloat16* B = Bs + buf * Sh::B_ELEMS;
     for (int v = tid; v < A_VECS; v += kWmmaThreads) {
@@ -364,10 +350,8 @@ miseg_k4_conv_wmma(Args a) {
     }
     for (int v = tid; v < B_VECS; v += kWmmaThreads) {
       const int k = v / B_SEGS, seg = v - k * B_SEGS;
-      const int dx = k / KC, kk = k - dx * KC;
       cp_async16(B + k * BNP + seg * 8,
-                 w + (long long)((g * TAPS + dx) * cin + c0 + kk) * cout + n0 + seg * 8,
-                 true);
+                 w + (long long)(g * cin + c0 + k) * cout + n0 + seg * 8, true);
     }
   };
 
@@ -378,28 +362,7 @@ miseg_k4_conv_wmma(Args a) {
     for (int v = tid; v < A_VECS; v += kWmmaThreads) {
       const int r = v / SEGS, seg = v - r * SEGS;
       if (!((rmask[r] >> g) & 1u)) continue;
-      uint4* p = reinterpret_cast<uint4*>(A + r * KCP + seg * 8);
-      uint4 val = *p;
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&val);
-      const int c = c0 + seg * 8;
-      float sc[8], sh[8];
-#pragma unroll
-      for (int j = 0; j < 8; j += 4) {   // the columns, 16 bytes at a time
-        const float4 s4 = affine ? *reinterpret_cast<const float4*>(ssc + c + j)
-                                 : make_float4(1.f, 1.f, 1.f, 1.f);
-        const float4 h4 = affine ? *reinterpret_cast<const float4*>(ssh + c + j)
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-        sc[j] = s4.x; sc[j + 1] = s4.y; sc[j + 2] = s4.z; sc[j + 3] = s4.w;
-        sh[j] = h4.x; sh[j + 1] = h4.y; sh[j + 2] = h4.z; sh[j + 3] = h4.w;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float2 f = __bfloat1622float2(h[j]);
-        f.x = prologue(f.x, sc[2 * j], sh[2 * j], affine, leaky, a.slope);
-        f.y = prologue(f.y, sc[2 * j + 1], sh[2 * j + 1], affine, leaky, a.slope);
-        h[j] = __floats2bfloat162_rn(f.x, f.y);
-      }
-      *p = val;
+      transform8(A + r * KCP + seg * 8, ssc, ssh, c0 + seg * 8, affine, leaky, a.slope);
     }
   };
 
@@ -426,21 +389,19 @@ miseg_k4_conv_wmma(Args a) {
     const __nv_bfloat16* A = As + buf * Sh::A_ELEMS;
     const __nv_bfloat16* B = Bs + buf * Sh::B_ELEMS;
 #pragma unroll
-    for (int dx = 0; dx < TAPS; ++dx)
+    for (int kk = 0; kk < KC; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[MF];
 #pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[MF];
+      for (int i = 0; i < MF; ++i)
+        wmma::load_matrix_sync(fa[i], A + (warp * kWarpM + i * 16) * KCP + kk, KCP);
 #pragma unroll
-        for (int i = 0; i < MF; ++i)
-          wmma::load_matrix_sync(fa[i], A + (frow[i] + dx) * KCP + kk, KCP);
+      for (int j = 0; j < NF; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
+        wmma::load_matrix_sync(fb, B + kk * BNP + j * 16, BNP);
 #pragma unroll
-        for (int j = 0; j < NF; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, B + (dx * KC + kk) * BNP + j * 16, BNP);
-#pragma unroll
-          for (int i = 0; i < MF; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-        }
+        for (int i = 0; i < MF; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
       }
+    }
   }
   cp_async_wait<0>();
   __syncthreads();   // the ring is idle: Cs may alias it
@@ -462,7 +423,197 @@ miseg_k4_conv_wmma(Args a) {
       wmma::store_matrix_sync(Cs + (warp * kWarpM + i * 16) * Sh::LDC + j * 16, acc[i][j],
                               Sh::LDC, wmma::mem_row_major);
   __syncthreads();
-  epilogue<__nv_bfloat16>(a, t, Cs, Sh::LDC, BN, n0);
+  epilogue<__nv_bfloat16>(a, t, Cs, Sh::LDC, BN, n0, TileRows{t.tile * kTile});
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores, by brick: Cin % KC == 0, Cout % (16 * NF) == 0,
+// and the volume divides into 4 x 4 x 16 bricks (z, y, x).  A CTA owns one
+// brick (256 output voxels) and BN output channels.  Per KC-channel chunk
+// it copies the brick's input halo, 6 x 6 x 18 voxels, once (cp.async,
+// zero fill outside the volume), transforms it once in shared memory (the
+// halo outside the volume stays 0), and then all 27 taps read shifted
+// views of it: at tap (kz, ky, kx) the 16 voxels of an x-row of the brick
+// are 16 consecutive halo rows, so ldmatrix serves every tap with no
+// further staging.  The weight slices of kBrickTaps taps at a time stream
+// through a kBrickStages-deep cp.async ring.  Each warp multiplies 2
+// x-rows (32 voxels) by BN channels with mma.sync m16n8k16.
+
+constexpr int kBrickZ = 4, kBrickY = 4, kBrickX = 16;
+constexpr int kBrick = kBrickZ * kBrickY * kBrickX;              // 256 voxels
+constexpr int kHaloZ = kBrickZ + 2, kHaloY = kBrickY + 2, kHaloX = kBrickX + 2;
+constexpr int kHalo = kHaloZ * kHaloY * kHaloX;                  // 648 voxels
+constexpr int kBrickThreads = kBrick / 32 * 32;                  // a warp per 32 voxels
+constexpr int kBrickTaps = 3;      // taps per weight-ring stage (divides 27)
+constexpr int kBrickStages = 2;    // weight-ring stages
+
+template <int NF, int KC>
+struct BrickShape {
+  static constexpr int BN = 16 * NF, BNP = BN + 8, KCP = KC + 8, LDC = BN + 4;
+  // 16-byte row padding: 8 consecutive rows of ldmatrix hit distinct banks
+  static constexpr size_t HALO = (size_t)kHalo * KCP * sizeof(__nv_bfloat16);
+  static constexpr int STAGE = kBrickTaps * KC * BNP;   // bf16 per ring stage
+  static constexpr size_t RING = (size_t)kBrickStages * STAGE * sizeof(__nv_bfloat16);
+  static constexpr size_t CS = (size_t)kBrick * LDC * sizeof(float);
+  static constexpr size_t BYTES = HALO + RING > CS ? HALO + RING : CS;  // + 2*cin floats
+};
+
+// The voxel of row r of a brick: rows run x fastest, then y, then z.
+struct BrickRows {
+  int z0, y0, x0, Y, X;
+  __device__ int operator()(int r) const {
+    const int q = r / kBrickX;
+    return ((z0 + q / kBrickY) * Y + y0 + q % kBrickY) * X + x0 + r % kBrickX;
+  }
+};
+
+template <int NF, int KC>
+__global__ void __launch_bounds__(kBrickThreads, 2)
+miseg_k4_conv_brick(Args a) {
+  using Sh = BrickShape<NF, KC>;
+  constexpr int BN = Sh::BN, BNP = Sh::BNP, KCP = Sh::KCP;
+  constexpr int SEGS = KC / 8, H_VECS = kHalo * SEGS;
+  constexpr int B_SEGS = BN / 8, B_VECS = kBrickTaps * KC * B_SEGS;
+  constexpr int NSTAGES = 27 / kBrickTaps, S = kBrickStages;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* Hs = reinterpret_cast<__nv_bfloat16*>(smem);    // [kHalo][KCP]
+  __nv_bfloat16* Ws = Hs + kHalo * KCP;                           // [S][taps][KC][BNP]
+  float* ssc = reinterpret_cast<float*>(smem + Sh::BYTES);
+  float* ssh = ssc + a.cin;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  Tile t;
+  t.b = blockIdx.x / a.n_tiles;
+  t.tile = blockIdx.x % a.n_tiles;
+  t.nvalid = kBrick;
+  t.tile_global = blockIdx.x;
+  const int nbx = a.X / kBrickX, nby = a.Y / kBrickY;
+  const BrickRows rows{t.tile / (nbx * nby) * kBrickZ, t.tile / nbx % nby * kBrickY,
+                       t.tile % nbx * kBrickX, a.Y, a.X};
+  const int n0 = blockIdx.y * BN;
+  const int cin = a.cin, cout = a.cout;
+  const bool affine = a.scale != nullptr, leaky = a.leaky != 0;
+  const bool transform = affine || leaky;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x) + (long long)t.b * a.S * cin;
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
+
+  if (affine)
+    for (int c = tid; c < cin; c += kBrickThreads) {
+      ssc[c] = a.scale[(long long)t.b * cin + c];
+      ssh[c] = a.shift[(long long)t.b * cin + c];
+    }
+
+  // halo voxel hv -> its flat voxel index, or -1 outside the volume
+  auto halo_voxel = [&](int hv) {
+    const int hx = hv % kHaloX, hy = hv / kHaloX % kHaloY, hz = hv / (kHaloX * kHaloY);
+    const int zz = rows.z0 - 1 + hz, yy = rows.y0 - 1 + hy, xx = rows.x0 - 1 + hx;
+    const bool in = (unsigned)zz < (unsigned)a.Z && (unsigned)yy < (unsigned)a.Y &&
+                    (unsigned)xx < (unsigned)a.X;
+    return in ? (zz * a.Y + yy) * a.X + xx : -1;
+  };
+  auto issue_halo = [&](int c0) {
+    for (int v = tid; v < H_VECS; v += kBrickThreads) {
+      const int hv = v / SEGS, seg = v - hv * SEGS;
+      const int m = halo_voxel(hv);
+      cp_async16(Hs + hv * KCP + seg * 8,
+                 m >= 0 ? x + (long long)m * cin + c0 + seg * 8 : x, m >= 0);
+    }
+  };
+  // ring stage sg holds the KC x BN weight slices of taps sg*kBrickTaps ..
+  auto issue_w = [&](int sg, int c0, int buf) {
+    __nv_bfloat16* B = Ws + buf * Sh::STAGE;
+    for (int v = tid; v < B_VECS; v += kBrickThreads) {
+      const int k = v / B_SEGS, seg = v - k * B_SEGS;
+      const int tap = sg * kBrickTaps + k / KC, kk = k % KC;
+      cp_async16(B + k * BNP + seg * 8,
+                 w + (long long)(tap * cin + c0 + kk) * cout + n0 + seg * 8, true);
+    }
+  };
+
+  // this lane's ldmatrix row of each of the warp's two x-rows, at tap 0
+  int hrow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int q = warp * 2 + i;
+    hrow[i] = ((q / kBrickY) * kHaloY + q % kBrickY) * kHaloX + (lane & 15);
+  }
+  const int acol = (lane >> 4) * 8;                             // A: k half
+  const int brow = (lane & 7) + ((lane >> 3) & 1) * 8;          // B: k row
+  const int bcol = (lane >> 4) * 8;                             // B: n half
+
+  float acc[2][2 * NF][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2 * NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  for (int c0 = 0; c0 < cin; c0 += KC) {
+    // the columns are staged; every warp left the last chunk's halo and ring
+    __syncthreads();
+    issue_halo(c0);
+    cp_async_commit();
+#pragma unroll
+    for (int st = 0; st < S - 1; ++st) {
+      issue_w(st, c0, st);
+      cp_async_commit();
+    }
+    cp_async_wait<S - 1>();   // this thread's halo copies landed
+    if (transform)
+      for (int v = tid; v < H_VECS; v += kBrickThreads) {
+        const int hv = v / SEGS, seg = v - hv * SEGS;
+        if (halo_voxel(hv) >= 0)
+          transform8(Hs + hv * KCP + seg * 8, ssc, ssh, c0 + seg * 8, affine, leaky, a.slope);
+      }
+    for (int sg = 0; sg < NSTAGES; ++sg) {
+      cp_async_wait<S - 2>();   // this thread's copies of stage sg landed
+      // every copy and the transform are visible, and every warp has left
+      // stage sg - 1, whose ring slot the next issue refills
+      __syncthreads();
+      if (sg + S - 1 < NSTAGES) issue_w(sg + S - 1, c0, (sg + S - 1) % S);
+      cp_async_commit();
+#pragma unroll
+      for (int tp = 0; tp < kBrickTaps; ++tp) {
+        const int tap = sg * kBrickTaps + tp;
+        const int shift = ((tap / 9) * kHaloY + tap / 3 % 3) * kHaloX + tap % 3;
+        const __nv_bfloat16* B = Ws + (sg % S) * Sh::STAGE + tp * KC * BNP;
+#pragma unroll
+        for (int kk = 0; kk < KC; kk += 16) {
+          uint32_t af[2][4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            ldmatrix_x4(af[i], Hs + (hrow[i] + shift) * KCP + kk + acol);
+#pragma unroll
+          for (int j = 0; j < NF; ++j) {
+            uint32_t bf[4];
+            ldmatrix_x4_trans(bf, B + (kk + brow) * BNP + j * 16 + bcol);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              mma_bf16(acc[i][2 * j], af[i], bf[0], bf[1]);
+              mma_bf16(acc[i][2 * j + 1], af[i], bf[2], bf[3]);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the halo and ring are idle: Cs may alias them
+
+  float* Cs = reinterpret_cast<float*>(smem);
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2 * NF; ++j) {
+      const int r = (warp * 2 + i) * kBrickX + g, c = j * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(Cs + r * Sh::LDC + c) = make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(Cs + (r + 8) * Sh::LDC + c) =
+          make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+  __syncthreads();
+  epilogue<__nv_bfloat16>(a, t, Cs, Sh::LDC, BN, n0, rows);
 }
 
 // ---------------------------------------------------------------------------
@@ -592,7 +743,7 @@ miseg_k4_conv_fma(Args a) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) Cs[(tr * 8 + i) * LDC + tc * 4 + j] = acc[i][j];
   __syncthreads();
-  epilogue<T>(a, t, Cs, LDC, min(kFmaBn, cout - n0), n0);
+  epilogue<T>(a, t, Cs, LDC, min(kFmaBn, cout - n0), n0, TileRows{t.tile * kTile});
 }
 
 // Split-K: add the splits' partial sums in split order, then the epilogue.
@@ -612,11 +763,18 @@ miseg_k4_splitk_reduce(Args a) {
     Cs[r * LDC + c] = s;
   }
   __syncthreads();
-  epilogue<T>(a, t, Cs, LDC, ncols, n0);
+  epilogue<T>(a, t, Cs, LDC, ncols, n0, TileRows{t.tile * kTile});
 }
 
 bool on_tensor_cores(int dtype, int cin, int cout) {
   return dtype == 1 && cin % 16 == 0 && cout % 16 == 0;
+}
+
+// The brick path: tensor cores, and bricks that divide the volume, so
+// every statistics tile holds kBrick voxels.
+bool by_brick(int dtype, int Z, int Y, int X, int cin, int cout) {
+  return on_tensor_cores(dtype, cin, cout) && Z % kBrickZ == 0 && Y % kBrickY == 0 &&
+         X % kBrickX == 0;
 }
 
 int wmma_kc(int cin) {
@@ -627,10 +785,10 @@ int wmma_nf(int cout) {
   return cout % 64 == 0 ? 4 : cout % 48 == 0 ? 3 : cout % 32 == 0 ? 2 : 1;
 }
 
-// (K steps, output-channel blocks) of one tile.
-void work_shape(int dtype, int X, int cin, int cout, int& nsteps, int& nblocks) {
+// (K steps, output-channel blocks) of one tile off the brick path.
+void work_shape(int dtype, int cin, int cout, int& nsteps, int& nblocks) {
   if (on_tensor_cores(dtype, cin, cout)) {
-    nsteps = (X % 16 == 0 ? 9 : 27) * (cin / wmma_kc(cin));
+    nsteps = 27 * (cin / wmma_kc(cin));
     nblocks = cout / (16 * wmma_nf(cout));
   } else {
     nsteps = (27 * cin + kFmaKc - 1) / kFmaKc;
@@ -652,46 +810,57 @@ int plan_splits(long long ctas, int nsteps) {
   return (nsteps + per - 1) / per;
 }
 
-template <int NF, int KC, bool BAND>
-cudaError_t launch_wmma(const Args& a, dim3 grid, cudaStream_t stream) {
-  using Sh = WmmaShape<NF, KC, BAND>;
-  const size_t smem = Sh::BYTES + 2 * (size_t)a.cin * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(miseg_k4_conv_wmma<NF, KC, BAND>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+int tile_voxels(int dtype, int Z, int Y, int X, int cin, int cout) {
+  return by_brick(dtype, Z, Y, X, cin, cout) ? kBrick : kTile;
+}
+
+template <typename Kernel>
+cudaError_t launch_smem(Kernel kernel, dim3 grid, int threads, size_t smem, const Args& a,
+                        cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  miseg_k4_conv_wmma<NF, KC, BAND><<<grid, kWmmaThreads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int NF, int KC>
-cudaError_t launch_wmma_band(const Args& a, dim3 grid, cudaStream_t stream) {
-  return a.X % 16 == 0 ? launch_wmma<NF, KC, true>(a, grid, stream)
-                       : launch_wmma<NF, KC, false>(a, grid, stream);
+cudaError_t launch_kc(const Args& a, dim3 grid, bool brick, cudaStream_t stream) {
+  const size_t cols = 2 * (size_t)a.cin * sizeof(float);
+  if (brick)
+    return launch_smem(miseg_k4_conv_brick<NF, KC>, grid, kBrickThreads,
+                       BrickShape<NF, KC>::BYTES + cols, a, stream);
+  return launch_smem(miseg_k4_conv_wmma<NF, KC>, grid, kWmmaThreads,
+                     WmmaShape<NF, KC>::BYTES + cols, a, stream);
 }
 
 template <int NF>
-cudaError_t launch_wmma_kc(const Args& a, dim3 grid, cudaStream_t stream) {
+cudaError_t launch_nf(const Args& a, dim3 grid, bool brick, cudaStream_t stream) {
   switch (wmma_kc(a.cin)) {
-    case 64: return launch_wmma_band<NF, 64>(a, grid, stream);
-    case 48: return launch_wmma_band<NF, 48>(a, grid, stream);
-    case 32: return launch_wmma_band<NF, 32>(a, grid, stream);
-    default: return launch_wmma_band<NF, 16>(a, grid, stream);
+    case 64: return launch_kc<NF, 64>(a, grid, brick, stream);
+    case 48: return launch_kc<NF, 48>(a, grid, brick, stream);
+    case 32: return launch_kc<NF, 32>(a, grid, brick, stream);
+    default: return launch_kc<NF, 16>(a, grid, brick, stream);
   }
 }
 
 }  // namespace
 
-// Voxels per statistics tile: the fold needs it to weigh the partials.
-extern "C" int miseg_fused_conv3_tile_voxels() { return kTile; }
+// Voxels per statistics tile of a call of this shape: the fold needs it to
+// weigh the partials.
+extern "C" int miseg_fused_conv3_tile_voxels(int Z, int Y, int X, int cin, int cout,
+                                             int dtype) {
+  return tile_voxels(dtype, Z, Y, X, cin, cout);
+}
 
 // How many K splits a call on this device makes; above 1 the caller passes
 // a workspace of splits * B * ceil(Z*Y*X / tile voxels) * tile voxels * cout
-// floats.
+// floats.  The brick path never splits.
 extern "C" int miseg_fused_conv3_splits(int B, int Z, int Y, int X, int cin,
                                         int cout, int dtype) {
+  if (by_brick(dtype, Z, Y, X, cin, cout)) return 1;
   int nsteps, nblocks;
-  work_shape(dtype, X, cin, cout, nsteps, nblocks);
+  work_shape(dtype, cin, cout, nsteps, nblocks);
   const long long s = (long long)Z * Y * X;
   return plan_splits(B * ((s + kTile - 1) / kTile) * nblocks, nsteps);
 }
@@ -701,9 +870,9 @@ extern "C" int miseg_fused_conv3_splits(int B, int Z, int Y, int X, int cin,
 // scale/shift contiguous f32 [B, cin], both null for no affine; leaky != 0
 // applies the slope after the affine.  y is a contiguous [B, Z, Y, X,
 // cout]; part is f32 [2, B * n_tiles, cout] with n_tiles = ceil(Z*Y*X /
-// tile voxels); work is the split-K workspace (see miseg_fused_conv3_splits)
-// or null when there is one split.  Returns the CUDA error code of the last
-// launch (0 on success).
+// tile voxels) (see miseg_fused_conv3_tile_voxels); work is the split-K
+// workspace (see miseg_fused_conv3_splits) or null when there is one
+// split.  Returns the CUDA error code of the last launch (0 on success).
 extern "C" int miseg_fused_conv3(const void* x, const void* w, const void* scale,
                                  const void* shift, float slope, int leaky,
                                  void* y, void* part, void* work, int B, int Z,
@@ -730,21 +899,23 @@ extern "C" int miseg_fused_conv3(const void* x, const void* w, const void* scale
   a.cin = cin;
   a.cout = cout;
   a.S = (int)s;
-  a.n_tiles = (int)((s + kTile - 1) / kTile);
+  const bool brick = by_brick(dtype, Z, Y, X, cin, cout);
+  const int tile = tile_voxels(dtype, Z, Y, X, cin, cout);
+  a.n_tiles = (int)((s + tile - 1) / tile);
   a.n_parts = (long long)B * a.n_tiles;
   int nblocks;
-  work_shape(dtype, X, cin, cout, a.nsteps, nblocks);
-  a.splits = plan_splits(a.n_parts * nblocks, a.nsteps);
+  work_shape(dtype, cin, cout, a.nsteps, nblocks);
+  a.splits = brick ? 1 : plan_splits(a.n_parts * nblocks, a.nsteps);
   if (a.splits > 1 && work == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)a.n_parts, nblocks, a.splits);
   cudaError_t err;
   if (on_tensor_cores(dtype, cin, cout)) {
     switch (wmma_nf(cout)) {
-      case 4: err = launch_wmma_kc<4>(a, grid, st); break;
-      case 3: err = launch_wmma_kc<3>(a, grid, st); break;
-      case 2: err = launch_wmma_kc<2>(a, grid, st); break;
-      default: err = launch_wmma_kc<1>(a, grid, st); break;
+      case 4: err = launch_nf<4>(a, grid, brick, st); break;
+      case 3: err = launch_nf<3>(a, grid, brick, st); break;
+      case 2: err = launch_nf<2>(a, grid, brick, st); break;
+      default: err = launch_nf<1>(a, grid, brick, st); break;
     }
   } else {
     if (dtype == 0)

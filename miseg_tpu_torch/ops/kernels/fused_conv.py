@@ -15,8 +15,10 @@ ctypes (`build.py`).
         gamma/beta (none, `[C]`, or the `[S, C]` bank row of the clamped
         style id), f32 `[B, Cout]`.
 The kernel writes per-tile (mean, M2) partials of the rounded y and K1's
-fold (`fused_norm.fold_partials`) merges them, within the same call.  Small
-volumes split K over several CTAs; the wrapper allocates the f32
+fold (`fused_norm.fold_partials`) merges them, within the same call.  A
+tile is a 4x4x16 brick where bricks divide the volume in bf16 (the 96^3
+and 48^3 levels), else 128 consecutive voxels; the C side says which.
+Small volumes split K over several CTAs; the wrapper allocates the f32
 workspace for the split sums, sized by the C side's own plan.
 
 For a CUDA tensor the wrapper launches K4 or raises; it uses the plain
@@ -103,7 +105,7 @@ def conv3_norm_columns_plain(x, w, scale=None, shift=None, *,
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    """(C entry point, its split planner, tile voxels) with their ctypes
+    """(C entry point, its split planner, its tile size) with their ctypes
     signatures, built on first use."""
     lib = build.load("fused_conv")
     fn = lib.miseg_fused_conv3
@@ -113,8 +115,10 @@ def _entry():
     splits = lib.miseg_fused_conv3_splits
     splits.restype = ctypes.c_int
     splits.argtypes = [ctypes.c_int] * 7
-    lib.miseg_fused_conv3_tile_voxels.restype = ctypes.c_int
-    return fn, splits, int(lib.miseg_fused_conv3_tile_voxels())
+    tile = lib.miseg_fused_conv3_tile_voxels
+    tile.restype = ctypes.c_int
+    tile.argtypes = [ctypes.c_int] * 6
+    return fn, splits, tile
 
 
 def kernel_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -161,10 +165,11 @@ def conv3_norm_columns(x, w, scale=None, shift=None, *,
     if scale is not None:
         scale = scale.float().contiguous()
         shift = shift.float().contiguous()
-    fn, plan_splits, tile = _entry()
-    s = z * yd * xd
-    n_tiles = math.ceil(s / tile)
+    fn, plan_splits, tile_voxels = _entry()
     dims = (bsz, z, yd, xd, cin, cout, _DTYPES[x.dtype])
+    s = z * yd * xd
+    tile = tile_voxels(*dims[1:])
+    n_tiles = math.ceil(s / tile)
     y = torch.empty((bsz, z, yd, xd, cout), dtype=x.dtype, device=x.device)
     part = torch.empty((2, bsz * n_tiles, cout), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -315,7 +315,7 @@ def fold_partials(part, s: int, rows: int, n_chunks: int, gamma=None,
     """K1's fold on the card: per-chunk (mean, M2) partials `f32 [2,
     B*n_chunks, C]` of `rows`-row chunks of S rows (only a sample's last
     chunk short) -> f32 (scale, shift) `[B, C]`, with gamma/beta as in
-    `channel_scale_shift`.  Many partials (K4's 128-voxel tiles: 6912 per
+    `channel_scale_shift`.  Many partials (K4's 256-voxel bricks: 3456 per
     96^3 sample) are first merged in groups by parallel programs, since
     the fold walks a sample's partials in one program.  Part of the launch
     that wrote the partials: it counts nothing."""

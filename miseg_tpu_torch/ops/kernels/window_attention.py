@@ -8,9 +8,11 @@ the H100 and how the design answers.  It is built with nvcc for sm_90a
 and bound through ctypes (`build.py`).
 
 `window_attention` launches the kernel for a CUDA tensor and uses the
-plain version `window_attention_plain` only for a CPU tensor.  The plain
-version keeps the softmax probabilities in f32 for P.V, as the kernel
-does (the Pallas kernel rounds them to the value dtype first).
+plain version `window_attention_plain` only for a CPU tensor.  In bf16
+the kernel runs P.V on the tensor cores, so it rounds the normalised
+softmax probabilities to bf16 first, as the Pallas kernel rounds them to
+the value dtype (window_attention.py:78); the plain version does the same.
+In f32 both keep P in f32.
 """
 
 from __future__ import annotations
@@ -47,19 +49,31 @@ def window_attention_plain(q, k, v, bias, ids=None, *, num_heads: int):
         s = torch.where(neq[None, :, None], s + ATTN_MASK_VALUE, s)
         s = s.reshape(bw, num_heads, n, n)
     p = torch.softmax(s, dim=-1)
+    if q.dtype == torch.bfloat16:
+        p = p.to(q.dtype).float()
     out = torch.einsum("bhnm,bmhd->bnhd", p, vh).reshape(bw, n, c)
     return out.to(q.dtype)
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    """The C entry point with its ctypes signature (built on first use)."""
-    fn = build.load("window_attention").miseg_window_attention
+def _lib():
+    """The library with its ctypes signatures (built on first use)."""
+    lib = build.load("window_attention")
+    fn = lib.miseg_window_attention
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    return fn
+    lib.miseg_window_attention_group.restype = ctypes.c_int
+    lib.miseg_window_attention_group.argtypes = [ctypes.c_int] * 3
+    return lib
+
+
+def window_group(bw: int, n: int, num_heads: int, device) -> int:
+    """Windows that one CTA of a bf16 call walks on `device`, for tests
+    and measurements."""
+    with torch.cuda.device(device):
+        return int(_lib().miseg_window_attention_group(bw, n, num_heads))
 
 
 def _check(q, k, v, bias, ids, num_heads):
@@ -106,7 +120,7 @@ def window_attention(q, k, v, bias, ids=None, *, num_heads: int):
     if ids is not None and (ids.dtype != torch.int32 or not ids.is_contiguous()):
         raise ValueError("ids must be a contiguous int32 tensor")
 
-    fn = _entry()
+    fn = _lib().miseg_window_attention
     out = torch.empty((bw, n, c), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):

@@ -79,13 +79,18 @@ def test_k1_k2_count_launches(dev):
     assert (fused_norm.stats_launches, fused_norm.apply_launches) == (1, 1)
 
 
-# (window batch, N, channels, heads, mask geometry or None)
+# (window batch, N, channels, heads, mask geometry or None).  The bf16
+# kernel takes query blocks of 64 rows (N = 343, 216, 100, 27 and 8 end
+# inside one) and zero-pads head dims to 16, 32, 48 or 64 (hd 6, 24, 40)
 _ATTN = {
     "stage1_ids": (343, 343, 48, 3, ((49, 49, 49), (7, 7, 7), (3, 3, 3))),
     "stage2": (64, 343, 96, 6, None),
     "stage3_ids": (16, 343, 192, 12, ((14, 14, 14), (7, 7, 7), (3, 3, 3))),
     "stage4_clipped": (1, 216, 384, 24, None),
+    "n216_ids": (16, 216, 64, 4, ((12, 12, 12), (6, 6, 6), (3, 3, 3))),
     "hd6_n27_ids": (16, 27, 12, 2, ((6, 6, 6), (3, 3, 3), (1, 1, 1))),
+    "hd24_n100": (3, 100, 72, 3, None),
+    "hd40_n64": (5, 64, 80, 2, None),
     "hd64_n8": (4, 8, 128, 2, None),
 }
 
@@ -107,6 +112,35 @@ def test_k5_matches_plain(dev, gen, case, dtype):
     assert _err(out, ref) <= _tol(ref, dtype)
 
 
+def test_k5_short_last_window_group(dev, gen):
+    """Stage 1: a CTA walks a group of windows, and the last group of the
+    343 is short."""
+    bw, n, c, heads, geom = _ATTN["stage1_ids"]
+    group = wa.window_group(bw, n, heads, dev)
+    assert 1 < group < bw and bw % group
+    qkv = torch.randn((bw, n, 3 * c), generator=gen).to(dev, torch.bfloat16)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    bias = torch.randn((heads, n, n), generator=gen).to(dev)
+    ids = window_region_ids(*geom, device=dev)
+    out = wa.window_attention(q, k, v, bias, ids, num_heads=heads)
+    ref = wa.window_attention_plain(q, k, v, bias, ids, num_heads=heads)
+    last = slice(bw - bw % group, bw)
+    assert _err(out[last], ref[last]) <= _tol(ref, torch.bfloat16)
+    assert _err(out, ref) <= _tol(ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_repeats_bit_identically(dev, gen, dtype):
+    bw, n, c, heads, geom = _ATTN["stage3_ids"]
+    qkv = torch.randn((bw, n, 3 * c), generator=gen).to(dev, dtype)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    bias = torch.randn((heads, n, n), generator=gen).to(dev)
+    ids = window_region_ids(*geom, device=dev)
+    first = wa.window_attention(q, k, v, bias, ids, num_heads=heads)
+    second = wa.window_attention(q, k, v, bias, ids, num_heads=heads)
+    assert torch.equal(first, second)
+
+
 def test_k5_rejects_oversize(dev):
     q = torch.zeros((1, 344, 16), device=dev)
     with pytest.raises(ValueError):
@@ -118,8 +152,10 @@ def test_k5_rejects_oversize(dev):
 
 # K4 cases: (x shape, Cout); the flagship's main-path channel pairs at cut
 # spatial sizes, encoder1's Cin = 1, encoder10's 768 -> 768 at 3^3, a
-# generic odd one, and band-staged ones (X % 16 == 0) whose tiles span
-# several x-rows and whose last tile is short
+# generic odd one, X % 16 == 0 shapes that 4x4x16 bricks do not divide
+# (per-tap path, tiles spanning several x-rows, a short last tile), and
+# brick-path shapes: the 48^3 level, 16x16x32 at 48->48 and 96->48, one
+# brick whose faces are all halo, and 32->64
 _CONV = {
     "cin1_to48": ((1, 7, 9, 11, 1), 48),
     "48_to48": ((1, 24, 24, 24, 48), 48),
@@ -128,6 +164,11 @@ _CONV = {
     "odd_5_to7": ((2, 6, 8, 8, 5), 7),
     "band_x48_short": ((1, 4, 5, 48, 48), 48),
     "band_x16_b2": ((2, 5, 4, 16, 32), 64),
+    "brick_48cube": ((1, 48, 48, 48, 48), 48),
+    "brick_48_to48": ((1, 16, 16, 32, 48), 48),
+    "brick_96_to48_b2": ((2, 16, 16, 32, 96), 48),
+    "brick_one": ((1, 4, 4, 16, 48), 48),
+    "brick_32_to64": ((1, 8, 4, 16, 32), 64),
 }
 
 
@@ -169,9 +210,23 @@ def test_k4_matches_plain(dev, gen, case, dtype, prologue):
     assert _err(sh, rh) <= 1e-5 * (1 + float(rh.abs().max()))
 
 
-def test_k4_repeats_bit_identically(dev, gen):
-    x, w, kw = _conv_operands(gen, dev, torch.bfloat16, (1, 24, 24, 24, 48), 48,
-                              "affine_leaky")
+def test_k4_takes_bricks_where_they_divide(dev):
+    """bf16 statistics tiles are 4x4x16 bricks where they divide the volume
+    (and the channels suit the tensor cores), else 128 voxels; f32 runs on
+    the CUDA cores in 128-voxel tiles."""
+    tile_voxels = fused_conv._entry()[2]
+    for case, (shape, cout) in _CONV.items():
+        _, z, y, x, cin = shape
+        brick = z % 4 == 0 and y % 4 == 0 and x % 16 == 0 and cin % 16 == 0 and cout % 16 == 0
+        assert brick == (case.startswith("brick") or case == "96_to48_b2"), case
+        assert tile_voxels(z, y, x, cin, cout, 1) == (256 if brick else 128), case
+        assert tile_voxels(z, y, x, cin, cout, 0) == 128, case
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 16, 32, 48), (1, 24, 24, 24, 48)])
+def test_k4_repeats_bit_identically(dev, gen, shape):
+    """A brick-path shape, and a per-tap one that splits K."""
+    x, w, kw = _conv_operands(gen, dev, torch.bfloat16, shape, 48, "affine_leaky")
     first = fused_conv.conv3_norm_columns(x, w, **kw)
     second = fused_conv.conv3_norm_columns(x, w, **kw)
     assert all(torch.equal(a, b) for a, b in zip(first, second))

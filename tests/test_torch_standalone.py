@@ -104,7 +104,7 @@ def test_kernel_build_orchestration(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
     build.build_all()
     built = sorted(p.name for p in (tmp_path / "out").iterdir())
-    assert built == [build._target(n).name for n in build.sources()]
+    assert built == [build.library_path(n).name for n in build.sources()]
     assert all("Used 1 registers" in build.build_log[n] for n in build.sources())
     monkeypatch.setenv("FAKE_NVCC_FAIL", "1")
     build.build_all()  # every build is current: the compiler never runs
@@ -113,3 +113,16 @@ def test_kernel_build_orchestration(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="fake failure"):
         build.build_all()
     assert not any((tmp_path / "out").iterdir())  # no partial library left
+
+
+def test_kernel_build_name_follows_shared_headers(tmp_path, monkeypatch):
+    """A build is keyed by its source and every shared header, so editing a
+    header never loads a stale library."""
+    from miseg_tpu_torch.ops.kernels import build
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert build.library_path("k") != first

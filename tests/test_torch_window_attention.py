@@ -1,7 +1,8 @@
 """Port K5 (plain version, CPU), `WindowAttention`, and the window / bias
 utilities against the JAX package: the Pallas kernel in interpret mode at
-atol 1e-5 (f32), the flax module on bridged weights at atol 1e-5, and
-exact equality for the index/partition utilities."""
+atol 1e-5 (f32) or one bf16 ulp of the largest output (bf16), the flax
+module on bridged weights at atol 1e-5, and exact equality for the
+index/partition utilities."""
 
 import jax
 import jax.numpy as jnp
@@ -28,29 +29,40 @@ def _ids(dims, window, shift):
     return np.asarray(JW.window_region_ids(dims, window, shift))
 
 
-# (window batch, N, ids or None): N=27 from 3^3 windows of a shifted 6^3
-# grid (8 mask windows, batch 2 -> 2*nW), and a clipped N=8 bias prefix
+# (window batch, N, ids or None, dtype): N=27 from 3^3 windows of a
+# shifted 6^3 grid (8 mask windows, batch 2 -> 2*nW), and a clipped N=8
+# bias prefix, in f32 and in bf16 (where both round P to bf16 before P.V)
 _CASES = {
-    "n27_masked_2nw": (16, 27, _ids((6, 6, 6), (3, 3, 3), (1, 1, 1))),
-    "n27_unmasked": (5, 27, None),
-    "n8_clipped": (3, 8, None),
+    "n27_masked_2nw": (16, 27, _ids((6, 6, 6), (3, 3, 3), (1, 1, 1)), "float32"),
+    "n27_unmasked": (5, 27, None, "float32"),
+    "n8_clipped": (3, 8, None, "float32"),
+    "n27_masked_2nw_bf16": (16, 27, _ids((6, 6, 6), (3, 3, 3), (1, 1, 1)), "bfloat16"),
+    "n27_unmasked_bf16": (5, 27, None, "bfloat16"),
+    "n8_clipped_bf16": (3, 8, None, "bfloat16"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_CASES))
 def test_plain_k5_matches_pallas_interpret(rng, case):
-    bw, n, ids = _CASES[case]
+    """bf16: q/k/v are the same f32 values rounded to bf16 on both sides;
+    the tolerance is one bf16 ulp of the largest output, since both round
+    the f32 output once and P's f32 softmax may differ in its last bit."""
+    bw, n, ids, dtype = _CASES[case]
     heads, c = 2, 12
     q, k, v = (rng.standard_normal((bw, n, c)).astype(np.float32) for _ in range(3))
     full = rng.standard_normal((heads, 27, 27)).astype(np.float32)
     bias = np.ascontiguousarray(full[:, :n, :n])    # clipped: the [:n, :n] prefix
-    want = fused_window_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                  jnp.asarray(bias),
+    jt = lambda a: jnp.asarray(a).astype(getattr(jnp, dtype))
+    want = fused_window_attention(jt(q), jt(k), jt(v), jnp.asarray(bias),
                                   None if ids is None else jnp.asarray(ids),
                                   num_heads=heads, interpret=True)
-    got = window_attention(t(q), t(k), t(v), t(bias),
+    tt = lambda a: t(a).to(getattr(torch, dtype))
+    got = window_attention(tt(q), tt(k), tt(v), t(bias),
                            None if ids is None else t(ids), num_heads=heads)
-    assert max_err(got, want) <= ATOL
+    assert got.dtype == getattr(torch, dtype)
+    want = np.asarray(want.astype(jnp.float32))
+    tol = ATOL if dtype == "float32" else float(np.abs(want).max()) * 2.0 ** -7
+    assert max_err(got.float(), want) <= tol
 
 
 def test_k5_rejects_bad_window_batch(rng):
