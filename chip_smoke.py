@@ -7,13 +7,14 @@ Phases, one result line each; any failed check exits non-zero:
   1. device  — torch/CUDA versions, the card's name and power limit, the
                kernels' build (nvcc for K4 and K5, one process per source,
                started together; Triton for K1/K2/K3), and a check that
-               the bf16 K5 and K4-brick kernels hold tensor-core
-               instructions in their SASS;
+               the bf16 K5 kernel and K4's brick and coarse kernels hold
+               tensor-core instructions in their SASS;
   2. kernels — K1, K2, K3, K4 and K5 against their plain PyTorch versions
                on the card, in bf16 and f32, at the shapes of the 96^3
                flagship, with CUDA-event times of kernel, plain version and
                a library yardstick the port never calls, beside each
-               kernel's bound;
+               kernel's bound; for K4 also the device times (torch.profiler)
+               of the kernel and of `F.conv3d` at each of the 12 shapes;
   3. model   — one full-width (feature_size 48, heads 3) window in f32,
                card against CPU, through the fused conv chain (the
                default) and through the unfused path (`fused_conv=False`);
@@ -22,7 +23,9 @@ Phases, one result line each; any failed check exits non-zero:
                volume requests through `load_bundle(...).predict`; the
                kernels' launch counters must rise by the per-window counts.
                Then one window through the fused and the unfused model
-               (same weights), and a profile of one window.
+               (same weights), and a profile of one window, which fails if
+               a bf16 conv of the window launched the per-tap or split-K
+               reduce kernels of K4.
 Then one JSON line of kernels, the card line, and the ok line last.
 """
 
@@ -89,6 +92,24 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, match: str | None = None, reps: int = 10) -> float:
+    """Device time of one call of `fn` in ms: the summed duration of its
+    kernels (only those whose names hold `match`, if given) under
+    torch.profiler, averaged over `reps` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and (match is None or match in e.name)) / 1e3 / reps
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -121,11 +142,12 @@ def phase_device():
 
 
 def check_tensor_cores(build) -> None:
-    """Every instance of the bf16 K5 kernel and of K4's brick kernel holds
-    tensor-core instructions (HMMA/HGMMA) in the built SASS."""
+    """Every instance of the bf16 K5 kernel and of K4's brick and coarse
+    kernels holds tensor-core instructions (HMMA/HGMMA) in the built SASS."""
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     for source, kernel in (("window_attention", "miseg_k5_attn_mma"),
-                           ("fused_conv", "miseg_k4_conv_brick")):
+                           ("fused_conv", "miseg_k4_conv_brick"),
+                           ("fused_conv", "miseg_k4_conv_coarse")):
         sass = subprocess.run([str(tool), "-sass", str(build.library_path(source))],
                               capture_output=True, text=True, timeout=120,
                               check=True).stdout
@@ -260,7 +282,7 @@ def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
             print(line)
     # ---- K4 at the conv shapes of the 96^3 window's UnetResBlocks ------
     # (every (shape, Cout) of the 20 calls; the 96^3 and 48^3 levels take
-    # the brick path, 24^3 and below the per-tap path with split-K)
+    # the brick path, 24^3 and below the coarse path)
     convs = [  # (label, x shape, Cout, prologue: norm1's columns + leaky)
         ("encoder1 conv1", (1, 96, 96, 96, 1), 48, False),
         ("encoder1/decoder1 conv2", (1, 96, 96, 96, 48), 48, True),
@@ -307,6 +329,10 @@ def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
                 plain = time_ms(lambda: fc.conv3_norm_columns_plain(x, w, **kw), reps=5)
                 xcf = x.permute(0, 4, 1, 2, 3)   # channels_last_3d, as the unfused path
                 lib = time_ms(lambda: F.conv3d(xcf, w, padding=1))
+                # on the device: at the coarse levels CUDA events time the host
+                dev_k4 = device_ms(lambda: fc.conv3_norm_columns(x, w, **kw), "miseg_k4_")
+                dev_call = device_ms(lambda: fc.conv3_norm_columns(x, w, **kw))
+                dev_lib = device_ms(lambda: F.conv3d(xcf, w, padding=1))
                 nbytes = ((x.numel() + w.numel() + s_vox * b * cout) * x.element_size()
                           + 2 * b * cin * 4 * prologue + 2 * b * cout * 4
                           + 2 * kw["gamma"].numel() * x.element_size())
@@ -316,7 +342,9 @@ def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
                 line += (f"\n    times ms: K4 {k4:.4f} (bound {bound:.4f} by {by}: "
                          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
                          f"{flops / k4 / 1e9:.1f} TFLOP/s), plain {plain:.4f}, "
-                         f"F.conv3d {lib:.4f}")
+                         f"F.conv3d {lib:.4f}"
+                         f"\n    device ms: K4 kernel {dev_k4:.4f} (with its fold "
+                         f"{dev_call:.4f}), F.conv3d {dev_lib:.4f}")
                 if label == "encoder1/decoder1 conv2":
                     rows["K4"] = dict(ms=k4, plain_ms=plain, bound_ms=bound, bound_by=by,
                                       library_ms=lib, max_abs_err=e)
@@ -505,6 +533,15 @@ def profile_window(served, dev, reps: int = 3) -> None:
         print(f"profile: window {event_ms:.2f} ms (CUDA events); kernel times not "
               f"measured (the profiler recorded no device events)")
         return
+    # every bf16 conv is one K4 kernel: the 12 below 48^3 the coarse one
+    retired = sorted({e.name for e in kernels if "miseg_k4_splitk_reduce" in e.name
+                      or "miseg_k4_conv_wmma" in e.name})
+    check(not retired, f"profile: the bf16 window launched {retired}")
+    k4 = [e.name for e in kernels if "miseg_k4_" in e.name]
+    coarse = sum("miseg_k4_conv_coarse" in n for n in k4)
+    check(len(k4) == PER_WINDOW["K4"] * reps and coarse == 12 * reps,
+          f"profile: {len(k4) / reps} K4 kernels a window, {coarse / reps} coarse; "
+          f"want {PER_WINDOW['K4']} and 12")
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps

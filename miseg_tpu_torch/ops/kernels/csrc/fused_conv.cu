@@ -12,9 +12,9 @@
 // `_transform`), which is the unfused path's zero-padded normalised input.
 // The epilogue rounds y to T, stores it, and writes the per-channel
 // (mean, M2) of the ROUNDED values of its tile: a 4x4x16 brick on the
-// brick path, else kTile consecutive voxels of one sample (only a
-// sample's last tile is short), taken two-pass over the tile held in
-// shared memory.  The partials are laid out [2, B*n_tiles,
+// brick path, a 4x4x4 brick or the whole sample on the coarse path, else
+// kTile consecutive voxels of one sample (only a sample's last tile is
+// short), taken two-pass over the tile held in shared memory.  The partials are laid out [2, B*n_tiles,
 // Cout] like K1's pass 1, so K1's fold turns them into the next norm's
 // scale/shift.  The TPU kernel's one-pass (sum, sum^2) carried across a
 // sequential grid has no counterpart here: blocks run in parallel, and no
@@ -48,39 +48,47 @@
 //     48) a CTA takes 105 KB, two per SM, so one CTA's halo copy and
 //     transform overlap the other's MMAs.  The
 //     statistics tile is the brick.
-//   * other bf16 calls with Cin, Cout multiples of 16 (24^3 and below):
-//     WMMA bf16 16x16x16 per tap, 4 warps of 32 voxel rows of a 128-voxel
-//     tile; a K step (one tap of KC channels) is copied with cp.async into
-//     a ring and transformed by the thread that copied it.
-//   * f32, or any channel count that is not a multiple of 16 (encoder1's
-//     Cin = 1): CUDA cores in f32 FMA (never TF32), a 128 x 64 tile with
-//     8 x 4 outputs per thread, K in chunks of 16 with any (tap, channel)
-//     split, double-buffered through registers.
-// Few tiles (the 24^3 .. 3^3 levels: 12 to 216 CTAs for 132 SMs, with up
-// to 324 K steps each) split K: each split writes its f32 partial sums to
-// a workspace and a second kernel adds the splits in a fixed order before
-// the same epilogue, so the result stays deterministic.  The brick path
-// never splits.
+//   * the other bf16 calls with Cin, Cout multiples of 16 whose volume
+//     4x4x4 bricks divide (24^3, 12^3) or whose sample holds at most 256
+//     voxels (6^3, 3^3): miseg_k4_conv_coarse, the brick path's scheme
+//     on a box tile, the 4x4x4 brick or the whole sample.  A CTA stages
+//     the box's input halo once per 32-channel chunk and transforms it
+//     once; each lane of an ldmatrix gives its own halo row, so the 16
+//     rows of an A fragment are any 16 voxels of the box.  These levels
+//     hold few tiles (27 bricks at 12^3, one tile at 6^3 and 3^3) and the
+//     6^3 and 3^3 convs are bound by their weights (15.9 and 31.9 MB), so
+//     K is split over (channel chunk, kz, ky) units until about one CTA
+//     per SM streams a disjoint weight slice.  The splits add up inside
+//     the same launch, pairwise up a fixed binary tree: the two CTAs of a
+//     pair write their f32 sums (valid rows only) to a workspace and bump
+//     an integer arrival counter, and the second to arrive adds the other's
+//     sums to its own and goes on; the root runs the epilogue.  No float
+//     atomics, and a commutative add per node: a repeated call is
+//     bit-identical.
+//   * f32, any channel count that is not a multiple of 16 (encoder1's
+//     Cin = 1), and bf16 volumes that neither brick divides and that hold
+//     more than 256 voxels (none in the flagship at a ROI that is a
+//     multiple of 32): CUDA cores in f32 FMA (never TF32), a 128 x 64 tile
+//     with 8 x 4 outputs per thread, K in chunks of 16 with any (tap,
+//     channel) split, double-buffered through registers.  Few tiles split
+//     K: each split writes its f32 partial sums to a workspace and a
+//     second kernel adds the splits in a fixed order before the same
+//     epilogue.  The brick path never splits.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "mma_sync.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using miseg::ldmatrix_x4;
 using miseg::ldmatrix_x4_trans;
 using miseg::mma_bf16;
 
 constexpr int kTile = 128;      // voxels per tile; only a sample's last is short
 constexpr int kThreads = 256;   // CUDA-core path and split-K reduce: 8 warps
-constexpr int kWarpM = 32;      // tensor-core path: voxel rows per warp
-constexpr int kWmmaThreads = kTile / kWarpM * 32;
-constexpr int kPad = 8;        // bf16 row padding (16 bytes) against bank conflicts
 constexpr int kFmaBn = 64;     // CUDA-core path and split-K reduce: channels per CTA
 constexpr int kFmaKc = 16;     // CUDA-core path: K per step
 constexpr int kFmaRowPad = kTile + 4;
@@ -96,10 +104,14 @@ struct Args {
   int leaky;
   void* y;              // [B, Z, Y, X, cout], T
   float* part;          // [2, n_parts, cout]: (mean, M2) per tile
-  float* work;          // [splits, n_parts * kTile, cout] partial sums, or null
+  float* work;          // [splits, n_parts * tile voxels, cout] partial sums, or null
+  int* counters;        // coarse path: arrival count per (tile, N block), all 0
   int Z, Y, X, cin, cout, n_tiles, splits, nsteps;
   int S;                // voxels per sample
   long long n_parts;    // B * n_tiles
+  int tz, ty, tx;       // coarse path: the box tile
+  int smem_main;        // coarse path: dynamic shared bytes before the columns
+  int tree;             // coarse path: counters per (tile, N block), a power of 2 >= splits
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -146,11 +158,6 @@ __device__ __forceinline__ void transform8(__nv_bfloat16* at, const float* ssc,
     h[j] = __floats2bfloat162_rn(f.x, f.y);
   }
   *p = val;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
@@ -247,21 +254,31 @@ __device__ void epilogue(const Args& a, const Tile& t, float* Cs, int ldc, int n
     }
   }
   __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int c = warp; c < ncols; c += blockDim.x / 32) {
-    float s = 0.0f;
-    for (int r = lane; r < t.nvalid; r += 32) s += Cs[r * ldc + c];
-    const float mean = warp_sum(s) / (float)t.nvalid;
-    float m2 = 0.0f;
-    for (int r = lane; r < t.nvalid; r += 32) {
-      const float d = Cs[r * ldc + c] - mean;
-      m2 = fmaf(d, d, m2);
+  // a thread per column, each pass in four interleaved partial sums (a
+  // fixed order): neighbouring threads read neighbouring banks, and the
+  // chains are a quarter of the tile long
+  const int n = t.nvalid, n4 = n & ~3;
+  for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
+    const float* col = Cs + c;
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int r = 0; r < n4; r += 4)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) s[k] += col[(r + k) * ldc];
+    for (int r = n4; r < n; ++r) s[0] += col[r * ldc];
+    const float mean = ((s[0] + s[1]) + (s[2] + s[3])) / (float)n;
+    float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int r = 0; r < n4; r += 4)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float d = col[(r + k) * ldc] - mean;
+        m[k] = fmaf(d, d, m[k]);
+      }
+    for (int r = n4; r < n; ++r) {
+      const float d = col[r * ldc] - mean;
+      m[0] = fmaf(d, d, m[0]);
     }
-    m2 = warp_sum(m2);
-    if (lane == 0) {
-      a.part[t.tile_global * a.cout + n0 + c] = mean;
-      a.part[(a.n_parts + t.tile_global) * a.cout + n0 + c] = m2;
-    }
+    a.part[t.tile_global * a.cout + n0 + c] = mean;
+    a.part[(a.n_parts + t.tile_global) * a.cout + n0 + c] = (m[0] + m[1]) + (m[2] + m[3]);
   }
 }
 
@@ -275,155 +292,6 @@ struct TileRows {
 __device__ __forceinline__ float* work_at(const Args& a, const Tile& t, int r, int c) {
   return a.work + ((long long)blockIdx.z * a.n_parts * kTile
                    + t.tile_global * kTile + r) * a.cout + c;
-}
-
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores, per tap (WMMA): Cin % KC == 0, Cout % (16 * NF)
-// == 0, where the brick path does not apply.  A K step is one tap of KC
-// channels, gathered per voxel row.
-
-// KC + padding, an odd multiple of 16 elements: every row starts 32-byte
-// aligned (as WMMA loads need), and 8 consecutive rows fall on at most 2
-// bank groups
-__host__ __device__ constexpr int padded_kc(int kc) {
-  return kc + ((kc / 16) % 2 == 0 ? 16 : 32);
-}
-
-template <int NF, int KC>
-struct WmmaShape {
-  static constexpr int BN = 16 * NF, BNP = BN + kPad, KCP = padded_kc(KC), LDC = BN + 4;
-  static constexpr int STAGES = 3;
-  static constexpr int A_ELEMS = kTile * KCP;            // one stage of A, bf16
-  static constexpr int B_ELEMS = KC * BNP;               // one stage of B, bf16
-  static constexpr size_t RING = (size_t)STAGES * (A_ELEMS + B_ELEMS) * sizeof(__nv_bfloat16);
-  static constexpr size_t CS = (size_t)kTile * LDC * sizeof(float);
-  static constexpr size_t BYTES = RING > CS ? RING : CS;  // + 2*cin floats of columns
-};
-
-template <int NF, int KC>
-__global__ void __launch_bounds__(kWmmaThreads, 2)
-miseg_k4_conv_wmma(Args a) {
-  using Sh = WmmaShape<NF, KC>;
-  constexpr int BN = Sh::BN, BNP = Sh::BNP, KCP = Sh::KCP;
-  constexpr int STAGES = Sh::STAGES;
-  constexpr int SEGS = KC / 8, A_VECS = kTile * SEGS;
-  constexpr int B_SEGS = BN / 8, B_VECS = KC * B_SEGS;
-  constexpr int MF = kWarpM / 16;   // 16-row fragments per warp
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int roff[kTile];
-  __shared__ unsigned rmask[kTile];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);   // [STAGES][kTile][KCP]
-  __nv_bfloat16* Bs = As + STAGES * Sh::A_ELEMS;                // [STAGES][KC][BNP]
-  float* ssc = reinterpret_cast<float*>(smem + Sh::BYTES);
-  float* ssh = ssc + a.cin;
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const Tile t = tile_of(a);
-  const int n0 = blockIdx.y * BN;
-  const int cin = a.cin, cout = a.cout, nchunks = cin / KC;
-  const bool affine = a.scale != nullptr, leaky = a.leaky != 0;
-  const bool transform = affine || leaky;
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x) + (long long)t.b * a.S * cin;
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
-  int k_begin, k_end;
-  split_range(a, k_begin, k_end);
-
-  tile_rows(a, t, roff, rmask);
-  if (affine)
-    for (int c = tid; c < cin; c += kWmmaThreads) {
-      ssc[c] = a.scale[(long long)t.b * cin + c];
-      ssh[c] = a.shift[(long long)t.b * cin + c];
-    }
-  __syncthreads();
-  // K step s: tap g = s / nchunks, channels c0 .. c0 + KC - 1; a row
-  // takes the tap when its bit g is set
-  auto issue = [&](int s, int buf) {
-    const int g = s / nchunks, c0 = (s - g * nchunks) * KC;
-    const int delta = tap_delta(a, g);
-    __nv_bfloat16* A = As + buf * Sh::A_ELEMS;
-    __nv_bfloat16* B = Bs + buf * Sh::B_ELEMS;
-    for (int v = tid; v < A_VECS; v += kWmmaThreads) {
-      const int r = v / SEGS, seg = v - r * SEGS;
-      const bool in = (rmask[r] >> g) & 1u;
-      const __nv_bfloat16* src = in ? x + (roff[r] + delta) * cin + c0 + seg * 8 : x;
-      cp_async16(A + r * KCP + seg * 8, src, in);
-    }
-    for (int v = tid; v < B_VECS; v += kWmmaThreads) {
-      const int k = v / B_SEGS, seg = v - k * B_SEGS;
-      cp_async16(B + k * BNP + seg * 8,
-                 w + (long long)(g * cin + c0 + k) * cout + n0 + seg * 8, true);
-    }
-  };
-
-  // the transform, on the vectors this thread copied (halo vectors stay 0)
-  auto transform_own = [&](int s, int buf) {
-    const int g = s / nchunks, c0 = (s - g * nchunks) * KC;
-    __nv_bfloat16* A = As + buf * Sh::A_ELEMS;
-    for (int v = tid; v < A_VECS; v += kWmmaThreads) {
-      const int r = v / SEGS, seg = v - r * SEGS;
-      if (!((rmask[r] >> g) & 1u)) continue;
-      transform8(A + r * KCP + seg * 8, ssc, ssh, c0 + seg * 8, affine, leaky, a.slope);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MF][NF];
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (k_begin + st < k_end) issue(k_begin + st, st);
-    cp_async_commit();
-  }
-  for (int s = k_begin; s < k_end; ++s) {
-    const int it = s - k_begin, buf = it % STAGES;
-    cp_async_wait<STAGES - 2>();    // this thread's copies of step s landed
-    if (transform) transform_own(s, buf);
-    // every copy and transform of step s is visible, and every warp has
-    // left step s - 1, whose buffer the next issue refills
-    __syncthreads();
-    if (s + STAGES - 1 < k_end) issue(s + STAGES - 1, (it + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const __nv_bfloat16* A = As + buf * Sh::A_ELEMS;
-    const __nv_bfloat16* B = Bs + buf * Sh::B_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[MF];
-#pragma unroll
-      for (int i = 0; i < MF; ++i)
-        wmma::load_matrix_sync(fa[i], A + (warp * kWarpM + i * 16) * KCP + kk, KCP);
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, B + kk * BNP + j * 16, BNP);
-#pragma unroll
-        for (int i = 0; i < MF; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();   // the ring is idle: Cs may alias it
-
-  if (a.splits > 1) {
-#pragma unroll
-    for (int i = 0; i < MF; ++i)
-#pragma unroll
-      for (int j = 0; j < NF; ++j)
-        wmma::store_matrix_sync(work_at(a, t, warp * kWarpM + i * 16, n0 + j * 16),
-                                acc[i][j], cout, wmma::mem_row_major);
-    return;
-  }
-  float* Cs = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-      wmma::store_matrix_sync(Cs + (warp * kWarpM + i * 16) * Sh::LDC + j * 16, acc[i][j],
-                              Sh::LDC, wmma::mem_row_major);
-  __syncthreads();
-  epilogue<__nv_bfloat16>(a, t, Cs, Sh::LDC, BN, n0, TileRows{t.tile * kTile});
 }
 
 // ---------------------------------------------------------------------------
@@ -617,6 +485,291 @@ miseg_k4_conv_brick(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on the tensor cores, by box, for the coarse levels: Cin % KC == 0,
+// Cout % BN == 0, and a box tile of tz x ty x tx voxels (a 4x4x4 brick
+// that divides the volume, or the whole sample of at most kBoxMaxRows
+// voxels).  A CTA owns one box (rows padded to 16-row fragments) and BN
+// output channels, and the K units [u_begin, u_end) of its split.  A unit
+// is one (kz, ky) row of 3 taps of one KC-channel chunk: chunk u / 9.
+// Each unit's weight slices take one stage of a kBoxStages-deep cp.async
+// ring, and the unit that opens a chunk brings the box's halo for that
+// chunk (zero fill outside the volume) into the other of two halo
+// buffers, so one pipeline runs through the whole split with no drain
+// between chunks.  The halo is transformed once, when its chunk's first
+// unit lands.  Warps are WM (along M) x WN (along N); a warp multiplies up
+// to MFW 16-row fragments by 16*NFW channels with mma.sync m16n8k16.
+//
+// Split K adds up in a fixed binary tree over the split index: at each
+// level the two CTAs of a pair publish their sums (valid rows only) in
+// the workspace slot of their node's first split and bump an integer
+// arrival counter; the one that arrives second adds its partner's sums to
+// its own accumulators, resets the counter and goes up a level.  The
+// root's CTA runs the epilogue.  Each node's value is the sum of its two
+// children's, and f32 addition is commutative, so the result does not
+// depend on the order of arrival: a repeated call is bit-identical.
+// Every CTA of a level reads one partner tile in parallel, where one CTA
+// adding all splits in turn would read them all alone.  (A tree of 4-wide
+// nodes, 3 levels for 22 splits instead of 5, spilled registers and was
+// no faster.)
+
+constexpr int kBoxThreads = 256;    // 8 warps
+constexpr int kBoxStages = 3;       // weight-ring stages, one unit each (< kUnitsPerChunk)
+constexpr int kBoxEdge = 4;         // the brick edge where it divides the volume
+constexpr int kBoxMaxRows = 256;    // else the whole sample, up to this many voxels
+constexpr int kUnitsPerChunk = 9;   // (kz, ky) rows of taps
+constexpr size_t kSmemLimit = 232448;
+
+template <int NFW, int KC, int WN>
+struct BoxShape {
+  static constexpr int WM = kBoxThreads / 32 / WN;   // warps along M
+  static constexpr int MFW = WN == 2 ? 1 : 2;        // 16-row fragments a warp, at most
+  static constexpr int BN = 16 * NFW * WN, BNP = BN + 8, KCP = KC + 8, LDC = BN + 4;
+  static constexpr int STAGE = 3 * KC * BNP;         // bf16 per ring stage
+};
+
+// Dynamic shared bytes before the columns: two halos and the ring, or the
+// f32 tile of the epilogue, which aliases them.
+__host__ __device__ inline int box_main_bytes(int halo_voxels, int frags, int kc, int bn) {
+  const int main = (2 * halo_voxels * (kc + 8) + kBoxStages * 3 * kc * (bn + 8)) * 2;
+  const int cs = frags * 16 * (bn + 4) * 4;
+  return ((main > cs ? main : cs) + 15) / 16 * 16;
+}
+
+// The voxel of row r of a box: rows run x fastest, then y, then z.
+struct BoxRows {
+  int z0, y0, x0, ty, tx, Y, X;
+  __device__ int operator()(int r) const {
+    const int q = r / tx;
+    return ((z0 + q / ty) * Y + y0 + q % ty) * X + x0 + r % tx;
+  }
+};
+
+template <int NFW, int KC, int WN>
+__global__ void __launch_bounds__(kBoxThreads, 2)
+miseg_k4_conv_coarse(Args a) {
+  using Sh = BoxShape<NFW, KC, WN>;
+  constexpr int BN = Sh::BN, BNP = Sh::BNP, KCP = Sh::KCP, WM = Sh::WM, MFW = Sh::MFW;
+  constexpr int SEGS = KC / 8, B_SEGS = BN / 8, B_VECS = 3 * KC * B_SEGS;
+  constexpr int S = kBoxStages;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int partner_goes_on;
+  const int tz = a.tz, ty = a.ty, tx = a.tx;
+  const int HY = ty + 2, HX = tx + 2, HV = (tz + 2) * HY * HX, H_VECS = HV * SEGS;
+  const int rows = tz * ty * tx, frags = (rows + 15) / 16;
+  __nv_bfloat16* Hs = reinterpret_cast<__nv_bfloat16*>(smem);   // [2][HV][KCP]
+  __nv_bfloat16* Ws = Hs + 2 * HV * KCP;                         // [S][3][KC][BNP]
+  float* ssc = reinterpret_cast<float*>(smem + a.smem_main);
+  float* ssh = ssc + a.cin;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp % WM, wn = warp / WM;
+  Tile t;
+  t.b = blockIdx.x / a.n_tiles;
+  t.tile = blockIdx.x % a.n_tiles;
+  t.nvalid = rows;
+  t.tile_global = blockIdx.x;
+  const int nbx = a.X / tx, nby = a.Y / ty;
+  const BoxRows box{t.tile / (nbx * nby) * tz, t.tile / nbx % nby * ty, t.tile % nbx * tx,
+                    ty, tx, a.Y, a.X};
+  const int n0 = blockIdx.y * BN;
+  const int cin = a.cin, cout = a.cout;
+  const bool affine = a.scale != nullptr, leaky = a.leaky != 0;
+  const bool transform = affine || leaky;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x) + (long long)t.b * a.S * cin;
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
+  const int per = (a.nsteps + a.splits - 1) / a.splits;
+  const int u_begin = blockIdx.z * per, n = min(a.nsteps, u_begin + per) - u_begin;
+
+  if (affine)
+    for (int c = tid; c < cin; c += kBoxThreads) {
+      ssc[c] = a.scale[(long long)t.b * cin + c];
+      ssh[c] = a.shift[(long long)t.b * cin + c];
+    }
+  __syncthreads();   // the columns are staged before the first transform
+
+  // halo voxel hv -> its flat voxel index, or -1 outside the volume
+  auto halo_voxel = [&](int hv) {
+    const int hx = hv % HX, q = hv / HX, hy = q % HY, hz = q / HY;
+    const int zz = box.z0 - 1 + hz, yy = box.y0 - 1 + hy, xx = box.x0 - 1 + hx;
+    const bool in = (unsigned)zz < (unsigned)a.Z && (unsigned)yy < (unsigned)a.Y &&
+                    (unsigned)xx < (unsigned)a.X;
+    return in ? (zz * a.Y + yy) * a.X + xx : -1;
+  };
+  // unit k of the split into ring slot k % S; the chunk's halo with the
+  // unit that opens it
+  auto copy_unit = [&](int k) {
+    const int u = u_begin + k, chunk = u / kUnitsPerChunk, c0 = chunk * KC;
+    if (k == 0 || u % kUnitsPerChunk == 0) {
+      __nv_bfloat16* H = Hs + (chunk & 1) * HV * KCP;
+      for (int v = tid; v < H_VECS; v += kBoxThreads) {
+        const int hv = v / SEGS, seg = v - hv * SEGS;
+        const int m = halo_voxel(hv);
+        cp_async16(H + hv * KCP + seg * 8,
+                   m >= 0 ? x + (long long)m * cin + c0 + seg * 8 : x, m >= 0);
+      }
+    }
+    __nv_bfloat16* B = Ws + (k % S) * Sh::STAGE;
+    const int tap0 = u % kUnitsPerChunk * 3;
+    for (int v = tid; v < B_VECS; v += kBoxThreads) {
+      const int kr = v / B_SEGS, seg = v - kr * B_SEGS;
+      const int tap = tap0 + kr / KC, kk = kr % KC;
+      cp_async16(B + kr * BNP + seg * 8,
+                 w + (long long)(tap * cin + c0 + kk) * cout + n0 + seg * 8, true);
+    }
+  };
+
+  // this lane's ldmatrix row (halo row at tap 0) of each of its fragments;
+  // padding rows past the box read row 0 and are never stored
+  int hrow[MFW];
+  bool has[MFW];
+#pragma unroll
+  for (int i = 0; i < MFW; ++i) {
+    const int f = wm + i * WM;
+    has[i] = f < frags;
+    int r = f * 16 + (lane & 15);
+    if (r >= rows) r = 0;
+    const int q = r / tx;
+    hrow[i] = ((q / ty) * HY + q % ty) * HX + r % tx;
+  }
+  const int acol = (lane >> 4) * 8;                             // A: k half
+  const int brow = (lane & 7) + ((lane >> 3) & 1) * 8;          // B: k row
+  const int bcol = (lane >> 4) * 8 + wn * NFW * 16;             // B: n half of this warp
+
+  float acc[MFW][2 * NFW][4];
+#pragma unroll
+  for (int i = 0; i < MFW; ++i)
+#pragma unroll
+    for (int j = 0; j < 2 * NFW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < n) copy_unit(st);
+    cp_async_commit();
+  }
+  for (int k = 0; k < n; ++k) {
+    const int u = u_begin + k, chunk = u / kUnitsPerChunk;
+    const __nv_bfloat16* H = Hs + (chunk & 1) * HV * KCP;
+    cp_async_wait<S - 2>();   // this thread's copies of unit k (and its halo) landed
+    if (transform && (k == 0 || u % kUnitsPerChunk == 0))
+      for (int v = tid; v < H_VECS; v += kBoxThreads) {   // halo outside the volume stays 0
+        const int hv = v / SEGS, seg = v - hv * SEGS;
+        if (halo_voxel(hv) >= 0)
+          transform8(Hs + (chunk & 1) * HV * KCP + hv * KCP + seg * 8, ssc, ssh,
+                     chunk * KC + seg * 8, affine, leaky, a.slope);
+      }
+    // every copy and transform of unit k is visible, and every warp has
+    // left unit k - 1, whose ring slot the next copy refills; the other
+    // halo buffer was last read a full chunk ago
+    __syncthreads();
+    if (k + S - 1 < n) copy_unit(k + S - 1);
+    cp_async_commit();
+    if (!has[0]) continue;   // a warp past the box's fragments only copies
+    const int zy = u % kUnitsPerChunk;
+    const int shift = ((zy / 3) * HY + zy % 3) * HX;
+    const __nv_bfloat16* Bst = Ws + (k % S) * Sh::STAGE;
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+      const __nv_bfloat16* B = Bst + kx * KC * BNP;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 16) {
+        uint32_t af[MFW][4];
+#pragma unroll
+        for (int i = 0; i < MFW; ++i)
+          if (has[i]) ldmatrix_x4(af[i], H + (hrow[i] + shift + kx) * KCP + kk + acol);
+#pragma unroll
+        for (int j = 0; j < NFW; ++j) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, B + (kk + brow) * BNP + j * 16 + bcol);
+#pragma unroll
+          for (int i = 0; i < MFW; ++i)
+            if (has[i]) {
+              mma_bf16(acc[i][2 * j], af[i], bf[0], bf[1]);
+              mma_bf16(acc[i][2 * j + 1], af[i], bf[2], bf[3]);
+            }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // apply f to each (row, column, float2 of sums) of this thread that lies
+  // in the box
+  const int g = lane >> 2, tq = lane & 3;
+  auto each_pair = [&](auto f) {
+#pragma unroll
+    for (int i = 0; i < MFW; ++i)
+      if (has[i])
+#pragma unroll
+        for (int j = 0; j < 2 * NFW; ++j) {
+          const int r = (wm + i * WM) * 16 + g, c = wn * NFW * 16 + j * 8 + 2 * tq;
+          if (r < rows) f(r, c, acc[i][j][0], acc[i][j][1]);
+          if (r + 8 < rows) f(r + 8, c, acc[i][j][2], acc[i][j][3]);
+        }
+  };
+  if (a.splits > 1) {
+    const long long split_stride = a.n_parts * rows * cout;
+    float* slots = a.work + t.tile_global * rows * cout + n0;   // + first split * split_stride
+    int* counters = a.counters + (t.tile_global * gridDim.y + blockIdx.y) * a.tree;
+    int node = blockIdx.z, width = 1, count = a.splits;   // node covers splits node*width ..
+    for (int level = 0; count > 1; ++level) {
+      const int partner = node ^ 1;
+      if (partner < count) {
+        float* mine = slots + (long long)node * width * split_stride;
+        each_pair([&](int r, int c, float& v0, float& v1) {
+          *reinterpret_cast<float2*>(mine + (long long)r * cout + c) = make_float2(v0, v1);
+        });
+        __threadfence();   // the sums are visible device-wide before the arrival
+        __syncthreads();
+        if (tid == 0) {
+          int* counter = counters + (a.tree >> (level + 1)) + (node >> 1);
+          const int first = atomicAdd(counter, 1) == 0;
+          if (!first) *counter = 0;   // both have arrived: ready for the next call
+          partner_goes_on = first;
+        }
+        __syncthreads();
+        if (partner_goes_on) return;
+        __threadfence();
+        // all of a fragment's loads in flight at once, then the adds
+        const float* theirs = slots + (long long)partner * width * split_stride;
+#pragma unroll
+        for (int i = 0; i < MFW; ++i) {
+          if (!has[i]) continue;
+          float2 p[2 * NFW][2];
+#pragma unroll
+          for (int j = 0; j < 2 * NFW; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = (wm + i * WM) * 16 + g + 8 * h, c = wn * NFW * 16 + j * 8 + 2 * tq;
+              p[j][h] = r < rows ? __ldcg(reinterpret_cast<const float2*>(
+                                       theirs + (long long)r * cout + c))
+                                 : make_float2(0.f, 0.f);
+            }
+#pragma unroll
+          for (int j = 0; j < 2 * NFW; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              acc[i][j][2 * h] += p[j][h].x;
+              acc[i][j][2 * h + 1] += p[j][h].y;
+            }
+        }
+      }
+      node >>= 1;
+      width <<= 1;
+      count = (count + 1) >> 1;
+    }
+  }
+  __syncthreads();   // the halos and ring are idle: Cs may alias them
+  float* Cs = reinterpret_cast<float*>(smem);
+  each_pair([&](int r, int c, float& v0, float& v1) {
+    *reinterpret_cast<float2*>(Cs + r * Sh::LDC + c) = make_float2(v0, v1);
+  });
+  __syncthreads();
+  epilogue<__nv_bfloat16>(a, t, Cs, Sh::LDC, BN, n0, box);
+}
+
+// ---------------------------------------------------------------------------
 // CUDA cores, f32 FMA: f32, or channel counts that are not multiples of 16.
 
 constexpr int kFmaPool = (2 * kFmaKc * kFmaRowPad + 2 * kFmaKc * kFmaBn) > kTile * (kFmaBn + 1)
@@ -777,32 +930,26 @@ bool by_brick(int dtype, int Z, int Y, int X, int cin, int cout) {
          X % kBrickX == 0;
 }
 
-int wmma_kc(int cin) {
+// The brick path's input-channel chunk and 16-column output fragments.
+int brick_kc(int cin) {
   return cin % 64 == 0 ? 64 : cin % 48 == 0 ? 48 : cin % 32 == 0 ? 32 : 16;
 }
 
-int wmma_nf(int cout) {
+int brick_nf(int cout) {
   return cout % 64 == 0 ? 4 : cout % 48 == 0 ? 3 : cout % 32 == 0 ? 2 : 1;
 }
 
-// (K steps, output-channel blocks) of one tile off the brick path.
-void work_shape(int dtype, int cin, int cout, int& nsteps, int& nblocks) {
-  if (on_tensor_cores(dtype, cin, cout)) {
-    nsteps = 27 * (cin / wmma_kc(cin));
-    nblocks = cout / (16 * wmma_nf(cout));
-  } else {
-    nsteps = (27 * cin + kFmaKc - 1) / kFmaKc;
-    nblocks = (cout + kFmaBn - 1) / kFmaBn;
-  }
+int device_sms() {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
 }
 
 // Splits of K so that a call fills the card with two CTAs per SM, keeping
 // at least kMinStepsPerSplit steps in each; no split is empty.
 int plan_splits(long long ctas, int nsteps) {
-  int sms = 132, dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long want = 2LL * sms;
+  const long long want = 2LL * device_sms();
   if (ctas >= want) return 1;
   int splits = (int)((want + ctas - 1) / ctas);
   splits = min(min(splits, kMaxSplits), max(1, nsteps / kMinStepsPerSplit));
@@ -810,8 +957,81 @@ int plan_splits(long long ctas, int nsteps) {
   return (nsteps + per - 1) / per;
 }
 
-int tile_voxels(int dtype, int Z, int Y, int X, int cin, int cout) {
-  return by_brick(dtype, Z, Y, X, cin, cout) ? kBrick : kTile;
+enum class Path { brick, coarse, fma };
+
+// How a call of one shape runs: its path, statistics tile, K steps (units
+// on the coarse path), output-channel blocks and K splits.
+struct Plan {
+  Path path;
+  int tile, nsteps, nblocks, splits;
+  int tz, ty, tx, kc, nfw, wn, smem_main;   // the coarse path's box and kernel
+  int tree;                                 // its counters per (tile, N block)
+};
+
+// The coarse path's box and kernel shape, where it takes the call: a
+// 4x4x4 brick that divides the volume, else the whole sample if it holds
+// at most kBoxMaxRows voxels; KC = 32 unless the channels or the shared
+// memory want 16.
+bool coarse_plan(int Z, int Y, int X, int cin, int cout, Plan& p) {
+  if (Z % kBoxEdge == 0 && Y % kBoxEdge == 0 && X % kBoxEdge == 0) {
+    p.tz = p.ty = p.tx = kBoxEdge;
+  } else if ((long long)Z * Y * X <= kBoxMaxRows) {
+    p.tz = Z;
+    p.ty = Y;
+    p.tx = X;
+  } else {
+    return false;
+  }
+  const int rows = p.tz * p.ty * p.tx, frags = (rows + 15) / 16, cn = cout / 16;
+  // two warps along N while one fragment a warp covers the box (WM = 4)
+  p.wn = frags <= kBoxThreads / 64 && cn % 2 == 0 ? 2 : 1;
+  const int per = cn / p.wn;
+  p.nfw = per % 4 == 0 ? 4 : per % 3 == 0 ? 3 : per % 2 == 0 ? 2 : 1;
+  const int bn = 16 * p.nfw * p.wn, halo = (p.tz + 2) * (p.ty + 2) * (p.tx + 2);
+  const int kcs[2] = {32, 16};
+  for (const int kc : kcs) {
+    if (cin % kc) continue;
+    const int main = box_main_bytes(halo, frags, kc, bn);
+    if ((size_t)main + 2 * (size_t)cin * sizeof(float) + 16 > kSmemLimit) continue;
+    p.kc = kc;
+    p.smem_main = main;
+    p.tile = rows;
+    p.nsteps = cin / kc * kUnitsPerChunk;
+    p.nblocks = cout / bn;
+    return true;
+  }
+  return false;
+}
+
+Plan plan_call(int dtype, int B, int Z, int Y, int X, int cin, int cout) {
+  Plan p{};
+  const long long s = (long long)Z * Y * X;
+  if (by_brick(dtype, Z, Y, X, cin, cout)) {
+    p.path = Path::brick;
+    p.tile = kBrick;
+    p.nblocks = cout / (16 * brick_nf(cout));
+    p.splits = 1;
+  } else if (on_tensor_cores(dtype, cin, cout) && coarse_plan(Z, Y, X, cin, cout, p)) {
+    // split only where the tiles leave SMs idle, into about one CTA an SM
+    p.path = Path::coarse;
+    const long long base = B * (s / p.tile) * p.nblocks;
+    const int sms = device_sms();
+    p.splits = 1;
+    if (base < sms) {
+      const long long fill = (sms + base - 1) / base;
+      const int want = fill < p.nsteps ? (int)fill : p.nsteps;
+      const int per = (p.nsteps + want - 1) / want;
+      p.splits = (p.nsteps + per - 1) / per;
+    }
+    for (p.tree = 1; p.tree < p.splits;) p.tree *= 2;
+  } else {
+    p.path = Path::fma;
+    p.tile = kTile;
+    p.nsteps = (27 * cin + kFmaKc - 1) / kFmaKc;
+    p.nblocks = (cout + kFmaBn - 1) / kFmaBn;
+    p.splits = plan_splits(B * ((s + kTile - 1) / kTile) * p.nblocks, p.nsteps);
+  }
+  return p;
 }
 
 template <typename Kernel>
@@ -825,22 +1045,54 @@ cudaError_t launch_smem(Kernel kernel, dim3 grid, int threads, size_t smem, cons
 }
 
 template <int NF, int KC>
-cudaError_t launch_kc(const Args& a, dim3 grid, bool brick, cudaStream_t stream) {
-  const size_t cols = 2 * (size_t)a.cin * sizeof(float);
-  if (brick)
-    return launch_smem(miseg_k4_conv_brick<NF, KC>, grid, kBrickThreads,
-                       BrickShape<NF, KC>::BYTES + cols, a, stream);
-  return launch_smem(miseg_k4_conv_wmma<NF, KC>, grid, kWmmaThreads,
-                     WmmaShape<NF, KC>::BYTES + cols, a, stream);
+cudaError_t launch_brick_kc(const Args& a, dim3 grid, cudaStream_t stream) {
+  return launch_smem(miseg_k4_conv_brick<NF, KC>, grid, kBrickThreads,
+                     BrickShape<NF, KC>::BYTES + 2 * (size_t)a.cin * sizeof(float), a, stream);
 }
 
 template <int NF>
-cudaError_t launch_nf(const Args& a, dim3 grid, bool brick, cudaStream_t stream) {
-  switch (wmma_kc(a.cin)) {
-    case 64: return launch_kc<NF, 64>(a, grid, brick, stream);
-    case 48: return launch_kc<NF, 48>(a, grid, brick, stream);
-    case 32: return launch_kc<NF, 32>(a, grid, brick, stream);
-    default: return launch_kc<NF, 16>(a, grid, brick, stream);
+cudaError_t launch_brick_nf(const Args& a, dim3 grid, cudaStream_t stream) {
+  switch (brick_kc(a.cin)) {
+    case 64: return launch_brick_kc<NF, 64>(a, grid, stream);
+    case 48: return launch_brick_kc<NF, 48>(a, grid, stream);
+    case 32: return launch_brick_kc<NF, 32>(a, grid, stream);
+    default: return launch_brick_kc<NF, 16>(a, grid, stream);
+  }
+}
+
+cudaError_t launch_brick(const Args& a, dim3 grid, cudaStream_t stream) {
+  switch (brick_nf(a.cout)) {
+    case 4: return launch_brick_nf<4>(a, grid, stream);
+    case 3: return launch_brick_nf<3>(a, grid, stream);
+    case 2: return launch_brick_nf<2>(a, grid, stream);
+    default: return launch_brick_nf<1>(a, grid, stream);
+  }
+}
+
+template <int NFW, int KC, int WN>
+cudaError_t launch_coarse_wn(const Args& a, dim3 grid, cudaStream_t stream) {
+  return launch_smem(miseg_k4_conv_coarse<NFW, KC, WN>, grid, kBoxThreads,
+                     a.smem_main + 2 * (size_t)a.cin * sizeof(float), a, stream);
+}
+
+template <int NFW, int KC>
+cudaError_t launch_coarse_kc(const Args& a, dim3 grid, const Plan& p, cudaStream_t stream) {
+  return p.wn == 2 ? launch_coarse_wn<NFW, KC, 2>(a, grid, stream)
+                   : launch_coarse_wn<NFW, KC, 1>(a, grid, stream);
+}
+
+template <int NFW>
+cudaError_t launch_coarse_nfw(const Args& a, dim3 grid, const Plan& p, cudaStream_t stream) {
+  return p.kc == 32 ? launch_coarse_kc<NFW, 32>(a, grid, p, stream)
+                    : launch_coarse_kc<NFW, 16>(a, grid, p, stream);
+}
+
+cudaError_t launch_coarse(const Args& a, dim3 grid, const Plan& p, cudaStream_t stream) {
+  switch (p.nfw) {
+    case 4: return launch_coarse_nfw<4>(a, grid, p, stream);
+    case 3: return launch_coarse_nfw<3>(a, grid, p, stream);
+    case 2: return launch_coarse_nfw<2>(a, grid, p, stream);
+    default: return launch_coarse_nfw<1>(a, grid, p, stream);
   }
 }
 
@@ -850,7 +1102,7 @@ cudaError_t launch_nf(const Args& a, dim3 grid, bool brick, cudaStream_t stream)
 // weigh the partials.
 extern "C" int miseg_fused_conv3_tile_voxels(int Z, int Y, int X, int cin, int cout,
                                              int dtype) {
-  return tile_voxels(dtype, Z, Y, X, cin, cout);
+  return plan_call(dtype, 1, Z, Y, X, cin, cout).tile;
 }
 
 // How many K splits a call on this device makes; above 1 the caller passes
@@ -858,11 +1110,17 @@ extern "C" int miseg_fused_conv3_tile_voxels(int Z, int Y, int X, int cin, int c
 // floats.  The brick path never splits.
 extern "C" int miseg_fused_conv3_splits(int B, int Z, int Y, int X, int cin,
                                         int cout, int dtype) {
-  if (by_brick(dtype, Z, Y, X, cin, cout)) return 1;
-  int nsteps, nblocks;
-  work_shape(dtype, cin, cout, nsteps, nblocks);
-  const long long s = (long long)Z * Y * X;
-  return plan_splits(B * ((s + kTile - 1) / kTile) * nblocks, nsteps);
+  return plan_call(dtype, B, Z, Y, X, cin, cout).splits;
+}
+
+// How many arrival counters a call needs (0: none): a split call on the
+// coarse path takes a power of two >= its splits per (tile, output-channel
+// block), all 0 on entry and all 0 again when the launch ends.
+extern "C" int miseg_fused_conv3_counters(int B, int Z, int Y, int X, int cin,
+                                          int cout, int dtype) {
+  const Plan p = plan_call(dtype, B, Z, Y, X, cin, cout);
+  if (p.path != Path::coarse || p.splits == 1) return 0;
+  return (int)((long long)B * Z * Y * X / p.tile * p.nblocks * p.tree);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w and y share it).  x is a
@@ -872,12 +1130,14 @@ extern "C" int miseg_fused_conv3_splits(int B, int Z, int Y, int X, int cin,
 // cout]; part is f32 [2, B * n_tiles, cout] with n_tiles = ceil(Z*Y*X /
 // tile voxels) (see miseg_fused_conv3_tile_voxels); work is the split-K
 // workspace (see miseg_fused_conv3_splits) or null when there is one
-// split.  Returns the CUDA error code of the last launch (0 on success).
+// split; counters the arrival counters (see miseg_fused_conv3_counters) or
+// null when none are needed.  Calls that share counters run on one stream.
+// Returns the CUDA error code of the last launch (0 on success).
 extern "C" int miseg_fused_conv3(const void* x, const void* w, const void* scale,
                                  const void* shift, float slope, int leaky,
-                                 void* y, void* part, void* work, int B, int Z,
-                                 int Y, int X, int cin, int cout, int dtype,
-                                 void* stream) {
+                                 void* y, void* part, void* work, void* counters,
+                                 int B, int Z, int Y, int X, int cin, int cout,
+                                 int dtype, void* stream) {
   const long long s = (long long)Z * Y * X;
   if (B < 1 || Z < 1 || Y < 1 || X < 1 || cin < 1 || cout < 1 ||
       s * (cin > cout ? cin : cout) >= (1LL << 31) ||
@@ -893,37 +1153,36 @@ extern "C" int miseg_fused_conv3(const void* x, const void* w, const void* scale
   a.y = y;
   a.part = static_cast<float*>(part);
   a.work = static_cast<float*>(work);
+  a.counters = static_cast<int*>(counters);
   a.Z = Z;
   a.Y = Y;
   a.X = X;
   a.cin = cin;
   a.cout = cout;
   a.S = (int)s;
-  const bool brick = by_brick(dtype, Z, Y, X, cin, cout);
-  const int tile = tile_voxels(dtype, Z, Y, X, cin, cout);
-  a.n_tiles = (int)((s + tile - 1) / tile);
+  const Plan p = plan_call(dtype, B, Z, Y, X, cin, cout);
+  a.n_tiles = (int)((s + p.tile - 1) / p.tile);
   a.n_parts = (long long)B * a.n_tiles;
-  int nblocks;
-  work_shape(dtype, cin, cout, a.nsteps, nblocks);
-  a.splits = brick ? 1 : plan_splits(a.n_parts * nblocks, a.nsteps);
+  a.nsteps = p.nsteps;
+  a.splits = p.splits;
+  a.tz = p.tz;
+  a.ty = p.ty;
+  a.tx = p.tx;
+  a.smem_main = p.smem_main;
+  a.tree = p.tree;
   if (a.splits > 1 && work == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)a.n_parts, nblocks, a.splits);
-  cudaError_t err;
-  if (on_tensor_cores(dtype, cin, cout)) {
-    switch (wmma_nf(cout)) {
-      case 4: err = launch_nf<4>(a, grid, brick, st); break;
-      case 3: err = launch_nf<3>(a, grid, brick, st); break;
-      case 2: err = launch_nf<2>(a, grid, brick, st); break;
-      default: err = launch_nf<1>(a, grid, brick, st); break;
-    }
-  } else {
-    if (dtype == 0)
-      miseg_k4_conv_fma<float><<<grid, kThreads, 0, st>>>(a);
-    else
-      miseg_k4_conv_fma<__nv_bfloat16><<<grid, kThreads, 0, st>>>(a);
-    err = cudaGetLastError();
+  const dim3 grid((unsigned)a.n_parts, p.nblocks, a.splits);
+  if (p.path == Path::brick) return (int)launch_brick(a, grid, st);
+  if (p.path == Path::coarse) {   // the splits add up inside the launch
+    if (a.splits > 1 && counters == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)launch_coarse(a, grid, p, st);
   }
+  if (dtype == 0)
+    miseg_k4_conv_fma<float><<<grid, kThreads, 0, st>>>(a);
+  else
+    miseg_k4_conv_fma<__nv_bfloat16><<<grid, kThreads, 0, st>>>(a);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return (int)err;
   const dim3 rgrid((unsigned)a.n_parts, (cout + kFmaBn - 1) / kFmaBn);
   if (dtype == 0)

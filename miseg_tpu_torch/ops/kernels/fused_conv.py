@@ -15,11 +15,16 @@ ctypes (`build.py`).
         gamma/beta (none, `[C]`, or the `[S, C]` bank row of the clamped
         style id), f32 `[B, Cout]`.
 The kernel writes per-tile (mean, M2) partials of the rounded y and K1's
-fold (`fused_norm.fold_partials`) merges them, within the same call.  A
-tile is a 4x4x16 brick where bricks divide the volume in bf16 (the 96^3
-and 48^3 levels), else 128 consecutive voxels; the C side says which.
-Small volumes split K over several CTAs; the wrapper allocates the f32
-workspace for the split sums, sized by the C side's own plan.
+fold (`fused_norm.fold_partials`) merges them, within the same call.  In
+bf16 a tile is a 4x4x16 brick where those divide the volume (the 96^3 and
+48^3 levels), else a 4x4x4 brick where those do (24^3, 12^3), else the
+whole sample where it holds at most 256 voxels (6^3, 3^3), else 128
+consecutive voxels; the C side says which.  Calls with few tiles split K
+over several CTAs.  The wrapper allocates the f32 workspace for the split
+sums, sized by the C side's own plan, and on the coarse path (the 4x4x4
+and whole-sample tiles, whose splits add up inside the one launch) the
+integer arrival counters: once per device and stream, zeroed, grown only
+when a larger grid needs more; every launch leaves them at 0.
 
 For a CUDA tensor the wrapper launches K4 or raises; it uses the plain
 version `conv3_norm_columns_plain` only for CPU tensors.  Weights arrive
@@ -105,20 +110,39 @@ def conv3_norm_columns_plain(x, w, scale=None, shift=None, *,
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    """(C entry point, its split planner, its tile size) with their ctypes
-    signatures, built on first use."""
+    """(C entry point, its split planner, its tile size, its counter count)
+    with their ctypes signatures, built on first use."""
     lib = build.load("fused_conv")
     fn = lib.miseg_fused_conv3
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     splits = lib.miseg_fused_conv3_splits
     splits.restype = ctypes.c_int
     splits.argtypes = [ctypes.c_int] * 7
     tile = lib.miseg_fused_conv3_tile_voxels
     tile.restype = ctypes.c_int
     tile.argtypes = [ctypes.c_int] * 6
-    return fn, splits, tile
+    counters = lib.miseg_fused_conv3_counters
+    counters.restype = ctypes.c_int
+    counters.argtypes = [ctypes.c_int] * 7
+    return fn, splits, tile, counters
+
+
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _arrival_counters(device: torch.device, stream: int, n: int) -> torch.Tensor | None:
+    """At least `n` int32 arrival counters for calls on this device and
+    stream, all 0 between launches; None when the call needs none."""
+    if n == 0:
+        return None
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def kernel_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -165,7 +189,7 @@ def conv3_norm_columns(x, w, scale=None, shift=None, *,
     if scale is not None:
         scale = scale.float().contiguous()
         shift = shift.float().contiguous()
-    fn, plan_splits, tile_voxels = _entry()
+    fn, plan_splits, tile_voxels, plan_counters = _entry()
     dims = (bsz, z, yd, xd, cin, cout, _DTYPES[x.dtype])
     s = z * yd * xd
     tile = tile_voxels(*dims[1:])
@@ -177,11 +201,13 @@ def conv3_norm_columns(x, w, scale=None, shift=None, *,
         splits = plan_splits(*dims)
         work = (torch.empty((splits, bsz * n_tiles * tile, cout), dtype=torch.float32,
                             device=x.device) if splits > 1 else None)
+        counters = _arrival_counters(x.device, stream, plan_counters(*dims))
         err = fn(x.data_ptr(), wk.data_ptr(),
                  scale.data_ptr() if scale is not None else None,
                  shift.data_ptr() if shift is not None else None,
                  float(slope or 0.0), int(slope is not None), y.data_ptr(),
                  part.data_ptr(), work.data_ptr() if work is not None else None,
+                 counters.data_ptr() if counters is not None else None,
                  *dims, stream)
     if err != 0:
         raise RuntimeError(f"fused_conv kernel launch failed: CUDA error {err}")

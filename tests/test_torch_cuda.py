@@ -152,10 +152,12 @@ def test_k5_rejects_oversize(dev):
 
 # K4 cases: (x shape, Cout); the flagship's main-path channel pairs at cut
 # spatial sizes, encoder1's Cin = 1, encoder10's 768 -> 768 at 3^3, a
-# generic odd one, X % 16 == 0 shapes that 4x4x16 bricks do not divide
-# (per-tap path, tiles spanning several x-rows, a short last tile), and
-# brick-path shapes: the 48^3 level, 16x16x32 at 48->48 and 96->48, one
-# brick whose faces are all halo, and 32->64
+# generic odd one, X % 16 == 0 shapes that no brick divides and that hold
+# more than 256 voxels (the FMA path in bf16 too: tiles spanning several
+# x-rows, a short last tile), brick-path shapes (the 48^3 level, 16x16x32
+# at 48->48 and 96->48, one brick whose faces are all halo, and 32->64),
+# and the coarse path at every (shape, Cin, Cout) of the flagship's 24^3,
+# 12^3, 6^3 and 3^3 convs (3^3 is 768_to768), plus 12^3 at batch 2
 _CONV = {
     "cin1_to48": ((1, 7, 9, 11, 1), 48),
     "48_to48": ((1, 24, 24, 24, 48), 48),
@@ -169,6 +171,13 @@ _CONV = {
     "brick_96_to48_b2": ((2, 16, 16, 32, 96), 48),
     "brick_one": ((1, 4, 4, 16, 48), 48),
     "brick_32_to64": ((1, 8, 4, 16, 32), 64),
+    "coarse_24_96_to96": ((1, 24, 24, 24, 96), 96),
+    "coarse_24_192_to96": ((1, 24, 24, 24, 192), 96),
+    "coarse_12_192_to192": ((1, 12, 12, 12, 192), 192),
+    "coarse_12_384_to192": ((1, 12, 12, 12, 384), 192),
+    "coarse_6_768_to384": ((1, 6, 6, 6, 768), 384),
+    "coarse_6_384_to384": ((1, 6, 6, 6, 384), 384),
+    "coarse_12_192_to192_b2": ((2, 12, 12, 12, 192), 192),
 }
 
 
@@ -212,24 +221,75 @@ def test_k4_matches_plain(dev, gen, case, dtype, prologue):
 
 def test_k4_takes_bricks_where_they_divide(dev):
     """bf16 statistics tiles are 4x4x16 bricks where they divide the volume
-    (and the channels suit the tensor cores), else 128 voxels; f32 runs on
-    the CUDA cores in 128-voxel tiles."""
+    (and the channels suit the tensor cores), else 4x4x4 bricks where those
+    divide it, else the whole sample where it holds at most 256 voxels, else
+    128 voxels; f32 runs on the CUDA cores in 128-voxel tiles."""
     tile_voxels = fused_conv._entry()[2]
     for case, (shape, cout) in _CONV.items():
         _, z, y, x, cin = shape
-        brick = z % 4 == 0 and y % 4 == 0 and x % 16 == 0 and cin % 16 == 0 and cout % 16 == 0
+        tc = cin % 16 == 0 and cout % 16 == 0
+        brick = tc and z % 4 == 0 and y % 4 == 0 and x % 16 == 0
         assert brick == (case.startswith("brick") or case == "96_to48_b2"), case
-        assert tile_voxels(z, y, x, cin, cout, 1) == (256 if brick else 128), case
+        if brick:
+            want = 256
+        elif tc and z % 4 == 0 and y % 4 == 0 and x % 4 == 0:
+            want = 64
+        elif tc and z * y * x <= 256:
+            want = z * y * x
+        else:
+            want = 128
+        coarse = want not in (256, 128)
+        assert coarse == (case.startswith("coarse") or case in ("48_to48", "768_to768")), case
+        assert tile_voxels(z, y, x, cin, cout, 1) == want, case
         assert tile_voxels(z, y, x, cin, cout, 0) == 128, case
 
 
-@pytest.mark.parametrize("shape", [(1, 16, 16, 32, 48), (1, 24, 24, 24, 48)])
-def test_k4_repeats_bit_identically(dev, gen, shape):
-    """A brick-path shape, and a per-tap one that splits K."""
-    x, w, kw = _conv_operands(gen, dev, torch.bfloat16, shape, 48, "affine_leaky")
+def _coarse_splits(shape, cout) -> int:
+    b, z, y, x, cin = shape
+    return fused_conv._entry()[1](b, z, y, x, cin, cout, 1)
+
+
+@pytest.mark.parametrize("shape,cout", [((1, 16, 16, 32, 48), 48), ((1, 6, 6, 6, 384), 384)])
+def test_k4_repeats_bit_identically(dev, gen, shape, cout):
+    """A brick-path shape, and a coarse one that splits K: its arrival
+    counters are back at 0 after each call, so the repeat is the same."""
+    if shape[1] == 6:
+        assert _coarse_splits(shape, cout) > 1
+    x, w, kw = _conv_operands(gen, dev, torch.bfloat16, shape, cout, "affine_leaky")
     first = fused_conv.conv3_norm_columns(x, w, **kw)
     second = fused_conv.conv3_norm_columns(x, w, **kw)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_k4_split_shapes_in_turn(dev, gen):
+    """Two coarse shapes that split K differently, called in turn twice,
+    give the same results each time and leave every counter at 0."""
+    cases = [((1, 12, 12, 12, 192), 192), ((1, 3, 3, 3, 768), 768)]
+    assert all(_coarse_splits(*c) > 1 for c in cases)
+    operands = [_conv_operands(gen, dev, torch.bfloat16, s, c, "affine_leaky")
+                for s, c in cases]
+    runs = [[fused_conv.conv3_norm_columns(x, w, **kw) for x, w, kw in operands]
+            for _ in range(2)]
+    for first, second in zip(*runs):
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+    torch.cuda.synchronize()
+    assert fused_conv._counters
+    assert all(int(torch.count_nonzero(c)) == 0 for c in fused_conv._counters.values())
+
+
+@pytest.mark.parametrize("shape,cout", [((1, 24, 24, 24, 96), 96), ((1, 3, 3, 3, 768), 768)])
+def test_k4_coarse_call_is_one_kernel(dev, gen, shape, cout):
+    """A bf16 coarse call, split or not, is one K4 device kernel (the
+    coarse kernel) besides its fold: no second reduce launch."""
+    from torch.profiler import ProfilerActivity, profile
+    x, w, kw = _conv_operands(gen, dev, torch.bfloat16, shape, cout, "affine_leaky")
+    fused_conv.conv3_norm_columns(x, w, **kw)   # builds and warms up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_conv.conv3_norm_columns(x, w, **kw)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "miseg_k4_" in e.name]
+    assert len(names) == 1 and "miseg_k4_conv_coarse" in names[0], names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -68,7 +68,11 @@ def _rel(a, b) -> float:
 
 @pytest.mark.parametrize("prologue", ["none", "affine", "affine_leaky"])
 @pytest.mark.parametrize("shape,cout", [((2, 6, 8, 8, 5), 7), ((2, 8, 8, 8, 1), 6),
-                                        ((2, 2, 6, 5, 4), 8)])
+                                        ((2, 2, 6, 5, 4), 8),
+                                        # the card's coarse tiles: 4x4x4 bricks,
+                                        # a whole 6^3 sample, a whole 3^3 one
+                                        ((1, 8, 8, 8, 16), 16), ((1, 6, 6, 6, 32), 16),
+                                        ((2, 3, 3, 3, 32), 32)])
 def test_k4_plain_matches_jax(rng, shape, cout, prologue):
     b, cin = shape[0], shape[-1]
     x = rng.standard_normal(shape).astype(np.float32)
