@@ -5,16 +5,17 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, one result line each; any failed check exits non-zero:
   1. device  — torch/CUDA versions, the card's name and power limit, the
-               kernels' build (nvcc for K4 and K5, one process per source,
-               started together; Triton for K1/K2/K3), and a check that
-               the bf16 K5 kernel and K4's brick and coarse kernels hold
-               tensor-core instructions in their SASS;
-  2. kernels — K1, K2, K3, K4 and K5 against their plain PyTorch versions
-               on the card, in bf16 and f32, at the shapes of the 96^3
-               flagship, with CUDA-event times of kernel, plain version and
-               a library yardstick the port never calls, beside each
-               kernel's bound; for K4 also the device times (torch.profiler)
-               of the kernel and of `F.conv3d` at each of the 12 shapes;
+               kernels' build (nvcc for K1, K4 and K5, one process per
+               source, started together; Triton for K2/K3), and a check
+               that the bf16 K5 kernel and K4's brick, coarse and Cin = 1
+               kernels hold tensor-core instructions in their SASS;
+  2. kernels — K1 (and its fold of K4's partials), K2, K3, K4 and K5
+               against their plain PyTorch versions on the card, in bf16
+               and f32, at the shapes of the 96^3 flagship, with CUDA-event
+               times of kernel, plain version and a library yardstick the
+               port never calls, beside each kernel's bound; for K1 and K4
+               also the device times (torch.profiler) of the kernel and of
+               `torch.var_mean` / `F.conv3d` at each shape;
   3. model   — one full-width (feature_size 48, heads 3) window in f32,
                card against CPU, through the fused conv chain (the
                default) and through the unfused path (`fused_conv=False`);
@@ -23,9 +24,10 @@ Phases, one result line each; any failed check exits non-zero:
                volume requests through `load_bundle(...).predict`; the
                kernels' launch counters must rise by the per-window counts.
                Then one window through the fused and the unfused model
-               (same weights), and a profile of one window, which fails if
-               a bf16 conv of the window launched the per-tap or split-K
-               reduce kernels of K4.
+               (same weights), and a profile of one window, which fails
+               unless the window ran 20 K4 kernels (12 coarse, one Cin = 1,
+               none on the FMA path or its split-K reduce) and 51 K1
+               kernels (31 statistics, 20 folds), none of them Triton.
 Then one JSON line of kernels, the card line, and the ok line last.
 """
 
@@ -51,8 +53,9 @@ os.environ.setdefault("TRITON_CACHE_DIR",
 # plus one K1 run for the norm3 of each of the 6 projected residuals
 # (encoder1, decoder5..decoder1).  The other norms (16 swin-block, 4 patch
 # merging, 5 parameter-free proj_out) are one K1 run and one K2 launch
-# each; one K5 launch per swin block (4 stages x 2).
-PER_WINDOW = {"K1": 31, "K2": 25, "K3": 10, "K4": 20, "K5": 8}
+# each; one K5 launch per swin block (4 stages x 2).  Each K4 call folds
+# its statistics with one K1 fold launch.
+PER_WINDOW = {"K1": 31, "K2": 25, "K3": 10, "K4": 20, "K5": 8, "K1 fold": 20}
 FLAGSHIP = dict(model_name="swin_unetr", out_channels=6, feature_size=[48],
                 num_heads=3, depth_swin_block=[2], roi_x=96, roi_y=96,
                 roi_z=96, encoder_norm_name="instance_cond",
@@ -142,12 +145,14 @@ def phase_device():
 
 
 def check_tensor_cores(build) -> None:
-    """Every instance of the bf16 K5 kernel and of K4's brick and coarse
-    kernels holds tensor-core instructions (HMMA/HGMMA) in the built SASS."""
+    """Every instance of the bf16 K5 kernel and of K4's brick, coarse and
+    Cin = 1 kernels holds tensor-core instructions (HMMA/HGMMA) in the
+    built SASS."""
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     for source, kernel in (("window_attention", "miseg_k5_attn_mma"),
                            ("fused_conv", "miseg_k4_conv_brick"),
-                           ("fused_conv", "miseg_k4_conv_coarse")):
+                           ("fused_conv", "miseg_k4_conv_coarse"),
+                           ("fused_conv", "miseg_k4_conv_cin1")):
         sass = subprocess.run([str(tool), "-sass", str(build.library_path(source))],
                               capture_output=True, text=True, timeout=120,
                               check=True).stdout
@@ -207,6 +212,9 @@ def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
                 k1 = time_ms(lambda: fn.channel_scale_shift(x, gamma, beta, styles))
                 k1_plain = time_ms(lambda: fn.channel_scale_shift_plain(x, gamma, beta, styles))
                 k1_lib = time_ms(lambda: torch.var_mean(x, dim=1, correction=0))
+                dev_k1 = device_ms(lambda: fn.channel_scale_shift(x, gamma, beta, styles),
+                                   "miseg_k1_")
+                dev_lib = device_ms(lambda: torch.var_mean(x, dim=1, correction=0))
                 k2 = time_ms(lambda: fn.apply_scale_shift(x, rs, rh, None, negative_slope=0.01))
                 k2a = time_ms(lambda: fn.apply_scale_shift(x, rs, rh, add, negative_slope=0.01))
                 k2_plain = time_ms(lambda: fn.apply_scale_shift_plain(
@@ -217,7 +225,8 @@ def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
                 b1, b2, b2a = (nbytes / mem_bw * 1e3, 2 * nbytes / mem_bw * 1e3,
                                3 * nbytes / mem_bw * 1e3)
                 line += (f"\n    times ms: K1 {k1:.4f} (bound {b1:.4f}, plain {k1_plain:.4f}, "
-                         f"torch.var_mean {k1_lib:.4f}); K2 {k2:.4f} (bound {b2:.4f}, "
+                         f"torch.var_mean {k1_lib:.4f}; device: K1 {dev_k1:.4f}, "
+                         f"torch.var_mean {dev_lib:.4f}); K2 {k2:.4f} (bound {b2:.4f}, "
                          f"plain {k2_plain:.4f}); K2+add {k2a:.4f} (bound {b2a:.4f}); "
                          f"K1+K2 {k1 + k2:.4f} vs F.instance_norm {inorm:.4f}")
                 if shape == (1, 96 ** 3, 48):
@@ -228,6 +237,30 @@ def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
                                       bound_by="bytes", library_ms=None,
                                       max_abs_err=errs[0][0])
             print(line)
+    # ---- K1's fold of K4's brick partials (96^3: 3456 a sample, 48^3: 432)
+    for side, cout in ((96, 48), (48, 48)):
+        s_vox, rows_t = side ** 3, 256
+        n_tiles = s_vox // rows_t
+        part = torch.stack([torch.randn((n_tiles, cout), generator=gen) + 0.5,
+                            torch.rand((n_tiles, cout), generator=gen) * rows_t]).to(dev)
+        gamma = (1 + 0.2 * torch.randn((2, cout), generator=gen)).to(dev, torch.bfloat16)
+        beta = (0.2 * torch.randn((2, cout), generator=gen)).to(dev, torch.bfloat16)
+        styles = torch.tensor([1], dtype=torch.int32, device=dev)
+        args = (part, s_vox, rows_t, n_tiles, gamma, beta, styles)
+        got, want = fn.fold_partials(*args), fn.fold_partials_plain(*args)
+        ef = max(max_err(a, b) / (1 + float(b.abs().max())) for a, b in zip(got, want))
+        check(ef <= 1e-5, f"K1 fold {n_tiles} partials: relative error {ef:.2e} > 1e-5")
+        fold = time_ms(lambda: fn.fold_partials(*args))
+        fold_plain = time_ms(lambda: fn.fold_partials_plain(*args))
+        dev_fold = device_ms(lambda: fn.fold_partials(*args), "miseg_k1_")
+        bound = (part.numel() * 4 + 2 * cout * 4 + 2 * gamma.numel() * 2) / mem_bw * 1e3
+        print(f"  K1 fold {n_tiles} partials x {cout}: rel err {ef:.2e} (tol 1e-05)"
+              f"\n    times ms: fold {fold:.4f} (device {dev_fold:.4f}; bound {bound:.5f} by "
+              f"bytes), plain {fold_plain:.4f}")
+        if side == 96:
+            rows["K1 fold"] = dict(ms=fold, plain_ms=fold_plain, bound_ms=bound,
+                                   bound_by="bytes", library_ms=None,
+                                   max_abs_err=max(max_err(a, b) for a, b in zip(got, want)))
     # ---- K5 at the four swin stages of a 96^3 window -------------------
     stages = [  # (window batch, N, channels, heads, padded dims for ids)
         (343, 343, 48, 3, (49, 49, 49)),
@@ -371,7 +404,7 @@ def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
                               library_ms=None, max_abs_err=e)
         print(line)
     torch.cuda.synchronize()
-    print(f"kernels: K1, K2, K3, K4, K5 match their plain versions at main-path "
+    print(f"kernels: K1, K1 fold, K2, K3, K4, K5 match their plain versions at main-path "
           f"shapes in bf16 and f32 ({time.perf_counter() - t0:.1f} s)")
     return rows
 
@@ -438,14 +471,15 @@ def phase_serve(dev) -> dict:
     for label, vol, mod in requests:
         windows = len(window_starts(vol.shape[1:-1], cfg.roi, cfg.infer_overlap)[1])
         torch.cuda.synchronize()
-        fn.stats_launches = fn.apply_launches = fn.apply2_launches = 0
+        fn.stats_launches = fn.apply_launches = fn.apply2_launches = fn.fold_launches = 0
         fc.launches = wa.launches = 0
         t0 = time.perf_counter()
         out = served.predict(vol, [mod])
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         counts = {"K1": fn.stats_launches, "K2": fn.apply_launches,
-                  "K3": fn.apply2_launches, "K4": fc.launches, "K5": wa.launches}
+                  "K3": fn.apply2_launches, "K4": fc.launches, "K5": wa.launches,
+                  "K1 fold": fn.fold_launches}
         check(tuple(out.shape) == (*vol.shape[:-1], cfg.out_channels),
               f"serve {label}: shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out).all()), f"serve {label}: non-finite logits")
@@ -533,15 +567,24 @@ def profile_window(served, dev, reps: int = 3) -> None:
         print(f"profile: window {event_ms:.2f} ms (CUDA events); kernel times not "
               f"measured (the profiler recorded no device events)")
         return
-    # every bf16 conv is one K4 kernel: the 12 below 48^3 the coarse one
-    retired = sorted({e.name for e in kernels if "miseg_k4_splitk_reduce" in e.name
-                      or "miseg_k4_conv_wmma" in e.name})
+    # every bf16 conv is one K4 kernel: the 12 below 48^3 the coarse one,
+    # encoder1's Cin = 1 conv the Cin = 1 one; every K1 call and every fold
+    # one CUDA K1 kernel
+    retired = sorted({e.name for e in kernels if any(k in e.name for k in (
+        "miseg_k4_splitk_reduce", "miseg_k4_conv_wmma", "miseg_k4_conv_fma",
+        "miseg_k1_stats_partial", "miseg_k1_stats_merge", "miseg_k1_stats_fold"))})
     check(not retired, f"profile: the bf16 window launched {retired}")
     k4 = [e.name for e in kernels if "miseg_k4_" in e.name]
     coarse = sum("miseg_k4_conv_coarse" in n for n in k4)
-    check(len(k4) == PER_WINDOW["K4"] * reps and coarse == 12 * reps,
-          f"profile: {len(k4) / reps} K4 kernels a window, {coarse / reps} coarse; "
-          f"want {PER_WINDOW['K4']} and 12")
+    cin1 = sum("miseg_k4_conv_cin1" in n for n in k4)
+    check(len(k4) == PER_WINDOW["K4"] * reps and coarse == 12 * reps and cin1 == reps,
+          f"profile: {len(k4) / reps} K4 kernels a window, {coarse / reps} coarse, "
+          f"{cin1 / reps} Cin = 1; want {PER_WINDOW['K4']}, 12 and 1")
+    k1 = [e.name for e in kernels if "miseg_k1_" in e.name]
+    cuda_k1 = sum("miseg_k1_stats<" in n or "miseg_k1_fold" in n for n in k1)
+    check(len(k1) == (PER_WINDOW["K1"] + PER_WINDOW["K1 fold"]) * reps and cuda_k1 == len(k1),
+          f"profile: {len(k1) / reps} K1 kernels a window, {cuda_k1 / reps} of them the "
+          f"CUDA statistics and fold kernels; want {PER_WINDOW['K1'] + PER_WINDOW['K1 fold']}")
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
@@ -558,7 +601,7 @@ def profile_window(served, dev, reps: int = 3) -> None:
         f"{g} {ms:.3f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     for name, ms in top[:10] + [kv for kv in top[10:] if "miseg_k4_" in kv[0]
-                                or "miseg_k5_" in kv[0]]:
+                                or "miseg_k5_" in kv[0] or "miseg_k1_" in kv[0]]:
         print(f"  {ms:8.3f} ms  {name[:110]}")
 
 
@@ -579,9 +622,12 @@ def main() -> int:
     phase_model(dev)
     launches = phase_serve(dev)
     meta = {
-        "K1": ("fused_norm.channel_scale_shift", "triton",
-               "miseg_tpu_torch/ops/kernels/fused_norm.py",
+        "K1": ("fused_norm.channel_scale_shift", "cuda",
+               "miseg_tpu_torch/ops/kernels/csrc/fused_norm.cu",
                "miseg_tpu/ops/pallas/fused_norm.py:78"),
+        "K1 fold": ("fused_norm.fold_partials", "cuda",
+                    "miseg_tpu_torch/ops/kernels/csrc/fused_norm.cu",
+                    "miseg_tpu/ops/pallas/fused_norm.py:78"),
         "K2": ("fused_norm.apply_scale_shift", "triton",
                "miseg_tpu_torch/ops/kernels/fused_norm.py",
                "miseg_tpu/ops/pallas/fused_norm.py:90"),

@@ -1,5 +1,7 @@
 """Model factory: `Config` -> `nn.Module` (counterpart of
-`miseg_tpu/models/factory.py:27-36,77-94`, the `swin_unetr` branch)."""
+`miseg_tpu/models/factory.py:27-36,77-94`, the `swin_unetr` /
+`pre_swin_unetr` branch: both names build the same SwinUNETR; the
+pretrained checkpoint ingest of `pre_swin_unetr` is not ported yet)."""
 
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from ..ops.norms import parse_normalization
 from ..utils.platform import resolve_device
 from .swin_unetr import SwinUNETR
 
-MODEL_NAMES = ("swin_unetr",)
+MODEL_NAMES = ("swin_unetr", "pre_swin_unetr")
 
 
 def _norm_specs(cfg: Config):

@@ -31,7 +31,7 @@
 // cut that to 9, and the transform still cost about as much as the MMAs.
 //
 // Design.  Implicit GEMM: M = output voxels, N = Cout in blocks, K =
-// 27*Cin.  Three paths:
+// 27*Cin.  Four paths:
 //   * bf16 with Cin, Cout multiples of 16 and a volume that 4x4x16 bricks
 //     divide (the 96^3 and 48^3 levels): miseg_k4_conv_brick.  A CTA owns
 //     one brick (256 voxels) and 16*NF output channels.  Per chunk of KC
@@ -65,10 +65,22 @@
 //     sums to its own and goes on; the root runs the epilogue.  No float
 //     atomics, and a commutative add per node: a repeated call is
 //     bit-identical.
-//   * f32, any channel count that is not a multiple of 16 (encoder1's
-//     Cin = 1), and bf16 volumes that neither brick divides and that hold
-//     more than 256 voxels (none in the flagship at a ROI that is a
-//     multiple of 32): CUDA cores in f32 FMA (never TF32), a 128 x 64 tile
+//   * bf16 with Cin = 1 (encoder1's first conv), Cout % 16 == 0 and a
+//     volume that 4x4x16 bricks divide: miseg_k4_conv_cin1.  The reduction
+//     is the 27 taps alone, so the call is bound by its y write (85 MB at
+//     96^3 -> 48, 25 us).  A CTA keeps the [32, BN] weight slice (taps
+//     zero-padded to K = 32) in registers as B fragments and walks bricks:
+//     it copies a brick's 6x6x18 one-channel halo once (zero outside the
+//     volume), applies the prologue once in shared memory, gathers the
+//     brick's 256 x 32 im2col rows straight into A fragments, and runs two
+//     k-steps of mma.sync per fragment; the next brick's halo loads are in
+//     flight meanwhile.  Its epilogue is its own, lean on shared memory
+//     (see the kernel).  The statistics tile is the brick.
+//   * f32, any channel count that is not a multiple of 16 (Cin = 1 in
+//     f32 or on volumes no brick divides), and bf16 volumes that neither
+//     brick divides and that hold more than 256 voxels (none in the
+//     flagship at a ROI that is a multiple of 32): CUDA cores in f32 FMA
+//     (never TF32), a 128 x 64 tile
 //     with 8 x 4 outputs per thread, K in chunks of 16 with any (tap,
 //     channel) split, double-buffered through registers.  Few tiles split
 //     K: each split writes its f32 partial sums to a workspace and a
@@ -335,6 +347,16 @@ struct BrickRows {
   }
 };
 
+// halo voxel hv (x fastest) of the brick at `rows` -> its flat voxel index,
+// or -1 outside the volume
+__device__ __forceinline__ int brick_halo_voxel(const Args& a, const BrickRows& rows, int hv) {
+  const int hx = hv % kHaloX, hy = hv / kHaloX % kHaloY, hz = hv / (kHaloX * kHaloY);
+  const int zz = rows.z0 - 1 + hz, yy = rows.y0 - 1 + hy, xx = rows.x0 - 1 + hx;
+  const bool in = (unsigned)zz < (unsigned)a.Z && (unsigned)yy < (unsigned)a.Y &&
+                  (unsigned)xx < (unsigned)a.X;
+  return in ? (zz * a.Y + yy) * a.X + xx : -1;
+}
+
 template <int NF, int KC>
 __global__ void __launch_bounds__(kBrickThreads, 2)
 miseg_k4_conv_brick(Args a) {
@@ -371,18 +393,10 @@ miseg_k4_conv_brick(Args a) {
       ssh[c] = a.shift[(long long)t.b * cin + c];
     }
 
-  // halo voxel hv -> its flat voxel index, or -1 outside the volume
-  auto halo_voxel = [&](int hv) {
-    const int hx = hv % kHaloX, hy = hv / kHaloX % kHaloY, hz = hv / (kHaloX * kHaloY);
-    const int zz = rows.z0 - 1 + hz, yy = rows.y0 - 1 + hy, xx = rows.x0 - 1 + hx;
-    const bool in = (unsigned)zz < (unsigned)a.Z && (unsigned)yy < (unsigned)a.Y &&
-                    (unsigned)xx < (unsigned)a.X;
-    return in ? (zz * a.Y + yy) * a.X + xx : -1;
-  };
   auto issue_halo = [&](int c0) {
     for (int v = tid; v < H_VECS; v += kBrickThreads) {
       const int hv = v / SEGS, seg = v - hv * SEGS;
-      const int m = halo_voxel(hv);
+      const int m = brick_halo_voxel(a, rows, hv);
       cp_async16(Hs + hv * KCP + seg * 8,
                  m >= 0 ? x + (long long)m * cin + c0 + seg * 8 : x, m >= 0);
     }
@@ -431,7 +445,7 @@ miseg_k4_conv_brick(Args a) {
     if (transform)
       for (int v = tid; v < H_VECS; v += kBrickThreads) {
         const int hv = v / SEGS, seg = v - hv * SEGS;
-        if (halo_voxel(hv) >= 0)
+        if (brick_halo_voxel(a, rows, hv) >= 0)
           transform8(Hs + hv * KCP + seg * 8, ssc, ssh, c0 + seg * 8, affine, leaky, a.slope);
       }
     for (int sg = 0; sg < NSTAGES; ++sg) {
@@ -770,6 +784,225 @@ miseg_k4_conv_coarse(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 Cin = 1 on the tensor cores, by brick: Cout % (16 * NF) == 0 and the
+// volume divides into 4 x 4 x 16 bricks.  A CTA owns BN output channels and
+// walks bricks blockIdx.x, + gridDim.x, ...; its B fragments (the [32, BN]
+// weight slice, taps 27..31 zero) stay in registers for every brick.  Per
+// brick it stores the 6 x 6 x 18 one-channel halo, fetched into registers
+// while the previous brick ran, in shared memory with the prologue applied
+// once and rounded to bf16 (the halo outside the volume stays 0).  Lane
+// (g, tq) of a warp gathers the A fragment of its rows g and g + 8 of an
+// x-row straight from the halo: columns 2tq, 2tq + 1, 2tq + 8, 2tq + 9 of
+// each 16-tap k-step are the halo values at those taps' offsets, so the
+// 256 x 32 im2col rows are never staged.  Each warp multiplies its two
+// x-rows (32 voxels) by BN channels, one x-row at a time.
+//
+// The call moves little but its output (85 MB of y at 96^3 -> 48), so its
+// epilogue is its own: the shared one keeps an f32 tile and reads it back
+// with scalar, bank-conflicting accesses and a thread per column, and here
+// that shared-memory traffic, not the MMAs or the stores, bounded the
+// kernel (on an H100 it ran at 4.4x its byte bound).  The sums are rounded to bf16 in
+// registers into a bf16 tile with conflict-free 16-byte rows; y leaves it
+// 16 bytes at a time; the statistics of the rounded values are taken
+// two-pass by every thread, a column pair over one of SLICES row slices,
+// and the slices merge by Chan's formula in slice order (deterministic).
+
+constexpr int kCin1K = 32;   // 27 taps zero-padded to two k-steps of 16
+constexpr int kCin1HaloPer = (kHalo + kBrickThreads - 1) / kBrickThreads;   // 3
+
+template <int NF>
+struct Cin1Shape {
+  static constexpr int BN = 16 * NF, BNP = BN + 8, YP = BN + 8;   // bf16 row pitches
+  static constexpr int PAIRS = BN / 2, SLICES = kBrickThreads / PAIRS;
+  static constexpr int SLICE_ROWS = (kBrick + SLICES - 1) / SLICES;
+  static constexpr size_t W = (size_t)kCin1K * BNP * sizeof(__nv_bfloat16);
+  static constexpr size_t HALO = ((size_t)kHalo * sizeof(__nv_bfloat16) + 15) / 16 * 16;
+  static constexpr size_t YS = (size_t)kBrick * YP * sizeof(__nv_bfloat16);
+  static constexpr size_t ST = (size_t)2 * SLICES * BN * sizeof(float);   // (mean, M2) a slice
+  static constexpr size_t BYTES = W + HALO + YS + ST;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+template <int NF>
+__global__ void __launch_bounds__(kBrickThreads, 3)
+miseg_k4_conv_cin1(Args a) {
+  using Sh = Cin1Shape<NF>;
+  constexpr int BN = Sh::BN, BNP = Sh::BNP, YP = Sh::YP, PAIRS = Sh::PAIRS;
+  constexpr int SLICES = Sh::SLICES, SLICE_ROWS = Sh::SLICE_ROWS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* Ws = reinterpret_cast<__nv_bfloat16*>(smem);           // [kCin1K][BNP]
+  __nv_bfloat16* Hs = reinterpret_cast<__nv_bfloat16*>(smem + Sh::W);   // [kHalo]
+  __nv_bfloat16* Ys = reinterpret_cast<__nv_bfloat16*>(smem + Sh::W + Sh::HALO);   // [kBrick][YP]
+  float* st_mean = reinterpret_cast<float*>(smem + Sh::W + Sh::HALO + Sh::YS);   // [SLICES][BN]
+  float* st_m2 = st_mean + SLICES * BN;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n0 = blockIdx.y * BN;
+  const bool affine = a.scale != nullptr, leaky = a.leaky != 0;
+  const bool transform = affine || leaky;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);   // [B, S] (cin = 1)
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);   // [27, cout]
+  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(a.y);
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+  const int n_tiles = a.n_tiles, n_parts = (int)a.n_parts;   // the bricks of all samples
+  const int nbx = a.X / kBrickX, nby = a.Y / kBrickY;
+  auto brick_rows = [&](int tile) {
+    return BrickRows{tile / (nbx * nby) * kBrickZ, tile / nbx % nby * kBrickY,
+                     tile % nbx * kBrickX, a.Y, a.X};
+  };
+
+  for (int i = tid; i < kCin1K * BN; i += kBrickThreads) {
+    const int k = i / BN, n = i - k * BN;
+    Ws[k * BNP + n] = k < 27 ? w[(long long)k * a.cout + n0 + n] : zero;
+  }
+  __syncthreads();
+  uint32_t bfr[2][NF][4];   // [k-step][16 columns]
+  {
+    const int brow = (lane & 7) + ((lane >> 3) & 1) * 8, bcol = (lane >> 4) * 8;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+        ldmatrix_x4_trans(bfr[ks][j], Ws + (ks * 16 + brow) * BNP + j * 16 + bcol);
+  }
+  // this lane's taps: column 2tq + e + 8h of k-step ks is tap ks*16 + 8h +
+  // 2tq + e, at halo offset toff (-1 past the 27 taps: a zero)
+  const int g = lane >> 2, tq = lane & 3;
+  int toff[2][4];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int tap = ks * 16 + h * 8 + 2 * tq + e;
+        toff[ks][h * 2 + e] =
+            tap < 27 ? ((tap / 9) * kHaloY + tap / 3 % 3) * kHaloX + tap % 3 : -1;
+      }
+  auto at = [&](int hr, int off) { return off >= 0 ? Hs[hr + off] : zero; };
+
+  // the halo of brick p into registers (0 outside the volume)
+  __nv_bfloat16 hreg[kCin1HaloPer];
+  bool hin[kCin1HaloPer];
+  auto fetch = [&](int p) {
+    const int b = p / n_tiles;
+    const BrickRows rows = brick_rows(p - b * n_tiles);
+    const __nv_bfloat16* xs = x + (long long)b * a.S;
+#pragma unroll
+    for (int j = 0; j < kCin1HaloPer; ++j) {
+      const int hv = tid + j * kBrickThreads;
+      const int m = hv < kHalo ? brick_halo_voxel(a, rows, hv) : -1;
+      hin[j] = m >= 0;
+      hreg[j] = m >= 0 ? xs[m] : zero;
+    }
+  };
+
+  // the statistics' share of this thread: column pair sp of row slice ss
+  const int sp = tid % PAIRS, ss = tid / PAIRS;
+  const int sr0 = ss * SLICE_ROWS, sr1 = min(kBrick, sr0 + SLICE_ROWS);
+
+  int p = blockIdx.x;
+  if (p < n_parts) fetch(p);
+  for (; p < n_parts; p += gridDim.x) {
+    const int b = p / n_tiles;
+    const BrickRows rows = brick_rows(p - b * n_tiles);
+    const float sc = affine ? a.scale[b] : 1.0f, sh = affine ? a.shift[b] : 0.0f;
+    __syncthreads();   // every warp left the last brick's halo, tile and slices
+#pragma unroll
+    for (int j = 0; j < kCin1HaloPer; ++j) {
+      const int hv = tid + j * kBrickThreads;
+      if (hv < kHalo)
+        Hs[hv] = transform && hin[j]
+                     ? __float2bfloat16(prologue(__bfloat162float(hreg[j]), sc, sh, affine, leaky,
+                                                 a.slope))
+                     : hreg[j];
+    }
+    __syncthreads();
+    if (p + (int)gridDim.x < n_parts) fetch(p + gridDim.x);   // in flight during this brick
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = warp * 2 + i;   // the brick's x-row
+      const int hr = ((q / kBrickY) * kHaloY + q % kBrickY) * kHaloX + g;
+      float acc[2 * NF][4];
+#pragma unroll
+      for (int j = 0; j < 2 * NF; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t af[4];
+        af[0] = pack_bf16(at(hr, toff[ks][0]), at(hr, toff[ks][1]));
+        af[1] = pack_bf16(at(hr + 8, toff[ks][0]), at(hr + 8, toff[ks][1]));
+        af[2] = pack_bf16(at(hr, toff[ks][2]), at(hr, toff[ks][3]));
+        af[3] = pack_bf16(at(hr + 8, toff[ks][2]), at(hr + 8, toff[ks][3]));
+#pragma unroll
+        for (int j = 0; j < NF; ++j) {
+          mma_bf16(acc[2 * j], af, bfr[ks][j][0], bfr[ks][j][1]);
+          mma_bf16(acc[2 * j + 1], af, bfr[ks][j][2], bfr[ks][j][3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2 * NF; ++j) {   // round once, into the bf16 tile
+        const int r = q * kBrickX + g, c = j * 8 + 2 * tq;
+        *reinterpret_cast<__nv_bfloat162*>(Ys + r * YP + c) =
+            __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+        *reinterpret_cast<__nv_bfloat162*>(Ys + (r + 8) * YP + c) =
+            __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+      }
+    }
+    __syncthreads();
+    // y, 16 bytes at a time
+    constexpr int CHUNKS = BN / 8;
+    for (int e = tid; e < kBrick * CHUNKS; e += kBrickThreads) {
+      const int r = e / CHUNKS, k = e - r * CHUNKS;
+      *reinterpret_cast<uint4*>(y + ((long long)b * a.S + rows(r)) * a.cout + n0 + k * 8) =
+          *reinterpret_cast<const uint4*>(Ys + r * YP + k * 8);
+    }
+    // the statistics: two passes over this thread's rows of a column pair
+    if (ss < SLICES) {
+      float2 sum = make_float2(0.0f, 0.0f);
+      for (int r = sr0; r < sr1; ++r) {
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(Ys + r * YP + 2 * sp));
+        sum.x += v.x;
+        sum.y += v.y;
+      }
+      const float cnt = (float)(sr1 - sr0);
+      const float2 mean = make_float2(sum.x / cnt, sum.y / cnt);
+      float2 m2 = make_float2(0.0f, 0.0f);
+      for (int r = sr0; r < sr1; ++r) {
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(Ys + r * YP + 2 * sp));
+        const float dx = v.x - mean.x, dy = v.y - mean.y;
+        m2.x = fmaf(dx, dx, m2.x);
+        m2.y = fmaf(dy, dy, m2.y);
+      }
+      st_mean[ss * BN + 2 * sp] = mean.x;
+      st_mean[ss * BN + 2 * sp + 1] = mean.y;
+      st_m2[ss * BN + 2 * sp] = m2.x;
+      st_m2[ss * BN + 2 * sp + 1] = m2.y;
+    }
+    __syncthreads();
+    for (int c = tid; c < BN; c += kBrickThreads) {   // the slices, merged in order
+      float n = (float)SLICE_ROWS, mean = st_mean[c], m2 = st_m2[c];
+#pragma unroll
+      for (int sl = 1; sl < SLICES; ++sl) {
+        const float nb = (float)(min(kBrick, (sl + 1) * SLICE_ROWS) - sl * SLICE_ROWS);
+        const float tot = n + nb, f = nb / tot, d = st_mean[sl * BN + c] - mean;
+        mean = fmaf(d, f, mean);
+        m2 = m2 + st_m2[sl * BN + c] + d * d * (n * f);
+        n = tot;
+      }
+      a.part[(long long)p * a.cout + n0 + c] = mean;
+      a.part[(a.n_parts + p) * a.cout + n0 + c] = m2;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // CUDA cores, f32 FMA: f32, or channel counts that are not multiples of 16.
 
 constexpr int kFmaPool = (2 * kFmaKc * kFmaRowPad + 2 * kFmaKc * kFmaBn) > kTile * (kFmaBn + 1)
@@ -923,11 +1156,19 @@ bool on_tensor_cores(int dtype, int cin, int cout) {
   return dtype == 1 && cin % 16 == 0 && cout % 16 == 0;
 }
 
+bool bricks_divide(int Z, int Y, int X) {
+  return Z % kBrickZ == 0 && Y % kBrickY == 0 && X % kBrickX == 0;
+}
+
+// The Cin = 1 path: bf16 on the tensor cores by brick.
+bool by_cin1(int dtype, int Z, int Y, int X, int cin, int cout) {
+  return dtype == 1 && cin == 1 && cout % 16 == 0 && bricks_divide(Z, Y, X);
+}
+
 // The brick path: tensor cores, and bricks that divide the volume, so
 // every statistics tile holds kBrick voxels.
 bool by_brick(int dtype, int Z, int Y, int X, int cin, int cout) {
-  return on_tensor_cores(dtype, cin, cout) && Z % kBrickZ == 0 && Y % kBrickY == 0 &&
-         X % kBrickX == 0;
+  return on_tensor_cores(dtype, cin, cout) && bricks_divide(Z, Y, X);
 }
 
 // The brick path's input-channel chunk and 16-column output fragments.
@@ -957,7 +1198,7 @@ int plan_splits(long long ctas, int nsteps) {
   return (nsteps + per - 1) / per;
 }
 
-enum class Path { brick, coarse, fma };
+enum class Path { cin1, brick, coarse, fma };
 
 // How a call of one shape runs: its path, statistics tile, K steps (units
 // on the coarse path), output-channel blocks and K splits.
@@ -1006,7 +1247,12 @@ bool coarse_plan(int Z, int Y, int X, int cin, int cout, Plan& p) {
 Plan plan_call(int dtype, int B, int Z, int Y, int X, int cin, int cout) {
   Plan p{};
   const long long s = (long long)Z * Y * X;
-  if (by_brick(dtype, Z, Y, X, cin, cout)) {
+  if (by_cin1(dtype, Z, Y, X, cin, cout)) {
+    p.path = Path::cin1;
+    p.tile = kBrick;
+    p.nblocks = cout / (16 * brick_nf(cout));
+    p.splits = 1;
+  } else if (by_brick(dtype, Z, Y, X, cin, cout)) {
     p.path = Path::brick;
     p.tile = kBrick;
     p.nblocks = cout / (16 * brick_nf(cout));
@@ -1066,6 +1312,33 @@ cudaError_t launch_brick(const Args& a, dim3 grid, cudaStream_t stream) {
     case 3: return launch_brick_nf<3>(a, grid, stream);
     case 2: return launch_brick_nf<2>(a, grid, stream);
     default: return launch_brick_nf<1>(a, grid, stream);
+  }
+}
+
+// A grid of as many CTAs as fit on the card at once (at most one per
+// brick); each walks its bricks.
+template <int NF>
+cudaError_t launch_cin1_nf(const Args& a, int nblocks, cudaStream_t stream) {
+  const auto kernel = miseg_k4_conv_cin1<NF>;
+  const size_t smem = Cin1Shape<NF>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBrickThreads, smem);
+  if (err != cudaSuccess) return err;
+  const long long fit = (long long)device_sms() * (per_sm > 0 ? per_sm : 1) / nblocks;
+  const dim3 grid((unsigned)min(a.n_parts, fit > 0 ? fit : 1LL), nblocks);
+  kernel<<<grid, kBrickThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_cin1(const Args& a, int nblocks, cudaStream_t stream) {
+  switch (brick_nf(a.cout)) {
+    case 4: return launch_cin1_nf<4>(a, nblocks, stream);
+    case 3: return launch_cin1_nf<3>(a, nblocks, stream);
+    case 2: return launch_cin1_nf<2>(a, nblocks, stream);
+    default: return launch_cin1_nf<1>(a, nblocks, stream);
   }
 }
 
@@ -1173,6 +1446,7 @@ extern "C" int miseg_fused_conv3(const void* x, const void* w, const void* scale
   if (a.splits > 1 && work == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)a.n_parts, p.nblocks, a.splits);
+  if (p.path == Path::cin1) return (int)launch_cin1(a, p.nblocks, st);
   if (p.path == Path::brick) return (int)launch_brick(a, grid, st);
   if (p.path == Path::coarse) {   // the splits add up inside the launch
     if (a.splits > 1 && counters == nullptr) return (int)cudaErrorInvalidValue;

@@ -15,16 +15,16 @@ ctypes (`build.py`).
         gamma/beta (none, `[C]`, or the `[S, C]` bank row of the clamped
         style id), f32 `[B, Cout]`.
 The kernel writes per-tile (mean, M2) partials of the rounded y and K1's
-fold (`fused_norm.fold_partials`) merges them, within the same call.  In
-bf16 a tile is a 4x4x16 brick where those divide the volume (the 96^3 and
-48^3 levels), else a 4x4x4 brick where those do (24^3, 12^3), else the
-whole sample where it holds at most 256 voxels (6^3, 3^3), else 128
-consecutive voxels; the C side says which.  Calls with few tiles split K
-over several CTAs.  The wrapper allocates the f32 workspace for the split
-sums, sized by the C side's own plan, and on the coarse path (the 4x4x4
-and whole-sample tiles, whose splits add up inside the one launch) the
-integer arrival counters: once per device and stream, zeroed, grown only
-when a larger grid needs more; every launch leaves them at 0.
+fold (`fused_norm.fold_partials`, one more launch) merges them, within the
+same call.  In bf16 a tile is a 4x4x16 brick where those divide the volume
+(the 96^3 and 48^3 levels, and encoder1's Cin = 1 conv at 96^3, which has
+a tensor-core kernel of its own), else a 4x4x4 brick where those do (24^3,
+12^3), else the whole sample where it holds at most 256 voxels (6^3, 3^3),
+else 128 consecutive voxels; the C side says which.  Calls with few tiles
+split K over several CTAs.  The wrapper allocates the f32 workspace for
+the split sums, sized by the C side's own plan, and on the coarse path
+(the 4x4x4 and whole-sample tiles, whose splits add up inside the one
+launch) takes the integer arrival counters of `counters.py`.
 
 For a CUDA tensor the wrapper launches K4 or raises; it uses the plain
 version `conv3_norm_columns_plain` only for CPU tensors.  Weights arrive
@@ -42,7 +42,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import build, fused_norm
+from . import build, counters, fused_norm
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -123,26 +123,10 @@ def _entry():
     tile = lib.miseg_fused_conv3_tile_voxels
     tile.restype = ctypes.c_int
     tile.argtypes = [ctypes.c_int] * 6
-    counters = lib.miseg_fused_conv3_counters
-    counters.restype = ctypes.c_int
-    counters.argtypes = [ctypes.c_int] * 7
-    return fn, splits, tile, counters
-
-
-_counters: dict[tuple[int, int], torch.Tensor] = {}
-
-
-def _arrival_counters(device: torch.device, stream: int, n: int) -> torch.Tensor | None:
-    """At least `n` int32 arrival counters for calls on this device and
-    stream, all 0 between launches; None when the call needs none."""
-    if n == 0:
-        return None
-    key = (device.index, stream)
-    buf = _counters.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _counters[key] = buf
-    return buf
+    n_counters = lib.miseg_fused_conv3_counters
+    n_counters.restype = ctypes.c_int
+    n_counters.argtypes = [ctypes.c_int] * 7
+    return fn, splits, tile, n_counters
 
 
 def kernel_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -201,13 +185,13 @@ def conv3_norm_columns(x, w, scale=None, shift=None, *,
         splits = plan_splits(*dims)
         work = (torch.empty((splits, bsz * n_tiles * tile, cout), dtype=torch.float32,
                             device=x.device) if splits > 1 else None)
-        counters = _arrival_counters(x.device, stream, plan_counters(*dims))
+        ctrs = counters.arrival_counters(x.device, stream, plan_counters(*dims))
         err = fn(x.data_ptr(), wk.data_ptr(),
                  scale.data_ptr() if scale is not None else None,
                  shift.data_ptr() if shift is not None else None,
                  float(slope or 0.0), int(slope is not None), y.data_ptr(),
                  part.data_ptr(), work.data_ptr() if work is not None else None,
-                 counters.data_ptr() if counters is not None else None,
+                 ctrs.data_ptr() if ctrs is not None else None,
                  *dims, stream)
     if err != 0:
         raise RuntimeError(f"fused_conv kernel launch failed: CUDA error {err}")

@@ -14,54 +14,55 @@ Replaces the Pallas TPU kernels of miseg_tpu/ops/pallas/fused_norm.py:
 Public entries: `instance_norm_act` (the counterpart of
 `fused_instance_norm_act` :463-491), `apply_norm_act` (:371) and
 `apply_norm2_act` (:387).  K1's fold also serves K4 (`fused_conv`), whose
-epilogue writes partials in pass 1's layout: `fold_partials`.
+epilogue writes (mean, M2) partials per tile: `fold_partials`.
 
-All three are Triton kernels: bandwidth-bound, with no tensor-core work,
-which Triton's masked block loads and reductions express directly.
+K1 is CUDA C++ (`csrc/fused_norm.cu`, built by `build.py`, bound with
+ctypes): `channel_scale_shift` is one launch of `miseg_k1_stats` and
+`fold_partials` one launch of `miseg_k1_fold`.  Each finishes its
+cross-CTA merge inside the launch: the last CTA to arrive on an integer
+counter (`counters.py`) merges the partials in a fixed order, so a repeat
+is bit-identical; the source's header says what bounds it and how.  The
+statistics are two-pass over register tiles merged with Chan's formula,
+never the TPU kernel's one-pass (sum, sum^2).  The grids are planned here
+(`stats_grid`, `fold_grid`), where the CPU tests reach them.
 
-K1 is bound by reading x once (at [1, 96^3, 48] bf16: 85 MB, ~25 us at
-3.35 TB/s).  The TPU kernel accumulates (sum, sum^2) over a sequential
-grid and folds to a ONE-pass variance, which loses digits when
-var << mean^2.  Here blocks run in parallel, so pass 1 gives every
-(sample, row chunk, channel block) program its own partial
-(mean, M2) — tiles merged with Chan's formula, each tile's M2 taken
-two-pass in registers — and pass 2 merges the chunk partials per channel,
-64 chunks per step (the exact parallel form of the same merge), and folds
-in gamma/beta (none, [C], or the [S, C] bank row of the clamped style id).
-The chunk count is chosen so pass 1's grid holds at least a few programs
-per SM at both main-path extremes (S=884,736, C=48 and S=27, C=3072).
-
-K2 is bound by reading x (and `add`) and writing y once (170 MB, or 255 MB
+K2 and K3 are Triton kernels: bandwidth-bound elementwise passes with no
+tensor-core work, which Triton's masked block loads express directly.  K2
+is bound by reading x (and `add`) and writing y once (170 MB, or 255 MB
 with `add`, at [1, 96^3, 48] bf16).  It walks the flat `[B, S*C]` view in
 contiguous blocks, so every load is coalesced whatever C is.  K3 is K2's
 pass over two inputs (255 MB at [1, 96^3, 48] bf16) and walks the same way.
 
 The wrappers launch the kernels for CUDA tensors and use the plain
-versions (`channel_scale_shift_plain`, `apply_scale_shift_plain`,
-`apply_norm2_act_plain`) only for CPU tensors.  The plain apply adds `add`
-in f32 before rounding, like the kernel (the JAX package's plain tail adds
-after rounding).
+versions (`channel_scale_shift_plain`, `fold_partials_plain`,
+`apply_scale_shift_plain`, `apply_norm2_act_plain`) only for CPU tensors.
+The plain apply adds `add` in f32 before rounding, like the kernel (the
+JAX package's plain tail adds after rounding).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 import types
 
 import torch
+import torch.nn.functional as F
 
 from .. import norms as N
+from . import build, counters
 
-_STATS_BLOCK_S = 64
 _APPLY_BLOCK = 2048
-_FOLD_BLOCK_C = 64
-_FOLD_BLOCK_K = 64
-_MERGE_GROUP = 64      # partials merged per program ahead of a long fold
-_MERGE_ABOVE = 256     # fold more partials per sample than this: merge first
-_PROGRAMS_PER_SM = 4
+_K1_THREADS = 256       # kMaxThreads in csrc/fused_norm.cu
+_K1_UNROLL = 8          # rows a thread of miseg_k1_stats loads at once (kUnroll)
+_K1_CTAS_PER_SM = 3
+_K1_GROUPS = 8          # load groups a miseg_k1_stats channel block holds at most
+_FOLD_MAX_C = 256       # channels a miseg_k1_fold CTA merges
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-stats_launches = 0   # K1 runs (pass 1 + pass 2) since last set to 0
+stats_launches = 0   # K1 launches (channel_scale_shift) since last set to 0
+fold_launches = 0    # K1 fold launches (fold_partials, after each K4) since last set to 0
 apply_launches = 0   # K2 launches since last set to 0
 apply2_launches = 0  # K3 launches since last set to 0
 
@@ -79,17 +80,51 @@ def _gamma_rows(gamma, beta, styles, bsz: int, c: int):
     return g.expand(bsz, c), b.expand(bsz, c)
 
 
+def _columns(mean, inv, gamma, beta, styles):
+    """f32 (scale, shift) `[B, C]`: `scale = gamma * inv_std`,
+    `shift = beta - mean * scale`."""
+    rows = _gamma_rows(gamma, beta, styles, *mean.shape)
+    if rows is None:
+        return inv, -mean * inv
+    scale = inv * rows[0]
+    return scale, rows[1] - mean * scale
+
+
 def channel_scale_shift_plain(x3, gamma=None, beta=None, styles=None, *,
                               eps: float = 1e-5):
     """x3 `[B, S, C]` -> f32 (scale, shift) `[B, C]` with
     `scale = gamma * inv_std`, `shift = beta - mean * scale`."""
     mean, inv = N.stats(x3, (1,), eps)
-    mean, inv = mean[:, 0], inv[:, 0]
-    rows = _gamma_rows(gamma, beta, styles, x3.shape[0], x3.shape[2])
-    if rows is None:
-        return inv, -mean * inv
-    scale = inv * rows[0]
-    return scale, rows[1] - mean * scale
+    return _columns(mean[:, 0], inv[:, 0], gamma, beta, styles)
+
+
+def _merge(n, mean, m2, dim: int):
+    """Merge (count, mean, M2) partials along `dim` in the exact parallel
+    form: mean = sum(n_k mean_k) / n, M2 = sum(M2_k + n_k (mean_k - mean)^2)."""
+    tot = n.sum(dim)
+    mu = (n * mean).sum(dim) / tot
+    d = mean - mu.unsqueeze(dim)
+    return tot, mu, (m2 + n * d * d).sum(dim)
+
+
+def fold_partials_plain(part, s: int, rows: int, n_chunks: int, gamma=None,
+                        beta=None, styles=None, *, eps: float = 1e-5):
+    """`fold_partials` in plain PyTorch: per-chunk (mean, M2) partials
+    `f32 [2, B*n_chunks, C]` of `rows`-row chunks of S rows (only a
+    sample's last chunk short) -> f32 (scale, shift) `[B, C]`, merged in
+    the kernel's groups (`fold_grid`): each group of consecutive chunks,
+    then the groups in order."""
+    _, n_parts, c = part.shape
+    bsz = n_parts // n_chunks
+    group, n_groups, _ = fold_grid(n_chunks, c)
+    pad = n_groups * group - n_chunks
+    counts = (s - torch.arange(n_chunks, device=part.device) * rows).clamp(max=rows)
+    counts = F.pad(counts.float(), (0, pad)).reshape(1, n_groups, group, 1)
+    mean, m2 = (F.pad(p.float().reshape(bsz, n_chunks, c), (0, 0, 0, pad))
+                .reshape(bsz, n_groups, group, c) for p in part)
+    n_g, mean_g, m2_g = _merge(counts.expand(bsz, -1, -1, c), mean, m2, 2)
+    _, mean, m2 = _merge(n_g, mean_g, m2_g, 1)
+    return _columns(mean, torch.rsqrt((m2 / s).clamp_min(0.0) + eps), gamma, beta, styles)
 
 
 def apply_scale_shift_plain(x3, scale, shift, add3=None, *,
@@ -118,117 +153,10 @@ def apply_norm2_act_plain(x, sx, hx, res, sr, hr, *,
 
 @functools.lru_cache(maxsize=None)
 def _kernels():
-    """Define the Triton kernels on first use (triton exists only where a
-    card does; importing this module must not need it)."""
+    """Define the Triton kernels K2 and K3 on first use (triton exists only
+    where a card does; importing this module must not need it)."""
     import triton
     import triton.language as tl
-
-    @triton.jit
-    def miseg_k1_stats_partial(x_ptr, part_ptr, S, C, rows_per_chunk, n_chunks,
-                               BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
-        pid = tl.program_id(0)                 # b * n_chunks + chunk
-        b = pid // n_chunks
-        chunk = pid % n_chunks
-        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        row0 = chunk * rows_per_chunk
-        row_end = tl.minimum(row0 + rows_per_chunk, S)
-        xb = x_ptr + b.to(tl.int64) * S * C
-        cnt = tl.zeros([BLOCK_C], tl.float32)
-        mean = tl.zeros([BLOCK_C], tl.float32)
-        m2 = tl.zeros([BLOCK_C], tl.float32)
-        for r in range(row0, row_end, BLOCK_S):
-            rows = r + tl.arange(0, BLOCK_S)
-            rmask = rows < row_end
-            m = rmask[:, None] & cmask[None, :]
-            offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
-            x = tl.load(xb + offs, mask=m, other=0.0).to(tl.float32)
-            nt = tl.sum(rmask.to(tl.float32), axis=0)
-            tmean = tl.sum(x, axis=0) / nt
-            dev = tl.where(m, x - tmean[None, :], 0.0)
-            tm2 = tl.sum(dev * dev, axis=0)
-            tot = cnt + nt
-            delta = tmean - mean
-            mean = mean + delta * (nt / tot)
-            m2 = m2 + tm2 + delta * delta * (cnt * nt / tot)
-            cnt = tot
-        out = pid.to(tl.int64) * C + cols
-        tl.store(part_ptr + out, mean, mask=cmask)
-        tl.store(part_ptr + (pid.to(tl.int64) + tl.num_programs(0)) * C + cols,
-                 m2, mask=cmask)
-
-    @triton.jit
-    def miseg_k1_stats_fold(part_ptr, gamma_ptr, beta_ptr, styles_ptr, out_ptr,
-                            S, C, rows_per_chunk, n_chunks, n_parts, eps,
-                            GAMMA_MODE: tl.constexpr, BLOCK_K: tl.constexpr,
-                            BLOCK_C: tl.constexpr):
-        # merges BLOCK_K chunk partials per step: mean = sum(n_k mean_k) / S,
-        # then M2 = sum(M2_k + n_k (mean_k - mean)^2), the exact parallel form
-        b = tl.program_id(0)
-        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        acc = tl.zeros([BLOCK_C], tl.float32)
-        for k0 in range(0, n_chunks, BLOCK_K):
-            ks = k0 + tl.arange(0, BLOCK_K)
-            kmask = ks < n_chunks
-            nk = tl.where(kmask, tl.minimum(rows_per_chunk, S - ks * rows_per_chunk), 0)
-            offs = (b * n_chunks + ks).to(tl.int64)[:, None] * C + cols[None, :]
-            m = kmask[:, None] & cmask[None, :]
-            mk = tl.load(part_ptr + offs, mask=m, other=0.0)
-            acc += tl.sum(nk.to(tl.float32)[:, None] * mk, axis=0)
-        mean = acc / S
-        m2 = tl.zeros([BLOCK_C], tl.float32)
-        for k0 in range(0, n_chunks, BLOCK_K):
-            ks = k0 + tl.arange(0, BLOCK_K)
-            kmask = ks < n_chunks
-            nk = tl.where(kmask, tl.minimum(rows_per_chunk, S - ks * rows_per_chunk), 0)
-            offs = (b * n_chunks + ks).to(tl.int64)[:, None] * C + cols[None, :]
-            m = kmask[:, None] & cmask[None, :]
-            mk = tl.load(part_ptr + offs, mask=m, other=0.0)
-            m2k = tl.load(part_ptr + n_parts * C + offs, mask=m, other=0.0)
-            d = tl.where(m, mk - mean[None, :], 0.0)
-            m2 += tl.sum(m2k + nk.to(tl.float32)[:, None] * d * d, axis=0)
-        inv = 1.0 / tl.sqrt(tl.maximum(m2 / S, 0.0) + eps)
-        if GAMMA_MODE == 0:
-            scale = inv
-            shift = -mean * inv
-        else:
-            row = 0
-            if GAMMA_MODE == 2:
-                row = tl.load(styles_ptr + b)
-            g = tl.load(gamma_ptr + row * C + cols, mask=cmask, other=0.0).to(tl.float32)
-            bt = tl.load(beta_ptr + row * C + cols, mask=cmask, other=0.0).to(tl.float32)
-            scale = inv * g
-            shift = bt - mean * scale
-        out = out_ptr + b * C + cols
-        tl.store(out, scale, mask=cmask)
-        tl.store(out + tl.num_programs(0) * C, shift, mask=cmask)
-
-    @triton.jit
-    def miseg_k1_stats_merge(part_ptr, out_ptr, S, C, rows_per_chunk, n_chunks,
-                             n_groups, n_parts, n_out, GROUP: tl.constexpr,
-                             BLOCK_C: tl.constexpr):
-        # merges GROUP consecutive chunk partials of one sample into one
-        # partial of GROUP * rows_per_chunk rows, with the fold's formula
-        pid = tl.program_id(0)                 # b * n_groups + g
-        b = pid // n_groups
-        g = pid % n_groups
-        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        ks = g * GROUP + tl.arange(0, GROUP)
-        kmask = ks < n_chunks
-        nk = tl.where(kmask, tl.minimum(rows_per_chunk, S - ks * rows_per_chunk),
-                      0).to(tl.float32)
-        offs = (b * n_chunks + ks).to(tl.int64)[:, None] * C + cols[None, :]
-        m = kmask[:, None] & cmask[None, :]
-        mk = tl.load(part_ptr + offs, mask=m, other=0.0)
-        m2k = tl.load(part_ptr + n_parts * C + offs, mask=m, other=0.0)
-        mean = tl.sum(nk[:, None] * mk, axis=0) / tl.sum(nk, axis=0)
-        d = tl.where(m, mk - mean[None, :], 0.0)
-        m2 = tl.sum(m2k + nk[:, None] * d * d, axis=0)
-        out = pid.to(tl.int64) * C + cols
-        tl.store(out_ptr + out, mean, mask=cmask)
-        tl.store(out_ptr + n_out * C + out, m2, mask=cmask)
 
     @triton.jit
     def miseg_k2_apply(x_ptr, scale_ptr, shift_ptr, add_ptr, y_ptr, SC, C, slope,
@@ -268,28 +196,86 @@ def _kernels():
             y = tl.where(y >= 0, y, slope * y)
         tl.store(y_ptr + base + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
-    return types.SimpleNamespace(
-        stats_partial=miseg_k1_stats_partial, stats_merge=miseg_k1_stats_merge,
-        stats_fold=miseg_k1_stats_fold, apply=miseg_k2_apply, apply2=miseg_k3_apply2)
+    return types.SimpleNamespace(apply=miseg_k2_apply, apply2=miseg_k3_apply2)
 
 
-def stats_grid(bsz: int, s: int, c: int, num_sms: int):
-    """(block_c, rows_per_chunk, n_chunks) for K1's pass 1: narrow channel
-    blocks when C is wide, and enough row chunks to give every SM a few
-    programs."""
-    block_c = min(64, max(16, 1 << (c - 1).bit_length()))
-    max_chunks = math.ceil(s / _STATS_BLOCK_S)
-    while block_c > 16 and bsz * math.ceil(c / block_c) * max_chunks < num_sms:
-        block_c //= 2
-    c_blocks = math.ceil(c / block_c)
-    want = math.ceil(_PROGRAMS_PER_SM * num_sms / (bsz * c_blocks))
-    rows = max(_STATS_BLOCK_S, math.ceil(s / max(want, 1)))
-    rows = math.ceil(rows / _STATS_BLOCK_S) * _STATS_BLOCK_S
-    return block_c, rows, math.ceil(s / rows)
+@functools.lru_cache(maxsize=None)
+def _k1():
+    """The K1 library with its ctypes signatures (built on first use)."""
+    lib = build.load("fused_norm")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.miseg_k1_stats.restype = i32
+    lib.miseg_k1_stats.argtypes = ([ptr, i32, i32, ptr, ptr, ptr, i32, i32, ptr, i32, ptr, ptr]
+                                   + [i32] * 7 + [ctypes.c_float, ptr])
+    lib.miseg_k1_fold.restype = i32
+    lib.miseg_k1_fold.argtypes = ([ptr, ptr, ptr, ptr, i32, i32, ptr, i32, ptr, ptr]
+                                  + [i32] * 7 + [ctypes.c_float, ptr])
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def stats_grid(bsz: int, s: int, c: int, num_sms: int, vec: int):
+    """(block_c, threads, rows, n_chunks) for `miseg_k1_stats` on a card of
+    `num_sms` SMs, loading `vec` channels at a time.
+
+    Channel blocks hold at most `_K1_GROUPS` groups of vec channels (whole
+    rows at C = 48 in bf16), each thread keeping one group; where rows are
+    too few to give every SM a CTA, the blocks halve until they do (if none
+    does, the blocks that give the most CTAs, the widest of equals).  Row
+    chunks are whole steps (a step: `_K1_UNROLL` rows of every lane), and
+    their count, at most about three CTAs per SM, is the one with the fewest
+    dependent memory round trips a thread waits for: its steps, plus, when a
+    sample spans several chunks, the arrival (two) and the last CTA's merge
+    of the chunks' partials (4 a lane at a time, as float4s).  Cached: the
+    search runs once per shape, not on every call."""
+    groups = math.ceil(c / vec)
+
+    def ctas(bg: int) -> int:
+        min_rows = _K1_THREADS // bg * _K1_UNROLL   # one step of every lane
+        return bsz * math.ceil(groups / bg) * math.ceil(s / min_rows)
+
+    widths = [math.ceil(groups / math.ceil(groups / _K1_GROUPS))]   # even blocks
+    while ctas(widths[-1]) < num_sms and widths[-1] > 1:
+        widths.append(math.ceil(widths[-1] / 2))
+    block_groups = widths[-1] if ctas(widths[-1]) >= num_sms else max(widths, key=ctas)
+    lanes = _K1_THREADS // block_groups
+    threads, block_c = block_groups * lanes, block_groups * vec
+    n_cblocks = math.ceil(c / block_c)
+    step = lanes * _K1_UNROLL
+    merge_lanes = max(1, threads // math.ceil(min(block_c, c) / 4))
+
+    def plan(n: int):
+        rows = math.ceil(math.ceil(s / n) / step) * step
+        return rows, math.ceil(s / rows)
+
+    def trips(n: int) -> int:
+        rows, n = plan(n)
+        return rows // step + (2 + math.ceil(n / (4 * merge_lanes)) if n > 1 else 0)
+
+    most = max(1, min(math.ceil(s / step),
+                      math.ceil(_K1_CTAS_PER_SM * num_sms / (bsz * n_cblocks))))
+    best = min(range(most, 0, -1), key=trips)   # the most chunks among the fewest trips
+    rows, n_chunks = plan(best)
+    return block_c, threads, rows, n_chunks
+
+
+@functools.lru_cache(maxsize=None)
+def fold_grid(n_chunks: int, c: int):
+    """(group, n_groups, block_c) for `miseg_k1_fold`: groups of about
+    sqrt(n_chunks) consecutive partials (a power of 2, at least 8), so the
+    group merges and the last CTA's merge of the groups are about as long,
+    and channel blocks of at most 256 channels."""
+    group = max(8, 1 << math.ceil(math.log2(math.sqrt(n_chunks))))
+    return group, math.ceil(n_chunks / group), min(c, _FOLD_MAX_C)
 
 
 def _check_cuda(x3, *others):
-    if x3.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+    if x3.dtype not in _DTYPES:
         raise ValueError(f"fused norm takes float tensors, got {x3.dtype}")
     if not x3.is_contiguous():
         raise ValueError("fused norm kernels take a contiguous [B, S, C] tensor")
@@ -298,55 +284,68 @@ def _check_cuda(x3, *others):
             raise ValueError("all operands must be on one device")
 
 
-def _gamma_mode(gamma, beta, styles):
-    """(mode, gamma, beta, styles) for the fold: 0 = no affine, 1 = `[C]`,
-    2 = `[S, C]` banks with clamped int32 style ids."""
+def _affine(gamma, beta, styles):
+    """K1's affine operands: (tensors to keep alive, ctypes arguments
+    gamma, beta, dtype, mode, styles, n_styles) with mode 0 = no affine,
+    1 = `[C]`, 2 = `[S, C]` banks with int32 style ids (the kernel clamps
+    them)."""
     if gamma is None:
-        return 0, None, None, None
+        return (), (None, None, 0, 0, None, 0)
+    if gamma.dtype not in _DTYPES or beta.dtype != gamma.dtype:
+        gamma, beta = gamma.float(), beta.float()
     gamma, beta = gamma.contiguous(), beta.contiguous()
     if gamma.ndim == 1:
-        return 1, gamma, beta, None
-    # clamp here: an out-of-range id would index past the bank
-    return 2, gamma, beta, styles.clamp(0, gamma.shape[0] - 1).to(torch.int32)
+        return (gamma, beta), (gamma.data_ptr(), beta.data_ptr(), _DTYPES[gamma.dtype], 1,
+                               None, 0)
+    styles = styles.to(torch.int32).contiguous()
+    return (gamma, beta, styles), (gamma.data_ptr(), beta.data_ptr(), _DTYPES[gamma.dtype], 2,
+                                   styles.data_ptr(), gamma.shape[0])
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
 
 
 def fold_partials(part, s: int, rows: int, n_chunks: int, gamma=None,
                   beta=None, styles=None, *, eps: float = 1e-5):
-    """K1's fold on the card: per-chunk (mean, M2) partials `f32 [2,
-    B*n_chunks, C]` of `rows`-row chunks of S rows (only a sample's last
-    chunk short) -> f32 (scale, shift) `[B, C]`, with gamma/beta as in
-    `channel_scale_shift`.  Many partials (K4's 256-voxel bricks: 3456 per
-    96^3 sample) are first merged in groups by parallel programs, since
-    the fold walks a sample's partials in one program.  Part of the launch
-    that wrote the partials: it counts nothing."""
+    """K1's fold: per-chunk (mean, M2) partials `f32 [2, B*n_chunks, C]` of
+    `rows`-row chunks of S rows (only a sample's last chunk short; K4's
+    tiles) -> f32 (scale, shift) `[B, C]`, with gamma/beta as in
+    `channel_scale_shift`.  On the card one launch of `miseg_k1_fold`,
+    counted in `fold_launches`; on the CPU `fold_partials_plain`."""
+    if part.device.type == "cpu":
+        return fold_partials_plain(part, s, rows, n_chunks, gamma, beta, styles, eps=eps)
+    if part.device.type != "cuda":
+        raise ValueError(f"fused norm: unsupported device {part.device}")
+    if part.dtype != torch.float32 or not part.is_contiguous():
+        raise ValueError("partials must be a contiguous float32 [2, B * n_chunks, C]")
+    _check_cuda(part, gamma, beta, styles)
     _, n_parts, c = part.shape
     bsz = n_parts // n_chunks
-    mode, gamma, beta, styles = _gamma_mode(gamma, beta, styles)
+    group, n_groups, block_c = fold_grid(n_chunks, c)
+    keep, aff = _affine(gamma, beta, styles)
     out = torch.empty((2, bsz, c), dtype=torch.float32, device=part.device)
-    k = _kernels()
+    work = (torch.empty((2, bsz * n_groups, c), dtype=torch.float32, device=part.device)
+            if n_groups > 1 else None)
+    stream = torch.cuda.current_stream(part.device).cuda_stream
     with torch.cuda.device(part.device):
-        while n_chunks > _MERGE_ABOVE:
-            n_groups = math.ceil(n_chunks / _MERGE_GROUP)
-            merged = torch.empty((2, bsz * n_groups, c), dtype=torch.float32,
-                                 device=part.device)
-            k.stats_merge[(bsz * n_groups, math.ceil(c / _FOLD_BLOCK_C))](
-                part, merged, s, c, rows, n_chunks, n_groups, n_parts,
-                bsz * n_groups, GROUP=_MERGE_GROUP, BLOCK_C=_FOLD_BLOCK_C,
-                num_warps=4)
-            part, rows, n_chunks, n_parts = (merged, rows * _MERGE_GROUP, n_groups,
-                                             bsz * n_groups)
-        k.stats_fold[(bsz, math.ceil(c / _FOLD_BLOCK_C))](
-            part, gamma if mode else out, beta if mode else out,
-            styles if mode == 2 else out, out, s, c, rows, n_chunks, n_parts,
-            float(eps), GAMMA_MODE=mode, BLOCK_K=_FOLD_BLOCK_K,
-            BLOCK_C=_FOLD_BLOCK_C, num_warps=4)
+        ctrs = counters.arrival_counters(part.device, stream,
+                                         bsz * math.ceil(c / block_c) if n_groups > 1 else 0)
+        err = _k1().miseg_k1_fold(part.data_ptr(), _ptr(work), *aff, out.data_ptr(), _ptr(ctrs),
+                                  bsz, s, c, rows, n_chunks, group, block_c, float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"K1 fold kernel launch failed: CUDA error {err}")
+    del keep
+    global fold_launches
+    fold_launches += 1
     return out[0], out[1]
 
 
 def channel_scale_shift(x3, gamma=None, beta=None, styles=None, *,
                         eps: float = 1e-5):
     """K1: x3 `[B, S, C]` -> f32 (scale, shift) `[B, C]`.  gamma/beta:
-    None, `[C]`, or `[num_styles, C]` banks gathered by `styles: int[B]`."""
+    None, `[C]`, or `[num_styles, C]` banks gathered by `styles: int[B]`
+    (clamped).  On the card one launch of `miseg_k1_stats`."""
     if gamma is not None and gamma.ndim == 2 and styles is None:
         raise ValueError("conditional banks need a styles vector")
     if x3.device.type == "cpu":
@@ -355,18 +354,27 @@ def channel_scale_shift(x3, gamma=None, beta=None, styles=None, *,
         raise ValueError(f"fused norm: unsupported device {x3.device}")
     _check_cuda(x3, gamma, beta, styles)
     bsz, s, c = x3.shape
-    num_sms = torch.cuda.get_device_properties(x3.device).multi_processor_count
-    block_c, rows, n_chunks = stats_grid(bsz, s, c, num_sms)
-    part = torch.empty((2, bsz * n_chunks, c), dtype=torch.float32, device=x3.device)
+    vec = 16 // x3.element_size()
+    if c % vec or x3.data_ptr() % 16:
+        vec = 1
+    block_c, threads, rows, n_chunks = stats_grid(bsz, s, c, _num_sms(x3.device.index), vec)
+    keep, aff = _affine(gamma, beta, styles)
+    out = torch.empty((2, bsz, c), dtype=torch.float32, device=x3.device)
+    part = (torch.empty((2, bsz * n_chunks, c), dtype=torch.float32, device=x3.device)
+            if n_chunks > 1 else None)
+    stream = torch.cuda.current_stream(x3.device).cuda_stream
     with torch.cuda.device(x3.device):
-        _kernels().stats_partial[(bsz * n_chunks, math.ceil(c / block_c))](
-            x3, part, s, c, rows, n_chunks,
-            BLOCK_S=_STATS_BLOCK_S, BLOCK_C=block_c, num_warps=4)
-    scale, shift = fold_partials(part, s, rows, n_chunks, gamma, beta, styles,
-                                 eps=eps)
+        ctrs = counters.arrival_counters(x3.device, stream,
+                                         bsz * math.ceil(c / block_c) if n_chunks > 1 else 0)
+        err = _k1().miseg_k1_stats(x3.data_ptr(), _DTYPES[x3.dtype], vec, _ptr(part), *aff,
+                                   out.data_ptr(), _ptr(ctrs), bsz, s, c, rows, n_chunks,
+                                   block_c, threads, float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"K1 kernel launch failed: CUDA error {err}")
+    del keep
     global stats_launches
     stats_launches += 1
-    return scale, shift
+    return out[0], out[1]
 
 
 def apply_scale_shift(x3, scale, shift, add3=None, *,

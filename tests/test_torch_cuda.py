@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from miseg_tpu_torch.ops.kernels import fused_conv, fused_norm, window_attention as wa
+from miseg_tpu_torch.ops.kernels import counters, fused_conv, fused_norm, window_attention as wa
 from miseg_tpu_torch.ops.window import window_region_ids
 
 pytestmark = pytest.mark.cuda
@@ -33,6 +33,20 @@ def dev():
 @pytest.fixture
 def gen():
     return torch.Generator().manual_seed(0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def kernels_loaded():
+    """Where a card is present, build and load every kernel library before
+    the first test, so that no test pays for a build and every kernel's
+    module is known to the profiler before any profiled test runs."""
+    if torch.cuda.is_available():
+        from miseg_tpu_torch.ops.kernels import build
+        build.build_all()
+        fused_conv._entry()
+        fused_norm._k1()
+        wa._lib()
+    yield
 
 
 def _tol(ref: torch.Tensor, dtype) -> float:
@@ -77,6 +91,148 @@ def test_k1_k2_count_launches(dev):
     fused_norm.stats_launches = fused_norm.apply_launches = 0
     fused_norm.instance_norm_act(x)
     assert (fused_norm.stats_launches, fused_norm.apply_launches) == (1, 1)
+
+
+def _rel(a, b) -> float:
+    return _err(a, b) / (1 + float(b.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_k1_small_variance_channel(dev, gen, dtype, aligned):
+    """A channel with var << mean^2 (ROADMAP W1) on the card, with 16-byte
+    loads and, from an x that starts 2 bytes past a 16-byte boundary, with
+    scalar ones: the columns within 1e-5 relative of the plain version."""
+    shape = (1, 32 * 32 * 32, 48)
+    base = (torch.randn(shape, generator=gen)).to(dev, dtype)
+    base[..., 3] = 0.3 + 0.01 * base[..., 3]
+    if aligned:
+        x3 = base
+    else:
+        buf = torch.empty(base.numel() + 8, dtype=dtype, device=dev)
+        x3 = buf[1:1 + base.numel()].view(shape)
+        x3.copy_(base)
+        assert x3.data_ptr() % 16 and x3.is_contiguous()
+    got = fused_norm.channel_scale_shift(x3)
+    want = fused_norm.channel_scale_shift_plain(x3)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 1e-5
+
+
+def test_k1_repeats_bit_identically(dev, gen):
+    """Both entry points, each with a cross-CTA merge, give the same bits
+    twice: the merge order does not depend on which CTA arrives last."""
+    x3 = (torch.randn((1, 48 ** 3, 48), generator=gen) * 2 + 0.5).to(dev, torch.bfloat16)
+    gamma = torch.randn((2, 48), generator=gen).to(dev)
+    beta = torch.randn((2, 48), generator=gen).to(dev)
+    styles = torch.tensor([1], dtype=torch.int32, device=dev)
+    _, _, _, n_chunks = fused_norm.stats_grid(1, 48 ** 3, 48, _sms(dev), 8)
+    assert n_chunks > 1
+    first = fused_norm.channel_scale_shift(x3, gamma, beta, styles)
+    second = fused_norm.channel_scale_shift(x3, gamma, beta, styles)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    part = _partials(x3, 256)
+    assert fused_norm.fold_grid(part.shape[1], 48)[1] > 1
+    first = fused_norm.fold_partials(part, 48 ** 3, 256, part.shape[1], gamma, beta, styles)
+    second = fused_norm.fold_partials(part, 48 ** 3, 256, part.shape[1], gamma, beta, styles)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _partials(x3, rows):
+    """Per-tile (mean, M2) `f32 [2, B * n_tiles, C]` of x3 `[B, S, C]` in
+    tiles of `rows` rows (a sample's last tile short), as K4 writes them."""
+    b, s, c = x3.shape
+    n = -(-s // rows)
+    xf = torch.nn.functional.pad(x3.float(), (0, 0, 0, n * rows - s)).reshape(b, n, rows, c)
+    counts = (s - torch.arange(n, device=x3.device) * rows).clamp(max=rows).float()
+    valid = (torch.arange(rows, device=x3.device)[None, :] < counts[:, None]).float()
+    mean = (xf * valid[None, :, :, None]).sum(2) / counts[None, :, None]
+    m2 = (((xf - mean[:, :, None]) * valid[None, :, :, None]) ** 2).sum(2)
+    return torch.stack([mean.reshape(b * n, c), m2.reshape(b * n, c)]).contiguous()
+
+
+# (x shape [B, S, C], tile rows): K4's brick partials at 96^3 (3456 a
+# sample) and 48^3 (432), its 24^3 tiles (216), a short last tile over
+# two samples, one tile, and wide channels (several channel blocks)
+_FOLDS = {
+    "96cube_bricks": ((1, 96 ** 3, 48), 256),
+    "48cube_bricks": ((1, 48 ** 3, 48), 256),
+    "24cube_tiles": ((1, 24 ** 3, 96), 64),
+    "b2_short_last": ((2, 1000, 48), 64),
+    "one_tile": ((2, 27, 768), 27),
+    "wide_c": ((1, 12 ** 3, 768), 64),
+}
+
+
+@pytest.mark.parametrize("affine", ["none", "channel", "bank"])
+@pytest.mark.parametrize("case", sorted(_FOLDS))
+def test_k1_fold_matches_plain(dev, gen, case, affine):
+    shape, rows = _FOLDS[case]
+    b, s, c = shape
+    x3 = (torch.randn(shape, generator=gen) * 2 + 0.5).to(dev)
+    part = _partials(x3, rows)
+    gamma = beta = styles = None
+    if affine == "channel":
+        gamma, beta = torch.randn(c, generator=gen).to(dev), torch.randn(c, generator=gen).to(dev)
+    elif affine == "bank":
+        gamma = torch.randn((2, c), generator=gen).to(dev, torch.bfloat16)
+        beta = torch.randn((2, c), generator=gen).to(dev, torch.bfloat16)
+        styles = torch.tensor([5, -1][:b], dtype=torch.int32, device=dev)   # clamps
+    before = fused_norm.fold_launches
+    got = fused_norm.fold_partials(part, s, rows, part.shape[1] // b, gamma, beta, styles)
+    assert fused_norm.fold_launches == before + 1
+    want = fused_norm.fold_partials_plain(part, s, rows, part.shape[1] // b, gamma, beta, styles)
+    for a, ref in zip(got, want):
+        assert _rel(a, ref) <= 1e-5
+
+
+def test_k1_each_call_is_one_kernel(dev, gen):
+    """Under torch.profiler, every channel_scale_shift and every
+    fold_partials call is exactly one device kernel: in order, the
+    statistics kernel (a sample of many chunks, then wide channels over
+    short rows) and the fold."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x3 = torch.randn((1, 48 ** 3, 48), generator=gen).to(dev, torch.bfloat16)
+    wide = torch.randn((1, 27, 3072), generator=gen).to(dev, torch.bfloat16)
+    gamma = torch.randn((2, 48), generator=gen).to(dev, torch.bfloat16)
+    beta = torch.randn((2, 48), generator=gen).to(dev, torch.bfloat16)
+    styles = torch.tensor([1], dtype=torch.int32, device=dev)
+    part = _partials(x3, 256)
+
+    def calls():
+        fused_norm.channel_scale_shift(x3, gamma, beta, styles)
+        fused_norm.channel_scale_shift(wide)
+        fused_norm.fold_partials(part, 48 ** 3, 256, part.shape[1], gamma, beta, styles)
+        torch.cuda.synchronize()
+
+    calls()   # builds and warms up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        calls()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 3, names
+    assert "miseg_k1_stats<" in names[0] and "miseg_k1_stats<" in names[1], names
+    assert "miseg_k1_fold" in names[2], names
+
+
+def test_k1_shapes_in_turn(dev, gen):
+    """Two shapes whose samples span several chunks, called in turn twice on
+    one stream: the same results each time, and every counter back at 0."""
+    xs = [(torch.randn(shape, generator=gen) + 0.5).to(dev, torch.bfloat16)
+          for shape in [(1, 48 ** 3, 48), (2, 24 ** 3, 96)]]
+    runs = [[fused_norm.channel_scale_shift(x) for x in xs] for _ in range(2)]
+    for first, second in zip(*runs):
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for x, (sc, sh) in zip(xs, runs[0]):
+        rs, rh = fused_norm.channel_scale_shift_plain(x)
+        assert _rel(sc, rs) <= 1e-5 and _rel(sh, rh) <= 1e-5
+    torch.cuda.synchronize()
+    assert counters._buffers
+    assert all(int(torch.count_nonzero(c)) == 0 for c in counters._buffers.values())
 
 
 # (window batch, N, channels, heads, mask geometry or None).  The bf16
@@ -151,7 +307,9 @@ def test_k5_rejects_oversize(dev):
 
 
 # K4 cases: (x shape, Cout); the flagship's main-path channel pairs at cut
-# spatial sizes, encoder1's Cin = 1, encoder10's 768 -> 768 at 3^3, a
+# spatial sizes, encoder1's Cin = 1 (on a volume no brick divides, and on
+# the Cin = 1 brick path: 8x8x32, two samples, Cout 16), encoder10's 768 ->
+# 768 at 3^3, a
 # generic odd one, X % 16 == 0 shapes that no brick divides and that hold
 # more than 256 voxels (the FMA path in bf16 too: tiles spanning several
 # x-rows, a short last tile), brick-path shapes (the 48^3 level, 16x16x32
@@ -160,6 +318,9 @@ def test_k5_rejects_oversize(dev):
 # 12^3, 6^3 and 3^3 convs (3^3 is 768_to768), plus 12^3 at batch 2
 _CONV = {
     "cin1_to48": ((1, 7, 9, 11, 1), 48),
+    "cin1_brick_to48": ((1, 8, 8, 32, 1), 48),
+    "cin1_brick_to48_b2": ((2, 16, 16, 16, 1), 48),
+    "cin1_brick_to16": ((1, 8, 8, 16, 1), 16),
     "48_to48": ((1, 24, 24, 24, 48), 48),
     "96_to48_b2": ((2, 16, 16, 16, 96), 48),
     "768_to768": ((1, 3, 3, 3, 768), 768),
@@ -221,15 +382,17 @@ def test_k4_matches_plain(dev, gen, case, dtype, prologue):
 
 def test_k4_takes_bricks_where_they_divide(dev):
     """bf16 statistics tiles are 4x4x16 bricks where they divide the volume
-    (and the channels suit the tensor cores), else 4x4x4 bricks where those
-    divide it, else the whole sample where it holds at most 256 voxels, else
-    128 voxels; f32 runs on the CUDA cores in 128-voxel tiles."""
+    (and the channels suit the tensor cores, or Cin = 1 with Cout % 16 ==
+    0), else 4x4x4 bricks where those divide it, else the whole sample where
+    it holds at most 256 voxels, else 128 voxels; f32 runs on the CUDA cores
+    in 128-voxel tiles."""
     tile_voxels = fused_conv._entry()[2]
     for case, (shape, cout) in _CONV.items():
         _, z, y, x, cin = shape
-        tc = cin % 16 == 0 and cout % 16 == 0
+        tc = (cin % 16 == 0 or cin == 1) and cout % 16 == 0
         brick = tc and z % 4 == 0 and y % 4 == 0 and x % 16 == 0
-        assert brick == (case.startswith("brick") or case == "96_to48_b2"), case
+        assert brick == (case.startswith(("brick", "cin1_brick")) or case == "96_to48_b2"), case
+        tc = tc and cin != 1   # the coarse path takes Cin % 16 == 0 only
         if brick:
             want = 256
         elif tc and z % 4 == 0 and y % 4 == 0 and x % 4 == 0:
@@ -249,10 +412,12 @@ def _coarse_splits(shape, cout) -> int:
     return fused_conv._entry()[1](b, z, y, x, cin, cout, 1)
 
 
-@pytest.mark.parametrize("shape,cout", [((1, 16, 16, 32, 48), 48), ((1, 6, 6, 6, 384), 384)])
+@pytest.mark.parametrize("shape,cout", [((1, 16, 16, 32, 48), 48), ((1, 6, 6, 6, 384), 384),
+                                        ((2, 16, 16, 16, 1), 48)])
 def test_k4_repeats_bit_identically(dev, gen, shape, cout):
-    """A brick-path shape, and a coarse one that splits K: its arrival
-    counters are back at 0 after each call, so the repeat is the same."""
+    """A brick-path shape, a coarse one that splits K (its arrival counters
+    are back at 0 after each call, so the repeat is the same), and a Cin = 1
+    brick-path one."""
     if shape[1] == 6:
         assert _coarse_splits(shape, cout) > 1
     x, w, kw = _conv_operands(gen, dev, torch.bfloat16, shape, cout, "affine_leaky")
@@ -273,8 +438,8 @@ def test_k4_split_shapes_in_turn(dev, gen):
     for first, second in zip(*runs):
         assert all(torch.equal(a, b) for a, b in zip(first, second))
     torch.cuda.synchronize()
-    assert fused_conv._counters
-    assert all(int(torch.count_nonzero(c)) == 0 for c in fused_conv._counters.values())
+    assert counters._buffers
+    assert all(int(torch.count_nonzero(c)) == 0 for c in counters._buffers.values())
 
 
 @pytest.mark.parametrize("shape,cout", [((1, 24, 24, 24, 96), 96), ((1, 3, 3, 3, 768), 768)])
@@ -285,11 +450,33 @@ def test_k4_coarse_call_is_one_kernel(dev, gen, shape, cout):
     x, w, kw = _conv_operands(gen, dev, torch.bfloat16, shape, cout, "affine_leaky")
     fused_conv.conv3_norm_columns(x, w, **kw)   # builds and warms up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fused_conv.conv3_norm_columns(x, w, **kw)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if "miseg_k4_" in e.name]
     assert len(names) == 1 and "miseg_k4_conv_coarse" in names[0], names
+
+
+@pytest.mark.parametrize("case,dtype,kernel", [
+    ("cin1_brick_to48", torch.bfloat16, "miseg_k4_conv_cin1"),
+    ("cin1_brick_to48_b2", torch.bfloat16, "miseg_k4_conv_cin1"),
+    ("cin1_to48", torch.bfloat16, "miseg_k4_conv_fma"),       # no brick divides 7x9x11
+    ("cin1_brick_to48", torch.float32, "miseg_k4_conv_fma"),  # f32 never takes TF32
+])
+def test_k4_cin1_call_is_one_kernel(dev, gen, case, dtype, kernel):
+    """A Cin = 1 call is one K4 device kernel besides K1's fold: the Cin = 1
+    tensor-core kernel for bf16 volumes that bricks divide, else the FMA
+    kernel (with no split-K reduce)."""
+    from torch.profiler import ProfilerActivity, profile
+    shape, cout = _CONV[case]
+    x, w, kw = _conv_operands(gen, dev, dtype, shape, cout, "none")
+    fused_conv.conv3_norm_columns(x, w, **kw)   # builds and warms up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fused_conv.conv3_norm_columns(x, w, **kw)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "miseg_k4_" in e.name]
+    assert len(names) == 1 and kernel in names[0], names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -319,12 +506,13 @@ def test_k3_k4_count_launches(dev):
     init_weights(block, torch.Generator().manual_seed(0))
     x = torch.randn((1, 6, 6, 6, 4), device=dev)
     fused_conv.launches = fused_norm.apply2_launches = 0
-    fused_norm.stats_launches = fused_norm.apply_launches = 0
+    fused_norm.stats_launches = fused_norm.apply_launches = fused_norm.fold_launches = 0
     with torch.no_grad():
         block(x)
     assert (fused_conv.launches, fused_norm.apply2_launches) == (2, 1)
-    # the projected residual's norm3 is one K1 run; the K4 folds count nothing
+    # the projected residual's norm3 is one K1 run; each K4 call one K1 fold
     assert (fused_norm.stats_launches, fused_norm.apply_launches) == (1, 0)
+    assert fused_norm.fold_launches == 2
 
 
 @pytest.mark.parametrize("fused", [True, False])

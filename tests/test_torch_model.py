@@ -1,11 +1,13 @@
 """The port's C-Swin-UNETR and its blocks against the JAX package on
 bridged weights (CPU, f32).
 
-Whole slice: swin_unetr, feature_size 12, num_heads 2, depths 2, 32^3 ROI,
-4 classes, batch 2 with modalities [0, 1], `instance_cond` encoder/ViT and
-`instance` decoder norms, on both of the port's conv-block paths (the
-fused conv chain and the unfused one); logits must agree at atol 2e-4 (the
-tolerance covers f32 summation-order drift through ~60 layers)."""
+Whole slice: swin_unetr, depths 2, 32^3 ROI, 4 classes, `instance_cond`
+encoder/ViT and `instance` decoder norms, on both of the port's conv-block
+paths (the fused conv chain and the unfused one), at two widths:
+feature_size 12 with num_heads 2 at batch 2 (modalities [0, 1]), and the
+flagship's feature_size 48 with heads 3/6/12/24 (head dim 16) at batch 1.
+Logits must agree at atol 2e-4 (the tolerance covers f32
+summation-order drift through ~60 layers)."""
 
 import jax
 import jax.numpy as jnp
@@ -38,13 +40,20 @@ _CFG = dict(model_name="swin_unetr", out_channels=4, feature_size=[12],
             num_heads=2, depth_swin_block=[2], roi_x=32, roi_y=32, roi_z=32,
             encoder_norm_name="instance_cond", vit_norm_name="instance_cond",
             decoder_norm_name="instance")
+# (feature_size, num_heads, batch): the fs-12 slice, and the flagship's width
+_WIDTHS = {"fs12": (12, 2, 2), "fs48": (48, 3, 1)}
 
 
-@pytest.mark.parametrize("fused_conv", [True, False])
-def test_swin_unetr_matches_jax(rng, fused_conv):
-    x = rng.standard_normal((2, 32, 32, 32, 1)).astype(np.float32)
-    mods = np.array([0, 1], np.int32)
-    jmodel = jax_model_from_config(JConfig(**_CFG))
+# the fs-12 cases keep their ids from before the width was a parameter
+@pytest.mark.parametrize("width,fused_conv", [("fs12", True), ("fs12", False),
+                                              ("fs48", True), ("fs48", False)],
+                         ids=["True", "False", "fs48-True", "fs48-False"])
+def test_swin_unetr_matches_jax(rng, width, fused_conv):
+    fs, heads, batch = _WIDTHS[width]
+    cfg = dict(_CFG, feature_size=[fs], num_heads=heads)
+    x = rng.standard_normal((batch, 32, 32, 32, 1)).astype(np.float32)
+    mods = np.array([0, 1][:batch], np.int32)
+    jmodel = jax_model_from_config(JConfig(**cfg))
     params = seeded_params(jmodel, jnp.asarray(x), jnp.asarray(mods))
     # jitted: eager flax apply of the whole model is ~5x slower on the CPU
     forward = jax.jit(lambda p, a, m: jmodel.apply({"params": p}, a, m))
@@ -53,15 +62,27 @@ def test_swin_unetr_matches_jax(rng, fused_conv):
 
     state = state_dict_from_jax(params)
     assert len(state) == 203
-    model = model_from_config(Config(**_CFG), device="cpu", fused_conv=fused_conv)
+    model = model_from_config(Config(**cfg), device="cpu", fused_conv=fused_conv)
     model.load_state_dict(state, strict=True)
     with torch.no_grad():
         got = model(t(x), t(mods))
     err = max_err(got, want)
-    print(f"swin_unetr fs12 32^3 f32 fused_conv={fused_conv} logits "
+    print(f"swin_unetr {width} 32^3 f32 fused_conv={fused_conv} logits "
           f"max |port - jax| = {err:.3e}")
     assert np.isfinite(got.numpy()).all()
     assert err <= ATOL_MODEL
+
+
+def test_pre_swin_unetr_builds_swin_unetr():
+    """`pre_swin_unetr` builds the same SwinUNETR as `swin_unetr`, as the
+    JAX factory does (miseg_tpu/models/factory.py:77)."""
+    pre = model_from_config(Config(**dict(_CFG, model_name="pre_swin_unetr")), device="cpu")
+    plain = model_from_config(Config(**_CFG), device="cpu")
+    assert type(pre) is type(plain)
+    assert [(n, type(m)) for n, m in pre.named_modules()] == \
+        [(n, type(m)) for n, m in plain.named_modules()]
+    assert {k: v.shape for k, v in pre.state_dict().items()} == \
+        {k: v.shape for k, v in plain.state_dict().items()}
 
 
 def _bridged(jmod, port, *args):

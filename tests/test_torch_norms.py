@@ -159,8 +159,98 @@ def test_norm_module_matches_flax(rng):
 
 @pytest.mark.parametrize("s,c", [(96 ** 3, 48), (48 ** 3, 48), (27, 3072), (6 ** 3, 768)])
 def test_k1_grid_fills_the_card(s, c):
-    """K1's pass-1 grid has more programs than a 132-SM H100 has SMs at
-    both main-path extremes, and its row chunks tile S exactly."""
-    block_c, rows, n_chunks = fused_norm.stats_grid(1, s, c, 132)
-    assert n_chunks * -(-c // block_c) >= 132
-    assert rows % 64 == 0 and (n_chunks - 1) * rows < s <= n_chunks * rows
+    """`miseg_k1_stats`' grid on a 132-SM H100, for 16-byte loads of bf16
+    (8 channels) and f32 (4): a CTA's threads each keep one channel group,
+    its row chunks are whole steps of 8 rows a lane and tile S exactly, and
+    the grid holds more CTAs than the card has SMs, or else every sample is
+    one chunk and folds in its own CTA.  The main path's C = 48 in bf16
+    takes whole rows; wide channels over short rows split over channel
+    blocks instead of rows."""
+    for vec in (8, 4):
+        block_c, threads, rows, n_chunks = fused_norm.stats_grid(1, s, c, 132, vec)
+        groups = block_c // vec
+        assert block_c % vec == 0 and groups <= 8
+        assert threads <= 256 and threads % groups == 0 and threads * vec <= 2048
+        assert rows % (threads // groups * 8) == 0
+        assert (n_chunks - 1) * rows < s <= n_chunks * rows
+        ctas = n_chunks * -(-c // block_c)
+        assert ctas >= 132 or n_chunks == 1, (vec, ctas, n_chunks)
+        if s >= 48 ** 3:
+            assert ctas >= 132 and (vec == 4 or block_c == c)
+        if c == 3072:
+            assert n_chunks == 1 and -(-c // block_c) >= 132
+
+
+def _tile_partials(x, rows):
+    """Per-tile (mean, M2) `f32 [2, B * n_tiles, C]` of x `[B, S, C]` in
+    tiles of `rows` rows, only a sample's last short, taken two-pass as
+    K4's epilogue takes them."""
+    b, s, c = x.shape
+    n = -(-s // rows)
+    out = np.zeros((2, b * n, c), np.float32)
+    for i in range(b):
+        for k in range(n):
+            tile = x[i, k * rows:(k + 1) * rows]
+            mean = tile.mean(axis=0, dtype=np.float32)
+            out[0, i * n + k] = mean
+            out[1, i * n + k] = ((tile - mean) ** 2).sum(axis=0, dtype=np.float32)
+    return out, n
+
+
+# (batch, S, C, tile rows, affine): one short tile; exactly 256 tiles; 257
+# with a short last one; 3456 with a short last one (K4's brick count at
+# 96^3); batch 2 with conditional banks whose style ids clamp
+_FOLDS = {
+    "one_tile": (1, 5, 8, 8, "none"),
+    "tiles_256": (1, 768, 16, 3, "channel"),
+    "tiles_257": (1, 770, 16, 3, "bank"),
+    "tiles_3456_short": (1, 6911, 8, 2, "channel"),
+    "b2_bank_clamps": (2, 300, 16, 7, "bank"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_FOLDS))
+def test_plain_fold_matches_stats_and_jax(rng, case):
+    """`fold_partials_plain` on K4-style partials of a seeded x against the
+    plain statistics of x itself (1e-5 relative: the same two-pass math
+    in another order) and the JAX package's `norm_columns` of x's (sum,
+    sum^2) (1e-4 relative: JAX folds a one-pass variance)."""
+    from miseg_tpu.ops.pallas import fused_norm as jfn
+    bsz, s, c, rows, affine = _FOLDS[case]
+    x = (rng.standard_normal((bsz, s, c)) + 0.5).astype(np.float32)
+    _, styles, gamma, beta = _case(rng, (bsz, 1, c), affine)
+    if affine == "bank":
+        styles = np.array([5, -1][:bsz], np.int32)   # clamp to banks 1 and 0
+    part, n_tiles = _tile_partials(x, rows)
+    g, b = (None, None) if gamma is None else (t(gamma), t(beta))
+    got = fused_norm.fold_partials_plain(t(part), s, rows, n_tiles, g, b, t(styles))
+    want = fused_norm.channel_scale_shift_plain(t(x), g, b, t(styles))
+    stats = np.stack([x.sum(axis=1), (x.astype(np.float64) ** 2).sum(axis=1)], axis=1)
+    jax_cols = jfn.norm_columns(jnp.asarray(stats, jnp.float32), s,
+                                None if gamma is None else jnp.asarray(gamma),
+                                None if beta is None else jnp.asarray(beta),
+                                jnp.asarray(styles))
+    for a, ref, jref in zip(got, want, jax_cols):
+        assert a.shape == (bsz, c)
+        assert max_err(a, ref) <= 1e-5 * (1 + float(ref.abs().max()))
+        assert max_err(a, jref) <= 1e-4 * (1 + float(np.abs(np.asarray(jref)).max()))
+    # the wrapper takes the plain fold for CPU tensors and counts no launch
+    before = fused_norm.fold_launches
+    again = fused_norm.fold_partials(t(part), s, rows, n_tiles, g, b, t(styles))
+    assert fused_norm.fold_launches == before
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_plain_fold_small_variance_channel(rng):
+    """A channel with var << mean^2 (ROADMAP W1) through the plain fold of
+    tile partials: the normalised x within test_small_variance_channel_
+    needs_two_pass's bound of a float64 two-pass truth."""
+    x = rng.standard_normal((1, 8 * 8 * 16, 16)).astype(np.float32)
+    x[..., 3] = 0.3 + 0.01 * x[..., 3]         # mean 0.3, var 1e-4
+    x64 = x.astype(np.float64)
+    mean = x64.mean(axis=1, keepdims=True)
+    truth = (x64 - mean) / np.sqrt(((x64 - mean) ** 2).mean(axis=1, keepdims=True) + 1e-5)
+    part, n_tiles = _tile_partials(x, 64)
+    scale, shift = fused_norm.fold_partials_plain(t(part), x.shape[1], 64, n_tiles)
+    got = t(x) * scale[:, None, :] + shift[:, None, :]
+    assert max_err(got, truth) <= ATOL_TWO_PASS
