@@ -4,8 +4,9 @@
 Two paths compute the same function with the same parameters:
   * the fused conv chain (`_fuse_plan`, `_fused`; the default,
     `fused_conv=True`): conv1 through K4, conv2 through K4 with norm1 and
-    the leaky-relu applied on read, and the tail through K3 (UnetResBlock)
-    or K2 (UnetBasicBlock), every norm's statistics coming from K4's
+    the leaky-relu applied on read, and the tail through K3 (UnetResBlock
+    with a projected residual) or K2 (an identity residual added by K2's
+    add mode; UnetBasicBlock), every norm's statistics coming from K4's
     epilogue (`ops.kernels.fused_conv`);
   * the unfused path (`fused_conv=False`, or a block the plan rejects):
     cuDNN convs, each norm through K1 + K2 with the leaky-relu tails fused
@@ -108,20 +109,21 @@ class UnetResBlock(nn.Module):
         return self.act(self.norm2(out, modalities) + residual)
 
     def _fused(self, x, styles):
-        """K4, K4, then the residual's columns and K3
-        (miseg_tpu/nn/dynunet.py:142-175)."""
+        """K4, K4, then the tail (miseg_tpu/nn/dynunet.py:142-175): K3 with
+        the projected residual's columns, or, for an identity residual, K2
+        adding x itself (JAX's K3 with ones/zeros columns: `x * 1 + 0 == x`
+        in f32)."""
         y2, sc2, sh2 = _fused_convs(self, x, styles)
         bsz, cout = x.shape[0], y2.shape[-1]
-        if self.downsample:  # a 1x1 conv: the plan accepts stride 1 only
-            w3 = self.conv3.conv.weight
-            res = torch.matmul(x, w3.reshape(cout, -1).t().to(x.dtype))
-            n3 = self.norm3
-            sc3, sh3 = fused_norm.channel_scale_shift(
-                res.reshape(bsz, -1, cout), n3.scale, n3.bias, styles, eps=n3.eps)
-        else:
-            res = x
-            sc3 = torch.ones((bsz, cout), dtype=torch.float32, device=x.device)
-            sh3 = torch.zeros((bsz, cout), dtype=torch.float32, device=x.device)
+        if not self.downsample:
+            y3 = y2.reshape(bsz, -1, cout)
+            return fused_norm.apply_scale_shift(
+                y3, sc2, sh2, x.reshape(y3.shape), negative_slope=self.slope).reshape(y2.shape)
+        w3 = self.conv3.conv.weight   # a 1x1 conv: the plan accepts stride 1 only
+        res = torch.matmul(x, w3.reshape(cout, -1).t().to(x.dtype))
+        n3 = self.norm3
+        sc3, sh3 = fused_norm.channel_scale_shift(
+            res.reshape(bsz, -1, cout), n3.scale, n3.bias, styles, eps=n3.eps)
         return fused_norm.apply_norm2_act(y2, sc2, sh2, res, sc3, sh3,
                                           negative_slope=self.slope)
 

@@ -26,12 +26,14 @@ statistics are two-pass over register tiles merged with Chan's formula,
 never the TPU kernel's one-pass (sum, sum^2).  The grids are planned here
 (`stats_grid`, `fold_grid`), where the CPU tests reach them.
 
-K2 and K3 are Triton kernels: bandwidth-bound elementwise passes with no
-tensor-core work, which Triton's masked block loads express directly.  K2
-is bound by reading x (and `add`) and writing y once (170 MB, or 255 MB
-with `add`, at [1, 96^3, 48] bf16).  It walks the flat `[B, S*C]` view in
-contiguous blocks, so every load is coalesced whatever C is.  K3 is K2's
-pass over two inputs (255 MB at [1, 96^3, 48] bf16) and walks the same way.
+K2 and K3 are CUDA C++ too (`csrc/norm_apply.cu`: `apply_scale_shift` is
+one launch of `miseg_k2_apply`, `apply_norm2_act` one of
+`miseg_k3_apply2`): streaming passes bound by their bytes (K3 at
+[1, 96^3, 48] bf16 reads x and r and writes y, 255 MB), with 16-byte
+accesses and each thread's columns held in registers; the source's header
+says how.  Their grid is planned here (`apply_grid`), cached per shape,
+and the wrappers' per-call Python is a few checks, one `empty_like` and
+the ctypes call: the served window is host-bound.
 
 The wrappers launch the kernels for CUDA tensors and use the plain
 versions (`channel_scale_shift_plain`, `fold_partials_plain`,
@@ -45,7 +47,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import types
+import operator
 
 import torch
 import torch.nn.functional as F
@@ -53,7 +55,11 @@ import torch.nn.functional as F
 from .. import norms as N
 from . import build, counters
 
-_APPLY_BLOCK = 2048
+_APPLY_THREADS = 192    # a K2/K3 CTA's threads, rounded down to a multiple of C / vec
+_APPLY_MIN_THREADS = 64    # ... rounded up, for tensors too small to give every SM a CTA
+_APPLY_MAX_THREADS = 512   # kMaxThreads in csrc/norm_apply.cu
+_APPLY_UNROLL = 4       # rows a K2/K3 step loads at once where CTAs take one step (kMaxUnroll)
+_APPLY_WAVES = 4        # ... which they do where that makes this many waves of resident CTAs
 _K1_THREADS = 256       # kMaxThreads in csrc/fused_norm.cu
 _K1_UNROLL = 8          # rows a thread of miseg_k1_stats loads at once (kUnroll)
 _K1_CTAS_PER_SM = 3
@@ -152,54 +158,6 @@ def apply_norm2_act_plain(x, sx, hx, res, sr, hr, *,
 # -------------------------------------------------------------- kernels ----
 
 @functools.lru_cache(maxsize=None)
-def _kernels():
-    """Define the Triton kernels K2 and K3 on first use (triton exists only
-    where a card does; importing this module must not need it)."""
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def miseg_k2_apply(x_ptr, scale_ptr, shift_ptr, add_ptr, y_ptr, SC, C, slope,
-                       HAS_ADD: tl.constexpr, HAS_SLOPE: tl.constexpr,
-                       BLOCK: tl.constexpr):
-        b = tl.program_id(1)
-        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < SC
-        base = b.to(tl.int64) * SC
-        ch = b * C + offs % C
-        x = tl.load(x_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-        s = tl.load(scale_ptr + ch, mask=mask, other=0.0)
-        h = tl.load(shift_ptr + ch, mask=mask, other=0.0)
-        y = x * s + h
-        if HAS_ADD:
-            y = y + tl.load(add_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-        if HAS_SLOPE:
-            y = tl.where(y >= 0, y, slope * y)
-        tl.store(y_ptr + base + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    @triton.jit
-    def miseg_k3_apply2(x_ptr, sx_ptr, hx_ptr, r_ptr, sr_ptr, hr_ptr, y_ptr, SC,
-                        C, slope, HAS_SLOPE: tl.constexpr, BLOCK: tl.constexpr):
-        b = tl.program_id(1)
-        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < SC
-        base = b.to(tl.int64) * SC
-        ch = b * C + offs % C
-        x = tl.load(x_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-        r = tl.load(r_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-        yx = (x * tl.load(sx_ptr + ch, mask=mask, other=0.0)
-              + tl.load(hx_ptr + ch, mask=mask, other=0.0))
-        yr = (r * tl.load(sr_ptr + ch, mask=mask, other=0.0)
-              + tl.load(hr_ptr + ch, mask=mask, other=0.0))
-        y = yx + yr
-        if HAS_SLOPE:
-            y = tl.where(y >= 0, y, slope * y)
-        tl.store(y_ptr + base + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    return types.SimpleNamespace(apply=miseg_k2_apply, apply2=miseg_k3_apply2)
-
-
-@functools.lru_cache(maxsize=None)
 def _k1():
     """The K1 library with its ctypes signatures (built on first use)."""
     lib = build.load("fused_norm")
@@ -214,8 +172,79 @@ def _k1():
 
 
 @functools.lru_cache(maxsize=None)
+def _k23():
+    """The K2/K3 library (`csrc/norm_apply.cu`) with its ctypes signatures
+    (built on first use)."""
+    lib = build.load("norm_apply")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    tail = [i32, i32, i32, ctypes.c_float, i32, ctypes.c_longlong, i32, i32, i32, i32, ptr]
+    lib.miseg_k2_apply.restype = lib.miseg_k3_apply2.restype = i32
+    lib.miseg_k2_apply.argtypes = [ptr] * 5 + tail
+    lib.miseg_k3_apply2.argtypes = [ptr] * 7 + tail
+    lib.miseg_k23_resident.restype = i32
+    lib.miseg_k23_resident.argtypes = [i32] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def apply_vec(c: int, element_size: int) -> int:
+    """Elements a K2/K3 load takes over C channels of this size: 16 bytes'
+    worth where they divide C and a CTA can give each of the C / vec
+    channel groups a thread, else 1 (the scalar variant).  The wrapper also
+    takes 1 when an operand is not 16-byte aligned."""
+    vec = 16 // element_size
+    return vec if c % vec == 0 and c // vec <= _APPLY_MAX_THREADS else 1
+
+
+@functools.lru_cache(maxsize=None)
+def apply_grid(bsz: int, n: int, c: int, vec: int, num_sms: int, ctas_per_sm: int):
+    """(threads, ctas_per_sample, unroll) for `miseg_k2_apply` /
+    `miseg_k3_apply2` over `[B, n]` (n = S * C elements a sample) loaded
+    `vec` at a time, on a card of `num_sms` SMs that holds `ctas_per_sm`
+    of the kernel's CTAs at once (the wrappers ask the card).
+
+    Threads are a multiple of the C / vec channel groups, so a thread's
+    channel group is the same on every step: about 192, or, where CTAs of
+    that size would leave SMs without one, the fewest of at least 64, so
+    that a small tensor spreads over more SMs.  A sample is cut into rows
+    of `threads` vectors.  Where steps of 4 rows make at least 4 waves of
+    the CTAs the card holds, each CTA takes one step: the card schedules
+    the short CTAs as SMs free up, and the last, partial wave is a small
+    share.  Otherwise at most one wave of CTAs strides over steps of 2
+    rows, which spares a partial second wave.  (On the H100 each rule beat
+    the other on its side of the line at the main-path shapes.)  Cached:
+    the plan is made once per shape, not on every call."""
+    groups = c // vec if vec > 1 else 1
+    nvec = math.ceil(n / vec)
+    threads = groups * max(1, _APPLY_THREADS // groups)
+    if bsz * math.ceil(nvec / threads) < num_sms:
+        threads = groups * math.ceil(_APPLY_MIN_THREADS / groups)
+    rows = math.ceil(nvec / threads)
+    wave = max(1, ctas_per_sm * num_sms // bsz)   # CTAs a sample in one wave
+    if math.ceil(rows / _APPLY_UNROLL) >= _APPLY_WAVES * wave:
+        return threads, math.ceil(rows / _APPLY_UNROLL), _APPLY_UNROLL
+    return threads, min(math.ceil(rows / 2), wave), 2
+
+
+@functools.lru_cache(maxsize=None)
+def _apply_plan(index: int, mode: int, dtype: int, slope: bool, bsz: int, n: int, c: int,
+                vec: int):
+    """`apply_grid` on card `index` for the K2/K3 instance of mode (0
+    apply, 1 apply + add, 2 K3), dtype, vec and slope, with the CTAs an SM
+    holds of it (asked of the card once per instance and shape)."""
+    threads = apply_grid(bsz, n, c, vec, _num_sms(index), 1)[0]   # threads need no capacity
+    resident = ctypes.c_int()
+    with torch.cuda.device(index):   # the query reads the current card
+        err = _k23().miseg_k23_resident(mode, dtype, vec, slope, threads,
+                                        ctypes.byref(resident))
+    if err != 0 or resident.value < 1:
+        raise RuntimeError(f"K2/K3 occupancy query failed: CUDA error {err}")
+    return apply_grid(bsz, n, c, vec, _num_sms(index), resident.value)
 
 
 @functools.lru_cache(maxsize=None)
@@ -279,8 +308,9 @@ def _check_cuda(x3, *others):
         raise ValueError(f"fused norm takes float tensors, got {x3.dtype}")
     if not x3.is_contiguous():
         raise ValueError("fused norm kernels take a contiguous [B, S, C] tensor")
+    index = x3.get_device()
     for t in others:
-        if t is not None and t.device != x3.device:
+        if t is not None and t.get_device() != index:
             raise ValueError("all operands must be on one device")
 
 
@@ -377,29 +407,60 @@ def channel_scale_shift(x3, gamma=None, beta=None, styles=None, *,
     return out[0], out[1]
 
 
+def _f32(v):
+    """A column as K2/K3 read it: f32 and contiguous (K1's columns already
+    are, and pass without a copy)."""
+    return v if v.dtype == torch.float32 and v.is_contiguous() else v.float().contiguous()
+
+
+def _apply(fn, mode: int, x, bsz: int, c: int, negative_slope, ptrs):
+    """Launch K2 or K3 (`fn`, its ctypes entry; mode 0 apply, 1 apply +
+    add, 2 K3) over x `[B, ...]` with the pointer arguments `ptrs` (0 for
+    none) on the current stream of x's card.  Any operand off a 16-byte
+    boundary takes the scalar variant."""
+    index = x.get_device()
+    vec = 1 if functools.reduce(operator.or_, ptrs) % 16 else apply_vec(c, x.element_size())
+    n = x.numel() // bsz
+    dtype, slope = _DTYPES[x.dtype], negative_slope is not None
+    threads, ctas, unroll = _apply_plan(index, mode, dtype, slope, bsz, n, c, vec)
+    args = (*ptrs, dtype, vec, slope, float(negative_slope or 0.0), bsz, n, c, threads, ctas,
+            unroll)
+    # the raw stream handle: `torch.cuda.current_stream(...).cuda_stream`
+    # builds a Stream object, several us of host time a call.  The call is
+    # private API of torch (checked against torch 2.11 with CUDA 12.8).
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+
+
 def apply_scale_shift(x3, scale, shift, add3=None, *,
                       negative_slope: float | None = None):
-    """K2: `leaky(x3 * scale + shift (+ add3))`, rounded once to x3's dtype."""
+    """K2: `leaky(x3 * scale + shift (+ add3))` with f32 columns `[B, C]`,
+    rounded once to x3's dtype.  On the card one launch of
+    `miseg_k2_apply`."""
     if add3 is not None and add3.shape != x3.shape:
         raise ValueError(f"add shape {tuple(add3.shape)} != {tuple(x3.shape)}")
-    if x3.device.type == "cpu":
+    kind = x3.device.type
+    if kind == "cpu":
         return apply_scale_shift_plain(x3, scale, shift, add3,
                                        negative_slope=negative_slope)
-    if x3.device.type != "cuda":
+    if kind != "cuda":
         raise ValueError(f"fused norm: unsupported device {x3.device}")
     _check_cuda(x3, scale, shift, add3)
-    if add3 is not None and not add3.is_contiguous():
-        raise ValueError("add must be contiguous")
-    bsz, s, c = x3.shape
-    scale = scale.float().contiguous()
-    shift = shift.float().contiguous()
+    if add3 is not None and (add3.dtype != x3.dtype or not add3.is_contiguous()):
+        raise ValueError("add must be contiguous and of x's dtype")
+    bsz, _, c = x3.shape
+    if scale.shape != (bsz, c) or shift.shape != (bsz, c):
+        raise ValueError(f"columns must be [B, C] = {[bsz, c]}")
+    scale, shift = _f32(scale), _f32(shift)
     y = torch.empty_like(x3)
-    with torch.cuda.device(x3.device):
-        _kernels().apply[(math.ceil(s * c / _APPLY_BLOCK), bsz)](
-            x3, scale, shift, add3 if add3 is not None else x3, y, s * c, c,
-            float(negative_slope or 0.0), HAS_ADD=add3 is not None,
-            HAS_SLOPE=negative_slope is not None, BLOCK=_APPLY_BLOCK,
-            num_warps=8)
+    _apply(_k23().miseg_k2_apply, int(add3 is not None), x3, bsz, c, negative_slope,
+           (x3.data_ptr(), add3.data_ptr() if add3 is not None else 0, scale.data_ptr(),
+            shift.data_ptr(), y.data_ptr()))
     global apply_launches
     apply_launches += 1
     return y
@@ -430,28 +491,28 @@ def apply_norm2_act(x, sx, hx, res, sr, hr, *,
                     negative_slope: float | None = None):
     """K3: `leaky((x * sx + hx) + (res * sr + hr))` over `[B, *spatial, C]`
     with f32 columns `[B, C]`, rounded once to x's dtype — the UnetResBlock
-    tail with both branches' instance norms folded into columns."""
+    tail with both branches' instance norms folded into columns.  On the
+    card one launch of `miseg_k3_apply2`."""
     if res.shape != x.shape:
         raise ValueError(f"residual shape {tuple(res.shape)} != {tuple(x.shape)}")
     cols = (x.shape[0], x.shape[-1])
     if any(tuple(v.shape) != cols for v in (sx, hx, sr, hr)):
         raise ValueError(f"columns must be [B, C] = {list(cols)}")
-    if x.device.type == "cpu":
+    kind = x.device.type
+    if kind == "cpu":
         return apply_norm2_act_plain(x, sx, hx, res, sr, hr,
                                      negative_slope=negative_slope)
-    if x.device.type != "cuda":
+    if kind != "cuda":
         raise ValueError(f"fused norm: unsupported device {x.device}")
     _check_cuda(x, sx, hx, res, sr, hr)
     if res.dtype != x.dtype or not res.is_contiguous():
         raise ValueError("the residual must be contiguous and of x's dtype")
     bsz, c = cols
-    sc = x.numel() // bsz
-    sx, hx, sr, hr = (v.float().contiguous() for v in (sx, hx, sr, hr))
+    sx, hx, sr, hr = _f32(sx), _f32(hx), _f32(sr), _f32(hr)
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _kernels().apply2[(math.ceil(sc / _APPLY_BLOCK), bsz)](
-            x, sx, hx, res, sr, hr, y, sc, c, float(negative_slope or 0.0),
-            HAS_SLOPE=negative_slope is not None, BLOCK=_APPLY_BLOCK, num_warps=8)
+    _apply(_k23().miseg_k3_apply2, 2, x, bsz, c, negative_slope,
+           (x.data_ptr(), sx.data_ptr(), hx.data_ptr(), res.data_ptr(), sr.data_ptr(),
+            hr.data_ptr(), y.data_ptr()))
     global apply2_launches
     apply2_launches += 1
     return y

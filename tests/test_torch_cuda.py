@@ -5,9 +5,9 @@ This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 results within 1e-5 relative to the output's scale
-(summation order and FMA contraction differ); bf16 results within one
-bf16 ulp of the largest output (both sides round the same f32 value once,
-so a last-bit difference can flip the rounding).
+(summation order and FMA contraction differ); bf16 (and f16) results
+within one bf16 (f16) ulp of the largest output (both sides round the
+same f32 value once, so a last-bit difference can flip the rounding).
 """
 
 import numpy as np
@@ -45,17 +45,43 @@ def kernels_loaded():
         build.build_all()
         fused_conv._entry()
         fused_norm._k1()
+        fused_norm._k23()
         wa._lib()
     yield
 
 
 def _tol(ref: torch.Tensor, dtype) -> float:
     scale = float(ref.abs().max()) if ref.numel() else 0.0
+    if dtype == torch.float16:   # one f16 ulp (10 fraction bits)
+        return scale * 2.0 ** -10 + 1e-6
     return scale * 2.0 ** -7 + 1e-6 if dtype == torch.bfloat16 else 1e-5 * (1.0 + scale)
 
 
 def _err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def _device_kernels(run, ok, attempts: int = 3) -> list[str]:
+    """The names of the device kernels torch.profiler records while `run()`
+    runs, in launch order, from the first of `attempts` sessions whose
+    names satisfy `ok(names)`, else from the last.  The profiler misses
+    kernels launched right after a session starts (and now and then a
+    whole session's), so each session first runs ATen's `spin_kernel`
+    (`torch.cuda._sleep`), left out of the names; a kernel that launches
+    wrongly fails every session."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            run()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name]
+        if ok(names):
+            break
+    return names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -195,8 +221,6 @@ def test_k1_each_call_is_one_kernel(dev, gen):
     fold_partials call is exactly one device kernel: in order, the
     statistics kernel (a sample of many chunks, then wide channels over
     short rows) and the fold."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     x3 = torch.randn((1, 48 ** 3, 48), generator=gen).to(dev, torch.bfloat16)
     wide = torch.randn((1, 27, 3072), generator=gen).to(dev, torch.bfloat16)
     gamma = torch.randn((2, 48), generator=gen).to(dev, torch.bfloat16)
@@ -210,13 +234,13 @@ def test_k1_each_call_is_one_kernel(dev, gen):
         fused_norm.fold_partials(part, 48 ** 3, 256, part.shape[1], gamma, beta, styles)
         torch.cuda.synchronize()
 
+    def ok(names):
+        return (len(names) == 3 and "miseg_k1_stats<" in names[0]
+                and "miseg_k1_stats<" in names[1] and "miseg_k1_fold" in names[2])
+
     calls()   # builds and warms up
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        calls()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert len(names) == 3, names
-    assert "miseg_k1_stats<" in names[0] and "miseg_k1_stats<" in names[1], names
-    assert "miseg_k1_fold" in names[2], names
+    names = _device_kernels(calls, ok)
+    assert ok(names), names
 
 
 def test_k1_shapes_in_turn(dev, gen):
@@ -442,18 +466,25 @@ def test_k4_split_shapes_in_turn(dev, gen):
     assert all(int(torch.count_nonzero(c)) == 0 for c in counters._buffers.values())
 
 
+def _k4_call_kernels(x, w, kw, kernel: str) -> list[str]:
+    """The `miseg_k4_` device kernels of one K4 call after a warm-up, from
+    a profiler session that saw exactly one, `kernel`, if any did."""
+    def ok(names):
+        return len(names) == 1 and kernel in names[0]
+
+    fused_conv.conv3_norm_columns(x, w, **kw)   # builds and warms up
+    torch.cuda.synchronize()
+    names = _device_kernels(lambda: fused_conv.conv3_norm_columns(x, w, **kw),
+                            lambda names: ok([n for n in names if "miseg_k4_" in n]))
+    return [n for n in names if "miseg_k4_" in n]
+
+
 @pytest.mark.parametrize("shape,cout", [((1, 24, 24, 24, 96), 96), ((1, 3, 3, 3, 768), 768)])
 def test_k4_coarse_call_is_one_kernel(dev, gen, shape, cout):
     """A bf16 coarse call, split or not, is one K4 device kernel (the
     coarse kernel) besides its fold: no second reduce launch."""
-    from torch.profiler import ProfilerActivity, profile
     x, w, kw = _conv_operands(gen, dev, torch.bfloat16, shape, cout, "affine_leaky")
-    fused_conv.conv3_norm_columns(x, w, **kw)   # builds and warms up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fused_conv.conv3_norm_columns(x, w, **kw)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if "miseg_k4_" in e.name]
+    names = _k4_call_kernels(x, w, kw, "miseg_k4_conv_coarse")
     assert len(names) == 1 and "miseg_k4_conv_coarse" in names[0], names
 
 
@@ -467,15 +498,9 @@ def test_k4_cin1_call_is_one_kernel(dev, gen, case, dtype, kernel):
     """A Cin = 1 call is one K4 device kernel besides K1's fold: the Cin = 1
     tensor-core kernel for bf16 volumes that bricks divide, else the FMA
     kernel (with no split-K reduce)."""
-    from torch.profiler import ProfilerActivity, profile
     shape, cout = _CONV[case]
     x, w, kw = _conv_operands(gen, dev, dtype, shape, cout, "none")
-    fused_conv.conv3_norm_columns(x, w, **kw)   # builds and warms up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fused_conv.conv3_norm_columns(x, w, **kw)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if "miseg_k4_" in e.name]
+    names = _k4_call_kernels(x, w, kw, kernel)
     assert len(names) == 1 and kernel in names[0], names
 
 
@@ -497,6 +522,182 @@ def test_k3_matches_plain(dev, gen, case, dtype):
         torch.cuda.synchronize()
         assert y.dtype == dtype
         assert _err(y, ref) <= _tol(ref, dtype)
+
+
+# K2's shapes on a 96^3 window: the unfused path's 96^3 x 48, then every
+# distinct shape of the served path (swin-block, patch-merging and proj_out
+# norms, and the identity tails' adds at 48^3, 24^3, 12^3 and 3^3)
+_K2_SHAPES = [(1, 96 ** 3, 48), (1, 48 ** 3, 48), (1, 24 ** 3, 384), (1, 24 ** 3, 96),
+              (1, 12 ** 3, 768), (1, 12 ** 3, 192), (1, 6 ** 3, 1536), (1, 6 ** 3, 384),
+              (1, 27, 3072), (1, 27, 768)]
+# K3's: every projected-residual tail of the window, and 3^3 x 768 (off
+# the served path, whose encoder10 tail is K2's add mode: the smallest
+# tensor K3 is held at)
+_K3_SHAPES = [(1, 96 ** 3, 48), (1, 48 ** 3, 48), (1, 24 ** 3, 96), (1, 12 ** 3, 192),
+              (1, 6 ** 3, 384), (1, 27, 768)]
+
+
+def _k2_case(gen, dev, shape, dtype):
+    b, _, c = shape
+    x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, dtype)
+    add = torch.randn(shape, generator=gen).to(dev, dtype)
+    sc = (1 + 0.3 * torch.randn((b, c), generator=gen)).to(dev)
+    sh = (0.3 * torch.randn((b, c), generator=gen)).to(dev)
+    return x, add, sc, sh
+
+
+def _k3_case(gen, dev, shape, dtype):
+    b, c = shape[0], shape[-1]
+    x, res = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(2))
+    return x, res, [torch.randn((b, c), generator=gen).to(dev) for _ in range(4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _K2_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k2_matches_plain_main_path(dev, gen, shape, dtype):
+    x, add, sc, sh = _k2_case(gen, dev, shape, dtype)
+    for a, slope in [(None, None), (None, 0.01), (add, None), (add, 0.01)]:
+        before = fused_norm.apply_launches
+        y = fused_norm.apply_scale_shift(x, sc, sh, a, negative_slope=slope)
+        assert fused_norm.apply_launches == before + 1
+        ref = fused_norm.apply_scale_shift_plain(x, sc, sh, a, negative_slope=slope)
+        torch.cuda.synchronize()
+        assert y.dtype == dtype and y.shape == shape
+        assert _err(y, ref) <= _tol(ref, dtype), (a is not None, slope)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _K3_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k3_matches_plain_main_path(dev, gen, shape, dtype):
+    x, res, cols = _k3_case(gen, dev, shape, dtype)
+    for slope in (None, 0.01):
+        y = fused_norm.apply_norm2_act(x, cols[0], cols[1], res, cols[2], cols[3],
+                                       negative_slope=slope)
+        ref = fused_norm.apply_norm2_act_plain(x, cols[0], cols[1], res, cols[2], cols[3],
+                                               negative_slope=slope)
+        torch.cuda.synchronize()
+        assert _err(y, ref) <= _tol(ref, dtype), slope
+
+
+def _offset(t, elements: int):
+    """A contiguous copy of t that starts `elements` elements into a larger
+    buffer (off a 16-byte boundary for 2)."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[elements:elements + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", ["c100", "offset_x", "offset_res", "offset_cols"])
+def test_k2_k3_scalar_variant(dev, gen, case, dtype):
+    """The scalar variant: C = 100 (no 8-channel loads in bf16/f16), or an
+    x, a residual or a column 2 elements into a larger buffer (16-byte
+    loads misaligned), over 3 samples with their own columns."""
+    shape = (3, 5 * 5 * 5, 100 if case == "c100" else 48)
+    x, add, sc, sh = _k2_case(gen, dev, shape, dtype)
+    if case == "offset_x":
+        x = _offset(x, 2)
+        assert x.data_ptr() % 16
+    if case == "offset_res":
+        add = _offset(add, 2)
+        assert add.data_ptr() % 16
+    if case == "offset_cols":
+        sc = _offset(sc, 2)
+        assert sc.data_ptr() % 16
+    cols = [sc, sh] + [torch.randn(sc.shape, generator=gen).to(dev) for _ in range(2)]
+    for slope in (None, 0.01):
+        y = fused_norm.apply_scale_shift(x, sc, sh, add, negative_slope=slope)
+        ref = fused_norm.apply_scale_shift_plain(x, sc, sh, add, negative_slope=slope)
+        assert _err(y, ref) <= _tol(ref, dtype)
+        y = fused_norm.apply_norm2_act(x, cols[0], cols[1], add, cols[2], cols[3],
+                                       negative_slope=slope)
+        ref = fused_norm.apply_norm2_act_plain(x, cols[0], cols[1], add, cols[2], cols[3],
+                                               negative_slope=slope)
+        assert _err(y, ref) <= _tol(ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_k2_k3_per_sample_columns(dev, gen, dtype):
+    """B = 3, 16-byte loads, each sample with its own columns: sample b's
+    output is its own sample's plain result (a kernel that read another
+    sample's columns would miss it)."""
+    x, add, sc, sh = _k2_case(gen, dev, (3, 8 ** 3, 96), dtype)
+    res_cols = [torch.randn(sc.shape, generator=gen).to(dev) for _ in range(2)]
+    y2 = fused_norm.apply_scale_shift(x, sc, sh, add, negative_slope=0.01)
+    y3 = fused_norm.apply_norm2_act(x, sc, sh, add, *res_cols, negative_slope=0.01)
+    for b in range(3):
+        ref2 = fused_norm.apply_scale_shift_plain(x[b:b + 1], sc[b:b + 1], sh[b:b + 1],
+                                                  add[b:b + 1], negative_slope=0.01)
+        ref3 = fused_norm.apply_norm2_act_plain(x[b:b + 1], sc[b:b + 1], sh[b:b + 1],
+                                                add[b:b + 1], res_cols[0][b:b + 1],
+                                                res_cols[1][b:b + 1], negative_slope=0.01)
+        assert _err(y2[b:b + 1], ref2) <= _tol(ref2, dtype)
+        assert _err(y3[b:b + 1], ref3) <= _tol(ref3, dtype)
+
+
+def test_k2_k3_each_call_is_one_kernel(dev, gen):
+    """Under torch.profiler, every K2 and K3 call is one CUDA kernel of its
+    own name, the 16-byte variant where C and alignment allow and the
+    scalar one (vector width 1) where not: three rounds of four calls
+    launch each of these four kernels three times and no other kernel; a
+    repeat is bit-identical."""
+    x, add, sc, sh = _k2_case(gen, dev, (1, 48 ** 3, 48), torch.bfloat16)
+    odd, odd_add, osc, osh = _k2_case(gen, dev, (1, 64, 100), torch.bfloat16)
+
+    def calls():
+        out = [fused_norm.apply_scale_shift(x, sc, sh, negative_slope=0.01),
+               fused_norm.apply_scale_shift(x, sc, sh, add, negative_slope=0.01),
+               fused_norm.apply_norm2_act(x, sc, sh, add, sc, sh, negative_slope=0.01),
+               fused_norm.apply_scale_shift(odd, osc, osh, odd_add)]
+        torch.cuda.synchronize()
+        return out
+
+    want = ["miseg_k2_apply<__nv_bfloat16, 8, 0, true>", "miseg_k2_apply<__nv_bfloat16, 8, 1, true>",
+            "miseg_k3_apply2<__nv_bfloat16, 8, true>", "miseg_k2_apply<__nv_bfloat16, 1, 1, false>"]
+
+    def ok(names):
+        return len(names) == 12 and [sum(w in n for n in names) for w in want] == [3] * 4
+
+    first = calls()   # warms up
+    runs = []
+    names = _device_kernels(lambda: runs.extend(calls() for _ in range(3)), ok)
+    assert all(torch.equal(a, b) for run in runs for a, b in zip(first, run))
+    assert ok(names), names
+
+
+def test_k2_k3_reject_bad_operands(dev):
+    x = torch.zeros((2, 8, 16), device=dev)
+    cols = torch.zeros((2, 16), device=dev)
+    with pytest.raises(ValueError):   # an add of another dtype
+        fused_norm.apply_scale_shift(x, cols, cols, x.to(torch.bfloat16))
+    with pytest.raises(ValueError):   # columns that are not [B, C]
+        fused_norm.apply_scale_shift(x, cols[:1], cols[:1])
+    with pytest.raises(ValueError):   # columns on another device
+        fused_norm.apply_scale_shift(x, cols.cpu(), cols)
+    with pytest.raises(ValueError):   # a non-contiguous residual
+        fused_norm.apply_norm2_act(x, cols, cols, x.transpose(0, 1).contiguous().transpose(0, 1),
+                                   cols, cols)
+
+
+def test_identity_res_block_takes_k2_add(dev):
+    """An identity-residual UnetResBlock's tail is one K2 launch (its add
+    mode) and no K3."""
+    from miseg_tpu_torch.nn.dynunet import UnetResBlock, _fused_convs
+    from miseg_tpu_torch.models.factory import init_weights
+    block = UnetResBlock(8, 8, 3, 1, "instance", device=dev)
+    init_weights(block, torch.Generator().manual_seed(0))
+    x = torch.randn((1, 6, 6, 6, 8), device=dev)
+    fused_conv.launches = fused_norm.apply2_launches = fused_norm.apply_launches = 0
+    fused_norm.stats_launches = 0
+    with torch.no_grad():
+        y = block(x)
+        assert (fused_norm.apply_launches, fused_norm.apply2_launches) == (1, 0)
+        assert (fused_conv.launches, fused_norm.stats_launches) == (2, 0)
+        y2, sc2, sh2 = _fused_convs(block, x, None)
+    ref = fused_norm.apply_norm2_act_plain(y2, sc2, sh2, x, torch.ones_like(sc2),
+                                           torch.zeros_like(sh2), negative_slope=block.slope)
+    assert _err(y, ref) <= _tol(ref, torch.float32)
 
 
 def test_k3_k4_count_launches(dev):

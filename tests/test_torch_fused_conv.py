@@ -253,6 +253,35 @@ def test_fused_block_matches_jax_fused(jax_conv_chain, monkeypatch, rng, case):
     assert max_err(got, want) <= ATOL_BLOCK
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_identity_tail_is_k2_add(jax_conv_chain, monkeypatch, rng, dtype):
+    """An identity-residual UnetResBlock ends in K2's add mode: its output
+    is the K3 tail with ones/zeros columns, as JAX runs it (`x * 1 + 0 ==
+    x` in f32), bit for bit, and matches JAX's fused block: f32 at
+    ATOL_BLOCK; bf16 within two bf16 ulps of the largest output (an ulp is
+    at most 2^-7 of it), since the two convs round y1 and y2 to bf16 after
+    sums taken in another order (one ulp seen)."""
+    jmod, port, shapes, _ = _BLOCKS["res_identity_instance"]()
+    x = rng.standard_normal(shapes[0]).astype(np.float32)
+    params = seeded_params(jmod, jnp.asarray(x))
+    counts = _count_chain(monkeypatch)
+    want = jmod.apply({"params": jax.tree.map(jnp.asarray, params)},
+                      jnp.asarray(x).astype(dtype))
+    port.load_state_dict(state_dict_from_jax(params), strict=True)
+    port.to(getattr(torch, dtype))
+    xt = t(x).to(getattr(torch, dtype))
+    with torch.no_grad():
+        got = port(xt)
+        y2, sc2, sh2 = dynunet._fused_convs(port, xt, None)
+    tail = fused_norm.apply_norm2_act_plain(y2, sc2, sh2, xt, torch.ones_like(sc2),
+                                            torch.zeros_like(sh2), negative_slope=port.slope)
+    assert counts == {"jax": 2, "port": 4}   # the block's chain, then the convs again
+    assert got.dtype == xt.dtype and torch.equal(got, tail)
+    want = np.asarray(want, np.float32)
+    tol = ATOL_BLOCK if dtype == "float32" else 2 * 2.0 ** -7 * float(np.abs(want).max())
+    assert max_err(got.float(), want) <= tol
+
+
 def test_fuse_plan_rejections(rng, monkeypatch):
     counts = _count_chain(monkeypatch)
     x = t(rng.standard_normal((1, 8, 8, 8, 4)).astype(np.float32))

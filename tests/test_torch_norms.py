@@ -181,6 +181,54 @@ def test_k1_grid_fills_the_card(s, c):
             assert n_chunks == 1 and -(-c // block_c) >= 132
 
 
+# (batch, S, C, element size, the load width K2/K3 take): the served
+# path's widest (27 x 3072), largest (48^3 x 48) and smallest (27 x 768)
+# K2 shapes and K3's 96^3 x 48 in bf16; C = 100 over 3 samples, the scalar
+# variant in bf16; f32 at C = 48 (4 channels a load) and at C = 3072,
+# whose 768 channel groups are more than a CTA's threads (the scalar
+# variant)
+_APPLY = {
+    "bf16_27_3072": (1, 27, 3072, 2, 8),
+    "bf16_27_768": (1, 27, 768, 2, 8),
+    "bf16_48cube_48": (1, 48 ** 3, 48, 2, 8),
+    "bf16_96cube_48": (1, 96 ** 3, 48, 2, 8),
+    "bf16_c100_b3": (3, 4 ** 3, 100, 2, 1),
+    "f32_48cube_48": (1, 48 ** 3, 48, 4, 4),
+    "f32_27_3072": (1, 27, 3072, 4, 1),
+}
+
+
+@pytest.mark.parametrize("num_sms,ctas_per_sm", [(132, 3), (114, 8)])   # H100 SXM, PCIe
+@pytest.mark.parametrize("case", sorted(_APPLY))
+def test_apply_grid(case, num_sms, ctas_per_sm):
+    """K2/K3's grid: 16-byte loads where C allows, a CTA's threads a
+    multiple of its channel groups (so each thread keeps one group's
+    columns), rows of `threads` vectors covered in whole steps: one step
+    of 4 rows a CTA where that makes at least 4 waves of the CTAs the card
+    holds, else at most one wave striding over steps of 2 rows; small
+    tensors spread over CTAs of fewer threads."""
+    bsz, s, c, size, vec = _APPLY[case]
+    assert fused_norm.apply_vec(c, size) == vec
+    n = s * c
+    threads, ctas, unroll = fused_norm.apply_grid(bsz, n, c, vec, num_sms, ctas_per_sm)
+    assert 1 <= threads <= 512
+    groups = c // vec if vec > 1 else 1
+    assert threads % groups == 0
+    nvec = -(-n // vec)
+    rows = -(-nvec // threads)
+    wave = max(1, ctas_per_sm * num_sms // bsz)
+    steps = -(-rows // unroll)
+    assert 1 <= ctas <= steps                          # no CTA without a step
+    if unroll == 4:
+        assert ctas == steps >= 4 * wave               # one step a CTA, many waves
+    else:
+        assert unroll == 2 and ctas == min(steps, wave) and -(-rows // 4) < 4 * wave
+    if s >= 96 ** 3:
+        assert unroll == 4 and threads == groups * (192 // groups)
+    if bsz * -(-nvec // (groups * max(1, 192 // groups))) < num_sms:
+        assert threads == groups * -(-64 // groups) and ctas == steps   # small: every step its CTA
+
+
 def _tile_partials(x, rows):
     """Per-tile (mean, M2) `f32 [2, B * n_tiles, C]` of x `[B, S, C]` in
     tiles of `rows` rows, only a sample's last short, taken two-pass as

@@ -15,6 +15,8 @@ import torch
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "miseg_tpu")
+# every kernel of the port is CUDA C++ built by nvcc: no Triton anywhere
+NOT_TRITON = ("triton",)
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -51,11 +53,20 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", *sorted(
+_SOURCES = ["chip_smoke.py", *sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "miseg_tpu_torch").rglob("*.py")
-    if "_build" not in p.parts)])  # _build holds kernel build outputs
+    if "_build" not in p.parts)]  # _build holds kernel build outputs
+
+
+@pytest.mark.parametrize("path", _SOURCES)
 def test_no_forbidden_imports_in_source(path):
     assert not _imported_roots(ROOT / path) & set(FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", _SOURCES)
+def test_no_triton_in_source(path):
+    assert not _imported_roots(ROOT / path) & set(NOT_TRITON)
+    assert "triton.jit" not in (ROOT / path).read_text()
 
 
 def _run_smoke(cwd, env):
