@@ -32,13 +32,29 @@ Phases, one result line each; any failed check exits non-zero:
                unless the window ran 20 K4 kernels (12 coarse, one Cin = 1,
                none on the FMA path or its split-K reduce), 51 K1 kernels
                (31 statistics, 20 folds), 29 K2 and 6 K3 kernels, all of
-               them the CUDA ones.
-Then one JSON line of kernels, the card line, and the ok line last.
+               them the CUDA ones;
+  5. train   — training through `train.engine.Trainer`: (a) each kernel's
+               autograd Function (K1 with banks and K2 with its add at
+               [1,48^3,48], K3 at [1,96^3,48], K4 with a prologue at 96^3,
+               12^3 and 6^3 and the Cin = 1 call, K5 at stage 1 with and
+               without the mask) in bf16, its forward under grad mode
+               launching the kernel and its backward against autograd
+               through the plain version; (b) one f32 AdamW step of the
+               fs-48 model at 64^3 on the card against the CPU; (c) the
+               flagship's step at 96^3, bf16 compute with f32 masters, 2
+               warm-up and 10 timed steps on a fixed seeded batch (finite
+               losses, a falling loss, finite non-zero gradients for all
+               203 parameters, the window's launch counts in one step's
+               forward, ms a step, device busy and idle share of one
+               profiled step, peak memory).
+Then one JSON line of kernels (with each kernel's launches a train step
+and the JAX VJP its backward follows), the card line, and the ok line last.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -114,7 +130,9 @@ def profiled(run, ok, attempts: int = 3) -> list:
     from the last.  The profiler misses kernels launched right after a
     session starts (and now and then a whole session's), so each session
     first runs ATen's `spin_kernel` (`torch.cuda._sleep`), left out of the
-    events; a kernel that launches wrongly fails every session."""
+    events; a kernel that launches wrongly fails every session.  Device-side
+    user annotations (the optimizer's `Optimizer.step` range) are left out
+    too: they span kernels that are counted on their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -125,7 +143,8 @@ def profiled(run, ok, attempts: int = 3) -> list:
             run()
             torch.cuda.synchronize()
         events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name]
+                  if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name
+                  and not getattr(e, "is_user_annotation", False)]
         if ok(events):
             break
     return events
@@ -498,36 +517,45 @@ def host_cost(dev, calls: int = 200, rounds: int = 5) -> None:
     device work is a few us a call, so the host sets the pace), median of
     `rounds` rounds, the kernels taken in turns, in reverse order every
     other round; beside it the time to the end of the synchronize after
-    them.  The host's speed swings between runs: compare kernels within a
-    run, K1 being the same code in the trees compared so far."""
+    them.  Twice: under inference mode, as served (the wrappers call the
+    launchers directly), and under grad mode with x requiring a gradient
+    (the wrappers run inside their autograd Functions, as in training).
+    The host's speed swings between runs: compare kernels within a run,
+    K1 being the same code in the trees compared so far."""
     from miseg_tpu_torch.ops.kernels import fused_norm as fn
 
     gen = torch.Generator().manual_seed(5)
-    x, r = (torch.randn((1, 27, 768), generator=gen).to(dev, torch.bfloat16) for _ in range(2))
-    sc, sh = fn.channel_scale_shift(x)
-    calls_of = {
-        "K1": lambda: fn.channel_scale_shift(x),
-        "K2": lambda: fn.apply_scale_shift(x, sc, sh, negative_slope=0.01),
-        "K2+add": lambda: fn.apply_scale_shift(x, sc, sh, r, negative_slope=0.01),
-        "K3": lambda: fn.apply_norm2_act(x, sc, sh, r, sc, sh, negative_slope=0.01),
-    }
-    took: dict[str, list[tuple[float, float]]] = {k: [] for k in calls_of}
-    for rnd in range(rounds):
-        for name, call in (reversed(calls_of.items()) if rnd % 2 else calls_of.items()):
-            for _ in range(10):
-                call()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                call()
-            t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            took[name].append(((t1 - t0) / calls * 1e6, (t2 - t0) / calls * 1e6))
-    print(f"host: us a wrapper call at [1,27,768] bf16 ({calls} calls after a synchronize, "
-          f"median of {rounds} rounds; to the last return / to the end of the synchronize): "
-          + ", ".join(f"{k} {statistics.median(a for a, _ in v):.2f} / "
-                      f"{statistics.median(b for _, b in v):.2f}" for k, v in took.items()))
+    base = [torch.randn((1, 27, 768), generator=gen).to(dev, torch.bfloat16) for _ in range(2)]
+    for grad in (False, True):
+        x, r = (t.detach().requires_grad_(grad) for t in base)
+        with torch.no_grad():
+            sc, sh = fn.channel_scale_shift(x)
+        calls_of = {
+            "K1": lambda: fn.channel_scale_shift(x),
+            "K2": lambda: fn.apply_scale_shift(x, sc, sh, negative_slope=0.01),
+            "K2+add": lambda: fn.apply_scale_shift(x, sc, sh, r, negative_slope=0.01),
+            "K3": lambda: fn.apply_norm2_act(x, sc, sh, r, sc, sh, negative_slope=0.01),
+        }
+        took: dict[str, list[tuple[float, float]]] = {k: [] for k in calls_of}
+        with torch.enable_grad() if grad else torch.inference_mode():
+            for rnd in range(rounds):
+                for name, call in (reversed(calls_of.items()) if rnd % 2 else calls_of.items()):
+                    for _ in range(10):
+                        call()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(calls):
+                        call()
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    took[name].append(((t1 - t0) / calls * 1e6, (t2 - t0) / calls * 1e6))
+        mode = "grad mode, in the autograd Functions" if grad else "inference mode, as served"
+        print(f"host ({mode}): us a wrapper call at [1,27,768] bf16 ({calls} calls after a "
+              f"synchronize, median of {rounds} rounds; to the last return / to the end of the "
+              f"synchronize): "
+              + ", ".join(f"{k} {statistics.median(a for a, _ in v):.2f} / "
+                          f"{statistics.median(b for _, b in v):.2f}" for k, v in took.items()))
 
 
 def phase_model(dev):
@@ -653,9 +681,27 @@ def compare_paths(served, cfg, dev, reps: int = 10) -> None:
 _GROUPS = [("K1", ("miseg_k1_",)), ("K2", ("miseg_k2_",)),
            ("K3", ("miseg_k3_",)), ("K4", ("miseg_k4_",)),
            ("K5", ("miseg_k5_", "window_attention_kernel")),
-           ("conv (cuDNN)", ("conv", "xmma", "implicit", "cudnn", "fprop", "dgrad")),
+           ("conv (cuDNN)", ("conv", "xmma", "implicit", "cudnn", "fprop", "dgrad", "wgrad")),
            ("linear (GEMM)", ("gemm", "cutlass", "gemv")),
-           ("copy/pad/cat/roll", ("copy", "cat", "pad", "roll", "index", "gather"))]
+           ("copy/pad/cat/roll", ("copy", "cat", "pad", "roll", "index", "gather")),
+           ("optimizer (foreach)", ("multi_tensor",)),
+           ("softmax", ("softmax",)),
+           ("reduce", ("reduce",)),
+           ("elementwise", ("elementwise",))]
+
+
+def kernel_groups(kernels, reps: int) -> tuple[dict, dict]:
+    """(device ms a rep by kernel name, by `_GROUPS` group) of profiler
+    events over `reps` repetitions."""
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    groups: dict[str, float] = {}
+    for name, ms in by_name.items():
+        low = name.lower()
+        group = next((g for g, keys in _GROUPS if any(k in low for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    return by_name, groups
 
 
 def window_faults(kernels, reps: int) -> list[str]:
@@ -724,14 +770,7 @@ def profile_window(served, dev, reps: int = 3) -> None:
     check(not faults, f"profile ({len(walls)} sessions, window {event_ms:.2f} ms by CUDA "
                       f"events): " + "; ".join(faults))
     wall_ms = walls[-1]
-    by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
-    groups: dict[str, float] = {}
-    for name, ms in by_name.items():
-        low = name.lower()
-        group = next((g for g, keys in _GROUPS if any(k in low for k in keys)), "other")
-        groups[group] = groups.get(group, 0.0) + ms
+    by_name, groups = kernel_groups(kernels, reps)
     busy = sum(groups.values())
     print(f"profile: one 96^3 window, bf16, {reps} reps: {event_ms:.2f} ms by CUDA events; "
           f"under the profiler {wall_ms:.2f} ms wall, {busy:.2f} ms device busy "
@@ -742,6 +781,286 @@ def profile_window(served, dev, reps: int = 3) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     for name, ms in top[:10] + [kv for kv in top[10:] if "miseg_k" in kv[0]]:
         print(f"  {ms:8.3f} ms  {name[:110]}")
+
+
+def grad_tolerance(ref: torch.Tensor, dtype) -> float:
+    """A gradient's tolerance against autograd through the plain version:
+    f32 cases 1e-5 relative to its scale (summation order); bf16 cases
+    two bf16 ulps of its largest element, for every gradient of the case
+    (the two sides round f32 values that differ by the rounding of their
+    bf16 forward outputs and cotangents once more: the plain version's
+    autograd sums cotangents in bf16, rounds P's cotangent to bf16 in K5,
+    and K4's conv VJP runs on f32 operands)."""
+    scale = float(ref.abs().max()) if ref.numel() else 0.0
+    return scale * 2.0 ** -6 + 1e-6 if dtype == torch.bfloat16 else 1e-5 * (1.0 + scale)
+
+
+def grad_case(label: str, fn, plain, inputs, launched, dtype, gen, kink: bool = False) -> str:
+    """One kernel's autograd Function on the card: `fn(*inputs)` under grad
+    mode must launch its kernel (`launched()` rises by one) and give
+    outputs with a `grad_fn`; the gradients of every float input for seeded
+    random cotangents must match `torch.autograd.grad` through `plain` on
+    the same inputs within `grad_tolerance`.
+
+    `kink`: the output ends in a leaky-relu, whose derivative jumps at 0.
+    Where the kernel's and the plain version's outputs lie on two sides of
+    0 (a pre-activation within the forward's rounding of 0), the two
+    backwards rightly take different branches: those elements are left out
+    of the gradients shaped like the output, and there must be fewer than
+    one in 10^5 of them."""
+    def leaves():
+        return [t.detach().clone().requires_grad_(t.is_floating_point())
+                if isinstance(t, torch.Tensor) else t for t in inputs]
+
+    ins, ref_ins = leaves(), leaves()
+    before = launched()
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    check(launched() == before + 1, f"train {label}: the forward under grad mode launched "
+                                    f"{launched() - before} kernels, want 1")
+    check(all(o.grad_fn is not None for o in outs), f"train {label}: an output has no grad_fn")
+    refs = plain(*ref_ins)
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    cts = [torch.randn(o.shape, generator=gen).to(o.device, o.dtype) for o in outs]
+    wrt = [t for t in ins if isinstance(t, torch.Tensor) and t.requires_grad]
+    ref_wrt = [t for t in ref_ins if isinstance(t, torch.Tensor) and t.requires_grad]
+    got = torch.autograd.grad(outs, wrt, cts)
+    want = torch.autograd.grad(refs, ref_wrt, cts)
+    worst, apart = 0.0, None
+    if kink:
+        apart = (outs[0] >= 0) != (refs[0] >= 0)
+        n_apart = int(apart.sum())
+        check(n_apart * 10 ** 5 < apart.numel(), f"train {label}: the kernel and the plain "
+                                                 f"version put {n_apart} outputs on two sides of 0")
+    for i, (g, r) in enumerate(zip(got, want)):
+        if apart is not None and g.shape == apart.shape:
+            g, r = g.masked_fill(apart, 0), r.masked_fill(apart, 0)
+        e, tol = max_err(g, r), grad_tolerance(r, dtype)
+        check(bool(torch.isfinite(g).all()), f"train {label}: input {i} gradient not finite")
+        check(e <= tol, f"train {label}: input {i} gradient {e:.3e} > {tol:.3e}")
+        worst = max(worst, e / tol)
+    kinked = "" if apart is None else f"; {int(apart.sum())} outputs on two sides of 0 left out"
+    return (f"  train {label}: {len(got)} gradients match autograd through the plain "
+            f"version (worst err/tol {worst:.2f}; tol 2 bf16 ulps of each gradient's max"
+            f"{kinked})")
+
+
+def train_functions(dev) -> None:
+    """(a) Each kernel's autograd Function on the card in bf16 at a main-path
+    shape against autograd through its plain version."""
+    from miseg_tpu_torch.ops.kernels import fused_conv as fc
+    from miseg_tpu_torch.ops.kernels import fused_norm as fn
+    from miseg_tpu_torch.ops.kernels import window_attention as wa
+    from miseg_tpu_torch.ops.window import window_region_ids
+
+    gen = torch.Generator().manual_seed(6)
+    bf = torch.bfloat16
+
+    def rnd(shape, scale=1.0, mean=0.0, dtype=bf):
+        return (mean + scale * torch.randn(shape, generator=gen)).to(dev, dtype)
+
+    lines = []
+    # K1 (x -> f32 columns, [2, 48] banks) and K2 (with its add) at [1, 48^3, 48]
+    x, add = rnd((1, 48 ** 3, 48), 1.5, 0.3), rnd((1, 48 ** 3, 48))
+    banks = (rnd((2, 48), 0.2, 1.0), rnd((2, 48), 0.2))
+    styles = torch.tensor([1], dtype=torch.int32, device=dev)
+    lines.append(grad_case(
+        "K1 [1,48^3,48] banks", lambda x_, g_, b_: fn.channel_scale_shift(x_, g_, b_, styles),
+        lambda x_, g_, b_: fn.channel_scale_shift_plain(x_, g_, b_, styles), [x, *banks],
+        lambda: fn.stats_launches, bf, gen))
+    cols = (rnd((1, 48), 0.3, 1.0, torch.float32), rnd((1, 48), 0.3, 0.0, torch.float32))
+    lines.append(grad_case(
+        "K2 [1,48^3,48] with add",
+        lambda x_, s_, h_, a_: fn.apply_scale_shift(x_, s_, h_, a_, negative_slope=0.01),
+        lambda x_, s_, h_, a_: fn.apply_scale_shift_plain(x_, s_, h_, a_, negative_slope=0.01),
+        [x, *cols, add], lambda: fn.apply_launches, bf, gen, kink=True))
+    # K3 at [1, 96^3, 48]
+    x3, r3 = rnd((1, 96, 96, 96, 48)), rnd((1, 96, 96, 96, 48))
+    c4 = [rnd((1, 48), 0.3, m, torch.float32) for m in (1.0, 0.0, 1.0, 0.0)]
+    lines.append(grad_case(
+        "K3 [1,96^3,48]",
+        lambda x_, a, b, r_, c, d: fn.apply_norm2_act(x_, a, b, r_, c, d, negative_slope=0.01),
+        lambda x_, a, b, r_, c, d: fn.apply_norm2_act_plain(x_, a, b, r_, c, d,
+                                                            negative_slope=0.01),
+        [x3, c4[0], c4[1], r3, c4[2], c4[3]], lambda: fn.apply2_launches, bf, gen, kink=True))
+    del x, add, x3, r3
+    # K4 with a prologue (brick 96^3, coarse 12^3 and 6^3) and the Cin = 1 call
+    for label, shape, cout, prologue in (("96^3 48->48", (1, 96, 96, 96, 48), 48, True),
+                                         ("12^3 192->192", (1, 12, 12, 12, 192), 192, True),
+                                         ("6^3 384->384", (1, 6, 6, 6, 384), 384, True),
+                                         ("Cin = 1 96^3 1->48", (1, 96, 96, 96, 1), 48, False)):
+        cin = shape[-1]
+        xk = rnd(shape, 1.0, 0.2)
+        w = rnd((cout, cin, 3, 3, 3), (27 * cin) ** -0.5)
+        g, b = rnd((2, cout), 0.2, 1.0), rnd((2, cout), 0.2)
+        if prologue:
+            sc, sh = rnd((1, cin), 0.3, 1.0, torch.float32), rnd((1, cin), 0.3, 0.0, torch.float32)
+            call = lambda f: lambda x_, w_, g_, b_, sc_, sh_: f(  # noqa: E731
+                x_, w_, sc_, sh_, slope=0.01, gamma=g_, beta=b_, styles=styles)
+            args = [xk, w, g, b, sc, sh]
+        else:   # encoder1: x is the image, which takes no gradient
+            call = lambda f: lambda w_, g_, b_: f(  # noqa: E731
+                xk, w_, gamma=g_, beta=b_, styles=styles)
+            args = [w, g, b]
+        lines.append(grad_case(f"K4 {label}", call(fc.conv3_norm_columns),
+                               call(fc.conv3_norm_columns_plain), args,
+                               lambda: fc.launches, bf, gen))
+    # K5 at stage 1: [343, 343, 48], heads 3, with and without the mask
+    qkv = rnd((343, 343, 144))
+    bias = rnd((3, 343, 343), 1.0, 0.0, torch.float32)
+    ids = window_region_ids((49, 49, 49), (7, 7, 7), (3, 3, 3), device=dev)
+    for mask in (None, ids):
+        split = lambda f, m=mask: lambda qkv_, b_: f(  # noqa: E731
+            qkv_[..., :48], qkv_[..., 48:96], qkv_[..., 96:], b_, m, num_heads=3)
+        lines.append(grad_case(
+            f"K5 [343,343,48] h3 {'mask' if mask is not None else 'no mask'}",
+            split(wa.window_attention), split(wa.window_attention_plain), [qkv, bias],
+            lambda: wa.launches, bf, gen))
+    print("\n".join(lines))
+
+
+def train_card_vs_cpu(dev, size: int = 64) -> None:
+    """(b) One f32 AdamW step of the fs-48 model at `size`^3, batch 1, on
+    the card against the same step in the port on the CPU: loss within
+    1e-5, every gradient leaf within 5e-5 and their sum within 1e-3, the
+    parameters after the step within rtol 1e-4 / atol 2.5e-4 (the bounds
+    the CPU tests hold the port to against JAX)."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.train.engine import Trainer
+
+    cfg = Config(**{**FLAGSHIP, "roi_x": size, "roi_y": size, "roi_z": size, "no_amp": True})
+    gen = torch.Generator().manual_seed(7)
+    batch = {"image": torch.randn((1, size, size, size, 1), generator=gen),
+             "label": torch.randint(0, cfg.out_channels, (1, size, size, size), generator=gen),
+             "modality": torch.tensor([1], dtype=torch.int32)}
+    cpu = Trainer(cfg, device="cpu")
+    card = Trainer(cfg, device=dev)
+    states = {"cpu": cpu.init_state(), "card": card.init_state(cpu.model.state_dict())}
+    losses, took = {}, {}
+    for name, trainer in (("cpu", cpu), ("card", card)):
+        t0 = time.perf_counter()
+        states[name], loss = trainer.train_step(states[name], batch)
+        losses[name] = float(loss)
+        took[name] = time.perf_counter() - t0
+    loss_err = abs(losses["card"] - losses["cpu"])
+    check(loss_err <= 1e-5, f"train step {size}^3: card vs CPU loss {loss_err:.3e} > 1e-5")
+    gaps, worst_p = {}, 0.0
+    for n, p in states["cpu"].params.items():
+        q = states["card"].params[n]
+        check(q.grad is not None, f"train step {size}^3: {n} has no gradient on the card")
+        gaps[n] = max_err(q.grad.cpu(), p.grad)
+        d = (q.detach().cpu() - p.detach()).abs() - (2.5e-4 + 1e-4 * p.detach().abs())
+        worst_p = max(worst_p, float(d.max()))
+    worst = max(gaps, key=gaps.get)
+    check(gaps[worst] <= 5e-5 and sum(gaps.values()) <= 1e-3,
+          f"train step {size}^3: gradient gap worst {worst} {gaps[worst]:.3e} (tol 5e-5), "
+          f"summed {sum(gaps.values()):.3e} (tol 1e-3)")
+    check(worst_p <= 0.0, f"train step {size}^3: parameters after the step exceed "
+                          f"rtol 1e-4 / atol 2.5e-4 by {worst_p:.3e}")
+    print(f"  train step fs48 {size}^3 f32 (TF32 off), card vs CPU: loss {losses['card']:.6f} "
+          f"|diff| {loss_err:.2e} (tol 1e-05); gradient gap over {len(gaps)} leaves summed "
+          f"{sum(gaps.values()):.3e} (tol 1e-03), worst {worst} {gaps[worst]:.2e} (tol 5e-05); "
+          f"parameters after one AdamW step within rtol 1e-4 / atol 2.5e-4; "
+          f"step {took['card']:.2f} s card (first call), {took['cpu']:.1f} s CPU")
+
+
+def synthetic_case(size: int, classes: int, gen):
+    """A seeded image and label: concentric shells around the centre, one
+    class a shell, and an image that is the label plus noise."""
+    ax = torch.arange(size, dtype=torch.float32) - (size - 1) / 2
+    r = torch.sqrt(ax[:, None, None] ** 2 + ax[None, :, None] ** 2 + ax[None, None, :] ** 2)
+    label = (r / (size / (2 * classes))).long().clamp(max=classes - 1)[None]
+    image = label.float()[..., None] / classes + 0.1 * torch.randn((1, size, size, size, 1),
+                                                                   generator=gen)
+    return image, label
+
+
+def train_full(dev, card: str, warmup: int = 2, steps: int = 10) -> dict:
+    """(c) The flagship's training step at full width: 96^3, batch 1, bf16
+    compute with f32 masters, AdamW, `dice_focal`, on one fixed seeded
+    batch.  Returns the launches of each kernel in one step."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.ops.kernels import fused_conv as fc
+    from miseg_tpu_torch.ops.kernels import fused_norm as fn
+    from miseg_tpu_torch.ops.kernels import window_attention as wa
+    from miseg_tpu_torch.train.engine import Trainer
+
+    cfg = Config(**FLAGSHIP)
+    gen = torch.Generator().manual_seed(8)
+    image, label = synthetic_case(96, cfg.out_channels, gen)
+    batch = {"image": image.to(dev), "label": label.to(dev),
+             "modality": torch.tensor([0], dtype=torch.int32, device=dev)}
+    trainer = Trainer(cfg, device=dev)
+    check(trainer.compute_dtype == torch.bfloat16, "train: the flagship does not compute in bf16")
+    state = trainer.init_state()
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(warmup + steps):
+        if i == 0:
+            fn.stats_launches = fn.apply_launches = fn.apply2_launches = fn.fold_launches = 0
+            fc.launches = wa.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = trainer.train_step(state, batch)
+        end.record()
+        if i == 0:
+            counts = {"K1": fn.stats_launches, "K2": fn.apply_launches,
+                      "K3": fn.apply2_launches, "K4": fc.launches, "K5": wa.launches,
+                      "K1 fold": fn.fold_launches}
+        end.synchronize()
+        losses.append(float(loss))
+        if i >= warmup:
+            ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    check(counts == PER_WINDOW, f"train: one step launched {counts}, want {PER_WINDOW}")
+    check(all(math.isfinite(v) for v in losses), f"train: losses {losses}")
+    check(losses[-1] < losses[0], f"train: loss did not fall: {losses[0]:.5f} -> {losses[-1]:.5f}")
+    bad = [n for n, p in state.params.items()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
+    check(not bad, f"train: {len(bad)} parameters with a missing, non-finite or zero "
+                   f"gradient, e.g. {bad[:3]}")
+
+    walls = []
+
+    def one_step():
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    kernels = profiled(one_step, lambda ev: not window_faults(ev, 1))
+    faults = window_faults(kernels, 1)
+    check(not faults, "train profile: " + "; ".join(faults))
+    by_name, groups = kernel_groups(kernels, 1)
+    busy = sum(groups.values())
+    print(f"  train step fs48 96^3 bf16 (f32 masters), batch 1, AdamW, dice_focal on '{card}': "
+          f"{statistics.median(ms):.2f} ms a step by CUDA events (median of {steps} after "
+          f"{warmup} warm-up; min {min(ms):.2f}, max {max(ms):.2f}); one profiled step "
+          f"{walls[-1]:.2f} ms wall, {busy:.2f} ms device busy (idle share "
+          f"{max(0.0, 1 - busy / walls[-1]):.1%}), {len(kernels)} kernels; "
+          f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+    print("    by group ms a step: " + ", ".join(
+        f"{g} {ms:.3f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {ms:8.3f} ms  {name[:110]}")
+    print(f"  loss by step: {' '.join(f'{v:.4f}' for v in losses)}; forward launches a step "
+          f"{counts}; all {len(state.params)} parameters have finite, non-zero gradients")
+    return counts
+
+
+def phase_train(dev, card: str) -> dict:
+    """Training on the card: (a) each kernel's autograd Function against
+    autograd through its plain version, (b) one f32 step against the CPU,
+    (c) the full-width bf16 step.  Returns the launches a step."""
+    t0 = time.perf_counter()
+    train_functions(dev)
+    train_card_vs_cpu(dev)
+    counts = train_full(dev, card)
+    print(f"train: the kernels' Functions match autograd through their plain versions; the "
+          f"card's f32 step matches the CPU's; the full-width bf16 step runs every kernel "
+          f"under autograd ({time.perf_counter() - t0:.1f} s)")
+    return counts
 
 
 def main() -> int:
@@ -760,6 +1079,7 @@ def main() -> int:
     rows = phase_kernels(dev, mem_bw, bf16_flops)
     phase_model(dev)
     launches = phase_serve(dev)
+    train = phase_train(dev, card)
     meta = {
         "K1": ("fused_norm.channel_scale_shift", "cuda",
                "miseg_tpu_torch/ops/kernels/csrc/fused_norm.cu",
@@ -780,11 +1100,23 @@ def main() -> int:
                "miseg_tpu_torch/ops/kernels/csrc/window_attention.cu",
                "miseg_tpu/ops/pallas/window_attention.py:64"),
     }
+    # the JAX VJP each kernel's autograd Function follows (all jnp there)
+    backward = {
+        "K1": "miseg_tpu/ops/pallas/fused_norm.py:441 _stats_p_bwd + norm_columns :181",
+        "K1 fold": "inside K4's Function: miseg_tpu/ops/pallas/fused_conv.py:173 _fconv_bwd",
+        "K2": "miseg_tpu/ops/pallas/fused_norm.py:352 _apply1_bwd (+ d_add, _fin_bwd :240)",
+        "K3": "miseg_tpu/ops/pallas/fused_norm.py:314 _apply2_bwd",
+        "K4": "miseg_tpu/ops/pallas/fused_conv.py:173 _fconv_bwd",
+        "K5": "miseg_tpu/ops/pallas/window_attention.py:166 _fwa_bwd",
+    }
     kernels = []
     for key, (name, route, source, replaces) in meta.items():
         check(launches[key] > 0, f"{key} was never launched on the main path")
+        check(train[key] > 0, f"{key} was never launched in the train step")
         kernels.append({"name": f"{key} {name}", "route": route, "source": source,
-                        "replaces": replaces, "launches": launches[key], **rows[key]})
+                        "replaces": replaces, "launches": launches[key], **rows[key],
+                        "train": {"launches_per_step": train[key],
+                                  "backward": backward[key]}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

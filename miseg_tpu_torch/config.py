@@ -36,9 +36,21 @@ class Config:
     depth_swin_block: list[int] = _lst(2)
     downsample: str = "merging"
     no_normalize_swin: bool = False
+    # --- loss (config.py:72-76) ---
+    criterion: str = "dice_focal"
+    squared_dice: bool = False
+    smooth_nr: float = 0.0
+    smooth_dr: float = 1e-6
+    # --- optimizer (config.py:78-81) ---
+    lr: float = 1e-4
+    optim_name: str = "adamw"
+    reg_weight: float = 1e-5
+    momentum: float = 0.99
     # --- inference ---
     infer_overlap: float = 0.5
     sw_batch_size: int = 1
+    # --- data (config.py:125) ---
+    batch_size: int = 1
     # --- precision / seed ---
     no_amp: bool = False
     precision: str = "bf16"

@@ -87,19 +87,25 @@ def _check(x, w, scale, shift, gamma, beta, styles):
         raise ValueError("conditional banks need a styles vector of length B")
 
 
+def _transform(x, scale, shift, slope):
+    """(f32 pre-activation of the prologue, its result rounded to x's
+    dtype): the conv's operand t, in the plain version and recomputed in
+    the backward."""
+    pre = x.float()
+    if scale is not None:
+        bshape = (x.shape[0], 1, 1, 1, x.shape[-1])
+        pre = pre * scale.float().reshape(bshape) + shift.float().reshape(bshape)
+    act = pre if slope is None else torch.where(pre >= 0, pre, slope * pre)
+    return pre, act.to(x.dtype)
+
+
 def conv3_norm_columns_plain(x, w, scale=None, shift=None, *,
                              slope: float | None = None, gamma=None,
                              beta=None, styles=None, eps: float = 1e-5):
     """K4's function in plain PyTorch: the f32 transform rounded to x's
     dtype, `F.conv3d` in f32 on the rounded operands, one rounding of y,
     and two-pass statistics of the rounded y folded with gamma/beta."""
-    t = x.float()
-    if scale is not None:
-        bshape = (x.shape[0], 1, 1, 1, x.shape[-1])
-        t = t * scale.float().reshape(bshape) + shift.float().reshape(bshape)
-    if slope is not None:
-        t = torch.where(t >= 0, t, slope * t)
-    t = t.to(x.dtype).float()
+    t = _transform(x, scale, shift, slope)[1].float()
     wf = w.to(x.dtype).float()
     y = F.conv3d(t.permute(0, 4, 1, 2, 3), wf, padding=1)
     y = y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
@@ -143,14 +149,10 @@ def kernel_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return cached[1]
 
 
-def conv3_norm_columns(x, w, scale=None, shift=None, *,
-                       slope: float | None = None, gamma=None, beta=None,
-                       styles=None, eps: float = 1e-5):
-    """K4 then K1's fold: x `[B, Z, Y, X, Cin]`, w `[Cout, Cin, 3, 3, 3]`,
-    scale/shift f32 `[B, Cin]` or None, `slope` a leaky-relu after the
-    affine.  Returns (y `[B, Z, Y, X, Cout]` in x's dtype, next_scale,
-    next_shift f32 `[B, Cout]`) — the counterpart of `conv3_norm_stats`
-    followed by `norm_columns`."""
+def _conv3_norm_columns(x, w, scale=None, shift=None, *,
+                        slope: float | None = None, gamma=None, beta=None,
+                        styles=None, eps: float = 1e-5):
+    """K4 then K1's fold without autograd (`conv3_norm_columns`)."""
     _check(x, w, scale, shift, gamma, beta, styles)
     if x.device.type == "cpu":
         return conv3_norm_columns_plain(x, w, scale, shift, slope=slope,
@@ -200,3 +202,91 @@ def conv3_norm_columns(x, w, scale=None, shift=None, *,
     next_scale, next_shift = fused_norm.fold_partials(
         part, s, tile, n_tiles, gamma, beta, styles, eps=eps)
     return y, next_scale, next_shift
+
+
+# ------------------------------------------------------------- autograd ----
+
+def conv3_norm_columns_bwd(x, w, scale, shift, y, dy, dscale_next, dshift_next, *,
+                           slope=None, gamma=None, beta=None, styles=None,
+                           eps: float = 1e-5, needs=(True,) * 6):
+    """VJP of `conv3_norm_columns` (of its plain version, following
+    `_fconv_bwd` :173 and `norm_columns`): the cotangents of (y,
+    next_scale, next_shift), any of them None, -> (dx, dw, dscale, dshift,
+    dgamma, dbeta), each None where `needs` (x, w, scale, shift, gamma,
+    beta) says no gradient is wanted.
+
+    The columns' cotangent reaches y through K1's fold VJP
+    (`fused_norm.channel_scale_shift_bwd` on the saved, rounded y) and is
+    added to dy in f32.  The conv's VJP runs in the operand dtype, as
+    `_reference` :142 does (cuDNN on the card), on the prologue's result t
+    recomputed from x; t's cotangent then goes back through the leaky-relu
+    (masked by the sign of the f32 pre-activation) and the affine in f32.
+    Where neither x nor the prologue's columns want a gradient (encoder1's
+    Cin = 1 conv, whose x is the image), no dx is computed."""
+    b, cout = y.shape[0], y.shape[-1]
+    dgamma = dbeta = None
+    g = torch.zeros(y.shape, dtype=torch.float32, device=y.device) if dy is None else dy.float()
+    if dscale_next is not None or dshift_next is not None:
+        dys, dgamma, dbeta = fused_norm.channel_scale_shift_bwd(
+            y.reshape(b, -1, cout), gamma, beta, styles, dscale_next, dshift_next, eps=eps)
+        g = g + dys.reshape(y.shape)
+    need_t = needs[0] or (scale is not None and (needs[2] or needs[3]))
+    if not (need_t or needs[1]):
+        return None, None, None, None, dgamma, dbeta
+    prologue = scale is not None or slope is not None
+    pre, t = _transform(x, scale, shift, slope) if prologue else (None, x)
+    wt = w.to(x.dtype)
+    dt, dw, _ = torch.ops.aten.convolution_backward(
+        g.to(x.dtype).permute(0, 4, 1, 2, 3), t.permute(0, 4, 1, 2, 3), wt, None,
+        [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1, [need_t, needs[1], False])
+    dw = dw.to(w.dtype) if needs[1] else None
+    if not need_t:
+        return None, dw, None, None, dgamma, dbeta
+    dt = dt.permute(0, 2, 3, 4, 1).float()
+    if slope is not None:
+        dt = torch.where(pre >= 0, dt, slope * dt)
+    if scale is None:
+        return dt.to(x.dtype), dw, None, None, dgamma, dbeta
+    dims = (1, 2, 3)
+    bshape = (b, 1, 1, 1, x.shape[-1])
+    dx = (dt * scale.float().reshape(bshape)).to(x.dtype) if needs[0] else None
+    return (dx, dw, (dt * x.float()).sum(dims).to(scale.dtype), dt.sum(dims).to(shift.dtype),
+            dgamma, dbeta)
+
+
+class _Conv3NormColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, scale, shift, gamma, beta, styles, slope, eps):
+        ctx.set_materialize_grads(False)
+        y, next_scale, next_shift = _conv3_norm_columns(
+            x, w, scale, shift, slope=slope, gamma=gamma, beta=beta, styles=styles, eps=eps)
+        ctx.save_for_backward(x, w, scale, shift, y, gamma, beta, styles)
+        ctx.slope, ctx.eps = slope, eps
+        return y, next_scale, next_shift
+
+    @staticmethod
+    def backward(ctx, dy, dscale_next, dshift_next):
+        x, w, scale, shift, y, gamma, beta, styles = ctx.saved_tensors
+        if dy is None and dscale_next is None and dshift_next is None:
+            return (None,) * 9
+        grads = conv3_norm_columns_bwd(
+            x, w, scale, shift, y, dy, dscale_next, dshift_next, slope=ctx.slope,
+            gamma=gamma, beta=beta, styles=styles, eps=ctx.eps,
+            needs=ctx.needs_input_grad[:6])
+        return (*grads, None, None, None)
+
+
+def conv3_norm_columns(x, w, scale=None, shift=None, *,
+                       slope: float | None = None, gamma=None, beta=None,
+                       styles=None, eps: float = 1e-5):
+    """K4 then K1's fold: x `[B, Z, Y, X, Cin]`, w `[Cout, Cin, 3, 3, 3]`,
+    scale/shift f32 `[B, Cin]` or None, `slope` a leaky-relu after the
+    affine.  Returns (y `[B, Z, Y, X, Cout]` in x's dtype, next_scale,
+    next_shift f32 `[B, Cout]`) — the counterpart of `conv3_norm_stats`
+    followed by `norm_columns`.  Under grad mode it runs inside an
+    autograd Function (`conv3_norm_columns_bwd`); the weight's gradient
+    comes from that, never from the packed copy of `kernel_weights`."""
+    if torch.is_grad_enabled():
+        return _Conv3NormColumns.apply(x, w, scale, shift, gamma, beta, styles, slope, eps)
+    return _conv3_norm_columns(x, w, scale, shift, slope=slope, gamma=gamma, beta=beta,
+                               styles=styles, eps=eps)

@@ -371,11 +371,9 @@ def fold_partials(part, s: int, rows: int, n_chunks: int, gamma=None,
     return out[0], out[1]
 
 
-def channel_scale_shift(x3, gamma=None, beta=None, styles=None, *,
-                        eps: float = 1e-5):
-    """K1: x3 `[B, S, C]` -> f32 (scale, shift) `[B, C]`.  gamma/beta:
-    None, `[C]`, or `[num_styles, C]` banks gathered by `styles: int[B]`
-    (clamped).  On the card one launch of `miseg_k1_stats`."""
+def _channel_scale_shift(x3, gamma=None, beta=None, styles=None, *,
+                         eps: float = 1e-5):
+    """K1 without autograd (`channel_scale_shift`)."""
     if gamma is not None and gamma.ndim == 2 and styles is None:
         raise ValueError("conditional banks need a styles vector")
     if x3.device.type == "cpu":
@@ -437,11 +435,9 @@ def _apply(fn, mode: int, x, bsz: int, c: int, negative_slope, ptrs):
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
 
-def apply_scale_shift(x3, scale, shift, add3=None, *,
-                      negative_slope: float | None = None):
-    """K2: `leaky(x3 * scale + shift (+ add3))` with f32 columns `[B, C]`,
-    rounded once to x3's dtype.  On the card one launch of
-    `miseg_k2_apply`."""
+def _apply_scale_shift(x3, scale, shift, add3=None, *,
+                       negative_slope: float | None = None):
+    """K2 without autograd (`apply_scale_shift`)."""
     if add3 is not None and add3.shape != x3.shape:
         raise ValueError(f"add shape {tuple(add3.shape)} != {tuple(x3.shape)}")
     kind = x3.device.type
@@ -466,33 +462,9 @@ def apply_scale_shift(x3, scale, shift, add3=None, *,
     return y
 
 
-def instance_norm_act(x, gamma=None, beta=None, styles=None, *,
-                      eps: float = 1e-5, negative_slope: float | None = None,
-                      add=None):
-    """Instance norm over `[B, *spatial, C]` with the affine (none, `[C]`,
-    or `[S, C]` banks by `styles`), a residual `add` after the affine and
-    an optional leaky-relu, in two kernels: K1 then K2."""
-    shape = x.shape
-    x3 = x.reshape(shape[0], -1, shape[-1])
-    add3 = add.reshape(x3.shape) if add is not None else None
-    scale, shift = channel_scale_shift(x3, gamma, beta, styles, eps=eps)
-    y = apply_scale_shift(x3, scale, shift, add3, negative_slope=negative_slope)
-    return y.reshape(shape)
-
-
-def apply_norm_act(x, sx, hx, *, negative_slope: float | None = None):
-    """K2 on `[B, *spatial, C]` with f32 columns `[B, C]`: `leaky(x * sx +
-    hx)` (the counterpart of `apply_norm_act`, fused_norm.py:371)."""
-    x3 = x.reshape(x.shape[0], -1, x.shape[-1])
-    return apply_scale_shift(x3, sx, hx, negative_slope=negative_slope).reshape(x.shape)
-
-
-def apply_norm2_act(x, sx, hx, res, sr, hr, *,
-                    negative_slope: float | None = None):
-    """K3: `leaky((x * sx + hx) + (res * sr + hr))` over `[B, *spatial, C]`
-    with f32 columns `[B, C]`, rounded once to x's dtype — the UnetResBlock
-    tail with both branches' instance norms folded into columns.  On the
-    card one launch of `miseg_k3_apply2`."""
+def _apply_norm2_act(x, sx, hx, res, sr, hr, *,
+                     negative_slope: float | None = None):
+    """K3 without autograd (`apply_norm2_act`)."""
     if res.shape != x.shape:
         raise ValueError(f"residual shape {tuple(res.shape)} != {tuple(x.shape)}")
     cols = (x.shape[0], x.shape[-1])
@@ -516,3 +488,180 @@ def apply_norm2_act(x, sx, hx, res, sr, hr, *,
     global apply2_launches
     apply2_launches += 1
     return y
+
+
+# ------------------------------------------------------------- autograd ----
+#
+# The JAX package computes every VJP of these kernels in jnp
+# (fused_norm.py:231 `_fin_bwd`, :314 `_apply2_bwd`, :352 `_apply1_bwd`,
+# :441 `_stats_p_bwd`), so the backward passes below are PyTorch ops,
+# the same code on the CPU and on the card.  Under grad mode the public
+# wrappers run inside a `torch.autograd.Function` whose forward is the
+# launcher above (the kernel on the card); with grad mode off (serving
+# runs under `inference_mode`) they call the launcher directly: the same
+# kernel without autograd's per-call host cost.
+
+def _leaky_grad(dy, y, negative_slope):
+    """f32 cotangent through the leaky-relu, its mask from the sign of the
+    saved output (leaky-relu keeps the sign), as JAX does."""
+    g = dy.float()
+    return g if negative_slope is None else torch.where(y >= 0, g, negative_slope * g)
+
+
+def channel_scale_shift_bwd(x3, gamma, beta, styles, dscale, dshift, *,
+                            eps: float = 1e-5):
+    """VJP of `channel_scale_shift`: the cotangents of (scale, shift) f32
+    `[B, C]` (either may be None) -> (dx f32 `[B, S, C]`, dgamma, dbeta).
+
+    mean and inv_std are recomputed (two-pass) from the saved x; the scale
+    is never divided by gamma, which may be 0.  With `scale = inv * g` and
+    `shift = b - mean * scale`: dg = inv (dscale - mean dshift), db =
+    dshift, and x takes the VJP of (mean, inv) over its S rows.
+    `[n_styles, C]` banks take their rows' gradients summed by the clamped
+    style id (`_fin_bwd` :260-268)."""
+    bsz, s, c = x3.shape
+    mean, inv = N.stats(x3, (1,), eps)
+    xc = x3.float() - mean                                   # [B, S, C]
+    mean, inv = mean[:, 0], inv[:, 0]
+    zero = torch.zeros_like(mean)
+    dscale = zero if dscale is None else dscale.float()
+    dshift = zero if dshift is None else dshift.float()
+    rows = _gamma_rows(gamma, beta, styles, bsz, c)
+    g = rows[0] if rows is not None else 1.0
+    u = dscale - mean * dshift
+    dmean = -dshift * inv * g
+    dvar = -0.5 * inv ** 3 * (u * g)
+    dx = (dmean[:, None, :] + 2.0 * dvar[:, None, :] * xc) / s
+    if gamma is None:
+        return dx, None, None
+    dg_rows, db_rows = u * inv, dshift
+    if gamma.ndim == 2:
+        onehot = F.one_hot(styles.long().clamp(0, gamma.shape[0] - 1),
+                           gamma.shape[0]).float()                 # [B, n_styles]
+        dgamma, dbeta = onehot.t() @ dg_rows, onehot.t() @ db_rows
+    else:
+        dgamma, dbeta = dg_rows.sum(0), db_rows.sum(0)
+    return dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
+
+
+def apply_scale_shift_bwd(x3, scale, y, dy, *, negative_slope=None, has_add=False):
+    """VJP of `apply_scale_shift` (`_apply1_bwd` :352; the add's cotangent
+    as in `_fin_bwd` :240): -> (dx, dscale, dshift, dadd or None)."""
+    g = _leaky_grad(dy, y, negative_slope)
+    dx = (g * scale.float()[:, None, :]).to(x3.dtype)
+    dadd = g.to(x3.dtype) if has_add else None
+    return dx, (g * x3.float()).sum(1), g.sum(1), dadd
+
+
+def apply_norm2_act_bwd(x, sx, res, sr, y, dy, *, negative_slope=None):
+    """VJP of `apply_norm2_act` (`_apply2_bwd` :314): -> (dx, dsx, dhx,
+    dres, dsr, dhr)."""
+    g = _leaky_grad(dy, y, negative_slope)
+    dims = tuple(range(1, x.ndim - 1))
+    bshape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    dh = g.sum(dims)
+    return ((g * sx.float().reshape(bshape)).to(x.dtype), (g * x.float()).sum(dims), dh,
+            (g * sr.float().reshape(bshape)).to(res.dtype), (g * res.float()).sum(dims), dh)
+
+
+class _ChannelScaleShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x3, gamma, beta, styles, eps):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x3, gamma, beta, styles)
+        ctx.eps = eps
+        return _channel_scale_shift(x3, gamma, beta, styles, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dscale, dshift):
+        x3, gamma, beta, styles = ctx.saved_tensors
+        if dscale is None and dshift is None:
+            return None, None, None, None, None
+        dx, dgamma, dbeta = channel_scale_shift_bwd(x3, gamma, beta, styles, dscale, dshift,
+                                                    eps=ctx.eps)
+        return dx.to(x3.dtype), dgamma, dbeta, None, None
+
+
+class _ApplyScaleShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x3, scale, shift, add3, negative_slope):
+        y = _apply_scale_shift(x3, scale, shift, add3, negative_slope=negative_slope)
+        ctx.save_for_backward(x3, scale, y if negative_slope is not None else None)
+        ctx.slope, ctx.has_add = negative_slope, add3 is not None
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x3, scale, y = ctx.saved_tensors
+        return (*apply_scale_shift_bwd(x3, scale, y, dy, negative_slope=ctx.slope,
+                                       has_add=ctx.has_add), None)
+
+
+class _ApplyNorm2Act(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sx, hx, res, sr, hr, negative_slope):
+        y = _apply_norm2_act(x, sx, hx, res, sr, hr, negative_slope=negative_slope)
+        ctx.save_for_backward(x, sx, res, sr, y if negative_slope is not None else None)
+        ctx.slope = negative_slope
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, sx, res, sr, y = ctx.saved_tensors
+        return (*apply_norm2_act_bwd(x, sx, res, sr, y, dy, negative_slope=ctx.slope), None)
+
+
+def channel_scale_shift(x3, gamma=None, beta=None, styles=None, *,
+                        eps: float = 1e-5):
+    """K1: x3 `[B, S, C]` -> f32 (scale, shift) `[B, C]`.  gamma/beta:
+    None, `[C]`, or `[num_styles, C]` banks gathered by `styles: int[B]`
+    (clamped).  On the card one launch of `miseg_k1_stats`; differentiable
+    in x, gamma and beta (`channel_scale_shift_bwd`)."""
+    if torch.is_grad_enabled():
+        return _ChannelScaleShift.apply(x3, gamma, beta, styles, eps)
+    return _channel_scale_shift(x3, gamma, beta, styles, eps=eps)
+
+
+def apply_scale_shift(x3, scale, shift, add3=None, *,
+                      negative_slope: float | None = None):
+    """K2: `leaky(x3 * scale + shift (+ add3))` with f32 columns `[B, C]`,
+    rounded once to x3's dtype.  On the card one launch of
+    `miseg_k2_apply`; differentiable (`apply_scale_shift_bwd`)."""
+    if torch.is_grad_enabled():
+        return _ApplyScaleShift.apply(x3, scale, shift, add3, negative_slope)
+    return _apply_scale_shift(x3, scale, shift, add3, negative_slope=negative_slope)
+
+
+def apply_norm2_act(x, sx, hx, res, sr, hr, *,
+                    negative_slope: float | None = None):
+    """K3: `leaky((x * sx + hx) + (res * sr + hr))` over `[B, *spatial, C]`
+    with f32 columns `[B, C]`, rounded once to x's dtype — the UnetResBlock
+    tail with both branches' instance norms folded into columns.  On the
+    card one launch of `miseg_k3_apply2`; differentiable
+    (`apply_norm2_act_bwd`)."""
+    if torch.is_grad_enabled():
+        return _ApplyNorm2Act.apply(x, sx, hx, res, sr, hr, negative_slope)
+    return _apply_norm2_act(x, sx, hx, res, sr, hr, negative_slope=negative_slope)
+
+
+def instance_norm_act(x, gamma=None, beta=None, styles=None, *,
+                      eps: float = 1e-5, negative_slope: float | None = None,
+                      add=None):
+    """Instance norm over `[B, *spatial, C]` with the affine (none, `[C]`,
+    or `[S, C]` banks by `styles`), a residual `add` after the affine and
+    an optional leaky-relu, in two kernels: K1 then K2."""
+    shape = x.shape
+    x3 = x.reshape(shape[0], -1, shape[-1])
+    add3 = add.reshape(x3.shape) if add is not None else None
+    scale, shift = channel_scale_shift(x3, gamma, beta, styles, eps=eps)
+    y = apply_scale_shift(x3, scale, shift, add3, negative_slope=negative_slope)
+    return y.reshape(shape)
+
+
+def apply_norm_act(x, sx, hx, *, negative_slope: float | None = None):
+    """K2 on `[B, *spatial, C]` with f32 columns `[B, C]`: `leaky(x * sx +
+    hx)` (the counterpart of `apply_norm_act`, fused_norm.py:371)."""
+    x3 = x.reshape(x.shape[0], -1, x.shape[-1])
+    return apply_scale_shift(x3, sx, hx, negative_slope=negative_slope).reshape(x.shape)
+
+

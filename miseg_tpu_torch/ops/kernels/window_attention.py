@@ -92,12 +92,8 @@ def _check(q, k, v, bias, ids, num_heads):
                              f"{ids.shape[0]} mask windows")
 
 
-def window_attention(q, k, v, bias, ids=None, *, num_heads: int):
-    """Fused windowed MHSA; same contract as `window_attention_plain`.
-
-    On a CUDA tensor this launches K5 or raises.  q/k/v may be strided
-    views (e.g. slices of one qkv projection) as long as they share
-    strides and the channel stride is 1."""
+def _window_attention(q, k, v, bias, ids=None, *, num_heads: int):
+    """K5 without autograd (`window_attention`)."""
     _check(q, k, v, bias, ids, num_heads)
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, ids, num_heads=num_heads)
@@ -134,3 +130,71 @@ def window_attention(q, k, v, bias, ids=None, *, num_heads: int):
     global launches
     launches += 1
     return out
+
+
+# ------------------------------------------------------------- autograd ----
+
+_BWD_CHUNK = 1 << 25   # f32 elements of one [windows, H, N, N] tensor in the backward
+
+
+def window_attention_bwd(q, k, v, bias, ids, dout, *, num_heads: int):
+    """VJP of `window_attention` (`_fwa_bwd` :166): -> (dq, dk, dv in the
+    inputs' dtype, dbias f32 `[H, N, N]`).
+
+    P is recomputed in f32 from q, k and the bias, without the bf16
+    rounding the forward applies before P.V (ROADMAP W3), as JAX does.
+    The windows go in chunks of at most `_BWD_CHUNK` elements a
+    `[windows, H, N, N]` tensor (at stage 1 one window's P is 1.4 MB, all
+    343 windows' 484 MB), and dbias sums the chunks in order.  The mask
+    ids take no gradient."""
+    bw, n, c = q.shape
+    hd = c // num_heads
+    scale = hd ** -0.5
+    dq, dk, dv = (torch.empty((bw, n, c), dtype=t.dtype, device=t.device) for t in (q, k, v))
+    dbias = torch.zeros((num_heads, n, n), dtype=torch.float32, device=q.device)
+    step = max(1, _BWD_CHUNK // (num_heads * n * n))
+    for b0 in range(0, bw, step):
+        b1 = min(bw, b0 + step)
+        qh, kh, vh, doh = (t[b0:b1].reshape(b1 - b0, n, num_heads, hd).float()
+                           for t in (q, k, v, dout))
+        s = torch.einsum("bnhd,bmhd->bhnm", qh, kh) * scale + bias.float()[None]
+        if ids is not None:
+            win = ids[torch.arange(b0, b1, device=ids.device) % ids.shape[0]]
+            neq = win[:, None, :] != win[:, :, None]                # [b, N, N]
+            s = torch.where(neq[:, None], s + ATTN_MASK_VALUE, s)
+        p = torch.softmax(s, dim=-1)
+        dp = torch.einsum("bnhd,bmhd->bhnm", doh, vh)
+        dv[b0:b1] = torch.einsum("bhnm,bnhd->bmhd", p, doh).reshape(b1 - b0, n, c)
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))          # softmax VJP
+        dq[b0:b1] = torch.einsum("bhnm,bmhd->bnhd", ds, kh).reshape(b1 - b0, n, c) * scale
+        dk[b0:b1] = torch.einsum("bhnm,bnhd->bmhd", ds, qh).reshape(b1 - b0, n, c) * scale
+        dbias += ds.sum(0)
+    return dq, dk, dv, dbias
+
+
+class _WindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, ids, num_heads):
+        ctx.save_for_backward(q, k, v, bias, ids)
+        ctx.num_heads = num_heads
+        return _window_attention(q, k, v, bias, ids, num_heads=num_heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, ids = ctx.saved_tensors
+        dq, dk, dv, dbias = window_attention_bwd(q, k, v, bias, ids, dout,
+                                                 num_heads=ctx.num_heads)
+        return dq, dk, dv, dbias.to(bias.dtype), None, None
+
+
+def window_attention(q, k, v, bias, ids=None, *, num_heads: int):
+    """Fused windowed MHSA; same contract as `window_attention_plain`.
+
+    On a CUDA tensor this launches K5 or raises.  q/k/v may be strided
+    views (e.g. slices of one qkv projection) as long as they share
+    strides and the channel stride is 1; under grad mode each view takes
+    its own gradient (`window_attention_bwd`) and autograd assembles the
+    projection's."""
+    if torch.is_grad_enabled():
+        return _WindowAttention.apply(q, k, v, bias, ids, num_heads)
+    return _window_attention(q, k, v, bias, ids, num_heads=num_heads)

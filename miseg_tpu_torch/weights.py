@@ -11,6 +11,11 @@ name.  Layouts:
   * norm `scale`/`bias` (`[C]` or `[S, C]` banks) and
     `relative_position_bias_table` `[T, H]` unchanged.
 The result loads with `load_state_dict(..., strict=True)`.
+
+A gradient tree (`jax.grad` of a loss over those params) has the same
+paths and layouts, and every rule above is a linear map of the leaf, so
+the same function maps JAX's gradients (or Adam moments) onto the port's
+parameter names and layouts.
 """
 
 from __future__ import annotations
@@ -47,8 +52,9 @@ def _convert(path: tuple[str, ...], arr: np.ndarray) -> tuple[str, np.ndarray]:
 
 
 def state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """`model.init(...)["params"]` (nested mappings of arrays) -> the port's
-    state dict, as CPU tensors of the arrays' dtypes."""
+    """`model.init(...)["params"]` (nested mappings of arrays), or a
+    gradient tree of the same paths -> the port's state dict (or the
+    gradients by parameter name), as CPU tensors of the arrays' dtypes."""
     out = {}
     for path, leaf in _flatten(params):
         name, arr = _convert(path, np.asarray(leaf))

@@ -739,3 +739,172 @@ def test_model_forward_card_matches_cpu(dev, fused):
     # fs 12 at 32^3: 9 of the 10 UnetResBlocks (encoder10 is 1^3) take the chain
     assert fused_conv.launches == (18 if fused else 0)
     assert _err(got, want) <= 1e-4 * (1 + float(want.abs().max()))
+
+
+# ------------------------------------------------- autograd Functions ----
+# Each kernel's autograd Function on the card: its forward under grad mode
+# launches the kernel, and its backward matches autograd through the
+# plain version on the same inputs and cotangents.  Gradient tolerances:
+# f32 as above; bf16 cases two bf16 ulps of each gradient's largest
+# element (the two sides also round their bf16 forward outputs and some
+# cotangents differently before the backward reads them).
+
+def _grad_tol(ref, dtype) -> float:
+    scale = float(ref.abs().max()) if ref.numel() else 0.0
+    return scale * 2.0 ** -6 + 1e-6 if dtype == torch.bfloat16 else 1e-5 * (1.0 + scale)
+
+
+def _grad_cases(dev, gen, dtype):
+    """name -> (function, plain version, inputs, launch counter, Function
+    class name) at small shapes of each kernel's paths."""
+    from miseg_tpu_torch.ops import rel_bias
+
+    def rnd(shape, scale=1.0, mean=0.0, dt=dtype):
+        return (mean + scale * torch.randn(shape, generator=gen)).to(dev, dt)
+
+    f32 = torch.float32
+    styles = torch.tensor([1, 5], dtype=torch.int32, device=dev)   # 5 clamps to bank 1
+    x3, add3 = rnd((2, 12 ** 3, 48), 1.5, 0.3), rnd((2, 12 ** 3, 48))
+    cols = [rnd((2, 48), 0.3, m, f32) for m in (1.0, 0.0, 1.0, 0.0)]
+    x5, r5 = rnd((2, 12, 12, 12, 48)), rnd((2, 12, 12, 12, 48))
+    cases = {
+        "k1_banks": (lambda x, g, b: fused_norm.channel_scale_shift(x, g, b, styles),
+                     lambda x, g, b: fused_norm.channel_scale_shift_plain(x, g, b, styles),
+                     [x3, rnd((2, 48), 0.2, 1.0), rnd((2, 48), 0.2)],
+                     lambda: fused_norm.stats_launches, "_ChannelScaleShift"),
+        "k1_none": (fused_norm.channel_scale_shift, fused_norm.channel_scale_shift_plain,
+                    [x3], lambda: fused_norm.stats_launches, "_ChannelScaleShift"),
+        "k2_add": (lambda *a: fused_norm.apply_scale_shift(*a, negative_slope=0.01),
+                   lambda *a: fused_norm.apply_scale_shift_plain(*a, negative_slope=0.01),
+                   [x3, cols[0], cols[1], add3], lambda: fused_norm.apply_launches,
+                   "_ApplyScaleShift"),
+        "k2": (fused_norm.apply_scale_shift, fused_norm.apply_scale_shift_plain,
+               [x3, cols[0], cols[1]], lambda: fused_norm.apply_launches, "_ApplyScaleShift"),
+        "k3": (lambda *a: fused_norm.apply_norm2_act(*a, negative_slope=0.01),
+               lambda *a: fused_norm.apply_norm2_act_plain(*a, negative_slope=0.01),
+               [x5, cols[0], cols[1], r5, cols[2], cols[3]],
+               lambda: fused_norm.apply2_launches, "_ApplyNorm2Act"),
+    }
+    for name, shape, cout, prologue in (("k4_brick", (1, 16, 16, 32, 48), 48, True),
+                                        ("k4_coarse", (1, 12, 12, 12, 96), 96, True),
+                                        ("k4_split", (2, 6, 6, 6, 64), 64, False),
+                                        ("k4_cin1", (1, 16, 16, 16, 1), 48, False)):
+        b, cin = shape[0], shape[-1]
+        x = rnd(shape, 1.0, 0.2)
+        w = rnd((cout, cin, 3, 3, 3), (27 * cin) ** -0.5)
+        bank = [rnd((2, cout), 0.2, 1.0), rnd((2, cout), 0.2)]
+        sty = styles[:b]
+        if prologue:
+            def call(f, sty=sty):
+                return lambda x_, w_, g_, b_, s_, h_: f(x_, w_, s_, h_, slope=0.01, gamma=g_,
+                                                         beta=b_, styles=sty)
+            args = [x, w, *bank, rnd((b, cin), 0.3, 1.0, f32), rnd((b, cin), 0.3, 0.0, f32)]
+        elif name == "k4_cin1":   # the image takes no gradient
+            def call(f, x=x, sty=sty):
+                return lambda w_, g_, b_: f(x, w_, gamma=g_, beta=b_, styles=sty)
+            args = [w, *bank]
+        else:
+            def call(f, sty=sty):
+                return lambda x_, w_, g_, b_: f(x_, w_, gamma=g_, beta=b_, styles=sty)
+            args = [x, w, *bank]
+        cases[name] = (call(fused_conv.conv3_norm_columns),
+                       call(fused_conv.conv3_norm_columns_plain), args,
+                       lambda: fused_conv.launches, "_Conv3NormColumns")
+    ids = window_region_ids((14, 14, 14), (7, 7, 7), (3, 3, 3), device=dev)
+    for name, (bw, n, mask) in {"k5_mask": (16, 343, ids), "k5_clipped": (2, 216, None)}.items():
+        def split(f, mask=mask):
+            return lambda qkv, bias: f(qkv[..., :48], qkv[..., 48:96], qkv[..., 96:], bias,
+                                       mask, num_heads=3)
+        cases[name] = (split(wa.window_attention), split(wa.window_attention_plain),
+                       [rnd((bw, n, 144)), rnd((3, n, n), 1.0, 0.0, f32)],
+                       lambda: wa.launches, "_WindowAttention")
+    index = torch.from_numpy(rel_bias.rel_pos_index((7, 7, 7)).reshape(-1)).to(dev)
+    cases["rel_bias_clipped"] = (
+        lambda tab: rel_bias.rel_bias_gather(tab.t(), (7, 7, 7), index)[:, :216, :216],
+        lambda tab: tab.t()[:, index].reshape(3, 343, 343)[:, :216, :216],
+        [rnd((13 ** 3, 3), 0.02, 0.0, f32)], None, "_RelBiasGather")   # autograd of the
+    # plain index would sum a bf16 table's cotangent in bf16
+    return cases
+
+
+_GRAD_CASES = ["k1_banks", "k1_none", "k2_add", "k2", "k3", "k4_brick", "k4_coarse",
+               "k4_split", "k4_cin1", "k5_mask", "k5_clipped", "rel_bias_clipped"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _GRAD_CASES)
+def test_function_backward_matches_plain(dev, gen, case, dtype):
+    fn, plain, inputs, _, _ = _grad_cases(dev, gen, dtype)[case]
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    ref_ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs, refs = fn(*ins), plain(*ref_ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    cts = [torch.randn(o.shape, generator=gen).to(dev, o.dtype) for o in outs]
+    got = torch.autograd.grad(outs, ins, cts)
+    want = torch.autograd.grad(refs, ref_ins, cts)
+    # K2/K3 end in a leaky-relu: where the kernel's and the plain outputs
+    # lie on two sides of 0, the backwards rightly take different branches
+    apart = (outs[0] >= 0) != (refs[0] >= 0) if case[:2] in ("k2", "k3") else None
+    if apart is not None:
+        assert int(apart.sum()) * 10 ** 5 < apart.numel()
+    for i, (g, r) in enumerate(zip(got, want)):
+        assert g.dtype == r.dtype and g.shape == r.shape, i
+        if apart is not None and g.shape == apart.shape:
+            g, r = g.masked_fill(apart, 0), r.masked_fill(apart, 0)
+        assert torch.isfinite(g).all(), i
+        assert _err(g, r) <= _grad_tol(r, dtype), (i, _err(g, r), _grad_tol(r, dtype))
+
+
+@pytest.mark.parametrize("case", [c for c in _GRAD_CASES if not c.startswith("rel_bias")])
+def test_grad_mode_forward_launches_kernel(dev, gen, case):
+    """Under grad mode a CUDA forward launches the kernel (its counter
+    rises by one) and its output carries the Function's grad_fn."""
+    fn, _, inputs, launched, function = _grad_cases(dev, gen, torch.bfloat16)[case]
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    before = launched()
+    with torch.enable_grad():
+        outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert launched() == before + 1
+    assert all(type(o.grad_fn).__name__ == f"{function}Backward" for o in outs)
+
+
+def test_k4_cache_rebuilds_after_optimizer_step(dev, gen):
+    """K4's packed weights follow an in-place AdamW step on the card
+    (foreach, the default there): the next call uses the new weights."""
+    x = torch.randn((1, 8, 8, 8, 16), generator=gen).to(dev)
+    w = torch.nn.Parameter(torch.randn((16, 16, 3, 3, 3), generator=gen).to(dev) * 0.1)
+    opt = torch.optim.AdamW([w], lr=1e-2)
+    y, _, _ = fused_conv.conv3_norm_columns(x, w)
+    y.square().sum().backward()
+    opt.step()
+    with torch.no_grad():
+        got = fused_conv.conv3_norm_columns(x, w)[0]
+        want = fused_conv.conv3_norm_columns_plain(x, w)[0]
+        stale = fused_conv.conv3_norm_columns_plain(x, w - w.grad)[0]
+    assert _err(got, want) <= _tol(want, torch.float32)
+    assert _err(stale, want) > _tol(want, torch.float32)
+
+
+def test_train_step_card_matches_cpu(dev):
+    """One f32 AdamW step of the fs-12 model at 32^3 on the card (both
+    conv paths' kernels under autograd) against the CPU."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.train.engine import Trainer
+    cfg = Config(model_name="swin_unetr", out_channels=4, feature_size=[12], num_heads=2,
+                 roi_x=32, roi_y=32, roi_z=32, encoder_norm_name="instance_cond",
+                 vit_norm_name="instance_cond", decoder_norm_name="instance", no_amp=True)
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.standard_normal((2, 32, 32, 32, 1)).astype(np.float32),
+             "label": rng.integers(0, 4, (2, 32, 32, 32)), "modality": np.array([0, 1])}
+    cpu, card = Trainer(cfg, device="cpu"), Trainer(cfg, device=dev)
+    s_cpu = cpu.init_state()
+    s_card = card.init_state(cpu.model.state_dict())
+    s_cpu, l_cpu = cpu.train_step(s_cpu, batch)
+    s_card, l_card = card.train_step(s_card, batch)
+    assert abs(float(l_card) - float(l_cpu)) <= 1e-5
+    for n, p in s_cpu.params.items():
+        q = s_card.params[n]
+        assert _err(q.grad.cpu(), p.grad) <= 5e-5, n
+        torch.testing.assert_close(q.detach().cpu(), p.detach(), rtol=1e-4, atol=2.5e-4)
