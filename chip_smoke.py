@@ -33,7 +33,24 @@ Phases, one result line each; any failed check exits non-zero:
                none on the FMA path or its split-K reduce), 51 K1 kernels
                (31 statistics, 20 folds), 29 K2 and 6 K3 kernels, all of
                them the CUDA ones;
-  5. train   — training through `train.engine.Trainer`: (a) each kernel's
+  5. serve_http — the serving-from-disk path over a real socket: the same
+               flagship bundle behind `cli.serve.make_server` (kernels and
+               resampler built, one window run before it listens), a
+               CT-like scan (512x512x200 int16, 0.4x0.4x0.6 mm, LPS, 32
+               windows) and an MR-like one (256x256x128 float32,
+               1.2x1.2x1.5 mm, 108 windows) written as .nii.gz from a seed
+               and POSTed: GET /health, a 404 and an empty POST's JSON 400;
+               each answer a uint16 NIfTI in the scan's own grid with
+               exactly its affine, voxel for voxel the in-process pipeline
+               (chain -> predict -> argmax -> inverse), classes 0..5 or the
+               MM-WHS values with remap=whs; launches PER_WINDOW x windows
+               per request; predict under inference mode in a handler
+               thread with logits that need no gradient and no autograd
+               Function run; the two scans at once answer their serial
+               answers; a line a request with seconds of upload+decode,
+               preprocess, device predict, argmax+copy, inverse, encode and
+               total, and windows/s;
+  6. train   — training through `train.engine.Trainer`: (a) each kernel's
                autograd Function (K1 with banks and K2 with its add at
                [1,48^3,48], K3 at [1,96^3,48], K4 with a prologue at 96^3,
                12^3 and 6^3 and the Cin = 1 call, K5 at stage 1 with and
@@ -186,6 +203,24 @@ def tolerance(ref: torch.Tensor, dtype) -> float:
     that may differ in the last bit)."""
     scale = float(ref.abs().max())
     return scale * 2.0 ** -7 + 1e-6 if dtype == torch.bfloat16 else 1e-5 * (1.0 + scale)
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch counter to 0."""
+    from miseg_tpu_torch.ops.kernels import fused_conv as fc
+    from miseg_tpu_torch.ops.kernels import fused_norm as fn
+    from miseg_tpu_torch.ops.kernels import window_attention as wa
+    fn.stats_launches = fn.apply_launches = fn.apply2_launches = fn.fold_launches = 0
+    fc.launches = wa.launches = 0
+
+
+def launch_counts() -> dict:
+    """The launch counters by `PER_WINDOW` key."""
+    from miseg_tpu_torch.ops.kernels import fused_conv as fc
+    from miseg_tpu_torch.ops.kernels import fused_norm as fn
+    from miseg_tpu_torch.ops.kernels import window_attention as wa
+    return {"K1": fn.stats_launches, "K2": fn.apply_launches, "K3": fn.apply2_launches,
+            "K4": fc.launches, "K5": wa.launches, "K1 fold": fn.fold_launches}
 
 
 def phase_device():
@@ -598,9 +633,6 @@ def phase_serve(dev) -> dict:
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.inferers import window_starts
     from miseg_tpu_torch.models import model_from_config
-    from miseg_tpu_torch.ops.kernels import fused_conv as fc
-    from miseg_tpu_torch.ops.kernels import fused_norm as fn
-    from miseg_tpu_torch.ops.kernels import window_attention as wa
     from miseg_tpu_torch.serve import load_bundle, save_bundle
 
     cfg = Config(**FLAGSHIP)
@@ -620,15 +652,12 @@ def phase_serve(dev) -> dict:
     for label, vol, mod in requests:
         windows = len(window_starts(vol.shape[1:-1], cfg.roi, cfg.infer_overlap)[1])
         torch.cuda.synchronize()
-        fn.stats_launches = fn.apply_launches = fn.apply2_launches = fn.fold_launches = 0
-        fc.launches = wa.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         out = served.predict(vol, [mod])
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        counts = {"K1": fn.stats_launches, "K2": fn.apply_launches,
-                  "K3": fn.apply2_launches, "K4": fc.launches, "K5": wa.launches,
-                  "K1 fold": fn.fold_launches}
+        counts = launch_counts()
         check(tuple(out.shape) == (*vol.shape[:-1], cfg.out_channels),
               f"serve {label}: shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out).all()), f"serve {label}: non-finite logits")
@@ -781,6 +810,300 @@ def profile_window(served, dev, reps: int = 3) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     for name, ms in top[:10] + [kv for kv in top[10:] if "miseg_k" in kv[0]]:
         print(f"  {ms:8.3f} ms  {name[:110]}")
+
+
+def synthetic_scans(root: Path) -> list[dict]:
+    """The two uploads of `phase_serve_http`, written with the port's
+    `save_nifti` as `.nii.gz` from a fixed seed: a CT-like int16 scan
+    (512x512x200 at 0.4x0.4x0.6 mm, LPS, -1000 HU air around concentric
+    shells of +40..+400 HU) and an MR-like float32 scan (256x256x128 at
+    1.2x1.2x1.5 mm, RAS, a sum of smooth gaussian blobs)."""
+    import numpy as np
+
+    from miseg_tpu_torch.data.nifti import save_nifti
+
+    rng = np.random.default_rng(11)
+    scans = []
+    shape, spacing = (512, 512, 200), (0.4, 0.4, 0.6)
+    center = (np.asarray(shape) - 1) / 2 + rng.uniform(-20, 20, size=3)
+    ax = [((np.arange(n, dtype=np.float32) - c) * s) for n, c, s in zip(shape, center, spacing)]
+    r = np.sqrt(ax[0][:, None, None] ** 2 + ax[1][None, :, None] ** 2
+                + ax[2][None, None, :] ** 2)
+    ct = np.full(shape, -1000, np.int16)
+    for radius, hu in zip(sorted(rng.uniform(10, 95, size=6), reverse=True),
+                          (40, 100, 160, 240, 320, 400)):
+        ct[r < radius] = hu
+    affine = np.diag([-0.4, -0.4, 0.6, 1.0])
+    affine[:3, 3] = [102.2, 110.6, -58.8]
+    save_nifti(root / "ct_image.nii.gz", ct, affine)
+    scans.append({"label": "CT 512x512x200 int16", "path": root / "ct_image.nii.gz",
+                  "modality": 0})
+    shape, spacing = (256, 256, 128), (1.2, 1.2, 1.5)
+    ax = [np.arange(n, dtype=np.float32) * s for n, s in zip(shape, spacing)]
+    mr = np.zeros(shape, np.float32)
+    for _ in range(6):
+        c = rng.uniform(0.2, 0.8, size=3) * np.asarray(shape) * np.asarray(spacing)
+        w = rng.uniform(15, 60)
+        g = [np.exp(-0.5 * ((a - ci) / w) ** 2) for a, ci in zip(ax, c)]
+        mr += rng.uniform(100, 600) * g[0][:, None, None] * g[1][None, :, None] * g[2][None, None, :]
+    affine = np.diag([1.2, 1.2, 1.5, 1.0])
+    affine[:3, 3] = [-150.0, -140.0, -90.0]
+    save_nifti(root / "mr_image.nii.gz", mr, affine)
+    scans.append({"label": "MR 256x256x128 float32", "path": root / "mr_image.nii.gz",
+                  "modality": 1})
+    return scans
+
+
+def http(url: str, body: bytes | None = None) -> tuple[int, dict, bytes]:
+    """(status, headers, body) of a GET (no body) or POST to `url`."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def host_costs(service, scan) -> None:
+    """What two of the request's host costs would be otherwise, on the same
+    scan (the service itself is unchanged): the chain with the image alone
+    against the service's image + "label" copy, and the answer's gzip at
+    levels 1 and 6 against the service's level 9 (its requests' encode)."""
+    import gzip
+
+    import numpy as np
+
+    from miseg_tpu_torch.data.nifti import save_nifti
+
+    path = str(scan["path"])
+    t0 = time.perf_counter()
+    service.chain({"image": path})
+    alone = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    service.chain({"image": path, "label": path})
+    both = time.perf_counter() - t0
+    raw = scan["path"].with_suffix("").with_suffix(".answer.nii")
+    save_nifti(raw, scan["want"].astype(np.uint16), scan["native"].affine)
+    payload = raw.read_bytes()
+    took = {}
+    for level in (1, 6):
+        t0 = time.perf_counter()
+        size = len(gzip.compress(payload, compresslevel=level))
+        took[level] = (time.perf_counter() - t0, size)
+    print(f"  host {scan['label']}: chain image alone {alone:.3f} s, image + label "
+          f"{both:.3f} s; answer {len(payload) / 1e6:.1f} MB raw, gzip level 1 "
+          f"{took[1][0]:.3f} s ({took[1][1] / 1e6:.2f} MB), level 6 {took[6][0]:.3f} s "
+          f"({took[6][1] / 1e6:.2f} MB); the service writes level 9")
+
+
+def phase_serve_http(dev, card: str) -> dict:
+    """The serving-from-disk path over a real socket: the flagship bundle
+    (seeded random weights, bf16) behind `cli.serve.make_server`, two
+    synthetic scans POSTed as `.nii.gz`.  Checks the routes, that each
+    answer is a uint16 NIfTI in the scan's own grid with exactly its
+    affine, voxel for voxel the in-process pipeline's labels, with every
+    kernel launched its per-window count times the request's windows, no
+    autograd Function run and logits that need no gradient in the handler
+    thread, and the same answers when both scans arrive at once.  Returns
+    the launches over all requests."""
+    import threading
+
+    import numpy as np
+
+    from miseg_tpu_torch.cli.predict_whs import MMWHS_LABEL_MAP, remap_labels
+    from miseg_tpu_torch.cli.serve import make_server
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.data.nifti import load_nifti
+    from miseg_tpu_torch.inferers import window_starts
+    from miseg_tpu_torch.models import model_from_config
+    from miseg_tpu_torch.serve import save_bundle
+
+    t_phase = time.perf_counter()
+    cfg = Config(**FLAGSHIP)
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    save_bundle(cfg, model_from_config(cfg, device=dev).state_dict(), root / "bundle")
+    t0 = time.perf_counter()
+    scans = synthetic_scans(root)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    server = make_server(str(root / "bundle"), port=0)
+    make_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    service = server.RequestHandlerClass.service
+    base = f"http://127.0.0.1:{server.server_port}"
+
+    # what the handler threads do on the device: where predict runs, under
+    # inference mode or not, whether its logits need a gradient, and every
+    # autograd Function applied while requests run
+    seen, applied = [], []
+    predict = service.served.predict
+    function_apply = torch.autograd.Function.__dict__["apply"]
+
+    def watched_predict(*args, **kwargs):
+        out = predict(*args, **kwargs)
+        seen.append((threading.current_thread() is not threading.main_thread(),
+                     torch.is_inference_mode_enabled(), out.requires_grad))
+        return out
+
+    def counting_apply(cls, *args, **kwargs):
+        applied.append(cls.__name__)
+        return function_apply.__func__(cls, *args, **kwargs)
+
+    service.served.predict = watched_predict
+    torch.autograd.Function.apply = classmethod(counting_apply)
+    try:
+        # ---- routes -------------------------------------------------------
+        status, _, body = http(f"{base}/health")
+        health = json.loads(body)
+        check(status == 200 and health.get("roi") == list(cfg.roi)
+              and health.get("spacing") == list(cfg.spacing),
+              f"http: GET /health {status} {str(health)[:200]}")
+        status, _, body = http(f"{base}/nope")
+        check(status == 404, f"http: GET /nope answered {status}")
+        status, _, body = http(f"{base}/predict?modality=0", b"")
+        check(status == 400 and "error" in json.loads(body),
+              f"http: an empty POST answered {status} {body[:200]!r}")
+
+        # ---- the in-process pipeline on the same bytes ---------------------
+        for scan in scans:
+            scan["bytes"] = scan["path"].read_bytes()
+            scan["native"] = load_nifti(scan["path"])
+            sample = service.preprocess(scan["bytes"])
+            image = torch.from_numpy(np.ascontiguousarray(sample["image"]))[None]
+            with torch.inference_mode():
+                logits = predict(image, [scan["modality"]])
+                again = predict(image, [scan["modality"]])
+                scan["repeatable"] = bool(torch.equal(logits, again))
+                pred = logits[0].argmax(dim=-1).to(torch.int32).cpu().numpy()
+                del logits, again
+            inv = dict(sample)
+            inv["label"] = pred[..., None].astype(np.float32)
+            inverted = service.chain.inverse(inv, key="label")["label"]
+            scan["want"] = np.rint(np.asarray(inverted)).astype(np.int32)
+            scan["windows"] = len(window_starts(sample["image"].shape[:3], cfg.roi,
+                                                cfg.infer_overlap)[1])
+            host_costs(service, scan)
+        check([s["windows"] for s in scans] == [32, 108],
+              f"http: windows {[s['windows'] for s in scans]}, want 32 and 108")
+
+        def answer(scan, out: bytes, remap: bool) -> np.ndarray:
+            path = root / f"answer-{threading.get_ident()}.nii.gz"
+            path.write_bytes(out)
+            got = load_nifti(path)
+            label = scan["label"] + (" remap=whs" if remap else "")
+            check(got.data.shape == scan["native"].data.shape,
+                  f"http {label}: shape {got.data.shape}, want {scan['native'].data.shape}")
+            check(np.array_equal(got.affine, scan["native"].affine),
+                  f"http {label}: affine\n{got.affine}\nwant\n{scan['native'].affine}")
+            check(got.data.dtype == np.uint16, f"http {label}: dtype {got.data.dtype}")
+            allowed = ({0, *MMWHS_LABEL_MAP.values()} if remap else set(range(cfg.out_channels)))
+            values = set(np.unique(got.data).tolist())
+            check(values <= allowed, f"http {label}: values {sorted(values)}")
+            want = remap_labels(scan["want"]) if remap else scan["want"]
+            wrong = int(np.count_nonzero(got.data != want))
+            # bitwise unless the window itself is not repeatable (PERF.md)
+            check(wrong == 0 or (not scan["repeatable"] and wrong < 1e-6 * want.size),
+                  f"http {label}: {wrong} of {want.size} voxels differ from the in-process "
+                  f"pipeline (logits repeatable: {scan['repeatable']})")
+            return got.data
+
+        # ---- serial requests -----------------------------------------------
+        totals = dict.fromkeys(PER_WINDOW, 0)
+        serial = {}
+        for scan, remap in ((scans[0], False), (scans[1], False), (scans[0], True)):
+            label = scan["label"] + (" remap=whs" if remap else "")
+            url = f"{base}/predict?modality={scan['modality']}" + ("&remap=whs" if remap else "")
+            torch.cuda.synchronize()
+            reset_launches()
+            seen.clear()
+            applied.clear()
+            t0 = time.perf_counter()
+            status, headers, out = http(url, scan["bytes"])
+            client_s = time.perf_counter() - t0
+            counts = launch_counts()
+            check(status == 200, f"http {label}: status {status} {out[:300]!r}")
+            for k, per in PER_WINDOW.items():
+                check(counts[k] == per * scan["windows"],
+                      f"http {label}: {k} launched {counts[k]} times, want {per} x "
+                      f"{scan['windows']}")
+                totals[k] += counts[k]
+            check(seen == [(True, True, False)],
+                  f"http {label}: predict (in a handler thread, under inference mode, "
+                  f"logits require grad) {seen}, want [(True, True, False)]")
+            check(not applied, f"http {label}: autograd Functions ran: {sorted(set(applied))}")
+            data = answer(scan, out, remap)
+            if not remap:
+                serial[scan["label"]] = data
+            ms = {k: float(v) for k, v in (part.split(";dur=") for part in
+                                           headers["Server-Timing"].split(", "))}
+            print(f"  http {label}: {scan['windows']} windows; s: upload+decode "
+                  f"{ms['upload'] / 1e3:.3f}, preprocess {ms['preprocess'] / 1e3:.3f}, "
+                  f"device predict {ms['predict'] / 1e3:.3f} "
+                  f"({scan['windows'] / (ms['predict'] / 1e3):.2f} windows/s), argmax+copy "
+                  f"{ms['argmax'] / 1e3:.3f}, inverse {ms['inverse'] / 1e3:.3f}, encode "
+                  f"{ms['encode'] / 1e3:.3f}, total {ms['total'] / 1e3:.3f} (lock wait "
+                  f"{ms['wait'] / 1e3:.3f}; client {client_s:.3f}); {len(out) / 1e6:.2f} MB "
+                  f"answer, {len(scan['bytes']) / 1e6:.2f} MB upload")
+
+        # ---- both scans at once ----------------------------------------------
+        torch.cuda.synchronize()
+        reset_launches()
+        seen.clear()
+        applied.clear()
+        results: dict[str, tuple] = {}
+        barrier = threading.Barrier(len(scans))
+
+        def post(scan):
+            barrier.wait(timeout=60)
+            results[scan["label"]] = http(f"{base}/predict?modality={scan['modality']}",
+                                          scan["bytes"])
+
+        clients = [threading.Thread(target=post, args=(s,)) for s in scans]
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        both_s = time.perf_counter() - t0
+        check(not any(c.is_alive() for c in clients), "http: a concurrent request hung")
+        counts = launch_counts()
+        windows = sum(s["windows"] for s in scans)
+        for k, per in PER_WINDOW.items():
+            check(counts[k] == per * windows,
+                  f"http concurrent: {k} launched {counts[k]} times, want {per} x {windows}")
+            totals[k] += counts[k]
+        check(len(seen) == 2 and all(s == (True, True, False) for s in seen) and not applied,
+              f"http concurrent: handler predicts {seen}, Functions {sorted(set(applied))}")
+        for scan in scans:
+            status, headers, out = results[scan["label"]]
+            check(status == 200, f"http concurrent {scan['label']}: status {status}")
+            check(np.array_equal(answer(scan, out, False), serial[scan["label"]]),
+                  f"http concurrent {scan['label']}: differs from its serial answer")
+            ms = {k: float(v) for k, v in (part.split(";dur=") for part in
+                                           headers["Server-Timing"].split(", "))}
+            print(f"  http concurrent {scan['label']}: total {ms['total'] / 1e3:.3f} s "
+                  f"(lock wait {ms['wait'] / 1e3:.3f}, device predict "
+                  f"{ms['predict'] / 1e3:.3f})")
+    finally:
+        torch.autograd.Function.apply = function_apply
+        service.served.predict = predict
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        tmp.cleanup()
+    print(card)
+    print(f"serve_http: {len(scans)} scans over HTTP, 3 serial requests and 2 at once, "
+          f"answers in each scan's grid with its exact affine, equal to the in-process "
+          f"pipeline (logits repeatable: {[s['repeatable'] for s in scans]}); launches "
+          f"PER_WINDOW x windows; no autograd Function in the handlers; scans written in "
+          f"{write_s:.1f} s, make_server {make_s:.1f} s, both at once {both_s:.3f} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return totals
 
 
 def grad_tolerance(ref: torch.Tensor, dtype) -> float:
@@ -980,9 +1303,6 @@ def train_full(dev, card: str, warmup: int = 2, steps: int = 10) -> dict:
     compute with f32 masters, AdamW, `dice_focal`, on one fixed seeded
     batch.  Returns the launches of each kernel in one step."""
     from miseg_tpu_torch.config import Config
-    from miseg_tpu_torch.ops.kernels import fused_conv as fc
-    from miseg_tpu_torch.ops.kernels import fused_norm as fn
-    from miseg_tpu_torch.ops.kernels import window_attention as wa
     from miseg_tpu_torch.train.engine import Trainer
 
     cfg = Config(**FLAGSHIP)
@@ -998,16 +1318,13 @@ def train_full(dev, card: str, warmup: int = 2, steps: int = 10) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for i in range(warmup + steps):
         if i == 0:
-            fn.stats_launches = fn.apply_launches = fn.apply2_launches = fn.fold_launches = 0
-            fc.launches = wa.launches = 0
+            reset_launches()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         state, loss = trainer.train_step(state, batch)
         end.record()
         if i == 0:
-            counts = {"K1": fn.stats_launches, "K2": fn.apply_launches,
-                      "K3": fn.apply2_launches, "K4": fc.launches, "K5": wa.launches,
-                      "K1 fold": fn.fold_launches}
+            counts = launch_counts()
         end.synchronize()
         losses.append(float(loss))
         if i >= warmup:
@@ -1079,6 +1396,7 @@ def main() -> int:
     rows = phase_kernels(dev, mem_bw, bf16_flops)
     phase_model(dev)
     launches = phase_serve(dev)
+    http_launches = phase_serve_http(dev, card)
     train = phase_train(dev, card)
     meta = {
         "K1": ("fused_norm.channel_scale_shift", "cuda",
@@ -1112,6 +1430,7 @@ def main() -> int:
     kernels = []
     for key, (name, route, source, replaces) in meta.items():
         check(launches[key] > 0, f"{key} was never launched on the main path")
+        check(http_launches[key] > 0, f"{key} was never launched over HTTP")
         check(train[key] > 0, f"{key} was never launched in the train step")
         kernels.append({"name": f"{key} {name}", "route": route, "source": source,
                         "replaces": replaces, "launches": launches[key], **rows[key],

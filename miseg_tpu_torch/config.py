@@ -2,10 +2,13 @@
 
 Field names and defaults are those of the JAX package (config.py:24-195),
 so a config written for one builds the same model in the other.
+`build_parser()` generates the command line from the fields, as the JAX
+package's does (same flag names).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from dataclasses import dataclass, field
 
@@ -17,6 +20,8 @@ def _lst(*xs):
 @dataclass
 class Config:
     # --- model ---
+    pretrained: str | None = None      # checkpoint merged into the model's weights
+    ckpt_path: str | None = None       # training checkpoint to resume from
     model_name: str = "unetr"
     in_channels: int = 1
     out_channels: int = 14
@@ -49,12 +54,21 @@ class Config:
     # --- inference ---
     infer_overlap: float = 0.5
     sw_batch_size: int = 1
-    # --- data (config.py:125) ---
+    # --- data (config.py:111-125) ---
+    data_dirs: list[str] = _lst("dataset/MM-WHS", "dataset/MM-WHS")
+    json_lists: list[str] = _lst("CT_fold1.json", "MR.json")
+    space_x: float = 1.0
+    space_y: float = 1.0
+    space_z: float = 1.0
     batch_size: int = 1
+    default_root_dir: str = "./experiments"
     # --- precision / seed ---
     no_amp: bool = False
     precision: str = "bf16"
     seed: int = 0
+    # --- export (config.py:153,155) ---
+    export_dir: str = "./export_bundle"
+    export_check: bool = False
 
     @property
     def feature_size_scalar(self) -> int:
@@ -66,8 +80,45 @@ class Config:
         return (self.roi_x, self.roi_y, self.roi_z)[: self.spatial_dims]
 
     @property
+    def spacing(self) -> tuple[float, ...]:
+        return (self.space_x, self.space_y, self.space_z)[: self.spatial_dims]
+
+    @property
     def amp(self) -> bool:
         return not self.no_amp and self.precision == "bf16"
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    @classmethod
+    def from_args(cls, args: argparse.Namespace) -> "Config":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in vars(args).items() if k in known})
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+def build_parser(parser: argparse.ArgumentParser | None = None) -> argparse.ArgumentParser:
+    """An argparse command line generated from `Config`'s fields, one
+    `--<field>` flag each (the JAX package's rules: bools are store_true,
+    lists take one or more values, None defaults are typed by annotation)."""
+    parser = parser or argparse.ArgumentParser(description="miseg_tpu_torch")
+    for f in dataclasses.fields(Config):
+        flag = f"--{f.name}"
+        if f.type == "bool" or f.type is bool:
+            parser.add_argument(flag, action="store_true", default=f.default)
+        elif f.default_factory is not dataclasses.MISSING:  # list field
+            default = f.default_factory()
+            elem = type(default[0]) if default else str
+            parser.add_argument(flag, nargs="+", type=elem, default=default)
+        else:
+            typ = {int: int, float: float, str: str}.get(type(f.default), str)
+            if f.default is None:
+                typ = int if "int" in str(f.type) else str
+            parser.add_argument(flag, type=typ, default=f.default)
+    return parser
+
+
+def parse_config(argv: list[str] | None = None) -> Config:
+    return Config.from_args(build_parser().parse_args(argv))

@@ -1,8 +1,11 @@
 """Serving bundles (counterpart of `miseg_tpu/serve.py:76-89,206-361`).
 
 A port bundle is a directory:
-    meta.json    roi / channels / overlap / dtypes / the model config —
-                 everything the serving side needs to rebuild the model
+    meta.json    roi / channels / overlap / spacing / dtypes / the model
+                 config — everything the serving side needs to rebuild
+                 the model and its preprocessing chain (version 2; a
+                 version-1 bundle has no spacing, and the HTTP server's
+                 chain refuses it)
     weights.pt   the state dict, saved with `torch.save` in the compute
                  dtype (bf16 under amp)
 
@@ -24,7 +27,7 @@ from .inferers import SlidingWindowInferer
 from .models import model_from_config
 from .utils.platform import resolve_device
 
-_BUNDLE_VERSION = 1
+_BUNDLE_VERSION = 2
 _META_FILE = "meta.json"
 _WEIGHTS_FILE = "weights.pt"
 
@@ -58,6 +61,7 @@ def save_bundle(cfg: Config, state_dict: dict, out_dir: str | Path) -> Path:
         "out_channels": int(cfg.out_channels),
         "sw_batch_size": int(cfg.sw_batch_size),
         "infer_overlap": float(cfg.infer_overlap),
+        "spacing": [float(s) for s in cfg.spacing],
         "compute_dtype": str(compute).removeprefix("torch."),
         "params_dtype": str(compute).removeprefix("torch."),
         "torch_version": torch.__version__,

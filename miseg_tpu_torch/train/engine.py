@@ -1,6 +1,7 @@
 """One training step (counterpart of `miseg_tpu/train/engine.py`: `TrainState`
 :53, `apply_fn` :106, `init_state` :171 without its tensor-parallel, FSDP
-and pretrained branches, `_build_train_step` :239 and `train_step` :271).
+and pretrained branches, `_build_train_step` :239, `train_step` :271 and
+`make_inferer` :328).
 
 The parameters are f32 masters.  The forward casts every floating
 parameter to the compute dtype (bf16 when `cfg.amp`) through a
@@ -21,6 +22,7 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..inferers import SlidingWindowInferer
 from ..losses import loss_from_config
 from ..models import model_from_config
 from ..utils.platform import resolve_device
@@ -49,6 +51,7 @@ class Trainer:
         self.model.train()
         self.loss_fn = loss_from_config(cfg)
         self.compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
+        self._inferers: dict[str, SlidingWindowInferer] = {}
 
     def init_state(self, params: Mapping[str, torch.Tensor] | None = None) -> TrainState:
         """The initial state: the model's parameters (replaced by the state
@@ -70,6 +73,20 @@ class Trainer:
         logits = torch.func.functional_call(
             self.model, cast, (image.to(self.compute_dtype), modalities))
         return logits.float()
+
+    def make_inferer(self, mode: str = "constant") -> SlidingWindowInferer:
+        """A sliding-window inferer (one per blend `mode`, cached) over the
+        model's current parameters: each window group runs `apply_fn`, so
+        in the compute dtype with f32 logits, and the inferer runs under
+        `inference_mode`."""
+        if mode not in self._inferers:
+            cfg = self.cfg
+            self._inferers[mode] = SlidingWindowInferer(
+                lambda w, m: self.apply_fn(dict(self.model.named_parameters()), w, m),
+                roi_size=cfg.roi, sw_batch_size=cfg.sw_batch_size,
+                overlap=cfg.infer_overlap, mode=mode,
+                out_channels=cfg.out_channels, device=self.device)
+        return self._inferers[mode]
 
     def _batch(self, batch: Mapping):
         image = torch.as_tensor(batch["image"], device=self.device)

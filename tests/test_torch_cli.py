@@ -1,0 +1,246 @@
+"""The port's entry points on the CPU: `cli.predict_whs.main` against the
+JAX package's `main` over a two-scan synthetic datalist, `cli.export.main`
+(checkpoint -> bundle, the bundle's forward against the live model), the
+checkpoint format, and the command line generated from `Config`.
+
+Model: `swin_unetr` at feature_size 12, 32^3 ROI, f32, 4 classes, JAX
+parameters seeded from numpy, saved as a JAX checkpoint for JAX's `main`
+and, through `weights.state_dict_from_jax`, as a port checkpoint for the
+port's.  Logits (constant blend) agree at atol 5e-4 and labels wherever
+JAX's top two logits differ by more than that: on preprocessed scans
+JAX's own f32 logits sit ~1e-4 from float64 (see
+`test_torch_serve_http.py`).  Affines and file names are exact.
+"""
+
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_bridge import seeded_params
+from test_torch_serve_http import CFG, write_scan
+
+from miseg_tpu.cli import predict_whs as jax_predict_whs
+from miseg_tpu.config import Config as JConfig
+from miseg_tpu.config import build_parser as jax_build_parser
+from miseg_tpu.models import model_from_config as jax_model_from_config
+from miseg_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
+from miseg_tpu.train.engine import Trainer as JTrainer
+from miseg_tpu_torch.cli import export, parse_args, predict_whs
+from miseg_tpu_torch.config import Config, build_parser, parse_config
+from miseg_tpu_torch.data.multi_modal import eval_transforms
+from miseg_tpu_torch.data.nifti import load_nifti
+from miseg_tpu_torch.models import model_from_config
+from miseg_tpu_torch.serve import load_bundle
+from miseg_tpu_torch.train import checkpoint as ckpt
+from miseg_tpu_torch.train.engine import Trainer
+from miseg_tpu_torch.weights import state_dict_from_jax
+
+torch.set_num_threads(1)
+ATOL_SCAN = 5e-4
+
+
+@pytest.fixture(scope="module")
+def params():
+    jmodel = jax_model_from_config(JConfig(**CFG))
+    return seeded_params(jmodel, jnp.zeros((1, 32, 32, 32, 1)), jnp.zeros((1,), jnp.int32),
+                         seed=3)
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    """Two CT scans (LPS int16, RAS float32) whose preprocessed grids are
+    both 40 x 30 x 28, in a decathlon datalist with a "test" split."""
+    root = tmp_path_factory.mktemp("whs")
+    (root / "ct").mkdir()
+    write_scan(root / "ct" / "a_image.nii.gz", (40, 30, 28), (1.0, 1.0, 1.0), seed=8,
+               dtype=np.int16)
+    write_scan(root / "ct" / "b_image.nii.gz", (32, 24, 20), (1.25, 1.25, 1.4), seed=9,
+               lps=False)
+    (root / "CT_test.json").write_text(json.dumps(
+        {"modality": 0, "test": ["ct/a_image.nii.gz", "ct/b_image.nii.gz"]}))
+    return root
+
+
+def _capture_inferer_outputs(monkeypatch, trainer_cls, sink: list):
+    """Record every volume's logits from `trainer_cls.make_inferer`'s
+    inferer, unchanged."""
+    make = trainer_cls.make_inferer
+
+    def make_inferer(self, mode="constant"):
+        inferer = make(self, mode)
+
+        def call(*args, **kwargs):
+            out = inferer(*args, **kwargs)
+            sink.append(np.asarray(out))
+            return out
+        return call
+
+    monkeypatch.setattr(trainer_cls, "make_inferer", make_inferer)
+
+
+def test_predict_whs_matches_jax(params, dataset, tmp_path, monkeypatch):
+    jax_ckpt, port_ckpt = tmp_path / "jax.ckpt", tmp_path / "port.pt"
+    jax_save_checkpoint(jax_ckpt, params=params)
+    ckpt.save_checkpoint(port_ckpt, params=state_dict_from_jax(params))
+    jax_logits, port_logits = [], []
+    _capture_inferer_outputs(monkeypatch, JTrainer, jax_logits)
+    _capture_inferer_outputs(monkeypatch, Trainer, port_logits)
+    # JAX's main initialises a model with flax before it loads the
+    # checkpoint over every parameter; start it from the same parameters
+    # instead (the init is ~35 s of eager flax on a CPU, and is overwritten)
+    init = JTrainer.init_state
+    monkeypatch.setattr(JTrainer, "init_state",
+                        lambda self, img, mods, rng=None, **kw: init(self, img, mods,
+                                                                     params=params))
+    common = dict(data_dir=str(dataset), json_list="CT_test.json")
+    want = jax_predict_whs.main(
+        JConfig(**CFG, ckpt_path=str(jax_ckpt), default_root_dir=str(tmp_path / "jax")),
+        result_dir=str(tmp_path / "jax_out"), **common)
+    got = predict_whs.main(
+        Config(**CFG, ckpt_path=str(port_ckpt), default_root_dir=str(tmp_path / "port")),
+        result_dir=str(tmp_path / "port_out"), device="cpu", **common)
+    assert [os.path.basename(p) for p in got] == [os.path.basename(p) for p in want] == [
+        "a_label.nii.gz", "b_label.nii.gz"]
+    assert len(jax_logits) == len(port_logits) == 2
+    tr = eval_transforms(Config(**CFG), allow_missing_keys=True)
+    for ours_path, theirs_path, jl, pl, name in zip(got, want, jax_logits, port_logits,
+                                                     ("a", "b")):
+        assert pl.shape == jl.shape == (1, 40, 32, 32, 4)
+        assert np.abs(pl - jl).max() <= ATOL_SCAN
+        ours, theirs = load_nifti(ours_path), load_nifti(theirs_path)
+        scan = load_nifti(dataset / "ct" / f"{name}_image.nii.gz")
+        assert ours.data.shape == theirs.data.shape == scan.data.shape
+        assert ours.data.dtype == np.uint16
+        assert np.array_equal(ours.affine, scan.affine)
+        assert np.array_equal(ours.affine, theirs.affine)
+        top2 = np.sort(jl[0], axis=-1)[..., -2:]
+        decisive = (top2[..., 1] - top2[..., 0] > ATOL_SCAN).astype(np.float32)
+        path = str(dataset / "ct" / f"{name}_image.nii.gz")
+        sample = tr({"image": path, "label": path})
+        keep = tr.inverse({**sample, "label": decisive[..., None]}, key="label")["label"] > 0.5
+        assert keep.mean() > 0.9
+        assert np.array_equal(ours.data[keep], theirs.data[keep])
+        assert set(np.unique(ours.data)) <= {0, 500, 600, 420}
+
+
+def test_make_inferer_runs_the_compute_dtype(params):
+    """The inferer runs `apply_fn` (bf16 under amp, f32 logits) under
+    inference mode, one cached inferer per blend mode."""
+    trainer = Trainer(Config(**{**CFG, "no_amp": False, "precision": "bf16"}), device="cpu")
+    trainer.init_state(state_dict_from_jax(params))
+    inferer = trainer.make_inferer()
+    assert inferer is trainer.make_inferer() and inferer is not trainer.make_inferer("gaussian")
+    x = torch.from_numpy(np.random.default_rng(0).random((1, 32, 32, 32, 1), np.float32))
+    out = inferer(x, torch.tensor([0], dtype=torch.int32))
+    assert out.dtype == torch.float32 and not out.requires_grad and out.is_inference()
+    with torch.no_grad():
+        want = trainer.apply_fn(dict(trainer.model.named_parameters()), x,
+                                torch.tensor([0], dtype=torch.int32))
+    assert torch.equal(out, want)
+
+
+def test_checkpoint_round_trip(tmp_path):
+    model = model_from_config(Config(**CFG), device="cpu")
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+    model(torch.rand(1, 32, 32, 32, 1), torch.tensor([0], dtype=torch.int32)).sum().backward()
+    opt.step()
+    path = tmp_path / "c" / "last.pt"
+    ckpt.save_checkpoint(path, params=model.state_dict(), opt_state=opt.state_dict(),
+                         epoch=7, best_acc=0.625, scheduler_state={"step": 3},
+                         extra={"note": "x"})
+    back = ckpt.load_checkpoint(path)
+    assert back["epoch"] == 7 and back["best_acc"] == 0.625
+    assert back["scheduler"] == {"step": 3} and back["extra"] == {"note": "x"}
+    assert back["params"].keys() == model.state_dict().keys()
+    assert all(torch.equal(back["params"][k], v) for k, v in model.state_dict().items())
+    opt2 = torch.optim.AdamW(model.parameters(), lr=1e-3)
+    opt2.load_state_dict(back["opt_state"])
+    assert opt2.state_dict()["state"].keys() == opt.state_dict()["state"].keys()
+    state = opt.state_dict()["state"][0]
+    assert torch.equal(opt2.state_dict()["state"][0]["exp_avg"], state["exp_avg"])
+    no_opt = tmp_path / "p.pt"
+    ckpt.save_checkpoint(no_opt, params=model.state_dict())
+    assert ckpt.load_checkpoint(no_opt)["opt_state"] is None
+
+
+def test_partial_load_skips_other_heads(tmp_path, capsys):
+    """A checkpoint of a 3-class model loads into a 4-class one but for
+    the output head, which keeps its initial weights and is reported."""
+    small = model_from_config(Config(**{**CFG, "out_channels": 3, "seed": 1}), device="cpu")
+    target = model_from_config(Config(**CFG), device="cpu").state_dict()
+    path = tmp_path / "three.pt"
+    ckpt.save_checkpoint(path, params=small.state_dict())
+    merged = ckpt.load_any_checkpoint_params(path, target)
+    heads = [k for k in target if small.state_dict()[k].shape != target[k].shape]
+    assert heads and all(k.startswith("out.") for k in heads)
+    for k, v in merged.items():
+        want = target[k] if k in heads else small.state_dict()[k]
+        assert torch.equal(v, want) and v.dtype == target[k].dtype
+    assert "shape-skipped" in capsys.readouterr().out
+
+
+def test_foreign_checkpoints_raise_naming_m8(params, tmp_path):
+    jax_path = tmp_path / "jax.ckpt"
+    jax_save_checkpoint(jax_path, params=params)
+    torch_path = tmp_path / "reference.pt"
+    torch.save({"state_dict": {"w": torch.zeros(2)}, "epoch": 1}, torch_path)
+    for path in (jax_path, torch_path):
+        with pytest.raises(ValueError, match="M8"):
+            ckpt.load_checkpoint(path)
+
+
+def test_export_then_bundle_forward_equals_live(params, tmp_path):
+    path = tmp_path / "best.pt"
+    ckpt.save_checkpoint(path, params=state_dict_from_jax(params))
+    cfg = Config(**{**CFG, "space_x": 1.5}, ckpt_path=str(path),
+                 export_dir=str(tmp_path / "bundle"), export_check=True)
+    out = export.main(cfg, device="cpu")
+    served = load_bundle(out, device="cpu")
+    assert served.meta["spacing"] == [1.5, 1.0, 1.0] and served.meta["bundle_version"] == 2
+    live = model_from_config(cfg, device="cpu")
+    live.load_state_dict(state_dict_from_jax(params))
+    x = np.random.default_rng(1).random((1, 32, 32, 32, 1), np.float32)
+    mods = np.array([1], np.int32)
+    with torch.inference_mode():
+        want = live(torch.from_numpy(x), torch.from_numpy(mods)).numpy()
+    assert np.abs(served(x, mods).numpy() - want).max() <= 1e-6
+    with pytest.raises(ValueError, match="ckpt_path"):
+        export.main(Config(**CFG), device="cpu")
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(params, dataset, tmp_path,
+                                                          monkeypatch):
+    path = tmp_path / "best.pt"
+    ckpt.save_checkpoint(path, params=state_dict_from_jax(params))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict_whs.main(Config(**CFG, ckpt_path=str(path)), data_dir=str(dataset),
+                         json_list="CT_test.json", result_dir=str(tmp_path / "out"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export.main(Config(**CFG, ckpt_path=str(path), export_dir=str(tmp_path / "b")))
+
+
+def test_command_line_matches_jax_flags():
+    """Every port field is a flag of the JAX command line with the same
+    default, and the generated parser reads lists, bools, None-typed and
+    float fields as JAX's does."""
+    ours = {a.dest: a.default for a in build_parser()._actions if a.dest != "help"}
+    theirs = {a.dest: a.default for a in jax_build_parser()._actions if a.dest != "help"}
+    assert ours.keys() <= theirs.keys()
+    assert {k: theirs[k] for k in ours} == ours
+    argv = ["--model_name", "swin_unetr", "--feature_size", "48", "--space_x", "1.5",
+            "--json_lists", "CT_test.json", "--ckpt_path", "best.pt", "--export_check",
+            "--no_amp"]
+    cfg = parse_config(argv)
+    assert cfg.feature_size == [48] and cfg.spacing == (1.5, 1.0, 1.0)
+    assert cfg.json_lists == ["CT_test.json"] and cfg.ckpt_path == "best.pt"
+    assert cfg.export_check and not cfg.amp
+    jcfg = JConfig(**{k: v for k, v in vars(jax_build_parser().parse_args(argv)).items()})
+    assert all(getattr(jcfg, k) == v for k, v in cfg.to_dict().items())
+    cfg2, device = parse_args(argv + ["--device", "cpu"])
+    assert cfg2 == cfg and device == "cpu"
+    assert cfg.replace(seed=4).seed == 4 and Config.from_args(
+        build_parser().parse_args(argv)) == cfg
