@@ -63,9 +63,24 @@ Phases, one result line each; any failed check exits non-zero:
                losses, a falling loss, finite non-zero gradients for all
                203 parameters, the window's launch counts in one step's
                forward, ms a step, device busy and idle share of one
-               profiled step, peak memory).
-Then one JSON line of kernels (with each kernel's launches a train step
-and the JAX VJP its backward follows), the card line, and the ok line last.
+               profiled step, peak memory);
+  7. fit     — a training run through `cli.train.main`: the flagship at
+               full width (bf16, batch 1) fits 3 epochs of one 96^3 crop a
+               volume on a synthetic CT + MR set (192x192x160 at 1.0 mm, 6
+               classes, 2 train / 1 val / 1 test volumes a modality,
+               written by `data/synthetic.py`) with a validation every
+               epoch and warmup_cosine, tests best.ckpt (Dice, surface
+               distance), resumes a 4th epoch from last.ckpt, and
+               `cli.test.main` evaluates best.ckpt; every train step
+               launches one window's kernels, every evaluate PER_WINDOW x
+               its windows with no autograd Function; metric names, finite
+               values, checkpoints and the resumed epoch, step and lr are
+               checked, and `evaluate` of the fs-48 model at 64^3 in f32
+               matches the CPU's; ms a step (p50, p95), the loader wait,
+               epoch, validation and test seconds, peak memory.
+Then one JSON line of kernels (with each kernel's launches a train step,
+the JAX VJP its backward follows, and its launches in the fit's train
+steps and evaluations), the card line, and the ok line last.
 """
 
 from __future__ import annotations
@@ -1380,6 +1395,291 @@ def phase_train(dev, card: str) -> dict:
     return counts
 
 
+def fit_keys(prefix: str, classes: int, surface: bool) -> set[str]:
+    """The metric names `Trainer.evaluate` gives a CT + MR set (the JAX
+    package's names)."""
+    keys = {f"{prefix}/loss/avg", f"{prefix}/accuracy/avg", f"{prefix}_total_dice/avg"}
+    kinds = ["dice"] + (["surface_distance"] if surface else [])
+    for c in range(classes):
+        keys |= {f"{prefix}/accuracy/class_{c}", f"{prefix}_total_dice/class{c}"}
+    for m in (0, 1):
+        keys |= {f"{prefix}/accuracy/modality_{m}", f"{prefix}/loss/modality_{m}"}
+        for kind in kinds:
+            keys |= {f"{prefix}_modality{m}_{kind}/class{c}" for c in range(classes)}
+            keys.add(f"{prefix}_modality{m}_{kind}/avg")
+    if surface:
+        keys |= {f"{prefix}_total_surface_distance/class{c}" for c in range(classes)}
+        keys.add(f"{prefix}_total_surface_distance/avg")
+    return keys
+
+
+def check_metrics(label: str, metrics: dict, prefix: str, classes: int, surface: bool) -> None:
+    """The expected names; losses and Dice finite (Dice in [0, 1]); surface
+    distances finite or +inf (a class the net does not predict yet).  The
+    synthetic volumes hold every class, so no Dice is NaN."""
+    want = fit_keys(prefix, classes, surface)
+    check(set(metrics) == want, f"{label}: metric names differ: missing "
+                                f"{sorted(want - set(metrics))[:4]}, extra "
+                                f"{sorted(set(metrics) - want)[:4]}")
+    for k, v in metrics.items():
+        if "surface" in k:
+            check(not math.isnan(v) and v >= 0, f"{label}: {k} = {v}")
+        else:
+            check(math.isfinite(v), f"{label}: {k} = {v}")
+            if "loss" not in k:
+                check(0.0 <= v <= 1.0, f"{label}: {k} = {v}")
+
+
+def same_metrics(a: dict, b: dict) -> bool:
+    """Equal names, values within 1e-6 relative (or both infinite)."""
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] or abs(a[k] - b[k]) <= 1e-6 * (1.0 + abs(b[k])) for k in a)
+
+
+def fit_card_vs_cpu(dev, root: Path, size: int = 64) -> None:
+    """`evaluate` of the fs-48 model at a `size`^3 ROI in f32 on the card
+    against the CPU, same weights, on one `size`^3 volume a modality:
+    labels equal on >= 99.99% of the voxels, every Dice within 1e-3 and
+    the loss within 1e-4."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.data.multi_modal import MultiModalData
+    from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
+    from miseg_tpu_torch.inferers import SlidingWindowInferer
+    from miseg_tpu_torch.train.engine import Trainer
+    from miseg_tpu_torch.utils.logging import MetricLogger
+
+    make_synthetic_dataset(root, shape=(size,) * 3, num_classes=6, n_train=0, n_val=1,
+                           n_test=0, spacing=(1.0, 1.0, 1.0), seed=12, suffix=".nii")
+    cfg = Config(**{**FLAGSHIP, "roi_x": size, "roi_y": size, "roi_z": size, "no_amp": True,
+                    "data_dirs": [str(root)] * 2, "json_lists": ["CT.json", "MR.json"],
+                    "num_workers": 2})
+    trainers = {name: Trainer(cfg, device=d, workdir=str(root / name),
+                              logger=MetricLogger(root / name, quiet=True))
+                for name, d in (("cpu", "cpu"), ("card", dev))}
+    states = {"cpu": trainers["cpu"].init_state()}
+    states["card"] = trainers["card"].init_state(trainers["cpu"].model.state_dict())
+    metrics, labels, took = {}, {"cpu": [], "card": []}, {}
+    infer = SlidingWindowInferer.__call__
+    try:
+        for name, trainer in trainers.items():
+            def recording(self, *args, _sink=labels[name]):
+                out = infer(self, *args)
+                _sink.append(out.argmax(-1).cpu())
+                return out
+
+            SlidingWindowInferer.__call__ = recording
+            t0 = time.perf_counter()
+            metrics[name] = trainer.evaluate(MultiModalData(cfg).val_dataloader(),
+                                             states[name])
+            took[name] = time.perf_counter() - t0
+    finally:
+        SlidingWindowInferer.__call__ = infer
+    check(len(labels["cpu"]) == len(labels["card"]) == 2,
+          f"fit: card vs CPU evaluate ran {len(labels['cpu'])}, {len(labels['card'])} volumes")
+    same = sum(int((a == b).sum()) for a, b in zip(labels["card"], labels["cpu"]))
+    total = sum(a.numel() for a in labels["cpu"])
+    dice_gap = max(abs(metrics["card"][k] - metrics["cpu"][k]) for k in metrics["cpu"]
+                   if ("dice" in k or "accuracy" in k) and math.isfinite(metrics["cpu"][k]))
+    loss_gap = max(abs(metrics["card"][k] - metrics["cpu"][k]) for k in metrics["cpu"]
+                   if "loss" in k)
+    check(same >= 0.9999 * total, f"fit: card vs CPU evaluate labels agree on {same} of "
+                                  f"{total} voxels (< 99.99%)")
+    check(dice_gap <= 1e-3 and loss_gap <= 1e-4,
+          f"fit: card vs CPU evaluate Dice |diff| {dice_gap:.3e} (tol 1e-3), loss "
+          f"{loss_gap:.3e} (tol 1e-4)")
+    print(f"  evaluate fs48 {size}^3 f32 (TF32 off), card vs CPU, 2 volumes: labels equal on "
+          f"{same / total:.6%} of {total} voxels (want >= 99.99%), Dice |diff| {dice_gap:.2e} "
+          f"(tol 1e-3), loss |diff| {loss_gap:.2e} (tol 1e-4); {took['card']:.2f} s card, "
+          f"{took['cpu']:.1f} s CPU")
+
+
+def pct(values, q: float) -> float:
+    return float(torch.quantile(torch.tensor(values, dtype=torch.float64), q))
+
+
+def phase_fit(dev, card: str, shape=(192, 192, 160), small: int = 64) -> dict:
+    """A training run through the normal entry points on the card:
+    `cli.train.main` fits the flagship (full width, bf16, batch 1, one 96^3
+    crop a volume) for 3 epochs on a synthetic CT + MR set (192 x 192 x 160
+    at 1.0 mm, 6 classes, 2 train / 1 val / 1 test volumes a modality),
+    validating every epoch, with warmup_cosine and 2 loader threads, and
+    tests best.ckpt; a 4th epoch resumed from last.ckpt; `cli.test.main` on
+    best.ckpt.  Every train step must launch one window's kernels and every
+    validation `PER_WINDOW` x its windows, with no autograd Function in
+    `evaluate`.  Returns the launches in train steps and in validations."""
+    from miseg_tpu_torch.cli import test as cli_test
+    from miseg_tpu_torch.cli import train as cli_train
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
+    from miseg_tpu_torch.train import engine, schedules
+    from miseg_tpu_torch.train.checkpoint import load_checkpoint
+    from miseg_tpu_torch.train.optim import current_learning_rate
+
+    t_phase = time.perf_counter()
+    step_counts, evals, applied, in_eval = [], [], [], []
+    train_step, evaluate = engine.Trainer.train_step, engine.Trainer.evaluate
+    function_apply = torch.autograd.Function.__dict__["apply"]
+
+    def counted_step(self, state, batch):
+        reset_launches()
+        out = train_step(self, state, batch)
+        step_counts.append(launch_counts())
+        return out
+
+    def counted_evaluate(self, loader, state, **kw):
+        reset_launches()
+        n_windows, n_surface = len(self.history["eval_windows"]), len(self.history["surface_s"])
+        in_eval.append(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            metrics = evaluate(self, loader, state, **kw)
+        finally:
+            in_eval.pop()
+        torch.cuda.synchronize()
+        evals.append(dict(prefix=kw.get("prefix", "val"), counts=launch_counts(),
+                          windows=sum(self.history["eval_windows"][n_windows:]),
+                          s=time.perf_counter() - t0,
+                          surface_s=sum(self.history["surface_s"][n_surface:])))
+        return metrics
+
+    def counting_apply(cls, *args, **kwargs):
+        if in_eval:
+            applied.append(cls.__name__)
+        return function_apply.__func__(cls, *args, **kwargs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        t0 = time.perf_counter()
+        make_synthetic_dataset(root, shape=shape, num_classes=6, n_train=2, n_val=1,
+                               n_test=1, spacing=(1.0, 1.0, 1.0), seed=9, suffix=".nii")
+        data_s = time.perf_counter() - t0
+        cfg = Config(**{**FLAGSHIP, "data_dirs": [str(root)] * 2,
+                        "json_lists": ["CT.json", "MR.json"], "max_epochs": 3,
+                        "check_val_every_n_epoch": 1, "scheduler": "warmup_cosine",
+                        "warmup_epochs": 1, "batch_size": 1, "patches_training_sample": 1,
+                        "num_workers": 2, "cache_num": 8, "log_every_n_steps": 1,
+                        "default_root_dir": str(Path(tmp) / "runs"),
+                        "experiment_name": "flagship"})
+        engine.Trainer.train_step, engine.Trainer.evaluate = counted_step, counted_evaluate
+        torch.autograd.Function.apply = classmethod(counting_apply)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer, state, test_metrics = cli_train.main(cfg, device=dev)
+            fit_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            workdir = Path(cfg.default_root_dir) / "flagship"
+            fit_steps, fit_evals = len(step_counts), len(evals)
+            resume_cfg = cfg.replace(max_epochs=4, ckpt_path=str(workdir / "last.ckpt"),
+                                     experiment_name="flagship_resumed")
+            t0 = time.perf_counter()
+            resumed, r_state, _ = cli_train.main(resume_cfg, device=dev)
+            resume_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cli_metrics = cli_test.main(cfg.replace(ckpt_path=str(workdir / "best.ckpt")),
+                                        device=dev)
+            test_s = time.perf_counter() - t0
+        finally:
+            engine.Trainer.train_step, engine.Trainer.evaluate = train_step, evaluate
+            torch.autograd.Function.apply = function_apply
+
+        # ---- launches and autograd -------------------------------------
+        check(fit_steps == 12 and len(step_counts) == 16,
+              f"fit: {fit_steps} train steps in 3 epochs, {len(step_counts)} with the resumed "
+              f"epoch (want 12, 16)")
+        bad = [c for c in step_counts if c != PER_WINDOW]
+        check(not bad, f"fit: {len(bad)} train steps launched other counts than "
+                       f"{PER_WINDOW}, e.g. {bad[:1]}")
+        for ev in evals:
+            want = {k: per * ev["windows"] for k, per in PER_WINDOW.items()}
+            check(ev["windows"] > 0 and ev["counts"] == want,
+                  f"fit: a {ev['prefix']} evaluate of {ev['windows']} windows launched "
+                  f"{ev['counts']}, want {want}")
+        check(not applied, f"fit: {len(applied)} autograd Functions ran in evaluate, e.g. "
+                           f"{applied[:3]}")
+        # ---- metrics, checkpoints, resume --------------------------------
+        lines = [json.loads(ln) for ln in open(workdir / "metrics.jsonl")]
+        vals = [ln for ln in lines if "val/loss/avg" in ln]
+        check(len(vals) == 3, f"fit: {len(vals)} validations in 3 epochs")
+        for ln in vals:
+            check_metrics(f"fit val epoch {ln['step']}",
+                          {k: v for k, v in ln.items() if k not in ("ts", "step")},
+                          "val", cfg.out_channels, False)
+        check_metrics("fit test", test_metrics, "test", cfg.out_channels, True)
+        check_metrics("cli.test", cli_metrics, "test", cfg.out_channels, True)
+        check(same_metrics(cli_metrics, test_metrics),
+              "fit: cli.test on best.ckpt differs from the run's own test of best.ckpt")
+        names = sorted(p.name for p in (workdir / "checkpoints").iterdir())
+        check(len([n for n in names if n.startswith("epoch") and n.endswith(".ckpt")]) == 3
+              and "last.ckpt" in names and "manager.json" in names,
+              f"fit: checkpoints/ holds {names}")
+        for path in (workdir / "best.ckpt", workdir / "last.ckpt"):
+            ck = load_checkpoint(path)
+            check(len(ck["params"]) == 203 and all(bool(torch.isfinite(v).all())
+                                                   for v in ck["params"].values()),
+                  f"fit: {path.name} does not reload 203 finite parameters")
+        last = load_checkpoint(workdir / "last.ckpt")
+        check(last["epoch"] == 2 and last["opt_state"]["gradient_step"] == 12,
+              f"fit: last.ckpt at epoch {last['epoch']}, step "
+              f"{last['opt_state']['gradient_step']} (want 2, 12)")
+        r_lines = [json.loads(ln) for ln in
+                   open(Path(cfg.default_root_dir) / "flagship_resumed" / "metrics.jsonl")]
+        r_steps = [ln["step"] for ln in r_lines if "Charts/lr_step" in ln]
+        r_epochs = [ln["step"] for ln in r_lines if "train/loss" in ln]
+        want_lr = schedules.warmup_cosine(3, lr=cfg.lr, warmup_epochs=1, t_total=4)
+        r_lr = [ln["Charts/lr_step"] for ln in r_lines if "Charts/lr_step" in ln]
+        check(r_steps == [12, 13, 14, 15] and r_epochs == [3] and r_state.step == 16,
+              f"fit: resume ran steps {r_steps}, epochs {r_epochs}, ended at step "
+              f"{r_state.step} (want 12..15, [3], 16)")
+        check(all(abs(v - want_lr) <= 1e-12 for v in r_lr)
+              and abs(current_learning_rate(r_state.optimizer) - want_lr) <= 1e-12,
+              f"fit: resumed lr {r_lr}, want {want_lr}")
+        check(len(resumed.history["step_ms"]) == 4, "fit: the resumed epoch timed "
+                                                    f"{len(resumed.history['step_ms'])} steps")
+        # ---- card vs CPU -------------------------------------------------
+        fit_card_vs_cpu(dev, Path(tmp) / "small", small)
+
+    h = trainer.history
+    ms = h["step_ms"][1:]                        # the first step warms up
+    waits = h["loader_wait_s"]
+    val_evals = [e for e in evals[:fit_evals] if e["prefix"] == "val"]
+    test_evals = [e for e in evals if e["prefix"] == "test"]
+    losses = [ln["train/loss"] for ln in lines if "train/loss" in ln]
+    print(f"  data: 16 volumes {'x'.join(map(str, shape))} written in {data_s:.2f} s; fit of 3 epochs x 4 steps "
+          f"+ its test {fit_s:.2f} s, resumed epoch + its test {resume_s:.2f} s, cli.test "
+          f"{test_s:.2f} s on '{card}'")
+    print(f"  train step in the fit: {statistics.median(ms):.2f} ms p50, {pct(ms, 0.95):.2f} ms "
+          f"p95 by CUDA events ({len(ms)} steps after the first, "
+          f"{h['step_ms'][0]:.2f} ms); loader wait a step {statistics.mean(waits):.4f} s mean, "
+          f"{max(waits):.4f} s max, first {waits[0]:.4f} s; epochs "
+          f"{', '.join(f'{s:.2f}' for s in h['epoch_s'])} s; train loss by epoch "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB")
+    print(f"  data module set-up (caching the deterministic chain of 4 train and 2 val "
+          f"volumes) {h['setup_s'][0]:.2f} s; checkpoint saves a validation (top-k, "
+          f"checkpoints/last, best, last) {', '.join(f'{s:.2f}' for s in h['ckpt_s'])} s")
+    print("  validation: " + "; ".join(
+        f"{e['windows']} windows in {e['s']:.2f} s ({e['windows'] / e['s']:.2f} windows/s)"
+        for e in val_evals))
+    print("  test (best.ckpt, Dice + surface distance): " + "; ".join(
+        f"{e['s']:.2f} s, surface distance {e['surface_s']:.2f} s "
+        f"({e['surface_s'] / e['s']:.1%})" for e in test_evals))
+    print(f"  test metrics: dice avg {test_metrics['test_total_dice/avg']:.4f} (CT "
+          f"{test_metrics['test_modality0_dice/avg']:.4f}, MR "
+          f"{test_metrics['test_modality1_dice/avg']:.4f}), surface distance avg "
+          f"{test_metrics['test_total_surface_distance/avg']:.3f} voxels, loss "
+          f"{test_metrics['test/loss/avg']:.4f}")
+    train_total = {k: sum(c[k] for c in step_counts) for k in PER_WINDOW}
+    val_total = {k: sum(e["counts"][k] for e in evals) for k in PER_WINDOW}
+    print(f"fit: cli.train fitted the flagship for 3 epochs and a resumed 4th (steps 12..15 at "
+          f"lr {want_lr:.3e}), every train step launching {PER_WINDOW} and every evaluate "
+          f"PER_WINDOW x its windows with no autograd Function; cli.test on best.ckpt "
+          f"reported Dice and surface distance ({time.perf_counter() - t_phase:.1f} s)")
+    return {"train": train_total, "eval": val_total}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; chip_smoke.py needs a CUDA card",
@@ -1398,6 +1698,7 @@ def main() -> int:
     launches = phase_serve(dev)
     http_launches = phase_serve_http(dev, card)
     train = phase_train(dev, card)
+    fit = phase_fit(dev, card)
     meta = {
         "K1": ("fused_norm.channel_scale_shift", "cuda",
                "miseg_tpu_torch/ops/kernels/csrc/fused_norm.cu",
@@ -1432,10 +1733,14 @@ def main() -> int:
         check(launches[key] > 0, f"{key} was never launched on the main path")
         check(http_launches[key] > 0, f"{key} was never launched over HTTP")
         check(train[key] > 0, f"{key} was never launched in the train step")
+        check(fit["train"][key] > 0 and fit["eval"][key] > 0,
+              f"{key} was never launched in the fit's train steps or its evaluations")
         kernels.append({"name": f"{key} {name}", "route": route, "source": source,
                         "replaces": replaces, "launches": launches[key], **rows[key],
                         "train": {"launches_per_step": train[key],
-                                  "backward": backward[key]}})
+                                  "backward": backward[key]},
+                        "fit": {"launches_train_steps": fit["train"][key],
+                                "launches_evaluate": fit["eval"][key]}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

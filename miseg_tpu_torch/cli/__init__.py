@@ -1,6 +1,7 @@
-"""Entry points: `export` (checkpoint -> bundle), `predict_whs` (native-space
-NIfTI export) and `serve` (the HTTP server).  Each runs on the CUDA card
-unless the caller names another device."""
+"""Entry points: `train` (a training run and its test), `test` (a
+checkpoint's test metrics), `export` (checkpoint -> bundle), `predict_whs`
+(native-space NIfTI export) and `serve` (the HTTP server).  Each runs on
+the CUDA card unless the caller names another device."""
 
 from __future__ import annotations
 

@@ -1,0 +1,59 @@
+"""`train` — a training run, then a test of its best checkpoint
+(counterpart of `miseg_tpu/cli/train.py`).
+
+    python -m miseg_tpu_torch.cli.train --model_name swin_unetr \
+        --feature_size 48 --num_heads 3 --out_channels 6 \
+        --encoder_norm_name instance_cond --vit_norm_name instance_cond \
+        --data_dirs dataset/MM-WHS dataset/MM-WHS \
+        --json_lists CT_fold1.json MR.json --max_epochs 100
+
+Parse the command line, build the CT + MR data module, the metric logger
+(`<default_root_dir>/<experiment_name or study_name>/metrics.jsonl`, and
+wandb when `--project` is given and wandb imports), the `Trainer` and its
+fresh state (with the `--pretrained` ingest), `fit` (resuming from
+`--ckpt_path` when given), then evaluate `best.ckpt` on the test split
+with Dice and symmetric surface distance.
+"""
+
+from __future__ import annotations
+
+import os
+
+from ..config import Config
+from ..data.multi_modal import MultiModalData
+from ..train.checkpoint import load_checkpoint
+from ..train.engine import Trainer, TrainState
+from ..utils.logging import MetricLogger
+from . import parse_args
+
+
+def main(cfg: Config | None = None, *, device=None) -> tuple[Trainer, TrainState, dict]:
+    """Run `cfg`'s training on `device` (the CUDA card unless given);
+    returns the trainer (its `history` holds the host timings), the final
+    state and the test metrics."""
+    if cfg is None:
+        cfg, device = parse_args()
+    if cfg.auto_scale_batch_size:
+        raise ValueError("--auto_scale_batch_size is the batch-size tuner's (ROADMAP "
+                         "M10), not ported yet: drop the flag and set --batch_size")
+    workdir = os.path.join(cfg.default_root_dir, cfg.experiment_name or cfg.study_name)
+    data = MultiModalData(cfg)
+    logger = MetricLogger(workdir, wandb_kwargs=(
+        {"project": cfg.project, "entity": cfg.entity, "group": cfg.group,
+         "name": cfg.experiment_name, "mode": cfg.wandb_mode, "dir": workdir}
+        if cfg.project else None))
+    trainer = Trainer(cfg, device=device, workdir=workdir, logger=logger)
+    state = trainer.fit(data, state=trainer.fresh_state())
+
+    best = os.path.join(workdir, "best.ckpt")
+    if os.path.exists(best):
+        trainer.restore(state, {"params": load_checkpoint(best)["params"]})
+    metrics = trainer.evaluate(data.test_dataloader(), state, prefix="test",
+                               compute_surface=True)
+    print({k: round(v, 4) for k, v in metrics.items()})
+    logger.finish()
+    return trainer, state, metrics
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """Configuration: the slice of `miseg_tpu.config.Config` the port reads.
 
-Field names and defaults are those of the JAX package (config.py:24-195),
+Field names and defaults are those of the JAX package (config.py:25-204),
 so a config written for one builds the same model in the other.
 `build_parser()` generates the command line from the fields, as the JAX
 package's does (same flag names).
@@ -38,29 +38,65 @@ class Config:
     decoder_norm_name: str = "instance"
     decoder_norm_no_affine: bool = False
     num_styles: int = 2
+    dropout_rate: float = 0.0          # after the patch embedding, the projection, the MLP
+    attn_drop_rate: float = 0.0        # on the attention probabilities
+    dropout_path_rate: float = 0.0     # stochastic depth, linspace over the swin blocks
     depth_swin_block: list[int] = _lst(2)
     downsample: str = "merging"
     no_normalize_swin: bool = False
+    freeze_encoder: bool = False       # the encoder's parameters get no update
     # --- loss (config.py:72-76) ---
     criterion: str = "dice_focal"
     squared_dice: bool = False
     smooth_nr: float = 0.0
     smooth_dr: float = 1e-6
+    no_include_background: bool = False
     # --- optimizer (config.py:78-81) ---
     lr: float = 1e-4
     optim_name: str = "adamw"
     reg_weight: float = 1e-5
     momentum: float = 0.99
+    # --- scheduler (config.py:83-88) ---
+    scheduler: str = "reduce_on_plateau"
+    warmup_epochs: int = 50
+    patience_scheduler: int = 3
+    t_max: int = 200
+    cycles: float = 0.5
     # --- inference ---
     infer_overlap: float = 0.5
     sw_batch_size: int = 1
+    # --- early stop, checkpoints (config.py:96-100) ---
+    patience: int = 6
+    min_delta: float = 0.001
+    save_top_k: int = 3
+    # --- logger (config.py:101-106) ---
+    experiment_name: str | None = None
+    group: str | None = None
+    project: str | None = None
+    entity: str | None = None
+    wandb_mode: str = "online"
     # --- data (config.py:111-125) ---
     data_dirs: list[str] = _lst("dataset/MM-WHS", "dataset/MM-WHS")
     json_lists: list[str] = _lst("CT_fold1.json", "MR.json")
     space_x: float = 1.0
     space_y: float = 1.0
     space_z: float = 1.0
+    patches_training_sample: int = 1
+    randFlipd_prob: float = 0.2
+    randRotate90d_prob: float = 0.2
+    randScaleIntensityd_prob: float = 0.1
+    randShiftIntensityd_prob: float = 0.1
+    use_normal_dataset: bool = False
+    cache_num: int = 24
+    loader_workers: int = 8
     batch_size: int = 1
+    num_workers: int = 8
+    # --- train (config.py:128-141) ---
+    study_name: str = "experiment"
+    max_epochs: int = 2
+    check_val_every_n_epoch: int = 1
+    auto_scale_batch_size: bool = False  # the tuner's (ROADMAP M10); rejected here
+    iters_to_accumulate: int = 1
     default_root_dir: str = "./experiments"
     # --- precision / seed ---
     no_amp: bool = False
@@ -69,6 +105,8 @@ class Config:
     # --- export (config.py:153,155) ---
     export_dir: str = "./export_bundle"
     export_check: bool = False
+    profile_dir: str | None = None     # torch.profiler trace of the second epoch
+    log_every_n_steps: int = 10
 
     @property
     def feature_size_scalar(self) -> int:
@@ -82,6 +120,10 @@ class Config:
     @property
     def spacing(self) -> tuple[float, ...]:
         return (self.space_x, self.space_y, self.space_z)[: self.spatial_dims]
+
+    @property
+    def include_background(self) -> bool:
+        return not self.no_include_background
 
     @property
     def amp(self) -> bool:

@@ -8,7 +8,15 @@ SpatialPadd and ToTensord, and `Compose` with the op record (`_push_op`)
 that `Compose.inverse` replays backwards to bring a prediction back to
 the scan's own voxel grid.  Every array a transform returns has
 non-negative strides (`np.flip` results are copied), so it can reach
-`torch.from_numpy`.  The random training transforms are not ported yet.
+`torch.from_numpy`.
+
+The random training tail (FgBgToIndicesd, RandCropByPosNegLabeld,
+RandFlipd, RandRotate90d, RandScaleIntensityd, RandShiftIntensityd) draws
+from the `numpy.random.Generator` in `data["_rng"]` (the loader seeds one
+per item and epoch) the same numbers in the same order as the JAX
+package's, so one generator gives the same crops, bit for bit.  A
+transform that emits several crops makes `Compose` return a list of
+dicts, one a crop.
 """
 
 from __future__ import annotations
@@ -51,11 +59,15 @@ class Compose:
     def __init__(self, transforms: Sequence[Transform]):
         self.transforms = list(transforms)
 
-    def __call__(self, data: DataDict) -> DataDict:
-        data = dict(data)
+    def __call__(self, data: DataDict) -> DataDict | list[DataDict]:
+        out = [dict(data)]
         for t in self.transforms:
-            data = t(data)
-        return data
+            nxt = []
+            for d in out:
+                r = t(d)
+                nxt.extend(r if isinstance(r, list) else [r])
+            out = nxt
+        return out if len(out) > 1 else out[0]
 
     def inverse(self, data: DataDict, key: str = "label") -> DataDict:
         """Undo recorded spatial ops for `key` (MONAI Compose.inverse)."""
@@ -264,6 +276,43 @@ class ScaleIntensityd(Transform):
         return data
 
 
+class RandScaleIntensityd(Transform):
+    def __init__(self, keys, factors: float, prob: float,
+                 allow_missing_keys=False):
+        super().__init__(keys, allow_missing_keys)
+        self.factors = factors
+        self.prob = prob
+
+    def __call__(self, data):
+        data = dict(data)
+        rng: np.random.Generator = data["_rng"]
+        if rng.random() < self.prob:
+            factor = rng.uniform(-self.factors, self.factors)
+            for k in _keys(self, data):
+                data[k] = np.asarray(data[k], np.float32) * (1.0 + factor)
+        return data
+
+
+class RandShiftIntensityd(Transform):
+    def __init__(self, keys, offsets: float, prob: float,
+                 allow_missing_keys=False):
+        super().__init__(keys, allow_missing_keys)
+        self.offsets = offsets
+        self.prob = prob
+
+    def __call__(self, data):
+        data = dict(data)
+        rng: np.random.Generator = data["_rng"]
+        if rng.random() < self.prob:
+            offset = rng.uniform(-self.offsets, self.offsets)
+            for k in _keys(self, data):
+                data[k] = np.asarray(data[k], np.float32) + offset
+        return data
+
+
+# ---------------------------------------------------------------- spatial
+
+
 # ---------------------------------------------------------------- spatial
 
 class SpatialPadd(Transform):
@@ -294,6 +343,142 @@ class SpatialPadd(Transform):
     def inverse_op(self, arr, op):
         sl = tuple(slice(p[0], p[0] + s) for p, s in zip(op["pads"], op["shape"]))
         return arr[sl + (Ellipsis,)]
+
+
+class FgBgToIndicesd(Transform):
+    """Precompute foreground/background flat voxel indices for
+    `RandCropByPosNegLabeld` (MONAI FgBgToIndicesd).
+
+    Deterministic, so `CacheDataset` caches it in the prefix — the
+    per-epoch full-volume argwhere the crop would otherwise redo on every
+    sample draw happens exactly once per cached item.
+    """
+
+    def __init__(self, keys="label", image_key: str | None = None,
+                 image_threshold: float = 0.0, allow_missing_keys=False):
+        super().__init__(keys, allow_missing_keys)
+        self.image_key = image_key
+        self.image_threshold = image_threshold
+
+    def __call__(self, data):
+        data = dict(data)
+        for k in _keys(self, data):
+            label = np.asarray(data[k])
+            lab3 = label[..., 0] if label.ndim == 4 else label
+            fg_mask = lab3 > 0
+            if self.image_key and self.image_key in data:
+                img = np.asarray(data[self.image_key])
+                img3 = img[..., 0] if img.ndim == 4 else img
+                bg_mask = (~fg_mask) & (img3 > self.image_threshold)
+            else:
+                bg_mask = ~fg_mask
+            data[f"{k}_fg_indices"] = np.flatnonzero(fg_mask)
+            data[f"{k}_bg_indices"] = np.flatnonzero(bg_mask)
+        return data
+
+
+class RandCropByPosNegLabeld(Transform):
+    """Class-balanced ROI sampling (MONAI RandCropByPosNegLabeld).
+
+    Draws `num_samples` crops; each center comes from the label foreground
+    with prob pos/(pos+neg), else from background voxels where
+    image > image_threshold.  Centers are clamped so crops stay in-bounds.
+
+    When `{label_key}_fg_indices`/`_bg_indices` are present (precomputed by
+    `FgBgToIndicesd` in the deterministic/cached prefix), centers are drawn
+    from those flat indices with no per-draw argwhere.
+    """
+
+    def __init__(self, keys, label_key: str, spatial_size, pos: float = 1.0,
+                 neg: float = 1.0, num_samples: int = 1,
+                 image_key: str | None = None, image_threshold: float = 0.0,
+                 allow_missing_keys=False):
+        super().__init__(keys, allow_missing_keys)
+        self.label_key = label_key
+        self.spatial_size = tuple(spatial_size)
+        self.pos_ratio = pos / (pos + neg)
+        self.num_samples = num_samples
+        self.image_key = image_key
+        self.image_threshold = image_threshold
+
+    def _pools(self, data, spatial):
+        fg_flat = data.get(f"{self.label_key}_fg_indices")
+        bg_flat = data.get(f"{self.label_key}_bg_indices")
+        if fg_flat is not None and bg_flat is not None:
+            return np.asarray(fg_flat), np.asarray(bg_flat)
+        label = np.asarray(data[self.label_key])
+        lab3 = label[..., 0] if label.ndim == 4 else label
+        fg_mask = lab3 > 0
+        if self.image_key and self.image_key in data:
+            img = np.asarray(data[self.image_key])
+            img3 = img[..., 0] if img.ndim == 4 else img
+            bg_mask = (~fg_mask) & (img3 > self.image_threshold)
+        else:
+            bg_mask = ~fg_mask
+        return np.flatnonzero(fg_mask), np.flatnonzero(bg_mask)
+
+    def __call__(self, data):
+        rng: np.random.Generator = data["_rng"]
+        label = np.asarray(data[self.label_key])
+        spatial = label.shape[:3] if label.ndim == 4 else label.shape
+        fg, bg = self._pools(data, spatial)
+
+        out = []
+        for _ in range(self.num_samples):
+            use_fg = (rng.random() < self.pos_ratio and len(fg) > 0) or len(bg) == 0
+            pool = fg if use_fg else bg
+            if len(pool) == 0:
+                center = [s // 2 for s in spatial]
+            else:
+                center = np.unravel_index(int(pool[rng.integers(len(pool))]),
+                                          spatial)
+            starts = [int(np.clip(c - r // 2, 0, max(0, s - r)))
+                      for c, r, s in zip(center, self.spatial_size, spatial)]
+            sl = tuple(slice(st, st + r) for st, r in zip(starts, self.spatial_size))
+            d = dict(data)
+            # index pools describe the full volume — stale after the crop
+            d.pop(f"{self.label_key}_fg_indices", None)
+            d.pop(f"{self.label_key}_bg_indices", None)
+            for k in _keys(self, data):
+                d[k] = np.ascontiguousarray(np.asarray(data[k])[sl + (Ellipsis,)])
+            out.append(d)
+        return out
+
+
+class RandFlipd(Transform):
+    def __init__(self, keys, prob: float, spatial_axis: int,
+                 allow_missing_keys=False):
+        super().__init__(keys, allow_missing_keys)
+        self.prob = prob
+        self.spatial_axis = spatial_axis
+
+    def __call__(self, data):
+        data = dict(data)
+        rng: np.random.Generator = data["_rng"]
+        if rng.random() < self.prob:
+            for k in _keys(self, data):
+                data[k] = np.ascontiguousarray(
+                    np.flip(np.asarray(data[k]), axis=self.spatial_axis))
+        return data
+
+
+class RandRotate90d(Transform):
+    def __init__(self, keys, prob: float, max_k: int = 3,
+                 spatial_axes=(0, 1), allow_missing_keys=False):
+        super().__init__(keys, allow_missing_keys)
+        self.prob = prob
+        self.max_k = max_k
+        self.spatial_axes = tuple(spatial_axes)
+
+    def __call__(self, data):
+        data = dict(data)
+        rng: np.random.Generator = data["_rng"]
+        if rng.random() < self.prob:
+            k = int(rng.integers(self.max_k)) + 1
+            for key in _keys(self, data):
+                data[key] = np.ascontiguousarray(
+                    np.rot90(np.asarray(data[key]), k, axes=self.spatial_axes))
+        return data
 
 
 class ToTensord(Transform):

@@ -64,7 +64,8 @@ def model_from_config(cfg: Config, *, device=None, dtype=torch.float32,
     model = SwinUNETR(
         img_size=cfg.roi, in_channels=cfg.in_channels,
         out_channels=cfg.out_channels, depths=depths, num_heads=num_heads,
-        feature_size=cfg.feature_size_scalar,
+        feature_size=cfg.feature_size_scalar, drop_rate=cfg.dropout_rate,
+        attn_drop_rate=cfg.attn_drop_rate, dropout_path_rate=cfg.dropout_path_rate,
         normalize=not cfg.no_normalize_swin, downsample=cfg.downsample,
         vit_norm=vit_norm, encoder_norm=encoder_norm,
         decoder_norm=decoder_norm, fused_conv=fused_conv, device=device,

@@ -5,7 +5,9 @@ Patch embed (stride = patch size) -> 4 stages of `depth` blocks with
 alternating shift, each followed by patch merging; `proj_out`
 re-normalizes every pyramid level with a PARAMETER-FREE norm.  For the
 instance kinds that norm runs through K1 + K2, the same function the JAX
-package computes in plain jnp.
+package computes in plain jnp.  In training, dropout follows the patch
+embedding and the blocks' drop-path rates rise linearly from 0 to
+`drop_path_rate` over all blocks (`np.linspace`, as the JAX package).
 """
 
 from __future__ import annotations
@@ -13,8 +15,10 @@ from __future__ import annotations
 import math
 from typing import Any, Sequence
 
+import numpy as np
 from torch import nn
 
+from ..nn.dropout import Dropout
 from ..nn.swin import PatchEmbed, PatchMergingV2, SwinTransformerBlock
 from ..ops.kernels.fused_norm import instance_norm_act
 from ..ops.norms import layer_norm
@@ -31,8 +35,9 @@ class BasicLayer(nn.Module):
     """One swin stage: blocks with alternating shift + optional downsample."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
-                 window_size: Sequence[int], mlp_ratio: float = 4.0,
-                 qkv_bias: bool = False, downsample: str | None = None,
+                 window_size: Sequence[int], drop_path: Sequence[float] = (),
+                 mlp_ratio: float = 4.0, qkv_bias: bool = False, drop: float = 0.0,
+                 attn_drop: float = 0.0, downsample: str | None = None,
                  norm: NormSpec = ("layer", {}), *, device=None, dtype=None):
         super().__init__()
         self.window_size = tuple(window_size)
@@ -42,7 +47,8 @@ class BasicLayer(nn.Module):
         for i in range(depth):
             self.add_module(f"blocks_{i}", SwinTransformerBlock(
                 dim, num_heads, self.window_size,
-                no_shift if i % 2 == 0 else shift, mlp_ratio, qkv_bias,
+                no_shift if i % 2 == 0 else shift, mlp_ratio, qkv_bias, drop, attn_drop,
+                drop_path[i] if i < len(drop_path) else 0.0,
                 norm=norm, device=device, dtype=dtype))
         self.downsample = (PatchMergingV2(dim, norm, legacy=downsample == "merging",
                                           device=device, dtype=dtype)
@@ -74,19 +80,23 @@ class SwinTransformer(nn.Module):
     def __init__(self, in_chans: int, embed_dim: int, window_size: Sequence[int],
                  patch_size: Sequence[int], depths: Sequence[int] = (2, 2, 2, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, patch_norm: bool = False,
-                 downsample: str = "merging", norm: NormSpec = ("layer", {}),
-                 *, device=None, dtype=None):
+                 qkv_bias: bool = True, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
+                 patch_norm: bool = False, downsample: str = "merging",
+                 norm: NormSpec = ("layer", {}), *, device=None, dtype=None):
         super().__init__()
         self.norm_kind = _kind(norm)
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim,
                                       norm if patch_norm else None,
                                       device=device, dtype=dtype)
+        self.pos_drop = Dropout(drop_rate)
         self.num_layers = len(depths)
+        dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         for i in range(self.num_layers):
             self.add_module(f"layers{i + 1}", BasicLayer(
                 int(embed_dim * 2 ** i), depths[i], num_heads[i], window_size,
-                mlp_ratio, qkv_bias, downsample, norm, device=device, dtype=dtype))
+                dpr[sum(depths[:i]):sum(depths[:i + 1])], mlp_ratio, qkv_bias,
+                drop_rate, attn_drop_rate, downsample, norm, device=device, dtype=dtype))
 
     def _proj_out(self, x, normalize: bool):
         """Parameter-free per-stage re-normalization."""
@@ -99,7 +109,7 @@ class SwinTransformer(nn.Module):
         return x
 
     def forward(self, x, normalize: bool = True, modalities=None):
-        x0 = self.patch_embed(x, modalities)
+        x0 = self.pos_drop(self.patch_embed(x, modalities))
         outs = [self._proj_out(x0, normalize)]
         h = x0
         for i in range(self.num_layers):

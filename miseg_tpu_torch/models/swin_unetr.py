@@ -1,6 +1,7 @@
 """Swin-UNETR: hierarchical swin backbone + UNETR-style conv decoder
 (counterpart of `miseg_tpu/models/swin_unetr.py:31-118`).  "C-Swin-UNETR"
-is this model with `instance_cond` encoder and ViT norms.  With
+is this model with `instance_cond` encoder and ViT norms.  Its dropout
+rates reach the swin backbone only, as in the JAX package.  With
 `fused_conv` (the default) every UnetResBlock runs the fused conv chain
 (K4, K4, K3); `fused_conv=False` selects cuDNN convs with K1 + K2 norms."""
 
@@ -16,10 +17,16 @@ from .swin_transformer import NormSpec, SwinTransformer, _kind
 
 
 class SwinUNETR(nn.Module):
+    # the parameters `freeze_encoder` leaves alone (miseg_tpu/models/swin_unetr.py:48)
+    ENCODER_PREFIXES = ("swinViT", "encoder1", "encoder2", "encoder3",
+                        "encoder4", "encoder10")
+
     def __init__(self, img_size: Sequence[int], in_channels: int,
                  out_channels: int, depths: Sequence[int] = (2, 2, 2, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24),
-                 feature_size: int = 24, normalize: bool = True,
+                 feature_size: int = 24, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0, dropout_path_rate: float = 0.0,
+                 normalize: bool = True,
                  downsample: str = "merging",
                  vit_norm: NormSpec = ("layer", {}),
                  decoder_norm: NormSpec = ("instance", {}),
@@ -33,6 +40,10 @@ class SwinUNETR(nn.Module):
                              "by stage-wise image resolution.")
         if feature_size % 12:
             raise ValueError("feature_size should be divisible by 12.")
+        for rate, what in ((drop_rate, "dropout rate"), (attn_drop_rate, "attention dropout rate"),
+                           (dropout_path_rate, "drop path rate")):
+            if not 0 <= rate <= 1:
+                raise ValueError(f"{what} should be between 0 and 1.")
         if "layer" in (_kind(decoder_norm), _kind(encoder_norm)):
             raise ValueError("Layer normalization not supported for encoder and "
                              "decoder blocks, please select another normalization.")
@@ -41,7 +52,8 @@ class SwinUNETR(nn.Module):
         dd = dict(device=device, dtype=dtype)
         self.swinViT = SwinTransformer(
             in_channels, fs, (7, 7, 7), (2, 2, 2), tuple(depths), tuple(num_heads),
-            4.0, True, downsample=downsample, norm=vit_norm, **dd)
+            4.0, True, drop_rate, attn_drop_rate, dropout_path_rate,
+            downsample=downsample, norm=vit_norm, **dd)
 
         def enc(cin, cout):
             return UnetrBasicBlock(cin, cout, 3, 1, encoder_norm, res_block=True,

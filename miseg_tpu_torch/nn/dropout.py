@@ -1,0 +1,69 @@
+"""Dropout and per-sample drop-path (stochastic depth) drawn from an
+explicit generator (counterpart of flax's `nn.Dropout` and
+`miseg_tpu/nn/swin.py:52-62` `DropPath`).
+
+Both act only in training mode and at a rate above 0; otherwise they
+return their input and launch nothing.  In training they draw from the
+generator installed by `rng(generator)` around the forward (the
+`Trainer` installs its own, seeded every step from `(seed + 1, step)`)
+and raise without one: the port never draws from the global RNG.  A kept
+element is scaled by 1 / (1 - rate), as flax does.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+
+import torch
+from torch import nn
+
+_generator: contextvars.ContextVar[torch.Generator | None] = contextvars.ContextVar(
+    "miseg_dropout_generator", default=None)
+
+
+@contextlib.contextmanager
+def rng(generator: torch.Generator):
+    """Dropout and drop-path inside this block draw from `generator`."""
+    token = _generator.set(generator)
+    try:
+        yield generator
+    finally:
+        _generator.reset(token)
+
+
+def _drop(x: torch.Tensor, rate: float, mask_shape) -> torch.Tensor:
+    gen = _generator.get()
+    if gen is None:
+        raise RuntimeError("dropout in training mode needs a generator: run the "
+                           "forward inside `miseg_tpu_torch.nn.dropout.rng(generator)`")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(mask_shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Dropout(nn.Module):
+    """Element-wise dropout at `rate`."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        return _drop(x, self.rate, x.shape)
+
+
+class DropPath(nn.Module):
+    """Drops a residual branch whole, per sample (one draw a leading index)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        return _drop(x, self.rate, (x.shape[0],) + (1,) * (x.ndim - 1))

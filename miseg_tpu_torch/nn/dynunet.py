@@ -12,7 +12,11 @@ Two paths compute the same function with the same parameters:
     cuDNN convs, each norm through K1 + K2 with the leaky-relu tails fused
     into K2 (norm1 + act; norm2 + residual add + act).
 `fused_conv` is the caller's choice, the counterpart of the JAX package's
-`MISEG_PALLAS_CONV`; it is never a fallback for a kernel that fails.
+`MISEG_PALLAS_CONV`; it is never a fallback for a kernel that fails.  A
+block built with a `dropout` rate drops after norm1 (+ act) in training,
+which the fused chain cannot: the plan rejects it there, as the JAX
+package's does (miseg_tpu/nn/dynunet.py:85).  No block of SwinUNETR takes
+one.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from torch import nn
 
 from ..ops.kernels import fused_conv, fused_norm
 from .convolutions import Convolution, get_output_padding, get_padding
+from .dropout import Dropout
 from .factories import get_act, leaky_slope
 from .norms import make_norm
 
@@ -49,11 +54,13 @@ def _is_downsample(in_channels, out_channels, stride) -> bool:
 def _fuse_plan(block, x, modalities):
     """`(styles,)` when the block runs through the fused conv chain, else
     None (miseg_tpu/nn/dynunet.py:74-95 without its TPU-only VMEM and
-    lane-density conditions): the caller asked for it, the act is a leaky
-    relu, the norm an affine `instance` or an `instance_cond` that has its
-    modalities, and K4 computes the conv's geometry."""
+    lane-density conditions): the caller asked for it, no dropout acts
+    (a rate above 0 in training), the act is a leaky relu, the norm an
+    affine `instance` or an `instance_cond` that has its modalities, and K4
+    computes the conv's geometry."""
     norm = block.norm1
     if (not block.fused_conv or block.slope is None
+            or (block.drop.rate and block.training)
             or norm.kind not in ("instance", "instance_cond") or norm.scale is None
             or (norm.kind == "instance_cond" and modalities is None)
             or not fused_conv.supported(x.shape, block.kernel_size, block.stride)):
@@ -77,11 +84,13 @@ class UnetResBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int | Sequence[int] = 3,
                  stride: int | Sequence[int] = 1,
-                 norm: NormSpec = ("instance", {}), act=_LRELU, *,
-                 fused_conv: bool = True, device=None, dtype=None):
+                 norm: NormSpec = ("instance", {}), act=_LRELU,
+                 dropout: float | None = None, *, fused_conv: bool = True, device=None,
+                 dtype=None):
         super().__init__()
         dd = dict(device=device, dtype=dtype)
         self.kernel_size, self.stride, self.fused_conv = kernel_size, stride, fused_conv
+        self.drop = Dropout(dropout or 0.0)
         self.slope = leaky_slope(act)
         self.act = get_act(act) if self.slope is None else None
         self.conv1 = _conv(in_channels, out_channels, kernel_size, stride, **dd)
@@ -100,7 +109,7 @@ class UnetResBlock(nn.Module):
         out = self.norm1(self.conv1(x), modalities, act_slope=self.slope)
         if self.act is not None:
             out = self.act(out)
-        out = self.conv2(out)
+        out = self.conv2(self.drop(out))
         residual = x
         if self.downsample:
             residual = self.norm3(self.conv3(x), modalities)
@@ -132,11 +141,13 @@ class UnetBasicBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int | Sequence[int] = 3,
                  stride: int | Sequence[int] = 1,
-                 norm: NormSpec = ("instance", {}), act=_LRELU, *,
-                 fused_conv: bool = True, device=None, dtype=None):
+                 norm: NormSpec = ("instance", {}), act=_LRELU,
+                 dropout: float | None = None, *, fused_conv: bool = True, device=None,
+                 dtype=None):
         super().__init__()
         dd = dict(device=device, dtype=dtype)
         self.kernel_size, self.stride, self.fused_conv = kernel_size, stride, fused_conv
+        self.drop = Dropout(dropout or 0.0)
         self.slope = leaky_slope(act)
         self.act = get_act(act) if self.slope is None else None
         self.conv1 = _conv(in_channels, out_channels, kernel_size, stride, **dd)
@@ -151,7 +162,7 @@ class UnetBasicBlock(nn.Module):
         out = self.norm1(self.conv1(x), modalities, act_slope=self.slope)
         if self.act is not None:
             out = self.act(out)
-        out = self.norm2(self.conv2(out), modalities, act_slope=self.slope)
+        out = self.norm2(self.conv2(self.drop(out)), modalities, act_slope=self.slope)
         return self.act(out) if self.act is not None else out
 
     def _fused(self, x, styles):

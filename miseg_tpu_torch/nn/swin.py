@@ -3,7 +3,9 @@
 block, patch merging (incl. the legacy slice order) and patch embedding.
 
 Window attention runs kernel K5 (`ops.kernels.window_attention`) on the
-card; every norm runs K1 + K2.
+card; every norm runs K1 + K2.  Dropout (after the projection and in the
+MLP), attention dropout (on the softmax probabilities) and per-sample
+drop-path act only in training (`nn/dropout.py`).
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ from torch.nn.utils import skip_init
 from ..ops.init import fill_, trunc_normal
 from ..ops.kernels.window_attention import window_attention
 from ..ops.rel_bias import rel_bias_gather, rel_pos_index
-from ..ops.window import get_window_size, window_partition, window_reverse
+from ..ops.window import ATTN_MASK_VALUE, get_window_size, window_partition, window_reverse
 from .convolutions import Conv
+from .dropout import Dropout, DropPath
 from .norms import make_norm
 from .transformer import MLPBlock
 
@@ -43,9 +46,12 @@ class WindowAttention(nn.Module):
     full bias (the reference's quirk, nn/swin.py:98-101)."""
 
     def __init__(self, dim: int, num_heads: int, window_size, qkv_bias: bool = False,
-                 *, device=None, dtype=None):
+                 attn_drop: float = 0.0, proj_drop: float = 0.0, *, device=None,
+                 dtype=None):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_drop = Dropout(attn_drop)
+        self.proj_drop = Dropout(proj_drop)
         self.window_size = tuple(window_size)
         table_len = math.prod(2 * w - 1 for w in self.window_size)
         self.relative_position_bias_table = nn.Parameter(
@@ -68,14 +74,41 @@ class WindowAttention(nn.Module):
         if n != bias.shape[-1]:
             bias = bias[:, :n, :n]
         bias = bias.float().contiguous()
-        out = window_attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
-                               bias, mask, num_heads=self.num_heads)
-        return self.proj(out)
+        q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+        if self.training and self.attn_drop.rate > 0:
+            # The configuration chooses this route, as in the reference
+            # (miseg_tpu/nn/swin.py:113): K5 applies no dropout to P, so
+            # attention dropout in training runs the attention in PyTorch
+            # ops.  Neither the device nor a failure ever chooses it.
+            out = self._attend_dropped(q, k, v, bias, mask)
+        else:
+            out = window_attention(q, k, v, bias, mask, num_heads=self.num_heads)
+        return self.proj_drop(self.proj(out))
+
+    def _attend_dropped(self, q, k, v, bias, ids):
+        """The JAX package's unfused attention (miseg_tpu/nn/swin.py:121-160):
+        f32 scores, bias and region mask, f32 softmax, dropout on P, then
+        P (in v's dtype) times v."""
+        bw, n, c = q.shape
+        h = self.num_heads
+        hd = c // h
+        s = torch.einsum("bnhd,bmhd->bhnm", q.reshape(bw, n, h, hd).float(),
+                         k.reshape(bw, n, h, hd).float()) * hd ** -0.5
+        s = s + bias[None]
+        if ids is not None:
+            nw = ids.shape[0]
+            neq = ids[:, None, :] != ids[:, :, None]
+            s = s.reshape(bw // nw, nw, h, n, n)
+            s = torch.where(neq[None, :, None], s + ATTN_MASK_VALUE, s).reshape(bw, h, n, n)
+        p = self.attn_drop(torch.softmax(s, dim=-1))
+        return torch.einsum("bhnm,bmhd->bnhd", p.to(v.dtype),
+                            v.reshape(bw, n, h, hd)).reshape(bw, n, c)
 
 
 class SwinTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size, shift_size,
-                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: float = 0.0,
                  act="gelu", norm: NormSpec = ("layer", {}), *, device=None,
                  dtype=None):
         super().__init__()
@@ -84,9 +117,10 @@ class SwinTransformerBlock(nn.Module):
         self.shift_size = tuple(shift_size)
         self.norm1 = make_norm(norm, dim, **dd)
         self.attn = WindowAttention(dim, num_heads, self.window_size,
-                                    qkv_bias, **dd)
+                                    qkv_bias, attn_drop, drop, **dd)
         self.norm2 = make_norm(norm, dim, **dd)
-        self.mlp = MLPBlock(dim, int(dim * mlp_ratio), act, **dd)
+        self.mlp = MLPBlock(dim, int(dim * mlp_ratio), act, drop, **dd)
+        self.drop_path = DropPath(drop_path)
 
     def _pad_roll_attend(self, x, mask, modalities):
         x = self.norm1(x, modalities)
@@ -106,8 +140,8 @@ class SwinTransformerBlock(nn.Module):
         return x[:, :spatial[0], :spatial[1], :spatial[2]]
 
     def forward(self, x, mask=None, modalities=None):
-        x = x + self._pad_roll_attend(x, mask, modalities)
-        return x + self.mlp(self.norm2(x, modalities))
+        x = x + self.drop_path(self._pad_roll_attend(x, mask, modalities))
+        return x + self.drop_path(self.mlp(self.norm2(x, modalities)))
 
 
 # MONAI v0.9 slice order, duplicated slices included (nn/swin.py:240-243)

@@ -1,10 +1,10 @@
 """Checkpoints in the port's own format (counterpart of
-`miseg_tpu/train/checkpoint.py:30,49,69` and `partial_load`,
-`miseg_tpu/train/pretrained.py:42`).
+`miseg_tpu/train/checkpoint.py:30,49,69,81` and `partial_load`,
+`miseg_tpu/train/pretrained.py:42`), and the top-k + last manager.
 
 A checkpoint is one `torch.save` file of
     {"format": "miseg_tpu_torch", "params": {name: tensor},
-     "opt_state": optimizer.state_dict() or {}}
+     "opt_state": the trainer's optimizer state or {}}
 beside a `<path>.json` sidecar holding epoch, best_acc, scheduler and
 extra, as the JAX package writes it.  Tensors are saved on the CPU and
 read back with `weights_only=True`.  The JAX package's msgpack
@@ -98,3 +98,83 @@ def load_any_checkpoint_params(path: str | Path,
     """Merge the port checkpoint at `path` into the state dict `params`
     (`partial_load`'s rule)."""
     return partial_load(params, load_checkpoint(path)["params"])
+
+
+class CheckpointManager:
+    """The top-k checkpoints by a monitored metric, and `last.ckpt`, in one
+    directory (counterpart of `miseg_tpu/train/checkpoint.py:81-156`).
+
+    The top-k record lives in `manager.json` beside them and is read back
+    on construction, so `best_path` and the pruning of stale files survive
+    a resume (PTL ModelCheckpoint's persisted state).
+    """
+
+    def __init__(self, directory: str | Path, monitor: str = "val/accuracy/avg",
+                 mode: str = "max", save_top_k: int = 3):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.monitor = monitor
+        self.mode = mode
+        self.save_top_k = save_top_k
+        self._topk: list[tuple[float, str]] = []
+        self._restore_state()
+
+    @property
+    def _state_path(self) -> Path:
+        return self.dir / "manager.json"
+
+    def _restore_state(self) -> None:
+        if not self._state_path.exists():
+            return
+        try:
+            with open(self._state_path) as f:
+                state = json.load(f)
+        except (OSError, json.JSONDecodeError):
+            return
+        # A sidecar recorded under a DIFFERENT monitored metric or mode is
+        # incomparable — start the top-k record fresh rather than ranking
+        # mixed metrics against each other.
+        if (state.get("monitor", self.monitor) != self.monitor
+                or state.get("mode", self.mode) != self.mode):
+            print(f"CheckpointManager: discarding persisted top-k recorded "
+                  f"for monitor={state.get('monitor')!r}/mode="
+                  f"{state.get('mode')!r} (now {self.monitor!r}/{self.mode!r})")
+            return
+        # Keep only entries whose checkpoint files still exist on disk.
+        self._topk = [(float(m), p) for m, p in state.get("topk", [])
+                      if os.path.exists(p)]
+
+    def _persist_state(self) -> None:
+        tmp = str(self._state_path) + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"monitor": self.monitor, "mode": self.mode,
+                       "topk": self._topk}, f)
+        os.replace(tmp, self._state_path)
+
+    @property
+    def best_path(self) -> str | None:
+        if not self._topk:
+            return None
+        best = max(self._topk) if self.mode == "max" else min(self._topk)
+        return best[1]
+
+    def save(self, metric: float, *, params: Mapping[str, torch.Tensor],
+             opt_state: dict | None = None, epoch: int = 0,
+             scheduler_state: dict | None = None, extra: dict | None = None) -> None:
+        name = f"epoch{epoch:05d}-{metric:.4f}.ckpt"
+        path = self.dir / name
+        save_checkpoint(path, params=params, opt_state=opt_state, epoch=epoch,
+                        best_acc=metric, scheduler_state=scheduler_state,
+                        extra=extra)
+        self._topk.append((metric, str(path)))
+        reverse = self.mode == "max"
+        self._topk.sort(key=lambda t: t[0], reverse=reverse)
+        while len(self._topk) > self.save_top_k:
+            _, drop = self._topk.pop()
+            for p in (drop, drop + ".json"):
+                if os.path.exists(p):
+                    os.remove(p)
+        save_checkpoint(self.dir / "last.ckpt", params=params,
+                        opt_state=opt_state, epoch=epoch, best_acc=metric,
+                        scheduler_state=scheduler_state, extra=extra)
+        self._persist_state()

@@ -1,69 +1,203 @@
-"""One training step (counterpart of `miseg_tpu/train/engine.py`: `TrainState`
-:53, `apply_fn` :106, `init_state` :171 without its tensor-parallel, FSDP
-and pretrained branches, `_build_train_step` :239, `train_step` :271 and
-`make_inferer` :328).
+"""The training engine (counterpart of `miseg_tpu/train/engine.py`:
+`TrainState` :53, `EarlyStopping` :60, `apply_fn` :106, `init_state`
+:171 without its tensor-parallel and FSDP branches, `fresh_state` :234,
+`train_step` :271, `flush_accumulation` :310, `make_inferer` :328,
+`evaluate` :368 and `fit` :444).
 
-The parameters are f32 masters.  The forward casts every floating
-parameter to the compute dtype (bf16 when `cfg.amp`) through a
+The parameters are f32 masters.  The training forward casts every
+floating parameter to the compute dtype (bf16 when `cfg.amp`) through a
 differentiable cast and runs the model on those copies
 (`torch.func.functional_call`), so the backward lands in the f32 masters;
 the image is cast to the compute dtype and the logits to f32 before the
-loss.  On the card every kernel of the forward (K1 and its fold, K2, K3,
-K4, K5) runs inside its autograd Function.  The model runs in `train()`
-mode; the port has no dropout yet (the JAX rates default to 0).
+loss.  On the card every kernel of that forward (K1 and its fold, K2, K3,
+K4, K5) runs inside its autograd Function.  Dropout draws from the
+trainer's generator, seeded every step from `(cfg.seed + 1, step)` as the
+JAX package's `fold_in(key(seed + 1), step)`, so a resumed run continues
+the stream.
+
+Evaluation (`make_inferer`, `evaluate`) runs the model in eval mode under
+`inference_mode`, where the kernel wrappers launch directly and no
+autograd Function runs, on one cast of the masters per call.  `fit`
+keeps host timings in `history`: the data module's set-up, each step's
+wait on the loader and its CUDA-event time on the card, each epoch's,
+validation's and checkpoint save's seconds, the windows evaluated and the
+seconds of surface distance.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from collections.abc import Mapping
+import os
+import time
+from collections.abc import Callable, Mapping
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..config import Config
-from ..inferers import SlidingWindowInferer
+from ..inferers import SlidingWindowInferer, window_starts
 from ..losses import loss_from_config
+from ..metrics import (dice_score_labels, metric_by_modality, nanmean_valid,
+                       reduce_mean_batch, surface_distance)
 from ..models import model_from_config
+from ..nn import dropout
+from ..utils.logging import MetricLogger
 from ..utils.platform import resolve_device
-from .optim import optimizer_from_config
+from ..utils.profiling import profile_trace
+from .checkpoint import (CheckpointManager, load_any_checkpoint_params, load_checkpoint,
+                         save_checkpoint)
+from .optim import (Accumulation, current_learning_rate, optimizer_from_config,
+                    optimizer_step_count, set_learning_rate)
+from .schedules import scheduler_from_config
 
 
 @dataclasses.dataclass
 class TrainState:
     """The f32 master parameters by name (the model's own tensors, updated
-    in place), their optimizer and the count of steps taken."""
+    in place), their optimizer, the count of micro-steps taken, and the
+    gradient accumulation window when `iters_to_accumulate` > 1."""
     params: dict[str, torch.Tensor]
     optimizer: torch.optim.Optimizer
     step: int = 0
+    accumulation: Accumulation | None = None
+
+
+class EarlyStopping:
+    """Stop after `patience` checks without an improvement of more than
+    `min_delta` (mode "max" or "min")."""
+
+    def __init__(self, patience: int = 6, min_delta: float = 1e-3, mode: str = "max"):
+        self.patience = patience
+        self.min_delta = min_delta
+        self.mode = mode
+        self.best: float | None = None
+        self.bad = 0
+
+    def update(self, value: float) -> bool:
+        """True when training should stop."""
+        improved = (self.best is None or
+                    (self.mode == "max" and value > self.best + self.min_delta) or
+                    (self.mode == "min" and value < self.best - self.min_delta))
+        if improved:
+            self.best = value
+            self.bad = 0
+        else:
+            self.bad += 1
+        return self.bad >= self.patience
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The dropout generator's seed for `step` of a run seeded `seed`."""
+    return int(np.random.SeedSequence([seed + 1, step]).generate_state(1, np.uint64)[0])
+
+
+class _EvalInferer(SlidingWindowInferer):
+    """A sliding-window inferer over the trainer's model in eval mode, on
+    one cast of its masters a call (or a whole `evaluate`)."""
+
+    def __init__(self, trainer: "Trainer", **kwargs):
+        super().__init__(trainer._eval_window, **kwargs)
+        self._trainer = trainer
+
+    def __call__(self, inputs, modalities=None):
+        with self._trainer.eval_weights():
+            return super().__call__(inputs, modalities)
 
 
 class Trainer:
     def __init__(self, cfg: Config, model: nn.Module | None = None, *, device=None,
-                 fused_conv: bool = True):
+                 fused_conv: bool = True, workdir: str | None = None,
+                 logger: MetricLogger | None = None):
         """`cfg`'s model on `device` (the CUDA card unless given), or
         `model` as it is; `fused_conv` selects the conv blocks' path of a
-        model built here."""
+        model built here.  Metrics go to `logger`, by default a
+        `MetricLogger` over `workdir` (default `cfg.default_root_dir`)
+        opened at the first record."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model if model is not None else model_from_config(
             cfg, device=self.device, fused_conv=fused_conv)
         self.model.train()
         self.loss_fn = loss_from_config(cfg)
+        self.scheduler = scheduler_from_config(cfg)
         self.compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
-        self._inferers: dict[str, SlidingWindowInferer] = {}
+        self.workdir = workdir or cfg.default_root_dir
+        self._logger = logger
+        self._inferers: dict[str, _EvalInferer] = {}
+        self._eval_cast: dict[str, torch.Tensor] | None = None
+        self._generator: torch.Generator | None = None
+        self.history: dict[str, list[float]] = {
+            "setup_s": [], "loader_wait_s": [], "step_ms": [], "epoch_s": [], "val_s": [],
+            "ckpt_s": [], "eval_windows": [], "surface_s": []}
+
+    @property
+    def logger(self) -> MetricLogger:
+        if self._logger is None:
+            self._logger = MetricLogger(self.workdir)
+        return self._logger
+
+    # -------------------------------------------------------------- state
 
     def init_state(self, params: Mapping[str, torch.Tensor] | None = None) -> TrainState:
         """The initial state: the model's parameters (replaced by the state
         dict `params` when given, e.g. one bridged from JAX) as f32
-        masters, and `cfg`'s optimizer over them."""
+        masters, and `cfg`'s optimizer over them (without the encoder's
+        under `freeze_encoder`)."""
         if params is not None:
             self.model.load_state_dict(params, strict=True)
         masters = dict(self.model.named_parameters())
         wrong = [n for n, p in masters.items() if p.dtype != torch.float32]
         if wrong:
             raise ValueError(f"master parameters must be float32: {wrong[:3]}")
-        return TrainState(masters, optimizer_from_config(self.cfg, masters.values()))
+        optimizer = optimizer_from_config(self.cfg, masters,
+                                          getattr(self.model, "ENCODER_PREFIXES", ()))
+        k = self.cfg.iters_to_accumulate
+        return TrainState(masters, optimizer, 0, Accumulation(k) if k > 1 else None)
+
+    def fresh_state(self) -> TrainState:
+        """`init_state` and then the `--pretrained` ingest of a port
+        checkpoint (every parameter whose name and shape match)."""
+        if self.cfg.model_name == "pre_swin_unetr":
+            raise NotImplementedError(
+                "pre_swin_unetr's Swin-ViT checkpoint ingest is ROADMAP M8, not ported "
+                "yet; train swin_unetr, or start it from a port checkpoint with "
+                "--pretrained")
+        state = self.init_state()
+        if self.cfg.pretrained:
+            self._load_params(state, load_any_checkpoint_params(
+                self.cfg.pretrained, self.model.state_dict()))
+        return state
+
+    @torch.no_grad()
+    def _load_params(self, state: TrainState, params: Mapping[str, torch.Tensor]) -> None:
+        missing = [n for n in state.params if n not in params]
+        if missing:
+            raise KeyError(f"checkpoint lacks {len(missing)} parameters, e.g. {missing[:3]}")
+        for n, p in state.params.items():
+            p.copy_(params[n])
+
+    def opt_state(self, state: TrainState) -> dict:
+        """The optimizer's state as a checkpoint holds it."""
+        acc = state.accumulation
+        counts = (acc.state_dict() if acc is not None
+                  else {"gradient_step": state.step, "mini_step": 0})
+        return {"optimizer": state.optimizer.state_dict(), **counts}
+
+    def restore(self, state: TrainState, ck: Mapping) -> TrainState:
+        """Load a checkpoint's parameters and, when it has them, its
+        optimizer state and step count into `state`."""
+        self._load_params(state, ck["params"])
+        opt_state = ck.get("opt_state")
+        if opt_state:
+            state.optimizer.load_state_dict(opt_state["optimizer"])
+            if state.accumulation is not None:
+                state.accumulation.load_state_dict(opt_state)
+            state.step = optimizer_step_count(opt_state, self.cfg.iters_to_accumulate)
+        return state
+
+    # ------------------------------------------------------------- forward
 
     def apply_fn(self, params: Mapping[str, torch.Tensor], image, modalities):
         """Forward under the compute policy: f32 logits of `image` from the
@@ -74,45 +208,270 @@ class Trainer:
             self.model, cast, (image.to(self.compute_dtype), modalities))
         return logits.float()
 
+    @contextlib.contextmanager
+    def eval_weights(self):
+        """The model in eval mode, with the masters cast to the compute
+        dtype once for every window run inside; re-entrant."""
+        if self._eval_cast is not None:
+            yield
+            return
+        was_training = self.model.training
+        with torch.no_grad():
+            self._eval_cast = {n: p.detach().to(self.compute_dtype)
+                               if p.is_floating_point() else p.detach()
+                               for n, p in self.model.named_parameters()}
+        self.model.eval()
+        try:
+            yield
+        finally:
+            self._eval_cast = None
+            self.model.train(was_training)
+
+    def _eval_window(self, window, modalities):
+        logits = torch.func.functional_call(
+            self.model, self._eval_cast, (window.to(self.compute_dtype), modalities))
+        return logits.float()
+
     def make_inferer(self, mode: str = "constant") -> SlidingWindowInferer:
         """A sliding-window inferer (one per blend `mode`, cached) over the
-        model's current parameters: each window group runs `apply_fn`, so
-        in the compute dtype with f32 logits, and the inferer runs under
-        `inference_mode`."""
+        model's current parameters, in eval mode and the compute dtype with
+        f32 logits, under `inference_mode`."""
         if mode not in self._inferers:
             cfg = self.cfg
-            self._inferers[mode] = SlidingWindowInferer(
-                lambda w, m: self.apply_fn(dict(self.model.named_parameters()), w, m),
-                roi_size=cfg.roi, sw_batch_size=cfg.sw_batch_size,
+            self._inferers[mode] = _EvalInferer(
+                self, roi_size=cfg.roi, sw_batch_size=cfg.sw_batch_size,
                 overlap=cfg.infer_overlap, mode=mode,
                 out_channels=cfg.out_channels, device=self.device)
         return self._inferers[mode]
 
+    # --------------------------------------------------------- train step
+
+    def _to_device(self, x, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """A host array or tensor on the trainer's device; on the card
+        through pinned memory with a non-blocking copy."""
+        t = torch.as_tensor(x)
+        if dtype is not None and t.dtype != dtype:
+            t = t.to(dtype)
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
     def _batch(self, batch: Mapping):
-        image = torch.as_tensor(batch["image"], device=self.device)
-        label = torch.as_tensor(batch["label"], device=self.device)
+        image = self._to_device(batch["image"])
+        label = torch.as_tensor(batch["label"])
         if label.ndim == 5 and label.shape[-1] == 1:
             label = label[..., 0]
+        label = self._to_device(label, None if label.device.type == "cuda" else torch.int32)
         mods = batch.get("modality")
         if mods is not None:
-            mods = torch.as_tensor(mods, dtype=torch.int32, device=self.device)
+            mods = self._to_device(mods, torch.int32)
         return image, label, mods
+
+    def _dropout_generator(self, step: int) -> torch.Generator:
+        if self._generator is None:
+            self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(step_seed(self.cfg.seed, step))
+        return self._generator
 
     def value_and_grad(self, state: TrainState, batch: Mapping):
         """The loss of `batch` (image `[B, *S, Cin]`, integer label
         `[B, *S]` or `[B, *S, 1]`, modality `int[B]`) and the gradients of
         the masters by name, left in their `.grad`; nothing is updated."""
         image, label, mods = self._batch(batch)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(self.apply_fn(state.params, image, mods), label)
+        for p in state.params.values():
+            p.grad = None
+        with dropout.rng(self._dropout_generator(state.step)):
+            loss = self.loss_fn(self.apply_fn(state.params, image, mods), label)
         loss.backward()
         return loss.detach(), {n: p.grad for n, p in state.params.items()}
 
     def train_step(self, state: TrainState, batch: Mapping):
-        """One step: loss, backward into the f32 masters, one optimizer
-        update.  Returns (the same state, advanced, and the loss as a
-        0-d tensor on the device)."""
+        """One micro-step: loss, backward into the f32 masters, and one
+        optimizer update (with accumulation, the update of a full window).
+        Returns (the same state, advanced, and the loss as a 0-d tensor on
+        the device)."""
         loss, _ = self.value_and_grad(state, batch)
-        state.optimizer.step()
+        if state.accumulation is None:
+            state.optimizer.step()
+        else:
+            state.accumulation.step(state.optimizer)
         state.step += 1
         return state, loss
+
+    def flush_accumulation(self, state: TrainState) -> TrainState:
+        """Apply a part-filled accumulation window (the epoch's last
+        micro-batches); nothing without accumulation or with an empty
+        window."""
+        if state.accumulation is not None:
+            state.accumulation.flush(state.optimizer)
+        return state
+
+    # --------------------------------------------------------------- eval
+
+    def evaluate(self, loader, state: TrainState, *, prefix: str = "val",
+                 compute_surface: bool = False, epoch: int | None = None) -> dict:
+        """Constant-blend sliding-window evaluation of every volume of
+        `loader`: each volume's loss, its label-map Dice by class (and with
+        `compute_surface` its symmetric surface distance, on the host),
+        reduced over volumes, by class and by modality, under the JAX
+        package's metric names; logged at `epoch` and returned."""
+        cfg = self.cfg
+        inferer = self.make_inferer()
+        dice_rows, surf_rows, mods, losses = [], [], [], []
+        with self.eval_weights(), torch.inference_mode():
+            for batch in loader:
+                image = self._to_device(batch["image"])
+                label = torch.as_tensor(batch["label"])
+                if label.ndim == 5 and label.shape[-1] == 1:
+                    label = label[..., 0]
+                label = self._to_device(label, torch.int32)
+                modality = batch.get("modality")
+                mod_t = self._to_device(modality, torch.int32) if modality is not None else None
+                logits = inferer(image, mod_t)
+                self.history["eval_windows"].append(
+                    len(window_starts(tuple(image.shape[1:-1]), cfg.roi, cfg.infer_overlap)[1])
+                    * image.shape[0])
+                losses.extend(self.loss_fn(logits[i:i + 1], label[i:i + 1])
+                              for i in range(logits.shape[0]))
+                pred = logits.argmax(dim=-1)
+                dice_rows.append(dice_score_labels(pred, label, cfg.out_channels))
+                if modality is not None:
+                    mods.append(np.asarray(modality).reshape(-1))
+                if compute_surface:
+                    t0 = time.perf_counter()
+                    classes = np.arange(cfg.out_channels)
+                    pred_np = pred.cpu().numpy()[..., None] == classes
+                    lab_np = label.cpu().numpy()[..., None] == classes
+                    surf_rows.append(surface_distance(
+                        pred_np, lab_np, include_background=cfg.include_background))
+                    self.history["surface_s"].append(time.perf_counter() - t0)
+            losses = torch.stack(losses).double().cpu().numpy()
+            dice_all = torch.cat(dice_rows).cpu().numpy()
+
+        vol_accs = np.asarray([float(np.nanmean(row)) for row in dice_all])
+        per_class, not_nans = reduce_mean_batch(dice_all)
+        metrics = {f"{prefix}/loss/avg": float(np.mean(losses)),
+                   f"{prefix}/accuracy/avg": float(np.mean(vol_accs))}
+        for c, v in enumerate(per_class.tolist()):
+            metrics[f"{prefix}/accuracy/class_{c}"] = v
+            metrics[f"{prefix}_total_dice/class{c}"] = v
+        metrics[f"{prefix}_total_dice/avg"] = nanmean_valid(per_class, not_nans)
+        if mods:
+            mod_all = np.concatenate(mods)
+            metrics.update(metric_by_modality(dice_all, mod_all, "dice", ns=prefix))
+            for m in np.unique(mod_all):
+                sel = mod_all == m
+                metrics[f"{prefix}/accuracy/modality_{int(m)}"] = float(np.nanmean(vol_accs[sel]))
+                metrics[f"{prefix}/loss/modality_{int(m)}"] = float(np.nanmean(losses[sel]))
+        if compute_surface:
+            surf_all = np.concatenate(surf_rows, axis=0)
+            sc, sn = reduce_mean_batch(surf_all)
+            off = int(not cfg.include_background)
+            for c, v in enumerate(sc.tolist()):
+                metrics[f"{prefix}_total_surface_distance/class{c + off}"] = v
+            metrics[f"{prefix}_total_surface_distance/avg"] = nanmean_valid(sc, sn)
+            if mods:
+                metrics.update(metric_by_modality(surf_all, np.concatenate(mods),
+                                                  "surface_distance", off, ns=prefix))
+        self.logger.log(metrics, step=epoch)
+        return metrics
+
+    # ---------------------------------------------------------------- fit
+
+    def fit(self, data, *, state: TrainState | None = None,
+            report_callback: Callable[[int, float], bool] | None = None) -> TrainState:
+        """A training run over `data` (a `MultiModalData`): per epoch the
+        schedule's lr, the train loader's micro-steps (an lr record every
+        `log_every_n_steps`), the accumulation tail, and every
+        `check_val_every_n_epoch` epochs a validation that steps a plateau
+        schedule, saves the top-k, `best.ckpt` and `last.ckpt` and may stop
+        early (or `report_callback(epoch, acc)` may prune).  With
+        `cfg.ckpt_path` the run resumes there: parameters, optimizer state,
+        step counter (and with it the dropout stream), epoch and plateau
+        state."""
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        train_loader = data.train_dataloader()
+        val_loader = data.val_dataloader()
+        self.history["setup_s"].append(time.perf_counter() - t0)
+        if state is None:
+            state = self.fresh_state()
+        start_epoch = 0
+        if cfg.ckpt_path:
+            ck = load_checkpoint(cfg.ckpt_path)
+            state = self.restore(state, ck)
+            start_epoch = int(ck.get("epoch", 0)) + 1
+            if ck.get("scheduler") and hasattr(self.scheduler, "plateau"):
+                self.scheduler.plateau.load_state_dict(ck["scheduler"])
+
+        ckpt = CheckpointManager(os.path.join(self.workdir, "checkpoints"),
+                                 monitor="val/accuracy/avg", mode="max",
+                                 save_top_k=cfg.save_top_k)
+        early = EarlyStopping(patience=cfg.patience, min_delta=cfg.min_delta)
+        best_acc = -np.inf
+        on_card = self.device.type == "cuda"
+        global_step = state.step
+        for epoch in range(start_epoch, cfg.max_epochs):
+            if cfg.scheduler != "reduce_on_plateau":
+                set_learning_rate(state.optimizer, self.scheduler(epoch))
+            epoch_lr = current_learning_rate(state.optimizer)
+            train_loader.set_epoch(epoch)
+            t0 = time.time()
+            epoch_losses, events = [], []
+            trace_dir = cfg.profile_dir if epoch == start_epoch + 1 else None
+            with profile_trace(trace_dir):
+                batches = iter(train_loader)
+                while True:
+                    tw = time.perf_counter()
+                    batch = next(batches, None)
+                    if batch is None:
+                        break
+                    self.history["loader_wait_s"].append(time.perf_counter() - tw)
+                    if global_step % max(1, cfg.log_every_n_steps) == 0:
+                        self.logger.log({"Charts/lr_step": epoch_lr}, step=global_step)
+                    if on_card:
+                        events.append((torch.cuda.Event(enable_timing=True),
+                                       torch.cuda.Event(enable_timing=True)))
+                        events[-1][0].record()
+                    state, loss = self.train_step(state, batch)
+                    if on_card:
+                        events[-1][1].record()
+                    epoch_losses.append(loss)
+                    global_step += 1
+            state = self.flush_accumulation(state)
+            train_loss = (float(np.mean(torch.stack(epoch_losses).double().cpu().numpy()))
+                          if epoch_losses else float("nan"))
+            self.history["step_ms"].extend(a.elapsed_time(b) for a, b in events)
+            self.history["epoch_s"].append(time.time() - t0)
+            self.logger.log({"train/loss": train_loss, "epoch_time_s": time.time() - t0,
+                             "Charts/lr": current_learning_rate(state.optimizer)}, step=epoch)
+
+            if (epoch + 1) % cfg.check_val_every_n_epoch == 0:
+                tv = time.perf_counter()
+                metrics = self.evaluate(val_loader, state, epoch=epoch)
+                self.history["val_s"].append(time.perf_counter() - tv)
+                acc = metrics["val/accuracy/avg"]
+                if cfg.scheduler == "reduce_on_plateau":
+                    set_learning_rate(state.optimizer,
+                                      self.scheduler(epoch, metrics["val/loss/avg"]))
+                sched_state = (self.scheduler.plateau.state_dict()
+                               if hasattr(self.scheduler, "plateau") else None)
+                tc = time.perf_counter()
+                opt_state = self.opt_state(state)
+                ckpt.save(acc, params=state.params, opt_state=opt_state, epoch=epoch,
+                          scheduler_state=sched_state)
+                if acc > best_acc:
+                    best_acc = acc
+                    save_checkpoint(os.path.join(self.workdir, "best.ckpt"),
+                                    params=state.params, opt_state=opt_state, epoch=epoch,
+                                    best_acc=acc, scheduler_state=sched_state)
+                save_checkpoint(os.path.join(self.workdir, "last.ckpt"), params=state.params,
+                                opt_state=opt_state, epoch=epoch, best_acc=best_acc,
+                                scheduler_state=sched_state)
+                self.history["ckpt_s"].append(time.perf_counter() - tc)
+                if report_callback is not None and report_callback(epoch, acc):
+                    break
+                if early.update(acc):
+                    self.logger.log({"early_stop_epoch": epoch}, step=epoch)
+                    break
+        return state

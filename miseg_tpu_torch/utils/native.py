@@ -1,5 +1,8 @@
-"""ctypes binding to the C++ host resampler (`native/miseg_native.cpp`,
-`resample_affine_f32`): the port's own build of the repository's C ABI.
+"""ctypes bindings to the C++ host ops of `native/miseg_native.cpp`: the
+resampler (`resample_affine_f32`), the exact 3-D Euclidean distance
+transform (`edt3d_f32`) and the binary erosion (`binary_erosion_f32`)
+that the surface distance reads.  The port's own build of the
+repository's C ABI.
 
 The library compiles with g++ at first use (`load()`), with the flags of
 `native/Makefile`, into `_build/` beside this file (listed in
@@ -32,7 +35,7 @@ _lib: ctypes.CDLL | None = None
 def _compiler() -> str:
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: the host resampler is built with g++ "
+        raise RuntimeError("g++ not found: the host ops are built with g++ "
                            "(put it on PATH)")
     return cxx
 
@@ -52,7 +55,7 @@ def library_path(cxx: str | None = None) -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """The loaded resampler library, compiled first if no current build
+    """The loaded host-op library, compiled first if no current build
     exists.  Raises when the compiler is missing or fails."""
     global _lib
     with _lock:
@@ -77,6 +80,12 @@ def load() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int64),
             ctypes.c_int]
         lib.resample_affine_f32.restype = None
+        u8 = ctypes.POINTER(ctypes.c_uint8)
+        lib.edt3d_f32.argtypes = [u8, ctypes.POINTER(ctypes.c_int64),
+                                  ctypes.POINTER(ctypes.c_float)]
+        lib.edt3d_f32.restype = None
+        lib.binary_erosion_f32.argtypes = [u8, ctypes.POINTER(ctypes.c_int64), u8]
+        lib.binary_erosion_f32.restype = None
         _lib = lib
         return lib
 
@@ -107,3 +116,37 @@ def resample_affine(vol: np.ndarray, matrix: np.ndarray, offset: np.ndarray,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), shape.ctypes.data_as(i64),
         ctypes.c_int(order))
     return out
+
+
+def _mask3d(mask: np.ndarray) -> np.ndarray:
+    m = np.ascontiguousarray(mask, dtype=np.uint8)
+    if m.ndim != 3:
+        raise ValueError(f"want a 3-D mask, got shape {m.shape}")
+    return m
+
+
+def edt(target: np.ndarray) -> np.ndarray:
+    """f32 Euclidean distance (in voxels) from every voxel to the nearest
+    true voxel of the 3-D mask `target`;
+    `scipy.ndimage.distance_transform_edt(~target)` computes the same."""
+    t = _mask3d(target)
+    shape = np.asarray(t.shape, dtype=np.int64)
+    out = np.empty(t.shape, dtype=np.float32)
+    load().edt3d_f32(t.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                     shape.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                     out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out
+
+
+def binary_erosion(mask: np.ndarray) -> np.ndarray:
+    """One erosion of the 3-D mask by the 6-neighbour cross, outside the
+    volume counting as true; `scipy.ndimage.binary_erosion(mask,
+    border_value=1)` computes the same."""
+    m = _mask3d(mask)
+    shape = np.asarray(m.shape, dtype=np.int64)
+    out = np.empty(m.shape, dtype=np.uint8)
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    load().binary_erosion_f32(m.ctypes.data_as(u8),
+                              shape.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                              out.ctypes.data_as(u8))
+    return out.astype(bool)
