@@ -18,8 +18,12 @@ Phases, one result line each; any failed check exits non-zero:
                kernel's bound; for K1-K4 also the device times
                (torch.profiler; "not measured" where no session of three
                recorded a kernel a call) of the kernel (and of
-               `torch.var_mean` / `F.conv3d`) at each shape; and the host
-               time of one K1, K2 and K3 wrapper call at a small shape;
+               `torch.var_mean` / `F.conv3d`) at each shape, K1-K3 with
+               L2 flushed before each call (their operands come from HBM,
+               as their byte bounds assume) and, where the operands fit
+               in L2, back to back as well (labelled L2-resident); and
+               the host time of one wrapper call of each kernel at a
+               small shape;
   3. model   — one full-width (feature_size 48, heads 3) window in f32,
                card against CPU, through the fused conv chain (the
                default) and through the unfused path (`fused_conv=False`);
@@ -77,14 +81,30 @@ Phases, one result line each; any failed check exits non-zero:
                values, checkpoints and the resumed epoch, step and lr are
                checked, and `evaluate` of the fs-48 model at 64^3 in f32
                matches the CPU's; ms a step (p50, p95), the loader wait,
-               epoch, validation and test seconds, peak memory.
+               epoch, validation and test seconds, peak memory;
+  8. unetr   — C-UNETR, the JAX package's default model, at the full
+               width of scripts/bench_unetr.py (feature_size 16, hidden
+               768, mlp 3072, 12 heads, 12 blocks, perceptron patchify,
+               `instance_cond` encoder/ViT norms): (a) K4 at its ten conv
+               geometries, K1 + K2 at the ViT's [1,216,768], K2's add
+               and K3 at its tails, against the plain versions in bf16
+               and f32, with times; (b) the 64^3 f32 model card vs CPU on
+               both conv paths; (c) a bf16 bundle serving a 224^3 volume
+               (64 windows) with `UNETR_PER_WINDOW` x 64 launches and a
+               profiled window that ran exactly those kernels; (d) its
+               96^3 bf16 train step as `phase_train`'s (c); (e)
+               `cli.train` for 2 epochs on `phase_fit`'s data set and
+               `cli.test` of best.ckpt, with the launch, metric and
+               Function checks of `phase_fit`.
 Then one JSON line of kernels (with each kernel's launches a train step,
-the JAX VJP its backward follows, and its launches in the fit's train
-steps and evaluations), the card line, and the ok line last.
+the JAX VJP its backward follows, its launches in the fit's train steps
+and evaluations, and its launches in C-UNETR's window, step and fit), the
+card line, and the ok line last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -105,6 +125,20 @@ import torch
 # run and one K2 launch each; one K5 launch per swin block (4 stages x
 # 2).  Each K4 call folds its statistics with one K1 fold launch.
 PER_WINDOW = {"K1": 31, "K2": 29, "K3": 6, "K4": 20, "K5": 8, "K1 fold": 20}
+# how many of the flagship window's K4 launches take the coarse (24^3 and
+# below) and the Cin = 1 kernel; the rest take the brick kernel
+WINDOW_K4 = {"coarse": 12, "cin1": 1}
+# one 96^3 window of C-UNETR (feature_size 16, hidden 768, 12 ViT blocks):
+# its 8 UnetResBlocks (encoder1, encoder2's block0/block1, encoder3's
+# block0, decoder5..decoder2) run two K4 launches each (16; encoder1's
+# conv1 Cin = 1, the 24^3 and 12^3 ones coarse: encoder2's and encoder3's
+# block0, decoder5, decoder4), then the tail: the 5 with a projected
+# residual (encoder1, decoder5..decoder2) one K1 run and one K3 launch,
+# the 3 with an identity residual one K2 launch in its add mode.  The 25
+# ViT norms (2 a block and the final one, over the 216 tokens) are one K1
+# run and one K2 launch each.  No window attention: K5 never runs.
+UNETR_PER_WINDOW = {"K1": 30, "K2": 28, "K3": 5, "K4": 16, "K5": 0, "K1 fold": 16}
+UNETR_WINDOW_K4 = {"coarse": 8, "cin1": 1}
 # K2 at the unfused path's [1, 96^3, 48] (the served path never runs it
 # there: the fused chain covers every 96^3 norm) and at every shape the
 # served window gives it: the identity tails (add mode) are 48^3 x 48,
@@ -122,6 +156,32 @@ FLAGSHIP = dict(model_name="swin_unetr", out_channels=6, feature_size=[48],
                 roi_z=96, encoder_norm_name="instance_cond",
                 vit_norm_name="instance_cond", decoder_norm_name="instance",
                 infer_overlap=0.5, sw_batch_size=1)
+# C-UNETR at full width: scripts/bench_unetr.py:25-31 (pos_embed is the
+# Config default, "perceptron"), 6 classes as the flagship
+UNETR = dict(model_name="unetr", out_channels=6, feature_size=[16], hidden_size=768,
+             mlp_dim=3072, num_heads=12, roi_x=96, roi_y=96, roi_z=96,
+             encoder_norm_name="instance_cond", vit_norm_name="instance_cond",
+             decoder_norm_name="instance", infer_overlap=0.5, sw_batch_size=1)
+# the most voxels, as a share of the 64^3 card-vs-CPU check's, whose CPU
+# top-two margin may lie within twice the logits' largest difference (the
+# voxels whose argmax that check may not hold): about twice the share
+# seen on the H100 (26 of 524,288)
+TIE_SHARE = 1e-4
+# the K4 calls of a C-UNETR window: (label, x shape, Cout, prologue), one
+# line per distinct geometry (a conv2 applies norm1 + leaky on read)
+UNETR_CONVS = [
+    ("encoder1 conv1 (Cin = 1)", (1, 96, 96, 96, 1), 16, False),
+    ("encoder1/decoder2 conv2", (1, 96, 96, 96, 16), 16, True),
+    ("decoder2 conv1", (1, 96, 96, 96, 32), 16, False),
+    ("encoder2 block1/decoder3 conv2", (1, 48, 48, 48, 32), 32, True),
+    ("decoder3 conv1", (1, 48, 48, 48, 64), 32, False),
+    ("encoder2 block0", (1, 24, 24, 24, 32), 32, True),
+    ("encoder3 block0/decoder4 conv2", (1, 24, 24, 24, 64), 64, True),
+    ("decoder4 conv1", (1, 24, 24, 24, 128), 64, False),
+    ("decoder5 conv1", (1, 12, 12, 12, 256), 128, False),
+    ("decoder5 conv2", (1, 12, 12, 12, 128), 128, True),
+]
+L2_FLUSH_BYTES = 128 << 20
 # (memory B/s, dense bf16 FLOP/s) from NVIDIA's data sheets
 PEAKS = {"PCIe": (2.0e12, 756e12), "NVL": (3.9e12, 835e12),
          "SXM": (3.35e12, 989e12)}
@@ -139,8 +199,18 @@ def card_peaks(name: str) -> tuple[float, float, str]:
     return (*PEAKS["SXM"], "H100 SXM")
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of `fn` in ms."""
+def l2_flush(dev):
+    """A callable that overwrites 128 MB on the card, more than the H100's
+    50 MB L2.  Run before each timed call, it leaves none of the call's
+    operands in L2, so the call reads them from HBM and its time is
+    comparable with a byte bound taken at HBM's rate."""
+    buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    return buf.zero_
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
+    """Median CUDA-event time of `fn` in ms; with `flush`, `flush()` runs
+    before each call, outside the events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -148,6 +218,8 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush()
         start.record()
         fn()
         end.record()
@@ -156,15 +228,19 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profiled(run, ok, attempts: int = 3) -> list:
+def profiled(run, ok, attempts: int = 3, lead=None) -> list:
     """The device events torch.profiler records while `run()` runs, from the
     first of `attempts` sessions whose events satisfy `ok(events)`, else
     from the last.  The profiler misses kernels launched right after a
     session starts (and now and then a whole session's), so each session
-    first runs ATen's `spin_kernel` (`torch.cuda._sleep`), left out of the
-    events; a kernel that launches wrongly fails every session.  Device-side
-    user annotations (the optimizer's `Optimizer.step` range) are left out
-    too: they span kernels that are counted on their own."""
+    first runs ATen's `spin_kernel` (`torch.cuda._sleep`) and waits 5 ms
+    on the host; with `lead`, it then runs `lead()` (a call like `run`'s,
+    whose kernels take any such loss) and a second spin kernel, and only
+    the events that start after that spin are `run()`'s.  Spin kernels are
+    left out of the events; a kernel that launches wrongly fails every
+    session.  Device-side user annotations (the optimizer's
+    `Optimizer.step` range) are left out too: they span kernels that are
+    counted on their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -172,19 +248,28 @@ def profiled(run, ok, attempts: int = 3) -> list:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
+            time.sleep(0.005)
+            if lead is not None:
+                lead()
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
             run()
             torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)]
+        spins = [e.time_range.start for e in events if "spin_kernel" in e.name]
+        after = max(spins) if lead is not None and spins else float("-inf")
+        events = [e for e in events
+                  if "spin_kernel" not in e.name and e.time_range.start > after]
         if ok(events):
             break
     return events
 
 
-def device_ms(fn, match: str | None = None, reps: int = 10) -> float | None:
+def device_ms(fn, match: str | None = None, reps: int = 10, flush=None) -> float | None:
     """Device time of one call of `fn` in ms: the summed duration of its
-    kernels (only those whose names hold `match`, if given) under
+    kernels (only those whose names hold `match`, if given; `match` leaves
+    out the kernel of `flush`, which runs before each call) under
     torch.profiler, averaged over `reps` calls.  None where no session
     recorded at least `reps` such kernels: a sum over fewer calls is no
     time of one."""
@@ -196,6 +281,8 @@ def device_ms(fn, match: str | None = None, reps: int = 10) -> float | None:
 
     def calls():
         for _ in range(reps):
+            if flush is not None:
+                flush()
             fn()
 
     events = matching(profiled(calls, lambda ev: len(matching(ev)) >= reps))
@@ -284,6 +371,218 @@ def check_tensor_cores(build) -> None:
               f"{min(counts.values())}..{max(counts.values())}")
 
 
+def hbm_and_l2(fn, match: str, nbytes: int, flush, reps: int = 20) -> dict:
+    """CUDA-event and device ms of `fn` with L2 flushed before each call
+    ("hbm": the operands come from HBM, the time a byte bound is held
+    against) and, where its `nbytes` fit in the 50 MB L2, back to back on
+    the same operands ("l2": L2-resident, faster than HBM allows)."""
+    out = {"hbm": (time_ms(fn, reps=reps, flush=flush), device_ms(fn, match, flush=flush))}
+    if nbytes < 40e6:
+        out["l2"] = (time_ms(fn, reps=reps), device_ms(fn, match))
+    return out
+
+
+def fmt_hbm_l2(times: dict) -> str:
+    line = f"{times['hbm'][0]:.4f} (device {fmt_ms(times['hbm'][1])})"
+    if "l2" in times:
+        line += (f"; L2-resident {times['l2'][0]:.4f} (device "
+                 f"{fmt_ms(times['l2'][1])})")
+    return line
+
+
+def k1_case(shape, dev, gen, mem_bw: float, flush, k2_ms: dict | None = None):
+    """K1 at `shape` with `[2, C]` banks against its plain version in bf16
+    and f32 (relative error 1e-5); in bf16 its times (`hbm_and_l2`), the
+    plain version's and `torch.var_mean`'s beside its byte bound.  Returns
+    (the lines, the bf16 `kernels` row)."""
+    import torch.nn.functional as F
+
+    from miseg_tpu_torch.ops.kernels import fused_norm as fn
+
+    b, s, c = shape
+    lines, row = [], None
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, dtype)
+        gamma = (1 + 0.2 * torch.randn((2, c), generator=gen)).to(dev, dtype)
+        beta = (0.2 * torch.randn((2, c), generator=gen)).to(dev, dtype)
+        styles = torch.tensor([1], dtype=torch.int32, device=dev)
+        scale, shift = fn.channel_scale_shift(x, gamma, beta, styles)
+        rs, rh = fn.channel_scale_shift_plain(x, gamma, beta, styles)
+        e1 = max(max_err(scale, rs) / (1 + float(rs.abs().max())),
+                 max_err(shift, rh) / (1 + float(rh.abs().max())))
+        check(e1 <= 1e-5, f"K1 {shape} {dtype}: relative error {e1:.2e} > 1e-5")
+        lines.append(f"  K1 {list(shape)} {str(dtype)[6:]}: rel err {e1:.2e} (tol 1e-05)")
+        if dtype != torch.bfloat16:
+            continue
+        nbytes = x.numel() * x.element_size()
+        call = lambda: fn.channel_scale_shift(x, gamma, beta, styles)  # noqa: E731
+        k1 = hbm_and_l2(call, "miseg_k1_", nbytes, flush)
+        k1_plain = time_ms(lambda: fn.channel_scale_shift_plain(x, gamma, beta, styles))
+        k1_lib = time_ms(lambda: torch.var_mean(x, dim=1, correction=0), flush=flush)
+        dev_lib = device_ms(lambda: torch.var_mean(x, dim=1, correction=0), "reduce",
+                            flush=flush)
+        b1 = nbytes / mem_bw * 1e3
+        line = (f"    times ms: K1 {fmt_hbm_l2(k1)} (bound {b1:.5f} by bytes), plain "
+                f"{k1_plain:.4f}, torch.var_mean {k1_lib:.4f} (device {fmt_ms(dev_lib)})")
+        side = round(s ** (1 / 3))
+        if k2_ms is not None and shape in k2_ms and side ** 3 == s:
+            xcf = x.reshape(b, side, side, side, c).permute(0, 4, 1, 2, 3)
+            inorm = time_ms(lambda: F.instance_norm(xcf), flush=flush)
+            line += (f"; K1+K2 {k1['hbm'][0] + k2_ms[shape]:.4f} vs F.instance_norm "
+                     f"{inorm:.4f}")
+        lines.append(line)
+        row = dict(ms=k1["hbm"][0], plain_ms=k1_plain, bound_ms=b1, bound_by="bytes",
+                   library_ms=k1_lib, max_abs_err=max(max_err(scale, rs), max_err(shift, rh)))
+    return "\n".join(lines), row
+
+
+def k2_case(shape, dev, gen, mem_bw: float, flush, adds=(False, True)):
+    """K2 at `shape` (without and, with `adds` holding True, with its add)
+    against its plain version in bf16 and f32; in bf16 its times
+    (`hbm_and_l2`) beside its byte bound and the plain version's.  Returns
+    (the line, the bf16 `kernels` row of K2 without its add, the HBM
+    event ms of K2 without its add)."""
+    from miseg_tpu_torch.ops.kernels import fused_norm as fn
+
+    b, s, c = shape
+    slope = 0.01
+    line, timed, row, k2_hbm = f"  K2 {list(shape)}:", "", None, None
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, dtype)
+        add = torch.randn(shape, generator=gen).to(dev, dtype)
+        sc = (1 + 0.3 * torch.randn((b, c), generator=gen)).to(dev)
+        sh = (0.3 * torch.randn((b, c), generator=gen)).to(dev)
+        errs = {}
+        for a in (add if want else None for want in adds):
+            y = fn.apply_scale_shift(x, sc, sh, a, negative_slope=slope)
+            ref = fn.apply_scale_shift_plain(x, sc, sh, a, negative_slope=slope)
+            e, tol = max_err(y, ref), tolerance(ref, dtype)
+            check(e <= tol, f"K2 {shape} {dtype} add={a is not None}: {e:.3e} > {tol:.3e}")
+            errs[a is not None] = e
+            line += (f" {str(dtype)[6:]}{'+add' if a is not None else ''} err {e:.3e} "
+                     f"(tol {tol:.3e});")
+        if dtype != torch.bfloat16:
+            continue
+        nbytes, cols = x.numel() * x.element_size(), 2 * b * c * 4
+        parts = []
+        for with_add in adds:
+            a = add if with_add else None
+            moved = (3 if with_add else 2) * nbytes + cols
+            call = lambda a=a: fn.apply_scale_shift(x, sc, sh, a, negative_slope=slope)  # noqa: E731
+            times = hbm_and_l2(call, "miseg_k2_", moved, flush)
+            label = "K2+add" if with_add else "K2"
+            parts.append(f"{label} {fmt_hbm_l2(times)}, bound {moved / mem_bw * 1e3:.5f} by "
+                         f"bytes")
+            if not with_add:
+                k2_hbm = times["hbm"][0]
+                row = dict(ms=k2_hbm, plain_ms=None, bound_ms=moved / mem_bw * 1e3,
+                           bound_by="bytes", library_ms=None, max_abs_err=errs[False])
+        plain = time_ms(lambda: fn.apply_scale_shift_plain(x, sc, sh, None,
+                                                            negative_slope=slope))
+        if row is not None:
+            row["plain_ms"] = plain
+        timed = "\n    bf16 ms: " + "; ".join(parts) + f"; plain {plain:.4f}"
+    return line + timed, row, k2_hbm
+
+
+def k3_case(shape, dev, gen, mem_bw: float, flush, note: str = ""):
+    """K3 at `shape` against its plain version in bf16 and f32; in bf16
+    its times (`hbm_and_l2`) beside its byte bound and the plain
+    version's.  Returns (the line, the bf16 `kernels` row)."""
+    from miseg_tpu_torch.ops.kernels import fused_norm as fn
+
+    b, s, c = shape
+    slope = 0.01
+    line, timed, row = f"  K3 {list(shape)}{note}:", "", None
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(shape, generator=gen).to(dev, dtype)
+        res = torch.randn(shape, generator=gen).to(dev, dtype)
+        cols = [torch.randn((b, c), generator=gen).to(dev) for _ in range(4)]
+        call = lambda: fn.apply_norm2_act(x, *cols[:2], res, *cols[2:],  # noqa: E731
+                                          negative_slope=slope)
+        y = call()
+        ref = fn.apply_norm2_act_plain(x, *cols[:2], res, *cols[2:], negative_slope=slope)
+        e, tol = max_err(y, ref), tolerance(ref, dtype)
+        check(e <= tol, f"K3 {shape} {dtype}: {e:.3e} > {tol:.3e}")
+        line += f" {str(dtype)[6:]} err {e:.3e} (tol {tol:.3e});"
+        if dtype != torch.bfloat16:
+            continue
+        bound = (3 * x.numel() * x.element_size() + 4 * b * c * 4) / mem_bw * 1e3
+        times = hbm_and_l2(call, "miseg_k3_", bound * mem_bw / 1e3, flush)
+        plain = time_ms(lambda: fn.apply_norm2_act_plain(x, *cols[:2], res, *cols[2:],
+                                                         negative_slope=slope))
+        timed = (f"\n    bf16 ms: K3 {fmt_hbm_l2(times)}, bound {bound:.5f} by bytes; "
+                 f"plain {plain:.4f}")
+        row = dict(ms=times["hbm"][0], plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                   library_ms=None, max_abs_err=e)
+    return line + timed, row
+
+
+def k4_case(label: str, shape, cout: int, prologue: bool, dev, gen, mem_bw: float,
+            bf16_flops: float):
+    """K4 at x `shape` -> `cout` (with norm1's columns + leaky on read when
+    `prologue`) against its plain version in bf16 and f32, its output and
+    its epilogue's columns; in bf16 its CUDA-event and device times, the
+    plain version's and `F.conv3d`'s beside its bound.  Returns (the
+    lines, the bf16 `kernels` row)."""
+    import torch.nn.functional as F
+
+    from miseg_tpu_torch.ops.kernels import fused_conv as fc
+    from miseg_tpu_torch.ops.kernels import fused_norm as fn
+
+    b, cin = shape[0], shape[-1]
+    s_vox = shape[1] * shape[2] * shape[3]
+    lines, row = [], None
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, dtype)
+        w = (torch.randn((cout, cin, 3, 3, 3), generator=gen) / (27 * cin) ** 0.5).to(dev, dtype)
+        kw = dict(gamma=(1 + 0.2 * torch.randn((2, cout), generator=gen)).to(dev, dtype),
+                  beta=(0.2 * torch.randn((2, cout), generator=gen)).to(dev, dtype),
+                  styles=torch.tensor([1], dtype=torch.int32, device=dev))
+        if prologue:
+            kw.update(scale=(1 + 0.3 * torch.randn((b, cin), generator=gen)).to(dev),
+                      shift=(0.3 * torch.randn((b, cin), generator=gen)).to(dev),
+                      slope=0.01)
+        y, sc, sh = fc.conv3_norm_columns(x, w, **kw)
+        ref = fc.conv3_norm_columns_plain(x, w, **kw)[0]
+        e, tol = max_err(y, ref), tolerance(ref, dtype)
+        check(e <= tol, f"K4 {label} {dtype}: {e:.3e} > {tol:.3e}")
+        # the epilogue's columns against the plain fold of the kernel's own
+        # y: isolates the statistics from the conv's rounding
+        rs, rh = fn.channel_scale_shift_plain(y.reshape(b, -1, cout), kw["gamma"],
+                                              kw["beta"], kw["styles"])
+        ec = max(max_err(sc, rs) / (1 + float(rs.abs().max())),
+                 max_err(sh, rh) / (1 + float(rh.abs().max())))
+        check(ec <= 1e-5, f"K4 {label} {dtype}: columns rel err {ec:.2e} > 1e-5")
+        lines.append(f"  K4 {label} {list(shape)}->{cout} {str(dtype)[6:]}: err {e:.3e} "
+                     f"(tol {tol:.3e}), columns rel err {ec:.2e} (tol 1e-05)")
+        if dtype != torch.bfloat16:
+            continue
+        k4 = time_ms(lambda: fc.conv3_norm_columns(x, w, **kw))
+        plain = time_ms(lambda: fc.conv3_norm_columns_plain(x, w, **kw), reps=5)
+        xcf = x.permute(0, 4, 1, 2, 3)   # channels_last_3d, as the unfused path
+        lib = time_ms(lambda: F.conv3d(xcf, w, padding=1))
+        # on the device: at the coarse levels CUDA events time the host
+        dev_k4 = device_ms(lambda: fc.conv3_norm_columns(x, w, **kw), "miseg_k4_")
+        dev_call = device_ms(lambda: fc.conv3_norm_columns(x, w, **kw))
+        dev_lib = device_ms(lambda: F.conv3d(xcf, w, padding=1))
+        nbytes = ((x.numel() + w.numel() + s_vox * b * cout) * x.element_size()
+                  + 2 * b * cin * 4 * prologue + 2 * b * cout * 4
+                  + 2 * kw["gamma"].numel() * x.element_size())
+        flops = 2 * b * s_vox * 27 * cin * cout
+        bound = max(nbytes / mem_bw, flops / bf16_flops) * 1e3
+        by = "bytes" if nbytes / mem_bw >= flops / bf16_flops else "operations"
+        lines.append(f"    times ms: K4 {k4:.4f} (bound {bound:.4f} by {by}: "
+                     f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
+                     f"{flops / k4 / 1e9:.1f} TFLOP/s), plain {plain:.4f}, "
+                     f"F.conv3d {lib:.4f}"
+                     f"\n    device ms: K4 kernel {fmt_ms(dev_k4)} (with its fold "
+                     f"{fmt_ms(dev_call)}), F.conv3d {fmt_ms(dev_lib)}")
+        row = dict(ms=k4, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
+                   max_abs_err=e)
+    return "\n".join(lines), row
+
+
 def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
     import torch.nn.functional as F
 
@@ -297,42 +596,14 @@ def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
     fn._k1(), fn._k23(), fc._entry(), wa._lib()
     gen = torch.Generator().manual_seed(0)
     t0 = time.perf_counter()
-    rows, k2_ms = phase_norm_apply(dev, mem_bw, gen)
+    flush = l2_flush(dev)
+    rows, k2_ms = phase_norm_apply(dev, mem_bw, gen, flush)
     # ---- K1 at main-path norm shapes -------------------------------------
     for shape in [(1, 96 ** 3, 48), (1, 48 ** 3, 48), (1, 27, 3072)]:
-        b, s, c = shape
-        for dtype in (torch.bfloat16, torch.float32):
-            x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, dtype)
-            gamma = (1 + 0.2 * torch.randn((2, c), generator=gen)).to(dev, dtype)
-            beta = (0.2 * torch.randn((2, c), generator=gen)).to(dev, dtype)
-            styles = torch.tensor([1], dtype=torch.int32, device=dev)
-            scale, shift = fn.channel_scale_shift(x, gamma, beta, styles)
-            rs, rh = fn.channel_scale_shift_plain(x, gamma, beta, styles)
-            e1 = max(max_err(scale, rs) / (1 + float(rs.abs().max())),
-                     max_err(shift, rh) / (1 + float(rh.abs().max())))
-            check(e1 <= 1e-5, f"K1 {shape} {dtype}: relative error {e1:.2e} > 1e-5")
-            line = f"  K1 {list(shape)} {str(dtype)[6:]}: rel err {e1:.2e} (tol 1e-05)"
-            if dtype == torch.bfloat16:
-                nbytes = x.numel() * x.element_size()
-                k1 = time_ms(lambda: fn.channel_scale_shift(x, gamma, beta, styles))
-                k1_plain = time_ms(lambda: fn.channel_scale_shift_plain(x, gamma, beta, styles))
-                k1_lib = time_ms(lambda: torch.var_mean(x, dim=1, correction=0))
-                dev_k1 = device_ms(lambda: fn.channel_scale_shift(x, gamma, beta, styles),
-                                   "miseg_k1_")
-                dev_lib = device_ms(lambda: torch.var_mean(x, dim=1, correction=0))
-                side = round(s ** (1 / 3))   # every shape here is a cube
-                xcf = x.reshape(b, side, side, side, c).permute(0, 4, 1, 2, 3)
-                inorm = time_ms(lambda: F.instance_norm(xcf))
-                b1 = nbytes / mem_bw * 1e3
-                line += (f"\n    times ms: K1 {k1:.4f} (bound {b1:.4f}, plain {k1_plain:.4f}, "
-                         f"torch.var_mean {k1_lib:.4f}; device: K1 {fmt_ms(dev_k1)}, "
-                         f"torch.var_mean {fmt_ms(dev_lib)}); K1+K2 {k1 + k2_ms[shape]:.4f} vs "
-                         f"F.instance_norm {inorm:.4f}")
-                if shape == (1, 96 ** 3, 48):
-                    rows["K1"] = dict(ms=k1, plain_ms=k1_plain, bound_ms=b1,
-                                      bound_by="bytes", library_ms=k1_lib,
-                                      max_abs_err=max(max_err(scale, rs), max_err(shift, rh)))
-            print(line)
+        line, row = k1_case(shape, dev, gen, mem_bw, flush, k2_ms)
+        print(line)
+        if shape == (1, 96 ** 3, 48):
+            rows["K1"] = row
     # ---- K1's fold of K4's brick partials (96^3: 3456 a sample, 48^3: 432)
     for side, cout in ((96, 48), (48, 48)):
         s_vox, rows_t = side ** 3, 256
@@ -427,57 +698,10 @@ def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
         ("encoder10 conv2", (1, 3, 3, 3, 768), 768, True),
     ]
     for label, shape, cout, prologue in convs:
-        b, cin = shape[0], shape[-1]
-        s_vox = shape[1] * shape[2] * shape[3]
-        for dtype in (torch.bfloat16, torch.float32):
-            x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, dtype)
-            w = (torch.randn((cout, cin, 3, 3, 3), generator=gen)
-                 / (27 * cin) ** 0.5).to(dev, dtype)
-            kw = dict(gamma=(1 + 0.2 * torch.randn((2, cout), generator=gen)).to(dev, dtype),
-                      beta=(0.2 * torch.randn((2, cout), generator=gen)).to(dev, dtype),
-                      styles=torch.tensor([1], dtype=torch.int32, device=dev))
-            if prologue:
-                kw.update(scale=(1 + 0.3 * torch.randn((b, cin), generator=gen)).to(dev),
-                          shift=(0.3 * torch.randn((b, cin), generator=gen)).to(dev),
-                          slope=0.01)
-            y, sc, sh = fc.conv3_norm_columns(x, w, **kw)
-            ref = fc.conv3_norm_columns_plain(x, w, **kw)[0]
-            e, tol = max_err(y, ref), tolerance(ref, dtype)
-            check(e <= tol, f"K4 {label} {dtype}: {e:.3e} > {tol:.3e}")
-            # the epilogue's columns against the plain fold of the kernel's
-            # own y: isolates the statistics from the conv's rounding
-            rs, rh = fn.channel_scale_shift_plain(y.reshape(b, -1, cout), kw["gamma"],
-                                                  kw["beta"], kw["styles"])
-            ec = max(max_err(sc, rs) / (1 + float(rs.abs().max())),
-                     max_err(sh, rh) / (1 + float(rh.abs().max())))
-            check(ec <= 1e-5, f"K4 {label} {dtype}: columns rel err {ec:.2e} > 1e-5")
-            line = (f"  K4 {label} {list(shape)}->{cout} {str(dtype)[6:]}: err {e:.3e} "
-                    f"(tol {tol:.3e}), columns rel err {ec:.2e} (tol 1e-05)")
-            if dtype == torch.bfloat16:
-                k4 = time_ms(lambda: fc.conv3_norm_columns(x, w, **kw))
-                plain = time_ms(lambda: fc.conv3_norm_columns_plain(x, w, **kw), reps=5)
-                xcf = x.permute(0, 4, 1, 2, 3)   # channels_last_3d, as the unfused path
-                lib = time_ms(lambda: F.conv3d(xcf, w, padding=1))
-                # on the device: at the coarse levels CUDA events time the host
-                dev_k4 = device_ms(lambda: fc.conv3_norm_columns(x, w, **kw), "miseg_k4_")
-                dev_call = device_ms(lambda: fc.conv3_norm_columns(x, w, **kw))
-                dev_lib = device_ms(lambda: F.conv3d(xcf, w, padding=1))
-                nbytes = ((x.numel() + w.numel() + s_vox * b * cout) * x.element_size()
-                          + 2 * b * cin * 4 * prologue + 2 * b * cout * 4
-                          + 2 * kw["gamma"].numel() * x.element_size())
-                flops = 2 * b * s_vox * 27 * cin * cout
-                bound = max(nbytes / mem_bw, flops / bf16_flops) * 1e3
-                by = "bytes" if nbytes / mem_bw >= flops / bf16_flops else "operations"
-                line += (f"\n    times ms: K4 {k4:.4f} (bound {bound:.4f} by {by}: "
-                         f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
-                         f"{flops / k4 / 1e9:.1f} TFLOP/s), plain {plain:.4f}, "
-                         f"F.conv3d {lib:.4f}"
-                         f"\n    device ms: K4 kernel {fmt_ms(dev_k4)} (with its fold "
-                         f"{fmt_ms(dev_call)}), F.conv3d {fmt_ms(dev_lib)}")
-                if label == "encoder1/decoder1 conv2":
-                    rows["K4"] = dict(ms=k4, plain_ms=plain, bound_ms=bound, bound_by=by,
-                                      library_ms=lib, max_abs_err=e)
-            print(line)
+        line, row = k4_case(label, shape, cout, prologue, dev, gen, mem_bw, bf16_flops)
+        print(line)
+        if label == "encoder1/decoder1 conv2":
+            rows["K4"] = row
     torch.cuda.synchronize()
     host_cost(dev)
     print(f"kernels: K1, K1 fold, K2, K3, K4, K5 match their plain versions at main-path "
@@ -485,84 +709,33 @@ def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
     return rows
 
 
-def phase_norm_apply(dev, mem_bw: float, gen) -> tuple[dict, dict]:
+def phase_norm_apply(dev, mem_bw: float, gen, flush) -> tuple[dict, dict]:
     """K2 (with and without its add) at `K2_SHAPES` and K3 at `K3_SHAPES`
     against their plain versions in bf16 and f32, with CUDA-event and
-    device times and byte bounds in bf16.  Returns the `kernels` rows of K2
-    (at [1, 48^3, 48], its largest served shape) and K3 (at [1, 96^3, 48]),
-    and K2's event ms by shape."""
-    from miseg_tpu_torch.ops.kernels import fused_norm as fn
-
+    device times (from HBM, and L2-resident where the operands fit) and
+    byte bounds in bf16.  Returns the `kernels` rows of K2 (at [1, 48^3,
+    48], its largest served shape) and K3 (at [1, 96^3, 48]), and K2's
+    HBM event ms by shape."""
     rows, k2_ms = {}, {}
-    slope = 0.01
     for shape in K2_SHAPES:
-        b, s, c = shape
-        line, timed = f"  K2 {list(shape)}:", ""
-        for dtype in (torch.bfloat16, torch.float32):
-            x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, dtype)
-            add = torch.randn(shape, generator=gen).to(dev, dtype)
-            sc = (1 + 0.3 * torch.randn((b, c), generator=gen)).to(dev)
-            sh = (0.3 * torch.randn((b, c), generator=gen)).to(dev)
-            errs = []
-            for a in (None, add):
-                y = fn.apply_scale_shift(x, sc, sh, a, negative_slope=slope)
-                ref = fn.apply_scale_shift_plain(x, sc, sh, a, negative_slope=slope)
-                e, tol = max_err(y, ref), tolerance(ref, dtype)
-                check(e <= tol, f"K2 {shape} {dtype} add={a is not None}: {e:.3e} > {tol:.3e}")
-                errs.append(e)
-                line += (f" {str(dtype)[6:]}{'+add' if a is not None else ''} err {e:.3e} "
-                         f"(tol {tol:.3e});")
-            if dtype != torch.bfloat16:
-                continue
-            nbytes, cols = x.numel() * x.element_size(), 2 * b * c * 4
-            times = {}
-            for label, a in (("K2", None), ("K2+add", add)):
-                call = lambda a=a: fn.apply_scale_shift(x, sc, sh, a, negative_slope=slope)  # noqa: E731
-                times[label] = (time_ms(call), device_ms(call, "miseg_k2_"),
-                                ((3 if a is not None else 2) * nbytes + cols) / mem_bw * 1e3)
-            plain = time_ms(lambda: fn.apply_scale_shift_plain(x, sc, sh, None,
-                                                                negative_slope=slope))
-            timed = "\n    bf16 ms: " + "; ".join(
-                f"{k} {ev:.4f} (device {fmt_ms(dv)}, bound {bd:.5f} by bytes)"
-                for k, (ev, dv, bd) in times.items()) + f"; plain {plain:.4f}"
-            k2_ms[shape] = times["K2"][0]
-            if shape == (1, 48 ** 3, 48):
-                rows["K2"] = dict(ms=times["K2"][0], plain_ms=plain, bound_ms=times["K2"][2],
-                                  bound_by="bytes", library_ms=None, max_abs_err=errs[0])
-        print(line + timed)
+        line, row, k2_ms[shape] = k2_case(shape, dev, gen, mem_bw, flush)
+        print(line)
+        if shape == (1, 48 ** 3, 48):
+            rows["K2"] = row
     for shape in K3_SHAPES:
-        b, s, c = shape
         note = " (off the served path)" if shape in K3_OFF_PATH else ""
-        line, timed = f"  K3 {list(shape)}{note}:", ""
-        for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn(shape, generator=gen).to(dev, dtype)
-            res = torch.randn(shape, generator=gen).to(dev, dtype)
-            cols = [torch.randn((b, c), generator=gen).to(dev) for _ in range(4)]
-            call = lambda: fn.apply_norm2_act(x, *cols[:2], res, *cols[2:],  # noqa: E731
-                                              negative_slope=slope)
-            y = call()
-            ref = fn.apply_norm2_act_plain(x, *cols[:2], res, *cols[2:], negative_slope=slope)
-            e, tol = max_err(y, ref), tolerance(ref, dtype)
-            check(e <= tol, f"K3 {shape} {dtype}: {e:.3e} > {tol:.3e}")
-            line += f" {str(dtype)[6:]} err {e:.3e} (tol {tol:.3e});"
-            if dtype != torch.bfloat16:
-                continue
-            k3, dev_k3 = time_ms(call), device_ms(call, "miseg_k3_")
-            plain = time_ms(lambda: fn.apply_norm2_act_plain(x, *cols[:2], res, *cols[2:],
-                                                             negative_slope=slope))
-            bound = (3 * x.numel() * x.element_size() + 4 * b * c * 4) / mem_bw * 1e3
-            timed = (f"\n    bf16 ms: K3 {k3:.4f} (device {fmt_ms(dev_k3)}, bound {bound:.5f} "
-                     f"by bytes); plain {plain:.4f}")
-            if shape == (1, 96 ** 3, 48):
-                rows["K3"] = dict(ms=k3, plain_ms=plain, bound_ms=bound, bound_by="bytes",
-                                  library_ms=None, max_abs_err=e)
-        print(line + timed)
+        line, row = k3_case(shape, dev, gen, mem_bw, flush, note)
+        print(line)
+        if shape == (1, 96 ** 3, 48):
+            rows["K3"] = row
     return rows, k2_ms
 
 
 def host_cost(dev, calls: int = 200, rounds: int = 5) -> None:
     """Host time of one wrapper call of K1, K2 (with and without its add)
-    and K3 at [1, 27, 768] bf16: `calls` back-to-back calls after a
+    and K3 at [1, 27, 768] bf16, K4 (with its fold) at [1, 12^3, 128] ->
+    128 with `[2, 128]` banks and K5 at [8, 27, 32] with 2 heads and no
+    mask, all bf16: `calls` back-to-back calls after a
     synchronize, on the host clock up to the last call's return (the
     device work is a few us a call, so the host sets the pace), median of
     `rounds` rounds, the kernels taken in turns, in reverse order every
@@ -572,12 +745,23 @@ def host_cost(dev, calls: int = 200, rounds: int = 5) -> None:
     (the wrappers run inside their autograd Functions, as in training).
     The host's speed swings between runs: compare kernels within a run,
     K1 being the same code in the trees compared so far."""
+    from miseg_tpu_torch.ops.kernels import fused_conv as fc
     from miseg_tpu_torch.ops.kernels import fused_norm as fn
+    from miseg_tpu_torch.ops.kernels import window_attention as wa
 
     gen = torch.Generator().manual_seed(5)
-    base = [torch.randn((1, 27, 768), generator=gen).to(dev, torch.bfloat16) for _ in range(2)]
+    bf = torch.bfloat16
+    base = [torch.randn((1, 27, 768), generator=gen).to(dev, bf) for _ in range(2)]
+    base_conv = torch.randn((1, 12, 12, 12, 128), generator=gen).to(dev, bf)
+    w = (torch.randn((128, 128, 3, 3, 3), generator=gen) / 1728 ** 0.5).to(dev, bf)
+    banks = [(m + 0.2 * torch.randn((2, 128), generator=gen)).to(dev, bf) for m in (1.0, 0.0)]
+    styles = torch.tensor([1], dtype=torch.int32, device=dev)
+    base_qkv = torch.randn((8, 27, 96), generator=gen).to(dev, bf)
+    bias = torch.randn((2, 27, 27), generator=gen).to(dev)
     for grad in (False, True):
         x, r = (t.detach().requires_grad_(grad) for t in base)
+        xc, qkv = (t.detach().requires_grad_(grad) for t in (base_conv, base_qkv))
+        q, k, v = qkv[..., :32], qkv[..., 32:64], qkv[..., 64:]
         with torch.no_grad():
             sc, sh = fn.channel_scale_shift(x)
         calls_of = {
@@ -585,6 +769,9 @@ def host_cost(dev, calls: int = 200, rounds: int = 5) -> None:
             "K2": lambda: fn.apply_scale_shift(x, sc, sh, negative_slope=0.01),
             "K2+add": lambda: fn.apply_scale_shift(x, sc, sh, r, negative_slope=0.01),
             "K3": lambda: fn.apply_norm2_act(x, sc, sh, r, sc, sh, negative_slope=0.01),
+            "K4": lambda: fc.conv3_norm_columns(xc, w, gamma=banks[0], beta=banks[1],
+                                                styles=styles),
+            "K5": lambda: wa.window_attention(q, k, v, bias, None, num_heads=2),
         }
         took: dict[str, list[tuple[float, float]]] = {k: [] for k in calls_of}
         with torch.enable_grad() if grad else torch.inference_mode():
@@ -601,7 +788,8 @@ def host_cost(dev, calls: int = 200, rounds: int = 5) -> None:
                     t2 = time.perf_counter()
                     took[name].append(((t1 - t0) / calls * 1e6, (t2 - t0) / calls * 1e6))
         mode = "grad mode, in the autograd Functions" if grad else "inference mode, as served"
-        print(f"host ({mode}): us a wrapper call at [1,27,768] bf16 ({calls} calls after a "
+        print(f"host ({mode}): us a wrapper call, bf16, K1-K3 at [1,27,768], K4 at "
+              f"[1,12^3,128]->128, K5 at [8,27,32] h2 ({calls} calls after a "
               f"synchronize, median of {rounds} rounds; to the last return / to the end of the "
               f"synchronize): "
               + ", ".join(f"{k} {statistics.median(a for a, _ in v):.2f} / "
@@ -726,7 +914,7 @@ _GROUPS = [("K1", ("miseg_k1_",)), ("K2", ("miseg_k2_",)),
            ("K3", ("miseg_k3_",)), ("K4", ("miseg_k4_",)),
            ("K5", ("miseg_k5_", "window_attention_kernel")),
            ("conv (cuDNN)", ("conv", "xmma", "implicit", "cudnn", "fprop", "dgrad", "wgrad")),
-           ("linear (GEMM)", ("gemm", "cutlass", "gemv")),
+           ("linear (GEMM)", ("gemm", "cutlass", "gemv", "nvjet")),
            ("copy/pad/cat/roll", ("copy", "cat", "pad", "roll", "index", "gather")),
            ("optimizer (foreach)", ("multi_tensor",)),
            ("softmax", ("softmax",)),
@@ -748,12 +936,13 @@ def kernel_groups(kernels, reps: int) -> tuple[dict, dict]:
     return by_name, groups
 
 
-def window_faults(kernels, reps: int) -> list[str]:
-    """What is wrong with the device kernels of `reps` bf16 96^3 windows:
-    every bf16 conv is one K4 kernel (the 12 below 48^3 the coarse one,
-    encoder1's Cin = 1 conv the Cin = 1 one), every K1 call and every fold
-    one CUDA K1 kernel, every K2 and K3 call one CUDA kernel (the
-    templates' `<...>` is in their names only), and no retired kernel."""
+def window_faults(kernels, reps: int, per: dict = PER_WINDOW, k4: dict = WINDOW_K4) -> list[str]:
+    """What is wrong with the device kernels of `reps` bf16 96^3 windows of
+    a model that launches `per` (the launch counters' keys) a window, `k4`
+    of its K4 launches taking the coarse and the Cin = 1 kernel: every bf16
+    conv is one K4 kernel, every K1 call and every fold one CUDA K1 kernel,
+    every K2, K3 and K5 call one CUDA kernel (the K2/K3 templates' `<...>`
+    is in their names only), and no retired kernel."""
     if not kernels:
         return ["the profiler recorded no device events"]
     faults = []
@@ -762,32 +951,38 @@ def window_faults(kernels, reps: int) -> list[str]:
         "miseg_k1_stats_partial", "miseg_k1_stats_merge", "miseg_k1_stats_fold"))})
     if retired:
         faults.append(f"the bf16 window launched {retired}")
-    k4 = [e.name for e in kernels if "miseg_k4_" in e.name]
-    coarse = sum("miseg_k4_conv_coarse" in n for n in k4)
-    cin1 = sum("miseg_k4_conv_cin1" in n for n in k4)
-    if not (len(k4) == PER_WINDOW["K4"] * reps and coarse == 12 * reps and cin1 == reps):
-        faults.append(f"{len(k4) / reps} K4 kernels a window, {coarse / reps} coarse, "
-                      f"{cin1 / reps} Cin = 1; want {PER_WINDOW['K4']}, 12 and 1")
+    k4_names = [e.name for e in kernels if "miseg_k4_" in e.name]
+    coarse = sum("miseg_k4_conv_coarse" in n for n in k4_names)
+    cin1 = sum("miseg_k4_conv_cin1" in n for n in k4_names)
+    if not (len(k4_names) == per["K4"] * reps and coarse == k4["coarse"] * reps
+            and cin1 == k4["cin1"] * reps):
+        faults.append(f"{len(k4_names) / reps} K4 kernels a window, {coarse / reps} coarse, "
+                      f"{cin1 / reps} Cin = 1; want {per['K4']}, {k4['coarse']} and "
+                      f"{k4['cin1']}")
     k1 = [e.name for e in kernels if "miseg_k1_" in e.name]
     cuda_k1 = sum("miseg_k1_stats<" in n or "miseg_k1_fold" in n for n in k1)
-    if not (len(k1) == (PER_WINDOW["K1"] + PER_WINDOW["K1 fold"]) * reps
-            and cuda_k1 == len(k1)):
+    if not (len(k1) == (per["K1"] + per["K1 fold"]) * reps and cuda_k1 == len(k1)):
         faults.append(f"{len(k1) / reps} K1 kernels a window, {cuda_k1 / reps} of them the "
-                      f"CUDA statistics and fold kernels; "
-                      f"want {PER_WINDOW['K1'] + PER_WINDOW['K1 fold']}")
+                      f"CUDA statistics and fold kernels; want {per['K1'] + per['K1 fold']}")
     for key, cuda_name in (("K2", "miseg_k2_apply<"), ("K3", "miseg_k3_apply2<")):
         names = [e.name for e in kernels if f"miseg_{key.lower()}_" in e.name]
         cuda = sum(cuda_name in n for n in names)
-        if not (len(names) == PER_WINDOW[key] * reps and cuda == len(names)):
+        if not (len(names) == per[key] * reps and cuda == len(names)):
             faults.append(f"{len(names) / reps} {key} kernels a window, {cuda / reps} of "
-                          f"them the CUDA ones; want {PER_WINDOW[key]}")
+                          f"them the CUDA ones; want {per[key]}")
+    k5 = [e.name for e in kernels if "miseg_k5_" in e.name or "window_attention" in e.name]
+    if len(k5) != per["K5"] * reps or any("miseg_k5_attn_mma" not in n for n in k5):
+        faults.append(f"{len(k5) / reps} K5 kernels a window; want {per['K5']}, all "
+                      f"miseg_k5_attn_mma")
     return faults
 
 
-def profile_window(served, dev, reps: int = 3) -> None:
+def profile_window(served, dev, reps: int = 3, per: dict = PER_WINDOW,
+                   k4: dict = WINDOW_K4, label: str = "one 96^3 window") -> None:
     """Where one 96^3 window's time goes: device time by kernel group over
     `reps` window forwards under torch.profiler, and the device idle share
-    of the wall time.  Fails on any of `window_faults` in every session."""
+    of the wall time.  Fails on any of `window_faults(..., per, k4)` in
+    every session."""
     gen = torch.Generator().manual_seed(3)
     window = torch.rand((1, 96, 96, 96, 1), generator=gen).to(dev)
     mods = torch.tensor([0], dtype=torch.int32, device=dev)
@@ -809,14 +1004,16 @@ def profile_window(served, dev, reps: int = 3) -> None:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / reps)
 
-    kernels = profiled(windows, lambda ev: not window_faults(ev, reps))
-    faults = window_faults(kernels, reps)
+    kernels = profiled(windows, lambda ev: not window_faults(ev, reps, per, k4),
+                       lead=lambda: served(window, mods))
+    faults = window_faults(kernels, reps, per, k4)
     check(not faults, f"profile ({len(walls)} sessions, window {event_ms:.2f} ms by CUDA "
-                      f"events): " + "; ".join(faults))
+                      f"events): " + "; ".join(faults) + "; the last session's first "
+                      f"kernels: {[e.name[:60] for e in kernels[:8]]}")
     wall_ms = walls[-1]
     by_name, groups = kernel_groups(kernels, reps)
     busy = sum(groups.values())
-    print(f"profile: one 96^3 window, bf16, {reps} reps: {event_ms:.2f} ms by CUDA events; "
+    print(f"profile: {label}, bf16, {reps} reps: {event_ms:.2f} ms by CUDA events; "
           f"under the profiler {wall_ms:.2f} ms wall, {busy:.2f} ms device busy "
           f"(idle share {max(0.0, 1 - busy / wall_ms):.1%}), {len(kernels) // reps} kernels; "
           f"profiler sessions {len(walls)}")
@@ -1313,20 +1510,23 @@ def synthetic_case(size: int, classes: int, gen):
     return image, label
 
 
-def train_full(dev, card: str, warmup: int = 2, steps: int = 10) -> dict:
-    """(c) The flagship's training step at full width: 96^3, batch 1, bf16
-    compute with f32 masters, AdamW, `dice_focal`, on one fixed seeded
-    batch.  Returns the launches of each kernel in one step."""
+def train_full(dev, card: str, warmup: int = 2, steps: int = 10, model: dict = FLAGSHIP,
+               per: dict = PER_WINDOW, k4: dict = WINDOW_K4) -> dict:
+    """(c) The training step of `model` (the flagship unless given) at full
+    width: 96^3, batch 1, bf16 compute with f32 masters, AdamW,
+    `dice_focal`, on one fixed seeded batch; one step's forward must
+    launch `per`, its profile pass `window_faults(..., per, k4)`.  Returns
+    the launches of each kernel in one step."""
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.train.engine import Trainer
 
-    cfg = Config(**FLAGSHIP)
+    cfg = Config(**model)
     gen = torch.Generator().manual_seed(8)
     image, label = synthetic_case(96, cfg.out_channels, gen)
     batch = {"image": image.to(dev), "label": label.to(dev),
              "modality": torch.tensor([0], dtype=torch.int32, device=dev)}
     trainer = Trainer(cfg, device=dev)
-    check(trainer.compute_dtype == torch.bfloat16, "train: the flagship does not compute in bf16")
+    check(trainer.compute_dtype == torch.bfloat16, f"train {cfg.model_name}: not bf16")
     state = trainer.init_state()
     losses, ms = [], []
     torch.cuda.synchronize()
@@ -1345,12 +1545,13 @@ def train_full(dev, card: str, warmup: int = 2, steps: int = 10) -> dict:
         if i >= warmup:
             ms.append(start.elapsed_time(end))
     peak = torch.cuda.max_memory_allocated()
-    check(counts == PER_WINDOW, f"train: one step launched {counts}, want {PER_WINDOW}")
-    check(all(math.isfinite(v) for v in losses), f"train: losses {losses}")
-    check(losses[-1] < losses[0], f"train: loss did not fall: {losses[0]:.5f} -> {losses[-1]:.5f}")
+    check(counts == per, f"train {cfg.model_name}: one step launched {counts}, want {per}")
+    check(all(math.isfinite(v) for v in losses), f"train {cfg.model_name}: losses {losses}")
+    check(losses[-1] < losses[0], f"train {cfg.model_name}: loss did not fall: "
+                                  f"{losses[0]:.5f} -> {losses[-1]:.5f}")
     bad = [n for n, p in state.params.items()
            if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
-    check(not bad, f"train: {len(bad)} parameters with a missing, non-finite or zero "
+    check(not bad, f"train {cfg.model_name}: {len(bad)} parameters with a missing, non-finite or zero "
                    f"gradient, e.g. {bad[:3]}")
 
     walls = []
@@ -1361,12 +1562,15 @@ def train_full(dev, card: str, warmup: int = 2, steps: int = 10) -> dict:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
 
-    kernels = profiled(one_step, lambda ev: not window_faults(ev, 1))
-    faults = window_faults(kernels, 1)
-    check(not faults, "train profile: " + "; ".join(faults))
+    kernels = profiled(one_step, lambda ev: not window_faults(ev, 1, per, k4),
+                       lead=lambda: trainer.train_step(state, batch))
+    faults = window_faults(kernels, 1, per, k4)
+    check(not faults, f"train {cfg.model_name} profile: " + "; ".join(faults)
+          + f"; the last session's first kernels: {[e.name[:60] for e in kernels[:8]]}")
     by_name, groups = kernel_groups(kernels, 1)
     busy = sum(groups.values())
-    print(f"  train step fs48 96^3 bf16 (f32 masters), batch 1, AdamW, dice_focal on '{card}': "
+    print(f"  train step {cfg.model_name} fs{cfg.feature_size_scalar} 96^3 bf16 (f32 masters), "
+          f"batch 1, AdamW, dice_focal on '{card}': "
           f"{statistics.median(ms):.2f} ms a step by CUDA events (median of {steps} after "
           f"{warmup} warm-up; min {min(ms):.2f}, max {max(ms):.2f}); one profiled step "
           f"{walls[-1]:.2f} ms wall, {busy:.2f} ms device busy (idle share "
@@ -1497,6 +1701,73 @@ def pct(values, q: float) -> float:
     return float(torch.quantile(torch.tensor(values, dtype=torch.float64), q))
 
 
+@contextlib.contextmanager
+def counting_fit():
+    """While the block runs: the launch counts of every `Trainer.train_step`
+    (`rec["steps"]`), of every `Trainer.evaluate` with its prefix, windows,
+    seconds and seconds of surface distance (`rec["evals"]`), and the
+    autograd Functions applied inside an evaluate (`rec["applied"]`), by
+    wrapping the two methods at class level and
+    `torch.autograd.Function.apply`; all three are restored after."""
+    from miseg_tpu_torch.train import engine
+
+    rec = {"steps": [], "evals": [], "applied": []}
+    in_eval = []
+    train_step, evaluate = engine.Trainer.train_step, engine.Trainer.evaluate
+    function_apply = torch.autograd.Function.__dict__["apply"]
+
+    def counted_step(self, state, batch):
+        reset_launches()
+        out = train_step(self, state, batch)
+        rec["steps"].append(launch_counts())
+        return out
+
+    def counted_evaluate(self, loader, state, **kw):
+        reset_launches()
+        n_windows, n_surface = len(self.history["eval_windows"]), len(self.history["surface_s"])
+        in_eval.append(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            metrics = evaluate(self, loader, state, **kw)
+        finally:
+            in_eval.pop()
+        torch.cuda.synchronize()
+        rec["evals"].append(dict(prefix=kw.get("prefix", "val"), counts=launch_counts(),
+                                 windows=sum(self.history["eval_windows"][n_windows:]),
+                                 s=time.perf_counter() - t0,
+                                 surface_s=sum(self.history["surface_s"][n_surface:])))
+        return metrics
+
+    def counting_apply(cls, *args, **kwargs):
+        if in_eval:
+            rec["applied"].append(cls.__name__)
+        return function_apply.__func__(cls, *args, **kwargs)
+
+    engine.Trainer.train_step, engine.Trainer.evaluate = counted_step, counted_evaluate
+    torch.autograd.Function.apply = classmethod(counting_apply)
+    try:
+        yield rec
+    finally:
+        engine.Trainer.train_step, engine.Trainer.evaluate = train_step, evaluate
+        torch.autograd.Function.apply = function_apply
+
+
+def check_fit_launches(label: str, rec: dict, per: dict) -> None:
+    """Every train step of `rec` (`counting_fit`) launched `per`, every
+    evaluate `per` x its windows, and no autograd Function ran in one."""
+    bad = [c for c in rec["steps"] if c != per]
+    check(not bad, f"{label}: {len(bad)} train steps launched other counts than {per}, "
+                   f"e.g. {bad[:1]}")
+    for ev in rec["evals"]:
+        want = {k: n * ev["windows"] for k, n in per.items()}
+        check(ev["windows"] > 0 and ev["counts"] == want,
+              f"{label}: a {ev['prefix']} evaluate of {ev['windows']} windows launched "
+              f"{ev['counts']}, want {want}")
+    check(not rec["applied"], f"{label}: {len(rec['applied'])} autograd Functions ran in "
+                              f"evaluate, e.g. {rec['applied'][:3]}")
+
+
 def phase_fit(dev, card: str, shape=(192, 192, 160), small: int = 64) -> dict:
     """A training run through the normal entry points on the card:
     `cli.train.main` fits the flagship (full width, bf16, batch 1, one 96^3
@@ -1511,43 +1782,11 @@ def phase_fit(dev, card: str, shape=(192, 192, 160), small: int = 64) -> dict:
     from miseg_tpu_torch.cli import train as cli_train
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
-    from miseg_tpu_torch.train import engine, schedules
+    from miseg_tpu_torch.train import schedules
     from miseg_tpu_torch.train.checkpoint import load_checkpoint
     from miseg_tpu_torch.train.optim import current_learning_rate
 
     t_phase = time.perf_counter()
-    step_counts, evals, applied, in_eval = [], [], [], []
-    train_step, evaluate = engine.Trainer.train_step, engine.Trainer.evaluate
-    function_apply = torch.autograd.Function.__dict__["apply"]
-
-    def counted_step(self, state, batch):
-        reset_launches()
-        out = train_step(self, state, batch)
-        step_counts.append(launch_counts())
-        return out
-
-    def counted_evaluate(self, loader, state, **kw):
-        reset_launches()
-        n_windows, n_surface = len(self.history["eval_windows"]), len(self.history["surface_s"])
-        in_eval.append(True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            metrics = evaluate(self, loader, state, **kw)
-        finally:
-            in_eval.pop()
-        torch.cuda.synchronize()
-        evals.append(dict(prefix=kw.get("prefix", "val"), counts=launch_counts(),
-                          windows=sum(self.history["eval_windows"][n_windows:]),
-                          s=time.perf_counter() - t0,
-                          surface_s=sum(self.history["surface_s"][n_surface:])))
-        return metrics
-
-    def counting_apply(cls, *args, **kwargs):
-        if in_eval:
-            applied.append(cls.__name__)
-        return function_apply.__func__(cls, *args, **kwargs)
-
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp) / "data"
         t0 = time.perf_counter()
@@ -1561,9 +1800,7 @@ def phase_fit(dev, card: str, shape=(192, 192, 160), small: int = 64) -> dict:
                         "num_workers": 2, "cache_num": 8, "log_every_n_steps": 1,
                         "default_root_dir": str(Path(tmp) / "runs"),
                         "experiment_name": "flagship"})
-        engine.Trainer.train_step, engine.Trainer.evaluate = counted_step, counted_evaluate
-        torch.autograd.Function.apply = classmethod(counting_apply)
-        try:
+        with counting_fit() as rec:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -1571,7 +1808,7 @@ def phase_fit(dev, card: str, shape=(192, 192, 160), small: int = 64) -> dict:
             fit_s = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated()
             workdir = Path(cfg.default_root_dir) / "flagship"
-            fit_steps, fit_evals = len(step_counts), len(evals)
+            fit_steps, fit_evals = len(rec["steps"]), len(rec["evals"])
             resume_cfg = cfg.replace(max_epochs=4, ckpt_path=str(workdir / "last.ckpt"),
                                      experiment_name="flagship_resumed")
             t0 = time.perf_counter()
@@ -1581,24 +1818,13 @@ def phase_fit(dev, card: str, shape=(192, 192, 160), small: int = 64) -> dict:
             cli_metrics = cli_test.main(cfg.replace(ckpt_path=str(workdir / "best.ckpt")),
                                         device=dev)
             test_s = time.perf_counter() - t0
-        finally:
-            engine.Trainer.train_step, engine.Trainer.evaluate = train_step, evaluate
-            torch.autograd.Function.apply = function_apply
+        step_counts, evals = rec["steps"], rec["evals"]
 
         # ---- launches and autograd -------------------------------------
         check(fit_steps == 12 and len(step_counts) == 16,
               f"fit: {fit_steps} train steps in 3 epochs, {len(step_counts)} with the resumed "
               f"epoch (want 12, 16)")
-        bad = [c for c in step_counts if c != PER_WINDOW]
-        check(not bad, f"fit: {len(bad)} train steps launched other counts than "
-                       f"{PER_WINDOW}, e.g. {bad[:1]}")
-        for ev in evals:
-            want = {k: per * ev["windows"] for k, per in PER_WINDOW.items()}
-            check(ev["windows"] > 0 and ev["counts"] == want,
-                  f"fit: a {ev['prefix']} evaluate of {ev['windows']} windows launched "
-                  f"{ev['counts']}, want {want}")
-        check(not applied, f"fit: {len(applied)} autograd Functions ran in evaluate, e.g. "
-                           f"{applied[:3]}")
+        check_fit_launches("fit", rec, PER_WINDOW)
         # ---- metrics, checkpoints, resume --------------------------------
         lines = [json.loads(ln) for ln in open(workdir / "metrics.jsonl")]
         vals = [ln for ln in lines if "val/loss/avg" in ln]
@@ -1680,6 +1906,204 @@ def phase_fit(dev, card: str, shape=(192, 192, 160), small: int = 64) -> dict:
     return {"train": train_total, "eval": val_total}
 
 
+def unetr_kernels(dev, mem_bw: float, bf16_flops: float) -> None:
+    """(a) The kernels at C-UNETR's shapes against their plain versions in
+    bf16 and f32, with times beside their bounds: K4 at its ten window
+    geometries (`UNETR_CONVS`: the Cin = 1 conv to 16 channels, the brick
+    kernel at 16 and 32 output channels, the coarse kernel up to 256 ->
+    128 at 12^3), K1 with `[2, 768]` banks and K2 at the ViT's token
+    tensor [1, 216, 768] and K1 (`[2, C]` banks) at the four
+    projected-residual norm3 tensors, K2's add mode at the three identity
+    tails and K3 at the projected-residual tails."""
+    gen = torch.Generator().manual_seed(13)
+    flush = l2_flush(dev)
+    for label, shape, cout, prologue in UNETR_CONVS:
+        print(k4_case(label, shape, cout, prologue, dev, gen, mem_bw, bf16_flops)[0])
+    for shape in ((1, 216, 768), (1, 96 ** 3, 16), (1, 48 ** 3, 32), (1, 24 ** 3, 64),
+                  (1, 12 ** 3, 128)):
+        print(k1_case(shape, dev, gen, mem_bw, flush)[0])
+    print(k2_case((1, 216, 768), dev, gen, mem_bw, flush, adds=(False,))[0])
+    for shape in ((1, 48 ** 3, 32), (1, 24 ** 3, 32), (1, 24 ** 3, 64)):
+        print(k2_case(shape, dev, gen, mem_bw, flush, adds=(True,))[0])
+    for shape in ((1, 96 ** 3, 16), (1, 48 ** 3, 32), (1, 24 ** 3, 64), (1, 12 ** 3, 128)):
+        print(k3_case(shape, dev, gen, mem_bw, flush)[0])
+
+
+def unetr_card_vs_cpu(dev, size: int = 64) -> None:
+    """(b) The fs-16 C-UNETR (hidden 768, 12 blocks) at a `size`^3 ROI in
+    f32 on the card against the CPU, same weights, through the fused conv
+    chain and the unfused path: logits within `tolerance`, and the argmax
+    equal at every voxel whose top-two margin on the CPU exceeds twice the
+    logits' largest difference (a nearer tie may flip by rounding), with
+    at most `TIE_SHARE` of the voxels that near a tie."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.models import model_from_config
+    from miseg_tpu_torch.ops.kernels import fused_conv as fc
+
+    cfg = Config(**{**UNETR, "roi_x": size, "roi_y": size, "roi_z": size})
+    cpu = model_from_config(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(14)
+    x = torch.randn((2, size, size, size, 1), generator=gen)
+    mods = torch.tensor([0, 1], dtype=torch.int32)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = cpu(x, mods)
+        cpu_s = time.perf_counter() - t0
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    tol = tolerance(want, torch.float32)
+    lines = []
+    for fused in (True, False):
+        card = model_from_config(cfg, device=dev, fused_conv=fused)
+        card.load_state_dict(cpu.state_dict())
+        fc.launches = 0
+        with torch.inference_mode():
+            got = card(x.to(dev), mods.to(dev)).cpu()
+        name = "fused" if fused else "unfused"
+        check(fc.launches == (UNETR_PER_WINDOW["K4"] if fused else 0),
+              f"unetr model {name}: {fc.launches} K4 launches")
+        check(bool(torch.isfinite(got).all()), f"unetr model {name}: non-finite logits")
+        err = max_err(got, want)
+        check(err <= tol, f"unetr model {name}: card vs CPU {err:.3e} > {tol:.3e}")
+        same = got.argmax(-1) == want.argmax(-1)
+        clear = margin > 2 * err
+        ties = int((~clear).sum())
+        check(ties <= TIE_SHARE * clear.numel(), f"unetr model {name}: {ties} voxels within "
+                                                 f"2 x |diff| of a tie > {TIE_SHARE:g} of them")
+        check(bool(same[clear].all()), f"unetr model {name}: argmax differs at "
+                                       f"{int((~same & clear).sum())} voxels of clear margin")
+        lines.append(f"{name} max |diff| {err:.3e}, argmax equal on {float(same.float().mean()):.6%} "
+                     f"({ties} voxels within 2 x |diff| of a tie)")
+        del card
+    print(f"  unetr model: fs16 hidden 768, {size}^3, batch 2, f32 (TF32 off), card vs CPU: "
+          + "; ".join(lines) + f" (tol {tol:.3e}, |logits| <= {float(want.abs().max()):.3f}); "
+          f"CPU forward {cpu_s:.1f} s")
+
+
+def unetr_serve(dev) -> dict:
+    """(c) A full-width C-UNETR bundle (bf16, seeded weights) answers a 224^3
+    volume (64 windows, gaussian blend, overlap 0.5) through
+    `load_bundle(...).predict`: finite logits of the volume's shape and
+    `UNETR_PER_WINDOW` x 64 launches; then a profile of one window, which
+    must run exactly those kernels, all the CUDA ones.  Returns the
+    launches."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.inferers import window_starts
+    from miseg_tpu_torch.models import model_from_config
+    from miseg_tpu_torch.serve import load_bundle, save_bundle
+
+    cfg = Config(**UNETR)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_bundle(cfg, model_from_config(cfg, device=dev).state_dict(), tmp)
+        served = load_bundle(tmp)
+    check(served.compute_dtype == torch.bfloat16, "unetr serve: bundle is not bf16")
+    vol = torch.rand((1, 224, 224, 224, 1), generator=torch.Generator().manual_seed(15))
+    windows = len(window_starts(vol.shape[1:-1], cfg.roi, cfg.infer_overlap)[1])
+    check(windows == 64, f"unetr serve: {windows} windows, want 64")
+    served.predict(vol, [1])   # warm-up: the per-shape plans and caches
+    took = []
+    for mod in (0, 1):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = served.predict(vol, [mod])
+        torch.cuda.synchronize()
+        took.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        check(tuple(out.shape) == (1, 224, 224, 224, cfg.out_channels),
+              f"unetr serve: shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), "unetr serve: non-finite logits")
+        want = {k: n * windows for k, n in UNETR_PER_WINDOW.items()}
+        check(counts == want, f"unetr serve modality {mod}: launched {counts}, want {want}")
+    print(f"  unetr serve: 224^3, {windows} windows, modality 0 / 1: {took[0]:.3f} / "
+          f"{took[1]:.3f} s ({windows / took[0]:.2f} / {windows / took[1]:.2f} windows/s); "
+          f"launches {counts}")
+    profile_window(served, dev, per=UNETR_PER_WINDOW, k4=UNETR_WINDOW_K4,
+                   label="one 96^3 C-UNETR window")
+    return counts
+
+
+def unetr_fit(dev, card: str, shape=(192, 192, 160)) -> dict:
+    """(e) `cli.train.main --model_name unetr` at full width on
+    `phase_fit`'s synthetic CT + MR set: 2 epochs of one 96^3 crop a volume,
+    a validation each, the test of best.ckpt; then `cli.test.main` on
+    best.ckpt.  Every train step must launch one C-UNETR window's kernels,
+    every evaluate `UNETR_PER_WINDOW` x its windows with no autograd
+    Function; metric names and values as `phase_fit` checks them.  Returns
+    the launches in train steps and in evaluations."""
+    from miseg_tpu_torch.cli import test as cli_test
+    from miseg_tpu_torch.cli import train as cli_train
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
+    from miseg_tpu_torch.train.checkpoint import load_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        make_synthetic_dataset(root, shape=shape, num_classes=6, n_train=2, n_val=1,
+                               n_test=1, spacing=(1.0, 1.0, 1.0), seed=9, suffix=".nii")
+        cfg = Config(**{**UNETR, "data_dirs": [str(root)] * 2,
+                        "json_lists": ["CT.json", "MR.json"], "max_epochs": 2,
+                        "check_val_every_n_epoch": 1, "scheduler": "warmup_cosine",
+                        "warmup_epochs": 1, "batch_size": 1, "patches_training_sample": 1,
+                        "num_workers": 2, "cache_num": 8, "log_every_n_steps": 1,
+                        "default_root_dir": str(Path(tmp) / "runs"),
+                        "experiment_name": "unetr"})
+        with counting_fit() as rec:
+            t0 = time.perf_counter()
+            trainer, state, test_metrics = cli_train.main(cfg, device=dev)
+            fit_s = time.perf_counter() - t0
+            workdir = Path(cfg.default_root_dir) / "unetr"
+            t0 = time.perf_counter()
+            cli_metrics = cli_test.main(cfg.replace(ckpt_path=str(workdir / "best.ckpt")),
+                                        device=dev)
+            test_s = time.perf_counter() - t0
+        check(len(rec["steps"]) == 8, f"unetr fit: {len(rec['steps'])} train steps in 2 epochs")
+        check_fit_launches("unetr fit", rec, UNETR_PER_WINDOW)
+        lines = [json.loads(ln) for ln in open(workdir / "metrics.jsonl")]
+        vals = [ln for ln in lines if "val/loss/avg" in ln]
+        check(len(vals) == 2, f"unetr fit: {len(vals)} validations in 2 epochs")
+        for ln in vals:
+            check_metrics(f"unetr fit val epoch {ln['step']}",
+                          {k: v for k, v in ln.items() if k not in ("ts", "step")},
+                          "val", cfg.out_channels, False)
+        check_metrics("unetr fit test", test_metrics, "test", cfg.out_channels, True)
+        check_metrics("unetr cli.test", cli_metrics, "test", cfg.out_channels, True)
+        check(same_metrics(cli_metrics, test_metrics),
+              "unetr fit: cli.test on best.ckpt differs from the run's own test of best.ckpt")
+        n_params = len(state.params)
+        ck = load_checkpoint(workdir / "best.ckpt")
+        check(len(ck["params"]) == n_params and all(bool(torch.isfinite(v).all())
+                                                    for v in ck["params"].values()),
+              f"unetr fit: best.ckpt does not reload {n_params} finite parameters")
+    h = trainer.history
+    evals = rec["evals"]
+    print(f"  unetr fit: 2 epochs x 4 steps + its test {fit_s:.2f} s, cli.test {test_s:.2f} s on "
+          f"'{card}'; step ms by CUDA events {', '.join(f'{v:.1f}' for v in h['step_ms'])}; "
+          f"checkpoint saves a validation {', '.join(f'{s:.2f}' for s in h['ckpt_s'])} s; "
+          + "; ".join(f"{e['prefix']} {e['windows']} windows {e['s']:.2f} s" for e in evals)
+          + f"; test dice avg {test_metrics['test_total_dice/avg']:.4f}, train losses "
+          + ", ".join(f"{ln['train/loss']:.4f}" for ln in lines if "train/loss" in ln))
+    return {"train": {k: sum(c[k] for c in rec["steps"]) for k in UNETR_PER_WINDOW},
+            "eval": {k: sum(e["counts"][k] for e in evals) for k in UNETR_PER_WINDOW}}
+
+
+def phase_unetr(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
+    """C-UNETR, the JAX package's default model, on every entry point the
+    flagship runs: (a) `unetr_kernels`, (b) `unetr_card_vs_cpu`, (c)
+    `unetr_serve`, (d) its full-width bf16 train step (`train_full`), (e)
+    `unetr_fit`.  Returns the launches of a served window, a train step,
+    and the fit's train steps and evaluations."""
+    t0 = time.perf_counter()
+    unetr_kernels(dev, mem_bw, bf16_flops)
+    unetr_card_vs_cpu(dev)
+    served = unetr_serve(dev)
+    step = train_full(dev, card, model=UNETR, per=UNETR_PER_WINDOW, k4=UNETR_WINDOW_K4)
+    fit = unetr_fit(dev, card)
+    print(f"unetr: C-UNETR (fs16, hidden 768, 12 blocks, {UNETR_PER_WINDOW} a window) served, "
+          f"trained and fitted through the kernels ({time.perf_counter() - t0:.1f} s)")
+    return {"window": {k: v // 64 for k, v in served.items()}, "step": step, "fit": fit}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; chip_smoke.py needs a CUDA card",
@@ -1699,6 +2123,7 @@ def main() -> int:
     http_launches = phase_serve_http(dev, card)
     train = phase_train(dev, card)
     fit = phase_fit(dev, card)
+    unetr = phase_unetr(dev, card, mem_bw, bf16_flops)
     meta = {
         "K1": ("fused_norm.channel_scale_shift", "cuda",
                "miseg_tpu_torch/ops/kernels/csrc/fused_norm.cu",
@@ -1735,12 +2160,22 @@ def main() -> int:
         check(train[key] > 0, f"{key} was never launched in the train step")
         check(fit["train"][key] > 0 and fit["eval"][key] > 0,
               f"{key} was never launched in the fit's train steps or its evaluations")
+        on_unetr = UNETR_PER_WINDOW[key] > 0   # C-UNETR has no window attention
+        check(on_unetr == (unetr["window"][key] > 0) == (unetr["step"][key] > 0)
+              == (unetr["fit"]["train"][key] > 0) == (unetr["fit"]["eval"][key] > 0),
+              f"{key}: C-UNETR's window, step, fit steps and evaluations launched it "
+              f"{unetr['window'][key]}, {unetr['step'][key]}, {unetr['fit']['train'][key]}, "
+              f"{unetr['fit']['eval'][key]} times; want {'> 0' if on_unetr else '0'}")
         kernels.append({"name": f"{key} {name}", "route": route, "source": source,
                         "replaces": replaces, "launches": launches[key], **rows[key],
                         "train": {"launches_per_step": train[key],
                                   "backward": backward[key]},
                         "fit": {"launches_train_steps": fit["train"][key],
-                                "launches_evaluate": fit["eval"][key]}})
+                                "launches_evaluate": fit["eval"][key]},
+                        "unetr": {"launches_per_window": unetr["window"][key],
+                                  "launches_per_step": unetr["step"][key],
+                                  "fit_launches_train_steps": unetr["fit"]["train"][key],
+                                  "fit_launches_evaluate": unetr["fit"]["eval"][key]}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -29,8 +29,14 @@ class Config:
     roi_y: int = 96
     roi_z: int = 96
     feature_size: list[int] = _lst(16)
+    hidden_size: int = 768             # unetr: the ViT's width
+    mlp_dim: int = 3072                # unetr: the ViT's MLP width
     num_heads: int = 12
+    pos_embed: str = "perceptron"      # unetr: patchify by "perceptron" or "conv"
+    no_conv_block: bool = False        # unetr: no conv blocks in the up-projections
+    no_res_block: bool = False         # unetr: UnetBasicBlock instead of UnetResBlock
     spatial_dims: int = 3
+    qkv_bias: bool = False             # unetr: bias in the ViT's qkv projection
     vit_norm_name: str = "layer"
     vit_norm_no_affine: bool = False
     encoder_norm_name: str = "instance"
@@ -75,6 +81,7 @@ class Config:
     project: str | None = None
     entity: str | None = None
     wandb_mode: str = "online"
+    alpha_reversal: float = 1.0        # the ViT head's gradient reversal (config.py:109)
     # --- data (config.py:111-125) ---
     data_dirs: list[str] = _lst("dataset/MM-WHS", "dataset/MM-WHS")
     json_lists: list[str] = _lst("CT_fold1.json", "MR.json")

@@ -1,7 +1,8 @@
 """Model factory: `Config` -> `nn.Module` (counterpart of
-`miseg_tpu/models/factory.py:27-36,77-94`, the `swin_unetr` /
-`pre_swin_unetr` branch: both names build the same SwinUNETR; the
-pretrained checkpoint ingest of `pre_swin_unetr` is not ported yet)."""
+`miseg_tpu/models/factory.py:27-54,77-94`: the `unetr` branch, and the
+`swin_unetr` / `pre_swin_unetr` branch, where both names build the same
+SwinUNETR; the pretrained checkpoint ingest of `pre_swin_unetr` is not
+ported yet)."""
 
 from __future__ import annotations
 
@@ -13,8 +14,9 @@ from ..ops.init import init_linear
 from ..ops.norms import parse_normalization
 from ..utils.platform import resolve_device
 from .swin_unetr import SwinUNETR
+from .unetr import UNETR
 
-MODEL_NAMES = ("swin_unetr", "pre_swin_unetr")
+MODEL_NAMES = ("unetr", "swin_unetr", "pre_swin_unetr")
 
 
 def _norm_specs(cfg: Config):
@@ -31,14 +33,16 @@ def _norm_specs(cfg: Config):
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """flax's default initializers, drawn from `generator` in module order:
-    lecun-normal kernels, zero biases, unit norm scales, N(0, 0.02)
-    truncated rel-pos tables."""
+    """The JAX package's initializers, drawn from `generator` in module
+    order: a module's own `init_parameters` where it has one (unit norm
+    scales, N(0, 0.02) truncated rel-pos and position tables and
+    perceptron kernels, zero class tokens), else flax's defaults:
+    lecun-normal kernels, zero biases."""
     for m in model.modules():
-        if isinstance(m, nn.Linear):
-            init_linear(m, generator)
-        elif hasattr(m, "init_parameters"):
+        if hasattr(m, "init_parameters"):
             m.init_parameters(generator)
+        elif isinstance(m, nn.Linear):
+            init_linear(m, generator)
 
 
 def model_from_config(cfg: Config, *, device=None, dtype=torch.float32,
@@ -54,22 +58,32 @@ def model_from_config(cfg: Config, *, device=None, dtype=torch.float32,
     if cfg.model_name not in MODEL_NAMES:
         raise ValueError(f"model {cfg.model_name!r} is not ported yet; "
                          f"the port builds {MODEL_NAMES}")
-    if len(cfg.depth_swin_block) == 1:
-        depths = (cfg.depth_swin_block[0],) * 4
-    elif len(cfg.depth_swin_block) == 4:
-        depths = tuple(cfg.depth_swin_block)
+    if cfg.model_name == "unetr":
+        model = UNETR(
+            in_channels=cfg.in_channels, out_channels=cfg.out_channels, img_size=cfg.roi,
+            feature_size=cfg.feature_size_scalar, hidden_size=cfg.hidden_size,
+            mlp_dim=cfg.mlp_dim, num_heads=cfg.num_heads, pos_embed=cfg.pos_embed,
+            conv_block=not cfg.no_conv_block, res_block=not cfg.no_res_block,
+            dropout_rate=cfg.dropout_rate, qkv_bias=cfg.qkv_bias, vit_norm=vit_norm,
+            decoder_norm=decoder_norm, encoder_norm=encoder_norm, fused_conv=fused_conv,
+            device=device, dtype=dtype)
     else:
-        raise ValueError("The length of depth_swin_block should be 4")
-    num_heads = tuple(2 ** i * cfg.num_heads for i in range(4))
-    model = SwinUNETR(
-        img_size=cfg.roi, in_channels=cfg.in_channels,
-        out_channels=cfg.out_channels, depths=depths, num_heads=num_heads,
-        feature_size=cfg.feature_size_scalar, drop_rate=cfg.dropout_rate,
-        attn_drop_rate=cfg.attn_drop_rate, dropout_path_rate=cfg.dropout_path_rate,
-        normalize=not cfg.no_normalize_swin, downsample=cfg.downsample,
-        vit_norm=vit_norm, encoder_norm=encoder_norm,
-        decoder_norm=decoder_norm, fused_conv=fused_conv, device=device,
-        dtype=dtype)
+        if len(cfg.depth_swin_block) == 1:
+            depths = (cfg.depth_swin_block[0],) * 4
+        elif len(cfg.depth_swin_block) == 4:
+            depths = tuple(cfg.depth_swin_block)
+        else:
+            raise ValueError("The length of depth_swin_block should be 4")
+        num_heads = tuple(2 ** i * cfg.num_heads for i in range(4))
+        model = SwinUNETR(
+            img_size=cfg.roi, in_channels=cfg.in_channels,
+            out_channels=cfg.out_channels, depths=depths, num_heads=num_heads,
+            feature_size=cfg.feature_size_scalar, drop_rate=cfg.dropout_rate,
+            attn_drop_rate=cfg.attn_drop_rate, dropout_path_rate=cfg.dropout_path_rate,
+            normalize=not cfg.no_normalize_swin, downsample=cfg.downsample,
+            vit_norm=vit_norm, encoder_norm=encoder_norm,
+            decoder_norm=decoder_norm, fused_conv=fused_conv, device=device,
+            dtype=dtype)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)

@@ -5,9 +5,11 @@ mechanical: `a/b/kernel` -> `a.b.weight`, everything else keeps its leaf
 name.  Layouts:
   * Dense kernel `[in, out]` -> `[out, in]`;
   * conv kernel `[*k, I, O]` -> `[O, I, *k]`;
-  * transposed-conv kernel (a `transp_conv` module) `[*k, I, O]` -> flip
-    the spatial axes, then `[I, O, *k]` (lax.conv_transpose does not flip
-    the kernel, torch's conv_transpose does);
+  * transposed-conv kernel `[*k, I, O]` -> flip the spatial axes, then
+    `[I, O, *k]` (lax.conv_transpose does not flip the kernel, torch's
+    conv_transpose does).  A transposed conv is known by its module's
+    name (`_is_transposed`): a plain conv's kernel can have the same
+    shape, and where I = O nothing else tells them apart;
   * norm `scale`/`bias` (`[C]` or `[S, C]` banks) and
     `relative_position_bias_table` `[T, H]` unchanged.
 The result loads with `load_state_dict(..., strict=True)`.
@@ -20,12 +22,21 @@ parameter names and layouts.
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 
 import numpy as np
 import torch
 
-_TRANSPOSED = ("transp_conv",)
+# the modules whose kernel is a transposed conv's: UnetrUpBlock's
+# `transp_conv`, UnetrPrUpBlock's `transp_conv_init` and `up0`, `up1`, ...
+# (miseg_tpu/nn/unetr_blocks.py:46,71-77).  C-UNet's transposed convs,
+# named `up` (miseg_tpu/models/unet.py:89), will need a rule of their own.
+_TRANSPOSED = re.compile(r"transp_conv|transp_conv_init|up\d+")
+
+
+def _is_transposed(module: str) -> bool:
+    return _TRANSPOSED.fullmatch(module) is not None
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()):
@@ -46,7 +57,7 @@ def _convert(path: tuple[str, ...], arr: np.ndarray) -> tuple[str, np.ndarray]:
         return name, arr.T
     nk = arr.ndim - 2
     spatial = tuple(range(nk))
-    if parent and parent[-1] in _TRANSPOSED:
+    if parent and _is_transposed(parent[-1]):
         return name, np.flip(arr, axis=spatial).transpose(nk, nk + 1, *spatial)
     return name, arr.transpose(nk + 1, nk, *spatial)
 

@@ -86,7 +86,8 @@ def _device_kernels(run, ok, attempts: int = 3) -> list[str]:
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 5, 6, 7, 48), (1, 48, 48, 48, 48),
-                                   (1, 3, 3, 3, 3072), (3, 4, 4, 4, 100)])
+                                   (1, 3, 3, 3, 3072), (3, 4, 4, 4, 100),
+                                   (1, 48, 48, 48, 32), (1, 12, 12, 12, 128)])
 @pytest.mark.parametrize("affine", ["none", "channel", "bank"])
 def test_k1_k2_match_plain(dev, gen, shape, dtype, affine):
     b, c = shape[0], shape[-1]
@@ -339,7 +340,10 @@ def test_k5_rejects_oversize(dev):
 # x-rows, a short last tile), brick-path shapes (the 48^3 level, 16x16x32
 # at 48->48 and 96->48, one brick whose faces are all halo, and 32->64),
 # and the coarse path at every (shape, Cin, Cout) of the flagship's 24^3,
-# 12^3, 6^3 and 3^3 convs (3^3 is 768_to768), plus 12^3 at batch 2
+# 12^3, 6^3 and 3^3 convs (3^3 is 768_to768), plus 12^3 at batch 2; and
+# C-UNETR's (fs 16): the brick path at 16 and 32 output channels (one
+# and two 16-column fragments, 16- and 32-channel chunks), the coarse path
+# at every (shape, Cin, Cout) of its 24^3 and 12^3 convs
 _CONV = {
     "cin1_to48": ((1, 7, 9, 11, 1), 48),
     "cin1_brick_to48": ((1, 8, 8, 32, 1), 48),
@@ -363,6 +367,15 @@ _CONV = {
     "coarse_6_768_to384": ((1, 6, 6, 6, 768), 384),
     "coarse_6_384_to384": ((1, 6, 6, 6, 384), 384),
     "coarse_12_192_to192_b2": ((2, 12, 12, 12, 192), 192),
+    "brick_unetr_16_to16": ((1, 8, 8, 32, 16), 16),
+    "brick_unetr_32_to16_b2": ((2, 8, 8, 16, 32), 16),
+    "brick_unetr_32_to32": ((1, 8, 8, 32, 32), 32),
+    "brick_unetr_64_to32": ((1, 8, 8, 16, 64), 32),
+    "coarse_unetr_24_32_to32": ((1, 24, 24, 24, 32), 32),
+    "coarse_unetr_24_64_to64": ((1, 24, 24, 24, 64), 64),
+    "coarse_unetr_24_128_to64": ((1, 24, 24, 24, 128), 64),
+    "coarse_unetr_12_256_to128": ((1, 12, 12, 12, 256), 128),
+    "coarse_unetr_12_128_to128": ((1, 12, 12, 12, 128), 128),
 }
 
 
@@ -738,6 +751,31 @@ def test_model_forward_card_matches_cpu(dev, fused):
         got = card(x.to(dev), mods.to(dev)).cpu()
     # fs 12 at 32^3: 9 of the 10 UnetResBlocks (encoder10 is 1^3) take the chain
     assert fused_conv.launches == (18 if fused else 0)
+    assert _err(got, want) <= 1e-4 * (1 + float(want.abs().max()))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_unetr_forward_card_matches_cpu(dev, fused):
+    """C-UNETR (fs 16, hidden 96, 12 heads) in f32 on the card, on both
+    conv-block paths, against the CPU."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.models import model_from_config
+    cfg = Config(model_name="unetr", out_channels=4, feature_size=[16], hidden_size=96,
+                 mlp_dim=192, num_heads=12, roi_x=32, roi_y=32, roi_z=32,
+                 encoder_norm_name="instance_cond", vit_norm_name="instance_cond",
+                 decoder_norm_name="instance")
+    cpu = model_from_config(cfg, device="cpu")
+    card = model_from_config(cfg, device=dev, fused_conv=fused)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 32, 32, 32, 1)).astype(np.float32))
+    mods = torch.tensor([0, 1], dtype=torch.int32)
+    fused_conv.launches = 0
+    with torch.no_grad():
+        want = cpu(x, mods)
+        got = card(x.to(dev), mods.to(dev)).cpu()
+    # all 8 UnetResBlocks take the chain (decoder5's 4^3 on the coarse path)
+    assert fused_conv.launches == (16 if fused else 0)
     assert _err(got, want) <= 1e-4 * (1 + float(want.abs().max()))
 
 
