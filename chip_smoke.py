@@ -96,10 +96,31 @@ Phases, one result line each; any failed check exits non-zero:
                `cli.train` for 2 epochs on `phase_fit`'s data set and
                `cli.test` of best.ckpt, with the launch, metric and
                Function checks of `phase_fit`.
+  9. unet    — the residual UNets, whose norms run K1 + K2 alone (cuDNN
+               convs, PReLU after K2): C-UNet (feature_size 16, the JAX
+               package's UNet defaults, 13 norms a window) and UNetVanilla
+               at the README's predict_whs recipe (16 64 128 256 512,
+               strides 1 2 2 2 1, num_res_units 3, 8 classes, 32 norms):
+               (a) K1 and K2 (no add, no activation, beside
+               `torch.addcmul`) at every norm shape of their windows, C = 6
+               at 96^3 to 512 at 12^3, against the plain versions in bf16
+               and f32, with times; (b) both models at 64^3 in f32 card vs
+               CPU, and a batch-norm C-UNet's train step (loss, gradients
+               leaf by leaf, parameters, running statistics) and eval
+               logits card vs CPU; (c) a bf16
+               UNetVanilla bundle serving a 224^3 volume (64 windows) with
+               `VANILLA_PER_WINDOW` x 64 launches, a C-UNet window with
+               `CUNET_PER_WINDOW`, each with a profiled window running
+               exactly those kernels; (d) both 96^3 bf16 train steps as
+               `phase_train`'s (c); (e) `cli.train` of UNetVanilla for 2
+               epochs on an 8-class synthetic set of `phase_fit`'s shape,
+               `cli.test` of best.ckpt and `cli.predict_whs` over it.
 Then one JSON line of kernels (with each kernel's launches a train step,
 the JAX VJP its backward follows, its launches in the fit's train steps
-and evaluations, and its launches in C-UNETR's window, step and fit), the
-card line, and the ok line last.
+and evaluations, and its launches in C-UNETR's, C-UNet's and
+UNetVanilla's windows, steps and fits; K2's row times its leaky-relu
+mode, and its field `no_add_no_activation` the UNets' mode beside
+`torch.addcmul`), the card line, and the ok line last.
 """
 
 from __future__ import annotations
@@ -181,6 +202,47 @@ UNETR_CONVS = [
     ("decoder5 conv1", (1, 12, 12, 12, 256), 128, False),
     ("decoder5 conv2", (1, 12, 12, 12, 128), 128, True),
 ]
+# one 96^3 window of C-UNet (feature_size 16: channels 32/64/128/256,
+# strides 2/2/2, num_res_units 2, prelu, NDA, 6 classes): its 13 ADN norms
+# are one K1 run and one K2 launch each, in K2's no-add, no-activation
+# mode (the PReLU runs after it on its own): 8 `instance_cond` in the down
+# path ([1,48^3,32], [1,24^3,64], [1,12^3,128] and the bottom's
+# [1,12^3,256], 2 each) and 5 `instance` in the up path (the transposed
+# `up` convs at [1,24^3,64], [1,48^3,32] and [1,96^3,6], the `up_ru` at
+# [1,24^3,64] and [1,48^3,32]; the top `up_ru` is conv-only).  Its convs
+# are cuDNN's: no K4 (and so no fold), no K3, no K5.
+CUNET_PER_WINDOW = {"K1": 13, "K2": 13, "K3": 0, "K4": 0, "K5": 0, "K1 fold": 0}
+# one 96^3 window of UNetVanilla at the README prediction recipe: 24
+# `instance_cond` norms (6 a scale at [1,48^3,64], [1,24^3,128],
+# [1,12^3,256] and [1,12^3,512]) and 8 `instance` ones (2 each at
+# [1,12^3,256], [1,24^3,128], [1,48^3,64] and [1,96^3,16])
+VANILLA_PER_WINDOW = {"K1": 32, "K2": 32, "K3": 0, "K4": 0, "K5": 0, "K1 fold": 0}
+UNET_WINDOW_K4 = {"coarse": 0, "cin1": 0}
+# a batch-norm C-UNet's f64 gradient leaf card vs CPU (64^3, batch 2),
+# relative to the leaf's largest element, and absolute for the biases of
+# convs feeding a norm, whose gradient is 0 up to the rounding of the
+# norm's f32 statistics (<= 9e-8; every other leaf >= 1.3e-5).  In f32
+# the deep levels' gradients (1e-5..1e-4 at this init) lie within the
+# flagship's 5e-5 leaf bound of 0 and differ card vs CPU by up to 0.9% of
+# their size (the card's f32 against f64: 0.9%; the CPU's: 0.2%); in f64
+# the two sides agree within 2.6e-6 of each leaf's size (NVIDIA H100
+# 80GB HBM3, 700.00 W; scripts/torch_grad_precision.py)
+F64_GRAD_RTOL, F64_GRAD_ATOL = 1e-4, 1e-6
+# every distinct norm shape of the two UNets' windows
+UNET_NORM_SHAPES = [(1, 96 ** 3, 6), (1, 96 ** 3, 16), (1, 48 ** 3, 32), (1, 48 ** 3, 64),
+                    (1, 24 ** 3, 64), (1, 24 ** 3, 128), (1, 12 ** 3, 128),
+                    (1, 12 ** 3, 256), (1, 12 ** 3, 512)]
+# C-UNet at the JAX package's defaults (num_layers 4, strides 2 2 2,
+# num_res_units 2, prelu, NDA), feature_size 16, 6 classes as the flagship
+CUNET = dict(model_name="unet", out_channels=6, feature_size=[16], roi_x=96, roi_y=96,
+             roi_z=96, encoder_norm_name="instance_cond", decoder_norm_name="instance",
+             infer_overlap=0.5, sw_batch_size=1)
+# UNetVanilla at the README's predict_whs recipe (README.md:79-80)
+VANILLA = dict(model_name="unet_vanilla", out_channels=8,
+               feature_size=[16, 64, 128, 256, 512], strides=[1, 2, 2, 2, 1],
+               num_res_units=3, roi_x=96, roi_y=96, roi_z=96,
+               encoder_norm_name="instance_cond", decoder_norm_name="instance",
+               infer_overlap=0.5, sw_batch_size=1)
 L2_FLUSH_BYTES = 128 << 20
 # (memory B/s, dense bf16 FLOP/s) from NVIDIA's data sheets
 PEAKS = {"PCIe": (2.0e12, 756e12), "NVL": (3.9e12, 835e12),
@@ -437,11 +499,11 @@ def k1_case(shape, dev, gen, mem_bw: float, flush, k2_ms: dict | None = None):
 
 
 def k2_case(shape, dev, gen, mem_bw: float, flush, adds=(False, True)):
-    """K2 at `shape` (without and, with `adds` holding True, with its add)
-    against its plain version in bf16 and f32; in bf16 its times
-    (`hbm_and_l2`) beside its byte bound and the plain version's.  Returns
-    (the line, the bf16 `kernels` row of K2 without its add, the HBM
-    event ms of K2 without its add)."""
+    """K2 with its leaky-relu at `shape` (without and, with `adds` holding
+    True, with its add) against its plain version in bf16 and f32; in
+    bf16 its times (`hbm_and_l2`) beside its byte bound and the plain
+    version's.  Returns (the line, the bf16 `kernels` row of K2 without
+    its add, the HBM event ms of K2 without its add)."""
     from miseg_tpu_torch.ops.kernels import fused_norm as fn
 
     b, s, c = shape
@@ -483,6 +545,44 @@ def k2_case(shape, dev, gen, mem_bw: float, flush, adds=(False, True)):
             row["plain_ms"] = plain
         timed = "\n    bf16 ms: " + "; ".join(parts) + f"; plain {plain:.4f}"
     return line + timed, row, k2_hbm
+
+
+def k2_affine_case(shape, dev, gen, mem_bw: float, flush):
+    """K2 in its no-add, no-activation mode (`x * scale + shift`, the UNets'
+    norms) at `shape` against its plain version in bf16 and f32; in bf16
+    its times (`hbm_and_l2`) beside its byte bound, the plain version's,
+    and that of the one library call computing the same function,
+    `torch.addcmul(shift, x, scale)` with `[B, 1, C]` columns in x's dtype
+    (L2 flushed).  Returns (the line, the bf16 `kernels` row)."""
+    from miseg_tpu_torch.ops.kernels import fused_norm as fn
+
+    b, s, c = shape
+    line, row = f"  K2 {list(shape)} (no add, no activation):", None
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, dtype)
+        sc = (1 + 0.3 * torch.randn((b, c), generator=gen)).to(dev)
+        sh = (0.3 * torch.randn((b, c), generator=gen)).to(dev)
+        y, ref = fn.apply_scale_shift(x, sc, sh), fn.apply_scale_shift_plain(x, sc, sh)
+        e, tol = max_err(y, ref), tolerance(ref, dtype)
+        check(e <= tol, f"K2 {shape} {dtype} (no add, no activation): {e:.3e} > {tol:.3e}")
+        line += f" {str(dtype)[6:]} err {e:.3e} (tol {tol:.3e});"
+        if dtype != torch.bfloat16:
+            continue
+        moved = 2 * x.numel() * x.element_size() + 2 * b * c * 4
+        bound = moved / mem_bw * 1e3
+        times = hbm_and_l2(lambda: fn.apply_scale_shift(x, sc, sh), "miseg_k2_", moved, flush)
+        plain = time_ms(lambda: fn.apply_scale_shift_plain(x, sc, sh))
+        sc3, sh3 = sc[:, None, :].to(dtype), sh[:, None, :].to(dtype)
+        lib = time_ms(lambda: torch.addcmul(sh3, x, sc3), flush=flush)
+        lib_dev = device_ms(lambda: torch.addcmul(sh3, x, sc3), "addcmul", flush=flush)
+        k2_dev = times["hbm"][1]
+        share = "not measured" if k2_dev is None else f"{bound / k2_dev:.0%}"
+        line += (f"\n    bf16 ms: K2 {fmt_hbm_l2(times)}, bound {bound:.5f} by bytes "
+                 f"(device time at {share} of the HBM roofline); plain {plain:.4f}; "
+                 f"torch.addcmul {lib:.4f} (device {fmt_ms(lib_dev)})")
+        row = dict(ms=times["hbm"][0], plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                   library_ms=lib, max_abs_err=e)
+    return line, row
 
 
 def k3_case(shape, dev, gen, mem_bw: float, flush, note: str = ""):
@@ -598,6 +698,11 @@ def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
     t0 = time.perf_counter()
     flush = l2_flush(dev)
     rows, k2_ms = phase_norm_apply(dev, mem_bw, gen, flush)
+    # K2's row stays its leaky-relu mode (the flagship's); the UNets' mode,
+    # beside the one library call that computes it, is a field of its own
+    line, affine = k2_affine_case((1, 48 ** 3, 48), dev, gen, mem_bw, flush)
+    print(line)
+    rows["K2"]["no_add_no_activation"] = {"shape": [1, 48 ** 3, 48], **affine}
     # ---- K1 at main-path norm shapes -------------------------------------
     for shape in [(1, 96 ** 3, 48), (1, 48 ** 3, 48), (1, 27, 3072)]:
         line, row = k1_case(shape, dev, gen, mem_bw, flush, k2_ms)
@@ -1929,6 +2034,26 @@ def unetr_kernels(dev, mem_bw: float, bf16_flops: float) -> None:
         print(k3_case(shape, dev, gen, mem_bw, flush)[0])
 
 
+def check_card_logits(label: str, got, want, margin) -> str:
+    """The card's logits `got` against the CPU's `want`: finite, within
+    `tolerance`, and the argmax equal at every voxel whose top-two
+    `margin` on the CPU exceeds twice the logits' largest difference (a
+    nearer tie may flip by rounding), with at most `TIE_SHARE` of the
+    voxels that near a tie.  Returns the line's words."""
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits")
+    err, tol = max_err(got, want), tolerance(want, torch.float32)
+    check(err <= tol, f"{label}: card vs CPU {err:.3e} > {tol:.3e}")
+    same = got.argmax(-1) == want.argmax(-1)
+    clear = margin > 2 * err
+    ties = int((~clear).sum())
+    check(ties <= TIE_SHARE * clear.numel(), f"{label}: {ties} voxels within 2 x |diff| of "
+                                             f"a tie > {TIE_SHARE:g} of them")
+    check(bool(same[clear].all()), f"{label}: argmax differs at "
+                                   f"{int((~same & clear).sum())} voxels of clear margin")
+    return (f"max |diff| {err:.3e} (tol {tol:.3e}), argmax equal on "
+            f"{float(same.float().mean()):.6%} ({ties} voxels within 2 x |diff| of a tie)")
+
+
 def unetr_card_vs_cpu(dev, size: int = 64) -> None:
     """(b) The fs-16 C-UNETR (hidden 768, 12 blocks) at a `size`^3 ROI in
     f32 on the card against the CPU, same weights, through the fused conv
@@ -1951,7 +2076,6 @@ def unetr_card_vs_cpu(dev, size: int = 64) -> None:
         cpu_s = time.perf_counter() - t0
     top2 = want.topk(2, dim=-1).values
     margin = top2[..., 0] - top2[..., 1]
-    tol = tolerance(want, torch.float32)
     lines = []
     for fused in (True, False):
         card = model_from_config(cfg, device=dev, fused_conv=fused)
@@ -1962,21 +2086,10 @@ def unetr_card_vs_cpu(dev, size: int = 64) -> None:
         name = "fused" if fused else "unfused"
         check(fc.launches == (UNETR_PER_WINDOW["K4"] if fused else 0),
               f"unetr model {name}: {fc.launches} K4 launches")
-        check(bool(torch.isfinite(got).all()), f"unetr model {name}: non-finite logits")
-        err = max_err(got, want)
-        check(err <= tol, f"unetr model {name}: card vs CPU {err:.3e} > {tol:.3e}")
-        same = got.argmax(-1) == want.argmax(-1)
-        clear = margin > 2 * err
-        ties = int((~clear).sum())
-        check(ties <= TIE_SHARE * clear.numel(), f"unetr model {name}: {ties} voxels within "
-                                                 f"2 x |diff| of a tie > {TIE_SHARE:g} of them")
-        check(bool(same[clear].all()), f"unetr model {name}: argmax differs at "
-                                       f"{int((~same & clear).sum())} voxels of clear margin")
-        lines.append(f"{name} max |diff| {err:.3e}, argmax equal on {float(same.float().mean()):.6%} "
-                     f"({ties} voxels within 2 x |diff| of a tie)")
+        lines.append(f"{name} " + check_card_logits(f"unetr model {name}", got, want, margin))
         del card
     print(f"  unetr model: fs16 hidden 768, {size}^3, batch 2, f32 (TF32 off), card vs CPU: "
-          + "; ".join(lines) + f" (tol {tol:.3e}, |logits| <= {float(want.abs().max()):.3f}); "
+          + "; ".join(lines) + f" (|logits| <= {float(want.abs().max()):.3f}); "
           f"CPU forward {cpu_s:.1f} s")
 
 
@@ -2104,6 +2217,332 @@ def phase_unetr(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
     return {"window": {k: v // 64 for k, v in served.items()}, "step": step, "fit": fit}
 
 
+def unet_kernels(dev, mem_bw: float) -> None:
+    """(a) K1 (with `[2, C]` banks) and K2 in its no-add, no-activation mode
+    at every norm shape of the two UNets' windows (`UNET_NORM_SHAPES`: C =
+    6 at 96^3, which no vector width divides, up to 512 at 12^3) against
+    their plain versions in bf16 and f32, with times beside their byte
+    bounds (K2 beside `torch.addcmul`)."""
+    gen = torch.Generator().manual_seed(16)
+    flush = l2_flush(dev)
+    for shape in UNET_NORM_SHAPES:
+        print(k1_case(shape, dev, gen, mem_bw, flush)[0])
+        print(k2_affine_case(shape, dev, gen, mem_bw, flush)[0])
+
+
+def unet_card_vs_cpu(dev, size: int = 64) -> None:
+    """(b) Both UNets at a `size`^3 ROI in f32, card against CPU, on the
+    same seeded weights: logits (`check_card_logits`) and the window's
+    launches; then a C-UNet with `batch` norms: one AdamW step (loss within
+    1e-5, every gradient leaf within 5e-5 and their sum within 1e-3 as
+    `train_card_vs_cpu`, and in f64 each leaf relative to its size
+    (`f64_gradients_card_vs_cpu`), parameters after it within rtol 1e-4 /
+    atol 2.5e-4, the new f32 running statistics within rtol 1e-4 / atol
+    1e-6), and the eval-mode logits of the CPU's updated state on both."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.models import model_from_config
+    from miseg_tpu_torch.train.engine import Trainer
+
+    gen = torch.Generator().manual_seed(17)
+    x = torch.randn((2, size, size, size, 1), generator=gen)
+    mods = torch.tensor([0, 1], dtype=torch.int32)
+    roi = {"roi_x": size, "roi_y": size, "roi_z": size}
+    for label, model, per in (("C-UNet", CUNET, CUNET_PER_WINDOW),
+                              ("unet_vanilla", VANILLA, VANILLA_PER_WINDOW)):
+        cfg = Config(**{**model, **roi})
+        cpu = model_from_config(cfg, device="cpu")
+        card = model_from_config(cfg, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            want = cpu(x, mods)
+            cpu_s = time.perf_counter() - t0
+            reset_launches()
+            got = card(x.to(dev), mods.to(dev)).cpu()
+        counts = launch_counts()
+        check(counts == per, f"{label} model: launched {counts}, want {per}")
+        top2 = want.topk(2, dim=-1).values
+        words = check_card_logits(f"{label} model", got, want, top2[..., 0] - top2[..., 1])
+        print(f"  {label} model {size}^3, batch 2, f32 (TF32 off), card vs CPU: {words} "
+              f"(|logits| <= {float(want.abs().max()):.3f}); launches {counts}; CPU forward "
+              f"{cpu_s:.1f} s")
+        del cpu, card
+
+    cfg = Config(**{**CUNET, **roi, "encoder_norm_name": "batch", "decoder_norm_name": "batch",
+                    "no_amp": True})
+    batch = {"image": x, "label": torch.randint(0, cfg.out_channels, (2, size, size, size),
+                                                generator=gen), "modality": mods}
+    cpu, card = Trainer(cfg, device="cpu"), Trainer(cfg, device=dev)
+    states = {"cpu": cpu.init_state()}
+    start = {k: v.detach().clone() for k, v in cpu.model.state_dict().items()}
+    states["card"] = card.init_state(start)
+    losses = {}
+    for name, trainer in (("cpu", cpu), ("card", card)):
+        states[name], loss = trainer.train_step(states[name], batch)
+        losses[name] = float(loss)
+    loss_err = abs(losses["card"] - losses["cpu"])
+    check(loss_err <= 1e-5, f"C-UNet batch-norm step: card vs CPU loss {loss_err:.3e} > 1e-5")
+    gaps = {}
+    for n, p in states["cpu"].params.items():
+        q = states["card"].params[n]
+        check(p.grad is not None and q.grad is not None,
+              f"C-UNet batch-norm step: {n} has no gradient")
+        check(bool(torch.isfinite(q.grad).all()), f"C-UNet batch-norm step: {n}'s gradient "
+                                                  f"on the card is not finite")
+        gaps[n] = max_err(q.grad.cpu(), p.grad)
+    worst = max(gaps, key=gaps.get)
+    check(gaps[worst] <= 5e-5 and sum(gaps.values()) <= 1e-3,
+          f"C-UNet batch-norm step: gradient gap worst {worst} {gaps[worst]:.3e} (tol 5e-5), "
+          f"summed {sum(gaps.values()):.3e} (tol 1e-3)")
+    worst_f64 = f64_gradients_card_vs_cpu(cfg, dev, start, batch)
+    worst_p = max(float(((states["card"].params[n].detach().cpu() - p.detach()).abs()
+                         - (2.5e-4 + 1e-4 * p.detach().abs())).max())
+                  for n, p in states["cpu"].params.items())
+    check(worst_p <= 0.0, f"C-UNet batch-norm step: parameters after the step exceed rtol "
+                          f"1e-4 / atol 2.5e-4 by {worst_p:.3e}")
+    bufs = states["cpu"].buffers
+    check(len(bufs) == 2 * 13 and all(b.dtype == torch.float32 for b in
+                                      states["card"].buffers.values()),
+          f"C-UNet batch-norm step: {len(bufs)} running statistics on the card, want 26 f32")
+    worst_b = max(float(((states["card"].buffers[n].cpu() - b).abs()
+                         - (1e-6 + 1e-4 * b.abs())).max()) for n, b in bufs.items())
+    check(worst_b <= 0.0, f"C-UNet batch-norm step: running statistics exceed rtol 1e-4 / "
+                          f"atol 1e-6 by {worst_b:.3e}")
+    card.restore(states["card"], {"params": cpu.state_dict(states["cpu"])})
+    logits = {}
+    for name, trainer in (("cpu", cpu), ("card", card)):
+        with torch.inference_mode():
+            logits[name] = trainer.make_inferer()(
+                x.to(trainer.device), mods.to(trainer.device)).cpu()
+    want = logits["cpu"]
+    top2 = want.topk(2, dim=-1).values
+    words = check_card_logits("C-UNet batch-norm eval", logits["card"], want,
+                              top2[..., 0] - top2[..., 1])
+    print(f"  C-UNet batch norms {size}^3 f32 train step, card vs CPU: loss {losses['card']:.6f} "
+          f"|diff| {loss_err:.2e} (tol 1e-05); gradient gap over {len(gaps)} leaves summed "
+          f"{sum(gaps.values()):.3e} (tol 1e-03), worst {worst} {gaps[worst]:.2e} (tol 5e-05; "
+          f"{worst_f64}); "
+          f"parameters within rtol 1e-4 / atol 2.5e-4 and "
+          f"the 26 running statistics (f32) within rtol 1e-4 / atol 1e-6 after the step; "
+          f"eval logits on the CPU's updated state {words}")
+
+
+def f64_gradients_card_vs_cpu(cfg, dev, state_dict, batch) -> str:
+    """`cfg`'s model in f64 and train mode on the card and on the CPU, from
+    `state_dict` (a batch norm's statistics stay f32 inside, and the loss
+    is f32): the loss of `batch` and every parameter's gradient, each
+    within `F64_GRAD_RTOL` of the leaf's largest element + `F64_GRAD_ATOL`.
+    Zeroing or negating any leaf would break that bound but for those the
+    CPU leaves within `F64_GRAD_ATOL` of 0, which must be biases of convs
+    feeding a norm.  Returns the line's words."""
+    from miseg_tpu_torch.losses import loss_from_config
+    from miseg_tpu_torch.models import model_from_config
+
+    grads, losses = {}, {}
+    for name, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        model = model_from_config(cfg, device=device, dtype=torch.float64)
+        model.load_state_dict(state_dict)
+        model.train()
+        logits = model(batch["image"].to(device, torch.float64), batch["modality"].to(device))
+        loss = loss_from_config(cfg)(logits, batch["label"].to(device))
+        loss.backward()
+        losses[name] = float(loss.detach())
+        grads[name] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        del model
+    sizes = {n: float(g.abs().max()) for n, g in grads["cpu"].items()}
+    gaps = {n: max_err(grads["card"][n], g) for n, g in grads["cpu"].items()}
+    over = {n: gaps[n] - (F64_GRAD_RTOL * sizes[n] + F64_GRAD_ATOL) for n in gaps}
+    rel = {n: gaps[n] / sizes[n] for n in gaps if sizes[n] > F64_GRAD_ATOL}
+    worst = max(rel, key=rel.get)
+    # (the loss itself is f32: the losses cast the logits)
+    check(abs(losses["card"] - losses["cpu"]) <= 1e-5,
+          f"f64 step: card vs CPU loss {abs(losses['card'] - losses['cpu']):.3e} > 1e-5")
+    check(max(over.values()) <= 0.0,
+          f"f64 step: {max(over, key=over.get)}'s gradient gap exceeds {F64_GRAD_RTOL:g} of "
+          f"its size + {F64_GRAD_ATOL:g} by {max(over.values()):.3e}")
+    dead = [n for n, v in sizes.items() if v <= F64_GRAD_ATOL / (1 - F64_GRAD_RTOL)]
+    check(all(n.endswith("bias") for n in dead), f"f64 step: gradients within "
+                                                 f"{F64_GRAD_ATOL:g} of 0: {dead}")
+    return (f"in f64 every leaf within {F64_GRAD_RTOL:g} of its size + {F64_GRAD_ATOL:g}, "
+            f"worst {worst} {rel[worst]:.2e} of its size, loss |diff| "
+            f"{abs(losses['card'] - losses['cpu']):.1e}; {len(dead)} conv biases before a norm "
+            f"at 0, the other leaves' smallest gradient "
+            f"{min(v for n, v in sizes.items() if n not in dead):.2e}")
+
+
+def unet_serve(dev) -> dict:
+    """(c) A bf16 UNetVanilla bundle (README recipe, seeded weights) answers a
+    224^3 volume (64 windows, gaussian blend, overlap 0.5) through
+    `load_bundle(...).predict` with `VANILLA_PER_WINDOW` x 64 launches,
+    then a profiled window that ran exactly those kernels; a bf16 C-UNet
+    bundle's window launches `CUNET_PER_WINDOW` and its profile passes the
+    same check.  Returns the launches of a window of each."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.inferers import window_starts
+    from miseg_tpu_torch.models import model_from_config
+    from miseg_tpu_torch.serve import load_bundle, save_bundle
+
+    out = {}
+    for label, model, per in (("unet_vanilla", VANILLA, VANILLA_PER_WINDOW),
+                              ("C-UNet", CUNET, CUNET_PER_WINDOW)):
+        cfg = Config(**model)
+        with tempfile.TemporaryDirectory() as tmp:
+            save_bundle(cfg, model_from_config(cfg, device=dev).state_dict(), tmp)
+            served = load_bundle(tmp)
+        check(served.compute_dtype == torch.bfloat16, f"{label} serve: bundle is not bf16")
+        if label == "unet_vanilla":
+            vol = torch.rand((1, 224, 224, 224, 1), generator=torch.Generator().manual_seed(18))
+            windows = len(window_starts(vol.shape[1:-1], cfg.roi, cfg.infer_overlap)[1])
+            check(windows == 64, f"{label} serve: {windows} windows, want 64")
+            served.predict(vol, [1])   # warm-up: the per-shape plans and caches
+            took = []
+            for mod in (0, 1):
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                logits = served.predict(vol, [mod])
+                torch.cuda.synchronize()
+                took.append(time.perf_counter() - t0)
+                counts = launch_counts()
+                check(tuple(logits.shape) == (1, 224, 224, 224, cfg.out_channels),
+                      f"{label} serve: shape {tuple(logits.shape)}")
+                check(bool(torch.isfinite(logits).all()), f"{label} serve: non-finite logits")
+                want = {k: n * windows for k, n in per.items()}
+                check(counts == want, f"{label} serve modality {mod}: launched {counts}, "
+                                      f"want {want}")
+            print(f"  {label} serve: 224^3, {windows} windows, modality 0 / 1: {took[0]:.3f} / "
+                  f"{took[1]:.3f} s ({windows / took[0]:.2f} / {windows / took[1]:.2f} "
+                  f"windows/s); launches {counts}")
+            out[label] = {k: v // windows for k, v in counts.items()}
+        else:
+            window = torch.rand((1, 96, 96, 96, 1), generator=torch.Generator().manual_seed(19))
+            served(window, [0])
+            torch.cuda.synchronize()
+            reset_launches()
+            logits = served(window, [1])
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            check(counts == per, f"{label} window: launched {counts}, want {per}")
+            check(bool(torch.isfinite(logits).all()), f"{label} window: non-finite logits")
+            out[label] = counts
+        profile_window(served, dev, per=per, k4=UNET_WINDOW_K4,
+                       label=f"one 96^3 {label} window")
+        del served
+    return out
+
+
+def unet_fit(dev, card: str, shape=(192, 192, 160)) -> dict:
+    """(e) `cli.train.main` of UNetVanilla at the README recipe (8 classes)
+    on a synthetic CT + MR set of `phase_fit`'s shape and split, with 8
+    classes: 2 epochs of one 96^3 crop a volume, a validation each, the
+    test of best.ckpt; `cli.test.main` on best.ckpt; then
+    `cli.predict_whs.main` over best.ckpt on the CT test scan: a uint16
+    label file in the scan's grid with its affine, holding MM-WHS values
+    only.  The launch, metric and Function checks are `unetr_fit`'s.
+    Returns the launches in train steps and in evaluations."""
+    from miseg_tpu_torch.cli import predict_whs
+    from miseg_tpu_torch.cli import test as cli_test
+    from miseg_tpu_torch.cli import train as cli_train
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.data.nifti import load_nifti
+    from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
+    from miseg_tpu_torch.train.checkpoint import load_checkpoint
+
+    per = VANILLA_PER_WINDOW
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        make_synthetic_dataset(root, shape=shape, num_classes=8, n_train=2, n_val=1,
+                               n_test=1, spacing=(1.0, 1.0, 1.0), seed=9, suffix=".nii")
+        cfg = Config(**{**VANILLA, "data_dirs": [str(root)] * 2,
+                        "json_lists": ["CT.json", "MR.json"], "max_epochs": 2,
+                        "check_val_every_n_epoch": 1, "scheduler": "warmup_cosine",
+                        "warmup_epochs": 1, "batch_size": 1, "patches_training_sample": 1,
+                        "num_workers": 2, "cache_num": 8, "log_every_n_steps": 1,
+                        "default_root_dir": str(Path(tmp) / "runs"),
+                        "experiment_name": "vanilla"})
+        with counting_fit() as rec:
+            t0 = time.perf_counter()
+            trainer, state, test_metrics = cli_train.main(cfg, device=dev)
+            fit_s = time.perf_counter() - t0
+            workdir = Path(cfg.default_root_dir) / "vanilla"
+            best = cfg.replace(ckpt_path=str(workdir / "best.ckpt"))
+            t0 = time.perf_counter()
+            cli_metrics = cli_test.main(best, device=dev)
+            test_s = time.perf_counter() - t0
+        check(len(rec["steps"]) == 8, f"vanilla fit: {len(rec['steps'])} train steps in 2 epochs")
+        check_fit_launches("vanilla fit", rec, per)
+        lines = [json.loads(ln) for ln in open(workdir / "metrics.jsonl")]
+        vals = [ln for ln in lines if "val/loss/avg" in ln]
+        check(len(vals) == 2, f"vanilla fit: {len(vals)} validations in 2 epochs")
+        for ln in vals:
+            check_metrics(f"vanilla fit val epoch {ln['step']}",
+                          {k: v for k, v in ln.items() if k not in ("ts", "step")},
+                          "val", cfg.out_channels, False)
+        check_metrics("vanilla fit test", test_metrics, "test", cfg.out_channels, True)
+        check_metrics("vanilla cli.test", cli_metrics, "test", cfg.out_channels, True)
+        check(same_metrics(cli_metrics, test_metrics),
+              "vanilla fit: cli.test on best.ckpt differs from the run's own test of best.ckpt")
+        ck = load_checkpoint(workdir / "best.ckpt")
+        check(ck["params"].keys() == trainer.model.state_dict().keys()
+              and all(bool(torch.isfinite(v).all()) for v in ck["params"].values()),
+              f"vanilla fit: best.ckpt does not reload the model's {len(state.params)} finite "
+              f"parameters")
+
+        reset_launches()
+        t0 = time.perf_counter()
+        written = predict_whs.main(best, data_dir=str(root), json_list="CT.json",
+                                   result_dir=str(Path(tmp) / "predictions"), device=dev)
+        predict_s = time.perf_counter() - t0
+        counts = launch_counts()
+        scan = json.loads((root / "CT.json").read_text())["test"][0]
+        scan = load_nifti(root / (scan["image"] if isinstance(scan, dict) else scan))
+        check(len(written) == 1, f"predict_whs wrote {len(written)} files, want 1")
+        pred = load_nifti(written[0])
+        values = set(torch.unique(torch.from_numpy(pred.data.astype("int64"))).tolist())
+        check(pred.data.dtype.name == "uint16" and pred.data.shape == scan.data.shape
+              and bool((pred.affine == scan.affine).all()),
+              f"predict_whs: {pred.data.dtype} {pred.data.shape} in a grid other than the "
+              f"scan's {scan.data.shape}")
+        check(values <= {0, *predict_whs.MMWHS_LABEL_MAP.values()},
+              f"predict_whs: label values {sorted(values)} outside MM-WHS's")
+        check(counts["K1"] == counts["K2"] > 0 and counts["K1"] % per["K1"] == 0
+              and not any(counts[k] for k in ("K1 fold", "K3", "K4", "K5")),
+              f"predict_whs launched {counts}; want a multiple of {per}")
+    h = trainer.history
+    evals = rec["evals"]
+    print(f"  vanilla fit: 2 epochs x 4 steps + its test {fit_s:.2f} s, cli.test {test_s:.2f} s "
+          f"on '{card}'; step ms by CUDA events {', '.join(f'{v:.1f}' for v in h['step_ms'])}; "
+          f"checkpoint saves a validation {', '.join(f'{s:.2f}' for s in h['ckpt_s'])} s; "
+          + "; ".join(f"{e['prefix']} {e['windows']} windows {e['s']:.2f} s" for e in evals)
+          + f"; test dice avg {test_metrics['test_total_dice/avg']:.4f}, train losses "
+          + ", ".join(f"{ln['train/loss']:.4f}" for ln in lines if "train/loss" in ln))
+    print(f"  predict_whs over best.ckpt: {scan.data.shape} scan -> uint16 labels "
+          f"{sorted(values)} in its grid in {predict_s:.2f} s, {counts['K1'] // per['K1']} "
+          f"windows' launches")
+    return {"train": {k: sum(c[k] for c in rec["steps"]) for k in per},
+            "eval": {k: sum(e["counts"][k] for e in evals) for k in per}}
+
+
+def phase_unet(dev, card: str, mem_bw: float) -> dict:
+    """C-UNet and UNetVanilla, the residual UNets, on every entry point:
+    (a) `unet_kernels`, (b) `unet_card_vs_cpu`, (c) `unet_serve`, (d) their
+    full-width bf16 train steps (`train_full`), (e) `unet_fit`.  Returns
+    the launches of each model's window and step, and of UNetVanilla's
+    fit."""
+    t0 = time.perf_counter()
+    unet_kernels(dev, mem_bw)
+    unet_card_vs_cpu(dev)
+    window = unet_serve(dev)
+    steps = {label: train_full(dev, card, model=model, per=per, k4=UNET_WINDOW_K4)
+             for label, model, per in (("C-UNet", CUNET, CUNET_PER_WINDOW),
+                                       ("unet_vanilla", VANILLA, VANILLA_PER_WINDOW))}
+    fit = unet_fit(dev, card)
+    print(f"unet: C-UNet ({CUNET_PER_WINDOW['K1']} K1 + K2 a window) and UNetVanilla "
+          f"({VANILLA_PER_WINDOW['K1']}) served, trained and fitted through K1 and K2 "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return {"window": window, "step": steps, "fit": fit}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; chip_smoke.py needs a CUDA card",
@@ -2124,6 +2563,7 @@ def main() -> int:
     train = phase_train(dev, card)
     fit = phase_fit(dev, card)
     unetr = phase_unetr(dev, card, mem_bw, bf16_flops)
+    unet = phase_unet(dev, card, mem_bw)
     meta = {
         "K1": ("fused_norm.channel_scale_shift", "cuda",
                "miseg_tpu_torch/ops/kernels/csrc/fused_norm.cu",
@@ -2166,6 +2606,14 @@ def main() -> int:
               f"{key}: C-UNETR's window, step, fit steps and evaluations launched it "
               f"{unetr['window'][key]}, {unetr['step'][key]}, {unetr['fit']['train'][key]}, "
               f"{unetr['fit']['eval'][key]} times; want {'> 0' if on_unetr else '0'}")
+        # the UNets' norms are K1 + K2 alone: no K4 (so no fold), K3 or K5
+        unet_counts = [*(unet["window"][m][key] for m in ("C-UNet", "unet_vanilla")),
+                       *(unet["step"][m][key] for m in ("C-UNet", "unet_vanilla")),
+                       unet["fit"]["train"][key], unet["fit"]["eval"][key]]
+        on_unet = key in ("K1", "K2")
+        check(all((n > 0) == on_unet for n in unet_counts),
+              f"{key}: the UNets' windows, steps, fit steps and evaluations launched it "
+              f"{unet_counts} times; want {'> 0' if on_unet else '0'}")
         kernels.append({"name": f"{key} {name}", "route": route, "source": source,
                         "replaces": replaces, "launches": launches[key], **rows[key],
                         "train": {"launches_per_step": train[key],
@@ -2175,7 +2623,14 @@ def main() -> int:
                         "unetr": {"launches_per_window": unetr["window"][key],
                                   "launches_per_step": unetr["step"][key],
                                   "fit_launches_train_steps": unetr["fit"]["train"][key],
-                                  "fit_launches_evaluate": unetr["fit"]["eval"][key]}})
+                                  "fit_launches_evaluate": unetr["fit"]["eval"][key]},
+                        "unet": {"cunet_launches_per_window": unet["window"]["C-UNet"][key],
+                                 "cunet_launches_per_step": unet["step"]["C-UNet"][key],
+                                 "vanilla_launches_per_window":
+                                     unet["window"]["unet_vanilla"][key],
+                                 "vanilla_launches_per_step": unet["step"]["unet_vanilla"][key],
+                                 "vanilla_fit_launches_train_steps": unet["fit"]["train"][key],
+                                 "vanilla_fit_launches_evaluate": unet["fit"]["eval"][key]}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

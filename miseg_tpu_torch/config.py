@@ -43,6 +43,7 @@ class Config:
     encoder_norm_no_affine: bool = False
     decoder_norm_name: str = "instance"
     decoder_norm_no_affine: bool = False
+    num_groups: int = 4                # group norm's groups
     num_styles: int = 2
     dropout_rate: float = 0.0          # after the patch embedding, the projection, the MLP
     attn_drop_rate: float = 0.0        # on the attention probabilities
@@ -50,6 +51,15 @@ class Config:
     depth_swin_block: list[int] = _lst(2)
     downsample: str = "merging"
     no_normalize_swin: bool = False
+    # --- unet / unet_vanilla (config.py:62-69) ---
+    num_layers: int = 4                # unet: levels; channels fs * 2^i, i = 1..num_layers
+    strides: list[int] = _lst(2, 2, 2)
+    kernel_size: list[int] = _lst(3)
+    up_kernel_size: list[int] = _lst(3)
+    num_res_units: int = 2
+    activation: str = "prelu"
+    no_bias: bool = False
+    adn_ordering: str = "NDA"
     freeze_encoder: bool = False       # the encoder's parameters get no update
     # --- loss (config.py:72-76) ---
     criterion: str = "dice_focal"
@@ -146,6 +156,13 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def _scalar_or_list(v):
+    """A one-element list as its element (a kernel size for every axis)."""
+    if isinstance(v, (list, tuple)) and len(v) == 1:
+        return v[0]
+    return v
 
 
 def build_parser(parser: argparse.ArgumentParser | None = None) -> argparse.ArgumentParser:

@@ -1,33 +1,32 @@
 """Model factory: `Config` -> `nn.Module` (counterpart of
-`miseg_tpu/models/factory.py:27-54,77-94`: the `unetr` branch, and the
-`swin_unetr` / `pre_swin_unetr` branch, where both names build the same
-SwinUNETR; the pretrained checkpoint ingest of `pre_swin_unetr` is not
-ported yet)."""
+`miseg_tpu/models/factory.py`): all five of its models.  `unetr` builds
+UNETR, `unet` the residual UNet, `unet_vanilla` UNetVanilla, and
+`swin_unetr` and `pre_swin_unetr` the same SwinUNETR (the pretrained
+checkpoint ingest of `pre_swin_unetr` is not ported yet)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..config import Config
+from ..config import Config, _scalar_or_list
 from ..ops.init import init_linear
 from ..ops.norms import parse_normalization
 from ..utils.platform import resolve_device
 from .swin_unetr import SwinUNETR
+from .unet import UNet, UNetVanilla
 from .unetr import UNETR
 
-MODEL_NAMES = ("unetr", "swin_unetr", "pre_swin_unetr")
+MODEL_NAMES = ("unetr", "unet", "unet_vanilla", "swin_unetr", "pre_swin_unetr")
 
 
 def _norm_specs(cfg: Config):
-    vit = parse_normalization(cfg.vit_norm_name, affine=not cfg.vit_norm_no_affine,
-                              num_styles=cfg.num_styles)
+    kw = dict(num_groups=cfg.num_groups, num_styles=cfg.num_styles)
+    vit = parse_normalization(cfg.vit_norm_name, affine=not cfg.vit_norm_no_affine, **kw)
     enc = parse_normalization(cfg.encoder_norm_name,
-                              affine=not cfg.encoder_norm_no_affine,
-                              num_styles=cfg.num_styles)
+                              affine=not cfg.encoder_norm_no_affine, **kw)
     dec = parse_normalization(cfg.decoder_norm_name,
-                              affine=not cfg.decoder_norm_no_affine,
-                              num_styles=cfg.num_styles)
+                              affine=not cfg.decoder_norm_no_affine, **kw)
     return vit, enc, dec
 
 
@@ -48,12 +47,33 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def model_from_config(cfg: Config, *, device=None, dtype=torch.float32,
                       generator: torch.Generator | None = None,
                       fused_conv: bool = True) -> nn.Module:
-    """Build and initialise `cfg`'s model on `device` (the CUDA card unless
-    given).  Weights come from `generator`, by default one seeded with
-    `cfg.seed`; a state dict can then replace them.  `fused_conv` selects
-    the conv blocks' path (`nn/dynunet.py`); the state dict is the same
-    on both."""
-    device = resolve_device(device)
+    """Build and initialise `cfg`'s model (one of `MODEL_NAMES`) on
+    `device` (the CUDA card unless given).  Weights come from `generator`,
+    by default one seeded with `cfg.seed`; a state dict can then replace
+    them.  `fused_conv` selects the conv blocks' path of UNETR and
+    SwinUNETR (`nn/dynunet.py`); the state dict is the same on both.  The
+    UNets have no such blocks and ignore it."""
+    model = _build(cfg, resolve_device(device), dtype, fused_conv)
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    init_weights(model, generator)
+    return model.eval()
+
+
+def buffer_names(model: nn.Module | Config) -> set[str]:
+    """The state dict entries of a model that are buffers, not parameters:
+    batch norms' running statistics, f32 whatever the parameters' dtype.
+    The trainer carries them in `TrainState.buffers`; `serve.save_bundle`
+    leaves them uncast.  Of a `Config`, read from its model built on the
+    meta device (nothing allocated or drawn)."""
+    if isinstance(model, Config):
+        model = _build(model, torch.device("meta"), torch.float32, True)
+    kept = model.state_dict().keys()
+    return {n for n, _ in model.named_buffers() if n in kept}
+
+
+def _build(cfg: Config, device: torch.device, dtype, fused_conv: bool) -> nn.Module:
+    """`cfg`'s model with its parameters uninitialised."""
     vit_norm, encoder_norm, decoder_norm = _norm_specs(cfg)
     if cfg.model_name not in MODEL_NAMES:
         raise ValueError(f"model {cfg.model_name!r} is not ported yet; "
@@ -67,6 +87,21 @@ def model_from_config(cfg: Config, *, device=None, dtype=torch.float32,
             dropout_rate=cfg.dropout_rate, qkv_bias=cfg.qkv_bias, vit_norm=vit_norm,
             decoder_norm=decoder_norm, encoder_norm=encoder_norm, fused_conv=fused_conv,
             device=device, dtype=dtype)
+    elif cfg.model_name in ("unet", "unet_vanilla"):
+        unet = dict(in_channels=cfg.in_channels, out_channels=cfg.out_channels,
+                    strides=list(cfg.strides), kernel_size=_scalar_or_list(cfg.kernel_size),
+                    up_kernel_size=_scalar_or_list(cfg.up_kernel_size),
+                    num_res_units=cfg.num_res_units, act=cfg.activation,
+                    norm_down=encoder_norm, norm_up=decoder_norm, dropout=cfg.dropout_rate,
+                    bias=not cfg.no_bias, adn_ordering=cfg.adn_ordering, device=device,
+                    dtype=dtype)
+        if cfg.model_name == "unet":
+            # the channels start at 2 * feature_size: the reference's TODO at
+            # networks/nets/unet.py:218-219, kept for its checkpoints (W4)
+            model = UNet(channels=[cfg.feature_size_scalar * 2 ** i
+                                   for i in range(1, cfg.num_layers + 1)], **unet)
+        else:
+            model = UNetVanilla(channels=list(cfg.feature_size), **unet)
     else:
         if len(cfg.depth_swin_block) == 1:
             depths = (cfg.depth_swin_block[0],) * 4
@@ -84,7 +119,4 @@ def model_from_config(cfg: Config, *, device=None, dtype=torch.float32,
             vit_norm=vit_norm, encoder_norm=encoder_norm,
             decoder_norm=decoder_norm, fused_conv=fused_conv, device=device,
             dtype=dtype)
-    if generator is None:
-        generator = torch.Generator().manual_seed(cfg.seed)
-    init_weights(model, generator)
-    return model.eval()
+    return model

@@ -1,11 +1,13 @@
 """Channel-last 3-D convolutions (counterpart of
-`miseg_tpu/nn/convolutions.py:49-135`, the `conv_only` path).
+`miseg_tpu/nn/convolutions.py:49-184`): `Conv`, `Convolution` with its
+optional ADN, and `ResidualUnit`.
 
 A contiguous `[B, D, H, W, C]` tensor viewed through
 `permute(0, 4, 1, 2, 3)` is already a `channels_last_3d` NCDHW tensor, so
 `F.conv3d` runs on it without a copy and its channels-last output
 permutes back the same way.  Weights use torch's layout: `[O, I, *k]` for
-a conv, `[I, O, *k]` for a transposed conv.
+a conv, `[I, O, *k]` for a transposed conv.  The convs are cuDNN's, as
+the JAX package's are XLA's `nn.Conv` and `lax.conv_transpose`.
 """
 
 from __future__ import annotations
@@ -18,12 +20,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.init import fill_, lecun_normal
+from .adn import ADN
 
 
 def _tuple3(v) -> tuple[int, int, int]:
     if isinstance(v, (list, tuple)):
         return tuple(int(x) for x in v) if len(v) == 3 else (int(v[0]),) * 3
     return (int(v),) * 3
+
+
+def same_padding(kernel_size):
+    """Padding that keeps the spatial size at stride 1: (k - 1) / 2, for odd
+    kernel sizes only."""
+    k = kernel_size if isinstance(kernel_size, (list, tuple)) else (kernel_size,)
+    if any(ki % 2 == 0 for ki in k):
+        raise NotImplementedError("same padding requires odd kernel sizes")
+    return tuple((ki - 1) // 2 for ki in k)
 
 
 def get_padding(kernel_size, stride):
@@ -89,16 +101,22 @@ class Conv(nn.Module):
 
 
 class Convolution(nn.Module):
-    """`conv_only` Convolution: a `Conv` named `conv`, or, transposed, the
-    `weight [I, O, *k]` held directly (the flax tree's layout)."""
+    """(Conv | transposed conv) -> optional ADN.  The conv is a `Conv`
+    named `conv`, or, transposed, the `weight [I, O, *k]` held directly
+    (the flax tree's layout); padding defaults to `same_padding`, a
+    transposed conv's output padding to `stride - 1`.  The ADN (`adn`) is
+    built unless `conv_only` or act, norm and dropout are all None, so the
+    defaults give the conv alone."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size=3,
                  strides=1, padding=None, output_padding=None,
                  use_bias: bool = True, is_transposed: bool = False, *,
+                 adn_ordering: str = "NDA", act=None, norm=None,
+                 dropout: float | None = None, conv_only: bool = False,
                  device=None, dtype=None):
         super().__init__()
         k, s = _tuple3(kernel_size), _tuple3(strides)
-        pad = _tuple3(padding) if padding is not None else tuple((ki - 1) // 2 for ki in k)
+        pad = _tuple3(padding) if padding is not None else same_padding(k)
         self.is_transposed = is_transposed
         if is_transposed:
             self.kernel_size, self.strides, self.padding = k, s, pad
@@ -111,6 +129,10 @@ class Convolution(nn.Module):
         else:
             self.conv = Conv(in_channels, out_channels, k, s, pad, use_bias,
                              device=device, dtype=dtype)
+        self.adn = None
+        if not (conv_only or (act is None and norm is None and not dropout)):
+            self.adn = ADN(out_channels, adn_ordering, act, norm, dropout,
+                           device=device, dtype=dtype)
 
     def init_parameters(self, generator) -> None:
         if self.is_transposed:
@@ -120,8 +142,47 @@ class Convolution(nn.Module):
             if self.bias is not None:
                 fill_(self.bias, torch.zeros(self.bias.shape))
 
-    def forward(self, x):
+    def forward(self, x, modalities=None):
         if self.is_transposed:
-            return conv_transpose(x, self.weight, self.strides, self.padding,
-                                  self.output_padding, self.bias)
-        return self.conv(x)
+            x = conv_transpose(x, self.weight, self.strides, self.padding,
+                               self.output_padding, self.bias)
+        else:
+            x = self.conv(x)
+        return x if self.adn is None else self.adn(x, modalities)
+
+
+class ResidualUnit(nn.Module):
+    """`subunits` x Convolution (`unit0`, `unit1`, ...; the first strided,
+    the last conv-only with `last_conv_only`) plus a residual: a `Conv`
+    named `residual` with the unit's kernel and stride when a stride is not
+    1, a 1x1 one when only the channels change, else the identity."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size=3, strides=1,
+                 subunits: int = 2, adn_ordering: str = "NDA", act="prelu",
+                 norm=("instance", {}), dropout: float | None = None,
+                 use_bias: bool = True, last_conv_only: bool = False, *, device=None,
+                 dtype=None):
+        super().__init__()
+        k, s = _tuple3(kernel_size), _tuple3(strides)
+        pad = same_padding(k)
+        self.subunits = max(1, subunits)
+        cin, ss = in_channels, s
+        for su in range(self.subunits):
+            setattr(self, f"unit{su}", Convolution(
+                cin, out_channels, k, ss, pad, use_bias=use_bias,
+                adn_ordering=adn_ordering, act=act, norm=norm, dropout=dropout,
+                conv_only=last_conv_only and su == self.subunits - 1,
+                device=device, dtype=dtype))
+            cin, ss = out_channels, (1, 1, 1)
+        self.residual = None
+        strided = any(si != 1 for si in s)
+        if strided or in_channels != out_channels:
+            rk, rp = (k, pad) if strided else ((1, 1, 1), (0, 0, 0))
+            self.residual = Conv(in_channels, out_channels, rk, s, rp, use_bias,
+                                 device=device, dtype=dtype)
+
+    def forward(self, x, modalities=None):
+        cx = x
+        for su in range(self.subunits):
+            cx = getattr(self, f"unit{su}")(cx, modalities)
+        return cx + (x if self.residual is None else self.residual(x))

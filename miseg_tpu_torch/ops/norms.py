@@ -8,7 +8,10 @@ whenever var << mean^2.  The norm is computed explicitly rather than with
 torch 2.13.
 
 These are the plain references.  The model's instance norms run through
-`ops.kernels.fused_norm` (kernels K1 + K2 on the card).
+`ops.kernels.fused_norm` (kernels K1 + K2 on the card); layer, group and
+batch norms run these functions (the JAX package has no kernel for them).
+Batch statistics alone use the one-pass variance, clamped at 0, as the
+JAX package's `batch_stats` does (ops/norms.py:220-225).
 """
 
 from __future__ import annotations
@@ -58,6 +61,41 @@ def layer_norm(x: Tensor, gamma: Tensor | None = None,
     """Layer norm over the trailing channel axis."""
     mean, inv = stats(x, (-1,), eps)
     y = (x.float() - mean) * inv
+    if gamma is not None:
+        y = y * gamma.float() + beta.float()
+    return y.to(x.dtype)
+
+
+def group_norm(x: Tensor, num_groups: int, gamma: Tensor | None = None,
+               beta: Tensor | None = None, *, eps: float = 1e-5) -> Tensor:
+    """Group norm over `[B, *spatial, C]` with C split into `num_groups`
+    (two-pass statistics over the spatial dims and the group's channels)."""
+    b, *spatial, c = x.shape
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by num_groups {num_groups}")
+    xg = x.reshape(b, *spatial, num_groups, c // num_groups)
+    mean, inv = stats(xg, tuple(range(1, xg.ndim - 2)) + (xg.ndim - 1,), eps)
+    y = ((xg.float() - mean) * inv).reshape(x.shape)
+    if gamma is not None:
+        y = y * gamma.float() + beta.float()
+    return y.to(x.dtype)
+
+
+def batch_stats(x: Tensor) -> tuple[Tensor, Tensor]:
+    """Per-channel f32 (mean, var) `[C]` over the batch and spatial dims of
+    `[B, *spatial, C]`: the ONE-PASS `E[x^2] - mean^2`, clamped at 0."""
+    dims = tuple(range(x.ndim - 1))
+    x32 = x.float()
+    mean = x32.mean(dim=dims)
+    var = x32.square().mean(dim=dims) - mean.square()
+    return mean, var.clamp_min(0.0)
+
+
+def batch_norm_inference(x: Tensor, mean: Tensor, var: Tensor, gamma: Tensor | None,
+                         beta: Tensor | None, *, eps: float = 1e-5) -> Tensor:
+    """Batch norm of `[B, *spatial, C]` with the given statistics `[C]`."""
+    inv = torch.rsqrt(var.float() + eps)
+    y = (x.float() - mean.float()) * inv
     if gamma is not None:
         y = y * gamma.float() + beta.float()
     return y.to(x.dtype)

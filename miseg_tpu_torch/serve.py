@@ -7,7 +7,9 @@ A port bundle is a directory:
                  version-1 bundle has no spacing, and the HTTP server's
                  chain refuses it)
     weights.pt   the state dict, saved with `torch.save` in the compute
-                 dtype (bf16 under amp)
+                 dtype (bf16 under amp), but for a batch norm's running
+                 statistics, which stay f32 (the JAX package's bundles
+                 drop them: ROADMAP W9)
 
 `ServedModel.predict` runs gaussian (or constant) sliding-window inference
 over a whole volume with the window forward of `_window_fn`: bf16 weights
@@ -24,7 +26,7 @@ import torch
 
 from .config import Config
 from .inferers import SlidingWindowInferer
-from .models import model_from_config
+from .models import buffer_names, model_from_config
 from .utils.platform import resolve_device
 
 _BUNDLE_VERSION = 2
@@ -51,7 +53,9 @@ def save_bundle(cfg: Config, state_dict: dict, out_dir: str | Path) -> Path:
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     compute = _compute_dtype(cfg)
-    weights = {k: (v.detach().to("cpu", compute) if v.is_floating_point()
+    buffers = buffer_names(cfg)
+    weights = {k: (v.detach().to("cpu", compute)
+                   if v.is_floating_point() and k not in buffers
                    else v.detach().cpu()) for k, v in state_dict.items()}
     torch.save(weights, out / _WEIGHTS_FILE)
     meta = {

@@ -6,7 +6,10 @@ A checkpoint is one `torch.save` file of
     {"format": "miseg_tpu_torch", "params": {name: tensor},
      "opt_state": the trainer's optimizer state or {}}
 beside a `<path>.json` sidecar holding epoch, best_acc, scheduler and
-extra, as the JAX package writes it.  Tensors are saved on the CPU and
+extra, as the JAX package writes it.  "params" is the model's whole
+state dict: its parameters and its buffers (a batch norm's f32 running
+`mean`/`var`, which the JAX package's msgpack checkpoints drop: ROADMAP
+W9).  Tensors are saved on the CPU and
 read back with `weights_only=True`.  The JAX package's msgpack
 checkpoints and the reference's torch `.pt`/`.ckpt` files are not read
 here: the reference ingest is ROADMAP's M8.

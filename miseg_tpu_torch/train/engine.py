@@ -4,7 +4,10 @@
 `train_step` :271, `flush_accumulation` :310, `make_inferer` :328,
 `evaluate` :368 and `fit` :444).
 
-The parameters are f32 masters.  The training forward casts every
+The parameters are f32 masters.  A batch norm's running statistics are
+f32 buffers of the model (`TrainState.buffers`): the training forward
+updates them in place, evaluation reads them, and checkpoints carry
+them beside the parameters (`Trainer.state_dict`).  The training forward casts every
 floating parameter to the compute dtype (bf16 when `cfg.amp`) through a
 differentiable cast and runs the model on those copies
 (`torch.func.functional_call`), so the backward lands in the f32 masters;
@@ -41,7 +44,7 @@ from ..inferers import SlidingWindowInferer, window_starts
 from ..losses import loss_from_config
 from ..metrics import (dice_score_labels, metric_by_modality, nanmean_valid,
                        reduce_mean_batch, surface_distance)
-from ..models import model_from_config
+from ..models import buffer_names, model_from_config
 from ..nn import dropout
 from ..utils.logging import MetricLogger
 from ..utils.platform import resolve_device
@@ -56,12 +59,16 @@ from .schedules import scheduler_from_config
 @dataclasses.dataclass
 class TrainState:
     """The f32 master parameters by name (the model's own tensors, updated
-    in place), their optimizer, the count of micro-steps taken, and the
-    gradient accumulation window when `iters_to_accumulate` > 1."""
+    in place), their optimizer, the count of micro-steps taken, the
+    gradient accumulation window when `iters_to_accumulate` > 1, and the
+    model's f32 buffers by name (batch norms' running statistics, the
+    counterpart of JAX's `extra_vars`; the model's own tensors, updated in
+    place by each training forward)."""
     params: dict[str, torch.Tensor]
     optimizer: torch.optim.Optimizer
     step: int = 0
     accumulation: Accumulation | None = None
+    buffers: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 class EarlyStopping:
@@ -141,20 +148,29 @@ class Trainer:
     # -------------------------------------------------------------- state
 
     def init_state(self, params: Mapping[str, torch.Tensor] | None = None) -> TrainState:
-        """The initial state: the model's parameters (replaced by the state
-        dict `params` when given, e.g. one bridged from JAX) as f32
-        masters, and `cfg`'s optimizer over them (without the encoder's
-        under `freeze_encoder`)."""
+        """The initial state: the model's parameters and buffers (replaced
+        by the state dict `params` when given, e.g. one bridged from JAX)
+        as f32 masters, and `cfg`'s optimizer over the parameters (without
+        the encoder's under `freeze_encoder`)."""
         if params is not None:
             self.model.load_state_dict(params, strict=True)
         masters = dict(self.model.named_parameters())
-        wrong = [n for n, p in masters.items() if p.dtype != torch.float32]
+        kept = buffer_names(self.model)
+        buffers = {n: b for n, b in self.model.named_buffers() if n in kept}
+        wrong = [n for n, p in {**masters, **buffers}.items() if p.dtype != torch.float32]
         if wrong:
-            raise ValueError(f"master parameters must be float32: {wrong[:3]}")
+            raise ValueError(f"master parameters and buffers must be float32: {wrong[:3]}")
         optimizer = optimizer_from_config(self.cfg, masters,
                                           getattr(self.model, "ENCODER_PREFIXES", ()))
         k = self.cfg.iters_to_accumulate
-        return TrainState(masters, optimizer, 0, Accumulation(k) if k > 1 else None)
+        return TrainState(masters, optimizer, 0, Accumulation(k) if k > 1 else None,
+                          buffers)
+
+    @staticmethod
+    def state_dict(state: TrainState) -> dict[str, torch.Tensor]:
+        """The parameters and buffers of `state` by name: what a checkpoint
+        holds."""
+        return {**state.params, **state.buffers}
 
     def fresh_state(self) -> TrainState:
         """`init_state` and then the `--pretrained` ingest of a port
@@ -172,10 +188,12 @@ class Trainer:
 
     @torch.no_grad()
     def _load_params(self, state: TrainState, params: Mapping[str, torch.Tensor]) -> None:
-        missing = [n for n in state.params if n not in params]
+        own = self.state_dict(state)
+        missing = [n for n in own if n not in params]
         if missing:
-            raise KeyError(f"checkpoint lacks {len(missing)} parameters, e.g. {missing[:3]}")
-        for n, p in state.params.items():
+            raise KeyError(f"checkpoint lacks {len(missing)} parameters or buffers, e.g. "
+                           f"{missing[:3]}")
+        for n, p in own.items():
             p.copy_(params[n])
 
     def opt_state(self, state: TrainState) -> dict:
@@ -186,8 +204,8 @@ class Trainer:
         return {"optimizer": state.optimizer.state_dict(), **counts}
 
     def restore(self, state: TrainState, ck: Mapping) -> TrainState:
-        """Load a checkpoint's parameters and, when it has them, its
-        optimizer state and step count into `state`."""
+        """Load a checkpoint's parameters and buffers and, when it has
+        them, its optimizer state and step count into `state`."""
         self._load_params(state, ck["params"])
         opt_state = ck.get("opt_state")
         if opt_state:
@@ -211,7 +229,8 @@ class Trainer:
     @contextlib.contextmanager
     def eval_weights(self):
         """The model in eval mode, with the masters cast to the compute
-        dtype once for every window run inside; re-entrant."""
+        dtype once for every window run inside (the buffers stay f32);
+        re-entrant."""
         if self._eval_cast is not None:
             yield
             return
@@ -458,14 +477,15 @@ class Trainer:
                                if hasattr(self.scheduler, "plateau") else None)
                 tc = time.perf_counter()
                 opt_state = self.opt_state(state)
-                ckpt.save(acc, params=state.params, opt_state=opt_state, epoch=epoch,
+                weights = self.state_dict(state)
+                ckpt.save(acc, params=weights, opt_state=opt_state, epoch=epoch,
                           scheduler_state=sched_state)
                 if acc > best_acc:
                     best_acc = acc
                     save_checkpoint(os.path.join(self.workdir, "best.ckpt"),
-                                    params=state.params, opt_state=opt_state, epoch=epoch,
+                                    params=weights, opt_state=opt_state, epoch=epoch,
                                     best_acc=acc, scheduler_state=sched_state)
-                save_checkpoint(os.path.join(self.workdir, "last.ckpt"), params=state.params,
+                save_checkpoint(os.path.join(self.workdir, "last.ckpt"), params=weights,
                                 opt_state=opt_state, epoch=epoch, best_acc=best_acc,
                                 scheduler_state=sched_state)
                 self.history["ckpt_s"].append(time.perf_counter() - tc)

@@ -10,8 +10,10 @@ name.  Layouts:
     conv_transpose does).  A transposed conv is known by its module's
     name (`_is_transposed`): a plain conv's kernel can have the same
     shape, and where I = O nothing else tells them apart;
-  * norm `scale`/`bias` (`[C]` or `[S, C]` banks) and
-    `relative_position_bias_table` `[T, H]` unchanged.
+  * norm `scale`/`bias` (`[C]` or `[S, C]` banks), PReLU `slope` and
+    `relative_position_bias_table` `[T, H]` unchanged;
+  * the `batch_stats` collection (a batch norm's `mean`/`var`, given
+    apart from the params) onto the norm's buffers of the same names.
 The result loads with `load_state_dict(..., strict=True)`.
 
 A gradient tree (`jax.grad` of a loss over those params) has the same
@@ -30,9 +32,10 @@ import torch
 
 # the modules whose kernel is a transposed conv's: UnetrUpBlock's
 # `transp_conv`, UnetrPrUpBlock's `transp_conv_init` and `up0`, `up1`, ...
-# (miseg_tpu/nn/unetr_blocks.py:46,71-77).  C-UNet's transposed convs,
-# named `up` (miseg_tpu/models/unet.py:89), will need a rule of their own.
-_TRANSPOSED = re.compile(r"transp_conv|transp_conv_init|up\d+")
+# (miseg_tpu/nn/unetr_blocks.py:46,71-77), and C-UNet's `up`
+# (miseg_tpu/models/unet.py:89).  `up_path_*` and `up_ru` hold plain convs
+# (under `conv`/`residual`), as does every other module
+_TRANSPOSED = re.compile(r"transp_conv|transp_conv_init|up\d*")
 
 
 def _is_transposed(module: str) -> bool:
@@ -62,12 +65,15 @@ def _convert(path: tuple[str, ...], arr: np.ndarray) -> tuple[str, np.ndarray]:
     return name, arr.transpose(nk + 1, nk, *spatial)
 
 
-def state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+def state_dict_from_jax(params: Mapping,
+                        batch_stats: Mapping | None = None) -> dict[str, torch.Tensor]:
     """`model.init(...)["params"]` (nested mappings of arrays), or a
-    gradient tree of the same paths -> the port's state dict (or the
-    gradients by parameter name), as CPU tensors of the arrays' dtypes."""
+    gradient tree of the same paths, and the `batch_stats` collection when
+    the model has one -> the port's state dict (or the gradients by
+    parameter name), as CPU tensors of the arrays' dtypes."""
     out = {}
-    for path, leaf in _flatten(params):
+    leaves = [*_flatten(params), *_flatten(batch_stats or {})]
+    for path, leaf in leaves:
         name, arr = _convert(path, np.asarray(leaf))
         out[name] = torch.from_numpy(np.ascontiguousarray(arr))
     return out

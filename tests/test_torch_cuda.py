@@ -539,15 +539,37 @@ def test_k3_matches_plain(dev, gen, case, dtype):
 
 # K2's shapes on a 96^3 window: the unfused path's 96^3 x 48, then every
 # distinct shape of the served path (swin-block, patch-merging and proj_out
-# norms, and the identity tails' adds at 48^3, 24^3, 12^3 and 3^3)
+# norms, and the identity tails' adds at 48^3, 24^3, 12^3 and 3^3), then
+# the residual UNets' (C-UNet's top `up` at 96^3 x 6, which no vector
+# width divides; UNetVanilla's widest levels)
 _K2_SHAPES = [(1, 96 ** 3, 48), (1, 48 ** 3, 48), (1, 24 ** 3, 384), (1, 24 ** 3, 96),
               (1, 12 ** 3, 768), (1, 12 ** 3, 192), (1, 6 ** 3, 1536), (1, 6 ** 3, 384),
-              (1, 27, 3072), (1, 27, 768)]
+              (1, 27, 3072), (1, 27, 768), (1, 96 ** 3, 6), (1, 48 ** 3, 64),
+              (1, 12 ** 3, 512), (1, 12 ** 3, 256)]
 # K3's: every projected-residual tail of the window, and 3^3 x 768 (off
 # the served path, whose encoder10 tail is K2's add mode: the smallest
 # tensor K3 is held at)
 _K3_SHAPES = [(1, 96 ** 3, 48), (1, 48 ** 3, 48), (1, 24 ** 3, 96), (1, 12 ** 3, 192),
               (1, 6 ** 3, 384), (1, 27, 768)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 96 ** 3, 6), (1, 12 ** 3, 512)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k1_banks_at_unet_shapes(dev, gen, shape, dtype):
+    """K1 with `[2, C]` banks at the residual UNets' extremes: C = 6 at 96^3
+    (the scalar path) and C = 512 at 12^3."""
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, dtype)
+    gamma = (1 + 0.2 * torch.randn((2, c), generator=gen)).to(dev, dtype)
+    beta = (0.2 * torch.randn((2, c), generator=gen)).to(dev, dtype)
+    styles = torch.tensor([1], dtype=torch.int32, device=dev)
+    before = fused_norm.stats_launches
+    scale, shift = fused_norm.channel_scale_shift(x, gamma, beta, styles)
+    assert fused_norm.stats_launches == before + 1
+    rs, rh = fused_norm.channel_scale_shift_plain(x, gamma, beta, styles)
+    torch.cuda.synchronize()
+    assert _rel(scale, rs) <= 1e-5 and _rel(shift, rh) <= 1e-5
 
 
 def _k2_case(gen, dev, shape, dtype):
@@ -776,6 +798,34 @@ def test_unetr_forward_card_matches_cpu(dev, fused):
         got = card(x.to(dev), mods.to(dev)).cpu()
     # all 8 UnetResBlocks take the chain (decoder5's 4^3 on the coarse path)
     assert fused_conv.launches == (16 if fused else 0)
+    assert _err(got, want) <= 1e-4 * (1 + float(want.abs().max()))
+
+
+@pytest.mark.parametrize("name", ["unet", "unet_vanilla"])
+def test_unet_forward_card_matches_cpu(dev, name):
+    """The residual UNets (narrow, 32^3, batch 2) in f32 on the card against
+    the CPU: every norm one K1 and one K2 launch, nothing else."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.models import model_from_config
+    kw = (dict(feature_size=[8]) if name == "unet" else
+          dict(feature_size=[8, 16, 16, 32, 32], strides=[1, 2, 2, 2, 1], num_res_units=3))
+    cfg = Config(model_name=name, out_channels=6, roi_x=32, roi_y=32, roi_z=32,
+                 encoder_norm_name="instance_cond", decoder_norm_name="instance", **kw)
+    cpu = model_from_config(cfg, device="cpu")
+    card = model_from_config(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 32, 32, 32, 1)).astype(np.float32))
+    mods = torch.tensor([0, 1], dtype=torch.int32)
+    fused_norm.stats_launches = fused_norm.apply_launches = fused_norm.fold_launches = 0
+    fused_norm.apply2_launches = fused_conv.launches = wa.launches = 0
+    with torch.no_grad():
+        want = cpu(x, mods)
+        got = card(x.to(dev), mods.to(dev)).cpu()
+    norms = 13 if name == "unet" else 32
+    assert (fused_norm.stats_launches, fused_norm.apply_launches) == (norms, norms)
+    assert (fused_norm.fold_launches, fused_norm.apply2_launches, fused_conv.launches,
+            wa.launches) == (0, 0, 0, 0)
     assert _err(got, want) <= 1e-4 * (1 + float(want.abs().max()))
 
 

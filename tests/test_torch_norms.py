@@ -157,6 +157,97 @@ def test_norm_module_matches_flax(rng):
         assert max_err(got, want) <= ATOL_TWO_PASS
 
 
+def _tail_args(rng, shape, tail):
+    """(act_slope, add) of a norm's trailing `y (+ add) -> leaky` tail."""
+    if tail == "none":
+        return None, None
+    return 0.01, rng.standard_normal(shape).astype(np.float32)
+
+
+def _affine_params(rng, c, affine):
+    if not affine:
+        return {}
+    return {"scale": (1 + 0.2 * rng.standard_normal(c)).astype(np.float32),
+            "bias": (0.2 * rng.standard_normal(c)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("tail", ["none", "add_slope"])
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("num_groups", [4, 8])
+def test_group_norm_matches_flax(rng, num_groups, affine, tail):
+    """The port's `group` Norm (two-pass statistics over each group's
+    spatial extent and channels) against flax's, with and without the
+    tail the dynunet blocks pass to any norm kind."""
+    from miseg_tpu.nn.norms import Norm as JNorm
+    from miseg_tpu_torch.nn.norms import Norm as TNorm
+    x = (rng.standard_normal((2, 4, 5, 3, 16)) * 2 + 0.5).astype(np.float32)
+    slope, add = _tail_args(rng, x.shape, tail)
+    params = _affine_params(rng, 16, affine)
+    want = JNorm(kind="group", features=16, num_groups=num_groups, affine=affine).apply(
+        {"params": jax.tree.map(jnp.asarray, params)}, jnp.asarray(x), act_slope=slope,
+        add=None if add is None else jnp.asarray(add))
+    port = TNorm("group", 16, affine=affine, num_groups=num_groups, device="cpu")
+    port.load_state_dict({k: t(v) for k, v in params.items()}, strict=True)
+    got = port(t(x), act_slope=slope, add=None if add is None else t(add))
+    assert max_err(got, want) <= ATOL_TWO_PASS
+
+
+@pytest.mark.parametrize("tail", ["none", "add_slope"])
+@pytest.mark.parametrize("train", [True, False])
+def test_batch_norm_matches_flax(rng, train, tail):
+    """The port's `batch` Norm against flax's with a mutable `batch_stats`:
+    in training the batch's statistics normalise and the f32 buffers take
+    `0.9 old + 0.1 new`; in eval the buffers normalise and stay."""
+    from miseg_tpu.nn.norms import Norm as JNorm
+    from miseg_tpu_torch.nn.norms import Norm as TNorm
+    x = (rng.standard_normal((2, 4, 5, 3, 8)) * 2 + 0.5).astype(np.float32)
+    slope, add = _tail_args(rng, x.shape, tail)
+    params = _affine_params(rng, 8, True)
+    stats = {"mean": (0.2 * rng.standard_normal(8)).astype(np.float32),
+             "var": rng.uniform(0.5, 1.5, 8).astype(np.float32)}
+    want, new = JNorm(kind="batch", features=8).apply(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x), train=train,
+        act_slope=slope, add=None if add is None else jnp.asarray(add),
+        mutable=["batch_stats"])
+    port = TNorm("batch", 8, device="cpu")
+    port.load_state_dict({k: t(v) for k, v in {**params, **stats}.items()}, strict=True)
+    port.train(train)
+    got = port(t(x), act_slope=slope, add=None if add is None else t(add))
+    assert max_err(got, want) <= ATOL_TWO_PASS
+    for name in ("mean", "var"):
+        buf = getattr(port, name)
+        assert buf.dtype == torch.float32 and not buf.requires_grad
+        assert max_err(buf, new["batch_stats"][name]) <= 1e-6
+        assert np.array_equal(buf.numpy(), stats[name]) == (not train)
+
+
+def test_batch_stats_are_one_pass(rng):
+    """A channel with var << mean^2 whose one-pass `E[x^2] - mean^2` is
+    exactly 0 in f32 whatever the summation order (64 +- 1/128: every sum
+    exact), while its two-pass variance is (1/128)^2: the port's batch
+    norm follows JAX's one-pass statistics, not `F.batch_norm`'s."""
+    import torch.nn.functional as F
+
+    from miseg_tpu.nn.norms import Norm as JNorm
+    from miseg_tpu_torch.nn.norms import Norm as TNorm
+    x = rng.standard_normal((2, 4, 4, 4, 4)).astype(np.float32)
+    signs = rng.permutation(np.repeat([-1.0, 1.0], 64)).reshape(2, 4, 4, 4)
+    x[..., 0] = 64.0 + signs / 128.0
+    assert float(TN.batch_stats(t(x))[1][0]) == 0.0
+    assert float(JN.batch_stats(jnp.asarray(x))[1][0]) == 0.0
+    params = {"scale": np.ones(4, np.float32), "bias": np.zeros(4, np.float32)}
+    stats = {"mean": np.zeros(4, np.float32), "var": np.ones(4, np.float32)}
+    want, _ = JNorm(kind="batch", features=4).apply(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x), train=True,
+        mutable=["batch_stats"])
+    port = TNorm("batch", 4, device="cpu").train()
+    port.load_state_dict({k: t(v) for k, v in {**params, **stats}.items()}, strict=True)
+    got = port(t(x))
+    assert max_err(got, want) <= ATOL_TWO_PASS
+    two_pass = F.batch_norm(t(x).permute(0, 4, 1, 2, 3), None, None, training=True)
+    assert max_err(got[..., 0], two_pass[:, 0]) > 1.0
+
+
 @pytest.mark.parametrize("s,c", [(96 ** 3, 48), (48 ** 3, 48), (27, 3072), (6 ** 3, 768)])
 def test_k1_grid_fills_the_card(s, c):
     """`miseg_k1_stats`' grid on a 132-SM H100, for 16-byte loads of bf16
