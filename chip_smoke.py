@@ -115,10 +115,28 @@ Phases, one result line each; any failed check exits non-zero:
                `phase_train`'s (c); (e) `cli.train` of UNetVanilla for 2
                epochs on an 8-class synthetic set of `phase_fit`'s shape,
                `cli.test` of best.ckpt and `cli.predict_whs` over it.
+ 10. finetune — the flagship fine-tuned from existing weights, at full
+               width: a MONAI-layout `model_swinvit.pt` written from a seed;
+               `cli.train --model_name pre_swin_unetr --pre_swin <file>
+               --use_checkpoint` for 2 epochs on `phase_fit`'s data set (the
+               loaded swinViT tensors bitwise the file's, the `[2, C]` norm
+               banks shape-skipped at init; each step's forward launching
+               `PER_WINDOW` and its backward, the recompute,
+               `RECOMPUTE_PER_STEP`: the kernels now run in the backward
+               too); the fs-48 64^3 f32 step with dropout and drop-path,
+               with recompute against without, card vs card; the 96^3 bf16
+               step's peak memory at batch 2 with and without recompute;
+               the fine-tuned best.ckpt written as a reference-layout
+               Lightning .ckpt and tested by `cli.test` to the same
+               metrics; a 224^3 volume stitched on the host against the
+               device (peak memory, windows/s); the batch-size tuner
+               stopped by a real out-of-memory error under a per-process
+               memory fraction; a 12-step lr sweep.
 Then one JSON line of kernels (with each kernel's launches a train step,
 the JAX VJP its backward follows, its launches in the fit's train steps
 and evaluations, and its launches in C-UNETR's, C-UNet's and
-UNetVanilla's windows, steps and fits; K2's row times its leaky-relu
+UNetVanilla's windows, steps and fits, and in the fine-tune's forward and
+recompute a step and its fit; K2's row times its leaky-relu
 mode, and its field `no_add_no_activation` the UNets' mode beside
 `torch.addcmul`), the card line, and the ok line last.
 """
@@ -146,6 +164,14 @@ import torch
 # run and one K2 launch each; one K5 launch per swin block (4 stages x
 # 2).  Each K4 call folds its statistics with one K1 fold launch.
 PER_WINDOW = {"K1": 31, "K2": 29, "K3": 6, "K4": 20, "K5": 8, "K1 fold": 20}
+# what the flagship's backward launches with `use_checkpoint`: it recomputes
+# the modules the JAX package remats, each once.  The 8 swin blocks: two
+# norms (one K1 run and one K2 launch each) and one K5 launch apiece (the
+# patch mergings and proj_out sit outside them); the 10 UnetrBasic/UpBlocks:
+# their UnetResBlocks' two K4 launches (each with its fold), and the tail,
+# one K1 + one K3 for the 6 projected residuals, one K2 add for the 4
+# identity ones.  Their transposed convs are cuDNN's.
+RECOMPUTE_PER_STEP = {"K1": 16 + 6, "K2": 16 + 4, "K3": 6, "K4": 20, "K5": 8, "K1 fold": 20}
 # how many of the flagship window's K4 launches take the coarse (24^3 and
 # below) and the Cin = 1 kernel; the rest take the brick kernel
 WINDOW_K4 = {"coarse": 12, "cin1": 1}
@@ -1858,11 +1884,13 @@ def counting_fit():
         torch.autograd.Function.apply = function_apply
 
 
-def check_fit_launches(label: str, rec: dict, per: dict) -> None:
-    """Every train step of `rec` (`counting_fit`) launched `per`, every
-    evaluate `per` x its windows, and no autograd Function ran in one."""
-    bad = [c for c in rec["steps"] if c != per]
-    check(not bad, f"{label}: {len(bad)} train steps launched other counts than {per}, "
+def check_fit_launches(label: str, rec: dict, per: dict, per_step: dict | None = None) -> None:
+    """Every train step of `rec` (`counting_fit`) launched `per_step`
+    (default `per`), every evaluate `per` x its windows, and no autograd
+    Function ran in one."""
+    per_step = per_step or per
+    bad = [c for c in rec["steps"] if c != per_step]
+    check(not bad, f"{label}: {len(bad)} train steps launched other counts than {per_step}, "
                    f"e.g. {bad[:1]}")
     for ev in rec["evals"]:
         want = {k: n * ev["windows"] for k, n in per.items()}
@@ -2543,6 +2571,417 @@ def phase_unet(dev, card: str, mem_bw: float) -> dict:
     return {"window": window, "step": steps, "fit": fit}
 
 
+# the flagship fine-tuned from MONAI's Swin-ViT with activation recompute
+FINETUNE = {**FLAGSHIP, "model_name": "pre_swin_unetr", "use_checkpoint": True}
+
+
+def monai_swin_vit_file(path: Path, cfg, seed: int) -> dict:
+    """Write a MONAI-layout `model_swinvit.pt` at the swinViT widths of
+    `cfg`'s model, from a seed: `module.` prefix, no `swinViT.`,
+    `layersK.0.blocks.J`, `fc1`/`fc2`, `[C]` LayerNorm rows, torch layouts,
+    the position indices (weights ~ N(0, 1/fan_in), norm weights ~
+    1 + N(0, 0.1^2), rel-pos tables ~ N(0, 0.02^2), biases ~ N(0, 0.1^2)).
+    Returns the port-named tensors the file holds (relative to swinViT)."""
+    import re
+
+    from miseg_tpu_torch.models import model_from_config
+
+    gen = torch.Generator().manual_seed(seed)
+    model = model_from_config(cfg, device="meta")
+    sd, want = {}, {}
+    for name, p in model.swinViT.state_dict().items():
+        shape = p.shape[-1:] if name.endswith((".scale", ".bias")) and p.ndim == 2 else p.shape
+        v = torch.randn(tuple(shape), generator=gen)
+        if name.endswith("relative_position_bias_table"):
+            v = 0.02 * v
+        elif name.endswith("weight") and v.ndim >= 2:
+            v = v / math.sqrt(math.prod(v.shape[1:]))
+        else:
+            v = (1.0 if name.endswith("scale") else 0.0) + 0.1 * v
+        key = re.sub(r"(layers\d+)\.", r"\1.0.", name)
+        key = re.sub(r"blocks_(\d+)", r"blocks.\1", key).replace(".scale", ".weight")
+        key = key.replace("linear1", "fc1").replace("linear2", "fc2")
+        sd["module." + key] = v
+        if key.endswith("attn.qkv.weight"):
+            sd["module." + key.replace("qkv.weight", "relative_position_index")] = torch.zeros(
+                343 * 343, dtype=torch.int64)
+        want[name] = v
+    torch.save({"state_dict": sd}, path)
+    return want
+
+
+def reference_ckpt(path: Path, state_dict: dict, epoch: int) -> None:
+    """A Lightning `.ckpt` of a SwinUNETR state dict in the reference's
+    naming: `model.` prefix, `layersK.0.blocks.J`, `transp_conv.conv.weight`,
+    conditional-norm rows `norms.S.weight`/`.bias`, a norm's `weight`, the
+    blocks' `relative_position_index` buffers."""
+    import re
+
+    sd = {}
+    for name, v in state_dict.items():
+        key = re.sub(r"(layers\d+)\.", r"\1.0.", name)
+        key = re.sub(r"blocks_(\d+)", r"blocks.\1", key)
+        key = re.sub(r"transp_conv\.(weight|bias)$", r"transp_conv.conv.\1", key)
+        module, leaf = key.rsplit(".", 1)
+        if leaf in ("scale", "bias") and v.ndim == 2:
+            kind = "weight" if leaf == "scale" else "bias"
+            sd.update({f"model.{module}.norms.{s}.{kind}": v[s].clone()
+                       for s in range(v.shape[0])})
+            continue
+        sd[f"model.{module}.{'weight' if leaf == 'scale' else leaf}"] = v
+        if key.endswith("attn.qkv.weight"):
+            sd[f"model.{key[:-len('qkv.weight')]}relative_position_index"] = torch.zeros(
+                343 * 343, dtype=torch.int64)
+    torch.save({"state_dict": sd, "epoch": epoch, "global_step": 8,
+                "hyper_parameters": {"model_name": "pre_swin_unetr", "lr": 1e-4}}, path)
+
+
+def finetune_fit(dev, card: str, root: Path, swin_path: Path, want: dict) -> dict:
+    """(1)-(2) `cli.train.main --model_name pre_swin_unetr --pre_swin <file>
+    --use_checkpoint`, 2 epochs on `phase_fit`'s data set.  Before the
+    first step the loaded swinViT tensors equal the file's bitwise, and the
+    shape-skipped ones are exactly the `[2, C]` norm banks, at their init;
+    each train step's forward launches `PER_WINDOW` and its backward, the
+    recompute, `RECOMPUTE_PER_STEP`; every evaluate `PER_WINDOW` x its
+    windows with no autograd Function.  Returns the trainer, the config,
+    the launches and the step times."""
+    import re
+
+    from miseg_tpu_torch.cli import train as cli_train
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.train import engine
+    from miseg_tpu_torch.train.pretrained import (load_report, read_torch_file,
+                                                  swin_vit_state_dict)
+
+    cfg = Config(**{**FINETUNE, "pre_swin": str(swin_path), "data_dirs": [str(root)] * 2,
+                    "json_lists": ["CT.json", "MR.json"], "max_epochs": 2,
+                    "check_val_every_n_epoch": 1, "scheduler": "warmup_cosine",
+                    "warmup_epochs": 1, "batch_size": 1, "patches_training_sample": 1,
+                    "num_workers": 2, "cache_num": 8, "log_every_n_steps": 1,
+                    "default_root_dir": str(root.parent / "runs"),
+                    "experiment_name": "finetune"})
+    seen, forward = {}, []
+    fresh_state, apply_fn = engine.Trainer.fresh_state, engine.Trainer.apply_fn
+
+    def checked_fresh_state(self):
+        state = fresh_state(self)
+        swin = {n[len("swinViT."):]: p for n, p in state.params.items()
+                if n.startswith("swinViT.")}
+        report = load_report(swin, swin_vit_state_dict(read_torch_file(swin_path)))
+        seen.update(report, bitwise=all(torch.equal(swin[n].cpu(), want[n])
+                                        for n in report["loaded"]),
+                    init=all(bool((swin[n] == (1.0 if n.endswith("scale") else 0.0)).all())
+                             for n, _, _ in report["skipped"]),
+                    norms=sorted(n for n in swin if re.search(r"norm\d?\.(scale|bias)$", n)))
+        return state
+
+    def counted_apply(self, *args):
+        out = apply_fn(self, *args)
+        forward.append(launch_counts())
+        return out
+
+    engine.Trainer.fresh_state, engine.Trainer.apply_fn = checked_fresh_state, counted_apply
+    try:
+        with counting_fit() as rec:
+            t0 = time.perf_counter()
+            trainer, state, test_metrics = cli_train.main(cfg, device=dev)
+            fit_s = time.perf_counter() - t0
+    finally:
+        engine.Trainer.fresh_state, engine.Trainer.apply_fn = fresh_state, apply_fn
+    check(bool(seen), "finetune: fresh_state never ran")
+    check(seen["bitwise"] and len(seen["loaded"]) == len(want) - len(seen["norms"]),
+          f"finetune: {len(seen['loaded'])} swinViT tensors loaded (want "
+          f"{len(want) - len(seen['norms'])}), equal to the file's: {seen['bitwise']}")
+    check(sorted(n for n, _, _ in seen["skipped"]) == seen["norms"] and seen["init"],
+          f"finetune: shape-skipped {[n for n, _, _ in seen['skipped']][:4]}..., want the "
+          f"{len(seen['norms'])} [2, C] norm banks at their init")
+    check(len(rec["steps"]) == 8 and len(forward) == 8,
+          f"finetune: {len(rec['steps'])} train steps, {len(forward)} forwards in 2 epochs")
+    check(all(f == PER_WINDOW for f in forward),
+          f"finetune: a train step's forward launched {forward[0]}, want {PER_WINDOW}")
+    recompute = [{k: s[k] - f[k] for k in s} for s, f in zip(rec["steps"], forward)]
+    check(all(r == RECOMPUTE_PER_STEP for r in recompute),
+          f"finetune: a train step's backward (the recompute) launched {recompute[0]}, want "
+          f"{RECOMPUTE_PER_STEP}")
+    check_fit_launches("finetune", rec, PER_WINDOW,
+                       {k: PER_WINDOW[k] + RECOMPUTE_PER_STEP[k] for k in PER_WINDOW})
+    check_metrics("finetune test", test_metrics, "test", cfg.out_channels, True)
+    ms = trainer.history["step_ms"][1:]
+    print(f"  finetune: swinViT from a MONAI-layout file: {len(seen['loaded'])} tensors "
+          f"loaded bitwise, {len(seen['skipped'])} [2, C] norm banks shape-skipped at init; "
+          f"2 epochs x 4 steps + test {fit_s:.2f} s on '{card}'; step with recompute "
+          f"{statistics.median(ms):.2f} ms p50, {max(ms):.2f} max by CUDA events (first "
+          f"{trainer.history['step_ms'][0]:.2f}); launches a step: forward {forward[0]}, "
+          f"backward (recompute) {recompute[0]}; "
+          + "; ".join(f"{e['prefix']} {e['windows']} windows {e['s']:.2f} s"
+                      for e in rec["evals"])
+          + f"; test dice avg {test_metrics['test_total_dice/avg']:.4f}")
+    return {"trainer": trainer, "cfg": cfg, "state": state,
+            "train": {k: sum(c[k] for c in rec["steps"]) for k in PER_WINDOW},
+            "eval": {k: sum(e["counts"][k] for e in rec["evals"]) for k in PER_WINDOW},
+            "step_ms": statistics.median(ms)}
+
+
+def recompute_card_vs_card(dev, size: int = 64) -> None:
+    """(3) One f32 step of the fs-48 model at `size`^3 with and without
+    `use_checkpoint`, dropout 0.1, attention dropout 0.1 and drop-path 0.2,
+    the trainers' dropout generators seeded alike: loss within 1e-5, every
+    gradient leaf within 5e-5 and their sum within 1e-3."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.train.engine import Trainer
+
+    base = {**FLAGSHIP, "roi_x": size, "roi_y": size, "roi_z": size, "no_amp": True,
+            "dropout_rate": 0.1, "attn_drop_rate": 0.1, "dropout_path_rate": 0.2}
+    gen = torch.Generator().manual_seed(10)
+    batch = {"image": torch.randn((1, size, size, size, 1), generator=gen),
+             "label": torch.randint(0, 6, (1, size, size, size), generator=gen),
+             "modality": torch.tensor([1], dtype=torch.int32)}
+    weights, losses, grads = None, {}, {}
+    for rc in (False, True):
+        trainer = Trainer(Config(**base, use_checkpoint=rc), device=dev)
+        state = trainer.init_state(weights)
+        weights = weights or {n: p.detach().clone() for n, p in trainer.model.state_dict().items()}
+        loss, g = trainer.value_and_grad(state, batch)
+        losses[rc], grads[rc] = float(loss), {n: v.detach().clone() for n, v in g.items()}
+        del trainer, state, g
+    gaps = {n: max_err(grads[True][n], grads[False][n]) for n in grads[False]}
+    worst = max(gaps, key=gaps.get)
+    loss_err = abs(losses[True] - losses[False])
+    check(loss_err <= 1e-5 and gaps[worst] <= 5e-5 and sum(gaps.values()) <= 1e-3,
+          f"recompute {size}^3: loss |diff| {loss_err:.3e} (tol 1e-5), gradient worst {worst} "
+          f"{gaps[worst]:.3e} (tol 5e-5), summed {sum(gaps.values()):.3e} (tol 1e-3)")
+    print(f"  recompute, card vs card: fs48 {size}^3 f32 step with dropout 0.1 / attention "
+          f"dropout 0.1 / drop-path 0.2, use_checkpoint on vs off: loss {losses[True]:.6f} "
+          f"|diff| {loss_err:.2e}; gradient gap over {len(gaps)} leaves summed "
+          f"{sum(gaps.values()):.3e} (tol 1e-03), worst {worst} {gaps[worst]:.2e} (tol 5e-05)")
+
+
+def step_peak(dev, cfg, batch_size: int) -> int:
+    """Bytes the card holds at the peak of a train step of `cfg` on one
+    ROI (96^3) at `batch_size` (after a warm-up step), above what it held
+    before the trainer was made."""
+    import gc
+
+    from miseg_tpu_torch.train.engine import Trainer
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator().manual_seed(11)
+    image, label = synthetic_case(cfg.roi_x, cfg.out_channels, gen)
+    batch = {"image": image.repeat(batch_size, 1, 1, 1, 1).to(dev),
+             "label": label.repeat(batch_size, 1, 1, 1).to(dev),
+             "modality": (torch.arange(batch_size, dtype=torch.int32) % 2).to(dev)}
+    trainer = Trainer(cfg, device=dev)
+    state = trainer.init_state()
+    trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak
+
+
+def recompute_memory(dev) -> dict:
+    """(4) The peak of a 96^3 bf16 step at batch 2 with and without
+    `use_checkpoint` (recompute must lower it), and at batch 1 without:
+    the tuner's memory budget comes from these."""
+    from miseg_tpu_torch.config import Config
+
+    peaks = {(bs, rc): step_peak(dev, Config(**FLAGSHIP, use_checkpoint=rc), bs)
+             for bs, rc in ((1, False), (2, False), (2, True))}
+    check(peaks[2, True] < peaks[2, False],
+          f"memory: batch-2 peak with recompute {peaks[2, True] / 2 ** 30:.2f} GiB is not below "
+          f"{peaks[2, False] / 2 ** 30:.2f} GiB without")
+    print(f"  memory: 96^3 bf16 step peak above the process's baseline: batch 1 "
+          f"{peaks[1, False] / 2 ** 30:.3f} GiB, batch 2 {peaks[2, False] / 2 ** 30:.3f} GiB "
+          f"without recompute, {peaks[2, True] / 2 ** 30:.3f} GiB with "
+          f"({1 - peaks[2, True] / peaks[2, False]:.1%} lower)")
+    return peaks
+
+
+def reference_ckpt_test(dev, fit: dict, root: Path) -> None:
+    """(5) The fine-tuned `best.ckpt` written as a reference-layout
+    Lightning `.ckpt` (`reference_ckpt`): its ingest equals `best.ckpt`'s
+    bitwise, and `cli.test` on it reports the metrics of `cli.test` on
+    `best.ckpt`."""
+    from miseg_tpu_torch.cli import test as cli_test
+    from miseg_tpu_torch.train.checkpoint import (checkpoint_format,
+                                                  load_any_checkpoint_params, load_checkpoint)
+
+    cfg = fit["cfg"]
+    best = Path(cfg.default_root_dir) / "finetune" / "best.ckpt"
+    ck = load_checkpoint(best)
+    lightning = root / "epoch=1-step=8.ckpt"
+    reference_ckpt(lightning, ck["params"], int(ck["epoch"]))
+    check(checkpoint_format(lightning) == "torch" and checkpoint_format(best) == "port",
+          "reference ckpt: the formats were not told apart")
+    target = {n: torch.zeros_like(v) for n, v in ck["params"].items()}
+    ours = load_any_checkpoint_params(best, target, model_name=cfg.model_name)
+    theirs = load_any_checkpoint_params(lightning, target, model_name=cfg.model_name)
+    check(all(torch.equal(ours[n], theirs[n]) for n in ours),
+          "reference ckpt: its weights differ from best.ckpt's")
+    t0 = time.perf_counter()
+    want = cli_test.main(cfg.replace(ckpt_path=str(best)), device=dev)
+    got = cli_test.main(cfg.replace(ckpt_path=str(lightning)), device=dev)
+    test_s = time.perf_counter() - t0
+    gap = max(abs(got[k] - want[k]) for k in want if math.isfinite(want[k]))
+    check(same_metrics(got, want), f"reference ckpt: cli.test metrics differ by up to {gap:.3e}")
+    print(f"  reference .ckpt (Lightning, reference naming, {len(torch.load(lightning, weights_only=False)['state_dict'])} "
+          f"entries): weights bitwise those of best.ckpt; cli.test on both: {len(got)} metrics, "
+          f"max |diff| {gap:.3e}, exactly equal: {got == want} ({test_s:.2f} s)")
+
+
+def host_stitching(dev, fit: dict, size: int = 224) -> None:
+    """(6) A `size`^3 flagship volume through the fine-tuned weights with
+    `infer_cpu` (host stitching) and without: within 1e-5 of each other;
+    the device's peak memory lower with `infer_cpu`; windows/s of both."""
+    from miseg_tpu_torch.inferers import window_starts
+    from miseg_tpu_torch.train.engine import Trainer
+
+    cfg = fit["cfg"]
+    weights = fit["trainer"].state_dict(fit["state"])
+    gen = torch.Generator().manual_seed(12)
+    image, _ = synthetic_case(size, cfg.out_channels, gen)
+    image = image.to(dev)
+    mods = torch.tensor([1], dtype=torch.int32, device=dev)
+    windows = len(window_starts((size,) * 3, cfg.roi, cfg.infer_overlap)[1])
+    out, peak, took = {}, {}, {}
+    for host in (False, True):
+        trainer = Trainer(cfg.replace(infer_cpu=host), device=dev)
+        trainer.init_state(weights)
+        inferer = trainer.make_inferer()
+        inferer(image[:, :cfg.roi_x, :cfg.roi_y, :cfg.roi_z], mods)   # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits = inferer(image, mods)
+        torch.cuda.synchronize()
+        took[host] = time.perf_counter() - t0
+        peak[host] = torch.cuda.max_memory_allocated() - base
+        out[host] = logits.cpu()
+        del trainer, inferer, logits
+    err = max_err(out[True], out[False])
+    check(out[True].shape == (1, size, size, size, cfg.out_channels) and err <= 1e-5,
+          f"host stitching {size}^3: |host - device| {err:.3e} (tol 1e-5)")
+    check(peak[True] < peak[False], f"host stitching {size}^3: device peak "
+                                    f"{peak[True] / 2 ** 20:.1f} MiB not below {peak[False] / 2 ** 20:.1f}")
+    print(f"  host stitching {size}^3 ({windows} windows, bf16): |host - device| {err:.2e} "
+          f"(tol 1e-5); device peak above baseline {peak[False] / 2 ** 20:.1f} MiB device-"
+          f"stitched, {peak[True] / 2 ** 20:.1f} MiB host-stitched; {took[False]:.3f} s "
+          f"({windows / took[False]:.2f} windows/s) vs {took[True]:.3f} s "
+          f"({windows / took[True]:.2f} windows/s)")
+
+
+def batch_size_tuner(dev, peaks: dict) -> None:
+    """(7) `scale_batch_size` with real trials of the flagship at 96^3
+    under a per-process memory fraction set halfway between what batch 2
+    and batch 4 need (from `recompute_memory`'s peaks): batch 4 must stop
+    the doubling with a real `torch.cuda.OutOfMemoryError`, the result is
+    2, and afterwards the card holds within 64 MiB of what it held."""
+    import gc
+
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.train import tuner
+
+    cfg = Config(**FLAGSHIP)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    act = peaks[2, False] - peaks[1, False]
+    limit = torch.cuda.memory_reserved() + peaks[2, False] + act
+    total = torch.cuda.get_device_properties(dev).total_memory
+    trials = []
+
+    def recorded(c, bs):
+        try:
+            tuner._try_batch(c, bs, dev)
+        except torch.cuda.OutOfMemoryError:
+            trials.append((bs, "OutOfMemoryError"))
+            raise
+        trials.append((bs, "fits"))
+
+    index = torch.cuda.current_device()   # the call takes an index, not "cuda"
+    torch.cuda.set_per_process_memory_fraction(limit / total, index)
+    try:
+        t0 = time.perf_counter()
+        best = tuner.scale_batch_size(cfg, step_fn=recorded, verbose=False)
+        took = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, index)
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    check(best == 2 and trials == [(1, "fits"), (2, "fits"), (4, "OutOfMemoryError")],
+          f"tuner: returned {best} after trials {trials} under a {limit / 2 ** 30:.2f} GiB limit")
+    check(abs(after - before) <= 64 << 20,
+          f"tuner: the card holds {(after - before) / 2 ** 20:.1f} MiB more than before")
+    print(f"  batch-size tuner: limit {limit / 2 ** 30:.2f} GiB of {total / 2 ** 30:.1f}; trials "
+          f"{trials} -> batch_size {best} ({took:.2f} s); allocated after - before "
+          f"{(after - before) / 2 ** 20:.2f} MiB")
+
+
+def lr_sweep(dev, fit: dict) -> None:
+    """(8) `find_best_lr.main` for 12 steps on the fine-tune's config:
+    losses finite until its own early stop, the suggestion inside
+    [min_lr, max_lr], args.json and curve.json written."""
+    from miseg_tpu_torch.cli import find_best_lr
+
+    cfg = fit["cfg"]
+    t0 = time.perf_counter()
+    result = find_best_lr.main(cfg, device=dev, num_steps=12)
+    took = time.perf_counter() - t0
+    losses = result["losses"]
+    out = Path(cfg.default_root_dir) / "lr_find"
+    curve = json.load(open(out / "curve.json"))
+    check(len(losses) >= 2 and all(math.isfinite(v) for v in losses[:-1]),
+          f"lr sweep: losses {losses}")
+    check(cfg.min_lr <= result["lr"] <= cfg.max_lr, f"lr sweep: suggestion {result['lr']}")
+    check(curve == {"lrs": result["lrs"], "losses": losses}
+          and json.load(open(out / "args.json"))["suggested_lr"] == result["lr"],
+          "lr sweep: args.json / curve.json do not hold the sweep")
+    print(f"  lr sweep: {len(losses)} steps from {result['lrs'][0]:.1e} to "
+          f"{result['lrs'][-1]:.2e}, losses {' '.join(f'{v:.4f}' for v in losses)}; suggestion "
+          f"{result['lr']:.3e} ({took:.2f} s)")
+
+
+def phase_finetune(dev, card: str, shape=(192, 192, 160)) -> dict:
+    """Fine-tuning the flagship from existing weights on the card, at full
+    width: (1) a MONAI-layout Swin-ViT file from a seed, (2) `cli.train` of
+    `pre_swin_unetr` with `--pre_swin` and `--use_checkpoint`
+    (`finetune_fit`), (3) `recompute_card_vs_card`, (4) `recompute_memory`,
+    (5) `reference_ckpt_test`, (6) `host_stitching`, (7)
+    `batch_size_tuner`, (8) `lr_sweep`.  Returns the fit's launches."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        make_synthetic_dataset(root, shape=shape, num_classes=6, n_train=2, n_val=1,
+                               n_test=1, spacing=(1.0, 1.0, 1.0), seed=9, suffix=".nii")
+        swin_path = Path(tmp) / "model_swinvit.pt"
+        want = monai_swin_vit_file(swin_path, Config(**FINETUNE), seed=13)
+        fit = finetune_fit(dev, card, root, swin_path, want)
+        recompute_card_vs_card(dev)
+        peaks = recompute_memory(dev)
+        reference_ckpt_test(dev, fit, Path(tmp))
+        host_stitching(dev, fit)
+        batch_size_tuner(dev, peaks)
+        lr_sweep(dev, fit)
+    print(f"finetune: pre_swin_unetr fine-tuned from a MONAI Swin-ViT file with recompute, "
+          f"every kernel launching in the forward and again in the backward "
+          f"({RECOMPUTE_PER_STEP}); a reference .ckpt tested alike; host stitching, the "
+          f"batch-size tuner and the lr sweep on the card ({time.perf_counter() - t_phase:.1f} s)")
+    return {"train": fit["train"], "eval": fit["eval"], "step_ms": fit["step_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; chip_smoke.py needs a CUDA card",
@@ -2564,6 +3003,7 @@ def main() -> int:
     fit = phase_fit(dev, card)
     unetr = phase_unetr(dev, card, mem_bw, bf16_flops)
     unet = phase_unet(dev, card, mem_bw)
+    finetune = phase_finetune(dev, card)
     meta = {
         "K1": ("fused_norm.channel_scale_shift", "cuda",
                "miseg_tpu_torch/ops/kernels/csrc/fused_norm.cu",
@@ -2614,6 +3054,10 @@ def main() -> int:
         check(all((n > 0) == on_unet for n in unet_counts),
               f"{key}: the UNets' windows, steps, fit steps and evaluations launched it "
               f"{unet_counts} times; want {'> 0' if on_unet else '0'}")
+        # fine-tuning with recompute: every kernel in the forward and the backward
+        check(finetune["train"][key] > 0 and finetune["eval"][key] > 0
+              and RECOMPUTE_PER_STEP[key] > 0,
+              f"{key} was never launched in the fine-tune's steps, backward or evaluations")
         kernels.append({"name": f"{key} {name}", "route": route, "source": source,
                         "replaces": replaces, "launches": launches[key], **rows[key],
                         "train": {"launches_per_step": train[key],
@@ -2630,7 +3074,11 @@ def main() -> int:
                                      unet["window"]["unet_vanilla"][key],
                                  "vanilla_launches_per_step": unet["step"]["unet_vanilla"][key],
                                  "vanilla_fit_launches_train_steps": unet["fit"]["train"][key],
-                                 "vanilla_fit_launches_evaluate": unet["fit"]["eval"][key]}})
+                                 "vanilla_fit_launches_evaluate": unet["fit"]["eval"][key]},
+                        "finetune": {"launches_forward_per_step": PER_WINDOW[key],
+                                     "launches_recompute_per_step": RECOMPUTE_PER_STEP[key],
+                                     "fit_launches_train_steps": finetune["train"][key],
+                                     "fit_launches_evaluate": finetune["eval"][key]}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

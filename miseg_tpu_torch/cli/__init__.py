@@ -1,7 +1,8 @@
 """Entry points: `train` (a training run and its test), `test` (a
 checkpoint's test metrics), `export` (checkpoint -> bundle), `predict_whs`
-(native-space NIfTI export) and `serve` (the HTTP server).  Each runs on
-the CUDA card unless the caller names another device."""
+(native-space NIfTI export), `serve` (the HTTP server) and `find_best_lr`
+(the learning-rate range test).  Each runs on the CUDA card unless the
+caller names another device."""
 
 from __future__ import annotations
 

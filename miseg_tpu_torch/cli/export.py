@@ -33,7 +33,7 @@ def main(cfg: Config | None = None, *, device=None) -> str:
     device = resolve_device(device)
     model = model_from_config(cfg, device=device)
     params = load_any_checkpoint_params(cfg.ckpt_path or cfg.pretrained,
-                                        model.state_dict())
+                                        model.state_dict(), model_name=cfg.model_name)
     model.load_state_dict(params, strict=True)
     out = save_bundle(cfg, params, cfg.export_dir)
     print(f"exported {cfg.model_name} -> {out} (roi={list(cfg.roi)}, "

@@ -55,7 +55,8 @@ def main(cfg: Config | None = None, *, result_dir: str | None = None,
     params = None
     if cfg.ckpt_path or cfg.pretrained:
         params = load_any_checkpoint_params(cfg.ckpt_path or cfg.pretrained,
-                                            trainer.model.state_dict())
+                                            trainer.model.state_dict(),
+                                            model_name=cfg.model_name)
     trainer.init_state(params)
     inferer = trainer.make_inferer()
 

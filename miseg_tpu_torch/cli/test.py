@@ -4,7 +4,8 @@
     python -m miseg_tpu_torch.cli.test --ckpt_path experiments/experiment/best.ckpt \
         --model_name swin_unetr ... --data_dirs dataset/MM-WHS --json_lists CT_test.json
 
-Load the port checkpoint (`--ckpt_path`, or `--pretrained`) into `cfg`'s
+Load the checkpoint (`--ckpt_path`, or `--pretrained`: the port's, the
+JAX package's msgpack or the reference's `.pt`/`.ckpt`) into `cfg`'s
 model, run constant-blend sliding-window inference over every test
 volume, and report Dice and symmetric surface distance by class and by
 modality (logged to `<default_root_dir>/metrics.jsonl`).
@@ -27,8 +28,9 @@ def main(cfg: Config | None = None, *, device=None) -> dict:
     if not cfg.ckpt_path and not cfg.pretrained:
         raise ValueError("provide --ckpt_path (or --pretrained) to evaluate")
     trainer = Trainer(cfg, device=device)
-    state = trainer.init_state(load_any_checkpoint_params(cfg.ckpt_path or cfg.pretrained,
-                                                          trainer.model.state_dict()))
+    state = trainer.init_state(load_any_checkpoint_params(
+        cfg.ckpt_path or cfg.pretrained, trainer.model.state_dict(),
+        model_name=cfg.model_name))
     metrics = trainer.evaluate(get_loaders(cfg, test_mode=True), state, prefix="test",
                                compute_surface=True)
     for k in sorted(metrics):

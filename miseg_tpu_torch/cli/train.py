@@ -7,12 +7,20 @@
         --data_dirs dataset/MM-WHS dataset/MM-WHS \
         --json_lists CT_fold1.json MR.json --max_epochs 100
 
-Parse the command line, build the CT + MR data module, the metric logger
+Parse the command line; with `--auto_scale_batch_size`, find the
+largest batch size whose step fits in memory (`train/tuner.py`, inside
+the reference's `try`: a failed search keeps the batch size); build the
+CT + MR data module, the metric logger
 (`<default_root_dir>/<experiment_name or study_name>/metrics.jsonl`, and
 wandb when `--project` is given and wandb imports), the `Trainer` and its
-fresh state (with the `--pretrained` ingest), `fit` (resuming from
-`--ckpt_path` when given), then evaluate `best.ckpt` on the test split
-with Dice and symmetric surface distance.
+fresh state (`pre_swin_unetr`'s `--pre_swin` and the `--pretrained`
+ingest), `fit` (resuming from `--ckpt_path` when given), then evaluate
+`best.ckpt` on the test split with Dice and symmetric surface distance.
+
+Fine-tuning the flagship from MONAI's SSL Swin-ViT, with recompute:
+
+    python -m miseg_tpu_torch.cli.train --model_name pre_swin_unetr \
+        --pre_swin model_swinvit.pt --use_checkpoint --feature_size 48 ...
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from ..config import Config
 from ..data.multi_modal import MultiModalData
 from ..train.checkpoint import load_checkpoint
 from ..train.engine import Trainer, TrainState
+from ..train.tuner import scale_batch_size
 from ..utils.logging import MetricLogger
 from . import parse_args
 
@@ -34,8 +43,13 @@ def main(cfg: Config | None = None, *, device=None) -> tuple[Trainer, TrainState
     if cfg is None:
         cfg, device = parse_args()
     if cfg.auto_scale_batch_size:
-        raise ValueError("--auto_scale_batch_size is the batch-size tuner's (ROADMAP "
-                         "M10), not ported yet: drop the flag and set --batch_size")
+        # the reference's `try: trainer.tune(...)` (train.py:57-60)
+        try:
+            bs = scale_batch_size(cfg, device=device)
+            print(f"auto_scale_batch_size: training at batch_size={bs}")
+            cfg = cfg.replace(batch_size=bs)
+        except Exception as e:  # noqa: BLE001 -- the reference trains on at its batch size
+            print(f"Tuning of batch size not possible: {e}")
     workdir = os.path.join(cfg.default_root_dir, cfg.experiment_name or cfg.study_name)
     data = MultiModalData(cfg)
     logger = MetricLogger(workdir, wandb_kwargs=(

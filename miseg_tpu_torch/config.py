@@ -49,8 +49,10 @@ class Config:
     attn_drop_rate: float = 0.0        # on the attention probabilities
     dropout_path_rate: float = 0.0     # stochastic depth, linspace over the swin blocks
     depth_swin_block: list[int] = _lst(2)
+    use_checkpoint: bool = False       # recompute the swin and conv blocks in the backward
     downsample: str = "merging"
     no_normalize_swin: bool = False
+    pre_swin: str = ""                 # pre_swin_unetr: MONAI's model_swinvit.pt
     # --- unet / unet_vanilla (config.py:62-69) ---
     num_layers: int = 4                # unet: levels; channels fs * 2^i, i = 1..num_layers
     strides: list[int] = _lst(2, 2, 2)
@@ -81,6 +83,8 @@ class Config:
     # --- inference ---
     infer_overlap: float = 0.5
     sw_batch_size: int = 1
+    infer_cpu: bool = False            # stitch the windows' logits in host memory
+    infer_progress: bool = False       # a progress line a window group
     # --- early stop, checkpoints (config.py:96-100) ---
     patience: int = 6
     min_delta: float = 0.001
@@ -112,9 +116,11 @@ class Config:
     study_name: str = "experiment"
     max_epochs: int = 2
     check_val_every_n_epoch: int = 1
-    auto_scale_batch_size: bool = False  # the tuner's (ROADMAP M10); rejected here
+    auto_scale_batch_size: bool = False  # double the batch until a step runs out of memory
     iters_to_accumulate: int = 1
     default_root_dir: str = "./experiments"
+    min_lr: float = 1e-5               # find_best_lr's sweep
+    max_lr: float = 5e-3
     # --- precision / seed ---
     no_amp: bool = False
     precision: str = "bf16"

@@ -7,12 +7,21 @@ Tiles a volume into fixed ROIs on a regular grid
 normalizes by the summed importance.  Windows accumulate in place on the
 device in a Python loop over window groups: the same math as the JAX
 package's static cell-grid overlap-add, summed in another order.
+
+`stitch_on_host` (the reference's `infer_cpu`, `miseg_tpu/inferers.py:464`)
+keeps the padded input on the device and predicts each window group
+there, but copies each group's f32 logits into an f32 accumulator in host
+memory, where the blend count lies too; the result, `acc / count`, comes
+back on the inferer's device.  The device then never holds a `[B, *padded, C_out]`
+accumulator, which caps its memory on large volumes.  `progress` prints
+JAX's `\r[sliding-window] i/n` line to stderr after each window group.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
+import sys
 from typing import Callable, Sequence
 
 import numpy as np
@@ -82,7 +91,8 @@ class SlidingWindowInferer:
     def __init__(self, predict_fn: Callable, roi_size: Sequence[int],
                  sw_batch_size: int = 1, overlap: float = 0.5,
                  mode: str = "constant", sigma_scale: float = 0.125,
-                 out_channels: int | None = None, device=None):
+                 out_channels: int | None = None, stitch_on_host: bool = False,
+                 progress: bool = False, device=None):
         if mode not in ("constant", "gaussian"):
             raise ValueError(f"unknown blend mode {mode!r}")
         if out_channels is None:
@@ -94,6 +104,8 @@ class SlidingWindowInferer:
         self.mode = mode
         self.sigma_scale = float(sigma_scale)
         self.out_channels = int(out_channels)
+        self.stitch_on_host = bool(stitch_on_host)
+        self.progress = bool(progress)
         self.device = resolve_device(device)
         self._tables: dict = {}  # padded shape -> (starts, importance, count)
 
@@ -111,13 +123,16 @@ class SlidingWindowInferer:
         return cnt.astype(np.float32)
 
     def _blend_tables(self, spatial):
+        """(padded shape, window starts, importance map and blend count on
+        the device that stitches: the host with `stitch_on_host`)."""
         padded, starts = window_starts(spatial, self.roi_size, self.overlap)
         if padded not in self._tables:
             imp = self._importance()
             count = self._overlap_count(padded, starts, imp)
+            where = torch.device("cpu") if self.stitch_on_host else self.device
             self._tables[padded] = (
-                starts, torch.from_numpy(imp).to(self.device)[..., None],
-                torch.from_numpy(count).to(self.device)[..., None])
+                starts, torch.from_numpy(imp).to(where)[..., None],
+                torch.from_numpy(count).to(where)[..., None])
         return padded, *self._tables[padded]
 
     @torch.inference_mode()
@@ -136,9 +151,10 @@ class SlidingWindowInferer:
         if modalities is not None:
             modalities = torch.as_tensor(modalities, device=self.device)
         acc = torch.zeros((b, *padded, self.out_channels), dtype=torch.float32,
-                          device=self.device)
+                          device=imp.device)
         k = self.sw_batch_size
-        for g in range(0, len(starts), k):
+        groups = range(0, len(starts), k)
+        for n, g in enumerate(groups, 1):
             group = starts[g:g + k]
             sl = [tuple(slice(int(a), int(a) + r) for a, r in zip(s, roi))
                   for s in group]
@@ -146,8 +162,12 @@ class SlidingWindowInferer:
             mods = modalities.repeat(len(group)) if modalities is not None else None
             logits = self.predict_fn(windows, mods).float()
             logits = logits.reshape(len(group), b, *roi, self.out_channels)
+            logits = logits.to(acc.device)
             for i, w in enumerate(sl):
                 acc[(slice(None), *w)] += logits[i] * imp
-        out = acc.div_(count)
+            if self.progress:
+                sys.stderr.write(f"\r[sliding-window] {n}/{len(groups)}"
+                                 + ("\n" if n == len(groups) else ""))
+                sys.stderr.flush()
         crop = tuple(slice(l, l + s) for l, s in zip(lo, spatial))
-        return out[(slice(None), *crop)]
+        return acc.div_(count)[(slice(None), *crop)].to(self.device)

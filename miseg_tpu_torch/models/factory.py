@@ -1,8 +1,10 @@
 """Model factory: `Config` -> `nn.Module` (counterpart of
 `miseg_tpu/models/factory.py`): all five of its models.  `unetr` builds
 UNETR, `unet` the residual UNet, `unet_vanilla` UNetVanilla, and
-`swin_unetr` and `pre_swin_unetr` the same SwinUNETR (the pretrained
-checkpoint ingest of `pre_swin_unetr` is not ported yet)."""
+`swin_unetr` and `pre_swin_unetr` the same SwinUNETR (`pre_swin_unetr`
+starts from MONAI's Swin-ViT weights: `Trainer.fresh_state`).
+`cfg.use_checkpoint` turns on the activation recompute of UNETR and
+SwinUNETR."""
 
 from __future__ import annotations
 
@@ -85,8 +87,9 @@ def _build(cfg: Config, device: torch.device, dtype, fused_conv: bool) -> nn.Mod
             mlp_dim=cfg.mlp_dim, num_heads=cfg.num_heads, pos_embed=cfg.pos_embed,
             conv_block=not cfg.no_conv_block, res_block=not cfg.no_res_block,
             dropout_rate=cfg.dropout_rate, qkv_bias=cfg.qkv_bias, vit_norm=vit_norm,
-            decoder_norm=decoder_norm, encoder_norm=encoder_norm, fused_conv=fused_conv,
-            device=device, dtype=dtype)
+            decoder_norm=decoder_norm, encoder_norm=encoder_norm,
+            use_checkpoint=cfg.use_checkpoint, fused_conv=fused_conv, device=device,
+            dtype=dtype)
     elif cfg.model_name in ("unet", "unet_vanilla"):
         unet = dict(in_channels=cfg.in_channels, out_channels=cfg.out_channels,
                     strides=list(cfg.strides), kernel_size=_scalar_or_list(cfg.kernel_size),
@@ -116,7 +119,7 @@ def _build(cfg: Config, device: torch.device, dtype, fused_conv: bool) -> nn.Mod
             feature_size=cfg.feature_size_scalar, drop_rate=cfg.dropout_rate,
             attn_drop_rate=cfg.attn_drop_rate, dropout_path_rate=cfg.dropout_path_rate,
             normalize=not cfg.no_normalize_swin, downsample=cfg.downsample,
-            vit_norm=vit_norm, encoder_norm=encoder_norm,
-            decoder_norm=decoder_norm, fused_conv=fused_conv, device=device,
+            vit_norm=vit_norm, encoder_norm=encoder_norm, decoder_norm=decoder_norm,
+            use_checkpoint=cfg.use_checkpoint, fused_conv=fused_conv, device=device,
             dtype=dtype)
     return model

@@ -8,6 +8,8 @@ instance kinds that norm runs through K1 + K2, the same function the JAX
 package computes in plain jnp.  In training, dropout follows the patch
 embedding and the blocks' drop-path rates rise linearly from 0 to
 `drop_path_rate` over all blocks (`np.linspace`, as the JAX package).
+With `use_checkpoint` each swin block is recomputed in the backward
+(`nn/recompute.py`), as the JAX package remats it.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Any, Sequence
 import numpy as np
 from torch import nn
 
+from ..nn import recompute
 from ..nn.dropout import Dropout
 from ..nn.swin import PatchEmbed, PatchMergingV2, SwinTransformerBlock
 from ..ops.kernels.fused_norm import instance_norm_act
@@ -38,10 +41,12 @@ class BasicLayer(nn.Module):
                  window_size: Sequence[int], drop_path: Sequence[float] = (),
                  mlp_ratio: float = 4.0, qkv_bias: bool = False, drop: float = 0.0,
                  attn_drop: float = 0.0, downsample: str | None = None,
-                 norm: NormSpec = ("layer", {}), *, device=None, dtype=None):
+                 norm: NormSpec = ("layer", {}), use_checkpoint: bool = False, *,
+                 device=None, dtype=None):
         super().__init__()
         self.window_size = tuple(window_size)
         self.depth = depth
+        self.use_checkpoint = use_checkpoint
         shift = tuple(w // 2 for w in self.window_size)
         no_shift = (0,) * len(self.window_size)
         for i in range(depth):
@@ -70,7 +75,8 @@ class BasicLayer(nn.Module):
         ids = self._region_ids(padded, window_size, shift_size, x.device)
         for i in range(self.depth):
             blk = getattr(self, f"blocks_{i}")
-            x = blk(x, ids if i % 2 else None, modalities)
+            x = recompute.call(blk, x, ids if i % 2 else None, modalities,
+                               recompute=self.use_checkpoint)
         if self.downsample is not None:
             x = self.downsample(x, modalities)
         return x
@@ -83,7 +89,8 @@ class SwinTransformer(nn.Module):
                  qkv_bias: bool = True, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                  patch_norm: bool = False, downsample: str = "merging",
-                 norm: NormSpec = ("layer", {}), *, device=None, dtype=None):
+                 norm: NormSpec = ("layer", {}), use_checkpoint: bool = False, *,
+                 device=None, dtype=None):
         super().__init__()
         self.norm_kind = _kind(norm)
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim,
@@ -96,7 +103,8 @@ class SwinTransformer(nn.Module):
             self.add_module(f"layers{i + 1}", BasicLayer(
                 int(embed_dim * 2 ** i), depths[i], num_heads[i], window_size,
                 dpr[sum(depths[:i]):sum(depths[:i + 1])], mlp_ratio, qkv_bias,
-                drop_rate, attn_drop_rate, downsample, norm, device=device, dtype=dtype))
+                drop_rate, attn_drop_rate, downsample, norm, use_checkpoint, device=device,
+                dtype=dtype))
 
     def _proj_out(self, x, normalize: bool):
         """Parameter-free per-stage re-normalization."""

@@ -3,7 +3,9 @@
 is this model with `instance_cond` encoder and ViT norms.  Its dropout
 rates reach the swin backbone only, as in the JAX package.  With
 `fused_conv` (the default) every UnetResBlock runs the fused conv chain
-(K4, K4, K3); `fused_conv=False` selects cuDNN convs with K1 + K2 norms."""
+(K4, K4, K3); `fused_conv=False` selects cuDNN convs with K1 + K2 norms.
+`use_checkpoint` recomputes in the backward what the JAX package remats:
+every swin block and every encoder and decoder block (`nn/recompute.py`)."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Sequence
 
 from torch import nn
 
+from ..nn import recompute
 from ..nn.dynunet import UnetOutBlock
 from ..nn.unetr_blocks import UnetrBasicBlock, UnetrUpBlock
 from .swin_transformer import NormSpec, SwinTransformer, _kind
@@ -30,7 +33,7 @@ class SwinUNETR(nn.Module):
                  downsample: str = "merging",
                  vit_norm: NormSpec = ("layer", {}),
                  decoder_norm: NormSpec = ("instance", {}),
-                 encoder_norm: NormSpec = ("instance", {}), *,
+                 encoder_norm: NormSpec = ("instance", {}), use_checkpoint: bool = False, *,
                  fused_conv: bool = True, device=None, dtype=None):
         super().__init__()
         if len(img_size) != 3:
@@ -47,13 +50,13 @@ class SwinUNETR(nn.Module):
         if "layer" in (_kind(decoder_norm), _kind(encoder_norm)):
             raise ValueError("Layer normalization not supported for encoder and "
                              "decoder blocks, please select another normalization.")
-        self.normalize = normalize
+        self.normalize, self.use_checkpoint = normalize, use_checkpoint
         fs = feature_size
         dd = dict(device=device, dtype=dtype)
         self.swinViT = SwinTransformer(
             in_channels, fs, (7, 7, 7), (2, 2, 2), tuple(depths), tuple(num_heads),
             4.0, True, drop_rate, attn_drop_rate, dropout_path_rate,
-            downsample=downsample, norm=vit_norm, **dd)
+            downsample=downsample, norm=vit_norm, use_checkpoint=use_checkpoint, **dd)
 
         def enc(cin, cout):
             return UnetrBasicBlock(cin, cout, 3, 1, encoder_norm, res_block=True,
@@ -78,15 +81,18 @@ class SwinUNETR(nn.Module):
     def forward(self, x_in, modalities=None):
         """`x_in [B, D, H, W, Cin]`, `modalities int[B]` -> logits
         `[B, D, H, W, out_channels]`."""
+        def block(module, *args):
+            return recompute.call(module, *args, modalities, recompute=self.use_checkpoint)
+
         hidden = self.swinViT(x_in, self.normalize, modalities)
-        enc0 = self.encoder1(x_in, modalities)
-        enc1 = self.encoder2(hidden[0], modalities)
-        enc2 = self.encoder3(hidden[1], modalities)
-        enc3 = self.encoder4(hidden[2], modalities)
-        dec4 = self.encoder10(hidden[4], modalities)
-        dec3 = self.decoder5(dec4, hidden[3], modalities)
-        dec2 = self.decoder4(dec3, enc3, modalities)
-        dec1 = self.decoder3(dec2, enc2, modalities)
-        dec0 = self.decoder2(dec1, enc1, modalities)
-        out = self.decoder1(dec0, enc0, modalities)
+        enc0 = block(self.encoder1, x_in)
+        enc1 = block(self.encoder2, hidden[0])
+        enc2 = block(self.encoder3, hidden[1])
+        enc3 = block(self.encoder4, hidden[2])
+        dec4 = block(self.encoder10, hidden[4])
+        dec3 = block(self.decoder5, dec4, hidden[3])
+        dec2 = block(self.decoder4, dec3, enc3)
+        dec1 = block(self.decoder3, dec2, enc2)
+        dec0 = block(self.decoder2, dec1, enc1)
+        out = block(self.decoder1, dec0, enc0)
         return self.out(out)

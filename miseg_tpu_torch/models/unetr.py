@@ -10,6 +10,8 @@ up through four `UnetrUpBlock`s that concatenate those skips; a 1x1x1
 conv gives the logits.  With `fused_conv` (the default) every
 UnetResBlock runs the fused conv chain (K4, K4, then K3 or K2's add);
 `fused_conv=False` selects cuDNN convs with K1 + K2 norms.
+`use_checkpoint` recomputes in the backward the blocks the JAX package
+remats: `encoder1` and the four decoders (`nn/recompute.py`).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Sequence
 
 from torch import nn
 
+from ..nn import recompute
 from ..nn.dynunet import UnetOutBlock
 from ..nn.unetr_blocks import UnetrBasicBlock, UnetrPrUpBlock, UnetrUpBlock
 from .swin_transformer import NormSpec, _kind
@@ -35,9 +38,10 @@ class UNETR(nn.Module):
                  dropout_rate: float = 0.0, qkv_bias: bool = False,
                  vit_norm: NormSpec = ("layer", {}),
                  decoder_norm: NormSpec = ("instance", {}),
-                 encoder_norm: NormSpec = ("instance", {}), *, fused_conv: bool = True,
-                 device=None, dtype=None):
+                 encoder_norm: NormSpec = ("instance", {}), use_checkpoint: bool = False,
+                 *, fused_conv: bool = True, device=None, dtype=None):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         if "layer" in (_kind(decoder_norm), _kind(encoder_norm)):
             raise ValueError("Layer normalization not supported for encoder and "
                              "decoder blocks, please select another normalization.")
@@ -85,14 +89,17 @@ class UNETR(nn.Module):
         if self.needs_modalities and modalities is None:
             raise ValueError("Modalities must be passed to the forward step when a "
                              "norm is 'instance_cond'.")
+        def block(module, *args):
+            return recompute.call(module, *args, modalities, recompute=self.use_checkpoint)
+
         x, hidden = self.vit(x_in, modalities)
         q = self.num_layers // 4
-        enc1 = self.encoder1(x_in, modalities)
+        enc1 = block(self.encoder1, x_in)
         enc2 = self.encoder2(self.proj_feat(hidden[q]), modalities)
         enc3 = self.encoder3(self.proj_feat(hidden[2 * q]), modalities)
         enc4 = self.encoder4(self.proj_feat(hidden[3 * q]), modalities)
-        dec3 = self.decoder5(self.proj_feat(x), enc4, modalities)
-        dec2 = self.decoder4(dec3, enc3, modalities)
-        dec1 = self.decoder3(dec2, enc2, modalities)
-        out = self.decoder2(dec1, enc1, modalities)
+        dec3 = block(self.decoder5, self.proj_feat(x), enc4)
+        dec2 = block(self.decoder4, dec3, enc3)
+        dec1 = block(self.decoder3, dec2, enc2)
+        out = block(self.decoder2, dec1, enc1)
         return self.out(out)

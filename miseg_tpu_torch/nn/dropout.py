@@ -8,6 +8,13 @@ generator installed by `rng(generator)` around the forward (the
 `Trainer` installs its own, seeded every step from `(seed + 1, step)`)
 and raise without one: the port never draws from the global RNG.  A kept
 element is scaled by 1 / (1 - rate), as flax does.
+
+Activation recompute (`nn/recompute.py`) runs a block's forward again in
+the backward, after the `rng` block has closed; `torch.utils.checkpoint`
+restores only the global RNGs.  So the recompute takes `snapshot()` at
+the block's entry (the installed generator and its state) and draws
+under `replay(snapshot)` from a fresh generator in that state: the masks
+of the first forward, as flax's `nn.remat` replays them.
 """
 
 from __future__ import annotations
@@ -30,6 +37,27 @@ def rng(generator: torch.Generator):
         yield generator
     finally:
         _generator.reset(token)
+
+
+def snapshot() -> tuple[torch.Generator, torch.Tensor] | None:
+    """The installed generator and its state now, or None without one."""
+    gen = _generator.get()
+    return None if gen is None else (gen, gen.get_state())
+
+
+@contextlib.contextmanager
+def replay(snap: tuple[torch.Generator, torch.Tensor] | None):
+    """Dropout inside this block draws what it drew after `snap` was taken,
+    from a fresh generator in that state (the installed one is left as it
+    is).  Without a snapshot the block drew nothing, and nothing changes."""
+    if snap is None:
+        yield
+        return
+    gen, state = snap
+    fresh = torch.Generator(device=gen.device)
+    fresh.set_state(state)
+    with rng(fresh):
+        yield
 
 
 def _drop(x: torch.Tensor, rate: float, mask_shape) -> torch.Tensor:

@@ -1,30 +1,45 @@
 """Checkpoints in the port's own format (counterpart of
-`miseg_tpu/train/checkpoint.py:30,49,69,81` and `partial_load`,
-`miseg_tpu/train/pretrained.py:42`), and the top-k + last manager.
+`miseg_tpu/train/checkpoint.py:30,49,69,81`), the ingest of every other
+checkpoint a user brings, and the top-k + last manager.
 
-A checkpoint is one `torch.save` file of
+A port checkpoint is one `torch.save` file of
     {"format": "miseg_tpu_torch", "params": {name: tensor},
      "opt_state": the trainer's optimizer state or {}}
 beside a `<path>.json` sidecar holding epoch, best_acc, scheduler and
 extra, as the JAX package writes it.  "params" is the model's whole
 state dict: its parameters and its buffers (a batch norm's f32 running
 `mean`/`var`, which the JAX package's msgpack checkpoints drop: ROADMAP
-W9).  Tensors are saved on the CPU and
-read back with `weights_only=True`.  The JAX package's msgpack
-checkpoints and the reference's torch `.pt`/`.ckpt` files are not read
-here: the reference ingest is ROADMAP's M8.
+W9).  Tensors are saved on the CPU and read back with
+`weights_only=True`.
+
+`load_any_checkpoint_params` reads three formats, told apart by the
+file's own bytes (`checkpoint_format`), never by trying one reader after
+another: a port checkpoint; a JAX package checkpoint (flax msgpack,
+read by `flax_msgpack` and bridged by `weights.state_dict_from_jax`);
+a torch `.pt`/`.ckpt` in the reference's naming (`ref_import`).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickletools
+import zipfile
 from collections.abc import Mapping
 from pathlib import Path
 
 import torch
 
+from ..nn.norms import RUNNING_STATS
+from ..weights import state_dict_from_jax
+from .flax_msgpack import msgpack_restore
+from .pretrained import partial_load
+from .ref_import import load_reference_checkpoint
+
 FORMAT = "miseg_tpu_torch"
+FORMATS = ("a miseg_tpu_torch checkpoint (torch zip with format 'miseg_tpu_torch')",
+           "a JAX package checkpoint (flax msgpack)",
+           "a reference PyTorch/Lightning .pt/.ckpt file (torch zip or pickle)")
 
 
 def save_checkpoint(path: str | Path, *, params: Mapping[str, torch.Tensor],
@@ -45,21 +60,45 @@ def save_checkpoint(path: str | Path, *, params: Mapping[str, torch.Tensor],
         json.dump(meta, f)
 
 
+def _is_port_zip(path: Path) -> bool:
+    """Whether a torch zip file's pickle starts its top-level dict with
+    `"format": FORMAT`, read from the pickle's opcodes without running it."""
+    with zipfile.ZipFile(path) as z:
+        pkl = next((n for n in z.namelist() if n.endswith("/data.pkl")), None)
+        if pkl is None:
+            return False
+        strings = [arg for op, arg, _ in pickletools.genops(z.read(pkl))
+                   if isinstance(arg, str) and "UNICODE" in op.name]
+    return strings[:2] == ["format", FORMAT]
+
+
+def checkpoint_format(path: str | Path) -> str:
+    """"port", "flax" or "torch", from the file's first bytes: a torch zip
+    (`PK`) is the port's when its pickle says so, else the reference's; a
+    pickle (`\\x80`, torch's legacy format) is the reference's; a msgpack
+    map (0x81..0x8f, 0xde, 0xdf) is flax's.  Anything else raises."""
+    path = Path(path)
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == b"PK\x03\x04":
+        return "port" if _is_port_zip(path) else "torch"
+    if head[:1] == b"\x80":
+        return "torch"
+    if head and (0x81 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF)):
+        return "flax"
+    raise ValueError(f"{path} is none of the checkpoint formats the port reads: "
+                     + "; ".join(FORMATS))
+
+
 def load_checkpoint(path: str | Path) -> dict:
     """{"params", "opt_state", and the sidecar's keys} of a port checkpoint.
-    Raises ValueError for any other file."""
+    Raises ValueError for any other file: `load_any_checkpoint_params`
+    reads the others' weights."""
     path = Path(path)
-    try:
-        payload = torch.load(path, map_location="cpu", weights_only=True)
-    except Exception as e:  # torch.load raises many kinds on foreign bytes
-        raise ValueError(
-            f"{path} is not a {FORMAT} checkpoint ({type(e).__name__}); the JAX "
-            "package's msgpack and the reference's torch checkpoints are read by "
-            "the checkpoint ingest of ROADMAP M8, not ported yet") from e
-    if not isinstance(payload, dict) or payload.get("format") != FORMAT:
-        raise ValueError(
-            f"{path} is not a {FORMAT} checkpoint; the reference's torch .pt/.ckpt "
-            "files are read by the checkpoint ingest of ROADMAP M8, not ported yet")
+    if checkpoint_format(path) != "port":
+        raise ValueError(f"{path} is not a {FORMAT} checkpoint; merge its weights with "
+                         "load_any_checkpoint_params")
+    payload = torch.load(path, map_location="cpu", weights_only=True)
     meta = {}
     if os.path.exists(str(path) + ".json"):
         with open(str(path) + ".json") as f:
@@ -68,39 +107,34 @@ def load_checkpoint(path: str | Path) -> dict:
             **meta}
 
 
-def partial_load(params: Mapping[str, torch.Tensor], source: Mapping[str, torch.Tensor],
-                 *, verbose: bool = True) -> dict[str, torch.Tensor]:
-    """`params` with every tensor replaced by `source`'s wherever the name
-    AND the shape match (cast to the target's dtype and device); the rest
-    kept, and reported: a checkpoint with another output head loads
-    everything but the head."""
-    loaded, skipped, missing = [], [], []
-    merged = {}
-    for name, val in params.items():
-        src = source.get(name)
-        if src is None:
-            merged[name] = val
-            missing.append(name)
-        elif tuple(src.shape) == tuple(val.shape):
-            merged[name] = src.to(device=val.device, dtype=val.dtype)
-            loaded.append(name)
-        else:
-            merged[name] = val
-            skipped.append((name, tuple(src.shape), tuple(val.shape)))
-    unexpected = [n for n in source if n not in params]
-    if verbose:
-        print(f"partial_load: loaded {len(loaded)}, shape-skipped {len(skipped)}, "
-              f"missing {len(missing)}, unexpected {len(unexpected)}")
-        for name, s, t in skipped:
-            print(f"  skipped {name}: ckpt {s} != model {t} (kept at init)")
+def load_any_checkpoint_params(path: str | Path, params: Mapping[str, torch.Tensor], *,
+                               model_name: str) -> dict[str, torch.Tensor]:
+    """Merge the checkpoint at `path` into the state dict `params` of a
+    `model_name` model (`partial_load`'s rule), whichever of the three
+    formats it is.  A foreign file's optimizer state is not restored (the
+    JAX package merges params only), and a JAX file of a batch-norm model
+    holds no running statistics (W9): its `mean`/`var` stay at their init
+    (0 and 1), which is what JAX's `cli.test` evaluates with.  Both are
+    printed."""
+    kind = checkpoint_format(path)
+    if kind == "port":
+        return partial_load(params, load_checkpoint(path)["params"])
+    if kind == "torch":
+        merged = load_reference_checkpoint(path, model_name, params)
+        print(f"{path}: a reference checkpoint; its optimizer state, if any, is not restored")
+        return merged
+    with open(path, "rb") as f:
+        payload = msgpack_restore(f.read())
+    if not isinstance(payload, dict) or not isinstance(payload.get("params"), dict):
+        raise ValueError(f"{path} is a msgpack file without the JAX package's 'params'")
+    merged = partial_load(params, state_dict_from_jax(payload["params"]))
+    if payload.get("opt_state"):
+        print(f"{path}: the JAX checkpoint's optimizer state is not restored")
+    stats = [n for n in params if n.rsplit(".", 1)[-1] in RUNNING_STATS]
+    if stats:
+        print(f"{path}: a JAX checkpoint holds no batch-norm running statistics (W9); "
+              f"{len(stats)} buffers stay at their init (mean 0, var 1)")
     return merged
-
-
-def load_any_checkpoint_params(path: str | Path,
-                               params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """Merge the port checkpoint at `path` into the state dict `params`
-    (`partial_load`'s rule)."""
-    return partial_load(params, load_checkpoint(path)["params"])
 
 
 class CheckpointManager:

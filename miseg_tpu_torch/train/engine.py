@@ -51,6 +51,7 @@ from ..utils.platform import resolve_device
 from ..utils.profiling import profile_trace
 from .checkpoint import (CheckpointManager, load_any_checkpoint_params, load_checkpoint,
                          save_checkpoint)
+from .pretrained import load_swin_vit_torch
 from .optim import (Accumulation, current_learning_rate, optimizer_from_config,
                     optimizer_step_count, set_learning_rate)
 from .schedules import scheduler_from_config
@@ -173,17 +174,24 @@ class Trainer:
         return {**state.params, **state.buffers}
 
     def fresh_state(self) -> TrainState:
-        """`init_state` and then the `--pretrained` ingest of a port
-        checkpoint (every parameter whose name and shape match)."""
-        if self.cfg.model_name == "pre_swin_unetr":
-            raise NotImplementedError(
-                "pre_swin_unetr's Swin-ViT checkpoint ingest is ROADMAP M8, not ported "
-                "yet; train swin_unetr, or start it from a port checkpoint with "
-                "--pretrained")
+        """`init_state`, then the ingest of weights from elsewhere
+        (`miseg_tpu/train/engine.py:214-230`): `pre_swin_unetr` needs
+        `cfg.pre_swin`, MONAI's Swin-ViT file, merged into `swinViT`; then
+        `--pretrained`, a checkpoint of any format `load_any_checkpoint_params`
+        reads (every tensor whose name and shape match)."""
+        cfg = self.cfg
         state = self.init_state()
-        if self.cfg.pretrained:
-            self._load_params(state, load_any_checkpoint_params(
-                self.cfg.pretrained, self.model.state_dict()))
+        params = self.state_dict(state)
+        if cfg.model_name == "pre_swin_unetr":
+            if not cfg.pre_swin:
+                raise ValueError("pre_swin_unetr requires --pre_swin checkpoint path")
+            params = load_swin_vit_torch(cfg.pre_swin, params)
+            print("Loaded pre-trained Swin-ViT")
+        if cfg.pretrained:
+            print("Loading pre-trained weights ...")
+            params = load_any_checkpoint_params(cfg.pretrained, params,
+                                                model_name=cfg.model_name)
+        self._load_params(state, params)
         return state
 
     @torch.no_grad()
@@ -254,13 +262,15 @@ class Trainer:
     def make_inferer(self, mode: str = "constant") -> SlidingWindowInferer:
         """A sliding-window inferer (one per blend `mode`, cached) over the
         model's current parameters, in eval mode and the compute dtype with
-        f32 logits, under `inference_mode`."""
+        f32 logits, under `inference_mode`; it stitches in host memory with
+        `cfg.infer_cpu` and prints its progress with `cfg.infer_progress`."""
         if mode not in self._inferers:
             cfg = self.cfg
             self._inferers[mode] = _EvalInferer(
                 self, roi_size=cfg.roi, sw_batch_size=cfg.sw_batch_size,
                 overlap=cfg.infer_overlap, mode=mode,
-                out_channels=cfg.out_channels, device=self.device)
+                out_channels=cfg.out_channels, stitch_on_host=cfg.infer_cpu,
+                progress=cfg.infer_progress, device=self.device)
         return self._inferers[mode]
 
     # --------------------------------------------------------- train step

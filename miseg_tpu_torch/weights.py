@@ -51,29 +51,41 @@ def _flatten(tree: Mapping, prefix: tuple = ()):
             yield path, val
 
 
-def _convert(path: tuple[str, ...], arr: np.ndarray) -> tuple[str, np.ndarray]:
-    *parent, leaf = path
-    if leaf != "kernel":
-        return ".".join(path), arr
-    name = ".".join([*parent, "weight"])
-    if arr.ndim == 2:
-        return name, arr.T
-    nk = arr.ndim - 2
+def _tensor(leaf) -> torch.Tensor:
+    """A leaf as a CPU tensor of its dtype: a tensor as it is (the msgpack
+    reader's bf16 leaves), an array copied (bf16 through `uint16`)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def _convert(path: tuple[str, ...], leaf: torch.Tensor) -> tuple[str, torch.Tensor]:
+    *parent, name = path
+    if name != "kernel":
+        return ".".join(path), leaf
+    weight = ".".join([*parent, "weight"])
+    if leaf.ndim == 2:
+        return weight, leaf.t()
+    nk = leaf.ndim - 2
     spatial = tuple(range(nk))
     if parent and _is_transposed(parent[-1]):
-        return name, np.flip(arr, axis=spatial).transpose(nk, nk + 1, *spatial)
-    return name, arr.transpose(nk + 1, nk, *spatial)
+        return weight, leaf.flip(spatial).permute(nk, nk + 1, *spatial)
+    return weight, leaf.permute(nk + 1, nk, *spatial)
 
 
 def state_dict_from_jax(params: Mapping,
                         batch_stats: Mapping | None = None) -> dict[str, torch.Tensor]:
-    """`model.init(...)["params"]` (nested mappings of arrays), or a
-    gradient tree of the same paths, and the `batch_stats` collection when
-    the model has one -> the port's state dict (or the gradients by
-    parameter name), as CPU tensors of the arrays' dtypes."""
+    """`model.init(...)["params"]` (nested mappings of arrays, or of CPU
+    tensors as the msgpack reader gives bf16 leaves), or a gradient tree of
+    the same paths, and the `batch_stats` collection when the model has
+    one -> the port's state dict (or the gradients by parameter name), as
+    CPU tensors of the leaves' dtypes."""
     out = {}
     leaves = [*_flatten(params), *_flatten(batch_stats or {})]
     for path, leaf in leaves:
-        name, arr = _convert(path, np.asarray(leaf))
-        out[name] = torch.from_numpy(np.ascontiguousarray(arr))
+        name, tensor = _convert(path, _tensor(leaf))
+        out[name] = tensor.contiguous()
     return out

@@ -996,3 +996,91 @@ def test_train_step_card_matches_cpu(dev):
         q = s_card.params[n]
         assert _err(q.grad.cpu(), p.grad) <= 5e-5, n
         torch.testing.assert_close(q.detach().cpu(), p.detach(), rtol=1e-4, atol=2.5e-4)
+
+
+def _recompute_cfg(**kw):
+    from miseg_tpu_torch.config import Config
+    return Config(model_name="swin_unetr", out_channels=4, feature_size=[12], num_heads=2,
+                  roi_x=32, roi_y=32, roi_z=32, encoder_norm_name="instance_cond",
+                  vit_norm_name="instance_cond", decoder_norm_name="instance", no_amp=True,
+                  use_checkpoint=True, **kw)
+
+
+def _launches() -> dict:
+    return {"K1": fused_norm.stats_launches, "K2": fused_norm.apply_launches,
+            "K3": fused_norm.apply2_launches, "K4": fused_conv.launches,
+            "K5": wa.launches, "fold": fused_norm.fold_launches}
+
+
+def _reset_launches() -> None:
+    fused_norm.stats_launches = fused_norm.apply_launches = fused_norm.apply2_launches = 0
+    fused_norm.fold_launches = fused_conv.launches = wa.launches = 0
+
+
+def test_recompute_step_card_matches_cpu(dev):
+    """One f32 step of the fs-12 model at 32^3 with `use_checkpoint` on the
+    card against the CPU: K1-K5 run in the forward and again in the
+    backward, where the recompute launches each remat'd block's kernels."""
+    from miseg_tpu_torch.train.engine import Trainer
+    cfg = _recompute_cfg()
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.standard_normal((2, 32, 32, 32, 1)).astype(np.float32),
+             "label": rng.integers(0, 4, (2, 32, 32, 32)), "modality": np.array([0, 1])}
+    cpu, card = Trainer(cfg, device="cpu"), Trainer(cfg, device=dev)
+    s_cpu = cpu.init_state()
+    s_card = card.init_state(cpu.model.state_dict())
+    l_cpu, _ = cpu.value_and_grad(s_cpu, batch)
+    _reset_launches()
+    with torch.no_grad():
+        card.apply_fn(s_card.params, torch.from_numpy(batch["image"]).to(dev),
+                      torch.from_numpy(batch["modality"]).to(dev))
+    forward = _launches()
+    _reset_launches()
+    l_card, _ = card.value_and_grad(s_card, batch)
+    torch.cuda.synchronize()
+    step = _launches()
+    assert all(step[k] > forward[k] > 0 for k in forward), (step, forward)
+    assert abs(float(l_card) - float(l_cpu)) <= 1e-5
+    for n, p in s_cpu.params.items():
+        assert _err(s_card.params[n].grad.cpu(), p.grad) <= 5e-5, n
+
+
+def test_recompute_reuses_counters_and_packed_weights(dev, monkeypatch):
+    """Under recompute: the arrival counters come from the forward's
+    (device, stream) buffer and are all 0 after the step; K4's packed
+    weights are packed once in the forward and reused by the recompute,
+    then rebuilt after the optimizer step."""
+    from miseg_tpu_torch.train.engine import Trainer
+    monkeypatch.setattr(counters, "_buffers", {})
+    packs = []
+    pack = fused_conv.kernel_weights
+
+    def recording(w, dtype):
+        out = pack(w, dtype)
+        packs.append((w.data_ptr(), out))
+        return out
+
+    monkeypatch.setattr(fused_conv, "kernel_weights", recording)
+    trainer = Trainer(_recompute_cfg(), device=dev)
+    state = trainer.init_state()
+    rng = np.random.default_rng(1)
+    batch = {"image": rng.standard_normal((1, 32, 32, 32, 1)).astype(np.float32),
+             "label": rng.integers(0, 4, (1, 32, 32, 32)), "modality": np.array([1])}
+    trainer.value_and_grad(state, batch)
+    torch.cuda.synchronize()
+    assert list(counters._buffers) == [(torch.cuda.current_device(),
+                                        torch.cuda.current_stream(dev).cuda_stream)]
+    assert not bool(next(iter(counters._buffers.values())).any())
+    by_weight: dict[int, list] = {}
+    for ptr, out in packs:
+        by_weight.setdefault(ptr, []).append(out)
+    # every K4 conv sits in a remat'd block: packed in the forward, reused
+    assert by_weight and all(len(v) == 2 and v[0] is v[1] for v in by_weight.values())
+    first = {ptr: v[0] for ptr, v in by_weight.items()}
+    state.optimizer.step()
+    packs.clear()
+    trainer.value_and_grad(state, batch)
+    params = {p.data_ptr(): p for p in state.params.values()}
+    for ptr, out in packs:
+        assert out is not first[ptr]
+        assert torch.equal(out, params[ptr].detach().permute(2, 3, 4, 1, 0))

@@ -64,7 +64,7 @@ from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
 from miseg_tpu_torch.nn import dropout
 from miseg_tpu_torch.nn import swin as port_swin
 from miseg_tpu_torch.nn.dynunet import UnetResBlock, _fuse_plan
-from miseg_tpu_torch.train import engine, optim, schedules
+from miseg_tpu_torch.train import engine, optim, schedules, tuner
 from miseg_tpu_torch.train.checkpoint import load_checkpoint
 from miseg_tpu_torch.utils.logging import MetricLogger
 from miseg_tpu_torch.weights import state_dict_from_jax
@@ -554,8 +554,17 @@ def test_cli_train_and_test_run_from_a_command_line(small_dataset, tmp_path, mon
     again = cli_test.main()
     assert again == metrics
     assert "test/accuracy/avg:" in capsys.readouterr().out
-    with pytest.raises(ValueError, match="auto_scale_batch_size"):
-        cli_train.main(parse_args([*argv, "--auto_scale_batch_size"])[0], device="cpu")
+    # --auto_scale_batch_size runs the tuner, whose trials here fit at
+    # batch 1 and run out of memory at 2
+    def trial(cfg, batch_size, device=None):
+        if batch_size > 1:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (simulated)")
+
+    monkeypatch.setattr(tuner, "_try_batch", trial)
+    tuned, _, _ = cli_train.main(parse_args([*argv, "--auto_scale_batch_size"])[0],
+                                 device="cpu")
+    assert tuned.cfg.batch_size == 1
+    assert "auto_scale_batch_size: training at batch_size=1" in capsys.readouterr().out
     with pytest.raises(ValueError, match="ckpt_path"):
         cli_test.main(parse_args(argv)[0], device="cpu")
 

@@ -1,4 +1,6 @@
-"""The port stands alone: it imports no JAX, flax or `miseg_tpu`, and
+"""The port stands alone: it imports no JAX, flax, msgpack (the card's
+machine has none: the port reads flax's files with its own decoder) or
+`miseg_tpu`, and
 `chip_smoke.py` neither imports them nor reports success without a card
 or without the rest of the repository."""
 
@@ -14,7 +16,7 @@ import torch
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "miseg_tpu")
+FORBIDDEN = ("jax", "flax", "msgpack", "miseg_tpu")
 # every kernel of the port is CUDA C++ built by nvcc: no Triton anywhere
 NOT_TRITON = ("triton",)
 
@@ -25,7 +27,7 @@ names = [m.name for m in pkgutil.walk_packages(miseg_tpu_torch.__path__, "miseg_
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "flax", "jaxlib", "miseg_tpu"))
+             if m.split(".")[0] in ("jax", "flax", "jaxlib", "msgpack", "miseg_tpu"))
 print(len(names), "modules;", "forbidden:", bad)
 sys.exit(1 if bad or len(names) < 20 else 0)
 """
