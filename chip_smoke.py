@@ -132,11 +132,31 @@ Phases, one result line each; any failed check exits non-zero:
                device (peak memory, windows/s); the batch-size tuner
                stopped by a real out-of-memory error under a per-process
                memory fraction; a 12-step lr sweep.
+ 11. tune    — the hyper-parameter search (`cli.tune`) over the swin
+               search space (feature_size 12/24/36 x heads 2/3/4, whose
+               channels the tensor cores do not take): (a) each of the 9
+               pairs from one seed, a 64^3 f32 window card vs CPU (K1-K5
+               launching, K4 on its FMA path), then a bf16 bundle's 96^3
+               window launching `PER_WINDOW`, profiled: its K4 kernels by
+               name, with the FMA kernel and its split-K reduce allowed;
+               (b) K4 at 96^3 x 12 -> 12, 96^3 x 36 -> 36, the Cin = 1
+               call to 12, 48^3 x 24 -> 24 and 24^3 x 72 -> 72, and K5 at
+               stage 1 with head dims 3, 9 and 18, against their plain
+               versions, timed against `F.conv3d` / SDPA and their bounds;
+               (c) `cli.tune.main` of 3 trials (4 epochs, a validation
+               each, warmup_cosine, bf16) on `phase_fit`'s data set, then
+               a 1-trial resume of its journal: params.json against the
+               journal, each trial's widths (parameter count), every
+               kernel launching, device memory back at the baseline after
+               each trial, the dashboard's report, the states against the
+               pruner's rule; a line a trial (params, best Dice, state,
+               seconds by part, step ms p50, peak memory).
 Then one JSON line of kernels (with each kernel's launches a train step,
 the JAX VJP its backward follows, its launches in the fit's train steps
 and evaluations, and its launches in C-UNETR's, C-UNet's and
 UNetVanilla's windows, steps and fits, and in the fine-tune's forward and
-recompute a step and its fit; K2's row times its leaky-relu
+recompute a step and its fit, and in the tune study, with K4's and K5's
+rows at the search space's shapes; K2's row times its leaky-relu
 mode, and its field `no_add_no_activation` the UNets' mode beside
 `torch.addcmul`), the card line, and the ok line last.
 """
@@ -705,17 +725,71 @@ def k4_case(label: str, shape, cout: int, prologue: bool, dev, gen, mem_bw: floa
                      f"\n    device ms: K4 kernel {fmt_ms(dev_k4)} (with its fold "
                      f"{fmt_ms(dev_call)}), F.conv3d {fmt_ms(dev_lib)}")
         row = dict(ms=k4, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
-                   max_abs_err=e)
+                   max_abs_err=e, device_ms=dev_k4, library_device_ms=dev_lib)
+    return "\n".join(lines), row
+
+
+def k5_case(label: str, bw: int, n: int, c: int, heads: int, padded, dev, gen,
+            mem_bw: float, bf16_flops: float):
+    """K5 at `[bw, n, c]` with `heads` heads against its plain version in
+    bf16 and f32, without and with region ids (those of a shifted window
+    over `padded` dims, or random ones where `padded` is None); in bf16 its
+    CUDA-event time (with the ids where `padded` is given), the plain
+    version's and `F.scaled_dot_product_attention`'s beside its bound.
+    Returns (the lines, the bf16 `kernels` row)."""
+    import torch.nn.functional as F
+
+    from miseg_tpu_torch.ops.kernels import window_attention as wa
+    from miseg_tpu_torch.ops.window import window_region_ids
+
+    lines, row = [], None
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = torch.randn((bw, n, 3 * c), generator=gen).to(dev, dtype)
+        q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+        bias = torch.randn((heads, n, n), generator=gen).to(dev)
+        if padded is not None:
+            real_ids = window_region_ids(padded, (7, 7, 7), (3, 3, 3), device=dev)
+        else:  # an unshifted window; random regions still test the mask
+            real_ids = torch.randint(0, 3, (bw, n), generator=gen, dtype=torch.int32).to(dev)
+        line = f"  K5 {label} [{bw},{n},{c}] h{heads} {str(dtype)[6:]}:"
+        errs = {}
+        for ids in (None, real_ids):
+            out = wa.window_attention(q, k, v, bias, ids, num_heads=heads)
+            ref = wa.window_attention_plain(q, k, v, bias, ids, num_heads=heads)
+            e, tol = max_err(out, ref), tolerance(ref, dtype)
+            check(e <= tol, f"K5 {label} {dtype} ids={ids is not None}: {e:.3e} > {tol:.3e}")
+            errs[ids is not None] = e
+            line += f" {'ids' if ids is not None else 'no ids'} err {e:.3e} (tol {tol:.3e});"
+        if dtype == torch.bfloat16:
+            ids = real_ids if padded is not None else None
+            hd = c // heads
+            k5 = time_ms(lambda: wa.window_attention(q, k, v, bias, ids, num_heads=heads))
+            plain = time_ms(lambda: wa.window_attention_plain(
+                q, k, v, bias, ids, num_heads=heads), reps=5)
+            mask = bias[None].to(dtype)
+            if ids is not None:
+                neq = (ids[:, None, :] != ids[:, :, None]).to(dtype) * -100.0
+                mask = (bias[None] + neq[:, None]).to(dtype)
+            qh, kh, vh = (t.view(bw, n, heads, hd).transpose(1, 2) for t in (q, k, v))
+            sdpa = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+            nbytes = (4 * bw * n * c * 2 + bias.numel() * 4
+                      + (ids.numel() * 4 if ids is not None else 0))
+            flops = 4 * bw * heads * n * n * hd
+            bound = max(nbytes / mem_bw, flops / bf16_flops) * 1e3
+            by = "bytes" if nbytes / mem_bw >= flops / bf16_flops else "operations"
+            line += (f"\n    times ms: K5 {k5:.4f} (bound {bound:.4f} by {by}: "
+                     f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), plain {plain:.4f}, "
+                     f"F.scaled_dot_product_attention {sdpa:.4f}")
+            row = dict(ms=k5, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=sdpa,
+                       max_abs_err=errs[ids is not None])
+        lines.append(line)
     return "\n".join(lines), row
 
 
 def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
-    import torch.nn.functional as F
-
     from miseg_tpu_torch.ops.kernels import fused_conv as fc
     from miseg_tpu_torch.ops.kernels import fused_norm as fn
     from miseg_tpu_torch.ops.kernels import window_attention as wa
-    from miseg_tpu_torch.ops.window import window_region_ids
 
     # every library loaded before the first profiler session: one first
     # loaded after a session showed no device events in later sessions
@@ -767,50 +841,11 @@ def phase_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
         (1, 216, 384, 24, None),       # clipped 6^3 window, unshifted
     ]
     for stage, (bw, n, c, heads, padded) in enumerate(stages, start=1):
-        for dtype in (torch.bfloat16, torch.float32):
-            qkv = torch.randn((bw, n, 3 * c), generator=gen).to(dev, dtype)
-            q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
-            bias = torch.randn((heads, n, n), generator=gen).to(dev)
-            if padded is not None:
-                real_ids = window_region_ids(padded, (7, 7, 7), (3, 3, 3), device=dev)
-            else:  # stage 4 is never shifted; random regions still test the mask
-                real_ids = torch.randint(0, 3, (bw, n), generator=gen,
-                                         dtype=torch.int32).to(dev)
-            line = f"  K5 stage {stage} [{bw},{n},{c}] h{heads} {str(dtype)[6:]}:"
-            errs = {}
-            for ids in (None, real_ids):
-                out = wa.window_attention(q, k, v, bias, ids, num_heads=heads)
-                ref = wa.window_attention_plain(q, k, v, bias, ids, num_heads=heads)
-                e, tol = max_err(out, ref), tolerance(ref, dtype)
-                check(e <= tol, f"K5 stage {stage} {dtype} ids={ids is not None}: "
-                                f"{e:.3e} > {tol:.3e}")
-                errs[ids is not None] = e
-                line += f" {'ids' if ids is not None else 'no ids'} err {e:.3e} (tol {tol:.3e});"
-            if dtype == torch.bfloat16:
-                ids = real_ids if padded is not None else None
-                hd = c // heads
-                k5 = time_ms(lambda: wa.window_attention(q, k, v, bias, ids, num_heads=heads))
-                plain = time_ms(lambda: wa.window_attention_plain(
-                    q, k, v, bias, ids, num_heads=heads), reps=5)
-                mask = bias[None].to(dtype)
-                if ids is not None:
-                    neq = (ids[:, None, :] != ids[:, :, None]).to(dtype) * -100.0
-                    mask = (bias[None] + neq[:, None]).to(dtype)
-                qh, kh, vh = (t.view(bw, n, heads, hd).transpose(1, 2) for t in (q, k, v))
-                sdpa = time_ms(lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=mask))
-                nbytes = (4 * bw * n * c * 2 + bias.numel() * 4
-                          + (ids.numel() * 4 if ids is not None else 0))
-                flops = 4 * bw * heads * n * n * hd
-                bound = max(nbytes / mem_bw, flops / bf16_flops) * 1e3
-                by = "bytes" if nbytes / mem_bw >= flops / bf16_flops else "operations"
-                line += (f"\n    times ms: K5 {k5:.4f} (bound {bound:.4f} by {by}: "
-                         f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), plain {plain:.4f}, "
-                         f"F.scaled_dot_product_attention {sdpa:.4f}")
-                if stage == 1:
-                    rows["K5"] = dict(ms=k5, plain_ms=plain, bound_ms=bound, bound_by=by,
-                                      library_ms=sdpa, max_abs_err=errs[ids is not None])
-            print(line)
+        line, row = k5_case(f"stage {stage}", bw, n, c, heads, padded, dev, gen, mem_bw,
+                            bf16_flops)
+        print(line)
+        if stage == 1:
+            rows["K5"] = row
     # ---- K4 at the conv shapes of the 96^3 window's UnetResBlocks ------
     # (every (shape, Cout) of the 20 calls; the 96^3 and 48^3 levels take
     # the brick path, 24^3 and below the coarse path)
@@ -1067,26 +1102,40 @@ def kernel_groups(kernels, reps: int) -> tuple[dict, dict]:
     return by_name, groups
 
 
-def window_faults(kernels, reps: int, per: dict = PER_WINDOW, k4: dict = WINDOW_K4) -> list[str]:
+# K4's kernels, by the names a profile shows
+K4_KERNELS = ("miseg_k4_conv_brick", "miseg_k4_conv_coarse", "miseg_k4_conv_cin1",
+              "miseg_k4_conv_fma", "miseg_k4_splitk_reduce")
+
+
+def window_faults(kernels, reps: int, per: dict = PER_WINDOW, k4: dict | None = WINDOW_K4
+                  ) -> list[str]:
     """What is wrong with the device kernels of `reps` bf16 96^3 windows of
     a model that launches `per` (the launch counters' keys) a window, `k4`
     of its K4 launches taking the coarse and the Cin = 1 kernel: every bf16
     conv is one K4 kernel, every K1 call and every fold one CUDA K1 kernel,
     every K2, K3 and K5 call one CUDA kernel (the K2/K3 templates' `<...>`
-    is in their names only), and no retired kernel."""
+    is in their names only), and no retired kernel.  With `k4` None (the
+    search space's widths, whose channels the tensor cores do not take)
+    K4's FMA kernel and its split-K reduce are expected: then every conv
+    is one K4 kernel besides the reduces, and the paths are not counted."""
     if not kernels:
         return ["the profiler recorded no device events"]
     faults = []
     retired = sorted({e.name for e in kernels if any(k in e.name for k in (
-        "miseg_k4_splitk_reduce", "miseg_k4_conv_wmma", "miseg_k4_conv_fma",
-        "miseg_k1_stats_partial", "miseg_k1_stats_merge", "miseg_k1_stats_fold"))})
+        "miseg_k4_conv_wmma", "miseg_k1_stats_partial", "miseg_k1_stats_merge",
+        "miseg_k1_stats_fold") + (("miseg_k4_splitk_reduce", "miseg_k4_conv_fma")
+                                  if k4 is not None else ()))})
     if retired:
         faults.append(f"the bf16 window launched {retired}")
-    k4_names = [e.name for e in kernels if "miseg_k4_" in e.name]
+    k4_names = [e.name for e in kernels if "miseg_k4_" in e.name
+                and "miseg_k4_splitk_reduce" not in e.name]
     coarse = sum("miseg_k4_conv_coarse" in n for n in k4_names)
     cin1 = sum("miseg_k4_conv_cin1" in n for n in k4_names)
-    if not (len(k4_names) == per["K4"] * reps and coarse == k4["coarse"] * reps
-            and cin1 == k4["cin1"] * reps):
+    if k4 is None:
+        if len(k4_names) != per["K4"] * reps:
+            faults.append(f"{len(k4_names) / reps} K4 conv kernels a window; want {per['K4']}")
+    elif not (len(k4_names) == per["K4"] * reps and coarse == k4["coarse"] * reps
+              and cin1 == k4["cin1"] * reps):
         faults.append(f"{len(k4_names) / reps} K4 kernels a window, {coarse / reps} coarse, "
                       f"{cin1 / reps} Cin = 1; want {per['K4']}, {k4['coarse']} and "
                       f"{k4['cin1']}")
@@ -2982,6 +3031,291 @@ def phase_finetune(dev, card: str, shape=(192, 192, 160)) -> dict:
     return {"train": fit["train"], "eval": fit["eval"], "step_ms": fit["step_ms"]}
 
 
+# the hyper-parameter search's swin widths (miseg_tpu_torch/cli/tune.py
+# `set_trial_config`, as the JAX package's and the reference's)
+SEARCH_FS, SEARCH_HEADS = (12, 24, 36), (2, 3, 4)
+# K4 at the search space's conv shapes that no tensor-core path takes
+# (channels 12, 24, 36, 72): (label, x shape, Cout, prologue)
+SEARCH_CONVS = [
+    ("fs12 encoder1/decoder1 conv2", (1, 96, 96, 96, 12), 12, True),
+    ("fs36 encoder1/decoder1 conv2", (1, 96, 96, 96, 36), 36, True),
+    ("fs12 encoder1 conv1 (Cin = 1)", (1, 96, 96, 96, 1), 12, False),
+    ("fs24 encoder2/decoder2 conv2", (1, 48, 48, 48, 24), 24, True),
+    ("fs36 encoder3/decoder3 conv2", (1, 24, 24, 24, 72), 72, True),
+]
+# K5 at stage 1 of a 96^3 window at the search space's new head dims
+# (fs / heads: 12/4 = 3, 36/4 = 9, 36/2 = 18): (label, channels, heads)
+SEARCH_ATTN = [("hd3 (fs12 h4)", 12, 4), ("hd9 (fs36 h4)", 36, 4), ("hd18 (fs36 h2)", 36, 2)]
+# the device memory a trial may leave allocated: what a first trial makes
+# once and keeps (on an NVIDIA H100 80GB HBM3: 32 MiB when the tune phase
+# ran alone, 0 after the other phases; not traced)
+TUNE_MEMORY_MARGIN = 64 << 20
+
+
+def search_cfg(fs: int, heads: int, **kw):
+    from miseg_tpu_torch.config import Config
+    return Config(**{**FLAGSHIP, "feature_size": [fs], "num_heads": heads, **kw})
+
+
+def tune_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
+    """(b) K4 at `SEARCH_CONVS` and K5 at `SEARCH_ATTN` against their plain
+    versions in bf16 and f32, with times beside their bounds (K4 against
+    `F.conv3d`, device time too; K5 against SDPA).  Returns their bf16
+    rows by label."""
+    gen = torch.Generator().manual_seed(21)
+    rows = {"K4": {}, "K5": {}}
+    for label, shape, cout, prologue in SEARCH_CONVS:
+        line, row = k4_case(label, shape, cout, prologue, dev, gen, mem_bw, bf16_flops)
+        print(line)
+        rows["K4"][label] = {"shape": [*shape[:-1], f"{shape[-1]}->{cout}"], **row}
+    for label, c, heads in SEARCH_ATTN:
+        line, row = k5_case(f"stage 1 {label}", 343, 343, c, heads, (49, 49, 49), dev, gen,
+                            mem_bw, bf16_flops)
+        print(line)
+        rows["K5"][label] = {"shape": [343, 343, c], "heads": heads, **row}
+    return rows
+
+
+def tune_windows(dev, size: int = 64) -> dict:
+    """(a) Each of the 9 swin (feature_size, heads) pairs of the search
+    space, from one seed: a `size`^3 window of two samples (CT, MR) in f32
+    on the card (every kernel launching, K4 on its FMA path: f32 never
+    takes the tensor cores) against the CPU's plain versions
+    (`check_card_logits`); then a bf16 bundle's 96^3 window launching
+    `PER_WINDOW` (the widths change no count), profiled: which K4 kernels
+    ran, by name, under `window_faults` with the FMA path allowed.
+    Returns the K4 kernels of a bf16 window by name, by pair."""
+    from miseg_tpu_torch.models import model_from_config
+    from miseg_tpu_torch.serve import load_bundle, save_bundle
+
+    k4_by_pair = {}
+    for fs in SEARCH_FS:
+        for heads in SEARCH_HEADS:
+            label = f"fs{fs} h{heads}"
+            cfg = search_cfg(fs, heads, roi_x=size, roi_y=size, roi_z=size)
+            cpu = model_from_config(cfg, device="cpu")
+            gen = torch.Generator().manual_seed(22)
+            x = torch.randn((2, size, size, size, 1), generator=gen)
+            mods = torch.tensor([0, 1], dtype=torch.int32)
+            with torch.inference_mode():
+                want = cpu(x, mods)
+            top2 = want.topk(2, dim=-1).values
+            card = model_from_config(cfg, device=dev)
+            card.load_state_dict(cpu.state_dict())
+            reset_launches()
+            with torch.inference_mode():
+                got = card(x.to(dev), mods.to(dev)).cpu()
+            counts = launch_counts()
+            check(all(n > 0 for n in counts.values()),
+                  f"search window {label}: a kernel did not launch: {counts}")
+            words = check_card_logits(f"search window {label}", got, want,
+                                      top2[..., 0] - top2[..., 1])
+            del cpu, card
+            # the served bf16 window at 96^3
+            cfg96 = search_cfg(fs, heads)
+            with tempfile.TemporaryDirectory() as tmp:
+                save_bundle(cfg96, model_from_config(cfg96, device=dev).state_dict(), tmp)
+                served = load_bundle(tmp)
+            window = torch.rand((1, 96, 96, 96, 1), generator=gen).to(dev)
+            served(window, [0])
+            torch.cuda.synchronize()
+            reset_launches()
+            logits = served(window, [1])
+            torch.cuda.synchronize()
+            check(launch_counts() == PER_WINDOW and bool(torch.isfinite(logits).all()),
+                  f"search window {label} bf16 96^3: launched {launch_counts()}, want "
+                  f"{PER_WINDOW}, finite {bool(torch.isfinite(logits).all())}")
+            events = profiled(lambda: served(window, [1]),
+                              lambda ev: not window_faults(ev, 1, k4=None),
+                              lead=lambda: served(window, [1]))
+            faults = window_faults(events, 1, k4=None)
+            check(not faults, f"search window {label} bf16 96^3 profile: " + "; ".join(faults))
+            k4 = {name: sum(name in e.name for e in events) for name in K4_KERNELS}
+            k4 = {name.removeprefix("miseg_k4_"): n for name, n in k4.items() if n}
+            busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+            k4_ms = sum(e.time_range.elapsed_us() for e in events if "miseg_k4_" in e.name) / 1e3
+            k4_by_pair[label] = k4
+            print(f"  search window {label}: {size}^3 f32 card vs CPU {words}; bf16 96^3 "
+                  f"window launches {PER_WINDOW}, K4 kernels {k4}, device busy {busy:.2f} ms "
+                  f"(K4 {k4_ms:.2f})")
+            del served
+    return k4_by_pair
+
+
+def asha_decisions(records: list[dict], min_resource: int, rf: int = 3) -> list[tuple]:
+    """Successive halving's decisions rebuilt from a study journal's
+    reports as they arrived: (trial, step, its best value at the rung, the
+    rung's cutoff, pruned) for every report the pruner ranks (the rule of
+    `hpo.pruners.SuccessiveHalvingPruner`)."""
+    inter: dict[int, dict[int, float]] = {}
+    out = []
+    for r in records:
+        if r["op"] != "report":
+            continue
+        inter.setdefault(r["trial"], {})[r["step"]] = r["value"]
+        if r["step"] + 1 < min_resource:
+            continue
+        rung = 0
+        while min_resource * rf ** (rung + 1) <= r["step"] + 1:
+            rung += 1
+        resource = min_resource * rf ** rung
+        best = {t: max(v for s, v in iv.items() if s + 1 <= resource)
+                for t, iv in inter.items() if any(s + 1 <= resource for s in iv)}
+        if len(best) < rf:
+            continue
+        cutoff = sorted(best.values(), reverse=True)[math.ceil(len(best) / rf) - 1]
+        out.append((r["trial"], r["step"], best[r["trial"]], cutoff,
+                    best[r["trial"]] < cutoff))
+    return out
+
+
+def tune_study(dev, card: str, shape=(192, 192, 160)) -> dict:
+    """(c) `cli.tune.main` on the card: the flagship's norms, 6 classes,
+    96^3 ROI, bf16, warmup_cosine, 4 epochs with a validation each (the
+    pruner's first rung at epoch index 3), 3 trials, then 1 more resumed
+    from the journal, on `phase_fit`'s synthetic set (written once).
+    Checks each trial's params.json against the journal, the widths it
+    ran (its model's parameter count), every kernel launching, device
+    memory back at the study's baseline after each trial, the dashboard's
+    report, and the states against the pruner's rule rebuilt from the
+    journal.  Returns the study's launches."""
+    from miseg_tpu_torch import hpo
+    from miseg_tpu_torch.cli import dashboard
+    from miseg_tpu_torch.cli import tune
+    from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
+    from miseg_tpu_torch.models import model_from_config
+    from miseg_tpu_torch.train import engine
+
+    trials, told = [], []
+    fit, tell = engine.Trainer.fit, hpo.Study.tell
+
+    def recorded_fit(self, data, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        try:
+            return fit(self, data, **kw)
+        finally:
+            torch.cuda.synchronize()
+            trials.append(dict(
+                fs=self.cfg.feature_size_scalar, heads=self.cfg.num_heads,
+                n_params=sum(p.numel() for p in self.model.parameters()),
+                history={k: list(v) for k, v in self.history.items()},
+                fit_s=time.perf_counter() - t0, peak=torch.cuda.max_memory_allocated(),
+                launches={k: n - before[k] for k, n in launch_counts().items()}))
+
+    def recorded_tell(self, trial, value, state="complete"):
+        torch.cuda.synchronize()
+        told.append(dict(number=trial.number, state=state, value=value,
+                         allocated=torch.cuda.memory_allocated()))
+        return tell(self, trial, value, state)
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        make_synthetic_dataset(root, shape=shape, num_classes=6, n_train=2, n_val=1,
+                               n_test=1, spacing=(1.0, 1.0, 1.0), seed=9, suffix=".nii")
+        cfg = search_cfg(48, 3, data_dirs=[str(root)] * 2, json_lists=["CT.json", "MR.json"],
+                         max_epochs=4, check_val_every_n_epoch=1, scheduler="warmup_cosine",
+                         batch_size=1, patches_training_sample=1, num_workers=2, cache_num=8,
+                         n_trials=3, default_root_dir=str(Path(tmp) / "runs"),
+                         study_name="swin_search", seed=0)
+        torch.cuda.synchronize()
+        baseline = torch.cuda.memory_allocated()
+        engine.Trainer.fit, hpo.Study.tell = recorded_fit, recorded_tell
+        reset_launches()
+        try:
+            t0 = time.perf_counter()
+            tune.main(cfg, device=dev)
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            study = tune.main(cfg.replace(n_trials=1), device=dev)
+            resume_s = time.perf_counter() - t0
+        finally:
+            engine.Trainer.fit, hpo.Study.tell = fit, tell
+        launches = launch_counts()
+        storage = Path(cfg.default_root_dir) / f"{cfg.storage_name}.journal.jsonl"
+        records = [json.loads(line) for line in open(storage)]
+        report = dashboard.study_report(str(storage), cfg.study_name)
+        params = {}
+        for r in records:
+            if r["op"] == "param":
+                params.setdefault(r["trial"], {})[r["name"]] = r["value"]
+        on_disk = {n: json.loads((Path(cfg.default_root_dir) / cfg.study_name / str(n)
+                                  / "params.json").read_text()) for n in params}
+
+    # ---- the study, its journal, the dashboard -----------------------------
+    check(len(study.trials) == 4 and len(trials) == 4 and len(told) == 4
+          and sum(r["op"] == "create" for r in records) == 4
+          and sum(r["op"] == "study" for r in records) == 1,
+          f"tune: {len(study.trials)} trials in the resumed study, {len(trials)} fits, "
+          f"{len(told)} told, journal {[r['op'] for r in records if r['op'] != 'report']}")
+    check(on_disk == params == {t.number: t.params for t in study.trials},
+          f"tune: params.json {on_disk} against the journal's {params}")
+    for t, rec in zip(study.trials, trials):
+        want = sum(p.numel() for p in model_from_config(
+            search_cfg(t.params["feature_size"], t.params["num_heads"]),
+            device="meta").parameters())
+        check((rec["fs"], rec["heads"], rec["n_params"])
+              == (t.params["feature_size"], t.params["num_heads"], want),
+              f"tune trial {t.number}: ran fs {rec['fs']} heads {rec['heads']} with "
+              f"{rec['n_params']} parameters; sampled {t.params}, whose model has {want}")
+    check(all(n > 0 for n in launches.values()), f"tune: a kernel never launched: {launches}")
+    leaks = [t["allocated"] - baseline for t in told]
+    check(all(d <= TUNE_MEMORY_MARGIN for d in leaks),
+          f"tune: device memory after each trial minus the baseline {leaks} B > "
+          f"{TUNE_MEMORY_MARGIN} B")
+    best = study.best_trial
+    check(report["n_trials"] == 4 and report["best"] == {
+        "number": best.number, "value": best.value, "params": best.params},
+          f"tune: the dashboard reports {report['n_trials']} trials, best {report['best']}; "
+          f"the study's best is #{best.number}")
+    states = [t.state for t in study.trials]
+    check(set(states) <= {"complete", "pruned"}, f"tune: states {states}")
+    decisions = asha_decisions(records, min_resource=4 * cfg.check_val_every_n_epoch)
+    pruned = {n for n, _, _, _, p in decisions if p}
+    check(pruned == {t.number for t in study.trials if t.state == "pruned"},
+          f"tune: the pruner's rule prunes {sorted(pruned)}, the study pruned "
+          f"{[t.number for t in study.trials if t.state == 'pruned']}")
+    for t, rec, tl in zip(study.trials, trials, told):
+        h = rec["history"]
+        print(f"  trial {t.number}: fs {t.params['feature_size']} heads "
+              f"{t.params['num_heads']} lr {t.params['lr']:.3e} reg_weight "
+              f"{t.params['reg_weight']:.3e} warmup_epochs {t.params['warmup_epochs']}; "
+              f"{rec['n_params']} parameters; best Dice {max(t.intermediate.values()):.4f}, "
+              f"{t.state}; {rec['fit_s']:.2f} s (set-up {sum(h['setup_s']):.2f}, steps "
+              f"{sum(h['epoch_s']):.2f}, validations {sum(h['val_s']):.2f}, checkpoint saves "
+              f"{sum(h['ckpt_s']):.2f}); step {statistics.median(h['step_ms'][1:]):.2f} ms p50 "
+              f"({len(h['step_ms'])} steps); peak {rec['peak'] / 2 ** 30:.2f} GiB; after it "
+              f"{(tl['allocated'] - baseline) / 2 ** 20:+.2f} MiB against the baseline; "
+              f"launches {rec['launches']}")
+    print("  pruner (rung 0 at epoch index 3): " + "; ".join(
+        f"trial {n} step {s}: best {v:.4f} vs cutoff {c:.4f} -> "
+        f"{'pruned' if p else 'kept'}" for n, s, v, c, p in decisions))
+    print(f"tune: cli.tune ran 3 trials in {first_s:.1f} s and resumed 1 more in "
+          f"{resume_s:.1f} s on '{card}' (states {states}, values "
+          f"{[round(t.value, 4) for t in study.trials]}, best #{best.number}); "
+          f"journal, params.json and the dashboard agree; device memory back within "
+          f"{max(leaks) / 2 ** 20:.2f} MiB of the baseline after every trial; launches "
+          f"{launches} ({time.perf_counter() - t_phase:.1f} s)")
+    return launches
+
+
+def phase_tune(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
+    """The hyper-parameter search on the card: (a) `tune_windows`, (b)
+    `tune_kernels`, (c) `tune_study`.  Returns the K4/K5 rows at the new
+    shapes, the bf16 windows' K4 kernels and the study's launches."""
+    t0 = time.perf_counter()
+    k4_by_pair = tune_windows(dev)
+    rows = tune_kernels(dev, mem_bw, bf16_flops)
+    launches = tune_study(dev, card)
+    print(f"tune phase: the search space's 9 widths match the CPU through the kernels, K4's "
+          f"FMA path and K5 at head dims 3/9/18 match their plain versions, and a 3 + 1 trial "
+          f"study ran on the card ({time.perf_counter() - t0:.1f} s)")
+    return {"rows": rows, "k4_by_pair": k4_by_pair, "study": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; chip_smoke.py needs a CUDA card",
@@ -3004,6 +3338,7 @@ def main() -> int:
     unetr = phase_unetr(dev, card, mem_bw, bf16_flops)
     unet = phase_unet(dev, card, mem_bw)
     finetune = phase_finetune(dev, card)
+    tune = phase_tune(dev, card, mem_bw, bf16_flops)
     meta = {
         "K1": ("fused_norm.channel_scale_shift", "cuda",
                "miseg_tpu_torch/ops/kernels/csrc/fused_norm.cu",
@@ -3058,6 +3393,12 @@ def main() -> int:
         check(finetune["train"][key] > 0 and finetune["eval"][key] > 0
               and RECOMPUTE_PER_STEP[key] > 0,
               f"{key} was never launched in the fine-tune's steps, backward or evaluations")
+        check(tune["study"][key] > 0, f"{key} was never launched in the tune study")
+        search = {"launches_study": tune["study"][key]}
+        if key in tune["rows"]:
+            search["search_space_shapes"] = tune["rows"][key]
+        if key == "K4":
+            search["kernels_per_bf16_window"] = tune["k4_by_pair"]
         kernels.append({"name": f"{key} {name}", "route": route, "source": source,
                         "replaces": replaces, "launches": launches[key], **rows[key],
                         "train": {"launches_per_step": train[key],
@@ -3078,7 +3419,8 @@ def main() -> int:
                         "finetune": {"launches_forward_per_step": PER_WINDOW[key],
                                      "launches_recompute_per_step": RECOMPUTE_PER_STEP[key],
                                      "fit_launches_train_steps": finetune["train"][key],
-                                     "fit_launches_evaluate": finetune["eval"][key]}})
+                                     "fit_launches_evaluate": finetune["eval"][key]},
+                        "tune": search})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,10 @@ The bundle (`serve.save_bundle`) holds the weights in the compute dtype
 and the meta the server needs, spacing included.  With `--export_check`
 the loaded bundle's window forward is held against the live f32 model
 (rtol = atol = 2e-2, as in the JAX package).  The JAX package's
-platforms, volume programs and baked programs have no counterpart here.
+platforms, volume programs and baked programs have no counterpart here:
+`--export_platforms` must keep JAX's default (which this export does not
+read), and `--export_volume_shapes` / `--export_bake_params` must stay
+unset, else it raises `NotImplementedError` (ROADMAP M12).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import Config, require_ported
 from ..models import model_from_config
 from ..serve import load_bundle, save_bundle
 from ..train.checkpoint import load_any_checkpoint_params
@@ -28,9 +31,10 @@ from . import parse_args
 def main(cfg: Config | None = None, *, device=None) -> str:
     if cfg is None:
         cfg, device = parse_args()
+    require_ported(cfg, "M12", "cli.export")
     if not (cfg.ckpt_path or cfg.pretrained):
         raise ValueError("provide --ckpt_path (or --pretrained) to export")
-    device = resolve_device(device)
+    device = resolve_device(device, no_gpu=cfg.no_gpu)
     model = model_from_config(cfg, device=device)
     params = load_any_checkpoint_params(cfg.ckpt_path or cfg.pretrained,
                                         model.state_dict(), model_name=cfg.model_name)

@@ -1,9 +1,24 @@
-"""Configuration: the slice of `miseg_tpu.config.Config` the port reads.
+"""Configuration: every field of `miseg_tpu.config.Config`.
 
-Field names and defaults are those of the JAX package (config.py:25-204),
-so a config written for one builds the same model in the other.
-`build_parser()` generates the command line from the fields, as the JAX
-package's does (same flag names).
+Field names, types and defaults are those of the JAX package
+(config.py:25-204), so `Config(**dataclasses.asdict(jax_cfg))` holds any
+JAX config and builds the same model.  `build_parser()` generates the
+command line from the fields, as the JAX package's does: the same flags,
+and the same argv parses to equal configs in both.
+
+Fields whose feature the port has not got raise rather than go unread:
+`require_ported(cfg, item, entry)` raises `NotImplementedError` naming
+the ROADMAP item when one of `NOT_PORTED[item]` differs from JAX's
+default.  The `Trainer` asks it for M11 (the mesh, FSDP, spatial, tensor
+and pipeline parallelism; a mesh of `[-1]` or `[1]` is one card and
+passes) and `cli.export` for M12 (the export platforms, volume programs
+and baked parameters).
+
+`no_gpu` is the reference's flag for a CPU run (its tune group).  The
+JAX package accepts it and never reads it, since a JAX process takes its
+platform from `JAX_PLATFORMS`; here it selects the CPU exactly as
+`--device cpu` does, and beside a CUDA device it raises
+(`utils.platform.requested_device`).
 """
 
 from __future__ import annotations
@@ -95,6 +110,7 @@ class Config:
     project: str | None = None
     entity: str | None = None
     wandb_mode: str = "online"
+    source: int | None = None          # the reference's adversarial stub: unread here and in JAX
     alpha_reversal: float = 1.0        # the ViT head's gradient reversal (config.py:109)
     # --- data (config.py:111-125) ---
     data_dirs: list[str] = _lst("dataset/MM-WHS", "dataset/MM-WHS")
@@ -113,21 +129,43 @@ class Config:
     batch_size: int = 1
     num_workers: int = 8
     # --- train (config.py:128-141) ---
-    study_name: str = "experiment"
+    study_name: str = "experiment"     # the run's directory; cli.tune's study
+    n_trials: int | None = None        # cli.tune: trials to run (None: until the timeout)
+    timeout: int | None = None         # cli.tune: seconds after which no trial starts
     max_epochs: int = 2
     check_val_every_n_epoch: int = 1
+    no_gpu: bool = False               # run on the CPU (as --device cpu)
     auto_scale_batch_size: bool = False  # double the batch until a step runs out of memory
     iters_to_accumulate: int = 1
     default_root_dir: str = "./experiments"
+    port: str = "23456"                # the reference's DDP master port: unread here and in JAX
+    storage_name: str = "MI-Seg"       # cli.tune's journal, <default_root_dir>/<name>.journal.jsonl
     min_lr: float = 1e-5               # find_best_lr's sweep
     max_lr: float = 5e-3
     # --- precision / seed ---
     no_amp: bool = False
     precision: str = "bf16"
     seed: int = 0
-    # --- export (config.py:153,155) ---
+    # --- parallelism (config.py:145-152): not ported, ROADMAP M11 ---
+    mesh_shape: list[int] = _lst(-1)
+    mesh_axes: list[str] = _lst("data")
+    fsdp: bool = False
+    fsdp_axis: str = "data"
+    fsdp_min_size: int = 8192
+    spatial_shard: bool = False
+    spatial_axis: str = "sp"
+    tensor_parallel: bool = False
+    tp_axis: str = "model"
+    pipeline_parallel: bool = False
+    pp_axis: str = "pp"
+    pp_microbatches: int = 2
+    # --- export (config.py:153-166); platforms, volume programs and baked
+    # parameters are not ported, ROADMAP M12 ---
     export_dir: str = "./export_bundle"
+    export_platforms: list[str] = _lst("tpu", "cpu")
     export_check: bool = False
+    export_volume_shapes: list[str] = _lst()
+    export_bake_params: bool = False
     profile_dir: str | None = None     # torch.profiler trace of the second epoch
     log_every_n_steps: int = 10
 
@@ -162,6 +200,33 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+# JAX's fields whose feature the port has not got, with JAX's defaults, by
+# the ROADMAP item that would port it
+NOT_PORTED = {
+    "M11": {"mesh_shape": [-1], "mesh_axes": ["data"], "fsdp": False, "fsdp_axis": "data",
+            "fsdp_min_size": 8192, "spatial_shard": False, "spatial_axis": "sp",
+            "tensor_parallel": False, "tp_axis": "model", "pipeline_parallel": False,
+            "pp_axis": "pp", "pp_microbatches": 2},
+    "M12": {"export_platforms": ["tpu", "cpu"], "export_volume_shapes": [],
+            "export_bake_params": False},
+}
+
+
+def require_ported(cfg: Config, item: str, entry: str) -> None:
+    """Raise `NotImplementedError` from `entry` when a field of
+    `NOT_PORTED[item]` differs from JAX's default (a mesh of `[1]`, one
+    device, passes as `[-1]` does)."""
+    def value(name):
+        v = getattr(cfg, name)
+        return list(v) if isinstance(v, tuple) else v
+
+    bad = [f"{name}={value(name)!r}" for name, default in NOT_PORTED[item].items()
+           if value(name) != default and not (name == "mesh_shape" and value(name) == [1])]
+    if bad:
+        raise NotImplementedError(f"{entry}: {', '.join(bad)} is not ported to "
+                                  f"miseg_tpu_torch (ROADMAP {item}); leave JAX's default")
 
 
 def _scalar_or_list(v):

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import Config
+from ..config import Config, require_ported
 from ..inferers import SlidingWindowInferer, window_starts
 from ..losses import loss_from_config
 from ..metrics import (dice_score_labels, metric_by_modality, nanmean_valid,
@@ -118,13 +118,15 @@ class Trainer:
     def __init__(self, cfg: Config, model: nn.Module | None = None, *, device=None,
                  fused_conv: bool = True, workdir: str | None = None,
                  logger: MetricLogger | None = None):
-        """`cfg`'s model on `device` (the CUDA card unless given), or
-        `model` as it is; `fused_conv` selects the conv blocks' path of a
-        model built here.  Metrics go to `logger`, by default a
-        `MetricLogger` over `workdir` (default `cfg.default_root_dir`)
-        opened at the first record."""
+        """`cfg`'s model on `device` (the CUDA card unless given; the CPU
+        under `cfg.no_gpu`), or `model` as it is; `fused_conv` selects the
+        conv blocks' path of a model built here.  Metrics go to `logger`,
+        by default a `MetricLogger` over `workdir` (default
+        `cfg.default_root_dir`) opened at the first record.  The mesh and
+        the parallelism fields must hold JAX's defaults (ROADMAP M11)."""
+        require_ported(cfg, "M11", "Trainer")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, no_gpu=cfg.no_gpu)
         self.model = model if model is not None else model_from_config(
             cfg, device=self.device, fused_conv=fused_conv)
         self.model.train()

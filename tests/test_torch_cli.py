@@ -1,7 +1,12 @@
 """The port's entry points on the CPU: `cli.predict_whs.main` against the
 JAX package's `main` over a two-scan synthetic datalist, `cli.export.main`
 (checkpoint -> bundle, the bundle's forward against the live model), the
-checkpoint format, and the command line generated from `Config`.
+checkpoint format, and the command line generated from `Config`: the
+same flags and defaults as JAX's, any JAX config converting, the same
+argv (a JAX `tune` command line among them) parsing to equal configs,
+`--no_gpu` as `--device cpu`, and every field whose feature is not
+ported raising `NotImplementedError` at its entry point (`Trainer`,
+`cli.export`) unless it holds JAX's default.
 
 Model: `swin_unetr` at feature_size 12, 32^3 ROI, f32, 4 classes, JAX
 parameters seeded from numpy, saved as a JAX checkpoint for JAX's `main`
@@ -12,6 +17,7 @@ JAX's own f32 logits sit ~1e-4 from float64 (see
 `test_torch_serve_http.py`).  Affines and file names are exact.
 """
 
+import dataclasses
 import json
 import os
 
@@ -29,7 +35,7 @@ from miseg_tpu.models import model_from_config as jax_model_from_config
 from miseg_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
 from miseg_tpu.train.engine import Trainer as JTrainer
 from miseg_tpu_torch.cli import export, parse_args, predict_whs
-from miseg_tpu_torch.config import Config, build_parser, parse_config
+from miseg_tpu_torch.config import NOT_PORTED, Config, build_parser, parse_config
 from miseg_tpu_torch.data.multi_modal import eval_transforms
 from miseg_tpu_torch.data.nifti import load_nifti
 from miseg_tpu_torch.models import model_from_config
@@ -227,13 +233,16 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(params, dataset, tmp_
 
 
 def test_command_line_matches_jax_flags():
-    """Every port field is a flag of the JAX command line with the same
-    default, and the generated parser reads lists, bools, None-typed and
-    float fields as JAX's does."""
+    """The port's command line has exactly the JAX package's flags with the
+    same defaults, the generated parser reads lists, bools, None-typed and
+    float fields as JAX's does, and any JAX config converts."""
     ours = {a.dest: a.default for a in build_parser()._actions if a.dest != "help"}
     theirs = {a.dest: a.default for a in jax_build_parser()._actions if a.dest != "help"}
-    assert ours.keys() <= theirs.keys()
-    assert {k: theirs[k] for k in ours} == ours
+    assert ours.keys() == theirs.keys()
+    assert ours == theirs
+    assert dataclasses.asdict(Config(**dataclasses.asdict(JConfig()))) == dataclasses.asdict(
+        JConfig())
+    assert Config() == Config(**dataclasses.asdict(JConfig()))
     argv = ["--model_name", "swin_unetr", "--feature_size", "48", "--space_x", "1.5",
             "--json_lists", "CT_test.json", "--ckpt_path", "best.pt", "--export_check",
             "--no_amp"]
@@ -242,8 +251,85 @@ def test_command_line_matches_jax_flags():
     assert cfg.json_lists == ["CT_test.json"] and cfg.ckpt_path == "best.pt"
     assert cfg.export_check and not cfg.amp
     jcfg = JConfig(**{k: v for k, v in vars(jax_build_parser().parse_args(argv)).items()})
-    assert all(getattr(jcfg, k) == v for k, v in cfg.to_dict().items())
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     cfg2, device = parse_args(argv + ["--device", "cpu"])
     assert cfg2 == cfg and device == "cpu"
     assert cfg.replace(seed=4).seed == 4 and Config.from_args(
         build_parser().parse_args(argv)) == cfg
+
+
+def test_jax_tune_command_line_parses_alike():
+    """A JAX `tune` command line (the reference's tune group) parses to an
+    equal config in both packages, and the port's converts to JAX's."""
+    argv = ["--model_name", "swin_unetr", "--n_trials", "40", "--timeout", "3600",
+            "--storage_name", "study-db", "--port", "29500", "--no_gpu", "--source", "1",
+            "--study_name", "swin", "--mesh_shape", "1", "--export_platforms", "cpu"]
+    cfg = parse_config(argv)
+    jcfg = JConfig(**vars(jax_build_parser().parse_args(argv)))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert (cfg.n_trials, cfg.timeout, cfg.storage_name, cfg.port, cfg.no_gpu,
+            cfg.source) == (40, 3600, "study-db", "29500", True, 1)
+    assert dataclasses.asdict(JConfig(**dataclasses.asdict(cfg))) == dataclasses.asdict(cfg)
+
+
+def test_no_gpu_selects_the_cpu(monkeypatch):
+    """`--no_gpu` is `--device cpu`; beside a CUDA device it raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, device = parse_args(["--no_gpu"])
+    assert cfg.no_gpu and device == "cpu"
+    assert parse_args(["--no_gpu", "--device", "cpu"])[1] == "cpu"
+    with pytest.raises(ValueError, match="no_gpu"):
+        parse_args(["--no_gpu", "--device", "cuda"])
+    with pytest.raises(ValueError, match="no_gpu"):
+        parse_args(["--no_gpu", "--device", "cuda:0"])
+    assert parse_args([])[1] is None   # the card, resolved by the entry point
+    trainer = Trainer(Config(**CFG, no_gpu=True))
+    assert trainer.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="no_gpu"):
+        Trainer(Config(**CFG, no_gpu=True), device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(Config(**CFG))
+
+
+# a value other than JAX's default for every field the port has not got
+NOT_PORTED_VALUES = {
+    "mesh_shape": [2, 4], "mesh_axes": ["data", "model"], "fsdp": True, "fsdp_axis": "fsdp",
+    "fsdp_min_size": 1024, "spatial_shard": True, "spatial_axis": "space",
+    "tensor_parallel": True, "tp_axis": "tp", "pipeline_parallel": True, "pp_axis": "stage",
+    "pp_microbatches": 4, "export_platforms": ["cpu"],
+    "export_volume_shapes": ["224x224x224"], "export_bake_params": True,
+}
+
+
+def test_not_ported_fields_cover_jax_defaults():
+    """`NOT_PORTED` holds JAX's defaults, and the values above differ."""
+    jax_defaults = dataclasses.asdict(JConfig())
+    merged = {**NOT_PORTED["M11"], **NOT_PORTED["M12"]}
+    assert merged == {k: jax_defaults[k] for k in merged}
+    assert sorted(merged) == sorted(NOT_PORTED_VALUES)
+    assert all(NOT_PORTED_VALUES[k] != v for k, v in merged.items())
+
+
+@pytest.mark.parametrize("field", sorted(NOT_PORTED["M11"]))
+def test_trainer_raises_on_parallelism(field):
+    with pytest.raises(NotImplementedError, match=rf"Trainer: {field}=.*ROADMAP M11"):
+        Trainer(Config(**CFG, **{field: NOT_PORTED_VALUES[field]}), device="cpu")
+
+
+def test_trainer_takes_jax_parallelism_defaults():
+    """JAX's defaults, and a one-device mesh, build the trainer."""
+    for mesh in ([-1], [1]):
+        cfg = Config(**{**CFG, **NOT_PORTED["M11"], "mesh_shape": mesh})
+        assert Trainer(cfg, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("field", sorted(NOT_PORTED["M12"]))
+def test_export_raises_on_jax_export_options(params, tmp_path, field):
+    path = tmp_path / "best.pt"
+    ckpt.save_checkpoint(path, params=state_dict_from_jax(params))
+    cfg = Config(**CFG, ckpt_path=str(path), export_dir=str(tmp_path / "bundle"),
+                 **{field: NOT_PORTED_VALUES[field]})
+    with pytest.raises(NotImplementedError, match=rf"cli.export: {field}=.*ROADMAP M12"):
+        export.main(cfg, device="cpu")
+    assert not (tmp_path / "bundle").exists()
+    assert export.main(cfg.replace(**{field: NOT_PORTED["M12"][field]}), device="cpu")

@@ -273,6 +273,19 @@ _ATTN = {
     "hd24_n100": (3, 100, 72, 3, None),
     "hd40_n64": (5, 64, 80, 2, None),
     "hd64_n8": (4, 8, 128, 2, None),
+    # the hyper-parameter search's swin widths (fs 12/24/36, heads 2/3/4):
+    # head dims 3, 4, 9, 12 and 18 (9 and 18 on the scalar load path, 18
+    # padded to 32), each over 343-token windows with ids and over 27
+    "hd3_ids": (16, 343, 12, 4, ((14, 14, 14), (7, 7, 7), (3, 3, 3))),
+    "hd3_n27": (16, 27, 12, 4, ((6, 6, 6), (3, 3, 3), (1, 1, 1))),
+    "hd4_ids": (16, 343, 12, 3, ((14, 14, 14), (7, 7, 7), (3, 3, 3))),
+    "hd4_n27": (16, 27, 12, 3, ((6, 6, 6), (3, 3, 3), (1, 1, 1))),
+    "hd9_ids": (16, 343, 36, 4, ((14, 14, 14), (7, 7, 7), (3, 3, 3))),
+    "hd9_n27": (16, 27, 36, 4, ((6, 6, 6), (3, 3, 3), (1, 1, 1))),
+    "hd12_ids": (16, 343, 36, 3, ((14, 14, 14), (7, 7, 7), (3, 3, 3))),
+    "hd12_n27": (16, 27, 24, 2, ((6, 6, 6), (3, 3, 3), (1, 1, 1))),
+    "hd18_ids": (16, 343, 36, 2, ((14, 14, 14), (7, 7, 7), (3, 3, 3))),
+    "hd18_n27": (16, 27, 36, 2, ((6, 6, 6), (3, 3, 3), (1, 1, 1))),
 }
 
 
@@ -515,6 +528,52 @@ def test_k4_cin1_call_is_one_kernel(dev, gen, case, dtype, kernel):
     x, w, kw = _conv_operands(gen, dev, dtype, shape, cout, "none")
     names = _k4_call_kernels(x, w, kw, kernel)
     assert len(names) == 1 and kernel in names[0], names
+
+
+# K4 at the hyper-parameter search's swin widths (fs 12/24/36: channels
+# 12, 24, 36 and 72 are not multiples of 16), at cut spatial sizes and at
+# the widths' own 24^3 and 12^3: (x shape, Cout).  No tensor-core path
+# takes them, so bf16 runs the FMA kernel too (with its split-K reduce
+# where the call splits K)
+_CONV_FMA = {
+    "fs12_12_to12": ((1, 16, 16, 32, 12), 12),
+    "fs36_36_to36": ((1, 16, 16, 32, 36), 36),
+    "fs12_cin1_to12": ((1, 8, 8, 32, 1), 12),
+    "fs36_72_to72": ((1, 12, 12, 12, 72), 72),
+    "fs24_24_to24": ((1, 24, 24, 24, 24), 24),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_CONV_FMA))
+def test_k4_search_space_widths_take_fma(dev, gen, case, dtype):
+    """y and the columns as `test_k4_matches_plain` holds them (with the
+    prologue, but at Cin = 1), and the call's K4 device kernels: the FMA
+    kernel, then the split-K reduce when the planner splits K."""
+    shape, cout = _CONV_FMA[case]
+    b, z, y_, x_, cin = shape
+    x, w, kw = _conv_operands(gen, dev, dtype, shape, cout,
+                              "none" if cin == 1 else "affine_leaky")
+    y, sc, sh = fused_conv.conv3_norm_columns(x, w, **kw)
+    ref = fused_conv.conv3_norm_columns_plain(x, w, **kw)[0]
+    torch.cuda.synchronize()
+    assert _err(y, ref) <= _tol(ref, dtype)
+    rs, rh = fused_norm.channel_scale_shift_plain(
+        y.reshape(b, -1, cout), kw["gamma"], kw["beta"], kw["styles"])
+    assert _err(sc, rs) <= 1e-5 * (1 + float(rs.abs().max()))
+    assert _err(sh, rh) <= 1e-5 * (1 + float(rh.abs().max()))
+    splits = fused_conv._entry()[1](b, z, y_, x_, cin, cout, 1 if dtype == torch.bfloat16 else 0)
+    want = ["miseg_k4_conv_fma"] + ["miseg_k4_splitk_reduce"] * (splits > 1)
+
+    def ok(names):
+        return len(names) == len(want) and all(k in n for k, n in zip(want, names))
+
+    fused_conv.conv3_norm_columns(x, w, **kw)
+    torch.cuda.synchronize()
+    names = [n for n in _device_kernels(
+        lambda: fused_conv.conv3_norm_columns(x, w, **kw),
+        lambda names: ok([n for n in names if "miseg_k4_" in n])) if "miseg_k4_" in n]
+    assert ok(names), (names, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1084,3 +1143,50 @@ def test_recompute_reuses_counters_and_packed_weights(dev, monkeypatch):
     for ptr, out in packs:
         assert out is not first[ptr]
         assert torch.equal(out, params[ptr].detach().permute(2, 3, 4, 1, 0))
+
+
+# the device memory a trial may leave allocated: what a first trial makes
+# once and keeps (32 MiB on an NVIDIA H100 80GB HBM3 when nothing ran
+# before; not traced)
+TUNE_MEMORY_MARGIN = 64 << 20
+
+
+def test_tune_frees_each_trial_on_the_card(dev, tmp_path):
+    """`cli.tune.main` of two bf16 trials (the swin search space, 32^3, one
+    epoch each) on the card: each trial launches K1-K5, and after each the
+    allocated device memory is back at its level before the study, within
+    TUNE_MEMORY_MARGIN."""
+    from miseg_tpu_torch import hpo
+    from miseg_tpu_torch.cli import tune
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
+    data = tmp_path / "data"
+    make_synthetic_dataset(data, shape=(32, 32, 32), num_classes=4, n_train=1, n_val=1,
+                           n_test=1, spacing=(1.0, 1.0, 1.0), seed=6)
+    cfg = Config(model_name="swin_unetr", out_channels=4, roi_x=32, roi_y=32, roi_z=32,
+                 encoder_norm_name="instance_cond", vit_norm_name="instance_cond",
+                 decoder_norm_name="instance", data_dirs=[str(data)] * 2,
+                 json_lists=["CT.json", "MR.json"], max_epochs=1, n_trials=2, num_workers=0,
+                 cache_num=4, default_root_dir=str(tmp_path / "runs"), study_name="card")
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated(dev)
+    after, launched = [], []
+    tell = hpo.Study.tell
+
+    def counting_tell(self, trial, value, state="complete"):
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated(dev))
+        launched.append(_launches())
+        _reset_launches()
+        return tell(self, trial, value, state)
+
+    _reset_launches()
+    hpo.Study.tell = counting_tell
+    try:
+        study = tune.main(cfg, device=dev)
+    finally:
+        hpo.Study.tell = tell
+    assert [t.state for t in study.trials] == ["complete", "complete"]
+    assert all(all(n > 0 for n in counts.values()) for counts in launched), launched
+    assert all(a - baseline <= TUNE_MEMORY_MARGIN for a in after), (baseline, after)
+
