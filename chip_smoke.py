@@ -134,15 +134,24 @@ Phases, one result line each; any failed check exits non-zero:
                memory fraction; a 12-step lr sweep.
  11. tune    — the hyper-parameter search (`cli.tune`) over the swin
                search space (feature_size 12/24/36 x heads 2/3/4, whose
-               channels the tensor cores do not take): (a) each of the 9
-               pairs from one seed, a 64^3 f32 window card vs CPU (K1-K5
-               launching, K4 on its FMA path), then a bf16 bundle's 96^3
-               window launching `PER_WINDOW`, profiled: its K4 kernels by
-               name, with the FMA kernel and its split-K reduce allowed;
-               (b) K4 at 96^3 x 12 -> 12, 96^3 x 36 -> 36, the Cin = 1
-               call to 12, 48^3 x 24 -> 24 and 24^3 x 72 -> 72, and K5 at
-               stage 1 with head dims 3, 9 and 18, against their plain
-               versions, timed against `F.conv3d` / SDPA and their bounds;
+               channels 12, 24, 36 and 72 the tensor-core kernels take
+               padded to 16 in shared memory): (a) each of the 9 pairs
+               from one seed, a 64^3 f32 window card vs CPU (K1-K5
+               launching, K4 on its FMA path: f32 never takes TF32), then
+               a bf16 bundle's 96^3 window launching `PER_WINDOW`,
+               profiled, which fails unless its 20 K4 kernels are 12
+               coarse, one Cin = 1 and the rest brick (`WINDOW_K4`, as the
+               flagship's; no FMA kernel, no split-K reduce), with its
+               busy and K4 device time; (b) K4 at 96^3 x 12 -> 12, 96^3 x
+               36 -> 36, the Cin = 1 call to 12, 48^3 x 24 -> 24, 24^3 x
+               72 -> 72 and the decoder's mixed 96^3 x 24 -> 12, 96^3 x
+               48 -> 24, 96^3 x 72 -> 36 and 24^3 x 144 -> 72 in bf16
+               (a repeat bit-identical), each launching its
+               tensor-core kernel by name; K4's FMA kernel in f32 at
+               96^3 x 12 -> 12 and 96^3 x 48 -> 48 timed against
+               `F.conv3d` in f32 with TF32 off; and K5 at stage 1 with
+               head dims 3, 9 and 18; all against their plain versions,
+               timed against `F.conv3d` / SDPA and their bounds;
                (c) `cli.tune.main` of 3 trials (4 epochs, a validation
                each, warmup_cosine, bf16) on `phase_fit`'s data set, then
                a 1-trial resume of its journal: params.json against the
@@ -293,6 +302,8 @@ L2_FLUSH_BYTES = 128 << 20
 # (memory B/s, dense bf16 FLOP/s) from NVIDIA's data sheets
 PEAKS = {"PCIe": (2.0e12, 756e12), "NVL": (3.9e12, 835e12),
          "SXM": (3.35e12, 989e12)}
+# f32 FLOP/s outside the tensor cores, from the same data sheets
+F32_PEAKS = {"PCIe": 51e12, "NVL": 60e12, "SXM": 67e12}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -300,11 +311,13 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"FAIL: {msg}")
 
 
+def card_key(name: str) -> str:
+    return next((key for key in ("PCIe", "NVL") if key in name), "SXM")
+
+
 def card_peaks(name: str) -> tuple[float, float, str]:
-    for key in ("PCIe", "NVL"):
-        if key in name:
-            return (*PEAKS[key], f"H100 {key}")
-    return (*PEAKS["SXM"], "H100 SXM")
+    key = card_key(name)
+    return (*PEAKS[key], f"H100 {key}")
 
 
 def l2_flush(dev):
@@ -378,9 +391,9 @@ def device_ms(fn, match: str | None = None, reps: int = 10, flush=None) -> float
     """Device time of one call of `fn` in ms: the summed duration of its
     kernels (only those whose names hold `match`, if given; `match` leaves
     out the kernel of `flush`, which runs before each call) under
-    torch.profiler, averaged over `reps` calls.  None where no session
-    recorded at least `reps` such kernels: a sum over fewer calls is no
-    time of one."""
+    torch.profiler, averaged over `reps` calls that follow a lead call of
+    `fn` (`profiled`).  None where no session recorded at least `reps`
+    such kernels: a sum over fewer calls is no time of one."""
     fn()
     torch.cuda.synchronize()
 
@@ -393,7 +406,7 @@ def device_ms(fn, match: str | None = None, reps: int = 10, flush=None) -> float
                 flush()
             fn()
 
-    events = matching(profiled(calls, lambda ev: len(matching(ev)) >= reps))
+    events = matching(profiled(calls, lambda ev: len(matching(ev)) >= reps, lead=fn))
     if len(events) < reps:
         return None
     return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
@@ -664,13 +677,40 @@ def k3_case(shape, dev, gen, mem_bw: float, flush, note: str = ""):
     return line + timed, row
 
 
+def k4_kernel_names(call, calls: int = 5, sessions: int = 5) -> list[str]:
+    """The names of the K4 device kernels torch.profiler records over
+    `calls` calls of `call` (after a lead call, `profiled`), in every
+    session of up to `sessions` until one records a kernel a call: the
+    profiler now and then loses a session's kernels, so one session that
+    saw none proves nothing, while a wrong kernel in any session is a
+    wrong route."""
+    def run():
+        for _ in range(calls):
+            call()
+
+    names = []
+    for _ in range(sessions):
+        seen = [e.name for e in profiled(run, lambda ev: True, attempts=1, lead=call)
+                if "miseg_k4_" in e.name]
+        names += seen
+        if len(seen) == calls:
+            break
+    return names
+
+
 def k4_case(label: str, shape, cout: int, prologue: bool, dev, gen, mem_bw: float,
-            bf16_flops: float):
+            bf16_flops: float, timed=torch.bfloat16, kernel: str | None = None,
+            flops_peak: float | None = None):
     """K4 at x `shape` -> `cout` (with norm1's columns + leaky on read when
     `prologue`) against its plain version in bf16 and f32, its output and
-    its epilogue's columns; in bf16 its CUDA-event and device times, the
-    plain version's and `F.conv3d`'s beside its bound.  Returns (the
-    lines, the bf16 `kernels` row)."""
+    its epilogue's columns; in the `timed` dtype its CUDA-event and device
+    times, the plain version's and `F.conv3d`'s (in f32 with TF32 off, as
+    `main` sets it) beside its bound, whose operations count at
+    `flops_peak` (default `bf16_flops`).  With `kernel`, every K4 device
+    kernel the timed call launches must hold it in its name
+    (`k4_kernel_names`).  Returns
+    (the lines, the timed dtype's `kernels` row).  With `kernel`, a
+    repeated call must also be bit-identical."""
     import torch.nn.functional as F
 
     from miseg_tpu_torch.ops.kernels import fused_conv as fc
@@ -702,8 +742,16 @@ def k4_case(label: str, shape, cout: int, prologue: bool, dev, gen, mem_bw: floa
         check(ec <= 1e-5, f"K4 {label} {dtype}: columns rel err {ec:.2e} > 1e-5")
         lines.append(f"  K4 {label} {list(shape)}->{cout} {str(dtype)[6:]}: err {e:.3e} "
                      f"(tol {tol:.3e}), columns rel err {ec:.2e} (tol 1e-05)")
-        if dtype != torch.bfloat16:
+        if dtype != timed:
             continue
+        names = None
+        if kernel is not None:
+            names = k4_kernel_names(lambda: fc.conv3_norm_columns(x, w, **kw))
+            check(bool(names) and all(kernel in n for n in names),
+                  f"K4 {label} {dtype}: launched {sorted(set(names))}, want only {kernel}")
+            again = fc.conv3_norm_columns(x, w, **kw)
+            check(all(torch.equal(a, c) for a, c in zip((y, sc, sh), again)),
+                  f"K4 {label} {dtype}: a repeated call is not bit-identical")
         k4 = time_ms(lambda: fc.conv3_norm_columns(x, w, **kw))
         plain = time_ms(lambda: fc.conv3_norm_columns_plain(x, w, **kw), reps=5)
         xcf = x.permute(0, 4, 1, 2, 3)   # channels_last_3d, as the unfused path
@@ -716,8 +764,11 @@ def k4_case(label: str, shape, cout: int, prologue: bool, dev, gen, mem_bw: floa
                   + 2 * b * cin * 4 * prologue + 2 * b * cout * 4
                   + 2 * kw["gamma"].numel() * x.element_size())
         flops = 2 * b * s_vox * 27 * cin * cout
-        bound = max(nbytes / mem_bw, flops / bf16_flops) * 1e3
-        by = "bytes" if nbytes / mem_bw >= flops / bf16_flops else "operations"
+        peak = bf16_flops if flops_peak is None else flops_peak
+        bound = max(nbytes / mem_bw, flops / peak) * 1e3
+        by = "bytes" if nbytes / mem_bw >= flops / peak else "operations"
+        if names is not None:
+            lines.append(f"    {str(dtype)[6:]} kernel: {names[0][:90]}")
         lines.append(f"    times ms: K4 {k4:.4f} (bound {bound:.4f} by {by}: "
                      f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
                      f"{flops / k4 / 1e9:.1f} TFLOP/s), plain {plain:.4f}, "
@@ -726,6 +777,8 @@ def k4_case(label: str, shape, cout: int, prologue: bool, dev, gen, mem_bw: floa
                      f"{fmt_ms(dev_call)}), F.conv3d {fmt_ms(dev_lib)}")
         row = dict(ms=k4, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
                    max_abs_err=e, device_ms=dev_k4, library_device_ms=dev_lib)
+        if names is not None:
+            row["kernel"] = names[0]
     return "\n".join(lines), row
 
 
@@ -1107,35 +1160,29 @@ K4_KERNELS = ("miseg_k4_conv_brick", "miseg_k4_conv_coarse", "miseg_k4_conv_cin1
               "miseg_k4_conv_fma", "miseg_k4_splitk_reduce")
 
 
-def window_faults(kernels, reps: int, per: dict = PER_WINDOW, k4: dict | None = WINDOW_K4
+def window_faults(kernels, reps: int, per: dict = PER_WINDOW, k4: dict = WINDOW_K4
                   ) -> list[str]:
     """What is wrong with the device kernels of `reps` bf16 96^3 windows of
     a model that launches `per` (the launch counters' keys) a window, `k4`
     of its K4 launches taking the coarse and the Cin = 1 kernel: every bf16
     conv is one K4 kernel, every K1 call and every fold one CUDA K1 kernel,
     every K2, K3 and K5 call one CUDA kernel (the K2/K3 templates' `<...>`
-    is in their names only), and no retired kernel.  With `k4` None (the
-    search space's widths, whose channels the tensor cores do not take)
-    K4's FMA kernel and its split-K reduce are expected: then every conv
-    is one K4 kernel besides the reduces, and the paths are not counted."""
+    is in their names only), and no retired kernel (nor K4's FMA kernel or
+    its split-K reduce, which no bf16 window of a supported model takes:
+    the search space's widths are padded onto the tensor cores)."""
     if not kernels:
         return ["the profiler recorded no device events"]
     faults = []
     retired = sorted({e.name for e in kernels if any(k in e.name for k in (
         "miseg_k4_conv_wmma", "miseg_k1_stats_partial", "miseg_k1_stats_merge",
-        "miseg_k1_stats_fold") + (("miseg_k4_splitk_reduce", "miseg_k4_conv_fma")
-                                  if k4 is not None else ()))})
+        "miseg_k1_stats_fold", "miseg_k4_splitk_reduce", "miseg_k4_conv_fma"))})
     if retired:
         faults.append(f"the bf16 window launched {retired}")
-    k4_names = [e.name for e in kernels if "miseg_k4_" in e.name
-                and "miseg_k4_splitk_reduce" not in e.name]
+    k4_names = [e.name for e in kernels if "miseg_k4_" in e.name]
     coarse = sum("miseg_k4_conv_coarse" in n for n in k4_names)
     cin1 = sum("miseg_k4_conv_cin1" in n for n in k4_names)
-    if k4 is None:
-        if len(k4_names) != per["K4"] * reps:
-            faults.append(f"{len(k4_names) / reps} K4 conv kernels a window; want {per['K4']}")
-    elif not (len(k4_names) == per["K4"] * reps and coarse == k4["coarse"] * reps
-              and cin1 == k4["cin1"] * reps):
+    if not (len(k4_names) == per["K4"] * reps and coarse == k4["coarse"] * reps
+            and cin1 == k4["cin1"] * reps):
         faults.append(f"{len(k4_names) / reps} K4 kernels a window, {coarse / reps} coarse, "
                       f"{cin1 / reps} Cin = 1; want {per['K4']}, {k4['coarse']} and "
                       f"{k4['cin1']}")
@@ -3034,14 +3081,27 @@ def phase_finetune(dev, card: str, shape=(192, 192, 160)) -> dict:
 # the hyper-parameter search's swin widths (miseg_tpu_torch/cli/tune.py
 # `set_trial_config`, as the JAX package's and the reference's)
 SEARCH_FS, SEARCH_HEADS = (12, 24, 36), (2, 3, 4)
-# K4 at the search space's conv shapes that no tensor-core path takes
-# (channels 12, 24, 36, 72): (label, x shape, Cout, prologue)
+# K4 at the search space's conv shapes whose channels (12, 24, 36, 72) are
+# no multiple of 16, which the tensor-core kernels pad to 16 in shared
+# memory, with the decoder's mixed widths (the concatenation before
+# decoder1..3): (label, x shape, Cout, prologue, bf16 kernel)
 SEARCH_CONVS = [
-    ("fs12 encoder1/decoder1 conv2", (1, 96, 96, 96, 12), 12, True),
-    ("fs36 encoder1/decoder1 conv2", (1, 96, 96, 96, 36), 36, True),
-    ("fs12 encoder1 conv1 (Cin = 1)", (1, 96, 96, 96, 1), 12, False),
-    ("fs24 encoder2/decoder2 conv2", (1, 48, 48, 48, 24), 24, True),
-    ("fs36 encoder3/decoder3 conv2", (1, 24, 24, 24, 72), 72, True),
+    ("fs12 encoder1/decoder1 conv2", (1, 96, 96, 96, 12), 12, True, "miseg_k4_conv_brick"),
+    ("fs36 encoder1/decoder1 conv2", (1, 96, 96, 96, 36), 36, True, "miseg_k4_conv_brick"),
+    ("fs12 encoder1 conv1 (Cin = 1)", (1, 96, 96, 96, 1), 12, False, "miseg_k4_conv_cin1"),
+    ("fs24 encoder2/decoder2 conv2", (1, 48, 48, 48, 24), 24, True, "miseg_k4_conv_brick"),
+    ("fs36 encoder3/decoder3 conv2", (1, 24, 24, 24, 72), 72, True, "miseg_k4_conv_coarse"),
+    ("fs12 decoder1 conv1", (1, 96, 96, 96, 24), 12, False, "miseg_k4_conv_brick"),
+    ("fs24 decoder1 conv1", (1, 96, 96, 96, 48), 24, False, "miseg_k4_conv_brick"),
+    ("fs36 decoder1 conv1", (1, 96, 96, 96, 72), 36, False, "miseg_k4_conv_brick"),
+    ("fs36 decoder3 conv1", (1, 24, 24, 24, 144), 72, False, "miseg_k4_conv_coarse"),
+]
+# K4's FMA kernel, which f32 takes at every width (never TF32), at the
+# search space's and the flagship's widest 96^3 conv: (label, x shape,
+# Cout, prologue); `F.conv3d` beside it runs in f32 with TF32 off
+FMA_F32_CONVS = [
+    ("f32 fs12 encoder1/decoder1 conv2", (1, 96, 96, 96, 12), 12, True),
+    ("f32 fs48 encoder1/decoder1 conv2", (1, 96, 96, 96, 48), 48, True),
 ]
 # K5 at stage 1 of a 96^3 window at the search space's new head dims
 # (fs / heads: 12/4 = 3, 36/4 = 9, 36/2 = 18): (label, channels, heads)
@@ -3057,17 +3117,24 @@ def search_cfg(fs: int, heads: int, **kw):
     return Config(**{**FLAGSHIP, "feature_size": [fs], "num_heads": heads, **kw})
 
 
-def tune_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
-    """(b) K4 at `SEARCH_CONVS` and K5 at `SEARCH_ATTN` against their plain
-    versions in bf16 and f32, with times beside their bounds (K4 against
-    `F.conv3d`, device time too; K5 against SDPA).  Returns their bf16
-    rows by label."""
+def tune_kernels(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
+    """(b) K4 at `SEARCH_CONVS` (bf16, each on its tensor-core kernel by
+    name) and `FMA_F32_CONVS` (f32, the FMA kernel) and K5 at `SEARCH_ATTN`
+    against their plain versions in bf16 and f32, with times beside their
+    bounds (K4 against `F.conv3d`, device time too; K5 against SDPA).
+    Returns their timed rows by label."""
     gen = torch.Generator().manual_seed(21)
     rows = {"K4": {}, "K5": {}}
-    for label, shape, cout, prologue in SEARCH_CONVS:
-        line, row = k4_case(label, shape, cout, prologue, dev, gen, mem_bw, bf16_flops)
+    convs = [(*c, torch.bfloat16) for c in SEARCH_CONVS]
+    convs += [(*c, "miseg_k4_conv_fma", torch.float32) for c in FMA_F32_CONVS]
+    for label, shape, cout, prologue, kernel, dtype in convs:
+        line, row = k4_case(label, shape, cout, prologue, dev, gen, mem_bw, bf16_flops,
+                            timed=dtype, kernel=kernel,
+                            flops_peak=F32_PEAKS[card_key(card)] if dtype == torch.float32
+                            else None)
         print(line)
-        rows["K4"][label] = {"shape": [*shape[:-1], f"{shape[-1]}->{cout}"], **row}
+        rows["K4"][label] = {"shape": [*shape[:-1], f"{shape[-1]}->{cout}"],
+                             "dtype": str(dtype)[6:], **row}
     for label, c, heads in SEARCH_ATTN:
         line, row = k5_case(f"stage 1 {label}", 343, 343, c, heads, (49, 49, 49), dev, gen,
                             mem_bw, bf16_flops)
@@ -3082,9 +3149,11 @@ def tune_windows(dev, size: int = 64) -> dict:
     on the card (every kernel launching, K4 on its FMA path: f32 never
     takes the tensor cores) against the CPU's plain versions
     (`check_card_logits`); then a bf16 bundle's 96^3 window launching
-    `PER_WINDOW` (the widths change no count), profiled: which K4 kernels
-    ran, by name, under `window_faults` with the FMA path allowed.
-    Returns the K4 kernels of a bf16 window by name, by pair."""
+    `PER_WINDOW` (the widths change no count), profiled under
+    `window_faults` with `WINDOW_K4`: the padded widths run the
+    flagship's K4 kernels (12 coarse, one Cin = 1, the rest brick), no
+    FMA kernel or split-K reduce.  Returns, by pair, the K4 kernels of a
+    bf16 window by name and its device busy and K4 ms."""
     from miseg_tpu_torch.models import model_from_config
     from miseg_tpu_torch.serve import load_bundle, save_bundle
 
@@ -3126,15 +3195,15 @@ def tune_windows(dev, size: int = 64) -> dict:
                   f"search window {label} bf16 96^3: launched {launch_counts()}, want "
                   f"{PER_WINDOW}, finite {bool(torch.isfinite(logits).all())}")
             events = profiled(lambda: served(window, [1]),
-                              lambda ev: not window_faults(ev, 1, k4=None),
+                              lambda ev: not window_faults(ev, 1),
                               lead=lambda: served(window, [1]))
-            faults = window_faults(events, 1, k4=None)
+            faults = window_faults(events, 1)
             check(not faults, f"search window {label} bf16 96^3 profile: " + "; ".join(faults))
             k4 = {name: sum(name in e.name for e in events) for name in K4_KERNELS}
             k4 = {name.removeprefix("miseg_k4_"): n for name, n in k4.items() if n}
             busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
             k4_ms = sum(e.time_range.elapsed_us() for e in events if "miseg_k4_" in e.name) / 1e3
-            k4_by_pair[label] = k4
+            k4_by_pair[label] = {"kernels": k4, "busy_ms": busy, "k4_ms": k4_ms}
             print(f"  search window {label}: {size}^3 f32 card vs CPU {words}; bf16 96^3 "
                   f"window launches {PER_WINDOW}, K4 kernels {k4}, device busy {busy:.2f} ms "
                   f"(K4 {k4_ms:.2f})")
@@ -3308,11 +3377,12 @@ def phase_tune(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
     shapes, the bf16 windows' K4 kernels and the study's launches."""
     t0 = time.perf_counter()
     k4_by_pair = tune_windows(dev)
-    rows = tune_kernels(dev, mem_bw, bf16_flops)
+    rows = tune_kernels(dev, card, mem_bw, bf16_flops)
     launches = tune_study(dev, card)
-    print(f"tune phase: the search space's 9 widths match the CPU through the kernels, K4's "
-          f"FMA path and K5 at head dims 3/9/18 match their plain versions, and a 3 + 1 trial "
-          f"study ran on the card ({time.perf_counter() - t0:.1f} s)")
+    print(f"tune phase: the search space's 9 widths match the CPU through the kernels, their "
+          f"bf16 windows run K4 on the tensor cores, K4 at the search widths (bf16, tensor "
+          f"cores; f32, FMA) and K5 at head dims 3/9/18 match their plain versions, and a 3 + 1 "
+          f"trial study ran on the card ({time.perf_counter() - t0:.1f} s)")
     return {"rows": rows, "k4_by_pair": k4_by_pair, "study": launches}
 
 

@@ -31,9 +31,26 @@
 // cut that to 9, and the transform still cost about as much as the MMAs.
 //
 // Design.  Implicit GEMM: M = output voxels, N = Cout in blocks, K =
-// 27*Cin.  Four paths:
-//   * bf16 with Cin, Cout multiples of 16 and a volume that 4x4x16 bricks
-//     divide (the 96^3 and 48^3 levels): miseg_k4_conv_brick.  A CTA owns
+// 27*Cin.  Four paths.  The three tensor-core paths take bf16 with Cin and
+// Cout multiples of 4 (or Cin = 1): channels that are no multiple of 16
+// (the search space's 12, 24, 36, 72) are padded in shared memory only.
+// Cin goes up to a multiple of the chunk KC (the last chunk partly
+// padded), Cout to a multiple of 16 with the fewest column blocks; the
+// planner weighs the padded MMAs against the work each chunk and each
+// column block repeats (pad_cin, pad_cout): 12 -> 16, 24 -> 32, 36 -> 48,
+// 72 -> 96.
+// The x halo's copies zero-fill the channels >= Cin: rows of 12 or 36
+// bf16 channels (24, 72 bytes) are only 8-byte aligned, so they move in
+// 8-byte cp.async copies, 16-byte ones where Cin % 8 == 0; the copy width
+// is a template parameter, and Cin % 16 == 0 keeps today's copies.  The
+// staged prologue columns are 0 past Cin, so a padded channel stays 0
+// through leaky(0 * 0 + 0).  The packed weights arrive padded, zero rows
+// ci >= Cin and zero columns co >= Cout (the wrapper's cached copy, its
+// widths from miseg_fused_conv3_weight_widths).  y and the statistics
+// partials keep the real Cout: the epilogue stores and folds only columns
+// < Cout, 8 bytes at a time where Cout % 8 != 0.
+//   * a volume that 4x4x16 bricks divide (the 96^3 and 48^3 levels):
+//     miseg_k4_conv_brick.  A CTA owns
 //     one brick (256 voxels) and 16*NF output channels.  Per chunk of KC
 //     input channels it copies the brick's 6x6x18 input halo once with
 //     cp.async (zero fill outside the volume), transforms it once in shared
@@ -48,7 +65,7 @@
 //     48) a CTA takes 105 KB, two per SM, so one CTA's halo copy and
 //     transform overlap the other's MMAs.  The
 //     statistics tile is the brick.
-//   * the other bf16 calls with Cin, Cout multiples of 16 whose volume
+//   * the other calls whose volume
 //     4x4x4 bricks divide (24^3, 12^3) or whose sample holds at most 256
 //     voxels (6^3, 3^3): miseg_k4_conv_coarse, the brick path's scheme
 //     on a box tile, the 4x4x4 brick or the whole sample.  A CTA stages
@@ -65,8 +82,8 @@
 //     sums to its own and goes on; the root runs the epilogue.  No float
 //     atomics, and a commutative add per node: a repeated call is
 //     bit-identical.
-//   * bf16 with Cin = 1 (encoder1's first conv), Cout % 16 == 0 and a
-//     volume that 4x4x16 bricks divide: miseg_k4_conv_cin1.  The reduction
+//   * Cin = 1 (encoder1's first conv) on a volume that 4x4x16 bricks
+//     divide: miseg_k4_conv_cin1.  The reduction
 //     is the 27 taps alone, so the call is bound by its y write (85 MB at
 //     96^3 -> 48, 25 us).  A CTA keeps the [32, BN] weight slice (taps
 //     zero-padded to K = 32) in registers as B fragments and walks bricks:
@@ -76,16 +93,18 @@
 //     k-steps of mma.sync per fragment; the next brick's halo loads are in
 //     flight meanwhile.  Its epilogue is its own, lean on shared memory
 //     (see the kernel).  The statistics tile is the brick.
-//   * f32, any channel count that is not a multiple of 16 (Cin = 1 in
-//     f32 or on volumes no brick divides), and bf16 volumes that neither
-//     brick divides and that hold more than 256 voxels (none in the
-//     flagship at a ROI that is a multiple of 32): CUDA cores in f32 FMA
-//     (never TF32), a 128 x 64 tile
-//     with 8 x 4 outputs per thread, K in chunks of 16 with any (tap,
-//     channel) split, double-buffered through registers.  Few tiles split
-//     K: each split writes its f32 partial sums to a workspace and a
-//     second kernel adds the splits in a fixed order before the same
-//     epilogue.  The brick path never splits.
+//   * f32 at any width, bf16 with a Cin or Cout that is no multiple of 4
+//     (Cin = 1 aside), and bf16 volumes that neither brick divides and
+//     that hold more than 256 voxels (none in the flagship or the search
+//     space at a ROI that is a multiple of 32): miseg_k4_conv_fma, CUDA
+//     cores in f32 FMA (never TF32).  A CTA computes 128 voxels by BN
+//     columns, BN the least of 16, 32 and 64 that covers Cout (64 above
+//     it), 256 threads of 4 columns by 128*BN/1024 rows; K in chunks of
+//     16 with any (tap, channel) split, double-buffered through
+//     registers.  Few tiles split K: each split writes its f32 partial
+//     sums to a workspace and a second kernel, on the same column block,
+//     adds the splits in a fixed order before the same epilogue.  The
+//     brick path never splits.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -101,7 +120,6 @@ using miseg::mma_bf16;
 
 constexpr int kTile = 128;      // voxels per tile; only a sample's last is short
 constexpr int kThreads = 256;   // CUDA-core path and split-K reduce: 8 warps
-constexpr int kFmaBn = 64;     // CUDA-core path and split-K reduce: channels per CTA
 constexpr int kFmaKc = 16;     // CUDA-core path: K per step
 constexpr int kFmaRowPad = kTile + 4;
 constexpr int kMaxSplits = 32;
@@ -109,16 +127,17 @@ constexpr int kMinStepsPerSplit = 8;
 
 struct Args {
   const void* x;        // [B, Z, Y, X, cin], T
-  const void* w;        // [27, cin, cout], T
+  const void* w;        // [27, wcin, wcout], T: zero past cin, cout
   const float* scale;   // [B, cin] or null
   const float* shift;   // [B, cin] or null
   float slope;
   int leaky;
   void* y;              // [B, Z, Y, X, cout], T
   float* part;          // [2, n_parts, cout]: (mean, M2) per tile
-  float* work;          // [splits, n_parts * tile voxels, cout] partial sums, or null
+  float* work;          // [splits, n_parts * tile voxels, wcout] partial sums, or null
   int* counters;        // coarse path: arrival count per (tile, N block), all 0
   int Z, Y, X, cin, cout, n_tiles, splits, nsteps;
+  int wcin, wcout;      // the padded widths of w (cin, cout on the CUDA-core path)
   int S;                // voxels per sample
   long long n_parts;    // B * n_tiles
   int tz, ty, tx;       // coarse path: the box tile
@@ -177,6 +196,50 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(s), "l"(src), "r"(fill ? 16 : 0));  // 0: zero-fill
 }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(s), "l"(src), "r"(fill ? 8 : 0));  // 0: zero-fill
+}
+
+// How the tensor-core paths copy 8 channels c .. c + 7 of voxel m (-1:
+// outside the volume) of the x halo, by the template parameter HC:
+// kWholeChunks, one 16-byte copy where Cin % 16 == 0 and every KC-channel
+// chunk is real; 8, one 16-byte copy where Cin % 8 == 0 and the last chunk
+// is padded; 4, two 8-byte copies where Cin % 4 == 0 (its rows are only
+// 8-byte aligned).  Padded channels, like voxels outside the volume, are
+// zero-filled.  A thread copies whole 8-channel groups, the unit the
+// transform takes, so it transforms only what its own copies brought.
+constexpr int kWholeChunks = 0;
+
+template <int HC>
+__device__ __forceinline__ void copy_halo8(__nv_bfloat16* dst, const __nv_bfloat16* x,
+                                           int m, int c, int cin) {
+  if constexpr (HC == kWholeChunks) {
+    cp_async16(dst, m >= 0 ? x + (long long)m * cin + c : x, m >= 0);
+  } else if constexpr (HC == 8) {
+    const bool in = m >= 0 && c < cin;
+    cp_async16(dst, in ? x + (long long)m * cin + c : x, in);
+  } else {
+#pragma unroll
+    for (int h = 0; h < 8; h += 4) {
+      const bool in = m >= 0 && c + h < cin;
+      cp_async8(dst + h, in ? x + (long long)m * cin + c + h : x, in);
+    }
+  }
+}
+
+// The prologue's columns of sample b in shared memory, 0 from cin up to
+// wcin: a padded channel, zero-filled, stays 0 through the transform.
+__device__ __forceinline__ void stage_columns(const Args& a, int b, float* ssc, float* ssh,
+                                             int threads) {
+  for (int c = threadIdx.x; c < a.wcin; c += threads) {
+    const bool real = c < a.cin;
+    ssc[c] = real ? a.scale[(long long)b * a.cin + c] : 0.0f;
+    ssh[c] = real ? a.shift[(long long)b * a.cin + c] : 0.0f;
+  }
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -233,38 +296,52 @@ __device__ __forceinline__ void split_range(const Args& a, int& begin, int& end)
   end = min(a.nsteps, begin + per);
 }
 
+// V channels a thread: rounds the tile's f32 sums (rows < nvalid, columns
+// < ncols) to T in place and stores them to y with one vector store of
+// V * sizeof(T) bytes (16 or 32; 8 where Cout % 8 != 0), or one at a time.
+template <typename T, int V, typename VoxelOf>
+__device__ __forceinline__ void store_rows(const Args& a, const Tile& t, float* Cs, int ldc,
+                                           int ncols, int n0, VoxelOf voxel) {
+  T* y = static_cast<T*>(a.y);
+  const long long row0 = (long long)t.b * a.S;
+  const int groups = ncols / V;
+  for (int e = threadIdx.x; e < t.nvalid * groups; e += blockDim.x) {
+    const int r = e / groups, c = (e - r * groups) * V;
+    float* src = Cs + r * ldc + c;
+    __align__(16) T v[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      v[k] = from_f32<T>(src[k]);
+      src[k] = to_f32(v[k]);
+    }
+    T* dst = y + (row0 + voxel(r)) * a.cout + n0 + c;
+    if constexpr (sizeof(v) % 16 == 0) {
+#pragma unroll
+      for (int k = 0; k < (int)sizeof(v) / 16; ++k)
+        reinterpret_cast<uint4*>(dst)[k] = reinterpret_cast<const uint4*>(v)[k];
+    } else if constexpr (sizeof(v) == 8) {
+      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(v);
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k) dst[k] = v[k];
+    }
+  }
+}
+
 // Epilogue.  Cs holds the f32 sums of the tile, [tile][ldc]; rows >=
-// nvalid and columns >= ncols are ignored; row r is voxel voxel(r) of the
-// sample.  Rounds to T, stores y, then takes the per-channel (mean, M2) of
-// the rounded values two-pass: one warp per column, lanes over rows.
+// nvalid and columns >= ncols (a padded Cout's, or past the last block's
+// Cout) are ignored; row r is voxel voxel(r) of the sample.  Rounds to T,
+// stores y, then takes the per-channel (mean, M2) of the rounded values
+// two-pass: a thread per column, over the rows.
 template <typename T, typename VoxelOf>
 __device__ void epilogue(const Args& a, const Tile& t, float* Cs, int ldc, int ncols,
                          int n0, VoxelOf voxel) {
-  T* y = static_cast<T*>(a.y);
-  const long long row0 = (long long)t.b * a.S;
-  if (ncols % 8 == 0 && a.cout % 8 == 0) {   // 8 channels a thread, one vector store
-    const int groups = ncols / 8;
-    for (int e = threadIdx.x; e < t.nvalid * groups; e += blockDim.x) {
-      const int r = e / groups, c = (e - r * groups) * 8;
-      float* src = Cs + r * ldc + c;
-      __align__(16) T v[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        v[k] = from_f32<T>(src[k]);
-        src[k] = to_f32(v[k]);
-      }
-      uint4* dst = reinterpret_cast<uint4*>(y + (row0 + voxel(r)) * a.cout + n0 + c);
-#pragma unroll
-      for (int k = 0; k < (int)sizeof(v) / 16; ++k) dst[k] = reinterpret_cast<const uint4*>(v)[k];
-    }
-  } else {
-    for (int e = threadIdx.x; e < t.nvalid * ncols; e += blockDim.x) {
-      const int r = e / ncols, c = e - r * ncols;
-      const T v = from_f32<T>(Cs[r * ldc + c]);
-      y[(row0 + voxel(r)) * a.cout + n0 + c] = v;
-      Cs[r * ldc + c] = to_f32(v);
-    }
-  }
+  if (ncols % 8 == 0 && a.cout % 8 == 0)
+    store_rows<T, 8>(a, t, Cs, ldc, ncols, n0, voxel);
+  else if (ncols % 4 == 0 && a.cout % 4 == 0)
+    store_rows<T, 4>(a, t, Cs, ldc, ncols, n0, voxel);
+  else
+    store_rows<T, 1>(a, t, Cs, ldc, ncols, n0, voxel);
   __syncthreads();
   // a thread per column, each pass in four interleaved partial sums (a
   // fixed order): neighbouring threads read neighbouring banks, and the
@@ -307,8 +384,9 @@ __device__ __forceinline__ float* work_at(const Args& a, const Tile& t, int r, i
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores, by brick: Cin % KC == 0, Cout % (16 * NF) == 0,
-// and the volume divides into 4 x 4 x 16 bricks (z, y, x).  A CTA owns one
+// bf16 on the tensor cores, by brick: wcin % KC == 0, wcout % (16 * NF) ==
+// 0 (the padded widths; HC says how the halo is copied), and the volume
+// divides into 4 x 4 x 16 bricks (z, y, x).  A CTA owns one
 // brick (256 output voxels) and BN output channels.  Per KC-channel chunk
 // it copies the brick's input halo, 6 x 6 x 18 voxels, once (cp.async,
 // zero fill outside the volume), transforms it once in shared memory (the
@@ -335,7 +413,7 @@ struct BrickShape {
   static constexpr int STAGE = kBrickTaps * KC * BNP;   // bf16 per ring stage
   static constexpr size_t RING = (size_t)kBrickStages * STAGE * sizeof(__nv_bfloat16);
   static constexpr size_t CS = (size_t)kBrick * LDC * sizeof(float);
-  static constexpr size_t BYTES = HALO + RING > CS ? HALO + RING : CS;  // + 2*cin floats
+  static constexpr size_t BYTES = HALO + RING > CS ? HALO + RING : CS;  // + 2*wcin floats
 };
 
 // The voxel of row r of a brick: rows run x fastest, then y, then z.
@@ -357,7 +435,7 @@ __device__ __forceinline__ int brick_halo_voxel(const Args& a, const BrickRows& 
   return in ? (zz * a.Y + yy) * a.X + xx : -1;
 }
 
-template <int NF, int KC>
+template <int NF, int KC, int HC>
 __global__ void __launch_bounds__(kBrickThreads, 2)
 miseg_k4_conv_brick(Args a) {
   using Sh = BrickShape<NF, KC>;
@@ -369,7 +447,7 @@ miseg_k4_conv_brick(Args a) {
   __nv_bfloat16* Hs = reinterpret_cast<__nv_bfloat16*>(smem);    // [kHalo][KCP]
   __nv_bfloat16* Ws = Hs + kHalo * KCP;                           // [S][taps][KC][BNP]
   float* ssc = reinterpret_cast<float*>(smem + Sh::BYTES);
-  float* ssh = ssc + a.cin;
+  float* ssh = ssc + a.wcin;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   Tile t;
@@ -381,24 +459,19 @@ miseg_k4_conv_brick(Args a) {
   const BrickRows rows{t.tile / (nbx * nby) * kBrickZ, t.tile / nbx % nby * kBrickY,
                        t.tile % nbx * kBrickX, a.Y, a.X};
   const int n0 = blockIdx.y * BN;
-  const int cin = a.cin, cout = a.cout;
+  const int cin = a.cin, wcin = a.wcin, wcout = a.wcout;
   const bool affine = a.scale != nullptr, leaky = a.leaky != 0;
   const bool transform = affine || leaky;
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x) + (long long)t.b * a.S * cin;
   const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
 
-  if (affine)
-    for (int c = tid; c < cin; c += kBrickThreads) {
-      ssc[c] = a.scale[(long long)t.b * cin + c];
-      ssh[c] = a.shift[(long long)t.b * cin + c];
-    }
+  if (affine) stage_columns(a, t.b, ssc, ssh, kBrickThreads);
 
   auto issue_halo = [&](int c0) {
     for (int v = tid; v < H_VECS; v += kBrickThreads) {
       const int hv = v / SEGS, seg = v - hv * SEGS;
-      const int m = brick_halo_voxel(a, rows, hv);
-      cp_async16(Hs + hv * KCP + seg * 8,
-                 m >= 0 ? x + (long long)m * cin + c0 + seg * 8 : x, m >= 0);
+      copy_halo8<HC>(Hs + hv * KCP + seg * 8, x, brick_halo_voxel(a, rows, hv), c0 + seg * 8,
+                     cin);
     }
   };
   // ring stage sg holds the KC x BN weight slices of taps sg*kBrickTaps ..
@@ -408,7 +481,7 @@ miseg_k4_conv_brick(Args a) {
       const int k = v / B_SEGS, seg = v - k * B_SEGS;
       const int tap = sg * kBrickTaps + k / KC, kk = k % KC;
       cp_async16(B + k * BNP + seg * 8,
-                 w + (long long)(tap * cin + c0 + kk) * cout + n0 + seg * 8, true);
+                 w + (long long)(tap * wcin + c0 + kk) * wcout + n0 + seg * 8, true);
     }
   };
 
@@ -431,7 +504,7 @@ miseg_k4_conv_brick(Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 
-  for (int c0 = 0; c0 < cin; c0 += KC) {
+  for (int c0 = 0; c0 < wcin; c0 += KC) {
     // the columns are staged; every warp left the last chunk's halo and ring
     __syncthreads();
     issue_halo(c0);
@@ -495,12 +568,13 @@ miseg_k4_conv_brick(Args a) {
           make_float2(acc[i][j][2], acc[i][j][3]);
     }
   __syncthreads();
-  epilogue<__nv_bfloat16>(a, t, Cs, Sh::LDC, BN, n0, rows);
+  epilogue<__nv_bfloat16>(a, t, Cs, Sh::LDC, min(BN, a.cout - n0), n0, rows);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores, by box, for the coarse levels: Cin % KC == 0,
-// Cout % BN == 0, and a box tile of tz x ty x tx voxels (a 4x4x4 brick
+// bf16 on the tensor cores, by box, for the coarse levels: wcin % KC == 0,
+// wcout % BN == 0 (the padded widths, HC as the brick path's), and a box
+// tile of tz x ty x tx voxels (a 4x4x4 brick
 // that divides the volume, or the whole sample of at most kBoxMaxRows
 // voxels).  A CTA owns one box (rows padded to 16-row fragments) and BN
 // output channels, and the K units [u_begin, u_end) of its split.  A unit
@@ -558,7 +632,7 @@ struct BoxRows {
   }
 };
 
-template <int NFW, int KC, int WN>
+template <int NFW, int KC, int WN, int HC>
 __global__ void __launch_bounds__(kBoxThreads, 2)
 miseg_k4_conv_coarse(Args a) {
   using Sh = BoxShape<NFW, KC, WN>;
@@ -573,7 +647,7 @@ miseg_k4_conv_coarse(Args a) {
   __nv_bfloat16* Hs = reinterpret_cast<__nv_bfloat16*>(smem);   // [2][HV][KCP]
   __nv_bfloat16* Ws = Hs + 2 * HV * KCP;                         // [S][3][KC][BNP]
   float* ssc = reinterpret_cast<float*>(smem + a.smem_main);
-  float* ssh = ssc + a.cin;
+  float* ssh = ssc + a.wcin;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = warp % WM, wn = warp / WM;
@@ -586,7 +660,7 @@ miseg_k4_conv_coarse(Args a) {
   const BoxRows box{t.tile / (nbx * nby) * tz, t.tile / nbx % nby * ty, t.tile % nbx * tx,
                     ty, tx, a.Y, a.X};
   const int n0 = blockIdx.y * BN;
-  const int cin = a.cin, cout = a.cout;
+  const int cin = a.cin, wcin = a.wcin, wcout = a.wcout;
   const bool affine = a.scale != nullptr, leaky = a.leaky != 0;
   const bool transform = affine || leaky;
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x) + (long long)t.b * a.S * cin;
@@ -594,11 +668,7 @@ miseg_k4_conv_coarse(Args a) {
   const int per = (a.nsteps + a.splits - 1) / a.splits;
   const int u_begin = blockIdx.z * per, n = min(a.nsteps, u_begin + per) - u_begin;
 
-  if (affine)
-    for (int c = tid; c < cin; c += kBoxThreads) {
-      ssc[c] = a.scale[(long long)t.b * cin + c];
-      ssh[c] = a.shift[(long long)t.b * cin + c];
-    }
+  if (affine) stage_columns(a, t.b, ssc, ssh, kBoxThreads);
   __syncthreads();   // the columns are staged before the first transform
 
   // halo voxel hv -> its flat voxel index, or -1 outside the volume
@@ -617,9 +687,7 @@ miseg_k4_conv_coarse(Args a) {
       __nv_bfloat16* H = Hs + (chunk & 1) * HV * KCP;
       for (int v = tid; v < H_VECS; v += kBoxThreads) {
         const int hv = v / SEGS, seg = v - hv * SEGS;
-        const int m = halo_voxel(hv);
-        cp_async16(H + hv * KCP + seg * 8,
-                   m >= 0 ? x + (long long)m * cin + c0 + seg * 8 : x, m >= 0);
+        copy_halo8<HC>(H + hv * KCP + seg * 8, x, halo_voxel(hv), c0 + seg * 8, cin);
       }
     }
     __nv_bfloat16* B = Ws + (k % S) * Sh::STAGE;
@@ -628,7 +696,7 @@ miseg_k4_conv_coarse(Args a) {
       const int kr = v / B_SEGS, seg = v - kr * B_SEGS;
       const int tap = tap0 + kr / KC, kk = kr % KC;
       cp_async16(B + kr * BNP + seg * 8,
-                 w + (long long)(tap * cin + c0 + kk) * cout + n0 + seg * 8, true);
+                 w + (long long)(tap * wcin + c0 + kk) * wcout + n0 + seg * 8, true);
     }
   };
 
@@ -723,8 +791,8 @@ miseg_k4_conv_coarse(Args a) {
         }
   };
   if (a.splits > 1) {
-    const long long split_stride = a.n_parts * rows * cout;
-    float* slots = a.work + t.tile_global * rows * cout + n0;   // + first split * split_stride
+    const long long split_stride = a.n_parts * rows * wcout;
+    float* slots = a.work + t.tile_global * rows * wcout + n0;   // + first split * split_stride
     int* counters = a.counters + (t.tile_global * gridDim.y + blockIdx.y) * a.tree;
     int node = blockIdx.z, width = 1, count = a.splits;   // node covers splits node*width ..
     for (int level = 0; count > 1; ++level) {
@@ -732,7 +800,7 @@ miseg_k4_conv_coarse(Args a) {
       if (partner < count) {
         float* mine = slots + (long long)node * width * split_stride;
         each_pair([&](int r, int c, float& v0, float& v1) {
-          *reinterpret_cast<float2*>(mine + (long long)r * cout + c) = make_float2(v0, v1);
+          *reinterpret_cast<float2*>(mine + (long long)r * wcout + c) = make_float2(v0, v1);
         });
         __threadfence();   // the sums are visible device-wide before the arrival
         __syncthreads();
@@ -757,7 +825,7 @@ miseg_k4_conv_coarse(Args a) {
             for (int h = 0; h < 2; ++h) {
               const int r = (wm + i * WM) * 16 + g + 8 * h, c = wn * NFW * 16 + j * 8 + 2 * tq;
               p[j][h] = r < rows ? __ldcg(reinterpret_cast<const float2*>(
-                                       theirs + (long long)r * cout + c))
+                                       theirs + (long long)r * wcout + c))
                                  : make_float2(0.f, 0.f);
             }
 #pragma unroll
@@ -780,12 +848,14 @@ miseg_k4_conv_coarse(Args a) {
     *reinterpret_cast<float2*>(Cs + r * Sh::LDC + c) = make_float2(v0, v1);
   });
   __syncthreads();
-  epilogue<__nv_bfloat16>(a, t, Cs, Sh::LDC, BN, n0, box);
+  epilogue<__nv_bfloat16>(a, t, Cs, Sh::LDC, min(BN, a.cout - n0), n0, box);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 Cin = 1 on the tensor cores, by brick: Cout % (16 * NF) == 0 and the
-// volume divides into 4 x 4 x 16 bricks.  A CTA owns BN output channels and
+// bf16 Cin = 1 on the tensor cores, by brick: wcout % (16 * NF) == 0 (Cout
+// padded to 16, the packed weights' columns past Cout zero; y and the
+// statistics take the real columns alone) and the volume divides into 4 x
+// 4 x 16 bricks.  A CTA owns BN output channels and
 // walks bricks blockIdx.x, + gridDim.x, ...; its B fragments (the [32, BN]
 // weight slice, taps 27..31 zero) stay in registers for every brick.  Per
 // brick it stores the 6 x 6 x 18 one-channel halo, fetched into registers
@@ -844,10 +914,11 @@ miseg_k4_conv_cin1(Args a) {
   const bool affine = a.scale != nullptr, leaky = a.leaky != 0;
   const bool transform = affine || leaky;
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);   // [B, S] (cin = 1)
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);   // [27, cout]
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);   // [27, wcout]
   __nv_bfloat16* y = static_cast<__nv_bfloat16*>(a.y);
   const __nv_bfloat16 zero = __float2bfloat16(0.0f);
   const int n_tiles = a.n_tiles, n_parts = (int)a.n_parts;   // the bricks of all samples
+  const int ncols = min(BN, a.cout - n0);                      // the real ones of BN
   const int nbx = a.X / kBrickX, nby = a.Y / kBrickY;
   auto brick_rows = [&](int tile) {
     return BrickRows{tile / (nbx * nby) * kBrickZ, tile / nbx % nby * kBrickY,
@@ -856,7 +927,7 @@ miseg_k4_conv_cin1(Args a) {
 
   for (int i = tid; i < kCin1K * BN; i += kBrickThreads) {
     const int k = i / BN, n = i - k * BN;
-    Ws[k * BNP + n] = k < 27 ? w[(long long)k * a.cout + n0 + n] : zero;
+    Ws[k * BNP + n] = k < 27 ? w[(long long)k * a.wcout + n0 + n] : zero;
   }
   __syncthreads();
   uint32_t bfr[2][NF][4];   // [k-step][16 columns]
@@ -955,11 +1026,27 @@ miseg_k4_conv_cin1(Args a) {
     }
     __syncthreads();
     // y, 16 bytes at a time
-    constexpr int CHUNKS = BN / 8;
-    for (int e = tid; e < kBrick * CHUNKS; e += kBrickThreads) {
-      const int r = e / CHUNKS, k = e - r * CHUNKS;
-      *reinterpret_cast<uint4*>(y + ((long long)b * a.S + rows(r)) * a.cout + n0 + k * 8) =
-          *reinterpret_cast<const uint4*>(Ys + r * YP + k * 8);
+    if (ncols == BN) {
+      constexpr int CHUNKS = BN / 8;
+      for (int e = tid; e < kBrick * CHUNKS; e += kBrickThreads) {
+        const int r = e / CHUNKS, k = e - r * CHUNKS;
+        *reinterpret_cast<uint4*>(y + ((long long)b * a.S + rows(r)) * a.cout + n0 + k * 8) =
+            *reinterpret_cast<const uint4*>(Ys + r * YP + k * 8);
+      }
+    } else if (ncols % 8 == 0 && a.cout % 8 == 0) {   // a padded Cout's real columns
+      const int chunks = ncols / 8;
+      for (int e = tid; e < kBrick * chunks; e += kBrickThreads) {
+        const int r = e / chunks, k = e - r * chunks;
+        *reinterpret_cast<uint4*>(y + ((long long)b * a.S + rows(r)) * a.cout + n0 + k * 8) =
+            *reinterpret_cast<const uint4*>(Ys + r * YP + k * 8);
+      }
+    } else {   // 8 bytes at a time: rows of Cout % 8 == 4 are only 8-byte aligned
+      const int chunks = ncols / 4;
+      for (int e = tid; e < kBrick * chunks; e += kBrickThreads) {
+        const int r = e / chunks, k = e - r * chunks;
+        *reinterpret_cast<uint2*>(y + ((long long)b * a.S + rows(r)) * a.cout + n0 + k * 4) =
+            *reinterpret_cast<const uint2*>(Ys + r * YP + k * 4);
+      }
     }
     // the statistics: two passes over this thread's rows of a column pair
     if (ss < SLICES) {
@@ -986,7 +1073,7 @@ miseg_k4_conv_cin1(Args a) {
       st_m2[ss * BN + 2 * sp + 1] = m2.y;
     }
     __syncthreads();
-    for (int c = tid; c < BN; c += kBrickThreads) {   // the slices, merged in order
+    for (int c = tid; c < ncols; c += kBrickThreads) {   // the slices, merged in order
       float n = (float)SLICE_ROWS, mean = st_mean[c], m2 = st_m2[c];
 #pragma unroll
       for (int sl = 1; sl < SLICES; ++sl) {
@@ -1003,25 +1090,35 @@ miseg_k4_conv_cin1(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// CUDA cores, f32 FMA: f32, or channel counts that are not multiples of 16.
+// CUDA cores, f32 FMA: f32, and the bf16 calls no tensor-core path takes.
+// A CTA computes kTile voxels by BN columns (16, 32 or 64: the least that
+// covers Cout, else 64): 256 threads, each 4 columns of TM rows.
 
-constexpr int kFmaPool = (2 * kFmaKc * kFmaRowPad + 2 * kFmaKc * kFmaBn) > kTile * (kFmaBn + 1)
-                       ? (2 * kFmaKc * kFmaRowPad + 2 * kFmaKc * kFmaBn)
-                       : kTile * (kFmaBn + 1);
+template <int BN>
+struct FmaShape {
+  static constexpr int CG = BN / 4;            // column groups of 4
+  static constexpr int TM = kTile / (kThreads / CG);   // rows a thread: 2, 4, 8
+  static constexpr int LDC = BN + 1;
+  static constexpr int KB = kFmaKc * BN / kThreads;    // weights a thread a step
+  static constexpr int AB = 2 * kFmaKc * kFmaRowPad + 2 * kFmaKc * BN;
+  static constexpr int POOL = AB > kTile * LDC ? AB : kTile * LDC;
+};
 
-template <typename T>
+template <typename T, int BN>
 __global__ void __launch_bounds__(kThreads)
 miseg_k4_conv_fma(Args a) {
-  __shared__ __align__(16) float pool[kFmaPool];
+  using Sh = FmaShape<BN>;
+  constexpr int TM = Sh::TM, KB = Sh::KB;
+  __shared__ __align__(16) float pool[Sh::POOL];
   __shared__ int roff[kTile];
   __shared__ unsigned rmask[kTile];
   float* As = pool;                              // [2][kFmaKc][kFmaRowPad], k-major
-  float* Bs = pool + 2 * kFmaKc * kFmaRowPad;    // [2][kFmaKc][kFmaBn]
+  float* Bs = pool + 2 * kFmaKc * kFmaRowPad;    // [2][kFmaKc][BN]
 
   const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;        // rows tr*8.., cols tc*4..
+  const int tr = tid / Sh::CG, tc = tid % Sh::CG;   // rows tr*TM.., cols tc*4..
   const Tile t = tile_of(a);
-  const int n0 = blockIdx.y * kFmaBn;
+  const int n0 = blockIdx.y * BN;
   const int cin = a.cin, cout = a.cout, K = 27 * cin;
   const bool affine = a.scale != nullptr, leaky = a.leaky != 0;
   const T* x = static_cast<const T*>(a.x) + (long long)t.b * a.S * cin;
@@ -1035,8 +1132,7 @@ miseg_k4_conv_fma(Args a) {
   __syncthreads();
 
   constexpr int kA = kTile * kFmaKc / kThreads;   // 8
-  constexpr int kB = kFmaKc * kFmaBn / kThreads;  // 4
-  float ra[kA], rb[kB];
+  float ra[kA], rb[KB];
 
   auto load = [&](int s) {
     const int k0 = s * kFmaKc;
@@ -1057,31 +1153,31 @@ miseg_k4_conv_fma(Args a) {
       ra[i] = v;
     }
 #pragma unroll
-    for (int i = 0; i < kB; ++i) {
+    for (int i = 0; i < KB; ++i) {
       const int e = tid + i * kThreads;
-      const int k = k0 + e / kFmaBn, n = n0 + e % kFmaBn;
+      const int k = k0 + e / BN, n = n0 + e % BN;
       rb[i] = (k < K && n < cout) ? to_f32(w[(long long)k * cout + n]) : 0.0f;
     }
   };
 
   auto store = [&](int buf) {
     float* A = As + buf * kFmaKc * kFmaRowPad;
-    float* B = Bs + buf * kFmaKc * kFmaBn;
+    float* B = Bs + buf * kFmaKc * BN;
 #pragma unroll
     for (int i = 0; i < kA; ++i) {
       const int e = tid + i * kThreads;
       A[(e % kFmaKc) * kFmaRowPad + e / kFmaKc] = ra[i];
     }
 #pragma unroll
-    for (int i = 0; i < kB; ++i) {
+    for (int i = 0; i < KB; ++i) {
       const int e = tid + i * kThreads;
-      B[(e / kFmaBn) * kFmaBn + e % kFmaBn] = rb[i];
+      B[(e / BN) * BN + e % BN] = rb[i];
     }
   };
 
-  float acc[8][4];
+  float acc[TM][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
@@ -1093,17 +1189,28 @@ miseg_k4_conv_fma(Args a) {
   for (int s = k_begin; s < k_end; ++s) {
     const int buf = (s - k_begin) & 1;
     if (s + 1 < k_end) load(s + 1);
-    const float* A = As + buf * kFmaKc * kFmaRowPad + tr * 8;
-    const float* B = Bs + buf * kFmaKc * kFmaBn + tc * 4;
+    const float* A = As + buf * kFmaKc * kFmaRowPad + tr * TM;
+    const float* B = Bs + buf * kFmaKc * BN + tc * 4;
 #pragma unroll
     for (int kk = 0; kk < kFmaKc; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(A + kk * kFmaRowPad);
-      const float4 a1 = *reinterpret_cast<const float4*>(A + kk * kFmaRowPad + 4);
-      const float4 bv = *reinterpret_cast<const float4*>(B + kk * kFmaBn);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float av[TM];
+      if constexpr (TM % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < TM; i += 4) {
+          const float4 q = *reinterpret_cast<const float4*>(A + kk * kFmaRowPad + i);
+          av[i] = q.x; av[i + 1] = q.y; av[i + 2] = q.z; av[i + 3] = q.w;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; i += 2) {
+          const float2 q = *reinterpret_cast<const float2*>(A + kk * kFmaRowPad + i);
+          av[i] = q.x; av[i + 1] = q.y;
+        }
+      }
+      const float4 bv = *reinterpret_cast<const float4*>(B + kk * BN);
       const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
     }
@@ -1114,32 +1221,32 @@ miseg_k4_conv_fma(Args a) {
 
   if (a.splits > 1) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = n0 + tc * 4 + j;
-        if (c < cout) *work_at(a, t, tr * 8 + i, c) = acc[i][j];
+        if (c < cout) *work_at(a, t, tr * TM + i, c) = acc[i][j];
       }
     return;
   }
-  constexpr int LDC = kFmaBn + 1;
   float* Cs = pool;  // aliases the A/B buffers
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) Cs[(tr * 8 + i) * LDC + tc * 4 + j] = acc[i][j];
+    for (int j = 0; j < 4; ++j) Cs[(tr * TM + i) * Sh::LDC + tc * 4 + j] = acc[i][j];
   __syncthreads();
-  epilogue<T>(a, t, Cs, LDC, min(kFmaBn, cout - n0), n0, TileRows{t.tile * kTile});
+  epilogue<T>(a, t, Cs, Sh::LDC, min(BN, cout - n0), n0, TileRows{t.tile * kTile});
 }
 
-// Split-K: add the splits' partial sums in split order, then the epilogue.
-template <typename T>
+// Split-K: add the splits' partial sums of one BN-column block in split
+// order, then the epilogue.
+template <typename T, int BN>
 __global__ void __launch_bounds__(kThreads)
 miseg_k4_splitk_reduce(Args a) {
-  constexpr int LDC = kFmaBn + 1;
+  constexpr int LDC = FmaShape<BN>::LDC;
   __shared__ float Cs[kTile * LDC];
   const Tile t = tile_of(a);
-  const int n0 = blockIdx.y * kFmaBn, ncols = min(kFmaBn, a.cout - n0);
+  const int n0 = blockIdx.y * BN, ncols = min(BN, a.cout - n0);
   const long long split_stride = a.n_parts * kTile * a.cout;
   for (int e = threadIdx.x; e < t.nvalid * ncols; e += kThreads) {
     const int r = e / ncols, c = e - r * ncols;
@@ -1152,8 +1259,16 @@ miseg_k4_splitk_reduce(Args a) {
   epilogue<T>(a, t, Cs, LDC, ncols, n0, TileRows{t.tile * kTile});
 }
 
+// bf16 channels the tensor-core paths take, padded to 16 in shared memory
+// where they are no multiple of it: multiples of 4, whose x rows and y
+// rows are 8-byte aligned.
 bool on_tensor_cores(int dtype, int cin, int cout) {
-  return dtype == 1 && cin % 16 == 0 && cout % 16 == 0;
+  return dtype == 1 && cin % 4 == 0 && cout % 4 == 0;
+}
+
+// How the halo of x with cin channels, padded to wcin, is copied (HC).
+int halo_copy(int cin, int wcin) {
+  return cin == wcin ? kWholeChunks : cin % 8 == 0 ? 8 : 4;
 }
 
 bool bricks_divide(int Z, int Y, int X) {
@@ -1162,7 +1277,7 @@ bool bricks_divide(int Z, int Y, int X) {
 
 // The Cin = 1 path: bf16 on the tensor cores by brick.
 bool by_cin1(int dtype, int Z, int Y, int X, int cin, int cout) {
-  return dtype == 1 && cin == 1 && cout % 16 == 0 && bricks_divide(Z, Y, X);
+  return dtype == 1 && cin == 1 && cout % 4 == 0 && bricks_divide(Z, Y, X);
 }
 
 // The brick path: tensor cores, and bricks that divide the volume, so
@@ -1171,7 +1286,8 @@ bool by_brick(int dtype, int Z, int Y, int X, int cin, int cout) {
   return on_tensor_cores(dtype, cin, cout) && bricks_divide(Z, Y, X);
 }
 
-// The brick path's input-channel chunk and 16-column output fragments.
+// The brick path's input-channel chunk where Cin % 16 == 0 (no padding)
+// and its 16-column output fragments.
 int brick_kc(int cin) {
   return cin % 64 == 0 ? 64 : cin % 48 == 0 ? 48 : cin % 32 == 0 ? 32 : 16;
 }
@@ -1179,6 +1295,38 @@ int brick_kc(int cin) {
 int brick_nf(int cout) {
   return cout % 64 == 0 ? 4 : cout % 48 == 0 ? 3 : cout % 32 == 0 ? 2 : 1;
 }
+
+// A Cin that is no multiple of 16, padded: the chunk KC of `kcs` (n of
+// them) and the width wcin = a multiple of KC that cost the least, taking
+// a chunk's own work (its halo copy and transform, and one barrier a
+// weight stage) as worth 16 channels of MMAs: wcin + 16 * chunks, ties to
+// the narrower wcin.  72 channels: 2 chunks of 48 (96), not 5 of 16.
+void pad_cin(int cin, const int* kcs, int n, int& wcin, int& kc) {
+  int best = 1 << 30;
+  for (int i = 0; i < n; ++i) {
+    const int w = (cin + kcs[i] - 1) / kcs[i] * kcs[i], cost = w + 16 * (w / kcs[i]);
+    if (cost < best || (cost == best && w < wcin)) {
+      best = cost;
+      wcin = w;
+      kc = kcs[i];
+    }
+  }
+}
+
+// A Cout that is no multiple of 16, padded to the 16-column count (up to 3
+// past the least) that leaves the fewest column blocks, blocks(cn) each
+// staging the halo anew; ties to the narrower.  72 channels: 96 in one
+// block of 96 (or 48, 48), not 80 in five of 16.
+template <typename Blocks>
+int pad_cout(int cout, Blocks blocks) {
+  const int cn0 = (cout + 15) / 16;
+  int best = cn0;
+  for (int cn = cn0 + 1; cn <= cn0 + 3; ++cn)
+    if (blocks(cn) < blocks(best)) best = cn;
+  return 16 * best;
+}
+
+int brick_blocks(int cn) { return cn / brick_nf(16 * cn); }
 
 int device_sms() {
   int sms = 132, dev = 0;
@@ -1201,18 +1349,24 @@ int plan_splits(long long ctas, int nsteps) {
 enum class Path { cin1, brick, coarse, fma };
 
 // How a call of one shape runs: its path, statistics tile, K steps (units
-// on the coarse path), output-channel blocks and K splits.
+// on the coarse path), output-channel blocks and K splits, and the widths
+// of its packed weights.
 struct Plan {
   Path path;
   int tile, nsteps, nblocks, splits;
-  int tz, ty, tx, kc, nfw, wn, smem_main;   // the coarse path's box and kernel
+  int wcin, wcout;                          // cin, cout, padded on the tensor cores
+  int hc;                                   // tensor cores: how the x halo is copied
+  int kc;                                   // brick and coarse paths: the channel chunk
+  int bn;                                   // CUDA-core path: the column block
+  int tz, ty, tx, nfw, wn, smem_main;       // the coarse path's box and kernel
   int tree;                                 // its counters per (tile, N block)
 };
 
 // The coarse path's box and kernel shape, where it takes the call: a
 // 4x4x4 brick that divides the volume, else the whole sample if it holds
 // at most kBoxMaxRows voxels; KC = 32 unless the channels or the shared
-// memory want 16.
+// memory want 16.  Channels that are no multiple of 16 are padded (p.wcin,
+// p.wcout; pad_cin, pad_cout).
 bool coarse_plan(int Z, int Y, int X, int cin, int cout, Plan& p) {
   if (Z % kBoxEdge == 0 && Y % kBoxEdge == 0 && X % kBoxEdge == 0) {
     p.tz = p.ty = p.tx = kBoxEdge;
@@ -1223,22 +1377,32 @@ bool coarse_plan(int Z, int Y, int X, int cin, int cout, Plan& p) {
   } else {
     return false;
   }
-  const int rows = p.tz * p.ty * p.tx, frags = (rows + 15) / 16, cn = cout / 16;
-  // two warps along N while one fragment a warp covers the box (WM = 4)
-  p.wn = frags <= kBoxThreads / 64 && cn % 2 == 0 ? 2 : 1;
-  const int per = cn / p.wn;
-  p.nfw = per % 4 == 0 ? 4 : per % 3 == 0 ? 3 : per % 2 == 0 ? 2 : 1;
-  const int bn = 16 * p.nfw * p.wn, halo = (p.tz + 2) * (p.ty + 2) * (p.tx + 2);
+  const int rows = p.tz * p.ty * p.tx, frags = (rows + 15) / 16;
+  // two warps along N while one fragment a warp covers the box (WM = 4),
+  // and 16-column fragments a warp
+  auto wn_of = [&](int cn) { return frags <= kBoxThreads / 64 && cn % 2 == 0 ? 2 : 1; };
+  auto nfw_of = [&](int cn) {
+    const int per = cn / wn_of(cn);
+    return per % 4 == 0 ? 4 : per % 3 == 0 ? 3 : per % 2 == 0 ? 2 : 1;
+  };
   const int kcs[2] = {32, 16};
+  p.wcin = cin;
+  p.wcout = cout % 16 ? pad_cout(cout, [&](int cn) { return cn / (wn_of(cn) * nfw_of(cn)); })
+                      : cout;
+  if (cin % 16) pad_cin(cin, kcs, 2, p.wcin, p.kc);   // the loop below picks the chunk
+  const int cn = p.wcout / 16;
+  p.wn = wn_of(cn);
+  p.nfw = nfw_of(cn);
+  const int bn = 16 * p.nfw * p.wn, halo = (p.tz + 2) * (p.ty + 2) * (p.tx + 2);
   for (const int kc : kcs) {
-    if (cin % kc) continue;
+    if (p.wcin % kc) continue;
     const int main = box_main_bytes(halo, frags, kc, bn);
-    if ((size_t)main + 2 * (size_t)cin * sizeof(float) + 16 > kSmemLimit) continue;
+    if ((size_t)main + 2 * (size_t)p.wcin * sizeof(float) + 16 > kSmemLimit) continue;
     p.kc = kc;
     p.smem_main = main;
     p.tile = rows;
-    p.nsteps = cin / kc * kUnitsPerChunk;
-    p.nblocks = cout / bn;
+    p.nsteps = p.wcin / kc * kUnitsPerChunk;
+    p.nblocks = p.wcout / bn;
     return true;
   }
   return false;
@@ -1247,19 +1411,31 @@ bool coarse_plan(int Z, int Y, int X, int cin, int cout, Plan& p) {
 Plan plan_call(int dtype, int B, int Z, int Y, int X, int cin, int cout) {
   Plan p{};
   const long long s = (long long)Z * Y * X;
+  p.wcin = cin;
+  p.wcout = cout;
   if (by_cin1(dtype, Z, Y, X, cin, cout)) {
     p.path = Path::cin1;
+    p.wcout = cout % 16 ? pad_cout(cout, brick_blocks) : cout;
     p.tile = kBrick;
-    p.nblocks = cout / (16 * brick_nf(cout));
+    p.nblocks = p.wcout / (16 * brick_nf(p.wcout));
     p.splits = 1;
   } else if (by_brick(dtype, Z, Y, X, cin, cout)) {
     p.path = Path::brick;
+    p.wcout = cout % 16 ? pad_cout(cout, brick_blocks) : cout;
+    if (cin % 16) {   // the padded instances have chunks of 48, 32 and 16
+      const int kcs[3] = {48, 32, 16};
+      pad_cin(cin, kcs, 3, p.wcin, p.kc);
+    } else {
+      p.kc = brick_kc(cin);
+    }
+    p.hc = halo_copy(cin, p.wcin);
     p.tile = kBrick;
-    p.nblocks = cout / (16 * brick_nf(cout));
+    p.nblocks = p.wcout / (16 * brick_nf(p.wcout));
     p.splits = 1;
   } else if (on_tensor_cores(dtype, cin, cout) && coarse_plan(Z, Y, X, cin, cout, p)) {
     // split only where the tiles leave SMs idle, into about one CTA an SM
     p.path = Path::coarse;
+    p.hc = halo_copy(cin, p.wcin);
     const long long base = B * (s / p.tile) * p.nblocks;
     const int sms = device_sms();
     p.splits = 1;
@@ -1270,11 +1446,14 @@ Plan plan_call(int dtype, int B, int Z, int Y, int X, int cin, int cout) {
       p.splits = (p.nsteps + per - 1) / per;
     }
     for (p.tree = 1; p.tree < p.splits;) p.tree *= 2;
-  } else {
+  } else {   // coarse_plan may have padded the widths before it declined
     p.path = Path::fma;
+    p.wcin = cin;
+    p.wcout = cout;
     p.tile = kTile;
     p.nsteps = (27 * cin + kFmaKc - 1) / kFmaKc;
-    p.nblocks = (cout + kFmaBn - 1) / kFmaBn;
+    p.bn = cout <= 16 ? 16 : cout <= 32 ? 32 : 64;
+    p.nblocks = (cout + p.bn - 1) / p.bn;
     p.splits = plan_splits(B * ((s + kTile - 1) / kTile) * p.nblocks, p.nsteps);
   }
   return p;
@@ -1290,28 +1469,35 @@ cudaError_t launch_smem(Kernel kernel, dim3 grid, int threads, size_t smem, cons
   return cudaGetLastError();
 }
 
-template <int NF, int KC>
+template <int NF, int KC, int HC>
 cudaError_t launch_brick_kc(const Args& a, dim3 grid, cudaStream_t stream) {
-  return launch_smem(miseg_k4_conv_brick<NF, KC>, grid, kBrickThreads,
-                     BrickShape<NF, KC>::BYTES + 2 * (size_t)a.cin * sizeof(float), a, stream);
+  return launch_smem(miseg_k4_conv_brick<NF, KC, HC>, grid, kBrickThreads,
+                     BrickShape<NF, KC>::BYTES + 2 * (size_t)a.wcin * sizeof(float), a, stream);
 }
 
-template <int NF>
-cudaError_t launch_brick_nf(const Args& a, dim3 grid, cudaStream_t stream) {
-  switch (brick_kc(a.cin)) {
-    case 64: return launch_brick_kc<NF, 64>(a, grid, stream);
-    case 48: return launch_brick_kc<NF, 48>(a, grid, stream);
-    case 32: return launch_brick_kc<NF, 32>(a, grid, stream);
-    default: return launch_brick_kc<NF, 16>(a, grid, stream);
+template <int NF, int HC>
+cudaError_t launch_brick_hc(const Args& a, dim3 grid, int kc, cudaStream_t stream) {
+  switch (kc) {
+    case 48: return launch_brick_kc<NF, 48, HC>(a, grid, stream);
+    case 32: return launch_brick_kc<NF, 32, HC>(a, grid, stream);
+    default: return launch_brick_kc<NF, 16, HC>(a, grid, stream);
   }
 }
 
-cudaError_t launch_brick(const Args& a, dim3 grid, cudaStream_t stream) {
-  switch (brick_nf(a.cout)) {
-    case 4: return launch_brick_nf<4>(a, grid, stream);
-    case 3: return launch_brick_nf<3>(a, grid, stream);
-    case 2: return launch_brick_nf<2>(a, grid, stream);
-    default: return launch_brick_nf<1>(a, grid, stream);
+template <int NF>
+cudaError_t launch_brick_nf(const Args& a, dim3 grid, const Plan& p, cudaStream_t stream) {
+  if (p.hc == 8) return launch_brick_hc<NF, 8>(a, grid, p.kc, stream);
+  if (p.hc == 4) return launch_brick_hc<NF, 4>(a, grid, p.kc, stream);
+  if (p.kc == 64) return launch_brick_kc<NF, 64, kWholeChunks>(a, grid, stream);
+  return launch_brick_hc<NF, kWholeChunks>(a, grid, p.kc, stream);
+}
+
+cudaError_t launch_brick(const Args& a, dim3 grid, const Plan& p, cudaStream_t stream) {
+  switch (brick_nf(a.wcout)) {
+    case 4: return launch_brick_nf<4>(a, grid, p, stream);
+    case 3: return launch_brick_nf<3>(a, grid, p, stream);
+    case 2: return launch_brick_nf<2>(a, grid, p, stream);
+    default: return launch_brick_nf<1>(a, grid, p, stream);
   }
 }
 
@@ -1334,7 +1520,7 @@ cudaError_t launch_cin1_nf(const Args& a, int nblocks, cudaStream_t stream) {
 }
 
 cudaError_t launch_cin1(const Args& a, int nblocks, cudaStream_t stream) {
-  switch (brick_nf(a.cout)) {
+  switch (brick_nf(a.wcout)) {
     case 4: return launch_cin1_nf<4>(a, nblocks, stream);
     case 3: return launch_cin1_nf<3>(a, nblocks, stream);
     case 2: return launch_cin1_nf<2>(a, nblocks, stream);
@@ -1342,16 +1528,23 @@ cudaError_t launch_cin1(const Args& a, int nblocks, cudaStream_t stream) {
   }
 }
 
+template <int NFW, int KC, int WN, int HC>
+cudaError_t launch_coarse_hc(const Args& a, dim3 grid, cudaStream_t stream) {
+  return launch_smem(miseg_k4_conv_coarse<NFW, KC, WN, HC>, grid, kBoxThreads,
+                     a.smem_main + 2 * (size_t)a.wcin * sizeof(float), a, stream);
+}
+
 template <int NFW, int KC, int WN>
-cudaError_t launch_coarse_wn(const Args& a, dim3 grid, cudaStream_t stream) {
-  return launch_smem(miseg_k4_conv_coarse<NFW, KC, WN>, grid, kBoxThreads,
-                     a.smem_main + 2 * (size_t)a.cin * sizeof(float), a, stream);
+cudaError_t launch_coarse_wn(const Args& a, dim3 grid, const Plan& p, cudaStream_t stream) {
+  if (p.hc == 8) return launch_coarse_hc<NFW, KC, WN, 8>(a, grid, stream);
+  if (p.hc == 4) return launch_coarse_hc<NFW, KC, WN, 4>(a, grid, stream);
+  return launch_coarse_hc<NFW, KC, WN, kWholeChunks>(a, grid, stream);
 }
 
 template <int NFW, int KC>
 cudaError_t launch_coarse_kc(const Args& a, dim3 grid, const Plan& p, cudaStream_t stream) {
-  return p.wn == 2 ? launch_coarse_wn<NFW, KC, 2>(a, grid, stream)
-                   : launch_coarse_wn<NFW, KC, 1>(a, grid, stream);
+  return p.wn == 2 ? launch_coarse_wn<NFW, KC, 2>(a, grid, p, stream)
+                   : launch_coarse_wn<NFW, KC, 1>(a, grid, p, stream);
 }
 
 template <int NFW>
@@ -1369,6 +1562,24 @@ cudaError_t launch_coarse(const Args& a, dim3 grid, const Plan& p, cudaStream_t 
   }
 }
 
+template <typename T, int BN>
+cudaError_t launch_fma_bn(const Args& a, dim3 grid, cudaStream_t stream) {
+  miseg_k4_conv_fma<T, BN><<<grid, kThreads, 0, stream>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  miseg_k4_splitk_reduce<T, BN><<<dim3(grid.x, grid.y), kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fma(const Args& a, dim3 grid, int bn, cudaStream_t stream) {
+  switch (bn) {
+    case 16: return launch_fma_bn<T, 16>(a, grid, stream);
+    case 32: return launch_fma_bn<T, 32>(a, grid, stream);
+    default: return launch_fma_bn<T, 64>(a, grid, stream);
+  }
+}
+
 }  // namespace
 
 // Voxels per statistics tile of a call of this shape: the fold needs it to
@@ -1378,9 +1589,20 @@ extern "C" int miseg_fused_conv3_tile_voxels(int Z, int Y, int X, int cin, int c
   return plan_call(dtype, 1, Z, Y, X, cin, cout).tile;
 }
 
+// The widths [wcin, wcout] of the packed weights a call takes: cin and
+// cout, or on the tensor-core paths each padded up to a multiple of 16
+// (rows ci >= cin and columns co >= cout zero).
+extern "C" void miseg_fused_conv3_weight_widths(int Z, int Y, int X, int cin, int cout,
+                                                int dtype, int* widths) {
+  const Plan p = plan_call(dtype, 1, Z, Y, X, cin, cout);
+  widths[0] = p.wcin;
+  widths[1] = p.wcout;
+}
+
 // How many K splits a call on this device makes; above 1 the caller passes
-// a workspace of splits * B * ceil(Z*Y*X / tile voxels) * tile voxels * cout
-// floats.  The brick path never splits.
+// a workspace of splits * B * ceil(Z*Y*X / tile voxels) * tile voxels *
+// wcout floats (see miseg_fused_conv3_weight_widths).  The brick path
+// never splits.
 extern "C" int miseg_fused_conv3_splits(int B, int Z, int Y, int X, int cin,
                                         int cout, int dtype) {
   return plan_call(dtype, B, Z, Y, X, cin, cout).splits;
@@ -1397,7 +1619,8 @@ extern "C" int miseg_fused_conv3_counters(int B, int Z, int Y, int X, int cin,
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w and y share it).  x is a
-// contiguous [B, Z, Y, X, cin]; w a contiguous [3, 3, 3, cin, cout];
+// contiguous [B, Z, Y, X, cin]; w a contiguous [3, 3, 3, wcin, wcout] (see
+// miseg_fused_conv3_weight_widths);
 // scale/shift contiguous f32 [B, cin], both null for no affine; leaky != 0
 // applies the slope after the affine.  y is a contiguous [B, Z, Y, X,
 // cout]; part is f32 [2, B * n_tiles, cout] with n_tiles = ceil(Z*Y*X /
@@ -1434,6 +1657,8 @@ extern "C" int miseg_fused_conv3(const void* x, const void* w, const void* scale
   a.cout = cout;
   a.S = (int)s;
   const Plan p = plan_call(dtype, B, Z, Y, X, cin, cout);
+  a.wcin = p.wcin;
+  a.wcout = p.wcout;
   a.n_tiles = (int)((s + p.tile - 1) / p.tile);
   a.n_parts = (long long)B * a.n_tiles;
   a.nsteps = p.nsteps;
@@ -1447,21 +1672,11 @@ extern "C" int miseg_fused_conv3(const void* x, const void* w, const void* scale
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)a.n_parts, p.nblocks, a.splits);
   if (p.path == Path::cin1) return (int)launch_cin1(a, p.nblocks, st);
-  if (p.path == Path::brick) return (int)launch_brick(a, grid, st);
+  if (p.path == Path::brick) return (int)launch_brick(a, grid, p, st);
   if (p.path == Path::coarse) {   // the splits add up inside the launch
     if (a.splits > 1 && counters == nullptr) return (int)cudaErrorInvalidValue;
     return (int)launch_coarse(a, grid, p, st);
   }
-  if (dtype == 0)
-    miseg_k4_conv_fma<float><<<grid, kThreads, 0, st>>>(a);
-  else
-    miseg_k4_conv_fma<__nv_bfloat16><<<grid, kThreads, 0, st>>>(a);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || a.splits == 1) return (int)err;
-  const dim3 rgrid((unsigned)a.n_parts, (cout + kFmaBn - 1) / kFmaBn);
-  if (dtype == 0)
-    miseg_k4_splitk_reduce<float><<<rgrid, kThreads, 0, st>>>(a);
-  else
-    miseg_k4_splitk_reduce<__nv_bfloat16><<<rgrid, kThreads, 0, st>>>(a);
-  return (int)cudaGetLastError();
+  return (int)(dtype == 0 ? launch_fma<float>(a, grid, p.bn, st)
+                          : launch_fma<__nv_bfloat16>(a, grid, p.bn, st));
 }

@@ -16,21 +16,27 @@ ctypes (`build.py`).
         style id), f32 `[B, Cout]`.
 The kernel writes per-tile (mean, M2) partials of the rounded y and K1's
 fold (`fused_norm.fold_partials`, one more launch) merges them, within the
-same call.  In bf16 a tile is a 4x4x16 brick where those divide the volume
-(the 96^3 and 48^3 levels, and encoder1's Cin = 1 conv at 96^3, which has
-a tensor-core kernel of its own), else a 4x4x4 brick where those do (24^3,
-12^3), else the whole sample where it holds at most 256 voxels (6^3, 3^3),
-else 128 consecutive voxels; the C side says which.  Calls with few tiles
-split K over several CTAs.  The wrapper allocates the f32 workspace for
-the split sums, sized by the C side's own plan, and on the coarse path
-(the 4x4x4 and whole-sample tiles, whose splits add up inside the one
-launch) takes the integer arrival counters of `counters.py`.
+same call.  bf16 calls whose Cin and Cout are multiples of 4 (or Cin = 1)
+run on the tensor cores, channels that are no multiple of 16 (the search
+space's 12, 24, 36, 72) padded to 16 inside the kernel.  Their tile is a
+4x4x16 brick where those divide the volume (the 96^3 and 48^3 levels, and
+encoder1's Cin = 1 conv at 96^3, which has a tensor-core kernel of its
+own), else a 4x4x4 brick where those do (24^3, 12^3), else the whole
+sample where it holds at most 256 voxels (6^3, 3^3).  Every other call
+(f32, other bf16 widths, larger volumes no brick divides) runs on the CUDA
+cores in tiles of 128 consecutive voxels.  The C side plans each call and
+says which.  Calls with few tiles split K over several CTAs.  The wrapper
+allocates the f32 workspace for the split sums, sized by the C side's own
+plan, and on the coarse path (the 4x4x4 and whole-sample tiles, whose
+splits add up inside the one launch) takes the integer arrival counters
+of `counters.py`.
 
 For a CUDA tensor the wrapper launches K4 or raises; it uses the plain
 version `conv3_norm_columns_plain` only for CPU tensors.  Weights arrive
-in the port's `[O, I, 3, 3, 3]` layout; the kernel's `[3, 3, 3, I, O]`
-copy is cached on the weight tensor and rebuilt when its version, storage
-or the compute dtype changes.
+in the port's `[O, I, 3, 3, 3]` layout; the kernel's `[3, 3, 3, I', O']`
+copy (I' >= I and O' >= O the widths the C side plans: zero rows and
+columns for the padded channels) is cached on the weight tensor and
+rebuilt when its version, storage, the compute dtype or the widths change.
 """
 
 from __future__ import annotations
@@ -116,8 +122,9 @@ def conv3_norm_columns_plain(x, w, scale=None, shift=None, *,
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    """(C entry point, its split planner, its tile size, its counter count)
-    with their ctypes signatures, built on first use."""
+    """(C entry point, its split planner, its tile size, its counter count,
+    its packed weights' widths) with their ctypes signatures, built on
+    first use."""
     lib = build.load("fused_conv")
     fn = lib.miseg_fused_conv3
     fn.restype = ctypes.c_int
@@ -132,19 +139,42 @@ def _entry():
     n_counters = lib.miseg_fused_conv3_counters
     n_counters.restype = ctypes.c_int
     n_counters.argtypes = [ctypes.c_int] * 7
-    return fn, splits, tile, n_counters
+    widths = lib.miseg_fused_conv3_weight_widths
+    widths.restype = None
+    widths.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    return fn, splits, tile, n_counters, widths
 
 
-def kernel_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """`[O, I, 3, 3, 3]` -> contiguous `[3, 3, 3, I, O]` in `dtype`, cached on
-    `w` until its version, storage or the dtype changes."""
+@functools.lru_cache(maxsize=None)
+def weight_widths(z: int, y: int, x: int, cin: int, cout: int, dtype: int) -> tuple[int, int]:
+    """(I', O'): the widths of the packed weights a call of this shape
+    takes (`dtype` 0 f32, 1 bf16), from the C side's plan."""
+    out = (ctypes.c_int * 2)()
+    _entry()[4](z, y, x, cin, cout, dtype, out)
+    return out[0], out[1]
+
+
+def _pack(w: torch.Tensor, dtype: torch.dtype, widths: tuple[int, int]) -> torch.Tensor:
+    packed = w.detach().to(dtype).permute(2, 3, 4, 1, 0)
+    cout, cin = w.shape[:2]
+    if widths != (cin, cout):
+        packed = F.pad(packed, (0, widths[1] - cout, 0, widths[0] - cin))
+    return packed.contiguous()
+
+
+def kernel_weights(w: torch.Tensor, dtype: torch.dtype,
+                   widths: tuple[int, int] | None = None) -> torch.Tensor:
+    """`[O, I, 3, 3, 3]` -> contiguous `[3, 3, 3, I', O']` in `dtype`, with
+    `widths` (I', O') >= (I, O) (default (I, O)): rows ci >= I and columns
+    co >= O are zero.  Cached on `w`, one copy, until its version, storage,
+    the dtype or the widths change."""
+    widths = (w.shape[1], w.shape[0]) if widths is None else tuple(widths)
     if w.is_inference():  # no version counter: convert per call
-        return w.to(dtype).permute(2, 3, 4, 1, 0).contiguous()
-    key = (w._version, w.data_ptr(), dtype)
+        return _pack(w, dtype, widths)
+    key = (w._version, w.data_ptr(), dtype, widths)
     cached = getattr(w, "_miseg_k4_weights", None)
     if cached is None or cached[0] != key:
-        packed = w.detach().to(dtype).permute(2, 3, 4, 1, 0).contiguous()
-        cached = (key, packed)
+        cached = (key, _pack(w, dtype, widths))
         w._miseg_k4_weights = cached
     return cached[1]
 
@@ -171,12 +201,13 @@ def _conv3_norm_columns(x, w, scale=None, shift=None, *,
     cout = w.shape[0]
     if min(z, yd, xd) < 1:
         raise ValueError(f"K4 takes a non-empty volume, got {tuple(x.shape)}")
-    wk = kernel_weights(w, x.dtype)
+    dims = (bsz, z, yd, xd, cin, cout, _DTYPES[x.dtype])
+    widths = weight_widths(*dims[1:])
+    wk = kernel_weights(w, x.dtype, widths)
     if scale is not None:
         scale = scale.float().contiguous()
         shift = shift.float().contiguous()
-    fn, plan_splits, tile_voxels, plan_counters = _entry()
-    dims = (bsz, z, yd, xd, cin, cout, _DTYPES[x.dtype])
+    fn, plan_splits, tile_voxels, plan_counters, _ = _entry()
     s = z * yd * xd
     tile = tile_voxels(*dims[1:])
     n_tiles = math.ceil(s / tile)
@@ -185,7 +216,7 @@ def _conv3_norm_columns(x, w, scale=None, shift=None, *,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         splits = plan_splits(*dims)
-        work = (torch.empty((splits, bsz * n_tiles * tile, cout), dtype=torch.float32,
+        work = (torch.empty((splits, bsz * n_tiles * tile, widths[1]), dtype=torch.float32,
                             device=x.device) if splits > 1 else None)
         ctrs = counters.arrival_counters(x.device, stream, plan_counters(*dims))
         err = fn(x.data_ptr(), wk.data_ptr(),

@@ -10,6 +10,8 @@ within one bf16 (f16) ulp of the largest output (both sides round the
 same f32 value once, so a last-bit difference can flip the rounding).
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -432,14 +434,14 @@ def test_k4_matches_plain(dev, gen, case, dtype, prologue):
 
 def test_k4_takes_bricks_where_they_divide(dev):
     """bf16 statistics tiles are 4x4x16 bricks where they divide the volume
-    (and the channels suit the tensor cores, or Cin = 1 with Cout % 16 ==
-    0), else 4x4x4 bricks where those divide it, else the whole sample where
-    it holds at most 256 voxels, else 128 voxels; f32 runs on the CUDA cores
-    in 128-voxel tiles."""
+    (and the channels suit the tensor cores: Cin and Cout multiples of 4,
+    padded to 16 in the kernel, or Cin = 1), else 4x4x4 bricks where those
+    divide it, else the whole sample where it holds at most 256 voxels,
+    else 128 voxels; f32 runs on the CUDA cores in 128-voxel tiles."""
     tile_voxels = fused_conv._entry()[2]
     for case, (shape, cout) in _CONV.items():
         _, z, y, x, cin = shape
-        tc = (cin % 16 == 0 or cin == 1) and cout % 16 == 0
+        tc = (cin % 4 == 0 or cin == 1) and cout % 4 == 0
         brick = tc and z % 4 == 0 and y % 4 == 0 and x % 16 == 0
         assert brick == (case.startswith(("brick", "cin1_brick")) or case == "96_to48_b2"), case
         tc = tc and cin != 1   # the coarse path takes Cin % 16 == 0 only
@@ -532,48 +534,111 @@ def test_k4_cin1_call_is_one_kernel(dev, gen, case, dtype, kernel):
 
 # K4 at the hyper-parameter search's swin widths (fs 12/24/36: channels
 # 12, 24, 36 and 72 are not multiples of 16), at cut spatial sizes and at
-# the widths' own 24^3 and 12^3: (x shape, Cout).  No tensor-core path
-# takes them, so bf16 runs the FMA kernel too (with its split-K reduce
-# where the call splits K)
-_CONV_FMA = {
-    "fs12_12_to12": ((1, 16, 16, 32, 12), 12),
-    "fs36_36_to36": ((1, 16, 16, 32, 36), 36),
-    "fs12_cin1_to12": ((1, 8, 8, 32, 1), 12),
-    "fs36_72_to72": ((1, 12, 12, 12, 72), 72),
-    "fs24_24_to24": ((1, 24, 24, 24, 24), 24),
+# the widths' own 24^3 and 12^3, with the decoder's mixed widths (the
+# concatenation before decoder1..3: 24->12, 48->24, 144->72), and an odd
+# width no tensor-core path takes: (x shape, Cout, bf16 kernel).  In bf16
+# the tensor-core kernels take them, the channels padded to 16 inside the
+# kernel; f32 runs the FMA kernel (never TF32), with its split-K reduce
+# where the call splits K
+_CONV_SEARCH = {
+    "fs12_12_to12": ((1, 16, 16, 32, 12), 12, "miseg_k4_conv_brick"),
+    "fs36_36_to36": ((1, 16, 16, 32, 36), 36, "miseg_k4_conv_brick"),
+    "fs12_cin1_to12": ((1, 8, 8, 32, 1), 12, "miseg_k4_conv_cin1"),
+    "fs36_cin1_to36": ((1, 8, 8, 32, 1), 36, "miseg_k4_conv_cin1"),
+    "fs36_72_to72": ((1, 12, 12, 12, 72), 72, "miseg_k4_conv_coarse"),
+    "fs24_24_to24": ((1, 24, 24, 24, 24), 24, "miseg_k4_conv_coarse"),
+    "fs12_24_to12": ((1, 16, 16, 32, 24), 12, "miseg_k4_conv_brick"),
+    "fs24_48_to24": ((1, 16, 16, 32, 48), 24, "miseg_k4_conv_brick"),
+    "fs36_144_to72": ((1, 24, 24, 24, 144), 72, "miseg_k4_conv_coarse"),
+    "fs36_72_to36_b2": ((2, 8, 8, 16, 72), 36, "miseg_k4_conv_brick"),
+    "fs12_whole_3cube_12_to12": ((1, 3, 3, 3, 12), 12, "miseg_k4_conv_coarse"),
+    "odd_5_to7": ((2, 6, 8, 8, 5), 7, "miseg_k4_conv_fma"),
 }
 
 
+def _fma_block(cout: int) -> int:
+    """The FMA kernel's column block: the least of 16, 32 and 64 that
+    covers Cout, else 64."""
+    return next((bn for bn in (16, 32) if cout <= bn), 64)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", sorted(_CONV_FMA))
-def test_k4_search_space_widths_take_fma(dev, gen, case, dtype):
+@pytest.mark.parametrize("case", sorted(_CONV_SEARCH))
+def test_k4_search_space_widths_take_tensor_cores(dev, gen, case, dtype):
     """y and the columns as `test_k4_matches_plain` holds them (with the
-    prologue, but at Cin = 1), and the call's K4 device kernels: the FMA
-    kernel, then the split-K reduce when the planner splits K."""
-    shape, cout = _CONV_FMA[case]
+    prologue, but at Cin = 1), a repeat bit-identical, and the call's K4
+    device kernels: in bf16 the tensor-core kernel by name (the FMA kernel
+    for the odd width), in f32 the FMA kernel with a column block of the
+    least of 16, 32 and 64 that covers Cout, then the split-K reduce on the
+    same block when the planner splits K."""
+    shape, cout, bf16_kernel = _CONV_SEARCH[case]
     b, z, y_, x_, cin = shape
     x, w, kw = _conv_operands(gen, dev, dtype, shape, cout,
                               "none" if cin == 1 else "affine_leaky")
     y, sc, sh = fused_conv.conv3_norm_columns(x, w, **kw)
     ref = fused_conv.conv3_norm_columns_plain(x, w, **kw)[0]
     torch.cuda.synchronize()
+    assert y.shape == (*shape[:-1], cout)
     assert _err(y, ref) <= _tol(ref, dtype)
     rs, rh = fused_norm.channel_scale_shift_plain(
         y.reshape(b, -1, cout), kw["gamma"], kw["beta"], kw["styles"])
     assert _err(sc, rs) <= 1e-5 * (1 + float(rs.abs().max()))
     assert _err(sh, rh) <= 1e-5 * (1 + float(rh.abs().max()))
-    splits = fused_conv._entry()[1](b, z, y_, x_, cin, cout, 1 if dtype == torch.bfloat16 else 0)
-    want = ["miseg_k4_conv_fma"] + ["miseg_k4_splitk_reduce"] * (splits > 1)
+    again = fused_conv.conv3_norm_columns(x, w, **kw)
+    assert all(torch.equal(a, c) for a, c in zip((y, sc, sh), again))
+    code = 1 if dtype == torch.bfloat16 else 0
+    kernel = bf16_kernel if dtype == torch.bfloat16 else "miseg_k4_conv_fma"
+    want = [kernel]
+    if kernel == "miseg_k4_conv_fma":
+        splits = fused_conv._entry()[1](b, z, y_, x_, cin, cout, code)
+        want += ["miseg_k4_splitk_reduce"] * (splits > 1)
 
     def ok(names):
         return len(names) == len(want) and all(k in n for k, n in zip(want, names))
 
-    fused_conv.conv3_norm_columns(x, w, **kw)
-    torch.cuda.synchronize()
     names = [n for n in _device_kernels(
         lambda: fused_conv.conv3_norm_columns(x, w, **kw),
         lambda names: ok([n for n in names if "miseg_k4_" in n])) if "miseg_k4_" in n]
     assert ok(names), (names, want)
+    if kernel == "miseg_k4_conv_fma":   # the template's column block
+        blocks = {int(m) for n in names for m in re.findall(r"miseg_k4_\w+<[^,]+, (\d+)>", n)}
+        assert blocks == {_fma_block(cout)}, names
+
+
+# every distinct K4 geometry of the flagship's 96^3 window (fs 48): (x
+# shape, Cout, kernel).  They keep the kernels and instances they had
+# before the padded widths (no padding: the halo copy template's last
+# argument is 0 on the brick and coarse kernels)
+_FLAGSHIP_CONVS = [
+    ((1, 96, 96, 96, 1), 48, "miseg_k4_conv_cin1<3>"),
+    ((1, 96, 96, 96, 48), 48, "miseg_k4_conv_brick<3, 48, 0>"),
+    ((1, 96, 96, 96, 96), 48, "miseg_k4_conv_brick<3, 48, 0>"),
+    ((1, 48, 48, 48, 48), 48, "miseg_k4_conv_brick<3, 48, 0>"),
+    ((1, 48, 48, 48, 96), 48, "miseg_k4_conv_brick<3, 48, 0>"),
+    ((1, 24, 24, 24, 96), 96, "miseg_k4_conv_coarse<3, 32, 2, 0>"),
+    ((1, 24, 24, 24, 192), 96, "miseg_k4_conv_coarse<3, 32, 2, 0>"),
+    ((1, 12, 12, 12, 192), 192, "miseg_k4_conv_coarse<3, 32, 2, 0>"),
+    ((1, 12, 12, 12, 384), 192, "miseg_k4_conv_coarse<3, 32, 2, 0>"),
+    ((1, 6, 6, 6, 768), 384, "miseg_k4_conv_coarse<4, 32, 1, 0>"),
+    ((1, 6, 6, 6, 384), 384, "miseg_k4_conv_coarse<4, 32, 1, 0>"),
+    ((1, 3, 3, 3, 768), 768, "miseg_k4_conv_coarse<4, 32, 2, 0>"),
+]
+
+
+@pytest.mark.parametrize("i", range(len(_FLAGSHIP_CONVS)))
+def test_k4_flagship_shapes_keep_their_kernels(dev, gen, i):
+    """A bf16 call at each of the flagship's conv shapes launches the
+    kernel instance it launched before the search widths were padded onto
+    the tensor cores, and matches the plain version."""
+    shape, cout, kernel = _FLAGSHIP_CONVS[i]
+    x, w, kw = _conv_operands(gen, dev, torch.bfloat16, shape, cout,
+                              "none" if shape[-1] == 1 else "affine_leaky")
+    y = fused_conv.conv3_norm_columns(x, w, **kw)[0]
+    ref = fused_conv.conv3_norm_columns_plain(x, w, **kw)[0]
+    torch.cuda.synchronize()
+    assert _err(y, ref) <= _tol(ref, torch.bfloat16)
+    names = _k4_call_kernels(x, w, kw, kernel)
+    assert len(names) == 1 and kernel in names[0], names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1114,8 +1179,8 @@ def test_recompute_reuses_counters_and_packed_weights(dev, monkeypatch):
     packs = []
     pack = fused_conv.kernel_weights
 
-    def recording(w, dtype):
-        out = pack(w, dtype)
+    def recording(w, dtype, widths=None):
+        out = pack(w, dtype, widths)
         packs.append((w.data_ptr(), out))
         return out
 

@@ -72,7 +72,15 @@ def _rel(a, b) -> float:
                                         # the card's coarse tiles: 4x4x4 bricks,
                                         # a whole 6^3 sample, a whole 3^3 one
                                         ((1, 8, 8, 8, 16), 16), ((1, 6, 6, 6, 32), 16),
-                                        ((2, 3, 3, 3, 32), 32)])
+                                        ((2, 3, 3, 3, 32), 32),
+                                        # the search space's widths (fs 12/24/36),
+                                        # which the card pads to 16: one brick at
+                                        # 12->12, 36->36 and Cin = 1, 4x4x4 boxes
+                                        # at the decoder's 24->12 and 48->24, a
+                                        # whole 3^3 sample at 72->72
+                                        ((1, 4, 4, 16, 12), 12), ((1, 4, 4, 8, 24), 12),
+                                        ((1, 4, 4, 4, 48), 24), ((1, 4, 4, 16, 36), 36),
+                                        ((1, 3, 3, 3, 72), 72), ((1, 4, 4, 16, 1), 12)])
 def test_k4_plain_matches_jax(rng, shape, cout, prologue):
     b, cin = shape[0], shape[-1]
     x = rng.standard_normal(shape).astype(np.float32)
@@ -162,6 +170,36 @@ def test_k4_kernel_weights_cached_on_version():
         w.mul_(2.0)   # an in-place update (load_state_dict) bumps the version
     again = fused_conv.kernel_weights(w, torch.float32)
     assert torch.equal(again, 2.0 * packed)
+
+
+def test_k4_kernel_weights_padded_widths():
+    """The tensor-core paths' padded copy `[3, 3, 3, I', O']` is the unpadded
+    one with zero rows and columns appended; the cache holds one copy,
+    keyed on (version, dtype, widths): the same key returns it, another
+    widths or an update rebuilds it."""
+    w = torch.nn.Parameter(torch.randn((12, 36, 3, 3, 3)))
+    plain = fused_conv.kernel_weights(w, torch.bfloat16)
+    padded = fused_conv.kernel_weights(w, torch.bfloat16, (48, 16))
+    assert padded.shape == (3, 3, 3, 48, 16) and padded.is_contiguous()
+    assert torch.equal(padded[..., :36, :12], plain)
+    assert not padded[..., 36:, :].any() and not padded[..., :, 12:].any()
+    assert fused_conv.kernel_weights(w, torch.bfloat16, (48, 16)) is padded
+    assert w._miseg_k4_weights[0][2:] == (torch.bfloat16, (48, 16))
+    assert fused_conv.kernel_weights(w, torch.bfloat16, (36, 12)) is not padded
+    assert torch.equal(fused_conv.kernel_weights(w, torch.bfloat16, (36, 12)), plain)
+    assert w._miseg_k4_weights[0][2:] == (torch.bfloat16, (36, 12))
+    before = fused_conv.kernel_weights(w, torch.bfloat16, (48, 16))
+    with torch.no_grad():
+        w.mul_(2.0)
+    after = fused_conv.kernel_weights(w, torch.bfloat16, (48, 16))
+    assert after is not before
+    assert torch.equal(after[..., :36, :12], w.detach().to(torch.bfloat16).permute(2, 3, 4, 1, 0))
+    assert not after[..., 36:, :].any() and not after[..., :, 12:].any()
+    with torch.inference_mode():   # no version counter: packed per call, not cached
+        wi = torch.randn((4, 8, 3, 3, 3))
+        got = fused_conv.kernel_weights(wi, torch.float32, (16, 16))
+        assert torch.equal(got[..., :8, :4], wi.permute(2, 3, 4, 1, 0))
+        assert not got[..., 8:, :].any() and not got[..., :, 4:].any()
 
 
 # ---------------------------------------------------------------- K3 ------
