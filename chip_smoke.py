@@ -27,33 +27,57 @@ Phases, one result line each; any failed check exits non-zero:
   3. model   — one full-width (feature_size 48, heads 3) window in f32,
                card against CPU, through the fused conv chain (the
                default) and through the unfused path (`fused_conv=False`);
-  4. serve   — a full-width C-Swin-UNETR bundle (seeded random weights,
-               bf16, 96^3 ROI, gaussian blend, overlap 0.5) answers
-               volume requests through `load_bundle(...).predict`; the
-               kernels' launch counters must rise by the per-window counts.
+  4. serve   — the full-width C-Swin-UNETR (seeded random weights, bf16,
+               96^3 ROI, gaussian blend, overlap 0.5) exported on the CPU
+               as a version-3 bundle (`serve.export_bundle`: the window
+               forward through `torch.export`, every kernel a `miseg::` op
+               in it) with 224^3 and 160x192x128 volume programs, once
+               with the weights as arguments and once baked, and served on
+               the card: in each form four requests eagerly (the generic
+               inferer over the window program run as it is; the launch
+               counters must rise by the per-window counts), through the
+               served window (one CUDA graph of a window, replayed for
+               each window) and through the volume programs captured as
+               CUDA graphs (each captured answer against eager within the
+               repeat tolerance; a replay launches nothing from Python,
+               and a profiled 224^3 request through the window graph and
+               a profiled replay of each volume program must run
+               `PER_WINDOW` x windows kernels by name), with seconds and
+               windows/s of all three, capture times, the 224^3 device
+               busy time and idle share of both graphs, and memory with
+               and without the graphs and after the bundle is dropped.
                Then one window through the fused and the unfused model
-               (same weights), and a profile of one window, which fails
+               (same weights), and profiles of one served (replayed) and
+               one uncaptured window, each of which fails
                unless the window ran 20 K4 kernels (12 coarse, one Cin = 1,
                none on the FMA path or its split-K reduce), 51 K1 kernels
                (31 statistics, 20 folds), 29 K2 and 6 K3 kernels, all of
-               them the CUDA ones;
+               them the CUDA ones; `load_bundle` plus the first window of a
+               version-3 bundle against a version-2 one; the exported
+               window programs of C-UNETR, C-UNet and UNetVanilla against
+               their live models; and one 96^3 SSLHead ("vae") forward in
+               bf16 on the card against the CPU in f32, K5 launching;
   5. serve_http — the serving-from-disk path over a real socket: the same
-               flagship bundle behind `cli.serve.make_server` (kernels and
-               resampler built, one window run before it listens), a
-               CT-like scan (512x512x200 int16, 0.4x0.4x0.6 mm, LPS, 32
-               windows) and an MR-like one (256x256x128 float32,
+               flagship bundle, exported with the CT's preprocessed shape
+               as a volume program, behind `cli.serve.make_server`
+               (kernels and resampler built, one window run before it
+               listens), a CT-like scan (512x512x200 int16, 0.4x0.4x0.6 mm,
+               LPS, 32 windows) and an MR-like one (256x256x128 float32,
                1.2x1.2x1.5 mm, 108 windows) written as .nii.gz from a seed
                and POSTed: GET /health, a 404 and an empty POST's JSON 400;
                each answer a uint16 NIfTI in the scan's own grid with
                exactly its affine, voxel for voxel the in-process pipeline
                (chain -> predict -> argmax -> inverse), classes 0..5 or the
-               MM-WHS values with remap=whs; launches PER_WINDOW x windows
-               per request; predict under inference mode in a handler
-               thread with logits that need no gradient and no autograd
-               Function run; the two scans at once answer their serial
-               answers; a line a request with seconds of upload+decode,
-               preprocess, device predict, argmax+copy, inverse, encode and
-               total, and windows/s;
+               MM-WHS values with remap=whs; the CT's requests replaying
+               its captured volume program and the MR's replaying the
+               window graph once a window (no launch from Python; a served
+               MR predict runs PER_WINDOW x windows kernels by name under
+               the profiler); predict under inference
+               mode in a handler thread with logits that need no gradient
+               and no autograd Function run; the two scans at once answer
+               their serial answers; a line a request with seconds of
+               upload+decode, preprocess, device predict, argmax+copy,
+               inverse, encode and total, and windows/s;
   6. train   — training through `train.engine.Trainer`: (a) each kernel's
                autograd Function (K1 with banks and K2 with its add at
                [1,48^3,48], K3 at [1,96^3,48], K4 with a prologue at 96^3,
@@ -160,8 +184,9 @@ Phases, one result line each; any failed check exits non-zero:
                each trial, the dashboard's report, the states against the
                pruner's rule; a line a trial (params, best Dice, state,
                seconds by part, step ms p50, peak memory).
-Then one JSON line of kernels (with each kernel's launches a train step,
-the JAX VJP its backward follows, its launches in the fit's train steps
+Then one JSON line of kernels (with each kernel's `miseg::` op, its
+kernels in a replay of the captured 224^3 volume program, its launches a
+train step, the JAX VJP its backward follows, its launches in the fit's train steps
 and evaluations, and its launches in C-UNETR's, C-UNet's and
 UNetVanilla's windows, steps and fits, and in the fine-tune's forward and
 recompute a step and its fit, and in the tune study, with K4's and K5's
@@ -357,7 +382,9 @@ def profiled(run, ok, attempts: int = 3, lead=None) -> list:
     first runs ATen's `spin_kernel` (`torch.cuda._sleep`) and waits 5 ms
     on the host; with `lead`, it then runs `lead()` (a call like `run`'s,
     whose kernels take any such loss) and a second spin kernel, and only
-    the events that start after that spin are `run()`'s.  Spin kernels are
+    the events that start after that spin are `run()`'s.  A last spin
+    kernel follows `run()`, so no kernel of its is the session's last.
+    Spin kernels are
     left out of the events; a kernel that launches wrongly fails every
     session.  Device-side user annotations (the optimizer's
     `Optimizer.step` range) are left out too: they span kernels that are
@@ -376,10 +403,13 @@ def profiled(run, ok, attempts: int = 3, lead=None) -> list:
                 torch.cuda.synchronize()
             run()
             torch.cuda.synchronize()
+            torch.cuda._sleep(1000)   # run()'s last kernels are not the session's last
+            torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)]
-        spins = [e.time_range.start for e in events if "spin_kernel" in e.name]
-        after = max(spins) if lead is not None and spins else float("-inf")
+        # the spins: the first, the one after `lead()`, the last after `run()`
+        spins = sorted(e.time_range.start for e in events if "spin_kernel" in e.name)
+        after = spins[-2] if lead is not None and len(spins) >= 2 else float("-inf")
         events = [e for e in events
                   if "spin_kernel" not in e.name and e.time_range.start > after]
         if ok(events):
@@ -1051,71 +1081,413 @@ def phase_model(dev):
           f"CPU forward {cpu_s:.1f} s")
 
 
-def phase_serve(dev) -> dict:
+# the volume shapes the flagship bundle exports as volume programs: the
+# 224^3 request (64 windows) and the 160x192x128 one (48 windows)
+SERVE_VOLUMES = [(224, 224, 224), (160, 192, 128)]
+# kernel-name substrings of a profiled replay -> `PER_WINDOW` key, first
+# match wins (the fold before the statistics kernel)
+REPLAY_KERNELS = [("K1 fold", "miseg_k1_fold"), ("K1", "miseg_k1_stats"), ("K2", "miseg_k2_"),
+                  ("K3", "miseg_k3_"), ("K4", "miseg_k4_"),
+                  ("K5", ("miseg_k5_", "window_attention_kernel"))]
+
+
+def replay_counts(events) -> dict:
+    """Device kernels of profiled `events` by `PER_WINDOW` key, by name."""
+    out = dict.fromkeys(PER_WINDOW, 0)
+    for e in events:
+        for key, subs in REPLAY_KERNELS:
+            if any(sub in e.name for sub in ((subs,) if isinstance(subs, str) else subs)):
+                out[key] += 1
+                break
+    return out
+
+
+def gib(n: int) -> str:
+    return f"{n / 2 ** 30:.3f} GiB"
+
+
+def device_kernels(run, want: dict) -> dict:
+    """Kernels by `PER_WINDOW` key that `run()` ran on the device, by name
+    under the profiler (a CUDA graph replay launches nothing from Python,
+    so only the profiler sees its kernels), after a lead call of `run`:
+    the first of three sessions that counts `want`, else the last."""
+    return replay_counts(profiled(run, lambda ev: replay_counts(ev) == want, lead=run))
+
+
+def window_graph_kernels(served, vol, mod: int, per: dict, windows: int) -> dict:
+    """What a request of `vol` served through the window graph runs on the
+    device: the window graph must replay `windows` times in one
+    `predict`, and one replayed window must run `per` kernels by name
+    under the profiler (a whole UNetVanilla request's ~21,500 kernels
+    read two short there in every session).  Returns `per` x the
+    replays."""
+    calls = served.window_graph.calls
+    with torch.inference_mode():
+        served.predict(vol, [mod])
+    replays = served.window_graph.calls - calls
+    check(replays == windows, f"a {tuple(vol.shape[1:-1])} request replayed the window graph "
+                              f"{replays} times, want {windows}")
+    window = torch.rand((1, *served.meta["roi"], int(served.meta["in_channels"])),
+                        generator=torch.Generator().manual_seed(20)).to(served.device)
+    mods = torch.tensor([mod], dtype=torch.int32, device=served.device)
+    kernels = device_kernels(lambda: served(window, mods), per)
+    check(kernels == per, f"a replayed window ran kernels by name {kernels}, want {per}")
+    return {k: n * replays for k, n in kernels.items()}
+
+
+def phase_serve(dev) -> tuple[dict, dict]:
+    """The flagship bundle (seeded random weights, bf16, 96^3 ROI, gaussian
+    blend, overlap 0.5), exported on the CPU with `SERVE_VOLUMES` as volume
+    programs, once in each form (weights as arguments, and baked), served
+    on the card.  In each form the four requests run three ways: eagerly
+    (the generic inferer over the window program run as it is; the launch
+    counters must rise by the per-window counts), through the served
+    window (the generic inferer over `ServedModel.__call__`, one CUDA graph
+    of a window replayed for each window: its first call warms up and
+    captures, launching twice the per-window counts, then nothing from
+    Python) and through the volume programs captured as CUDA graphs (the
+    first request of a shape warms up and captures, launching twice the
+    counts; a replay launches nothing from Python).  Each captured answer
+    lies within the repeat tolerance of the eager one.  A profiled 224^3
+    request through the window graph and one replay of each volume
+    program must run `PER_WINDOW` x windows kernels by name, the 224^3
+    ones giving the device busy time and idle share; memory with and
+    without the graphs, and after the `ServedModel` is dropped.  Then the
+    fused and unfused window, profiles of a served and of an uncaptured
+    window, the start-up of a version-3 against a version-2 bundle, the
+    exported window programs of the other three models against their
+    live models, and SSLHead.  Returns (the Python launches of all the
+    requests, the kernels of a 224^3 volume replay)."""
+    import gc
+
     from miseg_tpu_torch.config import Config
-    from miseg_tpu_torch.inferers import window_starts
+    from miseg_tpu_torch.inferers import SlidingWindowInferer, window_starts
     from miseg_tpu_torch.models import model_from_config
-    from miseg_tpu_torch.serve import load_bundle, save_bundle
+    from miseg_tpu_torch.serve import export_bundle, load_bundle
 
     cfg = Config(**FLAGSHIP)
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    state = model_from_config(cfg, device="cpu").state_dict()
+    export_s = {}
+    for form, bake in (("arguments", False), ("baked", True)):
+        t0 = time.perf_counter()
+        export_bundle(cfg, state, root / form, volume_shapes=SERVE_VOLUMES, bake_params=bake)
+        export_s[form] = time.perf_counter() - t0
+    del state
+    sizes = {f.name: f.stat().st_size for f in (root / "baked").iterdir()}
+    print(f"serve: flagship bundles exported on the CPU (volume programs "
+          f"{['x'.join(map(str, v)) for v in SERVE_VOLUMES]}): argument form "
+          f"{export_s['arguments']:.1f} s, baked {export_s['baked']:.1f} s; file MB "
+          + ", ".join(f"{k} {v / 1e6:.1f}" for k, v in sorted(sizes.items())))
     gen = torch.Generator().manual_seed(2)
-    with tempfile.TemporaryDirectory() as tmp:
-        model = model_from_config(cfg, device=dev)
-        save_bundle(cfg, model.state_dict(), tmp)
-        del model
-        served = load_bundle(tmp)
-    check(served.compute_dtype == torch.bfloat16, "serve: bundle is not bf16")
     vol_a = torch.rand((1, 224, 224, 224, 1), generator=gen)
     vol_b = torch.rand((1, 160, 192, 128, 1), generator=gen)
     requests = [("224^3 modality 0", vol_a, 0), ("224^3 modality 1", vol_a, 1),
                 ("160x192x128 modality 0", vol_b, 0), ("224^3 modality 0 repeat", vol_a, 0)]
+    windows = [len(window_starts(v.shape[1:-1], cfg.roi, cfg.infer_overlap)[1])
+               for _, v, _ in requests]
     totals = dict.fromkeys(PER_WINDOW, 0)
-    outs = []
-    for label, vol, mod in requests:
-        windows = len(window_starts(vol.shape[1:-1], cfg.roi, cfg.infer_overlap)[1])
+    replay224 = None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+
+    def timed(fn, vol, mod):
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
-        out = served.predict(vol, [mod])
+        out = fn(vol, torch.tensor([mod], dtype=torch.int32))
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         counts = launch_counts()
-        check(tuple(out.shape) == (*vol.shape[:-1], cfg.out_channels),
-              f"serve {label}: shape {tuple(out.shape)}")
-        check(bool(torch.isfinite(out).all()), f"serve {label}: non-finite logits")
-        for k, per in PER_WINDOW.items():
-            check(counts[k] == per * windows,
-                  f"serve {label}: {k} launched {counts[k]} times, want {per} x {windows}")
+        for k in PER_WINDOW:
             totals[k] += counts[k]
-        outs.append(out)
-        print(f"  request {label}: {windows} windows, {sec:.3f} s, "
-              f"{windows / sec:.2f} windows/s, launches {counts}, "
-              f"|logits| <= {float(out.abs().max()):.3f}")
-    rep = max_err(outs[3], outs[0])
-    rep_tol = 1e-3 * (1.0 + float(outs[0].abs().max()))
-    check(rep <= rep_tol, f"serve: repeated request differs by {rep:.3e} > {rep_tol:.3e}")
-    print(f"serve: {len(requests)} full-width bf16 requests answered; repeat "
-          f"max |diff| {rep:.3e} (tol {rep_tol:.3e}); launches per window {PER_WINDOW}")
-    compare_paths(served, cfg, dev)
-    profile_window(served, dev)
-    return totals
+        return out, sec, counts
+
+    for form in ("arguments", "baked"):
+        served = load_bundle(root / form)
+        check(served.compute_dtype == torch.bfloat16, "serve: bundle is not bf16")
+        check(served.form == form, f"serve {form}: loaded the {served.form} window program")
+        inferer = lambda fn: SlidingWindowInferer(   # noqa: E731
+            fn, cfg.roi, cfg.sw_batch_size, cfg.infer_overlap, "gaussian",
+            out_channels=cfg.out_channels, device=dev)
+        eager, windowed = inferer(served.window_fn), inferer(served)
+        torch.cuda.reset_peak_memory_stats(dev)
+        outs, eager_s = [], []
+        for (label, vol, mod), n in zip(requests, windows):
+            out, sec, counts = timed(eager, vol, mod)
+            eager_s.append(sec)
+            check(tuple(out.shape) == (*vol.shape[:-1], cfg.out_channels),
+                  f"serve {form} {label}: shape {tuple(out.shape)}")
+            check(bool(torch.isfinite(out).all()), f"serve {form} {label}: non-finite logits")
+            want = {k: per * n for k, per in PER_WINDOW.items()}
+            check(counts == want, f"serve {form} {label}: launched {counts}, want {want}")
+            outs.append(out)
+        peak_eager = torch.cuda.max_memory_allocated(dev)
+        rep = max_err(outs[3], outs[0])
+        rep_tol = 1e-3 * (1.0 + float(outs[0].abs().max()))
+        check(rep <= rep_tol, f"serve {form}: repeated request differs by {rep:.3e} > "
+                              f"{rep_tol:.3e}")
+
+        def captured(i, label, out, first, what):
+            want = {k: (2 * per if first else 0) for k, per in PER_WINDOW.items()}
+            diff = max_err(out, outs[i])
+            tol = 1e-3 * (1.0 + float(outs[i].abs().max()))
+            check(diff <= tol, f"serve {form} {label} {what}: against eager {diff:.3e} > "
+                               f"{tol:.3e}")
+            return want, diff, tol
+
+        graph_s = []
+        for i, ((label, vol, mod), n) in enumerate(zip(requests, windows)):
+            first = served.window_graph.graph is None
+            out, sec, counts = timed(windowed, vol, mod)
+            graph_s.append(sec)
+            want, diff, tol = captured(i, label, out, first, "window graph")
+            check(counts == want, f"serve {form} {label} window graph: launched {counts} "
+                                  f"from Python, want {want}")
+            check(out.data_ptr() != outs[i].data_ptr(), f"serve {form} {label}: aliasing")
+            print(f"  request {form} {label}: {n} windows; eager {eager_s[i]:.3f} s, "
+                  f"{n / eager_s[i]:.2f} windows/s; window graph {sec:.3f} s, "
+                  f"{n / sec:.2f} windows/s" + (f" (capture {served.window_graph.capture_s:.3f}"
+                                                 " s)" if first else "")
+                  + f", against eager max |diff| {diff:.3e} (tol {tol:.3e})")
+        peak_window = torch.cuda.max_memory_allocated(dev)
+        seen = set()
+        for i, ((label, vol, mod), n) in enumerate(zip(requests, windows)):
+            spatial = tuple(vol.shape[1:-1])
+            out, sec, counts = timed(served.predict, vol, mod)
+            prog = served.volume_program(spatial)
+            check(prog is not None and prog.graph is not None,
+                  f"serve {form} {label}: no captured volume program")
+            first = spatial not in seen
+            seen.add(spatial)
+            want, diff, tol = captured(i, label, out, first, "volume graph")
+            want = {k: v * n for k, v in want.items()}
+            check(counts == want, f"serve {form} {label}: launched {counts} from Python, "
+                                  f"want {want} ({'warm-up and capture' if first else 'replay'})")
+            check(out.data_ptr() != prog._out.data_ptr(),
+                  f"serve {form} {label}: the answer is the graph's own buffer")
+            what = (f"first call {sec:.3f} s (capture {prog.capture_s:.3f} s)" if first else
+                    f"replay {sec:.3f} s, {n / sec:.2f} windows/s")
+            print(f"  request {form} {label}: volume graph {what}; against eager max |diff| "
+                  f"{diff:.3e} (tol {tol:.3e}); |logits| <= {float(outs[i].abs().max()):.3f}")
+        for how, fn in (("window graph", lambda v: windowed(v, torch.tensor([0], dtype=torch.int32))),
+                        ("volume replay", lambda v: served.predict(v, [0]))):
+            for vol, n in ((vol_a, windows[0]), (vol_b, windows[2])):
+                if how == "window graph" and vol is vol_b:
+                    continue
+                want = {k: per * n for k, per in PER_WINDOW.items()}
+                walls = []
+
+                def run(vol=vol, fn=fn):
+                    t0 = time.perf_counter()
+                    fn(vol)
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+
+                events = profiled(run, lambda ev, want=want: replay_counts(ev) == want)
+                got = replay_counts(events)
+                shape = "x".join(map(str, vol.shape[1:-1]))
+                check(got == want, f"serve {form} {shape} {how}: kernels by name {got}, "
+                                   f"want {want}")
+                if vol is vol_a:
+                    if how == "volume replay":
+                        replay224 = got
+                    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+                    _, groups = kernel_groups(events, 1)
+                    print(f"  {how} {form} {shape} profiled: kernels by name {got} (= "
+                          f"PER_WINDOW x {n}); {walls[-1]:.2f} ms wall under the profiler, "
+                          f"{busy:.2f} ms device busy (idle share "
+                          f"{max(0.0, 1 - busy / walls[-1]):.1%}), {len(events)} kernels; by "
+                          "group ms: " + ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(
+                              groups.items(), key=lambda kv: -kv[1])))
+                else:
+                    print(f"  {how} {form} {shape} profiled: kernels by name {got} (= "
+                          f"PER_WINDOW x {n})")
+        peak_programs = torch.cuda.max_memory_allocated(dev)
+        held = torch.cuda.memory_allocated(dev)
+        if form == "arguments":
+            compare_paths(served, cfg, dev)
+            profile_window(served, dev, label="one 96^3 window served (window graph replay)")
+
+            def uncaptured(window, mods):
+                with torch.inference_mode():
+                    return served.window_fn(window, mods)
+
+            profile_window(uncaptured, dev, label="one 96^3 window, program run uncaptured")
+        del served, eager, windowed, outs, out, prog
+        gc.collect()
+        torch.cuda.synchronize()
+        if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):   # one per capture stream
+            torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        after = torch.cuda.memory_allocated(dev)
+        print(f"  memory {form}: before load {gib(base)}; peak over the eager requests "
+              f"{gib(peak_eager)}, with the window graph {gib(peak_window)}, with both volume "
+              f"programs captured too {gib(peak_programs)}, held with all three {gib(held)}; "
+              f"after the ServedModel is dropped {gib(after)}")
+        check(after - base < 64 << 20, f"serve {form}: {gib(after - base)} left after the "
+                                       f"ServedModel was dropped")
+    serve_startup(root, dev)
+    tmp.cleanup()
+    print(f"serve: {len(requests)} full-width bf16 requests answered in each form, eagerly, "
+          f"through the window graph and through captured volume programs; launches per "
+          f"window {PER_WINDOW}")
+    other_models_exported(dev)
+    ssl_head_card_vs_cpu(dev)
+    return totals, replay224
+
+
+def serve_startup(root: Path, dev, rounds: int = 2) -> None:
+    """`load_bundle` plus the first window's answer, for the version-3
+    bundle (argument form) against a version-2 bundle of the same weights
+    (its meta without programs: the model is rebuilt), in turns."""
+    import gc
+    import shutil
+
+    from miseg_tpu_torch.serve import load_bundle
+
+    v2 = root / "v2"
+    v2.mkdir()
+    meta = json.loads((root / "arguments" / "meta.json").read_text())
+    old = {k: v for k, v in meta.items()
+           if k not in ("platforms", "window_baked", "volume_programs")}
+    (v2 / "meta.json").write_text(json.dumps({**old, "bundle_version": 2}))
+    shutil.copy(root / "arguments" / "weights.pt", v2 / "weights.pt")
+    window = torch.rand((1, 96, 96, 96, 1), generator=torch.Generator().manual_seed(6))
+    took: dict[str, list[tuple[float, float]]] = {"version 3": [], "version 2": []}
+    for _ in range(rounds):
+        for name, path in (("version 3", root / "arguments"), ("version 2", v2)):
+            gc.collect()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            served = load_bundle(path)
+            t1 = time.perf_counter()
+            served(window, [0])
+            torch.cuda.synchronize()
+            took[name].append((t1 - t0, time.perf_counter() - t0))
+            del served
+    print("  start-up (load_bundle / + the first 96^3 window's answer, s, "
+          f"{rounds} rounds in turns): " + "; ".join(
+              f"{k} " + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in v) for k, v in took.items()))
+
+
+def other_models_exported(dev) -> None:
+    """The exported window programs of C-UNETR, C-UNet and UNetVanilla
+    (bf16 bundles exported on the CPU from seeded weights) on the card
+    against their live models built on the card from the bundle's weights,
+    one 96^3 window each: the program run as it is launches the per-window
+    counts, the served window (a replay of its graph) runs the same
+    kernels by name and launches nothing from Python, and both answers lie
+    within the repeat tolerance of the live model's."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.models import model_from_config
+    from miseg_tpu_torch.serve import _window_fn, export_bundle, load_bundle
+
+    gen = torch.Generator().manual_seed(7)
+    window = torch.rand((1, 96, 96, 96, 1), generator=gen).to(dev)
+    for label, model_cfg, per in (("C-UNETR", UNETR, UNETR_PER_WINDOW),
+                                  ("C-UNet", CUNET, CUNET_PER_WINDOW),
+                                  ("UNetVanilla", VANILLA, VANILLA_PER_WINDOW)):
+        cfg = Config(**model_cfg)
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            export_bundle(cfg, model_from_config(cfg, device="cpu").state_dict(), tmp)
+            export_s = time.perf_counter() - t0
+            served = load_bundle(tmp)
+        live = model_from_config(cfg, device=dev, dtype=torch.bfloat16)
+        live.load_state_dict(served.state_dict(), strict=True)
+        mods = torch.tensor([1], dtype=torch.int32, device=dev)
+        served(window, mods)   # warm-up and capture
+        torch.cuda.synchronize()
+        reset_launches()
+        with torch.inference_mode():
+            got = served.window_fn(window, mods)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts == per, f"exported {label} window: launched {counts}, want {per}")
+        reset_launches()
+        kernels = device_kernels(lambda: served(window, mods), per)
+        check(kernels == per and launch_counts() == dict.fromkeys(PER_WINDOW, 0),
+              f"exported {label} served window: kernels by name {kernels}, want {per}; "
+              f"launched from Python {launch_counts()}")
+        replayed = served(window, mods)
+        with torch.inference_mode():
+            want = _window_fn(live, torch.bfloat16)(window, mods)
+        diff, diff_replay = max_err(got, want), max_err(replayed, want)
+        tol = 1e-3 * (1.0 + float(want.abs().max()))
+        check(bool(torch.isfinite(got).all()) and max(diff, diff_replay) <= tol,
+              f"exported {label} window vs live model: {diff:.3e} / replayed "
+              f"{diff_replay:.3e} > {tol:.3e}")
+        print(f"  exported {label}: traced on the CPU in {export_s:.1f} s; one 96^3 bf16 window "
+              f"on the card launches {counts}, its graph replays the same kernels; against "
+              f"the live model max |diff| {diff:.3e}, replayed {diff_replay:.3e} "
+              f"(tol {tol:.3e})")
+        del served, live
+
+
+def ssl_head_card_vs_cpu(dev, size: int = 96) -> None:
+    """SSLHead ("vae" decoder, feature_size 48, dim 768), seeded weights:
+    one `size`^3 forward in bf16 on the card (K5 launched 8 times, the
+    decoder's 5 parameter-free norms one K1 and one K2 each) against the
+    CPU in f32: each output finite, within 5% of its largest value, and
+    with a cosine similarity of at least 0.999."""
+    from miseg_tpu_torch.models import SSLHead
+    from miseg_tpu_torch.models.factory import init_weights
+
+    cpu = SSLHead(feature_size=48, upsample="vae", device="cpu").eval()
+    init_weights(cpu, torch.Generator().manual_seed(16))
+    card = SSLHead(feature_size=48, upsample="vae", device=dev, dtype=torch.bfloat16).eval()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.rand((1, size, size, size, 1), generator=torch.Generator().manual_seed(17))
+    with torch.inference_mode():
+        card(x.to(dev, torch.bfloat16))
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = card(x.to(dev, torch.bfloat16))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        want = cpu(x)
+        cpu_s = time.perf_counter() - t0
+    want_counts = {"K1": 5, "K2": 5, "K3": 0, "K4": 0, "K5": 8, "K1 fold": 0}
+    check(counts == want_counts, f"ssl head: launched {counts}, want {want_counts}")
+    words = []
+    for name, g, w in zip(("rotation", "contrastive", "reconstruction"), got, want):
+        g = g.float().cpu()
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"ssl head {name}: shape {tuple(g.shape)} or non-finite")
+        err, scale = max_err(g, w), float(w.abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0))
+        check(err <= 0.05 * scale and cos >= 0.999,
+              f"ssl head {name}: card bf16 vs CPU f32 max |diff| {err:.3e} (|max| {scale:.3e}), "
+              f"cosine {cos:.6f}")
+        words.append(f"{name} {tuple(g.shape)} max |diff| {err:.3e} of {scale:.3e}, "
+                     f"cosine {cos:.6f}")
+    print(f"  ssl head (vae, fs48): one {size}^3 forward, card bf16 {card_s:.3f} s vs CPU f32 "
+          f"{cpu_s:.1f} s; launches {counts}; " + "; ".join(words))
 
 
 def compare_paths(served, cfg, dev, reps: int = 10) -> None:
-    """One 96^3 bf16 window through the served (fused conv chain) model and
-    through an unfused model with the same weights: CUDA-event ms of each,
-    timed in turns, and the max |diff| of their logits."""
+    """One 96^3 bf16 window through a fused-conv-chain model and through an
+    unfused model, both built on the card from the served bundle's
+    weights: CUDA-event ms of each, timed in turns, and the max |diff| of
+    their logits."""
     from miseg_tpu_torch.models import model_from_config
 
+    fused = model_from_config(cfg, device=dev, dtype=torch.bfloat16)
     unfused = model_from_config(cfg, device=dev, dtype=torch.bfloat16, fused_conv=False)
-    unfused.load_state_dict(served.model.state_dict(), strict=True)
+    for model in (fused, unfused):
+        model.load_state_dict(served.state_dict(), strict=True)
     gen = torch.Generator().manual_seed(4)
     window = torch.rand((1, 96, 96, 96, 1), generator=gen).to(dev, torch.bfloat16)
     mods = torch.tensor([1], dtype=torch.int32, device=dev)
     with torch.inference_mode():
-        fused_out = served.model(window, mods).float()
+        fused_out = fused(window, mods).float()
         plain_out = unfused(window, mods).float()
-        models = {"fused": served.model, "unfused": unfused}
+        models = {"fused": fused, "unfused": unfused}
         ms = {"fused": [], "unfused": []}
         for name in ("fused", "unfused", "unfused", "fused"):   # in turns
             ms[name].append(time_ms(lambda: models[name](window, mods), reps=reps))
@@ -1125,7 +1497,7 @@ def compare_paths(served, cfg, dev, reps: int = 10) -> None:
           f"turns): fused conv chain {ms['fused'][0]:.3f} / {ms['fused'][1]:.3f}, "
           f"unfused (cuDNN + K1/K2) {ms['unfused'][0]:.3f} / {ms['unfused'][1]:.3f}; "
           f"logits max |diff| {diff:.3e} (|logits| <= {float(plain_out.abs().max()):.3f})")
-    del unfused
+    del fused, unfused
 
 
 # kernel-name substrings -> group, first match wins
@@ -1343,31 +1715,40 @@ def phase_serve_http(dev, card: str) -> dict:
     (seeded random weights, bf16) behind `cli.serve.make_server`, two
     synthetic scans POSTed as `.nii.gz`.  Checks the routes, that each
     answer is a uint16 NIfTI in the scan's own grid with exactly its
-    affine, voxel for voxel the in-process pipeline's labels, with every
-    kernel launched its per-window count times the request's windows, no
+    affine, voxel for voxel the in-process pipeline's labels, each request
+    through its CUDA graphs (the CT's volume program once, the window
+    graph once a window for the MR, nothing launched from Python), no
     autograd Function run and logits that need no gradient in the handler
     thread, and the same answers when both scans arrive at once.  Returns
-    the launches over all requests."""
+    the kernels by name of one served MR predict (`PER_WINDOW` x its
+    windows)."""
     import threading
 
     import numpy as np
 
     from miseg_tpu_torch.cli.predict_whs import MMWHS_LABEL_MAP, remap_labels
-    from miseg_tpu_torch.cli.serve import make_server
+    from miseg_tpu_torch.cli.serve import _eval_chain, make_server
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.data.nifti import load_nifti
     from miseg_tpu_torch.inferers import window_starts
     from miseg_tpu_torch.models import model_from_config
-    from miseg_tpu_torch.serve import save_bundle
+    from miseg_tpu_torch.serve import export_bundle
 
     t_phase = time.perf_counter()
     cfg = Config(**FLAGSHIP)
     tmp = tempfile.TemporaryDirectory()
     root = Path(tmp.name)
-    save_bundle(cfg, model_from_config(cfg, device=dev).state_dict(), root / "bundle")
     t0 = time.perf_counter()
     scans = synthetic_scans(root)
     write_s = time.perf_counter() - t0
+    # the CT's preprocessed shape gets a volume program
+    chain = _eval_chain({"spacing": list(cfg.spacing), "roi": list(cfg.roi)})
+    ct_shape = tuple(chain({"image": str(scans[0]["path"])})["image"].shape[:3])
+    ct_tag = "x".join(map(str, ct_shape))
+    t0 = time.perf_counter()
+    export_bundle(cfg, model_from_config(cfg, device="cpu").state_dict(), root / "bundle",
+                  volume_shapes=[ct_shape])
+    export_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     server = make_server(str(root / "bundle"), port=0)
     make_s = time.perf_counter() - t0
@@ -1451,8 +1832,30 @@ def phase_serve_http(dev, card: str) -> dict:
                   f"pipeline (logits repeatable: {scan['repeatable']})")
             return got.data
 
+        # the CT's volume program was captured by the pipeline above, the
+        # window graph by make_server's warm-up window; the CT's requests
+        # replay the program and the MR's the window graph for each of its
+        # windows, launching nothing from Python.  What an MR request runs
+        # on the device is counted by name under the profiler.
+        served = service.served
+        program = served.volume_program(ct_shape)
+        check(program is not None and program.graph is not None
+              and served.loaded_volume_programs() == [ct_tag],
+              f"http: the CT's volume program {ct_tag} was not captured")
+        check(program.calls == 2,
+              f"http: {program.calls} calls of the CT's volume program, want 2")
+        check(served.window_graph.graph is not None,
+              "http: the served window was not captured")
+        mr_image = torch.from_numpy(np.ascontiguousarray(
+            service.preprocess(scans[1]["bytes"])["image"]))[None]
+        http_kernels = window_graph_kernels(served, mr_image, 1, PER_WINDOW,
+                                            scans[1]["windows"])
+        del mr_image
+        per_request = {scan["label"]: dict.fromkeys(PER_WINDOW, 0) for scan in scans}
+        # window-graph calls a request makes: one a window for the MR
+        graph_calls = {scans[0]["label"]: 0, scans[1]["label"]: scans[1]["windows"]}
+
         # ---- serial requests -----------------------------------------------
-        totals = dict.fromkeys(PER_WINDOW, 0)
         serial = {}
         for scan, remap in ((scans[0], False), (scans[1], False), (scans[0], True)):
             label = scan["label"] + (" remap=whs" if remap else "")
@@ -1461,16 +1864,21 @@ def phase_serve_http(dev, card: str) -> dict:
             reset_launches()
             seen.clear()
             applied.clear()
+            calls, window_calls = program.calls, served.window_graph.calls
             t0 = time.perf_counter()
             status, headers, out = http(url, scan["bytes"])
             client_s = time.perf_counter() - t0
             counts = launch_counts()
             check(status == 200, f"http {label}: status {status} {out[:300]!r}")
-            for k, per in PER_WINDOW.items():
-                check(counts[k] == per * scan["windows"],
-                      f"http {label}: {k} launched {counts[k]} times, want {per} x "
-                      f"{scan['windows']}")
-                totals[k] += counts[k]
+            check(counts == per_request[scan["label"]],
+                  f"http {label}: launched {counts} from Python, want "
+                  f"{per_request[scan['label']]}")
+            check(program.calls - calls == (scan is scans[0]),
+                  f"http {label}: the CT's volume program ran {program.calls - calls} times")
+            ran = served.window_graph.calls - window_calls
+            check(ran == graph_calls[scan["label"]],
+                  f"http {label}: the window graph ran {ran} times, want "
+                  f"{graph_calls[scan['label']]}")
             check(seen == [(True, True, False)],
                   f"http {label}: predict (in a handler thread, under inference mode, "
                   f"logits require grad) {seen}, want [(True, True, False)]")
@@ -1494,6 +1902,7 @@ def phase_serve_http(dev, card: str) -> dict:
         reset_launches()
         seen.clear()
         applied.clear()
+        calls, window_calls = program.calls, served.window_graph.calls
         results: dict[str, tuple] = {}
         barrier = threading.Barrier(len(scans))
 
@@ -1511,11 +1920,12 @@ def phase_serve_http(dev, card: str) -> dict:
         both_s = time.perf_counter() - t0
         check(not any(c.is_alive() for c in clients), "http: a concurrent request hung")
         counts = launch_counts()
-        windows = sum(s["windows"] for s in scans)
-        for k, per in PER_WINDOW.items():
-            check(counts[k] == per * windows,
-                  f"http concurrent: {k} launched {counts[k]} times, want {per} x {windows}")
-            totals[k] += counts[k]
+        check(counts == dict.fromkeys(PER_WINDOW, 0),
+              f"http concurrent: launched {counts} from Python, want none (graph replays)")
+        ran = (program.calls - calls, served.window_graph.calls - window_calls)
+        check(ran == (1, scans[1]["windows"]),
+              f"http concurrent: the CT's program and the window graph ran {ran} times, "
+              f"want (1, {scans[1]['windows']})")
         check(len(seen) == 2 and all(s == (True, True, False) for s in seen) and not applied,
               f"http concurrent: handler predicts {seen}, Functions {sorted(set(applied))}")
         for scan in scans:
@@ -1538,11 +1948,14 @@ def phase_serve_http(dev, card: str) -> dict:
     print(card)
     print(f"serve_http: {len(scans)} scans over HTTP, 3 serial requests and 2 at once, "
           f"answers in each scan's grid with its exact affine, equal to the in-process "
-          f"pipeline (logits repeatable: {[s['repeatable'] for s in scans]}); launches "
-          f"PER_WINDOW x windows; no autograd Function in the handlers; scans written in "
-          f"{write_s:.1f} s, make_server {make_s:.1f} s, both at once {both_s:.3f} s, phase "
+          f"pipeline (logits repeatable: {[s['repeatable'] for s in scans]}); the CT's "
+          f"requests ({ct_tag}) through its captured volume program, the MR's through the "
+          f"window graph (PER_WINDOW x windows kernels by name); no autograd Function in "
+          f"the handlers; scans written in "
+          f"{write_s:.1f} s, bundle exported on the CPU in {export_s:.1f} s, make_server "
+          f"{make_s:.1f} s, both at once {both_s:.3f} s, phase "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return totals
+    return http_kernels
 
 
 def grad_tolerance(ref: torch.Tensor, dtype) -> float:
@@ -2220,10 +2633,12 @@ def unetr_card_vs_cpu(dev, size: int = 64) -> None:
 def unetr_serve(dev) -> dict:
     """(c) A full-width C-UNETR bundle (bf16, seeded weights) answers a 224^3
     volume (64 windows, gaussian blend, overlap 0.5) through
-    `load_bundle(...).predict`: finite logits of the volume's shape and
-    `UNETR_PER_WINDOW` x 64 launches; then a profile of one window, which
-    must run exactly those kernels, all the CUDA ones.  Returns the
-    launches."""
+    `load_bundle(...).predict`: finite logits of the volume's shape, the
+    window graph replayed 64 times (nothing launched from Python), a
+    replayed window running `UNETR_PER_WINDOW` kernels by name under the
+    profiler (`window_graph_kernels`); then a
+    profile of one window, which must run exactly those kernels, all the
+    CUDA ones.  Returns the kernels of a request."""
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.inferers import window_starts
     from miseg_tpu_torch.models import model_from_config
@@ -2237,7 +2652,7 @@ def unetr_serve(dev) -> dict:
     vol = torch.rand((1, 224, 224, 224, 1), generator=torch.Generator().manual_seed(15))
     windows = len(window_starts(vol.shape[1:-1], cfg.roi, cfg.infer_overlap)[1])
     check(windows == 64, f"unetr serve: {windows} windows, want 64")
-    served.predict(vol, [1])   # warm-up: the per-shape plans and caches
+    served.predict(vol, [1])   # warm-up: the per-shape plans and caches, the capture
     took = []
     for mod in (0, 1):
         torch.cuda.synchronize()
@@ -2246,12 +2661,12 @@ def unetr_serve(dev) -> dict:
         out = served.predict(vol, [mod])
         torch.cuda.synchronize()
         took.append(time.perf_counter() - t0)
-        counts = launch_counts()
         check(tuple(out.shape) == (1, 224, 224, 224, cfg.out_channels),
               f"unetr serve: shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out).all()), "unetr serve: non-finite logits")
-        want = {k: n * windows for k, n in UNETR_PER_WINDOW.items()}
-        check(counts == want, f"unetr serve modality {mod}: launched {counts}, want {want}")
+        check(launch_counts() == dict.fromkeys(PER_WINDOW, 0),
+              f"unetr serve modality {mod}: launched {launch_counts()} from Python")
+    counts = window_graph_kernels(served, vol, 1, UNETR_PER_WINDOW, windows)
     print(f"  unetr serve: 224^3, {windows} windows, modality 0 / 1: {took[0]:.3f} / "
           f"{took[1]:.3f} s ({windows / took[0]:.2f} / {windows / took[1]:.2f} windows/s); "
           f"launches {counts}")
@@ -2497,10 +2912,13 @@ def f64_gradients_card_vs_cpu(cfg, dev, state_dict, batch) -> str:
 def unet_serve(dev) -> dict:
     """(c) A bf16 UNetVanilla bundle (README recipe, seeded weights) answers a
     224^3 volume (64 windows, gaussian blend, overlap 0.5) through
-    `load_bundle(...).predict` with `VANILLA_PER_WINDOW` x 64 launches,
-    then a profiled window that ran exactly those kernels; a bf16 C-UNet
-    bundle's window launches `CUNET_PER_WINDOW` and its profile passes the
-    same check.  Returns the launches of a window of each."""
+    `load_bundle(...).predict` through the window graph, replayed 64 times
+    with nothing launched from Python, a replayed window running
+    `VANILLA_PER_WINDOW` kernels by name under the profiler
+    (`window_graph_kernels`), then a profiled window that ran exactly
+    those kernels; a bf16 C-UNet bundle's window program launches
+    `CUNET_PER_WINDOW`, its replayed window runs them, and its profile
+    passes the same check.  Returns the kernels of a window of each."""
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.inferers import window_starts
     from miseg_tpu_torch.models import model_from_config
@@ -2518,7 +2936,7 @@ def unet_serve(dev) -> dict:
             vol = torch.rand((1, 224, 224, 224, 1), generator=torch.Generator().manual_seed(18))
             windows = len(window_starts(vol.shape[1:-1], cfg.roi, cfg.infer_overlap)[1])
             check(windows == 64, f"{label} serve: {windows} windows, want 64")
-            served.predict(vol, [1])   # warm-up: the per-shape plans and caches
+            served.predict(vol, [1])   # warm-up: the per-shape plans and caches, the capture
             took = []
             for mod in (0, 1):
                 torch.cuda.synchronize()
@@ -2527,28 +2945,33 @@ def unet_serve(dev) -> dict:
                 logits = served.predict(vol, [mod])
                 torch.cuda.synchronize()
                 took.append(time.perf_counter() - t0)
-                counts = launch_counts()
                 check(tuple(logits.shape) == (1, 224, 224, 224, cfg.out_channels),
                       f"{label} serve: shape {tuple(logits.shape)}")
                 check(bool(torch.isfinite(logits).all()), f"{label} serve: non-finite logits")
-                want = {k: n * windows for k, n in per.items()}
-                check(counts == want, f"{label} serve modality {mod}: launched {counts}, "
-                                      f"want {want}")
+                check(launch_counts() == dict.fromkeys(PER_WINDOW, 0),
+                      f"{label} serve modality {mod}: launched {launch_counts()} from Python")
+            counts = window_graph_kernels(served, vol, 1, per, windows)
             print(f"  {label} serve: 224^3, {windows} windows, modality 0 / 1: {took[0]:.3f} / "
                   f"{took[1]:.3f} s ({windows / took[0]:.2f} / {windows / took[1]:.2f} "
                   f"windows/s); launches {counts}")
             out[label] = {k: v // windows for k, v in counts.items()}
         else:
-            window = torch.rand((1, 96, 96, 96, 1), generator=torch.Generator().manual_seed(19))
+            window = torch.rand((1, 96, 96, 96, 1),
+                                generator=torch.Generator().manual_seed(19)).to(dev)
+            mods = torch.tensor([1], dtype=torch.int32, device=dev)
             served(window, [0])
             torch.cuda.synchronize()
             reset_launches()
-            logits = served(window, [1])
+            with torch.inference_mode():
+                logits = served.window_fn(window, mods)
             torch.cuda.synchronize()
             counts = launch_counts()
             check(counts == per, f"{label} window: launched {counts}, want {per}")
             check(bool(torch.isfinite(logits).all()), f"{label} window: non-finite logits")
-            out[label] = counts
+            kernels = device_kernels(lambda: served(window, mods), per)
+            check(kernels == per, f"{label} served window: kernels by name {kernels}, "
+                                  f"want {per}")
+            out[label] = kernels
         profile_window(served, dev, per=per, k4=UNET_WINDOW_K4,
                        label=f"one 96^3 {label} window")
         del served
@@ -3189,7 +3612,9 @@ def tune_windows(dev, size: int = 64) -> dict:
             served(window, [0])
             torch.cuda.synchronize()
             reset_launches()
-            logits = served(window, [1])
+            with torch.inference_mode():
+                logits = served.window_fn(window, torch.tensor([1], dtype=torch.int32,
+                                                                device=dev))
             torch.cuda.synchronize()
             check(launch_counts() == PER_WINDOW and bool(torch.isfinite(logits).all()),
                   f"search window {label} bf16 96^3: launched {launch_counts()}, want "
@@ -3198,6 +3623,8 @@ def tune_windows(dev, size: int = 64) -> dict:
                               lambda ev: not window_faults(ev, 1),
                               lead=lambda: served(window, [1]))
             faults = window_faults(events, 1)
+            if replay_counts(events) != PER_WINDOW:
+                faults.append(f"the served window ran kernels by name {replay_counts(events)}")
             check(not faults, f"search window {label} bf16 96^3 profile: " + "; ".join(faults))
             k4 = {name: sum(name in e.name for e in events) for name in K4_KERNELS}
             k4 = {name.removeprefix("miseg_k4_"): n for name, n in k4.items() if n}
@@ -3401,7 +3828,7 @@ def main() -> int:
           f"{bf16_flops / 1e12:.0f} TFLOP/s bf16")
     rows = phase_kernels(dev, mem_bw, bf16_flops)
     phase_model(dev)
-    launches = phase_serve(dev)
+    launches, replay224 = phase_serve(dev)
     http_launches = phase_serve_http(dev, card)
     train = phase_train(dev, card)
     fit = phase_fit(dev, card)
@@ -3429,6 +3856,10 @@ def main() -> int:
                "miseg_tpu_torch/ops/kernels/csrc/window_attention.cu",
                "miseg_tpu/ops/pallas/window_attention.py:64"),
     }
+    # the registered op each kernel is in an exported program
+    OPS = {"K1": "miseg::channel_scale_shift", "K1 fold": "miseg::conv3_norm_columns",
+           "K2": "miseg::apply_scale_shift", "K3": "miseg::apply_norm2_act",
+           "K4": "miseg::conv3_norm_columns", "K5": "miseg::window_attention"}
     # the JAX VJP each kernel's autograd Function follows (all jnp there)
     backward = {
         "K1": "miseg_tpu/ops/pallas/fused_norm.py:441 _stats_p_bwd + norm_columns :181",
@@ -3470,7 +3901,9 @@ def main() -> int:
         if key == "K4":
             search["kernels_per_bf16_window"] = tune["k4_by_pair"]
         kernels.append({"name": f"{key} {name}", "route": route, "source": source,
-                        "replaces": replaces, "launches": launches[key], **rows[key],
+                        "replaces": replaces, "op": OPS[key], "launches": launches[key],
+                        **rows[key],
+                        "serve_captured": {"kernels_per_224_replay": replay224[key]},
                         "train": {"launches_per_step": train[key],
                                   "backward": backward[key]},
                         "fit": {"launches_train_steps": fit["train"][key],

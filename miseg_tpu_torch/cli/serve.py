@@ -12,7 +12,11 @@ scan's own voxel grid, and answers with the segmentation as a NIfTI —
     python -m miseg_tpu_torch.cli.serve --bundle bundles/cswin_fs48 --port 8093
 
 Endpoints:
-    GET  /health              -> 200 JSON: bundle meta + status
+    GET  /health              -> 200 JSON: bundle meta (its volume
+                                 programs among it) + status, the window
+                                 form served, and the tags of the volume
+                                 programs loaded (on the card: captured)
+                                 so far
     POST /predict?modality=0  -> body: .nii / .nii.gz bytes (a gzip
          [&remap=whs]            Content-Encoding is undone first);
          [&mode=gaussian]        answer: .nii.gz segmentation in the
@@ -28,8 +32,12 @@ stream); decoding, preprocessing and encoding of other requests overlap
 it.  Every device step runs under `inference_mode`: a handler thread
 starts with grad mode on, and the kernel wrappers would otherwise run
 inside their autograd Functions.  `make_server` builds every kernel and
-the resampler and runs one window before it listens, so no request pays
-for a build.
+the resampler and runs one window before it listens (on the card that
+window captures the served window's CUDA graph), so no request pays for
+a build.  A request whose preprocessed shape matches one of the bundle's
+volume programs runs it (`ServedModel.predict`): on the card the first
+such request captures it as a CUDA graph, later ones replay it.  Any
+other request replays the window graph once for each window.
 """
 
 from __future__ import annotations
@@ -160,7 +168,9 @@ def make_handler(service: InferenceService):
 
         def do_GET(self):
             if urlparse(self.path).path == "/health":
-                self._json(200, {"status": "ok", **service.served.meta})
+                served = service.served
+                self._json(200, {"status": "ok", **served.meta, "window_form": served.form,
+                                 "volume_programs_loaded": served.loaded_volume_programs()})
             else:
                 self._json(404, {"error": f"no route {self.path}"})
 

@@ -11,8 +11,7 @@ Fields whose feature the port has not got raise rather than go unread:
 the ROADMAP item when one of `NOT_PORTED[item]` differs from JAX's
 default.  The `Trainer` asks it for M11 (the mesh, FSDP, spatial, tensor
 and pipeline parallelism; a mesh of `[-1]` or `[1]` is one card and
-passes) and `cli.export` for M12 (the export platforms, volume programs
-and baked parameters).
+passes).
 
 `no_gpu` is the reference's flag for a CPU run (its tune group).  The
 JAX package accepts it and never reads it, since a JAX process takes its
@@ -159,8 +158,8 @@ class Config:
     pipeline_parallel: bool = False
     pp_axis: str = "pp"
     pp_microbatches: int = 2
-    # --- export (config.py:153-166); platforms, volume programs and baked
-    # parameters are not ported, ROADMAP M12 ---
+    # --- export (config.py:153-166); "tpu" among the platforms is read as
+    # "cuda" (serve.normalize_platforms) ---
     export_dir: str = "./export_bundle"
     export_platforms: list[str] = _lst("tpu", "cpu")
     export_check: bool = False
@@ -209,8 +208,6 @@ NOT_PORTED = {
             "fsdp_min_size": 8192, "spatial_shard": False, "spatial_axis": "sp",
             "tensor_parallel": False, "tp_axis": "model", "pipeline_parallel": False,
             "pp_axis": "pp", "pp_microbatches": 2},
-    "M12": {"export_platforms": ["tpu", "cpu"], "export_volume_shapes": [],
-            "export_bake_params": False},
 }
 
 

@@ -8,12 +8,15 @@ normalizes by the summed importance.  Windows accumulate in place on the
 device in a Python loop over window groups: the same math as the JAX
 package's static cell-grid overlap-add, summed in another order.
 
-`stitch_on_host` (the reference's `infer_cpu`, `miseg_tpu/inferers.py:464`)
-keeps the padded input on the device and predicts each window group
-there, but copies each group's f32 logits into an f32 accumulator in host
-memory, where the blend count lies too; the result, `acc / count`, comes
-back on the inferer's device.  The device then never holds a `[B, *padded, C_out]`
-accumulator, which caps its memory on large volumes.  `progress` prints
+Every call runs the shape's volume program (`program`), the one body
+that serving also captures as a CUDA graph.  `stitch_on_host` (the
+reference's `infer_cpu`, `miseg_tpu/inferers.py:464`) keeps the padded
+input on the device and predicts each window group there, but puts the
+importance map, the blend count and so the f32 accumulator in host
+memory, each group's logits copied there; the result, `acc / count`,
+comes back on the inferer's device.  The device then never holds a
+`[B, *padded, C_out]` accumulator, which caps its memory on large
+volumes.  `progress` prints
 JAX's `\r[sliding-window] i/n` line to stderr after each window group.
 """
 
@@ -135,39 +138,58 @@ class SlidingWindowInferer:
                 torch.from_numpy(count).to(where)[..., None])
         return padded, *self._tables[padded]
 
+    def program(self, spatial: Sequence[int]):
+        """The volume program for inputs of `spatial` size (the counterpart
+        of `program`, miseg_tpu/inferers.py:362): `(fn, starts, imp,
+        count)` with `fn(inputs [B, *spatial, C], modalities, imp, count)`
+        -> f32 blended logits `[B, *spatial, out_channels]`, a view of the
+        accumulator.  `fn` pads, gathers each window group, predicts,
+        blends, normalizes and crops; the window starts are fixed by the
+        shape and stay Python ints inside it, while the importance map and
+        the blend count are tensors passed in, as JAX passes them as device
+        arguments.  The accumulator lies where `imp` does: on the inferer's
+        device, where nothing in `fn` waits for the host, so a CUDA graph
+        can capture it (`serve.ServedModel`), or in host memory under
+        `stitch_on_host`, each group's logits copied there."""
+        spatial = tuple(int(s) for s in spatial)
+        roi, out_ch, k = self.roi_size, self.out_channels, self.sw_batch_size
+        padded, starts, imp, count = self._blend_tables(spatial)
+        lo = [(p - s) // 2 for s, p in zip(spatial, padded)]  # symmetric pad
+        hi = [p - s - l for s, p, l in zip(spatial, padded, lo)]
+        pad = (0, 0, lo[2], hi[2], lo[1], hi[1], lo[0], hi[0]) if any(lo) or any(hi) else None
+        groups = [[tuple(slice(int(a), int(a) + r) for a, r in zip(s, roi))
+                   for s in starts[g:g + k]] for g in range(0, len(starts), k)]
+        crop = (slice(None), *(slice(l, l + s) for l, s in zip(lo, spatial)))
+        predict, progress = self.predict_fn, self.progress
+
+        def fn(inputs, modalities, imp, count):
+            x = inputs if pad is None else torch.nn.functional.pad(inputs, pad)
+            b = x.shape[0]
+            acc = torch.zeros((b, *padded, out_ch), dtype=torch.float32, device=imp.device)
+            for n, group in enumerate(groups, 1):
+                windows = torch.cat([x[(slice(None), *w)] for w in group], dim=0)
+                mods = modalities.repeat(len(group)) if modalities is not None else None
+                logits = predict(windows, mods).float().reshape(len(group), b, *roi, out_ch)
+                logits = logits.to(acc.device)
+                for i, w in enumerate(group):
+                    acc[(slice(None), *w)] += logits[i] * imp
+                if progress:
+                    _tick(n, len(groups))
+            return acc.div_(count)[crop]
+
+        return fn, starts, imp, count
+
     @torch.inference_mode()
     def __call__(self, inputs: torch.Tensor, modalities: torch.Tensor | None = None):
         """`inputs [B, *spatial, C]` -> f32 blended logits
         `[B, *spatial, out_channels]` on the inferer's device."""
-        roi = self.roi_size
         x = torch.as_tensor(inputs, device=self.device)
-        b, *spatial, _ = x.shape
-        padded, starts, imp, count = self._blend_tables(tuple(spatial))
-        lo = [(p - s) // 2 for s, p in zip(spatial, padded)]  # symmetric pad
-        hi = [p - s - l for s, p, l in zip(spatial, padded, lo)]
-        if any(lo) or any(hi):
-            x = torch.nn.functional.pad(
-                x, (0, 0, lo[2], hi[2], lo[1], hi[1], lo[0], hi[0]))
         if modalities is not None:
             modalities = torch.as_tensor(modalities, device=self.device)
-        acc = torch.zeros((b, *padded, self.out_channels), dtype=torch.float32,
-                          device=imp.device)
-        k = self.sw_batch_size
-        groups = range(0, len(starts), k)
-        for n, g in enumerate(groups, 1):
-            group = starts[g:g + k]
-            sl = [tuple(slice(int(a), int(a) + r) for a, r in zip(s, roi))
-                  for s in group]
-            windows = torch.cat([x[(slice(None), *w)] for w in sl], dim=0)
-            mods = modalities.repeat(len(group)) if modalities is not None else None
-            logits = self.predict_fn(windows, mods).float()
-            logits = logits.reshape(len(group), b, *roi, self.out_channels)
-            logits = logits.to(acc.device)
-            for i, w in enumerate(sl):
-                acc[(slice(None), *w)] += logits[i] * imp
-            if self.progress:
-                sys.stderr.write(f"\r[sliding-window] {n}/{len(groups)}"
-                                 + ("\n" if n == len(groups) else ""))
-                sys.stderr.flush()
-        crop = tuple(slice(l, l + s) for l, s in zip(lo, spatial))
-        return acc.div_(count)[(slice(None), *crop)].to(self.device)
+        fn, _, imp, count = self.program(tuple(x.shape[1:-1]))
+        return fn(x, modalities, imp, count).to(self.device)
+
+
+def _tick(n: int, total: int) -> None:
+    sys.stderr.write(f"\r[sliding-window] {n}/{total}" + ("\n" if n == total else ""))
+    sys.stderr.flush()

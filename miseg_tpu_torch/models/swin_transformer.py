@@ -18,6 +18,7 @@ import math
 from typing import Any, Sequence
 
 import numpy as np
+import torch
 from torch import nn
 
 from ..nn import recompute
@@ -61,6 +62,8 @@ class BasicLayer(nn.Module):
         self._ids: dict = {}  # region ids per (padded dims, device)
 
     def _region_ids(self, padded, window_size, shift_size, device):
+        if torch.compiler.is_compiling():   # a traced constant: not cached for eager calls
+            return window_region_ids(padded, window_size, shift_size, device=device)
         key = (padded, window_size, shift_size, str(device))
         if key not in self._ids:
             self._ids[key] = window_region_ids(padded, window_size, shift_size,

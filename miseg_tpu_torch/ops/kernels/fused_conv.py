@@ -37,6 +37,8 @@ in the port's `[O, I, 3, 3, 3]` layout; the kernel's `[3, 3, 3, I', O']`
 copy (I' >= I and O' >= O the widths the C side plans: zero rows and
 columns for the padded channels) is cached on the weight tensor and
 rebuilt when its version, storage, the compute dtype or the widths change.
+K4 with its fold is also the registered op `miseg::conv3_norm_columns`,
+which the wrapper calls while tracing (section "registered op").
 """
 
 from __future__ import annotations
@@ -188,6 +190,13 @@ def _conv3_norm_columns(x, w, scale=None, shift=None, *,
         return conv3_norm_columns_plain(x, w, scale, shift, slope=slope,
                                         gamma=gamma, beta=beta, styles=styles,
                                         eps=eps)
+    y, cols = _conv_launch(x, w, scale, shift, slope, gamma, beta, styles, eps)
+    return y, cols[0], cols[1]
+
+
+def _conv_launch(x, w, scale, shift, slope, gamma, beta, styles, eps):
+    """One K4 launch and its fold over a CUDA x: (y, f32 (next_scale,
+    next_shift) stacked `[2, B, Cout]`)."""
     if x.device.type != "cuda":
         raise ValueError(f"K4: unsupported device {x.device}")
     if x.dtype not in _DTYPES:
@@ -230,9 +239,46 @@ def _conv3_norm_columns(x, w, scale=None, shift=None, *,
         raise RuntimeError(f"fused_conv kernel launch failed: CUDA error {err}")
     global launches
     launches += 1
-    next_scale, next_shift = fused_norm.fold_partials(
-        part, s, tile, n_tiles, gamma, beta, styles, eps=eps)
-    return y, next_scale, next_shift
+    cols = fused_norm.fold_launch(part, s, tile, n_tiles, gamma, beta, styles, eps=eps)
+    return y, cols
+
+
+# ------------------------------------------------------- registered op ----
+#
+# K4 with its fold as the `torch.library` op `miseg::conv3_norm_columns`:
+# a fake (shapes and dtypes only), a "cpu" kernel (the plain version) and
+# a "cuda" kernel (K4 and one `miseg_k1_fold` launch).  The wrapper calls
+# it only while tracing (see `fused_norm`'s registered ops); the columns
+# come stacked `[2, B, Cout]`, one fresh tensor.
+
+@torch.library.custom_op("miseg::conv3_norm_columns", mutates_args=())
+def conv3_norm_columns_op(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
+                          shift: torch.Tensor | None, gamma: torch.Tensor | None,
+                          beta: torch.Tensor | None, styles: torch.Tensor | None,
+                          slope: float | None, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4 + K1's fold: (y in x's dtype, f32 (next_scale, next_shift)
+    stacked `[2, B, Cout]`)."""
+    raise ValueError(f"miseg::conv3_norm_columns: unsupported device {x.device}")
+
+
+@conv3_norm_columns_op.register_kernel("cpu")
+def _(x, w, scale, shift, gamma, beta, styles, slope, eps):
+    y, sc, sh = _conv3_norm_columns(x, w, scale, shift, slope=slope, gamma=gamma, beta=beta,
+                                    styles=styles, eps=eps)
+    return y, torch.stack((sc, sh))
+
+
+@conv3_norm_columns_op.register_kernel("cuda")
+def _(x, w, scale, shift, gamma, beta, styles, slope, eps):
+    _check(x, w, scale, shift, gamma, beta, styles)
+    return _conv_launch(x, w, scale, shift, slope, gamma, beta, styles, eps)
+
+
+@conv3_norm_columns_op.register_fake
+def _(x, w, scale, shift, gamma, beta, styles, slope, eps):
+    _check(x, w, scale, shift, gamma, beta, styles)
+    y = x.new_empty((*x.shape[:-1], w.shape[0]))
+    return y, x.new_empty((2, x.shape[0], w.shape[0]), dtype=torch.float32)
 
 
 # ------------------------------------------------------------- autograd ----
@@ -316,7 +362,12 @@ def conv3_norm_columns(x, w, scale=None, shift=None, *,
     next_shift f32 `[B, Cout]`) — the counterpart of `conv3_norm_stats`
     followed by `norm_columns`.  Under grad mode it runs inside an
     autograd Function (`conv3_norm_columns_bwd`); the weight's gradient
-    comes from that, never from the packed copy of `kernel_weights`."""
+    comes from that, never from the packed copy of `kernel_weights`.
+    While tracing it calls the op `miseg::conv3_norm_columns`."""
+    if torch.compiler.is_compiling():
+        y, cols = torch.ops.miseg.conv3_norm_columns(x, w, scale, shift, gamma, beta, styles,
+                                                     slope, eps)
+        return y, cols[0], cols[1]
     if torch.is_grad_enabled():
         return _Conv3NormColumns.apply(x, w, scale, shift, gamma, beta, styles, slope, eps)
     return _conv3_norm_columns(x, w, scale, shift, slope=slope, gamma=gamma, beta=beta,

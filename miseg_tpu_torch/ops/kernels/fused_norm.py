@@ -39,7 +39,10 @@ The wrappers launch the kernels for CUDA tensors and use the plain
 versions (`channel_scale_shift_plain`, `fold_partials_plain`,
 `apply_scale_shift_plain`, `apply_norm2_act_plain`) only for CPU tensors.
 The plain apply adds `add` in f32 before rounding, like the kernel (the
-JAX package's plain tail adds after rounding).
+JAX package's plain tail adds after rounding).  K1, K2 and K3 are also
+the registered ops `miseg::channel_scale_shift`, `miseg::apply_scale_shift`
+and `miseg::apply_norm2_act`, which the wrappers call while tracing
+(section "registered ops").
 """
 
 from __future__ import annotations
@@ -345,6 +348,14 @@ def fold_partials(part, s: int, rows: int, n_chunks: int, gamma=None,
     counted in `fold_launches`; on the CPU `fold_partials_plain`."""
     if part.device.type == "cpu":
         return fold_partials_plain(part, s, rows, n_chunks, gamma, beta, styles, eps=eps)
+    out = fold_launch(part, s, rows, n_chunks, gamma, beta, styles, eps=eps)
+    return out[0], out[1]
+
+
+def fold_launch(part, s: int, rows: int, n_chunks: int, gamma=None, beta=None,
+                styles=None, *, eps: float = 1e-5) -> torch.Tensor:
+    """One launch of `miseg_k1_fold` (`fold_partials` on the card): f32
+    (scale, shift) stacked `[2, B, C]`."""
     if part.device.type != "cuda":
         raise ValueError(f"fused norm: unsupported device {part.device}")
     if part.dtype != torch.float32 or not part.is_contiguous():
@@ -368,16 +379,17 @@ def fold_partials(part, s: int, rows: int, n_chunks: int, gamma=None,
     del keep
     global fold_launches
     fold_launches += 1
-    return out[0], out[1]
+    return out
 
 
-def _channel_scale_shift(x3, gamma=None, beta=None, styles=None, *,
-                         eps: float = 1e-5):
-    """K1 without autograd (`channel_scale_shift`)."""
+def _check_banks(gamma, styles):
     if gamma is not None and gamma.ndim == 2 and styles is None:
         raise ValueError("conditional banks need a styles vector")
-    if x3.device.type == "cpu":
-        return channel_scale_shift_plain(x3, gamma, beta, styles, eps=eps)
+
+
+def _stats_launch(x3, gamma, beta, styles, eps: float) -> torch.Tensor:
+    """One launch of `miseg_k1_stats` over a CUDA x3: f32 (scale, shift)
+    stacked `[2, B, C]`."""
     if x3.device.type != "cuda":
         raise ValueError(f"fused norm: unsupported device {x3.device}")
     _check_cuda(x3, gamma, beta, styles)
@@ -402,6 +414,16 @@ def _channel_scale_shift(x3, gamma=None, beta=None, styles=None, *,
     del keep
     global stats_launches
     stats_launches += 1
+    return out
+
+
+def _channel_scale_shift(x3, gamma=None, beta=None, styles=None, *,
+                         eps: float = 1e-5):
+    """K1 without autograd (`channel_scale_shift`)."""
+    _check_banks(gamma, styles)
+    if x3.device.type == "cpu":
+        return channel_scale_shift_plain(x3, gamma, beta, styles, eps=eps)
+    out = _stats_launch(x3, gamma, beta, styles, eps)
     return out[0], out[1]
 
 
@@ -435,16 +457,14 @@ def _apply(fn, mode: int, x, bsz: int, c: int, negative_slope, ptrs):
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
 
-def _apply_scale_shift(x3, scale, shift, add3=None, *,
-                       negative_slope: float | None = None):
-    """K2 without autograd (`apply_scale_shift`)."""
+def _check_apply(x3, add3):
     if add3 is not None and add3.shape != x3.shape:
         raise ValueError(f"add shape {tuple(add3.shape)} != {tuple(x3.shape)}")
-    kind = x3.device.type
-    if kind == "cpu":
-        return apply_scale_shift_plain(x3, scale, shift, add3,
-                                       negative_slope=negative_slope)
-    if kind != "cuda":
+
+
+def _apply_launch(x3, scale, shift, add3, negative_slope):
+    """One launch of `miseg_k2_apply` over a CUDA x3."""
+    if x3.device.type != "cuda":
         raise ValueError(f"fused norm: unsupported device {x3.device}")
     _check_cuda(x3, scale, shift, add3)
     if add3 is not None and (add3.dtype != x3.dtype or not add3.is_contiguous()):
@@ -462,24 +482,32 @@ def _apply_scale_shift(x3, scale, shift, add3=None, *,
     return y
 
 
-def _apply_norm2_act(x, sx, hx, res, sr, hr, *,
-                     negative_slope: float | None = None):
-    """K3 without autograd (`apply_norm2_act`)."""
+def _apply_scale_shift(x3, scale, shift, add3=None, *,
+                       negative_slope: float | None = None):
+    """K2 without autograd (`apply_scale_shift`)."""
+    _check_apply(x3, add3)
+    if x3.device.type == "cpu":
+        return apply_scale_shift_plain(x3, scale, shift, add3,
+                                       negative_slope=negative_slope)
+    return _apply_launch(x3, scale, shift, add3, negative_slope)
+
+
+def _check_apply2(x, sx, hx, res, sr, hr):
     if res.shape != x.shape:
         raise ValueError(f"residual shape {tuple(res.shape)} != {tuple(x.shape)}")
     cols = (x.shape[0], x.shape[-1])
     if any(tuple(v.shape) != cols for v in (sx, hx, sr, hr)):
         raise ValueError(f"columns must be [B, C] = {list(cols)}")
-    kind = x.device.type
-    if kind == "cpu":
-        return apply_norm2_act_plain(x, sx, hx, res, sr, hr,
-                                     negative_slope=negative_slope)
-    if kind != "cuda":
+
+
+def _apply2_launch(x, sx, hx, res, sr, hr, negative_slope):
+    """One launch of `miseg_k3_apply2` over a CUDA x."""
+    if x.device.type != "cuda":
         raise ValueError(f"fused norm: unsupported device {x.device}")
     _check_cuda(x, sx, hx, res, sr, hr)
     if res.dtype != x.dtype or not res.is_contiguous():
         raise ValueError("the residual must be contiguous and of x's dtype")
-    bsz, c = cols
+    bsz, c = x.shape[0], x.shape[-1]
     sx, hx, sr, hr = _f32(sx), _f32(hx), _f32(sr), _f32(hr)
     y = torch.empty_like(x)
     _apply(_k23().miseg_k3_apply2, 2, x, bsz, c, negative_slope,
@@ -488,6 +516,107 @@ def _apply_norm2_act(x, sx, hx, res, sr, hr, *,
     global apply2_launches
     apply2_launches += 1
     return y
+
+
+def _apply_norm2_act(x, sx, hx, res, sr, hr, *,
+                     negative_slope: float | None = None):
+    """K3 without autograd (`apply_norm2_act`)."""
+    _check_apply2(x, sx, hx, res, sr, hr)
+    if x.device.type == "cpu":
+        return apply_norm2_act_plain(x, sx, hx, res, sr, hr,
+                                     negative_slope=negative_slope)
+    return _apply2_launch(x, sx, hx, res, sr, hr, negative_slope)
+
+
+# -------------------------------------------------------- registered ops ----
+#
+# Each kernel entry is also a `torch.library` op, `miseg::<name>`, with a
+# fake implementation (shapes and dtypes only), a "cpu" kernel (the plain
+# version) and a "cuda" kernel (the hand-written one, which raises if it
+# fails).  The public wrappers call the ops only while tracing
+# (`torch.compiler.is_compiling()`, true under `torch.export`): a traced
+# graph then holds `miseg::` nodes in place of the kernels, never the
+# plain code that a trace on the CPU would otherwise record, and a loaded
+# exported program launches the kernels through the dispatcher.  Eager
+# calls go straight to the launchers, without the dispatcher's host cost.
+# The ops have no autograd of their own: training runs eagerly, through
+# the autograd Functions below.  K1's op returns (scale, shift) stacked
+# `[2, B, C]`, one fresh tensor, since an op's outputs may not share
+# storage.
+
+@torch.library.custom_op("miseg::channel_scale_shift", mutates_args=())
+def channel_scale_shift_op(x3: torch.Tensor, gamma: torch.Tensor | None,
+                           beta: torch.Tensor | None, styles: torch.Tensor | None,
+                           eps: float) -> torch.Tensor:
+    """K1: f32 (scale, shift) stacked `[2, B, C]`."""
+    raise ValueError(f"miseg::channel_scale_shift: unsupported device {x3.device}")
+
+
+@channel_scale_shift_op.register_kernel("cpu")
+def _(x3, gamma, beta, styles, eps):
+    return torch.stack(_channel_scale_shift(x3, gamma, beta, styles, eps=eps))
+
+
+@channel_scale_shift_op.register_kernel("cuda")
+def _(x3, gamma, beta, styles, eps):
+    _check_banks(gamma, styles)
+    return _stats_launch(x3, gamma, beta, styles, eps)
+
+
+@channel_scale_shift_op.register_fake
+def _(x3, gamma, beta, styles, eps):
+    _check_banks(gamma, styles)
+    return x3.new_empty((2, x3.shape[0], x3.shape[-1]), dtype=torch.float32)
+
+
+@torch.library.custom_op("miseg::apply_scale_shift", mutates_args=())
+def apply_scale_shift_op(x3: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                         add3: torch.Tensor | None,
+                         negative_slope: float | None) -> torch.Tensor:
+    """K2: `leaky(x3 * scale + shift (+ add3))` in x3's dtype."""
+    raise ValueError(f"miseg::apply_scale_shift: unsupported device {x3.device}")
+
+
+@apply_scale_shift_op.register_kernel("cpu")
+def _(x3, scale, shift, add3, negative_slope):
+    return _apply_scale_shift(x3, scale, shift, add3, negative_slope=negative_slope)
+
+
+@apply_scale_shift_op.register_kernel("cuda")
+def _(x3, scale, shift, add3, negative_slope):
+    _check_apply(x3, add3)
+    return _apply_launch(x3, scale, shift, add3, negative_slope)
+
+
+@apply_scale_shift_op.register_fake
+def _(x3, scale, shift, add3, negative_slope):
+    _check_apply(x3, add3)
+    return torch.empty_like(x3, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op("miseg::apply_norm2_act", mutates_args=())
+def apply_norm2_act_op(x: torch.Tensor, sx: torch.Tensor, hx: torch.Tensor,
+                       res: torch.Tensor, sr: torch.Tensor, hr: torch.Tensor,
+                       negative_slope: float | None) -> torch.Tensor:
+    """K3: `leaky((x * sx + hx) + (res * sr + hr))` in x's dtype."""
+    raise ValueError(f"miseg::apply_norm2_act: unsupported device {x.device}")
+
+
+@apply_norm2_act_op.register_kernel("cpu")
+def _(x, sx, hx, res, sr, hr, negative_slope):
+    return _apply_norm2_act(x, sx, hx, res, sr, hr, negative_slope=negative_slope)
+
+
+@apply_norm2_act_op.register_kernel("cuda")
+def _(x, sx, hx, res, sr, hr, negative_slope):
+    _check_apply2(x, sx, hx, res, sr, hr)
+    return _apply2_launch(x, sx, hx, res, sr, hr, negative_slope)
+
+
+@apply_norm2_act_op.register_fake
+def _(x, sx, hx, res, sr, hr, negative_slope):
+    _check_apply2(x, sx, hx, res, sr, hr)
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 # ------------------------------------------------------------- autograd ----
@@ -617,6 +746,9 @@ def channel_scale_shift(x3, gamma=None, beta=None, styles=None, *,
     None, `[C]`, or `[num_styles, C]` banks gathered by `styles: int[B]`
     (clamped).  On the card one launch of `miseg_k1_stats`; differentiable
     in x, gamma and beta (`channel_scale_shift_bwd`)."""
+    if torch.compiler.is_compiling():
+        out = torch.ops.miseg.channel_scale_shift(x3, gamma, beta, styles, eps)
+        return out[0], out[1]
     if torch.is_grad_enabled():
         return _ChannelScaleShift.apply(x3, gamma, beta, styles, eps)
     return _channel_scale_shift(x3, gamma, beta, styles, eps=eps)
@@ -627,6 +759,8 @@ def apply_scale_shift(x3, scale, shift, add3=None, *,
     """K2: `leaky(x3 * scale + shift (+ add3))` with f32 columns `[B, C]`,
     rounded once to x3's dtype.  On the card one launch of
     `miseg_k2_apply`; differentiable (`apply_scale_shift_bwd`)."""
+    if torch.compiler.is_compiling():
+        return torch.ops.miseg.apply_scale_shift(x3, scale, shift, add3, negative_slope)
     if torch.is_grad_enabled():
         return _ApplyScaleShift.apply(x3, scale, shift, add3, negative_slope)
     return _apply_scale_shift(x3, scale, shift, add3, negative_slope=negative_slope)
@@ -639,6 +773,8 @@ def apply_norm2_act(x, sx, hx, res, sr, hr, *,
     tail with both branches' instance norms folded into columns.  On the
     card one launch of `miseg_k3_apply2`; differentiable
     (`apply_norm2_act_bwd`)."""
+    if torch.compiler.is_compiling():
+        return torch.ops.miseg.apply_norm2_act(x, sx, hx, res, sr, hr, negative_slope)
     if torch.is_grad_enabled():
         return _ApplyNorm2Act.apply(x, sx, hx, res, sr, hr, negative_slope)
     return _apply_norm2_act(x, sx, hx, res, sr, hr, negative_slope=negative_slope)

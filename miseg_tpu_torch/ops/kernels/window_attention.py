@@ -12,7 +12,9 @@ plain version `window_attention_plain` only for a CPU tensor.  In bf16
 the kernel runs P.V on the tensor cores, so it rounds the normalised
 softmax probabilities to bf16 first, as the Pallas kernel rounds them to
 the value dtype (window_attention.py:78); the plain version does the same.
-In f32 both keep P in f32.
+In f32 both keep P in f32.  K5 is also the registered op
+`miseg::window_attention`, which the wrapper calls while tracing
+(section "registered op").
 """
 
 from __future__ import annotations
@@ -97,6 +99,11 @@ def _window_attention(q, k, v, bias, ids=None, *, num_heads: int):
     _check(q, k, v, bias, ids, num_heads)
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, ids, num_heads=num_heads)
+    return _attention_launch(q, k, v, bias, ids, num_heads)
+
+
+def _attention_launch(q, k, v, bias, ids, num_heads: int):
+    """One K5 launch over CUDA q/k/v."""
     if q.device.type != "cuda":
         raise ValueError(f"window_attention: unsupported device {q.device}")
     bw, n, c = q.shape
@@ -130,6 +137,38 @@ def _window_attention(q, k, v, bias, ids=None, *, num_heads: int):
     global launches
     launches += 1
     return out
+
+
+# ------------------------------------------------------- registered op ----
+#
+# K5 as the `torch.library` op `miseg::window_attention`: a fake (a fresh
+# contiguous output; q/k/v may be strided views of one qkv projection), a
+# "cpu" kernel (the plain version) and a "cuda" kernel (K5).  The wrapper
+# calls it only while tracing (see `fused_norm`'s registered ops).
+
+@torch.library.custom_op("miseg::window_attention", mutates_args=())
+def window_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor, ids: torch.Tensor | None,
+                        num_heads: int) -> torch.Tensor:
+    """K5: windowed MHSA, `[B*nW, N, C]` in q's dtype."""
+    raise ValueError(f"miseg::window_attention: unsupported device {q.device}")
+
+
+@window_attention_op.register_kernel("cpu")
+def _(q, k, v, bias, ids, num_heads):
+    return window_attention_plain(q, k, v, bias, ids, num_heads=num_heads)
+
+
+@window_attention_op.register_kernel("cuda")
+def _(q, k, v, bias, ids, num_heads):
+    _check(q, k, v, bias, ids, num_heads)
+    return _attention_launch(q, k, v, bias, ids, num_heads)
+
+
+@window_attention_op.register_fake
+def _(q, k, v, bias, ids, num_heads):
+    _check(q, k, v, bias, ids, num_heads)
+    return q.new_empty(q.shape)
 
 
 # ------------------------------------------------------------- autograd ----
@@ -194,7 +233,9 @@ def window_attention(q, k, v, bias, ids=None, *, num_heads: int):
     views (e.g. slices of one qkv projection) as long as they share
     strides and the channel stride is 1; under grad mode each view takes
     its own gradient (`window_attention_bwd`) and autograd assembles the
-    projection's."""
+    projection's.  While tracing it calls the op `miseg::window_attention`."""
+    if torch.compiler.is_compiling():
+        return torch.ops.miseg.window_attention(q, k, v, bias, ids, num_heads)
     if torch.is_grad_enabled():
         return _WindowAttention.apply(q, k, v, bias, ids, num_heads)
     return _window_attention(q, k, v, bias, ids, num_heads=num_heads)

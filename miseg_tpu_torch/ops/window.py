@@ -68,8 +68,10 @@ def _region_ids_np(dims: tuple, window_size: tuple,
         shape = [1] * len(dims)
         shape[i] = -1
         region = region * 3 + _region_ids_1d(d, w, s).reshape(shape)
-    ids = window_partition(torch.from_numpy(region)[None, ..., None],
-                           window_size)[..., 0].numpy()
+    # `window_partition` in numpy (no torch op: this runs while tracing too)
+    (d, h, w), (wd, wh, ww) = dims, window_size
+    ids = np.ascontiguousarray(region.reshape(d // wd, wd, h // wh, wh, w // ww, ww)
+                               .transpose(0, 2, 4, 1, 3, 5).reshape(-1, wd * wh * ww))
     ids.setflags(write=False)  # cached: shared by every caller
     return ids
 

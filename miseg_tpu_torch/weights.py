@@ -32,10 +32,14 @@ import torch
 
 # the modules whose kernel is a transposed conv's: UnetrUpBlock's
 # `transp_conv`, UnetrPrUpBlock's `transp_conv_init` and `up0`, `up1`, ...
-# (miseg_tpu/nn/unetr_blocks.py:46,71-77), and C-UNet's `up`
-# (miseg_tpu/models/unet.py:89).  `up_path_*` and `up_ru` hold plain convs
-# (under `conv`/`residual`), as does every other module
-_TRANSPOSED = re.compile(r"transp_conv|transp_conv_init|up\d*")
+# (miseg_tpu/nn/unetr_blocks.py:46,71-77), C-UNet's `up`
+# (miseg_tpu/models/unet.py:89), and SSLHead's decoder convs, the
+# top-level `conv` and `conv_<i>` that hold a kernel themselves
+# (miseg_tpu/models/ssl_head.py:60-68; a top-level module is named with a
+# leading "/").  `up_path_*` and `up_ru` hold plain convs (under
+# `conv`/`residual`), as does every other module, SSLHead's "vae" convs
+# included (under `conv_<i>/conv`)
+_TRANSPOSED = re.compile(r"/?(transp_conv|transp_conv_init|up\d*)|/conv(_\d+)?")
 
 
 def _is_transposed(module: str) -> bool:
@@ -71,7 +75,7 @@ def _convert(path: tuple[str, ...], leaf: torch.Tensor) -> tuple[str, torch.Tens
         return weight, leaf.t()
     nk = leaf.ndim - 2
     spatial = tuple(range(nk))
-    if parent and _is_transposed(parent[-1]):
+    if parent and _is_transposed(parent[-1] if len(parent) > 1 else f"/{parent[0]}"):
         return weight, leaf.flip(spatial).permute(nk, nk + 1, *spatial)
     return weight, leaf.permute(nk + 1, nk, *spatial)
 

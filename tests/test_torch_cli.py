@@ -4,9 +4,10 @@ JAX package's `main` over a two-scan synthetic datalist, `cli.export.main`
 checkpoint format, and the command line generated from `Config`: the
 same flags and defaults as JAX's, any JAX config converting, the same
 argv (a JAX `tune` command line among them) parsing to equal configs,
-`--no_gpu` as `--device cpu`, and every field whose feature is not
-ported raising `NotImplementedError` at its entry point (`Trainer`,
-`cli.export`) unless it holds JAX's default.
+`--no_gpu` as `--device cpu`, every field whose feature is not ported
+raising `NotImplementedError` at its entry point (`Trainer`) unless it
+holds JAX's default, and JAX's export options (platforms, volume
+programs, baked weights) exporting bundles that pass `--export_check`.
 
 Model: `swin_unetr` at feature_size 12, 32^3 ROI, f32, 4 classes, JAX
 parameters seeded from numpy, saved as a JAX checkpoint for JAX's `main`
@@ -208,7 +209,7 @@ def test_export_then_bundle_forward_equals_live(params, tmp_path):
                  export_dir=str(tmp_path / "bundle"), export_check=True)
     out = export.main(cfg, device="cpu")
     served = load_bundle(out, device="cpu")
-    assert served.meta["spacing"] == [1.5, 1.0, 1.0] and served.meta["bundle_version"] == 2
+    assert served.meta["spacing"] == [1.5, 1.0, 1.0] and served.meta["bundle_version"] == 3
     live = model_from_config(cfg, device="cpu")
     live.load_state_dict(state_dict_from_jax(params))
     x = np.random.default_rng(1).random((1, 32, 32, 32, 1), np.float32)
@@ -296,15 +297,16 @@ NOT_PORTED_VALUES = {
     "mesh_shape": [2, 4], "mesh_axes": ["data", "model"], "fsdp": True, "fsdp_axis": "fsdp",
     "fsdp_min_size": 1024, "spatial_shard": True, "spatial_axis": "space",
     "tensor_parallel": True, "tp_axis": "tp", "pipeline_parallel": True, "pp_axis": "stage",
-    "pp_microbatches": 4, "export_platforms": ["cpu"],
-    "export_volume_shapes": ["224x224x224"], "export_bake_params": True,
+    "pp_microbatches": 4,
 }
 
 
 def test_not_ported_fields_cover_jax_defaults():
-    """`NOT_PORTED` holds JAX's defaults, and the values above differ."""
+    """`NOT_PORTED` holds JAX's defaults, and the values above differ; the
+    export options are ported and no longer listed."""
     jax_defaults = dataclasses.asdict(JConfig())
-    merged = {**NOT_PORTED["M11"], **NOT_PORTED["M12"]}
+    assert sorted(NOT_PORTED) == ["M11"]
+    merged = NOT_PORTED["M11"]
     assert merged == {k: jax_defaults[k] for k in merged}
     assert sorted(merged) == sorted(NOT_PORTED_VALUES)
     assert all(NOT_PORTED_VALUES[k] != v for k, v in merged.items())
@@ -323,13 +325,36 @@ def test_trainer_takes_jax_parallelism_defaults():
         assert Trainer(cfg, device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("field", sorted(NOT_PORTED["M12"]))
-def test_export_raises_on_jax_export_options(params, tmp_path, field):
+# JAX's three export options at values other than their defaults, and
+# what each adds to the bundle's meta
+EXPORT_OPTIONS = {
+    "export_platforms": (["cpu"], {"platforms": ["cpu"]}),
+    "export_volume_shapes": (["40x36x32"], {"volume_programs": [{
+        "tag": "40x36x32", "spatial": [40, 36, 32], "batch": 1, "mode": "gaussian",
+        "overlap": 0.5, "params_baked": False}]}),
+    "export_bake_params": (True, {"window_baked": True}),
+}
+
+
+@pytest.mark.parametrize("field", sorted(EXPORT_OPTIONS))
+def test_export_takes_jax_export_options(params, tmp_path, field, capsys):
+    """Each of JAX's export options exports as JAX's does, and the bundle
+    passes `--export_check` (its window programs against the live model,
+    its volume programs against the generic inferer)."""
     path = tmp_path / "best.pt"
     ckpt.save_checkpoint(path, params=state_dict_from_jax(params))
+    value, meta = EXPORT_OPTIONS[field]
     cfg = Config(**CFG, ckpt_path=str(path), export_dir=str(tmp_path / "bundle"),
-                 **{field: NOT_PORTED_VALUES[field]})
-    with pytest.raises(NotImplementedError, match=rf"cli.export: {field}=.*ROADMAP M12"):
-        export.main(cfg, device="cpu")
-    assert not (tmp_path / "bundle").exists()
-    assert export.main(cfg.replace(**{field: NOT_PORTED["M12"][field]}), device="cpu")
+                 export_check=True, **{field: value})
+    out = export.main(cfg, device="cpu")
+    got = json.loads((tmp_path / "bundle" / "meta.json").read_text())
+    assert {k: got[k] for k in meta} == meta
+    assert (tmp_path / "bundle" / "window_fn_baked.pt2").exists() == (
+        field == "export_bake_params")
+    said = capsys.readouterr().out
+    forms = 2 if field == "export_bake_params" else 1
+    assert said.count("export check ok on cpu") == forms + (field == "export_volume_shapes")
+    assert load_bundle(out, "cpu").meta == got
+    if field == "export_volume_shapes":
+        with pytest.raises(ValueError, match="must be 3 positive integers joined by 'x'"):
+            export.main(cfg.replace(export_volume_shapes=["40x36"]), device="cpu")

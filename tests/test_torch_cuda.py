@@ -1255,3 +1255,143 @@ def test_tune_frees_each_trial_on_the_card(dev, tmp_path):
     assert all(all(n > 0 for n in counts.values()) for counts in launched), launched
     assert all(a - baseline <= TUNE_MEMORY_MARGIN for a in after), (baseline, after)
 
+
+
+# ------------------------------------------------- exported serving bundles ----
+
+_SERVE_CFG = dict(model_name="swin_unetr", out_channels=3, feature_size=[12], num_heads=2,
+                  roi_x=32, roi_y=32, roi_z=32, encoder_norm_name="instance_cond",
+                  vit_norm_name="instance_cond", decoder_norm_name="instance")
+_SERVE_VOLUME = (40, 36, 32)   # 4 windows, padded and cropped
+
+
+@pytest.fixture(scope="module")
+def card_bundle(tmp_path_factory):
+    """A bf16 C-Swin-UNETR bundle exported on the CPU for the card and the
+    CPU, with one volume program; None without a card."""
+    if not torch.cuda.is_available():
+        return None
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.models import model_from_config
+    from miseg_tpu_torch.serve import export_bundle
+    cfg = Config(**_SERVE_CFG)
+    model = model_from_config(cfg, device="cpu")
+    return cfg, export_bundle(cfg, model.state_dict(), tmp_path_factory.mktemp("card") / "b",
+                              platforms=("tpu", "cpu"), volume_shapes=[_SERVE_VOLUME])
+
+
+def _volume(seed: int) -> torch.Tensor:
+    return torch.rand((1, *_SERVE_VOLUME, 1), generator=torch.Generator().manual_seed(seed))
+
+
+def _eager(served, vol, mod: int):
+    """The same volume through the generic inferer over the bundle's window
+    program, eagerly (no capture)."""
+    inferer = served._inferer(served.window_fn, float(served.meta["infer_overlap"]),
+                              "gaussian")
+    return inferer(vol.to(served.device), torch.tensor([mod], dtype=torch.int32,
+                                                        device=served.device))
+
+
+def test_cpu_exported_program_moves_to_the_card(dev, card_bundle):
+    """The `.pt2` traced on the CPU loads on the card (its constants and
+    device arguments moved), launches every kernel through its op, and
+    answers what the same program answers on the CPU."""
+    from miseg_tpu_torch.serve import load_bundle
+    _, out = card_bundle
+    card, cpu = load_bundle(out, dev), load_bundle(out, "cpu")
+    window = torch.rand((1, 32, 32, 32, 1), generator=torch.Generator().manual_seed(1))
+    mods = torch.tensor([1], dtype=torch.int32)
+    _reset_launches()
+    got = card(window, mods)
+    torch.cuda.synchronize()
+    counts = _launches()
+    assert got.is_cuda and all(counts[k] > 0 for k in counts), counts
+    want = cpu(window, mods)
+    assert _err(got.cpu(), want) <= 2e-2 * (1 + float(want.abs().max()))
+
+
+def test_captured_volume_matches_eager_and_replays(dev, card_bundle):
+    """The volume program's CUDA graph against the eager generic inferer on
+    the same volume, for two replays in a row (the arrival counters start
+    every replay at 0), each answer its own buffer; a replay launches no
+    kernel from Python."""
+    from miseg_tpu_torch.serve import load_bundle
+    cfg, out = card_bundle
+    served = load_bundle(out, dev)
+    answers = []
+    for seed, mod in ((2, 0), (3, 1), (2, 0)):
+        vol = _volume(seed)
+        _reset_launches()
+        got = served.predict(vol, [mod])
+        torch.cuda.synchronize()
+        prog = served.volume_program(_SERVE_VOLUME, 1, cfg.infer_overlap, "gaussian")
+        assert prog is not None and prog.graph is not None
+        if answers:   # replays: nothing launched from Python
+            assert all(v == 0 for v in _launches().values()), _launches()
+        want = _eager(served, vol, mod)
+        assert got.shape == want.shape == (1, *_SERVE_VOLUME, cfg.out_channels)
+        assert _err(got, want) <= 1e-3 * (1 + float(want.abs().max()))
+        answers.append(got)
+    assert answers[0].data_ptr() != answers[2].data_ptr()
+    assert torch.equal(answers[0], answers[2])
+
+
+def test_window_graph_matches_program_and_replays(dev, card_bundle):
+    """The served window is one CUDA graph of a window batch: its answers
+    against the window program run as it is, for replays in a row (each
+    answer its own buffer, nothing launched from Python), and a volume no
+    program covers, through the window graph in the generic inferer,
+    against the eager generic inferer."""
+    from miseg_tpu_torch.serve import load_bundle
+    cfg, out = card_bundle
+    served = load_bundle(out, dev)
+    gen = torch.Generator().manual_seed(4)
+    windows = [torch.rand((1, 32, 32, 32, 1), generator=gen).to(dev) for _ in range(2)]
+    answers = []
+    for window, mod in ((windows[0], 0), (windows[1], 1), (windows[0], 0)):
+        mods = torch.tensor([mod], dtype=torch.int32, device=dev)
+        _reset_launches()
+        got = served(window, mods)
+        torch.cuda.synchronize()
+        if answers:
+            assert all(v == 0 for v in _launches().values()), _launches()
+        with torch.inference_mode():
+            want = served.window_fn(window, mods)
+        assert _err(got, want) <= 1e-3 * (1 + float(want.abs().max()))
+        answers.append(got)
+    assert served.window_graph.graph is not None and served.window_graph.calls == 3
+    assert answers[0].data_ptr() != answers[2].data_ptr()
+    assert torch.equal(answers[0], answers[2])
+    vol = torch.rand((1, 36, 40, 32, 1), generator=gen)
+    got = served.predict(vol, [1])
+    want = _eager(served, vol, 1)
+    assert _err(got, want) <= 1e-3 * (1 + float(want.abs().max()))
+
+
+def test_threaded_predict_on_one_program(dev, card_bundle):
+    """Four threads replay one volume program at once on different volumes;
+    each answer is its volume's serial answer."""
+    import threading
+
+    from miseg_tpu_torch.serve import load_bundle
+    _, out = card_bundle
+    served = load_bundle(out, dev)
+    vols = [_volume(10 + i) for i in range(4)]
+    serial = [served.predict(v, [i % 2]).clone() for i, v in enumerate(vols)]
+    results, barrier = {}, threading.Barrier(4)
+
+    def client(i):
+        barrier.wait(timeout=60)
+        with torch.inference_mode():
+            results[i] = served.predict(vols[i], [i % 2])
+        torch.cuda.synchronize()
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert sorted(results) == [0, 1, 2, 3]
+    for i in range(4):
+        assert torch.equal(results[i], serial[i])

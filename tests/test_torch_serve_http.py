@@ -45,7 +45,7 @@ from miseg_tpu_torch.models import model_from_config
 from miseg_tpu_torch.models import swin_transformer as ST
 from miseg_tpu_torch.ops import norms as ON
 from miseg_tpu_torch.ops.kernels import fused_norm as FN
-from miseg_tpu_torch.serve import load_bundle, save_bundle
+from miseg_tpu_torch.serve import export_bundle, load_bundle, save_bundle
 from miseg_tpu_torch.weights import state_dict_from_jax
 
 torch.set_num_threads(1)
@@ -148,7 +148,7 @@ def as_nifti(tmp_path, payload, name="answer.nii.gz"):
 
 def test_bundle_records_spacing(setup):
     meta = json.loads((setup["root"] / "bundle" / "meta.json").read_text())
-    assert meta["bundle_version"] == 2
+    assert meta["bundle_version"] == 3
     assert meta["spacing"] == [1.0, 1.0, 1.0]
     assert meta["spacing"] == setup["jservice"].served.meta["spacing"]
 
@@ -159,6 +159,8 @@ def test_health(setup):
     assert meta["status"] == "ok"
     assert meta["roi"] == [32, 32, 32] and meta["out_channels"] == 4
     assert meta["spacing"] == [1.0, 1.0, 1.0]
+    assert meta["volume_programs"] == [] and meta["volume_programs_loaded"] == []
+    assert meta["window_form"] == "arguments"
 
 
 def test_errors_are_json_400s_and_unknown_routes_404(setup):
@@ -205,7 +207,7 @@ def test_predict_matches_jax_service(setup, tmp_path, monkeypatch):
 
     model64 = model_from_config(Config(**CFG), device="cpu", dtype=torch.float64,
                                 fused_conv=False)
-    model64.load_state_dict(service.served.model.state_dict())
+    model64.load_state_dict(service.served.state_dict())
     _float64_norms(monkeypatch)
     ref = SlidingWindowInferer(
         lambda w, m: model64(w.double(), m), roi_size=(32, 32, 32), overlap=0.5,
@@ -343,3 +345,51 @@ def test_handler_runs_the_device_under_inference_mode(setup):
     assert status == 200
     assert seen == [(True, True, False)]
     assert applied == []
+
+
+def test_http_predict_through_baked_volume_program(setup, tmp_path):
+    """The counterpart of JAX's test of this name: a bundle exported with
+    the scan's preprocessed shape (39 x 32 x 32) as a volume program and
+    `bake_params`; the scan's request must run that program (the baked
+    window program inside it), and /health must say so.  Its labels equal
+    the window path's answer from the module's server wherever that
+    server's top-two logits differ by more than 1e-4 (the two paths agree
+    at 1e-5, tests/test_torch_export.py)."""
+    service = setup["server"].RequestHandlerClass.service
+    weights = torch.load(setup["root"] / "bundle" / "weights.pt", weights_only=True)
+    bundle = export_bundle(Config(**CFG), weights, tmp_path / "bundle", platforms=("cpu",),
+                           volume_shapes=[(39, 32, 32)], bake_params=True)
+    server = S.make_server(str(bundle), port=0, device="cpu")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_port}"
+        raw = setup["scan"].read_bytes()
+        status, _, out = post(f"{url}/predict?modality=1", raw)
+        assert status == 200
+        baked = server.RequestHandlerClass.service.served
+        prog = baked.volume_program((39, 32, 32))
+        assert prog is not None and prog.calls == 1
+        # the server's warm-up window alone: the request ran no window outside the program
+        assert baked.window_graph.calls == 1
+        assert baked.meta["volume_programs"][0]["params_baked"]
+        assert baked.form == "baked"
+        with urllib.request.urlopen(f"{url}/health") as r:
+            health = json.loads(r.read())
+        assert health["volume_programs_loaded"] == ["39x32x32"]
+        assert health["window_form"] == "baked"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    _, _, want = post(f"{setup['url']}/predict?modality=1", raw)
+    sample = service.preprocess(raw)
+    logits = service.served.predict(torch.from_numpy(sample["image"][None]), [1]).numpy()
+    top2 = np.sort(logits[0], axis=-1)[..., -2:]
+    decisive = (top2[..., 1] - top2[..., 0] > 1e-4).astype(np.float32)
+    mask = service.chain.inverse({**sample, "label": decisive[..., None]}, key="label")["label"]
+    keep = mask > 0.5
+    assert keep.mean() > 0.9
+    got, ref = as_nifti(tmp_path, out, "baked.nii.gz"), as_nifti(tmp_path, want, "arg.nii.gz")
+    assert np.array_equal(got.affine, ref.affine)
+    assert np.array_equal(got.data[keep], ref.data[keep])

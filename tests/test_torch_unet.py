@@ -526,8 +526,10 @@ def test_bf16_batch_norm_bundle_uses_its_f32_statistics(vanilla_run):
     to bf16 (within half a bf16 ulp, 2^-8 relative, and the f32 rounding of
     its terms).  The answer from fresh statistics (mean 0, var 1, what the
     reference's bundles would hold: W9) or from statistics rounded to
-    bf16 breaks that bound.  The logits are reported beside the f32
-    bundle's."""
+    bf16 breaks that bound.  The bundle's exported program has no modules
+    to hook: the norms are read in the model rebuilt from the bundle's
+    weights, whose logits must equal the served program's.  The logits are
+    reported beside the f32 bundle's."""
     tmp, cfg = vanilla_run["tmp"], vanilla_run["cfg"]
     best = ckpt.load_checkpoint(tmp / "run" / "best.ckpt")["params"]
     out = {}
@@ -536,8 +538,10 @@ def test_bf16_batch_norm_bundle_uses_its_f32_statistics(vanilla_run):
                         precision=precision, export_dir=str(tmp / f"bn_{precision}"))
         out[precision] = load_bundle(export.main(c, device="cpu"), device="cpu")
     served = out["bf16"]
+    rebuilt = model_from_config(c, device="cpu", dtype=torch.bfloat16)
+    rebuilt.load_state_dict(served.state_dict(), strict=True)
     seen = []
-    for name, m in served.model.named_modules():
+    for name, m in rebuilt.named_modules():
         if isinstance(m, Norm) and m.kind == "batch":
             m.register_forward_hook(
                 lambda mod, args, kw, y, name=name: seen.append((name, args[0], kw, y)),
@@ -545,11 +549,15 @@ def test_bf16_batch_norm_bundle_uses_its_f32_statistics(vanilla_run):
     x = np.random.default_rng(3).random((1, 16, 16, 16, 1), np.float32)
     mods = np.array([0], np.int32)
     logits = served(x, mods)
+    with torch.inference_mode():
+        again = rebuilt(torch.from_numpy(x).bfloat16(), torch.from_numpy(mods)).float()
+    print(f"served program vs rebuilt model: max |diff| {float((logits - again).abs().max())}")
+    assert torch.equal(logits, again)
     assert len(seen) == 8 and np.isfinite(logits.numpy()).all()
     worst = {}
     for name, xin, kw, y in seen:
         assert xin.dtype == y.dtype == torch.bfloat16 and not kw, name
-        norm = served.model.get_submodule(name)
+        norm = rebuilt.get_submodule(name)
         scale, bias = norm.scale.detach().double(), norm.bias.detach().double()
         mean, var = best[f"{name}.mean"].double(), best[f"{name}.var"].double()
         for label, (mu, v) in {
