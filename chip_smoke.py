@@ -184,6 +184,31 @@ Phases, one result line each; any failed check exits non-zero:
                each trial, the dashboard's report, the states against the
                pruner's rule; a line a trial (params, best Dice, state,
                seconds by part, step ms p50, peak memory).
+ 12. two_d   — 2-D models (`spatial_dims=2`) at full width: the flagship's
+               C-Swin-UNETR on 96x96 slices (fs 48, heads 3/6/12/24, 7x7
+               windows) and C-UNet: (a) K5 at the 2-D stage 1 (N = 49,
+               head dim 16, with and without the shifted window's ids)
+               and stage 4 (a clipped 6x6 window, N = 36), and K1, K2 and
+               K3 at [1,96^2,48], against their plain versions, timed
+               against their bounds and SDPA / `torch.var_mean`; (b) one
+               f32 forward of each, batch 2, card against CPU, launching
+               `TWO_D_PER_WINDOW` / `CUNET_PER_WINDOW`; (c) a bf16 2-D
+               bundle serving a 512x512 slice (100 windows, gaussian,
+               overlap 0.5) eagerly (the counters rise by the per-window
+               counts) and through the window graph (within the repeat
+               tolerance of eager; the profiled request runs the counts
+               by name, K5 the tensor-core kernel, no K4), with ms a
+               window and windows/s; (d) one f32 AdamW step card vs CPU
+               under the 3-D check's bounds, and the bf16 full-width step.
+ 13. ddp     — data parallelism, ranks as subprocesses with timeouts: (a)
+               NCCL at world 1, three flagship 96^3 bf16 steps through
+               the wrapped Trainer against the unwrapped one (losses and
+               parameters within the repeat tolerance, NCCL's all-reduce
+               kernels in the profile, the step times of both); (b) two
+               gloo ranks on the one card, one f32 step of the batch-norm
+               UNetVanilla (README recipe) at batch 1 a rank against this
+               process at batch 2 (gradients, parameters, running
+               statistics).
 Then one JSON line of kernels (with each kernel's `miseg::` op, its
 kernels in a replay of the captured 224^3 volume program, its launches a
 train step, the JAX VJP its backward follows, its launches in the fit's train steps
@@ -192,7 +217,8 @@ UNetVanilla's windows, steps and fits, and in the fine-tune's forward and
 recompute a step and its fit, and in the tune study, with K4's and K5's
 rows at the search space's shapes; K2's row times its leaky-relu
 mode, and its field `no_add_no_activation` the UNets' mode beside
-`torch.addcmul`), the card line, and the ok line last.
+`torch.addcmul`; the 2-D launches and rows, K5's at N = 49; the
+launches of a data-parallel step), the card line, and the ok line last.
 """
 
 from __future__ import annotations
@@ -200,6 +226,8 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -813,13 +841,15 @@ def k4_case(label: str, shape, cout: int, prologue: bool, dev, gen, mem_bw: floa
 
 
 def k5_case(label: str, bw: int, n: int, c: int, heads: int, padded, dev, gen,
-            mem_bw: float, bf16_flops: float):
+            mem_bw: float, bf16_flops: float, window=(7, 7, 7), device: bool = False):
     """K5 at `[bw, n, c]` with `heads` heads against its plain version in
-    bf16 and f32, without and with region ids (those of a shifted window
+    bf16 and f32, without and with region ids (those of a shifted `window`
     over `padded` dims, or random ones where `padded` is None); in bf16 its
     CUDA-event time (with the ids where `padded` is given), the plain
-    version's and `F.scaled_dot_product_attention`'s beside its bound.
-    Returns (the lines, the bf16 `kernels` row)."""
+    version's and `F.scaled_dot_product_attention`'s beside its bound, and
+    with `device` the device times of K5 and SDPA (`device_ms`; at small
+    shapes an event time is the host's launch time).  Returns (the lines,
+    the bf16 `kernels` row)."""
     import torch.nn.functional as F
 
     from miseg_tpu_torch.ops.kernels import window_attention as wa
@@ -831,7 +861,8 @@ def k5_case(label: str, bw: int, n: int, c: int, heads: int, padded, dev, gen,
         q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
         bias = torch.randn((heads, n, n), generator=gen).to(dev)
         if padded is not None:
-            real_ids = window_region_ids(padded, (7, 7, 7), (3, 3, 3), device=dev)
+            real_ids = window_region_ids(padded, window, tuple(w // 2 for w in window),
+                                         device=dev)
         else:  # an unshifted window; random regions still test the mask
             real_ids = torch.randint(0, 3, (bw, n), generator=gen, dtype=torch.int32).to(dev)
         line = f"  K5 {label} [{bw},{n},{c}] h{heads} {str(dtype)[6:]}:"
@@ -865,6 +896,13 @@ def k5_case(label: str, bw: int, n: int, c: int, heads: int, padded, dev, gen,
                      f"F.scaled_dot_product_attention {sdpa:.4f}")
             row = dict(ms=k5, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=sdpa,
                        max_abs_err=errs[ids is not None])
+            if device:
+                row["device_ms"] = device_ms(lambda: wa.window_attention(
+                    q, k, v, bias, ids, num_heads=heads), "miseg_k5_")
+                row["library_device_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask))
+                line += (f"; device: K5 {fmt_ms(row['device_ms'])}, SDPA (all its kernels) "
+                         f"{fmt_ms(row['library_device_ms'])}")
         lines.append(line)
     return "\n".join(lines), row
 
@@ -2094,20 +2132,23 @@ def train_functions(dev) -> None:
     print("\n".join(lines))
 
 
-def train_card_vs_cpu(dev, size: int = 64) -> None:
-    """(b) One f32 AdamW step of the fs-48 model at `size`^3, batch 1, on
-    the card against the same step in the port on the CPU: loss within
-    1e-5, every gradient leaf within 5e-5 and their sum within 1e-3, the
-    parameters after the step within rtol 1e-4 / atol 2.5e-4 (the bounds
-    the CPU tests hold the port to against JAX)."""
+def train_card_vs_cpu(dev, size: int = 64, model: dict = FLAGSHIP, dims: int = 3,
+                      batch_size: int = 1) -> None:
+    """(b) One f32 AdamW step of `model` (the fs-48 flagship unless given)
+    at a `size`^`dims` ROI, batch `batch_size`, on the card against the
+    same step in the port on the CPU: loss within 1e-5, every gradient
+    leaf within 5e-5 and their sum within 1e-3, the parameters after the
+    step within rtol 1e-4 / atol 2.5e-4 (the bounds the CPU tests hold the
+    port to against JAX)."""
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.train.engine import Trainer
 
-    cfg = Config(**{**FLAGSHIP, "roi_x": size, "roi_y": size, "roi_z": size, "no_amp": True})
+    cfg = Config(**{**model, "roi_x": size, "roi_y": size, "roi_z": size, "no_amp": True})
+    shape = (batch_size, *(size,) * dims)
     gen = torch.Generator().manual_seed(7)
-    batch = {"image": torch.randn((1, size, size, size, 1), generator=gen),
-             "label": torch.randint(0, cfg.out_channels, (1, size, size, size), generator=gen),
-             "modality": torch.tensor([1], dtype=torch.int32)}
+    batch = {"image": torch.randn((*shape, 1), generator=gen),
+             "label": torch.randint(0, cfg.out_channels, shape, generator=gen),
+             "modality": torch.tensor([1, 0][:batch_size], dtype=torch.int32)}
     cpu = Trainer(cfg, device="cpu")
     card = Trainer(cfg, device=dev)
     states = {"cpu": cpu.init_state(), "card": card.init_state(cpu.model.state_dict())}
@@ -2117,35 +2158,39 @@ def train_card_vs_cpu(dev, size: int = 64) -> None:
         states[name], loss = trainer.train_step(states[name], batch)
         losses[name] = float(loss)
         took[name] = time.perf_counter() - t0
+    where = f"train step {size}^{dims}"
     loss_err = abs(losses["card"] - losses["cpu"])
-    check(loss_err <= 1e-5, f"train step {size}^3: card vs CPU loss {loss_err:.3e} > 1e-5")
+    check(loss_err <= 1e-5, f"{where}: card vs CPU loss {loss_err:.3e} > 1e-5")
     gaps, worst_p = {}, 0.0
     for n, p in states["cpu"].params.items():
         q = states["card"].params[n]
-        check(q.grad is not None, f"train step {size}^3: {n} has no gradient on the card")
+        check(q.grad is not None, f"{where}: {n} has no gradient on the card")
         gaps[n] = max_err(q.grad.cpu(), p.grad)
         d = (q.detach().cpu() - p.detach()).abs() - (2.5e-4 + 1e-4 * p.detach().abs())
         worst_p = max(worst_p, float(d.max()))
     worst = max(gaps, key=gaps.get)
     check(gaps[worst] <= 5e-5 and sum(gaps.values()) <= 1e-3,
-          f"train step {size}^3: gradient gap worst {worst} {gaps[worst]:.3e} (tol 5e-5), "
+          f"{where}: gradient gap worst {worst} {gaps[worst]:.3e} (tol 5e-5), "
           f"summed {sum(gaps.values()):.3e} (tol 1e-3)")
-    check(worst_p <= 0.0, f"train step {size}^3: parameters after the step exceed "
+    check(worst_p <= 0.0, f"{where}: parameters after the step exceed "
                           f"rtol 1e-4 / atol 2.5e-4 by {worst_p:.3e}")
-    print(f"  train step fs48 {size}^3 f32 (TF32 off), card vs CPU: loss {losses['card']:.6f} "
+    print(f"  train step {cfg.model_name} fs{cfg.feature_size_scalar} {size}^{dims} batch "
+          f"{batch_size} f32 (TF32 off), card vs CPU: loss {losses['card']:.6f} "
           f"|diff| {loss_err:.2e} (tol 1e-05); gradient gap over {len(gaps)} leaves summed "
           f"{sum(gaps.values()):.3e} (tol 1e-03), worst {worst} {gaps[worst]:.2e} (tol 5e-05); "
           f"parameters after one AdamW step within rtol 1e-4 / atol 2.5e-4; "
           f"step {took['card']:.2f} s card (first call), {took['cpu']:.1f} s CPU")
 
 
-def synthetic_case(size: int, classes: int, gen):
-    """A seeded image and label: concentric shells around the centre, one
-    class a shell, and an image that is the label plus noise."""
+def synthetic_case(size: int, classes: int, gen, dims: int = 3):
+    """A seeded image and label of `size`^`dims`: concentric shells around
+    the centre, one class a shell, and an image that is the label plus
+    noise."""
     ax = torch.arange(size, dtype=torch.float32) - (size - 1) / 2
-    r = torch.sqrt(ax[:, None, None] ** 2 + ax[None, :, None] ** 2 + ax[None, None, :] ** 2)
+    grids = torch.meshgrid(*(ax,) * dims, indexing="ij")
+    r = torch.sqrt(sum(g ** 2 for g in grids))
     label = (r / (size / (2 * classes))).long().clamp(max=classes - 1)[None]
-    image = label.float()[..., None] / classes + 0.1 * torch.randn((1, size, size, size, 1),
+    image = label.float()[..., None] / classes + 0.1 * torch.randn((1, *(size,) * dims, 1),
                                                                    generator=gen)
     return image, label
 
@@ -2153,16 +2198,16 @@ def synthetic_case(size: int, classes: int, gen):
 def train_full(dev, card: str, warmup: int = 2, steps: int = 10, model: dict = FLAGSHIP,
                per: dict = PER_WINDOW, k4: dict = WINDOW_K4) -> dict:
     """(c) The training step of `model` (the flagship unless given) at full
-    width: 96^3, batch 1, bf16 compute with f32 masters, AdamW,
-    `dice_focal`, on one fixed seeded batch; one step's forward must
-    launch `per`, its profile pass `window_faults(..., per, k4)`.  Returns
-    the launches of each kernel in one step."""
+    width: its 96^3 (or, 2-D, 96^2) ROI, batch 1, bf16 compute with f32
+    masters, AdamW, `dice_focal`, on one fixed seeded batch; one step's
+    forward must launch `per`, its profile pass `window_faults(..., per,
+    k4)`.  Returns the launches of each kernel in one step."""
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.train.engine import Trainer
 
     cfg = Config(**model)
     gen = torch.Generator().manual_seed(8)
-    image, label = synthetic_case(96, cfg.out_channels, gen)
+    image, label = synthetic_case(96, cfg.out_channels, gen, len(cfg.roi))
     batch = {"image": image.to(dev), "label": label.to(dev),
              "modality": torch.tensor([0], dtype=torch.int32, device=dev)}
     trainer = Trainer(cfg, device=dev)
@@ -2209,7 +2254,8 @@ def train_full(dev, card: str, warmup: int = 2, steps: int = 10, model: dict = F
           + f"; the last session's first kernels: {[e.name[:60] for e in kernels[:8]]}")
     by_name, groups = kernel_groups(kernels, 1)
     busy = sum(groups.values())
-    print(f"  train step {cfg.model_name} fs{cfg.feature_size_scalar} 96^3 bf16 (f32 masters), "
+    print(f"  train step {cfg.model_name} fs{cfg.feature_size_scalar} 96^{len(cfg.roi)} bf16 "
+          f"(f32 masters), "
           f"batch 1, AdamW, dice_focal on '{card}': "
           f"{statistics.median(ms):.2f} ms a step by CUDA events (median of {steps} after "
           f"{warmup} warm-up; min {min(ms):.2f}, max {max(ms):.2f}); one profiled step "
@@ -2571,14 +2617,15 @@ def unetr_kernels(dev, mem_bw: float, bf16_flops: float) -> None:
         print(k3_case(shape, dev, gen, mem_bw, flush)[0])
 
 
-def check_card_logits(label: str, got, want, margin) -> str:
+def check_card_logits(label: str, got, want, margin, tol: float | None = None) -> str:
     """The card's logits `got` against the CPU's `want`: finite, within
-    `tolerance`, and the argmax equal at every voxel whose top-two
-    `margin` on the CPU exceeds twice the logits' largest difference (a
-    nearer tie may flip by rounding), with at most `TIE_SHARE` of the
-    voxels that near a tie.  Returns the line's words."""
+    `tol` (by default `tolerance`), and the argmax equal at every voxel
+    whose top-two `margin` on the CPU exceeds twice the logits' largest
+    difference (a nearer tie may flip by rounding), with at most
+    `TIE_SHARE` of the voxels that near a tie.  Returns the line's words."""
     check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits")
-    err, tol = max_err(got, want), tolerance(want, torch.float32)
+    err = max_err(got, want)
+    tol = tolerance(want, torch.float32) if tol is None else tol
     check(err <= tol, f"{label}: card vs CPU {err:.3e} > {tol:.3e}")
     same = got.argmax(-1) == want.argmax(-1)
     clear = margin > 2 * err
@@ -3813,6 +3860,449 @@ def phase_tune(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
     return {"rows": rows, "k4_by_pair": k4_by_pair, "study": launches}
 
 
+# The 2-D flagship: C-Swin-UNETR at full width on 96x96 slices (the
+# Config's roi_x, roi_y under spatial_dims=2).  Every conv is cuDNN's 2-D
+# conv (K4 is 3-D only, as the JAX package's Pallas conv), so each of the
+# 26 norms of the 10 UnetResBlocks (norm1 and norm2, and norm3 in the 6
+# with a projected residual) is one K1 run and one K2 launch (its add and
+# leaky relu in K2), as are the backbone's 25 (16 swin-block, 4 merging,
+# 5 proj_out); one K5 launch a swin block on 7x7 windows (N = 49 at
+# stage 1): no K3, no K4 and so no fold.
+TWO_D = {**FLAGSHIP, "spatial_dims": 2}
+TWO_D_PER_WINDOW = {"K1": 51, "K2": 51, "K3": 0, "K4": 0, "K5": 8, "K1 fold": 0}
+CUNET_2D = {**CUNET, "spatial_dims": 2}
+TWO_D_SLICE = (512, 512)   # the request: one slice of a 512x512 CT
+# the batch-norm UNetVanilla of the two-rank check: the README recipe
+VANILLA_BN = {**VANILLA, "encoder_norm_name": "batch", "decoder_norm_name": "batch",
+              "no_amp": True}
+DDP_STEPS = 3
+DDP_WARMUP = 2   # steps from the same start before the timed ones, in each trainer
+DDP_TIMEOUT_S = 420
+
+
+def two_d_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
+    """(a) K5 at the 2-D shapes (stage 1: 49 windows of 7x7, N = 49, C 48,
+    3 heads of 16, with and without the shifted window's region ids;
+    stage 4: one 6x6 window clipped from 7x7, N = 36, C 384, 24 heads),
+    and K1, K2 and K3 at the encoder's `[1, 96^2, 48]` (K3 is off the 2-D
+    path: its blocks run K1 + K2), against their plain versions with
+    times, as `phase_kernels`.  Returns the bf16 rows."""
+    gen = torch.Generator().manual_seed(41)
+    flush = l2_flush(dev)
+    rows, lines = {}, []
+    line, rows["K5"] = k5_case("2-D stage 1 (7x7)", 49, 49, 48, 3, (49, 49), dev, gen,
+                               mem_bw, bf16_flops, window=(7, 7), device=True)
+    lines.append(line)
+    line, rows["K5 stage 4"] = k5_case("2-D stage 4 (6x6 of 7x7)", 1, 36, 384, 24, None,
+                                       dev, gen, mem_bw, bf16_flops, window=(7, 7),
+                                       device=True)
+    lines.append(line)
+    shape = (1, 96 * 96, 48)
+    line, rows["K1"] = k1_case(shape, dev, gen, mem_bw, flush)
+    lines.append(line)
+    line, rows["K2"], _ = k2_case(shape, dev, gen, mem_bw, flush)
+    lines.append(line)
+    line, rows["K3"] = k3_case(shape, dev, gen, mem_bw, flush,
+                               note=" (off the 2-D path)")
+    lines.append(line)
+    print("\n".join(lines))
+    return rows
+
+
+def two_d_card_vs_cpu(dev) -> None:
+    """(b) One f32 forward of the 2-D C-Swin-UNETR and of the 2-D C-UNet
+    at full width, a 96x96 slice, batch 2, card against CPU on the same
+    seeded weights (`check_card_logits`; the Swin-UNETR within 1e-4 of the
+    logits' scale, `phase_model`'s bound for the 3-D flagship), each
+    launching its per-window counts (one call)."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.models import model_from_config
+
+    gen = torch.Generator().manual_seed(42)
+    x = torch.randn((2, 96, 96, 1), generator=gen)
+    mods = torch.tensor([0, 1], dtype=torch.int32)
+    for label, model, per, rtol in (("2-D C-Swin-UNETR", TWO_D, TWO_D_PER_WINDOW, 1e-4),
+                                    ("2-D C-UNet", CUNET_2D, CUNET_PER_WINDOW, None)):
+        cfg = Config(**model)
+        check(cfg.roi == (96, 96), f"{label}: roi {cfg.roi}")
+        cpu = model_from_config(cfg, device="cpu")
+        card = model_from_config(cfg, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        with torch.inference_mode():
+            want = cpu(x, mods)
+            reset_launches()
+            got = card(x.to(dev), mods.to(dev)).cpu()
+            counts = launch_counts()
+        check(counts == per, f"{label}: launched {counts}, want {per}")
+        top2 = want.topk(2, dim=-1).values
+        tol = None if rtol is None else rtol * (1.0 + float(want.abs().max()))
+        words = check_card_logits(label, got, want, top2[..., 0] - top2[..., 1], tol)
+        print(f"  {label} fs{cfg.feature_size_scalar} 96x96 batch 2 f32 (TF32 off), card vs "
+              f"CPU: {words}; launches {counts}")
+        del cpu, card
+
+
+def two_d_serve(dev, card: str) -> dict:
+    """(c) The 2-D flagship exported as a bf16 bundle (seeded weights,
+    gaussian blend, overlap 0.5) and a 512x512 slice from a seed served
+    on the card: eagerly (the generic inferer over the window program; the
+    launch counters rise by `TWO_D_PER_WINDOW` x windows), then through
+    `predict` (the window graph, replayed once a window, nothing launched
+    from Python), whose answer lies within the repeat tolerance of the
+    eager one; a replayed window must run `TWO_D_PER_WINDOW` by name
+    (`window_graph_kernels`), and the profiled whole request no K3 or K4
+    and only the tensor-core `miseg_k5_attn_mma` as K5.  Prints ms a
+    window, windows/s and the request's busy time.  Returns the launches
+    of the eager request."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.inferers import SlidingWindowInferer, window_starts
+    from miseg_tpu_torch.models import model_from_config
+    from miseg_tpu_torch.serve import load_bundle, save_bundle
+
+    cfg = Config(**TWO_D)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_bundle(cfg, model_from_config(cfg, device="cpu").state_dict(), tmp)
+        export_s = time.perf_counter() - t0
+        served = load_bundle(tmp)
+    check(served.compute_dtype == torch.bfloat16, "2-D serve: bundle is not bf16")
+    vol = torch.rand((1, *TWO_D_SLICE, 1), generator=torch.Generator().manual_seed(43))
+    windows = len(window_starts(TWO_D_SLICE, cfg.roi, cfg.infer_overlap)[1])
+    eager = SlidingWindowInferer(served.window_fn, cfg.roi, cfg.sw_batch_size,
+                                 cfg.infer_overlap, "gaussian", out_channels=cfg.out_channels,
+                                 device=dev)
+    mods = torch.tensor([0], dtype=torch.int32)
+    eager(vol, mods)   # warm-up: the per-shape plans and caches
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    want = eager(vol, mods)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    counts = launch_counts()
+    expect = {k: v * windows for k, v in TWO_D_PER_WINDOW.items()}
+    check(counts == expect, f"2-D serve eager: launched {counts}, want {expect}")
+    with torch.inference_mode():
+        served.predict(vol, [0])   # warm-up and the window graph's capture
+    took = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            got = served.predict(vol, [0])
+        torch.cuda.synchronize()
+        took.append(time.perf_counter() - t0)
+        check(launch_counts() == dict.fromkeys(PER_WINDOW, 0),
+              f"2-D serve predict: launched {launch_counts()} from Python")
+    check(tuple(got.shape) == (1, *TWO_D_SLICE, cfg.out_channels),
+          f"2-D serve: shape {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "2-D serve: non-finite logits")
+    rep, rep_tol = max_err(got, want), 1e-3 * (1.0 + float(want.abs().max()))
+    check(rep <= rep_tol, f"2-D serve: the window graph's answer differs from eager by "
+                          f"{rep:.3e} > {rep_tol:.3e}")
+    walls = []
+
+    def run():
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            served.predict(vol, [0])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    replayed = window_graph_kernels(served, vol, 0, TWO_D_PER_WINDOW, windows)
+    check(replayed == expect, f"2-D serve predict: kernels by name {replayed}, want {expect}")
+    # the whole request, for its busy time: the profiler may drop a few of
+    # its ~15,000 kernels (as `window_graph_kernels` says), so its counts are
+    # printed, and held only to run no K3, no K4 and only the tensor-core K5
+    events = profiled(run, lambda ev: replay_counts(ev) == expect)
+    by_name = replay_counts(events)
+    k5_names = sorted({e.name for e in events if "miseg_k5_" in e.name
+                       or "window_attention" in e.name})
+    check(by_name["K3"] == by_name["K4"] == by_name["K1 fold"] == 0 and by_name["K5"] > 0,
+          f"2-D serve predict: kernels by name {by_name}")
+    check(all("miseg_k5_attn_mma" in n for n in k5_names), f"2-D serve: K5 kernels {k5_names}")
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    _, groups = kernel_groups(events, windows)
+    med = statistics.median(took)
+    print(f"  2-D serve: bundle exported on the CPU in {export_s:.1f} s; a "
+          f"{TWO_D_SLICE[0]}x{TWO_D_SLICE[1]} slice, {windows} windows of 96x96, gaussian, "
+          f"overlap 0.5, bf16 on '{card}': eager {eager_s:.3f} s; predict (window graph) "
+          f"{med * 1e3:.2f} ms median of {len(took)} ({med * 1e3 / windows:.3f} ms a window, "
+          f"{windows / med:.1f} windows/s); against eager max |diff| {rep:.3e} (tol "
+          f"{rep_tol:.3e}); a replayed window's kernels by name x replays {replayed} (= "
+          f"TWO_D_PER_WINDOW x {windows}); the profiled request: kernels by name {by_name}, "
+          f"K5 {k5_names[0][:60]}, {walls[-1]:.2f} ms wall, {busy:.2f} ms device busy (idle "
+          f"share {max(0.0, 1 - busy / walls[-1]):.1%})")
+    print("    by group ms a window: " + ", ".join(
+        f"{g} {ms:.4f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
+    del served
+    return counts
+
+
+def phase_two_d(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
+    """2-D models on the card (`spatial_dims=2`): (a) `two_d_kernels`, (b)
+    `two_d_card_vs_cpu`, (c) `two_d_serve`, (d) one f32 AdamW step of the
+    2-D flagship, 96x96, batch 2, card against CPU (`train_card_vs_cpu`,
+    the 3-D check's bounds), and its full-width bf16 step (`train_full`:
+    `TWO_D_PER_WINDOW` launched by one step's forward, every gradient
+    finite and non-zero, a falling loss, a profile with no K4).  Returns
+    the bf16 rows, the serve and step launches."""
+    t0 = time.perf_counter()
+    rows = two_d_kernels(dev, mem_bw, bf16_flops)
+    two_d_card_vs_cpu(dev)
+    serve = two_d_serve(dev, card)
+    train_card_vs_cpu(dev, size=96, model=TWO_D, dims=2, batch_size=2)
+    step = train_full(dev, card, warmup=2, steps=5, model=TWO_D, per=TWO_D_PER_WINDOW,
+                      k4=UNET_WINDOW_K4)
+    print(f"two_d: the 2-D C-Swin-UNETR and C-UNet match the CPU; the 2-D bundle serves a "
+          f"{TWO_D_SLICE[0]}x{TWO_D_SLICE[1]} slice through K1, K2 and K5 at N = 49 (no K4); "
+          f"the 2-D step matches the CPU and trains in bf16 "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return {"rows": rows, "serve": serve, "step": step}
+
+
+def _spawn_ranks(leg: str, world: int, root: Path) -> list[str]:
+    """`world` rank processes of `leg` (`python3 chip_smoke.py _ddp_rank
+    leg rank world rdzv out`), each held to `DDP_TIMEOUT_S`; any that
+    fails or hangs fails the phase.  "nccl1" runs as a user starts it,
+    under `torchrun --standalone --nproc_per_node=1`, and joins through
+    `parallel.init_process_group`.  Each process leads its own session,
+    killed whole if it outlives the timeout.  Returns their logs."""
+    rank_cmd = [str(Path(__file__).resolve()), "_ddp_rank", leg]
+    launch = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={world}"] if leg == "nccl1" else [sys.executable])
+    cmds = ([launch + rank_cmd + ["0", str(world), "-", str(root)]] if leg == "nccl1" else
+            [launch + rank_cmd + [str(r), str(world), str(root / f"{leg}.rdzv"), str(root)]
+             for r in range(world)])
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, start_new_session=True) for cmd in cmds]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DDP_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        logs.append("timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    for r, p in enumerate(procs):
+        log = logs[r] if r < len(logs) else ""
+        check(p.returncode == 0, f"ddp {leg}: rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    return logs
+
+
+def _ddp_flagship_batch(dev):
+    from miseg_tpu_torch.config import Config
+    cfg = Config(**FLAGSHIP)
+    image, label = synthetic_case(96, cfg.out_channels, torch.Generator().manual_seed(44))
+    return cfg, {"image": image.to(dev), "label": label.to(dev),
+                 "modality": torch.tensor([0], dtype=torch.int32, device=dev)}
+
+
+def _vanilla_batch(dev):
+    gen = torch.Generator().manual_seed(45)
+    image = torch.randn((2, 96, 96, 96, 1), generator=gen)
+    label = torch.randint(0, VANILLA["out_channels"], (2, 96, 96, 96), generator=gen)
+    return {"image": image.to(dev), "label": label.to(dev),
+            "modality": torch.tensor([0, 1], dtype=torch.int32, device=dev)}
+
+
+def _stepped(trainer, state, batch, steps: int):
+    """`steps` train steps; (losses, CUDA-event ms a step)."""
+    losses, ms = [], []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = trainer.train_step(state, batch)
+        end.record()
+        end.synchronize()
+        losses.append(float(loss))
+        ms.append(start.elapsed_time(end))
+    return losses, ms
+
+
+def ddp_rank(leg: str, rank: int, world: int, rdzv: str, out: str) -> int:
+    """One rank of `phase_ddp` (the `_ddp_rank` command line).  "nccl1",
+    under `torchrun`: the flagship's bf16 steps unwrapped, then, after
+    joining torchrun's one-rank NCCL group through
+    `parallel.init_process_group` (what `cli.train` calls), the Trainer's
+    data-parallel steps from the same start and a profiled one; "gloo2":
+    one f32 step of the batch-norm UNetVanilla on this rank's half of the
+    batch, the two ranks sharing the card over gloo (`rdzv`, a file).
+    Writes `out/<leg>_rank<rank>.pt`."""
+    import torch.distributed as dist
+
+    from miseg_tpu_torch import parallel
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.parallel import mesh
+    from miseg_tpu_torch.train.engine import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    result: dict = {}
+    if leg == "nccl1":
+        cfg, batch = _ddp_flagship_batch(dev)
+        plain = Trainer(cfg, device=dev)
+        start = {n: t.detach().clone() for n, t in plain.state_dict(plain.init_state()).items()}
+        _stepped(plain, plain.init_state(start), batch, DDP_WARMUP)
+        state = plain.init_state(start)
+        result["plain_losses"], result["plain_ms"] = _stepped(plain, state, batch, DDP_STEPS)
+        result["plain_params"] = {n: p.detach().cpu() for n, p in state.params.items()}
+        del plain, state
+        check(dist.is_initialized() is False and os.environ.get("WORLD_SIZE") == "1",
+              f"ddp nccl1: not a fresh torchrun rank (WORLD_SIZE {os.environ.get('WORLD_SIZE')})")
+        joined = parallel.init_process_group()
+        check(joined == dev and parallel.host_shard_info() == (0, 1)
+              and dist.get_backend() == "nccl",
+              f"ddp nccl1: torchrun's rank joined {joined}, {parallel.host_shard_info()}, "
+              f"{dist.get_backend() if dist.is_initialized() else 'no group'}")
+        wrapped = Trainer(cfg, device=joined)
+        _stepped(wrapped, wrapped.init_state(start), batch, DDP_WARMUP)
+        state = wrapped.init_state(start)
+        reset_launches()
+        result["wrapped_losses"], result["wrapped_ms"] = _stepped(wrapped, state, batch,
+                                                                  DDP_STEPS)
+        result["launches"] = {k: v // DDP_STEPS for k, v in launch_counts().items()}
+        result["wrapped_params"] = {n: p.detach().cpu() for n, p in state.params.items()}
+        grads = [p.grad for p in state.params.values() if p.grad is not None]
+        result["buckets"] = len(list(mesh._buckets(
+            [torch.zeros((), device=dev), *grads], mesh.BUCKET_BYTES)))
+        events = profiled(lambda: wrapped.train_step(state, batch),
+                          lambda ev: any("nccl" in e.name.lower() or "onerank" in e.name.lower()
+                                         for e in ev),
+                          lead=lambda: wrapped.train_step(state, batch))
+        comm = [e for e in events if "nccl" in e.name.lower() or "onerank" in e.name.lower()]
+        result["comm_kernels"] = sorted({e.name for e in comm})
+        result["comm_launches"] = len(comm)
+        result["comm_ms"] = sum(e.time_range.elapsed_us() for e in comm) / 1e3
+        result["busy_ms"] = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    else:
+        dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
+                                world_size=world)
+        trainer = Trainer(Config(**VANILLA_BN), device=dev)
+        state = trainer.init_state()
+        half = {k: v[rank:rank + 1] for k, v in _vanilla_batch(dev).items()}
+        state, loss = trainer.train_step(state, half)
+        result = {"loss": float(loss),
+                  "params": {n: p.detach().cpu() for n, p in state.params.items()},
+                  "grads": {n: p.grad.cpu() for n, p in state.params.items()},
+                  "buffers": {n: b.cpu() for n, b in state.buffers.items()}}
+    dist.destroy_process_group()
+    torch.save(result, Path(out) / f"{leg}_rank{rank}.pt")
+    return 0
+
+
+def _w5_excess(got: dict, want: dict) -> float:
+    """How far parameters exceed the W5 bound (rtol 1e-4 / atol 2.5e-4);
+    <= 0 inside it."""
+    return max(float(((g - want[n]).abs() - (2.5e-4 + 1e-4 * want[n].abs())).max())
+               for n, g in got.items())
+
+
+def check_ddp_step(got: dict, want: dict, where: str) -> dict:
+    """A data-parallel step (`got`: the loss, params, grads and buffers of
+    a rank) against one process's on the global batch (`want`): the loss
+    within 1e-5, every gradient leaf within 5e-5 and their sum within
+    1e-3, the parameters within the W5 bound, the running statistics
+    within rtol 1e-5 / atol 1e-6.  Fails the run otherwise; returns the
+    gaps."""
+    gaps = {n: max_err(g, want["grads"][n]) for n, g in got["grads"].items()}
+    worst = max(gaps, key=gaps.get)
+    out = {"loss": abs(got["loss"] - want["loss"]), "worst": worst, "worst_gap": gaps[worst],
+           "summed": sum(gaps.values()), "w5_excess": _w5_excess(got["params"], want["params"]),
+           "stats": len(got["buffers"]),
+           "stats_excess": max(float(((b - want["buffers"][n]).abs()
+                                      - (1e-6 + 1e-5 * want["buffers"][n].abs())).max())
+                               for n, b in got["buffers"].items())}
+    check(out["loss"] <= 1e-5, f"{where}: loss {got['loss']} vs {want['loss']}")
+    check(out["worst_gap"] <= 5e-5 and out["summed"] <= 1e-3,
+          f"{where}: gradient gap worst {worst} {out['worst_gap']:.3e}, summed "
+          f"{out['summed']:.3e}")
+    check(out["w5_excess"] <= 0.0,
+          f"{where}: parameters exceed the W5 bound by {out['w5_excess']:.3e}")
+    check(out["stats"] > 0 and out["stats_excess"] <= 0.0,
+          f"{where}: running statistics exceed rtol 1e-5 / atol 1e-6 by "
+          f"{out['stats_excess']:.3e}")
+    return out
+
+
+def phase_ddp(dev, card: str) -> dict:
+    """Data parallelism (`miseg_tpu_torch.parallel`), the ranks as
+    subprocesses held to `DDP_TIMEOUT_S`: (a) one rank under `torchrun`,
+    joined through `parallel.init_process_group` (NCCL at world size 1): three
+    flagship steps (96^3, bf16) through the wrapped Trainer against the
+    unwrapped one from the same start on the same batch, each after
+    `DDP_WARMUP` steps of its own (losses within
+    1e-3 relative, parameters within the W5 bound: the repeat tolerance of
+    a bf16 step), the profiled wrapped step running NCCL's all-reduce
+    kernels (one a gradient bucket), and the step times of both; (b) two
+    gloo ranks sharing the card (NCCL takes one rank a device): one f32
+    step of the batch-norm UNetVanilla at the README recipe, batch 1 a
+    rank, against this process at batch 2: the loss within 1e-5, every
+    gradient leaf within 5e-5 and their sum within 1e-3, the parameters
+    within the W5 bound, the running statistics within rtol 1e-5 / atol
+    1e-6, and the two ranks equal.  Returns the wrapped step's launches."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.train.engine import Trainer
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    _spawn_ranks("nccl1", 1, root)
+    a = torch.load(root / "nccl1_rank0.pt", weights_only=False)
+    loss_gap = max(abs(x - y) / (1 + abs(y))
+                   for x, y in zip(a["wrapped_losses"], a["plain_losses"]))
+    check(loss_gap <= 1e-3, f"ddp nccl1: wrapped losses {a['wrapped_losses']} vs "
+                            f"{a['plain_losses']}")
+    excess = _w5_excess(a["wrapped_params"], a["plain_params"])
+    check(excess <= 0.0, f"ddp nccl1: parameters exceed the W5 bound by {excess:.3e}")
+    check(a["comm_launches"] >= a["buckets"] > 0,
+          f"ddp nccl1: {a['comm_launches']} NCCL kernels in the profiled step, want one a "
+          f"bucket ({a['buckets']}); kernels {a['comm_kernels']}")
+    check(a["launches"] == PER_WINDOW, f"ddp nccl1: a wrapped step launched {a['launches']}")
+    p_ms, w_ms = statistics.median(a["plain_ms"]), statistics.median(a["wrapped_ms"])
+    print(f"  ddp (a) torchrun, NCCL world 1, flagship 96^3 bf16 on '{card}': {DDP_STEPS} steps wrapped "
+          f"vs unwrapped, losses {[round(v, 6) for v in a['wrapped_losses']]} vs "
+          f"{[round(v, 6) for v in a['plain_losses']]} (max relative gap {loss_gap:.2e}), "
+          f"parameters within the W5 bound (excess {excess:.2e}); step ms by events (median "
+          f"of {DDP_STEPS} after {DDP_WARMUP} warm-up steps each) unwrapped {p_ms:.2f} "
+          f"{[round(v, 2) for v in a['plain_ms']]}, wrapped {w_ms:.2f} "
+          f"{[round(v, 2) for v in a['wrapped_ms']]}, difference {w_ms - p_ms:+.2f}; profiled wrapped step: {a['comm_launches']} NCCL kernels for "
+          f"{a['buckets']} buckets, {a['comm_ms']:.3f} ms of {a['busy_ms']:.2f} ms device "
+          f"busy; kernels {a['comm_kernels']}")
+
+    _spawn_ranks("gloo2", 2, root)
+    ranks = [torch.load(root / f"gloo2_rank{r}.pt", weights_only=False) for r in range(2)]
+    trainer = Trainer(Config(**VANILLA_BN), device=dev)
+    state = trainer.init_state()
+    state, loss = trainer.train_step(state, _vanilla_batch(dev))
+    want = {"loss": float(loss),
+            "params": {n: p.detach().cpu() for n, p in state.params.items()},
+            "grads": {n: p.grad.cpu() for n, p in state.params.items()},
+            "buffers": {n: b.cpu() for n, b in state.buffers.items()}}
+    del trainer, state
+    for r, got in enumerate(ranks):
+        gaps = check_ddp_step(got, want, f"ddp gloo2 rank {r}")
+    for key in ("params", "buffers"):
+        same = all(torch.equal(v, ranks[1][key][n]) for n, v in ranks[0][key].items())
+        check(same, f"ddp gloo2: the ranks' {key} differ")
+    print(f"  ddp (b) gloo, 2 ranks on one card, batch-norm UNetVanilla (README recipe) 96^3 "
+          f"f32, batch 1 a rank vs one process at batch 2: loss |diff| {gaps['loss']:.2e}, "
+          f"gradient gap summed {gaps['summed']:.3e} (worst {gaps['worst_gap']:.2e}), "
+          f"parameters within the W5 bound (excess {gaps['w5_excess']:.2e}), "
+          f"{gaps['stats']} running statistics within rtol 1e-5 / atol 1e-6; the ranks equal")
+    tmp.cleanup()
+    print(f"ddp: one NCCL rank through the wrapped Trainer matches the unwrapped one and "
+          f"all-reduces its buckets; two gloo ranks step as one process on their batch "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return a["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; chip_smoke.py needs a CUDA card",
@@ -3836,6 +4326,8 @@ def main() -> int:
     unet = phase_unet(dev, card, mem_bw)
     finetune = phase_finetune(dev, card)
     tune = phase_tune(dev, card, mem_bw, bf16_flops)
+    two_d = phase_two_d(dev, card, mem_bw, bf16_flops)
+    ddp = phase_ddp(dev, card)
     meta = {
         "K1": ("fused_norm.channel_scale_shift", "cuda",
                "miseg_tpu_torch/ops/kernels/csrc/fused_norm.cu",
@@ -3895,6 +4387,11 @@ def main() -> int:
               and RECOMPUTE_PER_STEP[key] > 0,
               f"{key} was never launched in the fine-tune's steps, backward or evaluations")
         check(tune["study"][key] > 0, f"{key} was never launched in the tune study")
+        on_2d = TWO_D_PER_WINDOW[key] > 0   # 2-D: K1, K2 and K5; no K3, no K4
+        check(on_2d == (two_d["serve"][key] > 0) == (two_d["step"][key] > 0),
+              f"{key}: the 2-D slice and step launched it {two_d['serve'][key]} and "
+              f"{two_d['step'][key]} times; want {'> 0' if on_2d else '0'}")
+        check(ddp[key] > 0, f"{key} was never launched in the data-parallel step")
         search = {"launches_study": tune["study"][key]}
         if key in tune["rows"]:
             search["search_space_shapes"] = tune["rows"][key]
@@ -3923,7 +4420,15 @@ def main() -> int:
                                      "launches_recompute_per_step": RECOMPUTE_PER_STEP[key],
                                      "fit_launches_train_steps": finetune["train"][key],
                                      "fit_launches_evaluate": finetune["eval"][key]},
-                        "tune": search})
+                        "tune": search,
+                        "two_d": {"launches_per_window": TWO_D_PER_WINDOW[key],
+                                  "launches_512_slice": two_d["serve"][key],
+                                  "launches_per_step": two_d["step"][key],
+                                  **({"shape_2d": two_d["rows"][key]}
+                                     if key in two_d["rows"] else {}),
+                                  **({"shape_2d_stage4": two_d["rows"]["K5 stage 4"]}
+                                     if key == "K5" else {})},
+                        "ddp": {"launches_per_wrapped_step": ddp[key]}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3933,4 +4438,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["_ddp_rank"]:   # one rank of phase_ddp, started by it
+        sys.exit(ddp_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+                          sys.argv[6]))
     sys.exit(main())

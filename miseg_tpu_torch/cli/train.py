@@ -17,6 +17,11 @@ fresh state (`pre_swin_unetr`'s `--pre_swin` and the `--pretrained`
 ingest), `fit` (resuming from `--ckpt_path` when given), then evaluate
 `best.ckpt` on the test split with Dice and symmetric surface distance.
 
+Data parallel over N cards, one process each (`parallel`): the same
+command under `torchrun --nproc_per_node=N -m miseg_tpu_torch.cli.train
+...`.  `--batch_size` is per process, the train set is sharded by rank,
+and rank 0 writes the checkpoints and metrics.
+
 Fine-tuning the flagship from MONAI's SSL Swin-ViT, with recompute:
 
     python -m miseg_tpu_torch.cli.train --model_name pre_swin_unetr \
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import os
 
+from .. import parallel
 from ..config import Config
 from ..data.multi_modal import MultiModalData
 from ..train.checkpoint import load_checkpoint
@@ -42,6 +48,7 @@ def main(cfg: Config | None = None, *, device=None) -> tuple[Trainer, TrainState
     state and the test metrics."""
     if cfg is None:
         cfg, device = parse_args()
+    device = parallel.init_process_group(device, no_gpu=cfg.no_gpu)
     if cfg.auto_scale_batch_size:
         # the reference's `try: trainer.tune(...)` (train.py:57-60)
         try:
@@ -51,11 +58,15 @@ def main(cfg: Config | None = None, *, device=None) -> tuple[Trainer, TrainState
         except Exception as e:  # noqa: BLE001 -- the reference trains on at its batch size
             print(f"Tuning of batch size not possible: {e}")
     workdir = os.path.join(cfg.default_root_dir, cfg.experiment_name or cfg.study_name)
-    data = MultiModalData(cfg)
-    logger = MetricLogger(workdir, wandb_kwargs=(
-        {"project": cfg.project, "entity": cfg.entity, "group": cfg.group,
-         "name": cfg.experiment_name, "mode": cfg.wandb_mode, "dir": workdir}
-        if cfg.project else None))
+    shard, num_shards = parallel.host_shard_info()
+    data = MultiModalData(cfg, shard=shard, num_shards=num_shards)
+    if parallel.is_writer():
+        logger = MetricLogger(workdir, wandb_kwargs=(
+            {"project": cfg.project, "entity": cfg.entity, "group": cfg.group,
+             "name": cfg.experiment_name, "mode": cfg.wandb_mode, "dir": workdir}
+            if cfg.project else None))
+    else:
+        logger = MetricLogger(None, quiet=True)
     trainer = Trainer(cfg, device=device, workdir=workdir, logger=logger)
     state = trainer.fit(data, state=trainer.fresh_state())
 
@@ -70,4 +81,7 @@ def main(cfg: Config | None = None, *, device=None) -> tuple[Trainer, TrainState
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        parallel.destroy_process_group()

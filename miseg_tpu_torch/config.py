@@ -9,9 +9,9 @@ and the same argv parses to equal configs in both.
 Fields whose feature the port has not got raise rather than go unread:
 `require_ported(cfg, item, entry)` raises `NotImplementedError` naming
 the ROADMAP item when one of `NOT_PORTED[item]` differs from JAX's
-default.  The `Trainer` asks it for M11 (the mesh, FSDP, spatial, tensor
-and pipeline parallelism; a mesh of `[-1]` or `[1]` is one card and
-passes).
+default.  The `Trainer` asks it for M11 (FSDP, spatial, tensor and
+pipeline parallelism); the mesh itself is data parallel over the ranks
+and `parallel.check_mesh` holds it to `[-1]` or `[world]` on "data".
 
 `no_gpu` is the reference's flag for a CPU run (its tune group).  The
 JAX package accepts it and never reads it, since a JAX process takes its
@@ -204,7 +204,7 @@ class Config:
 # JAX's fields whose feature the port has not got, with JAX's defaults, by
 # the ROADMAP item that would port it
 NOT_PORTED = {
-    "M11": {"mesh_shape": [-1], "mesh_axes": ["data"], "fsdp": False, "fsdp_axis": "data",
+    "M11": {"fsdp": False, "fsdp_axis": "data",
             "fsdp_min_size": 8192, "spatial_shard": False, "spatial_axis": "sp",
             "tensor_parallel": False, "tp_axis": "model", "pipeline_parallel": False,
             "pp_axis": "pp", "pp_microbatches": 2},
@@ -213,14 +213,13 @@ NOT_PORTED = {
 
 def require_ported(cfg: Config, item: str, entry: str) -> None:
     """Raise `NotImplementedError` from `entry` when a field of
-    `NOT_PORTED[item]` differs from JAX's default (a mesh of `[1]`, one
-    device, passes as `[-1]` does)."""
+    `NOT_PORTED[item]` differs from JAX's default."""
     def value(name):
         v = getattr(cfg, name)
         return list(v) if isinstance(v, tuple) else v
 
     bad = [f"{name}={value(name)!r}" for name, default in NOT_PORTED[item].items()
-           if value(name) != default and not (name == "mesh_shape" and value(name) == [1])]
+           if value(name) != default]
     if bad:
         raise NotImplementedError(f"{entry}: {', '.join(bad)} is not ported to "
                                   f"miseg_tpu_torch (ROADMAP {item}); leave JAX's default")

@@ -1,5 +1,6 @@
 """Sliding-window inference with overlap blending (counterpart of
-`miseg_tpu/inferers.py:42-79,287-462`).
+`miseg_tpu/inferers.py:42-79,287-462`), over 3-D volumes or 2-D slices
+(the rank is `len(roi_size)`).
 
 Tiles a volume into fixed ROIs on a regular grid
 (`scan_interval = roi * (1 - overlap)`), predicts window groups of
@@ -156,7 +157,11 @@ class SlidingWindowInferer:
         padded, starts, imp, count = self._blend_tables(spatial)
         lo = [(p - s) // 2 for s, p in zip(spatial, padded)]  # symmetric pad
         hi = [p - s - l for s, p, l in zip(spatial, padded, lo)]
-        pad = (0, 0, lo[2], hi[2], lo[1], hi[1], lo[0], hi[0]) if any(lo) or any(hi) else None
+        pad = None
+        if any(lo) or any(hi):
+            pad = [0, 0]
+            for a, b in zip(reversed(lo), reversed(hi)):
+                pad += [a, b]
         groups = [[tuple(slice(int(a), int(a) + r) for a, r in zip(s, roi))
                    for s in starts[g:g + k]] for g in range(0, len(starts), k)]
         crop = (slice(None), *(slice(l, l + s) for l, s in zip(lo, spatial)))

@@ -96,8 +96,8 @@ def _build(cfg: Config, device: torch.device, dtype, fused_conv: bool) -> nn.Mod
                     up_kernel_size=_scalar_or_list(cfg.up_kernel_size),
                     num_res_units=cfg.num_res_units, act=cfg.activation,
                     norm_down=encoder_norm, norm_up=decoder_norm, dropout=cfg.dropout_rate,
-                    bias=not cfg.no_bias, adn_ordering=cfg.adn_ordering, device=device,
-                    dtype=dtype)
+                    bias=not cfg.no_bias, adn_ordering=cfg.adn_ordering,
+                    spatial_dims=len(cfg.roi), device=device, dtype=dtype)
         if cfg.model_name == "unet":
             # the channels start at 2 * feature_size: the reference's TODO at
             # networks/nets/unet.py:218-219, kept for its checkpoints (W4)

@@ -8,6 +8,8 @@ C -> 512 on token 1) and a reconstruction decoder: "vae" (five times a
 3x3x3 conv, a parameter-free instance norm with a leaky relu, K1 + K2,
 and a x2 trilinear upsample; then a 1x1 conv), "deconv" (five stride-2
 transposed convs) or "large_kernel_deconv" (one 32^3 transposed conv).
+`spatial_dims=2` builds all of it in 2-D (bilinear upsampling), as the
+JAX package's does.
 Dormant, as in the JAX package: no entry point builds it.  Modules are
 named after the flax paths (`weights.state_dict_from_jax` maps them;
 the decoders' transposed convs hold their kernels directly under the
@@ -29,12 +31,13 @@ UPSAMPLE_MODES = ("vae", "deconv", "large_kernel_deconv")
 
 def trilinear_upsample(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """`jax.image.resize(method="linear")` by an integer factor over
-    `[B, *spatial, C]`: half-pixel centres, and at the borders the weights
-    of the pixels inside renormalised, which is `F.interpolate`'s
-    `align_corners=False` clamp."""
-    y = F.interpolate(x.permute(0, 4, 1, 2, 3), scale_factor=factor, mode="trilinear",
+    `[B, *spatial, C]` (trilinear in 3-D, bilinear in 2-D): half-pixel
+    centres, and at the borders the weights of the pixels inside
+    renormalised, which is `F.interpolate`'s `align_corners=False` clamp."""
+    mode = {2: "bilinear", 3: "trilinear"}[x.ndim - 2]
+    y = F.interpolate(x.movedim(-1, 1), scale_factor=factor, mode=mode,
                       align_corners=False)
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    return y.movedim(1, -1).contiguous()
 
 
 class SSLHead(nn.Module):
@@ -43,19 +46,19 @@ class SSLHead(nn.Module):
                  spatial_dims: int = 3, upsample: str = "vae", dim: int = 768, *,
                  device=None, dtype=None):
         super().__init__()
-        if spatial_dims != 3:
-            raise ValueError("the port builds 3-D SSLHead only")
         if upsample not in UPSAMPLE_MODES:
             raise ValueError(f"unknown upsample mode {upsample!r}")
         dd = dict(device=device, dtype=dtype)
+        nd = spatial_dims
         self.upsample = upsample
         self.swinViT = SwinTransformer(
-            in_channels, feature_size, (7, 7, 7), (2, 2, 2), (2, 2, 2, 2), (3, 6, 12, 24),
+            in_channels, feature_size, (7,) * nd, (2,) * nd, (2, 2, 2, 2), (3, 6, 12, 24),
             4.0, True, drop_path_rate=dropout_path_rate, norm=("layer", {}),
             use_checkpoint=use_checkpoint, **dd)
         c = feature_size * 2 ** 4   # the bottom stage's channels
         self.rotation_head = nn.Linear(c, 4, **dd)
         self.contrastive_head = nn.Linear(c, 512, **dd)
+        dd["spatial_dims"] = nd
         if upsample == "large_kernel_deconv":
             self.conv = Convolution(c, in_channels, 32, 32, 0, 0, is_transposed=True,
                                     conv_only=True, **dd)

@@ -1,4 +1,4 @@
-"""Swin Transformer backbone, 3-D (counterpart of
+"""Swin Transformer backbone, 2-D or 3-D by the window's rank (counterpart of
 `miseg_tpu/models/swin_transformer.py:39-140`).
 
 Patch embed (stride = patch size) -> 4 stages of `depth` blocks with
@@ -57,6 +57,7 @@ class BasicLayer(nn.Module):
                 drop_path[i] if i < len(drop_path) else 0.0,
                 norm=norm, device=device, dtype=dtype))
         self.downsample = (PatchMergingV2(dim, norm, legacy=downsample == "merging",
+                                          spatial_dims=len(self.window_size),
                                           device=device, dtype=dtype)
                            if downsample is not None else None)
         self._ids: dict = {}  # region ids per (padded dims, device)

@@ -5,7 +5,9 @@ rates reach the swin backbone only, as in the JAX package.  With
 `fused_conv` (the default) every UnetResBlock runs the fused conv chain
 (K4, K4, K3); `fused_conv=False` selects cuDNN convs with K1 + K2 norms.
 `use_checkpoint` recomputes in the backward what the JAX package remats:
-every swin block and every encoder and decoder block (`nn/recompute.py`)."""
+every swin block and every encoder and decoder block (`nn/recompute.py`).
+The rank is `len(img_size)`: 2-D builds 7x7 windows, 2x2 patches and 2-D
+convs (cuDNN's: K4 is 3-D only, so `fused_conv` changes nothing there)."""
 
 from __future__ import annotations
 
@@ -36,8 +38,9 @@ class SwinUNETR(nn.Module):
                  encoder_norm: NormSpec = ("instance", {}), use_checkpoint: bool = False, *,
                  fused_conv: bool = True, device=None, dtype=None):
         super().__init__()
-        if len(img_size) != 3:
-            raise ValueError("the port builds 3-D Swin-UNETR only")
+        nd = len(img_size)
+        if nd not in (2, 3):
+            raise ValueError("spatial dimension should be 2 or 3.")
         if any(m % 32 for m in img_size):
             raise ValueError("input image size (img_size) should be divisible "
                              "by stage-wise image resolution.")
@@ -54,9 +57,10 @@ class SwinUNETR(nn.Module):
         fs = feature_size
         dd = dict(device=device, dtype=dtype)
         self.swinViT = SwinTransformer(
-            in_channels, fs, (7, 7, 7), (2, 2, 2), tuple(depths), tuple(num_heads),
+            in_channels, fs, (7,) * nd, (2,) * nd, tuple(depths), tuple(num_heads),
             4.0, True, drop_rate, attn_drop_rate, dropout_path_rate,
             downsample=downsample, norm=vit_norm, use_checkpoint=use_checkpoint, **dd)
+        dd["spatial_dims"] = nd
 
         def enc(cin, cout):
             return UnetrBasicBlock(cin, cout, 3, 1, encoder_norm, res_block=True,
@@ -79,8 +83,8 @@ class SwinUNETR(nn.Module):
         self.out = UnetOutBlock(fs, out_channels, **dd)
 
     def forward(self, x_in, modalities=None):
-        """`x_in [B, D, H, W, Cin]`, `modalities int[B]` -> logits
-        `[B, D, H, W, out_channels]`."""
+        """`x_in [B, *spatial, Cin]` (`[B, D, H, W, Cin]` or `[B, H, W,
+        Cin]`), `modalities int[B]` -> logits `[B, *spatial, out_channels]`."""
         def block(module, *args):
             return recompute.call(module, *args, modalities, recompute=self.use_checkpoint)
 

@@ -16,7 +16,8 @@
   16 64 128 256 512, strides 1 2 2 2 1).
 
 Every instance norm runs K1 + K2; the convs are cuDNN's (the JAX package
-never sends a UNet conv to its fused conv kernel).
+never sends a UNet conv to its fused conv kernel).  Both build 2-D or 3-D
+by `spatial_dims` (the JAX modules take it from the input).
 """
 
 from __future__ import annotations
@@ -40,10 +41,11 @@ class _UNetLevel(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, channels: Sequence[int],
                  strides: Sequence[int], is_top: bool, *, kernel_size, up_kernel_size,
                  num_res_units: int, act, norm_down: NormSpec, norm_up: NormSpec,
-                 dropout: float, bias: bool, adn_ordering: str, device=None, dtype=None):
+                 dropout: float, bias: bool, adn_ordering: str, spatial_dims: int = 3,
+                 device=None, dtype=None):
         super().__init__()
         common = dict(act=act, dropout=dropout or None, adn_ordering=adn_ordering,
-                      device=device, dtype=dtype)
+                      spatial_dims=spatial_dims, device=device, dtype=dtype)
         c, s = channels[0], strides[0]
 
         def down(cin, cout, stride):
@@ -59,7 +61,8 @@ class _UNetLevel(nn.Module):
                 c, c, channels[1:], strides[1:], False, kernel_size=kernel_size,
                 up_kernel_size=up_kernel_size, num_res_units=num_res_units, act=act,
                 norm_down=norm_down, norm_up=norm_up, dropout=dropout, bias=bias,
-                adn_ordering=adn_ordering, device=device, dtype=dtype)
+                adn_ordering=adn_ordering, spatial_dims=spatial_dims, device=device,
+                dtype=dtype)
             sub_out = c
         else:
             self.bottom = down(c, channels[1], 1)
@@ -90,7 +93,8 @@ class UNet(nn.Module):
                  up_kernel_size: int | Sequence[int] = 3, num_res_units: int = 0,
                  act: str | tuple = "prelu", norm_down: NormSpec = ("instance", {}),
                  norm_up: NormSpec = ("instance", {}), dropout: float = 0.0,
-                 bias: bool = True, adn_ordering: str = "NDA", *, device=None, dtype=None):
+                 bias: bool = True, adn_ordering: str = "NDA", *, spatial_dims: int = 3,
+                 device=None, dtype=None):
         super().__init__()
         if len(channels) < 2:
             raise ValueError("the length of `channels` should be no less than 2.")
@@ -104,12 +108,12 @@ class UNet(nn.Module):
             in_channels, out_channels, tuple(channels), tuple(strides[:len(channels) - 1]),
             True, kernel_size=kernel_size, up_kernel_size=up_kernel_size,
             num_res_units=num_res_units, act=act, norm_down=norm_down, norm_up=norm_up,
-            dropout=float(dropout), bias=bias, adn_ordering=adn_ordering, device=device,
-            dtype=dtype)
+            dropout=float(dropout), bias=bias, adn_ordering=adn_ordering,
+            spatial_dims=spatial_dims, device=device, dtype=dtype)
 
     def forward(self, x, modalities=None):
-        """`x [B, D, H, W, Cin]`, `modalities int[B]` -> logits
-        `[B, D, H, W, out_channels]`."""
+        """`x [B, *spatial, Cin]`, `modalities int[B]` -> logits
+        `[B, *spatial, out_channels]`."""
         return self.model(x, modalities)
 
 
@@ -131,13 +135,14 @@ class UNetVanilla(nn.Module):
                  up_kernel_size: int | Sequence[int] = 3, num_res_units: int = 0,
                  act: str | tuple = "prelu", norm_down: NormSpec = ("instance", {}),
                  norm_up: NormSpec = ("instance", {}), dropout: float = 0.0,
-                 bias: bool = True, adn_ordering: str = "NDA", *, device=None, dtype=None):
+                 bias: bool = True, adn_ordering: str = "NDA", *, spatial_dims: int = 3,
+                 device=None, dtype=None):
         super().__init__()
         ch, self.strides = list(channels), list(strides)
         if len(self.strides) < len(ch):
             raise ValueError(f"UNetVanilla takes a stride a scale: {len(ch)} channels, "
                              f"{len(self.strides)} strides")
-        dd = dict(device=device, dtype=dtype)
+        dd = dict(spatial_dims=spatial_dims, device=device, dtype=dtype)
 
         def unit(cin, cout, stride, norm):
             return ResidualUnit(cin, cout, kernel_size, stride, 2, adn_ordering, act, norm,
@@ -159,8 +164,8 @@ class UNetVanilla(nn.Module):
         self.scales = len(ch)
 
     def forward(self, x, modalities=None):
-        """`x [B, D, H, W, Cin]`, `modalities int[B]` -> logits
-        `[B, D, H, W, out_channels]`."""
+        """`x [B, *spatial, Cin]`, `modalities int[B]` -> logits
+        `[B, *spatial, out_channels]`."""
         x = self.pre_conv(x)
         skips = [x]
         for scale in range(1, self.scales):

@@ -2,7 +2,7 @@
 `miseg_tpu/models/unetr.py:29-129`).  "C-UNETR" is this model with
 `instance_cond` encoder and ViT norms.
 
-The ViT (16^3 patches) runs on the input; `encoder1` is a conv block on
+The ViT (16^3 patches, or 16^2 for a 2-D `img_size`) runs on the input; `encoder1` is a conv block on
 the input itself, `encoder2`..`encoder4` progressive up-projections of
 the hidden states after blocks L/4, L/2 and 3L/4, and the final ViT
 output, reshaped to a volume (`proj_feat`, a channel-last reshape), goes
@@ -54,7 +54,8 @@ class UNETR(nn.Module):
         self.feat_size = tuple(s // p for s, p in zip(img_size, patch_size))
         self.hidden_size, self.num_layers = hidden_size, num_layers
         fs = feature_size
-        dd = dict(fused_conv=fused_conv, device=device, dtype=dtype)
+        dd = dict(fused_conv=fused_conv, spatial_dims=len(img_size), device=device,
+                  dtype=dtype)
         self.vit = ViT(in_channels, img_size, patch_size, hidden_size, mlp_dim, num_layers,
                        num_heads, pos_embed, classification=False,
                        dropout_rate=dropout_rate, qkv_bias=qkv_bias, norm=vit_norm,
@@ -77,15 +78,16 @@ class UNETR(nn.Module):
         self.decoder4 = up(fs * 8, fs * 4)
         self.decoder3 = up(fs * 4, fs * 2)
         self.decoder2 = up(fs * 2, fs)
-        self.out = UnetOutBlock(fs, out_channels, device=device, dtype=dtype)
+        self.out = UnetOutBlock(fs, out_channels, spatial_dims=len(img_size), device=device,
+                                dtype=dtype)
 
     def proj_feat(self, tokens):
         """`[B, L, hidden]` -> `[B, *feat_size, hidden]`."""
         return tokens.reshape(tokens.shape[0], *self.feat_size, self.hidden_size)
 
     def forward(self, x_in, modalities=None):
-        """`x_in [B, D, H, W, Cin]`, `modalities int[B]` -> logits
-        `[B, D, H, W, out_channels]`."""
+        """`x_in [B, *spatial, Cin]`, `modalities int[B]` -> logits
+        `[B, *spatial, out_channels]`."""
         if self.needs_modalities and modalities is None:
             raise ValueError("Modalities must be passed to the forward step when a "
                              "norm is 'instance_cond'.")

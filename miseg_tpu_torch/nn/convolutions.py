@@ -1,11 +1,15 @@
-"""Channel-last 3-D convolutions (counterpart of
+"""Channel-last 2-D and 3-D convolutions (counterpart of
 `miseg_tpu/nn/convolutions.py:49-184`): `Conv`, `Convolution` with its
 optional ADN, and `ResidualUnit`.
 
 A contiguous `[B, D, H, W, C]` tensor viewed through
 `permute(0, 4, 1, 2, 3)` is already a `channels_last_3d` NCDHW tensor, so
 `F.conv3d` runs on it without a copy and its channels-last output
-permutes back the same way.  Weights use torch's layout: `[O, I, *k]` for
+permutes back the same way; a `[B, H, W, C]` one is a `channels_last`
+NCHW tensor for `F.conv2d` alike.  The JAX modules take their rank from
+the input; these build their weights at construction, so they take it
+from `spatial_dims` (default 3), or from a kernel size given as one
+entry a dim.  Weights use torch's layout: `[O, I, *k]` for
 a conv, `[I, O, *k]` for a transposed conv.  The convs are cuDNN's, as
 the JAX package's are XLA's `nn.Conv` and `lax.conv_transpose`.
 """
@@ -23,10 +27,24 @@ from ..ops.init import fill_, lecun_normal
 from .adn import ADN
 
 
-def _tuple3(v) -> tuple[int, int, int]:
+def _tuple(v, nd: int) -> tuple[int, ...]:
+    """`v` (an int, a one-entry list or one entry a dim) as `nd` ints."""
     if isinstance(v, (list, tuple)):
-        return tuple(int(x) for x in v) if len(v) == 3 else (int(v[0]),) * 3
-    return (int(v),) * 3
+        if len(v) == 1:
+            return (int(v[0]),) * nd
+        if len(v) != nd:
+            raise ValueError(f"expected length-{nd} sequence, got {v}")
+        return tuple(int(x) for x in v)
+    return (int(v),) * nd
+
+
+def _rank(kernel_size, spatial_dims: int) -> int:
+    """The spatial rank: a kernel size's own length where it gives one."""
+    if isinstance(kernel_size, (list, tuple)) and len(kernel_size) > 1:
+        return len(kernel_size)
+    if spatial_dims not in (2, 3):
+        raise ValueError(f"spatial_dims should be 2 or 3, got {spatial_dims}")
+    return spatial_dims
 
 
 def same_padding(kernel_size):
@@ -60,30 +78,35 @@ def get_output_padding(kernel_size, stride, padding):
 
 
 def _cf(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 4, 1, 2, 3)
+    return x.movedim(-1, 1)
 
 
 def _cl(y: torch.Tensor) -> torch.Tensor:
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    return y.movedim(1, -1).contiguous()
+
+
+_CONV = {2: F.conv2d, 3: F.conv3d}
+_CONV_T = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
 
 
 def conv_transpose(x: torch.Tensor, weight: torch.Tensor, strides: Sequence[int],
                    padding: Sequence[int], output_padding: Sequence[int],
                    bias: torch.Tensor | None = None) -> torch.Tensor:
-    """Channel-last transposed conv with torch padding semantics."""
-    return _cl(F.conv_transpose3d(_cf(x), weight, bias, tuple(strides),
-                                  tuple(padding), tuple(output_padding)))
+    """Channel-last 2-D or 3-D transposed conv with torch padding semantics."""
+    return _cl(_CONV_T[x.ndim - 2](_cf(x), weight, bias, tuple(strides),
+                                   tuple(padding), tuple(output_padding)))
 
 
 class Conv(nn.Module):
     """Channel-last conv (flax `nn.Conv` counterpart: `weight` = kernel)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
-                 stride=1, padding=0, bias: bool = True, *, device=None,
-                 dtype=None):
+                 stride=1, padding=0, bias: bool = True, *, spatial_dims: int = 3,
+                 device=None, dtype=None):
         super().__init__()
-        self.kernel_size = _tuple3(kernel_size)
-        self.stride, self.padding = _tuple3(stride), _tuple3(padding)
+        nd = _rank(kernel_size, spatial_dims)
+        self.kernel_size = _tuple(kernel_size, nd)
+        self.stride, self.padding = _tuple(stride, nd), _tuple(padding, nd)
         self.weight = nn.Parameter(torch.empty(
             (out_channels, in_channels, *self.kernel_size), device=device, dtype=dtype))
         self.bias = (nn.Parameter(torch.empty(out_channels, device=device, dtype=dtype))
@@ -96,8 +119,8 @@ class Conv(nn.Module):
             fill_(self.bias, torch.zeros(self.bias.shape))
 
     def forward(self, x):
-        return _cl(F.conv3d(_cf(x), self.weight, self.bias, self.stride,
-                            self.padding))
+        return _cl(_CONV[len(self.kernel_size)](_cf(x), self.weight, self.bias,
+                                                self.stride, self.padding))
 
 
 class Convolution(nn.Module):
@@ -113,14 +136,15 @@ class Convolution(nn.Module):
                  use_bias: bool = True, is_transposed: bool = False, *,
                  adn_ordering: str = "NDA", act=None, norm=None,
                  dropout: float | None = None, conv_only: bool = False,
-                 device=None, dtype=None):
+                 spatial_dims: int = 3, device=None, dtype=None):
         super().__init__()
-        k, s = _tuple3(kernel_size), _tuple3(strides)
-        pad = _tuple3(padding) if padding is not None else same_padding(k)
+        nd = _rank(kernel_size, spatial_dims)
+        k, s = _tuple(kernel_size, nd), _tuple(strides, nd)
+        pad = _tuple(padding, nd) if padding is not None else same_padding(k)
         self.is_transposed = is_transposed
         if is_transposed:
             self.kernel_size, self.strides, self.padding = k, s, pad
-            self.output_padding = (_tuple3(output_padding) if output_padding is not None
+            self.output_padding = (_tuple(output_padding, nd) if output_padding is not None
                                    else tuple(si - 1 for si in s))
             self.weight = nn.Parameter(torch.empty(
                 (in_channels, out_channels, *k), device=device, dtype=dtype))
@@ -160,10 +184,11 @@ class ResidualUnit(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size=3, strides=1,
                  subunits: int = 2, adn_ordering: str = "NDA", act="prelu",
                  norm=("instance", {}), dropout: float | None = None,
-                 use_bias: bool = True, last_conv_only: bool = False, *, device=None,
-                 dtype=None):
+                 use_bias: bool = True, last_conv_only: bool = False, *,
+                 spatial_dims: int = 3, device=None, dtype=None):
         super().__init__()
-        k, s = _tuple3(kernel_size), _tuple3(strides)
+        nd = _rank(kernel_size, spatial_dims)
+        k, s = _tuple(kernel_size, nd), _tuple(strides, nd)
         pad = same_padding(k)
         self.subunits = max(1, subunits)
         cin, ss = in_channels, s
@@ -173,11 +198,11 @@ class ResidualUnit(nn.Module):
                 adn_ordering=adn_ordering, act=act, norm=norm, dropout=dropout,
                 conv_only=last_conv_only and su == self.subunits - 1,
                 device=device, dtype=dtype))
-            cin, ss = out_channels, (1, 1, 1)
+            cin, ss = out_channels, (1,) * nd
         self.residual = None
         strided = any(si != 1 for si in s)
         if strided or in_channels != out_channels:
-            rk, rp = (k, pad) if strided else ((1, 1, 1), (0, 0, 0))
+            rk, rp = (k, pad) if strided else ((1,) * nd, (0,) * nd)
             self.residual = Conv(in_channels, out_channels, rk, s, rp, use_bias,
                                  device=device, dtype=dtype)
 

@@ -15,6 +15,12 @@ restores only the global RNGs.  So the recompute takes `snapshot()` at
 the block's entry (the installed generator and its state) and draws
 under `replay(snapshot)` from a fresh generator in that state: the masks
 of the first forward, as flax's `nn.remat` replays them.
+
+Under data parallelism (`parallel`) each rank draws the mask of the
+global batch, `world` times its own leading extent, and keeps its slice
+(`rank`-th of `world`): the mask JAX draws over its global array, so
+two ranks drop what one process drops over their concatenated batch.
+Every mask's leading axis is batch-major (`[B, ...]`, `[B * nW, ...]`).
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import contextvars
 
 import torch
 from torch import nn
+
+from .. import parallel
 
 _generator: contextvars.ContextVar[torch.Generator | None] = contextvars.ContextVar(
     "miseg_dropout_generator", default=None)
@@ -67,7 +75,10 @@ def _drop(x: torch.Tensor, rate: float, mask_shape) -> torch.Tensor:
                            "forward inside `miseg_tpu_torch.nn.dropout.rng(generator)`")
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(mask_shape, generator=gen, device=x.device) >= rate
+    rank, world = parallel.host_shard_info()
+    n = mask_shape[0]
+    draw = torch.rand((world * n, *mask_shape[1:]), generator=gen, device=x.device)
+    keep = draw[rank * n:(rank + 1) * n] >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -12,7 +12,10 @@ Two paths compute the same function with the same parameters:
     cuDNN convs, each norm through K1 + K2 with the leaky-relu tails fused
     into K2 (norm1 + act; norm2 + residual add + act).
 `fused_conv` is the caller's choice, the counterpart of the JAX package's
-`MISEG_PALLAS_CONV`; it is never a fallback for a kernel that fails.  A
+`MISEG_PALLAS_CONV`; it is never a fallback for a kernel that fails.
+A 2-D block (`spatial_dims=2`) takes the unfused path: K4 is 3-D only
+(`fused_conv.supported` is False for a 4-D input), as the JAX package's
+Pallas conv is.  A
 block built with a `dropout` rate drops after norm1 (+ act) in training,
 which the fused chain cannot: the plan rejects it there, as the JAX
 package's does (miseg_tpu/nn/dynunet.py:85).  No block of SwinUNETR takes
@@ -37,13 +40,13 @@ _LRELU = ("leakyrelu", {"negative_slope": 0.01})
 
 
 def _conv(in_channels, out_channels, kernel_size, stride, *, transposed=False,
-          bias=False, device=None, dtype=None):
+          bias=False, spatial_dims=3, device=None, dtype=None):
     """dynunet conv: explicit padding rule, no ADN."""
     pad = get_padding(kernel_size, stride)
     out_pad = get_output_padding(kernel_size, stride, pad) if transposed else None
     return Convolution(in_channels, out_channels, kernel_size, stride, pad,
                        out_pad, use_bias=bias, is_transposed=transposed,
-                       device=device, dtype=dtype)
+                       spatial_dims=spatial_dims, device=device, dtype=dtype)
 
 
 def _is_downsample(in_channels, out_channels, stride) -> bool:
@@ -85,21 +88,22 @@ class UnetResBlock(nn.Module):
                  kernel_size: int | Sequence[int] = 3,
                  stride: int | Sequence[int] = 1,
                  norm: NormSpec = ("instance", {}), act=_LRELU,
-                 dropout: float | None = None, *, fused_conv: bool = True, device=None,
-                 dtype=None):
+                 dropout: float | None = None, *, fused_conv: bool = True,
+                 spatial_dims: int = 3, device=None, dtype=None):
         super().__init__()
         dd = dict(device=device, dtype=dtype)
+        cd = dict(dd, spatial_dims=spatial_dims)
         self.kernel_size, self.stride, self.fused_conv = kernel_size, stride, fused_conv
         self.drop = Dropout(dropout or 0.0)
         self.slope = leaky_slope(act)
         self.act = get_act(act) if self.slope is None else None
-        self.conv1 = _conv(in_channels, out_channels, kernel_size, stride, **dd)
+        self.conv1 = _conv(in_channels, out_channels, kernel_size, stride, **cd)
         self.norm1 = make_norm(norm, out_channels, **dd)
-        self.conv2 = _conv(out_channels, out_channels, kernel_size, 1, **dd)
+        self.conv2 = _conv(out_channels, out_channels, kernel_size, 1, **cd)
         self.norm2 = make_norm(norm, out_channels, **dd)
         self.downsample = _is_downsample(in_channels, out_channels, stride)
         if self.downsample:
-            self.conv3 = _conv(in_channels, out_channels, 1, stride, **dd)
+            self.conv3 = _conv(in_channels, out_channels, 1, stride, **cd)
             self.norm3 = make_norm(norm, out_channels, **dd)
 
     def forward(self, x, modalities=None):
@@ -142,17 +146,18 @@ class UnetBasicBlock(nn.Module):
                  kernel_size: int | Sequence[int] = 3,
                  stride: int | Sequence[int] = 1,
                  norm: NormSpec = ("instance", {}), act=_LRELU,
-                 dropout: float | None = None, *, fused_conv: bool = True, device=None,
-                 dtype=None):
+                 dropout: float | None = None, *, fused_conv: bool = True,
+                 spatial_dims: int = 3, device=None, dtype=None):
         super().__init__()
         dd = dict(device=device, dtype=dtype)
+        cd = dict(dd, spatial_dims=spatial_dims)
         self.kernel_size, self.stride, self.fused_conv = kernel_size, stride, fused_conv
         self.drop = Dropout(dropout or 0.0)
         self.slope = leaky_slope(act)
         self.act = get_act(act) if self.slope is None else None
-        self.conv1 = _conv(in_channels, out_channels, kernel_size, stride, **dd)
+        self.conv1 = _conv(in_channels, out_channels, kernel_size, stride, **cd)
         self.norm1 = make_norm(norm, out_channels, **dd)
-        self.conv2 = _conv(out_channels, out_channels, kernel_size, 1, **dd)
+        self.conv2 = _conv(out_channels, out_channels, kernel_size, 1, **cd)
         self.norm2 = make_norm(norm, out_channels, **dd)
 
     def forward(self, x, modalities=None):
@@ -172,11 +177,11 @@ class UnetBasicBlock(nn.Module):
 
 
 class UnetOutBlock(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int, *, device=None,
-                 dtype=None):
+    def __init__(self, in_channels: int, out_channels: int, *, spatial_dims: int = 3,
+                 device=None, dtype=None):
         super().__init__()
         self.conv = _conv(in_channels, out_channels, 1, 1, bias=True,
-                          device=device, dtype=dtype)
+                          spatial_dims=spatial_dims, device=device, dtype=dtype)
 
     def forward(self, x):
         return self.conv(x)

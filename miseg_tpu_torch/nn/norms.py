@@ -12,7 +12,10 @@ flax: `[C]`, or `[num_styles, C]` banks for `instance_cond`.
 (flax's `batch_stats` collection), whatever the parameters' dtype.  In
 training mode it normalises with the batch's statistics and updates the
 buffers, detached, as `0.9 * old + 0.1 * new` on every call; in eval
-mode it normalises with the buffers.
+mode it normalises with the buffers.  Under data parallelism the
+batch's statistics are the global batch's (`parallel.batch_stats`, as
+JAX's on its global array), so the running statistics stay equal on
+every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from .. import parallel
 from ..ops import norms as N
 from ..ops.init import fill_
 from ..ops.kernels import fused_norm
@@ -92,7 +96,7 @@ class Norm(nn.Module):
         if not self.training:
             return N.batch_norm_inference(x, self.mean, self.var, self.scale, self.bias,
                                           eps=self.eps)
-        mean, var = N.batch_stats(x)
+        mean, var = parallel.batch_stats(x)
         with torch.no_grad():
             self.mean.copy_(MOMENTUM * self.mean + (1 - MOMENTUM) * mean)
             self.var.copy_(MOMENTUM * self.var + (1 - MOMENTUM) * var)

@@ -1,6 +1,8 @@
-"""Swin transformer blocks, 3-D, forward only (counterpart of
+"""Swin transformer blocks, 2-D and 3-D (counterpart of
 `miseg_tpu/nn/swin.py:65-280`): window attention, the shifted-window
 block, patch merging (incl. the legacy slice order) and patch embedding.
+The blocks take their rank from their input, patch merging and patch
+embedding from `spatial_dims` and the patch size.
 
 Window attention runs kernel K5 (`ops.kernels.window_attention`) on the
 card; every norm runs K1 + K2.  Dropout (after the projection and in the
@@ -31,11 +33,14 @@ from .transformer import MLPBlock
 NormSpec = tuple[str, dict[str, Any]] | str
 
 
-def _pad_cl(x: torch.Tensor, hi: tuple[int, int, int]) -> torch.Tensor:
-    """Zero-pad the high side of the three spatial dims of `[B, D, H, W, C]`."""
+def _pad_cl(x: torch.Tensor, hi: tuple[int, ...]) -> torch.Tensor:
+    """Zero-pad the high side of the spatial dims of `[B, *spatial, C]`."""
     if not any(hi):
         return x
-    return F.pad(x, (0, 0, 0, hi[2], 0, hi[1], 0, hi[0]))
+    pad = [0, 0]
+    for h in reversed(hi):
+        pad += [0, h]
+    return F.pad(x, pad)
 
 
 class WindowAttention(nn.Module):
@@ -129,15 +134,16 @@ class SwinTransformerBlock(nn.Module):
                                                   self.shift_size)
         x = _pad_cl(x, tuple((w - s % w) % w for s, w in zip(spatial, window_size)))
         padded = x.shape[1:-1]
+        axes = tuple(range(1, 1 + len(spatial)))
         shifted = any(shift_size)
         if shifted:
-            x = torch.roll(x, [-s for s in shift_size], dims=(1, 2, 3))
+            x = torch.roll(x, [-s for s in shift_size], dims=axes)
         windows = window_partition(x, window_size)
         attn = self.attn(windows, mask if shifted else None)
         x = window_reverse(attn, window_size, (b, *padded))
         if shifted:
-            x = torch.roll(x, list(shift_size), dims=(1, 2, 3))
-        return x[:, :spatial[0], :spatial[1], :spatial[2]]
+            x = torch.roll(x, list(shift_size), dims=axes)
+        return x[(slice(None), *(slice(0, n) for n in spatial))]
 
     def forward(self, x, mask=None, modalities=None):
         x = x + self.drop_path(self._pad_roll_attend(x, mask, modalities))
@@ -147,23 +153,33 @@ class SwinTransformerBlock(nn.Module):
 # MONAI v0.9 slice order, duplicated slices included (nn/swin.py:240-243)
 _LEGACY_OFFSETS = [(0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1),
                    (1, 0, 1), (0, 1, 0), (0, 0, 1), (1, 1, 1)]
+# 2-D, both variants: the reference iterates product() as (i, j) but
+# slices [j::2, i::2] (nn/swin.py:248-252), so the offsets are (j, i)
+_OFFSETS_2D = [(j, i) for i, j in itertools.product((0, 1), repeat=2)]
 
 
 class PatchMergingV2(nn.Module):
-    """2^3 space-to-channel concat -> norm -> Linear(8*dim -> 2*dim, no bias)."""
+    """2^nd space-to-channel concat -> norm -> Linear(2^nd*dim -> 2*dim,
+    no bias)."""
 
     def __init__(self, dim: int, norm: NormSpec = ("instance_cond", {}),
-                 legacy: bool = False, *, device=None, dtype=None):
+                 legacy: bool = False, *, spatial_dims: int = 3, device=None,
+                 dtype=None):
         super().__init__()
-        self.offsets = (_LEGACY_OFFSETS if legacy
-                        else list(itertools.product((0, 1), repeat=3)))
-        self.norm = make_norm(norm, 8 * dim, device=device, dtype=dtype)
-        self.reduction = skip_init(nn.Linear, 8 * dim, 2 * dim, bias=False,
+        if spatial_dims == 2:
+            self.offsets = _OFFSETS_2D
+        else:
+            self.offsets = (_LEGACY_OFFSETS if legacy
+                            else list(itertools.product((0, 1), repeat=3)))
+        merged = 2 ** spatial_dims * dim
+        self.norm = make_norm(norm, merged, device=device, dtype=dtype)
+        self.reduction = skip_init(nn.Linear, merged, 2 * dim, bias=False,
                                    device=device, dtype=dtype)
 
     def forward(self, x, modalities=None):
         x = _pad_cl(x, tuple(s % 2 for s in x.shape[1:-1]))
-        x = torch.cat([x[:, i::2, j::2, k::2, :] for i, j, k in self.offsets], dim=-1)
+        x = torch.cat([x[(slice(None), *(slice(o, None, 2) for o in off))]
+                       for off in self.offsets], dim=-1)
         return self.reduction(self.norm(x, modalities))
 
 
@@ -175,7 +191,8 @@ class PatchEmbed(nn.Module):
         super().__init__()
         self.patch_size = tuple(patch_size)
         self.proj = Conv(in_chans, embed_dim, self.patch_size, self.patch_size,
-                         0, True, device=device, dtype=dtype)
+                         0, True, spatial_dims=len(self.patch_size), device=device,
+                         dtype=dtype)
         self.norm = make_norm(norm, embed_dim, device=device, dtype=dtype)
 
     def forward(self, x, modalities=None):

@@ -1,6 +1,6 @@
 """UNETR encoder/decoder blocks (counterpart of
-`miseg_tpu/nn/unetr_blocks.py:23-82`).  `fused_conv` selects the conv
-blocks' path (see `nn/dynunet.py`)."""
+`miseg_tpu/nn/unetr_blocks.py:23-82`), 2-D or 3-D by `spatial_dims`.
+`fused_conv` selects the conv blocks' path (see `nn/dynunet.py`)."""
 
 from __future__ import annotations
 
@@ -19,11 +19,13 @@ class UnetrBasicBlock(nn.Module):
                  kernel_size: int | Sequence[int] = 3,
                  stride: int | Sequence[int] = 1,
                  norm: NormSpec = ("instance", {}), res_block: bool = False,
-                 *, fused_conv: bool = True, device=None, dtype=None):
+                 *, fused_conv: bool = True, spatial_dims: int = 3, device=None,
+                 dtype=None):
         super().__init__()
         block = UnetResBlock if res_block else UnetBasicBlock
         self.layer = block(in_channels, out_channels, kernel_size, stride,
-                           norm, fused_conv=fused_conv, device=device, dtype=dtype)
+                           norm, fused_conv=fused_conv, spatial_dims=spatial_dims,
+                           device=device, dtype=dtype)
 
     def forward(self, x, modalities=None):
         return self.layer(x, modalities)
@@ -36,15 +38,16 @@ class UnetrUpBlock(nn.Module):
                  kernel_size: int | Sequence[int] = 3,
                  upsample_kernel_size: int | Sequence[int] = 2,
                  norm: NormSpec = ("instance", {}), res_block: bool = False,
-                 *, fused_conv: bool = True, device=None, dtype=None):
+                 *, fused_conv: bool = True, spatial_dims: int = 3, device=None,
+                 dtype=None):
         super().__init__()
+        dd = dict(spatial_dims=spatial_dims, device=device, dtype=dtype)
         self.transp_conv = _conv(in_channels, out_channels,
                                  upsample_kernel_size, upsample_kernel_size,
-                                 transposed=True, device=device, dtype=dtype)
+                                 transposed=True, **dd)
         block = UnetResBlock if res_block else UnetBasicBlock
         self.conv_block = block(2 * out_channels, out_channels, kernel_size,
-                                1, norm, fused_conv=fused_conv, device=device,
-                                dtype=dtype)
+                                1, norm, fused_conv=fused_conv, **dd)
 
     def forward(self, x, skip, modalities=None):
         out = torch.cat([self.transp_conv(x), skip], dim=-1)
@@ -60,10 +63,10 @@ class UnetrPrUpBlock(nn.Module):
                  stride: int | Sequence[int] = 1,
                  upsample_kernel_size: int | Sequence[int] = 2,
                  norm: NormSpec = ("instance", {}), conv_block: bool = False,
-                 res_block: bool = False, *, fused_conv: bool = True, device=None,
-                 dtype=None):
+                 res_block: bool = False, *, fused_conv: bool = True,
+                 spatial_dims: int = 3, device=None, dtype=None):
         super().__init__()
-        dd = dict(device=device, dtype=dtype)
+        dd = dict(spatial_dims=spatial_dims, device=device, dtype=dtype)
         self.num_layer, self.conv_block = num_layer, conv_block
         self.transp_conv_init = _conv(in_channels, out_channels, upsample_kernel_size,
                                       upsample_kernel_size, transposed=True, **dd)

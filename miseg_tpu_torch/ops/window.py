@@ -1,5 +1,5 @@
-"""Shifted-window utilities for 3-D Swin attention (channel-last),
-counterpart of `miseg_tpu/ops/window.py`.
+"""Shifted-window utilities for 2-D and 3-D Swin attention
+(channel-last), counterpart of `miseg_tpu/ops/window.py`.
 
 The shifted-window mask travels as region ids `int32 [nW, N]`: two tokens
 attend without penalty iff their ids match, and a differing pair gets the
@@ -10,6 +10,7 @@ masked_fill does.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -32,22 +33,39 @@ def get_window_size(x_size, window_size, shift_size=None):
     return tuple(use_window), tuple(use_shift)
 
 
+def _partition_order(nd: int) -> tuple[int, ...]:
+    """`[B, n_0, w_0, ..., n_{nd-1}, w_{nd-1}, C]` -> `[B, n_0.., w_0.., C]`."""
+    return (0, *range(1, 2 * nd, 2), *range(2, 2 * nd + 1, 2), 2 * nd + 1)
+
+
+def _blocked(dims, window_size) -> list[int]:
+    out = []
+    for d, w in zip(dims, window_size):
+        out += [d // w, w]
+    return out
+
+
 def window_partition(x: torch.Tensor, window_size) -> torch.Tensor:
-    """`[B, D, H, W, C] -> [B*nW, wd*wh*ww, C]` (a contiguous copy)."""
-    b, d, h, w, c = x.shape
-    wd, wh, ww = window_size
-    x = x.reshape(b, d // wd, wd, h // wh, wh, w // ww, ww, c)
-    x = x.permute(0, 1, 3, 5, 2, 4, 6, 7)
-    return x.reshape(-1, wd * wh * ww, c)
+    """`[B, D, H, W, C] -> [B*nW, wd*wh*ww, C]`, or `[B, H, W, C] ->
+    [B*nW, wh*ww, C]` (a contiguous copy)."""
+    b, *spatial, c = x.shape
+    x = x.reshape(b, *_blocked(spatial, window_size), c)
+    x = x.permute(_partition_order(len(spatial)))
+    return x.reshape(-1, math.prod(window_size), c)
 
 
 def window_reverse(windows: torch.Tensor, window_size, dims) -> torch.Tensor:
-    """Inverse of `window_partition`; `dims` is `(B, D, H, W)`."""
-    b, d, h, w = dims
-    wd, wh, ww = window_size
-    x = windows.reshape(b, d // wd, h // wh, w // ww, wd, wh, ww, -1)
-    x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)
-    return x.reshape(b, d, h, w, -1)
+    """Inverse of `window_partition`; `dims` is `(B, D, H, W)` or `(B, H, W)`."""
+    b, *spatial = dims
+    nd = len(spatial)
+    x = windows.reshape(b, *(s // w for s, w in zip(spatial, window_size)),
+                        *window_size, -1)
+    # [B, n_0.., w_0.., C] -> [B, n_0, w_0, ..., C]
+    perm = [0]
+    for i in range(nd):
+        perm += [1 + i, 1 + nd + i]
+    x = x.permute(*perm, 2 * nd + 1)
+    return x.reshape(b, *spatial, -1)
 
 
 def _region_ids_1d(dim: int, ws: int, ss: int) -> np.ndarray:
@@ -69,9 +87,11 @@ def _region_ids_np(dims: tuple, window_size: tuple,
         shape[i] = -1
         region = region * 3 + _region_ids_1d(d, w, s).reshape(shape)
     # `window_partition` in numpy (no torch op: this runs while tracing too)
-    (d, h, w), (wd, wh, ww) = dims, window_size
-    ids = np.ascontiguousarray(region.reshape(d // wd, wd, h // wh, wh, w // ww, ww)
-                               .transpose(0, 2, 4, 1, 3, 5).reshape(-1, wd * wh * ww))
+    nd = len(dims)
+    ids = np.ascontiguousarray(
+        region.reshape(_blocked(dims, window_size))
+        .transpose(*range(0, 2 * nd, 2), *range(1, 2 * nd, 2))
+        .reshape(-1, math.prod(window_size)))
     ids.setflags(write=False)  # cached: shared by every caller
     return ids
 

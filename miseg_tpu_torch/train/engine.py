@@ -25,6 +25,15 @@ keeps host timings in `history`: the data module's set-up, each step's
 wait on the loader and its CUDA-event time on the card, each epoch's,
 validation's and checkpoint save's seconds, the windows evaluated and the
 seconds of surface distance.
+
+Under data parallelism (`parallel`, one rank a card) the Trainer runs
+JAX's multi-host semantics: rank 0's initial state is broadcast, each
+micro-step's gradients are averaged over the ranks in buckets (once a
+window under `iters_to_accumulate`: the window's mean, as DDP's
+`no_sync` micro-steps do), with the loss, so every rank logs the global
+batch's; batch norm's statistics and the dropout masks are the global
+batch's (`nn/norms.py`, `nn/dropout.py`); rank 0 alone writes
+checkpoints and metrics, the others waiting at a barrier.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import parallel
 from ..config import Config, require_ported
 from ..inferers import SlidingWindowInferer, window_starts
 from ..losses import loss_from_config
@@ -122,9 +132,12 @@ class Trainer:
         under `cfg.no_gpu`), or `model` as it is; `fused_conv` selects the
         conv blocks' path of a model built here.  Metrics go to `logger`,
         by default a `MetricLogger` over `workdir` (default
-        `cfg.default_root_dir`) opened at the first record.  The mesh and
-        the parallelism fields must hold JAX's defaults (ROADMAP M11)."""
+        `cfg.default_root_dir`) opened at the first record (on rank 0;
+        the other ranks log nothing).  The parallelism fields must hold
+        JAX's defaults (ROADMAP M11), and the mesh be one "data" axis over
+        the ranks (`parallel.check_mesh`)."""
         require_ported(cfg, "M11", "Trainer")
+        parallel.check_mesh(cfg, "Trainer")
         self.cfg = cfg
         self.device = resolve_device(device, no_gpu=cfg.no_gpu)
         self.model = model if model is not None else model_from_config(
@@ -145,7 +158,8 @@ class Trainer:
     @property
     def logger(self) -> MetricLogger:
         if self._logger is None:
-            self._logger = MetricLogger(self.workdir)
+            writer = parallel.is_writer()
+            self._logger = MetricLogger(self.workdir if writer else None, quiet=not writer)
         return self._logger
 
     # -------------------------------------------------------------- state
@@ -165,6 +179,7 @@ class Trainer:
             raise ValueError(f"master parameters and buffers must be float32: {wrong[:3]}")
         optimizer = optimizer_from_config(self.cfg, masters,
                                           getattr(self.model, "ENCODER_PREFIXES", ()))
+        parallel.broadcast_tensors([*masters.values(), *buffers.values()])
         k = self.cfg.iters_to_accumulate
         return TrainState(masters, optimizer, 0, Accumulation(k) if k > 1 else None,
                           buffers)
@@ -194,6 +209,7 @@ class Trainer:
             params = load_any_checkpoint_params(cfg.pretrained, params,
                                                 model_name=cfg.model_name)
         self._load_params(state, params)
+        parallel.broadcast_tensors(list(self.state_dict(state).values()))
         return state
 
     @torch.no_grad()
@@ -319,9 +335,14 @@ class Trainer:
     def train_step(self, state: TrainState, batch: Mapping):
         """One micro-step: loss, backward into the f32 masters, and one
         optimizer update (with accumulation, the update of a full window).
-        Returns (the same state, advanced, and the loss as a 0-d tensor on
-        the device)."""
+        Under data parallelism the gradients (or the window's mean) and the
+        loss are averaged over the ranks first.  Returns (the same state,
+        advanced, and the loss as a 0-d tensor on the device)."""
         loss, _ = self.value_and_grad(state, batch)
+        grads = [] if state.accumulation is not None else [
+            p.grad for g in state.optimizer.param_groups for p in g["params"]
+            if p.grad is not None]
+        parallel.all_reduce_mean([loss, *grads])
         if state.accumulation is None:
             state.optimizer.step()
         else:
@@ -435,6 +456,7 @@ class Trainer:
             if ck.get("scheduler") and hasattr(self.scheduler, "plateau"):
                 self.scheduler.plateau.load_state_dict(ck["scheduler"])
 
+        writer = parallel.is_writer()
         ckpt = CheckpointManager(os.path.join(self.workdir, "checkpoints"),
                                  monitor="val/accuracy/avg", mode="max",
                                  save_top_k=cfg.save_top_k)
@@ -488,18 +510,22 @@ class Trainer:
                 sched_state = (self.scheduler.plateau.state_dict()
                                if hasattr(self.scheduler, "plateau") else None)
                 tc = time.perf_counter()
-                opt_state = self.opt_state(state)
-                weights = self.state_dict(state)
-                ckpt.save(acc, params=weights, opt_state=opt_state, epoch=epoch,
-                          scheduler_state=sched_state)
-                if acc > best_acc:
+                improved = acc > best_acc
+                if improved:
                     best_acc = acc
-                    save_checkpoint(os.path.join(self.workdir, "best.ckpt"),
+                if writer:
+                    opt_state = self.opt_state(state)
+                    weights = self.state_dict(state)
+                    ckpt.save(acc, params=weights, opt_state=opt_state, epoch=epoch,
+                              scheduler_state=sched_state)
+                    if improved:
+                        save_checkpoint(os.path.join(self.workdir, "best.ckpt"),
+                                        params=weights, opt_state=opt_state, epoch=epoch,
+                                        best_acc=acc, scheduler_state=sched_state)
+                    save_checkpoint(os.path.join(self.workdir, "last.ckpt"),
                                     params=weights, opt_state=opt_state, epoch=epoch,
-                                    best_acc=acc, scheduler_state=sched_state)
-                save_checkpoint(os.path.join(self.workdir, "last.ckpt"), params=weights,
-                                opt_state=opt_state, epoch=epoch, best_acc=best_acc,
-                                scheduler_state=sched_state)
+                                    best_acc=best_acc, scheduler_state=sched_state)
+                parallel.barrier()   # the other ranks read what rank 0 wrote only after it
                 self.history["ckpt_s"].append(time.perf_counter() - tc)
                 if report_callback is not None and report_callback(epoch, acc):
                     break

@@ -26,6 +26,8 @@ from collections.abc import Iterable, Mapping, Sequence
 
 import torch
 
+from .. import parallel
+
 
 def freeze_mask(names: Iterable[str], prefixes: Sequence[str]) -> set[str]:
     """The parameter names (dotted, as in a state dict) to freeze: a prefix
@@ -81,7 +83,9 @@ class Accumulation:
     of m < k micro-batches as mean_m(grad) * m / k
     (`make_accumulation_flush`, miseg_tpu/train/optim.py:84-120): the
     reference loop's step at the last batch of an epoch with every
-    micro-loss scaled by 1/k."""
+    micro-loss scaled by 1/k.  Under data parallelism the window's mean is
+    averaged over the ranks before it is applied (once a window, not once
+    a micro-batch)."""
 
     def __init__(self, k: int):
         self.k = int(k)
@@ -116,6 +120,7 @@ class Accumulation:
 
     @torch.no_grad()
     def _apply(self, optimizer, params, scale: float) -> None:
+        parallel.all_reduce_mean(self._acc)
         for acc, p in zip(self._acc, params):
             p.grad = acc * scale
         optimizer.step()

@@ -1,0 +1,220 @@
+"""Data parallelism over N ranks started by `torchrun`, against one process
+on the same global batch; with `--launch N`, the whole N-card recipe.
+
+    torchrun --standalone --nproc_per_node=N scripts/torch_ddp_ranks.py \
+        [--device cpu] [--size 96]
+    python scripts/torch_ddp_ranks.py --launch N [--size 96]
+
+Under `torchrun`, each rank joins the group that
+`parallel.init_process_group` sets up from torchrun's environment (NCCL on
+the card, `cuda:LOCAL_RANK`; gloo with `--device cpu`), and takes its
+slice of a seeded global batch of N volumes (`--size`^3, one a rank):
+  * the batch-norm UNetVanilla at the README recipe in f32
+    (`chip_smoke.VANILLA_BN`; batch norm's statistics cross the ranks),
+    one AdamW step through `Trainer.train_step`: after the ranks,
+    rank 0 leaves the group and runs the same step in one process on the
+    whole batch, held to it by `chip_smoke.check_ddp_step` (the loss, the
+    gradients leaf by leaf, the W5 bound, the running statistics), and
+    every rank must hold rank 0's parameters bitwise;
+  * on the card, the flagship C-Swin-UNETR in bf16 (`chip_smoke.FLAGSHIP`):
+    three steps, the ranks' step time by CUDA events (median after a
+    warm-up step) beside one process's at batch 1 (rank 0, after the
+    group), so the difference is what the gradient all-reduce over the
+    ranks costs.
+Rank 0 prints one line each and `ok`; any failed check raises.
+
+`--launch N` (not under torchrun) runs, each under `torchrun --standalone
+--nproc_per_node=N` with its own time limit: this script; `cli.train`
+on the flagship for 2 epochs over a synthetic dataset (4 train volumes of
+128x128x112 a modality); `cli.tune` for 2 one-epoch trials over the same
+data.  Each must exit 0, `cli.train` leave `best.ckpt`, `last.ckpt` and
+its metrics, and `cli.tune` its journal; the outputs go to
+`chiprun_out/ddp<N>_*.txt`, and each step's seconds are printed with the
+card's name and power limit.
+"""
+
+import argparse
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke as cs  # noqa: E402
+from miseg_tpu_torch import parallel  # noqa: E402
+from miseg_tpu_torch.config import Config  # noqa: E402
+from miseg_tpu_torch.train.engine import Trainer  # noqa: E402
+
+
+def batches(cfg: Config, world: int, size: int, steps: int, device) -> list[dict]:
+    gen = torch.Generator().manual_seed(9)
+    shape = (world, size, size, size)
+    return [{"image": torch.randn((*shape, 1), generator=gen).to(device),
+             "label": torch.randint(0, cfg.out_channels, shape, generator=gen).to(device),
+             "modality": (torch.arange(world) % 2).to(torch.int32).to(device)}
+            for _ in range(steps)]
+
+
+def run(cfg: Config, device, data: list[dict], rank: int | None):
+    """`len(data)` steps on `rank`'s sample of each batch (None: all of it);
+    (state, the last loss, CUDA-event ms a step or [])."""
+    trainer = Trainer(cfg, device=device)
+    state = trainer.init_state()
+    ms, loss = [], None
+    for batch in data:
+        if rank is not None:
+            batch = {k: v[rank:rank + 1] for k, v in batch.items()}
+        if device.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        state, loss = trainer.train_step(state, batch)
+        if device.type == "cuda":
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+    return state, float(loss), ms
+
+
+def snapshot(state, loss: float) -> dict:
+    return {"loss": loss,
+            "params": {n: p.detach().cpu() for n, p in state.params.items()},
+            "grads": {n: p.grad.detach().cpu() for n, p in state.params.items()},
+            "buffers": {n: b.cpu() for n, b in state.buffers.items()}}
+
+
+def ranks_main(args) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = parallel.init_process_group(args.device)
+    rank, world = parallel.host_shard_info()
+    if world < 2:
+        raise SystemExit("run under torchrun with --nproc_per_node >= 2")
+    size = args.size
+    roi = dict(roi_x=size, roi_y=size, roi_z=size)
+
+    vanilla = Config(**{**cs.VANILLA_BN, **roi})
+    data = batches(vanilla, world, size, 1, device)
+    state, loss, _ = run(vanilla, device, data, rank)
+    ranks = snapshot(state, loss)
+    flat = torch.cat([p.reshape(-1) for p in state.params.values()])
+    gathered = [torch.empty_like(flat) for _ in range(world)]
+    dist.all_gather(gathered, flat)
+    same = all(torch.equal(g, gathered[0]) for g in gathered)
+
+    flagship = Config(**{**cs.FLAGSHIP, **roi})
+    if device.type == "cuda":
+        fdata = batches(flagship, world, size, 3, device)
+        _, _, ranks_ms = run(flagship, device, fdata, rank)
+    card = (torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
+    backend = dist.get_backend()
+    dist.destroy_process_group()
+    if rank != 0:
+        return
+
+    # one process, the whole batch
+    t0 = time.perf_counter()
+    state, loss, _ = run(vanilla, device, data, None)
+    one_s = time.perf_counter() - t0
+    cs.check(same, "the ranks' parameters differ")
+    gaps = cs.check_ddp_step(ranks, snapshot(state, loss), f"{world} ranks")
+    print(f"{world} ranks ({backend}, '{card}') vs one process at batch {world}, batch-norm "
+          f"UNetVanilla {size}^3 f32, one step: loss |diff| {gaps['loss']:.2e}, "
+          f"gradient gap summed {gaps['summed']:.3e}, worst {gaps['worst']} "
+          f"{gaps['worst_gap']:.2e}; parameters within W5 (excess {gaps['w5_excess']:.2e}); "
+          f"{gaps['stats']} running statistics within rtol 1e-5 / atol 1e-6; every rank "
+          f"equal; one process {one_s:.1f} s")
+    if device.type == "cuda":
+        _, _, one_ms = run(flagship, device, [{k: v[:1] for k, v in b.items()} for b in fdata],
+                           None)
+        r, o = statistics.median(ranks_ms[1:]), statistics.median(one_ms[1:])
+        print(f"flagship {size}^3 bf16 step by CUDA events (median of 2 after a warm-up): "
+              f"{world} ranks at batch 1 each (global {world}) {r:.2f} ms {ranks_ms}; one "
+              f"process at batch 1 {o:.2f} ms {one_ms}; difference {r - o:+.2f} ms")
+    print("ok")
+
+
+def _torchrun(n: int, args: list[str], log: Path, timeout: int) -> float:
+    """`torchrun --standalone --nproc_per_node=n ARGS` into `log`; its
+    seconds.  Fails when it exits with another code than 0."""
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        rc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             f"--nproc_per_node={n}", *args], cwd=ROOT, stdout=out,
+                            stderr=subprocess.STDOUT, timeout=timeout).returncode
+    seconds = time.perf_counter() - t0
+    tail = [ln for ln in log.read_text().splitlines() if "socket.cpp" not in ln][-6:]
+    print(f"torchrun x{n} {' '.join(args[:2])}: rc {rc} in {seconds:.1f} s\n  "
+          + "\n  ".join(ln[:300] for ln in tail))
+    cs.check(rc == 0, f"torchrun x{n} {' '.join(args[:2])} exited {rc} (log {log})")
+    return seconds
+
+
+def launch_main(n: int, size: int) -> None:
+    """The N-card recipe: the ranks check, then `cli.train` and `cli.tune`
+    under torchrun over a synthetic dataset."""
+    from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
+    from miseg_tpu_torch.ops.kernels import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    print(smi.strip())
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    _torchrun(n, [str(Path(__file__).resolve()), "--size", str(size)],
+              out / f"ddp{n}_ranks.txt", 600)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "syn"
+        make_synthetic_dataset(data, shape=(128, 128, 112), num_classes=6, n_train=4,
+                               n_val=1, n_test=1, spacing=(1.0, 1.0, 1.0), seed=9,
+                               suffix=".nii")
+        common = ["--model_name", "swin_unetr", "--out_channels", "6", "--feature_size", "48",
+                  "--num_heads", "3", "--encoder_norm_name", "instance_cond",
+                  "--vit_norm_name", "instance_cond", "--data_dirs", str(data), str(data),
+                  "--json_lists", "CT.json", "MR.json", "--check_val_every_n_epoch", "1",
+                  "--batch_size", "1", "--cache_num", "8", "--num_workers", "2",
+                  "--default_root_dir", str(Path(tmp) / "runs")]
+        _torchrun(n, ["-m", "miseg_tpu_torch.cli.train", *common, "--max_epochs", "2",
+                      "--experiment_name", "flagship"], out / f"ddp{n}_train.txt", 900)
+        run_dir = Path(tmp) / "runs" / "flagship"
+        written = sorted(p.name for p in run_dir.iterdir())
+        cs.check({"best.ckpt", "last.ckpt", "metrics.jsonl"} <= set(written),
+                 f"cli.train wrote {written}")
+        _torchrun(n, ["-m", "miseg_tpu_torch.cli.tune", *common, "--max_epochs", "1",
+                      "--scheduler", "warmup_cosine", "--n_trials", "2",
+                      "--study_name", "ddp", "--storage_name", "ddp"],
+                  out / f"ddp{n}_tune.txt", 900)
+        journal = Path(tmp) / "runs" / "ddp.journal.jsonl"
+        cs.check(journal.exists(), f"cli.tune left no journal at {journal}")
+        print(f"cli.train wrote {written}; cli.tune's journal holds "
+              f"{len(journal.read_text().splitlines())} lines")
+    print("ok")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default=None)
+    ap.add_argument("--size", type=int, default=96)
+    ap.add_argument("--launch", type=int, default=0,
+                    help="run the N-card recipe (this script, cli.train, cli.tune) under "
+                         "torchrun with N ranks")
+    args = ap.parse_args()
+    if args.launch:
+        if "WORLD_SIZE" in os.environ:
+            raise SystemExit("--launch starts torchrun itself; run it with plain python")
+        launch_main(args.launch, args.size)
+    else:
+        ranks_main(args)
+
+
+if __name__ == "__main__":
+    main()

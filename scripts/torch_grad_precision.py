@@ -6,13 +6,17 @@ inputs of `chip_smoke.unet_card_vs_cpu`), in train mode, from one set of
 seeded weights: with batch norms in f32 and f64 on the CPU and on the card,
 and with the default instance norms in f32.  For each pair it prints the
 summed and largest gradient gap and the leaves whose gap is the largest
-share of the leaf's size (its largest element in the reference).
+share of the leaf's size (its largest element in the reference), and a
+line a depth with the worst such share of each pair.  `--num_layers`
+takes C-UNet's depths to run (levels of 2 * feature_size * 2^i channels,
+strides 2 between them; default 4, the JAX package's).
 
 Run from the repo root on a machine with a CUDA card:
 
-    python scripts/torch_grad_precision.py
+    python scripts/torch_grad_precision.py [--num_layers 3 4 5]
 """
 
+import argparse
 import sys
 import time
 from pathlib import Path
@@ -46,10 +50,16 @@ def grads(cfg, device, dtype, sd):
                                   for n, p in m.named_parameters()}
 
 
+parser = argparse.ArgumentParser()
+parser.add_argument("--num_layers", type=int, nargs="+", default=[4])
+args = parser.parse_args()
 print(torch.cuda.get_device_name(0))
-for norms in ("batch", "instance"):
+summary = []
+for depth, norms in [(d, n) for d in args.num_layers for n in ("batch", "instance")]:
     kw = ({"encoder_norm_name": "batch", "decoder_norm_name": "batch"} if norms == "batch" else {})
-    cfg = Config(**{**cs.CUNET, **roi, **kw, "no_amp": True})
+    cfg = Config(**{**cs.CUNET, **roi, **kw, "no_amp": True, "num_layers": depth,
+                    "strides": [2] * (depth - 1)})
+    tag = f"{norms} depth {depth}"
     sd = model_from_config(cfg, device="cpu").state_dict()
     runs = {}
     for name, device, dtype in (("cpu32", "cpu", torch.float32), ("card32", dev, torch.float32),
@@ -58,7 +68,7 @@ for norms in ("batch", "instance"):
             continue   # K1 and K2 take f32, bf16 and f16 only
         t0 = time.perf_counter()
         runs[name] = grads(cfg, device, dtype, sd)
-        print(f"{norms} {name}: loss {runs[name][0]:.10f} ({time.perf_counter() - t0:.1f} s)")
+        print(f"{tag} {name}: loss {runs[name][0]:.10f} ({time.perf_counter() - t0:.1f} s)")
     ref = runs.get("cpu64", runs["cpu32"])[1]
     pairs = [("card32", "cpu32")] + ([("cpu32", "cpu64"), ("card32", "cpu64"), ("card64", "cpu64")]
                                     if "cpu64" in runs else [])
@@ -70,7 +80,10 @@ for norms in ("batch", "instance"):
             gap = float((ga[n] - gb[n]).abs().max())
             rows.append((gap / s if s > 1e-6 else 0.0, gap, s, n))
         rows.sort(reverse=True)
-        print(f"  {norms} {a} vs {b}: summed gap {sum(r[1] for r in rows):.3e}, worst abs "
+        print(f"  {tag} {a} vs {b}: summed gap {sum(r[1] for r in rows):.3e}, worst abs "
               f"{max(r[1] for r in rows):.3e}; worst relative:")
         for r in rows[:6]:
             print(f"    {r[0]:.3e} (gap {r[1]:.3e}, size {r[2]:.3e}) {r[3]}")
+        summary.append(f"{tag}: {a} vs {b} worst relative {rows[0][0]:.3e} ({rows[0][3]})")
+print("summary (worst gap as a share of its leaf's largest element):")
+print("\n".join(summary))

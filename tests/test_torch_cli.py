@@ -292,9 +292,11 @@ def test_no_gpu_selects_the_cpu(monkeypatch):
         Trainer(Config(**CFG))
 
 
-# a value other than JAX's default for every field the port has not got
+# a value other than JAX's default for every field the port has not got,
+# and for the mesh, which the port runs as data parallel over its ranks only
+MESH_VALUES = {"mesh_shape": [2, 4], "mesh_axes": ["data", "model"]}
 NOT_PORTED_VALUES = {
-    "mesh_shape": [2, 4], "mesh_axes": ["data", "model"], "fsdp": True, "fsdp_axis": "fsdp",
+    "fsdp": True, "fsdp_axis": "fsdp",
     "fsdp_min_size": 1024, "spatial_shard": True, "spatial_axis": "space",
     "tensor_parallel": True, "tp_axis": "tp", "pipeline_parallel": True, "pp_axis": "stage",
     "pp_microbatches": 4,
@@ -303,7 +305,7 @@ NOT_PORTED_VALUES = {
 
 def test_not_ported_fields_cover_jax_defaults():
     """`NOT_PORTED` holds JAX's defaults, and the values above differ; the
-    export options are ported and no longer listed."""
+    export options and the mesh are ported and no longer listed."""
     jax_defaults = dataclasses.asdict(JConfig())
     assert sorted(NOT_PORTED) == ["M11"]
     merged = NOT_PORTED["M11"]
@@ -312,10 +314,13 @@ def test_not_ported_fields_cover_jax_defaults():
     assert all(NOT_PORTED_VALUES[k] != v for k, v in merged.items())
 
 
-@pytest.mark.parametrize("field", sorted(NOT_PORTED["M11"]))
+@pytest.mark.parametrize("field", sorted([*NOT_PORTED["M11"], *MESH_VALUES]))
 def test_trainer_raises_on_parallelism(field):
+    """Each unported field, and a mesh other than one "data" axis over the
+    ranks (`parallel.check_mesh`), raises from the Trainer."""
+    value = {**NOT_PORTED_VALUES, **MESH_VALUES}[field]
     with pytest.raises(NotImplementedError, match=rf"Trainer: {field}=.*ROADMAP M11"):
-        Trainer(Config(**CFG, **{field: NOT_PORTED_VALUES[field]}), device="cpu")
+        Trainer(Config(**CFG, **{field: value}), device="cpu")
 
 
 def test_trainer_takes_jax_parallelism_defaults():

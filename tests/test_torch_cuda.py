@@ -115,6 +115,24 @@ def test_k1_k2_match_plain(dev, gen, shape, dtype, affine):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_norm_act_takes_2d_callers(dev, gen, dtype):
+    """A 2-D norm's `[B, H, W, C]` through `instance_norm_act` (K1 + K2 on
+    `[B, H*W, C]`, with banks, an add and the leaky relu) against the same
+    call on the CPU, which runs the plain versions."""
+    x = (torch.randn((2, 96, 96, 48), generator=gen) * 2 + 0.5).to(dtype)
+    add = torch.randn(x.shape, generator=gen).to(dtype)
+    gamma, beta = torch.randn((2, 48), generator=gen), torch.randn((2, 48), generator=gen)
+    styles = torch.tensor([1, 0], dtype=torch.int32)
+    ref = fused_norm.instance_norm_act(x, gamma, beta, styles, negative_slope=0.01, add=add)
+    k1, k2 = fused_norm.stats_launches, fused_norm.apply_launches
+    got = fused_norm.instance_norm_act(x.to(dev), gamma.to(dev), beta.to(dev), styles.to(dev),
+                                       negative_slope=0.01, add=add.to(dev))
+    assert (fused_norm.stats_launches, fused_norm.apply_launches) == (k1 + 1, k2 + 1)
+    assert got.shape == x.shape and got.dtype == dtype
+    assert _err(got.cpu(), ref) <= _tol(ref, dtype)
+
+
 def test_k1_k2_count_launches(dev):
     x = torch.randn((1, 4, 4, 4, 8), device=dev)
     fused_norm.stats_launches = fused_norm.apply_launches = 0
@@ -288,6 +306,12 @@ _ATTN = {
     "hd12_n27": (16, 27, 24, 2, ((6, 6, 6), (3, 3, 3), (1, 1, 1))),
     "hd18_ids": (16, 343, 36, 2, ((14, 14, 14), (7, 7, 7), (3, 3, 3))),
     "hd18_n27": (16, 27, 36, 2, ((6, 6, 6), (3, 3, 3), (1, 1, 1))),
+    # 2-D swin (spatial_dims=2): stage 1 of a 96x96 slice, 49 windows of
+    # 7x7 (N = 49, not a multiple of 16) at head dim 16, with and without
+    # the shifted window's ids; stage 4, one 6x6 window clipped from 7x7
+    "2d_n49_ids": (49, 49, 48, 3, ((49, 49), (7, 7), (3, 3))),
+    "2d_n49": (49, 49, 48, 3, None),
+    "2d_n36": (1, 36, 384, 24, None),
 }
 
 
