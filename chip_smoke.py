@@ -209,6 +209,14 @@ Phases, one result line each; any failed check exits non-zero:
                UNetVanilla (README recipe) at batch 1 a rank against this
                process at batch 2 (gradients, parameters, running
                statistics).
+ 14. mesh    — FSDP and tensor parallelism, two gloo ranks sharing the
+               card: (a) one f32 step of the flagship's model at fs 24,
+               64^3, under FSDP [2], TP [1, 2] and TP + FSDP [1, 2] against
+               this process on the global batch (loss, gradients leaf by
+               leaf, parameters); (b) the full-width flagship in bf16 under
+               FSDP [2]: losses and parameters against one process, each
+               step's launches `PER_WINDOW` (counted and by name in a
+               profiled step), the bytes of masters and moments a rank.
 Then one JSON line of kernels (with each kernel's `miseg::` op, its
 kernels in a replay of the captured 224^3 volume program, its launches a
 train step, the JAX VJP its backward follows, its launches in the fit's train steps
@@ -218,7 +226,8 @@ recompute a step and its fit, and in the tune study, with K4's and K5's
 rows at the search space's shapes; K2's row times its leaky-relu
 mode, and its field `no_add_no_activation` the UNets' mode beside
 `torch.addcmul`; the 2-D launches and rows, K5's at N = 49; the
-launches of a data-parallel step), the card line, and the ok line last.
+launches of a data-parallel step and of an FSDP step), the card line,
+and the ok line last.
 """
 
 from __future__ import annotations
@@ -3878,6 +3887,17 @@ VANILLA_BN = {**VANILLA, "encoder_norm_name": "batch", "decoder_norm_name": "bat
 DDP_STEPS = 3
 DDP_WARMUP = 2   # steps from the same start before the timed ones, in each trainer
 DDP_TIMEOUT_S = 420
+# the mesh phase: (a) the flagship's model at reduced width (fs 24, 64^3)
+# in f32 under FSDP on "data" and tensor parallelism (alone and with FSDP
+# of the unclaimed leaves) on "model"; (b) the flagship in bf16 under FSDP
+MESH_SMALL = {**FLAGSHIP, "feature_size": [24], "roi_x": 64, "roi_y": 64, "roi_z": 64,
+              "no_amp": True}
+MESH_1X2 = dict(mesh_shape=[1, 2], mesh_axes=["data", "model"])
+MESH_CASES = {"fsdp [2]": dict(fsdp=True),
+              "tp [1, 2]": dict(MESH_1X2, tensor_parallel=True),
+              "tp + fsdp [1, 2]": dict(MESH_1X2, tensor_parallel=True, fsdp=True,
+                                       fsdp_axis="model")}
+MESH_STEPS = 3   # flagship bf16 steps under FSDP; the first is held to one process
 
 
 def two_d_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
@@ -4124,6 +4144,74 @@ def _stepped(trainer, state, batch, steps: int):
     return losses, ms
 
 
+def _mesh_batch(dev, model: dict, n: int = 2) -> dict:
+    """A seeded global batch of `n` volumes of `model`'s ROI (both
+    modalities)."""
+    gen = torch.Generator().manual_seed(46)
+    cases = [synthetic_case(model["roi_x"], model["out_channels"], gen) for _ in range(n)]
+    return {"image": torch.cat([c[0] for c in cases]).to(dev),
+            "label": torch.cat([c[1] for c in cases]).to(dev),
+            "modality": (torch.arange(n) % 2).to(torch.int32).to(dev)}
+
+
+def _share(batch: dict) -> dict:
+    """This rank's share of a global batch: its "data" coordinate's."""
+    from miseg_tpu_torch import parallel
+    shard, shards = parallel.host_shard_info()
+    n = batch["image"].shape[0] // shards
+    return {k: v[shard * n:(shard + 1) * n] for k, v in batch.items()}
+
+
+def _mesh_record(trainer, state, loss) -> dict:
+    """A step's loss, whole parameters and gradients (gathered), placements
+    and this rank's bytes of masters and moments, on the host."""
+    from miseg_tpu_torch.parallel import fsdp
+    grads = fsdp.gather_full({n: p.grad for n, p in state.params.items()}, trainer.placements)
+    kinds = [pl.kind for pl in trainer.placements.values()]
+    sizes = {n: math.prod(s) for n, s in trainer._full_shapes.items()}
+    return {"loss": float(loss), "buffers": {},
+            "elements": sum(sizes.values()),
+            "placed_elements": sum(sizes[n] for n in trainer.placements),
+            "params": {n: t.detach().cpu().clone() for n, t in trainer.state_dict(state).items()},
+            "grads": {n: g.cpu().clone() for n, g in grads.items()},
+            "placed": {k: kinds.count(k) for k in ("fsdp", "tp")},
+            "state_bytes": trainer.state_bytes(state)}
+
+
+def mesh_rank(dev) -> dict:
+    """The "mesh2" leg of a rank of `phase_mesh`: (a) one f32 step of
+    `MESH_SMALL` under each of `MESH_CASES`; (b) `MESH_STEPS` bf16 steps
+    of the flagship under FSDP `[2]` (launch counts, CUDA-event ms a step,
+    one profiled step: both ranks profile exactly one lead and one step,
+    since every step holds collectives)."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.train.engine import Trainer
+
+    out = {}
+    small = _mesh_batch(dev, MESH_SMALL)
+    for name, par in MESH_CASES.items():
+        trainer = Trainer(Config(**MESH_SMALL, **par), device=dev)
+        state = trainer.init_state()
+        state, loss = trainer.train_step(state, _share(small))
+        out[name] = _mesh_record(trainer, state, loss)
+        del trainer, state
+    trainer = Trainer(Config(**FLAGSHIP, fsdp=True), device=dev)
+    state = trainer.init_state()
+    batch = _share(_mesh_batch(dev, FLAGSHIP))
+    reset_launches()
+    state, loss = trainer.train_step(state, batch)
+    out["flagship"] = _mesh_record(trainer, state, loss)
+    losses, ms = _stepped(trainer, state, batch, MESH_STEPS - 1)
+    out["flagship"]["launch_totals"] = launch_counts()
+    out["flagship"]["losses"] = [out["flagship"]["loss"], *losses]
+    out["flagship"]["ms"] = ms
+    events = profiled(lambda: trainer.train_step(state, batch), lambda ev: True, attempts=1,
+                      lead=lambda: trainer.train_step(state, batch))
+    out["flagship"]["profiled"] = replay_counts(events)
+    out["flagship"]["busy_ms"] = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    return out
+
+
 def ddp_rank(leg: str, rank: int, world: int, rdzv: str, out: str) -> int:
     """One rank of `phase_ddp` (the `_ddp_rank` command line).  "nccl1",
     under `torchrun`: the flagship's bf16 steps unwrapped, then, after
@@ -4131,8 +4219,9 @@ def ddp_rank(leg: str, rank: int, world: int, rdzv: str, out: str) -> int:
     `parallel.init_process_group` (what `cli.train` calls), the Trainer's
     data-parallel steps from the same start and a profiled one; "gloo2":
     one f32 step of the batch-norm UNetVanilla on this rank's half of the
-    batch, the two ranks sharing the card over gloo (`rdzv`, a file).
-    Writes `out/<leg>_rank<rank>.pt`."""
+    batch, the two ranks sharing the card over gloo (`rdzv`, a file);
+    "mesh2": `mesh_rank`, over gloo the same way.  Writes
+    `out/<leg>_rank<rank>.pt`."""
     import torch.distributed as dist
 
     from miseg_tpu_torch import parallel
@@ -4181,6 +4270,10 @@ def ddp_rank(leg: str, rank: int, world: int, rdzv: str, out: str) -> int:
         result["comm_launches"] = len(comm)
         result["comm_ms"] = sum(e.time_range.elapsed_us() for e in comm) / 1e3
         result["busy_ms"] = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    elif leg == "mesh2":
+        dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
+                                world_size=world)
+        result = mesh_rank(dev)
     else:
         dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
                                 world_size=world)
@@ -4209,23 +4302,24 @@ def check_ddp_step(got: dict, want: dict, where: str) -> dict:
     a rank) against one process's on the global batch (`want`): the loss
     within 1e-5, every gradient leaf within 5e-5 and their sum within
     1e-3, the parameters within the W5 bound, the running statistics
-    within rtol 1e-5 / atol 1e-6.  Fails the run otherwise; returns the
-    gaps."""
+    (where the model has any) within rtol 1e-5 / atol 1e-6.  Fails the
+    run otherwise; returns the gaps."""
     gaps = {n: max_err(g, want["grads"][n]) for n, g in got["grads"].items()}
+    check(gaps.keys() == want["grads"].keys(), f"{where}: gradients of other leaves")
     worst = max(gaps, key=gaps.get)
     out = {"loss": abs(got["loss"] - want["loss"]), "worst": worst, "worst_gap": gaps[worst],
            "summed": sum(gaps.values()), "w5_excess": _w5_excess(got["params"], want["params"]),
            "stats": len(got["buffers"]),
-           "stats_excess": max(float(((b - want["buffers"][n]).abs()
-                                      - (1e-6 + 1e-5 * want["buffers"][n].abs())).max())
-                               for n, b in got["buffers"].items())}
+           "stats_excess": max((float(((b - want["buffers"][n]).abs()
+                                       - (1e-6 + 1e-5 * want["buffers"][n].abs())).max())
+                                for n, b in got["buffers"].items()), default=0.0)}
     check(out["loss"] <= 1e-5, f"{where}: loss {got['loss']} vs {want['loss']}")
     check(out["worst_gap"] <= 5e-5 and out["summed"] <= 1e-3,
           f"{where}: gradient gap worst {worst} {out['worst_gap']:.3e}, summed "
           f"{out['summed']:.3e}")
     check(out["w5_excess"] <= 0.0,
           f"{where}: parameters exceed the W5 bound by {out['w5_excess']:.3e}")
-    check(out["stats"] > 0 and out["stats_excess"] <= 0.0,
+    check(out["stats"] == len(want["buffers"]) and out["stats_excess"] <= 0.0,
           f"{where}: running statistics exceed rtol 1e-5 / atol 1e-6 by "
           f"{out['stats_excess']:.3e}")
     return out
@@ -4303,6 +4397,90 @@ def phase_ddp(dev, card: str) -> dict:
     return a["launches"]
 
 
+def phase_mesh(dev, card: str) -> dict:
+    """FSDP and tensor parallelism (`parallel.fsdp`, `parallel.tensor`),
+    two gloo ranks sharing the card (NCCL takes one rank a device), held to
+    `DDP_TIMEOUT_S`, against this process on the global batch: (a) one
+    f32 step of `MESH_SMALL` (the flagship's model at fs 24, 64^3, batch 2)
+    under FSDP `[2]`, TP `[1, 2]` and TP + FSDP `[1, 2]`, each rank's loss
+    within 1e-5, every gathered gradient leaf within 5e-5 and their sum
+    within 1e-3, the parameters within the W5 bound; (b) the flagship at
+    full width (fs 48, 96^3, bf16) under FSDP `[2]`, batch 1 a rank against
+    batch 2 here: the losses of `MESH_STEPS` steps within 1e-3 relative
+    (the bf16 repeat tolerance), the parameters after the first within
+    the W5 bound, each step launching `PER_WINDOW` (its forward; the
+    backward launches none) and the profiled step running those kernels
+    by name, and each rank's bytes of masters and AdamW moments beside
+    this process's.  Returns a rank's launches a flagship step."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.train.engine import Trainer
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    _spawn_ranks("mesh2", 2, root)
+    ranks = [torch.load(root / f"mesh2_rank{r}.pt", weights_only=False) for r in range(2)]
+    t_ranks = time.perf_counter() - t0
+
+    trainer = Trainer(Config(**MESH_SMALL), device=dev)
+    state = trainer.init_state()
+    state, loss = trainer.train_step(state, _mesh_batch(dev, MESH_SMALL))
+    want = _mesh_record(trainer, state, loss)
+    del trainer, state
+    for name in MESH_CASES:
+        for r, res in enumerate(ranks):
+            got = res[name]
+            gaps = check_ddp_step(got, want, f"mesh {name} rank {r}")
+            check(sum(got["placed"].values()) > 0, f"mesh {name}: rank {r} placed nothing")
+        print(f"  mesh (a) {name}, 2 gloo ranks on '{card}', fs 24 64^3 f32, placed "
+              f"{ranks[0][name]['placed']}: loss |diff| {gaps['loss']:.2e}, gradient gap "
+              f"summed {gaps['summed']:.3e} (worst {gaps['worst']} {gaps['worst_gap']:.2e}), "
+              f"parameters within W5 (excess {gaps['w5_excess']:.2e}); masters + moments a "
+              f"rank {gib(ranks[0][name]['state_bytes'])} vs one process "
+              f"{gib(want['state_bytes'])}")
+
+    trainer = Trainer(Config(**FLAGSHIP), device=dev)
+    state = trainer.init_state()
+    batch = _mesh_batch(dev, FLAGSHIP)
+    state, loss = trainer.train_step(state, batch)
+    one = _mesh_record(trainer, state, loss)
+    losses, one_ms = _stepped(trainer, state, batch, MESH_STEPS - 1)
+    one_losses = [one["loss"], *losses]
+    del trainer, state
+    for r, res in enumerate(ranks):
+        got = res["flagship"]
+        gap = max(abs(x - y) / (1 + abs(y)) for x, y in zip(got["losses"], one_losses))
+        check(gap <= 1e-3, f"mesh flagship rank {r}: losses {got['losses']} vs {one_losses}")
+        excess = _w5_excess(got["params"], one["params"])
+        check(excess <= 0.0, f"mesh flagship rank {r}: parameters exceed W5 by {excess:.3e}")
+        want_totals = {k: MESH_STEPS * v for k, v in PER_WINDOW.items()}
+        check(got["launch_totals"] == want_totals and got["profiled"] == PER_WINDOW,
+              f"mesh flagship rank {r}: {MESH_STEPS} steps launched "
+              f"{got['launch_totals']}, the profiled step {got['profiled']}; want "
+              f"{want_totals} and {PER_WINDOW}")
+        got["launches"] = {k: v // MESH_STEPS for k, v in got["launch_totals"].items()}
+        check(got["placed"]["fsdp"] > 0 and got["state_bytes"] < 0.6 * one["state_bytes"],
+              f"mesh flagship rank {r}: {got['placed']} placed, {got['state_bytes']} bytes "
+              f"against {one['state_bytes']}")
+        print(f"  mesh (b) flagship fs 48 96^3 bf16, FSDP [2] rank {r} (batch 1) vs one "
+              f"process (batch 2) on '{card}': losses {[round(v, 6) for v in got['losses']]} "
+              f"vs {[round(v, 6) for v in one_losses]} (max relative gap {gap:.2e}); "
+              f"parameters after the first step within W5 (excess {excess:.2e}); "
+              f"{got['placed']['fsdp']} leaves sharded ({got['placed_elements']} of "
+              f"{got['elements']} parameters); masters + AdamW moments "
+              f"{got['state_bytes']} bytes ({gib(got['state_bytes'])}) vs one process "
+              f"{one['state_bytes']} ({gib(one['state_bytes'])}); launches a step "
+              f"{got['launches']}, profiled step {got['profiled']}, device busy "
+              f"{got['busy_ms']:.2f} ms; step ms by events (two ranks sharing the card, "
+              f"after the first) {[round(v, 2) for v in got['ms']]}, one process at batch 2 "
+              f"{[round(v, 2) for v in one_ms]}")
+    tmp.cleanup()
+    print(f"mesh: FSDP, TP and TP + FSDP ranks step as one process on the global batch; "
+          f"the flagship trains under FSDP with every kernel ({t_ranks:.1f} s of ranks, "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return ranks[0]["flagship"]["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; chip_smoke.py needs a CUDA card",
@@ -4328,6 +4506,7 @@ def main() -> int:
     tune = phase_tune(dev, card, mem_bw, bf16_flops)
     two_d = phase_two_d(dev, card, mem_bw, bf16_flops)
     ddp = phase_ddp(dev, card)
+    mesh = phase_mesh(dev, card)
     meta = {
         "K1": ("fused_norm.channel_scale_shift", "cuda",
                "miseg_tpu_torch/ops/kernels/csrc/fused_norm.cu",
@@ -4392,6 +4571,7 @@ def main() -> int:
               f"{key}: the 2-D slice and step launched it {two_d['serve'][key]} and "
               f"{two_d['step'][key]} times; want {'> 0' if on_2d else '0'}")
         check(ddp[key] > 0, f"{key} was never launched in the data-parallel step")
+        check(mesh[key] > 0, f"{key} was never launched in the FSDP step")
         search = {"launches_study": tune["study"][key]}
         if key in tune["rows"]:
             search["search_space_shapes"] = tune["rows"][key]
@@ -4428,7 +4608,8 @@ def main() -> int:
                                      if key in two_d["rows"] else {}),
                                   **({"shape_2d_stage4": two_d["rows"]["K5 stage 4"]}
                                      if key == "K5" else {})},
-                        "ddp": {"launches_per_wrapped_step": ddp[key]}})
+                        "ddp": {"launches_per_wrapped_step": ddp[key]},
+                        "mesh": {"launches_per_fsdp_step": mesh[key]}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

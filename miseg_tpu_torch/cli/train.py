@@ -19,8 +19,12 @@ ingest), `fit` (resuming from `--ckpt_path` when given), then evaluate
 
 Data parallel over N cards, one process each (`parallel`): the same
 command under `torchrun --nproc_per_node=N -m miseg_tpu_torch.cli.train
-...`.  `--batch_size` is per process, the train set is sharded by rank,
-and rank 0 writes the checkpoints and metrics.
+...`.  `--batch_size` is per data coordinate, the train set is sharded by
+the "data" coordinate, and rank 0 writes the checkpoints and metrics.
+FSDP and tensor parallelism take JAX's flags over a mesh of the ranks:
+`--fsdp` (on "data", or `--fsdp_axis model` of `--mesh_shape 2 2
+--mesh_axes data model`), `--tensor_parallel --mesh_shape 2 2
+--mesh_axes data model`, or both.
 
 Fine-tuning the flagship from MONAI's SSL Swin-ViT, with recompute:
 
@@ -58,6 +62,7 @@ def main(cfg: Config | None = None, *, device=None) -> tuple[Trainer, TrainState
         except Exception as e:  # noqa: BLE001 -- the reference trains on at its batch size
             print(f"Tuning of batch size not possible: {e}")
     workdir = os.path.join(cfg.default_root_dir, cfg.experiment_name or cfg.study_name)
+    parallel.mesh_from_config(cfg, "cli.train")
     shard, num_shards = parallel.host_shard_info()
     data = MultiModalData(cfg, shard=shard, num_shards=num_shards)
     if parallel.is_writer():

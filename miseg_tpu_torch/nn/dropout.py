@@ -21,6 +21,12 @@ global batch, `world` times its own leading extent, and keeps its slice
 (`rank`-th of `world`): the mask JAX draws over its global array, so
 two ranks drop what one process drops over their concatenated batch.
 Every mask's leading axis is batch-major (`[B, ...]`, `[B * nW, ...]`).
+The rank and world are the "data" coordinate and size
+(`parallel.host_shard_info`): the ranks of one line of the other axes
+share a batch and draw the same masks.  Under tensor parallelism the
+MLP's hidden activation holds the rank's piece of its columns
+(`columns`); its mask is that piece of the whole activation's, so one
+process and the ranks drop the same elements.
 """
 
 from __future__ import annotations
@@ -68,7 +74,8 @@ def replay(snap: tuple[torch.Generator, torch.Tensor] | None):
         yield
 
 
-def _drop(x: torch.Tensor, rate: float, mask_shape) -> torch.Tensor:
+def _drop(x: torch.Tensor, rate: float, mask_shape,
+          columns: tuple[int, int] | None = None) -> torch.Tensor:
     gen = _generator.get()
     if gen is None:
         raise RuntimeError("dropout in training mode needs a generator: run the "
@@ -77,8 +84,15 @@ def _drop(x: torch.Tensor, rate: float, mask_shape) -> torch.Tensor:
         return torch.zeros_like(x)
     rank, world = parallel.host_shard_info()
     n = mask_shape[0]
-    draw = torch.rand((world * n, *mask_shape[1:]), generator=gen, device=x.device)
-    keep = draw[rank * n:(rank + 1) * n] >= rate
+    if columns is None:
+        draw = torch.rand((world * n, *mask_shape[1:]), generator=gen, device=x.device)
+        keep = draw[rank * n:(rank + 1) * n] >= rate
+    else:
+        piece, pieces = columns
+        k = mask_shape[-1]
+        draw = torch.rand((world * n, *mask_shape[1:-1], pieces * k), generator=gen,
+                          device=x.device)
+        keep = draw[rank * n:(rank + 1) * n, ..., piece * k:(piece + 1) * k] >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -89,10 +103,12 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = float(rate)
 
-    def forward(self, x):
+    def forward(self, x, columns: tuple[int, int] | None = None):
+        """`columns` (piece, pieces): `x` holds that piece of the last dim
+        of the activation whose mask is drawn."""
         if not self.training or self.rate == 0.0:
             return x
-        return _drop(x, self.rate, x.shape)
+        return _drop(x, self.rate, x.shape, columns)
 
 
 class DropPath(nn.Module):

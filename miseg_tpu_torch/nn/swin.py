@@ -27,6 +27,7 @@ from ..ops.rel_bias import rel_bias_gather, rel_pos_index
 from ..ops.window import ATTN_MASK_VALUE, get_window_size, window_partition, window_reverse
 from .convolutions import Conv
 from .dropout import Dropout, DropPath
+from .layers import Linear
 from .norms import make_norm
 from .transformer import MLPBlock
 
@@ -61,9 +62,9 @@ class WindowAttention(nn.Module):
         table_len = math.prod(2 * w - 1 for w in self.window_size)
         self.relative_position_bias_table = nn.Parameter(
             torch.empty((table_len, num_heads), device=device, dtype=dtype))
-        self.qkv = skip_init(nn.Linear, dim, 3 * dim, bias=qkv_bias,
+        self.qkv = skip_init(Linear, dim, 3 * dim, bias=qkv_bias,
                              device=device, dtype=dtype)
-        self.proj = skip_init(nn.Linear, dim, dim, device=device, dtype=dtype)
+        self.proj = skip_init(Linear, dim, dim, device=device, dtype=dtype)
         index = torch.from_numpy(rel_pos_index(self.window_size).reshape(-1))
         self.register_buffer("rel_index", index.to(device), persistent=False)
 
@@ -173,7 +174,7 @@ class PatchMergingV2(nn.Module):
                             else list(itertools.product((0, 1), repeat=3)))
         merged = 2 ** spatial_dims * dim
         self.norm = make_norm(norm, merged, device=device, dtype=dtype)
-        self.reduction = skip_init(nn.Linear, merged, 2 * dim, bias=False,
+        self.reduction = skip_init(Linear, merged, 2 * dim, bias=False,
                                    device=device, dtype=dtype)
 
     def forward(self, x, modalities=None):

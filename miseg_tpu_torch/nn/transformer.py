@@ -21,6 +21,7 @@ from torch.nn.utils import skip_init
 
 from .dropout import Dropout
 from .factories import get_act
+from .layers import Linear
 from .norms import make_norm
 
 NormSpec = tuple[str, dict[str, Any]] | str
@@ -33,13 +34,16 @@ class MLPBlock(nn.Module):
                  *, device=None, dtype=None):
         super().__init__()
         # skip_init: weights come from init_weights / a state dict
-        self.linear1 = skip_init(nn.Linear, hidden, mlp_dim, device=device, dtype=dtype)
-        self.linear2 = skip_init(nn.Linear, mlp_dim, hidden, device=device, dtype=dtype)
+        self.linear1 = skip_init(Linear, hidden, mlp_dim, device=device, dtype=dtype)
+        self.linear2 = skip_init(Linear, mlp_dim, hidden, device=device, dtype=dtype)
         self.act = get_act(act)
         self.drop = Dropout(dropout_rate)
 
     def forward(self, x):
-        return self.drop(self.linear2(self.drop(self.act(self.linear1(x)))))
+        # under tensor parallelism h holds the rank's columns of the hidden
+        # activation, and its dropout mask those columns of the whole one
+        h = self.act(self.linear1(x))
+        return self.drop(self.linear2(self.drop(h, columns=self.linear1.column_piece(h))))
 
 
 class SABlock(nn.Module):
@@ -52,9 +56,9 @@ class SABlock(nn.Module):
         if hidden % num_heads:
             raise ValueError("hidden size must be divisible by num_heads")
         self.num_heads = num_heads
-        self.qkv = skip_init(nn.Linear, hidden, 3 * hidden, bias=qkv_bias, device=device,
+        self.qkv = skip_init(Linear, hidden, 3 * hidden, bias=qkv_bias, device=device,
                              dtype=dtype)
-        self.proj = skip_init(nn.Linear, hidden, hidden, device=device, dtype=dtype)
+        self.proj = skip_init(Linear, hidden, hidden, device=device, dtype=dtype)
         self.drop = Dropout(dropout_rate)
 
     def forward(self, x):

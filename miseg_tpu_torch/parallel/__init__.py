@@ -1,6 +1,8 @@
-"""Parallelism (counterpart of `miseg_tpu/parallel`): the data-parallel
-leg, one process a card (`mesh.py`).  FSDP, tensor, pipeline and spatial
-parallelism wait for ROADMAP M11."""
-from .mesh import (all_reduce_mean, barrier, batch_stats, broadcast_object,  # noqa: F401
-                   broadcast_tensors, check_mesh, destroy_process_group, group,
-                   host_shard_info, init_process_group, is_writer)
+"""Parallelism (counterpart of `miseg_tpu/parallel`): the mesh of ranks
+and data parallelism, one process a card (`mesh.py`), FSDP (`fsdp.py`)
+and tensor parallelism (`tensor.py`).  Pipeline and spatial parallelism
+wait for ROADMAP M11."""
+from .mesh import (Mesh, active, all_reduce_mean, barrier,  # noqa: F401
+                   batch_stats, broadcast_object, broadcast_tensors, data_group,
+                   destroy_process_group, group, host_shard_info, init_process_group,
+                   is_writer, make_mesh, mesh_from_config)

@@ -1,25 +1,41 @@
-"""Data parallelism, one process a card (counterpart of
-`miseg_tpu/parallel/mesh.py`).
+"""The mesh of ranks and data parallelism, one process a card (counterpart
+of `miseg_tpu/parallel/mesh.py`).
 
 The reference's only parallelism is data parallel (PTL DDP, its
 train.py:47; manual DDP with a `DistributedSampler` in its tune.py).  The
 JAX package runs it as one process (host) a device over a 1-D "data"
-mesh; the port runs the same semantics over a `torch.distributed`
-process group, one rank a card, started by `torchrun`:
+mesh, and lays FSDP and tensor parallelism over further axes of the same
+mesh; the port runs the same semantics over `torch.distributed` process
+groups, one rank a card, started by `torchrun`.
 
-  * `cfg.batch_size` is per process; the global batch is `batch_size x
-    world`.  The train loader is sharded by `(rank, world)` with
-    `DistributedSampler`'s padding; validation and test loaders are not
-    (every rank evaluates every volume, so all agree on the metrics).
+The mesh (`make_mesh`, `mesh_from_config`) follows JAX's `make_mesh`
+(miseg_tpu/parallel/mesh.py:27-37): `mesh_shape` with one `-1` inferred
+from the world size, a product other than the world size a `ValueError`,
+and `mesh_axes` naming each axis.  Rank r takes its coordinates
+row-major, the order in which JAX reshapes `jax.devices()`, so the ranks
+of one line of the last axis ("model") are adjacent.  Each line along
+each axis is one process group, created with `dist.new_group` in the same
+order on every rank (a line of every rank is the world group).  An axis
+is "data", `cfg.fsdp_axis` or `cfg.tp_axis`; the spatial, pipeline and
+any other axis raise `NotImplementedError` (ROADMAP M11).
+
+  * `cfg.batch_size` is per data coordinate: the train loader is sharded
+    by `(data index, data size)` (`host_shard_info`), so the ranks of one
+    line of the other axes load the same batch and draw the same dropout
+    masks.  Validation and test loaders are not sharded (every rank
+    evaluates every volume, so all agree on the metrics).
   * The gradient is the mean over the global batch: each rank's gradient
-    of its local mean loss, averaged over ranks (`all_reduce_mean`, in
-    buckets, once a window under gradient accumulation).
+    of its local mean loss, averaged over the "data" line
+    (`all_reduce_mean`, in buckets, once a window under gradient
+    accumulation); a leaf FSDP shards over "data" is averaged by its
+    gather's reduce-scatter instead (`fsdp.py`).
   * Batch norm's training statistics cover the global batch
-    (`batch_stats`): each rank's (count, mean, M2) merged by Chan's
-    formula, with a backward that carries the cross-rank terms.
+    (`batch_stats`): each data rank's (count, mean, M2) merged by Chan's
+    formula over the "data" line (over every rank it would count a shared
+    batch twice), with a backward that carries the cross-rank terms.
   * Rank 0's initial parameters are broadcast (`broadcast_tensors`); rank
-    0 alone writes checkpoints and metrics, and the others wait at a
-    barrier.
+    0 alone writes checkpoints and metrics (`is_writer`), and the others
+    wait at a barrier.
 
 `init_process_group` joins the group `torchrun` describes (`RANK`,
 `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR`/`MASTER_PORT`) whenever the
@@ -27,7 +43,8 @@ process runs under it, one rank included: NCCL on the card, gloo on the
 CPU.  A run whose backend fails raises; no single-process fallback
 exists.  A process that joined a group itself (the CPU tests, with a
 `file://` rendezvous) is used as it is.  Every collective here does
-nothing in a process without a group, so callers never ask.
+nothing in a process without a group, or on an axis of size 1, so
+callers never ask.
 
 Why not `DistributedDataParallel`'s reducer: the Trainer's gradients
 land in the f32 masters through a functional call, and its accumulation
@@ -42,9 +59,13 @@ overlapping it (ROADMAP Queue 2).
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
+import math
 import os
 from collections.abc import Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -55,25 +76,143 @@ BUCKET_BYTES = 25 << 20   # gradient all-reduce bucket, DistributedDataParallel'
 
 
 def group():
-    """The data-parallel process group (the default one) when this process
-    joined one, else None: one process without a group computes the same
-    function with no collective."""
+    """The world's process group when this process joined one, else None:
+    one process without a group computes the same function with no
+    collective."""
     if dist.is_available() and dist.is_initialized():
         return dist.group.WORLD
     return None
 
 
-def host_shard_info() -> tuple[int, int]:
-    """(shard, num_shards) for the per-rank train loader: (rank, world)."""
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place in a mesh of ranks: the mesh's `shape` and `axes`,
+    the rank's `coords` (row-major), and the process group of its line
+    along each axis (None without a group, or for a line of one rank
+    that is not the whole world)."""
+    shape: tuple[int, ...]
+    axes: tuple[str, ...]
+    coords: tuple[int, ...]
+    groups: dict = dataclasses.field(compare=False)
+
+    def size(self, axis: str | None) -> int:
+        """The axis' size; 1 for an axis the mesh does not have."""
+        return self.shape[self.axes.index(axis)] if axis in self.axes else 1
+
+    def index(self, axis: str | None) -> int:
+        """This rank's coordinate on the axis; 0 for one it does not have."""
+        return self.coords[self.axes.index(axis)] if axis in self.axes else 0
+
+    def group(self, axis: str | None):
+        """The process group of this rank's line along the axis, or None."""
+        return self.groups.get(axis)
+
+
+_meshes: dict = {}
+_active: Mesh | None = None
+
+
+def _world() -> tuple[int, int]:
     if group() is None:
         return 0, 1
     return dist.get_rank(), dist.get_world_size()
 
 
+def make_mesh(shape: Sequence[int] = (-1,), axes: Sequence[str] = ("data",)) -> Mesh:
+    """This rank's `Mesh` of `shape` over `axes` (JAX's `make_mesh` rules:
+    one -1 inferred from the world size; `ValueError` for a product other
+    than the world size, or as many sizes as names differing).  Built once
+    a shape per world group: its process groups are created by every rank
+    in the same order, so every rank must ask for the same meshes in the
+    same order."""
+    rank, world = _world()
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes) or len(set(axes)) != len(axes):
+        raise ValueError(f"mesh_shape {list(shape)} and mesh_axes {list(axes)} must name "
+                         "one axis a size, each name once")
+    if shape.count(-1) == 1:
+        known = math.prod(s for s in shape if s != -1) or 1
+        shape = tuple(world // known if s == -1 else s for s in shape)
+    if math.prod(shape) != world or min(shape) < 1:
+        raise ValueError(f"mesh shape {list(shape)} != {world} ranks")
+    key = (shape, axes, id(group()))
+    if key in _meshes:
+        return _meshes[key]
+    coords = tuple(int(c) for c in np.unravel_index(rank, shape))
+    groups = dict.fromkeys(axes)
+    for a, axis in enumerate(axes):
+        if group() is None:
+            continue
+        others = [range(s) for i, s in enumerate(shape) if i != a]
+        for rest in itertools.product(*others):
+            line = []
+            for k in range(shape[a]):
+                c = list(rest)
+                c.insert(a, k)
+                line.append(int(np.ravel_multi_index(c, shape)))
+            # the world's group where the line is every rank (one rank
+            # under torchrun included: its collectives still run), none
+            # for another line of one rank
+            g = (dist.group.WORLD if len(line) == world else
+                 None if len(line) == 1 else dist.new_group(line))
+            if rank in line:
+                groups[axis] = g
+    _meshes[key] = Mesh(shape, axes, coords, groups)
+    return _meshes[key]
+
+
+def mesh_from_config(cfg, entry: str = "Trainer") -> Mesh:
+    """`cfg`'s mesh (`mesh_shape`, `mesh_axes`) over the ranks, made the
+    active one.  Each axis must be "data", `cfg.fsdp_axis` or `cfg.tp_axis`:
+    any other (the spatial and pipeline axes among them) raises
+    `NotImplementedError` from `entry` (ROADMAP M11).  Tensor parallelism
+    over "data" raises too: its ranks must hold one batch."""
+    allowed = {"data", cfg.fsdp_axis, cfg.tp_axis}
+    bad = [a for a in cfg.mesh_axes if a not in allowed]
+    if bad:
+        raise NotImplementedError(
+            f"{entry}: mesh_axes={list(cfg.mesh_axes)!r}: the port lays out 'data', the FSDP "
+            f"axis {cfg.fsdp_axis!r} and the tensor-parallel axis {cfg.tp_axis!r}; "
+            f"{bad!r} wait for ROADMAP M11")
+    mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes)
+    if cfg.tensor_parallel and cfg.tp_axis == "data" and mesh.size("data") > 1:
+        raise NotImplementedError(
+            f"{entry}: tp_axis='data': the port's tensor parallelism runs over an axis whose "
+            "ranks share a batch (ROADMAP M11)")
+    global _active
+    _active = mesh
+    return mesh
+
+
+def active() -> Mesh:
+    """The active mesh, the one `host_shard_info`, `data_group` and the
+    collectives below follow: the last `mesh_from_config` made (a
+    Trainer's, or a command line's before its loaders); without one,
+    "data" over every rank."""
+    if _active is not None:
+        return _active
+    return make_mesh((-1,), ("data",))
+
+
+def data_group():
+    """The process group of this rank's "data" line, or None."""
+    return active().group("data") if group() is not None else None
+
+
+def host_shard_info() -> tuple[int, int]:
+    """(shard, num_shards) for the train loader and the dropout masks: the
+    rank's "data" coordinate and the "data" size (the ranks of one line of
+    the other axes share a batch)."""
+    if group() is None:
+        return 0, 1
+    mesh = active()
+    return mesh.index("data"), mesh.size("data")
+
+
 def is_writer() -> bool:
     """Whether this process writes checkpoints, metrics and journals:
     rank 0, or the only process."""
-    return host_shard_info()[0] == 0
+    return _world()[0] == 0
 
 
 def barrier() -> None:
@@ -105,27 +244,15 @@ def init_process_group(device=None, *, no_gpu: bool = False) -> torch.device:
 def destroy_process_group() -> None:
     """Leave the group this process joined, if any (a command line's
     last act, so NCCL's resources are released before exit)."""
+    global _active
     if group() is not None:
+        _active = None
+        _meshes.clear()
         dist.destroy_process_group()
 
 
-def check_mesh(cfg, entry: str = "Trainer") -> None:
-    """The mesh the port runs: one "data" axis over every rank (`[-1]`, or
-    `[world]`).  Any other shape or axis raises `NotImplementedError` from
-    `entry` (the model, tensor and pipeline axes wait for ROADMAP M11)."""
-    world = host_shard_info()[1]
-    shape, axes = list(cfg.mesh_shape), list(cfg.mesh_axes)
-    bad = ([f"mesh_shape={shape!r}"] if shape not in ([-1], [world]) else []) + (
-        [f"mesh_axes={axes!r}"] if axes != ["data"] else [])
-    if bad:
-        raise NotImplementedError(
-            f"{entry}: {', '.join(bad)}: the port runs a 1-D 'data' mesh over its {world} "
-            f"rank(s) (mesh_shape [-1] or [{world}], mesh_axes ['data']); other meshes "
-            "wait for ROADMAP M11")
-
-
 def broadcast_tensors(tensors: Sequence[torch.Tensor]) -> None:
-    """Overwrite `tensors` with rank 0's, in place."""
+    """Overwrite `tensors` with (global) rank 0's, in place."""
     if group() is None:
         return
     with torch.no_grad():
@@ -142,20 +269,24 @@ def broadcast_object(obj):
     return box[0]
 
 
-def all_reduce_mean(tensors: Sequence[torch.Tensor]) -> None:
-    """Replace each tensor by its mean over the ranks, in place.  Tensors
-    are flattened into buckets of up to `BUCKET_BYTES` by dtype, one
+def all_reduce_mean(tensors: Sequence[torch.Tensor], pg="data") -> None:
+    """Replace each tensor by its mean over the ranks of `pg` (a process
+    group, or the name of an axis of the active mesh: by default this
+    rank's "data" line; None: nothing to do), in place.  Tensors are
+    flattened into buckets of up to `BUCKET_BYTES` by dtype, one
     collective a bucket: NCCL's AVG where the backend offers it, else a
-    SUM divided by the world size (gloo)."""
-    if group() is None:
+    SUM divided by the group's size (gloo)."""
+    if isinstance(pg, str):
+        pg = active().group(pg) if group() is not None else None
+    if pg is None or not tensors:
         return
-    world = dist.get_world_size()
-    avg = dist.get_backend() == dist.Backend.NCCL
+    world = dist.get_world_size(pg)
+    avg = dist.get_backend(pg) == dist.Backend.NCCL
     op = dist.ReduceOp.AVG if avg else dist.ReduceOp.SUM
     with torch.no_grad():
         for bucket in _buckets(tensors, BUCKET_BYTES):
             flat = torch.cat([t.reshape(-1) for t in bucket])
-            dist.all_reduce(flat, op=op)
+            dist.all_reduce(flat, op=op, group=pg)
             if not avg:
                 flat.div_(world)
             offset = 0
@@ -182,27 +313,29 @@ def _buckets(tensors, bucket_bytes):
 
 
 class _GlobalBatchStats(torch.autograd.Function):
-    """(mean, var) `[C]` of `[..., C]` over every rank's elements: each
-    rank's (count, mean, M2) all-gathered and merged by Chan's formula.
-    The backward sums the statistics' cotangents over the ranks (every
-    rank's loss reads the global statistics), then takes this rank's
-    part: `dx = (g_mean + 2 (x - mean) g_var) / N`."""
+    """(mean, var) `[C]` of `[..., C]` over the elements of every rank of
+    the group `pg` (the "data" line): each rank's (count, mean, M2)
+    all-gathered and merged by Chan's formula.  The backward sums the
+    statistics' cotangents over those ranks (every rank's loss reads the
+    global statistics), then takes this rank's part:
+    `dx = (g_mean + 2 (x - mean) g_var) / N`."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, pg):
         c = x.shape[-1]
         x32 = x.detach().float().reshape(-1, c)
         n = torch.full((1, c), float(x32.shape[0]), device=x.device)
         mean = x32.mean(0, keepdim=True)
         m2 = (x32 - mean).square().sum(0, keepdim=True)
-        parts = [torch.empty(3, c, device=x.device) for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, torch.cat([n, mean, m2]))
+        parts = [torch.empty(3, c, device=x.device) for _ in range(dist.get_world_size(pg))]
+        dist.all_gather(parts, torch.cat([n, mean, m2]), group=pg)
         counts, means, m2s = torch.stack(parts).unbind(1)          # [R, C] each
         total = counts.sum(0)
         g_mean = (counts * means).sum(0) / total
         g_m2 = m2s.sum(0) + (counts * (means - g_mean).square()).sum(0)
         var = (g_m2 / total).clamp_min(0.0)
         ctx.save_for_backward(x, g_mean, total)
+        ctx.pg = pg
         return g_mean, var
 
     @staticmethod
@@ -211,16 +344,18 @@ class _GlobalBatchStats(torch.autograd.Function):
         c = x.shape[-1]
         g = torch.cat([torch.zeros(c, device=x.device) if d_mean is None else d_mean,
                        torch.zeros(c, device=x.device) if d_var is None else d_var])
-        dist.all_reduce(g)
+        dist.all_reduce(g, group=ctx.pg)
         d_mean, d_var = g[:c] / total, g[c:] / total
         dx = d_mean + 2.0 * (x.float() - mean) * d_var
-        return dx.to(x.dtype)
+        return dx.to(x.dtype), None
 
 
 def batch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel f32 (mean, var) `[C]` of `[B, *spatial, C]` over the
-    batch and spatial dims of every rank's `x`; differentiable.  Without a
-    group, the one process's (`ops.norms.batch_stats`, flax's one pass)."""
-    if group() is None:
+    batch and spatial dims of `x` on every rank of this rank's "data"
+    line; differentiable.  Without one, this process's
+    (`ops.norms.batch_stats`, flax's one pass)."""
+    pg = data_group()
+    if pg is None:
         return N.batch_stats(x)
-    return _GlobalBatchStats.apply(x)
+    return _GlobalBatchStats.apply(x, pg)

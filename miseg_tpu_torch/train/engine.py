@@ -1,6 +1,6 @@
 """The training engine (counterpart of `miseg_tpu/train/engine.py`:
 `TrainState` :53, `EarlyStopping` :60, `apply_fn` :106, `init_state`
-:171 without its tensor-parallel and FSDP branches, `fresh_state` :234,
+:171 with its tensor-parallel and FSDP placements, `fresh_state` :234,
 `train_step` :271, `flush_accumulation` :310, `make_inferer` :328,
 `evaluate` :368 and `fit` :444).
 
@@ -34,6 +34,19 @@ window under `iters_to_accumulate`: the window's mean, as DDP's
 batch's; batch norm's statistics and the dropout masks are the global
 batch's (`nn/norms.py`, `nn/dropout.py`); rank 0 alone writes
 checkpoints and metrics, the others waiting at a barrier.
+
+On a mesh with FSDP or tensor parallelism (`parallel.fsdp`,
+`parallel.tensor`; JAX's placements, miseg_tpu/train/engine.py:193-212)
+`TrainState.params` holds this rank's f32 shard of each placed leaf and
+the whole of the others, and the optimizer runs on them.  The forward
+gathers the FSDP shards once a step (`fsdp.full_weights`) and hands the
+tensor-parallel shards to the Megatron layers (`nn.layers.Linear`); the
+gradients of the replicated and tensor-parallel leaves (and of FSDP's
+where its axis is not "data") are averaged over the "data" line, FSDP's
+on "data" by their gather's reduce-scatter.  `state_dict`, `opt_state`
+and `eval_weights` gather whole tensors (a collective: every rank calls
+them) and `restore` keeps the rank's slices, so checkpoints are one
+process's whatever the mesh.
 """
 
 from __future__ import annotations
@@ -50,6 +63,8 @@ from torch import nn
 
 from .. import parallel
 from ..config import Config, require_ported
+from ..parallel import fsdp
+from ..parallel import tensor as tensor_parallel
 from ..inferers import SlidingWindowInferer, window_starts
 from ..losses import loss_from_config
 from ..metrics import (dice_score_labels, metric_by_modality, nanmean_valid,
@@ -133,16 +148,22 @@ class Trainer:
         conv blocks' path of a model built here.  Metrics go to `logger`,
         by default a `MetricLogger` over `workdir` (default
         `cfg.default_root_dir`) opened at the first record (on rank 0;
-        the other ranks log nothing).  The parallelism fields must hold
-        JAX's defaults (ROADMAP M11), and the mesh be one "data" axis over
-        the ranks (`parallel.check_mesh`)."""
+        the other ranks log nothing).  The spatial and pipeline fields must
+        hold JAX's defaults (ROADMAP M11); the mesh is `cfg`'s over the
+        ranks (`parallel.mesh_from_config`), from now on the process's
+        active one (that its dropout masks and batch statistics follow:
+        run the steps of the Trainer built last)."""
         require_ported(cfg, "M11", "Trainer")
-        parallel.check_mesh(cfg, "Trainer")
+        self.mesh = parallel.mesh_from_config(cfg, "Trainer")
         self.cfg = cfg
         self.device = resolve_device(device, no_gpu=cfg.no_gpu)
         self.model = model if model is not None else model_from_config(
             cfg, device=self.device, fused_conv=fused_conv)
         self.model.train()
+        self._full_shapes = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
+        self.placements: dict[str, fsdp.Placement] = {}
+        self._masters: dict[str, torch.Tensor] | None = None
+        self._averaged_by_gather: set[int] = set()
         self.loss_fn = loss_from_config(cfg)
         self.scheduler = scheduler_from_config(cfg)
         self.compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
@@ -167,8 +188,12 @@ class Trainer:
     def init_state(self, params: Mapping[str, torch.Tensor] | None = None) -> TrainState:
         """The initial state: the model's parameters and buffers (replaced
         by the state dict `params` when given, e.g. one bridged from JAX)
-        as f32 masters, and `cfg`'s optimizer over the parameters (without
-        the encoder's under `freeze_encoder`)."""
+        as f32 masters, rank 0's on every rank, and `cfg`'s optimizer over
+        the parameters (without the encoder's under `freeze_encoder`).  On
+        a mesh with FSDP or tensor parallelism a placed leaf's master is
+        this rank's shard (`self.placements`), and the model's own tensor
+        of it is released."""
+        self._materialize()
         if params is not None:
             self.model.load_state_dict(params, strict=True)
         masters = dict(self.model.named_parameters())
@@ -177,18 +202,60 @@ class Trainer:
         wrong = [n for n, p in {**masters, **buffers}.items() if p.dtype != torch.float32]
         if wrong:
             raise ValueError(f"master parameters and buffers must be float32: {wrong[:3]}")
+        parallel.broadcast_tensors([*masters.values(), *buffers.values()])
+        self.placements = fsdp.placements(self._full_shapes, self.mesh, self.cfg)
+        tensor_parallel.attach(self.model, self.placements)
+        for n, pl in self.placements.items():
+            full = masters[n]
+            masters[n] = nn.Parameter(pl.shard(full.detach()).clone())
+            full.data = torch.empty(0, dtype=full.dtype, device=full.device)
+        self._masters = masters
+        # FSDP's leaves on "data": their gather's reduce-scatter takes the mean
+        self._averaged_by_gather = {id(masters[n]) for n, pl in self.placements.items()
+                                    if pl.kind == "fsdp" and pl.axis == "data"}
         optimizer = optimizer_from_config(self.cfg, masters,
                                           getattr(self.model, "ENCODER_PREFIXES", ()))
-        parallel.broadcast_tensors([*masters.values(), *buffers.values()])
         k = self.cfg.iters_to_accumulate
-        return TrainState(masters, optimizer, 0, Accumulation(k) if k > 1 else None,
-                          buffers)
+        acc = Accumulation(k, self._reduce_grads) if k > 1 else None
+        return TrainState(masters, optimizer, 0, acc, buffers)
 
-    @staticmethod
-    def state_dict(state: TrainState) -> dict[str, torch.Tensor]:
-        """The parameters and buffers of `state` by name: what a checkpoint
-        holds."""
-        return {**state.params, **state.buffers}
+    @torch.no_grad()
+    def _materialize(self) -> None:
+        """Give the model's parameters released by a sharded `init_state`
+        their whole values again, gathered from the masters: a repeat
+        `init_state` starts from the current parameters, as one process's
+        does (every rank calls this)."""
+        if not self.placements:
+            return
+        whole = fsdp.gather_full({n: self._masters[n] for n in self.placements},
+                                 self.placements)
+        for n, p in self.model.named_parameters():
+            if n in whole:
+                p.data = whole[n]
+
+    def state_dict(self, state: TrainState,
+                   dst: int | None = None) -> dict[str, torch.Tensor] | None:
+        """The parameters and buffers of `state` by name, whole: what a
+        checkpoint holds.  Placed leaves are gathered (every rank calls
+        this), to every rank or with `dst` to global rank `dst` alone (the
+        others get None); the others are the state's own tensors."""
+        params = fsdp.gather_full(state.params, self.placements, dst)
+        return None if params is None else {**params, **state.buffers}
+
+    def state_bytes(self, state: TrainState) -> int:
+        """Bytes of f32 masters and optimizer state this rank holds."""
+        opt = [v for st in state.optimizer.state.values() for v in st.values()
+               if isinstance(v, torch.Tensor) and v.ndim > 0]
+        return sum(t.numel() * t.element_size() for t in [*state.params.values(), *opt])
+
+    def _reduce_grads(self, grads: list[torch.Tensor], params: list[torch.Tensor],
+                      extra: list[torch.Tensor] = ()) -> None:
+        """Average over the "data" line, in place, `extra` and the gradients
+        (aligned with the optimizer's `params`) of all but FSDP's leaves on
+        "data", whose gather's reduce-scatter took the mean."""
+        parallel.all_reduce_mean([*extra, *(g for g, p in zip(grads, params) if g is not None
+                                            and id(p) not in self._averaged_by_gather)],
+                                 self.mesh.group("data"))
 
     def fresh_state(self) -> TrainState:
         """`init_state`, then the ingest of weights from elsewhere
@@ -208,34 +275,71 @@ class Trainer:
             print("Loading pre-trained weights ...")
             params = load_any_checkpoint_params(cfg.pretrained, params,
                                                 model_name=cfg.model_name)
+        params = {n: t.to(self.device) for n, t in params.items()}
+        parallel.broadcast_tensors(list(params.values()))
         self._load_params(state, params)
-        parallel.broadcast_tensors(list(self.state_dict(state).values()))
         return state
 
     @torch.no_grad()
     def _load_params(self, state: TrainState, params: Mapping[str, torch.Tensor]) -> None:
-        own = self.state_dict(state)
+        """Copy the whole tensors `params` into `state` (a placed leaf's
+        master takes this rank's slice)."""
+        own = {**state.params, **state.buffers}
         missing = [n for n in own if n not in params]
         if missing:
             raise KeyError(f"checkpoint lacks {len(missing)} parameters or buffers, e.g. "
                            f"{missing[:3]}")
         for n, p in own.items():
-            p.copy_(params[n])
+            pl = self.placements.get(n)
+            p.copy_(params[n] if pl is None else pl.shard(params[n].to(p.device)))
 
-    def opt_state(self, state: TrainState) -> dict:
-        """The optimizer's state as a checkpoint holds it."""
+    def _opt_names(self, state: TrainState) -> list[str]:
+        """The masters' names in the order of the optimizer's state dict."""
+        names = {id(p): n for n, p in state.params.items()}
+        return [names[id(p)] for g in state.optimizer.param_groups for p in g["params"]]
+
+    def opt_state(self, state: TrainState, dst: int | None = None) -> dict | None:
+        """The optimizer's state as a checkpoint holds it, placed leaves'
+        moments gathered whole (every rank calls this), to every rank or
+        with `dst` to global rank `dst` alone (the others get None)."""
         acc = state.accumulation
         counts = (acc.state_dict() if acc is not None
                   else {"gradient_step": state.step, "mini_step": 0})
-        return {"optimizer": state.optimizer.state_dict(), **counts}
+        sd = state.optimizer.state_dict()
+        placed, pls = {}, {}
+        for i, name in enumerate(self._opt_names(state)):
+            pl = self.placements.get(name)
+            for k, v in sd["state"].get(i, {}).items():
+                if pl is not None and isinstance(v, torch.Tensor) and v.ndim > 0:
+                    placed[(i, k)], pls[(i, k)] = v, pl
+        whole = fsdp.gather_full(placed, pls, dst)
+        if whole is None:
+            return None
+        sd = {**sd, "state": {i: {k: whole.get((i, k), v) for k, v in st.items()}
+                              for i, st in sd["state"].items()}}
+        return {"optimizer": sd, **counts}
+
+    def _shard_opt_state(self, state: TrainState, sd: Mapping) -> Mapping:
+        """An optimizer state dict of whole moments with this rank's slices
+        of the placed leaves' (the inverse of `opt_state`'s gather)."""
+        if not self.placements:
+            return sd
+        names = self._opt_names(state)
+        out = {}
+        for i, st in sd["state"].items():
+            pl = self.placements.get(names[int(i)])
+            out[i] = {k: pl.shard(v).clone() if pl is not None and isinstance(v, torch.Tensor)
+                      and v.ndim > 0 else v for k, v in st.items()}
+        return {**sd, "state": out}
 
     def restore(self, state: TrainState, ck: Mapping) -> TrainState:
         """Load a checkpoint's parameters and buffers and, when it has
-        them, its optimizer state and step count into `state`."""
+        them, its optimizer state and step count into `state` (whatever
+        mesh wrote it: its tensors are whole)."""
         self._load_params(state, ck["params"])
         opt_state = ck.get("opt_state")
         if opt_state:
-            state.optimizer.load_state_dict(opt_state["optimizer"])
+            state.optimizer.load_state_dict(self._shard_opt_state(state, opt_state["optimizer"]))
             if state.accumulation is not None:
                 state.accumulation.load_state_dict(opt_state)
             state.step = optimizer_step_count(opt_state, self.cfg.iters_to_accumulate)
@@ -245,9 +349,9 @@ class Trainer:
 
     def apply_fn(self, params: Mapping[str, torch.Tensor], image, modalities):
         """Forward under the compute policy: f32 logits of `image` from the
-        parameters cast to the compute dtype."""
-        cast = {n: p.to(self.compute_dtype) if p.is_floating_point() else p
-                for n, p in params.items()}
+        parameters cast to the compute dtype (the FSDP shards then gathered
+        whole, the tensor-parallel ones left as shards)."""
+        cast = fsdp.full_weights(params, self.placements, self.compute_dtype, tp_sharded=True)
         logits = torch.func.functional_call(
             self.model, cast, (image.to(self.compute_dtype), modalities))
         return logits.float()
@@ -261,10 +365,11 @@ class Trainer:
             yield
             return
         was_training = self.model.training
+        masters = self._masters if self._masters is not None else dict(
+            self.model.named_parameters())
         with torch.no_grad():
-            self._eval_cast = {n: p.detach().to(self.compute_dtype)
-                               if p.is_floating_point() else p.detach()
-                               for n, p in self.model.named_parameters()}
+            self._eval_cast = {n: p.detach() for n, p in fsdp.full_weights(
+                masters, self.placements, self.compute_dtype, tp_sharded=False).items()}
         self.model.eval()
         try:
             yield
@@ -336,13 +441,12 @@ class Trainer:
         """One micro-step: loss, backward into the f32 masters, and one
         optimizer update (with accumulation, the update of a full window).
         Under data parallelism the gradients (or the window's mean) and the
-        loss are averaged over the ranks first.  Returns (the same state,
+        loss are averaged over the "data" line first.  Returns (the same state,
         advanced, and the loss as a 0-d tensor on the device)."""
         loss, _ = self.value_and_grad(state, batch)
-        grads = [] if state.accumulation is not None else [
-            p.grad for g in state.optimizer.param_groups for p in g["params"]
-            if p.grad is not None]
-        parallel.all_reduce_mean([loss, *grads])
+        params = [] if state.accumulation is not None else [
+            p for g in state.optimizer.param_groups for p in g["params"]]
+        self._reduce_grads([p.grad for p in params], params, extra=[loss])
         if state.accumulation is None:
             state.optimizer.step()
         else:
@@ -513,9 +617,10 @@ class Trainer:
                 improved = acc > best_acc
                 if improved:
                     best_acc = acc
+                # gathered to rank 0 when sharded (None on the other ranks)
+                opt_state = self.opt_state(state, dst=0)
+                weights = self.state_dict(state, dst=0)
                 if writer:
-                    opt_state = self.opt_state(state)
-                    weights = self.state_dict(state)
                     ckpt.save(acc, params=weights, opt_state=opt_state, epoch=epoch,
                               scheduler_state=sched_state)
                     if improved:

@@ -26,8 +26,6 @@ from collections.abc import Iterable, Mapping, Sequence
 
 import torch
 
-from .. import parallel
-
 
 def freeze_mask(names: Iterable[str], prefixes: Sequence[str]) -> set[str]:
     """The parameter names (dotted, as in a state dict) to freeze: a prefix
@@ -85,10 +83,12 @@ class Accumulation:
     reference loop's step at the last batch of an epoch with every
     micro-loss scaled by 1/k.  Under data parallelism the window's mean is
     averaged over the ranks before it is applied (once a window, not once
-    a micro-batch)."""
+    a micro-batch), by `reduce(window means, params)` (the Trainer's, which
+    leaves out what FSDP's reduce-scatter averaged)."""
 
-    def __init__(self, k: int):
+    def __init__(self, k: int, reduce):
         self.k = int(k)
+        self.reduce = reduce
         self.mini_step = 0
         self.gradient_step = 0
         self._acc: list[torch.Tensor] | None = None
@@ -120,7 +120,7 @@ class Accumulation:
 
     @torch.no_grad()
     def _apply(self, optimizer, params, scale: float) -> None:
-        parallel.all_reduce_mean(self._acc)
+        self.reduce(self._acc, params)
         for acc, p in zip(self._acc, params):
             p.grad = acc * scale
         optimizer.step()

@@ -80,6 +80,24 @@ def _convert(path: tuple[str, ...], leaf: torch.Tensor) -> tuple[str, torch.Tens
     return weight, leaf.permute(nk + 1, nk, *spatial)
 
 
+def flax_dims(name: str, ndim: int) -> tuple[int, ...]:
+    """For the port's tensor `name` of rank `ndim`, the dim of the flax leaf
+    each of its dims comes from (`_convert`'s layouts: torch dim j is flax
+    dim `flax_dims(...)[j]`): a Linear's `[out, in]` from `[in, out]`, a
+    conv's `[O, I, *k]` and a transposed conv's `[I, O, *k]` from
+    `[*k, I, O]`; any other leaf keeps its layout."""
+    *parent, leaf = name.split(".")
+    if leaf != "weight" or ndim < 2:
+        return tuple(range(ndim))
+    if ndim == 2:
+        return (1, 0)
+    nk = ndim - 2
+    spatial = tuple(range(nk))
+    if parent and _is_transposed(parent[-1] if len(parent) > 1 else f"/{parent[0]}"):
+        return (nk, nk + 1, *spatial)
+    return (nk + 1, nk, *spatial)
+
+
 def state_dict_from_jax(params: Mapping,
                         batch_stats: Mapping | None = None) -> dict[str, torch.Tensor]:
     """`model.init(...)["params"]` (nested mappings of arrays, or of CPU

@@ -20,15 +20,26 @@ slice of a seeded global batch of N volumes (`--size`^3, one a rank):
     three steps, the ranks' step time by CUDA events (median after a
     warm-up step) beside one process's at batch 1 (rank 0, after the
     group), so the difference is what the gradient all-reduce over the
-    ranks costs.
+    ranks costs;
+  * FSDP and tensor parallelism (`MESH_LEGS`, at 4 ranks: FSDP `[4]`, TP
+    `[2, 2]` and TP + FSDP `[2, 2]` over ("data", "model")): one f32 step
+    of `chip_smoke.MESH_SMALL` (the flagship's model at fs 24, 64^3) on a
+    global batch of one volume a "data" coordinate, held after the group
+    to rank 0's one process on that batch by `chip_smoke.check_ddp_step`
+    (loss, gathered gradients leaf by leaf, W5); and on the card three
+    bf16 flagship steps under the leg, each rank's step ms (median after
+    a warm-up step) and bytes of f32 masters plus AdamW moments, beside
+    one process's.
 Rank 0 prints one line each and `ok`; any failed check raises.
 
 `--launch N` (not under torchrun) runs, each under `torchrun --standalone
 --nproc_per_node=N` with its own time limit: this script; `cli.train`
 on the flagship for 2 epochs over a synthetic dataset (4 train volumes of
-128x128x112 a modality); `cli.tune` for 2 one-epoch trials over the same
-data.  Each must exit 0, `cli.train` leave `best.ckpt`, `last.ckpt` and
-its metrics, and `cli.tune` its journal; the outputs go to
+128x128x112 a modality); `cli.train --fsdp` for 1 epoch, whose
+`last.ckpt` must hold the data-parallel run's names and whole shapes;
+`cli.tune` for 2 one-epoch trials over the same data.  Each must exit 0,
+`cli.train` leave `best.ckpt`, `last.ckpt` and its metrics, and
+`cli.tune` its journal; the outputs go to
 `chiprun_out/ddp<N>_*.txt`, and each step's seconds are printed with the
 card's name and power limit.
 """
@@ -89,6 +100,53 @@ def snapshot(state, loss: float) -> dict:
             "buffers": {n: b.cpu() for n, b in state.buffers.items()}}
 
 
+MESH_2X2 = dict(mesh_shape=[2, 2], mesh_axes=["data", "model"])
+MESH_LEGS = {"fsdp [N]": dict(fsdp=True),
+             "tp [2, 2]": dict(MESH_2X2, tensor_parallel=True),
+             "tp + fsdp [2, 2]": dict(MESH_2X2, tensor_parallel=True, fsdp=True,
+                                      fsdp_axis="model")}
+
+
+def mesh_legs(device, world: int, size: int) -> dict:
+    """Each of `MESH_LEGS` this rank takes part in (the 2 x 2 legs need 4
+    ranks): the f32 step of `MESH_SMALL` (a `chip_smoke._mesh_record`, on
+    rank 0) and, on the card, the flagship's bf16 step ms and state bytes
+    of every rank."""
+    out = {}
+    roi = dict(roi_x=size, roi_y=size, roi_z=size)
+    for name, par in MESH_LEGS.items():
+        if par.get("mesh_shape") and world != 4:
+            continue
+        trainer = Trainer(Config(**cs.MESH_SMALL, **par), device=device)
+        data = trainer.mesh.size("data")
+        state = trainer.init_state()
+        state, loss = trainer.train_step(state, cs._share(cs._mesh_batch(device, cs.MESH_SMALL,
+                                                                          data)))
+        rec = {"small": cs._mesh_record(trainer, state, loss), "data": data}
+        del trainer, state
+        if device.type == "cuda":
+            flagship = {**cs.FLAGSHIP, **roi}
+            fdata = [cs._share(b) for b in batches(Config(**flagship), data, size, 3, device)]
+            trainer = Trainer(Config(**flagship, **par), device=device)
+            state = trainer.init_state()
+            ms = []
+            for batch in fdata:
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                state, _ = trainer.train_step(state, batch)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            per_rank = [None] * world
+            dist.all_gather_object(per_rank, (ms, trainer.state_bytes(state)))
+            rec["flagship"] = per_rank
+            rec["flagship_placed"] = cs._mesh_record(trainer, state, 0.0)["placed_elements"]
+            del trainer, state
+        out[name] = rec
+    return out
+
+
 def ranks_main(args) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -114,9 +172,14 @@ def ranks_main(args) -> None:
         _, _, ranks_ms = run(flagship, device, fdata, rank)
     card = (torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
     backend = dist.get_backend()
-    dist.destroy_process_group()
+    legs = mesh_legs(device, world, size)
+    parallel.destroy_process_group()
     if rank != 0:
         return
+    if device.type == "cuda":
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout.strip())
 
     # one process, the whole batch
     t0 = time.perf_counter()
@@ -137,7 +200,38 @@ def ranks_main(args) -> None:
         print(f"flagship {size}^3 bf16 step by CUDA events (median of 2 after a warm-up): "
               f"{world} ranks at batch 1 each (global {world}) {r:.2f} ms {ranks_ms}; one "
               f"process at batch 1 {o:.2f} ms {one_ms}; difference {r - o:+.2f} ms")
+    held_legs(legs, device, size, card, one_ms if device.type == "cuda" else None)
     print("ok")
+
+
+def held_legs(legs: dict, device, size: int, card: str, one_ms) -> None:
+    """Rank 0's one process against each of `mesh_legs`' results."""
+    for name, rec in legs.items():
+        trainer = Trainer(Config(**cs.MESH_SMALL), device=device)
+        state = trainer.init_state()
+        state, loss = trainer.train_step(state, cs._mesh_batch(device, cs.MESH_SMALL,
+                                                              rec["data"]))
+        want = cs._mesh_record(trainer, state, loss)
+        del trainer, state
+        gaps = cs.check_ddp_step(rec["small"], want, name)
+        line = (f"{name} ({card}), fs 24 64^3 f32, global batch {rec['data']}, placed "
+                f"{rec['small']['placed']}: loss |diff| {gaps['loss']:.2e}, gradient gap "
+                f"summed {gaps['summed']:.3e} (worst {gaps['worst']} {gaps['worst_gap']:.2e}), "
+                f"parameters within W5 (excess {gaps['w5_excess']:.2e})")
+        if "flagship" in rec:
+            one = Trainer(Config(**{**cs.FLAGSHIP, "roi_x": size, "roi_y": size,
+                                     "roi_z": size}), device=device)
+            one_state = one.init_state()
+            one_bytes = one.state_bytes(one_state) * 3     # + AdamW's two moments
+            del one, one_state
+            ms = [statistics.median(m[1:]) for m, _ in rec["flagship"]]
+            line += (f"; flagship {size}^3 bf16 at batch 1 a data coordinate, step ms a rank "
+                     f"(median of 2 after a warm-up) {[round(v, 2) for v in ms]} vs one "
+                     f"process at batch 1 {statistics.median(one_ms[1:]):.2f}; masters + AdamW "
+                     f"moments a rank {[b for _, b in rec['flagship']]} bytes vs one process "
+                     f"{one_bytes}; {rec['flagship_placed']} of {one_bytes // 12} parameters "
+                     f"placed")
+        print(line)
 
 
 def _torchrun(n: int, args: list[str], log: Path, timeout: int) -> float:
@@ -154,6 +248,24 @@ def _torchrun(n: int, args: list[str], log: Path, timeout: int) -> float:
           + "\n  ".join(ln[:300] for ln in tail))
     cs.check(rc == 0, f"torchrun x{n} {' '.join(args[:2])} exited {rc} (log {log})")
     return seconds
+
+
+def held_fsdp_checkpoint(whole: Path, sharded: Path) -> None:
+    """The checkpoint `cli.train --fsdp` wrote (its parameters and AdamW
+    moments gathered to rank 0) holds every tensor of the data-parallel
+    run's, under the same name and whole shape."""
+    from miseg_tpu_torch.train.checkpoint import load_checkpoint
+
+    def shapes(ck):
+        moments = {(i, k): tuple(v.shape) for i, st in ck["opt_state"]["optimizer"]["state"]
+                   .items() for k, v in st.items() if isinstance(v, torch.Tensor)}
+        return {n: tuple(t.shape) for n, t in ck["params"].items()}, moments
+
+    want, got = shapes(load_checkpoint(whole)), shapes(load_checkpoint(sharded))
+    cs.check(got == want, f"cli.train --fsdp: {sharded} differs from {whole} in its names "
+             "or shapes")
+    print(f"cli.train --fsdp wrote {len(got[0])} parameters and {len(got[1])} moment tensors, "
+          "whole, under the data-parallel checkpoint's names and shapes")
 
 
 def launch_main(n: int, size: int) -> None:
@@ -189,6 +301,10 @@ def launch_main(n: int, size: int) -> None:
         written = sorted(p.name for p in run_dir.iterdir())
         cs.check({"best.ckpt", "last.ckpt", "metrics.jsonl"} <= set(written),
                  f"cli.train wrote {written}")
+        _torchrun(n, ["-m", "miseg_tpu_torch.cli.train", *common, "--max_epochs", "1",
+                      "--fsdp", "--experiment_name", "fsdp"], out / f"ddp{n}_train_fsdp.txt",
+                  900)
+        held_fsdp_checkpoint(run_dir / "last.ckpt", Path(tmp) / "runs" / "fsdp" / "last.ckpt")
         _torchrun(n, ["-m", "miseg_tpu_torch.cli.tune", *common, "--max_epochs", "1",
                       "--scheduler", "warmup_cosine", "--n_trials", "2",
                       "--study_name", "ddp", "--storage_name", "ddp"],

@@ -11,6 +11,11 @@ line a depth with the worst such share of each pair.  `--num_layers`
 takes C-UNet's depths to run (levels of 2 * feature_size * 2^i channels,
 strides 2 between them; default 4, the JAX package's).
 
+The f64 runs keep batch norm's statistics in f32 (`ops.norms.batch_stats`,
+as the JAX package does), so they are not exact evaluations; the deep
+leaves' 1-2% is PReLU's gate at 0 (ROADMAP W11), which
+`tests/test_torch_grad_precision.py` holds against JAX's f32 on the CPU.
+
 Run from the repo root on a machine with a CUDA card:
 
     python scripts/torch_grad_precision.py [--num_layers 3 4 5]

@@ -10,7 +10,8 @@ global batch (`batch_for_rank`):
     64 KiB, so the all-reduce spans several), each from the state dict
     of its case in the file `STARTS` (`torch.save`d `{case: state dict}`;
     a case it lacks starts from the port's seeded initialisation);
-  * `parallel.check_mesh` and `require_ported` at world 2;
+  * the Trainer's mesh (`parallel.mesh_from_config`) and `require_ported`
+    at world 2;
   * `cli.tune.main` of 3 trials with the training stubbed out (rank 0
     holds the study; every rank records what each trial received);
   * one epoch of `cli.train.main` on `DATA_DIR`, counting each rank's
@@ -95,7 +96,8 @@ def optimizer_steps(state) -> int:
 
 
 def mesh_checks() -> dict:
-    """What `check_mesh` and `require_ported` say at world 2."""
+    """What the Trainer says of each mesh and mode at world 2: None when it
+    builds, else the error's type and message."""
     out = {}
     for name, kw in {"mesh_-1": {"mesh_shape": [-1]}, "mesh_2": {"mesh_shape": [2]},
                      "mesh_4": {"mesh_shape": [4]}, "mesh_1": {"mesh_shape": [1]},
@@ -107,8 +109,8 @@ def mesh_checks() -> dict:
         try:
             engine.Trainer(cfg, device="cpu")
             out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
+        except (NotImplementedError, ValueError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
     return out
 
 

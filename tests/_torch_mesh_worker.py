@@ -1,0 +1,252 @@
+"""One rank of the FSDP and tensor-parallel CPU tests
+(`tests/test_torch_fsdp.py`, `tests/test_torch_tp.py`).
+
+    python tests/_torch_mesh_worker.py SUITE RANK WORLD RDZV_FILE OUT_DIR STARTS
+
+Joins a gloo process group through a `file://` rendezvous, then runs the
+cases of `SUITES[SUITE]` on its "data" coordinate's share of each global
+batch (`batch_for`): `STEPS` AdamW micro-steps of each case's model on
+its mesh, from the state dict of its model in the file `STARTS`
+(`torch.save`d `{model: state dict}`), recording the parameters after the
+first and the last update, the gradients the first update applied (from
+the same parameters wherever it runs) and the losses, every tensor
+gathered whole; the placements; and this rank's bytes of masters and
+AdamW moments beside one process's.  Each suite calls `init_state` again
+on the Trainer of one case (`REPEAT_INIT`) and gathers its state to rank
+0 alone.  The "fsdp2" suite also evaluates a volume with the
+sliding-window inferer under FSDP and under data parallelism, writes a
+checkpoint of its FSDP state (rank 0, its tensors gathered to rank 0
+alone), and resumes the one-process checkpoint `OUT_DIR/one.ckpt` under
+FSDP and takes one more step.  Saves what it saw to
+`OUT_DIR/<SUITE>_rank<RANK>.pt`.
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from miseg_tpu_torch import parallel  # noqa: E402
+from miseg_tpu_torch.config import Config  # noqa: E402
+from miseg_tpu_torch.parallel import fsdp  # noqa: E402
+from miseg_tpu_torch.train import engine  # noqa: E402
+from miseg_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
+
+_STEP = dict(criterion="dice_focal", optim_name="adamw", lr=1e-4, reg_weight=1e-5,
+             no_amp=True)
+# JAX's own tiny configurations: the UNet of tests/test_fsdp.py:44-51, the
+# UNETR of tests/test_tensor_parallel.py:137-149 and the fs-12 swin of
+# its :53-60
+MODELS = {
+    "unet": dict(_STEP, model_name="unet", roi_x=16, roi_y=16, roi_z=16, out_channels=2,
+                 feature_size=[8], num_layers=2, strides=[2], num_res_units=1,
+                 encoder_norm_name="instance_cond", decoder_norm_name="instance"),
+    "unetr": dict(_STEP, model_name="unetr", out_channels=3, feature_size=[4],
+                  hidden_size=16, mlp_dim=32, num_heads=2, roi_x=32, roi_y=32, roi_z=32,
+                  vit_norm_name="instance_cond", encoder_norm_name="instance_cond",
+                  decoder_norm_name="instance"),
+    "swin": dict(_STEP, model_name="swin_unetr", roi_x=32, roi_y=32, roi_z=32,
+                 out_channels=3, feature_size=[12], num_heads=2, depth_swin_block=[1],
+                 encoder_norm_name="instance_cond", vit_norm_name="instance_cond",
+                 decoder_norm_name="instance"),
+}
+MESH_2X2 = dict(mesh_shape=[2, 2], mesh_axes=["data", "model"])
+# case -> (model, the parallelism fields)
+CASES = {
+    "fsdp": ("unet", dict(fsdp=True, fsdp_min_size=128)),
+    "fsdp_accumulate": ("unet", dict(fsdp=True, fsdp_min_size=128, iters_to_accumulate=2)),
+    "hybrid": ("unet", dict(MESH_2X2, fsdp=True, fsdp_axis="model", fsdp_min_size=128)),
+    "tp_unetr": ("unetr", dict(MESH_2X2, tensor_parallel=True)),
+    "tp_swin": ("swin", dict(MESH_2X2, tensor_parallel=True)),
+    "tp_fsdp": ("swin", dict(MESH_2X2, tensor_parallel=True, fsdp=True, fsdp_axis="model",
+                             fsdp_min_size=128)),
+    "tp_dropout": ("unetr", dict(MESH_2X2, tensor_parallel=True, dropout_rate=0.1)),
+    # the recompute of each block in the backward, drop-path on
+    "tp_fsdp_recompute": ("swin", dict(MESH_2X2, tensor_parallel=True, fsdp=True,
+                                       fsdp_axis="model", fsdp_min_size=128,
+                                       use_checkpoint=True, dropout_path_rate=0.1)),
+}
+SUITES = {"fsdp2": ["fsdp", "fsdp_accumulate"], "fsdp4": ["hybrid"],
+          "tp4": ["tp_unetr", "tp_swin", "tp_fsdp", "tp_dropout", "tp_fsdp_recompute"]}
+# the case of each suite whose Trainer calls `init_state` again
+REPEAT_INIT = {"fsdp2": "fsdp", "fsdp4": "hybrid", "tp4": "tp_fsdp"}
+GLOBAL_BATCH = 2
+STEPS = 2
+EVAL_SIZE = 24
+
+
+def case_config(name: str, *, one_process: bool = False) -> dict:
+    """A case's Config fields; `one_process`: without its mesh and modes
+    (the one process it is held to), keeping what changes the numbers."""
+    model, par = CASES[name]
+    if one_process:
+        par = {k: v for k, v in par.items() if k in (
+            "iters_to_accumulate", "dropout_rate", "dropout_path_rate", "use_checkpoint")}
+    return dict(MODELS[model], **par)
+
+
+def global_batches(cfg: dict, steps: int = STEPS, seed: int = 0) -> list[dict]:
+    """`steps` global batches of `GLOBAL_BATCH` for a model, from a seed."""
+    rng = np.random.default_rng(seed)
+    roi = (cfg["roi_x"], cfg["roi_y"], cfg["roi_z"])
+    return [{"image": rng.standard_normal((GLOBAL_BATCH, *roi, 1)).astype(np.float32),
+             "label": rng.integers(0, cfg["out_channels"],
+                                   (GLOBAL_BATCH, *roi, 1)).astype(np.int32),
+             "modality": np.array([0, 1], np.int32)} for _ in range(steps)]
+
+
+def batch_for(batch: dict) -> dict:
+    """This rank's share of a global batch: its "data" coordinate's."""
+    shard, shards = parallel.host_shard_info()
+    n = GLOBAL_BATCH // shards
+    return {k: v[shard * n:(shard + 1) * n] for k, v in batch.items()}
+
+
+def whole(trainer, tensors: dict) -> dict:
+    """`tensors` by master name (shards where placed), gathered whole, on
+    the CPU."""
+    return {n: t.detach().clone() for n, t in
+            fsdp.gather_full(tensors, trainer.placements).items()}
+
+
+def moments(trainer, state) -> dict:
+    """AdamW's moments and step count by parameter name, whole."""
+    sd = trainer.opt_state(state)["optimizer"]["state"]
+    names = trainer._opt_names(state)
+    return {names[int(i)]: {k: v.clone() for k, v in st.items()} for i, st in sd.items()}
+
+
+def run_steps(cfg: dict, start: dict, batches: list[dict] | None = None,
+              trainer=None, state=None) -> dict:
+    """The record of `W.run_steps`-like micro-steps of `cfg` from the state
+    dict `start` (or `trainer` and `state` as they are), on this
+    process's share of each global batch."""
+    if trainer is None:
+        trainer = engine.Trainer(Config(**cfg), device="cpu")
+        state = trainer.init_state(start)
+    losses, params1, grads1, updates = [], None, None, optimizer_steps(state)
+    for batch in batches if batches is not None else global_batches(cfg):
+        state, loss = trainer.train_step(state, batch_for(batch))
+        losses.append(float(loss))
+        if grads1 is None and optimizer_steps(state) > updates:
+            params1 = {n: t.detach().clone() for n, t in trainer.state_dict(state).items()}
+            grads1 = whole(trainer, {n: p.grad for n, p in state.params.items()})
+    # f32 master + AdamW's two moments of each optimised parameter, whole
+    sizes = {n: 12 * int(np.prod(trainer._full_shapes[n])) for n in trainer._opt_names(state)}
+    placed = [n for n in state.params if n in trainer.placements]
+    return {"params": {n: t.detach().clone() for n, t in trainer.state_dict(state).items()},
+            "params_step1": params1,
+            "grads": grads1,
+            "buffers": {n: b.clone() for n, b in state.buffers.items()},
+            "losses": losses, "optimizer_steps": optimizer_steps(state),
+            "step": state.step,
+            "placements": {n: (pl.kind, pl.dim, pl.axis, pl.size)
+                           for n, pl in trainer.placements.items()},
+            "state_bytes": trainer.state_bytes(state),
+            "whole_bytes": sum(sizes.values()),
+            "replicated_bytes": sum(b for n, b in sizes.items() if n not in trainer.placements),
+            "placed_elements": sum(int(np.prod(trainer._full_shapes[n])) for n in placed),
+            "elements": sum(int(np.prod(s)) for s in trainer._full_shapes.values()),
+            "moments": moments(trainer, state)}
+
+
+def optimizer_steps(state) -> int:
+    steps = [int(s["step"]) for s in state.optimizer.state.values() if "step" in s]
+    return max(steps) if steps else 0
+
+
+def eval_logits(start: dict) -> dict:
+    """A 24^3 volume through `make_inferer` under FSDP and under data
+    parallelism, from the same weights."""
+    rng = np.random.default_rng(1)
+    image = torch.from_numpy(rng.standard_normal((1, EVAL_SIZE, EVAL_SIZE, EVAL_SIZE, 1))
+                             .astype(np.float32))
+    mods = torch.tensor([1], dtype=torch.int32)
+    out = {}
+    for name, cfg in (("fsdp", case_config("fsdp")), ("dp", MODELS["unet"])):
+        trainer = engine.Trainer(Config(**cfg), device="cpu")
+        trainer.init_state(start)
+        with torch.no_grad():
+            out[name] = trainer.make_inferer()(image, mods)
+    return out
+
+
+def repeat_init(name: str, start: dict) -> dict:
+    """A case's Trainer whose `init_state` is called again: after
+    `init_state(start)` (the parameters it gives, whole) and after one
+    step (those of the step, and what `state_dict` and `opt_state`
+    gathered to rank 0 alone give on this rank: None off rank 0)."""
+    def copy(tensors):   # the replicated leaves are the masters themselves
+        return None if tensors is None else {n: t.detach().clone() for n, t in tensors.items()}
+
+    cfg = case_config(name)
+    trainer = engine.Trainer(Config(**cfg), device="cpu")
+    trainer.init_state(start)
+    again = copy(trainer.state_dict(trainer.init_state()))
+    state, _ = trainer.train_step(trainer.init_state(), batch_for(global_batches(cfg, 1)[0]))
+    stepped, stepped_moments = copy(trainer.state_dict(state)), moments(trainer, state)
+    to_writer = copy(trainer.state_dict(state, dst=0))
+    opt_to_writer = trainer.opt_state(state, dst=0)
+    after_step = copy(trainer.state_dict(trainer.init_state()))
+    names = trainer._opt_names(state)
+    return {"again": again, "stepped": stepped, "after_step": after_step,
+            "stepped_moments": stepped_moments, "to_writer": to_writer,
+            "moments_to_writer": None if opt_to_writer is None else {
+                names[int(i)]: st for i, st in opt_to_writer["optimizer"]["state"].items()}}
+
+
+def checkpoints(start: dict, out_dir: Path) -> dict:
+    """The FSDP state after `STEPS` steps written as a checkpoint by rank 0
+    (`fsdp.ckpt`); and the one-process checkpoint `one.ckpt` resumed under
+    FSDP: its parameters, moments and step as restored, and one more step."""
+    cfg = case_config("fsdp")
+    trainer = engine.Trainer(Config(**cfg), device="cpu")
+    state = trainer.init_state(start)
+    for batch in global_batches(cfg):
+        state, _ = trainer.train_step(state, batch_for(batch))
+    # gathered to rank 0 alone, as `Trainer.fit` does; None elsewhere
+    weights, opt_state = trainer.state_dict(state, dst=0), trainer.opt_state(state, dst=0)
+    if parallel.is_writer():
+        save_checkpoint(out_dir / "fsdp.ckpt", params=weights, opt_state=opt_state, epoch=0)
+    parallel.barrier()
+    written = {"params": None if weights is None else {n: t.clone() for n, t in weights.items()},
+               "opt_state": opt_state is not None,
+               "moments": moments(trainer, state), "step": state.step}
+
+    trainer = engine.Trainer(Config(**cfg), device="cpu")
+    state = trainer.restore(trainer.init_state(start), load_checkpoint(out_dir / "one.ckpt"))
+    resumed = {"params": {n: t.clone() for n, t in trainer.state_dict(state).items()},
+               "moments": moments(trainer, state), "step": state.step}
+    nxt = run_steps(cfg, start, global_batches(cfg, 1, seed=7), trainer, state)
+    return {"written": written, "resumed": resumed, "next": nxt}
+
+
+def main(suite: str, rank: int, world: int, rdzv: str, out_dir: str, starts: str) -> None:
+    torch.set_num_threads(1)
+    start = torch.load(starts, weights_only=True)
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
+                            world_size=world)
+    try:
+        result = {}
+        for name in SUITES[suite]:
+            result[name] = run_steps(case_config(name), start[CASES[name][0]])
+        name = REPEAT_INIT[suite]
+        result["repeat_init"] = repeat_init(name, start[CASES[name][0]])
+        if suite == "fsdp2":
+            result["eval"] = eval_logits(start["unet"])
+            result["checkpoints"] = checkpoints(start["unet"], Path(out_dir))
+        result["host_shard_info"] = parallel.host_shard_info()
+        torch.save(result, Path(out_dir) / f"{suite}_rank{rank}.pt")
+    finally:
+        parallel.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5],
+         sys.argv[6])

@@ -292,20 +292,25 @@ def test_no_gpu_selects_the_cpu(monkeypatch):
         Trainer(Config(**CFG))
 
 
-# a value other than JAX's default for every field the port has not got,
-# and for the mesh, which the port runs as data parallel over its ranks only
-MESH_VALUES = {"mesh_shape": [2, 4], "mesh_axes": ["data", "model"]}
-NOT_PORTED_VALUES = {
+# a value other than JAX's default for every parallelism field, and for
+# the mesh: a shape whose product is not the world size, an axis the port
+# does not lay out
+MESH_VALUES = {"mesh_shape": [2], "mesh_axes": ["sp"]}
+PARALLEL_VALUES = {
     "fsdp": True, "fsdp_axis": "fsdp",
     "fsdp_min_size": 1024, "spatial_shard": True, "spatial_axis": "space",
     "tensor_parallel": True, "tp_axis": "tp", "pipeline_parallel": True, "pp_axis": "stage",
     "pp_microbatches": 4,
 }
+# those of the spatial and pipeline modes, which the port has not got
+NOT_PORTED_VALUES = {k: v for k, v in PARALLEL_VALUES.items()
+                     if k.startswith(("spatial", "pipeline", "pp_"))}
 
 
 def test_not_ported_fields_cover_jax_defaults():
     """`NOT_PORTED` holds JAX's defaults, and the values above differ; the
-    export options and the mesh are ported and no longer listed."""
+    export options, the mesh, FSDP and tensor parallelism are ported and no
+    longer listed."""
     jax_defaults = dataclasses.asdict(JConfig())
     assert sorted(NOT_PORTED) == ["M11"]
     merged = NOT_PORTED["M11"]
@@ -314,13 +319,25 @@ def test_not_ported_fields_cover_jax_defaults():
     assert all(NOT_PORTED_VALUES[k] != v for k, v in merged.items())
 
 
-@pytest.mark.parametrize("field", sorted([*NOT_PORTED["M11"], *MESH_VALUES]))
+@pytest.mark.parametrize("field", sorted([*PARALLEL_VALUES, *MESH_VALUES]))
 def test_trainer_raises_on_parallelism(field):
-    """Each unported field, and a mesh other than one "data" axis over the
-    ranks (`parallel.check_mesh`), raises from the Trainer."""
-    value = {**NOT_PORTED_VALUES, **MESH_VALUES}[field]
-    with pytest.raises(NotImplementedError, match=rf"Trainer: {field}=.*ROADMAP M11"):
-        Trainer(Config(**CFG, **{field: value}), device="cpu")
+    """Each unported field (spatial, pipeline) and an axis the port does not
+    lay out raise `NotImplementedError` from the Trainer naming ROADMAP
+    M11; a mesh whose product is not the world size raises ValueError
+    (JAX's `make_mesh`).  The ported FSDP and tensor-parallel fields build
+    at one process and, their axes of size 1, place nothing."""
+    value = {**PARALLEL_VALUES, **MESH_VALUES}[field]
+    cfg = Config(**CFG, **{field: value})
+    if field in NOT_PORTED["M11"] or field == "mesh_axes":
+        with pytest.raises(NotImplementedError, match=rf"Trainer: {field}=.*ROADMAP M11"):
+            Trainer(cfg, device="cpu")
+    elif field == "mesh_shape":
+        with pytest.raises(ValueError, match=r"mesh shape \[2\] != 1 ranks"):
+            Trainer(cfg, device="cpu")
+    else:
+        trainer = Trainer(cfg, device="cpu")
+        trainer.init_state()
+        assert trainer.placements == {}
 
 
 def test_trainer_takes_jax_parallelism_defaults():

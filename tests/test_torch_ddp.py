@@ -39,9 +39,10 @@ package.
   holds the study.
 * Exactly one checkpoint writer in `cli.train`'s fit; the ranks end on
   the same parameters.
-* `check_mesh` / `require_ported` at world 2 (in the worker) and at
-  world 1 (here): the four unported modes raise, and a mesh other than
-  `[-1]` or `[world]` on "data".
+* The mesh and `require_ported` at world 2 (in the worker) and at world
+  1 (here): FSDP and tensor parallelism build, the spatial and pipeline
+  modes and an unported axis raise (ROADMAP M11), and a mesh whose
+  product is not the world size raises ValueError.
 """
 
 import functools
@@ -68,7 +69,7 @@ from miseg_tpu_torch.config import Config
 from miseg_tpu_torch.data import dataset as D
 from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
 from miseg_tpu_torch.nn.norms import MOMENTUM
-from miseg_tpu_torch.parallel import check_mesh, host_shard_info
+from miseg_tpu_torch.parallel import host_shard_info, mesh_from_config
 from miseg_tpu_torch.weights import state_dict_from_jax
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -303,26 +304,38 @@ def test_one_checkpoint_writer(ranks):
 
 
 def test_mesh_and_unported_modes(ranks):
+    """Since FSDP and tensor parallelism are ported, they build at world 2
+    (on a 1-D "data" mesh tensor parallelism has no "model" axis, so it
+    places nothing, as in JAX); the spatial and pipeline modes still raise
+    naming ROADMAP M11, and so do two axes under one mesh size.  A mesh
+    whose product is not the world size raises ValueError (JAX's
+    `make_mesh` rule)."""
     for r in range(WORLD):
         said = ranks[r]["mesh"]
-        assert said["mesh_-1"] is None and said["mesh_2"] is None
-        for name in ("mesh_4", "mesh_1", "axes_model", "fsdp", "spatial_shard",
-                     "tensor_parallel", "pipeline_parallel"):
-            assert said[name] is not None and "ROADMAP M11" in said[name], name
+        for name in ("mesh_-1", "mesh_2", "fsdp", "tensor_parallel"):
+            assert said[name] is None, (name, said[name])
+        for name in ("spatial_shard", "pipeline_parallel"):
+            assert said[name].startswith("NotImplementedError") and "ROADMAP M11" in said[name]
+        for name in ("mesh_4", "mesh_1"):
+            assert said[name].startswith("ValueError") and "!= 2 ranks" in said[name], name
+        assert said["axes_model"].startswith("ValueError"), said["axes_model"]
     # one process: world 1
     assert host_shard_info() == (0, 1)
-    check_mesh(Config(mesh_shape=[1]))
-    check_mesh(Config(mesh_shape=[-1]))
-    with pytest.raises(NotImplementedError, match=r"Trainer: mesh_shape=\[2\].*ROADMAP M11"):
-        check_mesh(Config(mesh_shape=[2]))
+    for shape in ([1], [-1]):
+        assert mesh_from_config(Config(mesh_shape=shape)).shape == (1,)
+    with pytest.raises(ValueError, match=r"mesh shape \[2\] != 1 ranks"):
+        mesh_from_config(Config(mesh_shape=[2]))
+    with pytest.raises(NotImplementedError, match=r"Trainer: mesh_axes=\['sp'\].*ROADMAP M11"):
+        mesh_from_config(Config(mesh_axes=["sp"]))
 
 
 def test_torchrun_environment_joins_at_world_one(tmp_path):
     """A process that torchrun started (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`,
     `MASTER_ADDR`/`MASTER_PORT`) joins its group through
     `parallel.init_process_group` even alone (gloo, asked for the CPU), so
-    `torchrun --nproc_per_node=1` runs the data-parallel path; without
-    that environment no group is made (`test_mesh_and_unported_modes`)."""
+    `torchrun --nproc_per_node=1` runs the data-parallel path, its "data"
+    line the one-rank world; without that environment no group is made
+    (`test_mesh_and_unported_modes`)."""
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -332,9 +345,9 @@ def test_torchrun_environment_joins_at_world_one(tmp_path):
             "from miseg_tpu_torch import parallel\n"
             "dev = parallel.init_process_group('cpu')\n"
             "print(dev, parallel.host_shard_info(), dist.get_backend(), "
-            "parallel.group() is not None)\n"
+            "parallel.group() is not None, parallel.data_group() is not None)\n"
             "dist.destroy_process_group()\n")
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
                           capture_output=True, text=True, timeout=RANK_TIMEOUT_S)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.split("\n")[0] == "cpu (0, 1) gloo True"
+    assert proc.stdout.split("\n")[0] == "cpu (0, 1) gloo True True"

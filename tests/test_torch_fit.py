@@ -308,7 +308,9 @@ def _run_port(cfg, tree, grads, lrs=None, prefixes=()):
     params = {n: torch.nn.Parameter(torch.from_numpy(v.copy())) for n, v in
               _flat(tree).items()}
     opt = optim.optimizer_from_config(cfg, params, prefixes)
-    acc = optim.Accumulation(cfg.iters_to_accumulate) if cfg.iters_to_accumulate > 1 else None
+    # one process: the window's mean has no ranks to be averaged over
+    acc = (optim.Accumulation(cfg.iters_to_accumulate, lambda means, params: None)
+           if cfg.iters_to_accumulate > 1 else None)
     for i, g in enumerate(grads):
         if lrs is not None:
             optim.set_learning_rate(opt, lrs[i])
