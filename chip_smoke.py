@@ -74,8 +74,9 @@ Phases, one result line each; any failed check exits non-zero:
                MR predict runs PER_WINDOW x windows kernels by name under
                the profiler); predict under inference
                mode in a handler thread with logits that need no gradient
-               and no autograd Function run; the two scans at once answer
-               their serial answers; a line a request with seconds of
+               and no autograd Function run; the CT alone, then the two
+               scans at once (the CT's with remap=whs, its serial answer
+               remapped); a line a request with seconds of
                upload+decode, preprocess, device predict, argmax+copy,
                inverse, encode and total, and windows/s;
   6. train   — training through `train.engine.Trainer`: (a) each kernel's
@@ -217,6 +218,21 @@ Phases, one result line each; any failed check exits non-zero:
                FSDP [2]: losses and parameters against one process, each
                step's launches `PER_WINDOW` (counted and by name in a
                profiled step), the bytes of masters and moments a rank.
+ 15. pipeline — GPipe pipeline parallelism (`parallel/pipeline.py`), gloo
+               ranks sharing the card, the ("data", "pp") meshes `[1, 4]`
+               (C-Swin-UNETR's four swin stages) and `[1, 2]` (C-UNETR's
+               12 ViT blocks, 6 a stage): (a) one f32 step of the
+               flagship's model at fs 24, 64^3, and of C-UNETR at 64^3,
+               batch 2, two microbatches, against this process on the
+               batch (loss, gradients leaf by leaf, W5); (b) the flagship
+               at full width in bf16, batch 2, two microbatches: the losses
+               of `MESH_STEPS` steps against one process, the parameters
+               after the first within W5, every rank's masters bitwise
+               equal, each rank's launches its stage's (`pp_launches`:
+               the stage's blocks once a microbatch, the last stage's
+               decoder once), counted and by name in a profiled step, with
+               each rank's step ms, device busy time and peak memory; (c)
+               C-UNETR at full width the same way on `[1, 2]`.
 Then one JSON line of kernels (with each kernel's `miseg::` op, its
 kernels in a replay of the captured 224^3 volume program, its launches a
 train step, the JAX VJP its backward follows, its launches in the fit's train steps
@@ -226,13 +242,14 @@ recompute a step and its fit, and in the tune study, with K4's and K5's
 rows at the search space's shapes; K2's row times its leaky-relu
 mode, and its field `no_add_no_activation` the UNets' mode beside
 `torch.addcmul`; the 2-D launches and rows, K5's at N = 49; the
-launches of a data-parallel step and of an FSDP step), the card line,
-and the ok line last.
+launches of a data-parallel step, of an FSDP step and of each stage of a
+pipeline step), the card line, and the ok line last.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -1902,11 +1919,22 @@ def phase_serve_http(dev, card: str) -> dict:
         # window-graph calls a request makes: one a window for the MR
         graph_calls = {scans[0]["label"]: 0, scans[1]["label"]: scans[1]["windows"]}
 
-        # ---- serial requests -----------------------------------------------
+        def stages(headers, windows: int) -> str:
+            ms = {k: float(v) for k, v in (part.split(";dur=") for part in
+                                           headers["Server-Timing"].split(", "))}
+            return (f"s: upload+decode {ms['upload'] / 1e3:.3f}, preprocess "
+                    f"{ms['preprocess'] / 1e3:.3f}, device predict {ms['predict'] / 1e3:.3f} "
+                    f"({windows / (ms['predict'] / 1e3):.2f} windows/s), argmax+copy "
+                    f"{ms['argmax'] / 1e3:.3f}, inverse {ms['inverse'] / 1e3:.3f}, encode "
+                    f"{ms['encode'] / 1e3:.3f}, total {ms['total'] / 1e3:.3f} (lock wait "
+                    f"{ms['wait'] / 1e3:.3f})")
+
+        # ---- a serial request: the CT (the MR's answer comes from the pair
+        # at once below; each answer gzips ~25 s on the host) ----------------
         serial = {}
-        for scan, remap in ((scans[0], False), (scans[1], False), (scans[0], True)):
-            label = scan["label"] + (" remap=whs" if remap else "")
-            url = f"{base}/predict?modality={scan['modality']}" + ("&remap=whs" if remap else "")
+        for scan in scans[:1]:
+            label = scan["label"]
+            url = f"{base}/predict?modality={scan['modality']}"
             torch.cuda.synchronize()
             reset_launches()
             seen.clear()
@@ -1930,21 +1958,13 @@ def phase_serve_http(dev, card: str) -> dict:
                   f"http {label}: predict (in a handler thread, under inference mode, "
                   f"logits require grad) {seen}, want [(True, True, False)]")
             check(not applied, f"http {label}: autograd Functions ran: {sorted(set(applied))}")
-            data = answer(scan, out, remap)
-            if not remap:
-                serial[scan["label"]] = data
-            ms = {k: float(v) for k, v in (part.split(";dur=") for part in
-                                           headers["Server-Timing"].split(", "))}
-            print(f"  http {label}: {scan['windows']} windows; s: upload+decode "
-                  f"{ms['upload'] / 1e3:.3f}, preprocess {ms['preprocess'] / 1e3:.3f}, "
-                  f"device predict {ms['predict'] / 1e3:.3f} "
-                  f"({scan['windows'] / (ms['predict'] / 1e3):.2f} windows/s), argmax+copy "
-                  f"{ms['argmax'] / 1e3:.3f}, inverse {ms['inverse'] / 1e3:.3f}, encode "
-                  f"{ms['encode'] / 1e3:.3f}, total {ms['total'] / 1e3:.3f} (lock wait "
-                  f"{ms['wait'] / 1e3:.3f}; client {client_s:.3f}); {len(out) / 1e6:.2f} MB "
-                  f"answer, {len(scan['bytes']) / 1e6:.2f} MB upload")
+            serial[label] = answer(scan, out, False)
+            print(f"  http {label}: {scan['windows']} windows; "
+                  f"{stages(headers, scan['windows'])}; client "
+                  f"{client_s:.3f} s; {len(out) / 1e6:.2f} MB answer, "
+                  f"{len(scan['bytes']) / 1e6:.2f} MB upload")
 
-        # ---- both scans at once ----------------------------------------------
+        # ---- both scans at once, the CT's with remap=whs ------------------------
         torch.cuda.synchronize()
         reset_launches()
         seen.clear()
@@ -1955,8 +1975,9 @@ def phase_serve_http(dev, card: str) -> dict:
 
         def post(scan):
             barrier.wait(timeout=60)
-            results[scan["label"]] = http(f"{base}/predict?modality={scan['modality']}",
-                                          scan["bytes"])
+            remap = "&remap=whs" if scan is scans[0] else ""
+            results[scan["label"]] = http(
+                f"{base}/predict?modality={scan['modality']}{remap}", scan["bytes"])
 
         clients = [threading.Thread(target=post, args=(s,)) for s in scans]
         t0 = time.perf_counter()
@@ -1977,14 +1998,14 @@ def phase_serve_http(dev, card: str) -> dict:
               f"http concurrent: handler predicts {seen}, Functions {sorted(set(applied))}")
         for scan in scans:
             status, headers, out = results[scan["label"]]
+            remap = scan is scans[0]
             check(status == 200, f"http concurrent {scan['label']}: status {status}")
-            check(np.array_equal(answer(scan, out, False), serial[scan["label"]]),
-                  f"http concurrent {scan['label']}: differs from its serial answer")
-            ms = {k: float(v) for k, v in (part.split(";dur=") for part in
-                                           headers["Server-Timing"].split(", "))}
-            print(f"  http concurrent {scan['label']}: total {ms['total'] / 1e3:.3f} s "
-                  f"(lock wait {ms['wait'] / 1e3:.3f}, device predict "
-                  f"{ms['predict'] / 1e3:.3f})")
+            data = answer(scan, out, remap)   # against the in-process pipeline
+            if remap:
+                check(np.array_equal(data, remap_labels(serial[scan["label"]])),
+                      f"http concurrent {scan['label']}: differs from its serial answer")
+            print(f"  http concurrent {scan['label']}{' remap=whs' if remap else ''}: "
+                  f"{scan['windows']} windows; {stages(headers, scan['windows'])}")
     finally:
         torch.autograd.Function.apply = function_apply
         service.served.predict = predict
@@ -1993,7 +2014,8 @@ def phase_serve_http(dev, card: str) -> dict:
         thread.join(timeout=60)
         tmp.cleanup()
     print(card)
-    print(f"serve_http: {len(scans)} scans over HTTP, 3 serial requests and 2 at once, "
+    print(f"serve_http: {len(scans)} scans over HTTP, the CT's alone and both at once "
+          f"(the CT's with remap=whs), "
           f"answers in each scan's grid with its exact affine, equal to the in-process "
           f"pipeline (logits repeatable: {[s['repeatable'] for s in scans]}); the CT's "
           f"requests ({ct_tag}) through its captured volume program, the MR's through the "
@@ -3627,12 +3649,15 @@ def tune_windows(dev, size: int = 64) -> dict:
     space, from one seed: a `size`^3 window of two samples (CT, MR) in f32
     on the card (every kernel launching, K4 on its FMA path: f32 never
     takes the tensor cores) against the CPU's plain versions
-    (`check_card_logits`); then a bf16 bundle's 96^3 window launching
+    (`check_card_logits`); then a bf16 96^3 window launching
     `PER_WINDOW` (the widths change no count), profiled under
     `window_faults` with `WINDOW_K4`: the padded widths run the
     flagship's K4 kernels (12 coarse, one Cin = 1, the rest brick), no
-    FMA kernel or split-K reduce.  Returns, by pair, the K4 kernels of a
-    bf16 window by name and its device busy and K4 ms."""
+    FMA kernel or split-K reduce.  That window is a CPU-exported bundle's
+    (served through its window graph) for one pair a width, heads 3, and
+    the live bf16 model's for the other two: the heads change no K4
+    shape, and the exports took ~5 s each.  Returns, by pair, the K4
+    kernels of a bf16 window by name and its device busy and K4 ms."""
     from miseg_tpu_torch.models import model_from_config
     from miseg_tpu_torch.serve import load_bundle, save_bundle
 
@@ -3659,25 +3684,28 @@ def tune_windows(dev, size: int = 64) -> dict:
             words = check_card_logits(f"search window {label}", got, want,
                                       top2[..., 0] - top2[..., 1])
             del cpu, card
-            # the served bf16 window at 96^3
+            # the bf16 window at 96^3: served from a bundle, or the live model
             cfg96 = search_cfg(fs, heads)
-            with tempfile.TemporaryDirectory() as tmp:
-                save_bundle(cfg96, model_from_config(cfg96, device=dev).state_dict(), tmp)
-                served = load_bundle(tmp)
             window = torch.rand((1, 96, 96, 96, 1), generator=gen).to(dev)
-            served(window, [0])
+            one = torch.tensor([1], dtype=torch.int32, device=dev)
+            if heads == SEARCH_HEADS[1]:
+                with tempfile.TemporaryDirectory() as tmp:
+                    save_bundle(cfg96, model_from_config(cfg96, device=dev).state_dict(), tmp)
+                    served = load_bundle(tmp)
+                served(window, [0])
+                eager, run = (lambda: served.window_fn(window, one)), lambda: served(window, [1])
+            else:
+                served = model_from_config(cfg96, device=dev).to(torch.bfloat16)
+                eager = run = lambda: served(window.to(torch.bfloat16), one)
             torch.cuda.synchronize()
             reset_launches()
             with torch.inference_mode():
-                logits = served.window_fn(window, torch.tensor([1], dtype=torch.int32,
-                                                                device=dev))
-            torch.cuda.synchronize()
-            check(launch_counts() == PER_WINDOW and bool(torch.isfinite(logits).all()),
-                  f"search window {label} bf16 96^3: launched {launch_counts()}, want "
-                  f"{PER_WINDOW}, finite {bool(torch.isfinite(logits).all())}")
-            events = profiled(lambda: served(window, [1]),
-                              lambda ev: not window_faults(ev, 1),
-                              lead=lambda: served(window, [1]))
+                logits = eager()
+                torch.cuda.synchronize()
+                check(launch_counts() == PER_WINDOW and bool(torch.isfinite(logits).all()),
+                      f"search window {label} bf16 96^3: launched {launch_counts()}, want "
+                      f"{PER_WINDOW}, finite {bool(torch.isfinite(logits).all())}")
+                events = profiled(run, lambda ev: not window_faults(ev, 1), lead=run)
             faults = window_faults(events, 1)
             if replay_counts(events) != PER_WINDOW:
                 faults.append(f"the served window ran kernels by name {replay_counts(events)}")
@@ -4082,6 +4110,89 @@ def phase_two_d(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
     return {"rows": rows, "serve": serve, "step": step}
 
 
+# the pipeline phase: GPipe over gloo ranks sharing the card, batch 2 in two
+# microbatches; the flagship's four swin stages on [1, 4], C-UNETR's twelve
+# ViT blocks on [1, 2]
+PP_SWIN = dict(mesh_shape=[1, 4], mesh_axes=["data", "pp"], pipeline_parallel=True,
+               pp_microbatches=2)
+PP_UNETR = {**PP_SWIN, "mesh_shape": [1, 2]}
+PP_UNETR_SMALL = {**UNETR, "roi_x": 64, "roi_y": 64, "roi_z": 64, "no_amp": True}
+# (world, mesh fields, the f32 model, the full-width bf16 model) of each leg
+PP_LEGS = {"pp4": (4, PP_SWIN, MESH_SMALL, FLAGSHIP), "pp2": (2, PP_UNETR, PP_UNETR_SMALL, UNETR)}
+# a microbatch through one flagship swin stage (depth 2): two blocks of two
+# norms (one K1 run and one K2 launch each) and one K5, and patch merging's
+# norm; through one C-UNETR ViT block: two norms
+SWIN_STAGE = {"K1": 5, "K2": 5, "K5": 2}
+VIT_BLOCK = {"K1": 2, "K2": 2}
+
+
+def pp_launches(model: dict, stages: int, microbatches: int) -> list[dict]:
+    """The kernels each stage of a GPipe train step launches: its blocks
+    once a microbatch, and on the last stage the rest of the model's window
+    (the patch embedding launches none; `proj_out`, the ViT's final norm
+    and the conv encoders and decoders run on the whole batch); the
+    backward launches none."""
+    window, per = ((UNETR_PER_WINDOW, {k: v * 12 // stages for k, v in VIT_BLOCK.items()})
+                   if model["model_name"] == "unetr" else (PER_WINDOW, SWIN_STAGE))
+    body = {k: microbatches * per.get(k, 0) for k in window}
+    tail = {k: window[k] - stages * per.get(k, 0) for k in window}
+    return [body] * (stages - 1) + [{k: body[k] + tail[k] for k in window}]
+
+
+def _digest(tensors: dict) -> str:
+    """A hash of tensors' names, dtypes and bytes (equal digests: bitwise
+    equal tensors)."""
+    h = hashlib.sha256()
+    for n, t in sorted(tensors.items()):
+        h.update(f"{n}:{t.dtype}:{tuple(t.shape)}".encode())
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def pp_rank(dev, leg: str) -> dict:
+    """A rank of `phase_pipeline`'s `leg`: (a) one f32 step of the leg's
+    small model; (b) `MESH_STEPS` bf16 steps of its full-width model,
+    launches counted from 0 before the first and read after the last, then
+    one profiled step (every rank profiles one lead and one step: each step
+    holds collectives).  Rank 0 keeps the whole records, every rank the
+    digests of its masters."""
+    from miseg_tpu_torch import parallel
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.train.engine import Trainer
+
+    _, par, small, big = PP_LEGS[leg]
+    out = {}
+    trainer = Trainer(Config(**small, **par), device=dev)
+    state, loss = trainer.train_step(trainer.init_state(), _mesh_batch(dev, small))
+    out["small"] = _mesh_record(trainer, state, loss)
+    out["small_digest"] = _digest(out["small"]["params"])
+    del trainer, state
+    trainer = Trainer(Config(**big, **par), device=dev)
+    state = trainer.init_state()
+    batch = _mesh_batch(dev, big)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, loss = trainer.train_step(state, batch)
+    rec = _mesh_record(trainer, state, loss)
+    losses, rec["ms"] = _stepped(trainer, state, batch, MESH_STEPS - 1)
+    rec["launch_totals"] = launch_counts()
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    rec["losses"] = [rec["loss"], *losses]
+    rec["digest"] = _digest(rec["params"])
+    rec["final_digest"] = _digest(state.params)
+    events = profiled(lambda: trainer.train_step(state, batch), lambda ev: True, attempts=1,
+                      lead=lambda: trainer.train_step(state, batch))
+    rec["profiled"] = replay_counts(events)
+    rec["busy_ms"] = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    rec["stage"] = trainer.mesh.index("pp")
+    out["big"] = rec
+    if not parallel.is_writer():   # the whole tensors once, from rank 0
+        for r in (out["small"], rec):
+            r["params"] = r["grads"] = None
+    return out
+
+
 def _spawn_ranks(leg: str, world: int, root: Path) -> list[str]:
     """`world` rank processes of `leg` (`python3 chip_smoke.py _ddp_rank
     leg rank world rdzv out`), each held to `DDP_TIMEOUT_S`; any that
@@ -4089,14 +4200,24 @@ def _spawn_ranks(leg: str, world: int, root: Path) -> list[str]:
     under `torchrun --standalone --nproc_per_node=1`, and joins through
     `parallel.init_process_group`.  Each process leads its own session,
     killed whole if it outlives the timeout.  Returns their logs."""
+    return _join_ranks(leg, _start_ranks(leg, world, root))
+
+
+def _start_ranks(leg: str, world: int, root: Path) -> list:
+    """`_spawn_ranks`' processes, started; `_join_ranks` waits for them."""
     rank_cmd = [str(Path(__file__).resolve()), "_ddp_rank", leg]
     launch = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
                f"--nproc_per_node={world}"] if leg == "nccl1" else [sys.executable])
     cmds = ([launch + rank_cmd + ["0", str(world), "-", str(root)]] if leg == "nccl1" else
             [launch + rank_cmd + [str(r), str(world), str(root / f"{leg}.rdzv"), str(root)]
              for r in range(world)])
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True, start_new_session=True) for cmd in cmds]
+    return [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True, start_new_session=True) for cmd in cmds]
+
+
+def _join_ranks(leg: str, procs: list) -> list[str]:
+    """The logs of `_start_ranks`' processes, each held to `DDP_TIMEOUT_S`
+    (killed whole past it); fails the phase unless every one exits 0."""
     logs = []
     try:
         for p in procs:
@@ -4220,8 +4341,8 @@ def ddp_rank(leg: str, rank: int, world: int, rdzv: str, out: str) -> int:
     data-parallel steps from the same start and a profiled one; "gloo2":
     one f32 step of the batch-norm UNetVanilla on this rank's half of the
     batch, the two ranks sharing the card over gloo (`rdzv`, a file);
-    "mesh2": `mesh_rank`, over gloo the same way.  Writes
-    `out/<leg>_rank<rank>.pt`."""
+    "mesh2": `mesh_rank`, over gloo the same way; "pp4", "pp2": `pp_rank`,
+    over gloo the same way.  Writes `out/<leg>_rank<rank>.pt`."""
     import torch.distributed as dist
 
     from miseg_tpu_torch import parallel
@@ -4274,6 +4395,10 @@ def ddp_rank(leg: str, rank: int, world: int, rdzv: str, out: str) -> int:
         dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
                                 world_size=world)
         result = mesh_rank(dev)
+    elif leg in PP_LEGS:
+        dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
+                                world_size=world)
+        result = pp_rank(dev, leg)
     else:
         dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
                                 world_size=world)
@@ -4481,6 +4606,101 @@ def phase_mesh(dev, card: str) -> dict:
     return ranks[0]["flagship"]["launches"]
 
 
+def phase_pipeline(dev, card: str) -> dict:
+    """Pipeline parallelism (`parallel/pipeline.py`, the Trainer's GPipe
+    step), gloo ranks sharing the card (NCCL takes one rank a device), held
+    to `DDP_TIMEOUT_S`, against this process on the global batch of 2: the
+    legs of `PP_LEGS`, each (a) one f32 step of its small model, every rank's
+    loss within 1e-5, every gradient leaf within 5e-5 and their sum within
+    1e-3, the parameters within the W5 bound; (b) `MESH_STEPS` bf16 steps of
+    its full-width model: the losses within 1e-3 relative (the bf16 repeat
+    tolerance), the parameters after the first within the W5 bound, every
+    rank's masters bitwise equal after the first step and the last, each
+    rank's launches its stage's `pp_launches`, counted and by name in a
+    profiled step; each rank's step ms, device busy time and peak memory
+    printed beside this process's.  Both legs' ranks run at once, beside
+    this process's references, so every time here is of a shared card.
+    Returns each leg's launches a step by stage."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.train.engine import Trainer
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    procs = {leg: _start_ranks(leg, leg_cfg[0], root) for leg, leg_cfg in PP_LEGS.items()}
+    # this process's references while the ranks run
+    refs = {}
+    for leg, (_, _, small, big) in PP_LEGS.items():
+        trainer = Trainer(Config(**small), device=dev)
+        state, loss = trainer.train_step(trainer.init_state(), _mesh_batch(dev, small))
+        want = _mesh_record(trainer, state, loss)
+        del trainer, state
+        trainer = Trainer(Config(**big), device=dev)
+        state = trainer.init_state()
+        batch = _mesh_batch(dev, big)
+        torch.cuda.reset_peak_memory_stats()
+        state, loss = trainer.train_step(state, batch)
+        one = _mesh_record(trainer, state, loss)
+        losses, one_ms = _stepped(trainer, state, batch, MESH_STEPS - 1)
+        refs[leg] = (want, one, [one["loss"], *losses], one_ms, torch.cuda.max_memory_allocated())
+        del trainer, state
+    for leg, ps in procs.items():
+        _join_ranks(leg, ps)
+    t_ranks = time.perf_counter() - t0
+    launches = {}
+    for leg, (world, par, small, big) in PP_LEGS.items():
+        ranks = [torch.load(root / f"{leg}_rank{r}.pt", weights_only=False)
+                 for r in range(world)]
+        want, one, one_losses, one_ms, one_peak = refs[leg]
+        name = f"{big['model_name']} {par['mesh_shape']}"
+        lead = ranks[0]
+        gaps = check_ddp_step(lead["small"], want, f"pipeline {name} (a)")
+        check(all(r["small_digest"] == lead["small_digest"]
+                  and r["small"]["loss"] == lead["small"]["loss"] for r in ranks),
+              f"pipeline {name} (a): the ranks' masters or losses differ")
+        print(f"  pipeline (a) {name}, {world} gloo ranks on '{card}', f32 "
+              f"{small['roi_x']}^3, batch 2 in 2 microbatches vs one process: loss |diff| "
+              f"{gaps['loss']:.2e}, gradient gap summed {gaps['summed']:.3e} (worst "
+              f"{gaps['worst']} {gaps['worst_gap']:.2e}), parameters within W5 (excess "
+              f"{gaps['w5_excess']:.2e}); every rank's masters bitwise equal")
+
+        got = lead["big"]
+        gap = max(abs(x - y) / (1 + abs(y)) for x, y in zip(got["losses"], one_losses))
+        check(gap <= 1e-3, f"pipeline {name}: losses {got['losses']} vs {one_losses}")
+        excess = _w5_excess(got["params"], one["params"])
+        check(excess <= 0.0, f"pipeline {name}: parameters exceed W5 by {excess:.3e}")
+        check(all(r["big"]["losses"] == got["losses"] and r["big"]["digest"] == got["digest"]
+                  and r["big"]["final_digest"] == got["final_digest"] for r in ranks),
+              f"pipeline {name}: the ranks' losses or masters differ")
+        want_launches = pp_launches(big, world, par["pp_microbatches"])
+        for r, res in enumerate(ranks):
+            rec, stage = res["big"], res["big"]["stage"]
+            totals = {k: MESH_STEPS * v for k, v in want_launches[stage].items()}
+            check(stage == r and rec["launch_totals"] == totals
+                  and rec["profiled"] == want_launches[stage],
+                  f"pipeline {name} rank {r} (stage {stage}): {MESH_STEPS} steps launched "
+                  f"{rec['launch_totals']}, the profiled step {rec['profiled']}; want "
+                  f"{totals} and {want_launches[stage]}")
+            print(f"  pipeline (b) {name} bf16 {big['roi_x']}^3 rank {r} (stage {stage}) on "
+                  f"'{card}': launches a step {want_launches[stage]} (counted and by name); "
+                  f"step ms by events after the first {[round(v, 2) for v in rec['ms']]}, "
+                  f"device busy {rec['busy_ms']:.2f} ms of the profiled step, peak memory "
+                  f"{gib(rec['peak'])}")
+        print(f"  pipeline (b) {name}: losses {[round(v, 6) for v in got['losses']]} vs one "
+              f"process {[round(v, 6) for v in one_losses]} (max relative gap {gap:.2e}); "
+              f"parameters after the first step within W5 (excess {excess:.2e}); every "
+              f"rank's masters bitwise equal; one process at batch 2 on '{card}' (beside "
+              f"the ranks): step ms {[round(v, 2) for v in one_ms]}, peak memory "
+              f"{gib(one_peak)}")
+        launches[leg] = want_launches
+    tmp.cleanup()
+    print(f"pipeline: the flagship's swin stages on [1, 4] and C-UNETR's ViT on [1, 2] step "
+          f"as one process on the batch, every kernel on its stage (both legs' {sum(
+              w for w, *_ in PP_LEGS.values())} ranks at once beside this process's "
+          f"references, {t_ranks:.1f} s; phase {time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; chip_smoke.py needs a CUDA card",
@@ -4507,6 +4727,7 @@ def main() -> int:
     two_d = phase_two_d(dev, card, mem_bw, bf16_flops)
     ddp = phase_ddp(dev, card)
     mesh = phase_mesh(dev, card)
+    pipeline = phase_pipeline(dev, card)
     meta = {
         "K1": ("fused_norm.channel_scale_shift", "cuda",
                "miseg_tpu_torch/ops/kernels/csrc/fused_norm.cu",
@@ -4572,6 +4793,9 @@ def main() -> int:
               f"{two_d['step'][key]} times; want {'> 0' if on_2d else '0'}")
         check(ddp[key] > 0, f"{key} was never launched in the data-parallel step")
         check(mesh[key] > 0, f"{key} was never launched in the FSDP step")
+        on_pp = {leg: sum(stage[key] for stage in by_stage) for leg, by_stage in pipeline.items()}
+        check(on_pp["pp4"] > 0 and (on_pp["pp2"] > 0) == (UNETR_PER_WINDOW[key] > 0),
+              f"{key}: the pipeline steps' stages launched it {on_pp} times")
         search = {"launches_study": tune["study"][key]}
         if key in tune["rows"]:
             search["search_space_shapes"] = tune["rows"][key]
@@ -4609,7 +4833,11 @@ def main() -> int:
                                   **({"shape_2d_stage4": two_d["rows"]["K5 stage 4"]}
                                      if key == "K5" else {})},
                         "ddp": {"launches_per_wrapped_step": ddp[key]},
-                        "mesh": {"launches_per_fsdp_step": mesh[key]}})
+                        "mesh": {"launches_per_fsdp_step": mesh[key]},
+                        "pipeline": {"swin_1x4_launches_per_step_by_stage":
+                                         [stage[key] for stage in pipeline["pp4"]],
+                                     "unetr_1x2_launches_per_step_by_stage":
+                                         [stage[key] for stage in pipeline["pp2"]]}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -54,7 +54,8 @@ class SwinUNETR(nn.Module):
             raise ValueError("Layer normalization not supported for encoder and "
                              "decoder blocks, please select another normalization.")
         self.normalize, self.use_checkpoint = normalize, use_checkpoint
-        fs = feature_size
+        self.feature_size = fs = feature_size
+        self.drop_rates = (drop_rate, attn_drop_rate, dropout_path_rate)
         dd = dict(device=device, dtype=dtype)
         self.swinViT = SwinTransformer(
             in_channels, fs, (7,) * nd, (2,) * nd, tuple(depths), tuple(num_heads),

@@ -41,7 +41,7 @@ class UNETR(nn.Module):
                  encoder_norm: NormSpec = ("instance", {}), use_checkpoint: bool = False,
                  *, fused_conv: bool = True, device=None, dtype=None):
         super().__init__()
-        self.use_checkpoint = use_checkpoint
+        self.use_checkpoint, self.dropout_rate = use_checkpoint, dropout_rate
         if "layer" in (_kind(decoder_norm), _kind(encoder_norm)):
             raise ValueError("Layer normalization not supported for encoder and "
                              "decoder blocks, please select another normalization.")

@@ -16,8 +16,11 @@ row-major, the order in which JAX reshapes `jax.devices()`, so the ranks
 of one line of the last axis ("model") are adjacent.  Each line along
 each axis is one process group, created with `dist.new_group` in the same
 order on every rank (a line of every rank is the world group).  An axis
-is "data", `cfg.fsdp_axis` or `cfg.tp_axis`; the spatial, pipeline and
-any other axis raise `NotImplementedError` (ROADMAP M11).
+is "data", `cfg.fsdp_axis`, `cfg.tp_axis` or `cfg.pp_axis`; the spatial
+and any other axis raise `NotImplementedError` (ROADMAP M11), and so
+does a pipeline line of more than one rank beside any other axis of more
+than one rank but "data" (pipeline parallelism with FSDP or tensor
+parallelism).
 
   * `cfg.batch_size` is per data coordinate: the train loader is sharded
     by `(data index, data size)` (`host_shard_info`), so the ranks of one
@@ -28,7 +31,10 @@ any other axis raise `NotImplementedError` (ROADMAP M11).
     of its local mean loss, averaged over the "data" line
     (`all_reduce_mean`, in buckets, once a window under gradient
     accumulation); a leaf FSDP shards over "data" is averaged by its
-    gather's reduce-scatter instead (`fsdp.py`).
+    gather's reduce-scatter instead (`fsdp.py`).  Under pipeline
+    parallelism each stage holds its leaves' part of the gradient and
+    zeros for the rest, so one all-reduce over every rank sums the pipeline
+    line and averages "data" (`all_reduce_mean(..., over=data size)`).
   * Batch norm's training statistics cover the global batch
     (`batch_stats`): each data rank's (count, mean, M2) merged by Chan's
     formula over the "data" line (over every rank it would count a shared
@@ -107,6 +113,16 @@ class Mesh:
         """The process group of this rank's line along the axis, or None."""
         return self.groups.get(axis)
 
+    def line(self, axis: str | None) -> tuple[int, ...]:
+        """The global ranks of this rank's line along the axis, in the
+        order of their coordinate on it (this rank alone for an axis the
+        mesh does not have)."""
+        if axis not in self.axes:
+            return (int(np.ravel_multi_index(self.coords, self.shape)),)
+        a = self.axes.index(axis)
+        return tuple(int(np.ravel_multi_index((*self.coords[:a], k, *self.coords[a + 1:]),
+                                              self.shape)) for k in range(self.shape[a]))
+
 
 _meshes: dict = {}
 _active: Mesh | None = None
@@ -163,22 +179,34 @@ def make_mesh(shape: Sequence[int] = (-1,), axes: Sequence[str] = ("data",)) -> 
 
 def mesh_from_config(cfg, entry: str = "Trainer") -> Mesh:
     """`cfg`'s mesh (`mesh_shape`, `mesh_axes`) over the ranks, made the
-    active one.  Each axis must be "data", `cfg.fsdp_axis` or `cfg.tp_axis`:
-    any other (the spatial and pipeline axes among them) raises
-    `NotImplementedError` from `entry` (ROADMAP M11).  Tensor parallelism
-    over "data" raises too: its ranks must hold one batch."""
-    allowed = {"data", cfg.fsdp_axis, cfg.tp_axis}
+    active one.  Each axis must be "data", `cfg.fsdp_axis`, `cfg.tp_axis`
+    or `cfg.pp_axis`: any other (the spatial axis among them) raises
+    `NotImplementedError` from `entry` (ROADMAP M11).  Tensor or pipeline
+    parallelism over "data" raises too: their ranks must hold one batch;
+    and so does pipeline parallelism (a `pp_axis` line of more than one
+    rank) beside another axis of more than one rank but "data"."""
+    allowed = {"data", cfg.fsdp_axis, cfg.tp_axis, cfg.pp_axis}
     bad = [a for a in cfg.mesh_axes if a not in allowed]
     if bad:
         raise NotImplementedError(
             f"{entry}: mesh_axes={list(cfg.mesh_axes)!r}: the port lays out 'data', the FSDP "
-            f"axis {cfg.fsdp_axis!r} and the tensor-parallel axis {cfg.tp_axis!r}; "
-            f"{bad!r} wait for ROADMAP M11")
+            f"axis {cfg.fsdp_axis!r}, the tensor-parallel axis {cfg.tp_axis!r} and the "
+            f"pipeline axis {cfg.pp_axis!r}; {bad!r} wait for ROADMAP M11")
     mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes)
-    if cfg.tensor_parallel and cfg.tp_axis == "data" and mesh.size("data") > 1:
-        raise NotImplementedError(
-            f"{entry}: tp_axis='data': the port's tensor parallelism runs over an axis whose "
-            "ranks share a batch (ROADMAP M11)")
+    for on, field, what in ((cfg.tensor_parallel, "tp_axis", "tensor"),
+                            (cfg.pipeline_parallel, "pp_axis", "pipeline")):
+        if on and getattr(cfg, field) == "data" and mesh.size("data") > 1:
+            raise NotImplementedError(
+                f"{entry}: {field}='data': the port's {what} parallelism runs over an axis "
+                "whose ranks share a batch (ROADMAP M11)")
+    if cfg.pipeline_parallel and mesh.size(cfg.pp_axis) > 1:
+        others = [a for a, n in zip(mesh.axes, mesh.shape)
+                  if a not in ("data", cfg.pp_axis) and n > 1]
+        if others or (cfg.fsdp and mesh.size(cfg.fsdp_axis) > 1):
+            raise NotImplementedError(
+                f"{entry}: pipeline_parallel over {cfg.pp_axis!r} with FSDP or tensor "
+                f"parallelism (axes {others or [cfg.fsdp_axis]!r} of more than one rank) is "
+                "not ported (ROADMAP M11)")
     global _active
     _active = mesh
     return mesh
@@ -269,19 +297,21 @@ def broadcast_object(obj):
     return box[0]
 
 
-def all_reduce_mean(tensors: Sequence[torch.Tensor], pg="data") -> None:
+def all_reduce_mean(tensors: Sequence[torch.Tensor], pg="data", *,
+                    over: int | None = None) -> None:
     """Replace each tensor by its mean over the ranks of `pg` (a process
     group, or the name of an axis of the active mesh: by default this
-    rank's "data" line; None: nothing to do), in place.  Tensors are
-    flattened into buckets of up to `BUCKET_BYTES` by dtype, one
-    collective a bucket: NCCL's AVG where the backend offers it, else a
-    SUM divided by the group's size (gloo)."""
+    rank's "data" line; None: nothing to do), in place; with `over`, by
+    the sum over the ranks divided by `over`.  Tensors are flattened into
+    buckets of up to `BUCKET_BYTES` by dtype, one collective a bucket:
+    NCCL's AVG where the backend offers it and `over` is not given, else a
+    SUM divided by the group's size or `over`."""
     if isinstance(pg, str):
         pg = active().group(pg) if group() is not None else None
     if pg is None or not tensors:
         return
-    world = dist.get_world_size(pg)
-    avg = dist.get_backend(pg) == dist.Backend.NCCL
+    world = dist.get_world_size(pg) if over is None else over
+    avg = over is None and dist.get_backend(pg) == dist.Backend.NCCL
     op = dist.ReduceOp.AVG if avg else dist.ReduceOp.SUM
     with torch.no_grad():
         for bucket in _buckets(tensors, BUCKET_BYTES):

@@ -47,6 +47,19 @@ on "data" by their gather's reduce-scatter.  `state_dict`, `opt_state`
 and `eval_weights` gather whole tensors (a collective: every rank calls
 them) and `restore` keeps the rank's slices, so checkpoints are one
 process's whatever the mesh.
+
+Under pipeline parallelism (`cfg.pipeline_parallel` on a mesh whose
+`cfg.pp_axis` line has S > 1 ranks; JAX's :131-167) the step runs
+C-UNETR's ViT blocks (`models/unetr_pp.py`) or C-Swin-UNETR's four swin
+stages (`models/swin_unetr_pp.py`) as a GPipe over the line
+(`parallel/pipeline.py`), one stage a rank, on the replicated masters.
+Every term of the loss runs on one rank: stage 0 the patch embedding,
+the last stage the decoder and the loss on the whole batch.  So each
+rank's gradient is its stage's part, zeros elsewhere, and one all-reduce
+over every rank sums the lines and averages "data"; the loss comes back
+from the last stage the same way, and every rank ends each step on the
+same masters.  Evaluation, state dicts and checkpoints run the serial
+model on those masters, as JAX's do.
 """
 
 from __future__ import annotations
@@ -69,7 +82,9 @@ from ..inferers import SlidingWindowInferer, window_starts
 from ..losses import loss_from_config
 from ..metrics import (dice_score_labels, metric_by_modality, nanmean_valid,
                        reduce_mean_batch, surface_distance)
-from ..models import buffer_names, model_from_config
+from ..models import UNETR, SwinUNETR, buffer_names, model_from_config
+from ..models.swin_unetr_pp import swin_unetr_pipeline_forward
+from ..models.unetr_pp import unetr_pipeline_forward
 from ..nn import dropout
 from ..utils.logging import MetricLogger
 from ..utils.platform import resolve_device
@@ -139,6 +154,18 @@ class _EvalInferer(SlidingWindowInferer):
             return super().__call__(inputs, modalities)
 
 
+class _Pipelined(nn.Module):
+    """A pipeline forward (`models/*_pp.py`) over `model` as a module, so
+    that `torch.func.functional_call` runs it on substituted parameters."""
+
+    def __init__(self, model: nn.Module, forward: Callable, **kwargs):
+        super().__init__()
+        self.model, self._forward, self._kwargs = model, forward, kwargs
+
+    def forward(self, image, modalities):
+        return self._forward(self.model, image, modalities, **self._kwargs)
+
+
 class Trainer:
     def __init__(self, cfg: Config, model: nn.Module | None = None, *, device=None,
                  fused_conv: bool = True, workdir: str | None = None,
@@ -148,11 +175,11 @@ class Trainer:
         conv blocks' path of a model built here.  Metrics go to `logger`,
         by default a `MetricLogger` over `workdir` (default
         `cfg.default_root_dir`) opened at the first record (on rank 0;
-        the other ranks log nothing).  The spatial and pipeline fields must
-        hold JAX's defaults (ROADMAP M11); the mesh is `cfg`'s over the
-        ranks (`parallel.mesh_from_config`), from now on the process's
-        active one (that its dropout masks and batch statistics follow:
-        run the steps of the Trainer built last)."""
+        the other ranks log nothing).  The spatial fields must hold JAX's
+        defaults (ROADMAP M11); the mesh is `cfg`'s over the ranks
+        (`parallel.mesh_from_config`), from now on the process's active one
+        (that its dropout masks and batch statistics follow: run the steps
+        of the Trainer built last)."""
         require_ported(cfg, "M11", "Trainer")
         self.mesh = parallel.mesh_from_config(cfg, "Trainer")
         self.cfg = cfg
@@ -252,7 +279,15 @@ class Trainer:
                       extra: list[torch.Tensor] = ()) -> None:
         """Average over the "data" line, in place, `extra` and the gradients
         (aligned with the optimizer's `params`) of all but FSDP's leaves on
-        "data", whose gather's reduce-scatter took the mean."""
+        "data", whose gather's reduce-scatter took the mean.  Under pipeline
+        parallelism each is one stage's on every pipeline line and zeros on
+        the line's other ranks: summed over the line and averaged over
+        "data", in one all-reduce over every rank (so every rank gets the
+        same bits)."""
+        if self._pp_active():
+            parallel.all_reduce_mean([*extra, *(g for g in grads if g is not None)],
+                                     parallel.group(), over=self.mesh.size("data"))
+            return
         parallel.all_reduce_mean([*extra, *(g for g, p in zip(grads, params) if g is not None
                                             and id(p) not in self._averaged_by_gather)],
                                  self.mesh.group("data"))
@@ -356,6 +391,35 @@ class Trainer:
             self.model, cast, (image.to(self.compute_dtype), modalities))
         return logits.float()
 
+    def _pp_active(self) -> bool:
+        """Pipeline parallelism runs when `cfg.pipeline_parallel` is set and
+        the mesh's pipeline line has more than one rank; otherwise the step
+        is the data-parallel one (JAX's :131-133)."""
+        return self.cfg.pipeline_parallel and self.mesh.size(self.cfg.pp_axis) > 1
+
+    def _pp_apply(self, params: Mapping[str, torch.Tensor], image, modalities):
+        """The pipeline-parallel training forward (JAX's :135-167) on the
+        parameters cast to the compute dtype: `(f32 logits on the last
+        stage, None on the others; the schedule)`.  The UNETR and
+        SwinUNETR families only, and no batch norm, else `ValueError`."""
+        if isinstance(self.model, UNETR):
+            forward = unetr_pipeline_forward
+        elif isinstance(self.model, SwinUNETR):
+            forward = swin_unetr_pipeline_forward
+        else:
+            raise ValueError("pipeline_parallel supports the UNETR and SwinUNETR transformer "
+                             f"families; got {type(self.model).__name__}")
+        if buffer_names(self.model):
+            raise ValueError("pipeline_parallel does not support mutable collections "
+                             "(batch-stats norms)")
+        cast = fsdp.full_weights(params, self.placements, self.compute_dtype, tp_sharded=True)
+        staged = _Pipelined(self.model, forward, mesh=self.mesh, axis=self.cfg.pp_axis,
+                            microbatches=self.cfg.pp_microbatches, train=True)
+        logits, schedule = torch.func.functional_call(
+            staged, {f"model.{n}": t for n, t in cast.items()},
+            (image.to(self.compute_dtype), modalities))
+        return (None if logits is None else logits.float()), schedule
+
     @contextlib.contextmanager
     def eval_weights(self):
         """The model in eval mode, with the masters cast to the compute
@@ -428,20 +492,36 @@ class Trainer:
     def value_and_grad(self, state: TrainState, batch: Mapping):
         """The loss of `batch` (image `[B, *S, Cin]`, integer label
         `[B, *S]` or `[B, *S, 1]`, modality `int[B]`) and the gradients of
-        the masters by name, left in their `.grad`; nothing is updated."""
+        the masters by name, left in their `.grad`; nothing is updated.
+        Under pipeline parallelism, this rank's part of both: the loss on
+        the last stage (0 on the others), the gradient of what its stage
+        ran (zeros for the rest); `train_step` sums them over the line."""
         image, label, mods = self._batch(batch)
         for p in state.params.values():
             p.grad = None
-        with dropout.rng(self._dropout_generator(state.step)):
-            loss = self.loss_fn(self.apply_fn(state.params, image, mods), label)
-        loss.backward()
+        if self._pp_active():
+            logits, schedule = self._pp_apply(state.params, image, mods)
+            if logits is None:
+                loss = torch.zeros((), device=self.device)
+            else:
+                loss = self.loss_fn(logits, label)
+                loss.backward()
+            schedule.backward()
+            for p in state.params.values():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        else:
+            with dropout.rng(self._dropout_generator(state.step)):
+                loss = self.loss_fn(self.apply_fn(state.params, image, mods), label)
+            loss.backward()
         return loss.detach(), {n: p.grad for n, p in state.params.items()}
 
     def train_step(self, state: TrainState, batch: Mapping):
         """One micro-step: loss, backward into the f32 masters, and one
         optimizer update (with accumulation, the update of a full window).
         Under data parallelism the gradients (or the window's mean) and the
-        loss are averaged over the "data" line first.  Returns (the same state,
+        loss are averaged over the "data" line first; under pipeline
+        parallelism summed over the pipeline line too.  Returns (the same state,
         advanced, and the loss as a 0-d tensor on the device)."""
         loss, _ = self.value_and_grad(state, batch)
         params = [] if state.accumulation is not None else [

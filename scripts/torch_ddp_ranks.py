@@ -21,23 +21,30 @@ slice of a seeded global batch of N volumes (`--size`^3, one a rank):
     warm-up step) beside one process's at batch 1 (rank 0, after the
     group), so the difference is what the gradient all-reduce over the
     ranks costs;
-  * FSDP and tensor parallelism (`MESH_LEGS`, at 4 ranks: FSDP `[4]`, TP
-    `[2, 2]` and TP + FSDP `[2, 2]` over ("data", "model")): one f32 step
-    of `chip_smoke.MESH_SMALL` (the flagship's model at fs 24, 64^3) on a
-    global batch of one volume a "data" coordinate, held after the group
-    to rank 0's one process on that batch by `chip_smoke.check_ddp_step`
-    (loss, gathered gradients leaf by leaf, W5); and on the card three
-    bf16 flagship steps under the leg, each rank's step ms (median after
-    a warm-up step) and bytes of f32 masters plus AdamW moments, beside
-    one process's.
+  * FSDP, tensor and pipeline parallelism (`MESH_LEGS`, at 4 ranks: FSDP
+    `[4]`, TP `[2, 2]` and TP + FSDP `[2, 2]` over ("data", "model"); GPipe
+    over ("data", "pp"), the flagship's swin stages on `[1, 4]` and
+    C-UNETR's ViT on `[2, 2]`, two microbatches): one f32 step of the leg's
+    small model (`chip_smoke.MESH_SMALL`, the flagship's model at fs 24,
+    64^3, or C-UNETR at 64^3) on a global batch of one volume a "data"
+    coordinate (two under GPipe), held after the group to rank 0's one
+    process on that batch by `chip_smoke.check_ddp_step` (loss, gathered
+    gradients leaf by leaf, W5); and on the card three bf16 steps of the
+    leg's full-width model (the flagship, or C-UNETR), each rank's step
+    ms (median after a warm-up step) and bytes of f32 masters plus AdamW
+    moments, and under GPipe each rank's device busy ms in one profiled
+    step, beside one process's step at the same batch and GPipe's bubble,
+    (S - 1) / (M + S - 1).
 Rank 0 prints one line each and `ok`; any failed check raises.
 
 `--launch N` (not under torchrun) runs, each under `torchrun --standalone
 --nproc_per_node=N` with its own time limit: this script; `cli.train`
 on the flagship for 2 epochs over a synthetic dataset (4 train volumes of
-128x128x112 a modality); `cli.train --fsdp` for 1 epoch, whose
-`last.ckpt` must hold the data-parallel run's names and whole shapes;
-`cli.tune` for 2 one-epoch trials over the same data.  Each must exit 0,
+128x128x112 a modality); `cli.train --fsdp` for 1 epoch, and with N = 4
+`cli.train --pipeline_parallel --mesh_shape 1 4 --mesh_axes data pp`
+(batch 2, two microbatches) for 1 epoch, whose `last.ckpt`s must hold the
+data-parallel run's names and whole shapes; `cli.tune` for 2 one-epoch
+trials over the same data.  Each must exit 0,
 `cli.train` leave `best.ckpt`, `last.ckpt` and its metrics, and
 `cli.tune` its journal; the outputs go to
 `chiprun_out/ddp<N>_*.txt`, and each step's seconds are printed with the
@@ -45,6 +52,7 @@ card's name and power limit.
 """
 
 import argparse
+import math
 import os
 import statistics
 import subprocess
@@ -101,33 +109,39 @@ def snapshot(state, loss: float) -> dict:
 
 
 MESH_2X2 = dict(mesh_shape=[2, 2], mesh_axes=["data", "model"])
-MESH_LEGS = {"fsdp [N]": dict(fsdp=True),
-             "tp [2, 2]": dict(MESH_2X2, tensor_parallel=True),
-             "tp + fsdp [2, 2]": dict(MESH_2X2, tensor_parallel=True, fsdp=True,
-                                      fsdp_axis="model")}
+# name -> (the parallelism fields, the f32 model, the full-width bf16 model,
+# volumes a "data" coordinate)
+MESH_LEGS = {"fsdp [N]": (dict(fsdp=True), cs.MESH_SMALL, cs.FLAGSHIP, 1),
+             "tp [2, 2]": (dict(MESH_2X2, tensor_parallel=True), cs.MESH_SMALL, cs.FLAGSHIP, 1),
+             "tp + fsdp [2, 2]": (dict(MESH_2X2, tensor_parallel=True, fsdp=True,
+                                       fsdp_axis="model"), cs.MESH_SMALL, cs.FLAGSHIP, 1),
+             "pp [1, 4]": (cs.PP_SWIN, cs.MESH_SMALL, cs.FLAGSHIP, 2),
+             "pp [2, 2]": ({**cs.PP_UNETR, "mesh_shape": [2, 2]}, cs.PP_UNETR_SMALL, cs.UNETR,
+                           2)}
 
 
 def mesh_legs(device, world: int, size: int) -> dict:
-    """Each of `MESH_LEGS` this rank takes part in (the 2 x 2 legs need 4
-    ranks): the f32 step of `MESH_SMALL` (a `chip_smoke._mesh_record`, on
-    rank 0) and, on the card, the flagship's bf16 step ms and state bytes
-    of every rank."""
+    """Each of `MESH_LEGS` this rank takes part in (those with a mesh shape
+    need as many ranks): the f32 step of its small model (a
+    `chip_smoke._mesh_record`, on rank 0) and, on the card, its full-width
+    model's bf16 step ms and state bytes of every rank (under GPipe also
+    its device busy ms in one profiled step)."""
     out = {}
     roi = dict(roi_x=size, roi_y=size, roi_z=size)
-    for name, par in MESH_LEGS.items():
-        if par.get("mesh_shape") and world != 4:
+    for name, (par, small, big, per) in MESH_LEGS.items():
+        if par.get("mesh_shape") and math.prod(par["mesh_shape"]) != world:
             continue
-        trainer = Trainer(Config(**cs.MESH_SMALL, **par), device=device)
+        trainer = Trainer(Config(**small, **par), device=device)
         data = trainer.mesh.size("data")
         state = trainer.init_state()
-        state, loss = trainer.train_step(state, cs._share(cs._mesh_batch(device, cs.MESH_SMALL,
-                                                                          data)))
+        state, loss = trainer.train_step(state, cs._share(cs._mesh_batch(device, small,
+                                                                          data * per)))
         rec = {"small": cs._mesh_record(trainer, state, loss), "data": data}
         del trainer, state
         if device.type == "cuda":
-            flagship = {**cs.FLAGSHIP, **roi}
-            fdata = [cs._share(b) for b in batches(Config(**flagship), data, size, 3, device)]
-            trainer = Trainer(Config(**flagship, **par), device=device)
+            big = {**big, **roi}
+            fdata = [cs._share(b) for b in batches(Config(**big), data * per, size, 3, device)]
+            trainer = Trainer(Config(**big, **par), device=device)
             state = trainer.init_state()
             ms = []
             for batch in fdata:
@@ -138,10 +152,16 @@ def mesh_legs(device, world: int, size: int) -> dict:
                 end.record()
                 end.synchronize()
                 ms.append(start.elapsed_time(end))
+            busy = None
+            if trainer._pp_active():
+                events = cs.profiled(lambda: trainer.train_step(state, fdata[-1]),
+                                     lambda ev: True, attempts=1,
+                                     lead=lambda: trainer.train_step(state, fdata[-1]))
+                busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
             per_rank = [None] * world
-            dist.all_gather_object(per_rank, (ms, trainer.state_bytes(state)))
-            rec["flagship"] = per_rank
-            rec["flagship_placed"] = cs._mesh_record(trainer, state, 0.0)["placed_elements"]
+            dist.all_gather_object(per_rank, (ms, trainer.state_bytes(state), busy))
+            rec["big"] = per_rank
+            rec["big_placed"] = cs._mesh_record(trainer, state, 0.0)["placed_elements"]
             del trainer, state
         out[name] = rec
     return out
@@ -200,37 +220,56 @@ def ranks_main(args) -> None:
         print(f"flagship {size}^3 bf16 step by CUDA events (median of 2 after a warm-up): "
               f"{world} ranks at batch 1 each (global {world}) {r:.2f} ms {ranks_ms}; one "
               f"process at batch 1 {o:.2f} ms {one_ms}; difference {r - o:+.2f} ms")
-    held_legs(legs, device, size, card, one_ms if device.type == "cuda" else None)
+    held_legs(legs, device, size, card, one_ms if device.type == "cuda" else None,
+              ranks_ms if device.type == "cuda" else None)
     print("ok")
 
 
-def held_legs(legs: dict, device, size: int, card: str, one_ms) -> None:
-    """Rank 0's one process against each of `mesh_legs`' results."""
+def held_legs(legs: dict, device, size: int, card: str, one_ms, dp_ms) -> None:
+    """Rank 0's one process against each of `mesh_legs`' results; the
+    full-width step a rank beside data parallelism's (`dp_ms`, batch 1 a
+    rank) and one process's at a data coordinate's batch (`one_ms` at
+    batch 1; measured here at 2 for GPipe)."""
     for name, rec in legs.items():
-        trainer = Trainer(Config(**cs.MESH_SMALL), device=device)
+        par, small, big, per = MESH_LEGS[name]
+        trainer = Trainer(Config(**small), device=device)
         state = trainer.init_state()
-        state, loss = trainer.train_step(state, cs._mesh_batch(device, cs.MESH_SMALL,
-                                                              rec["data"]))
+        state, loss = trainer.train_step(state, cs._mesh_batch(device, small,
+                                                              rec["data"] * per))
         want = cs._mesh_record(trainer, state, loss)
         del trainer, state
         gaps = cs.check_ddp_step(rec["small"], want, name)
-        line = (f"{name} ({card}), fs 24 64^3 f32, global batch {rec['data']}, placed "
+        line = (f"{name} ({card}), {small['model_name']} fs {small['feature_size'][0]} "
+                f"{small['roi_x']}^3 f32, global batch {rec['data'] * per}, placed "
                 f"{rec['small']['placed']}: loss |diff| {gaps['loss']:.2e}, gradient gap "
                 f"summed {gaps['summed']:.3e} (worst {gaps['worst']} {gaps['worst_gap']:.2e}), "
                 f"parameters within W5 (excess {gaps['w5_excess']:.2e})")
-        if "flagship" in rec:
-            one = Trainer(Config(**{**cs.FLAGSHIP, "roi_x": size, "roi_y": size,
-                                     "roi_z": size}), device=device)
+        if "big" in rec:
+            big = {**big, "roi_x": size, "roi_y": size, "roi_z": size}
+            one = Trainer(Config(**big), device=device)
             one_state = one.init_state()
             one_bytes = one.state_bytes(one_state) * 3     # + AdamW's two moments
+            base = statistics.median(one_ms[1:])
+            if per > 1:
+                _, _, base_ms = run(Config(**big), device, batches(Config(**big), per, size, 3,
+                                                                    device), None)
+                base = statistics.median(base_ms[1:])
             del one, one_state
-            ms = [statistics.median(m[1:]) for m, _ in rec["flagship"]]
-            line += (f"; flagship {size}^3 bf16 at batch 1 a data coordinate, step ms a rank "
-                     f"(median of 2 after a warm-up) {[round(v, 2) for v in ms]} vs one "
-                     f"process at batch 1 {statistics.median(one_ms[1:]):.2f}; masters + AdamW "
-                     f"moments a rank {[b for _, b in rec['flagship']]} bytes vs one process "
-                     f"{one_bytes}; {rec['flagship_placed']} of {one_bytes // 12} parameters "
-                     f"placed")
+            ms = [statistics.median(m[1:]) for m, _, _ in rec["big"]]
+            line += (f"; {big['model_name']} {size}^3 bf16 at batch {per} a data coordinate, "
+                     f"step ms a rank (median of 2 after a warm-up) {[round(v, 2) for v in ms]} "
+                     f"vs one process at batch {per} {base:.2f}")
+            if per == 1:
+                line += f", data parallelism at batch 1 a rank {statistics.median(dp_ms[1:]):.2f}"
+            if rec["big"][0][2] is not None:
+                stages, m = par["mesh_shape"][1], par["pp_microbatches"]
+                busy = [b for _, _, b in rec["big"]]
+                line += (f"; device busy a rank in a profiled step {[round(b, 2) for b in busy]}"
+                         f" ms (idle {[f'{1 - b / t:.1%}' for b, t in zip(busy, ms)]}); "
+                         f"GPipe's bubble (S - 1) / (M + S - 1) = {(stages - 1) / (m + stages - 1):.1%}")
+            line += (f"; masters + AdamW moments a rank {[b for _, b, _ in rec['big']]} bytes vs "
+                     f"one process {one_bytes}; {rec['big_placed']} of {one_bytes // 12} "
+                     f"parameters placed")
         print(line)
 
 
@@ -250,10 +289,10 @@ def _torchrun(n: int, args: list[str], log: Path, timeout: int) -> float:
     return seconds
 
 
-def held_fsdp_checkpoint(whole: Path, sharded: Path) -> None:
-    """The checkpoint `cli.train --fsdp` wrote (its parameters and AdamW
-    moments gathered to rank 0) holds every tensor of the data-parallel
-    run's, under the same name and whole shape."""
+def held_checkpoint(whole: Path, other: Path, what: str) -> None:
+    """The checkpoint `cli.train <what>` wrote (its parameters and AdamW
+    moments gathered to rank 0 under FSDP) holds every tensor of the
+    data-parallel run's, under the same name and whole shape."""
     from miseg_tpu_torch.train.checkpoint import load_checkpoint
 
     def shapes(ck):
@@ -261,10 +300,10 @@ def held_fsdp_checkpoint(whole: Path, sharded: Path) -> None:
                    .items() for k, v in st.items() if isinstance(v, torch.Tensor)}
         return {n: tuple(t.shape) for n, t in ck["params"].items()}, moments
 
-    want, got = shapes(load_checkpoint(whole)), shapes(load_checkpoint(sharded))
-    cs.check(got == want, f"cli.train --fsdp: {sharded} differs from {whole} in its names "
+    want, got = shapes(load_checkpoint(whole)), shapes(load_checkpoint(other))
+    cs.check(got == want, f"cli.train {what}: {other} differs from {whole} in its names "
              "or shapes")
-    print(f"cli.train --fsdp wrote {len(got[0])} parameters and {len(got[1])} moment tensors, "
+    print(f"cli.train {what} wrote {len(got[0])} parameters and {len(got[1])} moment tensors, "
           "whole, under the data-parallel checkpoint's names and shapes")
 
 
@@ -283,7 +322,7 @@ def launch_main(n: int, size: int) -> None:
     build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
     _torchrun(n, [str(Path(__file__).resolve()), "--size", str(size)],
-              out / f"ddp{n}_ranks.txt", 600)
+              out / f"ddp{n}_ranks.txt", 420)
     with tempfile.TemporaryDirectory() as tmp:
         data = Path(tmp) / "syn"
         make_synthetic_dataset(data, shape=(128, 128, 112), num_classes=6, n_train=4,
@@ -304,7 +343,15 @@ def launch_main(n: int, size: int) -> None:
         _torchrun(n, ["-m", "miseg_tpu_torch.cli.train", *common, "--max_epochs", "1",
                       "--fsdp", "--experiment_name", "fsdp"], out / f"ddp{n}_train_fsdp.txt",
                   900)
-        held_fsdp_checkpoint(run_dir / "last.ckpt", Path(tmp) / "runs" / "fsdp" / "last.ckpt")
+        held_checkpoint(run_dir / "last.ckpt", Path(tmp) / "runs" / "fsdp" / "last.ckpt",
+                        "--fsdp")
+        if n == 4:
+            _torchrun(n, ["-m", "miseg_tpu_torch.cli.train", *common, "--max_epochs", "1",
+                          "--pipeline_parallel", "--mesh_shape", "1", "4", "--mesh_axes", "data",
+                          "pp", "--batch_size", "2", "--experiment_name", "pp"],
+                      out / f"ddp{n}_train_pp.txt", 900)
+            held_checkpoint(run_dir / "last.ckpt", Path(tmp) / "runs" / "pp" / "last.ckpt",
+                            "--pipeline_parallel")
         _torchrun(n, ["-m", "miseg_tpu_torch.cli.tune", *common, "--max_epochs", "1",
                       "--scheduler", "warmup_cosine", "--n_trials", "2",
                       "--study_name", "ddp", "--storage_name", "ddp"],

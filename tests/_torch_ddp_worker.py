@@ -11,7 +11,7 @@ global batch (`batch_for_rank`):
     of its case in the file `STARTS` (`torch.save`d `{case: state dict}`;
     a case it lacks starts from the port's seeded initialisation);
   * the Trainer's mesh (`parallel.mesh_from_config`) and `require_ported`
-    at world 2;
+    at world 2, and a step of the pipeline mode without a pipeline line;
   * `cli.tune.main` of 3 trials with the training stubbed out (rank 0
     holds the study; every rank records what each trial received);
   * one epoch of `cli.train.main` on `DATA_DIR`, counting each rank's
@@ -97,8 +97,18 @@ def optimizer_steps(state) -> int:
 
 def mesh_checks() -> dict:
     """What the Trainer says of each mesh and mode at world 2: None when it
-    builds, else the error's type and message."""
-    out = {}
+    builds, else the error's type and message; and the losses of one step
+    of the pipeline mode on the 1-D "data" mesh (no pipeline line of more
+    than one rank: the data-parallel step) and of data parallelism, on
+    this rank's shard of one batch."""
+    cfg = STEP_CASES["unet_vanilla_batch"]
+    rank, world = dist.get_rank(), dist.get_world_size()
+    batch = batch_for_rank(global_batches(cfg, 1)[0], rank, world)
+    steps = {}
+    for name, kw in (("pipeline_parallel", {"pipeline_parallel": True}), ("data", {})):
+        trainer = engine.Trainer(Config(**dict(cfg, **kw)), device="cpu")
+        steps[name] = float(trainer.train_step(trainer.init_state(), batch)[1])
+    out = {"pp_off_step": steps}
     for name, kw in {"mesh_-1": {"mesh_shape": [-1]}, "mesh_2": {"mesh_shape": [2]},
                      "mesh_4": {"mesh_shape": [4]}, "mesh_1": {"mesh_shape": [1]},
                      "axes_model": {"mesh_axes": ["data", "model"]},

@@ -1,5 +1,6 @@
-"""One rank of the FSDP and tensor-parallel CPU tests
-(`tests/test_torch_fsdp.py`, `tests/test_torch_tp.py`).
+"""One rank of the FSDP, tensor-parallel and pipeline-parallel CPU tests
+(`tests/test_torch_fsdp.py`, `tests/test_torch_tp.py`,
+`tests/test_torch_pipeline.py`).
 
     python tests/_torch_mesh_worker.py SUITE RANK WORLD RDZV_FILE OUT_DIR STARTS
 
@@ -19,6 +20,13 @@ checkpoint of its FSDP state (rank 0, its tensors gathered to rank 0
 alone), and resumes the one-process checkpoint `OUT_DIR/one.ckpt` under
 FSDP and takes one more step.  Saves what it saw to
 `OUT_DIR/<SUITE>_rank<RANK>.pt`.
+
+The pipeline suites ("pp2", "pp4") add `pp_extras`: the GPipe schedule
+on an affine stack against the serial stack (outputs and gradients, at
+1, 2 and 4 microbatches, shape-changing stages, and a `[2, 2]` ("data",
+"pp") mesh), JAX's tiny UNETR and swin (`TINY`, from the state dicts in
+`STARTS`) through the pipeline forwards, the refusals, and ("pp2") the
+checkpoints of `checkpoints` for a pipeline case.
 """
 
 from __future__ import annotations
@@ -34,7 +42,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from miseg_tpu_torch import parallel  # noqa: E402
 from miseg_tpu_torch.config import Config  # noqa: E402
+from miseg_tpu_torch.models import UNETR, SwinUNETR  # noqa: E402
+from miseg_tpu_torch.models.swin_unetr_pp import swin_unetr_pipeline_forward  # noqa: E402
+from miseg_tpu_torch.models.unetr_pp import unetr_pipeline_forward  # noqa: E402
 from miseg_tpu_torch.parallel import fsdp  # noqa: E402
+from miseg_tpu_torch.parallel.pipeline import pipeline_apply, pipeline_apply_hetero  # noqa: E402
 from miseg_tpu_torch.train import engine  # noqa: E402
 from miseg_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 
@@ -57,6 +69,13 @@ MODELS = {
                  decoder_norm_name="instance"),
 }
 MESH_2X2 = dict(mesh_shape=[2, 2], mesh_axes=["data", "model"])
+
+
+def pp(*shape: int, **kw) -> dict:
+    """Pipeline parallelism on a ("data", "pp") mesh of `shape`."""
+    return dict(mesh_shape=list(shape), mesh_axes=["data", "pp"], pipeline_parallel=True, **kw)
+
+
 # case -> (model, the parallelism fields)
 CASES = {
     "fsdp": ("unet", dict(fsdp=True, fsdp_min_size=128)),
@@ -71,9 +90,19 @@ CASES = {
     "tp_fsdp_recompute": ("swin", dict(MESH_2X2, tensor_parallel=True, fsdp=True,
                                        fsdp_axis="model", fsdp_min_size=128,
                                        use_checkpoint=True, dropout_path_rate=0.1)),
+    # GPipe: 2 microbatches of the batch of 2 unless said; the [2, 2] mesh
+    # has one sample a data coordinate
+    "pp_unetr": ("unetr", pp(1, 2)),
+    "pp_accumulate": ("unetr", pp(1, 2, iters_to_accumulate=2)),
+    "pp_unetr4": ("unetr", pp(1, 4)),
+    "pp_unetr_dp": ("unetr", pp(2, 2, pp_microbatches=1)),
+    "pp_swin": ("swin", pp(1, 4)),
+    "pp_swin_recompute": ("swin", pp(1, 4, use_checkpoint=True)),
 }
 SUITES = {"fsdp2": ["fsdp", "fsdp_accumulate"], "fsdp4": ["hybrid"],
-          "tp4": ["tp_unetr", "tp_swin", "tp_fsdp", "tp_dropout", "tp_fsdp_recompute"]}
+          "tp4": ["tp_unetr", "tp_swin", "tp_fsdp", "tp_dropout", "tp_fsdp_recompute"],
+          "pp2": ["pp_unetr", "pp_accumulate"],
+          "pp4": ["pp_unetr4", "pp_unetr_dp", "pp_swin", "pp_swin_recompute"]}
 # the case of each suite whose Trainer calls `init_state` again
 REPEAT_INIT = {"fsdp2": "fsdp", "fsdp4": "hybrid", "tp4": "tp_fsdp"}
 GLOBAL_BATCH = 2
@@ -201,11 +230,12 @@ def repeat_init(name: str, start: dict) -> dict:
                 names[int(i)]: st for i, st in opt_to_writer["optimizer"]["state"].items()}}
 
 
-def checkpoints(start: dict, out_dir: Path) -> dict:
-    """The FSDP state after `STEPS` steps written as a checkpoint by rank 0
-    (`fsdp.ckpt`); and the one-process checkpoint `one.ckpt` resumed under
-    FSDP: its parameters, moments and step as restored, and one more step."""
-    cfg = case_config("fsdp")
+def checkpoints(start: dict, out_dir: Path, case: str = "fsdp", one: str = "one.ckpt") -> dict:
+    """The state of `case` after `STEPS` steps written as a checkpoint by
+    rank 0 (`<case>.ckpt`); and the one-process checkpoint `one` resumed
+    under the case: its parameters, moments and step as restored, and one
+    more step."""
+    cfg = case_config(case)
     trainer = engine.Trainer(Config(**cfg), device="cpu")
     state = trainer.init_state(start)
     for batch in global_batches(cfg):
@@ -213,18 +243,178 @@ def checkpoints(start: dict, out_dir: Path) -> dict:
     # gathered to rank 0 alone, as `Trainer.fit` does; None elsewhere
     weights, opt_state = trainer.state_dict(state, dst=0), trainer.opt_state(state, dst=0)
     if parallel.is_writer():
-        save_checkpoint(out_dir / "fsdp.ckpt", params=weights, opt_state=opt_state, epoch=0)
+        save_checkpoint(out_dir / f"{case}.ckpt", params=weights, opt_state=opt_state, epoch=0)
     parallel.barrier()
     written = {"params": None if weights is None else {n: t.clone() for n, t in weights.items()},
                "opt_state": opt_state is not None,
                "moments": moments(trainer, state), "step": state.step}
 
     trainer = engine.Trainer(Config(**cfg), device="cpu")
-    state = trainer.restore(trainer.init_state(start), load_checkpoint(out_dir / "one.ckpt"))
+    state = trainer.restore(trainer.init_state(start), load_checkpoint(out_dir / one))
     resumed = {"params": {n: t.clone() for n, t in trainer.state_dict(state).items()},
                "moments": moments(trainer, state), "step": state.step}
     nxt = run_steps(cfg, start, global_batches(cfg, 1, seed=7), trainer, state)
     return {"written": written, "resumed": resumed, "next": nxt}
+
+
+# JAX's tiny UNETR (tests/test_pipeline.py:179-190, 4 layers) and swin
+# (:283-290), built as the port's modules
+_COND = ("instance_cond", {"num_styles": 2, "affine": True})
+_NORMS = dict(vit_norm=_COND, encoder_norm=_COND, decoder_norm=("instance", {"affine": True}),
+              device="cpu")
+TINY = {
+    "tiny_unetr": lambda: UNETR(in_channels=1, out_channels=3, img_size=(32, 32, 32),
+                                feature_size=4, hidden_size=16, mlp_dim=32, num_heads=2,
+                                num_layers=4, **_NORMS),
+    "tiny_swin": lambda: SwinUNETR(img_size=(32, 32, 32), in_channels=1, out_channels=3,
+                                   depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8),
+                                   feature_size=12, **_NORMS),
+}
+TINY_BATCH = 2
+
+
+def tiny_inputs(seed: int = 5):
+    """The pipeline forwards' batch: `[TINY_BATCH, 32, 32, 32, 1]` and the
+    modalities, from a seed."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((TINY_BATCH, 32, 32, 32, 1)).astype(np.float32),
+            (np.arange(TINY_BATCH) % 2).astype(np.int32))
+
+
+def pp_forward(name: str, state_dict: dict, n_stages: int):
+    """A `TINY` model's logits through its pipeline forward on a `[1,
+    n_stages]` ("data", "pp") mesh (2 microbatches), on this rank: the
+    logits on the last stage, None elsewhere."""
+    model = TINY[name]()
+    model.load_state_dict(state_dict, strict=True)
+    forward = unetr_pipeline_forward if name == "tiny_unetr" else swin_unetr_pipeline_forward
+    mesh = parallel.make_mesh([1, n_stages], ["data", "pp"])
+    x, mods = (torch.from_numpy(a) for a in tiny_inputs())
+    with torch.no_grad():
+        logits, _ = forward(model, x, mods, mesh=mesh, microbatches=2)
+    return logits
+
+
+def _affine(widths: list[int], seed: int = 3):
+    """Seeded `tanh(h @ w + b)` layers from `widths[i]` to `widths[i + 1]`,
+    and a batch of 8 inputs."""
+    rng = np.random.default_rng(seed)
+    layers = [(torch.tensor(rng.normal(size=(a, b)) * 0.3, dtype=torch.float32),
+               torch.tensor(rng.normal(size=(b,)), dtype=torch.float32))
+              for a, b in zip(widths, widths[1:])]
+    return layers, torch.tensor(rng.normal(size=(8, widths[0])), dtype=torch.float32)
+
+
+def _serial(layers, x):
+    """Every layer's output and the gradients of `mean(out ** 2)` by layer."""
+    params = [(w.clone().requires_grad_(), b.clone().requires_grad_()) for w, b in layers]
+    outs, h = [], x
+    for w, b in params:
+        h = torch.tanh(h @ w + b)
+        outs.append(h)
+    h.square().mean().backward()
+    return [o.detach() for o in outs], [(w.grad, b.grad) for w, b in params]
+
+
+def schedule_run(widths: list[int], mesh, m: int, rows: slice = slice(None)) -> dict:
+    """The affine stack of `widths` (one layer a stage) over the mesh's
+    "pp" line, `m` microbatches, on `rows` of the batch, against the
+    serial stack on the same rows: the largest gap of each stage's output
+    (on the last stage; through `pipeline_apply` with each stage's output
+    as a tap when the widths are equal, else `pipeline_apply_hetero`) and
+    of this stage's gradients of `mean(out ** 2)`."""
+    layers, x = _affine(widths)
+    x = x[rows]
+    want, want_grads = _serial(layers, x)
+    s, n = mesh.index("pp"), mesh.size("pp")
+    w, b = (t.clone().requires_grad_() for t in layers[s])
+
+    def stage(h):
+        return torch.tanh(h @ w + b)
+
+    def tapped(h):
+        y = stage(h)
+        return y, [y] if s < n - 1 else []
+
+    if len(set(widths)) == 1:
+        out, schedule = pipeline_apply(tapped, x if s == 0 else None, mesh=mesh, microbatches=m,
+                                       like=x, shape=(widths[0],), with_aux=True,
+                                       aux=[1] * (n - 1) + [0])
+        ys = None if out is None else [t[0] for t in out[1][:-1]] + [out[0]]
+    else:
+        ys, schedule = pipeline_apply_hetero([stage] * n, x if s == 0 else None, mesh=mesh,
+                                             microbatches=m, like=x,
+                                             shapes=[(c,) for c in widths])
+    if ys is not None:
+        ys[-1].square().mean().backward()
+    schedule.backward()
+    return {"outputs": None if ys is None else max(float((y - t).abs().max())
+                                                    for y, t in zip(ys, want)),
+            "grads": max(float((g - t).abs().max()) for g, t in zip((w.grad, b.grad),
+                                                                   want_grads[s]))}
+
+
+def pp_refusals(world: int) -> dict:
+    """What the Trainer says of each refused pipeline configuration: None
+    when it builds and steps, else the error's type and message (at world
+    2 on a `[1, 2]` mesh: the failing step; at world 4: the mesh)."""
+    unetr = MODELS["unetr"]
+    three = {**pp(1, 2, 2), "mesh_axes": ["data", "model", "pp"]}
+    cases = ({"dropout": {**unetr, **pp(1, 2, dropout_rate=0.1)},
+              "batch_norm": {**unetr, **pp(1, 2), "encoder_norm_name": "batch"},
+              "unet": {**MODELS["unet"], **pp(1, 2)},
+              "batch": {**unetr, **pp(1, 2, pp_microbatches=3)},
+              "swin_stages": {**MODELS["swin"], **pp(1, 2)}} if world == 2 else
+             {"tp": {**unetr, **three, "tensor_parallel": True},
+              "fsdp_model": {**unetr, **three, "fsdp": True, "fsdp_axis": "model"},
+              "fsdp_data": {**unetr, **pp(2, 2), "fsdp": True},
+              "model_axis": {**unetr, **three}})
+    out = {}
+    for name, cfg in cases.items():
+        try:
+            trainer = engine.Trainer(Config(**cfg), device="cpu")
+            state = trainer.init_state()
+            trainer.train_step(state, batch_for(global_batches(cfg, 1)[0]))
+            out[name] = None
+        except (NotImplementedError, ValueError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def pp_extras(world: int, start: dict, out_dir: Path) -> dict:
+    """The pipeline suites' checks besides the Trainer cases."""
+    out = {"refusals": pp_refusals(world)}
+    if world == 2:
+        out["forward"] = {"tiny_unetr 2": pp_forward("tiny_unetr", start["tiny_unetr"], 2)}
+        out["checkpoints"] = checkpoints(start["unetr"], out_dir, "pp_unetr", "one_unetr.ckpt")
+        return out
+    out["forward"] = {f"{name} 4": pp_forward(name, start[name], 4) for name in TINY}
+    line = parallel.make_mesh([1, 4], ["data", "pp"])
+    out["schedule"] = {f"m{m}": schedule_run([6] * 5, line, m) for m in (1, 2, 4)}
+    out["schedule"]["hetero"] = schedule_run([8, 6, 5, 4, 3], line, 2)
+    hybrid = parallel.make_mesh([2, 2], ["data", "pp"])
+    d = hybrid.index("data")
+    out["schedule"]["hybrid"] = schedule_run([6] * 3, hybrid, 2, slice(4 * d, 4 * d + 4))
+    return out
+
+
+def logged_p2p(log: list) -> None:
+    """Record in `log` every point-to-point message this process posts,
+    `("send" | "recv", peer's global rank)` in program order: gloo's sends
+    never block, so the tests replay the ranks' logs under NCCL's rule (a
+    rank's messages run in its order, each waiting for its peer) to show
+    the schedule cannot wait in a cycle there (`test_torch_pipeline`)."""
+    isend, recv = dist.isend, dist.recv
+
+    def logged_isend(tensor, dst, *args, **kwargs):
+        log.append(("send", dst))
+        return isend(tensor, dst, *args, **kwargs)
+
+    def logged_recv(tensor, src, *args, **kwargs):
+        log.append(("recv", src))
+        return recv(tensor, src, *args, **kwargs)
+
+    dist.isend, dist.recv = logged_isend, logged_recv
 
 
 def main(suite: str, rank: int, world: int, rdzv: str, out_dir: str, starts: str) -> None:
@@ -233,11 +423,15 @@ def main(suite: str, rank: int, world: int, rdzv: str, out_dir: str, starts: str
     dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
                             world_size=world)
     try:
-        result = {}
+        result = {"p2p": []}
+        logged_p2p(result["p2p"])
         for name in SUITES[suite]:
             result[name] = run_steps(case_config(name), start[CASES[name][0]])
-        name = REPEAT_INIT[suite]
-        result["repeat_init"] = repeat_init(name, start[CASES[name][0]])
+        if suite in REPEAT_INIT:
+            name = REPEAT_INIT[suite]
+            result["repeat_init"] = repeat_init(name, start[CASES[name][0]])
+        if suite.startswith("pp"):
+            result.update(pp_extras(world, start, Path(out_dir)))
         if suite == "fsdp2":
             result["eval"] = eval_logits(start["unet"])
             result["checkpoints"] = checkpoints(start["unet"], Path(out_dir))

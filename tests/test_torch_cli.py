@@ -19,6 +19,7 @@ JAX's own f32 logits sit ~1e-4 from float64 (see
 """
 
 import dataclasses
+import functools
 import json
 import os
 
@@ -302,15 +303,14 @@ PARALLEL_VALUES = {
     "tensor_parallel": True, "tp_axis": "tp", "pipeline_parallel": True, "pp_axis": "stage",
     "pp_microbatches": 4,
 }
-# those of the spatial and pipeline modes, which the port has not got
-NOT_PORTED_VALUES = {k: v for k, v in PARALLEL_VALUES.items()
-                     if k.startswith(("spatial", "pipeline", "pp_"))}
+# those of the spatial mode, which the port has not got
+NOT_PORTED_VALUES = {k: v for k, v in PARALLEL_VALUES.items() if k.startswith("spatial")}
 
 
 def test_not_ported_fields_cover_jax_defaults():
     """`NOT_PORTED` holds JAX's defaults, and the values above differ; the
-    export options, the mesh, FSDP and tensor parallelism are ported and no
-    longer listed."""
+    export options, the mesh, FSDP, tensor and pipeline parallelism are
+    ported and no longer listed."""
     jax_defaults = dataclasses.asdict(JConfig())
     assert sorted(NOT_PORTED) == ["M11"]
     merged = NOT_PORTED["M11"]
@@ -321,11 +321,13 @@ def test_not_ported_fields_cover_jax_defaults():
 
 @pytest.mark.parametrize("field", sorted([*PARALLEL_VALUES, *MESH_VALUES]))
 def test_trainer_raises_on_parallelism(field):
-    """Each unported field (spatial, pipeline) and an axis the port does not
-    lay out raise `NotImplementedError` from the Trainer naming ROADMAP
-    M11; a mesh whose product is not the world size raises ValueError
-    (JAX's `make_mesh`).  The ported FSDP and tensor-parallel fields build
-    at one process and, their axes of size 1, place nothing."""
+    """Each unported field (spatial) and an axis the port does not lay out
+    raise `NotImplementedError` from the Trainer naming ROADMAP M11; a mesh
+    whose product is not the world size raises ValueError (JAX's
+    `make_mesh`).  The ported FSDP and tensor-parallel fields build at one
+    process and, their axes of size 1, place nothing; the pipeline fields
+    build and, with no pipeline line of more than one rank, take the
+    data-parallel step (JAX's `_pp_active`)."""
     value = {**PARALLEL_VALUES, **MESH_VALUES}[field]
     cfg = Config(**CFG, **{field: value})
     if field in NOT_PORTED["M11"] or field == "mesh_axes":
@@ -336,8 +338,26 @@ def test_trainer_raises_on_parallelism(field):
             Trainer(cfg, device="cpu")
     else:
         trainer = Trainer(cfg, device="cpu")
-        trainer.init_state()
+        state = trainer.init_state()
         assert trainer.placements == {}
+        if field in ("pipeline_parallel", "pp_axis", "pp_microbatches"):
+            assert not trainer._pp_active()
+            _, loss = trainer.train_step(state, _parallel_batch())
+            assert torch.equal(loss, _data_parallel_loss())
+
+
+def _parallel_batch() -> dict:
+    rng = np.random.default_rng(4)
+    return {"image": rng.standard_normal((1, 32, 32, 32, 1)).astype(np.float32),
+            "label": rng.integers(0, CFG["out_channels"], (1, 32, 32, 32)).astype(np.int32),
+            "modality": np.array([1], np.int32)}
+
+
+@functools.lru_cache(maxsize=None)
+def _data_parallel_loss() -> torch.Tensor:
+    """The loss of one step of `CFG` as it is, on `_parallel_batch()`."""
+    trainer = Trainer(Config(**CFG), device="cpu")
+    return trainer.train_step(trainer.init_state(), _parallel_batch())[1]
 
 
 def test_trainer_takes_jax_parallelism_defaults():

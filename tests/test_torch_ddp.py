@@ -40,9 +40,11 @@ package.
 * Exactly one checkpoint writer in `cli.train`'s fit; the ranks end on
   the same parameters.
 * The mesh and `require_ported` at world 2 (in the worker) and at world
-  1 (here): FSDP and tensor parallelism build, the spatial and pipeline
-  modes and an unported axis raise (ROADMAP M11), and a mesh whose
-  product is not the world size raises ValueError.
+  1 (here): FSDP and tensor parallelism build, the pipeline mode builds
+  and, with no pipeline line of more than one rank, takes the
+  data-parallel step, the spatial mode and an unported axis raise
+  (ROADMAP M11), and a mesh whose product is not the world size raises
+  ValueError.
 """
 
 import functools
@@ -304,18 +306,22 @@ def test_one_checkpoint_writer(ranks):
 
 
 def test_mesh_and_unported_modes(ranks):
-    """Since FSDP and tensor parallelism are ported, they build at world 2
-    (on a 1-D "data" mesh tensor parallelism has no "model" axis, so it
-    places nothing, as in JAX); the spatial and pipeline modes still raise
-    naming ROADMAP M11, and so do two axes under one mesh size.  A mesh
-    whose product is not the world size raises ValueError (JAX's
-    `make_mesh` rule)."""
+    """Since FSDP, tensor and pipeline parallelism are ported, they build
+    at world 2 (on a 1-D "data" mesh tensor parallelism has no "model"
+    axis, so it places nothing, and the pipeline mode has no pipeline line
+    of more than one rank, so its step is the data-parallel one, as in
+    JAX); the spatial mode still raises naming ROADMAP M11, and so do two
+    axes under one mesh size.  A mesh whose product is not the world size
+    raises ValueError (JAX's `make_mesh` rule)."""
     for r in range(WORLD):
         said = ranks[r]["mesh"]
-        for name in ("mesh_-1", "mesh_2", "fsdp", "tensor_parallel"):
+        for name in ("mesh_-1", "mesh_2", "fsdp", "tensor_parallel", "pipeline_parallel"):
             assert said[name] is None, (name, said[name])
-        for name in ("spatial_shard", "pipeline_parallel"):
-            assert said[name].startswith("NotImplementedError") and "ROADMAP M11" in said[name]
+        assert said["spatial_shard"].startswith("NotImplementedError")
+        assert "ROADMAP M11" in said["spatial_shard"]
+        steps = said["pp_off_step"]
+        assert steps["pipeline_parallel"] == steps["data"], steps
+        assert steps["data"] == ranks[0]["mesh"]["pp_off_step"]["data"]
         for name in ("mesh_4", "mesh_1"):
             assert said[name].startswith("ValueError") and "!= 2 ranks" in said[name], name
         assert said["axes_model"].startswith("ValueError"), said["axes_model"]

@@ -26,8 +26,9 @@ global batch and against the JAX package.
   process's checkpoint resumes under FSDP, with equal parameters, AdamW
   moments and step, and its next step held to one process's.
 * The mesh: JAX's `make_mesh` rules and errors, the row-major
-  coordinates, and the spatial and pipeline modes still raising (ROADMAP
-  M11).
+  coordinates, the spatial mode still raising (ROADMAP M11), and the
+  pipeline mode without a pipeline line of more than one rank taking the
+  data-parallel step (JAX's rule).
 """
 
 import functools
@@ -449,7 +450,9 @@ def test_mesh_coordinates_are_row_major(ranks):
 def test_mesh_rules_and_unported_modes():
     """At one process: JAX's `make_mesh` rules (-1 inferred, a product
     other than the world a ValueError, a size a name), the axes the port
-    lays out, and the spatial and pipeline modes raising (ROADMAP M11)."""
+    lays out, the spatial mode raising (ROADMAP M11), and the pipeline
+    mode, its line of one rank, building and stepping as data parallelism
+    does (JAX's `_pp_active`)."""
     assert parallel.make_mesh([-1], ["data"]).shape == (1,)
     assert parallel.make_mesh([1, -1], ["data", "model"]).shape == (1, 1)
     mesh = parallel.make_mesh([1, 1], ["data", "model"])
@@ -460,10 +463,19 @@ def test_mesh_rules_and_unported_modes():
         with pytest.raises(ValueError, match="mesh"):
             parallel.make_mesh(shape, axes)
     base = dict(W.MODELS["unet"])
-    for kw in ({"mesh_axes": ["sp"]}, {"mesh_axes": ["data", "pp"], "mesh_shape": [1, 1]},
-               {"spatial_shard": True}, {"pipeline_parallel": True}):
+    for kw in ({"mesh_axes": ["sp"]}, {"spatial_shard": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP M11"):
             engine.Trainer(Config(**base, **kw), device="cpu")
+    batch = W.global_batches(base, 1)[0]
+    plain = engine.Trainer(Config(**base), device="cpu")
+    _, want = plain.train_step(plain.init_state(start("unet")), batch)
+    for kw in ({"mesh_axes": ["data", "pp"], "mesh_shape": [1, 1]},
+               {"pipeline_parallel": True},
+               {"mesh_axes": ["data", "pp"], "mesh_shape": [1, 1], "pipeline_parallel": True}):
+        trainer = engine.Trainer(Config(**base, **kw), device="cpu")
+        assert not trainer._pp_active()
+        _, loss = trainer.train_step(trainer.init_state(start("unet")), batch)
+        assert torch.equal(loss, want), kw
     # FSDP and tensor parallelism build; with their axes of size 1 they place nothing
     for kw in ({"fsdp": True}, {"tensor_parallel": True, "mesh_shape": [1, 1],
                                 "mesh_axes": ["data", "model"]}):

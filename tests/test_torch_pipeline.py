@@ -1,0 +1,324 @@
+"""Pipeline parallelism in the port (`miseg_tpu_torch.parallel.pipeline`,
+`models/unetr_pp.py`, `models/swin_unetr_pp.py`, the Trainer's GPipe
+step) on the CPU: gloo ranks as subprocesses (`tests/_torch_mesh_worker.py`),
+spawned once for the module, two on the ("data", "pp") mesh `[1, 2]` and
+four on `[1, 4]` and `[2, 2]`, each held to a timeout, against one process
+on the global batch and against the JAX package.
+
+* The schedule (JAX's tests/test_pipeline.py:47-106): an affine stack,
+  one layer a stage, where every stage boundary and this stage's
+  gradients equal the serial stack's at 1, 2 and 4 microbatches, with
+  shape-changing stages (`pipeline_apply_hetero`) and on `[2, 2]`; a layer
+  count that does not divide raises.
+* UNETR and Swin: JAX's tiny UNETR (:179-190, 4 layers) on 2 and 4 stages
+  (the decoder's taps inside stages) and tiny swin (:283-290) on 4: the
+  last stage's logits within 2e-4 of JAX's `unetr_pipeline_forward` /
+  `swin_unetr_pipeline_forward` on the same mesh shape and of JAX's
+  serial model (JAX's own tolerance, :209-210), bridged from the same
+  seeded weights.
+* The Trainer: dice_focal + AdamW steps of `W.MODELS`' UNETR on `[1, 2]`,
+  `[1, 4]`, `[2, 2]` (one microbatch a data coordinate) and with an
+  accumulation window, and of the swin on `[1, 4]` (also with
+  `use_checkpoint`): every rank's losses, gradients and parameters held to
+  the port's one process on the global batch (`test_torch_fsdp.held`:
+  loss 1e-5, each gradient leaf 5e-5, the W5 bound), every rank's masters
+  bitwise equal, and the first loss within 1e-4 relative of JAX's on the
+  global batch (JAX's :242-280, :349-380).  A checkpoint written under PP
+  resumes in one process, and one process's under PP.
+* Every rank's messages, replayed under NCCL's rule (a rank's messages
+  one after another, each send waiting for its receiver; gloo's never
+  wait), meet their peers: no cycle of waits on four cards.
+* Refusals: dropout, batch norm, the UNets, a batch the microbatches do
+  not divide, a swin line of other than 4 stages (ValueError, JAX's), and
+  PP beside FSDP or tensor parallelism or another axis of more than one
+  rank (NotImplementedError, ROADMAP M11).
+"""
+
+import functools
+import math
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_bridge import seeded_params
+from test_torch_fsdp import held, jax_mesh, jax_model, joined, one_process, spawn, start
+
+from miseg_tpu import losses as JL
+from miseg_tpu.config import Config as JConfig
+from miseg_tpu.models.swin_unetr import SwinUNETR as JSwinUNETR
+from miseg_tpu.models.swin_unetr_pp import swin_unetr_pipeline_forward as j_swin_pp
+from miseg_tpu.models.unetr import UNETR as JUNETR
+from miseg_tpu.models.unetr_pp import unetr_pipeline_forward as j_unetr_pp
+from miseg_tpu_torch.config import Config
+from miseg_tpu_torch.parallel.pipeline import stage_layers
+from miseg_tpu_torch.train import engine
+from miseg_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from miseg_tpu_torch.weights import state_dict_from_jax
+
+import _torch_mesh_worker as W  # noqa: E402  (tests/ is on the path via test_torch_fsdp)
+
+torch.set_num_threads(1)
+ATOL_LOGITS = 2e-4
+SUITE_WORLDS = {"pp2": 2, "pp4": 4}
+STEP_CASES = ["pp_unetr", "pp_accumulate", "pp_unetr4", "pp_unetr_dp", "pp_swin",
+              "pp_swin_recompute"]
+# cases whose one process is another's (the mesh and mode dropped, nothing else)
+SAME_ONE_PROCESS = {"pp_unetr4": "pp_unetr", "pp_unetr_dp": "pp_unetr"}
+_COND = ("instance_cond", {"num_styles": 2, "affine": True})
+_JNORMS = dict(vit_norm=_COND, encoder_norm=_COND, decoder_norm=("instance", {"affine": True}))
+JTINY = {  # tests/test_pipeline.py's `_tiny_unetr` and `_tiny_swin`
+    "tiny_unetr": lambda: JUNETR(in_channels=1, out_channels=3, img_size=(32, 32, 32),
+                                 feature_size=4, hidden_size=16, mlp_dim=32, num_heads=2,
+                                 num_layers=4, **_JNORMS),
+    "tiny_swin": lambda: JSwinUNETR(img_size=(32, 32, 32), in_channels=1, out_channels=3,
+                                    depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8),
+                                    feature_size=12, **_JNORMS),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tiny(name: str):
+    """(JAX module, seeded params) of a tiny model."""
+    x, mods = W.tiny_inputs()
+    model = JTINY[name]()
+    return model, seeded_params(model, jnp.asarray(x[:1]), jnp.asarray(mods[:1]))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tiny_logits(name: str, n_stages: int) -> dict:
+    """JAX's pipeline forward on a `[1, n_stages]` mesh (2 microbatches)
+    and its serial forward of the tiny model, on `W.tiny_inputs()`."""
+    model, params = jax_tiny(name)
+    x, mods = (jnp.asarray(a) for a in W.tiny_inputs())
+    forward = j_unetr_pp if name == "tiny_unetr" else j_swin_pp
+    pp = forward(model, params, x, mods, mesh=jax_mesh((1, n_stages), ("data", "pp")),
+                 microbatches=2, data_axis="data")
+    serial = jax.jit(lambda p, x, m: model.apply({"params": p}, x, m))(params, x, mods)
+    return {"pp": np.asarray(pp), "serial": np.asarray(serial)}
+
+
+@functools.lru_cache(maxsize=None)
+def jax_first_loss(model: str) -> float:
+    """JAX's loss of a `W.MODELS` model on the first global batch, from
+    the seeded params the port's cases start from (the data-parallel
+    step's loss, which its PP step must give: JAX's :242-280)."""
+    cfg = W.MODELS[model]
+    jmodel, params = jax_model(model)
+    batch = W.global_batches(cfg)[0]
+    loss_fn = JL.loss_from_config(JConfig(**cfg))
+
+    @jax.jit
+    def loss(p, image, label, mods):
+        return loss_fn(jmodel.apply({"params": p}, image, mods, train=True)
+                       .astype(jnp.float32), label)
+
+    return float(loss(params, batch["image"], batch["label"][..., 0], batch["modality"]))
+
+
+def one(case: str) -> dict:
+    return one_process(SAME_ONE_PROCESS.get(case, case))
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Both suites' ranks' results; JAX's side and the one process are
+    computed while the ranks run.  `one_unetr.ckpt`: the one process's
+    UNETR state after one step, for the ranks to resume."""
+    tmp = tmp_path_factory.mktemp("pp")
+    tiny = {name: state_dict_from_jax(jax_tiny(name)[1]) for name in JTINY}
+    torch.save({"unetr": start("unetr"), "swin": start("swin"), **tiny}, tmp / "starts.pt")
+    cfg = W.MODELS["unetr"]
+    trainer = engine.Trainer(Config(**cfg), device="cpu")
+    state = trainer.init_state(start("unetr"))
+    state, _ = trainer.train_step(state, W.global_batches(cfg, 1, seed=3)[0])
+    save_checkpoint(tmp / "one_unetr.ckpt", params=trainer.state_dict(state),
+                    opt_state=trainer.opt_state(state), epoch=0)
+    procs = {suite: spawn(suite, world, tmp) for suite, world in SUITE_WORLDS.items()}
+    try:
+        for name, n in (("tiny_unetr", 2), ("tiny_unetr", 4), ("tiny_swin", 4)):
+            jax_tiny_logits(name, n)
+        for model in ("unetr", "swin"):
+            jax_first_loss(model)
+        for case in STEP_CASES:
+            one(case)
+    finally:
+        out = joined(procs, tmp)
+    out["tmp"] = tmp
+    return out
+
+
+def _suite(case: str) -> str:
+    return next(s for s, cases in W.SUITES.items() if s in SUITE_WORLDS and case in cases)
+
+
+# -------------------------------------------------------------- schedule
+
+@pytest.mark.parametrize("run", ["m1", "m2", "m4", "hetero", "hybrid"])
+def test_schedule_matches_serial(ranks, run):
+    """Every stage's output (on the last stage of each line) and every
+    stage's gradients equal the serial stack's: at 1, 2 and 4 microbatches
+    on `[1, 4]`, with stages of widths 8 -> 6 -> 5 -> 4 -> 3, and on a
+    `[2, 2]` mesh whose data coordinates run their halves of the batch."""
+    res = [r["schedule"][run] for r in ranks["pp4"]]
+    lasts = [3] if run != "hybrid" else [1, 3]
+    for r, got in enumerate(res):
+        assert (got["outputs"] is not None) == (r in lasts), (run, r)
+        if got["outputs"] is not None:
+            assert got["outputs"] <= 1e-5, (run, r, got)
+        assert got["grads"] <= 1e-5, (run, r, got)
+
+
+def unmatched(logs: list[list]) -> list:
+    """Replay the ranks' logged messages (`W.logged_p2p`) under NCCL's rule:
+    each rank runs its messages in its own order and each waits for its
+    peer's matching one.  The ranks left waiting, with their next message
+    (empty: every message met its peer)."""
+    pos = [0] * len(logs)
+    moved = True
+    while moved:
+        moved = False
+        for a, ops in enumerate(logs):
+            if pos[a] < len(ops):
+                kind, b = ops[pos[a]]
+                want = ("recv" if kind == "send" else "send", a)
+                if pos[b] < len(logs[b]) and logs[b][pos[b]] == want:
+                    pos[a] += 1
+                    pos[b] += 1
+                    moved = True
+    return [(r, ops[p]) for r, (p, ops) in enumerate(zip(pos, logs)) if p < len(ops)]
+
+
+@pytest.mark.parametrize("suite", list(SUITE_WORLDS))
+def test_p2p_order_has_no_cycle(ranks, suite):
+    """Every message a suite's ranks posted (the schedule's, the forwards'
+    and every Trainer step's) meets its peer when each send waits for its
+    receiver, as NCCL's do on one communicator; gloo's never wait, so the
+    ranks' run alone would not show a cycle."""
+    logs = [r["p2p"] for r in ranks[suite]]
+    assert sum(map(len, logs)) > 0
+    assert unmatched(logs) == []
+
+
+def test_uneven_layers_rejected():
+    """JAX's `stack_stages` rule: stages must divide the layers."""
+    with pytest.raises(ValueError, match="do not split"):
+        stage_layers(5, 2, 0)
+    assert [stage_layers(12, 4, s) for s in range(4)] == [range(0, 3), range(3, 6),
+                                                          range(6, 9), range(9, 12)]
+
+
+# --------------------------------------------------------------- models
+
+@pytest.mark.parametrize("name,n_stages", [("tiny_unetr", 2), ("tiny_unetr", 4),
+                                           ("tiny_swin", 4)])
+def test_pipeline_forward_like_jax(ranks, name, n_stages):
+    """The last stage's logits within 2e-4 of JAX's pipeline forward on
+    the same mesh shape and of JAX's serial model; the other stages have
+    none."""
+    results = ranks[f"pp{n_stages}"] if n_stages == 2 else ranks["pp4"]
+    got = [r["forward"][f"{name} {n_stages}"] for r in results]
+    assert all(g is None for g in got[:-1])
+    want = jax_tiny_logits(name, n_stages)
+    logits = got[-1].numpy()
+    assert logits.shape == (W.TINY_BATCH, 32, 32, 32, 3)
+    print(f"{name} on {n_stages} stages: max |port - JAX pp| "
+          f"{np.abs(logits - want['pp']).max():.2e}, vs JAX serial "
+          f"{np.abs(logits - want['serial']).max():.2e}")
+    np.testing.assert_allclose(logits, want["pp"], rtol=ATOL_LOGITS, atol=ATOL_LOGITS)
+    np.testing.assert_allclose(logits, want["serial"], rtol=ATOL_LOGITS, atol=ATOL_LOGITS)
+
+
+# -------------------------------------------------------------- trainer
+
+@pytest.mark.parametrize("case", STEP_CASES)
+def test_pp_steps_like_one_process(ranks, case):
+    """Every rank's two steps within the gates of the port's one process
+    on the global batch, and every rank's masters, gradients and losses
+    bitwise equal."""
+    results = ranks[_suite(case)]
+    want = one(case)
+    for r, res in enumerate(results):
+        assert res[case]["placements"] == {}
+        held(res[case], want, f"{case} rank {r}")
+    for key in ("params", "params_step1", "grads"):
+        for n, v in results[0][case][key].items():
+            assert all(torch.equal(v, res[case][key][n]) for res in results[1:]), (key, n)
+    assert all(res[case]["losses"] == results[0][case]["losses"] for res in results)
+    if case == "pp_accumulate":
+        assert want["optimizer_steps"] == 1     # two micro-steps, one window
+
+
+@pytest.mark.parametrize("case", STEP_CASES)
+def test_pp_first_loss_like_jax(ranks, case):
+    """The first step's loss within 1e-4 relative of JAX's on the global
+    batch (the data-parallel step's)."""
+    want = jax_first_loss(W.CASES[case][0])
+    for res in ranks[_suite(case)]:
+        assert math.isclose(res[case]["losses"][0], want, rel_tol=1e-4), (
+            res[case]["losses"][0], want)
+
+
+def test_pp_checkpoint_resumes_in_one_process(ranks):
+    """What rank 0 writes under PP `[1, 2]` is the ranks' state, whole, and
+    one process resumes it exactly."""
+    ck = load_checkpoint(ranks["tmp"] / "pp_unetr.ckpt")
+    trainer = engine.Trainer(Config(**W.MODELS["unetr"]), device="cpu")
+    state = trainer.restore(trainer.init_state(start("unetr")), ck)
+    results = [r["checkpoints"] for r in ranks["pp2"]]
+    written = results[0]["written"]
+    assert [(r["written"]["params"] is not None, r["written"]["opt_state"])
+            for r in results] == [(True, True), (False, False)]
+    assert state.step == written["step"] == W.STEPS
+    for n, p in trainer.state_dict(state).items():
+        assert torch.equal(p, written["params"][n]), n
+    got = W.moments(trainer, state)
+    for r in results:
+        for n, st in r["written"]["moments"].items():
+            for k, v in st.items():
+                assert torch.equal(torch.as_tensor(v), torch.as_tensor(got[n][k])), (n, k)
+
+
+def test_one_process_checkpoint_resumes_under_pp(ranks):
+    """One process's checkpoint resumes under PP `[1, 2]` with its
+    parameters and step, and the next step is one process's."""
+    ck = load_checkpoint(ranks["tmp"] / "one_unetr.ckpt")
+    cfg = W.MODELS["unetr"]
+    trainer = engine.Trainer(Config(**cfg), device="cpu")
+    state = trainer.restore(trainer.init_state(start("unetr")), ck)
+    want = W.run_steps(cfg, None, W.global_batches(cfg, 1, seed=7), trainer, state)
+    for r, res in enumerate(ranks["pp2"]):
+        got = res["checkpoints"]
+        assert got["resumed"]["step"] == 1 and got["next"]["step"] == want["step"] == 2
+        for n, p in got["resumed"]["params"].items():
+            assert torch.equal(p, ck["params"][n]), n
+        np.testing.assert_allclose(got["next"]["losses"], want["losses"], atol=1e-5)
+        for n, p in got["next"]["params"].items():
+            np.testing.assert_allclose(p.numpy(), want["params"][n].numpy(), rtol=1e-4,
+                                       atol=2.5e-4, err_msg=f"rank {r} {n}")
+
+
+# ------------------------------------------------------------- refusals
+
+@pytest.mark.parametrize("name,error,match", [
+    ("dropout", "ValueError", "dropout_rate == 0"),
+    ("batch_norm", "ValueError", "mutable collections"),
+    ("unet", "ValueError", "UNETR and SwinUNETR"),
+    ("batch", "ValueError", "batch 2 not divisible by 3 microbatches"),
+    ("swin_stages", "ValueError", "needs mesh\\['pp'\\] == 4 stages, got 2"),
+    ("tp", "NotImplementedError", "ROADMAP M11"),
+    ("fsdp_model", "NotImplementedError", "ROADMAP M11"),
+    ("fsdp_data", "NotImplementedError", "ROADMAP M11"),
+    ("model_axis", "NotImplementedError", "ROADMAP M11"),
+])
+def test_pp_refusals(ranks, name, error, match):
+    """JAX's refusals with JAX's exception classes, on every rank; PP
+    beside FSDP, tensor parallelism or another axis of more than one rank
+    is not ported."""
+    suite = "pp2" if name in ("dropout", "batch_norm", "unet", "batch", "swin_stages") else "pp4"
+    for r, res in enumerate(ranks[suite]):
+        said = res["refusals"][name]
+        assert said is not None and said.startswith(error + ":"), (name, r, said)
+        assert re.search(match, said), (name, r, said)
