@@ -177,7 +177,7 @@ Phases, one result line each; any failed check exits non-zero:
                `F.conv3d` in f32 with TF32 off; and K5 at stage 1 with
                head dims 3, 9 and 18; all against their plain versions,
                timed against `F.conv3d` / SDPA and their bounds;
-               (c) `cli.tune.main` of 3 trials (4 epochs, a validation
+               (c) `cli.tune.main` of 2 trials (4 epochs, a validation
                each, warmup_cosine, bf16) on `phase_fit`'s data set, then
                a 1-trial resume of its journal: params.json against the
                journal, each trial's widths (parameter count), every
@@ -233,6 +233,26 @@ Phases, one result line each; any failed check exits non-zero:
                decoder once), counted and by name in a profiled step, with
                each rank's step ms, device busy time and peak memory; (c)
                C-UNETR at full width the same way on `[1, 2]`.
+ 16. spatial — spatial partitioning (`parallel/spatial.py`): (a) K4's
+               D-halo mode at the flagship's sharded slabs (`SP_CONVS`:
+               96^3 at sp [2] and [4] on the brick kernel, 24^3 on the
+               coarse one, 12^3's 6-plane slab on the FMA kernel, encoder1's
+               Cin = 1 call), each pair of edge flags against its plain
+               version with the fold's moments mode, the kernel by name,
+               timed beside the whole volume's call and `F.conv3d` on the
+               halo'd slab; K1's and the fold's moments modes; (b) two gloo
+               ranks sharing the card on the line `[2]`: one f32 step of
+               C-UNet (fs 16) and of the flagship's model at fs 24, 64^3,
+               batch 2, against this process (`check_ddp_step`), the
+               masters bitwise equal on both ranks; (c) the flagship at
+               full width in bf16, 96^3, batch 1, on `[2]`: the losses of
+               `MESH_STEPS` steps within 1e-3 relative of one process, the
+               parameters after the first within W5, the masters bitwise
+               equal, each rank's launches a step `sp_launches(2)`
+               (counted, modes apart, and by name in a profiled step, with
+               K4's kernel of each call), the halo and merge collectives a
+               step, and each rank's step ms and peak memory beside one
+               process's.
 Then one JSON line of kernels (with each kernel's `miseg::` op, its
 kernels in a replay of the captured 224^3 volume program, its launches a
 train step, the JAX VJP its backward follows, its launches in the fit's train steps
@@ -242,8 +262,10 @@ recompute a step and its fit, and in the tune study, with K4's and K5's
 rows at the search space's shapes; K2's row times its leaky-relu
 mode, and its field `no_add_no_activation` the UNets' mode beside
 `torch.addcmul`; the 2-D launches and rows, K5's at N = 49; the
-launches of a data-parallel step, of an FSDP step and of each stage of a
-pipeline step), the card line, and the ok line last.
+launches of a data-parallel step, of an FSDP step, of each stage of a
+pipeline step and of a spatially partitioned step; and rows of their own
+for the spatial modes, K4 halo, K1 moments and K1 fold moments), the
+card line, and the ok line last.
 """
 
 from __future__ import annotations
@@ -513,11 +535,13 @@ def tolerance(ref: torch.Tensor, dtype) -> float:
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch counter to 0."""
+    """Set every kernel wrapper's launch counter to 0, the modes' of spatial
+    partitioning (`mode_counts`) among them."""
     from miseg_tpu_torch.ops.kernels import fused_conv as fc
     from miseg_tpu_torch.ops.kernels import fused_norm as fn
     from miseg_tpu_torch.ops.kernels import window_attention as wa
     fn.stats_launches = fn.apply_launches = fn.apply2_launches = fn.fold_launches = 0
+    fn.moments_launches = fn.fold_moments_launches = fc.halo_launches = 0
     fc.launches = wa.launches = 0
 
 
@@ -528,6 +552,15 @@ def launch_counts() -> dict:
     from miseg_tpu_torch.ops.kernels import window_attention as wa
     return {"K1": fn.stats_launches, "K2": fn.apply_launches, "K3": fn.apply2_launches,
             "K4": fc.launches, "K5": wa.launches, "K1 fold": fn.fold_launches}
+
+
+def mode_counts() -> dict:
+    """The launch counters of the spatial-partitioning modes: K1's and the
+    fold's moments modes, K4's D-halo mode."""
+    from miseg_tpu_torch.ops.kernels import fused_conv as fc
+    from miseg_tpu_torch.ops.kernels import fused_norm as fn
+    return {"K1 moments": fn.moments_launches, "K1 fold moments": fn.fold_moments_launches,
+            "K4 halo": fc.halo_launches}
 
 
 def phase_device():
@@ -3752,7 +3785,7 @@ def asha_decisions(records: list[dict], min_resource: int, rf: int = 3) -> list[
 def tune_study(dev, card: str, shape=(192, 192, 160)) -> dict:
     """(c) `cli.tune.main` on the card: the flagship's norms, 6 classes,
     96^3 ROI, bf16, warmup_cosine, 4 epochs with a validation each (the
-    pruner's first rung at epoch index 3), 3 trials, then 1 more resumed
+    pruner's first rung at epoch index 3), 2 trials, then 1 more resumed
     from the journal, on `phase_fit`'s synthetic set (written once).
     Checks each trial's params.json against the journal, the widths it
     ran (its model's parameter count), every kernel launching, device
@@ -3799,7 +3832,7 @@ def tune_study(dev, card: str, shape=(192, 192, 160)) -> dict:
         cfg = search_cfg(48, 3, data_dirs=[str(root)] * 2, json_lists=["CT.json", "MR.json"],
                          max_epochs=4, check_val_every_n_epoch=1, scheduler="warmup_cosine",
                          batch_size=1, patches_training_sample=1, num_workers=2, cache_num=8,
-                         n_trials=3, default_root_dir=str(Path(tmp) / "runs"),
+                         n_trials=2, default_root_dir=str(Path(tmp) / "runs"),
                          study_name="swin_search", seed=0)
         torch.cuda.synchronize()
         baseline = torch.cuda.memory_allocated()
@@ -3826,8 +3859,8 @@ def tune_study(dev, card: str, shape=(192, 192, 160)) -> dict:
                                   / "params.json").read_text()) for n in params}
 
     # ---- the study, its journal, the dashboard -----------------------------
-    check(len(study.trials) == 4 and len(trials) == 4 and len(told) == 4
-          and sum(r["op"] == "create" for r in records) == 4
+    check(len(study.trials) == 3 and len(trials) == 3 and len(told) == 3
+          and sum(r["op"] == "create" for r in records) == 3
           and sum(r["op"] == "study" for r in records) == 1,
           f"tune: {len(study.trials)} trials in the resumed study, {len(trials)} fits, "
           f"{len(told)} told, journal {[r['op'] for r in records if r['op'] != 'report']}")
@@ -3847,7 +3880,7 @@ def tune_study(dev, card: str, shape=(192, 192, 160)) -> dict:
           f"tune: device memory after each trial minus the baseline {leaks} B > "
           f"{TUNE_MEMORY_MARGIN} B")
     best = study.best_trial
-    check(report["n_trials"] == 4 and report["best"] == {
+    check(report["n_trials"] == 3 and report["best"] == {
         "number": best.number, "value": best.value, "params": best.params},
           f"tune: the dashboard reports {report['n_trials']} trials, best {report['best']}; "
           f"the study's best is #{best.number}")
@@ -3873,7 +3906,7 @@ def tune_study(dev, card: str, shape=(192, 192, 160)) -> dict:
     print("  pruner (rung 0 at epoch index 3): " + "; ".join(
         f"trial {n} step {s}: best {v:.4f} vs cutoff {c:.4f} -> "
         f"{'pruned' if p else 'kept'}" for n, s, v, c, p in decisions))
-    print(f"tune: cli.tune ran 3 trials in {first_s:.1f} s and resumed 1 more in "
+    print(f"tune: cli.tune ran 2 trials in {first_s:.1f} s and resumed 1 more in "
           f"{resume_s:.1f} s on '{card}' (states {states}, values "
           f"{[round(t.value, 4) for t in study.trials]}, best #{best.number}); "
           f"journal, params.json and the dashboard agree; device memory back within "
@@ -3892,7 +3925,7 @@ def phase_tune(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
     launches = tune_study(dev, card)
     print(f"tune phase: the search space's 9 widths match the CPU through the kernels, their "
           f"bf16 windows run K4 on the tensor cores, K4 at the search widths (bf16, tensor "
-          f"cores; f32, FMA) and K5 at head dims 3/9/18 match their plain versions, and a 3 + 1 "
+          f"cores; f32, FMA) and K5 at head dims 3/9/18 match their plain versions, and a 2 + 1 "
           f"trial study ran on the card ({time.perf_counter() - t0:.1f} s)")
     return {"rows": rows, "k4_by_pair": k4_by_pair, "study": launches}
 
@@ -4342,7 +4375,7 @@ def ddp_rank(leg: str, rank: int, world: int, rdzv: str, out: str) -> int:
     one f32 step of the batch-norm UNetVanilla on this rank's half of the
     batch, the two ranks sharing the card over gloo (`rdzv`, a file);
     "mesh2": `mesh_rank`, over gloo the same way; "pp4", "pp2": `pp_rank`,
-    over gloo the same way.  Writes `out/<leg>_rank<rank>.pt`."""
+    and "sp2": `sp_rank`, over gloo the same way.  Writes `out/<leg>_rank<rank>.pt`."""
     import torch.distributed as dist
 
     from miseg_tpu_torch import parallel
@@ -4399,6 +4432,10 @@ def ddp_rank(leg: str, rank: int, world: int, rdzv: str, out: str) -> int:
         dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
                                 world_size=world)
         result = pp_rank(dev, leg)
+    elif leg == "sp2":
+        dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
+                                world_size=world)
+        result = sp_rank(dev)
     else:
         dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
                                 world_size=world)
@@ -4701,6 +4738,351 @@ def phase_pipeline(dev, card: str) -> dict:
     return launches
 
 
+# ---- spatial partitioning (phase_spatial) ----------------------------------
+# K4's D-halo mode at the flagship's sharded shapes: (label, halo'd slab
+# [B, Dl + 2, H, W, Cin], Cout, prologue, the K4 kernel the C planner picks,
+# the line's size n: the whole volume has Dl * n planes)
+SP_CONVS = [
+    ("96^3 sp[2] encoder1/decoder1 conv2", (1, 48 + 2, 96, 96, 48), 48, True,
+     "miseg_k4_conv_brick", 2),
+    ("96^3 sp[4] encoder1/decoder1 conv2", (1, 24 + 2, 96, 96, 48), 48, True,
+     "miseg_k4_conv_brick", 4),
+    ("24^3 sp[2] encoder3/decoder3 conv2", (1, 12 + 2, 24, 24, 96), 96, True,
+     "miseg_k4_conv_coarse", 2),
+    # no 4x4x4 brick divides a slab of 6 planes, and it holds more than 256
+    # voxels: the CUDA-core kernel (a ROADMAP item, not redesigned here)
+    ("12^3 sp[2] encoder4/decoder4 conv2", (1, 6 + 2, 12, 12, 192), 192, True,
+     ("miseg_k4_conv_fma", "miseg_k4_splitk_reduce"), 2),
+    ("96^3 sp[2] encoder1 conv1 (Cin = 1)", (1, 48 + 2, 96, 96, 1), 48, False,
+     "miseg_k4_conv_cin1", 2),
+]
+
+
+def k4_halo_case(label: str, shape, cout: int, prologue: bool, kernel: str, n: int, dev,
+                 gen, mem_bw: float, bf16_flops: float, flush, yardsticks: bool = False):
+    """K4's D-halo mode at `shape` (bf16) against its plain version for each
+    pair of edge flags (y within one bf16 ulp of its scale, the fold's
+    moments mode within 1e-5 relative of the plain moments of the kernel's
+    own y), the K4 kernel it launches by name (`kernel`), a repeat
+    bit-identical; with the interior flags its CUDA-event and device times
+    beside its bound, the plain version's, the whole volume's call
+    (`conv3_norm_columns` on Dl * n planes) and `F.conv3d` on the halo'd
+    slab (padding 0 on D) by events, and with `yardsticks` the device times
+    of those two as well.  Returns (the lines, the `kernels` row)."""
+    import itertools
+
+    import torch.nn.functional as F
+
+    from miseg_tpu_torch.ops.kernels import fused_conv as fc
+    from miseg_tpu_torch.ops.kernels import fused_norm as fn
+
+    b, dh, hh, wh, cin = shape
+    dl = dh - 2
+    x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, torch.bfloat16)
+    w = (torch.randn((cout, cin, 3, 3, 3), generator=gen) / (27 * cin) ** 0.5).to(
+        dev, torch.bfloat16)
+    kw = {}
+    if prologue:
+        kw = dict(scale=(1 + 0.3 * torch.randn((b, cin), generator=gen)).to(dev),
+                  shift=(0.3 * torch.randn((b, cin), generator=gen)).to(dev), slope=0.01)
+    lines, errs = [], []
+    for lo, hi in itertools.product((False, True), repeat=2):
+        y, mean, m2 = fc.conv3_halo_moments(x, w, pad_lo=lo, pad_hi=hi, **kw)
+        ref = fc.conv3_halo_moments_plain(x, w, pad_lo=lo, pad_hi=hi, **kw)[0]
+        e, tol = max_err(y, ref), tolerance(ref, torch.bfloat16)
+        check(y.shape == ref.shape and e <= tol,
+              f"K4 halo {label} flags {lo, hi}: {e:.3e} > {tol:.3e}")
+        rm, rq = fn.channel_moments_plain(y.reshape(b, -1, cout))
+        em = max(max_err(mean, rm) / (1 + float(rm.abs().max())),
+                 max_err(m2, rq) / (1 + float(rq.abs().max())))
+        check(em <= 1e-5, f"K4 halo {label} flags {lo, hi}: moments rel err {em:.2e}")
+        errs.append(e)
+        lines.append(f"  K4 halo {label} {list(shape)}->{cout} bf16 flags (low, high) "
+                     f"{int(lo), int(hi)}: err {e:.3e} (tol {tol:.3e}), moments rel err "
+                     f"{em:.2e} (tol 1e-05)")
+    call = lambda: fc.conv3_halo_moments(x, w, **kw)  # noqa: E731
+    names = k4_kernel_names(call)
+    kernels = (kernel,) if isinstance(kernel, str) else kernel
+    check(bool(names) and all(any(k in nm for k in kernels) for nm in names),
+          f"K4 halo {label}: launched {sorted(set(names))}, want only {kernels}")
+    again = call()
+    check(all(torch.equal(a, c) for a, c in zip(call(), again)),
+          f"K4 halo {label}: a repeated call is not bit-identical")
+    whole = (torch.randn((b, dl * n, hh, wh, cin), generator=gen) * 1.5 + 0.3).to(
+        dev, torch.bfloat16)
+    ms = time_ms(call)
+    plain = time_ms(lambda: fc.conv3_halo_moments_plain(x, w, **kw), reps=5)
+    whole_ms = time_ms(lambda: fc.conv3_norm_columns(whole, w, **kw))
+    xcf = x.permute(0, 4, 1, 2, 3)
+    lib = time_ms(lambda: F.conv3d(xcf, w, padding=(0, 1, 1)))
+    dev_k4 = device_ms(call, "miseg_k4_", flush=flush)
+    dev_whole = dev_lib = None
+    if yardsticks:
+        dev_whole = device_ms(lambda: fc.conv3_norm_columns(whole, w, **kw), "miseg_k4_",
+                              flush=flush)
+        dev_lib = device_ms(lambda: F.conv3d(xcf, w, padding=(0, 1, 1)), flush=flush)
+    s_out = dl * hh * wh
+    nbytes = ((x.numel() + w.numel() + b * s_out * cout) * 2 + 2 * b * cin * 4 * prologue
+              + 2 * b * cout * 4)
+    flops = 2 * b * s_out * 27 * cin * cout
+    bound = max(nbytes / mem_bw, flops / bf16_flops) * 1e3
+    by = "bytes" if nbytes / mem_bw >= flops / bf16_flops else "operations"
+    lines.append(f"    kernel {names[0][:90]}\n    times ms: K4 halo {ms:.4f} (bound "
+                 f"{bound:.4f} by {by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), plain "
+                 f"{plain:.4f}, whole volume ({dl * n} planes) K4 {whole_ms:.4f}, F.conv3d on "
+                 f"the halo'd slab {lib:.4f}\n    device ms (L2 flushed): K4 halo kernel "
+                 f"{fmt_ms(dev_k4)}, whole volume {fmt_ms(dev_whole)}, F.conv3d "
+                 f"{fmt_ms(dev_lib)}")
+    row = dict(shape=list(shape), cout=cout, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+               library_ms=lib, max_abs_err=max(errs), device_ms=dev_k4,
+               whole_volume_ms=whole_ms, whole_volume_device_ms=dev_whole,
+               library_device_ms=dev_lib, kernel=names[0])
+    return "\n".join(lines), row
+
+
+def spatial_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
+    """`phase_spatial` (a): K4's D-halo mode at `SP_CONVS`, K1's moments mode
+    at encoder1's projected-residual norm on a 96^3 slab of sp [2] ([1,
+    48 * 96^2, 48]) and the fold's moments mode over that slab's 1728
+    bricks, each against its plain version, with times.  Returns the
+    `kernels` rows of "K4 halo", "K1 moments" and "K1 fold moments"."""
+    from miseg_tpu_torch.ops.kernels import fused_conv as fc
+    from miseg_tpu_torch.ops.kernels import fused_norm as fn
+
+    fn._k1(), fc._entry()
+    gen = torch.Generator().manual_seed(20)
+    flush = l2_flush(dev)
+    rows = {}
+    for label, shape, cout, prologue, kernel, n in SP_CONVS:
+        main = label.startswith("96^3 sp[2] encoder1/decoder1")
+        line, row = k4_halo_case(label, shape, cout, prologue, kernel, n, dev, gen, mem_bw,
+                                 bf16_flops, flush, yardsticks=main)
+        print(line)
+        if main:
+            rows["K4 halo"] = row
+    shape = (1, 48 * 96 * 96, 48)
+    x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, torch.bfloat16)
+    mean, m2 = fn.channel_moments(x)
+    rm, rq = fn.channel_moments_plain(x)
+    e = max(max_err(mean, rm) / (1 + float(rm.abs().max())),
+            max_err(m2, rq) / (1 + float(rq.abs().max())))
+    check(e <= 1e-5, f"K1 moments {shape}: relative error {e:.2e} > 1e-5")
+    nbytes = x.numel() * x.element_size()
+    k1 = hbm_and_l2(lambda: fn.channel_moments(x), "miseg_k1_", nbytes, flush)
+    plain = time_ms(lambda: fn.channel_moments_plain(x))
+    lib = time_ms(lambda: torch.var_mean(x, dim=1, correction=0), flush=flush)
+    bound = nbytes / mem_bw * 1e3
+    print(f"  K1 moments {list(shape)} bf16: rel err {e:.2e} (tol 1e-05)\n    times ms: K1 "
+          f"moments {fmt_hbm_l2(k1)} (bound {bound:.5f} by bytes), plain {plain:.4f}, "
+          f"torch.var_mean {lib:.4f}")
+    rows["K1 moments"] = dict(shape=list(shape), ms=k1["hbm"][0], plain_ms=plain,
+                              bound_ms=bound, bound_by="bytes", library_ms=lib,
+                              max_abs_err=max(max_err(mean, rm), max_err(m2, rq)))
+    s_vox, tile = 48 * 96 * 96, 256
+    n_tiles = s_vox // tile
+    part = torch.stack([torch.randn((n_tiles, 48), generator=gen) + 0.5,
+                        torch.rand((n_tiles, 48), generator=gen) * tile]).to(dev)
+    got = fn.fold_launch(part, s_vox, tile, n_tiles, moments=True)
+    want = fn.fold_moments_plain(part, s_vox, tile, n_tiles)
+    ef = max(max_err(a, c) / (1 + float(c.abs().max())) for a, c in zip(got, want))
+    check(ef <= 1e-5, f"K1 fold moments {n_tiles} partials: relative error {ef:.2e}")
+    fold = time_ms(lambda: fn.fold_launch(part, s_vox, tile, n_tiles, moments=True))
+    fold_plain = time_ms(lambda: fn.fold_moments_plain(part, s_vox, tile, n_tiles))
+    dev_fold = device_ms(lambda: fn.fold_launch(part, s_vox, tile, n_tiles, moments=True),
+                         "miseg_k1_")
+    fbound = (part.numel() * 4 + 2 * 48 * 4) / mem_bw * 1e3
+    print(f"  K1 fold moments {n_tiles} partials x 48: rel err {ef:.2e} (tol 1e-05)\n    "
+          f"times ms: fold {fold:.4f} (device {fmt_ms(dev_fold)}; bound {fbound:.5f} by "
+          f"bytes), plain {fold_plain:.4f}")
+    rows["K1 fold moments"] = dict(shape=[2, n_tiles, 48], ms=fold, plain_ms=fold_plain,
+                                   bound_ms=fbound, bound_by="bytes", library_ms=None,
+                                   max_abs_err=max(max_err(a, c) for a, c in zip(got, want)))
+    return rows
+
+
+SP_2 = dict(spatial_shard=True, mesh_shape=[2], mesh_axes=["sp"])
+# phase_spatial (b): C-UNet (fs 16) and the flagship's model at fs 24, 64^3, f32
+SP_SMALL = {"C-UNet fs 16": {**CUNET, "roi_x": 64, "roi_y": 64, "roi_z": 64, "no_amp": True},
+            "C-Swin-UNETR fs 24": MESH_SMALL}
+
+
+def sp_launches(n: int, roi: int = 96) -> dict:
+    """The flagship's launches a step on each rank of a spatial line of `n`
+    ranks (its forward; the backward launches none), by the level rule: a
+    level of D = r is sharded when r % 2n == 0, and there its norms take
+    K1's moments mode, its convs K4's D-halo mode and their folds the
+    moments mode.  Swin norms (K1 + K2): `proj_out` at 48^3..3^3, 4 a stage
+    (2 blocks x norm1, norm2) at 48^3..6^3, each merging's at 24^3..3^3;
+    the 10 UnetResBlocks: two K4 calls and two folds each, plus K1 + K3
+    (projected residual) or K2 (identity)."""
+    sharded = lambda r: r % (2 * n) == 0  # noqa: E731
+    out = dict.fromkeys((*PER_WINDOW, "K1 moments", "K1 fold moments", "K4 halo"), 0)
+    levels = [roi // 2 ** k for k in range(6)]          # 96 .. 3
+    norms = {r: (r != roi) + 4 * (roi // 2 >= r >= roi // 16) + (r <= roi // 4) for r in levels}
+    for r, count in norms.items():
+        out["K1 moments" if sharded(r) else "K1"] += count
+        out["K2"] += count
+    blocks = [(roi, True), (roi // 2, False), (roi // 4, False), (roi // 8, False),
+              (roi // 32, False), (roi // 16, True), (roi // 8, True), (roi // 4, True),
+              (roi // 2, True), (roi, True)]
+    for r, projected in blocks:
+        out["K4 halo" if sharded(r) else "K4"] += 2
+        out["K1 fold moments" if sharded(r) else "K1 fold"] += 2
+        if projected:
+            out["K1 moments" if sharded(r) else "K1"] += 1
+            out["K3"] += 1
+        else:
+            out["K2"] += 1
+    for r in levels[1:5]:   # the four stages, 2 blocks each; every rank holds window rows
+        rows = -(-r // 7) if r > 7 else 1
+        check(not sharded(r) or rows >= n, f"sp_launches: {rows} window rows over {n} ranks")
+        out["K5"] += 2
+    return out
+
+
+def sp_rank(dev) -> dict:
+    """A rank of `phase_spatial` (leg "sp2"): (b) one f32 step of each of
+    `SP_SMALL` on the line `[2]`; (c) `MESH_STEPS` bf16 steps of the
+    flagship at batch 1, launches and collectives counted from 0 before the
+    first and read after the last, the peak memory, then one profiled step
+    (both ranks profile one lead and one step: each step holds
+    collectives).  Rank 0 keeps the whole records, every rank the digests."""
+    from miseg_tpu_torch import parallel
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.parallel import spatial
+    from miseg_tpu_torch.train.engine import Trainer
+
+    out = {}
+    for name, small in SP_SMALL.items():
+        trainer = Trainer(Config(**small, **SP_2), device=dev)
+        state, loss = trainer.train_step(trainer.init_state(), _mesh_batch(dev, small))
+        out[name] = _mesh_record(trainer, state, loss)
+        out[name]["digest"] = _digest(out[name]["params"])
+        del trainer, state
+    trainer = Trainer(Config(**FLAGSHIP, **SP_2), device=dev)
+    state = trainer.init_state()
+    batch = _mesh_batch(dev, FLAGSHIP, n=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    spatial.collectives.update(dict.fromkeys(spatial.collectives, 0))
+    state, loss = trainer.train_step(state, batch)
+    rec = _mesh_record(trainer, state, loss)
+    losses, rec["ms"] = _stepped(trainer, state, batch, MESH_STEPS - 1)
+    rec["launch_totals"] = {**launch_counts(), **mode_counts()}
+    rec["collectives"] = {k: v // MESH_STEPS for k, v in spatial.collectives.items()}
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    rec["losses"] = [rec["loss"], *losses]
+    rec["digest"] = _digest(rec["params"])
+    rec["final_digest"] = _digest(state.params)
+    rec["sp_top"] = trainer._sp_top
+    events = profiled(lambda: trainer.train_step(state, batch), lambda ev: True, attempts=1,
+                      lead=lambda: trainer.train_step(state, batch))
+    rec["profiled"] = replay_counts(events)
+    rec["k4_kernels"] = [e.name for e in events if "miseg_k4_" in e.name]
+    rec["busy_ms"] = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    out["flagship"] = rec
+    if not parallel.is_writer():   # the whole tensors once, from rank 0
+        for r in out.values():
+            r["params"] = r["grads"] = None
+    return out
+
+
+def phase_spatial(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
+    """Spatial partitioning: (a) `spatial_kernels`; (b) and (c) two gloo
+    ranks sharing the card (NCCL takes one rank a device) on the line `[2]`
+    (`sp_rank`), held to `DDP_TIMEOUT_S`, against this process, whose
+    references run beside them (so every time here is of a shared card):
+    (b) each small model's step within `check_ddp_step`'s gates, both
+    ranks' masters bitwise equal; (c) the flagship's losses within 1e-3
+    relative of one process at the same patch and batch, its parameters
+    after the first step within W5, the masters bitwise equal, each rank's
+    launches `sp_launches(2)` a step (counted, and by name in the profiled
+    step), the K4 kernel of each call, the collectives a step, step ms and
+    peak memory beside one process's.  Returns the rows of the modes and
+    a rank's launches a flagship step."""
+    from collections import Counter
+
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.train.engine import Trainer
+
+    t0 = time.perf_counter()
+    rows = spatial_kernels(dev, mem_bw, bf16_flops)
+    t_kernels = time.perf_counter() - t0
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    procs = _start_ranks("sp2", 2, root)
+    refs = {}
+    for name, small in SP_SMALL.items():
+        trainer = Trainer(Config(**small), device=dev)
+        state, loss = trainer.train_step(trainer.init_state(), _mesh_batch(dev, small))
+        refs[name] = _mesh_record(trainer, state, loss)
+        del trainer, state
+    trainer = Trainer(Config(**FLAGSHIP), device=dev)
+    state = trainer.init_state()
+    batch = _mesh_batch(dev, FLAGSHIP, n=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, loss = trainer.train_step(state, batch)
+    one = _mesh_record(trainer, state, loss)
+    losses, one_ms = _stepped(trainer, state, batch, MESH_STEPS - 1)
+    one_losses, one_peak = [one["loss"], *losses], torch.cuda.max_memory_allocated()
+    del trainer, state
+    _join_ranks("sp2", procs)
+    t_ranks = time.perf_counter() - t0 - t_kernels
+    ranks = [torch.load(root / f"sp2_rank{r}.pt", weights_only=False) for r in range(2)]
+    for name in SP_SMALL:
+        gaps = check_ddp_step(ranks[0][name], refs[name], f"spatial (b) {name}")
+        check(ranks[0][name]["digest"] == ranks[1][name]["digest"],
+              f"spatial (b) {name}: the ranks' masters differ")
+        print(f"  spatial (b) {name} 64^3 f32, sp [2], 2 gloo ranks on '{card}' vs one process "
+              f"at batch 2: loss |diff| {gaps['loss']:.2e}, gradient gap summed "
+              f"{gaps['summed']:.3e} (worst {gaps['worst']} {gaps['worst_gap']:.2e}), "
+              f"parameters within W5 (excess {gaps['w5_excess']:.2e}); masters bitwise equal")
+    lead = ranks[0]["flagship"]
+    gap = max(abs(x - y) / (1 + abs(y)) for x, y in zip(lead["losses"], one_losses))
+    check(gap <= 1e-3, f"spatial (c): losses {lead['losses']} vs one process {one_losses}")
+    excess = _w5_excess(lead["params"], one["params"])
+    check(excess <= 0.0, f"spatial (c): parameters exceed W5 by {excess:.3e}")
+    check(all(r["flagship"]["losses"] == lead["losses"] and r["flagship"]["digest"] ==
+              lead["digest"] and r["flagship"]["final_digest"] == lead["final_digest"]
+              for r in ranks), "spatial (c): the ranks' losses or masters differ")
+    want = sp_launches(2)
+    by_name = {k: want[k] + want.get(m, 0) for k, m in (
+        ("K1", "K1 moments"), ("K1 fold", "K1 fold moments"), ("K4", "K4 halo"),
+        ("K2", None), ("K3", None), ("K5", None))}
+    for r, res in enumerate(ranks):
+        rec = res["flagship"]
+        totals = {k: MESH_STEPS * v for k, v in want.items()}
+        # by name a K4 call is its conv kernel; the FMA kernel's split-K
+        # reduce (the 6-plane slabs at 12^3) is a second kernel of the call
+        convs = sum("miseg_k4_conv" in nm for nm in rec["k4_kernels"])
+        check(rec["sp_top"] == (96, 96) and rec["launch_totals"] == totals
+              and {**rec["profiled"], "K4": convs} == by_name,
+              f"spatial (c) rank {r}: patch {rec['sp_top']}, {MESH_STEPS} steps launched "
+              f"{rec['launch_totals']}, the profiled step {rec['profiled']}; want {totals} and "
+              f"{by_name}")
+        paths = Counter(n.split("<")[0].split("::")[-1] for n in rec["k4_kernels"])
+        print(f"  spatial (c) flagship fs 48 96^3 bf16, sp [2] rank {r} (batch 1, a 48-plane "
+              f"slab) on '{card}': launches a step {want} (counted; by name {rec['profiled']});"
+              f" K4 kernels of the profiled step {dict(paths)}; collectives a step "
+              f"{rec['collectives']}; step ms by events {[round(v, 2) for v in rec['ms']]}, "
+              f"device busy {rec['busy_ms']:.2f} ms of the profiled step, peak memory "
+              f"{gib(rec['peak'])} ({rec['peak']} B)")
+    print(f"  spatial (c) flagship: losses {[round(v, 6) for v in lead['losses']]} vs one "
+          f"process {[round(v, 6) for v in one_losses]} (max relative gap {gap:.2e}); "
+          f"parameters after the first step within W5 (excess {excess:.2e}); the ranks' masters "
+          f"bitwise equal; one process at batch 1 on '{card}' (beside the ranks): step ms "
+          f"{[round(v, 2) for v in one_ms]}, peak memory {gib(one_peak)} ({one_peak} B); a "
+          f"rank's peak {ranks[0]['flagship']['peak'] / one_peak:.1%} of it")
+    tmp.cleanup()
+    print(f"spatial: K4's D-halo mode and K1's and the fold's moments modes match their plain "
+          f"versions; the line [2] steps as one process, the flagship with every kernel and "
+          f"mode ({t_kernels:.1f} s of kernels, {t_ranks:.1f} s of ranks; phase "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return {"rows": rows, "launches": want}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; chip_smoke.py needs a CUDA card",
@@ -4728,6 +5110,7 @@ def main() -> int:
     ddp = phase_ddp(dev, card)
     mesh = phase_mesh(dev, card)
     pipeline = phase_pipeline(dev, card)
+    spatial = phase_spatial(dev, card, mem_bw, bf16_flops)
     meta = {
         "K1": ("fused_norm.channel_scale_shift", "cuda",
                "miseg_tpu_torch/ops/kernels/csrc/fused_norm.cu",
@@ -4793,6 +5176,8 @@ def main() -> int:
               f"{two_d['step'][key]} times; want {'> 0' if on_2d else '0'}")
         check(ddp[key] > 0, f"{key} was never launched in the data-parallel step")
         check(mesh[key] > 0, f"{key} was never launched in the FSDP step")
+        check(spatial["launches"][key] > 0,
+              f"{key} was never launched in the spatially partitioned step")
         on_pp = {leg: sum(stage[key] for stage in by_stage) for leg, by_stage in pipeline.items()}
         check(on_pp["pp4"] > 0 and (on_pp["pp2"] > 0) == (UNETR_PER_WINDOW[key] > 0),
               f"{key}: the pipeline steps' stages launched it {on_pp} times")
@@ -4837,7 +5222,27 @@ def main() -> int:
                         "pipeline": {"swin_1x4_launches_per_step_by_stage":
                                          [stage[key] for stage in pipeline["pp4"]],
                                      "unetr_1x2_launches_per_step_by_stage":
-                                         [stage[key] for stage in pipeline["pp2"]]}})
+                                         [stage[key] for stage in pipeline["pp2"]]},
+                        "spatial": {"launches_per_sp2_step": spatial["launches"][key]}})
+    # the modes of spatial partitioning: the same kernels, launched (and
+    # counted) apart on the partitioned step, with rows of their own
+    modes = {
+        "K4 halo": ("fused_conv.conv3_halo_moments (D-halo mode)", "fused_conv.cu",
+                    "miseg_tpu/ops/pallas/fused_conv.py:49", "miseg::conv3_halo_moments"),
+        "K1 moments": ("fused_norm.channel_moments (moments mode)", "fused_norm.cu",
+                       "miseg_tpu/ops/pallas/fused_norm.py:78", None),
+        "K1 fold moments": ("fused_norm.fold_launch(moments=True), after K4's D-halo mode",
+                            "fused_norm.cu", "miseg_tpu/ops/pallas/fused_norm.py:78",
+                            "miseg::conv3_halo_moments"),
+    }
+    for key, (name, source, replaces, op) in modes.items():
+        n = spatial["launches"][key]
+        check(n > 0, f"{key} was never launched in the spatially partitioned step")
+        kernels.append({"name": f"{key} {name}", "route": "cuda",
+                        "source": f"miseg_tpu_torch/ops/kernels/csrc/{source}",
+                        "replaces": replaces, "op": op, "launches": MESH_STEPS * n,
+                        **spatial["rows"][key],
+                        "spatial": {"launches_per_sp2_step": n}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

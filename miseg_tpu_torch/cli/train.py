@@ -24,7 +24,12 @@ the "data" coordinate, and rank 0 writes the checkpoints and metrics.
 FSDP and tensor parallelism take JAX's flags over a mesh of the ranks:
 `--fsdp` (on "data", or `--fsdp_axis model` of `--mesh_shape 2 2
 --mesh_axes data model`), `--tensor_parallel --mesh_shape 2 2
---mesh_axes data model`, or both.
+--mesh_axes data model`, or both.  Spatial partitioning takes JAX's
+`--spatial_shard` (and `--spatial_axis`, default "sp"): `torchrun
+--nproc_per_node=4 -m miseg_tpu_torch.cli.train --spatial_shard
+--mesh_shape 4 --mesh_axes sp ...` splits each training patch's D over
+four ranks (`parallel/spatial.py`; `--mesh_shape 2 2 --mesh_axes data sp`
+with data parallelism); validation and the test stay unsharded.
 
 Fine-tuning the flagship from MONAI's SSL Swin-ViT, with recompute:
 

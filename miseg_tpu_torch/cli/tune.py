@@ -30,7 +30,9 @@ its journal and each trial's `params.json` and metrics; every trial
 trains on all ranks over the rank's shard of the train set, through a
 `MultiHostTrial` whose suggestions and pruning decisions rank 0 makes and
 broadcasts.  The other ranks follow rank 0's trials until it says the
-study is over.
+study is over.  Every trial takes the mesh's modes, spatial partitioning
+among them (`--spatial_shard --mesh_shape N --mesh_axes sp`, with JAX's
+`--spatial_axis` default).
 """
 
 from __future__ import annotations

@@ -9,9 +9,11 @@ and the same argv parses to equal configs in both.
 Fields whose feature the port has not got raise rather than go unread:
 `require_ported(cfg, item, entry)` raises `NotImplementedError` naming
 the ROADMAP item when one of `NOT_PORTED[item]` differs from JAX's
-default.  The `Trainer` asks it for M11 (spatial parallelism); the mesh
+default.  The `Trainer` asks it for M11, whose fields are all ported
+now (the list stays for the next item); the mesh
 (`parallel.mesh_from_config`) lays "data", the FSDP axis, the
-tensor-parallel axis and the pipeline axis over the ranks.
+tensor-parallel axis, the pipeline axis and, under `spatial_shard`, the
+spatial axis over the ranks.
 
 `no_gpu` is the reference's flag for a CPU run (its tune group).  The
 JAX package accepts it and never reads it, since a JAX process takes its
@@ -203,8 +205,8 @@ class Config:
 
 # JAX's fields whose feature the port has not got, with JAX's defaults, by
 # the ROADMAP item that would port it
-NOT_PORTED = {
-    "M11": {"spatial_shard": False, "spatial_axis": "sp"},
+NOT_PORTED: dict[str, dict] = {
+    "M11": {},
 }
 
 

@@ -8,6 +8,13 @@ labels with the class ids inline, and `sum(target^2) = sum(target)` is the
 per-class voxel count.  Focal is the BCE-with-logits focal on the raw
 per-class logits in its signed-logit form: with t in {0, 1} and
 `s = where(t, x, -x)`, BCE = softplus(-s) and p = sigmoid(s).
+
+Under spatial partitioning (`parallel/spatial.py`) the logits and labels
+are a D slab of the patch: the per-(sample, class) sums of the dice
+losses are summed over the line (`spatial.line_sum`, an all-reduce whose
+backward is the identity) and the focal and cross-entropy means are the
+line's summed sum over the whole patch's voxels (`spatial.line_mean`), so
+every rank's loss is the whole patch's.
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from .parallel import spatial
 
 Tensor = torch.Tensor
 
@@ -42,9 +51,9 @@ def dice_loss(logits: Tensor, labels: Tensor, *, include_background: bool = True
     start = 0 if include_background else 1
     x, eq, saxes = _layout(logits, labels, start)
     probs = (torch.softmax(x, dim=-1) if softmax else x)[..., start:]
-    intersection = torch.where(eq, probs, 0.0).sum(saxes)            # [B, C]
-    tsum = eq.sum(saxes, dtype=torch.float32)
-    denom = (probs.square() if squared_pred else probs).sum(saxes) + tsum
+    intersection = spatial.line_sum(torch.where(eq, probs, 0.0).sum(saxes), x)   # [B, C]
+    tsum = spatial.line_sum(eq.sum(saxes, dtype=torch.float32), x)
+    denom = spatial.line_sum((probs.square() if squared_pred else probs).sum(saxes), x) + tsum
     return (1.0 - (2.0 * intersection + smooth_nr) / (denom + smooth_dr)).mean()
 
 
@@ -54,14 +63,14 @@ def focal_loss(logits: Tensor, labels: Tensor, *, include_background: bool = Tru
     x, eq, _ = _layout(logits, labels, start)
     x = x[..., start:]
     s = torch.where(eq, x, -x)
-    return (torch.pow(1.0 - torch.sigmoid(s), gamma) * F.softplus(-s)).mean()
+    return spatial.line_mean(torch.pow(1.0 - torch.sigmoid(s), gamma) * F.softplus(-s), x)
 
 
 def cross_entropy_loss(logits: Tensor, labels: Tensor) -> Tensor:
     """Softmax cross-entropy on integer labels (torch CrossEntropyLoss mean)."""
     x, eq, _ = _layout(logits, labels, 0)
     x_at_label = torch.where(eq, x, 0.0).sum(-1)
-    return (torch.logsumexp(x, dim=-1) - x_at_label).mean()
+    return spatial.line_mean(torch.logsumexp(x, dim=-1) - x_at_label, x)
 
 
 def generalized_dice_loss(logits: Tensor, labels: Tensor, *,
@@ -71,9 +80,9 @@ def generalized_dice_loss(logits: Tensor, labels: Tensor, *,
     start = 0 if include_background else 1
     x, eq, saxes = _layout(logits, labels, start)
     probs = (torch.softmax(x, dim=-1) if softmax else x)[..., start:]
-    intersection = torch.where(eq, probs, 0.0).sum(saxes)            # [B, C]
-    ground_o = eq.sum(saxes, dtype=torch.float32)
-    denominator = probs.sum(saxes) + ground_o
+    intersection = spatial.line_sum(torch.where(eq, probs, 0.0).sum(saxes), x)   # [B, C]
+    ground_o = spatial.line_sum(eq.sum(saxes, dtype=torch.float32), x)
+    denominator = spatial.line_sum(probs.sum(saxes), x) + ground_o
     w = 1.0 / torch.square(ground_o.clamp_min(0.0) + 1e-38)
     # an empty class's infinite weight -> the largest finite weight of its sample
     finite = ground_o > 0

@@ -5,9 +5,12 @@ Patch embed (stride = patch size) -> 4 stages of `depth` blocks with
 alternating shift, each followed by patch merging; `proj_out`
 re-normalizes every pyramid level with a PARAMETER-FREE norm.  For the
 instance kinds that norm runs through K1 + K2, the same function the JAX
-package computes in plain jnp.  In training, dropout follows the patch
-embedding and the blocks' drop-path rates rise linearly from 0 to
-`drop_path_rate` over all blocks (`np.linspace`, as the JAX package).
+package computes in plain jnp (on a D slab under spatial partitioning,
+with the whole volume's statistics, `parallel/spatial.py`).  The region
+ids of the shifted windows come from the whole volume's padded shape.
+In training, dropout follows the patch embedding and the blocks'
+drop-path rates rise linearly from 0 to `drop_path_rate` over all blocks
+(`np.linspace`, as the JAX package).
 With `use_checkpoint` each swin block is recomputed in the backward
 (`nn/recompute.py`), as the JAX package remats it.
 """
@@ -24,9 +27,10 @@ from torch import nn
 from ..nn import recompute
 from ..nn.dropout import Dropout
 from ..nn.swin import PatchEmbed, PatchMergingV2, SwinTransformerBlock
-from ..ops.kernels.fused_norm import instance_norm_act
 from ..ops.norms import layer_norm
 from ..ops.window import get_window_size, window_region_ids
+from ..parallel import spatial
+from ..parallel.spatial import instance_norm_act
 
 NormSpec = tuple[str, dict[str, Any]] | str
 
@@ -72,10 +76,10 @@ class BasicLayer(nn.Module):
         return self._ids[key]
 
     def forward(self, x, modalities=None):
-        spatial = tuple(x.shape[1:-1])
+        dims = spatial.global_dims(x)   # the whole volume's, on a D slab
         window_size, shift_size = get_window_size(
-            spatial, self.window_size, tuple(w // 2 for w in self.window_size))
-        padded = tuple(int(math.ceil(s / w)) * w for s, w in zip(spatial, window_size))
+            dims, self.window_size, tuple(w // 2 for w in self.window_size))
+        padded = tuple(int(math.ceil(s / w)) * w for s, w in zip(dims, window_size))
         ids = self._region_ids(padded, window_size, shift_size, x.device)
         for i in range(self.depth):
             blk = getattr(self, f"blocks_{i}")

@@ -12,6 +12,15 @@ from `spatial_dims` (default 3), or from a kernel size given as one
 entry a dim.  Weights use torch's layout: `[O, I, *k]` for
 a conv, `[I, O, *k]` for a transposed conv.  The convs are cuDNN's, as
 the JAX package's are XLA's `nn.Conv` and `lax.conv_transpose`.
+
+Under spatial partitioning (`parallel/spatial.py`) a conv of a D slab
+reads the planes of its neighbours that its kernel reaches (`halo_d`:
+one low plane for a k3 s2 p1 conv, one a side for k3 s1 p1, one high
+plane for C-UNet's transposed k3 s2 p1 op1 conv, none for the k2 s2 and
+1x1 convs), runs without D padding on the halo'd slab and keeps its
+slab's planes of the output; then its output takes its own level's state
+(`spatial.settle`: gathered where that level is whole, a whole input's
+output sliced where its level is sharded).
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.init import fill_, lecun_normal
+from ..parallel import spatial
 from .adn import ADN
 
 
@@ -92,9 +102,23 @@ _CONV_T = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
 def conv_transpose(x: torch.Tensor, weight: torch.Tensor, strides: Sequence[int],
                    padding: Sequence[int], output_padding: Sequence[int],
                    bias: torch.Tensor | None = None) -> torch.Tensor:
-    """Channel-last 2-D or 3-D transposed conv with torch padding semantics."""
-    return _cl(_CONV_T[x.ndim - 2](_cf(x), weight, bias, tuple(strides),
-                                   tuple(padding), tuple(output_padding)))
+    """Channel-last 2-D or 3-D transposed conv with torch padding semantics
+    (on a D slab under spatial partitioning: its halo, then its slab of
+    the output, `settle`d)."""
+    line = spatial.line_of(x)
+    if line is None:
+        return spatial.settle(_cl(_CONV_T[x.ndim - 2](_cf(x), weight, bias, tuple(strides),
+                                                      tuple(padding), tuple(output_padding))),
+                              False)
+    k, s, p = weight.shape[2], strides[0], padding[0]
+    lo, hi = spatial.conv_dims(k, s, p, transposed=True)
+    d = x.shape[1]
+    y = _cl(F.conv_transpose3d(_cf(spatial.halo_d(x, lo, hi, line)), weight, bias,
+                               tuple(strides), (p, *padding[1:]), (0, *output_padding[1:])))
+    if y.shape[1] < s * (lo + d):
+        raise NotImplementedError(f"spatial partitioning: transposed conv k{k} s{s} p{p} "
+                                  "leaves its slab short (ROADMAP M11)")
+    return spatial.settle(y.narrow(1, s * lo, s * d).contiguous(), True)
 
 
 class Conv(nn.Module):
@@ -119,8 +143,18 @@ class Conv(nn.Module):
             fill_(self.bias, torch.zeros(self.bias.shape))
 
     def forward(self, x):
-        return _cl(_CONV[len(self.kernel_size)](_cf(x), self.weight, self.bias,
-                                                self.stride, self.padding))
+        line = spatial.line_of(x)
+        if line is None:
+            return spatial.settle(_cl(_CONV[len(self.kernel_size)](
+                _cf(x), self.weight, self.bias, self.stride, self.padding)), False)
+        k, s, p = self.kernel_size[0], self.stride[0], self.padding[0]
+        if x.shape[1] % s:
+            raise ValueError(f"spatial partitioning: a stride-{s} conv over a slab of "
+                             f"{x.shape[1]} planes")
+        lo, hi = spatial.conv_dims(k, s, p)
+        xh = spatial.halo_d(x, lo, hi, line)
+        return spatial.settle(_cl(F.conv3d(_cf(xh), self.weight, self.bias, self.stride,
+                                           (0, *self.padding[1:]))), True)
 
 
 class Convolution(nn.Module):

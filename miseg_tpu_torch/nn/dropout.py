@@ -26,7 +26,12 @@ The rank and world are the "data" coordinate and size
 share a batch and draw the same masks.  Under tensor parallelism the
 MLP's hidden activation holds the rank's piece of its columns
 (`columns`); its mask is that piece of the whole activation's, so one
-process and the ranks drop the same elements.
+process and the ranks drop the same elements.  Under spatial
+partitioning (`parallel/spatial.py`, `spatial.mask_part`) an element-wise
+mask of a D slab is the rank's slab of the whole volume's mask, and one of
+a swin block's window rows (attention and projection dropout) those rows
+of the whole windows' mask; drop-path masks are per sample, the same on
+every rank of the line.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch
 from torch import nn
 
 from .. import parallel
+from ..parallel import spatial
 
 _generator: contextvars.ContextVar[torch.Generator | None] = contextvars.ContextVar(
     "miseg_dropout_generator", default=None)
@@ -83,10 +89,12 @@ def _drop(x: torch.Tensor, rate: float, mask_shape,
     if rate >= 1.0:
         return torch.zeros_like(x)
     rank, world = parallel.host_shard_info()
+    mask_shape, take = spatial.mask_part(x, tuple(mask_shape))
     n = mask_shape[0]
     if columns is None:
         draw = torch.rand((world * n, *mask_shape[1:]), generator=gen, device=x.device)
-        keep = draw[rank * n:(rank + 1) * n] >= rate
+        draw = draw[rank * n:(rank + 1) * n]
+        keep = (draw if take is None else take(draw)) >= rate
     else:
         piece, pieces = columns
         k = mask_shape[-1]

@@ -20,6 +20,14 @@ block built with a `dropout` rate drops after norm1 (+ act) in training,
 which the fused chain cannot: the plan rejects it there, as the JAX
 package's does (miseg_tpu/nn/dynunet.py:85).  No block of SwinUNETR takes
 one.
+
+Under spatial partitioning (`parallel/spatial.py`) a block on a D slab
+runs K4 in its D-halo mode (`spatial.conv3_halo`: one plane of each
+neighbour through `halo_d`, the fold's moments merged over the line, the
+columns folded from them), K3 / K2 on those merged columns, and the 1x1
+projection locally with its norm's statistics merged
+(`spatial.instance_columns`); the unfused path's convs and norms take
+their halos and merged statistics in `Conv` and `Norm`.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 from torch import nn
 
 from ..ops.kernels import fused_conv, fused_norm
+from ..parallel import spatial
 from .convolutions import Convolution, get_output_padding, get_padding
 from .dropout import Dropout
 from .factories import get_act, leaky_slope
@@ -66,15 +75,32 @@ def _fuse_plan(block, x, modalities):
             or (block.drop.rate and block.training)
             or norm.kind not in ("instance", "instance_cond") or norm.scale is None
             or (norm.kind == "instance_cond" and modalities is None)
-            or not fused_conv.supported(x.shape, block.kernel_size, block.stride)):
+            or not fused_conv.supported(_k4_shape(x), block.kernel_size, block.stride,
+                                        halo=spatial.line_of(x) is not None)):
         return None
     return (modalities if norm.kind == "instance_cond" else None,)
 
 
+def _k4_shape(x) -> tuple[int, ...]:
+    """The input shape K4 sees: a slab's with its two halo planes."""
+    if spatial.line_of(x) is None:
+        return tuple(x.shape)
+    return (x.shape[0], x.shape[1] + 2, *x.shape[2:])
+
+
 def _fused_convs(block, x, styles):
     """conv1 -> [norm1 + act on read] conv2, both through K4: returns y2
-    and norm2's columns."""
+    and norm2's columns (on a slab, K4's D-halo mode with the columns of
+    the whole volume's statistics)."""
     n1, n2 = block.norm1, block.norm2
+    line = spatial.line_of(x)
+    if line is not None:
+        w1, w2 = block.conv1.conv.weight, block.conv2.conv.weight
+        y1, *mom1 = spatial.conv3_halo(x, w1, line=line)
+        sc1, sh1 = fused_norm.columns_from_moments(*mom1, n1.scale, n1.bias, styles, eps=n1.eps)
+        y2, *mom2 = spatial.conv3_halo(y1, w2, sc1, sh1, slope=block.slope, line=line)
+        return (y2, *fused_norm.columns_from_moments(*mom2, n2.scale, n2.bias, styles,
+                                                     eps=n2.eps))
     y1, sc1, sh1 = fused_conv.conv3_norm_columns(
         x, block.conv1.conv.weight, gamma=n1.scale, beta=n1.bias, styles=styles,
         eps=n1.eps)
@@ -135,8 +161,7 @@ class UnetResBlock(nn.Module):
         w3 = self.conv3.conv.weight   # a 1x1 conv: the plan accepts stride 1 only
         res = torch.matmul(x, w3.reshape(cout, -1).t().to(x.dtype))
         n3 = self.norm3
-        sc3, sh3 = fused_norm.channel_scale_shift(
-            res.reshape(bsz, -1, cout), n3.scale, n3.bias, styles, eps=n3.eps)
+        sc3, sh3 = spatial.instance_columns(res, n3.scale, n3.bias, styles, eps=n3.eps)
         return fused_norm.apply_norm2_act(y2, sc2, sh2, res, sc3, sh3,
                                           negative_slope=self.slope)
 

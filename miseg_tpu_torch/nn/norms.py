@@ -16,6 +16,13 @@ mode it normalises with the buffers.  Under data parallelism the
 batch's statistics are the global batch's (`parallel.batch_stats`, as
 JAX's on its global array), so the running statistics stay equal on
 every rank.
+
+Under spatial partitioning (`parallel/spatial.py`) a norm of a D slab
+takes the whole volume's statistics: the instance kinds through K1's
+moments mode, the line's merge and K2 on the merged columns
+(`spatial.instance_norm_act`), `group` merged per group
+(`spatial.group_norm`), `batch` over the data x spatial ranks
+(`parallel.batch_stats`); `layer` is per token and stays local.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from torch import nn
 from .. import parallel
 from ..ops import norms as N
 from ..ops.init import fill_
-from ..ops.kernels import fused_norm
+from ..parallel import spatial
 
 KINDS = ("instance_cond", "instance", "layer", "group", "batch")
 MOMENTUM = 0.9   # batch norm's running-statistics decay (miseg_tpu/nn/norms.py:38)
@@ -77,13 +84,14 @@ class Norm(nn.Module):
             if self.kind == "instance_cond" and modalities is None:
                 raise ValueError("instance_cond norm requires a `modalities` vector")
             styles = modalities if self.kind == "instance_cond" else None
-            return fused_norm.instance_norm_act(
+            return spatial.instance_norm_act(
                 x, self.scale, self.bias, styles, eps=self.eps,
                 negative_slope=act_slope, add=add)
         if self.kind == "layer":
             y = N.layer_norm(x, self.scale, self.bias, eps=self.eps)
         elif self.kind == "group":
-            y = N.group_norm(x, self.num_groups, self.scale, self.bias, eps=self.eps)
+            group_norm = spatial.group_norm if spatial.line_of(x) is not None else N.group_norm
+            y = group_norm(x, self.num_groups, self.scale, self.bias, eps=self.eps)
         else:
             y = self._batch_norm(x)
         if add is not None:

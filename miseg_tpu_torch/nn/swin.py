@@ -8,6 +8,18 @@ Window attention runs kernel K5 (`ops.kernels.window_attention`) on the
 card; every norm runs K1 + K2.  Dropout (after the projection and in the
 MLP), attention dropout (on the softmax probabilities) and per-sample
 drop-path act only in training (`nn/dropout.py`).
+
+Under spatial partitioning (`parallel/spatial.py`) a block on a D slab
+normalises its slab (statistics merged over the line), gathers the whole
+volume (`gather_d`), pads, rolls and partitions it as one process does,
+and attends only its share of the window rows along D (qkv, K5 with those
+rows' region ids and the bias, proj); the rows are gathered back
+(`gather_rows`), reversed, rolled back and cropped, and the rank keeps
+its slab (`slice_d`).  A rank with no rows launches no K5.  The MLP and
+norm2 run on the slab.  Patch merging is local on an even slab (its
+odd-size pad belongs to the whole volume only), then takes its level's
+state (`spatial.settle`); patch embedding pads by the whole volume's
+dims.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ from ..ops.init import fill_, trunc_normal
 from ..ops.kernels.window_attention import window_attention
 from ..ops.rel_bias import rel_bias_gather, rel_pos_index
 from ..ops.window import ATTN_MASK_VALUE, get_window_size, window_partition, window_reverse
+from ..parallel import spatial
 from .convolutions import Conv
 from .dropout import Dropout, DropPath
 from .layers import Linear
@@ -81,7 +94,13 @@ class WindowAttention(nn.Module):
             bias = bias[:, :n, :n]
         bias = bias.float().contiguous()
         q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
-        if self.training and self.attn_drop.rate > 0:
+        if b == 0:
+            # a rank with no window rows under spatial partitioning: no K5,
+            # but its dropout still draws the whole windows' masks
+            out = q
+            if self.training and self.attn_drop.rate > 0:
+                self.attn_drop(q.new_zeros((0, self.num_heads, n, n)))
+        elif self.training and self.attn_drop.rate > 0:
             # The configuration chooses this route, as in the reference
             # (miseg_tpu/nn/swin.py:113): K5 applies no dropout to P, so
             # attention dropout in training runs the attention in PyTorch
@@ -130,21 +149,44 @@ class SwinTransformerBlock(nn.Module):
 
     def _pad_roll_attend(self, x, mask, modalities):
         x = self.norm1(x, modalities)
-        b, *spatial, _ = x.shape
-        window_size, shift_size = get_window_size(spatial, self.window_size,
+        line = spatial.line_of(x)
+        if line is not None:
+            x = spatial.gather_d(x, line)
+        b, *dims, _ = x.shape
+        window_size, shift_size = get_window_size(dims, self.window_size,
                                                   self.shift_size)
-        x = _pad_cl(x, tuple((w - s % w) % w for s, w in zip(spatial, window_size)))
+        x = _pad_cl(x, tuple((w - s % w) % w for s, w in zip(dims, window_size)))
         padded = x.shape[1:-1]
-        axes = tuple(range(1, 1 + len(spatial)))
+        axes = tuple(range(1, 1 + len(dims)))
         shifted = any(shift_size)
         if shifted:
             x = torch.roll(x, [-s for s in shift_size], dims=axes)
         windows = window_partition(x, window_size)
-        attn = self.attn(windows, mask if shifted else None)
+        mask = mask if shifted else None
+        if line is None:
+            attn = self.attn(windows, mask)
+        else:
+            attn = self._attend_rows(windows, mask, b, padded[0] // window_size[0], line)
         x = window_reverse(attn, window_size, (b, *padded))
         if shifted:
             x = torch.roll(x, list(shift_size), dims=axes)
-        return x[(slice(None), *(slice(0, n) for n in spatial))]
+        x = x[(slice(None), *(slice(0, n) for n in dims))]
+        return x if line is None else spatial.slice_d(x, line)
+
+    def _attend_rows(self, windows, ids, b, n_rows, line):
+        """Attention on this rank's share of the `n_rows` window rows
+        along D of every sample (with those rows' region ids), the rows of
+        every rank gathered back: `windows`' layout."""
+        _, n, c = windows.shape
+        per = windows.shape[0] // (b * n_rows)
+        first, end, counts = spatial.window_rows(n_rows, line)
+        mine = windows.reshape(b, n_rows, per, n, c)[:, first:end].reshape(-1, n, c)
+        if ids is not None:
+            ids = ids.reshape(n_rows, per, n)[first:end].reshape(-1, n)
+        with spatial.rows(b, n_rows, per, first, end):
+            out = self.attn(mine, ids)
+        out = spatial.gather_rows(out.reshape(b, end - first, per, n, c), counts, line)
+        return out.reshape(-1, n, c)
 
     def forward(self, x, mask=None, modalities=None):
         x = x + self.drop_path(self._pad_roll_attend(x, mask, modalities))
@@ -178,10 +220,11 @@ class PatchMergingV2(nn.Module):
                                    device=device, dtype=dtype)
 
     def forward(self, x, modalities=None):
+        slab = spatial.line_of(x) is not None
         x = _pad_cl(x, tuple(s % 2 for s in x.shape[1:-1]))
         x = torch.cat([x[(slice(None), *(slice(o, None, 2) for o in off))]
                        for off in self.offsets], dim=-1)
-        return self.reduction(self.norm(x, modalities))
+        return self.reduction(self.norm(spatial.settle(x, slab), modalities))
 
 
 class PatchEmbed(nn.Module):
@@ -198,6 +241,6 @@ class PatchEmbed(nn.Module):
 
     def forward(self, x, modalities=None):
         x = _pad_cl(x, tuple((p - s % p) % p
-                             for s, p in zip(x.shape[1:-1], self.patch_size)))
+                             for s, p in zip(spatial.global_dims(x), self.patch_size)))
         x = self.proj(x)
         return x if self.norm is None else self.norm(x, modalities)

@@ -10,6 +10,17 @@
 // Halo voxels outside the volume are zero after the transform (the TPU
 // kernel multiplies its z-halo by `valid` and pads y/x with zeros after
 // `_transform`), which is the unfused path's zero-padded normalised input.
+//
+// D-halo mode (spatial partitioning, `parallel/spatial.py`): x is
+// [B, Z + 2, Y, X, Cin], a rank's Z-plane slab of a volume with one plane
+// of each neighbour's around it, and y is [B, Z, Y, X, Cout].  The prologue
+// runs on the halo planes too; a halo plane flagged as the volume's own
+// zero padding (the first rank's low plane, the last rank's high plane) is
+// zero after the prologue, as today's padding is.  Every path addresses x
+// through Args::zoff (the planes before the slab's first) and Args::Sx (x's
+// voxels a sample) and takes a z neighbour inside [zlo, zhi): [0, Z) for a
+// whole volume, one plane further on each side that is not flagged.  The
+// planners see the output's geometry; the statistics cover its Z planes.
 // The epilogue rounds y to T, stores it, and writes the per-channel
 // (mean, M2) of the ROUNDED values of its tile: a 4x4x16 brick on the
 // brick path, a 4x4x4 brick or the whole sample on the coarse path, else
@@ -138,7 +149,9 @@ struct Args {
   int* counters;        // coarse path: arrival count per (tile, N block), all 0
   int Z, Y, X, cin, cout, n_tiles, splits, nsteps;
   int wcin, wcout;      // the padded widths of w (cin, cout on the CUDA-core path)
-  int S;                // voxels per sample
+  int S;                // voxels per sample of y
+  int Sx;               // voxels per sample of x: S, or (Z + 2) * Y * X in D-halo mode
+  int zlo, zhi, zoff;   // a z neighbour is read when zlo <= z < zhi, at plane z + zoff of x
   long long n_parts;    // B * n_tiles
   int tz, ty, tx;       // coarse path: the box tile
   int smem_main;        // coarse path: dynamic shared bytes before the columns
@@ -261,7 +274,7 @@ __device__ __forceinline__ Tile tile_of(const Args& a) {
   return t;
 }
 
-// Per tile row: its flat voxel index within the sample, and bit `tap`
+// Per tile row: its flat voxel index within x's sample, and bit `tap`
 // (tap = kz*9 + ky*3 + kx) set when that neighbour lies inside the volume.
 // Rows past the sample's end get no bits.
 __device__ __forceinline__ void tile_rows(const Args& a, const Tile& t, int* roff,
@@ -274,12 +287,12 @@ __device__ __forceinline__ void tile_rows(const Args& a, const Tile& t, int* rof
       const int y = q % a.Y, z = q / a.Y;
       for (int tap = 0; tap < 27; ++tap) {
         const int zz = z + tap / 9 - 1, yy = y + (tap / 3) % 3 - 1, xx = x + tap % 3 - 1;
-        if ((unsigned)zz < (unsigned)a.Z && (unsigned)yy < (unsigned)a.Y &&
+        if (zz >= a.zlo && zz < a.zhi && (unsigned)yy < (unsigned)a.Y &&
             (unsigned)xx < (unsigned)a.X)
           mask |= 1u << tap;
       }
     }
-    roff[r] = m;
+    roff[r] = m + a.zoff * a.Y * a.X;   // the voxel's flat index in x
     rmask[r] = mask;
   }
 }
@@ -425,14 +438,14 @@ struct BrickRows {
   }
 };
 
-// halo voxel hv (x fastest) of the brick at `rows` -> its flat voxel index,
-// or -1 outside the volume
+// halo voxel hv (x fastest) of the brick at `rows` -> its flat voxel index
+// in x, or -1 outside the volume (or on a flagged halo plane)
 __device__ __forceinline__ int brick_halo_voxel(const Args& a, const BrickRows& rows, int hv) {
   const int hx = hv % kHaloX, hy = hv / kHaloX % kHaloY, hz = hv / (kHaloX * kHaloY);
   const int zz = rows.z0 - 1 + hz, yy = rows.y0 - 1 + hy, xx = rows.x0 - 1 + hx;
-  const bool in = (unsigned)zz < (unsigned)a.Z && (unsigned)yy < (unsigned)a.Y &&
+  const bool in = zz >= a.zlo && zz < a.zhi && (unsigned)yy < (unsigned)a.Y &&
                   (unsigned)xx < (unsigned)a.X;
-  return in ? (zz * a.Y + yy) * a.X + xx : -1;
+  return in ? ((zz + a.zoff) * a.Y + yy) * a.X + xx : -1;
 }
 
 template <int NF, int KC, int HC>
@@ -462,7 +475,7 @@ miseg_k4_conv_brick(Args a) {
   const int cin = a.cin, wcin = a.wcin, wcout = a.wcout;
   const bool affine = a.scale != nullptr, leaky = a.leaky != 0;
   const bool transform = affine || leaky;
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x) + (long long)t.b * a.S * cin;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x) + (long long)t.b * a.Sx * cin;
   const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
 
   if (affine) stage_columns(a, t.b, ssc, ssh, kBrickThreads);
@@ -663,7 +676,7 @@ miseg_k4_conv_coarse(Args a) {
   const int cin = a.cin, wcin = a.wcin, wcout = a.wcout;
   const bool affine = a.scale != nullptr, leaky = a.leaky != 0;
   const bool transform = affine || leaky;
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x) + (long long)t.b * a.S * cin;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x) + (long long)t.b * a.Sx * cin;
   const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
   const int per = (a.nsteps + a.splits - 1) / a.splits;
   const int u_begin = blockIdx.z * per, n = min(a.nsteps, u_begin + per) - u_begin;
@@ -675,9 +688,9 @@ miseg_k4_conv_coarse(Args a) {
   auto halo_voxel = [&](int hv) {
     const int hx = hv % HX, q = hv / HX, hy = q % HY, hz = q / HY;
     const int zz = box.z0 - 1 + hz, yy = box.y0 - 1 + hy, xx = box.x0 - 1 + hx;
-    const bool in = (unsigned)zz < (unsigned)a.Z && (unsigned)yy < (unsigned)a.Y &&
+    const bool in = zz >= a.zlo && zz < a.zhi && (unsigned)yy < (unsigned)a.Y &&
                     (unsigned)xx < (unsigned)a.X;
-    return in ? (zz * a.Y + yy) * a.X + xx : -1;
+    return in ? ((zz + a.zoff) * a.Y + yy) * a.X + xx : -1;
   };
   // unit k of the split into ring slot k % S; the chunk's halo with the
   // unit that opens it
@@ -961,7 +974,7 @@ miseg_k4_conv_cin1(Args a) {
   auto fetch = [&](int p) {
     const int b = p / n_tiles;
     const BrickRows rows = brick_rows(p - b * n_tiles);
-    const __nv_bfloat16* xs = x + (long long)b * a.S;
+    const __nv_bfloat16* xs = x + (long long)b * a.Sx;
 #pragma unroll
     for (int j = 0; j < kCin1HaloPer; ++j) {
       const int hv = tid + j * kBrickThreads;
@@ -1121,7 +1134,7 @@ miseg_k4_conv_fma(Args a) {
   const int n0 = blockIdx.y * BN;
   const int cin = a.cin, cout = a.cout, K = 27 * cin;
   const bool affine = a.scale != nullptr, leaky = a.leaky != 0;
-  const T* x = static_cast<const T*>(a.x) + (long long)t.b * a.S * cin;
+  const T* x = static_cast<const T*>(a.x) + (long long)t.b * a.Sx * cin;
   const T* w = static_cast<const T*>(a.w);
   const float* sc = affine ? a.scale + (long long)t.b * cin : nullptr;
   const float* sh = affine ? a.shift + (long long)t.b * cin : nullptr;
@@ -1628,15 +1641,22 @@ extern "C" int miseg_fused_conv3_counters(int B, int Z, int Y, int X, int cin,
 // workspace (see miseg_fused_conv3_splits) or null when there is one
 // split; counters the arrival counters (see miseg_fused_conv3_counters) or
 // null when none are needed.  Calls that share counters run on one stream.
+// halo: 0 for a whole volume; else the D-halo mode (see the header), x
+// [B, Z + 2, Y, X, cin], with bit 1 set when x's first plane is the
+// volume's zero padding and bit 2 when its last plane is.  Z, the plans and
+// the partials are the output's.
 // Returns the CUDA error code of the last launch (0 on success).
 extern "C" int miseg_fused_conv3(const void* x, const void* w, const void* scale,
                                  const void* shift, float slope, int leaky,
                                  void* y, void* part, void* work, void* counters,
                                  int B, int Z, int Y, int X, int cin, int cout,
-                                 int dtype, void* stream) {
+                                 int dtype, int halo, void* stream) {
   const long long s = (long long)Z * Y * X;
+  const int zoff = halo ? 1 : 0;
+  const long long sx = (long long)(Z + 2 * zoff) * Y * X;
   if (B < 1 || Z < 1 || Y < 1 || X < 1 || cin < 1 || cout < 1 ||
-      s * (cin > cout ? cin : cout) >= (1LL << 31) ||
+      sx * (cin > cout ? cin : cout) >= (1LL << 31) || halo < 0 || halo > 7 ||
+      (halo != 0 && !(halo & 1)) ||
       (scale == nullptr) != (shift == nullptr) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -1656,6 +1676,10 @@ extern "C" int miseg_fused_conv3(const void* x, const void* w, const void* scale
   a.cin = cin;
   a.cout = cout;
   a.S = (int)s;
+  a.Sx = (int)sx;
+  a.zoff = zoff;
+  a.zlo = (halo & 1) && !(halo & 2) ? -1 : 0;
+  a.zhi = (halo & 1) && !(halo & 4) ? Z + 1 : Z;
   const Plan p = plan_call(dtype, B, Z, Y, X, cin, cout);
   a.wcin = p.wcin;
   a.wcout = p.wcout;

@@ -10,7 +10,12 @@
 //                   -> the same columns,
 // with scale = gamma * rsqrt(var + eps), shift = beta - mean * scale, and
 // gamma/beta none, [C], or the [n_styles, C] bank row of the clamped style
-// id of each sample.
+// id of each sample.  In moments mode (`moments` != 0; no gamma/beta) both
+// write the sample's f32 (mean, M2) [2, B, C] in place of the columns: the
+// same reduction with another tail, for spatial partitioning, where each
+// rank holds a D slab of the volume and the ranks' moments are merged
+// (Chan's formula, `parallel/spatial.py` `merge_moments`) before the
+// columns are folded on the host side.
 //
 // What bounds it on an H100: reading x once, 85 MB at [1, 96^3, 48] bf16,
 // 25 us at 3.35 TB/s; the arithmetic is a few operations an element.  The
@@ -219,12 +224,18 @@ __device__ void write_partial(const Entries& e, float* dst, long long n_items, l
 }
 
 // Fold lane 0's entries (a sample's S voxels) with gamma/beta into the
-// columns of sample b: out[0][b][c], out[1][b][c].
+// columns of sample b: out[0][b][c], out[1][b][c]; in moments mode the
+// entries' (mean, M2) themselves.
 __device__ void write_columns(const Entries& e, const Affine& af, float* out, int B, int b, int S,
-                              int C, int c0, int ncols, float eps) {
+                              int C, int c0, int ncols, float eps, int moments) {
   const int row = af.mode == 2 ? min(max(af.styles[b], 0), af.n_styles - 1) : 0;
   for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
     const float mean = e.mean[c];
+    if (moments) {
+      out[(long long)b * C + c0 + c] = mean;
+      out[((long long)B + b) * C + c0 + c] = e.m2[c];
+      continue;
+    }
     const float inv = 1.0f / sqrtf(fmaxf(e.m2[c] / (float)S, 0.0f) + eps);
     float scale = inv, shift = -mean * inv;
     if (af.mode != 0) {
@@ -260,6 +271,7 @@ struct StatsArgs {
   Affine af;
   int B, S, C, rows, n_chunks, block_c, n_cblocks;
   float eps;
+  int moments;          // write (mean, M2) in place of the columns
 };
 
 template <typename T, int V>
@@ -318,7 +330,7 @@ miseg_k1_stats(StatsArgs a) {
   }
   merge_lanes(e, (int)min((long long)lanes, r1 - r0), a.block_c, ncols);   // lanes that saw rows
   if (a.n_chunks == 1) {
-    write_columns(e, a.af, a.out, a.B, b, a.S, a.C, c0, ncols, a.eps);
+    write_columns(e, a.af, a.out, a.B, b, a.S, a.C, c0, ncols, a.eps, a.moments);
     return;
   }
   const long long n_parts = (long long)a.B * a.n_chunks;
@@ -326,7 +338,7 @@ miseg_k1_stats(StatsArgs a) {
   if (!arrive_last(a.counters + (long long)b * a.n_cblocks + cblk, a.n_chunks)) return;
   merge_items(e, a.part, n_parts, (long long)b * a.n_chunks, 0, a.n_chunks, a.rows, a.S, a.C,
               c0, ncols);
-  write_columns(e, a.af, a.out, a.B, b, a.S, a.C, c0, ncols, a.eps);
+  write_columns(e, a.af, a.out, a.B, b, a.S, a.C, c0, ncols, a.eps, a.moments);
 }
 
 struct FoldArgs {
@@ -337,6 +349,7 @@ struct FoldArgs {
   Affine af;
   int B, S, C, rows, n_tiles, group, n_groups, block_c, n_cblocks;
   float eps;
+  int moments;          // write (mean, M2) in place of the columns
 };
 
 __global__ void __launch_bounds__(kMaxThreads)
@@ -348,7 +361,7 @@ miseg_k1_fold(FoldArgs a) {
   merge_items(e, a.part, (long long)a.B * a.n_tiles, (long long)b * a.n_tiles, first, end, a.rows,
               a.S, a.C, c0, ncols);
   if (a.n_groups == 1) {
-    write_columns(e, a.af, a.out, a.B, b, a.S, a.C, c0, ncols, a.eps);
+    write_columns(e, a.af, a.out, a.B, b, a.S, a.C, c0, ncols, a.eps, a.moments);
     return;
   }
   const long long n_work = (long long)a.B * a.n_groups;
@@ -356,7 +369,7 @@ miseg_k1_fold(FoldArgs a) {
   if (!arrive_last(a.counters + (long long)b * a.n_cblocks + cblk, a.n_groups)) return;
   merge_items(e, a.work, n_work, (long long)b * a.n_groups, 0, a.n_groups, a.rows * a.group, a.S,
               a.C, c0, ncols);
-  write_columns(e, a.af, a.out, a.B, b, a.S, a.C, c0, ncols, a.eps);
+  write_columns(e, a.af, a.out, a.B, b, a.S, a.C, c0, ncols, a.eps, a.moments);
 }
 
 template <typename T>
@@ -399,12 +412,13 @@ Affine make_affine(const void* gamma, const void* beta, int gamma_dtype, int gam
 // counters: B * ceil(C / block_c) ints, all 0 (both null when n_chunks ==
 // 1).  gamma/beta: null (mode 0), [C] (mode 1) or [n_styles, C] (mode 2,
 // with int32 styles [B], clamped) of gamma_dtype (0, 1, 2 as x).  out: f32
-// [2, B, C], scale then shift.  Returns the CUDA error of the launch.
+// [2, B, C], scale then shift; with moments != 0 (gamma_mode 0) the mean
+// and M2 instead.  Returns the CUDA error of the launch.
 extern "C" int miseg_k1_stats(const void* x, int dtype, int vec, void* part, const void* gamma,
                               const void* beta, int gamma_dtype, int gamma_mode,
                               const void* styles, int n_styles, void* out, void* counters, int B,
                               int S, int C, int rows, int n_chunks, int block_c, int threads,
-                              float eps, void* stream) {
+                              float eps, int moments, void* stream) {
   const int width = dtype == 0 ? 4 : 8;
   const Affine af = make_affine(gamma, beta, gamma_dtype, gamma_mode, styles, n_styles);
   if (B < 1 || S < 1 || C < 1 || rows < 1 || n_chunks < 1 || block_c < 1 || dtype < 0 ||
@@ -412,7 +426,8 @@ extern "C" int miseg_k1_stats(const void* x, int dtype, int vec, void* part, con
       threads < 1 || threads > kMaxThreads || threads % (block_c / vec) ||
       threads * vec > kMaxEntries || block_c > kMaxEntries ||
       (long long)(n_chunks - 1) * rows >= S || (long long)n_chunks * rows < S ||
-      (n_chunks > 1 && (part == nullptr || counters == nullptr)) || !affine_ok(af))
+      (n_chunks > 1 && (part == nullptr || counters == nullptr)) || !affine_ok(af) ||
+      (moments && af.mode != 0))
     return (int)cudaErrorInvalidValue;
   StatsArgs a;
   a.x = x;
@@ -428,6 +443,7 @@ extern "C" int miseg_k1_stats(const void* x, int dtype, int vec, void* part, con
   a.block_c = block_c;
   a.n_cblocks = (C + block_c - 1) / block_c;
   a.eps = eps;
+  a.moments = moments;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_stats<float>(a, vec, threads, st);
   if (dtype == 1) return (int)launch_stats<__nv_bfloat16>(a, vec, threads, st);
@@ -438,15 +454,16 @@ extern "C" int miseg_k1_stats(const void* x, int dtype, int vec, void* part, con
 // only a sample's last tile short.  Groups of `group` tiles, block_c
 // channels a CTA (see fused_norm.fold_grid).  work: f32 [2, B * n_groups,
 // C] and counters: B * ceil(C / block_c) ints, all 0 (both null when
-// n_groups == 1).  gamma/beta/styles and out as miseg_k1_stats.
+// n_groups == 1).  gamma/beta/styles, out and moments as miseg_k1_stats.
 extern "C" int miseg_k1_fold(const void* part, void* work, const void* gamma, const void* beta,
                              int gamma_dtype, int gamma_mode, const void* styles, int n_styles,
                              void* out, void* counters, int B, int S, int C, int rows,
-                             int n_tiles, int group, int block_c, float eps, void* stream) {
+                             int n_tiles, int group, int block_c, float eps, int moments,
+                             void* stream) {
   const Affine af = make_affine(gamma, beta, gamma_dtype, gamma_mode, styles, n_styles);
   if (B < 1 || S < 1 || C < 1 || rows < 1 || n_tiles < 1 || group < 1 || block_c < 1 ||
       block_c > kMaxEntries || (long long)(n_tiles - 1) * rows >= S ||
-      (long long)n_tiles * rows < S || !affine_ok(af))
+      (long long)n_tiles * rows < S || !affine_ok(af) || (moments && af.mode != 0))
     return (int)cudaErrorInvalidValue;
   FoldArgs a;
   a.part = static_cast<const float*>(part);
@@ -464,6 +481,7 @@ extern "C" int miseg_k1_fold(const void* part, void* work, const void* gamma, co
   a.block_c = block_c;
   a.n_cblocks = (C + block_c - 1) / block_c;
   a.eps = eps;
+  a.moments = moments;
   if (a.n_groups > 1 && (work == nullptr || counters == nullptr))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)a.n_groups, (unsigned)a.n_cblocks, (unsigned)B);

@@ -39,6 +39,17 @@ columns for the padded channels) is cached on the weight tensor and
 rebuilt when its version, storage, the compute dtype or the widths change.
 K4 with its fold is also the registered op `miseg::conv3_norm_columns`,
 which the wrapper calls while tracing (section "registered op").
+
+K4's D-halo mode (`conv3_halo_moments`, spatial partitioning,
+`parallel/spatial.py`): x is a rank's D slab with one plane of each
+neighbour around it, `[B, Dl + 2, H, W, Cin]`, two flags say whether the
+low and high planes are the volume's own zero padding (zero after the
+prologue, as today's same-padding is), and y is `[B, Dl, H, W, Cout]`.
+The same kernels run it (their C planners plan on the output's
+geometry), and the fold runs in its moments mode: the call returns the
+slab's per-(sample, channel) f32 (mean, M2) for the line's merge in place
+of the columns.  Its launches count in `halo_launches`; it is the
+registered op `miseg::conv3_halo_moments`.
 """
 
 from __future__ import annotations
@@ -55,26 +66,30 @@ from . import build, counters, fused_norm
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0  # K4 launches since the caller last set it to 0
+halo_launches = 0  # K4 launches in D-halo mode since the caller last set it to 0
 
 
 def _triple(v) -> tuple[int, ...]:
     return tuple(int(i) for i in v) if isinstance(v, (list, tuple)) else (int(v),) * 3
 
 
-def supported(x_shape, kernel_size, stride) -> bool:
+def supported(x_shape, kernel_size, stride, halo: bool = False) -> bool:
     """The geometry K4 computes: a 5-D channel-last input, kernel 3, stride
     1, every spatial dim >= 2 (fused_conv.py:196-204, without the TPU's
-    VMEM estimate)."""
+    VMEM estimate); in D-halo mode `x_shape` is the halo'd slab's, whose
+    own planes (D - 2) need only be one or more."""
     if len(x_shape) != 5:
         return False
     if _triple(kernel_size) != (3, 3, 3) or _triple(stride) != (1, 1, 1):
         return False
-    return all(d >= 2 for d in x_shape[1:4])
+    return x_shape[1] >= (3 if halo else 2) and all(d >= 2 for d in x_shape[2:4])
 
 
-def _check(x, w, scale, shift, gamma, beta, styles):
-    if x.ndim != 5:
-        raise ValueError(f"K4 takes x [B, Z, Y, X, Cin], got {tuple(x.shape)}")
+def _check(x, w, scale, shift, gamma, beta, styles, halo: bool = False):
+    if x.ndim != 5 or (halo and x.shape[1] < 3):
+        raise ValueError(f"K4 takes x [B, Z{' + 2' * halo}, Y, X, Cin], got {tuple(x.shape)}")
+    if halo and gamma is not None:
+        raise ValueError("K4's D-halo mode returns moments: it takes no gamma/beta")
     if w.ndim != 5 or tuple(w.shape[1:]) != (x.shape[-1], 3, 3, 3):
         raise ValueError(f"weights must be [Cout, {x.shape[-1]}, 3, 3, 3], "
                          f"got {tuple(w.shape)}")
@@ -95,16 +110,26 @@ def _check(x, w, scale, shift, gamma, beta, styles):
         raise ValueError("conditional banks need a styles vector of length B")
 
 
-def _transform(x, scale, shift, slope):
+def _transform(x, scale, shift, slope, pads=(False, False)):
     """(f32 pre-activation of the prologue, its result rounded to x's
     dtype): the conv's operand t, in the plain version and recomputed in
-    the backward."""
+    the backward.  `pads` (D-halo mode): whether x's first and last planes
+    are the volume's padding, zero in t."""
     pre = x.float()
     if scale is not None:
         bshape = (x.shape[0], 1, 1, 1, x.shape[-1])
         pre = pre * scale.float().reshape(bshape) + shift.float().reshape(bshape)
     act = pre if slope is None else torch.where(pre >= 0, pre, slope * pre)
-    return pre, act.to(x.dtype)
+    return pre, _zero_pads(act.to(x.dtype), pads)
+
+
+def _zero_pads(t, pads):
+    """`t` with its first (pads[0]) and last (pads[1]) D planes zeroed."""
+    if not any(pads):
+        return t
+    keep = torch.ones(t.shape[1], dtype=t.dtype, device=t.device)
+    keep[0], keep[-1] = (0 if pads[0] else 1), (0 if pads[1] else 1)
+    return t * keep.reshape(1, -1, 1, 1, 1)
 
 
 def conv3_norm_columns_plain(x, w, scale=None, shift=None, *,
@@ -122,6 +147,19 @@ def conv3_norm_columns_plain(x, w, scale=None, shift=None, *,
     return y, sc, sh
 
 
+def conv3_halo_moments_plain(x, w, scale=None, shift=None, *, slope: float | None = None,
+                             pad_lo: bool = False, pad_hi: bool = False):
+    """K4's D-halo mode in plain PyTorch: x `[B, Dl + 2, H, W, Cin]` ->
+    (y `[B, Dl, H, W, Cout]`, each sample's f32 (mean, M2) `[B, Cout]` of
+    the rounded y): the f32 transform rounded to x's dtype with the flagged
+    planes zero, `F.conv3d` in f32 without D padding, one rounding of y,
+    two-pass moments."""
+    t = _transform(x, scale, shift, slope, (pad_lo, pad_hi))[1].float()
+    y = F.conv3d(t.permute(0, 4, 1, 2, 3), w.to(x.dtype).float(), padding=(0, 1, 1))
+    y = y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
+    return (y, *fused_norm.channel_moments_plain(y.reshape(y.shape[0], -1, y.shape[-1])))
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     """(C entry point, its split planner, its tile size, its counter count,
@@ -131,7 +169,7 @@ def _entry():
     fn = lib.miseg_fused_conv3
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_int]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     splits = lib.miseg_fused_conv3_splits
     splits.restype = ctypes.c_int
     splits.argtypes = [ctypes.c_int] * 7
@@ -194,9 +232,11 @@ def _conv3_norm_columns(x, w, scale=None, shift=None, *,
     return y, cols[0], cols[1]
 
 
-def _conv_launch(x, w, scale, shift, slope, gamma, beta, styles, eps):
+def _conv_launch(x, w, scale, shift, slope, gamma, beta, styles, eps, halo: int = 0):
     """One K4 launch and its fold over a CUDA x: (y, f32 (next_scale,
-    next_shift) stacked `[2, B, Cout]`)."""
+    next_shift) stacked `[2, B, Cout]`).  `halo` (D-halo mode): 1, plus 2
+    when x's first plane is the volume's padding and 4 when its last is;
+    then y has two planes fewer than x and the fold gives (mean, M2)."""
     if x.device.type != "cuda":
         raise ValueError(f"K4: unsupported device {x.device}")
     if x.dtype not in _DTYPES:
@@ -207,6 +247,7 @@ def _conv_launch(x, w, scale, shift, slope, gamma, beta, styles, eps):
            for t in (w, scale, shift, gamma, beta, styles)):
         raise ValueError("all operands must be on one device")
     bsz, z, yd, xd, cin = x.shape
+    z -= 2 * (halo & 1)
     cout = w.shape[0]
     if min(z, yd, xd) < 1:
         raise ValueError(f"K4 takes a non-empty volume, got {tuple(x.shape)}")
@@ -234,13 +275,34 @@ def _conv_launch(x, w, scale, shift, slope, gamma, beta, styles, eps):
                  float(slope or 0.0), int(slope is not None), y.data_ptr(),
                  part.data_ptr(), work.data_ptr() if work is not None else None,
                  ctrs.data_ptr() if ctrs is not None else None,
-                 *dims, stream)
+                 *dims, halo, stream)
     if err != 0:
         raise RuntimeError(f"fused_conv kernel launch failed: CUDA error {err}")
-    global launches
-    launches += 1
-    cols = fused_norm.fold_launch(part, s, tile, n_tiles, gamma, beta, styles, eps=eps)
+    global launches, halo_launches
+    if halo:
+        halo_launches += 1
+    else:
+        launches += 1
+    cols = fused_norm.fold_launch(part, s, tile, n_tiles, gamma, beta, styles, eps=eps,
+                                  moments=bool(halo))
     return y, cols
+
+
+def _halo_flags(pad_lo: bool, pad_hi: bool) -> int:
+    return 1 | 2 * bool(pad_lo) | 4 * bool(pad_hi)
+
+
+def _conv3_halo_moments(x, w, scale=None, shift=None, *, slope=None, pad_lo=False,
+                        pad_hi=False):
+    """K4's D-halo mode then the fold's moments mode without autograd
+    (`conv3_halo_moments`)."""
+    _check(x, w, scale, shift, None, None, None, halo=True)
+    if x.device.type == "cpu":
+        return conv3_halo_moments_plain(x, w, scale, shift, slope=slope, pad_lo=pad_lo,
+                                        pad_hi=pad_hi)
+    y, mom = _conv_launch(x, w, scale, shift, slope, None, None, None, 1e-5,
+                          _halo_flags(pad_lo, pad_hi))
+    return y, mom[0], mom[1]
 
 
 # ------------------------------------------------------- registered op ----
@@ -278,6 +340,36 @@ def _(x, w, scale, shift, gamma, beta, styles, slope, eps):
 def _(x, w, scale, shift, gamma, beta, styles, slope, eps):
     _check(x, w, scale, shift, gamma, beta, styles)
     y = x.new_empty((*x.shape[:-1], w.shape[0]))
+    return y, x.new_empty((2, x.shape[0], w.shape[0]), dtype=torch.float32)
+
+
+@torch.library.custom_op("miseg::conv3_halo_moments", mutates_args=())
+def conv3_halo_moments_op(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
+                          shift: torch.Tensor | None, slope: float | None, pad_lo: bool,
+                          pad_hi: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's D-halo mode + the fold's moments mode: (y in x's dtype with two
+    planes fewer than x, f32 (mean, M2) stacked `[2, B, Cout]`)."""
+    raise ValueError(f"miseg::conv3_halo_moments: unsupported device {x.device}")
+
+
+@conv3_halo_moments_op.register_kernel("cpu")
+def _(x, w, scale, shift, slope, pad_lo, pad_hi):
+    y, mean, m2 = _conv3_halo_moments(x, w, scale, shift, slope=slope, pad_lo=pad_lo,
+                                      pad_hi=pad_hi)
+    return y, torch.stack((mean, m2))
+
+
+@conv3_halo_moments_op.register_kernel("cuda")
+def _(x, w, scale, shift, slope, pad_lo, pad_hi):
+    _check(x, w, scale, shift, None, None, None, halo=True)
+    return _conv_launch(x, w, scale, shift, slope, None, None, None, 1e-5,
+                        _halo_flags(pad_lo, pad_hi))
+
+
+@conv3_halo_moments_op.register_fake
+def _(x, w, scale, shift, slope, pad_lo, pad_hi):
+    _check(x, w, scale, shift, None, None, None, halo=True)
+    y = x.new_empty((x.shape[0], x.shape[1] - 2, *x.shape[2:-1], w.shape[0]))
     return y, x.new_empty((2, x.shape[0], w.shape[0]), dtype=torch.float32)
 
 
@@ -372,3 +464,85 @@ def conv3_norm_columns(x, w, scale=None, shift=None, *,
         return _Conv3NormColumns.apply(x, w, scale, shift, gamma, beta, styles, slope, eps)
     return _conv3_norm_columns(x, w, scale, shift, slope=slope, gamma=gamma, beta=beta,
                                styles=styles, eps=eps)
+
+
+def conv3_halo_moments_bwd(x, w, scale, shift, y, mean, dy, dmean, dm2, *, slope=None,
+                           pad_lo=False, pad_hi=False, needs=(True,) * 4):
+    """VJP of `conv3_halo_moments`: the cotangents of (y, mean, M2), any
+    of them None, -> (dx over all Dl + 2 planes, dw, dscale, dshift), each
+    None where `needs` (x, w, scale, shift) says no gradient is wanted.
+
+    The moments' cotangent reaches y as `dmean / S + 2 (y - mean) dM2`
+    and is added to dy in f32; the conv's VJP runs in the operand dtype on
+    the prologue's result t recomputed from x (the flagged planes zero),
+    without D padding; t's cotangent is zero on the flagged planes, then
+    goes back through the leaky-relu and the affine in f32, so dscale and
+    dshift sum over every plane this rank read, its neighbours' halo
+    planes included (their sum over the line is the whole gradient)."""
+    b, cout = y.shape[0], y.shape[-1]
+    g = torch.zeros(y.shape, dtype=torch.float32, device=y.device) if dy is None else dy.float()
+    if dmean is not None or dm2 is not None:
+        y3 = y.reshape(b, -1, cout)
+        g = g + fused_norm.channel_moments_bwd(y3, mean, dmean, dm2).reshape(y.shape)
+    need_t = needs[0] or (scale is not None and (needs[2] or needs[3]))
+    if not (need_t or needs[1]):
+        return None, None, None, None
+    pads = (pad_lo, pad_hi)
+    prologue = scale is not None or slope is not None
+    pre, t = (_transform(x, scale, shift, slope, pads) if prologue
+              else (None, _zero_pads(x, pads)))
+    dt, dw, _ = torch.ops.aten.convolution_backward(
+        g.to(x.dtype).permute(0, 4, 1, 2, 3), t.permute(0, 4, 1, 2, 3), w.to(x.dtype), None,
+        [1, 1, 1], [0, 1, 1], [1, 1, 1], False, [0, 0, 0], 1, [need_t, needs[1], False])
+    dw = dw.to(w.dtype) if needs[1] else None
+    if not need_t:
+        return None, dw, None, None
+    dt = _zero_pads(dt.permute(0, 2, 3, 4, 1).float(), pads)
+    if slope is not None:
+        dt = torch.where(pre >= 0, dt, slope * dt)
+    if scale is None:
+        return dt.to(x.dtype), dw, None, None
+    bshape = (b, 1, 1, 1, x.shape[-1])
+    dx = (dt * scale.float().reshape(bshape)).to(x.dtype) if needs[0] else None
+    dims = (1, 2, 3)
+    return (dx, dw, (dt * x.float()).sum(dims).to(scale.dtype), dt.sum(dims).to(shift.dtype))
+
+
+class _Conv3HaloMoments(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, scale, shift, slope, pad_lo, pad_hi):
+        ctx.set_materialize_grads(False)
+        y, mean, m2 = _conv3_halo_moments(x, w, scale, shift, slope=slope, pad_lo=pad_lo,
+                                          pad_hi=pad_hi)
+        ctx.save_for_backward(x, w, scale, shift, y, mean)
+        ctx.slope, ctx.pads = slope, (pad_lo, pad_hi)
+        return y, mean, m2
+
+    @staticmethod
+    def backward(ctx, dy, dmean, dm2):
+        x, w, scale, shift, y, mean = ctx.saved_tensors
+        if dy is None and dmean is None and dm2 is None:
+            return (None,) * 7
+        grads = conv3_halo_moments_bwd(
+            x, w, scale, shift, y, mean, dy, dmean, dm2, slope=ctx.slope, pad_lo=ctx.pads[0],
+            pad_hi=ctx.pads[1], needs=ctx.needs_input_grad[:4])
+        return (*grads, None, None, None)
+
+
+def conv3_halo_moments(x, w, scale=None, shift=None, *, slope: float | None = None,
+                       pad_lo: bool = False, pad_hi: bool = False):
+    """K4's D-halo mode then the fold's moments mode: x `[B, Dl + 2, H, W,
+    Cin]` (a D slab with one plane of each neighbour; `pad_lo`/`pad_hi`:
+    that plane is the volume's own zero padding), w `[Cout, Cin, 3, 3, 3]`,
+    scale/shift f32 `[B, Cin]` or None, `slope` a leaky-relu after the
+    affine.  Returns (y `[B, Dl, H, W, Cout]` in x's dtype, each sample's
+    f32 mean and M2 `[B, Cout]` of y).  On the card one K4 launch counted
+    in `halo_launches` and one fold in `fold_moments_launches`; under grad
+    mode inside an autograd Function (`conv3_halo_moments_bwd`); while
+    tracing the op `miseg::conv3_halo_moments`."""
+    if torch.compiler.is_compiling():
+        y, mom = torch.ops.miseg.conv3_halo_moments(x, w, scale, shift, slope, pad_lo, pad_hi)
+        return y, mom[0], mom[1]
+    if torch.is_grad_enabled():
+        return _Conv3HaloMoments.apply(x, w, scale, shift, slope, pad_lo, pad_hi)
+    return _conv3_halo_moments(x, w, scale, shift, slope=slope, pad_lo=pad_lo, pad_hi=pad_hi)

@@ -16,6 +16,14 @@ Public entries: `instance_norm_act` (the counterpart of
 `apply_norm2_act` (:387).  K1's fold also serves K4 (`fused_conv`), whose
 epilogue writes (mean, M2) partials per tile: `fold_partials`.
 
+Spatial partitioning (`parallel/spatial.py`) takes K1 and the fold in
+their moments mode: the same launches write each sample's f32 (mean, M2)
+`[2, B, C]` of the rank's D slab in place of the columns
+(`channel_moments`; `fold_launch(..., moments=True)` after K4's D-halo
+mode), the ranks' moments are merged over the line, and the columns are
+folded from the merged `[B, C]` moments in PyTorch (`columns_from_moments`,
+the plain fold's own arithmetic).
+
 K1 is CUDA C++ (`csrc/fused_norm.cu`, built by `build.py`, bound with
 ctypes): `channel_scale_shift` is one launch of `miseg_k1_stats` and
 `fold_partials` one launch of `miseg_k1_fold`.  Each finishes its
@@ -72,6 +80,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 stats_launches = 0   # K1 launches (channel_scale_shift) since last set to 0
 fold_launches = 0    # K1 fold launches (fold_partials, after each K4) since last set to 0
+moments_launches = 0       # K1 launches in moments mode (channel_moments) since last set to 0
+fold_moments_launches = 0  # fold launches in moments mode (after K4's D-halo mode) since then
 apply_launches = 0   # K2 launches since last set to 0
 apply2_launches = 0  # K3 launches since last set to 0
 
@@ -116,13 +126,27 @@ def _merge(n, mean, m2, dim: int):
     return tot, mu, (m2 + n * d * d).sum(dim)
 
 
-def fold_partials_plain(part, s: int, rows: int, n_chunks: int, gamma=None,
-                        beta=None, styles=None, *, eps: float = 1e-5):
-    """`fold_partials` in plain PyTorch: per-chunk (mean, M2) partials
-    `f32 [2, B*n_chunks, C]` of `rows`-row chunks of S rows (only a
-    sample's last chunk short) -> f32 (scale, shift) `[B, C]`, merged in
-    the kernel's groups (`fold_grid`): each group of consecutive chunks,
-    then the groups in order."""
+def channel_moments_plain(x3):
+    """x3 `[B, S, C]` -> each sample's f32 (mean, M2) `[B, C]`, two-pass."""
+    x32 = x3.float()
+    mean = x32.mean(1)
+    return mean, (x32 - mean[:, None, :]).square().sum(1)
+
+
+def columns_from_moments(n, mean, m2, gamma=None, beta=None, styles=None, *,
+                         eps: float = 1e-5):
+    """f32 (scale, shift) `[B, C]` from the (count, mean, M2) of each
+    sample's `n` voxels, with gamma/beta as in `channel_scale_shift`: the
+    fold's arithmetic in PyTorch (differentiable)."""
+    return _columns(mean, torch.rsqrt((m2 / n).clamp_min(0.0) + eps), gamma, beta, styles)
+
+
+def fold_moments_plain(part, s: int, rows: int, n_chunks: int):
+    """The fold in moments mode in plain PyTorch: per-chunk (mean, M2)
+    partials `f32 [2, B*n_chunks, C]` of `rows`-row chunks of S rows (only
+    a sample's last chunk short) -> each sample's (mean, M2) `[B, C]`,
+    merged in the kernel's groups (`fold_grid`): each group of consecutive
+    chunks, then the groups in order."""
     _, n_parts, c = part.shape
     bsz = n_parts // n_chunks
     group, n_groups, _ = fold_grid(n_chunks, c)
@@ -133,7 +157,15 @@ def fold_partials_plain(part, s: int, rows: int, n_chunks: int, gamma=None,
                 .reshape(bsz, n_groups, group, c) for p in part)
     n_g, mean_g, m2_g = _merge(counts.expand(bsz, -1, -1, c), mean, m2, 2)
     _, mean, m2 = _merge(n_g, mean_g, m2_g, 1)
-    return _columns(mean, torch.rsqrt((m2 / s).clamp_min(0.0) + eps), gamma, beta, styles)
+    return mean, m2
+
+
+def fold_partials_plain(part, s: int, rows: int, n_chunks: int, gamma=None,
+                        beta=None, styles=None, *, eps: float = 1e-5):
+    """`fold_partials` in plain PyTorch: `fold_moments_plain`'s merge of
+    the partials -> f32 (scale, shift) `[B, C]`."""
+    mean, m2 = fold_moments_plain(part, s, rows, n_chunks)
+    return columns_from_moments(s, mean, m2, gamma, beta, styles, eps=eps)
 
 
 def apply_scale_shift_plain(x3, scale, shift, add3=None, *,
@@ -167,10 +199,10 @@ def _k1():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.miseg_k1_stats.restype = i32
     lib.miseg_k1_stats.argtypes = ([ptr, i32, i32, ptr, ptr, ptr, i32, i32, ptr, i32, ptr, ptr]
-                                   + [i32] * 7 + [ctypes.c_float, ptr])
+                                   + [i32] * 7 + [ctypes.c_float, i32, ptr])
     lib.miseg_k1_fold.restype = i32
     lib.miseg_k1_fold.argtypes = ([ptr, ptr, ptr, ptr, i32, i32, ptr, i32, ptr, ptr]
-                                  + [i32] * 7 + [ctypes.c_float, ptr])
+                                  + [i32] * 7 + [ctypes.c_float, i32, ptr])
     return lib
 
 
@@ -353,9 +385,10 @@ def fold_partials(part, s: int, rows: int, n_chunks: int, gamma=None,
 
 
 def fold_launch(part, s: int, rows: int, n_chunks: int, gamma=None, beta=None,
-                styles=None, *, eps: float = 1e-5) -> torch.Tensor:
+                styles=None, *, eps: float = 1e-5, moments: bool = False) -> torch.Tensor:
     """One launch of `miseg_k1_fold` (`fold_partials` on the card): f32
-    (scale, shift) stacked `[2, B, C]`."""
+    (scale, shift) stacked `[2, B, C]`; with `moments` (no gamma/beta),
+    each sample's (mean, M2), counted in `fold_moments_launches`."""
     if part.device.type != "cuda":
         raise ValueError(f"fused norm: unsupported device {part.device}")
     if part.dtype != torch.float32 or not part.is_contiguous():
@@ -373,12 +406,16 @@ def fold_launch(part, s: int, rows: int, n_chunks: int, gamma=None, beta=None,
         ctrs = counters.arrival_counters(part.device, stream,
                                          bsz * math.ceil(c / block_c) if n_groups > 1 else 0)
         err = _k1().miseg_k1_fold(part.data_ptr(), _ptr(work), *aff, out.data_ptr(), _ptr(ctrs),
-                                  bsz, s, c, rows, n_chunks, group, block_c, float(eps), stream)
+                                  bsz, s, c, rows, n_chunks, group, block_c, float(eps),
+                                  int(moments), stream)
     if err != 0:
         raise RuntimeError(f"K1 fold kernel launch failed: CUDA error {err}")
     del keep
-    global fold_launches
-    fold_launches += 1
+    global fold_launches, fold_moments_launches
+    if moments:
+        fold_moments_launches += 1
+    else:
+        fold_launches += 1
     return out
 
 
@@ -387,9 +424,10 @@ def _check_banks(gamma, styles):
         raise ValueError("conditional banks need a styles vector")
 
 
-def _stats_launch(x3, gamma, beta, styles, eps: float) -> torch.Tensor:
+def _stats_launch(x3, gamma, beta, styles, eps: float, moments: bool = False) -> torch.Tensor:
     """One launch of `miseg_k1_stats` over a CUDA x3: f32 (scale, shift)
-    stacked `[2, B, C]`."""
+    stacked `[2, B, C]`; with `moments` (no gamma/beta) each sample's
+    (mean, M2), counted in `moments_launches`."""
     if x3.device.type != "cuda":
         raise ValueError(f"fused norm: unsupported device {x3.device}")
     _check_cuda(x3, gamma, beta, styles)
@@ -408,12 +446,15 @@ def _stats_launch(x3, gamma, beta, styles, eps: float) -> torch.Tensor:
                                          bsz * math.ceil(c / block_c) if n_chunks > 1 else 0)
         err = _k1().miseg_k1_stats(x3.data_ptr(), _DTYPES[x3.dtype], vec, _ptr(part), *aff,
                                    out.data_ptr(), _ptr(ctrs), bsz, s, c, rows, n_chunks,
-                                   block_c, threads, float(eps), stream)
+                                   block_c, threads, float(eps), int(moments), stream)
     if err != 0:
         raise RuntimeError(f"K1 kernel launch failed: CUDA error {err}")
     del keep
-    global stats_launches
-    stats_launches += 1
+    global stats_launches, moments_launches
+    if moments:
+        moments_launches += 1
+    else:
+        stats_launches += 1
     return out
 
 
@@ -709,6 +750,52 @@ class _ChannelScaleShift(torch.autograd.Function):
         dx, dgamma, dbeta = channel_scale_shift_bwd(x3, gamma, beta, styles, dscale, dshift,
                                                     eps=ctx.eps)
         return dx.to(x3.dtype), dgamma, dbeta, None, None
+
+
+def channel_moments_bwd(x3, mean, dmean, dm2):
+    """VJP of `channel_moments`: with `mean = sum(x) / S` and `M2 =
+    sum((x - mean)^2)`, `dx = dmean / S + 2 (x - mean) dM2` (f32)."""
+    s = x3.shape[1]
+    dx = torch.zeros(x3.shape, dtype=torch.float32, device=x3.device)
+    if dmean is not None:
+        dx = dx + dmean.float()[:, None, :] / s
+    if dm2 is not None:
+        dx = dx + 2.0 * (x3.float() - mean[:, None, :]) * dm2.float()[:, None, :]
+    return dx
+
+
+class _ChannelMoments(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x3):
+        ctx.set_materialize_grads(False)
+        mean, m2 = _channel_moments(x3)
+        ctx.save_for_backward(x3, mean)
+        return mean, m2
+
+    @staticmethod
+    def backward(ctx, dmean, dm2):
+        x3, mean = ctx.saved_tensors
+        if dmean is None and dm2 is None:
+            return None
+        return channel_moments_bwd(x3, mean, dmean, dm2).to(x3.dtype)
+
+
+def _channel_moments(x3):
+    """K1's moments mode without autograd (`channel_moments`)."""
+    if x3.device.type == "cpu":
+        return channel_moments_plain(x3)
+    out = _stats_launch(x3, None, None, None, 1e-5, moments=True)
+    return out[0], out[1]
+
+
+def channel_moments(x3):
+    """K1 in moments mode: x3 `[B, S, C]` -> each sample's f32 (mean, M2)
+    `[B, C]` over its S rows (spatial partitioning merges them over the
+    line).  On the card one launch of `miseg_k1_stats`, counted in
+    `moments_launches`; differentiable (`channel_moments_bwd`)."""
+    if torch.is_grad_enabled():
+        return _ChannelMoments.apply(x3)
+    return _channel_moments(x3)
 
 
 class _ApplyScaleShift(torch.autograd.Function):

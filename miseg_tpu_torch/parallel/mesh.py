@@ -16,11 +16,13 @@ row-major, the order in which JAX reshapes `jax.devices()`, so the ranks
 of one line of the last axis ("model") are adjacent.  Each line along
 each axis is one process group, created with `dist.new_group` in the same
 order on every rank (a line of every rank is the world group).  An axis
-is "data", `cfg.fsdp_axis`, `cfg.tp_axis` or `cfg.pp_axis`; the spatial
-and any other axis raise `NotImplementedError` (ROADMAP M11), and so
-does a pipeline line of more than one rank beside any other axis of more
-than one rank but "data" (pipeline parallelism with FSDP or tensor
-parallelism).
+is "data", `cfg.fsdp_axis`, `cfg.tp_axis`, `cfg.pp_axis` or, under
+`cfg.spatial_shard`, `cfg.spatial_axis` (`spatial.py`); any other axis
+raises `NotImplementedError` (ROADMAP M11), and so does a pipeline line
+of more than one rank beside any other axis of more than one rank but
+"data" (pipeline parallelism with FSDP or tensor parallelism), and a
+spatial line of more than one rank beside FSDP, tensor or pipeline
+parallelism, for C-UNETR or UNetVanilla, or in 2-D.
 
   * `cfg.batch_size` is per data coordinate: the train loader is sharded
     by `(data index, data size)` (`host_shard_info`), so the ranks of one
@@ -33,12 +35,16 @@ parallelism).
     accumulation); a leaf FSDP shards over "data" is averaged by its
     gather's reduce-scatter instead (`fsdp.py`).  Under pipeline
     parallelism each stage holds its leaves' part of the gradient and
-    zeros for the rest, so one all-reduce over every rank sums the pipeline
-    line and averages "data" (`all_reduce_mean(..., over=data size)`).
+    zeros for the rest, and under spatial partitioning each rank its
+    slab's part, so one all-reduce over every rank sums the pipeline or
+    spatial line and averages "data" (`all_reduce_mean(..., over=data
+    size)`).
   * Batch norm's training statistics cover the global batch
     (`batch_stats`): each data rank's (count, mean, M2) merged by Chan's
     formula over the "data" line (over every rank it would count a shared
-    batch twice), with a backward that carries the cross-rank terms.
+    batch twice), with a backward that carries the cross-rank terms; under
+    spatial partitioning over the data x spatial ranks (every rank), which
+    hold the global batch's slabs.
   * Rank 0's initial parameters are broadcast (`broadcast_tensors`); rank
     0 alone writes checkpoints and metrics (`is_writer`), and the others
     wait at a barrier.
@@ -77,6 +83,7 @@ import torch.distributed as dist
 
 from ..ops import norms as N
 from ..utils.platform import resolve_device
+from . import spatial
 
 BUCKET_BYTES = 25 << 20   # gradient all-reduce bucket, DistributedDataParallel's default
 
@@ -179,19 +186,26 @@ def make_mesh(shape: Sequence[int] = (-1,), axes: Sequence[str] = ("data",)) -> 
 
 def mesh_from_config(cfg, entry: str = "Trainer") -> Mesh:
     """`cfg`'s mesh (`mesh_shape`, `mesh_axes`) over the ranks, made the
-    active one.  Each axis must be "data", `cfg.fsdp_axis`, `cfg.tp_axis`
-    or `cfg.pp_axis`: any other (the spatial axis among them) raises
-    `NotImplementedError` from `entry` (ROADMAP M11).  Tensor or pipeline
-    parallelism over "data" raises too: their ranks must hold one batch;
-    and so does pipeline parallelism (a `pp_axis` line of more than one
-    rank) beside another axis of more than one rank but "data"."""
+    active one.  Each axis must be "data", `cfg.fsdp_axis`, `cfg.tp_axis`,
+    `cfg.pp_axis` or, under `cfg.spatial_shard`, `cfg.spatial_axis`: any
+    other raises `NotImplementedError` from `entry` (ROADMAP M11).  Tensor
+    or pipeline parallelism over "data" raises too: their ranks must hold
+    one batch; and so does pipeline parallelism (a `pp_axis` line of more
+    than one rank) beside another axis of more than one rank but "data",
+    and spatial partitioning (a spatial line of more than one rank) beside
+    another axis of more than one rank but "data", with FSDP, tensor or
+    pipeline parallelism, for a model other than Swin-UNETR and C-UNet, or
+    in 2-D."""
     allowed = {"data", cfg.fsdp_axis, cfg.tp_axis, cfg.pp_axis}
+    if cfg.spatial_shard:
+        allowed.add(cfg.spatial_axis)
     bad = [a for a in cfg.mesh_axes if a not in allowed]
     if bad:
         raise NotImplementedError(
             f"{entry}: mesh_axes={list(cfg.mesh_axes)!r}: the port lays out 'data', the FSDP "
-            f"axis {cfg.fsdp_axis!r}, the tensor-parallel axis {cfg.tp_axis!r} and the "
-            f"pipeline axis {cfg.pp_axis!r}; {bad!r} wait for ROADMAP M11")
+            f"axis {cfg.fsdp_axis!r}, the tensor-parallel axis {cfg.tp_axis!r}, the "
+            f"pipeline axis {cfg.pp_axis!r} and, under spatial_shard, the spatial axis "
+            f"{cfg.spatial_axis!r}; {bad!r} wait for ROADMAP M11")
     mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes)
     for on, field, what in ((cfg.tensor_parallel, "tp_axis", "tensor"),
                             (cfg.pipeline_parallel, "pp_axis", "pipeline")):
@@ -207,6 +221,18 @@ def mesh_from_config(cfg, entry: str = "Trainer") -> Mesh:
                 f"{entry}: pipeline_parallel over {cfg.pp_axis!r} with FSDP or tensor "
                 f"parallelism (axes {others or [cfg.fsdp_axis]!r} of more than one rank) is "
                 "not ported (ROADMAP M11)")
+    if cfg.spatial_shard and mesh.size(cfg.spatial_axis) > 1:
+        others = [a for a, n in zip(mesh.axes, mesh.shape)
+                  if a not in ("data", cfg.spatial_axis) and n > 1]
+        modes = [m for m in ("fsdp", "tensor_parallel", "pipeline_parallel") if getattr(cfg, m)]
+        what = (f"with {modes + others}" if modes or others else
+                f"for model_name={cfg.model_name!r}"
+                if cfg.model_name not in spatial.MODELS else
+                "in 2-D" if cfg.spatial_dims != 3 else None)
+        if what is not None:
+            raise NotImplementedError(
+                f"{entry}: spatial_shard over {cfg.spatial_axis!r} {what} is not ported "
+                "(ROADMAP M11)")
     global _active
     _active = mesh
     return mesh
@@ -383,9 +409,10 @@ class _GlobalBatchStats(torch.autograd.Function):
 def batch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel f32 (mean, var) `[C]` of `[B, *spatial, C]` over the
     batch and spatial dims of `x` on every rank of this rank's "data"
-    line; differentiable.  Without one, this process's
+    line (under spatial partitioning, of every rank: the data x spatial
+    ranks); differentiable.  Without one, this process's
     (`ops.norms.batch_stats`, flax's one pass)."""
-    pg = data_group()
+    pg = group() if spatial.active() is not None else data_group()
     if pg is None:
         return N.batch_stats(x)
     return _GlobalBatchStats.apply(x, pg)

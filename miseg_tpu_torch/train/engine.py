@@ -60,6 +60,19 @@ over every rank sums the lines and averages "data"; the loss comes back
 from the last stage the same way, and every rank ends each step on the
 same masters.  Evaluation, state dicts and checkpoints run the serial
 model on those masters, as JAX's do.
+
+Under spatial partitioning (`cfg.spatial_shard` on a mesh whose
+`cfg.spatial_axis` line has N > 1 ranks; JAX's :281-290) each rank of the
+line takes its D slab of the data coordinate's batch (`_batch`,
+`parallel.shard_spatial_batch`) and runs the forward and the backward
+under `spatial.partition`, where the layers exchange halos, merge their
+norms' statistics and gather the levels the level rule leaves whole
+(`parallel/spatial.py`); every rank's loss is the whole patch's.  Each
+rank's gradient is its slab's part, so one all-reduce over every rank
+sums the line and averages "data" (`all_reduce_mean(..., over=)`, once a
+window under accumulation) and every rank keeps bitwise-equal masters; a
+patch whose D the rule leaves whole runs replicated on the line, its sum
+divided by N too.  Evaluation stays unsharded.
 """
 
 from __future__ import annotations
@@ -76,7 +89,7 @@ from torch import nn
 
 from .. import parallel
 from ..config import Config, require_ported
-from ..parallel import fsdp
+from ..parallel import fsdp, spatial
 from ..parallel import tensor as tensor_parallel
 from ..inferers import SlidingWindowInferer, window_starts
 from ..losses import loss_from_config
@@ -175,9 +188,9 @@ class Trainer:
         conv blocks' path of a model built here.  Metrics go to `logger`,
         by default a `MetricLogger` over `workdir` (default
         `cfg.default_root_dir`) opened at the first record (on rank 0;
-        the other ranks log nothing).  The spatial fields must hold JAX's
-        defaults (ROADMAP M11); the mesh is `cfg`'s over the ranks
-        (`parallel.mesh_from_config`), from now on the process's active one
+        the other ranks log nothing).  Fields of `config.NOT_PORTED` must
+        hold JAX's defaults (none is left of M11); the mesh is `cfg`'s over
+        the ranks (`parallel.mesh_from_config`), from now on the process's active one
         (that its dropout masks and batch statistics follow: run the steps
         of the Trainer built last)."""
         require_ported(cfg, "M11", "Trainer")
@@ -199,6 +212,7 @@ class Trainer:
         self._inferers: dict[str, _EvalInferer] = {}
         self._eval_cast: dict[str, torch.Tensor] | None = None
         self._generator: torch.Generator | None = None
+        self._sp_top: tuple[int, int] | None = None   # the partitioned patch's (D, H)
         self.history: dict[str, list[float]] = {
             "setup_s": [], "loader_wait_s": [], "step_ms": [], "epoch_s": [], "val_s": [],
             "ckpt_s": [], "eval_windows": [], "surface_s": []}
@@ -283,7 +297,17 @@ class Trainer:
         parallelism each is one stage's on every pipeline line and zeros on
         the line's other ranks: summed over the line and averaged over
         "data", in one all-reduce over every rank (so every rank gets the
-        same bits)."""
+        same bits); so under spatial partitioning, where each is the rank's
+        slab's part (a replicated patch's whole gradient, divided by the
+        line's size too), and `extra` (the loss, the whole patch's on every
+        rank of the line) is averaged over "data"."""
+        n_sp = self._sp_size()
+        if n_sp > 1:
+            over = self.mesh.size("data") * (1 if self._sp_top is not None else n_sp)
+            parallel.all_reduce_mean([g for g in grads if g is not None], parallel.group(),
+                                     over=over)
+            parallel.all_reduce_mean(list(extra), self.mesh.group("data"))
+            return
         if self._pp_active():
             parallel.all_reduce_mean([*extra, *(g for g in grads if g is not None)],
                                      parallel.group(), over=self.mesh.size("data"))
@@ -391,6 +415,20 @@ class Trainer:
             self.model, cast, (image.to(self.compute_dtype), modalities))
         return logits.float()
 
+    def _sp_size(self) -> int:
+        """The spatial line's size under `cfg.spatial_shard` (1: no spatial
+        partitioning, JAX's rule at :281)."""
+        return self.mesh.size(self.cfg.spatial_axis) if self.cfg.spatial_shard else 1
+
+    def _partition(self):
+        """The spatial partition of the batch `_batch` placed last (a no-op
+        context when none)."""
+        if self._sp_top is None:
+            return contextlib.nullcontext()
+        axis = self.cfg.spatial_axis
+        return spatial.partition(self.mesh.group(axis), self.mesh.size(axis),
+                                 self.mesh.index(axis), *self._sp_top)
+
     def _pp_active(self) -> bool:
         """Pipeline parallelism runs when `cfg.pipeline_parallel` is set and
         the mesh's pipeline line has more than one rank; otherwise the step
@@ -473,6 +511,18 @@ class Trainer:
         return t.to(self.device)
 
     def _batch(self, batch: Mapping):
+        """(image, label, modality) on the device; under spatial
+        partitioning this rank's D slab of the image and label when the
+        level rule shards the patch's D (`_sp_top` says so)."""
+        n_sp = self._sp_size()
+        self._sp_top = None
+        if n_sp > 1:
+            depth, height = tuple(batch["image"].shape[1:3])
+            if spatial.sharded_depth(depth, n_sp):
+                self._sp_top = (depth, height)
+                batch = spatial.shard_spatial_batch(
+                    {k: v for k, v in batch.items() if k in ("image", "label", "modality")},
+                    self.mesh, self.cfg.spatial_axis, data_axis=None)
         image = self._to_device(batch["image"])
         label = torch.as_tensor(batch["label"])
         if label.ndim == 5 and label.shape[-1] == 1:
@@ -495,7 +545,9 @@ class Trainer:
         the masters by name, left in their `.grad`; nothing is updated.
         Under pipeline parallelism, this rank's part of both: the loss on
         the last stage (0 on the others), the gradient of what its stage
-        ran (zeros for the rest); `train_step` sums them over the line."""
+        ran (zeros for the rest); `train_step` sums them over the line.
+        Under spatial partitioning, the whole patch's loss and this rank's
+        slab's part of the gradients."""
         image, label, mods = self._batch(batch)
         for p in state.params.values():
             p.grad = None
@@ -511,9 +563,16 @@ class Trainer:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
         else:
-            with dropout.rng(self._dropout_generator(state.step)):
-                loss = self.loss_fn(self.apply_fn(state.params, image, mods), label)
-            loss.backward()
+            with self._partition():
+                with dropout.rng(self._dropout_generator(state.step)):
+                    loss = self.loss_fn(self.apply_fn(state.params, image, mods), label)
+                loss.backward()
+            if self._sp_top is not None:
+                # a leaf this rank's slab did not reach (a window bias on a rank
+                # without window rows) still takes part in the line's all-reduce
+                for p in state.params.values():
+                    if p.grad is None and p.requires_grad:
+                        p.grad = torch.zeros_like(p)
         return loss.detach(), {n: p.grad for n, p in state.params.items()}
 
     def train_step(self, state: TrainState, batch: Mapping):

@@ -34,7 +34,12 @@ slice of a seeded global batch of N volumes (`--size`^3, one a rank):
     ms (median after a warm-up step) and bytes of f32 masters plus AdamW
     moments, and under GPipe each rank's device busy ms in one profiled
     step, beside one process's step at the same batch and GPipe's bubble,
-    (S - 1) / (M + S - 1).
+    (S - 1) / (M + S - 1);
+  * spatial partitioning (`MESH_LEGS` "sp [4]" and "data x sp [2, 2]",
+    `--spatial_shard` over ("sp",) or ("data", "sp")): the same f32 step
+    held to one process, and on the card the flagship's bf16 step ms and
+    peak memory a rank beside one process's; on `[4]` also at 192^3
+    against one process at 192^3 (its peak, or that it does not fit).
 Rank 0 prints one line each and `ok`; any failed check raises.
 
 `--launch N` (not under torchrun) runs, each under `torchrun --standalone
@@ -42,7 +47,8 @@ Rank 0 prints one line each and `ok`; any failed check raises.
 on the flagship for 2 epochs over a synthetic dataset (4 train volumes of
 128x128x112 a modality); `cli.train --fsdp` for 1 epoch, and with N = 4
 `cli.train --pipeline_parallel --mesh_shape 1 4 --mesh_axes data pp`
-(batch 2, two microbatches) for 1 epoch, whose `last.ckpt`s must hold the
+(batch 2, two microbatches) and `cli.train --spatial_shard --mesh_shape 4
+--mesh_axes sp` for 1 epoch each, whose `last.ckpt`s must hold the
 data-parallel run's names and whole shapes; `cli.tune` for 2 one-epoch
 trials over the same data.  Each must exit 0,
 `cli.train` leave `best.ckpt`, `last.ckpt` and its metrics, and
@@ -117,7 +123,46 @@ MESH_LEGS = {"fsdp [N]": (dict(fsdp=True), cs.MESH_SMALL, cs.FLAGSHIP, 1),
                                        fsdp_axis="model"), cs.MESH_SMALL, cs.FLAGSHIP, 1),
              "pp [1, 4]": (cs.PP_SWIN, cs.MESH_SMALL, cs.FLAGSHIP, 2),
              "pp [2, 2]": ({**cs.PP_UNETR, "mesh_shape": [2, 2]}, cs.PP_UNETR_SMALL, cs.UNETR,
-                           2)}
+                           2),
+             "sp [4]": (dict(spatial_shard=True, mesh_shape=[4], mesh_axes=["sp"]),
+                        cs.MESH_SMALL, cs.FLAGSHIP, 1),
+             "data x sp [2, 2]": (dict(spatial_shard=True, mesh_shape=[2, 2],
+                                       mesh_axes=["data", "sp"]), cs.MESH_SMALL, cs.FLAGSHIP, 1)}
+# the spatial leg that also runs the flagship at this patch size
+SP_LARGE = ("sp [4]", 192)
+
+
+def flagship_steps(par: dict, size: int, data: int, device) -> tuple[list, int]:
+    """Three bf16 steps of the flagship at `size`^3 under `par`, on this
+    rank's share of a batch of `data` volumes: (CUDA-event ms a step, peak
+    memory)."""
+    big = {**cs.FLAGSHIP, "roi_x": size, "roi_y": size, "roi_z": size}
+    fdata = [cs._share(b) for b in batches(Config(**big), data, size, 3, device)]
+    trainer = Trainer(Config(**big, **par), device=device)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for batch in fdata:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = trainer.train_step(state, batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return ms, torch.cuda.max_memory_allocated()
+
+
+def one_process_large(size: int, device) -> str:
+    """One process's flagship bf16 step at `size`^3, batch 1: its step ms
+    and peak memory, or that it does not fit on the card."""
+    try:
+        ms, peak = flagship_steps({}, size, 1, device)
+    except torch.OutOfMemoryError as e:
+        torch.cuda.empty_cache()
+        return f"does not fit ({str(e).splitlines()[0][:160]})"
+    return f"step ms {[round(v, 2) for v in ms]}, peak memory {peak} B"
+
 
 
 def mesh_legs(device, world: int, size: int) -> dict:
@@ -163,6 +208,15 @@ def mesh_legs(device, world: int, size: int) -> dict:
             rec["big"] = per_rank
             rec["big_placed"] = cs._mesh_record(trainer, state, 0.0)["placed_elements"]
             del trainer, state
+            if par.get("spatial_shard"):
+                peaks = [None] * world
+                dist.all_gather_object(peaks, flagship_steps(par, size, data * per, device))
+                rec["sp_peaks"] = {size: peaks}
+                if name == SP_LARGE[0]:
+                    large = [None] * world
+                    dist.all_gather_object(large, flagship_steps(par, SP_LARGE[1], data * per,
+                                                                 device))
+                    rec["sp_peaks"][SP_LARGE[1]] = large
         out[name] = rec
     return out
 
@@ -270,6 +324,12 @@ def held_legs(legs: dict, device, size: int, card: str, one_ms, dp_ms) -> None:
             line += (f"; masters + AdamW moments a rank {[b for _, b, _ in rec['big']]} bytes vs "
                      f"one process {one_bytes}; {rec['big_placed']} of {one_bytes // 12} "
                      f"parameters placed")
+        for side, runs in rec.get("sp_peaks", {}).items():
+            one = (one_process_large(side, device) if side != size else
+                   f"peak memory {flagship_steps({}, side, 1, device)[1]} B")
+            line += (f"; flagship {side}^3 bf16, step ms a rank "
+                     f"{[[round(v, 2) for v in ms] for ms, _ in runs]}, peak memory a rank "
+                     f"{[peak for _, peak in runs]} B; one process at batch 1: {one}")
         print(line)
 
 
@@ -322,7 +382,7 @@ def launch_main(n: int, size: int) -> None:
     build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
     _torchrun(n, [str(Path(__file__).resolve()), "--size", str(size)],
-              out / f"ddp{n}_ranks.txt", 420)
+              out / f"ddp{n}_ranks.txt", 600)
     with tempfile.TemporaryDirectory() as tmp:
         data = Path(tmp) / "syn"
         make_synthetic_dataset(data, shape=(128, 128, 112), num_classes=6, n_train=4,
@@ -352,6 +412,11 @@ def launch_main(n: int, size: int) -> None:
                       out / f"ddp{n}_train_pp.txt", 900)
             held_checkpoint(run_dir / "last.ckpt", Path(tmp) / "runs" / "pp" / "last.ckpt",
                             "--pipeline_parallel")
+            _torchrun(n, ["-m", "miseg_tpu_torch.cli.train", *common, "--max_epochs", "1",
+                          "--spatial_shard", "--mesh_shape", "4", "--mesh_axes", "sp",
+                          "--experiment_name", "sp"], out / f"ddp{n}_train_sp.txt", 900)
+            held_checkpoint(run_dir / "last.ckpt", Path(tmp) / "runs" / "sp" / "last.ckpt",
+                            "--spatial_shard")
         _torchrun(n, ["-m", "miseg_tpu_torch.cli.tune", *common, "--max_epochs", "1",
                       "--scheduler", "warmup_cosine", "--n_trials", "2",
                       "--study_name", "ddp", "--storage_name", "ddp"],

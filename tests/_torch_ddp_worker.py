@@ -113,6 +113,8 @@ def mesh_checks() -> dict:
                      "mesh_4": {"mesh_shape": [4]}, "mesh_1": {"mesh_shape": [1]},
                      "axes_model": {"mesh_axes": ["data", "model"]},
                      "fsdp": {"fsdp": True}, "spatial_shard": {"spatial_shard": True},
+                     "spatial_fsdp": {"spatial_shard": True, "mesh_axes": ["sp"],
+                                      "fsdp": True},
                      "tensor_parallel": {"tensor_parallel": True},
                      "pipeline_parallel": {"pipeline_parallel": True}}.items():
         cfg = Config(**dict(STEP_CASES["unet_vanilla_batch"], **kw))

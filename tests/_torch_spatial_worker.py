@@ -1,0 +1,382 @@
+"""One rank of the spatial-partitioning CPU tests (`tests/test_torch_spatial.py`).
+
+    python tests/_torch_spatial_worker.py SUITE RANK WORLD RDZV_FILE OUT_DIR STARTS
+
+Joins a gloo process group through a `file://` rendezvous and runs the
+cases of `SUITES[SUITE]` on its share of each global batch (its "data"
+coordinate's batch; the Trainer cuts its D slab), from the state dicts of
+`STARTS` (`torch.save`d `{model: state dict}`):
+
+  * "sp2" (world 2, the line `[2]`): `functions`, the pieces of
+    `parallel/spatial.py` and the layers' partitioned kernels against
+    autograd on the whole volume, each as its largest gap; `losses`, each
+    loss of `losses.py` over the slabs against the whole patch; one SGD
+    step of JAX's tiny C-UNet and of its tiny swin (without and with
+    dropout); the swin's forward in eval mode, its logits gathered whole;
+    the refusals (`refusals`).
+  * "sp4" (world 4): the C-UNet step on the line `[4]` and on the
+    ("data", "sp") mesh `[2, 2]`.
+
+Each step records the loss, the whole parameters after the update, the
+gradients it applied and a digest of the masters.  Saves what it saw to
+`OUT_DIR/<SUITE>_rank<RANK>.pt`.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from miseg_tpu_torch import losses as L  # noqa: E402
+from miseg_tpu_torch import parallel  # noqa: E402
+from miseg_tpu_torch.config import Config  # noqa: E402
+from miseg_tpu_torch.models import model_from_config  # noqa: E402
+from miseg_tpu_torch.ops import norms as N  # noqa: E402
+from miseg_tpu_torch.ops.kernels import fused_conv, fused_norm  # noqa: E402
+from miseg_tpu_torch.parallel import spatial  # noqa: E402
+from miseg_tpu_torch.train import engine  # noqa: E402
+
+# JAX's tiny C-UNet (tests/test_spatial.py:45-52) under SGD, and its tiny
+# swin (:148-176) as a training configuration
+MODELS = {
+    "unet": dict(model_name="unet", roi_x=16, roi_y=16, roi_z=16, out_channels=2,
+                 feature_size=[8], num_layers=2, strides=[2], num_res_units=1,
+                 encoder_norm_name="instance_cond", decoder_norm_name="instance",
+                 criterion="dice_ce", batch_size=8, scheduler="none", no_amp=True,
+                 precision="fp32", optim_name="sgd"),
+    "swin": dict(model_name="swin_unetr", roi_x=32, roi_y=32, roi_z=32, out_channels=4,
+                 feature_size=[12], num_heads=2, depth_swin_block=[1],
+                 vit_norm_name="instance_cond", encoder_norm_name="instance_cond",
+                 decoder_norm_name="instance", criterion="dice_focal", no_amp=True,
+                 optim_name="sgd", lr=1e-2),
+}
+# the C-UNet with batch norms: its statistics over the data x spatial ranks
+MODELS["unet_batch"] = dict(MODELS["unet"], encoder_norm_name="batch", decoder_norm_name="batch")
+DROPOUT = dict(dropout_rate=0.2, attn_drop_rate=0.1, dropout_path_rate=0.1)
+# case -> (model, mesh shape, mesh axes, extra fields)
+CASES = {
+    "unet_sp2": ("unet", [2], ["sp"], {}),
+    "swin_sp2": ("swin", [2], ["sp"], {}),
+    "swin_dropout_sp2": ("swin", [2], ["sp"], DROPOUT),
+    "unet_batch_sp2": ("unet_batch", [2], ["sp"], {}),
+    "unet_sp4": ("unet", [4], ["sp"], {}),
+    "unet_dp_sp": ("unet", [2, 2], ["data", "sp"], {}),
+}
+SUITES = {"sp2": ["unet_sp2", "unet_batch_sp2", "swin_sp2", "swin_dropout_sp2"],
+          "sp4": ["unet_sp4", "unet_dp_sp"]}
+GLOBAL_BATCH = 2
+
+
+def case_config(name: str, *, one_process: bool = False) -> dict:
+    """A case's Config fields; `one_process`: without its mesh (the one
+    process it is held to)."""
+    model, shape, axes, extra = CASES[name]
+    cfg = dict(MODELS[model], **extra)
+    if not one_process:
+        cfg.update(spatial_shard=True, mesh_shape=shape, mesh_axes=axes)
+    return cfg
+
+
+def global_batch(cfg: dict, seed: int = 1) -> dict:
+    """JAX's test batch: `GLOBAL_BATCH` volumes and labels from a seed,
+    modalities 0 and 1."""
+    rng = np.random.default_rng(seed)
+    roi = (cfg["roi_x"], cfg["roi_y"], cfg["roi_z"])
+    return {"image": rng.normal(size=(GLOBAL_BATCH, *roi, 1)).astype(np.float32),
+            "label": (rng.uniform(size=(GLOBAL_BATCH, *roi)) > 0.7).astype(np.int32)
+            if cfg["out_channels"] == 2 else
+            rng.integers(0, cfg["out_channels"], (GLOBAL_BATCH, *roi)).astype(np.int32),
+            "modality": np.array([0, 1], np.int32)}
+
+
+def batch_for(batch: dict) -> dict:
+    """This rank's share of a global batch: its "data" coordinate's."""
+    shard, shards = parallel.host_shard_info()
+    n = GLOBAL_BATCH // shards
+    return {k: v[shard * n:(shard + 1) * n] for k, v in batch.items()}
+
+
+def digest(tensors: dict) -> str:
+    h = hashlib.sha256()
+    for n in sorted(tensors):
+        h.update(n.encode())
+        h.update(tensors[n].detach().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def step(name: str, start: dict) -> dict:
+    """One step of a case from `start`: loss, whole parameters, the applied
+    gradients and the masters' digest."""
+    trainer = engine.Trainer(Config(**case_config(name)), device="cpu")
+    state = trainer.init_state(start)
+    state, loss = trainer.train_step(state, batch_for(global_batch(case_config(name))))
+    return {"loss": float(loss), "sp_top": trainer._sp_top,
+            "params": {n: p.detach().clone() for n, p in state.params.items()},
+            "grads": {n: p.grad.detach().clone() for n, p in state.params.items()},
+            "buffers": {n: b.detach().clone() for n, b in state.buffers.items()},
+            "digest": digest(state.params)}
+
+
+def swin_forward(start: dict, seed: int = 4) -> torch.Tensor:
+    """The tiny swin's eval-mode forward on the line (JAX's swin forward
+    input, `test_spatial.py:163-165`), this rank's slab in, the logits
+    gathered whole."""
+    cfg = Config(**MODELS["swin"])
+    model = model_from_config(cfg, device="cpu")
+    model.load_state_dict(start)
+    model.eval()
+    x = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(1, 32, 32, 32, 1)).astype(np.float32))
+    mesh = parallel.make_mesh([dist.get_world_size()], ["sp"])
+    n, r = mesh.size("sp"), mesh.index("sp")
+    with torch.no_grad(), spatial.partition(mesh.group("sp"), n, r, 32, 32):
+        y = model(x[:, r * 32 // n:(r + 1) * 32 // n], torch.tensor([1], dtype=torch.int32))
+        return spatial.gather_d(y, spatial.active())
+
+
+def _gap(a, b) -> float:
+    return float((a.detach() - b.detach()).abs().max())
+
+
+def functions() -> dict:
+    """Each piece of `parallel/spatial.py` and each partitioned kernel path
+    against autograd on the whole volume, at the line [world]: forward and
+    gradient gaps by name (the same seeded inputs on every rank, each
+    rank's own random weights on its output drawn from one list)."""
+    n, r = dist.get_world_size(), dist.get_rank()
+    mesh = parallel.make_mesh([n], ["sp"])
+    g = torch.Generator().manual_seed(0)
+    d, h = 8, 6
+    line = spatial.Line(mesh.group("sp"), n, r, d, h)
+    dl = d // n
+    mine = slice(r * dl, (r + 1) * dl)
+    out = {}
+
+    def whole_and_slab(shape):
+        x = torch.randn(shape, generator=g, dtype=torch.float64)
+        return x.clone().requires_grad_(), x[:, mine].clone().requires_grad_()
+
+    # halo_d: every (lo, hi), a weight on each rank's halo'd slab
+    for lo, hi in ((1, 1), (1, 0), (0, 1), (2, 1), (1, -1)):
+        xw, xs = whole_and_slab((2, d, h, 3, 2))
+        size = dl + lo + hi
+        ws = [torch.randn((2, size, h, 3, 2), generator=g, dtype=torch.float64)
+              for _ in range(n)]
+        got = spatial.halo_d(xs, lo, hi, line)
+        (ws[r] * got).sum().backward()
+        # the volume with lo zero planes before it and max(hi, 0) after it:
+        # rank k's halo'd slab starts at its plane k * dl
+        pad = torch.nn.functional.pad(xw, (0, 0, 0, 0, 0, 0, lo, max(hi, 0)))
+        sum((ws[k] * pad[:, k * dl:k * dl + size]).sum() for k in range(n)).backward()
+        want = pad[:, r * dl:r * dl + size]
+        out[f"halo_d {lo} {hi}"] = max(_gap(got, want), _gap(xs.grad, xw.grad[:, mine]))
+    # gather_d and slice_d
+    xw, xs = whole_and_slab((2, d, h, 3, 2))
+    ws = [torch.randn((2, d, h, 3, 2), generator=g, dtype=torch.float64) for _ in range(n)]
+    got = spatial.gather_d(xs, line)
+    (ws[r] * got).sum().backward()
+    sum((w * xw).sum() for w in ws).backward()
+    out["gather_d"] = max(_gap(got, xw), _gap(xs.grad, xw.grad[:, mine]))
+    xw = torch.randn((2, d, h, 3, 2), generator=g, dtype=torch.float64).requires_grad_()
+    ws = [torch.randn((2, dl, h, 3, 2), generator=g, dtype=torch.float64) for _ in range(n)]
+    got = spatial.slice_d(xw, line)
+    (ws[r] * got).sum().backward()
+    want = torch.zeros_like(xw)
+    want[:, mine] = ws[r]
+    out["slice_d"] = max(_gap(got, xw[:, mine]), _gap(xw.grad, want))
+    # gather_rows: uneven shares (3 rows over the line)
+    counts = spatial.window_rows(3, line)[2]
+    xw = torch.randn((2, 3, 4), generator=g, dtype=torch.float64).requires_grad_()
+    first = sum(counts[:r])
+    xs = xw[:, first:first + counts[r]].detach().clone().requires_grad_()
+    ws = [torch.randn((2, 3, 4), generator=g, dtype=torch.float64) for _ in range(n)]
+    got = spatial.gather_rows(xs, counts, line)
+    (ws[r] * got).sum().backward()
+    sum((w * xw).sum() for w in ws).backward()
+    out["gather_rows"] = max(_gap(got, xw), _gap(xs.grad, xw.grad[:, first:first + counts[r]]))
+    # sum_over_line: every rank's loss is the whole volume's
+    xw, xs = whole_and_slab((2, d, h, 3, 2))
+    u = torch.randn((2, d, h, 3, 2), generator=g, dtype=torch.float64)
+    got = spatial.sum_over_line((xs * u[:, mine]).sum((1, 2, 3)), line)
+    (got.square() * torch.arange(1, 3, dtype=torch.float64)[:, None]).sum().backward()
+    want = (xw * u).sum((1, 2, 3))
+    (want.square() * torch.arange(1, 3, dtype=torch.float64)[:, None]).sum().backward()
+    out["sum_over_line"] = max(_gap(got, want), _gap(xs.grad, xw.grad[:, mine]))
+    # merge_moments: local two-pass moments merged, against the whole's
+    xw, xs = whole_and_slab((2, d, h, 3, 4))
+    a = [torch.randn((2, 4), generator=g, dtype=torch.float64) for _ in range(n)]
+    b = [torch.randn((2, 4), generator=g, dtype=torch.float64) for _ in range(n)]
+    x3 = xs.reshape(2, -1, 4)
+    mean = x3.mean(1)
+    total, gm, gm2 = spatial.merge_moments(x3.shape[1], mean,
+                                           (x3 - mean[:, None]).square().sum(1), line)
+    (a[r] * gm + b[r] * gm2).sum().backward()
+    w3 = xw.reshape(2, -1, 4)
+    wm = w3.mean(1)
+    wm2 = (w3 - wm[:, None]).square().sum(1)
+    sum((ak * wm + bk * wm2).sum() for ak, bk in zip(a, b)).backward()
+    out["merge_moments"] = max(_gap(gm, wm), _gap(gm2, wm2) / float(wm2.abs().max()),
+                               _gap(xs.grad, xw.grad[:, mine]), abs(total - w3.shape[1]))
+    out.update(kernels(line, g))
+    return out
+
+
+def kernels(line, g) -> dict:
+    """K4's D-halo mode (through `spatial.conv3_halo`, without and with the
+    prologue) and K1's moments mode with the line's merge (with W1's
+    small-variance channel), slab by slab against the whole volume's
+    plain path, forward and gradients (f32)."""
+    n, r = line.size, line.index
+    d, h = line.depth, line.height
+    dl = d // n
+    mine = slice(r * dl, (r + 1) * dl)
+    out = {}
+    for prologue in (False, True):
+        x = torch.randn((1, d, h, h, 4), generator=g)
+        w = (torch.randn((5, 4, 3, 3, 3), generator=g) / 10).requires_grad_()
+        sc = (1 + 0.3 * torch.randn((1, 4), generator=g)).requires_grad_()
+        sh = (0.3 * torch.randn((1, 4), generator=g)).requires_grad_()
+        gamma = (1 + 0.2 * torch.randn((2, 5), generator=g)).requires_grad_()
+        beta = (0.2 * torch.randn((2, 5), generator=g)).requires_grad_()
+        styles = torch.tensor([1])
+        dy = torch.randn((1, d, h, h, 5), generator=g)
+        dcol = torch.randn((2, 1, 5), generator=g)
+        kw = dict(scale=sc, shift=sh, slope=0.01) if prologue else {}
+        leaves = [w, gamma, beta, *((sc, sh) if prologue else ())]
+        xw = x.clone().requires_grad_()
+        yw, cw, hw = fused_conv.conv3_norm_columns_plain(xw, w, **kw, gamma=gamma, beta=beta,
+                                                         styles=styles)
+        # the whole loss: every rank's slab of y and its share of the columns'
+        ((dy * yw).sum() + (dcol[0] * cw + dcol[1] * hw).sum()).backward()
+        want = [t.grad.clone() for t in leaves]
+        for t in leaves:
+            t.grad = None
+        xs = x[:, mine].clone().requires_grad_()
+        ys, total, mean, m2 = spatial.conv3_halo(xs, w, *((sc, sh) if prologue else ()),
+                                                 slope=0.01 if prologue else None, line=line)
+        cs, hs = fused_norm.columns_from_moments(total, mean, m2, gamma, beta, styles)
+        ((dy[:, mine] * ys).sum() + (dcol[0] * cs + dcol[1] * hs).sum() / n).backward()
+        # the replicated leaves' gradients are shares: summed over the line
+        got = [t.grad.clone() for t in leaves]
+        for t in got:
+            dist.all_reduce(t, group=line.group)
+        key = f"K4 halo prologue={prologue}"
+        out[key] = max(_gap(ys, yw[:, mine]), _gap(cs, cw), _gap(hs, hw),
+                       _gap(xs.grad, xw.grad[:, mine]), *(_gap(a, b) for a, b in zip(got, want)))
+    # K1's moments mode + merge, against the whole volume's columns taken
+    # two-pass in f64 (W1's channel: mean 0.3, variance 1e-4)
+    x = torch.randn((1, d, h, h, 4), generator=g)
+    x[..., 0] = 0.3 + 0.01 * torch.randn((1, d, h, h), generator=g)
+    gamma = 1 + 0.2 * torch.randn((2, 4), generator=g)
+    beta = 0.2 * torch.randn((2, 4), generator=g)
+    styles = torch.tensor([0])
+    want = fused_norm.channel_scale_shift_plain(x.double().reshape(1, -1, 4), gamma.double(),
+                                                beta.double(), styles)
+    with spatial.partition(line.group, n, r, d, h):
+        got = spatial.instance_columns(x[:, mine], gamma, beta, styles)
+    out["K1 moments + merge"] = max(_gap(a.double(), b) / (1 + float(b.abs().max()))
+                                    for a, b in zip(got, want))
+    # group norm: each (sample, group)'s statistics merged over the line
+    xw = torch.randn((2, d, h, h, 8), generator=g, dtype=torch.float64).requires_grad_()
+    gamma = (1 + 0.2 * torch.randn(8, generator=g, dtype=torch.float64)).requires_grad_()
+    beta = (0.2 * torch.randn(8, generator=g, dtype=torch.float64)).requires_grad_()
+    dy = torch.randn((2, d, h, h, 8), generator=g, dtype=torch.float64)
+    (dy * N.group_norm(xw, 4, gamma, beta)).sum().backward()
+    want = [xw.grad[:, mine].clone(), gamma.grad.clone(), beta.grad.clone()]
+    gamma.grad = beta.grad = None
+    xs = xw.detach()[:, mine].clone().requires_grad_()
+    with spatial.partition(line.group, n, r, d, h):
+        ys = spatial.group_norm(xs, 4, gamma, beta)
+    (dy[:, mine] * ys).sum().backward()
+    got = [xs.grad, gamma.grad.clone(), beta.grad.clone()]
+    for t in got[1:]:   # the replicated leaves' shares, summed over the line
+        dist.all_reduce(t, group=line.group)
+    want_y = N.group_norm(xw.detach(), 4, gamma.detach(), beta.detach())[:, mine]
+    out["group norm"] = max(_gap(ys, want_y), *(_gap(a, b) for a, b in zip(got, want)))
+    return out
+
+
+def losses() -> dict:
+    """Each loss over the slabs against the whole patch: value and the
+    gradient of the rank's slab (the losses compute in f32)."""
+    n, r = dist.get_world_size(), dist.get_rank()
+    mesh = parallel.make_mesh([n], ["sp"])
+    g = torch.Generator().manual_seed(3)
+    d, h = 8, 4
+    dl = d // n
+    mine = slice(r * dl, (r + 1) * dl)
+    logits = torch.randn((2, d, h, h, 3), generator=g, dtype=torch.float64)
+    label = torch.randint(0, 3, (2, d, h, h), generator=g)
+    label[1] = label[1].clamp(max=1)   # a sample without class 2: GDL's empty class
+    out = {}
+    for name, fn in {"dice": L.dice_loss, "focal": L.focal_loss,
+                     "cross_entropy": L.cross_entropy_loss,
+                     "generalized_dice": L.generalized_dice_loss,
+                     "dice_focal": L.dice_focal_loss, "dice_ce": L.dice_ce_loss,
+                     "generalized_dice_focal": L.generalized_dice_focal_loss}.items():
+        xw = logits.clone().requires_grad_()
+        want = fn(xw, label)
+        want.backward()
+        xs = logits[:, mine].clone().requires_grad_()
+        with spatial.partition(mesh.group("sp"), n, r, d, h):
+            got = fn(xs, label[:, mine])
+            got.backward()
+        out[name] = max(_gap(got, want), _gap(xs.grad, xw.grad[:, mine]))
+    return out
+
+
+def refusals() -> dict:
+    """What the Trainer says of each out-of-scope configuration on the line
+    [world] (None when it builds), and of the field taken without a
+    spatial line of more than one rank."""
+    unet, world = MODELS["unet"], dist.get_world_size()
+    sp = dict(spatial_shard=True, mesh_shape=[world], mesh_axes=["sp"])
+    cases = {
+        "fsdp": {**unet, **sp, "fsdp": True},
+        "tensor_parallel": {**unet, "spatial_shard": True, "mesh_shape": [world, 1],
+                            "mesh_axes": ["sp", "model"], "tensor_parallel": True},
+        "pipeline_parallel": {**unet, **sp, "pipeline_parallel": True},
+        "unetr": {**unet, **sp, "model_name": "unetr", "feature_size": [4],
+                  "hidden_size": 16, "mlp_dim": 32, "num_heads": 2},
+        "unet_vanilla": {**unet, **sp, "model_name": "unet_vanilla"},
+        "2d": {**unet, **sp, "spatial_dims": 2},
+        "axis_without_flag": {**unet, "mesh_shape": [world], "mesh_axes": ["sp"]},
+        "flag_on_data": {**unet, "spatial_shard": True},
+    }
+    out = {}
+    for name, cfg in cases.items():
+        try:
+            engine.Trainer(Config(**cfg), device="cpu")
+            out[name] = None
+        except (NotImplementedError, ValueError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def main(suite: str, rank: int, world: int, rdzv: str, out_dir: str, starts: str) -> None:
+    torch.set_num_threads(1)
+    start = torch.load(starts, weights_only=True)
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
+                            world_size=world)
+    try:
+        result = {name: step(name, start[CASES[name][0]]) for name in SUITES[suite]}
+        if suite == "sp2":
+            result["functions"] = functions()
+            result["losses"] = losses()
+            result["forward"] = swin_forward(start["swin"])
+            result["refusals"] = refusals()
+        torch.save(result, Path(out_dir) / f"{suite}_rank{rank}.pt")
+    finally:
+        parallel.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5],
+         sys.argv[6])

@@ -303,31 +303,32 @@ PARALLEL_VALUES = {
     "tensor_parallel": True, "tp_axis": "tp", "pipeline_parallel": True, "pp_axis": "stage",
     "pp_microbatches": 4,
 }
-# those of the spatial mode, which the port has not got
-NOT_PORTED_VALUES = {k: v for k, v in PARALLEL_VALUES.items() if k.startswith("spatial")}
+# those of the spatial mode, ported last
+SPATIAL_VALUES = {k: v for k, v in PARALLEL_VALUES.items() if k.startswith("spatial")}
 
 
 def test_not_ported_fields_cover_jax_defaults():
-    """`NOT_PORTED` holds JAX's defaults, and the values above differ; the
-    export options, the mesh, FSDP, tensor and pipeline parallelism are
-    ported and no longer listed."""
+    """`NOT_PORTED` lists no field of M11 any more: the export options,
+    the mesh, FSDP, tensor, pipeline and spatial parallelism are ported;
+    the spatial fields keep JAX's names and defaults, and the values above
+    differ from them."""
     jax_defaults = dataclasses.asdict(JConfig())
-    assert sorted(NOT_PORTED) == ["M11"]
-    merged = NOT_PORTED["M11"]
-    assert merged == {k: jax_defaults[k] for k in merged}
-    assert sorted(merged) == sorted(NOT_PORTED_VALUES)
-    assert all(NOT_PORTED_VALUES[k] != v for k, v in merged.items())
+    assert NOT_PORTED == {"M11": {}}
+    defaults = dataclasses.asdict(Config())
+    assert sorted(SPATIAL_VALUES) == ["spatial_axis", "spatial_shard"]
+    assert all(defaults[k] == jax_defaults[k] != v for k, v in SPATIAL_VALUES.items())
 
 
 @pytest.mark.parametrize("field", sorted([*PARALLEL_VALUES, *MESH_VALUES]))
 def test_trainer_raises_on_parallelism(field):
-    """Each unported field (spatial) and an axis the port does not lay out
-    raise `NotImplementedError` from the Trainer naming ROADMAP M11; a mesh
-    whose product is not the world size raises ValueError (JAX's
-    `make_mesh`).  The ported FSDP and tensor-parallel fields build at one
-    process and, their axes of size 1, place nothing; the pipeline fields
-    build and, with no pipeline line of more than one rank, take the
-    data-parallel step (JAX's `_pp_active`)."""
+    """An axis the port does not lay out (a spatial one without
+    `spatial_shard`) raises `NotImplementedError` from the Trainer naming
+    ROADMAP M11; a mesh whose product is not the world size raises
+    ValueError (JAX's `make_mesh`).  The ported FSDP and tensor-parallel
+    fields build at one process and, their axes of size 1, place nothing;
+    the pipeline and spatial fields build and, with no pipeline or spatial
+    line of more than one rank, take the data-parallel step (JAX's
+    `_pp_active` and SP rule)."""
     value = {**PARALLEL_VALUES, **MESH_VALUES}[field]
     cfg = Config(**CFG, **{field: value})
     if field in NOT_PORTED["M11"] or field == "mesh_axes":
@@ -340,8 +341,8 @@ def test_trainer_raises_on_parallelism(field):
         trainer = Trainer(cfg, device="cpu")
         state = trainer.init_state()
         assert trainer.placements == {}
-        if field in ("pipeline_parallel", "pp_axis", "pp_microbatches"):
-            assert not trainer._pp_active()
+        if field in ("pipeline_parallel", "pp_axis", "pp_microbatches", *SPATIAL_VALUES):
+            assert not trainer._pp_active() and trainer._sp_size() == 1
             _, loss = trainer.train_step(state, _parallel_batch())
             assert torch.equal(loss, _data_parallel_loss())
 

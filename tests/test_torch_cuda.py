@@ -1419,3 +1419,54 @@ def test_threaded_predict_on_one_program(dev, card_bundle):
     assert sorted(results) == [0, 1, 2, 3]
     for i in range(4):
         assert torch.equal(results[i], serial[i])
+
+
+# K4's D-halo mode (spatial partitioning): a slab with a halo plane a side,
+# [B, Dl + 2, Y, X, Cin], one shape a path (brick, coarse, FMA, Cin = 1)
+_HALO = {"brick": ((1, 8 + 2, 16, 16, 48), 48), "coarse": ((1, 4 + 2, 8, 8, 96), 96),
+         "fma": ((1, 6 + 2, 12, 12, 64), 64), "cin1": ((1, 8 + 2, 16, 16, 1), 48)}
+
+
+@pytest.mark.parametrize("pads", [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("case", sorted(_HALO))
+def test_k4_halo_mode_matches_plain(dev, gen, case, pads):
+    """bf16: y within one ulp of the plain version's, the fold's moments
+    mode within 1e-5 relative of the plain moments of the kernel's own y,
+    counted in `halo_launches` and `fold_moments_launches` alone."""
+    shape, cout = _HALO[case]
+    b, cin = shape[0], shape[-1]
+    x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, torch.bfloat16)
+    w = (torch.randn((cout, cin, 3, 3, 3), generator=gen) / (27 * cin) ** 0.5).to(
+        dev, torch.bfloat16)
+    kw = {} if cin == 1 else dict(
+        scale=(1 + 0.3 * torch.randn((b, cin), generator=gen)).to(dev),
+        shift=(0.3 * torch.randn((b, cin), generator=gen)).to(dev), slope=0.01)
+    before = (fused_conv.launches, fused_conv.halo_launches, fused_norm.fold_launches,
+              fused_norm.fold_moments_launches)
+    with torch.no_grad():
+        y, mean, m2 = fused_conv.conv3_halo_moments(x, w, pad_lo=pads[0], pad_hi=pads[1], **kw)
+    torch.cuda.synchronize()
+    assert (fused_conv.launches, fused_conv.halo_launches, fused_norm.fold_launches,
+            fused_norm.fold_moments_launches) == (before[0], before[1] + 1, before[2],
+                                                  before[3] + 1)
+    ref = fused_conv.conv3_halo_moments_plain(x, w, pad_lo=pads[0], pad_hi=pads[1], **kw)[0]
+    assert y.shape == ref.shape and _err(y, ref) <= _tol(ref, torch.bfloat16)
+    rm, rq = fused_norm.channel_moments_plain(y.reshape(b, -1, cout))
+    assert _err(mean, rm) <= 1e-5 * (1 + float(rm.abs().max()))
+    assert _err(m2, rq) <= 1e-5 * (1 + float(rq.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 5000, 48), (1, 27, 768), (1, 4096, 6)])
+def test_k1_moments_mode_matches_plain(dev, gen, shape, dtype):
+    """K1's moments mode: each sample's (mean, M2) within 1e-5 relative of
+    the plain two-pass version, one launch counted in `moments_launches`."""
+    x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, dtype)
+    before = (fused_norm.stats_launches, fused_norm.moments_launches)
+    with torch.no_grad():
+        mean, m2 = fused_norm.channel_moments(x)
+    assert (fused_norm.stats_launches, fused_norm.moments_launches) == (before[0],
+                                                                      before[1] + 1)
+    rm, rq = fused_norm.channel_moments_plain(x)
+    assert _err(mean, rm) <= 1e-5 * (1 + float(rm.abs().max()))
+    assert _err(m2, rq) <= 1e-5 * (1 + float(rq.abs().max()))

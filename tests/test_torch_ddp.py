@@ -306,19 +306,20 @@ def test_one_checkpoint_writer(ranks):
 
 
 def test_mesh_and_unported_modes(ranks):
-    """Since FSDP, tensor and pipeline parallelism are ported, they build
-    at world 2 (on a 1-D "data" mesh tensor parallelism has no "model"
-    axis, so it places nothing, and the pipeline mode has no pipeline line
-    of more than one rank, so its step is the data-parallel one, as in
-    JAX); the spatial mode still raises naming ROADMAP M11, and so do two
-    axes under one mesh size.  A mesh whose product is not the world size
+    """Since FSDP, tensor, pipeline and spatial parallelism are ported,
+    they build at world 2 (on a 1-D "data" mesh tensor parallelism has no
+    "model" axis, so it places nothing, and the pipeline and spatial modes
+    have no line of more than one rank, so their step is the data-parallel
+    one, as in JAX); spatial partitioning over a line of two ranks beside
+    FSDP raises naming ROADMAP M11, and two axes under one mesh size raise.  A mesh whose product is not the world size
     raises ValueError (JAX's `make_mesh` rule)."""
     for r in range(WORLD):
         said = ranks[r]["mesh"]
-        for name in ("mesh_-1", "mesh_2", "fsdp", "tensor_parallel", "pipeline_parallel"):
+        for name in ("mesh_-1", "mesh_2", "fsdp", "tensor_parallel", "pipeline_parallel",
+                     "spatial_shard"):
             assert said[name] is None, (name, said[name])
-        assert said["spatial_shard"].startswith("NotImplementedError")
-        assert "ROADMAP M11" in said["spatial_shard"]
+        assert said["spatial_fsdp"].startswith("NotImplementedError")
+        assert "ROADMAP M11" in said["spatial_fsdp"]
         steps = said["pp_off_step"]
         assert steps["pipeline_parallel"] == steps["data"], steps
         assert steps["data"] == ranks[0]["mesh"]["pp_off_step"]["data"]

@@ -450,9 +450,11 @@ def test_mesh_coordinates_are_row_major(ranks):
 def test_mesh_rules_and_unported_modes():
     """At one process: JAX's `make_mesh` rules (-1 inferred, a product
     other than the world a ValueError, a size a name), the axes the port
-    lays out, the spatial mode raising (ROADMAP M11), and the pipeline
-    mode, its line of one rank, building and stepping as data parallelism
-    does (JAX's `_pp_active`)."""
+    lays out (a spatial axis without `spatial_shard` raising, ROADMAP
+    M11), and the pipeline and spatial modes, their lines of one rank,
+    building and stepping as data parallelism does (JAX's `_pp_active`
+    and SP rule; SP beside FSDP on a line of more than one rank raises:
+    `tests/test_torch_ddp.py`, `tests/test_torch_spatial.py`)."""
     assert parallel.make_mesh([-1], ["data"]).shape == (1,)
     assert parallel.make_mesh([1, -1], ["data", "model"]).shape == (1, 1)
     mesh = parallel.make_mesh([1, 1], ["data", "model"])
@@ -463,14 +465,14 @@ def test_mesh_rules_and_unported_modes():
         with pytest.raises(ValueError, match="mesh"):
             parallel.make_mesh(shape, axes)
     base = dict(W.MODELS["unet"])
-    for kw in ({"mesh_axes": ["sp"]}, {"spatial_shard": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP M11"):
-            engine.Trainer(Config(**base, **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP M11"):
+        engine.Trainer(Config(**base, mesh_axes=["sp"]), device="cpu")
     batch = W.global_batches(base, 1)[0]
     plain = engine.Trainer(Config(**base), device="cpu")
     _, want = plain.train_step(plain.init_state(start("unet")), batch)
     for kw in ({"mesh_axes": ["data", "pp"], "mesh_shape": [1, 1]},
-               {"pipeline_parallel": True},
+               {"pipeline_parallel": True}, {"spatial_shard": True},
+               {"spatial_shard": True, "mesh_axes": ["sp"], "fsdp": True},
                {"mesh_axes": ["data", "pp"], "mesh_shape": [1, 1], "pipeline_parallel": True}):
         trainer = engine.Trainer(Config(**base, **kw), device="cpu")
         assert not trainer._pp_active()

@@ -52,6 +52,10 @@ def _cases():
         ("conv3_norm_columns", "no prologue", (x5, w, None, None, None, None, None, None, 1e-5)),
         ("conv3_norm_columns", "prologue + banks",
          (x5, w, *c8, banks[0][:, :6], banks[1][:, :6], styles, 0.01, 1e-5)),
+        # K4's D-halo mode: x5 as a slab of 2 planes with a halo plane a side
+        ("conv3_halo_moments", "no prologue, low plane padding", (x5, w, None, None, None,
+                                                                  True, False)),
+        ("conv3_halo_moments", "prologue, interior", (x5, w, *c8, 0.01, False, False)),
         ("window_attention", "strided views, mask",
          (qkv[..., :8], qkv[..., 8:16], qkv[..., 16:], bias, ids, 2)),
         ("window_attention", "no mask", (qkv[..., :8], qkv[..., 8:16], qkv[..., 16:], bias,
@@ -80,6 +84,8 @@ def _eager_and_traced(op, args):
         "apply_norm2_act": lambda a: FN.apply_norm2_act(*a[:6], negative_slope=a[6]),
         "conv3_norm_columns": lambda a: FC.conv3_norm_columns(
             *a[:4], gamma=a[4], beta=a[5], styles=a[6], slope=a[7], eps=a[8]),
+        "conv3_halo_moments": lambda a: FC.conv3_halo_moments(
+            *a[:4], slope=a[4], pad_lo=a[5], pad_hi=a[6]),
         "window_attention": lambda a: WA.window_attention(*a[:5], num_heads=a[5]),
     }
     with torch.no_grad():

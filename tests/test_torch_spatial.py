@@ -1,0 +1,380 @@
+"""Spatial partitioning in the port (`miseg_tpu_torch.parallel.spatial`) on
+the CPU: gloo ranks as subprocesses (`tests/_torch_spatial_worker.py`),
+spawned once for the module, two for the line `[2]` and four for `[4]`
+and the ("data", "sp") mesh `[2, 2]`, each held to a timeout, against the
+whole volume, one process and the JAX package.
+
+* Placements, with no spawn: `spatial_spec` and `shard_spatial_batch`
+  follow JAX's rules case by case (tests/test_spatial.py:21-42), D = 15
+  included, and a rank's piece is JAX's shard on the same mesh
+  coordinates.
+* The pieces, at `[2]`: `halo_d` (every shape of halo a conv asks),
+  `gather_d` / `slice_d`, `gather_rows`, `sum_over_line` and
+  `merge_moments`, forward and backward, against autograd on the whole
+  volume in f64; K4's D-halo mode (plain) through `spatial.conv3_halo`,
+  without and with a prologue, slab by slab equal to the whole volume's
+  conv and its merged columns, with the gradients of every leaf; K1's
+  moments mode with the line's merge against the whole volume's columns,
+  with W1's small-variance channel; and, in this process, K4's halo mode
+  for each pair of edge flags against the whole volume and its backward
+  against autograd through the plain version.
+* Each loss of `losses.py` over the slabs equals the whole patch's, value
+  and gradient.
+* Steps: JAX's tiny C-UNet (tests/test_spatial.py:45-52, SGD) on `[2]`,
+  `[4]` and `[2, 2]`, held to JAX's one-process step on the global batch
+  through the weight bridge at JAX's tolerances (loss rtol 1e-5, params
+  rtol 1e-4 / atol 1e-5), the applied gradients within 5e-5 a leaf, and
+  every rank's masters bitwise equal.
+* The swin: JAX's tiny swin forward (tests/test_spatial.py:148-176) on
+  `[2]` against JAX's forward, tighter than JAX's own SP test; one SGD
+  step, and one with dropout, attention dropout and drop-path on, held
+  to the port's one process (JAX draws other masks); so the batch-norm
+  C-UNet's step and running statistics, and group norm's merged
+  statistics against the whole volume's.
+* The refusals: SP beside FSDP, tensor or pipeline parallelism, C-UNETR,
+  UNetVanilla and 2-D raise `NotImplementedError` naming ROADMAP M11; the
+  spatial axis without `spatial_shard` raises; the field alone is taken.
+"""
+
+import functools
+import itertools
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh as JMesh
+from test_torch_bridge import seeded_params
+
+from miseg_tpu import losses as JL
+from miseg_tpu.config import Config as JConfig
+from miseg_tpu.models import model_from_config as jax_model_from_config
+from miseg_tpu.parallel import shard_spatial_batch as j_shard_spatial_batch
+from miseg_tpu.parallel import spatial_spec as j_spatial_spec
+from miseg_tpu.train.optim import optimizer_from_config as j_optimizer_from_config
+from miseg_tpu_torch import parallel
+from miseg_tpu_torch.config import Config
+from miseg_tpu_torch.ops.kernels import fused_conv, fused_norm
+from miseg_tpu_torch.parallel import spatial
+from miseg_tpu_torch.train import engine
+from miseg_tpu_torch.weights import state_dict_from_jax
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import _torch_spatial_worker as W  # noqa: E402
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
+RANK_TIMEOUT_S = 300
+SUITE_WORLDS = {"sp2": 2, "sp4": 4}
+ATOL_LEAF = 5e-5
+
+
+# ---------------------------------------------------------------- shared
+
+@functools.lru_cache(maxsize=None)
+def jax_model(model: str):
+    """(JAX module, seeded params) of one of `W.MODELS`."""
+    cfg = W.MODELS[model]
+    batch = W.global_batch(cfg)
+    jmodel = jax_model_from_config(JConfig(**cfg))
+    return jmodel, seeded_params(jmodel, jnp.asarray(batch["image"][:1]),
+                                 jnp.asarray(batch["modality"][:1]))
+
+
+@functools.lru_cache(maxsize=None)
+def start(model: str) -> dict:
+    """The start of a model: JAX's seeded params, bridged; the batch-norm
+    C-UNet (held to the port's one process only) from the port's own init."""
+    if model == "unet_batch":
+        trainer = engine.Trainer(Config(**W.MODELS[model]), device="cpu")
+        return {n: t.detach().clone() for n, t in trainer.state_dict(trainer.init_state()).items()}
+    return state_dict_from_jax(jax_model(model)[1])
+
+
+@functools.lru_cache(maxsize=None)
+def jax_step(model: str) -> dict:
+    """JAX's one SGD step of a model on the global batch: loss, parameters
+    and gradients, as the port's names."""
+    cfg = W.MODELS[model]
+    jcfg = JConfig(**cfg)
+    jmodel, params = jax_model(model)
+    loss_fn = JL.loss_from_config(jcfg)
+    batch = W.global_batch(cfg)
+
+    def loss_of(p):
+        return loss_fn(jmodel.apply({"params": p}, batch["image"], batch["modality"],
+                                    train=True).astype(jnp.float32), batch["label"])
+
+    loss, grads = jax.jit(jax.value_and_grad(loss_of))(params)
+    tx = j_optimizer_from_config(jcfg)
+    updates, _ = tx.update(grads, tx.init(params), params)
+    new = jax.tree.map(lambda p, u: np.asarray(p + u), params, updates)
+    return {"loss": float(loss), "params": state_dict_from_jax(new),
+            "grads": state_dict_from_jax(jax.tree.map(np.asarray, grads))}
+
+
+@functools.lru_cache(maxsize=None)
+def one_process(case: str) -> dict:
+    """The port's one process: one step of a case on the global batch."""
+    cfg = W.case_config(case, one_process=True)
+    trainer = engine.Trainer(Config(**cfg), device="cpu")
+    state = trainer.init_state(start(W.CASES[case][0]))
+    state, loss = trainer.train_step(state, W.global_batch(cfg))
+    return {"loss": float(loss),
+            "params": {n: p.detach().clone() for n, p in state.params.items()},
+            "grads": {n: p.grad.detach().clone() for n, p in state.params.items()},
+            "buffers": {n: b.detach().clone() for n, b in state.buffers.items()}}
+
+
+@functools.lru_cache(maxsize=None)
+def jax_swin_forward() -> np.ndarray:
+    """JAX's tiny swin forward of tests/test_spatial.py:163-169 (its input
+    and modality) on the seeded params."""
+    jmodel, params = jax_model("swin")
+    x = np.random.default_rng(4).normal(size=(1, 32, 32, 32, 1)).astype(np.float32)
+    fwd = jax.jit(lambda p, x, m: jmodel.apply({"params": p}, x, m))
+    return np.asarray(fwd(params, jnp.asarray(x), jnp.asarray([1], jnp.int32)))
+
+
+def spawn(suite: str, world: int, tmp: Path) -> list:
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = str(ROOT)
+    return [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "_torch_spatial_worker.py"), suite, str(r),
+         str(world), str(tmp / f"{suite}.rdzv"), str(tmp), str(tmp / "starts.pt")], env=env,
+        cwd=tmp, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Both suites' ranks' results; JAX's references and the one process
+    are computed while the ranks run."""
+    tmp = tmp_path_factory.mktemp("spatial")
+    torch.save({m: start(m) for m in W.MODELS}, tmp / "starts.pt")
+    procs = {suite: spawn(suite, world, tmp) for suite, world in SUITE_WORLDS.items()}
+    logs = {}
+    try:
+        jax_step("unet")
+        jax_swin_forward()
+        for case in ("unet_batch_sp2", "swin_sp2", "swin_dropout_sp2"):
+            one_process(case)
+        for suite, ps in procs.items():
+            logs[suite] = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in ps]
+    finally:
+        for ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    for suite, ps in procs.items():
+        for r, p in enumerate(ps):
+            assert p.returncode == 0, f"{suite} rank {r} exited {p.returncode}:\n" \
+                                      f"{logs[suite][r][-4000:]}"
+    return {suite: [torch.load(tmp / f"{suite}_rank{r}.pt", weights_only=False)
+                    for r in range(len(ps))] for suite, ps in procs.items()}
+
+
+def _results(ranks, case: str) -> list:
+    return ranks["sp2" if case in W.SUITES["sp2"] else "sp4"]
+
+
+# ------------------------------------------------------------ placements
+
+@pytest.mark.parametrize("ndim,data_axis", [(5, "data"), (4, None), (1, "data"), (1, None),
+                                            (3, "data"), (0, "data"), (2, None)])
+def test_spatial_spec_is_jax(ndim, data_axis):
+    assert spatial.spatial_spec(ndim, data_axis, "sp") == tuple(
+        j_spatial_spec(ndim, data_axis, "sp"))
+
+
+@pytest.mark.parametrize("mesh_shape,mesh_axes", [((2, 4), ("data", "sp")), ((8,), ("sp",)),
+                                                  ((4, 2), ("data", "sp")), ((8,), ("data",))])
+@pytest.mark.parametrize("key,shape", [("image", (2, 16, 8, 8, 1)), ("label", (2, 16, 8, 8)),
+                                       ("modality", (2,)), ("odd", (3, 15, 8, 8, 1)),
+                                       ("batch_of_one", (1, 16, 4, 4, 1))])
+def test_shard_spatial_batch_is_jax(mesh_shape, mesh_axes, key, shape):
+    """The placement of every array (JAX's spec, D = 15 and an indivisible
+    batch staying whole) and each rank's piece: JAX's shard on the device
+    at the same mesh coordinates."""
+    x = np.arange(int(np.prod(shape)), dtype=np.float32).reshape(shape)
+    jmesh = JMesh(np.array(jax.devices()[:8]).reshape(mesh_shape), mesh_axes)
+    placed = j_shard_spatial_batch({key: x, "name": "vol1"}, jmesh)
+    assert placed["name"] == "vol1"
+    for coords in itertools.product(*(range(n) for n in mesh_shape)):
+        mesh = parallel.Mesh(tuple(mesh_shape), tuple(mesh_axes), coords, {})
+        assert spatial.placement(shape, mesh) == tuple(placed[key].sharding.spec)
+        piece = spatial.shard_spatial_batch({key: x, "name": "vol1"}, mesh)
+        assert piece["name"] == "vol1"
+        device = jmesh.devices[coords]
+        want = next(s.data for s in placed[key].addressable_shards if s.device == device)
+        np.testing.assert_array_equal(piece[key], np.asarray(want))
+
+
+# ----------------------------------------------------------------- pieces
+
+FUNCTIONS = {  # name -> tolerance (f64 pieces; f32 kernels and group norm's f32 statistics)
+    **{f"halo_d {lo} {hi}": 1e-12 for lo, hi in ((1, 1), (1, 0), (0, 1), (2, 1), (1, -1))},
+    "gather_d": 1e-12, "slice_d": 1e-12, "gather_rows": 1e-12, "sum_over_line": 1e-10,
+    "merge_moments": 1e-10, "K4 halo prologue=False": 2e-5, "K4 halo prologue=True": 2e-5,
+    "K1 moments + merge": 1e-5, "group norm": 2e-5,
+}
+
+
+@pytest.mark.parametrize("name", sorted(FUNCTIONS))
+def test_pieces_against_the_whole_volume(ranks, name):
+    for r, res in enumerate(ranks["sp2"]):
+        gap = res["functions"][name]
+        assert gap <= FUNCTIONS[name], (name, r, gap)
+
+
+@pytest.mark.parametrize("name", ["dice", "focal", "cross_entropy", "generalized_dice",
+                                  "dice_focal", "dice_ce", "generalized_dice_focal"])
+def test_losses_over_slabs(ranks, name):
+    """The losses compute in f32: the sums over the line differ from the
+    whole patch's by their order only."""
+    for r, res in enumerate(ranks["sp2"]):
+        assert res["losses"][name] <= 1e-6, (name, r, res["losses"][name])
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("pad_lo,pad_hi", list(itertools.product((False, True), repeat=2)))
+def test_k4_halo_mode_each_flag_pair(pad_lo, pad_hi, prologue):
+    """K4's halo mode (plain) on a slab of 4 planes cut from a volume with
+    one real neighbour plane on each unflagged side (a flagged plane holds
+    garbage, which the mode must read as zero): y and the moments equal the
+    whole volume's conv on those planes; the autograd Function's gradients
+    equal autograd through the plain version (f32)."""
+    g = torch.Generator().manual_seed(7)
+    dl, lo, hi = 4, int(not pad_lo), int(not pad_hi)
+    volume = torch.randn((1, dl + lo + hi, 6, 5, 4), generator=g)
+    garbage = 50 * torch.randn((1, 1, 6, 5, 4), generator=g)
+    xh = torch.cat([garbage if pad_lo else volume[:, :1], volume[:, lo:lo + dl],
+                    garbage if pad_hi else volume[:, -1:]], 1)
+    w = torch.randn((3, 4, 3, 3, 3), generator=g) / 10
+    kw = {}
+    if prologue:
+        kw = dict(scale=1 + 0.3 * torch.randn((1, 4), generator=g),
+                  shift=0.3 * torch.randn((1, 4), generator=g), slope=0.01)
+    y, mean, m2 = fused_conv.conv3_halo_moments_plain(xh, w, pad_lo=pad_lo, pad_hi=pad_hi, **kw)
+    whole = fused_conv.conv3_norm_columns_plain(volume, w, **kw)[0][:, lo:lo + dl]
+    np.testing.assert_allclose(y.numpy(), whole.numpy(), rtol=1e-5, atol=1e-6)
+    rm, rq = fused_norm.channel_moments_plain(whole.reshape(1, -1, 3))
+    np.testing.assert_allclose(mean.numpy(), rm.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(m2.numpy(), rq.numpy(), rtol=1e-5, atol=1e-5)
+    # the Function's backward against autograd through the plain version
+    leaves = [xh, w, *((kw["scale"], kw["shift"]) if prologue else ())]
+    dy = torch.randn(y.shape, generator=g)
+    dmom = torch.randn((2, 1, 3), generator=g)
+    grads = []
+    for fn in (fused_conv.conv3_halo_moments, fused_conv.conv3_halo_moments_plain):
+        ins = [t.clone().requires_grad_() for t in leaves]
+        extra = dict(scale=ins[2], shift=ins[3], slope=0.01) if prologue else {}
+        yy, mm, qq = fn(ins[0], ins[1], pad_lo=pad_lo, pad_hi=pad_hi, **extra)
+        ((dy * yy).sum() + (dmom[0] * mm).sum() + (dmom[1] * qq).sum() / 100).backward()
+        grads.append([t.grad for t in ins])
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=2e-5)
+    # the flagged planes take no gradient
+    if pad_lo:
+        assert not grads[0][0][:, 0].any()
+    if pad_hi:
+        assert not grads[0][0][:, -1].any()
+
+
+def test_k1_moments_mode_and_its_backward():
+    """K1's moments mode (plain) is the two-pass (mean, M2); its autograd
+    Function's backward equals autograd through the plain version."""
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn((2, 300, 5), generator=g) * 2 + 1
+    mean, m2 = fused_norm.channel_moments(x)
+    np.testing.assert_allclose(mean.numpy(), x.mean(1).numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(m2.numpy(), (x.var(1, correction=0) * 300).numpy(), rtol=1e-5)
+    da, db = torch.randn((2, 2, 5), generator=g)
+    grads = []
+    for fn in (fused_norm.channel_moments, fused_norm.channel_moments_plain):
+        xi = x.clone().requires_grad_()
+        m, q = fn(xi)
+        ((da * m).sum() + (db * q).sum()).backward()
+        grads.append(xi.grad)
+    np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(), rtol=1e-5, atol=1e-6)
+
+
+# ----------------------------------------------------------------- steps
+
+@pytest.mark.parametrize("case", ["unet_sp2", "unet_sp4", "unet_dp_sp"])
+def test_unet_step_like_jax(ranks, case):
+    """JAX's tiny C-UNet on the line (and with "data"): every rank's loss,
+    parameters and applied gradients held to JAX's one-process SGD step on
+    the global batch; the masters bitwise equal on every rank."""
+    want = jax_step("unet")
+    results = [res[case] for res in _results(ranks, case)]
+    for r, got in enumerate(results):
+        assert got["sp_top"] == (16, 16), got["sp_top"]   # the patch's D is partitioned
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+        assert got["params"].keys() == want["params"].keys()
+        for n, p in got["params"].items():
+            np.testing.assert_allclose(p.numpy(), want["params"][n], rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{case} rank {r} {n}")
+        gaps = {n: float((g - torch.as_tensor(want["grads"][n])).abs().max())
+                for n, g in got["grads"].items()}
+        assert max(gaps.values()) <= ATOL_LEAF, (case, r, max(gaps, key=gaps.get))
+    assert len({got["digest"] for got in results}) == 1
+
+
+def test_swin_forward_like_jax(ranks):
+    """JAX's tiny swin forward, its input D cut over two ranks: the gathered
+    logits on every rank within rtol 1e-4 / atol 1e-4 of JAX's (JAX's own
+    SP test allows rtol 1e-3 / atol 5e-4)."""
+    want = jax_swin_forward()
+    for res in ranks["sp2"]:
+        np.testing.assert_allclose(res["forward"].numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["swin_sp2", "swin_dropout_sp2", "unet_batch_sp2"])
+def test_step_like_one_process(ranks, case):
+    """The tiny swin's SGD step on the line, without and with dropout,
+    attention dropout and drop-path, and the batch-norm C-UNet's (its
+    statistics over the data x spatial ranks): every rank's loss within
+    1e-5, every applied gradient leaf within 5e-5, the parameters within
+    1e-6 and the running statistics within 1e-6 of the port's one process
+    on the global batch (the same masks: each rank keeps its slab's or
+    window rows' part of what one process draws); the masters bitwise
+    equal on every rank."""
+    want = one_process(case)
+    results = [res[case] for res in ranks["sp2"]]
+    for r, got in enumerate(results):
+        assert got["sp_top"] == ((16, 16) if case.startswith("unet") else (32, 32))
+        assert abs(got["loss"] - want["loss"]) <= 1e-5, (case, r, got["loss"], want["loss"])
+        gaps = {n: float((g - want["grads"][n]).abs().max()) for n, g in got["grads"].items()}
+        assert gaps.keys() == want["grads"].keys()
+        assert max(gaps.values()) <= ATOL_LEAF, (case, r, max(gaps, key=gaps.get))
+        for n, p in got["params"].items():
+            np.testing.assert_allclose(p.numpy(), want["params"][n].numpy(), rtol=0, atol=1e-6)
+        assert got["buffers"].keys() == want["buffers"].keys()
+        for n, b in got["buffers"].items():
+            np.testing.assert_allclose(b.numpy(), want["buffers"][n].numpy(), rtol=1e-5,
+                                       atol=1e-6)
+    assert len({got["digest"] for got in results}) == 1
+    if case == "swin_dropout_sp2":   # the masks act: the loss differs from no dropout
+        assert abs(want["loss"] - one_process("swin_sp2")["loss"]) > 1e-4
+
+
+# ---------------------------------------------------------------- refusals
+
+@pytest.mark.parametrize("name", ["fsdp", "tensor_parallel", "pipeline_parallel", "unetr",
+                                  "unet_vanilla", "2d", "axis_without_flag", "flag_on_data"])
+def test_out_of_scope_raises(ranks, name):
+    for res in ranks["sp2"]:
+        said = res["refusals"][name]
+        if name == "flag_on_data":   # no spatial line of more than one rank: the field is taken
+            assert said is None
+            continue
+        assert said is not None and said.startswith("NotImplementedError"), said
+        assert "ROADMAP M11" in said, said
