@@ -209,7 +209,11 @@ Phases, one result line each; any failed check exits non-zero:
                gloo ranks on the one card, one f32 step of the batch-norm
                UNetVanilla (README recipe) at batch 1 a rank against this
                process at batch 2 (gradients, parameters, running
-               statistics).
+               statistics); (c) the same two ranks' `make_inferer` of the
+               flagship (96^3 ROI, bf16) on a 192x192x160 volume, its
+               window groups fanned out over the ranks: the logits bitwise
+               equal to this process's, each rank launching `PER_WINDOW`
+               x its ceil(G/2) windows.
  14. mesh    — FSDP and tensor parallelism, two gloo ranks sharing the
                card: (a) one f32 step of the flagship's model at fs 24,
                64^3, under FSDP [2], TP [1, 2] and TP + FSDP [1, 2] against
@@ -252,7 +256,11 @@ Phases, one result line each; any failed check exits non-zero:
                (counted, modes apart, and by name in a profiled step, with
                K4's kernel of each call), the halo and merge collectives a
                step, and each rank's step ms and peak memory beside one
-               process's.
+               process's; (d) the same line with FSDP on it
+               (`fsdp_axis="sp"`): the fs 24 swin's f32 step as in (b),
+               the flagship's bf16 steps as in (c) (launches
+               `sp_launches(2)` a step, counted), with the bytes of
+               masters and moments and the peak a rank beside SP alone's.
 Then one JSON line of kernels (with each kernel's `miseg::` op, its
 kernels in a replay of the captured 224^3 volume program, its launches a
 train step, the JAX VJP its backward follows, its launches in the fit's train steps
@@ -262,8 +270,9 @@ recompute a step and its fit, and in the tune study, with K4's and K5's
 rows at the search space's shapes; K2's row times its leaky-relu
 mode, and its field `no_add_no_activation` the UNets' mode beside
 `torch.addcmul`; the 2-D launches and rows, K5's at N = 49; the
-launches of a data-parallel step, of an FSDP step, of each stage of a
-pipeline step and of a spatially partitioned step; and rows of their own
+launches of a data-parallel step, of a rank's fanned-out volume, of an
+FSDP step, of each stage of a pipeline step and of a spatially
+partitioned step, without and with FSDP; and rows of their own
 for the spatial modes, K4 halo, K1 moments and K1 fold moments), the
 card line, and the ok line last.
 """
@@ -3946,6 +3955,8 @@ TWO_D_SLICE = (512, 512)   # the request: one slice of a 512x512 CT
 VANILLA_BN = {**VANILLA, "encoder_norm_name": "batch", "decoder_norm_name": "batch",
               "no_amp": True}
 DDP_STEPS = 3
+# phase_ddp (c): the volume the two gloo ranks' `make_inferer` fans out
+FANOUT_VOLUME = (192, 192, 160)
 DDP_WARMUP = 2   # steps from the same start before the timed ones, in each trainer
 DDP_TIMEOUT_S = 420
 # the mesh phase: (a) the flagship's model at reduced width (fs 24, 64^3)
@@ -4447,9 +4458,48 @@ def ddp_rank(leg: str, rank: int, world: int, rdzv: str, out: str) -> int:
                   "params": {n: p.detach().cpu() for n, p in state.params.items()},
                   "grads": {n: p.grad.cpu() for n, p in state.params.items()},
                   "buffers": {n: b.cpu() for n, b in state.buffers.items()}}
+        del trainer, state
+        result["fanout"] = fanout_rank(dev, Path(out) if rank == 0 else None)
     dist.destroy_process_group()
     torch.save(result, Path(out) / f"{leg}_rank{rank}.pt")
     return 0
+
+
+def _fanout_case(dev):
+    """The flagship's Trainer (seeded weights) and the seeded volume and
+    modality of phase_ddp (c)."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.train.engine import Trainer
+
+    trainer = Trainer(Config(**FLAGSHIP), device=dev)
+    trainer.init_state()
+    gen = torch.Generator().manual_seed(47)
+    volume = torch.randn((1, *FANOUT_VOLUME, 1), generator=gen).to(dev)
+    return trainer, volume, torch.tensor([1], dtype=torch.int32, device=dev)
+
+
+def fanout_rank(dev, out: Path | None) -> dict:
+    """phase_ddp (c) on a rank: `make_inferer` of the flagship (96^3 ROI,
+    bf16, constant blend) on `FANOUT_VOLUME`, its window groups fanned out
+    over the two ranks; the launches counted from 0 just before and read
+    just after, the windows it predicted, its logits' digest and seconds;
+    with `out` the logits are saved there too."""
+    t_part = time.perf_counter()
+    trainer, volume, mod = _fanout_case(dev)
+    inferer = trainer.make_inferer()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = inferer(volume, mod)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rec = {"launches": launch_counts(), "seconds": seconds,
+           "part_s": time.perf_counter() - t_part,
+           "windows": inferer.windows_predicted(FANOUT_VOLUME),
+           "fanned": inferer._fan_out() is not None, "digest": _digest({"logits": logits})}
+    if out is not None:
+        torch.save(logits.cpu(), out / "fanout_logits.pt")
+    return rec
 
 
 def _w5_excess(got: dict, want: dict) -> float:
@@ -4502,7 +4552,13 @@ def phase_ddp(dev, card: str) -> dict:
     rank, against this process at batch 2: the loss within 1e-5, every
     gradient leaf within 5e-5 and their sum within 1e-3, the parameters
     within the W5 bound, the running statistics within rtol 1e-5 / atol
-    1e-6, and the two ranks equal.  Returns the wrapped step's launches."""
+    1e-6, and the two ranks equal; (c) the same two ranks' `make_inferer`
+    of the flagship on a 192 x 192 x 160 volume, its window groups fanned
+    out over the ranks (`fanout_rank`): the logits bitwise equal to this
+    process's inferer on the same volume (computed while the ranks run),
+    each rank launching `PER_WINDOW` x its ceil(G/2) windows.  Returns
+    the wrapped step's launches, and a rank's fan-out launches under
+    "fanout"."""
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.train.engine import Trainer
 
@@ -4532,8 +4588,8 @@ def phase_ddp(dev, card: str) -> dict:
           f"{a['buckets']} buckets, {a['comm_ms']:.3f} ms of {a['busy_ms']:.2f} ms device "
           f"busy; kernels {a['comm_kernels']}")
 
-    _spawn_ranks("gloo2", 2, root)
-    ranks = [torch.load(root / f"gloo2_rank{r}.pt", weights_only=False) for r in range(2)]
+    t1 = time.perf_counter()
+    procs = _start_ranks("gloo2", 2, root)
     trainer = Trainer(Config(**VANILLA_BN), device=dev)
     state = trainer.init_state()
     state, loss = trainer.train_step(state, _vanilla_batch(dev))
@@ -4542,6 +4598,19 @@ def phase_ddp(dev, card: str) -> dict:
             "grads": {n: p.grad.cpu() for n, p in state.params.items()},
             "buffers": {n: b.cpu() for n, b in state.buffers.items()}}
     del trainer, state
+    # (c)'s reference: this process's inferer, no mesh, on the same volume
+    trainer, volume, mod = _fanout_case(dev)
+    inferer = trainer.make_inferer()
+    check(inferer.mesh is None, "ddp (c): one process's inferer took a mesh")
+    torch.cuda.synchronize()
+    t0_one = time.perf_counter()
+    one_logits = inferer(volume, mod)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0_one
+    n_windows = inferer.windows_predicted(FANOUT_VOLUME)
+    del trainer, inferer, volume
+    _join_ranks("gloo2", procs)
+    ranks = [torch.load(root / f"gloo2_rank{r}.pt", weights_only=False) for r in range(2)]
     for r, got in enumerate(ranks):
         gaps = check_ddp_step(got, want, f"ddp gloo2 rank {r}")
     for key in ("params", "buffers"):
@@ -4552,11 +4621,34 @@ def phase_ddp(dev, card: str) -> dict:
           f"gradient gap summed {gaps['summed']:.3e} (worst {gaps['worst_gap']:.2e}), "
           f"parameters within the W5 bound (excess {gaps['w5_excess']:.2e}), "
           f"{gaps['stats']} running statistics within rtol 1e-5 / atol 1e-6; the ranks equal")
+    fan = [res["fanout"] for res in ranks]
+    rank_logits = torch.load(root / "fanout_logits.pt", weights_only=True)
+    gap = max_err(rank_logits, one_logits.cpu())
+    groups = n_windows   # sw_batch_size 1: a group a window
+    per_rank = -(-groups // 2)
+    want_launches = {k: v * per_rank for k, v in PER_WINDOW.items()}
+    check(all(f["fanned"] for f in fan), "ddp (c): the ranks' inferer did not fan out")
+    check(torch.equal(rank_logits, one_logits.cpu()) and fan[0]["digest"] == fan[1]["digest"]
+          == _digest({"logits": one_logits}),
+          f"ddp (c): fanned-out logits differ from one process's (max |diff| {gap:.3e}) or "
+          "between the ranks")
+    check(all(f["windows"] == per_rank and f["launches"] == want_launches for f in fan),
+          f"ddp (c): the ranks predicted {[f['windows'] for f in fan]} windows and launched "
+          f"{[f['launches'] for f in fan]}; want {per_rank} and {want_launches}")
+    print(f"  ddp (c) gloo, 2 ranks on one card, flagship 96^3 bf16 make_inferer of a "
+          f"{'x'.join(map(str, FANOUT_VOLUME))} volume ({groups} windows): each rank "
+          f"predicted {per_rank} windows (ceil({groups}/2)), launches {fan[0]['launches']} a "
+          f"rank = PER_WINDOW x {per_rank}; logits bitwise equal to this process's (max "
+          f"|diff| {gap:.1e}) on both ranks; seconds a volume: ranks "
+          f"{[round(f['seconds'], 3) for f in fan]}, one process {one_s:.3f} (all three "
+          f"share the card); (c) {max(f['part_s'] for f in fan):.1f} s on the ranks, "
+          f"{time.perf_counter() - t1:.1f} s for (b) and (c)")
     tmp.cleanup()
     print(f"ddp: one NCCL rank through the wrapped Trainer matches the unwrapped one and "
-          f"all-reduces its buckets; two gloo ranks step as one process on their batch "
+          f"all-reduces its buckets; two gloo ranks step as one process on their batch and "
+          f"fan a volume's windows out as one process infers it "
           f"({time.perf_counter() - t0:.1f} s)")
-    return a["launches"]
+    return {**a["launches"], "fanout": fan[0]["launches"]}
 
 
 def phase_mesh(dev, card: str) -> dict:
@@ -4901,6 +4993,8 @@ def spatial_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
 
 
 SP_2 = dict(spatial_shard=True, mesh_shape=[2], mesh_axes=["sp"])
+# phase_spatial (d): the same line with FSDP on it
+SP_2_FSDP = dict(SP_2, fsdp=True, fsdp_axis="sp")
 # phase_spatial (b): C-UNet (fs 16) and the flagship's model at fs 24, 64^3, f32
 SP_SMALL = {"C-UNet fs 16": {**CUNET, "roi_x": 64, "roi_y": 64, "roi_z": 64, "no_amp": True},
             "C-Swin-UNETR fs 24": MESH_SMALL}
@@ -4946,7 +5040,11 @@ def sp_rank(dev) -> dict:
     flagship at batch 1, launches and collectives counted from 0 before the
     first and read after the last, the peak memory, then one profiled step
     (both ranks profile one lead and one step: each step holds
-    collectives).  Rank 0 keeps the whole records, every rank the digests."""
+    collectives); (d) with FSDP on the line (`SP_2_FSDP`): one f32 step of
+    the fs 24 swin, and `MESH_STEPS` bf16 steps of the flagship, launches
+    counted from 0 before the first and read after the last, the peak
+    memory and the bytes of masters and moments a rank.  Rank 0 keeps the
+    whole records, every rank the digests."""
     from miseg_tpu_torch import parallel
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.parallel import spatial
@@ -4982,6 +5080,32 @@ def sp_rank(dev) -> dict:
     rec["k4_kernels"] = [e.name for e in events if "miseg_k4_" in e.name]
     rec["busy_ms"] = sum(e.time_range.elapsed_us() for e in events) / 1e3
     out["flagship"] = rec
+    del trainer, state
+    t0 = time.perf_counter()
+    small = SP_SMALL["C-Swin-UNETR fs 24"]
+    trainer = Trainer(Config(**small, **SP_2_FSDP), device=dev)
+    state, loss = trainer.train_step(trainer.init_state(), _mesh_batch(dev, small))
+    out["fsdp small"] = _mesh_record(trainer, state, loss)
+    out["fsdp small"]["digest"] = _digest(out["fsdp small"]["params"])
+    del trainer, state
+    torch.cuda.empty_cache()
+    trainer = Trainer(Config(**FLAGSHIP, **SP_2_FSDP), device=dev)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, loss = trainer.train_step(state, batch)
+    rec = _mesh_record(trainer, state, loss)
+    losses, rec["ms"] = _stepped(trainer, state, batch, MESH_STEPS - 1)
+    rec["launch_totals"] = {**launch_counts(), **mode_counts()}
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    rec["losses"] = [rec["loss"], *losses]
+    rec["digest"] = _digest(rec["params"])
+    rec["final_digest"] = _digest(trainer.state_dict(state))
+    rec["sp_top"] = trainer._sp_top
+    rec["axes"] = sorted({pl.axis for pl in trainer.placements.values()})
+    rec["seconds"] = time.perf_counter() - t0
+    out["fsdp flagship"] = rec
     if not parallel.is_writer():   # the whole tensors once, from rank 0
         for r in out.values():
             r["params"] = r["grads"] = None
@@ -4999,8 +5123,11 @@ def phase_spatial(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
     after the first step within W5, the masters bitwise equal, each rank's
     launches `sp_launches(2)` a step (counted, and by name in the profiled
     step), the K4 kernel of each call, the collectives a step, step ms and
-    peak memory beside one process's.  Returns the rows of the modes and
-    a rank's launches a flagship step."""
+    peak memory beside one process's; (d) the same with FSDP on the line:
+    the fs 24 swin's step under (b)'s gates, the flagship's under (c)'s
+    (launches `sp_launches(2)` a step, counted), its bytes of masters and
+    moments and peak a rank beside SP alone's.  Returns the rows of the
+    modes and a rank's launches a flagship step."""
     from collections import Counter
 
     from miseg_tpu_torch.config import Config
@@ -5033,6 +5160,18 @@ def phase_spatial(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
     ranks = [torch.load(root / f"sp2_rank{r}.pt", weights_only=False) for r in range(2)]
     for name in SP_SMALL:
         gaps = check_ddp_step(ranks[0][name], refs[name], f"spatial (b) {name}")
+        if name == "C-Swin-UNETR fs 24":   # (d) beside FSDP, the same gates
+            fgaps = check_ddp_step(ranks[0]["fsdp small"], refs[name],
+                                   f"spatial (d) {name} + FSDP")
+            check(ranks[0]["fsdp small"]["digest"] == ranks[1]["fsdp small"]["digest"]
+                  and ranks[0]["fsdp small"]["placed"]["fsdp"] > 0,
+                  f"spatial (d) {name} + FSDP: the ranks' masters differ or nothing is placed")
+            print(f"  spatial (d) {name} 64^3 f32, sp [2] + FSDP on 'sp', 2 gloo ranks on "
+                  f"'{card}' vs one process at batch 2: loss |diff| {fgaps['loss']:.2e}, "
+                  f"gradient gap summed {fgaps['summed']:.3e} (worst {fgaps['worst']} "
+                  f"{fgaps['worst_gap']:.2e}), parameters within W5 (excess "
+                  f"{fgaps['w5_excess']:.2e}); masters bitwise equal; "
+                  f"{ranks[0]['fsdp small']['placed']['fsdp']} leaves sharded")
         check(ranks[0][name]["digest"] == ranks[1][name]["digest"],
               f"spatial (b) {name}: the ranks' masters differ")
         print(f"  spatial (b) {name} 64^3 f32, sp [2], 2 gloo ranks on '{card}' vs one process "
@@ -5069,6 +5208,33 @@ def phase_spatial(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
               f"{rec['collectives']}; step ms by events {[round(v, 2) for v in rec['ms']]}, "
               f"device busy {rec['busy_ms']:.2f} ms of the profiled step, peak memory "
               f"{gib(rec['peak'])} ({rec['peak']} B)")
+    fl = ranks[0]["fsdp flagship"]
+    fgap = max(abs(x - y) / (1 + abs(y)) for x, y in zip(fl["losses"], one_losses))
+    check(fgap <= 1e-3, f"spatial (d): losses {fl['losses']} vs one process {one_losses}")
+    fexcess = _w5_excess(fl["params"], one["params"])
+    check(fexcess <= 0.0, f"spatial (d): parameters exceed W5 by {fexcess:.3e}")
+    check(all(r["fsdp flagship"]["losses"] == fl["losses"] and r["fsdp flagship"]["digest"] ==
+              fl["digest"] and r["fsdp flagship"]["final_digest"] == fl["final_digest"]
+              for r in ranks), "spatial (d): the ranks' losses or gathered masters differ")
+    for r, res in enumerate(ranks):
+        rec = res["fsdp flagship"]
+        totals = {k: MESH_STEPS * v for k, v in want.items()}
+        check(rec["sp_top"] == (96, 96) and rec["axes"] == ["sp"]
+              and rec["launch_totals"] == totals,
+              f"spatial (d) rank {r}: patch {rec['sp_top']}, FSDP axes {rec['axes']}, "
+              f"{MESH_STEPS} steps launched {rec['launch_totals']}; want {totals}")
+        print(f"  spatial (d) flagship fs 48 96^3 bf16, sp [2] + FSDP on 'sp' rank {r} on "
+              f"'{card}': launches a step {want}; step ms by events "
+              f"{[round(v, 2) for v in rec['ms']]}; masters + moments a rank "
+              f"{rec['state_bytes']} B against SP alone's {res['flagship']['state_bytes']} B "
+              f"({rec['state_bytes'] / res['flagship']['state_bytes']:.1%}; "
+              f"{rec['placed_elements']} of {rec['elements']} parameters sharded); peak memory "
+              f"{gib(rec['peak'])} ({rec['peak']} B) against SP alone's "
+              f"{gib(res['flagship']['peak'])}; {rec['seconds']:.1f} s for (d)")
+    print(f"  spatial (d) flagship + FSDP: losses {[round(v, 6) for v in fl['losses']]} vs one "
+          f"process {[round(v, 6) for v in one_losses]} (max relative gap {fgap:.2e}); "
+          f"parameters after the first step within W5 (excess {fexcess:.2e}); the ranks' "
+          f"gathered masters bitwise equal")
     print(f"  spatial (c) flagship: losses {[round(v, 6) for v in lead['losses']]} vs one "
           f"process {[round(v, 6) for v in one_losses]} (max relative gap {gap:.2e}); "
           f"parameters after the first step within W5 (excess {excess:.2e}); the ranks' masters "
@@ -5080,7 +5246,8 @@ def phase_spatial(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
           f"versions; the line [2] steps as one process, the flagship with every kernel and "
           f"mode ({t_kernels:.1f} s of kernels, {t_ranks:.1f} s of ranks; phase "
           f"{time.perf_counter() - t0:.1f} s)")
-    return {"rows": rows, "launches": want}
+    return {"rows": rows, "launches": want,
+            "fsdp_launches": {k: v // MESH_STEPS for k, v in fl["launch_totals"].items()}}
 
 
 def main() -> int:
@@ -5174,7 +5341,9 @@ def main() -> int:
         check(on_2d == (two_d["serve"][key] > 0) == (two_d["step"][key] > 0),
               f"{key}: the 2-D slice and step launched it {two_d['serve'][key]} and "
               f"{two_d['step'][key]} times; want {'> 0' if on_2d else '0'}")
-        check(ddp[key] > 0, f"{key} was never launched in the data-parallel step")
+        check(ddp[key] > 0 and ddp["fanout"][key] > 0,
+              f"{key} was never launched in the data-parallel step or the fanned-out "
+              "evaluation")
         check(mesh[key] > 0, f"{key} was never launched in the FSDP step")
         check(spatial["launches"][key] > 0,
               f"{key} was never launched in the spatially partitioned step")
@@ -5217,13 +5386,16 @@ def main() -> int:
                                      if key in two_d["rows"] else {}),
                                   **({"shape_2d_stage4": two_d["rows"]["K5 stage 4"]}
                                      if key == "K5" else {})},
-                        "ddp": {"launches_per_wrapped_step": ddp[key]},
+                        "ddp": {"launches_per_wrapped_step": ddp[key],
+                                "launches_fanned_out_volume_a_rank": ddp["fanout"][key]},
                         "mesh": {"launches_per_fsdp_step": mesh[key]},
                         "pipeline": {"swin_1x4_launches_per_step_by_stage":
                                          [stage[key] for stage in pipeline["pp4"]],
                                      "unetr_1x2_launches_per_step_by_stage":
                                          [stage[key] for stage in pipeline["pp2"]]},
-                        "spatial": {"launches_per_sp2_step": spatial["launches"][key]}})
+                        "spatial": {"launches_per_sp2_step": spatial["launches"][key],
+                                    "launches_per_sp2_fsdp_step":
+                                        spatial["fsdp_launches"][key]}})
     # the modes of spatial partitioning: the same kernels, launched (and
     # counted) apart on the partitioned step, with rows of their own
     modes = {
@@ -5242,7 +5414,9 @@ def main() -> int:
                         "source": f"miseg_tpu_torch/ops/kernels/csrc/{source}",
                         "replaces": replaces, "op": op, "launches": MESH_STEPS * n,
                         **spatial["rows"][key],
-                        "spatial": {"launches_per_sp2_step": n}})
+                        "spatial": {"launches_per_sp2_step": n,
+                                    "launches_per_sp2_fsdp_step":
+                                        spatial["fsdp_launches"][key]}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

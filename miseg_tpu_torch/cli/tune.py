@@ -32,7 +32,8 @@ trains on all ranks over the rank's shard of the train set, through a
 broadcasts.  The other ranks follow rank 0's trials until it says the
 study is over.  Every trial takes the mesh's modes, spatial partitioning
 among them (`--spatial_shard --mesh_shape N --mesh_axes sp`, with JAX's
-`--spatial_axis` default).
+`--spatial_axis` default; `--fsdp --fsdp_axis sp` beside it), and its
+validations fan their window groups out over the mesh's first axis.
 """
 
 from __future__ import annotations

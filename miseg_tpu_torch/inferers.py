@@ -19,6 +19,21 @@ comes back on the inferer's device.  The device then never holds a
 `[B, *padded, C_out]` accumulator, which caps its memory on large
 volumes.  `progress` prints
 JAX's `\r[sliding-window] i/n` line to stderr after each window group.
+
+Given a `mesh` (`parallel.Mesh`) whose first axis has N > 1 ranks, the
+window groups fan out over this rank's line of that axis, as JAX's
+`shard_map` splits them (`miseg_tpu/inferers.py:227-251`): the group list
+is padded to a multiple of N by repeating its last group, each rank
+predicts ⌈G/N⌉ groups, and the padded outputs are dropped.  Rank i
+predicts groups i, i + N, i + 2N, ...; each round all-gathers that
+round's N groups' logits over the line (`parallel.mesh.all_gather_line`)
+and every rank overlap-adds them in global group order, so the logits
+are one process's, bit for bit, and memory holds N groups beyond the
+accumulator.  JAX gives each device a contiguous block of groups: which
+rank computes which window differs, the result and the count a rank do
+not.  Ranks that share a first-axis coordinate predict the same windows,
+as JAX's devices do.  `stitch_on_host` has no fan-out (nor has JAX's
+host stitching), and progress is off under fan-out, as in JAX.
 """
 
 from __future__ import annotations
@@ -31,6 +46,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from .parallel.mesh import all_gather_line
 from .utils.platform import resolve_device
 
 
@@ -90,13 +106,15 @@ def window_starts(spatial: Sequence[int], roi_size: Sequence[int],
 class SlidingWindowInferer:
     """`predict_fn(windows [k*B, *roi, Cin], modalities int[k*B] | None)
     -> logits [k*B, *roi, out_channels]`; windows are ordered window-major,
-    batch-minor, and the modality vector is tiled to match."""
+    batch-minor, and the modality vector is tiled to match.  With `mesh`
+    (a `parallel.Mesh`, or None) the window groups fan out over its first
+    axis: every rank of the mesh calls the inferer on the same inputs."""
 
     def __init__(self, predict_fn: Callable, roi_size: Sequence[int],
                  sw_batch_size: int = 1, overlap: float = 0.5,
                  mode: str = "constant", sigma_scale: float = 0.125,
                  out_channels: int | None = None, stitch_on_host: bool = False,
-                 progress: bool = False, device=None):
+                 progress: bool = False, device=None, mesh=None):
         if mode not in ("constant", "gaussian"):
             raise ValueError(f"unknown blend mode {mode!r}")
         if out_channels is None:
@@ -111,7 +129,36 @@ class SlidingWindowInferer:
         self.stitch_on_host = bool(stitch_on_host)
         self.progress = bool(progress)
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._tables: dict = {}  # padded shape -> (starts, importance, count)
+
+    def _fan_out(self):
+        """(process group, size, this rank's coordinate) of the line of the
+        mesh's first axis that the window groups fan out over, or None: no
+        mesh, a first axis of one rank, or `stitch_on_host`."""
+        mesh = self.mesh
+        if mesh is None or self.stitch_on_host or mesh.shape[0] < 2:
+            return None
+        return mesh.group(mesh.axes[0]), mesh.shape[0], mesh.coords[0]
+
+    @staticmethod
+    def _padded(n_groups: int, n: int) -> list[int]:
+        """The group indices padded to a multiple of `n` by repeating the
+        last (JAX's padding of its starts)."""
+        return list(range(n_groups)) + [n_groups - 1] * (-n_groups % n)
+
+    def windows_predicted(self, spatial: Sequence[int]) -> int:
+        """The windows this rank predicts for a volume of `spatial` size:
+        all of them, or under fan-out those of its ⌈G/N⌉ groups, padded
+        repeats included."""
+        n = len(window_starts(spatial, self.roi_size, self.overlap)[1])
+        k = self.sw_batch_size
+        sizes = [min(k, n - g) for g in range(0, n, k)]
+        fan = self._fan_out()
+        if fan is None:
+            return n
+        _, size, index = fan
+        return sum(sizes[g] for g in self._padded(len(sizes), size)[index::size])
 
     def _importance(self) -> np.ndarray:
         if self.mode == "constant":
@@ -151,7 +198,9 @@ class SlidingWindowInferer:
         arguments.  The accumulator lies where `imp` does: on the inferer's
         device, where nothing in `fn` waits for the host, so a CUDA graph
         can capture it (`serve.ServedModel`), or in host memory under
-        `stitch_on_host`, each group's logits copied there."""
+        `stitch_on_host`, each group's logits copied there.  Under fan-out
+        `fn` predicts this rank's groups and all-gathers each round's
+        (module docstring)."""
         spatial = tuple(int(s) for s in spatial)
         roi, out_ch, k = self.roi_size, self.out_channels, self.sw_batch_size
         padded, starts, imp, count = self._blend_tables(spatial)
@@ -165,21 +214,38 @@ class SlidingWindowInferer:
         groups = [[tuple(slice(int(a), int(a) + r) for a, r in zip(s, roi))
                    for s in starts[g:g + k]] for g in range(0, len(starts), k)]
         crop = (slice(None), *(slice(l, l + s) for l, s in zip(lo, spatial)))
-        predict, progress = self.predict_fn, self.progress
+        predict, fan = self.predict_fn, self._fan_out()
+        progress = self.progress and fan is None
+        line = 1 if fan is None else fan[1]
+        ids = self._padded(len(groups), line)
+        rounds = [ids[r:r + line] for r in range(0, len(ids), line)]
 
         def fn(inputs, modalities, imp, count):
             x = inputs if pad is None else torch.nn.functional.pad(inputs, pad)
             b = x.shape[0]
             acc = torch.zeros((b, *padded, out_ch), dtype=torch.float32, device=imp.device)
-            for n, group in enumerate(groups, 1):
+
+            def run(group):
                 windows = torch.cat([x[(slice(None), *w)] for w in group], dim=0)
                 mods = modalities.repeat(len(group)) if modalities is not None else None
-                logits = predict(windows, mods).float().reshape(len(group), b, *roi, out_ch)
-                logits = logits.to(acc.device)
-                for i, w in enumerate(group):
-                    acc[(slice(None), *w)] += logits[i] * imp
+                return predict(windows, mods).float().reshape(len(group), b, *roi, out_ch)
+
+            for r, round_ids in enumerate(rounds):
+                if fan is None:
+                    outs = [run(groups[round_ids[0]]).to(acc.device)]
+                else:
+                    # one all-gather of the round's groups, each padded to k windows
+                    mine = run(groups[round_ids[fan[2]]])
+                    if len(mine) < k:
+                        mine = torch.cat([mine, mine.new_zeros((k - len(mine), *mine.shape[1:]))])
+                    outs = all_gather_line(mine, fan[0]).unbind(0)
+                for j, g in enumerate(round_ids):
+                    if r * line + j >= len(groups):
+                        break   # a padded repeat
+                    for i, w in enumerate(groups[g]):
+                        acc[(slice(None), *w)] += outs[j][i] * imp
                 if progress:
-                    _tick(n, len(groups))
+                    _tick(r + 1, len(rounds))
             return acc.div_(count)[crop]
 
         return fn, starts, imp, count

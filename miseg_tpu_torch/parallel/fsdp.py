@@ -19,9 +19,14 @@ How a step runs (`placements`, `full_weights`, the Trainer):
   * its backward hands each shard the gradient of the global batch's
     mean loss: where the FSDP axis is "data" (its ranks hold different
     batches) a reduce-scatter of the f32 gradients with the mean; where
-    it is another axis (its ranks share a batch, so they hold one
-    gradient) the rank's slice, averaged over "data" afterwards with the
-    replicated leaves.  Identical copies are never summed;
+    it is another axis whose ranks share a batch, so they hold one
+    gradient, the rank's slice; where it is the spatial line of a
+    partitioned patch (`spatial.py`, D7: each rank holds its slab's part
+    of every gradient) a reduce-scatter with the sum.  The last two are
+    averaged over "data" afterwards with the replicated leaves; beside a
+    partitioned patch, a leaf sharded on "data" is then summed over the
+    spatial line (`Trainer._reduce_grads`).  Identical copies are never
+    summed, and no part is left out;
   * evaluation and checkpoints gather whole tensors (`gather_full`),
     and loading a whole tensor keeps the rank's slice (`Placement.shard`),
     so a checkpoint is one process's, whatever the mesh.
@@ -142,8 +147,9 @@ class _GatherShards(torch.autograd.Function):
     """The whole leaves, in `dtype`, from this rank's f32 shards of the
     leaves FSDP places on one line (`pls`), in one all-gather.  Backward:
     the f32 gradient of each whole leaf, split into the line's pieces;
-    with `reduce` (the line is "data") a reduce-scatter with the mean,
-    else this rank's piece."""
+    `reduce` "mean" (the line is "data") or "sum" (the line's ranks hold
+    parts of one gradient) reduce-scatters them so, None (they hold one
+    gradient) takes this rank's piece."""
 
     @staticmethod
     def forward(ctx, pls, dtype, reduce, *shards):
@@ -162,14 +168,14 @@ class _GatherShards(torch.autograd.Function):
             else:
                 rows.append(torch.stack(g.float().chunk(p.size, dim=p.dim)).reshape(p.size, -1))
         buf = torch.cat(rows, dim=1)                      # [size, sum of shard numels]
-        if ctx.reduce:
+        if ctx.reduce is not None:
             if dist.get_backend(pl.group) == dist.Backend.NCCL:
                 mine = torch.empty(buf.shape[1], device=buf.device)
-                dist.reduce_scatter_tensor(mine, buf.reshape(-1), op=dist.ReduceOp.AVG,
-                                           group=pl.group)
+                op = dist.ReduceOp.AVG if ctx.reduce == "mean" else dist.ReduceOp.SUM
+                dist.reduce_scatter_tensor(mine, buf.reshape(-1), op=op, group=pl.group)
             else:
                 dist.all_reduce(buf, group=pl.group)
-                mine = buf[pl.index] / pl.size
+                mine = buf[pl.index] / pl.size if ctx.reduce == "mean" else buf[pl.index]
         else:
             mine = buf[pl.index]
         out, offset = [], 0
@@ -190,13 +196,16 @@ def _lines(tensors: Mapping[str, torch.Tensor], pls: Mapping[str, Placement]) ->
 
 
 def full_weights(params: Mapping[str, torch.Tensor], pls: Mapping[str, Placement],
-                 dtype: torch.dtype, *, tp_sharded: bool) -> dict[str, torch.Tensor]:
+                 dtype: torch.dtype, *, tp_sharded: bool,
+                 summed: str | None = None) -> dict[str, torch.Tensor]:
     """Every floating leaf of `params` (f32 masters, shards where `pls`
     places them) in `dtype`: the FSDP-placed ones gathered whole through
-    the differentiable `_GatherShards`, one call a line; the
-    tensor-parallel ones left as shards when `tp_sharded` (the training
-    forward's Megatron layers take them), else gathered whole too
-    (evaluation, under no_grad)."""
+    the differentiable `_GatherShards`, one call a line, whose backward
+    takes the mean over "data", the sum over the axis `summed` (the
+    spatial line of a partitioned patch) and this rank's piece over any
+    other; the tensor-parallel ones left as shards when `tp_sharded` (the
+    training forward's Megatron layers take them), else gathered whole
+    too (evaluation, under no_grad)."""
     out = {n: p.to(dtype) if p.is_floating_point() else p for n, p in params.items()
            if n not in pls}
     for (kind, axis, _), names in _lines(params, pls).items():
@@ -204,9 +213,9 @@ def full_weights(params: Mapping[str, torch.Tensor], pls: Mapping[str, Placement
             cast = {n: params[n].to(dtype) for n in names}
             out.update(cast if tp_sharded else gather_full(cast, pls))
         else:
+            reduce = "mean" if axis == "data" else "sum" if axis == summed else None
             out.update(zip(names, _GatherShards.apply(
-                tuple(pls[n] for n in names), dtype, axis == "data",
-                *(params[n] for n in names))))
+                tuple(pls[n] for n in names), dtype, reduce, *(params[n] for n in names))))
     return out
 
 

@@ -21,14 +21,18 @@ is "data", `cfg.fsdp_axis`, `cfg.tp_axis`, `cfg.pp_axis` or, under
 raises `NotImplementedError` (ROADMAP M11), and so does a pipeline line
 of more than one rank beside any other axis of more than one rank but
 "data" (pipeline parallelism with FSDP or tensor parallelism), and a
-spatial line of more than one rank beside FSDP, tensor or pipeline
-parallelism, for C-UNETR or UNetVanilla, or in 2-D.
+spatial line of more than one rank beside tensor or pipeline
+parallelism, beside FSDP on an axis other than "data" or the spatial
+one, for C-UNETR or UNetVanilla, or in 2-D.
 
   * `cfg.batch_size` is per data coordinate: the train loader is sharded
     by `(data index, data size)` (`host_shard_info`), so the ranks of one
     line of the other axes load the same batch and draw the same dropout
-    masks.  Validation and test loaders are not sharded (every rank
-    evaluates every volume, so all agree on the metrics).
+    masks.  Validation and test loaders are not sharded: every rank
+    evaluates every volume, its window groups fanned out over the line of
+    the mesh's first axis (`SlidingWindowInferer`'s `mesh`, JAX's rule;
+    each rank predicts its share, `all_gather_line` hands every rank all
+    of them), so all agree on the logits and the metrics.
   * The gradient is the mean over the global batch: each rank's gradient
     of its local mean loss, averaged over the "data" line
     (`all_reduce_mean`, in buckets, once a window under gradient
@@ -38,7 +42,8 @@ parallelism, for C-UNETR or UNetVanilla, or in 2-D.
     zeros for the rest, and under spatial partitioning each rank its
     slab's part, so one all-reduce over every rank sums the pipeline or
     spatial line and averages "data" (`all_reduce_mean(..., over=data
-    size)`).
+    size)`); FSDP's leaves beside spatial partitioning take their own
+    rule, each counted once (`Trainer._reduce_grads`, `fsdp.py`).
   * Batch norm's training statistics cover the global batch
     (`batch_stats`): each data rank's (count, mean, M2) merged by Chan's
     formula over the "data" line (over every rank it would count a shared
@@ -193,9 +198,10 @@ def mesh_from_config(cfg, entry: str = "Trainer") -> Mesh:
     one batch; and so does pipeline parallelism (a `pp_axis` line of more
     than one rank) beside another axis of more than one rank but "data",
     and spatial partitioning (a spatial line of more than one rank) beside
-    another axis of more than one rank but "data", with FSDP, tensor or
-    pipeline parallelism, for a model other than Swin-UNETR and C-UNet, or
-    in 2-D."""
+    another axis of more than one rank but "data", with tensor or pipeline
+    parallelism, with FSDP on another axis than "data" or the spatial one
+    (JAX points `fsdp_axis` at either), for a model other than Swin-UNETR
+    and C-UNet, or in 2-D."""
     allowed = {"data", cfg.fsdp_axis, cfg.tp_axis, cfg.pp_axis}
     if cfg.spatial_shard:
         allowed.add(cfg.spatial_axis)
@@ -224,7 +230,9 @@ def mesh_from_config(cfg, entry: str = "Trainer") -> Mesh:
     if cfg.spatial_shard and mesh.size(cfg.spatial_axis) > 1:
         others = [a for a, n in zip(mesh.axes, mesh.shape)
                   if a not in ("data", cfg.spatial_axis) and n > 1]
-        modes = [m for m in ("fsdp", "tensor_parallel", "pipeline_parallel") if getattr(cfg, m)]
+        modes = [m for m in ("tensor_parallel", "pipeline_parallel") if getattr(cfg, m)]
+        if cfg.fsdp and cfg.fsdp_axis not in ("data", cfg.spatial_axis):
+            modes.append(f"fsdp_axis={cfg.fsdp_axis!r}")
         what = (f"with {modes + others}" if modes or others else
                 f"for model_name={cfg.model_name!r}"
                 if cfg.model_name not in spatial.MODELS else
@@ -349,6 +357,24 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], pg="data", *,
             for t in bucket:
                 t.copy_(flat[offset:offset + t.numel()].view_as(t))
                 offset += t.numel()
+
+
+def all_gather_line(t: torch.Tensor, pg) -> torch.Tensor:
+    """`[size, *t.shape]`: every rank's `t` over the process group `pg` (a
+    line of the mesh), row k the rank of coordinate k on it, on `t`'s
+    device.  NCCL gathers in place; gloo moves host memory only (ROADMAP
+    D6), so a CUDA tensor goes through pinned host memory and back."""
+    n = dist.get_world_size(pg)
+    t = t.contiguous()
+    if dist.get_backend(pg) == dist.Backend.NCCL:
+        out = t.new_empty((n, *t.shape))
+        dist.all_gather_into_tensor(out, t, group=pg)
+        return out
+    pinned = t.device.type == "cuda"
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=pinned).copy_(t)
+    out = torch.empty((n, *t.shape), dtype=t.dtype, pin_memory=pinned)
+    dist.all_gather(list(out.unbind(0)), host, group=pg)
+    return out.to(t.device)
 
 
 def _buckets(tensors, bucket_bytes):

@@ -48,9 +48,19 @@ and called by the layers that need it, one rank a card over the
     bitwise-equal masters.  A top level that the rule leaves whole (D
     indivisible by the line, or an odd slab) runs replicated: every rank
     computes the whole step and the sum is divided by the line's size too.
+  * Beside FSDP (JAX composes the two "by pointing `fsdp_axis` at either"
+    axis) each sharded leaf is gathered whole once a step as without SP,
+    and its gradient is still counted once: on the spatial line the
+    gather's backward is a reduce-scatter by sum (the slabs' parts; for a
+    whole patch, whose ranks hold one gradient, the rank's piece), then
+    the "data" mean; on "data" the gather's reduce-scatter takes the
+    "data" mean, then the spatial line sums the slabs' parts.  The
+    replicated leaves keep the rule above (`Trainer._reduce_grads`,
+    `fsdp._GatherShards`).
 
-SP is training-only, as in JAX: validation and test keep their window
-fan-out, unsharded.
+SP is training-only, as in JAX: validation and test run the whole model
+on whole weights, their window groups fanned out over the mesh's first
+axis (`inferers.py`).
 """
 
 from __future__ import annotations

@@ -20,11 +20,17 @@ the stream.
 
 Evaluation (`make_inferer`, `evaluate`) runs the model in eval mode under
 `inference_mode`, where the kernel wrappers launch directly and no
-autograd Function runs, on one cast of the masters per call.  `fit`
+autograd Function runs, on one cast of the masters per call.  On a mesh
+of more than one rank every rank evaluates every volume, and the
+inferer fans the window groups out over the line of the mesh's first
+axis (JAX's rule, miseg_tpu/train/engine.py:328-342): each rank predicts
+its ⌈G/N⌉ groups, and the gathered logits are overlap-added in one
+process's order on every rank.  `fit`
 keeps host timings in `history`: the data module's set-up, each step's
 wait on the loader and its CUDA-event time on the card, each epoch's,
 validation's and checkpoint save's seconds, the windows evaluated and the
-seconds of surface distance.
+seconds of surface distance, the windows counted those this rank
+predicted.
 
 Under data parallelism (`parallel`, one rank a card) the Trainer runs
 JAX's multi-host semantics: rank 0's initial state is broadcast, each
@@ -46,7 +52,9 @@ where its axis is not "data") are averaged over the "data" line, FSDP's
 on "data" by their gather's reduce-scatter.  `state_dict`, `opt_state`
 and `eval_weights` gather whole tensors (a collective: every rank calls
 them) and `restore` keeps the rank's slices, so checkpoints are one
-process's whatever the mesh.
+process's whatever the mesh.  Beside spatial partitioning FSDP shards
+over "data" or over the spatial line (JAX points `fsdp_axis` at either,
+:205-211 and :281-290): see the next paragraph but one.
 
 Under pipeline parallelism (`cfg.pipeline_parallel` on a mesh whose
 `cfg.pp_axis` line has S > 1 ranks; JAX's :131-167) the step runs
@@ -72,7 +80,15 @@ rank's gradient is its slab's part, so one all-reduce over every rank
 sums the line and averages "data" (`all_reduce_mean(..., over=)`, once a
 window under accumulation) and every rank keeps bitwise-equal masters; a
 patch whose D the rule leaves whole runs replicated on the line, its sum
-divided by N too.  Evaluation stays unsharded.
+divided by N too.  With FSDP each sharded leaf's gradient is counted once
+too: sharded over the spatial line, its gather's backward sums the
+slabs' parts and scatters them (for a whole patch, whose ranks hold one
+gradient, it takes the rank's piece), then the "data" line averages it;
+sharded over "data", the gather's reduce-scatter takes the "data" mean
+and the spatial line then sums the slabs' parts (nothing for a whole
+patch); the replicated leaves keep the all-reduce over every rank.
+Evaluation runs the whole model on gathered weights, its windows fanned
+out as above.
 """
 
 from __future__ import annotations
@@ -91,7 +107,7 @@ from .. import parallel
 from ..config import Config, require_ported
 from ..parallel import fsdp, spatial
 from ..parallel import tensor as tensor_parallel
-from ..inferers import SlidingWindowInferer, window_starts
+from ..inferers import SlidingWindowInferer
 from ..losses import loss_from_config
 from ..metrics import (dice_score_labels, metric_by_modality, nanmean_valid,
                        reduce_mean_batch, surface_distance)
@@ -203,7 +219,7 @@ class Trainer:
         self._full_shapes = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
         self.placements: dict[str, fsdp.Placement] = {}
         self._masters: dict[str, torch.Tensor] | None = None
-        self._averaged_by_gather: set[int] = set()
+        self._fsdp_axes: dict[int, str] = {}   # id(FSDP master) -> its axis
         self.loss_fn = loss_from_config(cfg)
         self.scheduler = scheduler_from_config(cfg)
         self.compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
@@ -251,9 +267,9 @@ class Trainer:
             masters[n] = nn.Parameter(pl.shard(full.detach()).clone())
             full.data = torch.empty(0, dtype=full.dtype, device=full.device)
         self._masters = masters
-        # FSDP's leaves on "data": their gather's reduce-scatter takes the mean
-        self._averaged_by_gather = {id(masters[n]) for n, pl in self.placements.items()
-                                    if pl.kind == "fsdp" and pl.axis == "data"}
+        # FSDP's leaves: their gather's backward reduces over their axis
+        self._fsdp_axes = {id(masters[n]): pl.axis for n, pl in self.placements.items()
+                           if pl.kind == "fsdp"}
         optimizer = optimizer_from_config(self.cfg, masters,
                                           getattr(self.model, "ENCODER_PREFIXES", ()))
         k = self.cfg.iters_to_accumulate
@@ -297,23 +313,38 @@ class Trainer:
         parallelism each is one stage's on every pipeline line and zeros on
         the line's other ranks: summed over the line and averaged over
         "data", in one all-reduce over every rank (so every rank gets the
-        same bits); so under spatial partitioning, where each is the rank's
-        slab's part (a replicated patch's whole gradient, divided by the
-        line's size too), and `extra` (the loss, the whole patch's on every
-        rank of the line) is averaged over "data"."""
+        same bits); so under spatial partitioning, where each replicated
+        leaf's is the rank's slab's part (a replicated patch's whole
+        gradient, divided by the line's size too), and `extra` (the loss,
+        the whole patch's on every rank of the line) is averaged over
+        "data".  There FSDP's leaves on the spatial line, which their
+        gather summed (or sliced), are averaged over "data", and those on
+        "data", which their gather averaged, are summed over the spatial
+        line where the patch is partitioned."""
         n_sp = self._sp_size()
         if n_sp > 1:
-            over = self.mesh.size("data") * (1 if self._sp_top is not None else n_sp)
-            parallel.all_reduce_mean([g for g in grads if g is not None], parallel.group(),
-                                     over=over)
-            parallel.all_reduce_mean(list(extra), self.mesh.group("data"))
+            sharded = self._sp_top is not None
+
+            def on(axis):
+                return [g for g, p in zip(grads, params)
+                        if g is not None and self._fsdp_axes.get(id(p)) == axis]
+
+            over = self.mesh.size("data") * (1 if sharded else n_sp)
+            parallel.all_reduce_mean([g for g, p in zip(grads, params) if g is not None
+                                      and id(p) not in self._fsdp_axes],
+                                     parallel.group(), over=over)
+            if sharded:
+                parallel.all_reduce_mean(on("data"), self.mesh.group(self.cfg.spatial_axis),
+                                         over=1)
+            parallel.all_reduce_mean([*extra, *on(self.cfg.spatial_axis)],
+                                     self.mesh.group("data"))
             return
         if self._pp_active():
             parallel.all_reduce_mean([*extra, *(g for g in grads if g is not None)],
                                      parallel.group(), over=self.mesh.size("data"))
             return
         parallel.all_reduce_mean([*extra, *(g for g, p in zip(grads, params) if g is not None
-                                            and id(p) not in self._averaged_by_gather)],
+                                            and self._fsdp_axes.get(id(p)) != "data")],
                                  self.mesh.group("data"))
 
     def fresh_state(self) -> TrainState:
@@ -409,8 +440,12 @@ class Trainer:
     def apply_fn(self, params: Mapping[str, torch.Tensor], image, modalities):
         """Forward under the compute policy: f32 logits of `image` from the
         parameters cast to the compute dtype (the FSDP shards then gathered
-        whole, the tensor-parallel ones left as shards)."""
-        cast = fsdp.full_weights(params, self.placements, self.compute_dtype, tp_sharded=True)
+        whole, the tensor-parallel ones left as shards; the spatial line of
+        a partitioned patch holds parts of one gradient, which the
+        gather's backward sums)."""
+        summed = self.cfg.spatial_axis if self._sp_top is not None else None
+        cast = fsdp.full_weights(params, self.placements, self.compute_dtype, tp_sharded=True,
+                                 summed=summed)
         logits = torch.func.functional_call(
             self.model, cast, (image.to(self.compute_dtype), modalities))
         return logits.float()
@@ -488,14 +523,18 @@ class Trainer:
         """A sliding-window inferer (one per blend `mode`, cached) over the
         model's current parameters, in eval mode and the compute dtype with
         f32 logits, under `inference_mode`; it stitches in host memory with
-        `cfg.infer_cpu` and prints its progress with `cfg.infer_progress`."""
+        `cfg.infer_cpu` and prints its progress with `cfg.infer_progress`.
+        On a mesh of more than one rank it takes the mesh (JAX's :335), so
+        its window groups fan out over the first axis' line: every rank of
+        the mesh must call it on the same volumes."""
         if mode not in self._inferers:
             cfg = self.cfg
             self._inferers[mode] = _EvalInferer(
                 self, roi_size=cfg.roi, sw_batch_size=cfg.sw_batch_size,
                 overlap=cfg.infer_overlap, mode=mode,
                 out_channels=cfg.out_channels, stitch_on_host=cfg.infer_cpu,
-                progress=cfg.infer_progress, device=self.device)
+                progress=cfg.infer_progress, device=self.device,
+                mesh=self.mesh if np.prod(self.mesh.shape) > 1 else None)
         return self._inferers[mode]
 
     # --------------------------------------------------------- train step
@@ -606,9 +645,10 @@ class Trainer:
     def evaluate(self, loader, state: TrainState, *, prefix: str = "val",
                  compute_surface: bool = False, epoch: int | None = None) -> dict:
         """Constant-blend sliding-window evaluation of every volume of
-        `loader`: each volume's loss, its label-map Dice by class (and with
-        `compute_surface` its symmetric surface distance, on the host),
-        reduced over volumes, by class and by modality, under the JAX
+        `loader` (on every rank of a mesh, each predicting its share of the
+        windows, `make_inferer`): each volume's loss, its label-map Dice by
+        class (and with `compute_surface` its symmetric surface distance, on
+        the host), reduced over volumes, by class and by modality, under the JAX
         package's metric names; logged at `epoch` and returned."""
         cfg = self.cfg
         inferer = self.make_inferer()
@@ -624,8 +664,7 @@ class Trainer:
                 mod_t = self._to_device(modality, torch.int32) if modality is not None else None
                 logits = inferer(image, mod_t)
                 self.history["eval_windows"].append(
-                    len(window_starts(tuple(image.shape[1:-1]), cfg.roi, cfg.infer_overlap)[1])
-                    * image.shape[0])
+                    inferer.windows_predicted(tuple(image.shape[1:-1])) * image.shape[0])
                 losses.extend(self.loss_fn(logits[i:i + 1], label[i:i + 1])
                               for i in range(logits.shape[0]))
                 pred = logits.argmax(dim=-1)

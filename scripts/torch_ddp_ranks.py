@@ -2,8 +2,11 @@
 on the same global batch; with `--launch N`, the whole N-card recipe.
 
     torchrun --standalone --nproc_per_node=N scripts/torch_ddp_ranks.py \
-        [--device cpu] [--size 96]
-    python scripts/torch_ddp_ranks.py --launch N [--size 96]
+        [--device cpu] [--size 96] [--legs NAME ...]
+    python scripts/torch_ddp_ranks.py --launch N [--size 96] [--legs NAME ...] \
+        [--runs RUN ...]
+    torchrun --standalone --nproc_per_node=N scripts/torch_ddp_ranks.py --fit \
+        CLI_TRAIN_FLAGS ...
 
 Under `torchrun`, each rank joins the group that
 `parallel.init_process_group` sets up from torchrun's environment (NCCL on
@@ -36,11 +39,21 @@ slice of a seeded global batch of N volumes (`--size`^3, one a rank):
     step, beside one process's step at the same batch and GPipe's bubble,
     (S - 1) / (M + S - 1);
   * spatial partitioning (`MESH_LEGS` "sp [4]" and "data x sp [2, 2]",
-    `--spatial_shard` over ("sp",) or ("data", "sp")): the same f32 step
-    held to one process, and on the card the flagship's bf16 step ms and
-    peak memory a rank beside one process's; on `[4]` also at 192^3
-    against one process at 192^3 (its peak, or that it does not fit).
-Rank 0 prints one line each and `ok`; any failed check raises.
+    `--spatial_shard` over ("sp",) or ("data", "sp")), and beside FSDP
+    ("sp + fsdp [4]" with `fsdp_axis="sp"`, "data x sp + fsdp [2, 2]" with
+    `fsdp_axis="data"`): the same f32 step held to one process, and on
+    the card the flagship's bf16 step ms, peak memory and bytes of masters
+    and moments a rank beside one process's; on `[4]` also at 192^3
+    (`SP_LARGE`) against one process at 192^3 (its peak, or that it does
+    not fit).
+Rank 0 prints one line each and `ok`; any failed check raises.  `--legs`
+runs only the named legs of `MESH_LEGS` (default: all).
+
+`--fit` (under torchrun) runs `cli.train.main` on the flags after it and
+prints, from rank 0, a line `FIT {json}` of every rank's seconds of each
+validation and of each epoch and the windows it predicted of each
+evaluated volume (`Trainer.history`): under a mesh the window groups fan
+out over its first axis.
 
 `--launch N` (not under torchrun) runs, each under `torchrun --standalone
 --nproc_per_node=N` with its own time limit: this script; `cli.train`
@@ -49,8 +62,15 @@ on the flagship for 2 epochs over a synthetic dataset (4 train volumes of
 `cli.train --pipeline_parallel --mesh_shape 1 4 --mesh_axes data pp`
 (batch 2, two microbatches) and `cli.train --spatial_shard --mesh_shape 4
 --mesh_axes sp` for 1 epoch each, whose `last.ckpt`s must hold the
-data-parallel run's names and whole shapes; `cli.tune` for 2 one-epoch
-trials over the same data.  Each must exit 0,
+data-parallel run's names and whole shapes; with N = 4 (run "sp_fsdp")
+one epoch of `cli.train --spatial_shard --fsdp --fsdp_axis sp
+--mesh_shape 4 --mesh_axes sp` and of one process through `--fit`, each
+rank's seconds a validation and windows a volume beside one process's,
+its `last.ckpt` holding one process's names and whole shapes;
+`cli.tune` for 2 one-epoch trials over the same data.  `--runs` takes
+only the named ones of "train", "fsdp", "pp", "sp", "sp_fsdp" and
+"tune" ("train" writes the checkpoint "fsdp", "pp" and "sp" are held
+to).  Each must exit 0,
 `cli.train` leave `best.ckpt`, `last.ckpt` and its metrics, and
 `cli.tune` its journal; the outputs go to
 `chiprun_out/ddp<N>_*.txt`, and each step's seconds are printed with the
@@ -58,6 +78,7 @@ card's name and power limit.
 """
 
 import argparse
+import json
 import math
 import os
 import statistics
@@ -127,15 +148,21 @@ MESH_LEGS = {"fsdp [N]": (dict(fsdp=True), cs.MESH_SMALL, cs.FLAGSHIP, 1),
              "sp [4]": (dict(spatial_shard=True, mesh_shape=[4], mesh_axes=["sp"]),
                         cs.MESH_SMALL, cs.FLAGSHIP, 1),
              "data x sp [2, 2]": (dict(spatial_shard=True, mesh_shape=[2, 2],
-                                       mesh_axes=["data", "sp"]), cs.MESH_SMALL, cs.FLAGSHIP, 1)}
-# the spatial leg that also runs the flagship at this patch size
-SP_LARGE = ("sp [4]", 192)
+                                       mesh_axes=["data", "sp"]), cs.MESH_SMALL, cs.FLAGSHIP, 1),
+             "sp + fsdp [4]": (dict(spatial_shard=True, mesh_shape=[4], mesh_axes=["sp"],
+                                    fsdp=True, fsdp_axis="sp"), cs.MESH_SMALL, cs.FLAGSHIP, 1),
+             "data x sp + fsdp [2, 2]": (dict(spatial_shard=True, mesh_shape=[2, 2],
+                                              mesh_axes=["data", "sp"], fsdp=True,
+                                              fsdp_axis="data"), cs.MESH_SMALL, cs.FLAGSHIP,
+                                         1)}
+# the spatial legs that also run the flagship at this patch size
+SP_LARGE = (("sp [4]", "sp + fsdp [4]"), 192)
 
 
-def flagship_steps(par: dict, size: int, data: int, device) -> tuple[list, int]:
+def flagship_steps(par: dict, size: int, data: int, device) -> tuple[list, int, int]:
     """Three bf16 steps of the flagship at `size`^3 under `par`, on this
     rank's share of a batch of `data` volumes: (CUDA-event ms a step, peak
-    memory)."""
+    memory, bytes of f32 masters and AdamW moments this rank holds)."""
     big = {**cs.FLAGSHIP, "roi_x": size, "roi_y": size, "roi_z": size}
     fdata = [cs._share(b) for b in batches(Config(**big), data, size, 3, device)]
     trainer = Trainer(Config(**big, **par), device=device)
@@ -150,24 +177,26 @@ def flagship_steps(par: dict, size: int, data: int, device) -> tuple[list, int]:
         end.record()
         end.synchronize()
         ms.append(start.elapsed_time(end))
-    return ms, torch.cuda.max_memory_allocated()
+    return ms, torch.cuda.max_memory_allocated(), trainer.state_bytes(state)
 
 
 def one_process_large(size: int, device) -> str:
     """One process's flagship bf16 step at `size`^3, batch 1: its step ms
     and peak memory, or that it does not fit on the card."""
     try:
-        ms, peak = flagship_steps({}, size, 1, device)
+        ms, peak, state_bytes = flagship_steps({}, size, 1, device)
     except torch.OutOfMemoryError as e:
         torch.cuda.empty_cache()
         return f"does not fit ({str(e).splitlines()[0][:160]})"
-    return f"step ms {[round(v, 2) for v in ms]}, peak memory {peak} B"
+    return (f"step ms {[round(v, 2) for v in ms]}, peak memory {peak} B, masters + moments "
+            f"{state_bytes} B")
 
 
 
-def mesh_legs(device, world: int, size: int) -> dict:
-    """Each of `MESH_LEGS` this rank takes part in (those with a mesh shape
-    need as many ranks): the f32 step of its small model (a
+def mesh_legs(device, world: int, size: int, legs=None) -> dict:
+    """Each of `MESH_LEGS` (or of the names `legs`) this rank takes part in
+    (those with a mesh shape need as many ranks): the f32 step of its small
+    model (a
     `chip_smoke._mesh_record`, on rank 0) and, on the card, its full-width
     model's bf16 step ms and state bytes of every rank (under GPipe also
     its device busy ms in one profiled step)."""
@@ -175,6 +204,8 @@ def mesh_legs(device, world: int, size: int) -> dict:
     roi = dict(roi_x=size, roi_y=size, roi_z=size)
     for name, (par, small, big, per) in MESH_LEGS.items():
         if par.get("mesh_shape") and math.prod(par["mesh_shape"]) != world:
+            continue
+        if legs is not None and name not in legs:
             continue
         trainer = Trainer(Config(**small, **par), device=device)
         data = trainer.mesh.size("data")
@@ -212,7 +243,7 @@ def mesh_legs(device, world: int, size: int) -> dict:
                 peaks = [None] * world
                 dist.all_gather_object(peaks, flagship_steps(par, size, data * per, device))
                 rec["sp_peaks"] = {size: peaks}
-                if name == SP_LARGE[0]:
+                if name in SP_LARGE[0]:
                     large = [None] * world
                     dist.all_gather_object(large, flagship_steps(par, SP_LARGE[1], data * per,
                                                                  device))
@@ -246,7 +277,7 @@ def ranks_main(args) -> None:
         _, _, ranks_ms = run(flagship, device, fdata, rank)
     card = (torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
     backend = dist.get_backend()
-    legs = mesh_legs(device, world, size)
+    legs = mesh_legs(device, world, size, args.legs)
     parallel.destroy_process_group()
     if rank != 0:
         return
@@ -328,23 +359,26 @@ def held_legs(legs: dict, device, size: int, card: str, one_ms, dp_ms) -> None:
             one = (one_process_large(side, device) if side != size else
                    f"peak memory {flagship_steps({}, side, 1, device)[1]} B")
             line += (f"; flagship {side}^3 bf16, step ms a rank "
-                     f"{[[round(v, 2) for v in ms] for ms, _ in runs]}, peak memory a rank "
-                     f"{[peak for _, peak in runs]} B; one process at batch 1: {one}")
+                     f"{[[round(v, 2) for v in ms] for ms, _, _ in runs]}, peak memory a rank "
+                     f"{[peak for _, peak, _ in runs]} B, masters + moments a rank "
+                     f"{[b for _, _, b in runs]} B; one process at batch 1: {one}")
         print(line)
 
 
 def _torchrun(n: int, args: list[str], log: Path, timeout: int) -> float:
     """`torchrun --standalone --nproc_per_node=n ARGS` into `log`; its
-    seconds.  Fails when it exits with another code than 0."""
+    seconds.  Fails when it exits with another code than 0.  A `FIT` line
+    of the log (`--fit`) is printed whole."""
     t0 = time.perf_counter()
     with open(log, "w") as out:
         rc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
                              f"--nproc_per_node={n}", *args], cwd=ROOT, stdout=out,
                             stderr=subprocess.STDOUT, timeout=timeout).returncode
     seconds = time.perf_counter() - t0
-    tail = [ln for ln in log.read_text().splitlines() if "socket.cpp" not in ln][-6:]
+    lines = [ln for ln in log.read_text().splitlines() if "socket.cpp" not in ln]
+    fit = [ln for ln in lines if ln.startswith("FIT ")]
     print(f"torchrun x{n} {' '.join(args[:2])}: rc {rc} in {seconds:.1f} s\n  "
-          + "\n  ".join(ln[:300] for ln in tail))
+          + "\n  ".join([*(ln[:300] for ln in lines[-6:] if ln not in fit), *fit]))
     cs.check(rc == 0, f"torchrun x{n} {' '.join(args[:2])} exited {rc} (log {log})")
     return seconds
 
@@ -367,9 +401,34 @@ def held_checkpoint(whole: Path, other: Path, what: str) -> None:
           "whole, under the data-parallel checkpoint's names and shapes")
 
 
-def launch_main(n: int, size: int) -> None:
-    """The N-card recipe: the ranks check, then `cli.train` and `cli.tune`
-    under torchrun over a synthetic dataset."""
+def fit_main(argv: list[str]) -> None:
+    """Under torchrun: `cli.train.main` on the flags `argv`; rank 0 prints
+    `FIT` and a JSON list of every rank's validation and epoch seconds and
+    windows predicted a volume (validation volumes, then the test's)."""
+    from miseg_tpu_torch.cli import parse_args
+    from miseg_tpu_torch.cli import train as cli_train
+
+    cfg, device = parse_args(argv)
+    try:
+        trainer, _, _ = cli_train.main(cfg, device=device)
+        h = trainer.history
+        mine = {"val_s": h["val_s"], "epoch_s": h["epoch_s"], "windows": h["eval_windows"],
+                "mesh": list(trainer.mesh.shape)}
+        per_rank = [mine]
+        if dist.is_initialized():
+            per_rank = [None] * dist.get_world_size()
+            dist.all_gather_object(per_rank, mine)
+            if dist.get_rank() != 0:
+                return
+        print("FIT " + json.dumps(per_rank))
+    finally:
+        parallel.destroy_process_group()
+
+
+def launch_main(n: int, size: int, legs=None, runs=None) -> None:
+    """The N-card recipe: the ranks check (its legs `legs`, default all),
+    then `cli.train` and `cli.tune` under torchrun over a synthetic
+    dataset (the runs `runs`, default all)."""
     from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
     from miseg_tpu_torch.ops.kernels import build
 
@@ -381,8 +440,12 @@ def launch_main(n: int, size: int) -> None:
     t0 = time.perf_counter()
     build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    _torchrun(n, [str(Path(__file__).resolve()), "--size", str(size)],
-              out / f"ddp{n}_ranks.txt", 600)
+    _torchrun(n, [str(Path(__file__).resolve()), "--size", str(size),
+                  *(["--legs", *legs] if legs else [])], out / f"ddp{n}_ranks.txt", 600)
+
+    def wanted(run: str) -> bool:
+        return runs is None or run in runs
+
     with tempfile.TemporaryDirectory() as tmp:
         data = Path(tmp) / "syn"
         make_synthetic_dataset(data, shape=(128, 128, 112), num_classes=6, n_train=4,
@@ -394,37 +457,53 @@ def launch_main(n: int, size: int) -> None:
                   "--json_lists", "CT.json", "MR.json", "--check_val_every_n_epoch", "1",
                   "--batch_size", "1", "--cache_num", "8", "--num_workers", "2",
                   "--default_root_dir", str(Path(tmp) / "runs")]
-        _torchrun(n, ["-m", "miseg_tpu_torch.cli.train", *common, "--max_epochs", "2",
-                      "--experiment_name", "flagship"], out / f"ddp{n}_train.txt", 900)
         run_dir = Path(tmp) / "runs" / "flagship"
-        written = sorted(p.name for p in run_dir.iterdir())
-        cs.check({"best.ckpt", "last.ckpt", "metrics.jsonl"} <= set(written),
-                 f"cli.train wrote {written}")
-        _torchrun(n, ["-m", "miseg_tpu_torch.cli.train", *common, "--max_epochs", "1",
-                      "--fsdp", "--experiment_name", "fsdp"], out / f"ddp{n}_train_fsdp.txt",
-                  900)
-        held_checkpoint(run_dir / "last.ckpt", Path(tmp) / "runs" / "fsdp" / "last.ckpt",
-                        "--fsdp")
-        if n == 4:
+        written = []
+        if wanted("train"):
+            _torchrun(n, ["-m", "miseg_tpu_torch.cli.train", *common, "--max_epochs", "2",
+                          "--experiment_name", "flagship"], out / f"ddp{n}_train.txt", 900)
+            written = sorted(p.name for p in run_dir.iterdir())
+            cs.check({"best.ckpt", "last.ckpt", "metrics.jsonl"} <= set(written),
+                     f"cli.train wrote {written}")
+        if wanted("fsdp"):
+            _torchrun(n, ["-m", "miseg_tpu_torch.cli.train", *common, "--max_epochs", "1",
+                          "--fsdp", "--experiment_name", "fsdp"],
+                      out / f"ddp{n}_train_fsdp.txt", 900)
+            held_checkpoint(run_dir / "last.ckpt", Path(tmp) / "runs" / "fsdp" / "last.ckpt",
+                            "--fsdp")
+        if n == 4 and wanted("sp_fsdp"):
+            script = str(Path(__file__).resolve())
+            _torchrun(1, [script, "--fit", *common, "--max_epochs", "1",
+                          "--experiment_name", "one"], out / f"ddp{n}_fit_one.txt", 900)
+            _torchrun(n, [script, "--fit", *common, "--max_epochs", "1", "--spatial_shard",
+                          "--fsdp", "--fsdp_axis", "sp", "--mesh_shape", "4", "--mesh_axes",
+                          "sp", "--experiment_name", "sp_fsdp"],
+                      out / f"ddp{n}_fit_sp_fsdp.txt", 900)
+            held_checkpoint(Path(tmp) / "runs" / "one" / "last.ckpt",
+                            Path(tmp) / "runs" / "sp_fsdp" / "last.ckpt",
+                            "--spatial_shard --fsdp --fsdp_axis sp")
+        if n == 4 and wanted("pp"):
             _torchrun(n, ["-m", "miseg_tpu_torch.cli.train", *common, "--max_epochs", "1",
                           "--pipeline_parallel", "--mesh_shape", "1", "4", "--mesh_axes", "data",
                           "pp", "--batch_size", "2", "--experiment_name", "pp"],
                       out / f"ddp{n}_train_pp.txt", 900)
             held_checkpoint(run_dir / "last.ckpt", Path(tmp) / "runs" / "pp" / "last.ckpt",
                             "--pipeline_parallel")
+        if n == 4 and wanted("sp"):
             _torchrun(n, ["-m", "miseg_tpu_torch.cli.train", *common, "--max_epochs", "1",
                           "--spatial_shard", "--mesh_shape", "4", "--mesh_axes", "sp",
                           "--experiment_name", "sp"], out / f"ddp{n}_train_sp.txt", 900)
             held_checkpoint(run_dir / "last.ckpt", Path(tmp) / "runs" / "sp" / "last.ckpt",
                             "--spatial_shard")
-        _torchrun(n, ["-m", "miseg_tpu_torch.cli.tune", *common, "--max_epochs", "1",
-                      "--scheduler", "warmup_cosine", "--n_trials", "2",
-                      "--study_name", "ddp", "--storage_name", "ddp"],
-                  out / f"ddp{n}_tune.txt", 900)
-        journal = Path(tmp) / "runs" / "ddp.journal.jsonl"
-        cs.check(journal.exists(), f"cli.tune left no journal at {journal}")
-        print(f"cli.train wrote {written}; cli.tune's journal holds "
-              f"{len(journal.read_text().splitlines())} lines")
+        if wanted("tune"):
+            _torchrun(n, ["-m", "miseg_tpu_torch.cli.tune", *common, "--max_epochs", "1",
+                          "--scheduler", "warmup_cosine", "--n_trials", "2",
+                          "--study_name", "ddp", "--storage_name", "ddp"],
+                      out / f"ddp{n}_tune.txt", 900)
+            journal = Path(tmp) / "runs" / "ddp.journal.jsonl"
+            cs.check(journal.exists(), f"cli.tune left no journal at {journal}")
+            print(f"cli.train wrote {written}; cli.tune's journal holds "
+                  f"{len(journal.read_text().splitlines())} lines")
     print("ok")
 
 
@@ -435,14 +514,22 @@ def main() -> None:
     ap.add_argument("--launch", type=int, default=0,
                     help="run the N-card recipe (this script, cli.train, cli.tune) under "
                          "torchrun with N ranks")
+    ap.add_argument("--legs", nargs="+", default=None, choices=list(MESH_LEGS),
+                    help="the legs of MESH_LEGS to run (default: all)")
+    ap.add_argument("--runs", nargs="+", default=None,
+                    choices=["train", "fsdp", "pp", "sp", "sp_fsdp", "tune"],
+                    help="with --launch, the torchrun runs after the ranks (default: all)")
     args = ap.parse_args()
     if args.launch:
         if "WORLD_SIZE" in os.environ:
             raise SystemExit("--launch starts torchrun itself; run it with plain python")
-        launch_main(args.launch, args.size)
+        launch_main(args.launch, args.size, args.legs, args.runs)
     else:
         ranks_main(args)
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--fit"]:   # cli.train's flags follow
+        fit_main(sys.argv[2:])
+    else:
+        main()

@@ -49,6 +49,9 @@ STEP_CASES = {
                                decoder_norm_name="batch", roi_x=16, roi_y=16, roi_z=16),
 }
 ACCUM_CASE = dict(STEP_CASES["unet_vanilla_batch"], iters_to_accumulate=2)
+# a C-UNet (a model spatial partitioning takes) with FSDP on the spatial line
+SP_UNET = dict(model_name="unet", feature_size=[8], num_layers=2, strides=[2],
+               num_res_units=1, spatial_shard=True, fsdp=True, fsdp_axis="sp")
 GLOBAL_BATCH = 2
 STEPS = 2
 
@@ -113,8 +116,9 @@ def mesh_checks() -> dict:
                      "mesh_4": {"mesh_shape": [4]}, "mesh_1": {"mesh_shape": [1]},
                      "axes_model": {"mesh_axes": ["data", "model"]},
                      "fsdp": {"fsdp": True}, "spatial_shard": {"spatial_shard": True},
-                     "spatial_fsdp": {"spatial_shard": True, "mesh_axes": ["sp"],
-                                      "fsdp": True},
+                     "spatial_fsdp": {**SP_UNET, "mesh_axes": ["sp"]},
+                     "spatial_fsdp_tp": {**SP_UNET, "mesh_shape": [2, 1],
+                                         "mesh_axes": ["sp", "model"], "tensor_parallel": True},
                      "tensor_parallel": {"tensor_parallel": True},
                      "pipeline_parallel": {"pipeline_parallel": True}}.items():
         cfg = Config(**dict(STEP_CASES["unet_vanilla_batch"], **kw))

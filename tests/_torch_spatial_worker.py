@@ -12,14 +12,23 @@ coordinate's batch; the Trainer cuts its D slab), from the state dicts of
     autograd on the whole volume, each as its largest gap; `losses`, each
     loss of `losses.py` over the slabs against the whole patch; one SGD
     step of JAX's tiny C-UNet and of its tiny swin (without and with
-    dropout); the swin's forward in eval mode, its logits gathered whole;
-    the refusals (`refusals`).
+    dropout); beside FSDP on the spatial line, the C-UNet's step, an fs-24
+    swin's, and a C-UNet's whose patch (D 18) the level rule keeps whole;
+    the swin's forward in eval mode, its logits gathered whole; the
+    refusals (`refusals`).
   * "sp4" (world 4): the C-UNet step on the line `[4]` and on the
-    ("data", "sp") mesh `[2, 2]`.
+    ("data", "sp") mesh `[2, 2]`, and beside FSDP on `[4]` (the spatial
+    line) and on `[2, 2]` (FSDP on "data", and on "sp").
+  * Both: the sliding-window inferer fanned out over the world (`fanout`:
+    its logits and predict calls, and with `stitch_on_host`), and
+    `Trainer.evaluate` on `[2]` ("sp2") or `[2, 2]` ("sp4") of the
+    volumes of `eval_volumes`.
 
 Each step records the loss, the whole parameters after the update, the
-gradients it applied and a digest of the masters.  Saves what it saw to
-`OUT_DIR/<SUITE>_rank<RANK>.pt`.
+gradients it applied (both gathered whole where FSDP shards them), a
+digest of the gathered masters, the bytes of masters and momentum this
+rank holds, and beside FSDP a checkpoint round trip (`round_trip`).
+Saves what it saw to `OUT_DIR/<SUITE>_rank<RANK>.pt`.
 """
 
 from __future__ import annotations
@@ -37,11 +46,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from miseg_tpu_torch import losses as L  # noqa: E402
 from miseg_tpu_torch import parallel  # noqa: E402
 from miseg_tpu_torch.config import Config  # noqa: E402
+from miseg_tpu_torch.inferers import SlidingWindowInferer  # noqa: E402
 from miseg_tpu_torch.models import model_from_config  # noqa: E402
 from miseg_tpu_torch.ops import norms as N  # noqa: E402
 from miseg_tpu_torch.ops.kernels import fused_conv, fused_norm  # noqa: E402
-from miseg_tpu_torch.parallel import spatial  # noqa: E402
+from miseg_tpu_torch.parallel import fsdp, spatial  # noqa: E402
 from miseg_tpu_torch.train import engine  # noqa: E402
+from miseg_tpu_torch.utils.logging import MetricLogger  # noqa: E402
 
 # JAX's tiny C-UNet (tests/test_spatial.py:45-52) under SGD, and its tiny
 # swin (:148-176) as a training configuration
@@ -59,27 +70,54 @@ MODELS = {
 }
 # the C-UNet with batch norms: its statistics over the data x spatial ranks
 MODELS["unet_batch"] = dict(MODELS["unet"], encoder_norm_name="batch", decoder_norm_name="batch")
+# the tiny swin at fs 24, and a C-UNet whose patch's D (18: 9 planes a rank
+# of [2]) the level rule keeps whole
+MODELS["swin24"] = dict(MODELS["swin"], feature_size=[24])
+MODELS["unet_whole"] = dict(MODELS["unet"], roi_x=18)
 DROPOUT = dict(dropout_rate=0.2, attn_drop_rate=0.1, dropout_path_rate=0.1)
+# FSDP on the leaves of 128 elements or more (the tiny models have few above
+# JAX's default 8192), on the spatial line or on "data"
+FSDP_SP = dict(fsdp=True, fsdp_min_size=128, fsdp_axis="sp")
+FSDP_DATA = dict(fsdp=True, fsdp_min_size=128, fsdp_axis="data")
 # case -> (model, mesh shape, mesh axes, extra fields)
 CASES = {
     "unet_sp2": ("unet", [2], ["sp"], {}),
     "swin_sp2": ("swin", [2], ["sp"], {}),
     "swin_dropout_sp2": ("swin", [2], ["sp"], DROPOUT),
     "unet_batch_sp2": ("unet_batch", [2], ["sp"], {}),
+    "unet_fsdp_sp2": ("unet", [2], ["sp"], FSDP_SP),
+    "swin24_fsdp_sp2": ("swin24", [2], ["sp"], FSDP_SP),
+    "unet_whole_fsdp_sp2": ("unet_whole", [2], ["sp"], FSDP_SP),
     "unet_sp4": ("unet", [4], ["sp"], {}),
     "unet_dp_sp": ("unet", [2, 2], ["data", "sp"], {}),
+    "unet_fsdp_sp4": ("unet", [4], ["sp"], FSDP_SP),
+    "unet_dp_sp_fsdp_data": ("unet", [2, 2], ["data", "sp"], FSDP_DATA),
+    "unet_dp_sp_fsdp_sp": ("unet", [2, 2], ["data", "sp"], FSDP_SP),
 }
-SUITES = {"sp2": ["unet_sp2", "unet_batch_sp2", "swin_sp2", "swin_dropout_sp2"],
-          "sp4": ["unet_sp4", "unet_dp_sp"]}
+SUITES = {"sp2": ["unet_sp2", "unet_batch_sp2", "swin_sp2", "swin_dropout_sp2",
+                  "unet_fsdp_sp2", "swin24_fsdp_sp2", "unet_whole_fsdp_sp2"],
+          "sp4": ["unet_sp4", "unet_dp_sp", "unet_fsdp_sp4", "unet_dp_sp_fsdp_data",
+                  "unet_dp_sp_fsdp_sp"]}
+FSDP_CASES = [c for c, (_, _, _, extra) in CASES.items() if extra.get("fsdp")]
 GLOBAL_BATCH = 2
+# the window fan-out: name -> (volume, sw_batch_size, batch); 6 groups; 2
+# groups of 4 and 2 windows; 3 groups of 3, 3 and 2 windows (a padded volume)
+FANOUT = {"k1": ((24, 16, 32), 1, 1), "k4_short": ((24, 16, 32), 4, 1),
+          "k3_padded": ((20, 16, 40), 3, 2)}
+FANOUT_ROI = (16, 16, 16)
+# the meshes `Trainer.evaluate` runs on, by suite
+EVAL_MESH = {"sp2": ([2], ["sp"]), "sp4": ([2, 2], ["data", "sp"])}
 
 
 def case_config(name: str, *, one_process: bool = False) -> dict:
-    """A case's Config fields; `one_process`: without its mesh (the one
-    process it is held to)."""
+    """A case's Config fields; `one_process`: without its mesh and FSDP
+    (the one process it is held to)."""
     model, shape, axes, extra = CASES[name]
     cfg = dict(MODELS[model], **extra)
-    if not one_process:
+    if one_process:
+        for k in FSDP_SP:
+            cfg.pop(k, None)
+    else:
         cfg.update(spatial_shard=True, mesh_shape=shape, mesh_axes=axes)
     return cfg
 
@@ -113,15 +151,109 @@ def digest(tensors: dict) -> str:
 
 def step(name: str, start: dict) -> dict:
     """One step of a case from `start`: loss, whole parameters, the applied
-    gradients and the masters' digest."""
+    gradients (both gathered where FSDP shards them), the gathered
+    masters' digest, the rank's bytes of masters and momentum and its
+    placements; beside FSDP the checkpoint round trip."""
     trainer = engine.Trainer(Config(**case_config(name)), device="cpu")
     state = trainer.init_state(start)
     state, loss = trainer.train_step(state, batch_for(global_batch(case_config(name))))
-    return {"loss": float(loss), "sp_top": trainer._sp_top,
-            "params": {n: p.detach().clone() for n, p in state.params.items()},
-            "grads": {n: p.grad.detach().clone() for n, p in state.params.items()},
-            "buffers": {n: b.detach().clone() for n, b in state.buffers.items()},
-            "digest": digest(state.params)}
+    params = {n: t.detach().clone() for n, t in trainer.state_dict(state).items()
+              if n in state.params}
+    grads = fsdp.gather_full({n: p.grad for n, p in state.params.items()}, trainer.placements)
+    out = {"loss": float(loss), "sp_top": trainer._sp_top, "params": params,
+           "grads": {n: g.detach().clone() for n, g in grads.items()},
+           "buffers": {n: b.detach().clone() for n, b in state.buffers.items()},
+           "digest": digest(params), "state_bytes": trainer.state_bytes(state),
+           "placed": {n: (pl.kind, pl.axis, pl.size) for n, pl in trainer.placements.items()}}
+    if trainer.placements:
+        out["round_trip"] = round_trip(trainer, state, start)
+    return out
+
+
+def momenta(trainer, state) -> dict:
+    """SGD's momentum buffers by parameter name, whole."""
+    sd = trainer.opt_state(state)["optimizer"]["state"]
+    names = trainer._opt_names(state)
+    return {names[int(i)]: st["momentum_buffer"].clone() for i, st in sd.items()}
+
+
+def round_trip(trainer, state, start: dict) -> dict:
+    """The checkpoint of the stepped state (parameters, buffers and the
+    optimizer's state, whole, as `fit` writes them) restored into a fresh
+    state of the same Trainer: whether gathering it again gives the same
+    bits, and the checkpoint's momentum."""
+    ck = {"params": {n: t.clone() for n, t in trainer.state_dict(state).items()},
+          "opt_state": trainer.opt_state(state)}
+    moments = momenta(trainer, state)
+    again = trainer.restore(trainer.init_state(start), ck)
+    back = trainer.state_dict(again)
+    back_moments = momenta(trainer, again)
+    return {"params_equal": back.keys() == ck["params"].keys() and all(
+                torch.equal(t, ck["params"][n]) for n, t in back.items()),
+            "moments_equal": back_moments.keys() == moments.keys() and all(
+                torch.equal(t, moments[n]) for n, t in back_moments.items()),
+            "moments": moments}
+
+
+def fanout_model(windows: torch.Tensor, modalities: torch.Tensor) -> torch.Tensor:
+    """A model whose windows differ by place and modality: `[roll(w, 1) x 2
+    + m, w + 1]` (tests/test_inferer.py's sum model, with a roll along D)."""
+    m = modalities.to(windows.dtype)[:, None, None, None, None]
+    return torch.cat([torch.roll(windows, 1, dims=1) * 2.0 + m, windows + 1.0], -1)
+
+
+def fanout_input(name: str) -> tuple[np.ndarray, np.ndarray]:
+    """(volume `[B, *spatial, 1]`, modalities) of a `FANOUT` case, from a seed."""
+    spatial_, _, b = FANOUT[name]
+    rng = np.random.default_rng(11)
+    return (rng.random((b, *spatial_, 1)).astype(np.float32),
+            (np.arange(b) % 2).astype(np.int32))
+
+
+def fanout() -> dict:
+    """Each `FANOUT` case through the gaussian inferer on the mesh `[world]`
+    ("data"): the logits, the predict calls and `windows_predicted`, fanned
+    out and under `stitch_on_host` (no fan-out)."""
+    mesh = parallel.make_mesh([dist.get_world_size()], ["data"])
+    out = {}
+    for name, (spatial_, k, _) in FANOUT.items():
+        x, mods = (torch.from_numpy(a) for a in fanout_input(name))
+        for host in (False, True):
+            calls = []
+
+            def predict(w, m):
+                calls.append(w.shape[0])
+                return fanout_model(w, m)
+
+            inferer = SlidingWindowInferer(predict, FANOUT_ROI, k, 0.5, "gaussian",
+                                           out_channels=2, stitch_on_host=host, device="cpu",
+                                           mesh=mesh)
+            out[name, host] = {"logits": inferer(x, mods), "calls": len(calls),
+                               "windows": inferer.windows_predicted(spatial_)}
+    return out
+
+
+def eval_volumes(seed: int = 12) -> list[dict]:
+    """The validation volumes of `evaluate`: a 32 x 16 x 16 one (3 windows of
+    16^3) and a 24 x 16 x 32 one (6), with labels, from a seed."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for m, shape in enumerate(((32, 16, 16), (24, 16, 32))):
+        out.append({"image": rng.normal(size=(1, *shape, 1)).astype(np.float32),
+                    "label": (rng.uniform(size=(1, *shape)) > 0.6).astype(np.int32),
+                    "modality": np.array([m], np.int32)})
+    return out
+
+
+def evaluate(suite: str, start: dict) -> dict:
+    """`Trainer.evaluate` of the C-UNet (spatial partitioning on the suite's
+    `EVAL_MESH`) on `eval_volumes`: the metrics and the windows this rank
+    predicted."""
+    shape, axes = EVAL_MESH[suite]
+    cfg = Config(**MODELS["unet"], spatial_shard=True, mesh_shape=shape, mesh_axes=axes)
+    trainer = engine.Trainer(cfg, device="cpu", logger=MetricLogger(None, quiet=True))
+    metrics = trainer.evaluate(eval_volumes(), trainer.init_state(start))
+    return {"metrics": metrics, "windows": trainer.history["eval_windows"]}
 
 
 def swin_forward(start: dict, seed: int = 4) -> torch.Tensor:
@@ -339,7 +471,8 @@ def refusals() -> dict:
     unet, world = MODELS["unet"], dist.get_world_size()
     sp = dict(spatial_shard=True, mesh_shape=[world], mesh_axes=["sp"])
     cases = {
-        "fsdp": {**unet, **sp, "fsdp": True},
+        "fsdp_with_tp": {**unet, "spatial_shard": True, "mesh_shape": [world, 1],
+                         "mesh_axes": ["sp", "model"], "tensor_parallel": True, **FSDP_SP},
         "tensor_parallel": {**unet, "spatial_shard": True, "mesh_shape": [world, 1],
                             "mesh_axes": ["sp", "model"], "tensor_parallel": True},
         "pipeline_parallel": {**unet, **sp, "pipeline_parallel": True},
@@ -367,6 +500,8 @@ def main(suite: str, rank: int, world: int, rdzv: str, out_dir: str, starts: str
                             world_size=world)
     try:
         result = {name: step(name, start[CASES[name][0]]) for name in SUITES[suite]}
+        result["fanout"] = fanout()
+        result["evaluate"] = evaluate(suite, start["unet"])
         if suite == "sp2":
             result["functions"] = functions()
             result["losses"] = losses()

@@ -42,7 +42,8 @@ package.
 * The mesh and `require_ported` at world 2 (in the worker) and at world
   1 (here): FSDP and tensor parallelism build, the pipeline mode builds
   and, with no pipeline line of more than one rank, takes the
-  data-parallel step, the spatial mode and an unported axis raise
+  data-parallel step, spatial partitioning builds beside FSDP on its
+  line, while beside tensor parallelism it and an unported axis raise
   (ROADMAP M11), and a mesh whose product is not the world size raises
   ValueError.
 """
@@ -310,16 +311,18 @@ def test_mesh_and_unported_modes(ranks):
     they build at world 2 (on a 1-D "data" mesh tensor parallelism has no
     "model" axis, so it places nothing, and the pipeline and spatial modes
     have no line of more than one rank, so their step is the data-parallel
-    one, as in JAX); spatial partitioning over a line of two ranks beside
-    FSDP raises naming ROADMAP M11, and two axes under one mesh size raise.  A mesh whose product is not the world size
-    raises ValueError (JAX's `make_mesh` rule)."""
+    one, as in JAX); spatial partitioning over a line of two ranks builds
+    beside FSDP on that line and raises naming ROADMAP M11 beside tensor
+    parallelism too, and two axes under one mesh size raise.  A mesh whose
+    product is not the world size raises ValueError (JAX's `make_mesh`
+    rule)."""
     for r in range(WORLD):
         said = ranks[r]["mesh"]
         for name in ("mesh_-1", "mesh_2", "fsdp", "tensor_parallel", "pipeline_parallel",
-                     "spatial_shard"):
+                     "spatial_shard", "spatial_fsdp"):
             assert said[name] is None, (name, said[name])
-        assert said["spatial_fsdp"].startswith("NotImplementedError")
-        assert "ROADMAP M11" in said["spatial_fsdp"]
+        assert said["spatial_fsdp_tp"].startswith("NotImplementedError")
+        assert "ROADMAP M11" in said["spatial_fsdp_tp"]
         steps = said["pp_off_step"]
         assert steps["pipeline_parallel"] == steps["data"], steps
         assert steps["data"] == ranks[0]["mesh"]["pp_off_step"]["data"]

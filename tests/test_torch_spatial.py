@@ -31,13 +31,32 @@ whole volume, one process and the JAX package.
   to the port's one process (JAX draws other masks); so the batch-norm
   C-UNet's step and running statistics, and group norm's merged
   statistics against the whole volume's.
-* The refusals: SP beside FSDP, tensor or pipeline parallelism, C-UNETR,
-  UNetVanilla and 2-D raise `NotImplementedError` naming ROADMAP M11; the
-  spatial axis without `spatial_shard` raises; the field alone is taken.
+* SP beside FSDP: the tiny C-UNet on `[2]` and `[4]` and an fs-24 swin on
+  `[2]` with FSDP on the spatial line, a C-UNet whose patch (D 18) the
+  level rule keeps whole, and the C-UNet on ("data", "sp") `[2, 2]` with
+  FSDP on "data" and on "sp": each step held to the port's one process
+  (the gates of the swin steps) and to JAX's step (those of the C-UNet
+  steps), every leaf's gradient counted once; the gathered masters
+  bitwise equal on every rank; a rank's bytes of masters and momentum one
+  process's less the sharded leaves' share; and the checkpoint (gathered
+  whole) restored and gathered again bit for bit, equal to one process's.
+* Evaluation's window fan-out (`SlidingWindowInferer`'s `mesh`): over two
+  and four ranks, with group counts the ranks do not divide (a rank that
+  predicts only padded repeats, a short last group), the logits within
+  1e-6 of one process's (on the CPU they are its bits) and within 1e-4 of
+  JAX's fan-out inferer on its CPU mesh (tests/test_inferer.py:157),
+  ⌈G/N⌉ predict calls a rank; none under `stitch_on_host`; and
+  `Trainer.evaluate`'s metrics on `[2]` and `[2, 2]` equal to one
+  process's (Dice equal, the rest within 1e-6), windows ⌈G/N⌉ a volume.
+* The refusals: SP beside FSDP with tensor parallelism, beside tensor or
+  pipeline parallelism, C-UNETR, UNetVanilla and 2-D raise
+  `NotImplementedError` naming ROADMAP M11; the spatial axis without
+  `spatial_shard` raises; the field alone is taken.
 """
 
 import functools
 import itertools
+import math
 import os
 import subprocess
 import sys
@@ -53,15 +72,18 @@ from test_torch_bridge import seeded_params
 
 from miseg_tpu import losses as JL
 from miseg_tpu.config import Config as JConfig
+from miseg_tpu.inferers import SlidingWindowInferer as JSlidingWindowInferer
 from miseg_tpu.models import model_from_config as jax_model_from_config
 from miseg_tpu.parallel import shard_spatial_batch as j_shard_spatial_batch
 from miseg_tpu.parallel import spatial_spec as j_spatial_spec
 from miseg_tpu.train.optim import optimizer_from_config as j_optimizer_from_config
 from miseg_tpu_torch import parallel
 from miseg_tpu_torch.config import Config
+from miseg_tpu_torch.inferers import SlidingWindowInferer, window_starts
 from miseg_tpu_torch.ops.kernels import fused_conv, fused_norm
 from miseg_tpu_torch.parallel import spatial
 from miseg_tpu_torch.train import engine
+from miseg_tpu_torch.utils.logging import MetricLogger
 from miseg_tpu_torch.weights import state_dict_from_jax
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -120,15 +142,23 @@ def jax_step(model: str) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def one_process(case: str) -> dict:
-    """The port's one process: one step of a case on the global batch."""
+    """The port's one process: one step of a case on the global batch; its
+    bytes of masters and momentum, its tensors of state a parameter (the
+    master and its momentum) and its momentum."""
     cfg = W.case_config(case, one_process=True)
     trainer = engine.Trainer(Config(**cfg), device="cpu")
     state = trainer.init_state(start(W.CASES[case][0]))
     state, loss = trainer.train_step(state, W.global_batch(cfg))
+    optimized = [p for g in state.optimizer.param_groups for p in g["params"]]
     return {"loss": float(loss),
             "params": {n: p.detach().clone() for n, p in state.params.items()},
             "grads": {n: p.grad.detach().clone() for n, p in state.params.items()},
-            "buffers": {n: b.detach().clone() for n, b in state.buffers.items()}}
+            "buffers": {n: b.detach().clone() for n, b in state.buffers.items()},
+            "state_bytes": trainer.state_bytes(state),
+            "state_tensors": {n: 1 + sum(isinstance(v, torch.Tensor) and v.ndim > 0
+                                         for v in state.optimizer.state[p].values())
+                              for n, p in zip(trainer._opt_names(state), optimized)},
+            "moments": W.momenta(trainer, state)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,10 +191,16 @@ def ranks(tmp_path_factory):
     procs = {suite: spawn(suite, world, tmp) for suite, world in SUITE_WORLDS.items()}
     logs = {}
     try:
-        jax_step("unet")
+        for model in ("unet", "swin24", "unet_whole"):
+            jax_step(model)
         jax_swin_forward()
-        for case in ("unet_batch_sp2", "swin_sp2", "swin_dropout_sp2"):
+        for case in ("unet_batch_sp2", "swin_sp2", "swin_dropout_sp2", *W.FSDP_CASES):
             one_process(case)
+        for name in W.FANOUT:
+            fanout_one_process(name)
+            for world in SUITE_WORLDS.values():
+                jax_fanout(name, world)
+        evaluate_one_process()
         for suite, ps in procs.items():
             logs[suite] = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in ps]
     finally:
@@ -183,6 +219,43 @@ def ranks(tmp_path_factory):
 
 def _results(ranks, case: str) -> list:
     return ranks["sp2" if case in W.SUITES["sp2"] else "sp4"]
+
+
+@functools.lru_cache(maxsize=None)
+def fanout_one_process(name: str) -> torch.Tensor:
+    """A `W.FANOUT` case's logits through the port's inferer in one process."""
+    _, k, _ = W.FANOUT[name]
+    x, mods = (torch.from_numpy(a) for a in W.fanout_input(name))
+    return SlidingWindowInferer(W.fanout_model, W.FANOUT_ROI, k, 0.5, "gaussian",
+                                out_channels=2, device="cpu")(x, mods)
+
+
+def _jax_fanout_model(w, m):
+    """`W.fanout_model` in jnp."""
+    m = m.astype(w.dtype)[:, None, None, None, None]
+    return jnp.concatenate([jnp.roll(w, 1, axis=1) * 2.0 + m, w + 1.0], -1)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_fanout(name: str, world: int) -> np.ndarray:
+    """A `W.FANOUT` case's logits through JAX's inferer with its windows
+    fanned out over a CPU mesh of `world` devices (tests/test_inferer.py:157
+    builds it over eight)."""
+    _, k, _ = W.FANOUT[name]
+    x, mods = W.fanout_input(name)
+    jmesh = JMesh(np.array(jax.devices()[:world]), ("data",))
+    inferer = JSlidingWindowInferer(_jax_fanout_model, roi_size=W.FANOUT_ROI, sw_batch_size=k,
+                                    overlap=0.5, mode="gaussian", out_channels=2, mesh=jmesh)
+    return np.asarray(inferer(jnp.asarray(x), jnp.asarray(mods)))
+
+
+@functools.lru_cache(maxsize=None)
+def evaluate_one_process() -> dict:
+    """`W.evaluate`'s C-UNet evaluation in one process: metrics, windows."""
+    trainer = engine.Trainer(Config(**W.MODELS["unet"]), device="cpu",
+                             logger=MetricLogger(None, quiet=True))
+    metrics = trainer.evaluate(W.eval_volumes(), trainer.init_state(start("unet")))
+    return {"metrics": metrics, "windows": trainer.history["eval_windows"]}
 
 
 # ------------------------------------------------------------ placements
@@ -366,10 +439,184 @@ def test_step_like_one_process(ranks, case):
         assert abs(want["loss"] - one_process("swin_sp2")["loss"]) > 1e-4
 
 
+# ------------------------------------------------------------ SP + FSDP
+
+def _sp_fsdp_results(ranks, case: str) -> list:
+    """A SP + FSDP case's results on every rank, each checked to have placed
+    leaves on the case's FSDP axis and its patch partitioned (or whole)."""
+    results = [res[case] for res in _results(ranks, case)]
+    model, shape, _, extra = W.CASES[case]
+    depth = W.MODELS[model]["roi_x"]
+    for got in results:
+        assert got["sp_top"] == (None if model == "unet_whole" else (depth, 16 if model ==
+                                                                      "unet" else 32))
+        axes = {axis for _, axis, _ in got["placed"].values()}
+        assert axes == {extra["fsdp_axis"]}, got["placed"]
+    return results
+
+
+@pytest.mark.parametrize("case", W.FSDP_CASES)
+def test_sp_fsdp_step_like_one_process(ranks, case):
+    """Each SP + FSDP step under `test_step_like_one_process`'s gates: the
+    loss within 1e-5, every applied gradient leaf (gathered whole) within
+    5e-5, the parameters within 1e-6 of the port's one process; the
+    gathered masters bitwise equal on every rank."""
+    want = one_process(case)
+    results = _sp_fsdp_results(ranks, case)
+    for r, got in enumerate(results):
+        assert abs(got["loss"] - want["loss"]) <= 1e-5, (case, r, got["loss"], want["loss"])
+        gaps = {n: float((g - want["grads"][n]).abs().max()) for n, g in got["grads"].items()}
+        assert gaps.keys() == want["grads"].keys()
+        assert max(gaps.values()) <= ATOL_LEAF, (case, r, max(gaps, key=gaps.get))
+        for n, p in got["params"].items():
+            np.testing.assert_allclose(p.numpy(), want["params"][n].numpy(), rtol=0, atol=1e-6,
+                                       err_msg=f"{case} rank {r} {n}")
+    assert len({got["digest"] for got in results}) == 1
+
+
+@pytest.mark.parametrize("case", W.FSDP_CASES)
+def test_sp_fsdp_step_like_jax(ranks, case):
+    """Each SP + FSDP step under `test_unet_step_like_jax`'s gates, against
+    JAX's one-process SGD step on the global batch: the loss within rtol
+    1e-5, the parameters within rtol 1e-4 / atol 1e-5, every applied
+    gradient leaf within 5e-5.  Half a gradient, or one counted twice,
+    fails the last."""
+    want = jax_step(W.CASES[case][0])
+    for r, got in enumerate(_sp_fsdp_results(ranks, case)):
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+        assert got["params"].keys() == want["params"].keys()
+        for n, p in got["params"].items():
+            np.testing.assert_allclose(p.numpy(), want["params"][n], rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{case} rank {r} {n}")
+        gaps = {n: float((g - torch.as_tensor(want["grads"][n])).abs().max())
+                for n, g in got["grads"].items()}
+        assert max(gaps.values()) <= ATOL_LEAF, (case, r, max(gaps, key=gaps.get))
+    # the gate bites: the sharded leaves' gradients are far above it
+    placed = _sp_fsdp_results(ranks, case)[0]["placed"]
+    assert sum(float(torch.as_tensor(want["grads"][n]).abs().max()) for n in placed) \
+        > 100 * ATOL_LEAF
+
+
+@pytest.mark.parametrize("case", W.FSDP_CASES)
+def test_sp_fsdp_state_bytes(ranks, case):
+    """A rank's bytes of f32 masters and momentum: one process's less the
+    sharded leaves' share, (1 - 1/n) of each such leaf's master and
+    momentum."""
+    want = one_process(case)
+    for r, got in enumerate(_sp_fsdp_results(ranks, case)):
+        share = sum(want["params"][n].numel() * 4 * want["state_tensors"][n] * (size - 1)
+                    // size for n, (_, _, size) in got["placed"].items())
+        print(f"{case} rank {r}: {got['state_bytes']} bytes of masters and momentum against "
+              f"one process's {want['state_bytes']}; {len(got['placed'])} leaves sharded")
+        assert share > 0 and got["state_bytes"] == want["state_bytes"] - share
+
+
+@pytest.mark.parametrize("case", W.FSDP_CASES)
+def test_sp_fsdp_checkpoint_round_trip(ranks, case):
+    """The step's checkpoint, gathered whole, restored into a fresh state
+    and gathered again: the same bits on every rank; its parameters (the
+    step's, gathered) within 1e-6 and its momentum within 5e-5 of one
+    process's checkpoint."""
+    want = one_process(case)
+    for r, got in enumerate(_sp_fsdp_results(ranks, case)):
+        trip = got["round_trip"]
+        assert trip["params_equal"] and trip["moments_equal"], (case, r)
+        assert trip["moments"].keys() == want["moments"].keys()
+        for n, m in trip["moments"].items():
+            np.testing.assert_allclose(m.numpy(), want["moments"][n].numpy(), rtol=0,
+                                       atol=ATOL_LEAF, err_msg=f"{case} rank {r} {n}")
+
+
+# ------------------------------------------------------ window fan-out
+
+FANOUT_RUNS = [(suite, name) for suite in SUITE_WORLDS for name in W.FANOUT]
+
+
+def _group_sizes(name: str) -> list[int]:
+    """The windows of each group of a `W.FANOUT` case, in order."""
+    spatial_, k, _ = W.FANOUT[name]
+    n = len(window_starts(spatial_, W.FANOUT_ROI, 0.5)[1])
+    return [min(k, n - g) for g in range(0, n, k)]
+
+
+def _groups(name: str) -> int:
+    return len(_group_sizes(name))
+
+
+def test_fanout_cases_leave_ranks_idle():
+    """The cases reach what the fan-out must handle: group counts neither
+    world divides (on four ranks two predict only padded repeats), and a
+    short last group."""
+    assert [_groups(n) for n in W.FANOUT] == [6, 2, 3]
+    assert any(g % 4 and g < 4 for g in map(_groups, W.FANOUT))
+    assert any(g % 2 for g in map(_groups, W.FANOUT))
+
+
+@pytest.mark.parametrize("suite,name", FANOUT_RUNS)
+def test_window_fanout_like_one_process(ranks, suite, name):
+    """Every rank's fanned-out logits within 1e-6 of one process's (they are
+    its bits: the same groups, added in the same order)."""
+    want = fanout_one_process(name)
+    for r, res in enumerate(ranks[suite]):
+        got = res["fanout"][name, False]["logits"]
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
+        assert torch.equal(got, want), (suite, name, r)
+
+
+@pytest.mark.parametrize("suite,name", FANOUT_RUNS)
+def test_window_fanout_like_jax(ranks, suite, name):
+    """Every rank's fanned-out logits within 1e-4 of JAX's fan-out inferer
+    over as many CPU devices (the gate of tests/test_inferer.py:157)."""
+    want = jax_fanout(name, SUITE_WORLDS[suite])
+    for res in ranks[suite]:
+        np.testing.assert_allclose(res["fanout"][name, False]["logits"].numpy(), want,
+                                   rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("suite,name", FANOUT_RUNS)
+def test_window_fanout_predict_calls(ranks, suite, name):
+    """A rank predicts ⌈G/N⌉ groups, padded repeats included, and
+    `windows_predicted` counts their windows; under `stitch_on_host`
+    every rank predicts every group (no fan-out), its logits one
+    process's."""
+    world, sizes = SUITE_WORLDS[suite], _group_sizes(name)
+    groups = len(sizes)
+    ids = list(range(groups)) + [groups - 1] * (-groups % world)
+    for r, res in enumerate(ranks[suite]):
+        fanned, host = res["fanout"][name, False], res["fanout"][name, True]
+        assert fanned["calls"] == math.ceil(groups / world), (suite, name, r, fanned["calls"])
+        assert fanned["windows"] == sum(sizes[g] for g in ids[r::world])
+        assert host["calls"] == groups and host["windows"] == sum(sizes)
+        np.testing.assert_allclose(host["logits"].numpy(), fanout_one_process(name).numpy(),
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("suite", sorted(SUITE_WORLDS))
+def test_evaluate_like_one_process(ranks, suite):
+    """`Trainer.evaluate` on `[2]` (the "sp" line, fan-out over it) and
+    `[2, 2]` ("data" x "sp": fan-out over "data", the "sp" ranks repeat
+    it): every rank's metrics one process's (Dice equal, losses within
+    1e-6), and a rank's windows ⌈G/N⌉ of each volume's G (3 and 6, N = 2)."""
+    want = evaluate_one_process()
+    assert want["windows"] == [3, 6]
+    for r, res in enumerate(ranks[suite]):
+        got = res["evaluate"]
+        assert got["windows"] == [2, 3], (suite, r, got["windows"])
+        assert got["metrics"].keys() == want["metrics"].keys()
+        for key, v in got["metrics"].items():
+            if "dice" in key or "accuracy" in key:
+                assert v == want["metrics"][key] or (np.isnan(v) and np.isnan(
+                    want["metrics"][key])), (suite, r, key)
+            else:
+                assert abs(v - want["metrics"][key]) <= 1e-6, (suite, r, key)
+
+
 # ---------------------------------------------------------------- refusals
 
-@pytest.mark.parametrize("name", ["fsdp", "tensor_parallel", "pipeline_parallel", "unetr",
-                                  "unet_vanilla", "2d", "axis_without_flag", "flag_on_data"])
+@pytest.mark.parametrize("name", ["fsdp_with_tp", "tensor_parallel", "pipeline_parallel",
+                                  "unetr", "unet_vanilla", "2d", "axis_without_flag",
+                                  "flag_on_data"])
 def test_out_of_scope_raises(ranks, name):
     for res in ranks["sp2"]:
         said = res["refusals"][name]
