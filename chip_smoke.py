@@ -74,9 +74,10 @@ Phases, one result line each; any failed check exits non-zero:
                MR predict runs PER_WINDOW x windows kernels by name under
                the profiler); predict under inference
                mode in a handler thread with logits that need no gradient
-               and no autograd Function run; the CT alone, then the two
-               scans at once (the CT's with remap=whs, its serial answer
-               remapped); a line a request with seconds of
+               and no autograd Function run; the two scans at once (the
+               CT's with remap=whs; a serial CT request before them was
+               cut to pay for the spatial phase's model steps); a line a
+               request with seconds of
                upload+decode, preprocess, device predict, argmax+copy,
                inverse, encode and total, and windows/s;
   6. train   — training through `train.engine.Trainer`: (a) each kernel's
@@ -160,8 +161,9 @@ Phases, one result line each; any failed check exits non-zero:
  11. tune    — the hyper-parameter search (`cli.tune`) over the swin
                search space (feature_size 12/24/36 x heads 2/3/4, whose
                channels 12, 24, 36 and 72 the tensor-core kernels take
-               padded to 16 in shared memory): (a) each of the 9 pairs
-               from one seed, a 64^3 f32 window card vs CPU (K1-K5
+               padded to 16 in shared memory): (a) one pair a width
+               (`SEARCH_PAIRS`: fs 12 h4, fs 24 h3, fs 36 h2, each head
+               count once) from one seed, a 64^3 f32 window card vs CPU (K1-K5
                launching, K4 on its FMA path: f32 never takes TF32), then
                a bf16 bundle's 96^3 window launching `PER_WINDOW`,
                profiled, which fails unless its 20 K4 kernels are 12
@@ -260,7 +262,14 @@ Phases, one result line each; any failed check exits non-zero:
                (`fsdp_axis="sp"`): the fs 24 swin's f32 step as in (b),
                the flagship's bf16 steps as in (c) (launches
                `sp_launches(2)` a step, counted), with the bytes of
-               masters and moments and the peak a rank beside SP alone's.
+               masters and moments and the peak a rank beside SP alone's;
+               (e) C-UNETR and UNetVanilla (the README recipe) at 96^3 and
+               the 2-D flagship at 96x96, bf16, batch 1, two steps each
+               on `[2]` under (c)'s gates, each rank's launches a step
+               `sp_launches(2, model=...)` (counted, modes apart, and by
+               name in a profiled step); (a) also holds C-UNETR's halo
+               shapes (`SP_UNETR_CONVS`) and K1's moments mode at the 2-D
+               flagship's top slab.
 Then one JSON line of kernels (with each kernel's `miseg::` op, its
 kernels in a replay of the captured 224^3 volume program, its launches a
 train step, the JAX VJP its backward follows, its launches in the fit's train steps
@@ -459,7 +468,7 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
     return statistics.median(times)
 
 
-def profiled(run, ok, attempts: int = 3, lead=None) -> list:
+def profiled(run, ok, attempts: int = 3, lead=None, cpu: bool = True) -> list:
     """The device events torch.profiler records while `run()` runs, from the
     first of `attempts` sessions whose events satisfy `ok(events)`, else
     from the last.  The profiler misses kernels launched right after a
@@ -473,12 +482,15 @@ def profiled(run, ok, attempts: int = 3, lead=None) -> list:
     left out of the events; a kernel that launches wrongly fails every
     session.  Device-side user annotations (the optimizer's
     `Optimizer.step` range) are left out too: they span kernels that are
-    counted on their own."""
+    counted on their own.  `cpu=False` records the device's activity
+    alone: a multi-rank step's tens of thousands of host ops take seconds
+    to collect, and only its kernels are read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             time.sleep(0.005)
@@ -1957,10 +1969,6 @@ def phase_serve_http(dev, card: str) -> dict:
         http_kernels = window_graph_kernels(served, mr_image, 1, PER_WINDOW,
                                             scans[1]["windows"])
         del mr_image
-        per_request = {scan["label"]: dict.fromkeys(PER_WINDOW, 0) for scan in scans}
-        # window-graph calls a request makes: one a window for the MR
-        graph_calls = {scans[0]["label"]: 0, scans[1]["label"]: scans[1]["windows"]}
-
         def stages(headers, windows: int) -> str:
             ms = {k: float(v) for k, v in (part.split(";dur=") for part in
                                            headers["Server-Timing"].split(", "))}
@@ -1971,42 +1979,8 @@ def phase_serve_http(dev, card: str) -> dict:
                     f"{ms['encode'] / 1e3:.3f}, total {ms['total'] / 1e3:.3f} (lock wait "
                     f"{ms['wait'] / 1e3:.3f})")
 
-        # ---- a serial request: the CT (the MR's answer comes from the pair
-        # at once below; each answer gzips ~25 s on the host) ----------------
-        serial = {}
-        for scan in scans[:1]:
-            label = scan["label"]
-            url = f"{base}/predict?modality={scan['modality']}"
-            torch.cuda.synchronize()
-            reset_launches()
-            seen.clear()
-            applied.clear()
-            calls, window_calls = program.calls, served.window_graph.calls
-            t0 = time.perf_counter()
-            status, headers, out = http(url, scan["bytes"])
-            client_s = time.perf_counter() - t0
-            counts = launch_counts()
-            check(status == 200, f"http {label}: status {status} {out[:300]!r}")
-            check(counts == per_request[scan["label"]],
-                  f"http {label}: launched {counts} from Python, want "
-                  f"{per_request[scan['label']]}")
-            check(program.calls - calls == (scan is scans[0]),
-                  f"http {label}: the CT's volume program ran {program.calls - calls} times")
-            ran = served.window_graph.calls - window_calls
-            check(ran == graph_calls[scan["label"]],
-                  f"http {label}: the window graph ran {ran} times, want "
-                  f"{graph_calls[scan['label']]}")
-            check(seen == [(True, True, False)],
-                  f"http {label}: predict (in a handler thread, under inference mode, "
-                  f"logits require grad) {seen}, want [(True, True, False)]")
-            check(not applied, f"http {label}: autograd Functions ran: {sorted(set(applied))}")
-            serial[label] = answer(scan, out, False)
-            print(f"  http {label}: {scan['windows']} windows; "
-                  f"{stages(headers, scan['windows'])}; client "
-                  f"{client_s:.3f} s; {len(out) / 1e6:.2f} MB answer, "
-                  f"{len(scan['bytes']) / 1e6:.2f} MB upload")
-
-        # ---- both scans at once, the CT's with remap=whs ------------------------
+        # ---- both scans at once, the CT's with remap=whs (each answer gzips
+        # ~25 s on the host; a serial CT request before them took as long) ----
         torch.cuda.synchronize()
         reset_launches()
         seen.clear()
@@ -2042,10 +2016,7 @@ def phase_serve_http(dev, card: str) -> dict:
             status, headers, out = results[scan["label"]]
             remap = scan is scans[0]
             check(status == 200, f"http concurrent {scan['label']}: status {status}")
-            data = answer(scan, out, remap)   # against the in-process pipeline
-            if remap:
-                check(np.array_equal(data, remap_labels(serial[scan["label"]])),
-                      f"http concurrent {scan['label']}: differs from its serial answer")
+            answer(scan, out, remap)   # against the in-process pipeline
             print(f"  http concurrent {scan['label']}{' remap=whs' if remap else ''}: "
                   f"{scan['windows']} windows; {stages(headers, scan['windows'])}")
     finally:
@@ -2056,7 +2027,7 @@ def phase_serve_http(dev, card: str) -> dict:
         thread.join(timeout=60)
         tmp.cleanup()
     print(card)
-    print(f"serve_http: {len(scans)} scans over HTTP, the CT's alone and both at once "
+    print(f"serve_http: {len(scans)} scans over HTTP at once "
           f"(the CT's with remap=whs), "
           f"answers in each scan's grid with its exact affine, equal to the in-process "
           f"pipeline (logits repeatable: {[s['repeatable'] for s in scans]}); the CT's "
@@ -3621,9 +3592,13 @@ def phase_finetune(dev, card: str, shape=(192, 192, 160)) -> dict:
     return {"train": fit["train"], "eval": fit["eval"], "step_ms": fit["step_ms"]}
 
 
-# the hyper-parameter search's swin widths (miseg_tpu_torch/cli/tune.py
-# `set_trial_config`, as the JAX package's and the reference's)
-SEARCH_FS, SEARCH_HEADS = (12, 24, 36), (2, 3, 4)
+# the (feature_size, heads) pairs of the hyper-parameter search's swin
+# widths (12/24/36 x 2/3/4: miseg_tpu_torch/cli/tune.py `set_trial_config`,
+# as the JAX package's and the reference's) that `tune_windows` holds card
+# vs CPU: one a width, each head count once (head dims 3, 8 and 18; the
+# heads change no K4 shape, and K5 runs at head dims 3, 9 and 18 in
+# `tune_kernels`).  All 9 pairs took ~55 s of the phase.
+SEARCH_PAIRS = ((12, 4), (24, 3), (36, 2))
 # K4 at the search space's conv shapes whose channels (12, 24, 36, 72) are
 # no multiple of 16, which the tensor-core kernels pad to 16 in shared
 # memory, with the decoder's mixed widths (the concatenation before
@@ -3687,8 +3662,8 @@ def tune_kernels(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
 
 
 def tune_windows(dev, size: int = 64) -> dict:
-    """(a) Each of the 9 swin (feature_size, heads) pairs of the search
-    space, from one seed: a `size`^3 window of two samples (CT, MR) in f32
+    """(a) Each swin (feature_size, heads) pair of `SEARCH_PAIRS`, from one
+    seed: a `size`^3 window of two samples (CT, MR) in f32
     on the card (every kernel launching, K4 on its FMA path: f32 never
     takes the tensor cores) against the CPU's plain versions
     (`check_card_logits`); then a bf16 96^3 window launching
@@ -3696,71 +3671,70 @@ def tune_windows(dev, size: int = 64) -> dict:
     `window_faults` with `WINDOW_K4`: the padded widths run the
     flagship's K4 kernels (12 coarse, one Cin = 1, the rest brick), no
     FMA kernel or split-K reduce.  That window is a CPU-exported bundle's
-    (served through its window graph) for one pair a width, heads 3, and
-    the live bf16 model's for the other two: the heads change no K4
-    shape, and the exports took ~5 s each.  Returns, by pair, the K4
+    (served through its window graph) for the pair with heads 3, and the
+    live bf16 model's for the other two: the heads change no K4 shape, and
+    the exports took ~5 s each.  Returns, by pair, the K4
     kernels of a bf16 window by name and its device busy and K4 ms."""
     from miseg_tpu_torch.models import model_from_config
     from miseg_tpu_torch.serve import load_bundle, save_bundle
 
     k4_by_pair = {}
-    for fs in SEARCH_FS:
-        for heads in SEARCH_HEADS:
-            label = f"fs{fs} h{heads}"
-            cfg = search_cfg(fs, heads, roi_x=size, roi_y=size, roi_z=size)
-            cpu = model_from_config(cfg, device="cpu")
-            gen = torch.Generator().manual_seed(22)
-            x = torch.randn((2, size, size, size, 1), generator=gen)
-            mods = torch.tensor([0, 1], dtype=torch.int32)
-            with torch.inference_mode():
-                want = cpu(x, mods)
-            top2 = want.topk(2, dim=-1).values
-            card = model_from_config(cfg, device=dev)
-            card.load_state_dict(cpu.state_dict())
-            reset_launches()
-            with torch.inference_mode():
-                got = card(x.to(dev), mods.to(dev)).cpu()
-            counts = launch_counts()
-            check(all(n > 0 for n in counts.values()),
-                  f"search window {label}: a kernel did not launch: {counts}")
-            words = check_card_logits(f"search window {label}", got, want,
-                                      top2[..., 0] - top2[..., 1])
-            del cpu, card
-            # the bf16 window at 96^3: served from a bundle, or the live model
-            cfg96 = search_cfg(fs, heads)
-            window = torch.rand((1, 96, 96, 96, 1), generator=gen).to(dev)
-            one = torch.tensor([1], dtype=torch.int32, device=dev)
-            if heads == SEARCH_HEADS[1]:
-                with tempfile.TemporaryDirectory() as tmp:
-                    save_bundle(cfg96, model_from_config(cfg96, device=dev).state_dict(), tmp)
-                    served = load_bundle(tmp)
-                served(window, [0])
-                eager, run = (lambda: served.window_fn(window, one)), lambda: served(window, [1])
-            else:
-                served = model_from_config(cfg96, device=dev).to(torch.bfloat16)
-                eager = run = lambda: served(window.to(torch.bfloat16), one)
+    for fs, heads in SEARCH_PAIRS:
+        label = f"fs{fs} h{heads}"
+        cfg = search_cfg(fs, heads, roi_x=size, roi_y=size, roi_z=size)
+        cpu = model_from_config(cfg, device="cpu")
+        gen = torch.Generator().manual_seed(22)
+        x = torch.randn((2, size, size, size, 1), generator=gen)
+        mods = torch.tensor([0, 1], dtype=torch.int32)
+        with torch.inference_mode():
+            want = cpu(x, mods)
+        top2 = want.topk(2, dim=-1).values
+        card = model_from_config(cfg, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        reset_launches()
+        with torch.inference_mode():
+            got = card(x.to(dev), mods.to(dev)).cpu()
+        counts = launch_counts()
+        check(all(n > 0 for n in counts.values()),
+              f"search window {label}: a kernel did not launch: {counts}")
+        words = check_card_logits(f"search window {label}", got, want,
+                                  top2[..., 0] - top2[..., 1])
+        del cpu, card
+        # the bf16 window at 96^3: served from a bundle, or the live model
+        cfg96 = search_cfg(fs, heads)
+        window = torch.rand((1, 96, 96, 96, 1), generator=gen).to(dev)
+        one = torch.tensor([1], dtype=torch.int32, device=dev)
+        if heads == 3:
+            with tempfile.TemporaryDirectory() as tmp:
+                save_bundle(cfg96, model_from_config(cfg96, device=dev).state_dict(), tmp)
+                served = load_bundle(tmp)
+            served(window, [0])
+            eager, run = (lambda: served.window_fn(window, one)), lambda: served(window, [1])
+        else:
+            served = model_from_config(cfg96, device=dev).to(torch.bfloat16)
+            eager = run = lambda: served(window.to(torch.bfloat16), one)
+        torch.cuda.synchronize()
+        reset_launches()
+        with torch.inference_mode():
+            logits = eager()
             torch.cuda.synchronize()
-            reset_launches()
-            with torch.inference_mode():
-                logits = eager()
-                torch.cuda.synchronize()
-                check(launch_counts() == PER_WINDOW and bool(torch.isfinite(logits).all()),
-                      f"search window {label} bf16 96^3: launched {launch_counts()}, want "
-                      f"{PER_WINDOW}, finite {bool(torch.isfinite(logits).all())}")
-                events = profiled(run, lambda ev: not window_faults(ev, 1), lead=run)
-            faults = window_faults(events, 1)
-            if replay_counts(events) != PER_WINDOW:
-                faults.append(f"the served window ran kernels by name {replay_counts(events)}")
-            check(not faults, f"search window {label} bf16 96^3 profile: " + "; ".join(faults))
-            k4 = {name: sum(name in e.name for e in events) for name in K4_KERNELS}
-            k4 = {name.removeprefix("miseg_k4_"): n for name, n in k4.items() if n}
-            busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
-            k4_ms = sum(e.time_range.elapsed_us() for e in events if "miseg_k4_" in e.name) / 1e3
-            k4_by_pair[label] = {"kernels": k4, "busy_ms": busy, "k4_ms": k4_ms}
-            print(f"  search window {label}: {size}^3 f32 card vs CPU {words}; bf16 96^3 "
-                  f"window launches {PER_WINDOW}, K4 kernels {k4}, device busy {busy:.2f} ms "
-                  f"(K4 {k4_ms:.2f})")
-            del served
+            check(launch_counts() == PER_WINDOW and bool(torch.isfinite(logits).all()),
+                  f"search window {label} bf16 96^3: launched {launch_counts()}, want "
+                  f"{PER_WINDOW}, finite {bool(torch.isfinite(logits).all())}")
+            events = profiled(run, lambda ev: not window_faults(ev, 1), lead=run)
+        faults = window_faults(events, 1)
+        if replay_counts(events) != PER_WINDOW:
+            faults.append(f"the served window ran kernels by name {replay_counts(events)}")
+        check(not faults, f"search window {label} bf16 96^3 profile: " + "; ".join(faults))
+        k4 = {name: sum(name in e.name for e in events) for name in K4_KERNELS}
+        k4 = {name.removeprefix("miseg_k4_"): n for name, n in k4.items() if n}
+        busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+        k4_ms = sum(e.time_range.elapsed_us() for e in events if "miseg_k4_" in e.name) / 1e3
+        k4_by_pair[label] = {"kernels": k4, "busy_ms": busy, "k4_ms": k4_ms}
+        print(f"  search window {label}: {size}^3 f32 card vs CPU {words}; bf16 96^3 "
+              f"window launches {PER_WINDOW}, K4 kernels {k4}, device busy {busy:.2f} ms "
+              f"(K4 {k4_ms:.2f})")
+        del served
     return k4_by_pair
 
 
@@ -3932,7 +3906,8 @@ def phase_tune(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
     k4_by_pair = tune_windows(dev)
     rows = tune_kernels(dev, card, mem_bw, bf16_flops)
     launches = tune_study(dev, card)
-    print(f"tune phase: the search space's 9 widths match the CPU through the kernels, their "
+    print(f"tune phase: a pair a width of the search space matches the CPU through the "
+          f"kernels, their "
           f"bf16 windows run K4 on the tensor cores, K4 at the search widths (bf16, tensor "
           f"cores; f32, FMA) and K5 at head dims 3/9/18 match their plain versions, and a 2 + 1 "
           f"trial study ran on the card ({time.perf_counter() - t0:.1f} s)")
@@ -4310,10 +4285,11 @@ def _stepped(trainer, state, batch, steps: int):
 
 
 def _mesh_batch(dev, model: dict, n: int = 2) -> dict:
-    """A seeded global batch of `n` volumes of `model`'s ROI (both
-    modalities)."""
+    """A seeded global batch of `n` volumes (2-D models: slices) of
+    `model`'s ROI (both modalities)."""
     gen = torch.Generator().manual_seed(46)
-    cases = [synthetic_case(model["roi_x"], model["out_channels"], gen) for _ in range(n)]
+    cases = [synthetic_case(model["roi_x"], model["out_channels"], gen,
+                            model.get("spatial_dims", 3)) for _ in range(n)]
     return {"image": torch.cat([c[0] for c in cases]).to(dev),
             "label": torch.cat([c[1] for c in cases]).to(dev),
             "modality": (torch.arange(n) % 2).to(torch.int32).to(dev)}
@@ -4848,6 +4824,23 @@ SP_CONVS = [
     ("96^3 sp[2] encoder1 conv1 (Cin = 1)", (1, 48 + 2, 96, 96, 1), 48, False,
      "miseg_k4_conv_cin1", 2),
 ]
+# C-UNETR's distinct kinds of K4 D-halo call at 96^3 on sp [2] (fs 16):
+# encoder1's Cin = 1 conv, the 96^3 and 48^3 bricks, and decoder5's 12^3
+# slab of 6 planes, which no brick divides (the FMA kernel, as the
+# flagship's 12^3 slab)
+SP_UNETR_CONVS = [
+    ("C-UNETR 96^3 sp[2] encoder1 conv1 (Cin = 1)", (1, 48 + 2, 96, 96, 1), 16, False,
+     "miseg_k4_conv_cin1", 2),
+    ("C-UNETR 96^3 sp[2] encoder1/decoder2 conv2", (1, 48 + 2, 96, 96, 16), 16, True,
+     "miseg_k4_conv_brick", 2),
+    ("C-UNETR 48^3 sp[2] encoder2 block1/decoder3 conv2", (1, 24 + 2, 48, 48, 32), 32, True,
+     "miseg_k4_conv_brick", 2),
+    ("C-UNETR 12^3 sp[2] decoder5 conv2", (1, 6 + 2, 12, 12, 128), 128, True,
+     ("miseg_k4_conv_fma", "miseg_k4_splitk_reduce"), 2),
+]
+# K1's moments mode at the top slabs of sp [2]: the flagship's encoder1
+# projected-residual norm at 96^3, and the 2-D flagship's 96x96 slice
+SP_MOMENTS = [(1, 48 * 96 * 96, 48), (1, 48 * 96, 48)]
 
 
 def k4_halo_case(label: str, shape, cout: int, prologue: bool, kernel: str, n: int, dev,
@@ -4933,11 +4926,12 @@ def k4_halo_case(label: str, shape, cout: int, prologue: bool, kernel: str, n: i
 
 
 def spatial_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
-    """`phase_spatial` (a): K4's D-halo mode at `SP_CONVS`, K1's moments mode
-    at encoder1's projected-residual norm on a 96^3 slab of sp [2] ([1,
-    48 * 96^2, 48]) and the fold's moments mode over that slab's 1728
-    bricks, each against its plain version, with times.  Returns the
-    `kernels` rows of "K4 halo", "K1 moments" and "K1 fold moments"."""
+    """`phase_spatial` (a): K4's D-halo mode at `SP_CONVS` and
+    `SP_UNETR_CONVS`, K1's moments mode at `SP_MOMENTS` and the fold's
+    moments mode over the 96^3 slab's 1728 bricks, each against its plain
+    version, with times.  Returns the `kernels` rows of "K4 halo" (with
+    C-UNETR's shapes under "unetr_shapes"), "K1 moments" (the 2-D slab's
+    under "two_d_shape") and "K1 fold moments"."""
     from miseg_tpu_torch.ops.kernels import fused_conv as fc
     from miseg_tpu_torch.ops.kernels import fused_norm as fn
 
@@ -4952,24 +4946,32 @@ def spatial_kernels(dev, mem_bw: float, bf16_flops: float) -> dict:
         print(line)
         if main:
             rows["K4 halo"] = row
-    shape = (1, 48 * 96 * 96, 48)
-    x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, torch.bfloat16)
-    mean, m2 = fn.channel_moments(x)
-    rm, rq = fn.channel_moments_plain(x)
-    e = max(max_err(mean, rm) / (1 + float(rm.abs().max())),
-            max_err(m2, rq) / (1 + float(rq.abs().max())))
-    check(e <= 1e-5, f"K1 moments {shape}: relative error {e:.2e} > 1e-5")
-    nbytes = x.numel() * x.element_size()
-    k1 = hbm_and_l2(lambda: fn.channel_moments(x), "miseg_k1_", nbytes, flush)
-    plain = time_ms(lambda: fn.channel_moments_plain(x))
-    lib = time_ms(lambda: torch.var_mean(x, dim=1, correction=0), flush=flush)
-    bound = nbytes / mem_bw * 1e3
-    print(f"  K1 moments {list(shape)} bf16: rel err {e:.2e} (tol 1e-05)\n    times ms: K1 "
-          f"moments {fmt_hbm_l2(k1)} (bound {bound:.5f} by bytes), plain {plain:.4f}, "
-          f"torch.var_mean {lib:.4f}")
-    rows["K1 moments"] = dict(shape=list(shape), ms=k1["hbm"][0], plain_ms=plain,
-                              bound_ms=bound, bound_by="bytes", library_ms=lib,
-                              max_abs_err=max(max_err(mean, rm), max_err(m2, rq)))
+    rows["K4 halo"]["unetr_shapes"] = []
+    for label, shape, cout, prologue, kernel, n in SP_UNETR_CONVS:
+        line, row = k4_halo_case(label, shape, cout, prologue, kernel, n, dev, gen, mem_bw,
+                                 bf16_flops, flush)
+        print(line)
+        rows["K4 halo"]["unetr_shapes"].append({"label": label, **row})
+    moments = []
+    for shape in SP_MOMENTS:
+        x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(dev, torch.bfloat16)
+        mean, m2 = fn.channel_moments(x)
+        rm, rq = fn.channel_moments_plain(x)
+        e = max(max_err(mean, rm) / (1 + float(rm.abs().max())),
+                max_err(m2, rq) / (1 + float(rq.abs().max())))
+        check(e <= 1e-5, f"K1 moments {shape}: relative error {e:.2e} > 1e-5")
+        nbytes = x.numel() * x.element_size()
+        k1 = hbm_and_l2(lambda: fn.channel_moments(x), "miseg_k1_", nbytes, flush)
+        plain = time_ms(lambda: fn.channel_moments_plain(x))
+        lib = time_ms(lambda: torch.var_mean(x, dim=1, correction=0), flush=flush)
+        bound = nbytes / mem_bw * 1e3
+        print(f"  K1 moments {list(shape)} bf16: rel err {e:.2e} (tol 1e-05)\n    times ms: "
+              f"K1 moments {fmt_hbm_l2(k1)} (bound {bound:.5f} by bytes), plain "
+              f"{plain:.4f}, torch.var_mean {lib:.4f}")
+        moments.append(dict(shape=list(shape), ms=k1["hbm"][0], plain_ms=plain,
+                            bound_ms=bound, bound_by="bytes", library_ms=lib,
+                            max_abs_err=max(max_err(mean, rm), max_err(m2, rq))))
+    rows["K1 moments"] = {**moments[0], "two_d_shape": moments[1]}
     s_vox, tile = 48 * 96 * 96, 256
     n_tiles = s_vox // tile
     part = torch.stack([torch.randn((n_tiles, 48), generator=gen) + 0.5,
@@ -5000,26 +5002,37 @@ SP_SMALL = {"C-UNet fs 16": {**CUNET, "roi_x": 64, "roi_y": 64, "roi_z": 64, "no
             "C-Swin-UNETR fs 24": MESH_SMALL}
 
 
-def sp_launches(n: int, roi: int = 96) -> dict:
-    """The flagship's launches a step on each rank of a spatial line of `n`
-    ranks (its forward; the backward launches none), by the level rule: a
-    level of D = r is sharded when r % 2n == 0, and there its norms take
-    K1's moments mode, its convs K4's D-halo mode and their folds the
-    moments mode.  Swin norms (K1 + K2): `proj_out` at 48^3..3^3, 4 a stage
-    (2 blocks x norm1, norm2) at 48^3..6^3, each merging's at 24^3..3^3;
-    the 10 UnetResBlocks: two K4 calls and two folds each, plus K1 + K3
-    (projected residual) or K2 (identity)."""
+def sp_launches(n: int, roi: int = 96, model: str = "flagship") -> dict:
+    """A model's launches a step on each rank of a spatial line of `n` ranks
+    (its forward; the backward launches none), by the level rule: a level
+    of D (H in 2-D) = r is sharded when r % 2n == 0, and there its norms
+    take K1's moments mode, its convs K4's D-halo mode and their folds the
+    moments mode.
+      * "flagship" (C-Swin-UNETR, 3-D) and "two_d" (its 2-D twin): swin
+        norms (K1 + K2): `proj_out` at 48^3..3^3, 4 a stage (2 blocks x
+        norm1, norm2) at 48^3..6^3, each merging's at 24^3..3^3; the 10
+        UnetResBlocks: in 3-D two K4 calls and two folds each, plus K1 +
+        K3 (projected residual) or K2 (identity); in 2-D (cuDNN convs)
+        norm1 and norm2, and norm3 where projected, K1 + K2 each; one K5
+        a swin block, every rank holding window rows.
+      * "unetr" (C-UNETR): the ViT's 25 norms (K1 + K2) run whole on every
+        rank; its 8 UnetResBlocks (encoder1 and decoder2 at 96^3, encoder2's
+        block1 and decoder3 at 48^3, encoder2's block0, encoder3's block0
+        and decoder4 at 24^3, decoder5 at 12^3) two K4 calls and two folds
+        each, plus K1 + K3 for the 5 projected residuals (encoder1,
+        decoder5..2) or K2 for the 3 identity ones.
+      * "vanilla" (UNetVanilla at the README recipe, strides 1 2 2 2 1):
+        6 norms a scale on the down path (48^3, 24^3, 12^3, and 12^3 again
+        for the stride-1 bottom) and 2 a unit on the up path (12^3, 24^3,
+        48^3, 96^3), K1 + K2 each."""
     sharded = lambda r: r % (2 * n) == 0  # noqa: E731
     out = dict.fromkeys((*PER_WINDOW, "K1 moments", "K1 fold moments", "K4 halo"), 0)
-    levels = [roi // 2 ** k for k in range(6)]          # 96 .. 3
-    norms = {r: (r != roi) + 4 * (roi // 2 >= r >= roi // 16) + (r <= roi // 4) for r in levels}
-    for r, count in norms.items():
+
+    def norms(r: int, count: int = 1) -> None:
         out["K1 moments" if sharded(r) else "K1"] += count
         out["K2"] += count
-    blocks = [(roi, True), (roi // 2, False), (roi // 4, False), (roi // 8, False),
-              (roi // 32, False), (roi // 16, True), (roi // 8, True), (roi // 4, True),
-              (roi // 2, True), (roi, True)]
-    for r, projected in blocks:
+
+    def fused_block(r: int, projected: bool) -> None:
         out["K4 halo" if sharded(r) else "K4"] += 2
         out["K1 fold moments" if sharded(r) else "K1 fold"] += 2
         if projected:
@@ -5027,6 +5040,32 @@ def sp_launches(n: int, roi: int = 96) -> dict:
             out["K3"] += 1
         else:
             out["K2"] += 1
+
+    if model == "unetr":
+        out["K1"] += 25
+        out["K2"] += 25
+        for r, projected in ((roi, True), (roi // 2, False), (roi // 4, False),
+                             (roi // 4, False), (roi // 8, True), (roi // 4, True),
+                             (roi // 2, True), (roi, True)):
+            fused_block(r, projected)
+        return out
+    if model == "vanilla":
+        for r in (roi // 2, roi // 4, roi // 8, roi // 8):
+            norms(r, 6)
+        for r in (roi // 8, roi // 4, roi // 2, roi):
+            norms(r, 2)
+        return out
+    levels = [roi // 2 ** k for k in range(6)]          # 96 .. 3
+    for r in levels:
+        norms(r, (r != roi) + 4 * (roi // 2 >= r >= roi // 16) + (r <= roi // 4))
+    blocks = [(roi, True), (roi // 2, False), (roi // 4, False), (roi // 8, False),
+              (roi // 32, False), (roi // 16, True), (roi // 8, True), (roi // 4, True),
+              (roi // 2, True), (roi, True)]
+    for r, projected in blocks:
+        if model == "two_d":
+            norms(r, 2 + projected)
+        else:
+            fused_block(r, projected)
     for r in levels[1:5]:   # the four stages, 2 blocks each; every rank holds window rows
         rows = -(-r // 7) if r > 7 else 1
         check(not sharded(r) or rows >= n, f"sp_launches: {rows} window rows over {n} ranks")
@@ -5034,17 +5073,69 @@ def sp_launches(n: int, roi: int = 96) -> dict:
     return out
 
 
+# phase_spatial (e): the other model families at full width on sp [2], bf16,
+# batch 1: (config, `sp_launches` model)
+SP_MODELS = {"C-UNETR": (UNETR, "unetr"), "UNetVanilla": (VANILLA, "vanilla"),
+             "2-D flagship": (TWO_D, "two_d")}
+# bf16 steps of each full-width model of phase_spatial (c), (d) and (e); the
+# first is held to one process
+SP_STEPS = 2
+
+
+def sp_model_steps(trainer, dev, model: dict) -> dict:
+    """`SP_STEPS` bf16 steps of `model` at batch 1 from the trainer's
+    init: the first step's loss and parameters, every loss and CUDA-event
+    ms, the launches of all the steps (counted from 0 before the first,
+    modes apart), the spatial collectives a step and the peak memory; on a
+    partitioned patch then one profiled step after a lead step, its
+    kernels by name; and the seconds of each part."""
+    from miseg_tpu_torch.parallel import spatial
+
+    t0 = time.perf_counter()
+    state = trainer.init_state()
+    batch = _mesh_batch(dev, model, n=1)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    spatial.collectives.update(dict.fromkeys(spatial.collectives, 0))
+    state, loss = trainer.train_step(state, batch)
+    rec = _mesh_record(trainer, state, loss)
+    rec["grads"] = None   # the gates read the losses, the parameters and the digests
+    losses, rec["ms"] = _stepped(trainer, state, batch, SP_STEPS - 1)
+    rec["launch_totals"] = {**launch_counts(), **mode_counts()}
+    rec["collectives"] = {k: v // SP_STEPS for k, v in spatial.collectives.items()}
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    rec["losses"] = [rec["loss"], *losses]
+    t_steps = time.perf_counter()
+    rec["digest"] = _digest(rec["params"])
+    rec["final_digest"] = _digest(trainer.state_dict(state))
+    rec["sp_top"] = trainer._sp_top
+    t_digests = time.perf_counter()
+    if trainer._sp_top is not None:
+        events = profiled(lambda: trainer.train_step(state, batch), lambda ev: True,
+                          attempts=1, lead=lambda: trainer.train_step(state, batch), cpu=False)
+        rec["profiled"] = replay_counts(events)
+        rec["k4_kernels"] = [e.name for e in events if "miseg_k4_" in e.name]
+        rec["busy_ms"] = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    rec["parts_s"] = {"init": t_init - t0, "steps": t_steps - t_init,
+                      "digests": t_digests - t_steps,
+                      "profiled": time.perf_counter() - t_digests}
+    return rec
+
+
 def sp_rank(dev) -> dict:
     """A rank of `phase_spatial` (leg "sp2"): (b) one f32 step of each of
-    `SP_SMALL` on the line `[2]`; (c) `MESH_STEPS` bf16 steps of the
+    `SP_SMALL` on the line `[2]`; (c) `SP_STEPS` bf16 steps of the
     flagship at batch 1, launches and collectives counted from 0 before the
     first and read after the last, the peak memory, then one profiled step
     (both ranks profile one lead and one step: each step holds
     collectives); (d) with FSDP on the line (`SP_2_FSDP`): one f32 step of
-    the fs 24 swin, and `MESH_STEPS` bf16 steps of the flagship, launches
+    the fs 24 swin, and `SP_STEPS` bf16 steps of the flagship, launches
     counted from 0 before the first and read after the last, the peak
-    memory and the bytes of masters and moments a rank.  Rank 0 keeps the
-    whole records, every rank the digests."""
+    memory and the bytes of masters and moments a rank; (e) each of
+    `SP_MODELS` on the line (`sp_model_steps`).  Rank 0 keeps the whole
+    records, every rank the digests."""
     from miseg_tpu_torch import parallel
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.parallel import spatial
@@ -5066,19 +5157,20 @@ def sp_rank(dev) -> dict:
     spatial.collectives.update(dict.fromkeys(spatial.collectives, 0))
     state, loss = trainer.train_step(state, batch)
     rec = _mesh_record(trainer, state, loss)
-    losses, rec["ms"] = _stepped(trainer, state, batch, MESH_STEPS - 1)
+    losses, rec["ms"] = _stepped(trainer, state, batch, SP_STEPS - 1)
     rec["launch_totals"] = {**launch_counts(), **mode_counts()}
-    rec["collectives"] = {k: v // MESH_STEPS for k, v in spatial.collectives.items()}
+    rec["collectives"] = {k: v // SP_STEPS for k, v in spatial.collectives.items()}
     rec["peak"] = torch.cuda.max_memory_allocated()
     rec["losses"] = [rec["loss"], *losses]
     rec["digest"] = _digest(rec["params"])
     rec["final_digest"] = _digest(state.params)
     rec["sp_top"] = trainer._sp_top
     events = profiled(lambda: trainer.train_step(state, batch), lambda ev: True, attempts=1,
-                      lead=lambda: trainer.train_step(state, batch))
+                      lead=lambda: trainer.train_step(state, batch), cpu=False)
     rec["profiled"] = replay_counts(events)
     rec["k4_kernels"] = [e.name for e in events if "miseg_k4_" in e.name]
     rec["busy_ms"] = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    rec["grads"] = None   # (c) and (d) read the losses, parameters and digests
     out["flagship"] = rec
     del trainer, state
     t0 = time.perf_counter()
@@ -5096,7 +5188,7 @@ def sp_rank(dev) -> dict:
     reset_launches()
     state, loss = trainer.train_step(state, batch)
     rec = _mesh_record(trainer, state, loss)
-    losses, rec["ms"] = _stepped(trainer, state, batch, MESH_STEPS - 1)
+    losses, rec["ms"] = _stepped(trainer, state, batch, SP_STEPS - 1)
     rec["launch_totals"] = {**launch_counts(), **mode_counts()}
     rec["peak"] = torch.cuda.max_memory_allocated()
     rec["losses"] = [rec["loss"], *losses]
@@ -5105,7 +5197,16 @@ def sp_rank(dev) -> dict:
     rec["sp_top"] = trainer._sp_top
     rec["axes"] = sorted({pl.axis for pl in trainer.placements.values()})
     rec["seconds"] = time.perf_counter() - t0
+    rec["grads"] = None   # (c) and (d) read the losses, parameters and digests
     out["fsdp flagship"] = rec
+    del trainer, state
+    for name, (model, _) in SP_MODELS.items():
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        trainer = Trainer(Config(**model, **SP_2), device=dev)
+        out[name] = sp_model_steps(trainer, dev, model)
+        out[name]["seconds"] = time.perf_counter() - t0
+        del trainer
     if not parallel.is_writer():   # the whole tensors once, from rank 0
         for r in out.values():
             r["params"] = r["grads"] = None
@@ -5126,8 +5227,10 @@ def phase_spatial(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
     peak memory beside one process's; (d) the same with FSDP on the line:
     the fs 24 swin's step under (b)'s gates, the flagship's under (c)'s
     (launches `sp_launches(2)` a step, counted), its bytes of masters and
-    moments and peak a rank beside SP alone's.  Returns the rows of the
-    modes and a rank's launches a flagship step."""
+    moments and peak a rank beside SP alone's; (e) C-UNETR, UNetVanilla
+    and the 2-D flagship at full width (`SP_MODELS`) under (c)'s gates,
+    each rank's launches a step `sp_launches(2, model=...)`.  Returns the
+    rows of the modes and a rank's launches a step of each model."""
     from collections import Counter
 
     from miseg_tpu_torch.config import Config
@@ -5152,9 +5255,15 @@ def phase_spatial(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
     torch.cuda.reset_peak_memory_stats()
     state, loss = trainer.train_step(state, batch)
     one = _mesh_record(trainer, state, loss)
-    losses, one_ms = _stepped(trainer, state, batch, MESH_STEPS - 1)
+    losses, one_ms = _stepped(trainer, state, batch, SP_STEPS - 1)
     one_losses, one_peak = [one["loss"], *losses], torch.cuda.max_memory_allocated()
     del trainer, state
+    model_refs = {}
+    for name, (model, _) in SP_MODELS.items():
+        torch.cuda.empty_cache()
+        trainer = Trainer(Config(**model), device=dev)
+        model_refs[name] = sp_model_steps(trainer, dev, model)
+        del trainer
     _join_ranks("sp2", procs)
     t_ranks = time.perf_counter() - t0 - t_kernels
     ranks = [torch.load(root / f"sp2_rank{r}.pt", weights_only=False) for r in range(2)]
@@ -5192,13 +5301,13 @@ def phase_spatial(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
         ("K2", None), ("K3", None), ("K5", None))}
     for r, res in enumerate(ranks):
         rec = res["flagship"]
-        totals = {k: MESH_STEPS * v for k, v in want.items()}
+        totals = {k: SP_STEPS * v for k, v in want.items()}
         # by name a K4 call is its conv kernel; the FMA kernel's split-K
         # reduce (the 6-plane slabs at 12^3) is a second kernel of the call
         convs = sum("miseg_k4_conv" in nm for nm in rec["k4_kernels"])
         check(rec["sp_top"] == (96, 96) and rec["launch_totals"] == totals
               and {**rec["profiled"], "K4": convs} == by_name,
-              f"spatial (c) rank {r}: patch {rec['sp_top']}, {MESH_STEPS} steps launched "
+              f"spatial (c) rank {r}: patch {rec['sp_top']}, {SP_STEPS} steps launched "
               f"{rec['launch_totals']}, the profiled step {rec['profiled']}; want {totals} and "
               f"{by_name}")
         paths = Counter(n.split("<")[0].split("::")[-1] for n in rec["k4_kernels"])
@@ -5218,11 +5327,11 @@ def phase_spatial(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
               for r in ranks), "spatial (d): the ranks' losses or gathered masters differ")
     for r, res in enumerate(ranks):
         rec = res["fsdp flagship"]
-        totals = {k: MESH_STEPS * v for k, v in want.items()}
+        totals = {k: SP_STEPS * v for k, v in want.items()}
         check(rec["sp_top"] == (96, 96) and rec["axes"] == ["sp"]
               and rec["launch_totals"] == totals,
               f"spatial (d) rank {r}: patch {rec['sp_top']}, FSDP axes {rec['axes']}, "
-              f"{MESH_STEPS} steps launched {rec['launch_totals']}; want {totals}")
+              f"{SP_STEPS} steps launched {rec['launch_totals']}; want {totals}")
         print(f"  spatial (d) flagship fs 48 96^3 bf16, sp [2] + FSDP on 'sp' rank {r} on "
               f"'{card}': launches a step {want}; step ms by events "
               f"{[round(v, 2) for v in rec['ms']]}; masters + moments a rank "
@@ -5241,13 +5350,52 @@ def phase_spatial(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
           f"bitwise equal; one process at batch 1 on '{card}' (beside the ranks): step ms "
           f"{[round(v, 2) for v in one_ms]}, peak memory {gib(one_peak)} ({one_peak} B); a "
           f"rank's peak {ranks[0]['flagship']['peak'] / one_peak:.1%} of it")
+    model_launches = {}
+    for name, (model, kind) in SP_MODELS.items():
+        ref, lead = model_refs[name], ranks[0][name]
+        where = f"spatial (e) {name}"
+        mgap = max(abs(x - y) / (1 + abs(y)) for x, y in zip(lead["losses"], ref["losses"]))
+        check(mgap <= 1e-3, f"{where}: losses {lead['losses']} vs one process {ref['losses']}")
+        mexcess = _w5_excess(lead["params"], ref["params"])
+        check(mexcess <= 0.0, f"{where}: parameters exceed W5 by {mexcess:.3e}")
+        check(all(r[name]["losses"] == lead["losses"] and r[name]["digest"] == lead["digest"]
+                  and r[name]["final_digest"] == lead["final_digest"] for r in ranks),
+              f"{where}: the ranks' losses or masters differ")
+        mwant = model_launches[name] = sp_launches(2, model=kind)
+        mby_name = {k: mwant[k] + mwant.get(m, 0) for k, m in (
+            ("K1", "K1 moments"), ("K1 fold", "K1 fold moments"), ("K4", "K4 halo"),
+            ("K2", None), ("K3", None), ("K5", None))}
+        top = (model["roi_x"], model["roi_y"])
+        for r, res in enumerate(ranks):
+            rec = res[name]
+            totals = {k: SP_STEPS * v for k, v in mwant.items()}
+            convs = sum("miseg_k4_conv" in nm for nm in rec["k4_kernels"])
+            check(rec["sp_top"] == top and rec["launch_totals"] == totals
+                  and {**rec["profiled"], "K4": convs} == mby_name,
+                  f"{where} rank {r}: patch {rec['sp_top']}, {SP_STEPS} steps launched "
+                  f"{rec['launch_totals']}, the profiled step {rec['profiled']}; want {totals} "
+                  f"and {mby_name}")
+            paths = Counter(n.split("<")[0].split("::")[-1] for n in rec["k4_kernels"])
+            print(f"  {where} {top} bf16, sp [2] rank {r} (batch 1) on '{card}': launches a "
+                  f"step {mwant} (counted; by name {rec['profiled']}); K4 kernels of the "
+                  f"profiled step {dict(paths)}; collectives a step {rec['collectives']}; step "
+                  f"ms by events {[round(v, 2) for v in rec['ms']]}, device busy "
+                  f"{rec['busy_ms']:.2f} ms of the profiled step, peak memory "
+                  f"{gib(rec['peak'])} ({rec['peak']} B); {rec['seconds']:.1f} s for (e) "
+                  f"({', '.join(f'{k} {v:.1f}' for k, v in rec['parts_s'].items())} s)")
+        print(f"  {where}: losses {[round(v, 6) for v in lead['losses']]} vs one process "
+              f"{[round(v, 6) for v in ref['losses']]} (max relative gap {mgap:.2e}); "
+              f"parameters after the first step within W5 (excess {mexcess:.2e}); the ranks' "
+              f"masters bitwise equal; one process at batch 1 on '{card}' (beside the ranks): "
+              f"step ms {[round(v, 2) for v in ref['ms']]}, peak memory {gib(ref['peak'])} "
+              f"({ref['peak']} B); a rank's peak {lead['peak'] / ref['peak']:.1%} of it")
     tmp.cleanup()
     print(f"spatial: K4's D-halo mode and K1's and the fold's moments modes match their plain "
-          f"versions; the line [2] steps as one process, the flagship with every kernel and "
-          f"mode ({t_kernels:.1f} s of kernels, {t_ranks:.1f} s of ranks; phase "
-          f"{time.perf_counter() - t0:.1f} s)")
-    return {"rows": rows, "launches": want,
-            "fsdp_launches": {k: v // MESH_STEPS for k, v in fl["launch_totals"].items()}}
+          f"versions; the line [2] steps as one process, the flagship, C-UNETR, UNetVanilla "
+          f"and the 2-D flagship with every kernel and mode ({t_kernels:.1f} s of kernels, "
+          f"{t_ranks:.1f} s of ranks; phase {time.perf_counter() - t0:.1f} s)")
+    return {"rows": rows, "launches": want, "models": model_launches,
+            "fsdp_launches": {k: v // SP_STEPS for k, v in fl["launch_totals"].items()}}
 
 
 def main() -> int:
@@ -5395,7 +5543,9 @@ def main() -> int:
                                          [stage[key] for stage in pipeline["pp2"]]},
                         "spatial": {"launches_per_sp2_step": spatial["launches"][key],
                                     "launches_per_sp2_fsdp_step":
-                                        spatial["fsdp_launches"][key]}})
+                                        spatial["fsdp_launches"][key],
+                                    "launches_per_sp2_step_by_model":
+                                        {m: c[key] for m, c in spatial["models"].items()}}})
     # the modes of spatial partitioning: the same kernels, launched (and
     # counted) apart on the partitioned step, with rows of their own
     modes = {
@@ -5412,11 +5562,13 @@ def main() -> int:
         check(n > 0, f"{key} was never launched in the spatially partitioned step")
         kernels.append({"name": f"{key} {name}", "route": "cuda",
                         "source": f"miseg_tpu_torch/ops/kernels/csrc/{source}",
-                        "replaces": replaces, "op": op, "launches": MESH_STEPS * n,
+                        "replaces": replaces, "op": op, "launches": SP_STEPS * n,
                         **spatial["rows"][key],
                         "spatial": {"launches_per_sp2_step": n,
                                     "launches_per_sp2_fsdp_step":
-                                        spatial["fsdp_launches"][key]}})
+                                        spatial["fsdp_launches"][key],
+                                    "launches_per_sp2_step_by_model":
+                                        {m: c[key] for m, c in spatial["models"].items()}}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,9 +27,11 @@ FSDP and tensor parallelism take JAX's flags over a mesh of the ranks:
 --mesh_axes data model`, or both.  Spatial partitioning takes JAX's
 `--spatial_shard` (and `--spatial_axis`, default "sp"): `torchrun
 --nproc_per_node=4 -m miseg_tpu_torch.cli.train --spatial_shard
---mesh_shape 4 --mesh_axes sp ...` splits each training patch's D over
-four ranks (`parallel/spatial.py`; `--mesh_shape 2 2 --mesh_axes data sp`
-with data parallelism), and `--fsdp` beside it shards the masters and
+--mesh_shape 4 --mesh_axes sp ...` splits each training patch's D (H
+under `--spatial_dims 2`) over four ranks, for every `--model_name`
+(`parallel/spatial.py`; `--mesh_shape 2 2 --mesh_axes data sp` with data
+parallelism; beside tensor or pipeline parallelism it raises), and
+`--fsdp` beside it shards the masters and
 moments over "data" or, with `--fsdp_axis sp`, over the spatial line.
 Validation and the test run on every rank, their window groups fanned
 out over the mesh's first axis (each rank predicts ⌈G/N⌉ of the G

@@ -18,6 +18,12 @@
 Every instance norm runs K1 + K2; the convs are cuDNN's (the JAX package
 never sends a UNet conv to its fused conv kernel).  Both build 2-D or 3-D
 by `spatial_dims` (the JAX modules take it from the input).
+
+Under spatial partitioning (`parallel/spatial.py`) the convs, norms and
+transposed convs take their halos, merged statistics and level states
+themselves; UNetVanilla's upsampling is local on a slab but changes the
+level, so its output is `settle`d (a whole input sliced where the new
+level is sharded), and each `torch.cat` joins two tensors in one state.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 from torch import nn
 
 from ..nn.convolutions import Convolution, ResidualUnit
+from ..parallel import spatial
 
 NormSpec = tuple[str, dict[str, Any]] | str
 
@@ -173,7 +180,8 @@ class UNetVanilla(nn.Module):
                 x = getattr(self, f"down_path_{scale - 1}_{i}")(x, modalities)
             skips.append(x)
         for idx, scale in enumerate(range(self.scales - 2, -1, -1)):
-            x = nearest_upsample(x, self.strides[scale + 1])
+            slab = spatial.line_of(x) is not None
+            x = spatial.settle(nearest_upsample(x, self.strides[scale + 1]), slab)
             x = getattr(self, f"up_path_{idx}")(torch.cat([skips[scale], x], dim=-1),
                                                 modalities)
         return self.out(x)

@@ -12,6 +12,14 @@ UnetResBlock runs the fused conv chain (K4, K4, then K3 or K2's add);
 `fused_conv=False` selects cuDNN convs with K1 + K2 norms.
 `use_checkpoint` recomputes in the backward the blocks the JAX package
 remats: `encoder1` and the four decoders (`nn/recompute.py`).
+
+Under spatial partitioning (`parallel/spatial.py`) the ViT runs whole on
+every rank: the input slab is gathered (`gather_d`) and the patch
+embedding and every block see the whole volume with the partition
+suspended, so each rank's ViT gradients are its share of the whole, which
+the line's all-reduce sums.  Each token volume (`proj_feat`) is then
+`settle`d, sliced where the level rule shards the token level, and
+`encoder1` and the decoders run on the slabs.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from torch import nn
 from ..nn import recompute
 from ..nn.dynunet import UnetOutBlock
 from ..nn.unetr_blocks import UnetrBasicBlock, UnetrPrUpBlock, UnetrUpBlock
+from ..parallel import spatial
 from .swin_transformer import NormSpec, _kind
 from .vit import ViT
 
@@ -82,8 +91,11 @@ class UNETR(nn.Module):
                                 dtype=dtype)
 
     def proj_feat(self, tokens):
-        """`[B, L, hidden]` -> `[B, *feat_size, hidden]`."""
-        return tokens.reshape(tokens.shape[0], *self.feat_size, self.hidden_size)
+        """`[B, L, hidden]` -> `[B, *feat_size, hidden]`, in its level's
+        state under spatial partitioning (this rank's slab where the level
+        is sharded)."""
+        return spatial.settle(
+            tokens.reshape(tokens.shape[0], *self.feat_size, self.hidden_size), False)
 
     def forward(self, x_in, modalities=None):
         """`x_in [B, *spatial, Cin]`, `modalities int[B]` -> logits
@@ -94,7 +106,10 @@ class UNETR(nn.Module):
         def block(module, *args):
             return recompute.call(module, *args, modalities, recompute=self.use_checkpoint)
 
-        x, hidden = self.vit(x_in, modalities)
+        line = spatial.line_of(x_in)
+        with spatial.suspended():
+            x, hidden = self.vit(x_in if line is None else spatial.gather_d(x_in, line),
+                                 modalities)
         q = self.num_layers // 4
         enc1 = block(self.encoder1, x_in)
         enc2 = self.encoder2(self.proj_feat(hidden[q]), modalities)

@@ -14,10 +14,10 @@ a conv, `[I, O, *k]` for a transposed conv.  The convs are cuDNN's, as
 the JAX package's are XLA's `nn.Conv` and `lax.conv_transpose`.
 
 Under spatial partitioning (`parallel/spatial.py`) a conv of a D slab
-reads the planes of its neighbours that its kernel reaches (`halo_d`:
-one low plane for a k3 s2 p1 conv, one a side for k3 s1 p1, one high
-plane for C-UNet's transposed k3 s2 p1 op1 conv, none for the k2 s2 and
-1x1 convs), runs without D padding on the halo'd slab and keeps its
+(an H slab in 2-D) reads the planes of its neighbours that its kernel
+reaches (`halo_d`: one low plane for a k3 s2 p1 conv, one a side for k3
+s1 p1, one high plane for C-UNet's transposed k3 s2 p1 op1 conv, none
+for the k2 s2 and 1x1 convs), runs without padding on that dim and keeps its
 slab's planes of the output; then its output takes its own level's state
 (`spatial.settle`: gathered where that level is whole, a whole input's
 output sliced where its level is sharded).
@@ -113,8 +113,8 @@ def conv_transpose(x: torch.Tensor, weight: torch.Tensor, strides: Sequence[int]
     k, s, p = weight.shape[2], strides[0], padding[0]
     lo, hi = spatial.conv_dims(k, s, p, transposed=True)
     d = x.shape[1]
-    y = _cl(F.conv_transpose3d(_cf(spatial.halo_d(x, lo, hi, line)), weight, bias,
-                               tuple(strides), (p, *padding[1:]), (0, *output_padding[1:])))
+    y = _cl(_CONV_T[x.ndim - 2](_cf(spatial.halo_d(x, lo, hi, line)), weight, bias,
+                                tuple(strides), (p, *padding[1:]), (0, *output_padding[1:])))
     if y.shape[1] < s * (lo + d):
         raise NotImplementedError(f"spatial partitioning: transposed conv k{k} s{s} p{p} "
                                   "leaves its slab short (ROADMAP M11)")
@@ -153,8 +153,8 @@ class Conv(nn.Module):
                              f"{x.shape[1]} planes")
         lo, hi = spatial.conv_dims(k, s, p)
         xh = spatial.halo_d(x, lo, hi, line)
-        return spatial.settle(_cl(F.conv3d(_cf(xh), self.weight, self.bias, self.stride,
-                                           (0, *self.padding[1:]))), True)
+        return spatial.settle(_cl(_CONV[len(self.kernel_size)](
+            _cf(xh), self.weight, self.bias, self.stride, (0, *self.padding[1:]))), True)
 
 
 class Convolution(nn.Module):

@@ -22,8 +22,9 @@ raises `NotImplementedError` (ROADMAP M11), and so does a pipeline line
 of more than one rank beside any other axis of more than one rank but
 "data" (pipeline parallelism with FSDP or tensor parallelism), and a
 spatial line of more than one rank beside tensor or pipeline
-parallelism, beside FSDP on an axis other than "data" or the spatial
-one, for C-UNETR or UNetVanilla, or in 2-D.
+parallelism, or beside FSDP on an axis other than "data" or the spatial
+one.  Spatial partitioning takes every model the port builds, in 3-D and
+in 2-D.
 
   * `cfg.batch_size` is per data coordinate: the train loader is sharded
     by `(data index, data size)` (`host_shard_info`), so the ranks of one
@@ -199,9 +200,10 @@ def mesh_from_config(cfg, entry: str = "Trainer") -> Mesh:
     than one rank) beside another axis of more than one rank but "data",
     and spatial partitioning (a spatial line of more than one rank) beside
     another axis of more than one rank but "data", with tensor or pipeline
-    parallelism, with FSDP on another axis than "data" or the spatial one
-    (JAX points `fsdp_axis` at either), for a model other than Swin-UNETR
-    and C-UNet, or in 2-D."""
+    parallelism, or with FSDP on another axis than "data" or the spatial
+    one (JAX points `fsdp_axis` at either).  Spatial partitioning takes
+    all five models, 3-D and 2-D: the patch's D (H in 2-D) is split over
+    the spatial line."""
     allowed = {"data", cfg.fsdp_axis, cfg.tp_axis, cfg.pp_axis}
     if cfg.spatial_shard:
         allowed.add(cfg.spatial_axis)
@@ -233,14 +235,10 @@ def mesh_from_config(cfg, entry: str = "Trainer") -> Mesh:
         modes = [m for m in ("tensor_parallel", "pipeline_parallel") if getattr(cfg, m)]
         if cfg.fsdp and cfg.fsdp_axis not in ("data", cfg.spatial_axis):
             modes.append(f"fsdp_axis={cfg.fsdp_axis!r}")
-        what = (f"with {modes + others}" if modes or others else
-                f"for model_name={cfg.model_name!r}"
-                if cfg.model_name not in spatial.MODELS else
-                "in 2-D" if cfg.spatial_dims != 3 else None)
-        if what is not None:
+        if modes or others:
             raise NotImplementedError(
-                f"{entry}: spatial_shard over {cfg.spatial_axis!r} {what} is not ported "
-                "(ROADMAP M11)")
+                f"{entry}: spatial_shard over {cfg.spatial_axis!r} with {modes + others} is "
+                "not ported (ROADMAP M11)")
     global _active
     _active = mesh
     return mesh

@@ -1,12 +1,14 @@
 """Spatial partitioning (SP): shard the training PATCH, not the batch
 (counterpart of `miseg_tpu/parallel/spatial.py`).
 
-The JAX package places the patch's D (dim 1 of `[B, D, H, W, C]`) on an
-"sp" mesh axis and lets GSPMD insert the rest: halo exchanges around every
-conv, all-reduces of the instance norms' statistics, collective permutes
-for the swin rolls.  Torch has no GSPMD, so each of those is written here
-and called by the layers that need it, one rank a card over the
-`cfg.spatial_axis` line of the mesh (`parallel.mesh_from_config`).
+The JAX package places the patch's dim 1 (D of `[B, D, H, W, C]`, H of a
+2-D `[B, H, W, C]`) on an "sp" mesh axis and lets GSPMD insert the rest:
+halo exchanges around every conv, all-reduces of the instance norms'
+statistics, collective permutes for the swin rolls.  Torch has no GSPMD,
+so each of those is written here and called by the layers that need it,
+one rank a card over the `cfg.spatial_axis` line of the mesh
+(`parallel.mesh_from_config`), for every model the port builds, in 3-D
+and in 2-D (below, "D" and "plane" name dim 1 of either).
 
   * `spatial_spec` and `shard_spatial_batch` follow JAX's placement rules:
     dim 1 on the sp coordinate, the batch on "data", a low-rank array by
@@ -15,10 +17,14 @@ and called by the layers that need it, one rank a card over the
     while its slab has an even number of planes, at least 2; below that a
     tensor is whole, the same on every rank of the line.  `partition`
     makes the rule active for a training forward (and its backward),
-    given the top level's global D and H; `line_of(x)` says whether `x` is
-    a slab (its level found by its H).  An op that changes the level
-    computes on its input's partition and then `settle`s its output:
-    gathered where the new level is whole, sliced where it is sharded.
+    given the top level's global D and H and the tensors' rank;
+    `line_of(x)` says whether `x` is a slab (its level found by its dim 2:
+    H, or W in 2-D).  An op that changes the level (a strided or
+    transposed conv, patch merging, UNetVanilla's upsampling, C-UNETR's
+    token volumes) computes on its input's partition and then `settle`s
+    its output: gathered where the new level is whole, sliced where it is
+    sharded.  A module that runs whole on every rank (C-UNETR's ViT, on
+    the gathered input) runs under `suspended()`.
   * The autograd Functions that stand in for GSPMD:
     - `halo_d(x, lo, hi)`: the slab with `lo` planes of the lower and
       `hi` of the upper neighbour around it (zeros past the volume), by
@@ -73,9 +79,7 @@ import torch.distributed as dist
 
 from ..ops.kernels import fused_conv, fused_norm
 
-SPATIAL_DIM = 1  # D of [B, D, H, W, C] / [B, D, H, W]
-# the models the port partitions (the others raise, ROADMAP M11)
-MODELS = ("swin_unetr", "pre_swin_unetr", "unet")
+SPATIAL_DIM = 1  # D of [B, D, H, W, C] / [B, D, H, W]; H of [B, H, W, C] / [B, H, W]
 # collectives launched by the functions below, forward and backward, by
 # kind, since the caller last set them to 0
 collectives = dict.fromkeys(("halo", "gather", "rows", "merge", "sum"), 0)
@@ -143,12 +147,15 @@ def shard_spatial_batch(batch: dict, mesh, spatial_axis: str = "sp",
 @dataclasses.dataclass(frozen=True)
 class Line:
     """The active partition: the sp line's process group, size and this
-    rank's coordinate, and the top level's global D and H."""
+    rank's coordinate, the top level's global D and H, and the rank of
+    the network's image-like tensors (5 for `[B, D, H, W, C]`; 4 in 2-D,
+    where the slab dim is H and the level is found by W)."""
     group: object
     size: int
     index: int
     depth: int
     height: int
+    ndim: int = 5
 
     @property
     def low_edge(self) -> bool:
@@ -175,13 +182,27 @@ def sharded_depth(depth: int, size: int) -> bool:
 
 
 @contextlib.contextmanager
-def partition(group, size: int, index: int, depth: int, height: int):
+def partition(group, size: int, index: int, depth: int, height: int, ndim: int = 5):
     """Inside this block the level rule is active over the line (`group`,
     `size`, this rank's `index`) for a network whose top level has global
-    depth `depth` and height `height`; the block's tensors of a sharded
-    level are this rank's D slabs."""
+    depth `depth` and height `height` (dims 1 and 2 of its `ndim`-rank
+    tensors); the block's tensors of a sharded level are this rank's
+    slabs of dim 1."""
     global _line
-    outer, _line = _line, Line(group, size, index, depth, height)
+    outer, _line = _line, Line(group, size, index, depth, height, ndim)
+    try:
+        yield
+    finally:
+        _line = outer
+
+
+@contextlib.contextmanager
+def suspended():
+    """Inside this block no partition is active: a module that runs whole
+    on every rank (C-UNETR's ViT, on the gathered input) sees whole
+    tensors as one process does."""
+    global _line
+    outer, _line = _line, None
     try:
         yield
     finally:
@@ -206,10 +227,12 @@ def level_depth(line: Line, height: int) -> int:
 
 
 def line_of(x: torch.Tensor) -> Line | None:
-    """The active line when `x` (`[B, D, H, W, C]`) is a slab of a sharded
-    level, else None (no active partition, not 5-D, or a whole level)."""
+    """The active line when `x` (`[B, D, H, W, C]`, or `[B, H, W, C]` in
+    2-D) is a slab of a sharded level, else None (no active partition, a
+    tensor of another number of dims than the line's `ndim`, or a whole
+    level)."""
     line = _line
-    if line is None or x.ndim != 5:
+    if line is None or x.ndim != line.ndim:
         return None
     depth = level_depth(line, x.shape[2])
     if not sharded_depth(depth, line.size):
@@ -233,7 +256,7 @@ def settle(y: torch.Tensor, was_slab: bool) -> torch.Tensor:
     (`was_slab`) or whole, in the state of its own level: gathered where
     that level is whole, sliced where it is sharded."""
     line = _line
-    if line is None or y.ndim != 5:
+    if line is None or y.ndim != line.ndim:
         return y
     sharded = sharded_depth(level_depth(line, y.shape[2]), line.size)
     if was_slab and not sharded:

@@ -71,7 +71,7 @@ model on those masters, as JAX's do.
 
 Under spatial partitioning (`cfg.spatial_shard` on a mesh whose
 `cfg.spatial_axis` line has N > 1 ranks; JAX's :281-290) each rank of the
-line takes its D slab of the data coordinate's batch (`_batch`,
+line takes its D slab (H in 2-D) of the data coordinate's batch (`_batch`,
 `parallel.shard_spatial_batch`) and runs the forward and the backward
 under `spatial.partition`, where the layers exchange halos, merge their
 norms' statistics and gather the levels the level rule leaves whole
@@ -462,7 +462,8 @@ class Trainer:
             return contextlib.nullcontext()
         axis = self.cfg.spatial_axis
         return spatial.partition(self.mesh.group(axis), self.mesh.size(axis),
-                                 self.mesh.index(axis), *self._sp_top)
+                                 self.mesh.index(axis), *self._sp_top,
+                                 ndim=self.cfg.spatial_dims + 2)
 
     def _pp_active(self) -> bool:
         """Pipeline parallelism runs when `cfg.pipeline_parallel` is set and
@@ -551,8 +552,9 @@ class Trainer:
 
     def _batch(self, batch: Mapping):
         """(image, label, modality) on the device; under spatial
-        partitioning this rank's D slab of the image and label when the
-        level rule shards the patch's D (`_sp_top` says so)."""
+        partitioning this rank's D slab (H in 2-D) of the image and label
+        when the level rule shards the patch's dim 1 (`_sp_top`, the
+        patch's dims 1 and 2, says so)."""
         n_sp = self._sp_size()
         self._sp_top = None
         if n_sp > 1:

@@ -45,7 +45,8 @@ slice of a seeded global batch of N volumes (`--size`^3, one a rank):
     the card the flagship's bf16 step ms, peak memory and bytes of masters
     and moments a rank beside one process's; on `[4]` also at 192^3
     (`SP_LARGE`) against one process at 192^3 (its peak, or that it does
-    not fit).
+    not fit); "unetr sp [4]" the same for C-UNETR (its small model at
+    64^3 f32, its full-width step at `--size`^3).
 Rank 0 prints one line each and `ok`; any failed check raises.  `--legs`
 runs only the named legs of `MESH_LEGS` (default: all).
 
@@ -136,6 +137,7 @@ def snapshot(state, loss: float) -> dict:
 
 
 MESH_2X2 = dict(mesh_shape=[2, 2], mesh_axes=["data", "model"])
+SP_4 = dict(spatial_shard=True, mesh_shape=[4], mesh_axes=["sp"])
 # name -> (the parallelism fields, the f32 model, the full-width bf16 model,
 # volumes a "data" coordinate)
 MESH_LEGS = {"fsdp [N]": (dict(fsdp=True), cs.MESH_SMALL, cs.FLAGSHIP, 1),
@@ -145,8 +147,7 @@ MESH_LEGS = {"fsdp [N]": (dict(fsdp=True), cs.MESH_SMALL, cs.FLAGSHIP, 1),
              "pp [1, 4]": (cs.PP_SWIN, cs.MESH_SMALL, cs.FLAGSHIP, 2),
              "pp [2, 2]": ({**cs.PP_UNETR, "mesh_shape": [2, 2]}, cs.PP_UNETR_SMALL, cs.UNETR,
                            2),
-             "sp [4]": (dict(spatial_shard=True, mesh_shape=[4], mesh_axes=["sp"]),
-                        cs.MESH_SMALL, cs.FLAGSHIP, 1),
+             "sp [4]": (SP_4, cs.MESH_SMALL, cs.FLAGSHIP, 1),
              "data x sp [2, 2]": (dict(spatial_shard=True, mesh_shape=[2, 2],
                                        mesh_axes=["data", "sp"]), cs.MESH_SMALL, cs.FLAGSHIP, 1),
              "sp + fsdp [4]": (dict(spatial_shard=True, mesh_shape=[4], mesh_axes=["sp"],
@@ -154,16 +155,19 @@ MESH_LEGS = {"fsdp [N]": (dict(fsdp=True), cs.MESH_SMALL, cs.FLAGSHIP, 1),
              "data x sp + fsdp [2, 2]": (dict(spatial_shard=True, mesh_shape=[2, 2],
                                               mesh_axes=["data", "sp"], fsdp=True,
                                               fsdp_axis="data"), cs.MESH_SMALL, cs.FLAGSHIP,
-                                         1)}
+                                         1),
+             "unetr sp [4]": (SP_4, cs.PP_UNETR_SMALL, cs.UNETR, 1)}
 # the spatial legs that also run the flagship at this patch size
 SP_LARGE = (("sp [4]", "sp + fsdp [4]"), 192)
 
 
-def flagship_steps(par: dict, size: int, data: int, device) -> tuple[list, int, int]:
-    """Three bf16 steps of the flagship at `size`^3 under `par`, on this
-    rank's share of a batch of `data` volumes: (CUDA-event ms a step, peak
-    memory, bytes of f32 masters and AdamW moments this rank holds)."""
-    big = {**cs.FLAGSHIP, "roi_x": size, "roi_y": size, "roi_z": size}
+def flagship_steps(par: dict, size: int, data: int, device,
+                   model: dict = cs.FLAGSHIP) -> tuple[list, int, int]:
+    """Three bf16 steps of `model` (the flagship unless given) at `size`^3
+    under `par`, on this rank's share of a batch of `data` volumes:
+    (CUDA-event ms a step, peak memory, bytes of f32 masters and AdamW
+    moments this rank holds)."""
+    big = {**model, "roi_x": size, "roi_y": size, "roi_z": size}
     fdata = [cs._share(b) for b in batches(Config(**big), data, size, 3, device)]
     trainer = Trainer(Config(**big, **par), device=device)
     state = trainer.init_state()
@@ -180,11 +184,12 @@ def flagship_steps(par: dict, size: int, data: int, device) -> tuple[list, int, 
     return ms, torch.cuda.max_memory_allocated(), trainer.state_bytes(state)
 
 
-def one_process_large(size: int, device) -> str:
-    """One process's flagship bf16 step at `size`^3, batch 1: its step ms
-    and peak memory, or that it does not fit on the card."""
+def one_process_large(size: int, device, model: dict = cs.FLAGSHIP) -> str:
+    """One process's bf16 step of `model` (the flagship unless given) at
+    `size`^3, batch 1: its step ms and peak memory, or that it does not fit
+    on the card."""
     try:
-        ms, peak, state_bytes = flagship_steps({}, size, 1, device)
+        ms, peak, state_bytes = flagship_steps({}, size, 1, device, model)
     except torch.OutOfMemoryError as e:
         torch.cuda.empty_cache()
         return f"does not fit ({str(e).splitlines()[0][:160]})"
@@ -241,7 +246,8 @@ def mesh_legs(device, world: int, size: int, legs=None) -> dict:
             del trainer, state
             if par.get("spatial_shard"):
                 peaks = [None] * world
-                dist.all_gather_object(peaks, flagship_steps(par, size, data * per, device))
+                dist.all_gather_object(peaks, flagship_steps(par, size, data * per, device,
+                                                             big))
                 rec["sp_peaks"] = {size: peaks}
                 if name in SP_LARGE[0]:
                     large = [None] * world
@@ -335,7 +341,7 @@ def held_legs(legs: dict, device, size: int, card: str, one_ms, dp_ms) -> None:
             one_state = one.init_state()
             one_bytes = one.state_bytes(one_state) * 3     # + AdamW's two moments
             base = statistics.median(one_ms[1:])
-            if per > 1:
+            if per > 1 or MESH_LEGS[name][2] is not cs.FLAGSHIP:
                 _, _, base_ms = run(Config(**big), device, batches(Config(**big), per, size, 3,
                                                                     device), None)
                 base = statistics.median(base_ms[1:])
@@ -344,7 +350,7 @@ def held_legs(legs: dict, device, size: int, card: str, one_ms, dp_ms) -> None:
             line += (f"; {big['model_name']} {size}^3 bf16 at batch {per} a data coordinate, "
                      f"step ms a rank (median of 2 after a warm-up) {[round(v, 2) for v in ms]} "
                      f"vs one process at batch {per} {base:.2f}")
-            if per == 1:
+            if per == 1 and MESH_LEGS[name][2] is cs.FLAGSHIP:
                 line += f", data parallelism at batch 1 a rank {statistics.median(dp_ms[1:]):.2f}"
             if rec["big"][0][2] is not None:
                 stages, m = par["mesh_shape"][1], par["pp_microbatches"]
@@ -356,9 +362,9 @@ def held_legs(legs: dict, device, size: int, card: str, one_ms, dp_ms) -> None:
                      f"one process {one_bytes}; {rec['big_placed']} of {one_bytes // 12} "
                      f"parameters placed")
         for side, runs in rec.get("sp_peaks", {}).items():
-            one = (one_process_large(side, device) if side != size else
-                   f"peak memory {flagship_steps({}, side, 1, device)[1]} B")
-            line += (f"; flagship {side}^3 bf16, step ms a rank "
+            one = (one_process_large(side, device, big) if side != size else
+                   f"peak memory {flagship_steps({}, side, 1, device, big)[1]} B")
+            line += (f"; {big['model_name']} {side}^3 bf16, step ms a rank "
                      f"{[[round(v, 2) for v in ms] for ms, _, _ in runs]}, peak memory a rank "
                      f"{[peak for _, peak, _ in runs]} B, masters + moments a rank "
                      f"{[b for _, _, b in runs]} B; one process at batch 1: {one}")

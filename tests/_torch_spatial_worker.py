@@ -4,7 +4,7 @@
 
 Joins a gloo process group through a `file://` rendezvous and runs the
 cases of `SUITES[SUITE]` on its share of each global batch (its "data"
-coordinate's batch; the Trainer cuts its D slab), from the state dicts of
+coordinate's batch; the Trainer cuts its slab of dim 1), from the state dicts of
 `STARTS` (`torch.save`d `{model: state dict}`):
 
   * "sp2" (world 2, the line `[2]`): `functions`, the pieces of
@@ -14,11 +14,15 @@ coordinate's batch; the Trainer cuts its D slab), from the state dicts of
     step of JAX's tiny C-UNet and of its tiny swin (without and with
     dropout); beside FSDP on the spatial line, the C-UNet's step, an fs-24
     swin's, and a C-UNet's whose patch (D 18) the level rule keeps whole;
-    the swin's forward in eval mode, its logits gathered whole; the
-    refusals (`refusals`).
+    the `MODEL_CASES` of the line `[2]` (a tiny C-UNETR without and with
+    ViT dropout, a tiny UNetVanilla and its batch-norm recipe, the four
+    families in 2-D); the swin's forward and its 2-D twin's in eval mode,
+    the logits gathered whole; the refusals, and a step of each
+    configuration they once held (`refusals`).
   * "sp4" (world 4): the C-UNet step on the line `[4]` and on the
     ("data", "sp") mesh `[2, 2]`, and beside FSDP on `[4]` (the spatial
-    line) and on `[2, 2]` (FSDP on "data", and on "sp").
+    line) and on `[2, 2]` (FSDP on "data", and on "sp"); the tiny C-UNETR
+    on `[4]` and `[2, 2]`, the tiny UNetVanilla on `[4]`.
   * Both: the sliding-window inferer fanned out over the world (`fanout`:
     its logits and predict calls, and with `stitch_on_host`), and
     `Trainer.evaluate` on `[2]` ("sp2") or `[2, 2]` ("sp4") of the
@@ -74,6 +78,30 @@ MODELS["unet_batch"] = dict(MODELS["unet"], encoder_norm_name="batch", decoder_n
 # of [2]) the level rule keeps whole
 MODELS["swin24"] = dict(MODELS["swin"], feature_size=[24])
 MODELS["unet_whole"] = dict(MODELS["unet"], roi_x=18)
+# a tiny C-UNETR at 64^3: its token level (4 planes) is sharded on [2] (2
+# planes a rank) and whole on [4]; with ViT dropout (JAX draws other masks)
+_NORMS = dict(vit_norm_name="instance_cond", encoder_norm_name="instance_cond",
+              decoder_norm_name="instance")
+MODELS["unetr"] = dict(model_name="unetr", roi_x=64, roi_y=64, roi_z=64, out_channels=3,
+                       feature_size=[4], hidden_size=16, mlp_dim=32, num_heads=2, **_NORMS,
+                       criterion="dice_ce", no_amp=True, optim_name="sgd", lr=1e-2)
+MODELS["unetr_dropout"] = dict(MODELS["unetr"], dropout_rate=0.3)
+# a tiny UNetVanilla of the README recipe's strides (1 2 2 2 1: pre_conv
+# and the bottom unit keep their level) at 16^3: its 2-plane level is whole
+# on [2] and its 4-plane one on [4], each upsampled into a sharded level;
+# and with batch norms
+MODELS["vanilla"] = dict(model_name="unet_vanilla", roi_x=16, roi_y=16, roi_z=16,
+                         out_channels=3, feature_size=[4, 8, 8, 16, 16],
+                         strides=[1, 2, 2, 2, 1], num_res_units=2, **_NORMS,
+                         criterion="dice_ce", no_amp=True, optim_name="sgd", lr=1e-2)
+MODELS["vanilla_batch"] = dict(MODELS["vanilla"], encoder_norm_name="batch",
+                               decoder_norm_name="batch")
+# the four families in 2-D: the slab is H of [B, H, W, C]
+_2D = dict(spatial_dims=2, roi_x=64, roi_y=64)
+MODELS["swin_2d"] = dict(MODELS["swin"], **_2D)
+MODELS["unetr_2d"] = dict(MODELS["unetr"], **_2D)
+MODELS["unet_2d"] = dict(MODELS["unet"], spatial_dims=2, roi_x=32, roi_y=32)
+MODELS["vanilla_2d"] = dict(MODELS["vanilla"], spatial_dims=2, roi_x=32, roi_y=32)
 DROPOUT = dict(dropout_rate=0.2, attn_drop_rate=0.1, dropout_path_rate=0.1)
 # FSDP on the leaves of 128 elements or more (the tiny models have few above
 # JAX's default 8192), on the spatial line or on "data"
@@ -93,11 +121,27 @@ CASES = {
     "unet_fsdp_sp4": ("unet", [4], ["sp"], FSDP_SP),
     "unet_dp_sp_fsdp_data": ("unet", [2, 2], ["data", "sp"], FSDP_DATA),
     "unet_dp_sp_fsdp_sp": ("unet", [2, 2], ["data", "sp"], FSDP_SP),
+    "unetr_sp2": ("unetr", [2], ["sp"], {}),
+    "unetr_sp4": ("unetr", [4], ["sp"], {}),
+    "unetr_dp_sp": ("unetr", [2, 2], ["data", "sp"], {}),
+    "unetr_dropout_sp2": ("unetr_dropout", [2], ["sp"], {}),
+    "vanilla_sp2": ("vanilla", [2], ["sp"], {}),
+    "vanilla_sp4": ("vanilla", [4], ["sp"], {}),
+    "vanilla_batch_sp2": ("vanilla_batch", [2], ["sp"], {}),
+    "swin_2d_sp2": ("swin_2d", [2], ["sp"], {}),
+    "unetr_2d_sp2": ("unetr_2d", [2], ["sp"], {}),
+    "unet_2d_sp2": ("unet_2d", [2], ["sp"], {}),
+    "vanilla_2d_sp2": ("vanilla_2d", [2], ["sp"], {}),
 }
+# the steps of every model family beyond the C-UNet and the 3-D swin
+MODEL_CASES = ["unetr_sp2", "unetr_sp4", "unetr_dp_sp", "unetr_dropout_sp2", "vanilla_sp2",
+               "vanilla_sp4", "vanilla_batch_sp2", "swin_2d_sp2", "unetr_2d_sp2",
+               "unet_2d_sp2", "vanilla_2d_sp2"]
 SUITES = {"sp2": ["unet_sp2", "unet_batch_sp2", "swin_sp2", "swin_dropout_sp2",
-                  "unet_fsdp_sp2", "swin24_fsdp_sp2", "unet_whole_fsdp_sp2"],
+                  "unet_fsdp_sp2", "swin24_fsdp_sp2", "unet_whole_fsdp_sp2",
+                  *(c for c in MODEL_CASES if CASES[c][1] == [2])],
           "sp4": ["unet_sp4", "unet_dp_sp", "unet_fsdp_sp4", "unet_dp_sp_fsdp_data",
-                  "unet_dp_sp_fsdp_sp"]}
+                  "unet_dp_sp_fsdp_sp", *(c for c in MODEL_CASES if CASES[c][1] != [2])]}
 FSDP_CASES = [c for c, (_, _, _, extra) in CASES.items() if extra.get("fsdp")]
 GLOBAL_BATCH = 2
 # the window fan-out: name -> (volume, sw_batch_size, batch); 6 groups; 2
@@ -123,10 +167,10 @@ def case_config(name: str, *, one_process: bool = False) -> dict:
 
 
 def global_batch(cfg: dict, seed: int = 1) -> dict:
-    """JAX's test batch: `GLOBAL_BATCH` volumes and labels from a seed,
-    modalities 0 and 1."""
+    """JAX's test batch: `GLOBAL_BATCH` volumes (or 2-D slices) and labels
+    from a seed, modalities 0 and 1."""
     rng = np.random.default_rng(seed)
-    roi = (cfg["roi_x"], cfg["roi_y"], cfg["roi_z"])
+    roi = Config(**cfg).roi
     return {"image": rng.normal(size=(GLOBAL_BATCH, *roi, 1)).astype(np.float32),
             "label": (rng.uniform(size=(GLOBAL_BATCH, *roi)) > 0.7).astype(np.int32)
             if cfg["out_channels"] == 2 else
@@ -256,20 +300,26 @@ def evaluate(suite: str, start: dict) -> dict:
     return {"metrics": metrics, "windows": trainer.history["eval_windows"]}
 
 
-def swin_forward(start: dict, seed: int = 4) -> torch.Tensor:
-    """The tiny swin's eval-mode forward on the line (JAX's swin forward
-    input, `test_spatial.py:163-165`), this rank's slab in, the logits
-    gathered whole."""
-    cfg = Config(**MODELS["swin"])
-    model = model_from_config(cfg, device="cpu")
-    model.load_state_dict(start)
-    model.eval()
-    x = torch.from_numpy(np.random.default_rng(seed).normal(
-        size=(1, 32, 32, 32, 1)).astype(np.float32))
+def forward_input(model: str, seed: int = 4) -> np.ndarray:
+    """The swin forward's input: JAX's (`test_spatial.py:163-165`) for the
+    tiny swin, a 2-D slice of the same draw for its 2-D twin."""
+    roi = Config(**MODELS[model]).roi
+    return np.random.default_rng(seed).normal(size=(1, *roi, 1)).astype(np.float32)
+
+
+def swin_forward(model: str, start: dict) -> torch.Tensor:
+    """A tiny swin's eval-mode forward on the line (`forward_input`), this
+    rank's slab of dim 1 in, the logits gathered whole."""
+    cfg = Config(**MODELS[model])
+    net = model_from_config(cfg, device="cpu")
+    net.load_state_dict(start)
+    net.eval()
+    x = torch.from_numpy(forward_input(model))
+    d, h = x.shape[1:3]
     mesh = parallel.make_mesh([dist.get_world_size()], ["sp"])
     n, r = mesh.size("sp"), mesh.index("sp")
-    with torch.no_grad(), spatial.partition(mesh.group("sp"), n, r, 32, 32):
-        y = model(x[:, r * 32 // n:(r + 1) * 32 // n], torch.tensor([1], dtype=torch.int32))
+    with torch.no_grad(), spatial.partition(mesh.group("sp"), n, r, d, h, ndim=x.ndim):
+        y = net(x[:, r * d // n:(r + 1) * d // n], torch.tensor([1], dtype=torch.int32))
         return spatial.gather_d(y, spatial.active())
 
 
@@ -464,11 +514,38 @@ def losses() -> dict:
     return out
 
 
+# the configurations `refusals` builds and steps (the ones SP once refused)
+STEPPED = ("unetr", "unet_vanilla", "2d")
+
+
 def refusals() -> dict:
     """What the Trainer says of each out-of-scope configuration on the line
     [world] (None when it builds), and of the field taken without a
-    spatial line of more than one rank."""
-    unet, world = MODELS["unet"], dist.get_world_size()
+    spatial line of more than one rank; of each of `STEPPED`, which build,
+    the loss and gradients of one step from the port's own init
+    (`refusal_cases` holds them all)."""
+    out, stepped = {}, {}
+    for name, cfg in refusal_cases(dist.get_world_size()).items():
+        try:
+            trainer = engine.Trainer(Config(**cfg), device="cpu")
+            out[name] = None
+        except (NotImplementedError, ValueError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+            continue
+        if name in STEPPED:
+            state = trainer.init_state()
+            batch = batch_for(global_batch(cfg))
+            state, loss = trainer.train_step(state, batch)
+            stepped[name] = {"loss": float(loss), "sp_top": trainer._sp_top,
+                             "grads": {n: p.grad.detach().clone()
+                                       for n, p in state.params.items()}}
+    return {"said": out, "stepped": stepped}
+
+
+def refusal_cases(world: int, *, one_process: bool = False) -> dict:
+    """The configurations of `refusals` on the line [world]; `one_process`:
+    those of `STEPPED` without the line."""
+    unet = MODELS["unet"]
     sp = dict(spatial_shard=True, mesh_shape=[world], mesh_axes=["sp"])
     cases = {
         "fsdp_with_tp": {**unet, "spatial_shard": True, "mesh_shape": [world, 1],
@@ -478,19 +555,16 @@ def refusals() -> dict:
         "pipeline_parallel": {**unet, **sp, "pipeline_parallel": True},
         "unetr": {**unet, **sp, "model_name": "unetr", "feature_size": [4],
                   "hidden_size": 16, "mlp_dim": 32, "num_heads": 2},
-        "unet_vanilla": {**unet, **sp, "model_name": "unet_vanilla"},
+        "unet_vanilla": {**unet, **sp, "model_name": "unet_vanilla",
+                         "feature_size": [4, 8], "strides": [1, 2]},
         "2d": {**unet, **sp, "spatial_dims": 2},
         "axis_without_flag": {**unet, "mesh_shape": [world], "mesh_axes": ["sp"]},
         "flag_on_data": {**unet, "spatial_shard": True},
     }
-    out = {}
-    for name, cfg in cases.items():
-        try:
-            engine.Trainer(Config(**cfg), device="cpu")
-            out[name] = None
-        except (NotImplementedError, ValueError) as e:
-            out[name] = f"{type(e).__name__}: {e}"
-    return out
+    if one_process:
+        return {name: {k: v for k, v in cases[name].items() if k not in sp}
+                for name in STEPPED}
+    return cases
 
 
 def main(suite: str, rank: int, world: int, rdzv: str, out_dir: str, starts: str) -> None:
@@ -505,7 +579,8 @@ def main(suite: str, rank: int, world: int, rdzv: str, out_dir: str, starts: str
         if suite == "sp2":
             result["functions"] = functions()
             result["losses"] = losses()
-            result["forward"] = swin_forward(start["swin"])
+            result["forward"] = swin_forward("swin", start["swin"])
+            result["forward_2d"] = swin_forward("swin_2d", start["swin_2d"])
             result["refusals"] = refusals()
         torch.save(result, Path(out_dir) / f"{suite}_rank{rank}.pt")
     finally:

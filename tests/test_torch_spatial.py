@@ -48,10 +48,22 @@ whole volume, one process and the JAX package.
   ⌈G/N⌉ predict calls a rank; none under `stitch_on_host`; and
   `Trainer.evaluate`'s metrics on `[2]` and `[2, 2]` equal to one
   process's (Dice equal, the rest within 1e-6), windows ⌈G/N⌉ a volume.
+* Every model family: a tiny C-UNETR (fs 4, hidden 16, 64^3) on `[2]`,
+  where the level rule shards its token level, on `[4]`, where it keeps
+  it whole, and on ("data", "sp") `[2, 2]`; a tiny UNetVanilla of the
+  README recipe's strides (1 2 2 2 1) on `[2]` and `[4]`, each with a
+  whole level upsampled into a sharded one, and its batch-norm recipe on
+  `[2]`; the tiny 2-D C-Swin-UNETR, C-UNETR, C-UNet and UNetVanilla on
+  `[2]` (the slab is H): each step held to JAX's one-process step at the
+  C-UNet's gates (the batch-norm recipe's running statistics too) and to
+  the port's one process at the swin's, the masters bitwise equal; a
+  C-UNETR with ViT dropout held to the port's one process; the tiny 2-D
+  swin's forward against JAX's.
 * The refusals: SP beside FSDP with tensor parallelism, beside tensor or
-  pipeline parallelism, C-UNETR, UNetVanilla and 2-D raise
-  `NotImplementedError` naming ROADMAP M11; the spatial axis without
-  `spatial_shard` raises; the field alone is taken.
+  pipeline parallelism raise `NotImplementedError` naming ROADMAP M11;
+  the spatial axis without `spatial_shard` raises; the field alone is
+  taken; C-UNETR, UNetVanilla and 2-D, once refused, build and step as
+  one process does.
 """
 
 import functools
@@ -100,44 +112,61 @@ ATOL_LEAF = 5e-5
 
 @functools.lru_cache(maxsize=None)
 def jax_model(model: str):
-    """(JAX module, seeded params) of one of `W.MODELS`."""
+    """(JAX module, seeded params, batch statistics or None) of one of
+    `W.MODELS`: a batch-norm model's running statistics drawn from a seed."""
     cfg = W.MODELS[model]
     batch = W.global_batch(cfg)
     jmodel = jax_model_from_config(JConfig(**cfg))
-    return jmodel, seeded_params(jmodel, jnp.asarray(batch["image"][:1]),
-                                 jnp.asarray(batch["modality"][:1]))
+    args = jnp.asarray(batch["image"][:1]), jnp.asarray(batch["modality"][:1])
+    stats = None
+    if "batch" in cfg["encoder_norm_name"]:
+        shapes = jax.eval_shape(jmodel.init, jax.random.key(0), *args)["batch_stats"]
+        rng = np.random.default_rng(2)
+        stats = jax.tree.map(lambda s: rng.uniform(0.5, 1.5, s.shape).astype(np.float32),
+                             shapes)
+    return jmodel, seeded_params(jmodel, *args), stats
 
 
 @functools.lru_cache(maxsize=None)
 def start(model: str) -> dict:
-    """The start of a model: JAX's seeded params, bridged; the batch-norm
-    C-UNet (held to the port's one process only) from the port's own init."""
+    """The start of a model: JAX's seeded params (and statistics), bridged;
+    the batch-norm C-UNet (held to the port's one process only) from the
+    port's own init."""
     if model == "unet_batch":
         trainer = engine.Trainer(Config(**W.MODELS[model]), device="cpu")
         return {n: t.detach().clone() for n, t in trainer.state_dict(trainer.init_state()).items()}
-    return state_dict_from_jax(jax_model(model)[1])
+    _, params, stats = jax_model(model)
+    return state_dict_from_jax(params, stats)
 
 
 @functools.lru_cache(maxsize=None)
 def jax_step(model: str) -> dict:
-    """JAX's one SGD step of a model on the global batch: loss, parameters
-    and gradients, as the port's names."""
+    """JAX's one SGD step of a model on the global batch: loss, parameters,
+    gradients and (of a batch-norm model) the new running statistics, as
+    the port's names."""
     cfg = W.MODELS[model]
     jcfg = JConfig(**cfg)
-    jmodel, params = jax_model(model)
+    jmodel, params, stats = jax_model(model)
     loss_fn = JL.loss_from_config(jcfg)
     batch = W.global_batch(cfg)
 
     def loss_of(p):
-        return loss_fn(jmodel.apply({"params": p}, batch["image"], batch["modality"],
-                                    train=True).astype(jnp.float32), batch["label"])
+        if stats is None:
+            return loss_fn(jmodel.apply({"params": p}, batch["image"], batch["modality"],
+                                        train=True).astype(jnp.float32), batch["label"]), {}
+        logits, new_vars = jmodel.apply({"params": p, "batch_stats": stats}, batch["image"],
+                                        batch["modality"], train=True, mutable=["batch_stats"])
+        return loss_fn(logits.astype(jnp.float32), batch["label"]), new_vars["batch_stats"]
 
-    loss, grads = jax.jit(jax.value_and_grad(loss_of))(params)
+    (loss, new_stats), grads = jax.jit(jax.value_and_grad(loss_of, has_aux=True))(params)
     tx = j_optimizer_from_config(jcfg)
     updates, _ = tx.update(grads, tx.init(params), params)
     new = jax.tree.map(lambda p, u: np.asarray(p + u), params, updates)
-    return {"loss": float(loss), "params": state_dict_from_jax(new),
-            "grads": state_dict_from_jax(jax.tree.map(np.asarray, grads))}
+    new_params = state_dict_from_jax(new)
+    return {"loss": float(loss), "params": new_params,
+            "grads": state_dict_from_jax(jax.tree.map(np.asarray, grads)),
+            "buffers": {n: b for n, b in state_dict_from_jax(
+                new, jax.tree.map(np.asarray, new_stats)).items() if n not in new_params}}
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,13 +191,25 @@ def one_process(case: str) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def jax_swin_forward() -> np.ndarray:
+def jax_swin_forward(model: str = "swin") -> np.ndarray:
     """JAX's tiny swin forward of tests/test_spatial.py:163-169 (its input
-    and modality) on the seeded params."""
-    jmodel, params = jax_model("swin")
-    x = np.random.default_rng(4).normal(size=(1, 32, 32, 32, 1)).astype(np.float32)
+    and modality), or its 2-D twin's on `W.forward_input`, on the seeded
+    params."""
+    jmodel, params, _ = jax_model(model)
     fwd = jax.jit(lambda p, x, m: jmodel.apply({"params": p}, x, m))
-    return np.asarray(fwd(params, jnp.asarray(x), jnp.asarray([1], jnp.int32)))
+    return np.asarray(fwd(params, jnp.asarray(W.forward_input(model)),
+                          jnp.asarray([1], jnp.int32)))
+
+
+@functools.lru_cache(maxsize=None)
+def refusal_one_process(name: str) -> dict:
+    """The port's one process on a configuration SP once refused
+    (`W.STEPPED`): one step from its own init on the global batch."""
+    cfg = W.refusal_cases(2, one_process=True)[name]
+    trainer = engine.Trainer(Config(**cfg), device="cpu")
+    state, loss = trainer.train_step(trainer.init_state(), W.global_batch(cfg))
+    return {"loss": float(loss),
+            "grads": {n: p.grad.detach().clone() for n, p in state.params.items()}}
 
 
 def spawn(suite: str, world: int, tmp: Path) -> list:
@@ -191,11 +232,15 @@ def ranks(tmp_path_factory):
     procs = {suite: spawn(suite, world, tmp) for suite, world in SUITE_WORLDS.items()}
     logs = {}
     try:
-        for model in ("unet", "swin24", "unet_whole"):
+        for model in ("unet", "swin24", "unet_whole", *{W.CASES[c][0] for c in JAX_CASES}):
             jax_step(model)
         jax_swin_forward()
-        for case in ("unet_batch_sp2", "swin_sp2", "swin_dropout_sp2", *W.FSDP_CASES):
+        jax_swin_forward("swin_2d")
+        for case in ("unet_batch_sp2", "swin_sp2", "swin_dropout_sp2", *W.FSDP_CASES,
+                     *W.MODEL_CASES):
             one_process(case)
+        for name in W.STEPPED:
+            refusal_one_process(name)
         for name in W.FANOUT:
             fanout_one_process(name)
             for world in SUITE_WORLDS.values():
@@ -439,6 +484,102 @@ def test_step_like_one_process(ranks, case):
         assert abs(want["loss"] - one_process("swin_sp2")["loss"]) > 1e-4
 
 
+# ----------------------------------------------------- every model family
+
+# the steps held to JAX too (JAX draws other dropout masks)
+JAX_CASES = [c for c in W.MODEL_CASES if c != "unetr_dropout_sp2"]
+
+
+def _top(case: str) -> tuple:
+    """The patch's dims 1 and 2: the partition every rank of a case runs."""
+    return Config(**W.MODELS[W.CASES[case][0]]).roi[:2]
+
+
+def test_cases_reach_their_levels():
+    """The level rule at the cases' shapes: the tiny C-UNETR's token level
+    (D 4 at 64^3) is sharded on [2] and whole on [4]; the tiny UNetVanilla's
+    2-plane level is whole on [2] and its 4-plane one on [4], each upsampled
+    into a sharded level; the 2-D swin's stages are sharded down to its
+    4-row level."""
+    def sharded(roi, d, n):
+        line = spatial.Line(None, n, 0, roi, roi)
+        return spatial.sharded_depth(spatial.level_depth(line, d), n)
+
+    assert sharded(64, 4, 2) and not sharded(64, 4, 4)
+    assert not sharded(16, 2, 2) and sharded(16, 4, 2)
+    assert not sharded(16, 4, 4) and sharded(16, 8, 4)
+    assert all(sharded(32, d, 2) for d in (32, 16, 8, 4)) and not sharded(32, 2, 2)
+
+
+@pytest.mark.parametrize("case", JAX_CASES)
+def test_model_step_like_jax(ranks, case):
+    """C-UNETR, UNetVanilla (and its batch-norm recipe) on the line and
+    with "data", and the four families in 2-D: every rank's loss,
+    parameters and applied gradients held to JAX's one-process SGD step
+    on the global batch at the C-UNet's gates (loss rtol 1e-5, params rtol
+    1e-4 / atol 1e-5, gradients within 5e-5 a leaf), the running
+    statistics within 1e-5; the masters bitwise equal on every rank."""
+    want = jax_step(W.CASES[case][0])
+    results = [res[case] for res in _results(ranks, case)]
+    for r, got in enumerate(results):
+        assert got["sp_top"] == _top(case), got["sp_top"]
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+        assert got["params"].keys() == want["params"].keys()
+        for n, p in got["params"].items():
+            np.testing.assert_allclose(p.numpy(), want["params"][n], rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{case} rank {r} {n}")
+        gaps = {n: float((g - torch.as_tensor(want["grads"][n])).abs().max())
+                for n, g in got["grads"].items()}
+        assert gaps.keys() == want["grads"].keys()
+        assert max(gaps.values()) <= ATOL_LEAF, (case, r, max(gaps, key=gaps.get))
+        assert got["buffers"].keys() == want["buffers"].keys()
+        for n, b in got["buffers"].items():
+            np.testing.assert_allclose(b.numpy(), want["buffers"][n], rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{case} rank {r} {n}")
+    assert len({got["digest"] for got in results}) == 1
+    # the gate bites: the gradients are not all near zero
+    assert max(float(torch.as_tensor(g).abs().max()) for g in want["grads"].values()) \
+        > 100 * ATOL_LEAF
+
+
+@pytest.mark.parametrize("case", W.MODEL_CASES)
+def test_model_step_like_one_process(ranks, case):
+    """The same steps, and C-UNETR's with ViT dropout, under
+    `test_step_like_one_process`'s gates: every rank's loss within 1e-5,
+    every applied gradient leaf within 5e-5, the parameters within 1e-6
+    and the running statistics within 1e-6 of the port's one process on
+    the global batch; the masters bitwise equal on every rank."""
+    want = one_process(case)
+    results = [res[case] for res in _results(ranks, case)]
+    for r, got in enumerate(results):
+        assert got["sp_top"] == _top(case), got["sp_top"]
+        assert abs(got["loss"] - want["loss"]) <= 1e-5, (case, r, got["loss"], want["loss"])
+        gaps = {n: float((g - want["grads"][n]).abs().max()) for n, g in got["grads"].items()}
+        assert gaps.keys() == want["grads"].keys()
+        assert max(gaps.values()) <= ATOL_LEAF, (case, r, max(gaps, key=gaps.get))
+        for n, p in got["params"].items():
+            np.testing.assert_allclose(p.numpy(), want["params"][n].numpy(), rtol=0, atol=1e-6,
+                                       err_msg=f"{case} rank {r} {n}")
+        assert got["buffers"].keys() == want["buffers"].keys()
+        for n, b in got["buffers"].items():
+            np.testing.assert_allclose(b.numpy(), want["buffers"][n].numpy(), rtol=1e-5,
+                                       atol=1e-6)
+    assert len({got["digest"] for got in results}) == 1
+    if case == "unetr_dropout_sp2":   # the masks act: the ViT's gradients move past the gate
+        plain = one_process("unetr_sp2")["grads"]
+        assert max(float((g - plain[n]).abs().max()) for n, g in want["grads"].items()
+                   if n.startswith("vit.")) > 10 * ATOL_LEAF
+
+
+def test_swin_2d_forward_like_jax(ranks):
+    """The tiny swin's 2-D twin forward, its input H cut over two ranks: the
+    gathered logits on every rank within rtol 1e-4 / atol 1e-4 of JAX's."""
+    want = jax_swin_forward("swin_2d")
+    for res in ranks["sp2"]:
+        assert res["forward_2d"].shape == want.shape
+        np.testing.assert_allclose(res["forward_2d"].numpy(), want, rtol=1e-4, atol=1e-4)
+
+
 # ------------------------------------------------------------ SP + FSDP
 
 def _sp_fsdp_results(ranks, case: str) -> list:
@@ -618,8 +759,23 @@ def test_evaluate_like_one_process(ranks, suite):
                                   "unetr", "unet_vanilla", "2d", "axis_without_flag",
                                   "flag_on_data"])
 def test_out_of_scope_raises(ranks, name):
+    """SP beside tensor or pipeline parallelism raises naming ROADMAP M11,
+    and so does the spatial axis without `spatial_shard`; C-UNETR,
+    UNetVanilla and 2-D, which SP once refused, build on the line and step
+    as one process does (loss within 1e-5, every gradient leaf within
+    5e-5, from the port's own init)."""
     for res in ranks["sp2"]:
-        said = res["refusals"][name]
+        said = res["refusals"]["said"][name]
+        if name in W.STEPPED:
+            assert said is None, said
+            got, want = res["refusals"]["stepped"][name], refusal_one_process(name)
+            assert got["sp_top"] == (16, 16), got["sp_top"]
+            assert abs(got["loss"] - want["loss"]) <= 1e-5, (name, got["loss"], want["loss"])
+            gaps = {n: float((g - want["grads"][n]).abs().max())
+                    for n, g in got["grads"].items()}
+            assert gaps.keys() == want["grads"].keys()
+            assert max(gaps.values()) <= ATOL_LEAF, (name, max(gaps, key=gaps.get))
+            continue
         if name == "flag_on_data":   # no spatial line of more than one rank: the field is taken
             assert said is None
             continue
