@@ -238,7 +238,18 @@ Phases, one result line each; any failed check exits non-zero:
                the stage's blocks once a microbatch, the last stage's
                decoder once), counted and by name in a profiled step, with
                each rank's step ms, device busy time and peak memory; (c)
-               C-UNETR at full width the same way on `[1, 2]`.
+               C-UNETR at full width the same way on `[1, 2]`; beside FSDP
+               and tensor parallelism (`PP_MESH_CASES`, in the `[1, 4]`
+               leg's four ranks): (d) one f32 step of C-UNETR at its own
+               width, 64^3 (`PP_UNETR_SMALL`, (c)'s f32 model), on
+               ("data", "pp") `[2, 2]` with FSDP on "data", of the fs 24
+               swin on `[1, 4]` with FSDP on "pp" and of C-UNETR on
+               ("data", "model", "pp") `[1, 2, 2]` with TP + FSDP on
+               "model", each held as (a), the masters bitwise equal over
+               every rank; (e) the flagship in bf16 on `[1, 4]`
+               with FSDP on "pp": `PP_FSDP_STEPS` steps held as (b), with
+               each rank's masters plus moments, step ms, device busy and
+               peak beside PP alone's.
  16. spatial — spatial partitioning (`parallel/spatial.py`): (a) K4's
                D-halo mode at the flagship's sharded slabs (`SP_CONVS`:
                96^3 at sp [2] and [4] on the brick kernel, 24^3 on the
@@ -280,10 +291,12 @@ rows at the search space's shapes; K2's row times its leaky-relu
 mode, and its field `no_add_no_activation` the UNets' mode beside
 `torch.addcmul`; the 2-D launches and rows, K5's at N = 49; the
 launches of a data-parallel step, of a rank's fanned-out volume, of an
-FSDP step, of each stage of a pipeline step and of a spatially
-partitioned step, without and with FSDP; and rows of their own
-for the spatial modes, K4 halo, K1 moments and K1 fold moments), the
-card line, and the ok line last.
+FSDP step, of each stage of a pipeline step (without and with FSDP on
+its line) and of a spatially partitioned step, without and with FSDP;
+and rows of their own for the spatial modes, K4 halo, K1 moments and K1
+fold moments), the seconds of each phase, the card line, and the ok line
+last.  The kernels' build runs beside the writing of the later phases'
+synthetic data sets and scans (`prepare_inputs`).
 """
 
 from __future__ import annotations
@@ -298,6 +311,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -468,6 +482,10 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
     return statistics.median(times)
 
 
+MARK_CYCLES = 2_000_000   # ~1 ms of spin at the H100's clocks; the others spin 1000
+MARK_US = 100.0
+
+
 def profiled(run, ok, attempts: int = 3, lead=None, cpu: bool = True) -> list:
     """The device events torch.profiler records while `run()` runs, from the
     first of `attempts` sessions whose events satisfy `ok(events)`, else
@@ -475,12 +493,14 @@ def profiled(run, ok, attempts: int = 3, lead=None, cpu: bool = True) -> list:
     session starts (and now and then a whole session's), so each session
     first runs ATen's `spin_kernel` (`torch.cuda._sleep`) and waits 5 ms
     on the host; with `lead`, it then runs `lead()` (a call like `run`'s,
-    whose kernels take any such loss) and a second spin kernel, and only
-    the events that start after that spin are `run()`'s.  A last spin
-    kernel follows `run()`, so no kernel of its is the session's last.
-    Spin kernels are
-    left out of the events; a kernel that launches wrongly fails every
-    session.  Device-side user annotations (the optimizer's
+    whose kernels take any such loss) and a second spin kernel, ~1 ms long
+    (`MARK_CYCLES`, told apart from the others by its length), and only
+    the events that start after that spin are `run()`'s; a session that
+    lost that spin counts as one that failed `ok` (a session that lost
+    the last spin once counted `lead()`'s kernels as `run()`'s).  A last
+    spin kernel follows `run()`, so no kernel of its is the session's
+    last.  Spin kernels are left out of the events; a kernel that
+    launches wrongly fails every session.  Device-side user annotations (the optimizer's
     `Optimizer.step` range) are left out too: they span kernels that are
     counted on their own.  `cpu=False` records the device's activity
     alone: a multi-rank step's tens of thousands of host ops take seconds
@@ -496,7 +516,7 @@ def profiled(run, ok, attempts: int = 3, lead=None, cpu: bool = True) -> list:
             time.sleep(0.005)
             if lead is not None:
                 lead()
-                torch.cuda._sleep(1000)
+                torch.cuda._sleep(MARK_CYCLES)
                 torch.cuda.synchronize()
             run()
             torch.cuda.synchronize()
@@ -504,12 +524,13 @@ def profiled(run, ok, attempts: int = 3, lead=None, cpu: bool = True) -> list:
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)]
-        # the spins: the first, the one after `lead()`, the last after `run()`
-        spins = sorted(e.time_range.start for e in events if "spin_kernel" in e.name)
-        after = spins[-2] if lead is not None and len(spins) >= 2 else float("-inf")
+        # the long spin after `lead()`: run()'s kernels start after it
+        marks = [e.time_range.start for e in events if "spin_kernel" in e.name
+                 and e.time_range.elapsed_us() > MARK_US]
+        after = max(marks) if lead is not None and marks else float("-inf")
         events = [e for e in events
                   if "spin_kernel" not in e.name and e.time_range.start > after]
-        if ok(events):
+        if ok(events) and (lead is None or marks):
             break
     return events
 
@@ -584,6 +605,72 @@ def mode_counts() -> dict:
             "K4 halo": fc.halo_launches}
 
 
+# the synthetic CT + MR sets of the fits and the study (2 / 1 / 1 volumes a
+# modality of `FIT_SHAPE` at 1 mm, seed 9; 6 classes, and UNetVanilla's 8)
+# and the HTTP phase's two scans: CPU-only inputs of later phases, written
+# in a thread while nvcc builds the kernels (`prepare_inputs`)
+FIT_SHAPE = (192, 192, 160)
+_PREPARED: dict = {}
+
+
+def prepare_inputs() -> None:
+    """Start writing the later phases' CPU-only inputs in a thread, into a
+    temporary directory that lives until the process ends; `fit_data` and
+    `http_scans` wait for them."""
+    from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+
+    def write():
+        try:
+            t0 = time.perf_counter()
+            for classes in (6, 8):
+                make_synthetic_dataset(root / f"data{classes}", shape=FIT_SHAPE,
+                                       num_classes=classes, n_train=2, n_val=1, n_test=1,
+                                       spacing=(1.0, 1.0, 1.0), seed=9, suffix=".nii")
+            (root / "scans").mkdir()
+            _PREPARED["scans"] = synthetic_scans(root / "scans")
+            _PREPARED["seconds"] = time.perf_counter() - t0
+        except BaseException as e:   # raised where the inputs are asked for
+            _PREPARED["error"] = e
+
+    _PREPARED.update(tmp=tmp, root=root, thread=threading.Thread(target=write, daemon=True))
+    _PREPARED["thread"].start()
+
+
+def _prepared() -> Path | None:
+    """The directory `prepare_inputs` wrote, once it is done (None when it
+    never started); its error, re-raised."""
+    if "thread" not in _PREPARED:
+        return None
+    _PREPARED["thread"].join()
+    if "error" in _PREPARED:
+        raise RuntimeError("writing the prepared inputs failed") from _PREPARED["error"]
+    return _PREPARED["root"]
+
+
+def fit_data(tmp, shape, classes: int) -> Path:
+    """The fits' synthetic CT + MR set of `shape` with `classes` classes:
+    the one `prepare_inputs` wrote where it matches (every phase only
+    reads it), else written under `tmp` now."""
+    from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    root = _prepared() if tuple(shape) == FIT_SHAPE and classes in (6, 8) else None
+    if root is not None:
+        return root / f"data{classes}"
+    root = Path(tmp) / "data"
+    make_synthetic_dataset(root, shape=shape, num_classes=classes, n_train=2, n_val=1,
+                           n_test=1, spacing=(1.0, 1.0, 1.0), seed=9, suffix=".nii")
+    return root
+
+
+def http_scans(root: Path) -> list[dict]:
+    """`synthetic_scans`: the ones `prepare_inputs` wrote, else written
+    under `root` now."""
+    return _PREPARED["scans"] if _prepared() is not None else synthetic_scans(root)
+
+
 def phase_device():
     from miseg_tpu_torch.ops.kernels import build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -608,13 +695,17 @@ def check_tensor_cores(build) -> None:
     Cin = 1 kernels holds tensor-core instructions (HMMA/HGMMA) in the
     built SASS."""
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
-    for source, kernel in (("window_attention", "miseg_k5_attn_mma"),
-                           ("fused_conv", "miseg_k4_conv_brick"),
-                           ("fused_conv", "miseg_k4_conv_coarse"),
-                           ("fused_conv", "miseg_k4_conv_cin1")):
-        sass = subprocess.run([str(tool), "-sass", str(build.library_path(source))],
-                              capture_output=True, text=True, timeout=120,
-                              check=True).stdout
+    kernels = (("window_attention", "miseg_k5_attn_mma"), ("fused_conv", "miseg_k4_conv_brick"),
+               ("fused_conv", "miseg_k4_conv_coarse"), ("fused_conv", "miseg_k4_conv_cin1"))
+    # each library's SASS dumped once, both at once
+    dumps = {source: subprocess.Popen([str(tool), "-sass", str(build.library_path(source))],
+                                      stdout=subprocess.PIPE, text=True)
+             for source in dict(kernels)}
+    sasses = {source: p.communicate(timeout=120)[0] for source, p in dumps.items()}
+    check(all(p.returncode == 0 for p in dumps.values()),
+          f"cuobjdump exited {[p.returncode for p in dumps.values()]}")
+    for source, kernel in kernels:
+        sass = sasses[source]
         counts, current = {}, None
         for line in sass.splitlines():
             if "Function : " in line:
@@ -1857,7 +1948,7 @@ def phase_serve_http(dev, card: str) -> dict:
     tmp = tempfile.TemporaryDirectory()
     root = Path(tmp.name)
     t0 = time.perf_counter()
-    scans = synthetic_scans(root)
+    scans = http_scans(root)
     write_s = time.perf_counter() - t0
     # the CT's preprocessed shape gets a volume program
     chain = _eval_chain({"spacing": list(cfg.spacing), "roi": list(cfg.roi)})
@@ -2513,17 +2604,14 @@ def phase_fit(dev, card: str, shape=(192, 192, 160), small: int = 64) -> dict:
     from miseg_tpu_torch.cli import test as cli_test
     from miseg_tpu_torch.cli import train as cli_train
     from miseg_tpu_torch.config import Config
-    from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
     from miseg_tpu_torch.train import schedules
     from miseg_tpu_torch.train.checkpoint import load_checkpoint
     from miseg_tpu_torch.train.optim import current_learning_rate
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp) / "data"
         t0 = time.perf_counter()
-        make_synthetic_dataset(root, shape=shape, num_classes=6, n_train=2, n_val=1,
-                               n_test=1, spacing=(1.0, 1.0, 1.0), seed=9, suffix=".nii")
+        root = fit_data(tmp, shape, 6)
         data_s = time.perf_counter() - t0
         cfg = Config(**{**FLAGSHIP, "data_dirs": [str(root)] * 2,
                         "json_lists": ["CT.json", "MR.json"], "max_epochs": 3,
@@ -2777,13 +2865,10 @@ def unetr_fit(dev, card: str, shape=(192, 192, 160)) -> dict:
     from miseg_tpu_torch.cli import test as cli_test
     from miseg_tpu_torch.cli import train as cli_train
     from miseg_tpu_torch.config import Config
-    from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
     from miseg_tpu_torch.train.checkpoint import load_checkpoint
 
     with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp) / "data"
-        make_synthetic_dataset(root, shape=shape, num_classes=6, n_train=2, n_val=1,
-                               n_test=1, spacing=(1.0, 1.0, 1.0), seed=9, suffix=".nii")
+        root = fit_data(tmp, shape, 6)
         cfg = Config(**{**UNETR, "data_dirs": [str(root)] * 2,
                         "json_lists": ["CT.json", "MR.json"], "max_epochs": 2,
                         "check_val_every_n_epoch": 1, "scheduler": "warmup_cosine",
@@ -3083,14 +3168,11 @@ def unet_fit(dev, card: str, shape=(192, 192, 160)) -> dict:
     from miseg_tpu_torch.cli import train as cli_train
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.data.nifti import load_nifti
-    from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
     from miseg_tpu_torch.train.checkpoint import load_checkpoint
 
     per = VANILLA_PER_WINDOW
     with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp) / "data"
-        make_synthetic_dataset(root, shape=shape, num_classes=8, n_train=2, n_val=1,
-                               n_test=1, spacing=(1.0, 1.0, 1.0), seed=9, suffix=".nii")
+        root = fit_data(tmp, shape, 8)
         cfg = Config(**{**VANILLA, "data_dirs": [str(root)] * 2,
                         "json_lists": ["CT.json", "MR.json"], "max_epochs": 2,
                         "check_val_every_n_epoch": 1, "scheduler": "warmup_cosine",
@@ -3569,13 +3651,10 @@ def phase_finetune(dev, card: str, shape=(192, 192, 160)) -> dict:
     (5) `reference_ckpt_test`, (6) `host_stitching`, (7)
     `batch_size_tuner`, (8) `lr_sweep`.  Returns the fit's launches."""
     from miseg_tpu_torch.config import Config
-    from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp) / "data"
-        make_synthetic_dataset(root, shape=shape, num_classes=6, n_train=2, n_val=1,
-                               n_test=1, spacing=(1.0, 1.0, 1.0), seed=9, suffix=".nii")
+        root = fit_data(tmp, shape, 6)
         swin_path = Path(tmp) / "model_swinvit.pt"
         want = monai_swin_vit_file(swin_path, Config(**FINETUNE), seed=13)
         fit = finetune_fit(dev, card, root, swin_path, want)
@@ -3778,7 +3857,6 @@ def tune_study(dev, card: str, shape=(192, 192, 160)) -> dict:
     from miseg_tpu_torch import hpo
     from miseg_tpu_torch.cli import dashboard
     from miseg_tpu_torch.cli import tune
-    from miseg_tpu_torch.data.synthetic import make_synthetic_dataset
     from miseg_tpu_torch.models import model_from_config
     from miseg_tpu_torch.train import engine
 
@@ -3809,9 +3887,7 @@ def tune_study(dev, card: str, shape=(192, 192, 160)) -> dict:
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp) / "data"
-        make_synthetic_dataset(root, shape=shape, num_classes=6, n_train=2, n_val=1,
-                               n_test=1, spacing=(1.0, 1.0, 1.0), seed=9, suffix=".nii")
+        root = fit_data(tmp, shape, 6)
         cfg = search_cfg(48, 3, data_dirs=[str(root)] * 2, json_lists=["CT.json", "MR.json"],
                          max_epochs=4, check_val_every_n_epoch=1, scheduler="warmup_cosine",
                          batch_size=1, patches_training_sample=1, num_workers=2, cache_num=8,
@@ -4138,6 +4214,19 @@ PP_UNETR = {**PP_SWIN, "mesh_shape": [1, 2]}
 PP_UNETR_SMALL = {**UNETR, "roi_x": 64, "roi_y": 64, "roi_z": 64, "no_amp": True}
 # (world, mesh fields, the f32 model, the full-width bf16 model) of each leg
 PP_LEGS = {"pp4": (4, PP_SWIN, MESH_SMALL, FLAGSHIP), "pp2": (2, PP_UNETR, PP_UNETR_SMALL, UNETR)}
+# GPipe beside FSDP and tensor parallelism, in the "pp4" leg's ranks: (d)
+# one f32 step of each case (its mesh fields, its f32 model: the flagship's
+# model at fs 24, or C-UNETR at its own width); (e) the flagship in bf16 on
+# [1, 4] with FSDP on the pipeline line, `PP_FSDP_STEPS` steps
+PP_MESH_CASES = {
+    "pp + fsdp on data [2, 2]": ({**PP_UNETR, "mesh_shape": [2, 2], "pp_microbatches": 1,
+                                  "fsdp": True}, PP_UNETR_SMALL),
+    "pp + fsdp on pp [1, 4]": ({**PP_SWIN, "fsdp": True, "fsdp_axis": "pp"}, MESH_SMALL),
+    "pp x tp + fsdp [1, 2, 2]": ({**PP_UNETR, "mesh_shape": [1, 2, 2],
+                                  "mesh_axes": ["data", "model", "pp"], "tensor_parallel": True,
+                                  "fsdp": True, "fsdp_axis": "model"}, PP_UNETR_SMALL)}
+PP_FSDP = {**PP_SWIN, "fsdp": True, "fsdp_axis": "pp"}
+PP_FSDP_STEPS = 2
 # a microbatch through one flagship swin stage (depth 2): two blocks of two
 # norms (one K1 run and one K2 launch each) and one K5, and patch merging's
 # norm; through one C-UNETR ViT block: two norms
@@ -4170,22 +4259,39 @@ def _digest(tensors: dict) -> str:
 
 def pp_rank(dev, leg: str) -> dict:
     """A rank of `phase_pipeline`'s `leg`: (a) one f32 step of the leg's
-    small model; (b) `MESH_STEPS` bf16 steps of its full-width model,
-    launches counted from 0 before the first and read after the last, then
-    one profiled step (every rank profiles one lead and one step: each step
-    holds collectives).  Rank 0 keeps the whole records, every rank the
-    digests of its masters."""
+    small model, and in "pp4" (d) one of each of `PP_MESH_CASES`; (b)
+    `MESH_STEPS` bf16 steps of its full-width model, launches counted from
+    0 before the first and read after the last, then one profiled step
+    (every rank profiles one lead and one step: each step holds
+    collectives), and in "pp4" (e) `pp_fsdp_steps`.  Rank 0 keeps the
+    whole records, every rank the digests of its masters; each part's
+    seconds."""
     from miseg_tpu_torch import parallel
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.train.engine import Trainer
 
     _, par, small, big = PP_LEGS[leg]
-    out = {}
+    writer = parallel.is_writer()
+    out = {"mesh": {}, "seconds": {}}
+    t0 = time.perf_counter()
     trainer = Trainer(Config(**small, **par), device=dev)
     state, loss = trainer.train_step(trainer.init_state(), _mesh_batch(dev, small))
     out["small"] = _mesh_record(trainer, state, loss)
     out["small_digest"] = _digest(out["small"]["params"])
     del trainer, state
+    for name, (mesh_par, model) in (PP_MESH_CASES.items() if leg == "pp4" else ()):
+        trainer = Trainer(Config(**model, **mesh_par), device=dev)
+        state, loss = trainer.train_step(trainer.init_state(),
+                                         _share(_mesh_batch(dev, model)))
+        rec = _mesh_record(trainer, state, loss)
+        rec["digest"] = _digest(rec["params"])
+        rec["line"] = trainer.mesh.line(trainer.cfg.pp_axis)
+        if not writer:   # the whole tensors once, from rank 0
+            rec["params"] = rec["grads"] = None
+        out["mesh"][name] = rec
+        del trainer, state
+    out["seconds"]["f32"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     trainer = Trainer(Config(**big, **par), device=dev)
     state = trainer.init_state()
     batch = _mesh_batch(dev, big)
@@ -4206,10 +4312,46 @@ def pp_rank(dev, leg: str) -> dict:
     rec["busy_ms"] = sum(e.time_range.elapsed_us() for e in events) / 1e3
     rec["stage"] = trainer.mesh.index("pp")
     out["big"] = rec
-    if not parallel.is_writer():   # the whole tensors once, from rank 0
-        for r in (out["small"], rec):
+    del trainer, state, events
+    out["seconds"]["bf16"] = time.perf_counter() - t0
+    if leg == "pp4":
+        t0 = time.perf_counter()
+        out["fsdp"] = pp_fsdp_steps(dev, big, batch)
+        out["seconds"]["bf16 fsdp"] = time.perf_counter() - t0
+    if not writer:   # the whole tensors once, from rank 0
+        for r in (out["small"], rec, out.get("fsdp", {})):
             r["params"] = r["grads"] = None
     return out
+
+
+def pp_fsdp_steps(dev, big: dict, batch: dict) -> dict:
+    """(e) of `PP_MESH_CASES`: `PP_FSDP_STEPS` bf16 steps of the full-width
+    `big` on [1, 4] with FSDP on the pipeline line, as `pp_rank`'s (b):
+    launches counted from 0 before the first and read after the last, the
+    peak from the first step on, one profiled step; the masters' digest
+    after the first step and the last (gathered whole: every rank calls)."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.train.engine import Trainer
+
+    trainer = Trainer(Config(**big, **PP_FSDP), device=dev)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, loss = trainer.train_step(state, batch)
+    rec = _mesh_record(trainer, state, loss)
+    losses, rec["ms"] = _stepped(trainer, state, batch, PP_FSDP_STEPS - 1)
+    rec["launch_totals"] = launch_counts()
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    rec["losses"] = [rec["loss"], *losses]
+    rec["digest"] = _digest(rec["params"])
+    rec["final_digest"] = _digest(trainer.state_dict(state))
+    events = profiled(lambda: trainer.train_step(state, batch), lambda ev: True, attempts=1,
+                      lead=lambda: trainer.train_step(state, batch))
+    rec["profiled"] = replay_counts(events)
+    rec["busy_ms"] = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    rec["stage"] = trainer.mesh.index("pp")
+    return rec
 
 
 def _spawn_ranks(leg: str, world: int, root: Path) -> list[str]:
@@ -4723,9 +4865,11 @@ def phase_pipeline(dev, card: str) -> dict:
     rank's masters bitwise equal after the first step and the last, each
     rank's launches its stage's `pp_launches`, counted and by name in a
     profiled step; each rank's step ms, device busy time and peak memory
-    printed beside this process's.  Both legs' ranks run at once, beside
-    this process's references, so every time here is of a shared card.
-    Returns each leg's launches a step by stage."""
+    printed beside this process's.  The "pp4" ranks also run
+    `PP_MESH_CASES` (`pp_beside_modes`).  Both legs' ranks run at once,
+    beside this process's references, so every time here is of a shared
+    card.  Returns each leg's launches a step by stage ("pp4 fsdp": the
+    flagship with FSDP on its line)."""
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.train.engine import Trainer
 
@@ -4798,12 +4942,81 @@ def phase_pipeline(dev, card: str) -> dict:
               f"the ranks): step ms {[round(v, 2) for v in one_ms]}, peak memory "
               f"{gib(one_peak)}")
         launches[leg] = want_launches
+        print(f"  pipeline {name}: rank 0's seconds by part "
+              f"{ {k: round(v, 1) for k, v in lead['seconds'].items()} }")
+        if leg == "pp4":
+            launches["pp4 fsdp"] = pp_beside_modes(ranks, refs, want_launches, card)
     tmp.cleanup()
-    print(f"pipeline: the flagship's swin stages on [1, 4] and C-UNETR's ViT on [1, 2] step "
-          f"as one process on the batch, every kernel on its stage (both legs' {sum(
-              w for w, *_ in PP_LEGS.values())} ranks at once beside this process's "
-          f"references, {t_ranks:.1f} s; phase {time.perf_counter() - t0:.1f} s)")
+    print(f"pipeline: the flagship's swin stages on [1, 4] (alone and with FSDP on 'pp') and "
+          f"C-UNETR's ViT on [1, 2] step as one process on the batch, every kernel on its "
+          f"stage, and beside FSDP and TP (all legs' {sum(w for w, *_ in PP_LEGS.values())} "
+          f"ranks at once beside this process's references, {t_ranks:.1f} s; phase "
+          f"{time.perf_counter() - t0:.1f} s)")
     return launches
+
+
+def pp_beside_modes(ranks: list, refs: dict, want_launches: list, card: str) -> list:
+    """`phase_pipeline`'s checks of `PP_MESH_CASES` in the "pp4" ranks: (d)
+    each f32 step against this process's (`check_ddp_step`, rank 0's
+    gathered record), every rank's loss equal and the masters bitwise
+    equal over every rank (a "model" line's copies averaged as "data");
+    (e) the flagship on [1, 4] with FSDP on "pp": the losses of
+    `PP_FSDP_STEPS` steps within 1e-3 relative of one process's, the
+    parameters after the first within W5, every rank's masters bitwise
+    equal, each rank's launches its stage's, counted and by name, and its
+    masters plus moments under half PP alone's.  Returns (e)'s launches a
+    step by stage."""
+    for name, (_, model) in PP_MESH_CASES.items():
+        want = refs["pp4" if model is MESH_SMALL else "pp2"][0]
+        recs = [r["mesh"][name] for r in ranks]
+        gaps = check_ddp_step(recs[0], want, f"pipeline {name} (d)")
+        check(all(r["loss"] == recs[0]["loss"] for r in recs),
+              f"pipeline {name} (d): the ranks' losses differ")
+        digests = [r["digest"] for r in recs]
+        check(len(set(digests)) == 1,
+              f"pipeline {name} (d): the ranks' masters differ (by rank, pipeline lines "
+              f"{sorted({tuple(r['line']) for r in recs})}): {[d[:8] for d in digests]}")
+        print(f"  pipeline (d) {name}, {model['model_name']} f32 {model['roi_x']}^3 on "
+              f"'{card}', batch 2, placed {recs[0]['placed']}: loss |diff| {gaps['loss']:.2e}, "
+              f"gradient gap summed {gaps['summed']:.3e} (worst {gaps['worst']} "
+              f"{gaps['worst_gap']:.2e}), parameters within W5 (excess "
+              f"{gaps['w5_excess']:.2e}); masters bitwise equal over every rank; masters + "
+              f"moments a rank "
+              f"{gib(recs[0]['state_bytes'])} vs one process {gib(want['state_bytes'])}")
+    _, one, one_losses, _, _ = refs["pp4"]
+    got = ranks[0]["fsdp"]
+    gap = max(abs(x - y) / (1 + abs(y)) for x, y in zip(got["losses"], one_losses))
+    check(gap <= 1e-3, f"pipeline + fsdp: losses {got['losses']} vs {one_losses}")
+    excess = _w5_excess(got["params"], one["params"])
+    check(excess <= 0.0, f"pipeline + fsdp: parameters exceed W5 by {excess:.3e}")
+    check(all(r["fsdp"]["losses"] == got["losses"] and r["fsdp"]["digest"] == got["digest"]
+              and r["fsdp"]["final_digest"] == got["final_digest"] for r in ranks),
+          "pipeline + fsdp: the ranks' losses or masters differ")
+    for r, res in enumerate(ranks):
+        rec, alone, stage = res["fsdp"], res["big"], res["fsdp"]["stage"]
+        totals = {k: PP_FSDP_STEPS * v for k, v in want_launches[stage].items()}
+        check(stage == r and rec["launch_totals"] == totals
+              and rec["profiled"] == want_launches[stage],
+              f"pipeline + fsdp rank {r} (stage {stage}): {PP_FSDP_STEPS} steps launched "
+              f"{rec['launch_totals']}, the profiled step {rec['profiled']}; want {totals} "
+              f"and {want_launches[stage]}")
+        check(rec["placed"]["fsdp"] > 0 and rec["state_bytes"] < 0.5 * alone["state_bytes"],
+              f"pipeline + fsdp rank {r}: {rec['placed']} placed, {rec['state_bytes']} bytes "
+              f"against PP alone's {alone['state_bytes']}")
+        print(f"  pipeline (e) flagship bf16 [1, 4] + FSDP on 'pp' rank {r} (stage {stage}) on "
+              f"'{card}': launches a step {want_launches[stage]} (counted and by name); "
+              f"masters + moments {rec['state_bytes']} bytes ({gib(rec['state_bytes'])}, "
+              f"{rec['state_bytes'] / alone['state_bytes']:.1%} of PP alone's "
+              f"{gib(alone['state_bytes'])}); step ms by events after the first "
+              f"{[round(v, 2) for v in rec['ms']]} (PP alone {[round(v, 2) for v in alone['ms']]}"
+              f"), device busy {rec['busy_ms']:.2f} ms (PP alone {alone['busy_ms']:.2f}), peak "
+              f"memory {gib(rec['peak'])} (PP alone {gib(alone['peak'])})")
+    print(f"  pipeline (e) flagship + FSDP on 'pp': losses {[round(v, 6) for v in got['losses']]}"
+          f" vs one process {[round(v, 6) for v in one_losses[:PP_FSDP_STEPS]]} (max relative "
+          f"gap {gap:.2e}); parameters after the first step within W5 (excess {excess:.2e}); "
+          f"every rank's masters bitwise equal; {got['placed_elements']} of "
+          f"{got['elements']} parameters sharded")
+    return want_launches
 
 
 # ---- spatial partitioning (phase_spatial) ----------------------------------
@@ -5407,25 +5620,37 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    card = phase_device()
+    seconds: dict[str, float] = {}
+
+    def timed(name: str, phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    prepare_inputs()   # beside the kernels' build: CPU work of later phases
+    card = timed("device", phase_device)
     mem_bw, bf16_flops, peak_name = card_peaks(card)
     print(f"  bounds use {peak_name} peaks: {mem_bw / 1e12:.2f} TB/s, "
           f"{bf16_flops / 1e12:.0f} TFLOP/s bf16")
-    rows = phase_kernels(dev, mem_bw, bf16_flops)
-    phase_model(dev)
-    launches, replay224 = phase_serve(dev)
-    http_launches = phase_serve_http(dev, card)
-    train = phase_train(dev, card)
-    fit = phase_fit(dev, card)
-    unetr = phase_unetr(dev, card, mem_bw, bf16_flops)
-    unet = phase_unet(dev, card, mem_bw)
-    finetune = phase_finetune(dev, card)
-    tune = phase_tune(dev, card, mem_bw, bf16_flops)
-    two_d = phase_two_d(dev, card, mem_bw, bf16_flops)
-    ddp = phase_ddp(dev, card)
-    mesh = phase_mesh(dev, card)
-    pipeline = phase_pipeline(dev, card)
-    spatial = phase_spatial(dev, card, mem_bw, bf16_flops)
+    rows = timed("kernels", phase_kernels, dev, mem_bw, bf16_flops)
+    timed("model", phase_model, dev)
+    launches, replay224 = timed("serve", phase_serve, dev)
+    http_launches = timed("serve_http", phase_serve_http, dev, card)
+    train = timed("train", phase_train, dev, card)
+    fit = timed("fit", phase_fit, dev, card)
+    unetr = timed("unetr", phase_unetr, dev, card, mem_bw, bf16_flops)
+    unet = timed("unet", phase_unet, dev, card, mem_bw)
+    finetune = timed("finetune", phase_finetune, dev, card)
+    tune = timed("tune", phase_tune, dev, card, mem_bw, bf16_flops)
+    two_d = timed("two_d", phase_two_d, dev, card, mem_bw, bf16_flops)
+    ddp = timed("ddp", phase_ddp, dev, card)
+    mesh = timed("mesh", phase_mesh, dev, card)
+    pipeline = timed("pipeline", phase_pipeline, dev, card)
+    spatial = timed("spatial", phase_spatial, dev, card, mem_bw, bf16_flops)
+    _prepared()
+    print(f"phase seconds: {json.dumps(seconds)}; the fits' data sets and the HTTP scans "
+          f"written in {_PREPARED['seconds']:.1f} s beside the kernels' build")
     meta = {
         "K1": ("fused_norm.channel_scale_shift", "cuda",
                "miseg_tpu_torch/ops/kernels/csrc/fused_norm.cu",
@@ -5496,7 +5721,8 @@ def main() -> int:
         check(spatial["launches"][key] > 0,
               f"{key} was never launched in the spatially partitioned step")
         on_pp = {leg: sum(stage[key] for stage in by_stage) for leg, by_stage in pipeline.items()}
-        check(on_pp["pp4"] > 0 and (on_pp["pp2"] > 0) == (UNETR_PER_WINDOW[key] > 0),
+        check(on_pp["pp4"] > 0 and on_pp["pp4 fsdp"] > 0
+              and (on_pp["pp2"] > 0) == (UNETR_PER_WINDOW[key] > 0),
               f"{key}: the pipeline steps' stages launched it {on_pp} times")
         search = {"launches_study": tune["study"][key]}
         if key in tune["rows"]:
@@ -5539,6 +5765,8 @@ def main() -> int:
                         "mesh": {"launches_per_fsdp_step": mesh[key]},
                         "pipeline": {"swin_1x4_launches_per_step_by_stage":
                                          [stage[key] for stage in pipeline["pp4"]],
+                                     "swin_1x4_fsdp_pp_launches_per_step_by_stage":
+                                         [stage[key] for stage in pipeline["pp4 fsdp"]],
                                      "unetr_1x2_launches_per_step_by_stage":
                                          [stage[key] for stage in pipeline["pp2"]]},
                         "spatial": {"launches_per_sp2_step": spatial["launches"][key],

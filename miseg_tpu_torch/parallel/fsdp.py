@@ -9,24 +9,27 @@ the bridge's permutation (`weights.flax_dims`): a leaf of fewer than
 divisible by the axis size shards, the last one on a tie.  So the port
 shards the same leaves as JAX, on the counterpart dims.
 
-How a step runs (`placements`, `full_weights`, the Trainer):
+How a step runs (`placements`, `gather_for_step`, the Trainer):
   * each rank holds its f32 shard of a sharded leaf as the master; the
     optimizer (AdamW, elementwise) and `Accumulation` run on the shards,
     so the moments follow the parameters;
-  * the forward casts the shards to the compute dtype and all-gathers
-    them over the FSDP axis' line, once a step, in one collective
-    (`_GatherShards`);
-  * its backward hands each shard the gradient of the global batch's
-    mean loss: where the FSDP axis is "data" (its ranks hold different
-    batches) a reduce-scatter of the f32 gradients with the mean; where
-    it is another axis whose ranks share a batch, so they hold one
-    gradient, the rank's slice; where it is the spatial line of a
-    partitioned patch (`spatial.py`, D7: each rank holds its slab's part
-    of every gradient) a reduce-scatter with the sum.  The last two are
-    averaged over "data" afterwards with the replicated leaves; beside a
-    partitioned patch, a leaf sharded on "data" is then summed over the
-    spatial line (`Trainer._reduce_grads`).  Identical copies are never
-    summed, and no part is left out;
+  * the step casts the shards to the compute dtype and all-gathers them
+    over the FSDP axis' line, once a step, in one collective a line,
+    outside the autograd graph, into leaves whose gradients are summed in
+    f32 as the backward lands (in one call, or in the pipeline schedule's
+    many, a different number on each stage);
+  * after the backward one reduce-scatter a line hands each shard the
+    gradient of the global batch's mean loss: where the FSDP axis is
+    "data" (its ranks hold different batches) with the mean; where it is
+    another axis whose ranks share a batch, so they hold one gradient,
+    the rank's slice; where it is the spatial line of a partitioned patch
+    (`spatial.py`, D7: each rank holds its slab's part of every gradient)
+    or the pipeline line (each stage its part) with the sum.  The rest of
+    the leaf's axes follow the replicated leaves' rule afterwards
+    (`Trainer._reduce_grads`, D11: a leaf sharded on "data" is summed
+    over the pipeline or spatial line, averaged over a line of copies;
+    the others averaged over "data").  No part is left out or counted
+    twice;
   * evaluation and checkpoints gather whole tensors (`gather_full`),
     and loading a whole tensor keeps the rank's slice (`Placement.shard`),
     so a checkpoint is one process's, whatever the mesh.
@@ -39,6 +42,7 @@ stacked shards of which each rank keeps its own.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections.abc import Mapping, Sequence
 
 import numpy as np
@@ -143,46 +147,35 @@ def _join(rows: torch.Tensor, shards: Sequence[torch.Tensor],
     return out
 
 
-class _GatherShards(torch.autograd.Function):
-    """The whole leaves, in `dtype`, from this rank's f32 shards of the
-    leaves FSDP places on one line (`pls`), in one all-gather.  Backward:
-    the f32 gradient of each whole leaf, split into the line's pieces;
-    `reduce` "mean" (the line is "data") or "sum" (the line's ranks hold
-    parts of one gradient) reduce-scatters them so, None (they hold one
-    gradient) takes this rank's piece."""
-
-    @staticmethod
-    def forward(ctx, pls, dtype, reduce, *shards):
-        ctx.pls, ctx.reduce, ctx.device = pls, reduce, shards[0].device
-        ctx.meta = [(s.shape, s.dtype) for s in shards]
-        flat = torch.cat([s.detach().to(dtype).reshape(-1) for s in shards])
-        return tuple(_join(_all_gather_rows(flat, pls[0]), shards, pls))
-
-    @staticmethod
-    def backward(ctx, *grads):
-        pl = ctx.pls[0]
-        rows = []
-        for g, (shape, _), p in zip(grads, ctx.meta, ctx.pls):
-            if g is None:
-                rows.append(torch.zeros((p.size, shape.numel()), device=ctx.device))
-            else:
-                rows.append(torch.stack(g.float().chunk(p.size, dim=p.dim)).reshape(p.size, -1))
-        buf = torch.cat(rows, dim=1)                      # [size, sum of shard numels]
-        if ctx.reduce is not None:
-            if dist.get_backend(pl.group) == dist.Backend.NCCL:
-                mine = torch.empty(buf.shape[1], device=buf.device)
-                op = dist.ReduceOp.AVG if ctx.reduce == "mean" else dist.ReduceOp.SUM
-                dist.reduce_scatter_tensor(mine, buf.reshape(-1), op=op, group=pl.group)
-            else:
-                dist.all_reduce(buf, group=pl.group)
-                mine = buf[pl.index] / pl.size if ctx.reduce == "mean" else buf[pl.index]
+def _pieces(grads, meta, pls: Sequence[Placement], reduce: str | None,
+            device) -> list[torch.Tensor]:
+    """This rank's pieces (shapes and dtypes `meta`) of the whole leaves'
+    gradients `grads` of one line (None: zeros), from their f32 values in
+    one collective: `reduce` "mean" or "sum" reduce-scatters them so, None
+    (the line's ranks hold one gradient) takes this rank's piece."""
+    pl = pls[0]
+    rows = []
+    for g, (shape, _), p in zip(grads, meta, pls):
+        if g is None:
+            rows.append(torch.zeros((p.size, shape.numel()), device=device))
         else:
-            mine = buf[pl.index]
-        out, offset = [], 0
-        for shape, dtype in ctx.meta:
-            out.append(mine[offset:offset + shape.numel()].view(shape).to(dtype))
-            offset += shape.numel()
-        return (None, None, None, *out)
+            rows.append(torch.stack(g.float().chunk(p.size, dim=p.dim)).reshape(p.size, -1))
+    buf = torch.cat(rows, dim=1)                      # [size, sum of shard numels]
+    if reduce is not None:
+        if dist.get_backend(pl.group) == dist.Backend.NCCL:
+            mine = torch.empty(buf.shape[1], device=buf.device)
+            op = dist.ReduceOp.AVG if reduce == "mean" else dist.ReduceOp.SUM
+            dist.reduce_scatter_tensor(mine, buf.reshape(-1), op=op, group=pl.group)
+        else:
+            dist.all_reduce(buf, group=pl.group)
+            mine = buf[pl.index] / pl.size if reduce == "mean" else buf[pl.index]
+    else:
+        mine = buf[pl.index]
+    out, offset = [], 0
+    for shape, dtype in meta:
+        out.append(mine[offset:offset + shape.numel()].view(shape).to(dtype))
+        offset += shape.numel()
+    return out
 
 
 def _lines(tensors: Mapping[str, torch.Tensor], pls: Mapping[str, Placement]) -> dict:
@@ -195,28 +188,63 @@ def _lines(tensors: Mapping[str, torch.Tensor], pls: Mapping[str, Placement]) ->
     return lines
 
 
+@torch.no_grad()
 def full_weights(params: Mapping[str, torch.Tensor], pls: Mapping[str, Placement],
-                 dtype: torch.dtype, *, tp_sharded: bool,
-                 summed: str | None = None) -> dict[str, torch.Tensor]:
+                 dtype: torch.dtype) -> dict[str, torch.Tensor]:
     """Every floating leaf of `params` (f32 masters, shards where `pls`
-    places them) in `dtype`: the FSDP-placed ones gathered whole through
-    the differentiable `_GatherShards`, one call a line, whose backward
-    takes the mean over "data", the sum over the axis `summed` (the
-    spatial line of a partitioned patch) and this rank's piece over any
-    other; the tensor-parallel ones left as shards when `tp_sharded` (the
-    training forward's Megatron layers take them), else gathered whole
-    too (evaluation, under no_grad)."""
+    places them) in `dtype`, whole: the placed ones, FSDP's and tensor
+    parallelism's, gathered (evaluation; every rank calls)."""
+    return gather_full({n: p.to(dtype) if p.is_floating_point() else p
+                        for n, p in params.items()}, pls)
+
+
+def gather_for_step(params: Mapping[str, torch.Tensor], pls: Mapping[str, Placement],
+                    dtype: torch.dtype, ops: Mapping[str, str | None]):
+    """The weights of a training step and their way back.  Returns
+    `(weights, scatter)`: every floating leaf of `params` in `dtype`, the
+    tensor-parallel shards as they are (the Megatron layers take them),
+    the FSDP lines gathered whole once, outside the autograd graph, into
+    leaves that require grad, whose gradients are summed in f32 as the
+    backward calls land (one, or the pipeline schedule's many, a different
+    number on each stage); and `scatter()`, to call once after the last
+    of them on every rank, which reduce-scatters each line's gradients in
+    one collective, in the same order everywhere (`ops[axis]`: "mean",
+    "sum", or None for this rank's piece, `_pieces`' `reduce`) and adds
+    each master's piece to its `.grad`."""
     out = {n: p.to(dtype) if p.is_floating_point() else p for n, p in params.items()
            if n not in pls}
+    lines = []
     for (kind, axis, _), names in _lines(params, pls).items():
         if kind == "tp":
-            cast = {n: params[n].to(dtype) for n in names}
-            out.update(cast if tp_sharded else gather_full(cast, pls))
-        else:
-            reduce = "mean" if axis == "data" else "sum" if axis == summed else None
-            out.update(zip(names, _GatherShards.apply(
-                tuple(pls[n] for n in names), dtype, reduce, *(params[n] for n in names))))
-    return out
+            out.update({n: params[n].to(dtype) for n in names})
+            continue
+        line = tuple(pls[n] for n in names)
+        shards = [params[n] for n in names]
+        with torch.no_grad():
+            flat = torch.cat([s.detach().to(dtype).reshape(-1) for s in shards])
+            whole = _join(_all_gather_rows(flat, line[0]), shards, line)
+        sums: list = [None] * len(whole)
+        for k, w in enumerate(whole):
+            w.requires_grad_()
+            w.register_post_accumulate_grad_hook(functools.partial(_fold, sums, k))
+        out.update(zip(names, whole))
+        lines.append((names, line, sums, ops.get(axis)))
+
+    def scatter() -> None:
+        for names, line, sums, reduce in lines:
+            meta = [(params[n].shape, params[n].dtype) for n in names]
+            for n, g in zip(names, _pieces(sums, meta, line, reduce, params[names[0]].device)):
+                p = params[n]
+                p.grad = g if p.grad is None else p.grad + g
+
+    return out, scatter
+
+
+def _fold(sums: list, k: int, leaf: torch.Tensor) -> None:
+    """Move the gradient just accumulated into `leaf` into `sums[k]`, in f32."""
+    g = leaf.grad.float()
+    sums[k] = g if sums[k] is None else sums[k].add_(g)
+    leaf.grad = None
 
 
 def _gather_rows_to(flat: torch.Tensor, pl: Placement, dst: int) -> torch.Tensor | None:

@@ -18,13 +18,15 @@ each axis is one process group, created with `dist.new_group` in the same
 order on every rank (a line of every rank is the world group).  An axis
 is "data", `cfg.fsdp_axis`, `cfg.tp_axis`, `cfg.pp_axis` or, under
 `cfg.spatial_shard`, `cfg.spatial_axis` (`spatial.py`); any other axis
-raises `NotImplementedError` (ROADMAP M11), and so does a pipeline line
-of more than one rank beside any other axis of more than one rank but
-"data" (pipeline parallelism with FSDP or tensor parallelism), and a
-spatial line of more than one rank beside tensor or pipeline
-parallelism, or beside FSDP on an axis other than "data" or the spatial
-one.  Spatial partitioning takes every model the port builds, in 3-D and
-in 2-D.
+raises `NotImplementedError` (ROADMAP M11), and so do tensor or pipeline
+parallelism over "data" and a spatial line of more than one rank beside
+tensor or pipeline parallelism, another axis of more than one rank but
+"data", or FSDP on an axis other than "data" or the spatial one.  A
+pipeline line runs beside FSDP, tensor parallelism and an axis no mode
+claims.  Spatial partitioning takes every model the port builds, in 3-D
+and in 2-D.  Besides the lines, every sub-mesh of two or more axes of
+more than one rank has a group (`Mesh.subgroup`), for a gradient that is
+summed over one axis and averaged over another in one collective.
 
   * `cfg.batch_size` is per data coordinate: the train loader is sharded
     by `(data index, data size)` (`host_shard_info`), so the ranks of one
@@ -41,10 +43,12 @@ in 2-D.
     gather's reduce-scatter instead (`fsdp.py`).  Under pipeline
     parallelism each stage holds its leaves' part of the gradient and
     zeros for the rest, and under spatial partitioning each rank its
-    slab's part, so one all-reduce over every rank sums the pipeline or
-    spatial line and averages "data" (`all_reduce_mean(..., over=data
-    size)`); FSDP's leaves beside spatial partitioning take their own
-    rule, each counted once (`Trainer._reduce_grads`, `fsdp.py`).
+    slab's part, so one all-reduce over the sub-mesh of the pipeline or
+    spatial line and "data" sums the one and averages the other
+    (`all_reduce_mean(..., over=data size)`); a line whose ranks hold
+    copies (a "model" line) is averaged like "data", so the copies stay
+    bitwise equal, and each FSDP leaf's reduce-scatter takes its axis'
+    share: the rule by axis role is `Trainer._reduce_grads`'.
   * Batch norm's training statistics cover the global batch
     (`batch_stats`): each data rank's (count, mean, M2) merged by Chan's
     formula over the "data" line (over every rank it would count a shared
@@ -126,6 +130,19 @@ class Mesh:
         """The process group of this rank's line along the axis, or None."""
         return self.groups.get(axis)
 
+    def subgroup(self, axes) -> object:
+        """The process group of the sub-mesh through this rank that spans
+        `axes` (the ranks sharing this rank's coordinates on every other
+        axis), or None.  Axes whose line has no group (a line of one rank
+        that is not the whole world) drop out; one axis left is its line's
+        group."""
+        axes = tuple(a for a in self.axes if a in axes and self.group(a) is not None)
+        if len(axes) <= 1:
+            return self.group(axes[0]) if axes else None
+        if math.prod(self.size(a) for a in axes) == math.prod(self.shape):
+            return dist.group.WORLD
+        return self.groups[axes]
+
     def line(self, axis: str | None) -> tuple[int, ...]:
         """The global ranks of this rank's line along the axis, in the
         order of their coordinate on it (this rank alone for an axis the
@@ -172,22 +189,35 @@ def make_mesh(shape: Sequence[int] = (-1,), axes: Sequence[str] = ("data",)) -> 
     for a, axis in enumerate(axes):
         if group() is None:
             continue
-        others = [range(s) for i, s in enumerate(shape) if i != a]
-        for rest in itertools.product(*others):
-            line = []
-            for k in range(shape[a]):
-                c = list(rest)
-                c.insert(a, k)
-                line.append(int(np.ravel_multi_index(c, shape)))
-            # the world's group where the line is every rank (one rank
-            # under torchrun included: its collectives still run), none
-            # for another line of one rank
-            g = (dist.group.WORLD if len(line) == world else
-                 None if len(line) == 1 else dist.new_group(line))
-            if rank in line:
+        # the world's group where the line is every rank (one rank under
+        # torchrun included: its collectives still run), none for another
+        # line of one rank
+        for ranks in _sub_meshes(shape, (a,)):
+            g = (dist.group.WORLD if len(ranks) == world else
+                 None if len(ranks) == 1 else dist.new_group(ranks))
+            if rank in ranks:
                 groups[axis] = g
+    # a group for each sub-mesh of two or more axes of more than one rank
+    # that is not the world (`Mesh.subgroup`), in the same order on every rank
+    big = [a for a, s in enumerate(shape) if s > 1]
+    subsets = [dims for n in range(2, len(big) + 1) for dims in itertools.combinations(big, n)
+               if math.prod(shape[d] for d in dims) < world]
+    for dims in subsets if group() is not None else ():
+        for ranks in _sub_meshes(shape, dims):
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups[tuple(axes[d] for d in dims)] = g
     _meshes[key] = Mesh(shape, axes, coords, groups)
     return _meshes[key]
+
+
+def _sub_meshes(shape: tuple[int, ...], dims: tuple[int, ...]) -> list[list[int]]:
+    """The global ranks of each sub-mesh spanning `dims` of a mesh of
+    `shape`, one list a coordinate of the other dims (row-major), each in
+    row-major order."""
+    rest = [d for d in range(len(shape)) if d not in dims]
+    ranks = np.arange(math.prod(shape)).reshape(shape).transpose(*rest, *dims)
+    return ranks.reshape(-1, math.prod(shape[d] for d in dims)).tolist()
 
 
 def mesh_from_config(cfg, entry: str = "Trainer") -> Mesh:
@@ -196,14 +226,16 @@ def mesh_from_config(cfg, entry: str = "Trainer") -> Mesh:
     `cfg.pp_axis` or, under `cfg.spatial_shard`, `cfg.spatial_axis`: any
     other raises `NotImplementedError` from `entry` (ROADMAP M11).  Tensor
     or pipeline parallelism over "data" raises too: their ranks must hold
-    one batch; and so does pipeline parallelism (a `pp_axis` line of more
+    one batch; and so does spatial partitioning (a spatial line of more
     than one rank) beside another axis of more than one rank but "data",
-    and spatial partitioning (a spatial line of more than one rank) beside
-    another axis of more than one rank but "data", with tensor or pipeline
-    parallelism, or with FSDP on another axis than "data" or the spatial
-    one (JAX points `fsdp_axis` at either).  Spatial partitioning takes
-    all five models, 3-D and 2-D: the patch's D (H in 2-D) is split over
-    the spatial line."""
+    with tensor or pipeline parallelism, or with FSDP on another axis than
+    "data" or the spatial one (JAX points `fsdp_axis` at either).
+    Pipeline parallelism takes FSDP (on "data", the pipeline axis or the
+    tensor-parallel one), tensor parallelism and a "model" axis no mode
+    claims (its ranks hold copies, as JAX replicates over it); each
+    ("data", other axes) coordinate runs its own pipeline line.  Spatial
+    partitioning takes all five models, 3-D and 2-D: the patch's D (H in
+    2-D) is split over the spatial line."""
     allowed = {"data", cfg.fsdp_axis, cfg.tp_axis, cfg.pp_axis}
     if cfg.spatial_shard:
         allowed.add(cfg.spatial_axis)
@@ -221,14 +253,6 @@ def mesh_from_config(cfg, entry: str = "Trainer") -> Mesh:
             raise NotImplementedError(
                 f"{entry}: {field}='data': the port's {what} parallelism runs over an axis "
                 "whose ranks share a batch (ROADMAP M11)")
-    if cfg.pipeline_parallel and mesh.size(cfg.pp_axis) > 1:
-        others = [a for a, n in zip(mesh.axes, mesh.shape)
-                  if a not in ("data", cfg.pp_axis) and n > 1]
-        if others or (cfg.fsdp and mesh.size(cfg.fsdp_axis) > 1):
-            raise NotImplementedError(
-                f"{entry}: pipeline_parallel over {cfg.pp_axis!r} with FSDP or tensor "
-                f"parallelism (axes {others or [cfg.fsdp_axis]!r} of more than one rank) is "
-                "not ported (ROADMAP M11)")
     if cfg.spatial_shard and mesh.size(cfg.spatial_axis) > 1:
         others = [a for a, n in zip(mesh.axes, mesh.shape)
                   if a not in ("data", cfg.spatial_axis) and n > 1]

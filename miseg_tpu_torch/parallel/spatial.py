@@ -57,12 +57,12 @@ and in 2-D (below, "D" and "plane" name dim 1 of either).
   * Beside FSDP (JAX composes the two "by pointing `fsdp_axis` at either"
     axis) each sharded leaf is gathered whole once a step as without SP,
     and its gradient is still counted once: on the spatial line the
-    gather's backward is a reduce-scatter by sum (the slabs' parts; for a
-    whole patch, whose ranks hold one gradient, the rank's piece), then
-    the "data" mean; on "data" the gather's reduce-scatter takes the
-    "data" mean, then the spatial line sums the slabs' parts.  The
-    replicated leaves keep the rule above (`Trainer._reduce_grads`,
-    `fsdp._GatherShards`).
+    reduce-scatter after the backward sums the slabs' parts (for a whole
+    patch, whose ranks hold one gradient, it takes the rank's piece),
+    then the "data" mean; on "data" the reduce-scatter takes the "data"
+    mean, then the spatial line sums the slabs' parts (averages a whole
+    patch's copies).  The replicated leaves keep the rule above
+    (`Trainer._reduce_grads`, `fsdp.gather_for_step`).
 
 SP is training-only, as in JAX: validation and test run the whole model
 on whole weights, their window groups fanned out over the mesh's first

@@ -45,11 +45,12 @@ On a mesh with FSDP or tensor parallelism (`parallel.fsdp`,
 `parallel.tensor`; JAX's placements, miseg_tpu/train/engine.py:193-212)
 `TrainState.params` holds this rank's f32 shard of each placed leaf and
 the whole of the others, and the optimizer runs on them.  The forward
-gathers the FSDP shards once a step (`fsdp.full_weights`) and hands the
+gathers the FSDP shards once a step (`fsdp.gather_for_step`) and hands the
 tensor-parallel shards to the Megatron layers (`nn.layers.Linear`); the
 gradients of the replicated and tensor-parallel leaves (and of FSDP's
-where its axis is not "data") are averaged over the "data" line, FSDP's
-on "data" by their gather's reduce-scatter.  `state_dict`, `opt_state`
+where its axis is not "data") are averaged over the "data" line and the
+replicated leaves' over a "model" line of copies too, FSDP's on "data"
+by their reduce-scatter after the backward.  `state_dict`, `opt_state`
 and `eval_weights` gather whole tensors (a collective: every rank calls
 them) and `restore` keeps the rank's slices, so checkpoints are one
 process's whatever the mesh.  Beside spatial partitioning FSDP shards
@@ -60,14 +61,20 @@ Under pipeline parallelism (`cfg.pipeline_parallel` on a mesh whose
 `cfg.pp_axis` line has S > 1 ranks; JAX's :131-167) the step runs
 C-UNETR's ViT blocks (`models/unetr_pp.py`) or C-Swin-UNETR's four swin
 stages (`models/swin_unetr_pp.py`) as a GPipe over the line
-(`parallel/pipeline.py`), one stage a rank, on the replicated masters.
-Every term of the loss runs on one rank: stage 0 the patch embedding,
-the last stage the decoder and the loss on the whole batch.  So each
-rank's gradient is its stage's part, zeros elsewhere, and one all-reduce
-over every rank sums the lines and averages "data"; the loss comes back
-from the last stage the same way, and every rank ends each step on the
-same masters.  Evaluation, state dicts and checkpoints run the serial
-model on those masters, as JAX's do.
+(`parallel/pipeline.py`), one stage a rank; each coordinate of the other
+axes ("data", "model") runs its own line.  Beside it FSDP may shard the
+masters over "data", the pipeline line or the tensor-parallel axis (by
+JAX's placements: a rank holds pieces of every stage's leaves), and
+tensor parallelism runs Megatron inside the stages (D12).  Every term of
+the loss runs on one rank of a line: stage 0 the patch embedding, the
+last stage the decoder and the loss on the whole batch.  So each rank's
+gradient is its stage's part, zeros elsewhere: the gradient rule
+(`_reduce_grads`, D11) sums the pipeline line and averages "data" and
+the copies of a "model" line, and each FSDP line, gathered
+once before the schedule, is reduce-scattered once after its backward.
+The loss comes back from the last stage the same way, and every rank
+ends each step on the same masters.  Evaluation, state dicts and
+checkpoints run the serial model on the gathered masters, as JAX's do.
 
 Under spatial partitioning (`cfg.spatial_shard` on a mesh whose
 `cfg.spatial_axis` line has N > 1 ranks; JAX's :281-290) each rank of the
@@ -79,22 +86,24 @@ norms' statistics and gather the levels the level rule leaves whole
 rank's gradient is its slab's part, so one all-reduce over every rank
 sums the line and averages "data" (`all_reduce_mean(..., over=)`, once a
 window under accumulation) and every rank keeps bitwise-equal masters; a
-patch whose D the rule leaves whole runs replicated on the line, its sum
-divided by N too.  With FSDP each sharded leaf's gradient is counted once
-too: sharded over the spatial line, its gather's backward sums the
-slabs' parts and scatters them (for a whole patch, whose ranks hold one
-gradient, it takes the rank's piece), then the "data" line averages it;
-sharded over "data", the gather's reduce-scatter takes the "data" mean
-and the spatial line then sums the slabs' parts (nothing for a whole
-patch); the replicated leaves keep the all-reduce over every rank.
-Evaluation runs the whole model on gathered weights, its windows fanned
-out as above.
+patch whose D the rule leaves whole runs replicated on the line, whose
+ranks then hold copies of one gradient (averaged, D11).  With FSDP
+each sharded leaf's gradient is counted once too: sharded over the
+spatial line, its reduce-scatter after the backward sums the slabs'
+parts (for a whole patch, whose ranks hold one gradient, it takes the
+rank's piece), then the "data" line averages it; sharded over "data",
+the reduce-scatter takes the "data" mean and the spatial line then sums
+the slabs' parts (averages the copies of a whole patch); the replicated
+leaves keep the all-reduce over the data x spatial ranks.  Evaluation
+runs the whole model on gathered weights, its windows fanned out as
+above.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import os
 import time
 from collections.abc import Callable, Mapping
@@ -219,7 +228,7 @@ class Trainer:
         self._full_shapes = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
         self.placements: dict[str, fsdp.Placement] = {}
         self._masters: dict[str, torch.Tensor] | None = None
-        self._fsdp_axes: dict[int, str] = {}   # id(FSDP master) -> its axis
+        self._placed_axes: dict[int, str] = {}   # id(placed master) -> its axis
         self.loss_fn = loss_from_config(cfg)
         self.scheduler = scheduler_from_config(cfg)
         self.compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
@@ -267,9 +276,9 @@ class Trainer:
             masters[n] = nn.Parameter(pl.shard(full.detach()).clone())
             full.data = torch.empty(0, dtype=full.dtype, device=full.device)
         self._masters = masters
-        # FSDP's leaves: their gather's backward reduces over their axis
-        self._fsdp_axes = {id(masters[n]): pl.axis for n, pl in self.placements.items()
-                           if pl.kind == "fsdp"}
+        # the placed leaves: their own axis holds pieces, not copies (FSDP's
+        # reduce-scatter reduces it)
+        self._placed_axes = {id(masters[n]): pl.axis for n, pl in self.placements.items()}
         optimizer = optimizer_from_config(self.cfg, masters,
                                           getattr(self.model, "ENCODER_PREFIXES", ()))
         k = self.cfg.iters_to_accumulate
@@ -305,47 +314,78 @@ class Trainer:
                if isinstance(v, torch.Tensor) and v.ndim > 0]
         return sum(t.numel() * t.element_size() for t in [*state.params.values(), *opt])
 
+    def _line_rule(self, axis: str) -> str:
+        """What the ranks of a line along `axis` hold of the gradient of a
+        leaf no mode places on the axis: "mean" (different batches:
+        "data"), "sum" (parts of one gradient: the pipeline line, the
+        spatial line of a partitioned patch) or "copies" (of one gradient:
+        "model" for a leaf TP does not claim, any axis no mode claims, the
+        spatial line of a whole patch)."""
+        if axis == "data":
+            return "mean"
+        if ((axis == self.cfg.pp_axis and self._pp_active())
+                or (axis == self.cfg.spatial_axis and self._sp_top is not None)):
+            return "sum"
+        return "copies"
+
+    def _fsdp_ops(self) -> dict[str, str | None]:
+        """The op of an FSDP line's reduce-scatter on each axis: its
+        `_line_rule`, but None (this rank's piece) on a line of copies:
+        each piece has one owner there, so the copies cannot drift apart."""
+        return {a: None if r == "copies" else r
+                for a, r in ((a, self._line_rule(a)) for a in self.mesh.axes)}
+
     def _reduce_grads(self, grads: list[torch.Tensor], params: list[torch.Tensor],
                       extra: list[torch.Tensor] = ()) -> None:
-        """Average over the "data" line, in place, `extra` and the gradients
-        (aligned with the optimizer's `params`) of all but FSDP's leaves on
-        "data", whose gather's reduce-scatter took the mean.  Under pipeline
-        parallelism each is one stage's on every pipeline line and zeros on
-        the line's other ranks: summed over the line and averaged over
-        "data", in one all-reduce over every rank (so every rank gets the
-        same bits); so under spatial partitioning, where each replicated
-        leaf's is the rank's slab's part (a replicated patch's whole
-        gradient, divided by the line's size too), and `extra` (the loss,
-        the whole patch's on every rank of the line) is averaged over
-        "data".  There FSDP's leaves on the spatial line, which their
-        gather summed (or sliced), are averaged over "data", and those on
-        "data", which their gather averaged, are summed over the spatial
-        line where the patch is partitioned."""
-        n_sp = self._sp_size()
-        if n_sp > 1:
-            sharded = self._sp_top is not None
+        """The gradients (aligned with the optimizer's `params`) and `extra`
+        (the loss) reduced in place over the mesh by one rule (ROADMAP D11):
+        for each leaf and each axis, what the ranks of the axis' line hold:
 
-            def on(axis):
-                return [g for g, p in zip(grads, params)
-                        if g is not None and self._fsdp_axes.get(id(p)) == axis]
+        | the line's ranks hold  | axes                                   | reduction |
+        |------------------------|----------------------------------------|-----------|
+        | different batches      | "data"                                 | mean      |
+        | parts of one gradient  | the pipeline line (a stage's part,     | sum       |
+        |                        | zeros elsewhere); the spatial line of  |           |
+        |                        | a partitioned patch (D7)               |           |
+        | copies of one gradient | "model" for a leaf TP does not claim;  | mean      |
+        |                        | an axis no mode claims; the spatial    |           |
+        |                        | line of a whole patch                  |           |
+        | pieces of one leaf     | the leaf's TP axis; its FSDP axis      | none here |
 
-            over = self.mesh.size("data") * (1 if sharded else n_sp)
-            parallel.all_reduce_mean([g for g, p in zip(grads, params) if g is not None
-                                      and id(p) not in self._fsdp_axes],
-                                     parallel.group(), over=over)
-            if sharded:
-                parallel.all_reduce_mean(on("data"), self.mesh.group(self.cfg.spatial_axis),
-                                         over=1)
-            parallel.all_reduce_mean([*extra, *on(self.cfg.spatial_axis)],
-                                     self.mesh.group("data"))
-            return
-        if self._pp_active():
-            parallel.all_reduce_mean([*extra, *(g for g in grads if g is not None)],
-                                     parallel.group(), over=self.mesh.size("data"))
-            return
-        parallel.all_reduce_mean([*extra, *(g for g, p in zip(grads, params) if g is not None
-                                            and self._fsdp_axes.get(id(p)) != "data")],
-                                 self.mesh.group("data"))
+        Copies are averaged, not left alone: on the card two ranks' copies
+        of one gradient differ in their last bits (cuDNN's backward
+        kernels do not repeat them), and the all-reduce gives every rank
+        the same bits.  A TP leaf's axis holds pieces, each one rank's;
+        an FSDP leaf's was reduce-scattered after the backward with the op
+        its axis would otherwise take, a line of copies giving each rank
+        its own piece (`_fsdp_ops`, `fsdp.gather_for_step`).  The loss is
+        the replicated leaves' rule but for the spatial line, whose ranks
+        each hold the whole patch's: summed over the pipeline line (the
+        last stage has it, the others 0) and averaged over "data" and the
+        lines of copies.  The leaves that share their summed and averaged
+        axes take one all-reduce over the sub-mesh of those axes
+        (`Mesh.subgroup`), a sum divided by the averaged axes' sizes (a
+        mean alone: NCCL's AVG), so every rank of it ends with the same
+        bits; a leaf with neither takes none."""
+        axes = [a for a in self.mesh.axes if self.mesh.group(a) is not None]
+        rule = {a: self._line_rule(a) for a in axes}
+        jobs: dict[tuple, list[torch.Tensor]] = {}
+
+        def add(t: torch.Tensor, placed_on: str | None) -> None:
+            summed = tuple(a for a in axes if rule[a] == "sum" and a != placed_on)
+            meaned = tuple(a for a in axes if rule[a] != "sum" and a != placed_on)
+            jobs.setdefault((summed, meaned), []).append(t)
+
+        for t in extra:
+            add(t, self.cfg.spatial_axis if self.cfg.spatial_shard else None)
+        for g, p in zip(grads, params):
+            if g is not None:
+                add(g, self._placed_axes.get(id(p)))
+        for (summed, meaned), tensors in jobs.items():
+            if summed or meaned:
+                over = math.prod(self.mesh.size(a) for a in meaned) if summed else None
+                parallel.all_reduce_mean(tensors, self.mesh.subgroup(summed + meaned),
+                                         over=over)
 
     def fresh_state(self) -> TrainState:
         """`init_state`, then the ingest of weights from elsewhere
@@ -438,14 +478,13 @@ class Trainer:
     # ------------------------------------------------------------- forward
 
     def apply_fn(self, params: Mapping[str, torch.Tensor], image, modalities):
-        """Forward under the compute policy: f32 logits of `image` from the
-        parameters cast to the compute dtype (the FSDP shards then gathered
-        whole, the tensor-parallel ones left as shards; the spatial line of
-        a partitioned patch holds parts of one gradient, which the
-        gather's backward sums)."""
-        summed = self.cfg.spatial_axis if self._sp_top is not None else None
-        cast = fsdp.full_weights(params, self.placements, self.compute_dtype, tp_sharded=True,
-                                 summed=summed)
+        """Forward under the compute policy: f32 logits of `image` from
+        `params` cast to the compute dtype.  `params` are this rank's
+        weights of a training step, FSDP's lines gathered whole and the
+        tensor-parallel leaves as shards (`fsdp.gather_for_step`), or, with
+        nothing placed, the masters themselves."""
+        cast = {n: p.to(self.compute_dtype) if p.is_floating_point() else p
+                for n, p in params.items()}
         logits = torch.func.functional_call(
             self.model, cast, (image.to(self.compute_dtype), modalities))
         return logits.float()
@@ -471,10 +510,13 @@ class Trainer:
         is the data-parallel one (JAX's :131-133)."""
         return self.cfg.pipeline_parallel and self.mesh.size(self.cfg.pp_axis) > 1
 
-    def _pp_apply(self, params: Mapping[str, torch.Tensor], image, modalities):
+    def _pp_apply(self, weights: Mapping[str, torch.Tensor], image, modalities):
         """The pipeline-parallel training forward (JAX's :135-167) on the
-        parameters cast to the compute dtype: `(f32 logits on the last
-        stage, None on the others; the schedule)`.  The UNETR and
+        step's `weights` (`fsdp.gather_for_step`: FSDP's lines whole, their
+        gradients summed over the schedule's many backward calls, a
+        different number on each stage): `(f32 logits on the last stage,
+        None on the others; the schedule)`.  The tensor-parallel shards go
+        to the Megatron layers inside the stages (D12).  The UNETR and
         SwinUNETR families only, and no batch norm, else `ValueError`."""
         if isinstance(self.model, UNETR):
             forward = unetr_pipeline_forward
@@ -486,11 +528,10 @@ class Trainer:
         if buffer_names(self.model):
             raise ValueError("pipeline_parallel does not support mutable collections "
                              "(batch-stats norms)")
-        cast = fsdp.full_weights(params, self.placements, self.compute_dtype, tp_sharded=True)
         staged = _Pipelined(self.model, forward, mesh=self.mesh, axis=self.cfg.pp_axis,
                             microbatches=self.cfg.pp_microbatches, train=True)
         logits, schedule = torch.func.functional_call(
-            staged, {f"model.{n}": t for n, t in cast.items()},
+            staged, {f"model.{n}": t for n, t in weights.items()},
             (image.to(self.compute_dtype), modalities))
         return (None if logits is None else logits.float()), schedule
 
@@ -507,7 +548,7 @@ class Trainer:
             self.model.named_parameters())
         with torch.no_grad():
             self._eval_cast = {n: p.detach() for n, p in fsdp.full_weights(
-                masters, self.placements, self.compute_dtype, tp_sharded=False).items()}
+                masters, self.placements, self.compute_dtype).items()}
         self.model.eval()
         try:
             yield
@@ -588,26 +629,32 @@ class Trainer:
         the last stage (0 on the others), the gradient of what its stage
         ran (zeros for the rest); `train_step` sums them over the line.
         Under spatial partitioning, the whole patch's loss and this rank's
-        slab's part of the gradients."""
+        slab's part of the gradients.  FSDP's lines are gathered once
+        before the forward and reduce-scattered once after the backward
+        (`fsdp.gather_for_step`)."""
         image, label, mods = self._batch(batch)
         for p in state.params.values():
             p.grad = None
+        weights, scatter = fsdp.gather_for_step(state.params, self.placements,
+                                                self.compute_dtype, self._fsdp_ops())
         if self._pp_active():
-            logits, schedule = self._pp_apply(state.params, image, mods)
+            logits, schedule = self._pp_apply(weights, image, mods)
             if logits is None:
                 loss = torch.zeros((), device=self.device)
             else:
                 loss = self.loss_fn(logits, label)
                 loss.backward()
             schedule.backward()
+            scatter()
             for p in state.params.values():
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
         else:
             with self._partition():
                 with dropout.rng(self._dropout_generator(state.step)):
-                    loss = self.loss_fn(self.apply_fn(state.params, image, mods), label)
+                    loss = self.loss_fn(self.apply_fn(weights, image, mods), label)
                 loss.backward()
+            scatter()
             if self._sp_top is not None:
                 # a leaf this rank's slab did not reach (a window bias on a rank
                 # without window rows) still takes part in the line's all-reduce

@@ -27,7 +27,10 @@ slice of a seeded global batch of N volumes (`--size`^3, one a rank):
   * FSDP, tensor and pipeline parallelism (`MESH_LEGS`, at 4 ranks: FSDP
     `[4]`, TP `[2, 2]` and TP + FSDP `[2, 2]` over ("data", "model"); GPipe
     over ("data", "pp"), the flagship's swin stages on `[1, 4]` and
-    C-UNETR's ViT on `[2, 2]`, two microbatches): one f32 step of the leg's
+    C-UNETR's ViT on `[2, 2]`, two microbatches; GPipe beside FSDP, the
+    flagship on `[1, 4]` with FSDP on "pp" and C-UNETR on `[2, 2]` with
+    FSDP on "data", and beside TP, C-UNETR on ("data", "model", "pp") `[1,
+    2, 2]` with TP and with TP + FSDP on "model"): one f32 step of the leg's
     small model (`chip_smoke.MESH_SMALL`, the flagship's model at fs 24,
     64^3, or C-UNETR at 64^3) on a global batch of one volume a "data"
     coordinate (two under GPipe), held after the group to rank 0's one
@@ -35,9 +38,9 @@ slice of a seeded global batch of N volumes (`--size`^3, one a rank):
     gradients leaf by leaf, W5); and on the card three bf16 steps of the
     leg's full-width model (the flagship, or C-UNETR), each rank's step
     ms (median after a warm-up step) and bytes of f32 masters plus AdamW
-    moments, and under GPipe each rank's device busy ms in one profiled
-    step, beside one process's step at the same batch and GPipe's bubble,
-    (S - 1) / (M + S - 1);
+    moments and peak memory from the first step, and under GPipe each
+    rank's device busy ms in one profiled step, beside one process's step
+    at the same batch and GPipe's bubble, (S - 1) / (M + S - 1);
   * spatial partitioning (`MESH_LEGS` "sp [4]" and "data x sp [2, 2]",
     `--spatial_shard` over ("sp",) or ("data", "sp")), and beside FSDP
     ("sp + fsdp [4]" with `fsdp_axis="sp"`, "data x sp + fsdp [2, 2]" with
@@ -61,17 +64,18 @@ out over its first axis.
 on the flagship for 2 epochs over a synthetic dataset (4 train volumes of
 128x128x112 a modality); `cli.train --fsdp` for 1 epoch, and with N = 4
 `cli.train --pipeline_parallel --mesh_shape 1 4 --mesh_axes data pp`
-(batch 2, two microbatches) and `cli.train --spatial_shard --mesh_shape 4
---mesh_axes sp` for 1 epoch each, whose `last.ckpt`s must hold the
-data-parallel run's names and whole shapes; with N = 4 (run "sp_fsdp")
+(batch 2, two microbatches), the same with `--fsdp --fsdp_axis pp` (run
+"pp_fsdp") and `cli.train --spatial_shard --mesh_shape 4 --mesh_axes sp`
+for 1 epoch each, whose `last.ckpt`s must hold the data-parallel run's
+names and whole shapes; with N = 4 (run "sp_fsdp")
 one epoch of `cli.train --spatial_shard --fsdp --fsdp_axis sp
 --mesh_shape 4 --mesh_axes sp` and of one process through `--fit`, each
 rank's seconds a validation and windows a volume beside one process's,
 its `last.ckpt` holding one process's names and whole shapes;
 `cli.tune` for 2 one-epoch trials over the same data.  `--runs` takes
-only the named ones of "train", "fsdp", "pp", "sp", "sp_fsdp" and
-"tune" ("train" writes the checkpoint "fsdp", "pp" and "sp" are held
-to).  Each must exit 0,
+only the named ones of "train", "fsdp", "pp", "pp_fsdp", "sp",
+"sp_fsdp" and "tune" ("train" writes the checkpoint "fsdp", "pp",
+"pp_fsdp" and "sp" are held to).  Each must exit 0,
 `cli.train` leave `best.ckpt`, `last.ckpt` and its metrics, and
 `cli.tune` its journal; the outputs go to
 `chiprun_out/ddp<N>_*.txt`, and each step's seconds are printed with the
@@ -138,6 +142,7 @@ def snapshot(state, loss: float) -> dict:
 
 MESH_2X2 = dict(mesh_shape=[2, 2], mesh_axes=["data", "model"])
 SP_4 = dict(spatial_shard=True, mesh_shape=[4], mesh_axes=["sp"])
+PP_3D = {**cs.PP_UNETR, "mesh_shape": [1, 2, 2], "mesh_axes": ["data", "model", "pp"]}
 # name -> (the parallelism fields, the f32 model, the full-width bf16 model,
 # volumes a "data" coordinate)
 MESH_LEGS = {"fsdp [N]": (dict(fsdp=True), cs.MESH_SMALL, cs.FLAGSHIP, 1),
@@ -147,6 +152,14 @@ MESH_LEGS = {"fsdp [N]": (dict(fsdp=True), cs.MESH_SMALL, cs.FLAGSHIP, 1),
              "pp [1, 4]": (cs.PP_SWIN, cs.MESH_SMALL, cs.FLAGSHIP, 2),
              "pp [2, 2]": ({**cs.PP_UNETR, "mesh_shape": [2, 2]}, cs.PP_UNETR_SMALL, cs.UNETR,
                            2),
+             "pp + fsdp [1, 4]": (cs.PP_FSDP, cs.MESH_SMALL, cs.FLAGSHIP, 2),
+             "data x pp + fsdp [2, 2]": ({**cs.PP_UNETR, "mesh_shape": [2, 2], "fsdp": True},
+                                         cs.PP_UNETR_SMALL, cs.UNETR, 2),
+             "pp x tp [1, 2, 2]": ({**PP_3D, "tensor_parallel": True}, cs.PP_UNETR_SMALL,
+                                   cs.UNETR, 2),
+             "pp x tp + fsdp [1, 2, 2]": ({**PP_3D, "tensor_parallel": True, "fsdp": True,
+                                          "fsdp_axis": "model"}, cs.PP_UNETR_SMALL, cs.UNETR,
+                                         2),
              "sp [4]": (SP_4, cs.MESH_SMALL, cs.FLAGSHIP, 1),
              "data x sp [2, 2]": (dict(spatial_shard=True, mesh_shape=[2, 2],
                                        mesh_axes=["data", "sp"]), cs.MESH_SMALL, cs.FLAGSHIP, 1),
@@ -224,6 +237,8 @@ def mesh_legs(device, world: int, size: int, legs=None) -> dict:
             fdata = [cs._share(b) for b in batches(Config(**big), data * per, size, 3, device)]
             trainer = Trainer(Config(**big, **par), device=device)
             state = trainer.init_state()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             ms = []
             for batch in fdata:
                 start, end = (torch.cuda.Event(enable_timing=True),
@@ -240,7 +255,8 @@ def mesh_legs(device, world: int, size: int, legs=None) -> dict:
                                      lead=lambda: trainer.train_step(state, fdata[-1]))
                 busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
             per_rank = [None] * world
-            dist.all_gather_object(per_rank, (ms, trainer.state_bytes(state), busy))
+            dist.all_gather_object(per_rank, (ms, trainer.state_bytes(state), busy,
+                                              torch.cuda.max_memory_allocated()))
             rec["big"] = per_rank
             rec["big_placed"] = cs._mesh_record(trainer, state, 0.0)["placed_elements"]
             del trainer, state
@@ -346,7 +362,7 @@ def held_legs(legs: dict, device, size: int, card: str, one_ms, dp_ms) -> None:
                                                                     device), None)
                 base = statistics.median(base_ms[1:])
             del one, one_state
-            ms = [statistics.median(m[1:]) for m, _, _ in rec["big"]]
+            ms = [statistics.median(m[1:]) for m, *_ in rec["big"]]
             line += (f"; {big['model_name']} {size}^3 bf16 at batch {per} a data coordinate, "
                      f"step ms a rank (median of 2 after a warm-up) {[round(v, 2) for v in ms]} "
                      f"vs one process at batch {per} {base:.2f}")
@@ -354,13 +370,14 @@ def held_legs(legs: dict, device, size: int, card: str, one_ms, dp_ms) -> None:
                 line += f", data parallelism at batch 1 a rank {statistics.median(dp_ms[1:]):.2f}"
             if rec["big"][0][2] is not None:
                 stages, m = par["mesh_shape"][1], par["pp_microbatches"]
-                busy = [b for _, _, b in rec["big"]]
+                busy = [b for _, _, b, _ in rec["big"]]
                 line += (f"; device busy a rank in a profiled step {[round(b, 2) for b in busy]}"
                          f" ms (idle {[f'{1 - b / t:.1%}' for b, t in zip(busy, ms)]}); "
                          f"GPipe's bubble (S - 1) / (M + S - 1) = {(stages - 1) / (m + stages - 1):.1%}")
-            line += (f"; masters + AdamW moments a rank {[b for _, b, _ in rec['big']]} bytes vs "
-                     f"one process {one_bytes}; {rec['big_placed']} of {one_bytes // 12} "
-                     f"parameters placed")
+            line += (f"; masters + AdamW moments a rank {[b for _, b, *_ in rec['big']]} bytes "
+                     f"vs one process {one_bytes}; {rec['big_placed']} of {one_bytes // 12} "
+                     f"parameters placed; peak memory a rank from the first step "
+                     f"{[p for *_, p in rec['big']]} B")
         for side, runs in rec.get("sp_peaks", {}).items():
             one = (one_process_large(side, device, big) if side != size else
                    f"peak memory {flagship_steps({}, side, 1, device, big)[1]} B")
@@ -495,6 +512,14 @@ def launch_main(n: int, size: int, legs=None, runs=None) -> None:
                       out / f"ddp{n}_train_pp.txt", 900)
             held_checkpoint(run_dir / "last.ckpt", Path(tmp) / "runs" / "pp" / "last.ckpt",
                             "--pipeline_parallel")
+        if n == 4 and wanted("pp_fsdp"):
+            _torchrun(n, ["-m", "miseg_tpu_torch.cli.train", *common, "--max_epochs", "1",
+                          "--pipeline_parallel", "--fsdp", "--fsdp_axis", "pp", "--mesh_shape",
+                          "1", "4", "--mesh_axes", "data", "pp", "--batch_size", "2",
+                          "--experiment_name", "pp_fsdp"], out / f"ddp{n}_train_pp_fsdp.txt",
+                      900)
+            held_checkpoint(run_dir / "last.ckpt", Path(tmp) / "runs" / "pp_fsdp" / "last.ckpt",
+                            "--pipeline_parallel --fsdp --fsdp_axis pp")
         if n == 4 and wanted("sp"):
             _torchrun(n, ["-m", "miseg_tpu_torch.cli.train", *common, "--max_epochs", "1",
                           "--spatial_shard", "--mesh_shape", "4", "--mesh_axes", "sp",
@@ -523,7 +548,7 @@ def main() -> None:
     ap.add_argument("--legs", nargs="+", default=None, choices=list(MESH_LEGS),
                     help="the legs of MESH_LEGS to run (default: all)")
     ap.add_argument("--runs", nargs="+", default=None,
-                    choices=["train", "fsdp", "pp", "sp", "sp_fsdp", "tune"],
+                    choices=["train", "fsdp", "pp", "pp_fsdp", "sp", "sp_fsdp", "tune"],
                     help="with --launch, the torchrun runs after the ranks (default: all)")
     args = ap.parse_args()
     if args.launch:

@@ -21,16 +21,22 @@ alone), and resumes the one-process checkpoint `OUT_DIR/one.ckpt` under
 FSDP and takes one more step.  Saves what it saw to
 `OUT_DIR/<SUITE>_rank<RANK>.pt`.
 
-The pipeline suites ("pp2", "pp4") add `pp_extras`: the GPipe schedule
-on an affine stack against the serial stack (outputs and gradients, at
-1, 2 and 4 microbatches, shape-changing stages, and a `[2, 2]` ("data",
-"pp") mesh), JAX's tiny UNETR and swin (`TINY`, from the state dicts in
-`STARTS`) through the pipeline forwards, the refusals, and ("pp2") the
-checkpoints of `checkpoints` for a pipeline case.
+The pipeline suites ("pp2", "pp4"; "pp8" runs its cases alone) add
+`pp_extras`: the GPipe schedule on an affine stack against the serial
+stack (outputs and gradients, at 1, 2 and 4 microbatches, shape-changing
+stages, and a `[2, 2]` ("data", "pp") mesh), JAX's tiny UNETR and swin
+(`TINY`, from the state dicts in `STARTS`) through the pipeline forwards,
+the refusals, and the checkpoints of `checkpoints` for a pipeline case
+("pp2") and for one with FSDP on the pipeline line ("pp4").  The "tp4"
+and "pp4" suites also drive the gradient rule alone on gradients that
+differ by rank (`copies_reduced`).  Every rank
+logs its messages and collectives (`logged_p2p`), and each step's
+share of them is kept with its case (`run_steps`' "step_ops").
 """
 
 from __future__ import annotations
 
+import inspect
 import sys
 from pathlib import Path
 
@@ -72,8 +78,16 @@ MESH_2X2 = dict(mesh_shape=[2, 2], mesh_axes=["data", "model"])
 
 
 def pp(*shape: int, **kw) -> dict:
-    """Pipeline parallelism on a ("data", "pp") mesh of `shape`."""
-    return dict(mesh_shape=list(shape), mesh_axes=["data", "pp"], pipeline_parallel=True, **kw)
+    """Pipeline parallelism on a ("data", "pp") mesh of `shape`, or on a
+    ("data", "model", "pp") one for three sizes."""
+    axes = ["data", "pp"] if len(shape) == 2 else ["data", "model", "pp"]
+    return dict(mesh_shape=list(shape), mesh_axes=axes, pipeline_parallel=True, **kw)
+
+
+# FSDP on the leaves of 128 elements or more (the tiny models have few above
+# JAX's default 8192)
+def fsdp_on(axis: str) -> dict:
+    return dict(fsdp=True, fsdp_axis=axis, fsdp_min_size=128)
 
 
 # case -> (model, the parallelism fields)
@@ -98,13 +112,32 @@ CASES = {
     "pp_unetr_dp": ("unetr", pp(2, 2, pp_microbatches=1)),
     "pp_swin": ("swin", pp(1, 4)),
     "pp_swin_recompute": ("swin", pp(1, 4, use_checkpoint=True)),
+    # GPipe beside FSDP (on "data", the pipeline line, the TP axis), tensor
+    # parallelism and a "model" axis no mode claims (its ranks hold copies)
+    "pp_fsdp_data": ("unetr", pp(2, 2, pp_microbatches=1, **fsdp_on("data"))),
+    "pp_fsdp_pp": ("swin", pp(1, 4, **fsdp_on("pp"))),
+    "pp_fsdp_pp_unetr": ("unetr", pp(1, 4, **fsdp_on("pp"))),
+    "pp_tp": ("unetr", pp(1, 2, 2, tensor_parallel=True)),
+    "pp_tp_fsdp": ("unetr", pp(1, 2, 2, tensor_parallel=True, **fsdp_on("model"))),
+    "pp_model_axis": ("unetr", pp(1, 2, 2)),
+    # the swin's four stages beside a TP line: the only case where TP meets
+    # `PatchMerging.reduction` inside a stage
+    "pp8_swin_tp_fsdp": ("swin", pp(1, 2, 4, tensor_parallel=True, **fsdp_on("model"))),
+    # every axis of more than one rank: the replicated leaves' all-reduce
+    # runs over the ("data", "pp") sub-mesh of four ranks (`Mesh.subgroup`)
+    "pp8_unetr_dp_tp_fsdp": ("unetr", pp(2, 2, 2, pp_microbatches=1, tensor_parallel=True,
+                                         **fsdp_on("pp"))),
 }
 SUITES = {"fsdp2": ["fsdp", "fsdp_accumulate"], "fsdp4": ["hybrid"],
           "tp4": ["tp_unetr", "tp_swin", "tp_fsdp", "tp_dropout", "tp_fsdp_recompute"],
           "pp2": ["pp_unetr", "pp_accumulate"],
-          "pp4": ["pp_unetr4", "pp_unetr_dp", "pp_swin", "pp_swin_recompute"]}
+          "pp4": ["pp_unetr4", "pp_unetr_dp", "pp_swin", "pp_swin_recompute", "pp_fsdp_data",
+                  "pp_fsdp_pp", "pp_fsdp_pp_unetr", "pp_tp", "pp_tp_fsdp", "pp_model_axis"],
+          "pp8": ["pp8_swin_tp_fsdp", "pp8_unetr_dp_tp_fsdp"]}
 # the case of each suite whose Trainer calls `init_state` again
 REPEAT_INIT = {"fsdp2": "fsdp", "fsdp4": "hybrid", "tp4": "tp_fsdp"}
+# the cases of each suite whose gradient rule `copies_reduced` drives
+COPIES = {"tp4": ["tp_unetr", "tp_fsdp"], "pp4": ["pp_tp", "pp_tp_fsdp", "pp_model_axis"]}
 GLOBAL_BATCH = 2
 STEPS = 2
 EVAL_SIZE = 24
@@ -160,8 +193,11 @@ def run_steps(cfg: dict, start: dict, batches: list[dict] | None = None,
         trainer = engine.Trainer(Config(**cfg), device="cpu")
         state = trainer.init_state(start)
     losses, params1, grads1, updates = [], None, None, optimizer_steps(state)
+    step_ops = []
     for batch in batches if batches is not None else global_batches(cfg):
+        logged = len(LOG)
         state, loss = trainer.train_step(state, batch_for(batch))
+        step_ops.append(LOG[logged:])
         losses.append(float(loss))
         if grads1 is None and optimizer_steps(state) > updates:
             params1 = {n: t.detach().clone() for n, t in trainer.state_dict(state).items()}
@@ -174,7 +210,7 @@ def run_steps(cfg: dict, start: dict, batches: list[dict] | None = None,
             "grads": grads1,
             "buffers": {n: b.clone() for n, b in state.buffers.items()},
             "losses": losses, "optimizer_steps": optimizer_steps(state),
-            "step": state.step,
+            "step": state.step, "step_ops": step_ops,
             "placements": {n: (pl.kind, pl.dim, pl.axis, pl.size)
                            for n, pl in trainer.placements.items()},
             "state_bytes": trainer.state_bytes(state),
@@ -228,6 +264,44 @@ def repeat_init(name: str, start: dict) -> dict:
             "stepped_moments": stepped_moments, "to_writer": to_writer,
             "moments_to_writer": None if opt_to_writer is None else {
                 names[int(i)]: st for i, st in opt_to_writer["optimizer"]["state"].items()}}
+
+
+def copies_reduced(names: list[str], start: dict) -> dict:
+    """`Trainer._reduce_grads` on gradients that differ by rank, as two
+    ranks' copies of one gradient may on the card: each master's gradient
+    is its draw from one seeded stream (the same on every rank) times
+    `1 + rank / 8`.  By case: the draws and the reduced gradients by
+    master name (this rank's pieces where placed)."""
+    out = {}
+    for name in names:
+        trainer = engine.Trainer(Config(**case_config(name)), device="cpu")
+        state = trainer.init_state(start[CASES[name][0]])
+        gen = torch.Generator().manual_seed(11)
+        drawn = {n: torch.randn(p.shape, generator=gen) for n, p in state.params.items()}
+        params = list(state.params.values())
+        for p, d in zip(params, drawn.values()):
+            p.grad = d * (1 + dist.get_rank() / 8)
+        trainer._reduce_grads([p.grad for p in params], params)
+        out[name] = {"drawn": drawn,
+                     "reduced": {n: p.grad.clone() for n, p in state.params.items()}}
+    return out
+
+
+def reduced_factor(case: str, rank: int, placed_axis: str | None) -> float:
+    """What `copies_reduced` leaves of a leaf's gradient on global rank
+    `rank`, as a multiple of its draw: each rank's `1 + r / 8` summed over
+    the sub-mesh through `rank` of every axis but the leaf's own
+    (`placed_axis`), divided by the sizes of the averaged axes ("data",
+    whose ranks hold batches, and "model", whose ranks hold copies; the
+    pipeline line sums its stages' parts)."""
+    par = CASES[case][1]
+    shape, axes = par["mesh_shape"], par["mesh_axes"]
+    mine = np.unravel_index(rank, shape)
+    free = [i for i, a in enumerate(axes) if a != placed_axis and shape[i] > 1]
+    total = sum(1 + r / 8 for r in range(int(np.prod(shape)))
+                if all(c == mine[i] for i, c in enumerate(np.unravel_index(r, shape))
+                       if i not in free))
+    return total / np.prod([shape[i] for i in free if axes[i] != "pp"])
 
 
 def checkpoints(start: dict, out_dir: Path, case: str = "fsdp", one: str = "one.ckpt") -> dict:
@@ -359,16 +433,19 @@ def pp_refusals(world: int) -> dict:
     when it builds and steps, else the error's type and message (at world
     2 on a `[1, 2]` mesh: the failing step; at world 4: the mesh)."""
     unetr = MODELS["unetr"]
-    three = {**pp(1, 2, 2), "mesh_axes": ["data", "model", "pp"]}
+    mesh_2x2 = dict(mesh_shape=[2, 2], mesh_axes=["data", "model"])
     cases = ({"dropout": {**unetr, **pp(1, 2, dropout_rate=0.1)},
               "batch_norm": {**unetr, **pp(1, 2), "encoder_norm_name": "batch"},
               "unet": {**MODELS["unet"], **pp(1, 2)},
               "batch": {**unetr, **pp(1, 2, pp_microbatches=3)},
               "swin_stages": {**MODELS["swin"], **pp(1, 2)}} if world == 2 else
-             {"tp": {**unetr, **three, "tensor_parallel": True},
-              "fsdp_model": {**unetr, **three, "fsdp": True, "fsdp_axis": "model"},
-              "fsdp_data": {**unetr, **pp(2, 2), "fsdp": True},
-              "model_axis": {**unetr, **three}})
+             {"sp_pp": {**unetr, **pp(1, 2, 2), "mesh_axes": ["data", "sp", "pp"],
+                        "spatial_shard": True},
+              "sp_tp": {**unetr, "mesh_shape": [1, 2, 2], "mesh_axes": ["data", "model", "sp"],
+                        "spatial_shard": True, "tensor_parallel": True},
+              "tp_data": {**unetr, "mesh_shape": [2, 2], "mesh_axes": ["data", "pp"],
+                          "tensor_parallel": True, "tp_axis": "data"},
+              "pp_data": {**unetr, **mesh_2x2, "pipeline_parallel": True, "pp_axis": "data"}})
     out = {}
     for name, cfg in cases.items():
         try:
@@ -382,7 +459,10 @@ def pp_refusals(world: int) -> dict:
 
 
 def pp_extras(world: int, start: dict, out_dir: Path) -> dict:
-    """The pipeline suites' checks besides the Trainer cases."""
+    """The pipeline suites' checks besides the Trainer cases ("pp8" has
+    none)."""
+    if world == 8:
+        return {}
     out = {"refusals": pp_refusals(world)}
     if world == 2:
         out["forward"] = {"tiny_unetr 2": pp_forward("tiny_unetr", start["tiny_unetr"], 2)}
@@ -395,15 +475,25 @@ def pp_extras(world: int, start: dict, out_dir: Path) -> dict:
     hybrid = parallel.make_mesh([2, 2], ["data", "pp"])
     d = hybrid.index("data")
     out["schedule"]["hybrid"] = schedule_run([6] * 3, hybrid, 2, slice(4 * d, 4 * d + 4))
+    out["checkpoints"] = checkpoints(start["unetr"], out_dir, "pp_fsdp_pp_unetr",
+                                     "one_unetr.ckpt")
     return out
+
+
+LOG: list = []   # this process's messages and collectives (`logged_p2p`)
+_COLLECTIVES = ("all_reduce", "all_gather", "gather", "broadcast", "barrier")
 
 
 def logged_p2p(log: list) -> None:
     """Record in `log` every point-to-point message this process posts,
-    `("send" | "recv", peer's global rank)` in program order: gloo's sends
-    never block, so the tests replay the ranks' logs under NCCL's rule (a
-    rank's messages run in its order, each waiting for its peer) to show
-    the schedule cannot wait in a cycle there (`test_torch_pipeline`)."""
+    `("send" | "recv", peer's global rank)`, and every collective the port
+    calls (`torch.distributed.all_reduce`, `all_gather`, `gather`,
+    `broadcast`, `barrier`: those of FSDP, TP's Megatron layers, the
+    gradient rule, the state's gathers), `(name, the group's global ranks,
+    elements)`, in program order: gloo's sends never block, so the tests
+    replay the ranks' logs under NCCL's rule (a rank's messages and
+    collectives run in its order, each waiting for its peers) to show the
+    schedule cannot wait in a cycle there (`test_torch_pipeline`)."""
     isend, recv = dist.isend, dist.recv
 
     def logged_isend(tensor, dst, *args, **kwargs):
@@ -414,7 +504,23 @@ def logged_p2p(log: list) -> None:
         log.append(("recv", src))
         return recv(tensor, src, *args, **kwargs)
 
+    def logged(name, fn):
+        sig = inspect.signature(fn)
+
+        def call(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs).arguments
+            group = bound.get("group")
+            ranks = (tuple(range(dist.get_world_size())) if group is None
+                     else tuple(dist.get_process_group_ranks(group)))
+            tensor = bound.get("tensor")
+            log.append((name, ranks, 0 if tensor is None else tensor.numel()))
+            return fn(*args, **kwargs)
+
+        return call
+
     dist.isend, dist.recv = logged_isend, logged_recv
+    for name in _COLLECTIVES:
+        setattr(dist, name, logged(name, getattr(dist, name)))
 
 
 def main(suite: str, rank: int, world: int, rdzv: str, out_dir: str, starts: str) -> None:
@@ -423,13 +529,15 @@ def main(suite: str, rank: int, world: int, rdzv: str, out_dir: str, starts: str
     dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
                             world_size=world)
     try:
-        result = {"p2p": []}
-        logged_p2p(result["p2p"])
+        result = {"p2p": LOG}
+        logged_p2p(LOG)
         for name in SUITES[suite]:
             result[name] = run_steps(case_config(name), start[CASES[name][0]])
         if suite in REPEAT_INIT:
             name = REPEAT_INIT[suite]
             result["repeat_init"] = repeat_init(name, start[CASES[name][0]])
+        if suite in COPIES:
+            result["copies"] = copies_reduced(COPIES[suite], start)
         if suite.startswith("pp"):
             result.update(pp_extras(world, start, Path(out_dir)))
         if suite == "fsdp2":

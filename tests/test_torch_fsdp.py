@@ -134,6 +134,23 @@ def one_process(name: str) -> dict:
     return W.run_steps(W.case_config(name, one_process=True), start(W.CASES[name][0]))
 
 
+def copies_held(results: list, case: str) -> None:
+    """The gradient rule on gradients that differ by rank
+    (`W.copies_reduced`): each leaf's reduced gradient is
+    `W.reduced_factor` times its draw on every rank, and each replicated
+    leaf's the same bits on every rank."""
+    for r, res in enumerate(results):
+        got, placed = res["copies"][case], res[case]["placements"]
+        for n, drawn in got["drawn"].items():
+            factor = W.reduced_factor(case, r, placed[n][2] if n in placed else None)
+            torch.testing.assert_close(got["reduced"][n].double(), drawn.double() * factor,
+                                       rtol=1e-6, atol=1e-6, msg=f"{case} rank {r} {n}")
+    for n, v in results[0]["copies"][case]["reduced"].items():
+        if n not in results[0][case]["placements"]:
+            assert all(torch.equal(v, res["copies"][case]["reduced"][n])
+                       for res in results[1:]), (case, n)
+
+
 def held(got: dict, want: dict, what: str, per_update: bool = False) -> None:
     """`got` (a `W.run_steps` record) against `want`: the losses within
     1e-5, every gradient leaf of the first update within 5e-5 and their

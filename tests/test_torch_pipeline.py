@@ -1,9 +1,10 @@
 """Pipeline parallelism in the port (`miseg_tpu_torch.parallel.pipeline`,
 `models/unetr_pp.py`, `models/swin_unetr_pp.py`, the Trainer's GPipe
 step) on the CPU: gloo ranks as subprocesses (`tests/_torch_mesh_worker.py`),
-spawned once for the module, two on the ("data", "pp") mesh `[1, 2]` and
-four on `[1, 4]` and `[2, 2]`, each held to a timeout, against one process
-on the global batch and against the JAX package.
+spawned once for the module, two on the ("data", "pp") mesh `[1, 2]`, four
+on `[1, 4]`, `[2, 2]` and the ("data", "model", "pp") mesh `[1, 2, 2]`, and
+eight on `[1, 2, 4]` and `[2, 2, 2]`, each held to a timeout, against one
+process on the global batch and against the JAX package.
 
 * The schedule (JAX's tests/test_pipeline.py:47-106): an affine stack,
   one layer a stage, where every stage boundary and this stage's
@@ -19,19 +20,32 @@ on the global batch and against the JAX package.
 * The Trainer: dice_focal + AdamW steps of `W.MODELS`' UNETR on `[1, 2]`,
   `[1, 4]`, `[2, 2]` (one microbatch a data coordinate) and with an
   accumulation window, and of the swin on `[1, 4]` (also with
-  `use_checkpoint`): every rank's losses, gradients and parameters held to
-  the port's one process on the global batch (`test_torch_fsdp.held`:
-  loss 1e-5, each gradient leaf 5e-5, the W5 bound), every rank's masters
-  bitwise equal, and the first loss within 1e-4 relative of JAX's on the
-  global batch (JAX's :242-280, :349-380).  A checkpoint written under PP
-  resumes in one process, and one process's under PP.
-* Every rank's messages, replayed under NCCL's rule (a rank's messages
-  one after another, each send waiting for its receiver; gloo's never
-  wait), meet their peers: no cycle of waits on four cards.
+  `use_checkpoint`); beside FSDP on "data" (`[2, 2]`), on the pipeline
+  line (`[1, 4]`, both models) and on "model" with tensor parallelism
+  (`[1, 2, 2]`; the swin on `[1, 2, 4]`, TP inside its stages' patch
+  merging), beside tensor parallelism alone and beside a "model" axis no
+  mode claims (`[1, 2, 2]`), and on `[2, 2, 2]` with TP and FSDP on "pp"
+  (the replicated leaves' all-reduce over a sub-mesh of four of the eight
+  ranks): every rank's losses, gradients and
+  parameters held to the port's one process on the global batch
+  (`test_torch_fsdp.held`: loss 1e-5, each gradient leaf 5e-5, the W5
+  bound), every rank's masters bitwise equal, and the first loss within
+  1e-4 relative of JAX's on the global batch (JAX's :242-280, :349-380).
+  Under the pipeline each FSDP line is gathered once a step and
+  reduce-scattered once, on every rank of the line.  The gradient rule
+  alone, on gradients that differ by rank as a card's copies may, gives
+  every rank one set of bits for each replicated leaf.  A checkpoint
+  written under PP (and under PP with FSDP on "pp") resumes in one
+  process, and one process's under either.
+* Every rank's messages and collectives (TP's, FSDP's, the gradient
+  rule's), replayed under NCCL's rule (a rank's operations one after
+  another, each waiting for its peers; gloo's sends never wait), meet
+  their peers: no cycle of waits on `[1, 2]`, `[1, 4]`, `[1, 2, 2]` and
+  `[1, 2, 4]`.
 * Refusals: dropout, batch norm, the UNets, a batch the microbatches do
   not divide, a swin line of other than 4 stages (ValueError, JAX's), and
-  PP beside FSDP or tensor parallelism or another axis of more than one
-  rank (NotImplementedError, ROADMAP M11).
+  spatial partitioning beside PP or TP, TP or PP over "data"
+  (NotImplementedError, ROADMAP M11).
 """
 
 import functools
@@ -44,7 +58,8 @@ import numpy as np
 import pytest
 import torch
 from test_torch_bridge import seeded_params
-from test_torch_fsdp import held, jax_mesh, jax_model, joined, one_process, spawn, start
+from test_torch_fsdp import (copies_held, held, jax_mesh, jax_model, joined, one_process,
+                             spawn, start)
 
 from miseg_tpu import losses as JL
 from miseg_tpu.config import Config as JConfig
@@ -52,7 +67,9 @@ from miseg_tpu.models.swin_unetr import SwinUNETR as JSwinUNETR
 from miseg_tpu.models.swin_unetr_pp import swin_unetr_pipeline_forward as j_swin_pp
 from miseg_tpu.models.unetr import UNETR as JUNETR
 from miseg_tpu.models.unetr_pp import unetr_pipeline_forward as j_unetr_pp
+from miseg_tpu_torch import parallel
 from miseg_tpu_torch.config import Config
+from miseg_tpu_torch.parallel.mesh import _sub_meshes
 from miseg_tpu_torch.parallel.pipeline import stage_layers
 from miseg_tpu_torch.train import engine
 from miseg_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
@@ -62,11 +79,22 @@ import _torch_mesh_worker as W  # noqa: E402  (tests/ is on the path via test_to
 
 torch.set_num_threads(1)
 ATOL_LOGITS = 2e-4
-SUITE_WORLDS = {"pp2": 2, "pp4": 4}
+SUITE_WORLDS = {"pp2": 2, "pp4": 4, "pp8": 8}
 STEP_CASES = ["pp_unetr", "pp_accumulate", "pp_unetr4", "pp_unetr_dp", "pp_swin",
-              "pp_swin_recompute"]
-# cases whose one process is another's (the mesh and mode dropped, nothing else)
-SAME_ONE_PROCESS = {"pp_unetr4": "pp_unetr", "pp_unetr_dp": "pp_unetr"}
+              "pp_swin_recompute", "pp_fsdp_data", "pp_fsdp_pp", "pp_fsdp_pp_unetr", "pp_tp",
+              "pp_tp_fsdp", "pp_model_axis", "pp8_swin_tp_fsdp", "pp8_unetr_dp_tp_fsdp"]
+# cases whose one process is another's (the mesh and modes dropped, nothing else)
+SAME_ONE_PROCESS = {**{c: "pp_unetr" for c in ("pp_unetr4", "pp_unetr_dp", "pp_fsdp_data",
+                                               "pp_fsdp_pp_unetr", "pp_tp", "pp_tp_fsdp",
+                                               "pp_model_axis", "pp8_unetr_dp_tp_fsdp")},
+                    "pp_fsdp_pp": "pp_swin", "pp8_swin_tp_fsdp": "pp_swin"}
+# (kind, axis) of each case's placed leaves
+PLACED = {"pp_fsdp_data": {("fsdp", "data")}, "pp_fsdp_pp": {("fsdp", "pp")},
+          "pp_fsdp_pp_unetr": {("fsdp", "pp")}, "pp_tp": {("tp", "model")},
+          "pp_tp_fsdp": {("tp", "model"), ("fsdp", "model")},
+          "pp8_swin_tp_fsdp": {("tp", "model"), ("fsdp", "model")},
+          "pp8_unetr_dp_tp_fsdp": {("tp", "model"), ("fsdp", "pp")}}
+FSDP_CASES = [c for c, kinds in PLACED.items() if any(k == "fsdp" for k, _ in kinds)]
 _COND = ("instance_cond", {"num_styles": 2, "affine": True})
 _JNORMS = dict(vit_norm=_COND, encoder_norm=_COND, decoder_norm=("instance", {"affine": True}))
 JTINY = {  # tests/test_pipeline.py's `_tiny_unetr` and `_tiny_swin`
@@ -124,7 +152,7 @@ def one(case: str) -> dict:
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """Both suites' ranks' results; JAX's side and the one process are
+    """Every suite's ranks' results; JAX's side and the one process are
     computed while the ranks run.  `one_unetr.ckpt`: the one process's
     UNETR state after one step, for the ranks to resume."""
     tmp = tmp_path_factory.mktemp("pp")
@@ -172,34 +200,65 @@ def test_schedule_matches_serial(ranks, run):
 
 
 def unmatched(logs: list[list]) -> list:
-    """Replay the ranks' logged messages (`W.logged_p2p`) under NCCL's rule:
-    each rank runs its messages in its own order and each waits for its
-    peer's matching one.  The ranks left waiting, with their next message
-    (empty: every message met its peer)."""
+    """Replay the ranks' logged messages and collectives (`W.logged_p2p`)
+    under NCCL's rule: each rank runs its operations in its own order, a
+    message waits for its peer's matching one and a collective for every
+    rank of its group to reach the same one.  The ranks left waiting, with
+    their next operation (empty: every operation met its peers)."""
     pos = [0] * len(logs)
+
+    def head(r):
+        return logs[r][pos[r]] if pos[r] < len(logs[r]) else None
+
     moved = True
     while moved:
         moved = False
-        for a, ops in enumerate(logs):
-            if pos[a] < len(ops):
-                kind, b = ops[pos[a]]
-                want = ("recv" if kind == "send" else "send", a)
-                if pos[b] < len(logs[b]) and logs[b][pos[b]] == want:
-                    pos[a] += 1
+        for a in range(len(logs)):
+            op = head(a)
+            if op is None:
+                continue
+            if len(op) == 2:
+                kind, b = op
+                peers = [b] if head(b) == ("recv" if kind == "send" else "send", a) else None
+            else:
+                peers = list(op[1]) if all(head(b) == op for b in op[1]) else None
+            if peers is not None:
+                for b in {a, *peers}:
                     pos[b] += 1
-                    moved = True
+                moved = True
     return [(r, ops[p]) for r, (p, ops) in enumerate(zip(pos, logs)) if p < len(ops)]
 
 
 @pytest.mark.parametrize("suite", list(SUITE_WORLDS))
 def test_p2p_order_has_no_cycle(ranks, suite):
-    """Every message a suite's ranks posted (the schedule's, the forwards'
-    and every Trainer step's) meets its peer when each send waits for its
-    receiver, as NCCL's do on one communicator; gloo's never wait, so the
-    ranks' run alone would not show a cycle."""
+    """Every message and collective a suite's ranks posted (the schedule's,
+    the forwards', every Trainer step's: TP's Megatron all-reduces inside
+    the stages, FSDP's gathers and reduce-scatters, the gradient rule's)
+    meets its peers when each operation waits for them, as NCCL's do on
+    one stream; gloo's sends never wait, so the ranks' run alone would not
+    show a cycle."""
     logs = [r["p2p"] for r in ranks[suite]]
-    assert sum(map(len, logs)) > 0
+    assert sum(len(op) == 2 for log in logs for op in log) > 0
+    assert sum(len(op) == 3 for log in logs for op in log) > 0
     assert unmatched(logs) == []
+
+
+def test_sub_meshes_are_row_major():
+    """The ranks of each sub-mesh `make_mesh` makes a group of (a line, or
+    the axes of a leaf's summed and averaged gradient) are those that
+    share the other axes' coordinates, row-major as JAX reshapes its
+    devices; `Mesh.subgroup` drops the axes without a group and takes the
+    world where the sub-mesh is every rank."""
+    ranks = np.arange(8).reshape(2, 2, 2)
+    assert _sub_meshes((2, 2, 2), (0, 2)) == [list(ranks[:, k, :].ravel()) for k in range(2)]
+    assert _sub_meshes((2, 2, 2), (1,)) == [list(ranks[i, :, j]) for i in range(2)
+                                            for j in range(2)]
+    assert _sub_meshes((1, 4), (0, 1)) == [[0, 1, 2, 3]]
+    mesh = parallel.Mesh((2, 1, 4), ("data", "model", "pp"), (1, 0, 2),
+                         {"data": "data line", "model": None, "pp": "pp line"})
+    assert mesh.subgroup(("model",)) is None and mesh.subgroup(()) is None
+    assert mesh.subgroup(("pp", "model")) == "pp line"
+    assert mesh.subgroup(("data", "model", "pp")) is torch.distributed.group.WORLD
 
 
 def test_uneven_layers_rejected():
@@ -241,8 +300,10 @@ def test_pp_steps_like_one_process(ranks, case):
     results = ranks[_suite(case)]
     want = one(case)
     for r, res in enumerate(results):
-        assert res[case]["placements"] == {}
-        held(res[case], want, f"{case} rank {r}")
+        got = res[case]
+        assert {(k, a) for k, _, a, _ in got["placements"].values()} == PLACED.get(case, set())
+        assert (got["state_bytes"] < got["whole_bytes"]) == (case in PLACED)
+        held(got, want, f"{case} rank {r}")
     for key in ("params", "params_step1", "grads"):
         for n, v in results[0][case][key].items():
             assert all(torch.equal(v, res[case][key][n]) for res in results[1:]), (key, n)
@@ -261,16 +322,56 @@ def test_pp_first_loss_like_jax(ranks, case):
             res[case]["losses"][0], want)
 
 
-def test_pp_checkpoint_resumes_in_one_process(ranks):
-    """What rank 0 writes under PP `[1, 2]` is the ranks' state, whole, and
-    one process resumes it exactly."""
-    ck = load_checkpoint(ranks["tmp"] / "pp_unetr.ckpt")
+@pytest.mark.parametrize("case", W.COPIES["pp4"])
+def test_copies_averaged_over_every_rank(ranks, case):
+    """Beside the pipeline, a replicated leaf's gradient is summed over
+    the pipeline line and averaged over "data" and a "model" line of
+    copies, so ranks whose copies differ (on the card, in their last
+    bits) end with one set of bits; a TP or FSDP leaf's own axis is left
+    out (`copies_held`)."""
+    copies_held(ranks["pp4"], case)
+
+
+@pytest.mark.parametrize("case", FSDP_CASES)
+def test_fsdp_reduce_scatter_once_a_step(ranks, case):
+    """Under the pipeline each rank gathers its FSDP line once a step and
+    reduce-scatters the line's gradients once (gloo: one all-reduce of the
+    stacked pieces) where the line sums ("pp") or averages ("data") them,
+    however many backward calls its stage makes; on "model", whose ranks
+    hold copies, it takes its piece with no collective; and the ranks of
+    the line run the same collectives over it in the same order."""
+    results = ranks[_suite(case)]
+    placed = results[0][case]["placements"]
+    names = [n for n, (kind, *_) in placed.items() if kind == "fsdp"]
+    _, _, axis, size = placed[names[0]]
+    reduced = int(axis in ("data", "pp"))
+    whole = one(case)["params"]
+    shard = sum(whole[n].numel() // size for n in names)
+    for step in range(W.STEPS):
+        lines = {}
+        for r, res in enumerate(results):
+            ops = [op for op in res[case]["step_ops"][step] if len(op) == 3]
+            gathers = [op for op in ops if op[0] == "all_gather" and op[2] == shard]
+            scatters = [op for op in ops if op[0] == "all_reduce" and op[2] == size * shard]
+            assert (len(gathers), len(scatters)) == (1, reduced), (case, r, step, ops)
+            line = gathers[0][1]
+            assert all(op[1] == line for op in scatters) and r in line and len(line) == size
+            lines.setdefault(line, []).append([op for op in ops if op[1] == line])
+        assert sum(map(len, lines.values())) == len(results)
+        for line, seqs in lines.items():
+            assert all(seq == seqs[0] for seq in seqs), (case, step, line)
+
+
+def _written_resumes(ranks, suite: str, case: str) -> None:
+    """What rank 0 of `suite` wrote for `case` (`W.checkpoints`) is the
+    ranks' state, whole, and one process resumes it exactly."""
+    ck = load_checkpoint(ranks["tmp"] / f"{case}.ckpt")
     trainer = engine.Trainer(Config(**W.MODELS["unetr"]), device="cpu")
     state = trainer.restore(trainer.init_state(start("unetr")), ck)
-    results = [r["checkpoints"] for r in ranks["pp2"]]
+    results = [r["checkpoints"] for r in ranks[suite]]
     written = results[0]["written"]
     assert [(r["written"]["params"] is not None, r["written"]["opt_state"])
-            for r in results] == [(True, True), (False, False)]
+            for r in results] == [(True, True)] + [(False, False)] * (len(results) - 1)
     assert state.step == written["step"] == W.STEPS
     for n, p in trainer.state_dict(state).items():
         assert torch.equal(p, written["params"][n]), n
@@ -281,15 +382,15 @@ def test_pp_checkpoint_resumes_in_one_process(ranks):
                 assert torch.equal(torch.as_tensor(v), torch.as_tensor(got[n][k])), (n, k)
 
 
-def test_one_process_checkpoint_resumes_under_pp(ranks):
-    """One process's checkpoint resumes under PP `[1, 2]` with its
-    parameters and step, and the next step is one process's."""
+def _resumes_under(ranks, suite: str) -> None:
+    """One process's checkpoint resumes on `suite`'s ranks (`W.checkpoints`)
+    with its parameters and step, and the next step is one process's."""
     ck = load_checkpoint(ranks["tmp"] / "one_unetr.ckpt")
     cfg = W.MODELS["unetr"]
     trainer = engine.Trainer(Config(**cfg), device="cpu")
     state = trainer.restore(trainer.init_state(start("unetr")), ck)
     want = W.run_steps(cfg, None, W.global_batches(cfg, 1, seed=7), trainer, state)
-    for r, res in enumerate(ranks["pp2"]):
+    for r, res in enumerate(ranks[suite]):
         got = res["checkpoints"]
         assert got["resumed"]["step"] == 1 and got["next"]["step"] == want["step"] == 2
         for n, p in got["resumed"]["params"].items():
@@ -300,6 +401,32 @@ def test_one_process_checkpoint_resumes_under_pp(ranks):
                                        atol=2.5e-4, err_msg=f"rank {r} {n}")
 
 
+def test_pp_checkpoint_resumes_in_one_process(ranks):
+    """What rank 0 writes under PP `[1, 2]` is the ranks' state, whole, and
+    one process resumes it exactly."""
+    _written_resumes(ranks, "pp2", "pp_unetr")
+
+
+def test_one_process_checkpoint_resumes_under_pp(ranks):
+    """One process's checkpoint resumes under PP `[1, 2]` with its
+    parameters and step, and the next step is one process's."""
+    _resumes_under(ranks, "pp2")
+
+
+def test_pp_fsdp_checkpoint_resumes_in_one_process(ranks):
+    """Under PP `[1, 4]` with FSDP on "pp" the line gathers the shards and
+    moments to rank 0, which writes one process's whole state; one process
+    resumes it exactly."""
+    _written_resumes(ranks, "pp4", "pp_fsdp_pp_unetr")
+
+
+def test_one_process_checkpoint_resumes_under_pp_fsdp(ranks):
+    """One process's checkpoint resumes under PP `[1, 4]` with FSDP on "pp"
+    (each rank keeping its slices) with its parameters and step, and the
+    next step is one process's."""
+    _resumes_under(ranks, "pp4")
+
+
 # ------------------------------------------------------------- refusals
 
 @pytest.mark.parametrize("name,error,match", [
@@ -308,15 +435,17 @@ def test_one_process_checkpoint_resumes_under_pp(ranks):
     ("unet", "ValueError", "UNETR and SwinUNETR"),
     ("batch", "ValueError", "batch 2 not divisible by 3 microbatches"),
     ("swin_stages", "ValueError", "needs mesh\\['pp'\\] == 4 stages, got 2"),
-    ("tp", "NotImplementedError", "ROADMAP M11"),
-    ("fsdp_model", "NotImplementedError", "ROADMAP M11"),
-    ("fsdp_data", "NotImplementedError", "ROADMAP M11"),
-    ("model_axis", "NotImplementedError", "ROADMAP M11"),
+    ("sp_pp", "NotImplementedError", "spatial_shard over 'sp' with .*pipeline_parallel"
+     ".*ROADMAP M11"),
+    ("sp_tp", "NotImplementedError", "spatial_shard over 'sp' with .*tensor_parallel"
+     ".*ROADMAP M11"),
+    ("tp_data", "NotImplementedError", "tp_axis='data'.*ROADMAP M11"),
+    ("pp_data", "NotImplementedError", "pp_axis='data'.*ROADMAP M11"),
 ])
 def test_pp_refusals(ranks, name, error, match):
-    """JAX's refusals with JAX's exception classes, on every rank; PP
-    beside FSDP, tensor parallelism or another axis of more than one rank
-    is not ported."""
+    """JAX's refusals with JAX's exception classes, on every rank; spatial
+    partitioning beside PP or TP, and TP or PP over "data" (whose ranks
+    hold different batches), are not ported."""
     suite = "pp2" if name in ("dropout", "batch_norm", "unet", "batch", "swin_stages") else "pp4"
     for r, res in enumerate(ranks[suite]):
         said = res["refusals"][name]

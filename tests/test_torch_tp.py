@@ -29,8 +29,8 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import PartitionSpec as P
-from test_torch_fsdp import (FLAGSHIP, held, held_repeat_init, jax_mesh, jax_steps, jax_tree,
-                             joined, one_process, placed, port_dims, spawn, start)
+from test_torch_fsdp import (FLAGSHIP, copies_held, held, held_repeat_init, jax_mesh, jax_steps,
+                             jax_tree, joined, one_process, placed, port_dims, spawn, start)
 
 from miseg_tpu.parallel import tp_leaf_spec as j_tp_leaf_spec
 from miseg_tpu.parallel import tp_param_shardings
@@ -146,6 +146,15 @@ def test_tp_memory_share(ranks, case):
         assert 0 < sharded and got["state_bytes"] <= got["replicated_bytes"] + sharded / 2
     if case == "tp_fsdp":
         assert ranks[0][case]["placed_elements"] > 0.5 * ranks[0][case]["elements"]
+
+
+@pytest.mark.parametrize("case", W.COPIES["tp4"])
+def test_tp_copies_averaged_over_every_rank(ranks, case):
+    """A leaf TP does not claim is averaged over the "model" line of
+    copies as over "data", so ranks whose copies differ (on the card, in
+    their last bits) end with one set of bits; a TP or FSDP leaf's own
+    axis is left out (`test_torch_fsdp.copies_held`)."""
+    copies_held(ranks, case)
 
 
 def test_tp_dropout_drops_columns_of_one_mask(ranks):
