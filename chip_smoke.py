@@ -486,13 +486,14 @@ MARK_CYCLES = 2_000_000   # ~1 ms of spin at the H100's clocks; the others spin 
 MARK_US = 100.0
 
 
-def profiled(run, ok, attempts: int = 3, lead=None, cpu: bool = True) -> list:
+def profiled(run, ok, attempts: int = 3, lead=None, cpu: bool = True,
+             settle: float = 0.005) -> list:
     """The device events torch.profiler records while `run()` runs, from the
     first of `attempts` sessions whose events satisfy `ok(events)`, else
     from the last.  The profiler misses kernels launched right after a
     session starts (and now and then a whole session's), so each session
-    first runs ATen's `spin_kernel` (`torch.cuda._sleep`) and waits 5 ms
-    on the host; with `lead`, it then runs `lead()` (a call like `run`'s,
+    first runs ATen's `spin_kernel` (`torch.cuda._sleep`) and waits
+    `settle` s on the host; with `lead`, it then runs `lead()` (a call like `run`'s,
     whose kernels take any such loss) and a second spin kernel, ~1 ms long
     (`MARK_CYCLES`, told apart from the others by its length), and only
     the events that start after that spin are `run()`'s; a session that
@@ -513,7 +514,7 @@ def profiled(run, ok, attempts: int = 3, lead=None, cpu: bool = True) -> list:
         with profile(activities=activities) as prof:
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-            time.sleep(0.005)
+            time.sleep(settle)
             if lead is not None:
                 lead()
                 torch.cuda._sleep(MARK_CYCLES)
@@ -906,24 +907,30 @@ def k3_case(shape, dev, gen, mem_bw: float, flush, note: str = ""):
     return line + timed, row
 
 
-def k4_kernel_names(call, calls: int = 5, sessions: int = 5) -> list[str]:
+def k4_kernel_names(call, calls: int = 5, sessions: int = 10) -> list[str]:
     """The names of the K4 device kernels torch.profiler records over
     `calls` calls of `call` (after a lead call, `profiled`), in every
     session of up to `sessions` until one records a kernel a call: the
-    profiler now and then loses a session's kernels, so one session that
-    saw none proves nothing, while a wrong kernel in any session is a
-    wrong route."""
-    def run():
-        for _ in range(calls):
-            call()
+    profiler now and then loses a session's kernels (on some hosts every
+    kernel of many sessions in a row), so one session that saw none
+    proves nothing, while a wrong kernel in any session is a wrong route.
+    After a session that saw none the next settles 100 ms before its lead
+    call and makes 4 times the calls."""
+    names, settle, n = [], 0.005, calls
+    for i in range(sessions):
+        def run(n=n):
+            for _ in range(n):
+                call()
 
-    names = []
-    for _ in range(sessions):
-        seen = [e.name for e in profiled(run, lambda ev: True, attempts=1, lead=call)
-                if "miseg_k4_" in e.name]
+        events = profiled(run, lambda ev: True, attempts=1, lead=call, settle=settle)
+        seen = [e.name for e in events if "miseg_k4_" in e.name]
         names += seen
-        if len(seen) == calls:
+        if len(seen) == n:
             break
+        if not seen:
+            print(f"    (profiler session {i}: no K4 kernel among {len(events)} device "
+                  f"events {sorted({e.name[:48] for e in events})[:4]})")
+            settle, n = 0.1, 4 * calls
     return names
 
 
@@ -4218,15 +4225,34 @@ PP_LEGS = {"pp4": (4, PP_SWIN, MESH_SMALL, FLAGSHIP), "pp2": (2, PP_UNETR, PP_UN
 # one f32 step of each case (its mesh fields, its f32 model: the flagship's
 # model at fs 24, or C-UNETR at its own width); (e) the flagship in bf16 on
 # [1, 4] with FSDP on the pipeline line, `PP_FSDP_STEPS` steps
+# Spatial partitioning beside the pipeline and tensor parallelism, on a
+# ("data", "sp", "pp" / "model") mesh [1, 2, 2]
+SP_PP = {**PP_UNETR, "mesh_shape": [1, 2, 2], "mesh_axes": ["data", "sp", "pp"],
+         "spatial_shard": True}
+SP_TP = dict(mesh_shape=[1, 2, 2], mesh_axes=["data", "sp", "model"], spatial_shard=True,
+             tensor_parallel=True)
 PP_MESH_CASES = {
     "pp + fsdp on data [2, 2]": ({**PP_UNETR, "mesh_shape": [2, 2], "pp_microbatches": 1,
                                   "fsdp": True}, PP_UNETR_SMALL),
     "pp + fsdp on pp [1, 4]": ({**PP_SWIN, "fsdp": True, "fsdp_axis": "pp"}, MESH_SMALL),
     "pp x tp + fsdp [1, 2, 2]": ({**PP_UNETR, "mesh_shape": [1, 2, 2],
                                   "mesh_axes": ["data", "model", "pp"], "tensor_parallel": True,
-                                  "fsdp": True, "fsdp_axis": "model"}, PP_UNETR_SMALL)}
+                                  "fsdp": True, "fsdp_axis": "model"}, PP_UNETR_SMALL),
+    "sp x pp [1, 2, 2]": (SP_PP, PP_UNETR_SMALL),
+    "sp x tp [1, 2, 2]": (SP_TP, MESH_SMALL),
+    "sp x tp + fsdp on model [1, 2, 2]": ({**SP_TP, "fsdp": True, "fsdp_axis": "model"},
+                                          MESH_SMALL),
+    "data x sp x model copies [1, 2, 2]": ({**SP_TP, "tensor_parallel": False},
+                                           PP_UNETR_SMALL),
+    "tp over data x sp [2, 2]": (dict(mesh_shape=[2, 2], mesh_axes=["data", "sp"],
+                                      spatial_shard=True, tensor_parallel=True,
+                                      tp_axis="data"), MESH_SMALL)}
 PP_FSDP = {**PP_SWIN, "fsdp": True, "fsdp_axis": "pp"}
 PP_FSDP_STEPS = 2
+# (f) the full-width bf16 models beside them in the "pp4" ranks, `MESH_STEPS`
+# steps each at batch 2: (model, mesh fields)
+SP_BESIDE = {"C-UNETR sp x pp [1, 2, 2]": ("unetr", SP_PP),
+             "flagship sp x tp [1, 2, 2]": ("flagship", SP_TP)}
 # a microbatch through one flagship swin stage (depth 2): two blocks of two
 # norms (one K1 run and one K2 launch each) and one K5, and patch merging's
 # norm; through one C-UNETR ViT block: two norms
@@ -4234,14 +4260,18 @@ SWIN_STAGE = {"K1": 5, "K2": 5, "K5": 2}
 VIT_BLOCK = {"K1": 2, "K2": 2}
 
 
-def pp_launches(model: dict, stages: int, microbatches: int) -> list[dict]:
+def pp_launches(model: dict, stages: int, microbatches: int,
+                window: dict | None = None) -> list[dict]:
     """The kernels each stage of a GPipe train step launches: its blocks
     once a microbatch, and on the last stage the rest of the model's window
     (the patch embedding launches none; `proj_out`, the ViT's final norm
     and the conv encoders and decoders run on the whole batch); the
-    backward launches none."""
-    window, per = ((UNETR_PER_WINDOW, {k: v * 12 // stages for k, v in VIT_BLOCK.items()})
-                   if model["model_name"] == "unetr" else (PER_WINDOW, SWIN_STAGE))
+    backward launches none.  `window`: the model's launches a step in one
+    process, or under spatial partitioning a rank's (`sp_launches`: the
+    ViT's blocks run whole, on every rank of a stage's spatial line)."""
+    window, per = ((window or UNETR_PER_WINDOW,
+                    {k: v * 12 // stages for k, v in VIT_BLOCK.items()})
+                   if model["model_name"] == "unetr" else (window or PER_WINDOW, SWIN_STAGE))
     body = {k: microbatches * per.get(k, 0) for k in window}
     tail = {k: window[k] - stages * per.get(k, 0) for k in window}
     return [body] * (stages - 1) + [{k: body[k] + tail[k] for k in window}]
@@ -4263,9 +4293,9 @@ def pp_rank(dev, leg: str) -> dict:
     `MESH_STEPS` bf16 steps of its full-width model, launches counted from
     0 before the first and read after the last, then one profiled step
     (every rank profiles one lead and one step: each step holds
-    collectives), and in "pp4" (e) `pp_fsdp_steps`.  Rank 0 keeps the
-    whole records, every rank the digests of its masters; each part's
-    seconds."""
+    collectives), and in "pp4" (e) `pp_fsdp_steps` and (f)
+    `sp_beside_steps`.  Rank 0 keeps the whole records, every rank the
+    digests of its masters; each part's seconds."""
     from miseg_tpu_torch import parallel
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.train.engine import Trainer
@@ -4318,9 +4348,48 @@ def pp_rank(dev, leg: str) -> dict:
         t0 = time.perf_counter()
         out["fsdp"] = pp_fsdp_steps(dev, big, batch)
         out["seconds"]["bf16 fsdp"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["sp"] = sp_beside_steps(dev, {"flagship": batch})
+        out["seconds"]["bf16 sp beside"] = time.perf_counter() - t0
     if not writer:   # the whole tensors once, from rank 0
-        for r in (out["small"], rec, out.get("fsdp", {})):
+        for r in (out["small"], rec, out.get("fsdp", {}), *out.get("sp", {}).values()):
             r["params"] = r["grads"] = None
+    return out
+
+
+def sp_beside_steps(dev, batches: dict) -> dict:
+    """(f) of `SP_BESIDE`: `MESH_STEPS` bf16 steps of each full-width model
+    on its mesh at batch 2 (`batches` by model, made where missing),
+    launches (modes apart) counted from 0 before the first and read after
+    the last, step ms by events, the peak from the first step, the bytes of
+    masters and moments, the masters' digest after the first step and the
+    last (gathered whole: every rank calls)."""
+    from miseg_tpu_torch.config import Config
+    from miseg_tpu_torch.train.engine import Trainer
+
+    out = {}
+    for name, (kind, par) in SP_BESIDE.items():
+        big = UNETR if kind == "unetr" else FLAGSHIP
+        batch = batches.get(kind) or _mesh_batch(dev, big)
+        torch.cuda.empty_cache()
+        trainer = Trainer(Config(**big, **par), device=dev)
+        state = trainer.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        state, loss = trainer.train_step(state, batch)
+        rec = _mesh_record(trainer, state, loss)
+        rec["grads"] = None   # the gates read the losses, the parameters and the digests
+        losses, rec["ms"] = _stepped(trainer, state, batch, MESH_STEPS - 1)
+        rec["launch_totals"] = {**launch_counts(), **mode_counts()}
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        rec["losses"] = [rec["loss"], *losses]
+        rec["digest"] = _digest(rec["params"])
+        rec["final_digest"] = _digest(trainer.state_dict(state))
+        rec["sp_top"] = trainer._sp_top
+        rec["coords"] = dict(zip(trainer.mesh.axes, trainer.mesh.coords))
+        out[name] = rec
+        del trainer, state
     return out
 
 
@@ -4866,10 +4935,12 @@ def phase_pipeline(dev, card: str) -> dict:
     rank's launches its stage's `pp_launches`, counted and by name in a
     profiled step; each rank's step ms, device busy time and peak memory
     printed beside this process's.  The "pp4" ranks also run
-    `PP_MESH_CASES` (`pp_beside_modes`).  Both legs' ranks run at once,
+    `PP_MESH_CASES` and `SP_BESIDE` (`pp_beside_modes`: the pipeline
+    beside FSDP and TP, and spatial partitioning beside the pipeline, TP
+    and a line of copies, TP over "data").  Both legs' ranks run at once,
     beside this process's references, so every time here is of a shared
     card.  Returns each leg's launches a step by stage ("pp4 fsdp": the
-    flagship with FSDP on its line)."""
+    flagship with FSDP on its line; `SP_BESIDE`'s by name)."""
     from miseg_tpu_torch.config import Config
     from miseg_tpu_torch.train.engine import Trainer
 
@@ -4945,11 +5016,12 @@ def phase_pipeline(dev, card: str) -> dict:
         print(f"  pipeline {name}: rank 0's seconds by part "
               f"{ {k: round(v, 1) for k, v in lead['seconds'].items()} }")
         if leg == "pp4":
-            launches["pp4 fsdp"] = pp_beside_modes(ranks, refs, want_launches, card)
+            launches.update(pp_beside_modes(ranks, refs, want_launches, card))
     tmp.cleanup()
     print(f"pipeline: the flagship's swin stages on [1, 4] (alone and with FSDP on 'pp') and "
           f"C-UNETR's ViT on [1, 2] step as one process on the batch, every kernel on its "
-          f"stage, and beside FSDP and TP (all legs' {sum(w for w, *_ in PP_LEGS.values())} "
+          f"stage, and beside FSDP, TP and spatial partitioning, as spatial partitioning does "
+          f"beside TP (all legs' {sum(w for w, *_ in PP_LEGS.values())} "
           f"ranks at once beside this process's references, {t_ranks:.1f} s; phase "
           f"{time.perf_counter() - t0:.1f} s)")
     return launches
@@ -4964,8 +5036,13 @@ def pp_beside_modes(ranks: list, refs: dict, want_launches: list, card: str) -> 
     `PP_FSDP_STEPS` steps within 1e-3 relative of one process's, the
     parameters after the first within W5, every rank's masters bitwise
     equal, each rank's launches its stage's, counted and by name, and its
-    masters plus moments under half PP alone's.  Returns (e)'s launches a
-    step by stage."""
+    masters plus moments under half PP alone's; (f) `SP_BESIDE` under
+    (e)'s gates over `MESH_STEPS` steps against this process's references
+    of the same model and batch, each rank's launches (counted, modes
+    apart) those the level rule predicts for its stage (`pp_launches` of
+    `sp_launches(2, ...)`) or its slab (`sp_launches(2)`).  Returns the
+    launches a step by stage of (e) and of (f) (one entry a rank's for sp
+    x tp)."""
     for name, (_, model) in PP_MESH_CASES.items():
         want = refs["pp4" if model is MESH_SMALL else "pp2"][0]
         recs = [r["mesh"][name] for r in ranks]
@@ -5016,7 +5093,41 @@ def pp_beside_modes(ranks: list, refs: dict, want_launches: list, card: str) -> 
           f"gap {gap:.2e}); parameters after the first step within W5 (excess {excess:.2e}); "
           f"every rank's masters bitwise equal; {got['placed_elements']} of "
           f"{got['elements']} parameters sharded")
-    return want_launches
+    out = {"pp4 fsdp": want_launches}
+    for name, (kind, par) in SP_BESIDE.items():
+        big = UNETR if kind == "unetr" else FLAGSHIP
+        _, one, one_losses, one_ms, one_peak = refs["pp2" if kind == "unetr" else "pp4"]
+        recs = [r["sp"][name] for r in ranks]
+        got = recs[0]
+        gap = max(abs(x - y) / (1 + abs(y)) for x, y in zip(got["losses"], one_losses))
+        check(gap <= 1e-3, f"{name}: losses {got['losses']} vs one process {one_losses}")
+        excess = _w5_excess(got["params"], one["params"])
+        check(excess <= 0.0, f"{name}: parameters exceed W5 by {excess:.3e}")
+        check(all(r["losses"] == got["losses"] and r["digest"] == got["digest"]
+                  and r["final_digest"] == got["final_digest"] for r in recs),
+              f"{name}: the ranks' losses or masters differ")
+        window = sp_launches(2, model=kind)
+        want = (pp_launches(big, 2, par["pp_microbatches"], window) if kind == "unetr"
+                else [window])
+        out[name] = want
+        for r, rec in enumerate(recs):
+            stage = rec["coords"].get("pp", 0)
+            totals = {k: MESH_STEPS * v for k, v in want[stage].items()}
+            check(rec["sp_top"] == (96, 96) and rec["launch_totals"] == totals,
+                  f"{name} rank {r} ({rec['coords']}): patch {rec['sp_top']}, {MESH_STEPS} "
+                  f"steps launched {rec['launch_totals']}; want {totals}")
+            print(f"  pipeline (f) {name} {big['model_name']} bf16 96^3 batch 2 rank {r} "
+                  f"{rec['coords']} on '{card}': launches a step {want[stage]} (counted, "
+                  f"modes apart); step ms by events after the first "
+                  f"{[round(v, 2) for v in rec['ms']]}; masters + moments {rec['state_bytes']} B "
+                  f"({rec['placed']} placed); peak memory {gib(rec['peak'])} ({rec['peak']} B)")
+        print(f"  pipeline (f) {name}: losses {[round(v, 6) for v in got['losses']]} vs one "
+              f"process {[round(v, 6) for v in one_losses]} (max relative gap {gap:.2e}); "
+              f"parameters after the first step within W5 (excess {excess:.2e}); every rank's "
+              f"masters bitwise equal; one process at batch 2 on '{card}' (beside the ranks): "
+              f"step ms {[round(v, 2) for v in one_ms]}, peak memory {gib(one_peak)} "
+              f"({one_peak} B)")
+    return out
 
 
 # ---- spatial partitioning (phase_spatial) ----------------------------------
@@ -5213,6 +5324,12 @@ SP_2_FSDP = dict(SP_2, fsdp=True, fsdp_axis="sp")
 # phase_spatial (b): C-UNet (fs 16) and the flagship's model at fs 24, 64^3, f32
 SP_SMALL = {"C-UNet fs 16": {**CUNET, "roi_x": 64, "roi_y": 64, "roi_z": 64, "no_amp": True},
             "C-Swin-UNETR fs 24": MESH_SMALL}
+# phase_spatial (b) on the two ranks: the fs 24 swin with tensor parallelism
+# over "data" (its leaves gathered a step, as FSDP's) and on the spatial
+# line (the same, the patch partitioned)
+SP_TP_CASES = {"tp over data [2]": dict(mesh_shape=[2], mesh_axes=["data"],
+                                        tensor_parallel=True, tp_axis="data"),
+               "tp on the spatial line [2]": dict(SP_2, tensor_parallel=True, tp_axis="sp")}
 
 
 def sp_launches(n: int, roi: int = 96, model: str = "flagship") -> dict:
@@ -5339,7 +5456,8 @@ def sp_model_steps(trainer, dev, model: dict) -> dict:
 
 def sp_rank(dev) -> dict:
     """A rank of `phase_spatial` (leg "sp2"): (b) one f32 step of each of
-    `SP_SMALL` on the line `[2]`; (c) `SP_STEPS` bf16 steps of the
+    `SP_SMALL` on the line `[2]`, and of the fs 24 swin on each of
+    `SP_TP_CASES`; (c) `SP_STEPS` bf16 steps of the
     flagship at batch 1, launches and collectives counted from 0 before the
     first and read after the last, the peak memory, then one profiled step
     (both ranks profile one lead and one step: each step holds
@@ -5358,6 +5476,13 @@ def sp_rank(dev) -> dict:
     for name, small in SP_SMALL.items():
         trainer = Trainer(Config(**small, **SP_2), device=dev)
         state, loss = trainer.train_step(trainer.init_state(), _mesh_batch(dev, small))
+        out[name] = _mesh_record(trainer, state, loss)
+        out[name]["digest"] = _digest(out[name]["params"])
+        del trainer, state
+    for name, par in SP_TP_CASES.items():
+        trainer = Trainer(Config(**MESH_SMALL, **par), device=dev)
+        state, loss = trainer.train_step(trainer.init_state(),
+                                         _share(_mesh_batch(dev, MESH_SMALL)))
         out[name] = _mesh_record(trainer, state, loss)
         out[name]["digest"] = _digest(out[name]["params"])
         del trainer, state
@@ -5432,7 +5557,8 @@ def phase_spatial(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
     (`sp_rank`), held to `DDP_TIMEOUT_S`, against this process, whose
     references run beside them (so every time here is of a shared card):
     (b) each small model's step within `check_ddp_step`'s gates, both
-    ranks' masters bitwise equal; (c) the flagship's losses within 1e-3
+    ranks' masters bitwise equal (and so `SP_TP_CASES`', tensor
+    parallelism over "data" and on the spatial line); (c) the flagship's losses within 1e-3
     relative of one process at the same patch and batch, its parameters
     after the first step within W5, the masters bitwise equal, each rank's
     launches `sp_launches(2)` a step (counted, and by name in the profiled
@@ -5500,6 +5626,18 @@ def phase_spatial(dev, card: str, mem_bw: float, bf16_flops: float) -> dict:
               f"at batch 2: loss |diff| {gaps['loss']:.2e}, gradient gap summed "
               f"{gaps['summed']:.3e} (worst {gaps['worst']} {gaps['worst_gap']:.2e}), "
               f"parameters within W5 (excess {gaps['w5_excess']:.2e}); masters bitwise equal")
+    for name in SP_TP_CASES:
+        gaps = check_ddp_step(ranks[0][name], refs["C-Swin-UNETR fs 24"], f"spatial (b) {name}")
+        check(ranks[0][name]["digest"] == ranks[1][name]["digest"]
+              and ranks[0][name]["placed"]["fsdp"] > 0,
+              f"spatial (b) {name}: the ranks' masters differ or nothing is placed")
+        print(f"  spatial (b) C-Swin-UNETR fs 24 64^3 f32, {name}, 2 gloo ranks on '{card}' vs "
+              f"one process at batch 2: loss |diff| {gaps['loss']:.2e}, gradient gap summed "
+              f"{gaps['summed']:.3e} (worst {gaps['worst']} {gaps['worst_gap']:.2e}), "
+              f"parameters within W5 (excess {gaps['w5_excess']:.2e}); masters bitwise equal; "
+              f"{ranks[0][name]['placed']['fsdp']} TP leaves gathered a step; masters + "
+              f"moments a rank {ranks[0][name]['state_bytes']} B vs one process "
+              f"{refs['C-Swin-UNETR fs 24']['state_bytes']} B")
     lead = ranks[0]["flagship"]
     gap = max(abs(x - y) / (1 + abs(y)) for x, y in zip(lead["losses"], one_losses))
     check(gap <= 1e-3, f"spatial (c): losses {lead['losses']} vs one process {one_losses}")
@@ -5720,10 +5858,16 @@ def main() -> int:
         check(mesh[key] > 0, f"{key} was never launched in the FSDP step")
         check(spatial["launches"][key] > 0,
               f"{key} was never launched in the spatially partitioned step")
-        on_pp = {leg: sum(stage[key] for stage in by_stage) for leg, by_stage in pipeline.items()}
+        # a kernel counts with its spatial mode on the partitioned legs
+        mode = {"K1": "K1 moments", "K1 fold": "K1 fold moments", "K4": "K4 halo"}.get(key)
+        on_pp = {leg: sum(stage[key] + stage.get(mode, 0) for stage in by_stage)
+                 for leg, by_stage in pipeline.items()}
         check(on_pp["pp4"] > 0 and on_pp["pp4 fsdp"] > 0
-              and (on_pp["pp2"] > 0) == (UNETR_PER_WINDOW[key] > 0),
-              f"{key}: the pipeline steps' stages launched it {on_pp} times")
+              and on_pp["flagship sp x tp [1, 2, 2]"] > 0
+              and (on_pp["pp2"] > 0) == (on_pp["C-UNETR sp x pp [1, 2, 2]"] > 0)
+              == (UNETR_PER_WINDOW[key] > 0),
+              f"{key}: the pipeline steps' stages launched it (with its spatial mode) "
+              f"{on_pp} times")
         search = {"launches_study": tune["study"][key]}
         if key in tune["rows"]:
             search["search_space_shapes"] = tune["rows"][key]
@@ -5768,7 +5912,12 @@ def main() -> int:
                                      "swin_1x4_fsdp_pp_launches_per_step_by_stage":
                                          [stage[key] for stage in pipeline["pp4 fsdp"]],
                                      "unetr_1x2_launches_per_step_by_stage":
-                                         [stage[key] for stage in pipeline["pp2"]]},
+                                         [stage[key] for stage in pipeline["pp2"]],
+                                     "unetr_sp_x_pp_1x2x2_launches_per_step_by_stage":
+                                         [stage[key] for stage in
+                                          pipeline["C-UNETR sp x pp [1, 2, 2]"]],
+                                     "swin_sp_x_tp_1x2x2_launches_per_step_a_rank":
+                                         pipeline["flagship sp x tp [1, 2, 2]"][0][key]},
                         "spatial": {"launches_per_sp2_step": spatial["launches"][key],
                                     "launches_per_sp2_fsdp_step":
                                         spatial["fsdp_launches"][key],
@@ -5796,7 +5945,12 @@ def main() -> int:
                                     "launches_per_sp2_fsdp_step":
                                         spatial["fsdp_launches"][key],
                                     "launches_per_sp2_step_by_model":
-                                        {m: c[key] for m, c in spatial["models"].items()}}})
+                                        {m: c[key] for m, c in spatial["models"].items()}},
+                        "pipeline": {"unetr_sp_x_pp_1x2x2_launches_per_step_by_stage":
+                                         [stage[key] for stage in
+                                          pipeline["C-UNETR sp x pp [1, 2, 2]"]],
+                                     "swin_sp_x_tp_1x2x2_launches_per_step_a_rank":
+                                         pipeline["flagship sp x tp [1, 2, 2]"][0][key]}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

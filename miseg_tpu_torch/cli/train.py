@@ -73,7 +73,7 @@ def main(cfg: Config | None = None, *, device=None) -> tuple[Trainer, TrainState
         except Exception as e:  # noqa: BLE001 -- the reference trains on at its batch size
             print(f"Tuning of batch size not possible: {e}")
     workdir = os.path.join(cfg.default_root_dir, cfg.experiment_name or cfg.study_name)
-    parallel.mesh_from_config(cfg, "cli.train")
+    parallel.mesh_from_config(cfg)
     shard, num_shards = parallel.host_shard_info()
     data = MultiModalData(cfg, shard=shard, num_shards=num_shards)
     if parallel.is_writer():

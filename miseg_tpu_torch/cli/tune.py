@@ -134,7 +134,7 @@ def _fit_trial(cfg: Config, trial, logdir: str, device) -> tuple[float, bool]:
     """Train `cfg` in `logdir`, reporting each validation's accuracy to
     `trial`; returns (the best accuracy, whether the pruner stopped it).
     Everything it builds dies with its frame."""
-    parallel.mesh_from_config(cfg, "cli.tune")
+    parallel.mesh_from_config(cfg)
     shard, num_shards = parallel.host_shard_info()
     data = MultiModalData(cfg, shard=shard, num_shards=num_shards)
     if parallel.is_writer():

@@ -6,14 +6,9 @@ JAX config and builds the same model.  `build_parser()` generates the
 command line from the fields, as the JAX package's does: the same flags,
 and the same argv parses to equal configs in both.
 
-Fields whose feature the port has not got raise rather than go unread:
-`require_ported(cfg, item, entry)` raises `NotImplementedError` naming
-the ROADMAP item when one of `NOT_PORTED[item]` differs from JAX's
-default.  The `Trainer` asks it for M11, whose fields are all ported
-now (the list stays for the next item); the mesh
-(`parallel.mesh_from_config`) lays "data", the FSDP axis, the
-tensor-parallel axis, the pipeline axis and, under `spatial_shard`, the
-spatial axis over the ranks.
+Every field is read: the port has each feature JAX's fields select (the
+last, the mesh's compositions, in `parallel.mesh_from_config`, which
+takes any axis names, and the Trainer).
 
 `no_gpu` is the reference's flag for a CPU run (its tune group).  The
 JAX package accepts it and never reads it, since a JAX process takes its
@@ -147,7 +142,7 @@ class Config:
     no_amp: bool = False
     precision: str = "bf16"
     seed: int = 0
-    # --- parallelism (config.py:145-152): not ported, ROADMAP M11 ---
+    # --- parallelism (config.py:145-152) ---
     mesh_shape: list[int] = _lst(-1)
     mesh_axes: list[str] = _lst("data")
     fsdp: bool = False
@@ -201,27 +196,6 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
-
-
-# JAX's fields whose feature the port has not got, with JAX's defaults, by
-# the ROADMAP item that would port it
-NOT_PORTED: dict[str, dict] = {
-    "M11": {},
-}
-
-
-def require_ported(cfg: Config, item: str, entry: str) -> None:
-    """Raise `NotImplementedError` from `entry` when a field of
-    `NOT_PORTED[item]` differs from JAX's default."""
-    def value(name):
-        v = getattr(cfg, name)
-        return list(v) if isinstance(v, tuple) else v
-
-    bad = [f"{name}={value(name)!r}" for name, default in NOT_PORTED[item].items()
-           if value(name) != default]
-    if bad:
-        raise NotImplementedError(f"{entry}: {', '.join(bad)} is not ported to "
-                                  f"miseg_tpu_torch (ROADMAP {item}); leave JAX's default")
 
 
 def _scalar_or_list(v):

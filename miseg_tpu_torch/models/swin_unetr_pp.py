@@ -15,6 +15,13 @@ last stage on the whole batch, as JAX's data-parallel side does; with
 `use_checkpoint` the stages' blocks and the conv blocks recompute in the
 backward (`nn/recompute.py`), as JAX's remat does.
 
+Under spatial partitioning each (data, spatial) coordinate runs its own
+pipeline line, and every tensor keeps the state its level takes (D7):
+the stages run their blocks on slabs (or whole levels) exchanging halos,
+statistics and window rows among the ranks of one stage's spatial line,
+and each stage boundary carries its level's slab or whole volume; the
+last stage runs `hidden[0]` and the decoder on the slabs (ROADMAP D13).
+
 Equivalence: with every drop rate at 0 this is the serial
 `SwinUNETR.forward` on the same parameters (tests/test_torch_pipeline.py,
 against the serial model and JAX's `swin_unetr_pipeline_forward`).  A
@@ -24,6 +31,7 @@ drop rate above 0 in training raises `ValueError`, as JAX's does.
 from __future__ import annotations
 
 from ..nn import recompute
+from ..parallel import spatial
 from ..parallel.pipeline import pipeline_apply_hetero
 from .swin_unetr import SwinUNETR
 
@@ -33,9 +41,10 @@ def swin_unetr_pipeline_forward(model: SwinUNETR, x_in, modalities, *, mesh,
     """SwinUNETR's logits with its swin stages GPipe-scheduled over this
     rank's `axis` line of `mesh` (one stage a rank: the line must have
     `len(depths)` ranks), every rank passing the same `x_in [B, *spatial,
-    Cin]` and `modalities int[B]`.  Returns `(logits or None, schedule)`:
-    the logits on the last stage, None on the others;
-    `schedule.backward()` backpropagates the pipeline on every rank."""
+    Cin]` (under spatial partitioning, its slab) and `modalities int[B]`.
+    Returns `(logits or None, schedule)`: the logits on the last stage,
+    None on the others; `schedule.backward()` backpropagates the pipeline
+    on every rank."""
     if train and any(model.drop_rates):
         raise ValueError("pipeline_parallel requires all drop rates == 0 (in-stage rng "
                          "folding differs from the serial module-path folding)")
@@ -45,8 +54,11 @@ def swin_unetr_pipeline_forward(model: SwinUNETR, x_in, modalities, *, mesh,
         raise ValueError(f"swin_unetr pipeline needs mesh['{axis}'] == {sw.num_layers} "
                          f"stages, got {n_stages}")
     fs = model.feature_size
-    s0 = tuple(d // 2 for d in x_in.shape[1:-1])   # the patch embedding's grid
-    shapes = [tuple(d // 2 ** i for d in s0) + (fs * 2 ** i,) for i in range(n_stages + 1)]
+    s0 = tuple(d // 2 for d in spatial.global_dims(x_in))   # the patch embedding's grid
+    # each boundary's per-sample shape on this rank: its slab where the
+    # level rule shards its level
+    shapes = [(*spatial.local_dims(tuple(d // 2 ** i for d in s0)), fs * 2 ** i)
+              for i in range(n_stages + 1)]
     last = stage == n_stages - 1
     x0 = sw.pos_drop(sw.patch_embed(x_in, modalities)) if stage == 0 or last else None
     stage_fns = [getattr(sw, f"layers{i + 1}") for i in range(n_stages)]

@@ -11,6 +11,14 @@ stage runs the ViT's final norm, the encoders, the decoders and the
 output block on the whole batch, as JAX's data-parallel side does, so
 every term of the loss is computed on one rank.
 
+Under spatial partitioning each (data, spatial) coordinate runs its own
+pipeline line, and the ViT runs as in the serial model (D10): stage 0
+embeds the gathered input (`gather_d` over its spatial line) and every
+stage carries whole tokens on every rank of its spatial line, with the
+partition suspended; the last stage settles the token volumes and runs
+the decoder on the slabs, its halos and statistics exchanged among the
+last stage's ranks (ROADMAP D13).
+
 Equivalence: with dropout off this is the serial `UNETR.forward` on the
 same parameters (tests/test_torch_pipeline.py, against the serial model
 and JAX's `unetr_pipeline_forward`).  Dropout in training raises
@@ -22,6 +30,7 @@ from __future__ import annotations
 import math
 
 from ..nn import recompute
+from ..parallel import spatial
 from ..parallel.pipeline import pipeline_apply, stage_layers
 from .unetr import UNETR
 
@@ -30,7 +39,8 @@ def unetr_pipeline_forward(model: UNETR, x_in, modalities, *, mesh, microbatches
                            axis: str = "pp", train: bool = False):
     """UNETR's logits with the ViT's blocks GPipe-scheduled over this
     rank's `axis` line of `mesh`, every rank passing the same `x_in [B,
-    *spatial, Cin]` and `modalities int[B]`.  The parameters are the
+    *spatial, Cin]` (under spatial partitioning, its slab) and
+    `modalities int[B]`.  The parameters are the
     model's own (the Trainer substitutes its compute-dtype casts of the
     replicated masters).  Returns `(logits or None, schedule)`: the logits
     `[B, *spatial, out_channels]` on the last stage, None on the others;
@@ -52,13 +62,18 @@ def unetr_pipeline_forward(model: UNETR, x_in, modalities, *, mesh, microbatches
 
     def stage_fn(h, mods):
         out = []
-        for i in blocks:
-            h = getattr(vit, f"blocks_{i}")(h, mods)
-            if i in taps:
-                out.append(h)
+        with spatial.suspended():
+            for i in blocks:
+                h = getattr(vit, f"blocks_{i}")(h, mods)
+                if i in taps:
+                    out.append(h)
         return h, out
 
-    tokens = vit.patch_embedding(x_in) if stage == 0 else None
+    tokens = None
+    if stage == 0:
+        line = spatial.line_of(x_in)
+        with spatial.suspended():
+            tokens = vit.patch_embedding(x_in if line is None else spatial.gather_d(x_in, line))
     result, schedule = pipeline_apply(
         stage_fn, tokens, modalities, mesh=mesh, axis=axis, microbatches=microbatches,
         like=x_in, shape=(math.prod(model.feat_size), model.hidden_size), with_aux=True,

@@ -116,8 +116,11 @@ def conv_transpose(x: torch.Tensor, weight: torch.Tensor, strides: Sequence[int]
     y = _cl(_CONV_T[x.ndim - 2](_cf(spatial.halo_d(x, lo, hi, line)), weight, bias,
                                 tuple(strides), (p, *padding[1:]), (0, *output_padding[1:])))
     if y.shape[1] < s * (lo + d):
-        raise NotImplementedError(f"spatial partitioning: transposed conv k{k} s{s} p{p} "
-                                  "leaves its slab short (ROADMAP M11)")
+        # k >= s + 2p - s * hi keeps every slab whole: the models' k2 s2 p0
+        # (UNETR's and the swin's up-blocks) and k3 s2 p1 (C-UNet's up-convs)
+        raise ValueError(f"spatial partitioning: a transposed conv k{k} s{s} p{p} leaves "
+                         f"its {s * d}-plane slab short by {s * (lo + d) - y.shape[1]}; no "
+                         "model the port builds has one")
     return spatial.settle(y.narrow(1, s * lo, s * d).contiguous(), True)
 
 

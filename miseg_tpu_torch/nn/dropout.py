@@ -30,8 +30,9 @@ process and the ranks drop the same elements.  Under spatial
 partitioning (`parallel/spatial.py`, `spatial.mask_part`) an element-wise
 mask of a D slab is the rank's slab of the whole volume's mask, and one of
 a swin block's window rows (attention and projection dropout) those rows
-of the whole windows' mask; drop-path masks are per sample, the same on
-every rank of the line.
+of the whole windows' mask (beside tensor parallelism, those of the
+column piece's mask); drop-path masks are per sample, the same on every
+rank of the line.
 """
 
 from __future__ import annotations
@@ -93,14 +94,13 @@ def _drop(x: torch.Tensor, rate: float, mask_shape,
     n = mask_shape[0]
     if columns is None:
         draw = torch.rand((world * n, *mask_shape[1:]), generator=gen, device=x.device)
-        draw = draw[rank * n:(rank + 1) * n]
-        keep = (draw if take is None else take(draw)) >= rate
     else:
         piece, pieces = columns
         k = mask_shape[-1]
         draw = torch.rand((world * n, *mask_shape[1:-1], pieces * k), generator=gen,
-                          device=x.device)
-        keep = draw[rank * n:(rank + 1) * n, ..., piece * k:(piece + 1) * k] >= rate
+                          device=x.device)[..., piece * k:(piece + 1) * k]
+    draw = draw[rank * n:(rank + 1) * n]
+    keep = (draw if take is None else take(draw)) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -30,6 +30,10 @@ How a step runs (`placements`, `gather_for_step`, the Trainer):
     over the pipeline or spatial line, averaged over a line of copies;
     the others averaged over "data").  No part is left out or counted
     twice;
+  * tensor parallelism's leaves on an axis whose ranks hold different
+    activations (`megatron_axis`: "data", the spatial or the pipeline
+    axis) take the same path, with their own dims: JAX places them so and
+    GSPMD computes the one-process function (ROADMAP D13);
   * evaluation and checkpoints gather whole tensors (`gather_full`),
     and loading a whole tensor keeps the rank's slice (`Placement.shard`),
     so a checkpoint is one process's, whatever the mesh.
@@ -83,9 +87,12 @@ def shard_dim(name: str, shape: Sequence[int], n: int, min_size: int = 8192) -> 
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
-    """A leaf split `size` ways along `dim` over the mesh axis `axis`
-    (`kind` "fsdp" or "tp"), this rank holding piece `index`; `group` is
-    the axis' line through this rank."""
+    """A leaf split `size` ways along `dim` over the mesh axis `axis`, this
+    rank holding piece `index`; `group` is the axis' line through this
+    rank.  `kind` says how a step uses the piece: "tp", the Megatron
+    layers run on it; "fsdp", it is gathered whole once a step and its
+    gradient reduce-scattered (FSDP's leaves, and tensor parallelism's
+    where the axis' ranks hold different batches, slabs or stages)."""
     kind: str
     dim: int
     axis: str
@@ -99,23 +106,39 @@ class Placement:
         return full.narrow(self.dim, self.index * k, k)
 
 
+def megatron_axis(cfg) -> bool:
+    """Whether the Megatron layers can run over `cfg.tp_axis`: its ranks
+    must hold the same activations, so the axis is not "data" (different
+    batches), the spatial axis of `spatial_shard` (different slabs) or
+    the pipeline axis of `pipeline_parallel` (different stages).  On such
+    an axis tensor parallelism keeps its placement and gathers its leaves
+    whole once a step, as FSDP does (ROADMAP D13)."""
+    others = {"data"}
+    if cfg.spatial_shard:
+        others.add(cfg.spatial_axis)
+    if cfg.pipeline_parallel:
+        others.add(cfg.pp_axis)
+    return cfg.tp_axis not in others
+
+
 def placements(shapes: Mapping[str, Sequence[int]], mesh, cfg) -> dict[str, Placement]:
     """The sharded leaves of a state dict's parameters (`name -> shape`)
     under `cfg` on `mesh`, as JAX places them (miseg_tpu/train/engine.py:
     193-212): a mode is on only where its axis has more than one rank;
     tensor parallelism (`tensor.tp_dim`) claims the transformer matmuls
-    and, with FSDP on too, the leaves it leaves unclaimed shard on
-    `fsdp_axis`; FSDP alone shards by `shard_dim`.  A leaf absent from the
-    result is replicated."""
+    (kind "tp", or "fsdp" off a `megatron_axis`) and, with FSDP on too,
+    the leaves it leaves unclaimed shard on `fsdp_axis`; FSDP alone shards
+    by `shard_dim`.  A leaf absent from the result is replicated."""
     from .tensor import tp_dim
     n_tp = mesh.size(cfg.tp_axis) if cfg.tensor_parallel else 1
     n_fs = mesh.size(cfg.fsdp_axis) if cfg.fsdp else 1
+    tp_kind = "tp" if megatron_axis(cfg) else "fsdp"
     out = {}
     for name, shape in shapes.items():
         shape = tuple(shape)
         dim = tp_dim(name, shape, n_tp) if n_tp > 1 else None
         if dim is not None:
-            out[name] = Placement("tp", dim, cfg.tp_axis, mesh.index(cfg.tp_axis), n_tp,
+            out[name] = Placement(tp_kind, dim, cfg.tp_axis, mesh.index(cfg.tp_axis), n_tp,
                                   mesh.group(cfg.tp_axis))
             continue
         dim = shard_dim(name, shape, n_fs, cfg.fsdp_min_size) if n_fs > 1 else None

@@ -11,22 +11,21 @@ groups, one rank a card, started by `torchrun`.
 The mesh (`make_mesh`, `mesh_from_config`) follows JAX's `make_mesh`
 (miseg_tpu/parallel/mesh.py:27-37): `mesh_shape` with one `-1` inferred
 from the world size, a product other than the world size a `ValueError`,
-and `mesh_axes` naming each axis.  Rank r takes its coordinates
+and `mesh_axes` naming each axis, any name.  Rank r takes its coordinates
 row-major, the order in which JAX reshapes `jax.devices()`, so the ranks
 of one line of the last axis ("model") are adjacent.  Each line along
 each axis is one process group, created with `dist.new_group` in the same
-order on every rank (a line of every rank is the world group).  An axis
-is "data", `cfg.fsdp_axis`, `cfg.tp_axis`, `cfg.pp_axis` or, under
-`cfg.spatial_shard`, `cfg.spatial_axis` (`spatial.py`); any other axis
-raises `NotImplementedError` (ROADMAP M11), and so do tensor or pipeline
-parallelism over "data" and a spatial line of more than one rank beside
-tensor or pipeline parallelism, another axis of more than one rank but
-"data", or FSDP on an axis other than "data" or the spatial one.  A
-pipeline line runs beside FSDP, tensor parallelism and an axis no mode
-claims.  Spatial partitioning takes every model the port builds, in 3-D
-and in 2-D.  Besides the lines, every sub-mesh of two or more axes of
-more than one rank has a group (`Mesh.subgroup`), for a gradient that is
-summed over one axis and averaged over another in one collective.
+order on every rank (a line of every rank is the world group).  The modes
+claim their axes ("data", `cfg.fsdp_axis`, `cfg.tp_axis`, `cfg.pp_axis`,
+under `cfg.spatial_shard` `cfg.spatial_axis`); an axis no mode claims
+holds copies, as JAX replicates over it.  Every mode runs beside every
+other; the meshes JAX itself refuses raise what JAX raises (at the
+Trainer's first step: a mesh of more than one rank with neither a "data"
+axis nor a spatial line, JAX's `shard_batch`; a pipeline or a patch's D
+on "data").
+Besides the lines, every sub-mesh of two or more axes of more than one
+rank has a group (`Mesh.subgroup`), for a gradient that is summed over
+one axis and averaged over another in one collective.
 
   * `cfg.batch_size` is per data coordinate: the train loader is sharded
     by `(data index, data size)` (`host_shard_info`), so the ranks of one
@@ -220,52 +219,14 @@ def _sub_meshes(shape: tuple[int, ...], dims: tuple[int, ...]) -> list[list[int]
     return ranks.reshape(-1, math.prod(shape[d] for d in dims)).tolist()
 
 
-def mesh_from_config(cfg, entry: str = "Trainer") -> Mesh:
+def mesh_from_config(cfg) -> Mesh:
     """`cfg`'s mesh (`mesh_shape`, `mesh_axes`) over the ranks, made the
-    active one.  Each axis must be "data", `cfg.fsdp_axis`, `cfg.tp_axis`,
-    `cfg.pp_axis` or, under `cfg.spatial_shard`, `cfg.spatial_axis`: any
-    other raises `NotImplementedError` from `entry` (ROADMAP M11).  Tensor
-    or pipeline parallelism over "data" raises too: their ranks must hold
-    one batch; and so does spatial partitioning (a spatial line of more
-    than one rank) beside another axis of more than one rank but "data",
-    with tensor or pipeline parallelism, or with FSDP on another axis than
-    "data" or the spatial one (JAX points `fsdp_axis` at either).
-    Pipeline parallelism takes FSDP (on "data", the pipeline axis or the
-    tensor-parallel one), tensor parallelism and a "model" axis no mode
-    claims (its ranks hold copies, as JAX replicates over it); each
-    ("data", other axes) coordinate runs its own pipeline line.  Spatial
-    partitioning takes all five models, 3-D and 2-D: the patch's D (H in
-    2-D) is split over the spatial line."""
-    allowed = {"data", cfg.fsdp_axis, cfg.tp_axis, cfg.pp_axis}
-    if cfg.spatial_shard:
-        allowed.add(cfg.spatial_axis)
-    bad = [a for a in cfg.mesh_axes if a not in allowed]
-    if bad:
-        raise NotImplementedError(
-            f"{entry}: mesh_axes={list(cfg.mesh_axes)!r}: the port lays out 'data', the FSDP "
-            f"axis {cfg.fsdp_axis!r}, the tensor-parallel axis {cfg.tp_axis!r}, the "
-            f"pipeline axis {cfg.pp_axis!r} and, under spatial_shard, the spatial axis "
-            f"{cfg.spatial_axis!r}; {bad!r} wait for ROADMAP M11")
-    mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes)
-    for on, field, what in ((cfg.tensor_parallel, "tp_axis", "tensor"),
-                            (cfg.pipeline_parallel, "pp_axis", "pipeline")):
-        if on and getattr(cfg, field) == "data" and mesh.size("data") > 1:
-            raise NotImplementedError(
-                f"{entry}: {field}='data': the port's {what} parallelism runs over an axis "
-                "whose ranks share a batch (ROADMAP M11)")
-    if cfg.spatial_shard and mesh.size(cfg.spatial_axis) > 1:
-        others = [a for a, n in zip(mesh.axes, mesh.shape)
-                  if a not in ("data", cfg.spatial_axis) and n > 1]
-        modes = [m for m in ("tensor_parallel", "pipeline_parallel") if getattr(cfg, m)]
-        if cfg.fsdp and cfg.fsdp_axis not in ("data", cfg.spatial_axis):
-            modes.append(f"fsdp_axis={cfg.fsdp_axis!r}")
-        if modes or others:
-            raise NotImplementedError(
-                f"{entry}: spatial_shard over {cfg.spatial_axis!r} with {modes + others} is "
-                "not ported (ROADMAP M11)")
+    active one.  Any axis names are taken, as JAX's `make_mesh` takes them:
+    the modes claim theirs, and the ranks of an axis no mode claims hold
+    copies (ROADMAP D11, D13)."""
     global _active
-    _active = mesh
-    return mesh
+    _active = make_mesh(cfg.mesh_shape, cfg.mesh_axes)
+    return _active
 
 
 def active() -> Mesh:

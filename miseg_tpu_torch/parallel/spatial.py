@@ -64,6 +64,12 @@ and in 2-D (below, "D" and "plane" name dim 1 of either).
     patch's copies).  The replicated leaves keep the rule above
     (`Trainer._reduce_grads`, `fsdp.gather_for_step`).
 
+  * Beside tensor parallelism the ranks of a "model" line share this
+    rank's slab, so Megatron's all-reduces run on it; beside the pipeline
+    each (data, spatial) coordinate runs its own line and the pieces
+    above run among the ranks of one stage's spatial line
+    (`models/*_pp.py`, ROADMAP D13).
+
 SP is training-only, as in JAX: validation and test run the whole model
 on whole weights, their window groups fanned out over the mesh's first
 axis (`inferers.py`).
@@ -249,6 +255,15 @@ def global_dims(x: torch.Tensor) -> tuple[int, ...]:
     dims = tuple(x.shape[1:-1])
     line = line_of(x)
     return dims if line is None else (dims[0] * line.size, *dims[1:])
+
+
+def local_dims(dims: tuple[int, ...]) -> tuple[int, ...]:
+    """This rank's spatial dims of a level whose whole volume has `dims`:
+    its slab's where the active line shards the level, else `dims`."""
+    line = _line
+    if line is None or not sharded_depth(dims[0], line.size):
+        return dims
+    return (dims[0] // line.size, *dims[1:])
 
 
 def settle(y: torch.Tensor, was_slab: bool) -> torch.Tensor:

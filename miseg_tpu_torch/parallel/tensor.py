@@ -24,9 +24,13 @@ when the trainer hands it a shard of its weight):
     layer first takes its slice of the input's columns (`slice_columns`),
     whose backward all-gathers the slices' gradients back to the full
     width.
-The ranks of one line share a batch (the "data" coordinate), so their
+The ranks of one line share a batch (the "data" coordinate) and, under
+spatial partitioning, a slab (the spatial coordinate), so their
 activations, norms, dropout masks and replicated leaves' gradients are
-the same; K5 runs on the all-reduced, replicated qkv.
+the same; K5 runs on the all-reduced, replicated qkv.  A TP axis whose
+ranks hold different activations ("data", the spatial or the pipeline
+axis) runs no Megatron layer: its leaves are gathered once a step as
+FSDP's (`fsdp.megatron_axis`, ROADMAP D13).
 """
 
 from __future__ import annotations

@@ -97,6 +97,14 @@ the slabs' parts (averages the copies of a whole patch); the replicated
 leaves keep the all-reduce over the data x spatial ranks.  Evaluation
 runs the whole model on gathered weights, its windows fanned out as
 above.
+
+Every mesh JAX lays out runs (ROADMAP D13): spatial partitioning beside
+tensor parallelism (a "model" line's ranks share a slab), beside the
+pipeline (each (data, spatial) coordinate runs its own pipeline line,
+the step under the partition), beside lines of copies; tensor
+parallelism over an axis whose ranks hold different activations keeps
+JAX's placement and gathers its leaves a step as FSDP's.  The meshes JAX
+refuses raise its errors at the first step (`_batch`, `_pp_apply`).
 """
 
 from __future__ import annotations
@@ -113,7 +121,7 @@ import torch
 from torch import nn
 
 from .. import parallel
-from ..config import Config, require_ported
+from ..config import Config
 from ..parallel import fsdp, spatial
 from ..parallel import tensor as tensor_parallel
 from ..inferers import SlidingWindowInferer
@@ -213,13 +221,11 @@ class Trainer:
         conv blocks' path of a model built here.  Metrics go to `logger`,
         by default a `MetricLogger` over `workdir` (default
         `cfg.default_root_dir`) opened at the first record (on rank 0;
-        the other ranks log nothing).  Fields of `config.NOT_PORTED` must
-        hold JAX's defaults (none is left of M11); the mesh is `cfg`'s over
-        the ranks (`parallel.mesh_from_config`), from now on the process's active one
+        the other ranks log nothing).  The mesh is `cfg`'s over the ranks
+        (`parallel.mesh_from_config`), from now on the process's active one
         (that its dropout masks and batch statistics follow: run the steps
         of the Trainer built last)."""
-        require_ported(cfg, "M11", "Trainer")
-        self.mesh = parallel.mesh_from_config(cfg, "Trainer")
+        self.mesh = parallel.mesh_from_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device, no_gpu=cfg.no_gpu)
         self.model = model if model is not None else model_from_config(
@@ -359,10 +365,10 @@ class Trainer:
         an FSDP leaf's was reduce-scattered after the backward with the op
         its axis would otherwise take, a line of copies giving each rank
         its own piece (`_fsdp_ops`, `fsdp.gather_for_step`).  The loss is
-        the replicated leaves' rule but for the spatial line, whose ranks
-        each hold the whole patch's: summed over the pipeline line (the
-        last stage has it, the others 0) and averaged over "data" and the
-        lines of copies.  The leaves that share their summed and averaged
+        the replicated leaves' rule but for the spatial line of a
+        partitioned patch, whose ranks each hold the whole patch's: summed
+        over the pipeline line (the last stage has it, the others 0) and
+        averaged over "data" and the lines of copies.  The leaves that share their summed and averaged
         axes take one all-reduce over the sub-mesh of those axes
         (`Mesh.subgroup`), a sum divided by the averaged axes' sizes (a
         mean alone: NCCL's AVG), so every rank of it ends with the same
@@ -377,7 +383,7 @@ class Trainer:
             jobs.setdefault((summed, meaned), []).append(t)
 
         for t in extra:
-            add(t, self.cfg.spatial_axis if self.cfg.spatial_shard else None)
+            add(t, self.cfg.spatial_axis if self._sp_top is not None else None)
         for g, p in zip(grads, params):
             if g is not None:
                 add(g, self._placed_axes.get(id(p)))
@@ -491,8 +497,13 @@ class Trainer:
 
     def _sp_size(self) -> int:
         """The spatial line's size under `cfg.spatial_shard` (1: no spatial
-        partitioning, JAX's rule at :281)."""
-        return self.mesh.size(self.cfg.spatial_axis) if self.cfg.spatial_shard else 1
+        partitioning, JAX's rule at :281).  A pipeline on the same axis
+        takes the line: its ranks hold stages, each the whole patch (GSPMD
+        regathers D at the pipeline's `shard_map`; ROADMAP D13)."""
+        cfg = self.cfg
+        if not cfg.spatial_shard or (self._pp_active() and cfg.pp_axis == cfg.spatial_axis):
+            return 1
+        return self.mesh.size(cfg.spatial_axis)
 
     def _partition(self):
         """The spatial partition of the batch `_batch` placed last (a no-op
@@ -528,6 +539,13 @@ class Trainer:
         if buffer_names(self.model):
             raise ValueError("pipeline_parallel does not support mutable collections "
                              "(batch-stats norms)")
+        if self.cfg.pp_axis == "data" and image.shape[0] % self.cfg.pp_microbatches == 0:
+            # JAX's pipeline maps the stages and the batch both on "data" (its
+            # :165, miseg_tpu/parallel/pipeline.py:104-114); a local batch the
+            # microbatches do not divide raises first, in the schedule, as there
+            raise ValueError("pp_axis='data': the pipeline's stages and its batch would "
+                             "both go on 'data': PartitionSpec('data', 'data', None, None) "
+                             "has duplicate entries for `data` (JAX's DuplicateSpecError)")
         staged = _Pipelined(self.model, forward, mesh=self.mesh, axis=self.cfg.pp_axis,
                             microbatches=self.cfg.pp_microbatches, train=True)
         logits, schedule = torch.func.functional_call(
@@ -596,6 +614,18 @@ class Trainer:
         partitioning this rank's D slab (H in 2-D) of the image and label
         when the level rule shards the patch's dim 1 (`_sp_top`, the
         patch's dims 1 and 2, says so)."""
+        cfg, mesh = self.cfg, self.mesh
+        sp_line = cfg.spatial_shard and mesh.size(cfg.spatial_axis) > 1
+        if sp_line and cfg.spatial_axis == "data":
+            # JAX's `shard_spatial_batch` (miseg_tpu/parallel/spatial.py:62-91)
+            raise ValueError("spatial_axis='data': the batch's dims 0 and 1 would both go "
+                             "on 'data': PartitionSpec('data', 'data') has duplicate entries "
+                             "for `data` (JAX's DuplicateSpecError)")
+        if not sp_line and math.prod(mesh.shape) > 1 and "data" not in mesh.axes:
+            # JAX's `shard_batch` places the batch on mesh.shape["data"]
+            # (miseg_tpu/parallel/mesh.py:59): a mesh of more than one rank
+            # without that axis, or a spatial line, raises its KeyError
+            raise KeyError("data")
         n_sp = self._sp_size()
         self._sp_top = None
         if n_sp > 1:
@@ -638,13 +668,14 @@ class Trainer:
         weights, scatter = fsdp.gather_for_step(state.params, self.placements,
                                                 self.compute_dtype, self._fsdp_ops())
         if self._pp_active():
-            logits, schedule = self._pp_apply(weights, image, mods)
-            if logits is None:
-                loss = torch.zeros((), device=self.device)
-            else:
-                loss = self.loss_fn(logits, label)
-                loss.backward()
-            schedule.backward()
+            with self._partition():
+                logits, schedule = self._pp_apply(weights, image, mods)
+                if logits is None:
+                    loss = torch.zeros((), device=self.device)
+                else:
+                    loss = self.loss_fn(logits, label)
+                    loss.backward()
+                schedule.backward()
             scatter()
             for p in state.params.values():
                 if p.grad is None:

@@ -49,7 +49,11 @@ slice of a seeded global batch of N volumes (`--size`^3, one a rank):
     and moments a rank beside one process's; on `[4]` also at 192^3
     (`SP_LARGE`) against one process at 192^3 (its peak, or that it does
     not fit); "unetr sp [4]" the same for C-UNETR (its small model at
-    64^3 f32, its full-width step at `--size`^3).
+    64^3 f32, its full-width step at `--size`^3); beside the pipeline and
+    tensor parallelism ("unetr sp x pp [2, 2]" on ("sp", "pp"), two
+    microbatches; "sp x tp [2, 2]" on ("sp", "model")) and tensor
+    parallelism over "data" ("tp over data [4]", one volume a rank, its
+    leaves gathered a step as FSDP's), the same.
 Rank 0 prints one line each and `ok`; any failed check raises.  `--legs`
 runs only the named legs of `MESH_LEGS` (default: all).
 
@@ -75,7 +79,7 @@ its `last.ckpt` holding one process's names and whole shapes;
 `cli.tune` for 2 one-epoch trials over the same data.  `--runs` takes
 only the named ones of "train", "fsdp", "pp", "pp_fsdp", "sp",
 "sp_fsdp" and "tune" ("train" writes the checkpoint "fsdp", "pp",
-"pp_fsdp" and "sp" are held to).  Each must exit 0,
+"pp_fsdp" and "sp" are held to; `--runs` alone: none).  Each must exit 0,
 `cli.train` leave `best.ckpt`, `last.ckpt` and its metrics, and
 `cli.tune` its journal; the outputs go to
 `chiprun_out/ddp<N>_*.txt`, and each step's seconds are printed with the
@@ -169,7 +173,19 @@ MESH_LEGS = {"fsdp [N]": (dict(fsdp=True), cs.MESH_SMALL, cs.FLAGSHIP, 1),
                                               mesh_axes=["data", "sp"], fsdp=True,
                                               fsdp_axis="data"), cs.MESH_SMALL, cs.FLAGSHIP,
                                          1),
-             "unetr sp [4]": (SP_4, cs.PP_UNETR_SMALL, cs.UNETR, 1)}
+             "unetr sp [4]": (SP_4, cs.PP_UNETR_SMALL, cs.UNETR, 1),
+             # spatial partitioning beside the pipeline and TP on ("sp", "pp" /
+             # "model") meshes (the spatial line places the batch), and TP
+             # over "data" (its leaves gathered a step, as FSDP's)
+             "unetr sp x pp [2, 2]": ({**cs.PP_UNETR, "mesh_shape": [2, 2],
+                                       "mesh_axes": ["sp", "pp"], "spatial_shard": True},
+                                      cs.PP_UNETR_SMALL, cs.UNETR, 2),
+             "sp x tp [2, 2]": (dict(mesh_shape=[2, 2], mesh_axes=["sp", "model"],
+                                     spatial_shard=True, tensor_parallel=True),
+                                cs.MESH_SMALL, cs.FLAGSHIP, 1),
+             "tp over data [4]": (dict(mesh_shape=[4], mesh_axes=["data"],
+                                       tensor_parallel=True, tp_axis="data"),
+                                  cs.MESH_SMALL, cs.FLAGSHIP, 1)}
 # the spatial legs that also run the flagship at this patch size
 SP_LARGE = (("sp [4]", "sp + fsdp [4]"), 192)
 
@@ -547,9 +563,10 @@ def main() -> None:
                          "torchrun with N ranks")
     ap.add_argument("--legs", nargs="+", default=None, choices=list(MESH_LEGS),
                     help="the legs of MESH_LEGS to run (default: all)")
-    ap.add_argument("--runs", nargs="+", default=None,
+    ap.add_argument("--runs", nargs="*", default=None,
                     choices=["train", "fsdp", "pp", "pp_fsdp", "sp", "sp_fsdp", "tune"],
-                    help="with --launch, the torchrun runs after the ranks (default: all)")
+                    help="with --launch, the torchrun runs after the ranks (default: all; "
+                         "none given: none)")
     args = ap.parse_args()
     if args.launch:
         if "WORLD_SIZE" in os.environ:

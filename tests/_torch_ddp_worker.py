@@ -10,7 +10,7 @@ global batch (`batch_for_rank`):
     64 KiB, so the all-reduce spans several), each from the state dict
     of its case in the file `STARTS` (`torch.save`d `{case: state dict}`;
     a case it lacks starts from the port's seeded initialisation);
-  * the Trainer's mesh (`parallel.mesh_from_config`) and `require_ported`
+  * the Trainer's mesh (`parallel.mesh_from_config`)
     at world 2, and a step of the pipeline mode without a pipeline line;
   * `cli.tune.main` of 3 trials with the training stubbed out (rank 0
     holds the study; every rank records what each trial received);

@@ -84,6 +84,11 @@ def pp(*shape: int, **kw) -> dict:
     return dict(mesh_shape=list(shape), mesh_axes=axes, pipeline_parallel=True, **kw)
 
 
+def sp(shape: list[int], third: str, **kw) -> dict:
+    """Spatial partitioning on a ("data", "sp", `third`) mesh of `shape`."""
+    return dict(mesh_shape=shape, mesh_axes=["data", "sp", third], spatial_shard=True, **kw)
+
+
 # FSDP on the leaves of 128 elements or more (the tiny models have few above
 # JAX's default 8192)
 def fsdp_on(axis: str) -> dict:
@@ -127,13 +132,37 @@ CASES = {
     # runs over the ("data", "pp") sub-mesh of four ranks (`Mesh.subgroup`)
     "pp8_unetr_dp_tp_fsdp": ("unetr", pp(2, 2, 2, pp_microbatches=1, tensor_parallel=True,
                                          **fsdp_on("pp"))),
+    # spatial partitioning beside the pipeline: each (data, sp) coordinate
+    # runs its own line; C-UNETR's ViT whole on every rank of a stage's
+    # spatial line, the swin's stages on their levels' slabs
+    "pp_sp_unetr": ("unetr", sp([1, 2, 2], "pp", pipeline_parallel=True)),
+    "pp8_sp_swin": ("swin", sp([1, 2, 4], "pp", pipeline_parallel=True)),
+    # spatial partitioning beside Megatron on "model" (and FSDP there), and
+    # beside a "model" axis no mode claims
+    "sp_tp_swin": ("swin", sp([1, 2, 2], "model", tensor_parallel=True)),
+    "sp_tp_unetr": ("unetr", sp([1, 2, 2], "model", tensor_parallel=True)),
+    "sp_tp_fsdp": ("swin", sp([1, 2, 2], "model", tensor_parallel=True, **fsdp_on("model"))),
+    "sp_copies": ("unetr", sp([1, 2, 2], "model")),
+    # tensor parallelism over "data", whose ranks hold different batches:
+    # its leaves gathered whole a step, as FSDP's; and with FSDP on "data"
+    "tp_data_swin": ("swin", dict(mesh_shape=[2], mesh_axes=["data"], tensor_parallel=True,
+                                  tp_axis="data")),
+    "tp_data_unetr4": ("unetr", dict(mesh_shape=[4], mesh_axes=["data"],
+                                     tensor_parallel=True, tp_axis="data")),
+    "tp_fsdp_data": ("swin", dict(mesh_shape=[2], mesh_axes=["data"], tensor_parallel=True,
+                                  tp_axis="data", **fsdp_on("data"))),
 }
+# the global batch of a case, where it is not `GLOBAL_BATCH` (a "data" line
+# of four ranks)
+BATCH = {"tp_data_unetr4": 4}
 SUITES = {"fsdp2": ["fsdp", "fsdp_accumulate"], "fsdp4": ["hybrid"],
           "tp4": ["tp_unetr", "tp_swin", "tp_fsdp", "tp_dropout", "tp_fsdp_recompute"],
-          "pp2": ["pp_unetr", "pp_accumulate"],
+          "pp2": ["pp_unetr", "pp_accumulate", "tp_data_swin", "tp_fsdp_data"],
           "pp4": ["pp_unetr4", "pp_unetr_dp", "pp_swin", "pp_swin_recompute", "pp_fsdp_data",
-                  "pp_fsdp_pp", "pp_fsdp_pp_unetr", "pp_tp", "pp_tp_fsdp", "pp_model_axis"],
-          "pp8": ["pp8_swin_tp_fsdp", "pp8_unetr_dp_tp_fsdp"]}
+                  "pp_fsdp_pp", "pp_fsdp_pp_unetr", "pp_tp", "pp_tp_fsdp", "pp_model_axis",
+                  "pp_sp_unetr", "sp_tp_swin", "sp_tp_unetr", "sp_tp_fsdp", "sp_copies",
+                  "tp_data_unetr4"],
+          "pp8": ["pp8_swin_tp_fsdp", "pp8_unetr_dp_tp_fsdp", "pp8_sp_swin"]}
 # the case of each suite whose Trainer calls `init_state` again
 REPEAT_INIT = {"fsdp2": "fsdp", "fsdp4": "hybrid", "tp4": "tp_fsdp"}
 # the cases of each suite whose gradient rule `copies_reduced` drives
@@ -153,20 +182,26 @@ def case_config(name: str, *, one_process: bool = False) -> dict:
     return dict(MODELS[model], **par)
 
 
-def global_batches(cfg: dict, steps: int = STEPS, seed: int = 0) -> list[dict]:
-    """`steps` global batches of `GLOBAL_BATCH` for a model, from a seed."""
+def global_batches(cfg: dict, steps: int = STEPS, seed: int = 0,
+                   size: int = GLOBAL_BATCH) -> list[dict]:
+    """`steps` global batches of `size` for a model, from a seed,
+    modalities alternating from 0."""
     rng = np.random.default_rng(seed)
     roi = (cfg["roi_x"], cfg["roi_y"], cfg["roi_z"])
-    return [{"image": rng.standard_normal((GLOBAL_BATCH, *roi, 1)).astype(np.float32),
-             "label": rng.integers(0, cfg["out_channels"],
-                                   (GLOBAL_BATCH, *roi, 1)).astype(np.int32),
-             "modality": np.array([0, 1], np.int32)} for _ in range(steps)]
+    return [{"image": rng.standard_normal((size, *roi, 1)).astype(np.float32),
+             "label": rng.integers(0, cfg["out_channels"], (size, *roi, 1)).astype(np.int32),
+             "modality": (np.arange(size) % 2).astype(np.int32)} for _ in range(steps)]
+
+
+def case_batches(name: str, steps: int = STEPS) -> list[dict]:
+    """A case's global batches (`BATCH`'s size or `GLOBAL_BATCH`)."""
+    return global_batches(MODELS[CASES[name][0]], steps, size=BATCH.get(name, GLOBAL_BATCH))
 
 
 def batch_for(batch: dict) -> dict:
     """This rank's share of a global batch: its "data" coordinate's."""
     shard, shards = parallel.host_shard_info()
-    n = GLOBAL_BATCH // shards
+    n = len(batch["image"]) // shards
     return {k: v[shard * n:(shard + 1) * n] for k, v in batch.items()}
 
 
@@ -211,14 +246,14 @@ def run_steps(cfg: dict, start: dict, batches: list[dict] | None = None,
             "buffers": {n: b.clone() for n, b in state.buffers.items()},
             "losses": losses, "optimizer_steps": optimizer_steps(state),
             "step": state.step, "step_ops": step_ops,
+            "sp_top": trainer._sp_top, "pipelined": trainer._pp_active(),
             "placements": {n: (pl.kind, pl.dim, pl.axis, pl.size)
                            for n, pl in trainer.placements.items()},
             "state_bytes": trainer.state_bytes(state),
             "whole_bytes": sum(sizes.values()),
             "replicated_bytes": sum(b for n, b in sizes.items() if n not in trainer.placements),
             "placed_elements": sum(int(np.prod(trainer._full_shapes[n])) for n in placed),
-            "elements": sum(int(np.prod(s)) for s in trainer._full_shapes.values()),
-            "moments": moments(trainer, state)}
+            "elements": sum(int(np.prod(s)) for s in trainer._full_shapes.values())}
 
 
 def optimizer_steps(state) -> int:
@@ -428,32 +463,48 @@ def schedule_run(widths: list[int], mesh, m: int, rows: slice = slice(None)) -> 
                                                                    want_grads[s]))}
 
 
-def pp_refusals(world: int) -> dict:
-    """What the Trainer says of each refused pipeline configuration: None
-    when it builds and steps, else the error's type and message (at world
-    2 on a `[1, 2]` mesh: the failing step; at world 4: the mesh)."""
+# the meshes of `pp_refusals` that step (C-UNETR from its start)
+REFUSAL_STEPS = ("tp_on_sp", "pp_on_sp", "sp_pp", "sp_tp", "tp_data")
+
+
+def pp_refusals(world: int, start: dict) -> dict:
+    """What the Trainer says of each configuration JAX refuses, and of the
+    meshes the port once refused: at world 2 on a `[1, 2]` mesh (and the
+    KeyError of a mesh without "data"), at world 4 on the meshes of `[2,
+    2]` and `[1, 2, 2]`.  By name: the error's type and message, or the
+    first step's loss from `start` on the first global batch."""
     unetr = MODELS["unetr"]
     mesh_2x2 = dict(mesh_shape=[2, 2], mesh_axes=["data", "model"])
+    sp_2 = dict(mesh_shape=[1, 2], mesh_axes=["data", "sp"], spatial_shard=True)
     cases = ({"dropout": {**unetr, **pp(1, 2, dropout_rate=0.1)},
               "batch_norm": {**unetr, **pp(1, 2), "encoder_norm_name": "batch"},
               "unet": {**MODELS["unet"], **pp(1, 2)},
               "batch": {**unetr, **pp(1, 2, pp_microbatches=3)},
-              "swin_stages": {**MODELS["swin"], **pp(1, 2)}} if world == 2 else
+              "swin_stages": {**MODELS["swin"], **pp(1, 2)},
+              # an axis claimed twice: tensor parallelism gathers its leaves on
+              # the spatial line; the pipeline takes it, the patch whole
+              "tp_on_sp": {**unetr, **sp_2, "tensor_parallel": True, "tp_axis": "sp"},
+              "pp_on_sp": {**unetr, **sp_2, "pipeline_parallel": True, "pp_axis": "sp"},
+              "no_data": {**unetr, "mesh_shape": [2], "mesh_axes": ["model"],
+                          "tensor_parallel": True},
+              "sp_on_data": {**unetr, "mesh_shape": [2], "spatial_shard": True,
+                             "spatial_axis": "data"}} if world == 2 else
              {"sp_pp": {**unetr, **pp(1, 2, 2), "mesh_axes": ["data", "sp", "pp"],
                         "spatial_shard": True},
               "sp_tp": {**unetr, "mesh_shape": [1, 2, 2], "mesh_axes": ["data", "model", "sp"],
                         "spatial_shard": True, "tensor_parallel": True},
               "tp_data": {**unetr, "mesh_shape": [2, 2], "mesh_axes": ["data", "pp"],
                           "tensor_parallel": True, "tp_axis": "data"},
-              "pp_data": {**unetr, **mesh_2x2, "pipeline_parallel": True, "pp_axis": "data"}})
+              "pp_data": {**unetr, **mesh_2x2, "pipeline_parallel": True, "pp_axis": "data",
+                          "pp_microbatches": 1}})
     out = {}
     for name, cfg in cases.items():
         try:
             trainer = engine.Trainer(Config(**cfg), device="cpu")
-            state = trainer.init_state()
-            trainer.train_step(state, batch_for(global_batches(cfg, 1)[0]))
-            out[name] = None
-        except (NotImplementedError, ValueError) as e:
+            state = trainer.init_state(start["unetr"] if name in REFUSAL_STEPS else None)
+            _, loss = trainer.train_step(state, batch_for(global_batches(cfg, 1)[0]))
+            out[name] = float(loss)
+        except (KeyError, ValueError) as e:
             out[name] = f"{type(e).__name__}: {e}"
     return out
 
@@ -463,7 +514,7 @@ def pp_extras(world: int, start: dict, out_dir: Path) -> dict:
     none)."""
     if world == 8:
         return {}
-    out = {"refusals": pp_refusals(world)}
+    out = {"refusals": pp_refusals(world, start)}
     if world == 2:
         out["forward"] = {"tiny_unetr 2": pp_forward("tiny_unetr", start["tiny_unetr"], 2)}
         out["checkpoints"] = checkpoints(start["unetr"], out_dir, "pp_unetr", "one_unetr.ckpt")
@@ -481,7 +532,8 @@ def pp_extras(world: int, start: dict, out_dir: Path) -> dict:
 
 
 LOG: list = []   # this process's messages and collectives (`logged_p2p`)
-_COLLECTIVES = ("all_reduce", "all_gather", "gather", "broadcast", "barrier")
+_COLLECTIVES = ("all_reduce", "all_gather", "gather", "broadcast", "barrier",
+                "all_gather_into_tensor", "reduce_scatter_tensor")
 
 
 def logged_p2p(log: list) -> None:
@@ -532,7 +584,8 @@ def main(suite: str, rank: int, world: int, rdzv: str, out_dir: str, starts: str
         result = {"p2p": LOG}
         logged_p2p(LOG)
         for name in SUITES[suite]:
-            result[name] = run_steps(case_config(name), start[CASES[name][0]])
+            result[name] = run_steps(case_config(name), start[CASES[name][0]],
+                                     case_batches(name))
         if suite in REPEAT_INIT:
             name = REPEAT_INIT[suite]
             result["repeat_init"] = repeat_init(name, start[CASES[name][0]])

@@ -515,36 +515,41 @@ def losses() -> dict:
 
 
 # the configurations `refusals` builds and steps (the ones SP once refused)
-STEPPED = ("unetr", "unet_vanilla", "2d")
+STEPPED = ("fsdp_with_tp", "tensor_parallel", "pipeline_parallel", "unetr", "unet_vanilla",
+           "2d")
 
 
 def refusals() -> dict:
-    """What the Trainer says of each out-of-scope configuration on the line
-    [world] (None when it builds), and of the field taken without a
-    spatial line of more than one rank; of each of `STEPPED`, which build,
-    the loss and gradients of one step from the port's own init
-    (`refusal_cases` holds them all)."""
+    """What the Trainer says of each configuration SP once refused, on the
+    line [world] (None when it builds and steps, else the error's type and
+    message: the spatial axis without `spatial_shard` builds, and its step
+    raises JAX's `shard_batch` KeyError), and of the field taken without a
+    spatial line of more than one rank; of each of `STEPPED`, the loss and
+    gradients of one step from the port's own init (`refusal_cases` holds
+    them all)."""
     out, stepped = {}, {}
     for name, cfg in refusal_cases(dist.get_world_size()).items():
+        out[name] = None
         try:
             trainer = engine.Trainer(Config(**cfg), device="cpu")
-            out[name] = None
-        except (NotImplementedError, ValueError) as e:
+            if name in STEPPED or name == "axis_without_flag":
+                state = trainer.init_state()
+                batch = batch_for(global_batch(cfg))
+                state, loss = trainer.train_step(state, batch)
+        except (KeyError, NotImplementedError, ValueError) as e:
             out[name] = f"{type(e).__name__}: {e}"
             continue
         if name in STEPPED:
-            state = trainer.init_state()
-            batch = batch_for(global_batch(cfg))
-            state, loss = trainer.train_step(state, batch)
+            grads = fsdp.gather_full({n: p.grad for n, p in state.params.items()},
+                                     trainer.placements)
             stepped[name] = {"loss": float(loss), "sp_top": trainer._sp_top,
-                             "grads": {n: p.grad.detach().clone()
-                                       for n, p in state.params.items()}}
+                             "grads": {n: g.detach().clone() for n, g in grads.items()}}
     return {"said": out, "stepped": stepped}
 
 
 def refusal_cases(world: int, *, one_process: bool = False) -> dict:
     """The configurations of `refusals` on the line [world]; `one_process`:
-    those of `STEPPED` without the line."""
+    those of `STEPPED` without the mesh and its modes."""
     unet = MODELS["unet"]
     sp = dict(spatial_shard=True, mesh_shape=[world], mesh_axes=["sp"])
     cases = {
@@ -562,7 +567,8 @@ def refusal_cases(world: int, *, one_process: bool = False) -> dict:
         "flag_on_data": {**unet, "spatial_shard": True},
     }
     if one_process:
-        return {name: {k: v for k, v in cases[name].items() if k not in sp}
+        modes = {*sp, *FSDP_SP, "tensor_parallel", "pipeline_parallel"}
+        return {name: {k: v for k, v in cases[name].items() if k not in modes}
                 for name in STEPPED}
     return cases
 

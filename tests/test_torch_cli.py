@@ -36,8 +36,9 @@ from miseg_tpu.config import build_parser as jax_build_parser
 from miseg_tpu.models import model_from_config as jax_model_from_config
 from miseg_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
 from miseg_tpu.train.engine import Trainer as JTrainer
+from miseg_tpu_torch import config
 from miseg_tpu_torch.cli import export, parse_args, predict_whs
-from miseg_tpu_torch.config import NOT_PORTED, Config, build_parser, parse_config
+from miseg_tpu_torch.config import Config, build_parser, parse_config
 from miseg_tpu_torch.data.multi_modal import eval_transforms
 from miseg_tpu_torch.data.nifti import load_nifti
 from miseg_tpu_torch.models import model_from_config
@@ -294,8 +295,8 @@ def test_no_gpu_selects_the_cpu(monkeypatch):
 
 
 # a value other than JAX's default for every parallelism field, and for
-# the mesh: a shape whose product is not the world size, an axis the port
-# does not lay out
+# the mesh: a shape whose product is not the world size, an axis no mode
+# claims
 MESH_VALUES = {"mesh_shape": [2], "mesh_axes": ["sp"]}
 PARALLEL_VALUES = {
     "fsdp": True, "fsdp_axis": "fsdp",
@@ -308,40 +309,39 @@ SPATIAL_VALUES = {k: v for k, v in PARALLEL_VALUES.items() if k.startswith("spat
 
 
 def test_not_ported_fields_cover_jax_defaults():
-    """`NOT_PORTED` lists no field of M11 any more: the export options,
-    the mesh, FSDP, tensor, pipeline and spatial parallelism are ported;
-    the spatial fields keep JAX's names and defaults, and the values above
-    differ from them."""
+    """No field is left unported (the config has no list of them any
+    more): the export options, the mesh, FSDP, tensor, pipeline and
+    spatial parallelism all are; every field keeps JAX's name and default,
+    and the values above differ from the spatial fields'."""
     jax_defaults = dataclasses.asdict(JConfig())
-    assert NOT_PORTED == {"M11": {}}
+    assert not hasattr(config, "NOT_PORTED")
     defaults = dataclasses.asdict(Config())
+    assert defaults == jax_defaults
     assert sorted(SPATIAL_VALUES) == ["spatial_axis", "spatial_shard"]
     assert all(defaults[k] == jax_defaults[k] != v for k, v in SPATIAL_VALUES.items())
 
 
 @pytest.mark.parametrize("field", sorted([*PARALLEL_VALUES, *MESH_VALUES]))
 def test_trainer_raises_on_parallelism(field):
-    """An axis the port does not lay out (a spatial one without
-    `spatial_shard`) raises `NotImplementedError` from the Trainer naming
-    ROADMAP M11; a mesh whose product is not the world size raises
-    ValueError (JAX's `make_mesh`).  The ported FSDP and tensor-parallel
-    fields build at one process and, their axes of size 1, place nothing;
-    the pipeline and spatial fields build and, with no pipeline or spatial
-    line of more than one rank, take the data-parallel step (JAX's
-    `_pp_active` and SP rule)."""
+    """No parallelism field raises at one process now: a mesh whose
+    product is not the world size raises ValueError (JAX's `make_mesh`);
+    an axis no mode claims (a spatial one without `spatial_shard`) builds
+    and, one rank, steps as data parallelism does, as JAX's one device
+    does; the FSDP and tensor-parallel fields build and, their axes of
+    size 1, place nothing; the pipeline and spatial fields build and, with
+    no pipeline or spatial line of more than one rank, take the
+    data-parallel step (JAX's `_pp_active` and SP rule)."""
     value = {**PARALLEL_VALUES, **MESH_VALUES}[field]
     cfg = Config(**CFG, **{field: value})
-    if field in NOT_PORTED["M11"] or field == "mesh_axes":
-        with pytest.raises(NotImplementedError, match=rf"Trainer: {field}=.*ROADMAP M11"):
-            Trainer(cfg, device="cpu")
-    elif field == "mesh_shape":
+    if field == "mesh_shape":
         with pytest.raises(ValueError, match=r"mesh shape \[2\] != 1 ranks"):
             Trainer(cfg, device="cpu")
     else:
         trainer = Trainer(cfg, device="cpu")
         state = trainer.init_state()
         assert trainer.placements == {}
-        if field in ("pipeline_parallel", "pp_axis", "pp_microbatches", *SPATIAL_VALUES):
+        if field in ("pipeline_parallel", "pp_axis", "pp_microbatches", "mesh_axes",
+                     *SPATIAL_VALUES):
             assert not trainer._pp_active() and trainer._sp_size() == 1
             _, loss = trainer.train_step(state, _parallel_batch())
             assert torch.equal(loss, _data_parallel_loss())
@@ -364,7 +364,7 @@ def _data_parallel_loss() -> torch.Tensor:
 def test_trainer_takes_jax_parallelism_defaults():
     """JAX's defaults, and a one-device mesh, build the trainer."""
     for mesh in ([-1], [1]):
-        cfg = Config(**{**CFG, **NOT_PORTED["M11"], "mesh_shape": mesh})
+        cfg = Config(**{**CFG, "mesh_shape": mesh})
         assert Trainer(cfg, device="cpu").device == torch.device("cpu")
 
 

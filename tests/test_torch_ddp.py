@@ -39,13 +39,12 @@ package.
   holds the study.
 * Exactly one checkpoint writer in `cli.train`'s fit; the ranks end on
   the same parameters.
-* The mesh and `require_ported` at world 2 (in the worker) and at world
-  1 (here): FSDP and tensor parallelism build, the pipeline mode builds
-  and, with no pipeline line of more than one rank, takes the
-  data-parallel step, spatial partitioning builds beside FSDP on its
-  line, while beside tensor parallelism it and an unported axis raise
-  (ROADMAP M11), and a mesh whose product is not the world size raises
-  ValueError.
+* The mesh at world 2 (in the worker) and at world 1 (here): FSDP and
+  tensor parallelism build, the pipeline mode builds and, with no
+  pipeline line of more than one rank, takes the data-parallel step,
+  spatial partitioning builds beside FSDP on its line and beside tensor
+  parallelism, any axis name is taken, and a mesh whose product is not
+  the world size raises ValueError.
 """
 
 import functools
@@ -307,22 +306,19 @@ def test_one_checkpoint_writer(ranks):
 
 
 def test_mesh_and_unported_modes(ranks):
-    """Since FSDP, tensor, pipeline and spatial parallelism are ported,
-    they build at world 2 (on a 1-D "data" mesh tensor parallelism has no
-    "model" axis, so it places nothing, and the pipeline and spatial modes
-    have no line of more than one rank, so their step is the data-parallel
-    one, as in JAX); spatial partitioning over a line of two ranks builds
-    beside FSDP on that line and raises naming ROADMAP M11 beside tensor
-    parallelism too, and two axes under one mesh size raise.  A mesh whose
-    product is not the world size raises ValueError (JAX's `make_mesh`
-    rule)."""
+    """Every mode builds at world 2 (on a 1-D "data" mesh tensor
+    parallelism has no "model" axis, so it places nothing, and the
+    pipeline and spatial modes have no line of more than one rank, so
+    their step is the data-parallel one, as in JAX); spatial partitioning
+    over a line of two ranks builds beside FSDP on that line and beside
+    tensor parallelism too, and two axes under one mesh size raise.  A
+    mesh whose product is not the world size raises ValueError (JAX's
+    `make_mesh` rule); any axis name is taken, at one process too."""
     for r in range(WORLD):
         said = ranks[r]["mesh"]
         for name in ("mesh_-1", "mesh_2", "fsdp", "tensor_parallel", "pipeline_parallel",
-                     "spatial_shard", "spatial_fsdp"):
+                     "spatial_shard", "spatial_fsdp", "spatial_fsdp_tp"):
             assert said[name] is None, (name, said[name])
-        assert said["spatial_fsdp_tp"].startswith("NotImplementedError")
-        assert "ROADMAP M11" in said["spatial_fsdp_tp"]
         steps = said["pp_off_step"]
         assert steps["pipeline_parallel"] == steps["data"], steps
         assert steps["data"] == ranks[0]["mesh"]["pp_off_step"]["data"]
@@ -335,8 +331,8 @@ def test_mesh_and_unported_modes(ranks):
         assert mesh_from_config(Config(mesh_shape=shape)).shape == (1,)
     with pytest.raises(ValueError, match=r"mesh shape \[2\] != 1 ranks"):
         mesh_from_config(Config(mesh_shape=[2]))
-    with pytest.raises(NotImplementedError, match=r"Trainer: mesh_axes=\['sp'\].*ROADMAP M11"):
-        mesh_from_config(Config(mesh_axes=["sp"]))
+    mesh = mesh_from_config(Config(mesh_axes=["sp"]))
+    assert (mesh.shape, mesh.axes) == ((1,), ("sp",))
 
 
 def test_torchrun_environment_joins_at_world_one(tmp_path):

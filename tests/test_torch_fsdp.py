@@ -26,9 +26,9 @@ global batch and against the JAX package.
   process's checkpoint resumes under FSDP, with equal parameters, AdamW
   moments and step, and its next step held to one process's.
 * The mesh: JAX's `make_mesh` rules and errors, the row-major
-  coordinates, the spatial mode still raising (ROADMAP M11), and the
-  pipeline mode without a pipeline line of more than one rank taking the
-  data-parallel step (JAX's rule).
+  coordinates, any axis name taken, and the pipeline and spatial modes
+  without a line of more than one rank taking the data-parallel step
+  (JAX's rule).
 """
 
 import functools
@@ -131,7 +131,8 @@ def jax_steps(name: str) -> dict:
 @functools.lru_cache(maxsize=None)
 def one_process(name: str) -> dict:
     """The port's one process on each whole global batch."""
-    return W.run_steps(W.case_config(name, one_process=True), start(W.CASES[name][0]))
+    return W.run_steps(W.case_config(name, one_process=True), start(W.CASES[name][0]),
+                       W.case_batches(name))
 
 
 def copies_held(results: list, case: str) -> None:
@@ -466,12 +467,12 @@ def test_mesh_coordinates_are_row_major(ranks):
 
 def test_mesh_rules_and_unported_modes():
     """At one process: JAX's `make_mesh` rules (-1 inferred, a product
-    other than the world a ValueError, a size a name), the axes the port
-    lays out (a spatial axis without `spatial_shard` raising, ROADMAP
-    M11), and the pipeline and spatial modes, their lines of one rank,
-    building and stepping as data parallelism does (JAX's `_pp_active`
-    and SP rule; SP beside FSDP on a line of more than one rank raises:
-    `tests/test_torch_ddp.py`, `tests/test_torch_spatial.py`)."""
+    other than the world a ValueError, a size a name), any axis name (a
+    spatial axis without `spatial_shard`: an axis of copies), and the
+    pipeline and spatial modes, their lines of one rank, building and
+    stepping as data parallelism does (JAX's `_pp_active` and SP rule; on
+    lines of more than one rank: `tests/test_torch_ddp.py`,
+    `tests/test_torch_spatial.py`, `tests/test_torch_pipeline.py`)."""
     assert parallel.make_mesh([-1], ["data"]).shape == (1,)
     assert parallel.make_mesh([1, -1], ["data", "model"]).shape == (1, 1)
     mesh = parallel.make_mesh([1, 1], ["data", "model"])
@@ -482,12 +483,10 @@ def test_mesh_rules_and_unported_modes():
         with pytest.raises(ValueError, match="mesh"):
             parallel.make_mesh(shape, axes)
     base = dict(W.MODELS["unet"])
-    with pytest.raises(NotImplementedError, match="ROADMAP M11"):
-        engine.Trainer(Config(**base, mesh_axes=["sp"]), device="cpu")
     batch = W.global_batches(base, 1)[0]
     plain = engine.Trainer(Config(**base), device="cpu")
     _, want = plain.train_step(plain.init_state(start("unet")), batch)
-    for kw in ({"mesh_axes": ["data", "pp"], "mesh_shape": [1, 1]},
+    for kw in ({"mesh_axes": ["data", "pp"], "mesh_shape": [1, 1]}, {"mesh_axes": ["sp"]},
                {"pipeline_parallel": True}, {"spatial_shard": True},
                {"spatial_shard": True, "mesh_axes": ["sp"], "fsdp": True},
                {"mesh_axes": ["data", "pp"], "mesh_shape": [1, 1], "pipeline_parallel": True}):

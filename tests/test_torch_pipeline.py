@@ -1,10 +1,13 @@
 """Pipeline parallelism in the port (`miseg_tpu_torch.parallel.pipeline`,
 `models/unetr_pp.py`, `models/swin_unetr_pp.py`, the Trainer's GPipe
-step) on the CPU: gloo ranks as subprocesses (`tests/_torch_mesh_worker.py`),
-spawned once for the module, two on the ("data", "pp") mesh `[1, 2]`, four
-on `[1, 4]`, `[2, 2]` and the ("data", "model", "pp") mesh `[1, 2, 2]`, and
-eight on `[1, 2, 4]` and `[2, 2, 2]`, each held to a timeout, against one
-process on the global batch and against the JAX package.
+step) and the meshes it shares with the other modes, on the CPU: gloo
+ranks as subprocesses (`tests/_torch_mesh_worker.py`), spawned once for
+the module, two on the ("data", "pp") mesh `[1, 2]` and a "data" line
+`[2]`, four on `[1, 4]`, `[2, 2]`, the ("data", "model", "pp") mesh `[1,
+2, 2]`, the ("data", "sp", "pp"/"model") meshes `[1, 2, 2]` and a "data"
+line `[4]`, and eight on `[1, 2, 4]` and `[2, 2, 2]`, each held to a
+timeout, against one process on the global batch and against the JAX
+package.
 
 * The schedule (JAX's tests/test_pipeline.py:47-106): an affine stack,
   one layer a stage, where every stage boundary and this stage's
@@ -26,7 +29,12 @@ process on the global batch and against the JAX package.
   merging), beside tensor parallelism alone and beside a "model" axis no
   mode claims (`[1, 2, 2]`), and on `[2, 2, 2]` with TP and FSDP on "pp"
   (the replicated leaves' all-reduce over a sub-mesh of four of the eight
-  ranks): every rank's losses, gradients and
+  ranks); spatial partitioning beside the pipeline (C-UNETR on ("data",
+  "sp", "pp") `[1, 2, 2]`, the swin on `[1, 2, 4]`), beside TP (both
+  models on ("data", "sp", "model") `[1, 2, 2]`, the swin with FSDP on
+  "model" too) and beside a "model" axis of copies; TP over "data" (the
+  swin on `[2]`, C-UNETR on `[4]` at a batch of 4, the swin with FSDP on
+  "data" too): every rank's losses, gradients and
   parameters held to the port's one process on the global batch
   (`test_torch_fsdp.held`: loss 1e-5, each gradient leaf 5e-5, the W5
   bound), every rank's masters bitwise equal, and the first loss within
@@ -37,15 +45,18 @@ process on the global batch and against the JAX package.
   every rank one set of bits for each replicated leaf.  A checkpoint
   written under PP (and under PP with FSDP on "pp") resumes in one
   process, and one process's under either.
-* Every rank's messages and collectives (TP's, FSDP's, the gradient
-  rule's), replayed under NCCL's rule (a rank's operations one after
-  another, each waiting for its peers; gloo's sends never wait), meet
-  their peers: no cycle of waits on `[1, 2]`, `[1, 4]`, `[1, 2, 2]` and
-  `[1, 2, 4]`.
+* Every rank's messages and collectives (TP's, FSDP's, the spatial
+  line's halos, gathers and merges, the gradient rule's), replayed under
+  NCCL's rule (a rank's operations one after another, each waiting for
+  its peers; gloo's sends never wait), meet their peers: no cycle of
+  waits on any suite's meshes, `[1, 2, 2]` and `[1, 2, 4]` with a spatial
+  line among them.
 * Refusals: dropout, batch norm, the UNets, a batch the microbatches do
-  not divide, a swin line of other than 4 stages (ValueError, JAX's), and
-  spatial partitioning beside PP or TP, TP or PP over "data"
-  (NotImplementedError, ROADMAP M11).
+  not divide, a swin line of other than 4 stages (ValueError, JAX's); a
+  pipeline or a patch's D on "data" (JAX's DuplicateSpecError, a
+  ValueError naming it here) and a mesh without "data" or a spatial line
+  (JAX's KeyError), each also held against JAX's Trainer; the meshes the
+  port once refused step as one process.
 """
 
 import functools
@@ -58,8 +69,8 @@ import numpy as np
 import pytest
 import torch
 from test_torch_bridge import seeded_params
-from test_torch_fsdp import (copies_held, held, jax_mesh, jax_model, joined, one_process,
-                             spawn, start)
+from test_torch_fsdp import (ATOL_LOSS, copies_held, held, jax_mesh, jax_model, joined,
+                             one_process, spawn, start)
 
 from miseg_tpu import losses as JL
 from miseg_tpu.config import Config as JConfig
@@ -82,18 +93,28 @@ ATOL_LOGITS = 2e-4
 SUITE_WORLDS = {"pp2": 2, "pp4": 4, "pp8": 8}
 STEP_CASES = ["pp_unetr", "pp_accumulate", "pp_unetr4", "pp_unetr_dp", "pp_swin",
               "pp_swin_recompute", "pp_fsdp_data", "pp_fsdp_pp", "pp_fsdp_pp_unetr", "pp_tp",
-              "pp_tp_fsdp", "pp_model_axis", "pp8_swin_tp_fsdp", "pp8_unetr_dp_tp_fsdp"]
+              "pp_tp_fsdp", "pp_model_axis", "pp8_swin_tp_fsdp", "pp8_unetr_dp_tp_fsdp",
+              "pp_sp_unetr", "pp8_sp_swin", "sp_tp_swin", "sp_tp_unetr", "sp_tp_fsdp",
+              "sp_copies", "tp_data_swin", "tp_data_unetr4", "tp_fsdp_data"]
 # cases whose one process is another's (the mesh and modes dropped, nothing else)
 SAME_ONE_PROCESS = {**{c: "pp_unetr" for c in ("pp_unetr4", "pp_unetr_dp", "pp_fsdp_data",
                                                "pp_fsdp_pp_unetr", "pp_tp", "pp_tp_fsdp",
-                                               "pp_model_axis", "pp8_unetr_dp_tp_fsdp")},
-                    "pp_fsdp_pp": "pp_swin", "pp8_swin_tp_fsdp": "pp_swin"}
-# (kind, axis) of each case's placed leaves
+                                               "pp_model_axis", "pp8_unetr_dp_tp_fsdp",
+                                               "pp_sp_unetr", "sp_tp_unetr", "sp_copies")},
+                    **{c: "pp_swin" for c in ("pp_fsdp_pp", "pp8_swin_tp_fsdp", "pp8_sp_swin",
+                                              "sp_tp_swin", "sp_tp_fsdp", "tp_data_swin",
+                                              "tp_fsdp_data")}}
+# (kind, axis) of each case's placed leaves (tensor parallelism's over
+# "data" gathered a step, as FSDP's)
 PLACED = {"pp_fsdp_data": {("fsdp", "data")}, "pp_fsdp_pp": {("fsdp", "pp")},
           "pp_fsdp_pp_unetr": {("fsdp", "pp")}, "pp_tp": {("tp", "model")},
           "pp_tp_fsdp": {("tp", "model"), ("fsdp", "model")},
           "pp8_swin_tp_fsdp": {("tp", "model"), ("fsdp", "model")},
-          "pp8_unetr_dp_tp_fsdp": {("tp", "model"), ("fsdp", "pp")}}
+          "pp8_unetr_dp_tp_fsdp": {("tp", "model"), ("fsdp", "pp")},
+          "sp_tp_swin": {("tp", "model")}, "sp_tp_unetr": {("tp", "model")},
+          "sp_tp_fsdp": {("tp", "model"), ("fsdp", "model")},
+          "tp_data_swin": {("fsdp", "data")}, "tp_data_unetr4": {("fsdp", "data")},
+          "tp_fsdp_data": {("fsdp", "data")}}
 FSDP_CASES = [c for c, kinds in PLACED.items() if any(k == "fsdp" for k, _ in kinds)]
 _COND = ("instance_cond", {"num_styles": 2, "affine": True})
 _JNORMS = dict(vit_norm=_COND, encoder_norm=_COND, decoder_norm=("instance", {"affine": True}))
@@ -129,13 +150,14 @@ def jax_tiny_logits(name: str, n_stages: int) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def jax_first_loss(model: str) -> float:
-    """JAX's loss of a `W.MODELS` model on the first global batch, from
-    the seeded params the port's cases start from (the data-parallel
-    step's loss, which its PP step must give: JAX's :242-280)."""
+def jax_first_loss(model: str, size: int = W.GLOBAL_BATCH) -> float:
+    """JAX's loss of a `W.MODELS` model on the first global batch of
+    `size`, from the seeded params the port's cases start from (the
+    data-parallel step's loss, which its PP step must give: JAX's
+    :242-280)."""
     cfg = W.MODELS[model]
     jmodel, params = jax_model(model)
-    batch = W.global_batches(cfg)[0]
+    batch = W.global_batches(cfg, size=size)[0]
     loss_fn = JL.loss_from_config(JConfig(**cfg))
 
     @jax.jit
@@ -168,14 +190,17 @@ def ranks(tmp_path_factory):
     try:
         for name, n in (("tiny_unetr", 2), ("tiny_unetr", 4), ("tiny_swin", 4)):
             jax_tiny_logits(name, n)
-        for model in ("unetr", "swin"):
-            jax_first_loss(model)
         for case in STEP_CASES:
+            jax_first_loss(*_model_and_batch(case))
             one(case)
     finally:
         out = joined(procs, tmp)
     out["tmp"] = tmp
     return out
+
+
+def _model_and_batch(case: str) -> tuple[str, int]:
+    return W.CASES[case][0], W.BATCH.get(case, W.GLOBAL_BATCH)
 
 
 def _suite(case: str) -> str:
@@ -243,6 +268,26 @@ def test_p2p_order_has_no_cycle(ranks, suite):
     assert unmatched(logs) == []
 
 
+@pytest.mark.parametrize("case", ["pp_sp_unetr", "pp8_sp_swin"])
+def test_spatial_collectives_meet_beside_the_pipeline(ranks, case):
+    """Spatial partitioning beside the pipeline: each stage's spatial line
+    runs its gathers, halos and merges (all-gathers, and the merges' and
+    the losses' all-reduces, over the ranks that share every coordinate
+    but "sp") among its P2P messages, and replayed under NCCL's rule the
+    case's two steps leave no rank waiting."""
+    par = W.CASES[case][1]
+    shape, axes = par["mesh_shape"], par["mesh_axes"]
+    lines = {tuple(line) for line in _sub_meshes(tuple(shape), (axes.index("sp"),))}
+    logs = [[op for step in res[case]["step_ops"] for op in step] for res in ranks[_suite(case)]]
+    kinds = set()
+    for r, log in enumerate(logs):
+        on_line = {op[0] for op in log if len(op) == 3 and op[1] in lines and r in op[1]}
+        assert "all_gather" in on_line and any(len(op) == 2 for op in log), (case, r)
+        kinds |= on_line
+    assert "all_reduce" in kinds
+    assert unmatched(logs) == []
+
+
 def test_sub_meshes_are_row_major():
     """The ranks of each sub-mesh `make_mesh` makes a group of (a line, or
     the axes of a leaf's summed and averaged gradient) are those that
@@ -299,10 +344,14 @@ def test_pp_steps_like_one_process(ranks, case):
     bitwise equal."""
     results = ranks[_suite(case)]
     want = one(case)
+    par = W.CASES[case][1]
     for r, res in enumerate(results):
         got = res[case]
         assert {(k, a) for k, _, a, _ in got["placements"].values()} == PLACED.get(case, set())
         assert (got["state_bytes"] < got["whole_bytes"]) == (case in PLACED)
+        # the modes run: the patch partitioned (32 planes of D and H), the pipeline on
+        assert got["sp_top"] == ((32, 32) if par.get("spatial_shard") else None)
+        assert got["pipelined"] == par.get("pipeline_parallel", False)
         held(got, want, f"{case} rank {r}")
     for key in ("params", "params_step1", "grads"):
         for n, v in results[0][case][key].items():
@@ -316,7 +365,7 @@ def test_pp_steps_like_one_process(ranks, case):
 def test_pp_first_loss_like_jax(ranks, case):
     """The first step's loss within 1e-4 relative of JAX's on the global
     batch (the data-parallel step's)."""
-    want = jax_first_loss(W.CASES[case][0])
+    want = jax_first_loss(*_model_and_batch(case))
     for res in ranks[_suite(case)]:
         assert math.isclose(res[case]["losses"][0], want, rel_tol=1e-4), (
             res[case]["losses"][0], want)
@@ -435,19 +484,62 @@ def test_one_process_checkpoint_resumes_under_pp_fsdp(ranks):
     ("unet", "ValueError", "UNETR and SwinUNETR"),
     ("batch", "ValueError", "batch 2 not divisible by 3 microbatches"),
     ("swin_stages", "ValueError", "needs mesh\\['pp'\\] == 4 stages, got 2"),
-    ("sp_pp", "NotImplementedError", "spatial_shard over 'sp' with .*pipeline_parallel"
-     ".*ROADMAP M11"),
-    ("sp_tp", "NotImplementedError", "spatial_shard over 'sp' with .*tensor_parallel"
-     ".*ROADMAP M11"),
-    ("tp_data", "NotImplementedError", "tp_axis='data'.*ROADMAP M11"),
-    ("pp_data", "NotImplementedError", "pp_axis='data'.*ROADMAP M11"),
+    ("sp_pp", None, None),
+    ("sp_tp", None, None),
+    ("tp_data", None, None),
+    ("pp_data", "ValueError", "PartitionSpec\\('data', 'data', None, None\\) has duplicate "
+     "entries for `data`"),
+    ("tp_on_sp", None, None),
+    ("pp_on_sp", None, None),
+    ("no_data", "KeyError", "'data'"),
+    ("sp_on_data", "ValueError", "PartitionSpec\\('data', 'data'\\) has duplicate entries"),
 ])
 def test_pp_refusals(ranks, name, error, match):
-    """JAX's refusals with JAX's exception classes, on every rank; spatial
-    partitioning beside PP or TP, and TP or PP over "data" (whose ranks
-    hold different batches), are not ported."""
-    suite = "pp2" if name in ("dropout", "batch_norm", "unet", "batch", "swin_stages") else "pp4"
+    """JAX's refusals with JAX's exception classes, on every rank (a
+    pipeline or a patch's D on "data" beside its batch: JAX's
+    DuplicateSpecError, here a ValueError naming its cause; a mesh of more
+    than one rank without "data" or a spatial line: `shard_batch`'s
+    KeyError); and the meshes the port once refused (spatial partitioning
+    beside PP or TP, TP over "data" beside a "pp" axis of copies, TP or
+    the pipeline on the spatial axis), whose first step is one process's
+    (loss within 1e-5)."""
+    suite = "pp2" if name in ("dropout", "batch_norm", "unet", "batch", "swin_stages",
+                              "tp_on_sp", "pp_on_sp", "no_data", "sp_on_data") else "pp4"
     for r, res in enumerate(ranks[suite]):
         said = res["refusals"][name]
-        assert said is not None and said.startswith(error + ":"), (name, r, said)
+        if error is None:
+            assert name in W.REFUSAL_STEPS
+            assert abs(said - one("pp_unetr")["losses"][0]) <= ATOL_LOSS, (name, r, said)
+            continue
+        assert isinstance(said, str) and said.startswith(error + ":"), (name, r, said)
         assert re.search(match, said), (name, r, said)
+
+
+@pytest.mark.parametrize("name,error,match", [
+    ("pp_data", "DuplicateSpecError", "PartitionSpec\\('data', 'data', None, None\\)"),
+    ("no_data", "KeyError", "'data'"),
+    ("sp_on_data", "DuplicateSpecError", "PartitionSpec\\('data', 'data'\\)"),
+])
+def test_jax_refuses_as_the_port(tmp_path, name, error, match):
+    """JAX's Trainer on XLA host devices refuses the same meshes at its
+    first step, with the errors `test_pp_refusals` names."""
+    from jax.sharding import Mesh as JMesh
+
+    from miseg_tpu.train.engine import Trainer as JTrainer
+    from miseg_tpu.utils.logging import MetricLogger as JMetricLogger
+
+    cfg = {**W.MODELS["unetr"], **{
+        "pp_data": dict(mesh_shape=[2, 2], mesh_axes=["data", "model"], pipeline_parallel=True,
+                        pp_axis="data", pp_microbatches=1),
+        "no_data": dict(mesh_shape=[2], mesh_axes=["model"], tensor_parallel=True),
+        "sp_on_data": dict(mesh_shape=[2], spatial_shard=True, spatial_axis="data")}[name]}
+    n = math.prod(cfg["mesh_shape"])
+    mesh = JMesh(np.array(jax.devices()[:n]).reshape(cfg["mesh_shape"]),
+                 tuple(cfg.get("mesh_axes", ["data"])))
+    trainer = JTrainer(JConfig(**cfg), mesh=mesh, workdir=str(tmp_path),
+                       logger=JMetricLogger(None))
+    batch = W.global_batches(cfg, 1)[0]
+    state = trainer.init_state(batch["image"][:1], batch["modality"][:1])
+    with pytest.raises(Exception) as raised:
+        trainer.train_step(state, batch)
+    assert type(raised.value).__name__ == error and re.search(match, str(raised.value))

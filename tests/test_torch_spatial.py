@@ -59,11 +59,12 @@ whole volume, one process and the JAX package.
   the port's one process at the swin's, the masters bitwise equal; a
   C-UNETR with ViT dropout held to the port's one process; the tiny 2-D
   swin's forward against JAX's.
-* The refusals: SP beside FSDP with tensor parallelism, beside tensor or
-  pipeline parallelism raise `NotImplementedError` naming ROADMAP M11;
-  the spatial axis without `spatial_shard` raises; the field alone is
-  taken; C-UNETR, UNetVanilla and 2-D, once refused, build and step as
-  one process does.
+* The configurations SP once refused: beside tensor parallelism (with
+  FSDP on the line too) and the pipeline flag, C-UNETR, UNetVanilla and
+  2-D build and step as one process does; the spatial axis without
+  `spatial_shard` builds and its step raises JAX's `shard_batch`
+  KeyError; the field alone is taken.  No transposed conv of any model
+  leaves its slab short (`conv_transpose`'s halo covers each).
 """
 
 import functools
@@ -92,6 +93,7 @@ from miseg_tpu.train.optim import optimizer_from_config as j_optimizer_from_conf
 from miseg_tpu_torch import parallel
 from miseg_tpu_torch.config import Config
 from miseg_tpu_torch.inferers import SlidingWindowInferer, window_starts
+from miseg_tpu_torch.models.factory import _build
 from miseg_tpu_torch.ops.kernels import fused_conv, fused_norm
 from miseg_tpu_torch.parallel import spatial
 from miseg_tpu_torch.train import engine
@@ -755,15 +757,37 @@ def test_evaluate_like_one_process(ranks, suite):
 
 # ---------------------------------------------------------------- refusals
 
+@pytest.mark.parametrize("model", ["unet", "unetr", "swin", "unet_2d", "unetr_2d", "swin_2d"])
+def test_no_transposed_conv_leaves_a_slab_short(model):
+    """Every transposed conv of a model (C-UNet's k3 s2 p1 up-convs,
+    UNETR's and the swin's k2 s2 up-blocks) computes a whole output slab
+    from the halo `conv_transpose` reads (`spatial.conv_dims`), at every
+    slab size a sharded level has, so its short-slab ValueError is never
+    reached (UNetVanilla upsamples without one)."""
+    net = _build(Config(**W.MODELS[model]), torch.device("meta"), torch.float32, True)
+    convs = [m for m in net.modules() if getattr(m, "is_transposed", False)]
+    assert convs
+    for m in convs:
+        k, s, p = m.kernel_size[0], m.strides[0], m.padding[0]
+        lo, hi = spatial.conv_dims(k, s, p, transposed=True)
+        for d in (2, 4, 8, 24):
+            y = torch.nn.functional.conv_transpose1d(torch.zeros(1, 1, lo + d + hi),
+                                                     torch.zeros(1, 1, k), stride=s, padding=p)
+            assert y.shape[-1] >= s * (lo + d), (model, k, s, p, d)
+
+
 @pytest.mark.parametrize("name", ["fsdp_with_tp", "tensor_parallel", "pipeline_parallel",
                                   "unetr", "unet_vanilla", "2d", "axis_without_flag",
                                   "flag_on_data"])
 def test_out_of_scope_raises(ranks, name):
-    """SP beside tensor or pipeline parallelism raises naming ROADMAP M11,
-    and so does the spatial axis without `spatial_shard`; C-UNETR,
-    UNetVanilla and 2-D, which SP once refused, build on the line and step
-    as one process does (loss within 1e-5, every gradient leaf within
-    5e-5, from the port's own init)."""
+    """No configuration SP once refused raises now: SP beside tensor
+    parallelism (with FSDP on the line too) and beside the pipeline flag
+    (no pipeline line), C-UNETR, UNetVanilla and 2-D build on the line and
+    step as one process does (loss within 1e-5, every gradient leaf within
+    5e-5, from the port's own init); the spatial axis without
+    `spatial_shard` builds, and its step raises JAX's `shard_batch`
+    KeyError (no "data" axis, no spatial line); the field alone is
+    taken."""
     for res in ranks["sp2"]:
         said = res["refusals"]["said"][name]
         if name in W.STEPPED:
@@ -779,5 +803,4 @@ def test_out_of_scope_raises(ranks, name):
         if name == "flag_on_data":   # no spatial line of more than one rank: the field is taken
             assert said is None
             continue
-        assert said is not None and said.startswith("NotImplementedError"), said
-        assert "ROADMAP M11" in said, said
+        assert said == "KeyError: 'data'", said
